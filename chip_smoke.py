@@ -1,22 +1,34 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the CUDA kernels,
-holds each against its plain PyTorch version, then drives 2D->3D conformer
-generation at full width through the sampler CLI and checks what comes out.
+holds each against its plain PyTorch version, then drives both ported
+paths at full width -- 2D->3D conformer generation through the sampler CLI,
+and pretraining steps through the pretraining CLI's functions -- and checks
+what comes out.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
   1. the card's name and power limit; build every kernel (one nvcc per source);
-  2. kernel phases: K1 (GIN message block) and K3 (pair block), each in f32
-     and bf16 mode, on the operands the main path gives them, against the
-     plain version; CUDA-event medians of kernel and plain times and the
-     card's bound for the same work;
-  3. path phase: the sampler CLI at full width (GIN 5 x 300, SDEModel2Dto3D
-     variant 1, VE, hidden 32, bf16 score) on 8 synthetic molecules x 8
-     repeats (B=64, n_max 32), 20 PC steps with 1 corrector step each (the
-     CLI's default is 100 corrector steps: depth cut for the smoke run),
-     random weights from the seed.  Launch counts are read around that run;
-     then the conditioning is compared with an all-plain build of the same
-     weights, and the chain is timed.
+  2. kernel phases on the operands each path gives each kernel, in f32 and
+     bf16 mode: K1 (GIN message block) and K3 (pair block) forward on the
+     sampler's operands; K1, K2 (CFConv) and K3 forward and backward on the
+     pretraining step's (the backward's cotangent is a seeded normal draw of
+     the output's shape).  Each is held against its plain version (output
+     and every gradient); CUDA-event medians of kernel and plain times and
+     the card's bound for the same work;
+  3. sampler path: the sampler CLI at full width (GIN 5 x 300,
+     SDEModel2Dto3D variant 1, VE, hidden 32, bf16 score) on 8 synthetic
+     molecules x 8 repeats (B=64, n_max 32), 20 PC steps with 1 corrector
+     step each (the CLI's default is 100 corrector steps: depth cut for the
+     smoke run), random weights from the seed.  Launch counts are read
+     around that run; then the conditioning is compared with an all-plain
+     build of the same weights, and the chain is timed;
+  4. training path: the pretraining CLI's models at full width (defaults:
+     GIN 5 x 300, SchNet 6 x 128, both SDE models, InfoNCE, bf16) on B=128
+     synthetic molecules, n_max 32; one warm-up step, then five timed steps
+     with the launch counts read around them (5 / 5 / 6 / 6 / 1 / 1 per
+     step); every metric finite; then one step's loss terms, gradient
+     norms per component and the kernels' own gradient leaves, one by one,
+     against an all-plain build of the same weights and draws.
 The line before the last lists every kernel as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -24,12 +36,21 @@ The line before the last lists every kernel as JSON; the last line is
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
 
 import torch
+
+from moleculesde_tpu_torch.ops.cfconv import (
+    fused_cfconv, fused_cfconv_bwd, fused_cfconv_bwd_plain)
+from moleculesde_tpu_torch.ops.gin_messages import (
+    gin_messages, gin_messages_bwd, gin_messages_bwd_plain, gin_messages_plain)
+from moleculesde_tpu_torch.ops.pair_block import (
+    pair_relu_project, pair_relu_project_bwd, pair_relu_project_bwd_plain,
+    pair_relu_project_plain)
 
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12         # H100 SXM, CUDA cores
@@ -67,88 +88,135 @@ def bound(nbytes: float, ops: float, peak_ops: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_phase(name, wrapper, plain, args, bf16, tol_rel, nbytes, ops, peak_ops):
-    """Run a kernel wrapper and its plain version on the same operands; raise
-    if they disagree beyond ``tol_rel`` of the largest plain value.  The
-    wrapper's launch count is left as it was."""
-    saved = wrapper.launches
-    run_k = lambda: wrapper(*args, bf16=bf16, impl="kernel")  # noqa: E731
-    run_p = lambda: plain(*args, bf16=bf16)  # noqa: E731
-    out_k, out_p = run_k(), run_p()
+def k1_cost(x, src, dst, table, bwd: bool = False):
+    """(bytes, operations) K1 must move and do on these operands: the
+    embedding, add, relu and sum over the valid edges forward; the
+    embedding, relu mask, dx and dtable backward."""
+    b, n, f = x.shape
+    e, d = src.shape[1], table.shape[0]
+    valid_edges = int(((dst >= 0) & (dst < n)).sum())
+    if bwd:
+        return (4 * (3 * b * n * f + 2 * b * e + b * e * d + 2 * d * f),
+                valid_edges * f * (4 * d + 3))
+    return (4 * (2 * b * n * f + 2 * b * e + b * e * d + d * f),
+            valid_edges * f * (2 * d + 3))
+
+
+def k2_cost(ea, env, x, w1, bwd: bool = False):
+    """(bytes, operations) of K2: ea at its own width (bf16 on the
+    pretraining path), the filter net only for the pairs inside the cutoff
+    (env != 0), the only ones whose filter the output needs."""
+    gdim, f = w1.shape
+    pairs = int((env != 0).sum())
+    weights = gdim * f + f * f + 2 * f
+    ea_bytes = ea.numel() * ea.element_size()
+    if bwd:
+        return (ea_bytes + 4 * (env.numel() + 3 * x.numel() + 2 * weights),
+                pairs * (4 * gdim * f + 6 * f * f + 10 * f))
+    return (ea_bytes + 4 * (env.numel() + 2 * x.numel() + weights),
+            pairs * (2 * gdim * f + 2 * f * f + 4 * f))
+
+
+def k3_cost(a, w, bwd: bool = False):
+    """(bytes, operations) of K3: add, relu, product and bias forward; the
+    two products, the relu mask and the sums backward."""
+    b, n, cdim = a.shape
+    h = w.shape[1]
+    if bwd:
+        return (4 * (4 * b * n * cdim + 2 * cdim * h + h + b * n * n * h),
+                b * n * n * (4 * cdim * h + 3 * cdim + h))
+    return (4 * (2 * b * n * cdim + cdim * h + h + b * n * n * h),
+            b * n * n * (2 * cdim + 2 * cdim * h + h))
+
+
+def _tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def _counters():
+    return (gin_messages, gin_messages_bwd, fused_cfconv, fused_cfconv_bwd,
+            pair_relu_project, pair_relu_project_bwd)
+
+
+def _timed(run):
+    """CUDA-event median of ``run``; launch counts are left as they were."""
+    saved = [c.launches for c in _counters()]
+    ms = median_ms(run)
+    for c, n in zip(_counters(), saved):
+        c.launches = n
+    return ms
+
+
+def compare(name, run_k, run_p, tol_rel):
+    """Outputs of a kernel run and of its plain version on the same
+    operands; raise if any output disagrees beyond ``tol_rel`` of its
+    largest plain value.  Returns the largest absolute error."""
+    saved = [c.launches for c in _counters()]
+    outs_k, outs_p = _tuple(run_k()), _tuple(run_p())
     torch.cuda.synchronize()
-    err = (out_k - out_p).abs().max().item()
-    scale = max(1.0, out_p.abs().max().item())
-    check(bool(torch.isfinite(out_k).all()), f"{name}: non-finite output")
-    kernel_ms = median_ms(run_k)
-    plain_ms = median_ms(run_p)
-    wrapper.launches = saved
+    for c, n in zip(_counters(), saved):
+        c.launches = n
+    worst = 0.0
+    for i, (k, p) in enumerate(zip(outs_k, outs_p)):
+        check(bool(torch.isfinite(k).all()), f"{name}: non-finite output {i}")
+        err = (k - p).abs().max().item()
+        scale = max(1.0, p.abs().max().item())
+        check(err <= tol_rel * scale, f"{name}: output {i} disagrees with the plain "
+              f"version ({err:.3e} > {tol_rel:g} x {scale:.3g})")
+        worst = max(worst, err)
+    return worst
+
+
+def report(name, err, tol_rel, kernel_ms, plain_ms, nbytes, ops, peak_ops):
     bound_ms, bound_by = bound(nbytes, ops, peak_ops)
-    print(f"{name}: max_abs_err={err:.3e} max_rel_err={err / scale:.3e} "
-          f"(tolerance {tol_rel:g} x {scale:.3g}) "
+    print(f"{name}: max_abs_err={err:.3e} (tolerance {tol_rel:g} x max(1, |plain|)) "
           f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
           f"bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
-    check(err <= tol_rel * scale, f"{name}: kernel disagrees with its plain version")
     return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-@torch.no_grad()  # the ported kernels are forward-only
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device available", file=sys.stderr)
-        return 2
-    from moleculesde_tpu_torch.benchmarks.profile_sampler import (
-        CORRECTOR_STEPS, N_STEPS, PATH_ARGS)
-    from moleculesde_tpu_torch.examples import sample_2d_to_3d as cli
-    from moleculesde_tpu_torch.kernels import build
-    from moleculesde_tpu_torch.ops.gin_messages import gin_messages, gin_messages_plain
-    from moleculesde_tpu_torch.ops.pair_block import (
-        pair_relu_project, pair_relu_project_plain)
+def kernel_phase(name, wrapper, plain, args, bf16, tol_rel, nbytes, ops, peak_ops):
+    """A forward-only kernel wrapper against its plain version."""
+    run_k = lambda: wrapper(*args, bf16=bf16, impl="kernel")  # noqa: E731
+    run_p = lambda: plain(*args, bf16=bf16)  # noqa: E731
+    err = compare(name, run_k, run_p, tol_rel)
+    return report(name, err, tol_rel, _timed(run_k), _timed(run_p), nbytes, ops, peak_ops)
 
-    torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in full f32
-    torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else
-          f"nvidia-smi failed: {smi.stderr.strip()}", flush=True)
-    dev = torch.device("cuda")
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
-          f"{torch.cuda.get_device_name(0)}", flush=True)
 
-    # 1. build every kernel, one nvcc per source, in parallel
-    t0 = time.perf_counter()
-    for name, report in build.build().items():
-        regs = [ln.strip() for ln in report.splitlines() if "registers" in ln]
-        print(f"built {name}: {'; '.join(regs)}", flush=True)
-    print(f"kernel build {time.perf_counter() - t0:.1f} s", flush=True)
+def grad_phase(name, fwd, bwd, bwd_plain, diff, g, bf16, tol_rel, fwd_cost,
+               bwd_cost, peak_ops):
+    """A kernel pair under autograd against the plain pair: the output and
+    the gradient of every differentiable operand (``diff``), then the
+    forward and backward wrappers timed on their own.  ``fwd(*diff)``,
+    ``bwd(*diff, g)`` and ``bwd_plain(*diff, g)`` close over the other
+    operands.  Returns (forward result, backward result)."""
 
-    # the main path's models, batch and operands
-    args = cli.get_parser().parse_args(PATH_ARGS)
-    graphs = cli.load_graphs(args)
-    n_max = args.n_max
-    batch = cli.make_batch(graphs, args, dev)
-    model_2d, sde_model = cli.build_models(args, dev)
+    def through_autograd(impl):
+        leaves = [t.detach().clone().requires_grad_(True) for t in diff]
+        out = fwd(*leaves, bf16=bf16, impl=impl)
+        return (out.detach(),) + torch.autograd.grad(out, leaves, g)
 
-    # 2. kernel phases on the operands the main path hands each kernel
-    x0 = model_2d.AtomEncoder_0(batch.atom_feats)
-    k1_args = model_2d.GINConv_0.message_inputs(x0, batch)
-    node_2d = model_2d(batch, use_running_average=True)
-    pair_mask, _ = sde_model._pair_mask_attr(batch)
-    k3_args = sde_model.pair_block_inputs(node_2d, batch, pair_mask)
+    err = compare(name, lambda: through_autograd("kernel"),
+                  lambda: through_autograd("plain"), tol_rel)
+    with torch.no_grad():
+        f_k = _timed(lambda: fwd(*diff, bf16=bf16, impl="kernel"))
+        f_p = _timed(lambda: fwd(*diff, bf16=bf16, impl="plain"))
+        b_k = _timed(lambda: bwd(*diff, g, bf16=bf16, impl="kernel"))
+        b_p = _timed(lambda: bwd_plain(*diff, g, bf16=bf16))
+    return (report(name + " fwd", err, tol_rel, f_k, f_p, *fwd_cost, peak_ops),
+            report(name + " bwd", err, tol_rel, b_k, b_p, *bwd_cost, peak_ops))
+
+
+def sampler_kernel_phases(k1_args, k3_args):
     x, src, dst, boh, table = k1_args
-    b, n, f = x.shape
-    e, d = src.shape[1], table.shape[0]
-    valid_edges = int(((dst >= 0) & (dst < n)).sum())
-    k1_bytes = 4 * (2 * b * n * f + 2 * b * e + b * e * d + d * f)
-    k1_ops = valid_edges * f * (2 * d + 3)   # embedding, add, relu, sum
+    valid_edges = int(((dst >= 0) & (dst < x.shape[1])).sum())
+    k1 = k1_cost(x, src, dst, table)
     a, c, w, bias = k3_args
-    cdim, h = w.shape
-    k3_bytes = 4 * (2 * b * n * cdim + cdim * h + h + b * n * n * h)
-    k3_ops = b * n * n * (2 * cdim + 2 * cdim * h + h)  # add+relu, product, bias
-    print(f"K1 operands: x {tuple(x.shape)}, edges {tuple(src.shape)} "
+    k3 = k3_cost(a, w)
+    print(f"sampler K1 operands: x {tuple(x.shape)}, edges {tuple(src.shape)} "
           f"({valid_edges} valid), table {tuple(table.shape)}", flush=True)
-    print(f"K3 operands: a, c {tuple(a.shape)}, W {tuple(w.shape)}", flush=True)
+    print(f"sampler K3 operands: a, c {tuple(a.shape)}, W {tuple(w.shape)}", flush=True)
     results = {}
     for bf16 in (False, True):
         sfx = "[bf16]" if bf16 else ""
@@ -156,25 +224,123 @@ def main() -> int:
         # f32: the same sums in another order; bf16: the same roundings, plus
         # at most one bf16 ulp where an f32 sum sits on a rounding boundary
         results["gin_messages" + sfx] = kernel_phase(
-            "K1 gin_messages" + sfx, gin_messages, gin_messages_plain, k1_args,
-            bf16, 1e-2 if bf16 else 1e-5, k1_bytes, k1_ops, peak)
+            "sampler K1 gin_messages" + sfx, gin_messages, gin_messages_plain, k1_args,
+            bf16, 1e-2 if bf16 else 1e-5, *k1, peak)
         results["pair_relu_project" + sfx] = kernel_phase(
-            "K3 pair_relu_project" + sfx, pair_relu_project, pair_relu_project_plain,
-            k3_args, bf16, 1e-3 if bf16 else 1e-5, k3_bytes, k3_ops, peak)
+            "sampler K3 pair_relu_project" + sfx, pair_relu_project,
+            pair_relu_project_plain, k3_args, bf16, 1e-3 if bf16 else 1e-5,
+            *k3, peak)
+    return results
 
-    # 3. path phase: the CLI at full width, launch counts read around it
-    gin_messages.launches = 0
-    pair_relu_project.launches = 0
+
+def training_operands(models, batch):
+    """The operands the pretraining step hands K1 (GIN layer 0), K2 (SchNet
+    interaction 0; ea in bf16, as the bf16 step hands it over) and K3 (the
+    2D->3D edge embedding), from the models' current weights and the batch."""
+    m2d, m3d, m23 = models["model_2D"], models["model_3D"], models["SDE_2Dto3D_model"]
+    b, n = batch.num_graphs, batch.n_max
+    x0 = m2d.AtomEncoder_0(batch.atom_feats)
+    k1 = m2d.GINConv_0.message_inputs(x0, batch)
+    ea, cos_env, pair_mask = m3d.geometry(batch.positions, batch.node_mask, b, n)
+    ea = ea.contiguous()
+    env = (cos_env * pair_mask.to(cos_env.dtype)).contiguous()
+    inter = m3d.SchNetInteraction_0
+    h0 = m3d.Embed_0.embedding[batch.atomic_numbers.long()].reshape(b, n, -1)
+    k2 = (ea, env, inter.Dense_2(h0).float().contiguous(), inter.Dense_0.kernel,
+          inter.Dense_0.bias, inter.Dense_1.kernel, inter.Dense_1.bias)
+    node_2d = m2d(batch, use_running_average=True)
+    mask23, _ = m23._pair_mask_attr(batch)
+    k3 = m23.pair_block_inputs(node_2d, batch, mask23, use_running_average=True)
+    return tuple(t.detach() for t in k1), tuple(t.detach() for t in k2), \
+        tuple(t.detach() for t in k3)
+
+
+def training_kernel_phases(k1, k2, k3):
+    gen = torch.Generator(device=k1[0].device).manual_seed(7)
+    x, src, dst, boh, table = k1
+    b, n, _ = x.shape
+    valid_edges = int(((dst >= 0) & (dst < n)).sum())
+    g1 = torch.randn(x.shape, generator=gen, device=x.device)
+    ea_bf16, env, x2, w1, b1, w2, b2 = k2
+    g2 = torch.randn(x2.shape, generator=gen, device=x2.device)
+    a, c, w, bias = k3
+    g3 = torch.randn((b, n, n, w.shape[1]), generator=gen, device=a.device)
+    print(f"training K1 operands: x {tuple(x.shape)}, edges {tuple(src.shape)} "
+          f"({valid_edges} valid); K2: ea {tuple(ea_bf16.shape)} {ea_bf16.dtype}, "
+          f"x {tuple(x2.shape)} ({int((env != 0).sum())} pairs in the cutoff); "
+          f"K3: a, c {tuple(a.shape)}, W {tuple(w.shape)}", flush=True)
+    results = {}
+    for bf16 in (True, False):   # bf16 is the path's mode
+        sfx = "" if bf16 else "[f32]"
+        peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
+        ea = ea_bf16 if bf16 else ea_bf16.float()
+        # tolerances: f32 the same sums in another order (batch-wide weight
+        # sums of up to 1.3e5 terms); bf16 as the card-only kernel tests
+        results["gin_messages" + sfx], results["gin_messages_bwd" + sfx] = grad_phase(
+            "training K1 gin_messages" + sfx,
+            lambda x_, t_, **kw: gin_messages(x_, src, dst, boh, t_, **kw),
+            lambda x_, t_, g_, **kw: gin_messages_bwd(x_, src, dst, boh, t_, g_, **kw),
+            lambda x_, t_, g_, **kw: gin_messages_bwd_plain(x_, src, dst, boh, t_, g_, **kw),
+            (x, table), g1, bf16, 1e-2 if bf16 else 1e-4,
+            k1_cost(x, src, dst, table), k1_cost(x, src, dst, table, bwd=True), peak)
+        results["fused_cfconv" + sfx], results["fused_cfconv_bwd" + sfx] = grad_phase(
+            "training K2 fused_cfconv" + sfx,
+            lambda *t, **kw: fused_cfconv(ea, env, *t, **kw),
+            lambda *t, **kw: fused_cfconv_bwd(ea, env, *t, **kw),
+            lambda *t, **kw: fused_cfconv_bwd_plain(ea, env, *t, **kw),
+            (x2, w1, b1, w2, b2), g2, bf16, 2e-2 if bf16 else 1e-4,
+            k2_cost(ea, env, x2, w1), k2_cost(ea, env, x2, w1, bwd=True), peak)
+        results["pair_relu_project" + sfx], results["pair_relu_project_bwd" + sfx] = \
+            grad_phase("training K3 pair_relu_project" + sfx, pair_relu_project,
+                       lambda a_, c_, w_, b_, g_, **kw: pair_relu_project_bwd(
+                           a_, c_, w_, g_, **kw),
+                       lambda a_, c_, w_, b_, g_, **kw: pair_relu_project_bwd_plain(
+                           a_, c_, w_, g_, **kw),
+                       (a, c, w, bias), g3, bf16, 1e-3 if bf16 else 1e-4,
+                       k3_cost(a, w), k3_cost(a, w, bwd=True), peak)
+    return results
+
+
+def reset_counts():
+    for c in _counters():
+        c.launches = 0
+
+
+def read_counts():
+    return {c.__name__: c.launches for c in _counters()}
+
+
+def sampler_path(dev):
+    """Phase 3: returns the launch counts of the counted CLI run."""
+    from moleculesde_tpu_torch.benchmarks.profile_sampler import (
+        CORRECTOR_STEPS, N_STEPS, PATH_ARGS)
+    from moleculesde_tpu_torch.examples import sample_2d_to_3d as cli
+
+    args = cli.get_parser().parse_args(PATH_ARGS)
+    graphs = cli.load_graphs(args)
+    n_max = args.n_max
+    batch = cli.make_batch(graphs, args, dev)
+    model_2d, sde_model = cli.build_models(args, dev)
+    with torch.no_grad():
+        x0 = model_2d.AtomEncoder_0(batch.atom_feats)
+        k1_args = model_2d.GINConv_0.message_inputs(x0, batch)
+        node_2d = model_2d(batch, use_running_average=True)
+        pair_mask, _ = sde_model._pair_mask_attr(batch)
+        k3_args = sde_model.pair_block_inputs(node_2d, batch, pair_mask)
+        results = sampler_kernel_phases(k1_args, k3_args)
+
+    reset_counts()
     t0 = time.perf_counter()
     cli_results = cli.main(PATH_ARGS)
     torch.cuda.synchronize()
     first_run_s = time.perf_counter() - t0
-    launches = {"gin_messages": gin_messages.launches,
-                "pair_relu_project": pair_relu_project.launches}
-    print(f"path launches: {launches} (expected 5 and 1 per chain); first run "
+    launches = read_counts()
+    print(f"sampler path launches: {launches} (expected 5 and 1 per chain); first run "
           f"{first_run_s:.2f} s", flush=True)
-    check(launches == {"gin_messages": args.num_layer, "pair_relu_project": 1},
-          f"path launch counts {launches}")
+    check(launches == {"gin_messages": args.num_layer, "gin_messages_bwd": 0,
+                       "fused_cfconv": 0, "fused_cfconv_bwd": 0,
+                       "pair_relu_project": 1, "pair_relu_project_bwd": 0},
+          f"sampler path launch counts {launches}")
     check(len(cli_results) == len(graphs), "CLI returned too few molecules")
     for r in cli_results:
         check(r["pos_gen"].shape == (args.num_repeat_SDE_inference,
@@ -201,10 +367,12 @@ def main() -> int:
     check(rerun_err <= 1e-3 * max(1.0, ref.abs().max().item()), "rerun disagrees")
 
     # conditioning against an all-plain build of the same weights
-    plain_2d, plain_sde = cli.build_models(args, dev, msg_impl="plain", pair_impl="plain")
-    cond_k = sde_model.precompute_conditioning(node_2d, batch)
-    node_p = plain_2d(batch, use_running_average=True)
-    cond_p = plain_sde.precompute_conditioning(node_p, batch)
+    with torch.no_grad():
+        plain_2d, plain_sde = cli.build_models(args, dev, msg_impl="plain",
+                                               pair_impl="plain")
+        cond_k = sde_model.precompute_conditioning(node_2d, batch)
+        node_p = plain_2d(batch, use_running_average=True)
+        cond_p = plain_sde.precompute_conditioning(node_p, batch)
     node_err = (node_2d - node_p).abs().max().item()
     edge_err = (cond_k["edge_attr_2d"].float() - cond_p["edge_attr_2d"].float()
                 ).abs().max().item()
@@ -219,26 +387,195 @@ def main() -> int:
     check(edge_err <= 2 ** -8 * edge_scale, "edge_attr_2d disagrees with the plain path")
 
     b_conf = batch.num_graphs
-    print(f"path: B={b_conf} conformers, n_max {n_max}, {N_STEPS} PC steps x "
+    print(f"sampler path: B={b_conf} conformers, n_max {n_max}, {N_STEPS} PC steps x "
           f"{CORRECTOR_STEPS} corrector step (CLI default 100; depth cut), chain "
           f"(GIN + conditioning + PC chain) wall_ms={chain_s * 1e3:.2f} "
           f"pc_steps_per_s={N_STEPS / chain_s:.2f} "
           f"conformers_per_s={b_conf / chain_s:.2f}", flush=True)
+    return results, launches
+
+
+# the gradient leaves the kernels write or feed first: K1's bond tables,
+# K2's filter net, K3's W and bias and the pair halves' Linear and BatchNorm.
+# Left out: edge_2D_emb_0.bias, whose gradient is zero in exact arithmetic
+# (the training-mode BatchNorm after it removes any shift), so that both
+# builds hold only rounding noise there
+KERNEL_LEAVES = (("model_2D", ".BondEncoder_0."),
+                 ("model_3D", ".Dense_0."), ("model_3D", ".Dense_1."),
+                 ("SDE_2Dto3D_model", "edge_2D_emb_"))
+ZERO_GRAD_LEAVES = ("SDE_2Dto3D_model.edge_2D_emb_0.bias",)
+
+
+def _grad_norms(models):
+    return {name: torch.sqrt(sum((p.grad.float() ** 2).sum() for p in m.parameters()
+                                 if p.grad is not None)).item()
+            for name, m in models.items()}
+
+
+def _kernel_leaf_grads(models):
+    """{component.name: gradient} of the leaves in KERNEL_LEAVES."""
+    out = {}
+    for comp, part in KERNEL_LEAVES:
+        for name, p in models[comp].named_parameters():
+            key = f"{comp}.{name}"
+            if (part in name and key not in ZERO_GRAD_LEAVES
+                    and (comp != "model_3D" or "SchNetInteraction_" in name)):
+                out[key] = p.grad.detach().float().clone()
+    return out
+
+
+def training_path(dev):
+    """Phase 4 (and the training kernel phases): returns (kernel results,
+    launch counts of the five timed steps)."""
+    from moleculesde_tpu_torch.benchmarks.profile_pretrain import BATCH, PATH_ARGS, path_batches
+    from moleculesde_tpu_torch.examples import pretrain as cli
+    from moleculesde_tpu_torch.pretrain.train_state import build_models
+    from moleculesde_tpu_torch.pretrain.train_step import (
+        METRICS, draw_losses, pretrain_loss, pretrain_step)
+
+    args = cli.get_parser().parse_args(PATH_ARGS)
+    cli.check_supported(args)
+    batches = path_batches(args, dev)
+    cfg, models, optimizer, gen = cli.setup(args, dev)
+    with torch.no_grad():
+        operands = training_operands(models, batches[0])
+    results = training_kernel_phases(*operands)
+
+    steps = 5
+    check(len(batches) >= steps + 1, f"only {len(batches)} batches")
+    metrics = pretrain_step(models, optimizer, cfg, batches[0], gen)   # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    history = [pretrain_step(models, optimizer, cfg, batch, gen)
+               for batch in batches[1:steps + 1]]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    launches = read_counts()
+    per_step = {k: v / steps for k, v in launches.items()}
+    expected = {"gin_messages": cfg.num_layer, "gin_messages_bwd": cfg.num_layer,
+                "fused_cfconv": cfg.schnet_num_interactions,
+                "fused_cfconv_bwd": cfg.schnet_num_interactions,
+                "pair_relu_project": 1, "pair_relu_project_bwd": 1}
+    print(f"training path launches over {steps} steps: {launches} (per step {per_step}; "
+          f"expected {expected})", flush=True)
+    check(per_step == expected, f"training path launch counts {launches}")
+    for m in [metrics] + history:
+        vals = {k: float(m[k]) for k in METRICS}
+        check(all(math.isfinite(v) for v in vals.values()), f"non-finite metrics {vals}")
+    print("training metrics, last step: " + ", ".join(
+        f"{k}={float(history[-1][k]):.5f}" for k in METRICS), flush=True)
+    print(f"training path: B={BATCH} molecules, n_max {args.n_max}, bf16, {steps} steps "
+          f"step_ms={step_ms:.2f} molecules_per_s={BATCH / step_ms * 1e3:.2f}", flush=True)
+
+    # one step's loss and gradients against an all-plain build of the same
+    # weights, batch statistics and draws (dropout masks from the same seed)
+    plain = build_models(cfg, dev, impl="plain")
+    for name in models:
+        plain[name].load_state_dict(models[name].state_dict())
+    batch = batches[steps]
+    out = {}
+    for label, ms in (("kernel", models), ("plain", plain)):
+        saved = {n: {k: v.clone() for k, v in m.state_dict().items()} for n, m in ms.items()}
+        g = torch.Generator(device=dev).manual_seed(args.seed + 1)
+        for m in ms.values():
+            m.zero_grad(set_to_none=True)
+        total, mets = pretrain_loss(ms, cfg, batch, g, draws=draw_losses(ms, cfg, batch, g))
+        total.backward()
+        out[label] = ({k: v.item() for k, v in mets.items()}, _grad_norms(ms),
+                      _kernel_leaf_grads(ms))
+        for n, m in ms.items():
+            m.load_state_dict(saved[n])
+    (mk, gk, lk), (mp, gp, lp) = out["kernel"], out["plain"]
+    # bf16 step: both builds round at the same places; sums in another order
+    # move a rounded value by one bf16 ulp now and then.  Three runs read at
+    # most 1.2e-4 on loss terms and gradient norms: 1e-3 is about 10x that
+    tol = 1e-3
+    for k in METRICS:
+        err = abs(mk[k] - mp[k]) / max(1e-6, abs(mp[k]))
+        print(f"kernel vs plain step: {k} {mk[k]:.6f} vs {mp[k]:.6f} rel {err:.2e} "
+              f"(tolerance {tol:g})", flush=True)
+        check(err <= tol, f"{k} disagrees with the all-plain step")
+    for name in gk:
+        err = abs(gk[name] - gp[name]) / max(1e-12, gp[name])
+        print(f"kernel vs plain step: |grad {name}| {gk[name]:.6e} vs {gp[name]:.6e} "
+              f"rel {err:.2e} (tolerance {tol:g})", flush=True)
+        check(err <= tol, f"gradient norm of {name} disagrees with the all-plain step")
+    # the kernels' own leaves one by one: |g_kernel - g_plain| / |g_plain|
+    # (L2), so a dropped or wrong weight gradient (error ~1) cannot hide in a
+    # component's norm.  Readings reach 8.3e-3 (the bond tables: a sum over
+    # all edges of bf16-rounded cotangents, with cancellation): 5e-2 is
+    # about 6x that
+    leaf_tol = 5e-2
+    check(sorted(lk) == sorted(lp) and len(lk) == (
+        3 * cfg.num_layer + 4 * cfg.schnet_num_interactions + 5), f"kernel leaves {sorted(lk)}")
+    errs = {k: ((lk[k] - lp[k]).norm() / lp[k].norm().clamp(min=1e-30)).item() for k in lk}
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])
+    print(f"kernel vs plain step: {len(errs)} kernel leaves, relative L2 errors "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst[:6]) + f" ... (tolerance {leaf_tol:g})",
+          flush=True)
+    for k, v in worst:
+        check(v <= leaf_tol, f"gradient of {k} disagrees with the all-plain step ({v:.3e})")
+    return results, launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    from moleculesde_tpu_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60)
+    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else
+          f"nvidia-smi failed: {smi.stderr.strip()}", flush=True)
+    dev = torch.device("cuda")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+
+    # 1. build every kernel, one nvcc per source, in parallel
+    t0 = time.perf_counter()
+    for name, report_ in build.build().items():
+        regs = [ln.strip() for ln in report_.splitlines() if "registers" in ln]
+        print(f"built {name}: {'; '.join(regs)}", flush=True)
+    print(f"kernel build {time.perf_counter() - t0:.1f} s", flush=True)
+
+    sampler_results, sampler_launches = sampler_path(dev)
+    train_results, train_launches = training_path(dev)
 
     kernels = []
     for name, source, replaces in (
             ("gin_messages", "moleculesde_tpu_torch/csrc/gin_messages.cu",
              "moleculesde_tpu/ops/gin_messages.py:128"),
+            ("gin_messages_bwd", "moleculesde_tpu_torch/csrc/gin_messages.cu",
+             "moleculesde_tpu/ops/gin_messages.py:144"),
+            ("fused_cfconv", "moleculesde_tpu_torch/csrc/cfconv.cu",
+             "moleculesde_tpu/ops/cfconv.py:212"),
+            ("fused_cfconv_bwd", "moleculesde_tpu_torch/csrc/cfconv.cu",
+             "moleculesde_tpu/ops/cfconv.py:228"),
             ("pair_relu_project", "moleculesde_tpu_torch/csrc/pair_block.cu",
-             "moleculesde_tpu/ops/pair_block.py:170")):
-        r, r16 = results[name], results[name + "[bf16]"]
-        kernels.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None,
-            "bf16": {k: r16[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                         "bound_ms", "bound_by")}})
+             "moleculesde_tpu/ops/pair_block.py:170"),
+            ("pair_relu_project_bwd", "moleculesde_tpu_torch/csrc/pair_block.cu",
+             "moleculesde_tpu/ops/pair_block.py:193")):
+        r = train_results[name]
+        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                 "launches": train_launches[name],
+                 "launches_by_path": {"sample_2d_to_3d": sampler_launches[name],
+                                      "pretrain_5_steps": train_launches[name]},
+                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                 "bound_by": r["bound_by"], "library_ms": None, "mode": "bf16",
+                 "f32": {k: train_results[name + "[f32]"][k] for k in (
+                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}}
+        if name in sampler_results:
+            entry["sampler_operands"] = {
+                mode: {k: sampler_results[name + sfx][k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+                for mode, sfx in (("f32", ""), ("bf16", "[bf16]"))}
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,9 @@ bound through ``ctypes``.  Each kernel wrapper keeps a plain PyTorch
 version of the same function beside it, which tensors on the CPU take.
 
 Ported so far: 2D->3D conformer generation (GIN encoder, the 2D->3D score
-model's channel-major sampling path, the predictor-corrector sampler).
+model's channel-major sampling path, the predictor-corrector sampler) and
+one step of joint pretraining (GIN and SchNet, the dual contrastive loss,
+both score-matching losses, Adam; ``pretrain/``, ``examples/pretrain.py``).
 """
 
 __version__ = "0.1.0"

@@ -8,7 +8,9 @@ path ``params/GINConv_0/Dense_0/kernel`` is the state-dict key
 ``GINConv_0.Dense_0.kernel`` and ``batch_stats/.../mean`` a buffer.
 Reading the JAX package's ``.msgpack`` checkpoints needs flax or msgpack
 and is not part of the port yet; convert a tree to the port's ``.pt``
-(:func:`save_checkpoint`) where flax is installed.
+(:func:`load_flax_pretrain`, then :func:`save_checkpoint`) where flax is
+installed.  The pretraining CLI writes the same four-component ``.pt``,
+whose 2D and 2D->3D components the sampler CLI loads.
 """
 
 from __future__ import annotations
@@ -54,15 +56,27 @@ def load_flax_variables(module: nn.Module, variables: Mapping[str, Any]) -> nn.M
     return module
 
 
-def save_checkpoint(path: str, model_2d: nn.Module, sde_model: nn.Module,
+def load_flax_pretrain(models: Mapping[str, nn.Module], params: Mapping[str, Any],
+                       batch_stats: Mapping[str, Any]) -> Mapping[str, nn.Module]:
+    """Copy the JAX package's four-component pretraining tree (``params``
+    and ``batch_stats`` keyed by ``model_2D``, ``model_3D``,
+    ``SDE_2Dto3D_model``, ``SDE_3Dto2D_model``) into the port's modules."""
+    for name, module in models.items():
+        load_flax_variables(module, {"params": params[name],
+                                     "batch_stats": batch_stats.get(name, {})})
+    return models
+
+
+def save_checkpoint(path: str, components: Mapping[str, nn.Module],
                     config: Mapping[str, Any]) -> None:
-    """Write the port's ``.pt``: the models' state dicts (on the CPU) and the
+    """Write the port's ``.pt``: each component's state dict (on the CPU)
+    under its name (``model_2D``, ``model_3D``, ``SDE_2Dto3D_model``,
+    ``SDE_3Dto2D_model``, as the pretraining checkpoint names them) and the
     ``config`` they were built with."""
-    torch.save({
-        "config": dict(config),
-        "model_2D": {k: v.cpu() for k, v in model_2d.state_dict().items()},
-        "SDE_2Dto3D_model": {k: v.cpu() for k, v in sde_model.state_dict().items()},
-    }, path)
+    payload = {"config": dict(config)}
+    for name, module in components.items():
+        payload[name] = {k: v.cpu() for k, v in module.state_dict().items()}
+    torch.save(payload, path)
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:

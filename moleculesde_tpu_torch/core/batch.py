@@ -67,9 +67,41 @@ class GraphBatch:
         return torch.arange(self.num_graphs, device=self.device
                             ).repeat_interleave(self.n_max)
 
+    @property
+    def atomic_numbers(self) -> torch.Tensor:
+        """119-class atomic-number index (atomic number - 1), ``[N]``."""
+        return self.atom_feats[:, 0]
+
+    def nodes_per_graph(self) -> torch.Tensor:
+        """Number of real atoms per graph, ``[num_graphs]``."""
+        return self.node_mask.reshape(self.num_graphs, self.n_max).sum(dim=1)
+
     def dense_nodes(self, x: torch.Tensor) -> torch.Tensor:
         """Flat per-node data ``[N, ...]`` as dense ``[B, n_max, ...]``."""
         return x.reshape((self.num_graphs, self.n_max) + tuple(x.shape[1:]))
+
+    def dense_adjacency(self, edge_values: torch.Tensor) -> torch.Tensor:
+        """Per-bond values scattered into a dense ``[B, n_max, n_max]``
+        adjacency (PyG ``to_dense_adj`` with scalar edge attributes); padded
+        edges are dropped."""
+        return dense_scatter(self.edge_src, self.edge_dst, self.edge_mask, edge_values,
+                             self.num_graphs, self.n_max)
+
+
+def dense_scatter(src: torch.Tensor, dst: torch.Tensor, mask: torch.Tensor,
+                  values: torch.Tensor, num_graphs: int, n_max: int) -> torch.Tensor:
+    """``out[b, s, d] = value`` of each edge whose mask is set, from flat
+    endpoints ``b * n_max + s`` / ``b * n_max + d``; zero elsewhere.  Masked
+    edges land in a spare slot that is cut off, so no device-to-host sync
+    (a boolean index would need one)."""
+    n = n_max
+    src, dst = src.long(), dst.long()
+    cells = num_graphs * n * n
+    flat = torch.where(mask, (src // n) * (n * n) + (src % n) * n + dst % n,
+                       torch.full((), cells, dtype=torch.long, device=src.device))
+    out = torch.zeros(cells + 1, dtype=values.dtype, device=values.device)
+    out[flat] = values
+    return out[:cells].reshape(num_graphs, n, n)
 
 
 def pad_graphs(

@@ -21,6 +21,18 @@ def _apply_mask(data: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tenso
     return torch.where(m, data, torch.zeros((), dtype=data.dtype, device=data.device))
 
 
+def masked_segment_sum(
+    data: torch.Tensor,
+    segment_ids: torch.Tensor,
+    num_segments: int,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Sum of ``data`` rows per segment; masked rows contribute zero."""
+    total = torch.zeros((num_segments,) + tuple(data.shape[1:]),
+                        dtype=data.dtype, device=data.device)
+    return total.index_add_(0, segment_ids.long(), _apply_mask(data, mask))
+
+
 def masked_segment_mean(
     data: torch.Tensor,
     segment_ids: torch.Tensor,
@@ -29,9 +41,7 @@ def masked_segment_mean(
 ) -> torch.Tensor:
     """Mean of ``data`` rows per segment over valid rows only (empty -> 0)."""
     ids = segment_ids.long()
-    total = torch.zeros((num_segments,) + tuple(data.shape[1:]),
-                        dtype=data.dtype, device=data.device)
-    total.index_add_(0, ids, _apply_mask(data, mask))
+    total = masked_segment_sum(data, ids, num_segments, mask)
     ones = (torch.ones(ids.shape, dtype=data.dtype, device=data.device)
             if mask is None else mask.to(data.dtype))
     count = torch.zeros(num_segments, dtype=data.dtype, device=data.device)

@@ -26,9 +26,28 @@
 // bf16 != 0 reproduces the TPU kernel's bf16 mode: x, boh and table are
 // rounded to bf16, the embedding and the sum accumulate in f32, and each
 // message is rounded to bf16 before it is summed.
+//
+// Backward (replaces _bwd_kernel, pallas_call at l.144):
+//   pre[b, e, f]  = x[b, src_e, f] + emb[b, e, f]         (f32, as forward)
+//   dmsg[b, e, f] = 1[pre > 0] * g[b, dst_e, f]           (0 if dst_e invalid)
+//   dx[b, n, f]   = sum_{e : src_e = n} dmsg[b, e, f]
+//   dtable[k, f]  = sum_{b, e} boh[b, e, k] * dmsg[b, e, f]
+// An edge whose src is out of range adds nothing to dx, but its relu(emb)
+// still reaches dtable when its dst is valid (one-hot semantics).  bf16
+// mode rounds g to bf16 (so dmsg is bf16 exactly) and dx to bf16, as the
+// TPU kernel returns dx in x's bf16 dtype; dtable stays f32.  The layout
+// is the forward's with the roles swapped: one block per (graph, 128-
+// feature chunk), each thread owning a feature column and walking the
+// edges in order, accumulating dx in its column of a shared tile and its
+// dtable column in shared memory.  dtable is a sum over the whole batch:
+// each block writes its graph's partial [D, chunk] and a second launch
+// adds the B partials in graph order (partials.cuh) -- no float atomics,
+// the same result on every run.  Bound: device memory, like the forward.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+
+#include "partials.cuh"
 
 namespace {
 
@@ -100,6 +119,84 @@ gin_messages_fwd_kernel(const float* __restrict__ x,
   }
 }
 
+__global__ void __launch_bounds__(kFeatChunk)
+gin_messages_bwd_kernel(const float* __restrict__ x,
+                        const int* __restrict__ src,
+                        const int* __restrict__ dst,
+                        const float* __restrict__ boh,
+                        const float* __restrict__ table,
+                        const float* __restrict__ g,
+                        float* __restrict__ dx,
+                        float* __restrict__ dtable_part,   // [B, D, F]
+                        int N, int E, int D, int F, int bf16) {
+  extern __shared__ __align__(16) float smem[];
+  float* xs = smem;                          // [N][kFeatChunk]
+  float* gs = xs + N * kFeatChunk;           // [N][kFeatChunk]
+  float* dxa = gs + N * kFeatChunk;          // [N][kFeatChunk]
+  float* tbl = dxa + N * kFeatChunk;         // [D][kFeatChunk]
+  float* dta = tbl + D * kFeatChunk;         // [D][kFeatChunk]
+  float* bo = dta + D * kFeatChunk;          // [E][D]
+  int* s_src = reinterpret_cast<int*>(bo + E * D);  // [E]
+  int* s_dst = s_src + E;                            // [E]
+
+  const int b = blockIdx.x;
+  const int t = threadIdx.x;
+  const int f = blockIdx.y * kFeatChunk + t;
+  const bool active = f < F;
+
+  const float* xb = x + static_cast<size_t>(b) * N * F;
+  const float* gb = g + static_cast<size_t>(b) * N * F;
+  for (int n = 0; n < N; ++n) {
+    const float xv = active ? xb[static_cast<size_t>(n) * F + f] : 0.f;
+    const float gv = active ? gb[static_cast<size_t>(n) * F + f] : 0.f;
+    xs[n * kFeatChunk + t] = bf16 ? round_bf16(xv) : xv;
+    gs[n * kFeatChunk + t] = bf16 ? round_bf16(gv) : gv;
+    dxa[n * kFeatChunk + t] = 0.f;
+  }
+  for (int k = 0; k < D; ++k) {
+    const float v = active ? table[static_cast<size_t>(k) * F + f] : 0.f;
+    tbl[k * kFeatChunk + t] = bf16 ? round_bf16(v) : v;
+    dta[k * kFeatChunk + t] = 0.f;
+  }
+  const float* bob = boh + static_cast<size_t>(b) * E * D;
+  for (int i = t; i < E * D; i += blockDim.x) {
+    const float v = bob[i];
+    bo[i] = bf16 ? round_bf16(v) : v;
+  }
+  for (int i = t; i < E; i += blockDim.x) {
+    s_src[i] = src[static_cast<size_t>(b) * E + i];
+    s_dst[i] = dst[static_cast<size_t>(b) * E + i];
+  }
+  __syncthreads();
+
+  for (int e = 0; e < E; ++e) {
+    const int dn = s_dst[e];
+    if (dn < 0 || dn >= N) continue;  // g_msg = 0: nothing flows back
+    const int sn = s_src[e];
+    const bool src_ok = sn >= 0 && sn < N;
+    const float* bor = bo + e * D;
+    float emb = 0.f;
+    for (int k = 0; k < D; ++k) emb = fmaf(bor[k], tbl[k * kFeatChunk + t], emb);
+    const float pre = (src_ok ? xs[sn * kFeatChunk + t] : 0.f) + emb;
+    if (pre > 0.f) {
+      const float d = gs[dn * kFeatChunk + t];
+      if (src_ok) dxa[sn * kFeatChunk + t] += d;
+      for (int k = 0; k < D; ++k) dta[k * kFeatChunk + t] = fmaf(bor[k], d, dta[k * kFeatChunk + t]);
+    }
+  }
+
+  // each thread read and wrote only its own columns: no barrier needed
+  if (active) {
+    float* dxb = dx + static_cast<size_t>(b) * N * F;
+    for (int n = 0; n < N; ++n) {
+      const float v = dxa[n * kFeatChunk + t];
+      dxb[static_cast<size_t>(n) * F + f] = bf16 ? round_bf16(v) : v;
+    }
+    float* pb = dtable_part + static_cast<size_t>(b) * D * F;
+    for (int k = 0; k < D; ++k) pb[static_cast<size_t>(k) * F + f] = dta[k * kFeatChunk + t];
+  }
+}
+
 }  // namespace
 
 extern "C" int gin_messages_fwd(const float* x, const int* src, const int* dst,
@@ -117,5 +214,29 @@ extern "C" int gin_messages_fwd(const float* x, const int* src, const int* dst,
   gin_messages_fwd_kernel<<<grid, kFeatChunk, smem,
                             static_cast<cudaStream_t>(stream)>>>(
       x, src, dst, boh, table, out, N, E, D, F, bf16);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dx [B, N, F] and dtable [D, F]; dtable_part is caller-allocated scratch
+// of B * D * F floats.
+extern "C" int gin_messages_bwd(const float* x, const int* src, const int* dst,
+                                const float* boh, const float* table,
+                                const float* g, float* dx, float* dtable,
+                                float* dtable_part, int B, int N, int E, int D,
+                                int F, int bf16, void* stream) {
+  const size_t smem = static_cast<size_t>(3 * N + 2 * D) * kFeatChunk * sizeof(float) +
+                      static_cast<size_t>(E) * D * sizeof(float) +
+                      static_cast<size_t>(2 * E) * sizeof(int);
+  cudaError_t err = cudaFuncSetAttribute(
+      gin_messages_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(B, (F + kFeatChunk - 1) / kFeatChunk);
+  gin_messages_bwd_kernel<<<grid, kFeatChunk, smem, s>>>(
+      x, src, dst, boh, table, g, dx, dtable_part, N, E, D, F, bf16);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  partials::sum_rows(dtable_part, dtable, B, D * F, s);
   return static_cast<int>(cudaGetLastError());
 }

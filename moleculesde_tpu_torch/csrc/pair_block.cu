@@ -21,9 +21,30 @@
 //
 // bf16 != 0 reproduces the TPU kernel's bf16 mode: the relu'd pair value
 // and w are rounded to bf16, the products accumulate in f32.
+//
+// Backward (replaces _bwd_kernel, pallas_call at l.193), for H <= 32:
+//   pair[s, d, c] = a[s, c] + cc[d, c]                     (f32)
+//   dpair         = 1[pair > 0] * sum_h g[s, d, h] * w[c, h]
+//   da[s, c] = sum_d dpair,  dc[d, c] = sum_s dpair
+//   dw[c, h] = sum_{b, s, d} relu(pair)[s, d, c] * g[s, d, h]
+//   db[h]    = sum_{b, s, d} g[s, d, h]
+// bf16 mode rounds g, w and relu(pair) to bf16 for the two products (the
+// relu mask still comes from the f32 pair) and keeps db in f32, as the TPU
+// kernel does.  Bound: arithmetic, 4*N*N*C*H flops per graph (two
+// products), ~2.5 GFLOP at B=128, N=32, C=300, H=32.  Design: one block
+// per graph, one thread per channel c.  A thread holds w[c, :] and its
+// dw[c, :] accumulators in registers; the graph's cc rows and the dc
+// accumulators live in shared memory (the thread's own column, so no
+// conflicts), and g is staged one source row s at a time ([N, 32],
+// broadcast reads).  The pair value is formed once per (s, d, c) and feeds
+// both products.  dw and db are batch-wide sums: each block writes its
+// graph's partial and a second launch adds them in graph order
+// (partials.cuh), so the result is the same on every run.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+
+#include "partials.cuh"
 
 namespace {
 
@@ -117,6 +138,91 @@ __global__ void pair_relu_project_fwd_kernel(const float* __restrict__ a,
   }
 }
 
+__global__ void pair_relu_project_bwd_kernel(const float* __restrict__ a,
+                                             const float* __restrict__ cc,
+                                             const float* __restrict__ w,
+                                             const float* __restrict__ g,
+                                             float* __restrict__ da,
+                                             float* __restrict__ dc,
+                                             float* __restrict__ dw_part,  // [B, C, H]
+                                             float* __restrict__ db_part,  // [B, H]
+                                             int N, int C, int H, int bf16) {
+  extern __shared__ __align__(16) float smem[];
+  float* grow = smem;                  // [N][kChanTile]: g[b, s, :, :]
+  float* cs = grow + N * kChanTile;    // [N][C]
+  float* dcs = cs + N * C;             // [N][C]
+
+  const int b = blockIdx.x;
+  const int c = threadIdx.x;
+  const bool active = c < C;
+  const size_t nn = static_cast<size_t>(N) * N;
+  const float* ab = a + static_cast<size_t>(b) * N * C;
+  const float* cb = cc + static_cast<size_t>(b) * N * C;
+  const float* gb = g + static_cast<size_t>(b) * nn * H;
+
+  for (int i = c; i < N * C; i += blockDim.x) {
+    cs[i] = cb[i];
+    dcs[i] = 0.f;
+  }
+  float wr[kChanTile], dwr[kChanTile];
+#pragma unroll
+  for (int h = 0; h < kChanTile; ++h) {
+    const float v = (active && h < H) ? w[static_cast<size_t>(c) * H + h] : 0.f;
+    wr[h] = bf16 ? round_bf16(v) : v;
+    dwr[h] = 0.f;
+  }
+  // db: unrounded f32 sum of g over the graph's pairs, in pair order
+  if (c < H) {
+    float acc = 0.f;
+    for (size_t p = 0; p < nn; ++p) acc += gb[p * H + c];
+    db_part[static_cast<size_t>(b) * H + c] = acc;
+  }
+
+  for (int s = 0; s < N; ++s) {
+    __syncthreads();  // previous row's g fully consumed (and cs / dcs ready)
+    for (int i = c; i < N * kChanTile; i += blockDim.x) {
+      const int d = i / kChanTile, h = i - d * kChanTile;
+      const float v = h < H ? gb[(static_cast<size_t>(s) * N + d) * H + h] : 0.f;
+      grow[i] = bf16 ? round_bf16(v) : v;
+    }
+    __syncthreads();
+    if (!active) continue;
+    const float as = ab[static_cast<size_t>(s) * C + c];
+    float da_acc = 0.f;
+    for (int d = 0; d < N; ++d) {
+      const float pair = as + cs[d * C + c];
+      const float r = fmaxf(pair, 0.f);
+      const float rr = bf16 ? round_bf16(r) : r;
+      const float4* gr = reinterpret_cast<const float4*>(grow + d * kChanTile);
+      float dr = 0.f;
+#pragma unroll
+      for (int j = 0; j < kChanTile / 4; ++j) {
+        const float4 gv = gr[j];
+        dr = fmaf(gv.x, wr[4 * j + 0], dr);
+        dr = fmaf(gv.y, wr[4 * j + 1], dr);
+        dr = fmaf(gv.z, wr[4 * j + 2], dr);
+        dr = fmaf(gv.w, wr[4 * j + 3], dr);
+        dwr[4 * j + 0] = fmaf(rr, gv.x, dwr[4 * j + 0]);
+        dwr[4 * j + 1] = fmaf(rr, gv.y, dwr[4 * j + 1]);
+        dwr[4 * j + 2] = fmaf(rr, gv.z, dwr[4 * j + 2]);
+        dwr[4 * j + 3] = fmaf(rr, gv.w, dwr[4 * j + 3]);
+      }
+      const float dp = pair > 0.f ? dr : 0.f;
+      da_acc += dp;
+      dcs[d * C + c] += dp;
+    }
+    da[(static_cast<size_t>(b) * N + s) * C + c] = da_acc;
+  }
+
+  if (!active) return;  // no barrier below this point
+  for (int d = 0; d < N; ++d)
+    dc[(static_cast<size_t>(b) * N + d) * C + c] = dcs[d * C + c];
+  float* pw = dw_part + (static_cast<size_t>(b) * C + c) * H;
+#pragma unroll
+  for (int h = 0; h < kChanTile; ++h)
+    if (h < H) pw[h] = dwr[h];
+}
+
 }  // namespace
 
 extern "C" int pair_relu_project_fwd(const float* a, const float* cc,
@@ -134,5 +240,31 @@ extern "C" int pair_relu_project_fwd(const float* a, const float* cc,
   pair_relu_project_fwd_kernel<<<grid, TS * N, smem,
                                  static_cast<cudaStream_t>(stream)>>>(
       a, cc, w, bias, out, N, C, H, TS, bf16);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// da, dc [B, N, C], dw [C, H], db [H]; dw_part (B * C * H floats) and
+// db_part (B * H floats) are caller-allocated scratch.  Needs H <= 32 and
+// C <= 1024.
+extern "C" int pair_relu_project_bwd(const float* a, const float* cc,
+                                     const float* w, const float* g, float* da,
+                                     float* dc, float* dw, float* db,
+                                     float* dw_part, float* db_part, int B,
+                                     int N, int C, int H, int bf16,
+                                     void* stream) {
+  const size_t smem = (static_cast<size_t>(N) * kChanTile +
+                       2 * static_cast<size_t>(N) * C) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      pair_relu_project_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int threads = ((C + 31) / 32) * 32;
+  pair_relu_project_bwd_kernel<<<B, threads, smem, s>>>(
+      a, cc, w, g, da, dc, dw_part, db_part, N, C, H, bf16);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  partials::sum_rows(dw_part, dw, B, C * H, s);
+  partials::sum_rows(db_part, db, B, H, s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,0 +1,217 @@
+"""Joint MoleculeSDE pretraining CLI.
+
+Counterpart of ``examples/pretrain.py`` of the JAX package (reference
+examples/pretrain_MoleculeSDE.py): the same flag names and defaults for
+everything the port supports, the same per-epoch console metrics, and the
+four-component checkpoint (``model_complete.pt`` at the best epoch loss,
+``model_complete_final.pt`` at the end), whose ``model_2D`` and
+``SDE_2Dto3D_model`` the port's sampler CLI loads with
+``--input_model_file``.
+
+Runs on the GPU (``--device cuda``, the default) and raises without one;
+``--device cpu`` runs the plain PyTorch path.  Not ported yet, and refused
+with an error: ``--ingest compact`` (use ``padded``), ``--microbatch``,
+``--buckets``, ``--model_3d PaiNN`` and datasets other than ``synthetic``.
+
+Example:
+  python -m moleculesde_tpu_torch.examples.pretrain --dataset=synthetic \\
+      --synthetic_molecules=1024 --epochs=2 --output_model_dir=out/pretrain
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import numpy as np
+import torch
+
+from moleculesde_tpu_torch.convert import save_checkpoint
+from moleculesde_tpu_torch.data.loader import GraphLoader
+from moleculesde_tpu_torch.data.synthetic import random_molecule
+from moleculesde_tpu_torch.pretrain.contrastive import METRICS as CL_METRICS
+from moleculesde_tpu_torch.pretrain.train_state import (
+    PretrainConfig, build_models, make_optimizer)
+from moleculesde_tpu_torch.pretrain.train_step import METRICS, pretrain_step
+from moleculesde_tpu_torch.sde.base import SDE_PRESETS_2DTO3D, SDE_PRESETS_3DTO2D
+from moleculesde_tpu_torch.utils.device import resolve_device
+
+MODEL_2DTO3D_VARIANTS = {"SDEModel2Dto3D_01": 1, "SDEModel2Dto3D_02": 2}
+MODEL_3DTO2D_VARIANTS = {"SDEModel3Dto2D_node_adj_dense": 1}
+
+
+def get_parser() -> argparse.ArgumentParser:
+    """The JAX CLI's flags (examples/config.py) that pretraining reads, with
+    the same names and defaults, plus ``--device``; ``--dataset`` defaults
+    to the one dataset ported so far."""
+    p = argparse.ArgumentParser()
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--dataset", type=str, default="synthetic")
+    p.add_argument("--synthetic_molecules", type=int, default=0,
+                   help="number of synthetic molecules (0 -> 1024)")
+    p.add_argument("--ingest", type=str, default="padded", choices=["compact", "padded"])
+    p.add_argument("--batch_size", type=int, default=128)
+    p.add_argument("--epochs", type=int, default=100)
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--decay", type=float, default=0)
+    p.add_argument("--print_every_epoch", type=int, default=1)
+    p.add_argument("--model_3d", type=str, default="SchNet", choices=["SchNet", "PaiNN"])
+    p.add_argument("--SchNet_num_filters", type=int, default=128)
+    p.add_argument("--SchNet_num_interactions", type=int, default=6)
+    p.add_argument("--SchNet_num_gaussians", type=int, default=51)
+    p.add_argument("--SchNet_cutoff", type=float, default=10)
+    p.add_argument("--SchNet_readout", type=str, default="mean", choices=["mean", "add"])
+    p.add_argument("--gnn_type", type=str, default="GIN")
+    p.add_argument("--num_layer", type=int, default=5)
+    p.add_argument("--emb_dim", type=int, default=300)
+    p.add_argument("--dropout_ratio", type=float, default=0.5)
+    p.add_argument("--JK", type=str, default="last")
+    p.add_argument("--gnn_2d_lr_scale", type=float, default=1)
+    p.add_argument("--gnn_3d_lr_scale", type=float, default=1)
+    p.add_argument("--CL_neg_samples", type=int, default=1)
+    p.add_argument("--CL_similarity_metric", type=str, default="InfoNCE_dot_prod",
+                   choices=list(CL_METRICS))
+    p.add_argument("--T", type=float, default=0.1)
+    p.add_argument("--normalize", dest="normalize", action="store_true")
+    p.add_argument("--no_normalize", dest="normalize", action="store_false")
+    p.set_defaults(normalize=False)
+    p.add_argument("--SDE_type_2Dto3D", type=str, default="VE", choices=sorted(SDE_PRESETS_2DTO3D))
+    p.add_argument("--SDE_type_3Dto2D", type=str, default="VE", choices=sorted(SDE_PRESETS_3DTO2D))
+    p.add_argument("--SDE_2Dto3D_model", type=str, default="SDEModel2Dto3D_01",
+                   choices=sorted(MODEL_2DTO3D_VARIANTS))
+    p.add_argument("--SDE_3Dto2D_model", type=str, default="SDEModel3Dto2D_node_adj_dense",
+                   choices=sorted(MODEL_3DTO2D_VARIANTS))
+    p.add_argument("--SDE_coeff_contrastive", type=float, default=1)
+    p.add_argument("--SDE_coeff_contrastive_skip_epochs", type=int, default=0)
+    p.add_argument("--SDE_coeff_generative_2Dto3D", type=float, default=1)
+    p.add_argument("--SDE_coeff_generative_3Dto2D", type=float, default=1)
+    p.add_argument("--use_extend_graph", dest="use_extend_graph", action="store_true")
+    p.add_argument("--no_extend_graph", dest="use_extend_graph", action="store_false")
+    p.set_defaults(use_extend_graph=True)
+    p.add_argument("--noise_on_one_hot", dest="noise_on_one_hot", action="store_true")
+    p.add_argument("--no_noise_on_one_hot", dest="noise_on_one_hot", action="store_false")
+    p.set_defaults(noise_on_one_hot=True)
+    p.add_argument("--SDE_anneal_power", type=float, default=0)
+    p.add_argument("--train_precision", type=str, default="bfloat16",
+                   choices=["bfloat16", "float32"])
+    p.add_argument("--microbatch", type=int, default=0)
+    p.add_argument("--schnet_cfconv", type=str, default="auto", choices=["auto", "xla"])
+    p.add_argument("--n_max", type=int, default=32)
+    p.add_argument("--buckets", type=int, nargs="+", default=[])
+    p.add_argument("--e_max_factor", type=int, default=4)
+    p.add_argument("--ext_e_max", type=int, default=0,
+                   help="extended-edge budget (0 -> n_max^2)")
+    p.add_argument("--output_model_dir", type=str, default="")
+    return p
+
+
+def check_supported(args) -> None:
+    """Raise on the flag values the port does not run yet."""
+    if args.dataset != "synthetic":
+        raise NotImplementedError(f"--dataset={args.dataset} is not ported yet: only "
+                                  f"'synthetic' is")
+    if args.ingest == "compact":
+        raise NotImplementedError("--ingest compact is not ported yet; use --ingest padded")
+    if args.microbatch:
+        raise NotImplementedError("--microbatch is not ported yet; use 0")
+    if args.buckets:
+        raise NotImplementedError("--buckets is not ported yet")
+    if args.model_3d != "SchNet":
+        raise NotImplementedError(f"--model_3d {args.model_3d} is not ported yet")
+
+
+def load_graphs(args) -> list:
+    rng = np.random.default_rng(args.seed)
+    return [random_molecule(rng, int(rng.integers(4, args.n_max + 1)),
+                            extend=args.use_extend_graph)
+            for _ in range(args.synthetic_molecules or 1024)]
+
+
+def make_loader(graphs, args) -> GraphLoader:
+    return GraphLoader(graphs, batch_size=args.batch_size, n_max=args.n_max,
+                       e_max=args.e_max_factor * args.n_max,
+                       ext_e_max=args.ext_e_max or args.n_max * args.n_max,
+                       shuffle=True, drop_last=True, seed=args.seed)
+
+
+def config_from_args(args) -> PretrainConfig:
+    return PretrainConfig(
+        emb_dim=args.emb_dim, num_layer=args.num_layer, jk=args.JK,
+        dropout_ratio=args.dropout_ratio, gnn_type=args.gnn_type, model_3d=args.model_3d,
+        schnet_num_filters=args.SchNet_num_filters,
+        schnet_num_interactions=args.SchNet_num_interactions,
+        schnet_num_gaussians=args.SchNet_num_gaussians, schnet_cutoff=args.SchNet_cutoff,
+        schnet_readout=args.SchNet_readout,
+        sde_type_2dto3d=args.SDE_type_2Dto3D, sde_type_3dto2d=args.SDE_type_3Dto2D,
+        sde_2dto3d_variant=MODEL_2DTO3D_VARIANTS[args.SDE_2Dto3D_model],
+        sde_3dto2d_variant=MODEL_3DTO2D_VARIANTS[args.SDE_3Dto2D_model],
+        coeff_contrastive=args.SDE_coeff_contrastive,
+        coeff_generative_2dto3d=args.SDE_coeff_generative_2Dto3D,
+        coeff_generative_3dto2d=args.SDE_coeff_generative_3Dto2D,
+        anneal_power=args.SDE_anneal_power, use_extend_graph=args.use_extend_graph,
+        noise_on_one_hot=args.noise_on_one_hot, train_precision=args.train_precision,
+        schnet_cfconv=args.schnet_cfconv,
+        cl_similarity_metric=args.CL_similarity_metric, T=args.T,
+        cl_neg_samples=args.CL_neg_samples, normalize=args.normalize,
+        lr=args.lr, decay=args.decay, gnn_2d_lr_scale=args.gnn_2d_lr_scale,
+        gnn_3d_lr_scale=args.gnn_3d_lr_scale)
+
+
+def setup(args, device):
+    """(config, models, optimizer, step generator) for the parsed flags;
+    weights drawn from ``--seed``."""
+    cfg = config_from_args(args)
+    models = build_models(cfg, device, torch.Generator().manual_seed(args.seed))
+    return (cfg, models, make_optimizer(models, cfg),
+            torch.Generator(device=device).manual_seed(args.seed))
+
+
+def main(argv=None):
+    args = get_parser().parse_args(argv)
+    check_supported(args)
+    device = resolve_device(args.device)
+    loader = make_loader(load_graphs(args), args)
+    cfg, models, optimizer, gen = setup(args, device)
+    logged = ("CL_loss", "CL_acc", "SDE_loss_2Dto3D", "SDE_loss_3Dto2D")
+    optimal_loss = float("inf")
+    history = []
+    for epoch in range(1, args.epochs + 1):
+        coeff_cl = (args.SDE_coeff_contrastive
+                    if epoch > args.SDE_coeff_contrastive_skip_epochs else 0.0)
+        t0 = time.time()
+        print(f"epoch: {epoch}")
+        sums, n_batches = None, 0
+        for batch, _ in loader:
+            metrics = pretrain_step(models, optimizer, cfg, batch.to(device), gen, coeff_cl)
+            vals = torch.stack([metrics[k] for k in METRICS])
+            sums = vals if sums is None else sums + vals
+            n_batches += 1
+        if n_batches == 0:
+            raise ValueError(f"no full batch of {args.batch_size} molecules to train on")
+        if epoch % max(args.print_every_epoch, 1) == 0 or epoch == args.epochs:
+            accum = dict(zip(METRICS, (sums / n_batches).tolist()))
+            history.append(accum)
+            temp_loss = (coeff_cl * accum["CL_loss"]
+                         + args.SDE_coeff_generative_2Dto3D * accum["SDE_loss_2Dto3D"]
+                         + args.SDE_coeff_generative_3Dto2D * accum["SDE_loss_3Dto2D"])
+            if temp_loss < optimal_loss and args.output_model_dir:
+                optimal_loss = temp_loss
+                print(f"save model with loss: {optimal_loss:.5f}")
+                _save(args, models, "model_complete.pt")
+            print("CL Loss: {:.5f}\tCL Acc: {:.5f}\t\tSDE 2Dto3D Loss: {:.5f}\t"
+                  "SDE 3Dto2D Loss: {:.5f}".format(*(accum[k] for k in logged)))
+        print(f"Time: {time.time() - t0:.5f}\n")
+    if args.output_model_dir:
+        _save(args, models, "model_complete_final.pt")
+    return history
+
+
+def _save(args, models, name: str) -> None:
+    os.makedirs(args.output_model_dir, exist_ok=True)
+    save_checkpoint(os.path.join(args.output_model_dir, name), models, vars(args))
+
+
+if __name__ == "__main__":
+    main()

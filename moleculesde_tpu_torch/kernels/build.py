@@ -2,8 +2,8 @@
 
 Each source ``csrc/<name>.cu`` exposes a plain C interface and compiles on
 its own into ``build/kernels/lib<name>-<hash>.so`` at the root of the
-checkout (the hash covers the source and the flags, so an edited source
-builds anew).  All sources that need building are compiled in parallel,
+checkout (the hash covers the source, the shared headers ``csrc/*.cuh``
+and the flags, so an edited source builds anew).  All sources that need building are compiled in parallel,
 one ``nvcc`` each.  Nothing is built when a module is imported: the first
 call that launches a kernel builds what it needs, or a caller builds
 everything up front with :func:`build`.
@@ -45,7 +45,9 @@ def nvcc_path() -> str:
 
 def _library_path(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    # the shared headers are hashed too, so an edited header rebuilds
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
                             ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

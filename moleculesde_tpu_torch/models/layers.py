@@ -18,6 +18,7 @@ stores it), so a converted flax tree loads with ``load_state_dict``
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -26,20 +27,38 @@ from torch import nn
 
 from moleculesde_tpu_torch.ops.pair_block import pair_mean_var
 
-ACTIVATIONS = {"relu": F.relu, "silu": F.silu, "tanh": torch.tanh}
+ACTIVATIONS = {"relu": F.relu, "silu": F.silu, "elu": F.elu, "tanh": torch.tanh}
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            deterministic: bool = False) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each entry with probability ``1 - rate``
+    and scale the kept ones by ``1 / (1 - rate)`` (in x's dtype); the keep
+    mask is drawn from ``generator`` (the global generator when None)."""
+    if deterministic or rate == 0.0:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     """Initialize every parameter and statistic of ``module`` the way the
-    JAX package initializes it: kernels and embeddings xavier-uniform,
-    biases and ``eps`` zero, norm scales one, frozen Fourier weights N(0, 1),
-    running means zero and running variances one."""
+    JAX package initializes it: kernels and embeddings xavier-uniform (a
+    channel-stacked ``[C, in, out]`` kernel per channel slice), biases and
+    ``eps`` zero, norm scales one, frozen Fourier weights N(0, 1), running
+    means zero and running variances one."""
     with torch.no_grad():
         for name, p in module.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
             if leaf in ("kernel", "embedding"):
                 nn.init.xavier_uniform_(p, generator=generator)
-            elif leaf in ("bias", "eps"):
+            elif "kernel" in leaf and p.ndim == 3:
+                bound = math.sqrt(6.0 / (p.shape[1] + p.shape[2]))
+                nn.init.uniform_(p, -bound, bound, generator=generator)
+            elif leaf in ("eps",) or "bias" in leaf:
                 p.zero_()
             elif leaf == "scale":
                 p.fill_(1.0)

@@ -10,7 +10,9 @@ the flat pair index ``p = s * N + d``.  The conditioning (2D edge
 embedding, node embedding, pair mask) depends on the graph only and is
 computed once per chain (:meth:`SDEModel2Dto3D.precompute_conditioning`);
 :meth:`SDEModel2Dto3D.score_from_cond_cm` evaluates the score at given
-positions.  Inference only: no dropout, no training loss yet.
+positions.  :meth:`SDEModel2Dto3D.loss` is the denoising score-matching
+training loss, which runs the same channel-major path (the JAX package's
+``loss_layout="channel"``) with dropout in the attention layers.
 
 ``score_dtype="bfloat16"`` runs the invariant-feature and score-network
 pipeline in bf16 (frame geometry, softmax and the equivariant mixing stay
@@ -26,9 +28,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from moleculesde_tpu_torch.core.batch import GraphBatch
+from moleculesde_tpu_torch.core.batch import GraphBatch, dense_scatter
+from moleculesde_tpu_torch.core.segment import masked_segment_mean
 from moleculesde_tpu_torch.models.layers import (
-    MLP, Dense, LayerNorm, PairMaskedBatchNorm, init_parameters)
+    MLP, Dense, LayerNorm, PairMaskedBatchNorm, dropout, init_parameters)
 from moleculesde_tpu_torch.ops.common import EPSILON, SQRT_GUARD
 from moleculesde_tpu_torch.ops.fourier import gaussian_fourier_projection_cm
 from moleculesde_tpu_torch.ops.pair_block import pair_relu_project
@@ -99,14 +102,17 @@ class DenseGATLayer(nn.Module):
     logits = q_d . (k_s + e_sd) / sqrt(c), softmax over sources s per
     destination d (f32, ``finfo.min`` masking, then ``alpha * mask`` so an
     isolated destination gets zero weights), messages (v_s + e_sd) * alpha
-    summed at d, plus a root-skip linear."""
+    summed at d, plus a root-skip linear.  In training (``deterministic``
+    False) dropout at ``dropout`` hits the attention weights and the FFN's
+    hidden layer, as in the JAX module."""
 
     def __init__(self, hidden_dim: int, n_head: int, edge_dim: int,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, dropout: float = 0.1):
         super().__init__()
         self.n_head = n_head
         self.hidden_dim = hidden_dim
         self.dtype = dtype
+        self.dropout = dropout
         hd = hidden_dim  # n_head * (hidden_dim // n_head)
         self.lin_query = Dense(hidden_dim, hd)
         self.lin_key = Dense(hidden_dim, hd)
@@ -118,7 +124,7 @@ class DenseGATLayer(nn.Module):
         self.Dense_1 = Dense(hidden_dim, hidden_dim, dtype=dtype)
         self.LayerNorm_1 = LayerNorm(hidden_dim, dtype=dtype)
 
-    def _attend_cm(self, x, edge_cm, pair_mask):
+    def _attend_cm(self, x, edge_cm, pair_mask, deterministic, generator):
         h = self.n_head
         c = self.hidden_dim // h
         hd = h * c
@@ -139,15 +145,17 @@ class DenseGATLayer(nn.Module):
         neg = torch.finfo(torch.float32).min
         mask4 = pair_mask[:, None, :, :]
         alpha = torch.softmax(torch.where(mask4, logits, neg), dim=2)
-        alpha = alpha * mask4
+        alpha = dropout(alpha * mask4, self.dropout, generator, deterministic)
         alpha_full = alpha.to(dt)[:, :, None].expand(b, h, c, n, n).reshape(b, hd, n, n)
         return torch.einsum("bcsd->bdc", alpha_full * (v_t[:, :, :, None] + e4))
 
-    def forward(self, x, edge_cm, pair_mask):
-        mha = self._attend_cm(x, edge_cm, pair_mask) + self.lin_skip(x)
+    def forward(self, x, edge_cm, pair_mask, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        mha = (self._attend_cm(x, edge_cm, pair_mask, deterministic, generator)
+               + self.lin_skip(x))
         x = x + self.LayerNorm_0(mha)
-        ffn = self.Dense_1(F.silu(self.Dense_0(x)))
-        return x + self.LayerNorm_1(ffn)
+        ffn = dropout(F.silu(self.Dense_0(x)), self.dropout, generator, deterministic)
+        return x + self.LayerNorm_1(self.Dense_1(ffn))
 
 
 class EquivariantScoreNetwork(nn.Module):
@@ -162,14 +170,14 @@ class EquivariantScoreNetwork(nn.Module):
 
     def __init__(self, hidden_dim: int, hidden_coff_dim: int = 128,
                  num_layers: int = 2, num_convs: int = 2, n_head: int = 8,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, dropout: float = 0.1):
         super().__init__()
         self.num_layers = num_layers
         self.num_convs = num_convs
         self.dtype = dtype
         for i in range(num_layers * num_convs):
             setattr(self, f"DenseGATLayer_{i}",
-                    DenseGATLayer(hidden_dim, n_head, hidden_dim, dtype))
+                    DenseGATLayer(hidden_dim, n_head, hidden_dim, dtype, dropout))
         for m in range(num_layers):
             setattr(self, f"basis_node_{m}",
                     Dense(hidden_dim, hidden_coff_dim, use_bias=False))
@@ -195,9 +203,11 @@ class EquivariantScoreNetwork(nn.Module):
                  ).reshape(b, n, n).sum(dim=1)
                 for bx in zip(*basis)]
 
-    def forward(self, node_attr, edge_cm, pair_mask, basis) -> torch.Tensor:
+    def forward(self, node_attr, edge_cm, pair_mask, basis, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """node_attr [B, N, H]; edge_cm [B, H, N*N]; pair_mask [B, N, N] bool;
-        ``basis`` from :func:`dense_frames_flat`.  Returns [B, N, 3] f32."""
+        ``basis`` from :func:`dense_frames_flat`.  Returns [B, N, 3] f32.
+        ``deterministic=False`` turns dropout on (masks from ``generator``)."""
         b, n, _ = node_attr.shape
         count = pair_mask.sum(dim=1).clamp(min=1)          # valid sources per dest
         maskf = pair_mask.reshape(b, n * n).to(node_attr.dtype)
@@ -207,7 +217,7 @@ class EquivariantScoreNetwork(nn.Module):
         for m in range(self.num_layers):
             for conv in range(self.num_convs):
                 layer = getattr(self, f"DenseGATLayer_{m * self.num_convs + conv}")
-                hidden = layer(conv_input, edge_cm, pair_mask)
+                hidden = layer(conv_input, edge_cm, pair_mask, deterministic, generator)
                 if conv < self.num_convs - 1:
                     hidden = F.silu(hidden)
                 conv_input = hidden
@@ -225,13 +235,15 @@ class SDEModel2Dto3D(nn.Module):
     initialized from ``generator`` (default: seed 0), then moved to
     ``device`` ("cuda" by default; raises without a GPU unless "cpu").
     ``pair_impl`` selects the pair block: "auto" (kernel on a CUDA tensor,
-    plain on a CPU tensor), "kernel" or "plain"."""
+    plain on a CPU tensor), "kernel" or "plain"; ``bf16_pairs`` runs it in
+    its bf16 mode (pretraining's choice; the samplers keep f32)."""
 
     def __init__(self, emb_dim: int, hidden_dim: int = 32, variant: int = 2,
                  beta_min: float = 0.2, beta_max: float = 1.0,
                  num_diffusion_timesteps: int = 1000, sde_type: str = "VE",
                  use_extend_graph: bool = True, score_dtype: str = "float32",
-                 pair_impl: str = "auto", device: str | torch.device = "cuda",
+                 bf16_pairs: bool = False, pair_impl: str = "auto",
+                 device: str | torch.device = "cuda",
                  generator: torch.Generator | None = None):
         super().__init__()
         if variant not in (1, 2):
@@ -246,6 +258,7 @@ class SDEModel2Dto3D(nn.Module):
                                      num_diffusion_timesteps)
         self.use_extend_graph = use_extend_graph
         self.score_dtype = score_dtype
+        self.bf16_pairs = bf16_pairs
         self.pair_impl = pair_impl
         dt = torch.bfloat16 if score_dtype == "bfloat16" else None
         self.cdt = dt or torch.float32
@@ -265,21 +278,16 @@ class SDEModel2Dto3D(nn.Module):
 
     def _pair_mask_attr(self, batch: GraphBatch):
         """Dense [B, N, N] extended-adjacency mask and edge labels, indexed
-        [b, s, d].  Masked edges are filtered out before the scatter."""
+        [b, s, d].  Masked edges are dropped by the scatter."""
         if self.use_extend_graph:
             src, dst, emask, eattr = (batch.ext_src, batch.ext_dst,
                                       batch.ext_mask, batch.ext_attr)
         else:
             src, dst, emask = batch.edge_src, batch.edge_dst, batch.edge_mask
             eattr = batch.edge_feats[:, 0] + 1
-        n = batch.n_max
-        src, dst, eattr = src[emask].long(), dst[emask].long(), eattr[emask]
-        shape = (batch.num_graphs, n, n)
-        mask = torch.zeros(shape, dtype=torch.bool, device=src.device)
-        attr = torch.zeros(shape, dtype=torch.int32, device=src.device)
-        mask[src // n, src % n, dst % n] = True
-        attr[src // n, src % n, dst % n] = eattr.int()
-        return mask, attr
+        b, n = batch.num_graphs, batch.n_max
+        mask = dense_scatter(src, dst, emask, torch.ones_like(emask), b, n)
+        return mask, dense_scatter(src, dst, emask, eattr.int(), b, n)
 
     def pair_block_inputs(self, node_2d_repr: torch.Tensor, batch: GraphBatch,
                           pair_mask: torch.Tensor, use_running_average: bool = True):
@@ -305,17 +313,19 @@ class SDEModel2Dto3D(nn.Module):
         pair_mask, _ = self._pair_mask_attr(batch)
         edge_attr_2d = pair_relu_project(
             *self.pair_block_inputs(node_2d_repr, batch, pair_mask, use_running_average),
-            bf16=False, impl=self.pair_impl)
+            bf16=self.bf16_pairs, impl=self.pair_impl)
         node_attr = self.node_emb(node_2d_repr.reshape(b, n, -1))
         edge_attr_2d = edge_attr_2d.to(self.cdt).reshape(b, n * n, -1
                                                          ).transpose(1, 2).contiguous()
         return {"edge_attr_2d": edge_attr_2d, "node_attr": node_attr,
                 "pair_mask": pair_mask}
 
-    def score_from_cond_cm(self, cond: Dict[str, torch.Tensor],
-                           pos: torch.Tensor) -> torch.Tensor:
+    def score_from_cond_cm(self, cond: Dict[str, torch.Tensor], pos: torch.Tensor,
+                           deterministic: bool = True,
+                           generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Raw network output at positions ``pos`` [B*N, 3] -> [B*N, 3] f32,
-        from conditioning precomputed by :meth:`precompute_conditioning`."""
+        from conditioning precomputed by :meth:`precompute_conditioning`
+        (dropout on when ``deterministic`` is False)."""
         h = self.hidden_dim
         pair_mask = cond["pair_mask"]
         b, n = pair_mask.shape[0], pair_mask.shape[1]
@@ -352,5 +362,44 @@ class SDEModel2Dto3D(nn.Module):
             edge_attr = edge2d_cm + frame_inv
         edge_attr = edge_attr * pair_mask.reshape(b, 1, nn_)
 
-        out = self.score_network(cond["node_attr"], edge_attr, pair_mask, basis)
+        out = self.score_network(cond["node_attr"], edge_attr, pair_mask, basis,
+                                 deterministic, generator)
         return out.reshape(b * n, 3)
+
+    def draw(self, batch: GraphBatch, generator: Optional[torch.Generator]
+             ) -> Dict[str, torch.Tensor]:
+        """The loss's random draws: ``pos_noise`` [B*N, 3] ~ N(0, 1) and the
+        antithetic timestep half ``half`` [B // 2 + 1] ~ U{0 .. steps-1}."""
+        dev = batch.positions.device
+        return {"pos_noise": torch.randn(batch.positions.shape, generator=generator,
+                                         device=dev),
+                "half": torch.randint(0, self.sde_pos.N, (batch.num_graphs // 2 + 1,),
+                                      generator=generator, device=dev)}
+
+    def loss(self, node_2d_repr: torch.Tensor, batch: GraphBatch,
+             generator: Optional[torch.Generator] = None, anneal_power: float = 0.0,
+             deterministic: bool = False, use_running_average: bool = False,
+             draws: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+        """Denoising score-matching loss (ref SDE_model_2D_to_3D.py:306-391;
+        JAX ``SDEModel2Dto3D.loss``): antithetic discrete timesteps per graph,
+        positions perturbed by the SDE's marginal, the squared error of the
+        score against the noise averaged over each graph's atoms, then over
+        graphs.  Draws come from ``generator`` unless ``draws`` (as
+        :meth:`draw` makes them) is given; in training mode the pair
+        BatchNorm updates its running statistics."""
+        sde = self.sde_pos
+        b = batch.num_graphs
+        node2graph = batch.node2graph()
+        d = draws if draws is not None else self.draw(batch, generator)
+        pos_noise, half = d["pos_noise"], d["half"]
+        time_step = torch.cat([half, sde.N - half - 1])[:b]
+        time_step = time_step / sde.N * (1 - EPSILON) + EPSILON
+        t_pos = time_step[node2graph]
+        mean_pos, std_pos = sde.marginal_prob(batch.positions, t_pos)
+        pos_perturbed = mean_pos + std_pos[:, None] * pos_noise
+        cond = self.precompute_conditioning(node_2d_repr, batch, use_running_average)
+        scores = self.score_from_cond_cm(cond, pos_perturbed, deterministic, generator)
+        loss_pos = ((scores - pos_noise) ** 2).sum(dim=-1)
+        if anneal_power != 0.0:
+            loss_pos = loss_pos * std_pos ** anneal_power
+        return masked_segment_mean(loss_pos, node2graph, b, batch.node_mask).mean()

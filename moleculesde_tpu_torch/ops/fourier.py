@@ -1,7 +1,8 @@
-"""Gaussian Fourier projection of noise levels and distances (forward only).
+"""Distance and noise-level embeddings: Gaussian Fourier projection
+(reference SDE_model_2D_to_3D.py:57-66), SchNet's Gaussian smearing and
+shifted softplus (reference schnet.py:198-216).
 
-Counterpart of ``moleculesde_tpu/ops/fourier.py``
-(reference SDE_model_2D_to_3D.py:57-66).
+Counterpart of ``moleculesde_tpu/ops/fourier.py``.
 """
 
 from __future__ import annotations
@@ -10,7 +11,26 @@ import math
 
 import torch
 
+from moleculesde_tpu_torch.sde.base import linspace_f32
+
 _TWO_PI = 2.0 * math.pi
+_LOG2 = math.log(2.0)
+
+
+def gaussian_smearing(dist: torch.Tensor, start: float, stop: float,
+                      num_gaussians: int) -> torch.Tensor:
+    """SchNet's equally spaced Gaussian expansion: ``dist`` [...] ->
+    [..., num_gaussians].  The offsets are ``jnp.linspace``'s f32 grid,
+    cached on the device."""
+    offset = linspace_f32(start, stop, num_gaussians, dist.device)
+    coeff = -0.5 / float((stop - start) / (num_gaussians - 1)) ** 2
+    diff = dist[..., None] - offset
+    return torch.exp(coeff * diff ** 2)
+
+
+def shifted_softplus(x: torch.Tensor) -> torch.Tensor:
+    """softplus(x) - log 2, as ``jnp.logaddexp(x, 0) - log 2``."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device)) - _LOG2
 
 
 def gaussian_fourier_projection(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

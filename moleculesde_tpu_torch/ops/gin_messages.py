@@ -2,15 +2,16 @@
 
     agg[b, n, :] = sum_{e: dst_e = n} relu(x[b, src_e, :] + bond_onehot[b, e, :] @ table)
 
-Counterpart of ``moleculesde_tpu/ops/gin_messages.py::gin_messages``
-(forward).  On a CUDA tensor the wrapper launches the hand-written kernel
-``csrc/gin_messages.cu``, which replaces the TPU kernel
-``_fwd_kernel`` / ``pallas_call`` at ``ops/gin_messages.py:128``: it is
-bound by device memory, and stages each graph's node columns and edge
-lists in shared memory so x is read once and the output written once (the
-source's header says more).  On a CPU tensor it takes
-:func:`gin_messages_plain`.  The backward kernel comes with the training
-slice, so the wrapper refuses inputs that autograd would track.
+Counterpart of ``moleculesde_tpu/ops/gin_messages.py::gin_messages``,
+forward and backward.  On a CUDA tensor the wrappers launch the
+hand-written kernels of ``csrc/gin_messages.cu``, which replace the TPU
+kernels ``_fwd_kernel`` (``pallas_call`` at ``ops/gin_messages.py:128``)
+and ``_bwd_kernel`` (l.144): both are bound by device memory and stage each
+graph's node columns and edge lists in shared memory (the source's header
+says more).  On a CPU tensor they take :func:`gin_messages_plain` and
+:func:`gin_messages_bwd_plain`.  :func:`gin_messages` is differentiable
+through a ``torch.autograd.Function`` with the TPU kernel's gradient
+contract: x and the table get gradients, the indices and one-hots none.
 
 Masked edges carry ``src = dst = N`` (out of range): a message from an
 out-of-range source gathers zeros, one to an out-of-range destination adds
@@ -25,53 +26,73 @@ import torch
 
 from moleculesde_tpu_torch.core.segment import edge_aggregate, edge_gather
 from moleculesde_tpu_torch.kernels import build
+from moleculesde_tpu_torch.ops.common import SMEM_LIMIT, resolve_impl, round_bf16, stream
 
 _FEAT_CHUNK = 128          # features per block (csrc/gin_messages.cu)
-_SMEM_LIMIT = 232448       # dynamic shared memory a block may use on Hopper
 
 
-def _round_bf16(t: torch.Tensor) -> torch.Tensor:
-    return t.to(torch.bfloat16).to(torch.float32)
+def _operands(x, src, dst, bond_onehot, table, bf16: bool):
+    """f32 operands rounded as the kernel rounds them, flat edge indices
+    and their validity masks."""
+    b, n, _ = x.shape
+    x, boh, tbl = (round_bf16(t, bf16) for t in (x, bond_onehot, table))
+    offs = (torch.arange(b, device=x.device) * n)[:, None]
+    src_ok = ((src >= 0) & (src < n)).reshape(-1)
+    dst_ok = ((dst >= 0) & (dst < n)).reshape(-1)
+    return (x, boh, tbl, (src.long() + offs).reshape(-1), src_ok,
+            (dst.long() + offs).reshape(-1), dst_ok)
+
+
+def _pre(x, boh, tbl, src_i, src_ok):
+    """Per-edge pre-activation ``x[src] + boh @ table`` -> [B*E, F] f32."""
+    b, n, f = x.shape
+    xs = edge_gather(x.reshape(b * n, f), src_i, src_ok)
+    return xs + (boh @ tbl).reshape(-1, f)
 
 
 def gin_messages_plain(x, src, dst, bond_onehot, table, *, bf16: bool = False):
-    """Plain PyTorch version of the kernel's function; returns [B, N, F] f32.
+    """Plain PyTorch version of the forward kernel; returns [B, N, F] f32.
 
     ``bf16`` rounds x, the one-hots and the table to bf16 and each message
     to bf16 before the f32 sum, as the kernel does."""
     b, n, f = x.shape
-    e = src.shape[1]
-    x = x.float()
-    boh = bond_onehot.float()
-    tbl = table.float()
-    if bf16:
-        x, boh, tbl = _round_bf16(x), _round_bf16(boh), _round_bf16(tbl)
-    offs = (torch.arange(b, device=x.device) * n)[:, None]
-    src_ok = (src >= 0) & (src < n)
-    dst_ok = (dst >= 0) & (dst < n)
-    xs = edge_gather(x.reshape(b * n, f), (src.long() + offs).reshape(-1),
-                     src_ok.reshape(-1))
-    emb = (boh @ tbl).reshape(b * e, f)
-    msg = torch.relu(xs + emb)
-    if bf16:
-        msg = _round_bf16(msg)
-    agg = edge_aggregate(msg, (dst.long() + offs).reshape(-1), b * n,
-                         dst_ok.reshape(-1))
-    return agg.reshape(b, n, f)
+    x, boh, tbl, src_i, src_ok, dst_i, dst_ok = _operands(
+        x, src, dst, bond_onehot, table, bf16)
+    msg = round_bf16(torch.relu(_pre(x, boh, tbl, src_i, src_ok)), bf16)
+    return edge_aggregate(msg, dst_i, b * n, dst_ok).reshape(b, n, f)
 
 
-def _check_kernel_inputs(x, src, dst, boh, table):
+def gin_messages_bwd_plain(x, src, dst, bond_onehot, table, g, *,
+                           bf16: bool = False):
+    """Plain PyTorch version of the backward kernel: (dx [B, N, F],
+    dtable [D, F]), both f32.
+
+    ``dmsg = 1[pre > 0] * g[dst]``; ``dx`` sums dmsg onto the valid sources,
+    ``dtable = boh^T @ dmsg`` over the whole batch.  ``bf16`` rounds g and
+    dx to bf16 (dx is returned in x's bf16 dtype by the TPU kernel)."""
+    b, n, f = x.shape
+    x, boh, tbl, src_i, src_ok, dst_i, dst_ok = _operands(
+        x, src, dst, bond_onehot, table, bf16)
+    g = round_bf16(g, bf16)
+    pre = _pre(x, boh, tbl, src_i, src_ok)
+    g_msg = edge_gather(g.reshape(b * n, f), dst_i, dst_ok)
+    dmsg = torch.where(pre > 0, g_msg, torch.zeros((), device=g.device))
+    dx = edge_aggregate(dmsg, src_i, b * n, src_ok).reshape(b, n, f)
+    dtable = boh.reshape(-1, boh.shape[-1]).t() @ dmsg
+    return round_bf16(dx, bf16), dtable
+
+
+def _check_kernel_inputs(x, src, dst, boh, table, g=None):
     tensors = {"x": x, "src": src, "dst": dst, "bond_onehot": boh, "table": table}
+    if g is not None:
+        tensors["g"] = g
     for name, t in tensors.items():
         if t.device != x.device or not t.is_cuda:
             raise ValueError(f"gin_messages kernel: {name} must be on {x.device} (CUDA)")
         if not t.is_contiguous():
             raise ValueError(f"gin_messages kernel: {name} must be contiguous")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors.values()):
-        raise RuntimeError("gin_messages kernel is forward-only: its backward "
-                           "kernel is not ported yet; call it under torch.no_grad()")
-    for name in ("x", "bond_onehot", "table"):
-        if tensors[name].dtype != torch.float32:
+    for name in ("x", "bond_onehot", "table", "g"):
+        if name in tensors and tensors[name].dtype != torch.float32:
             raise TypeError(f"gin_messages kernel: {name} must be float32")
     for name in ("src", "dst"):
         if tensors[name].dtype != torch.int32:
@@ -83,15 +104,17 @@ def _check_kernel_inputs(x, src, dst, boh, table):
     e = src.shape[1]
     d = table.shape[0]
     if (tuple(src.shape) != (b, e) or tuple(dst.shape) != (b, e)
-            or tuple(boh.shape) != (b, e, d) or tuple(table.shape) != (d, f)):
+            or tuple(boh.shape) != (b, e, d) or tuple(table.shape) != (d, f)
+            or (g is not None and tuple(g.shape) != (b, n, f))):
         raise ValueError("gin_messages kernel: inconsistent shapes "
                          f"x{tuple(x.shape)} src{tuple(src.shape)} "
                          f"dst{tuple(dst.shape)} boh{tuple(boh.shape)} "
                          f"table{tuple(table.shape)}")
-    smem = (2 * n + d) * _FEAT_CHUNK * 4 + e * d * 4 + 2 * e * 4
-    if smem > _SMEM_LIMIT:
+    tiles = (3 * n + 2 * d) if g is not None else (2 * n + d)
+    smem = tiles * _FEAT_CHUNK * 4 + e * d * 4 + 2 * e * 4
+    if smem > SMEM_LIMIT:
         raise ValueError(f"gin_messages kernel: N={n}, E={e}, D={d} need "
-                         f"{smem} B of shared memory (> {_SMEM_LIMIT})")
+                         f"{smem} B of shared memory (> {SMEM_LIMIT})")
 
 
 def _launch(x, src, dst, boh, table, bf16: bool) -> torch.Tensor:
@@ -100,36 +123,82 @@ def _launch(x, src, dst, boh, table, bf16: bool) -> torch.Tensor:
     out = torch.empty((b, n, f), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
-    lib = build.load("gin_messages")
-    fn = lib.gin_messages_fwd
+    fn = build.load("gin_messages").gin_messages_fwd
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     rc = fn(x.data_ptr(), src.data_ptr(), dst.data_ptr(), boh.data_ptr(),
             table.data_ptr(), out.data_ptr(), b, n, src.shape[1],
-            table.shape[0], f, int(bf16),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            table.shape[0], f, int(bf16), stream(x))
     build.check_launch(rc, "gin_messages_fwd")
     gin_messages.launches += 1
     return out
 
 
+def _launch_bwd(x, src, dst, boh, table, g, bf16: bool):
+    _check_kernel_inputs(x, src, dst, boh, table, g)
+    b, n, f = x.shape
+    d = table.shape[0]
+    dx = torch.empty((b, n, f), dtype=torch.float32, device=x.device)
+    dtable = torch.empty((d, f), dtype=torch.float32, device=x.device)
+    if dx.numel() == 0:
+        return dx, dtable.zero_()
+    part = torch.empty((b, d, f), dtype=torch.float32, device=x.device)
+    fn = build.load("gin_messages").gin_messages_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    rc = fn(x.data_ptr(), src.data_ptr(), dst.data_ptr(), boh.data_ptr(),
+            table.data_ptr(), g.data_ptr(), dx.data_ptr(), dtable.data_ptr(),
+            part.data_ptr(), b, n, src.shape[1], d, f, int(bf16), stream(x))
+    build.check_launch(rc, "gin_messages_bwd")
+    gin_messages_bwd.launches += 1
+    return dx, dtable
+
+
+def gin_messages_bwd(x, src, dst, bond_onehot, table, g, *, bf16: bool = False,
+                     impl: str = "auto"):
+    """Backward of :func:`gin_messages` for the output cotangent ``g``
+    [B, N, F]: returns (dx [B, N, F], dtable [D, F]), f32.  ``impl`` as in
+    :func:`gin_messages`."""
+    if resolve_impl(impl, x, "gin_messages") == "plain":
+        return gin_messages_bwd_plain(x, src, dst, bond_onehot, table, g, bf16=bf16)
+    return _launch_bwd(x, src, dst, bond_onehot, table, g, bf16)
+
+
+class _GinMessages(torch.autograd.Function):
+    """The kernel pair (or the plain pair) under autograd: gradients for x
+    and the table; the indices and one-hots get none, as in the TPU
+    kernel's custom VJP."""
+
+    @staticmethod
+    def forward(ctx, x, src, dst, boh, table, bf16, impl):
+        ctx.save_for_backward(x, src, dst, boh, table)
+        ctx.bf16, ctx.impl = bf16, impl
+        if impl == "plain":
+            return gin_messages_plain(x, src, dst, boh, table, bf16=bf16)
+        return _launch(x, src, dst, boh, table, bf16)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, src, dst, boh, table = ctx.saved_tensors
+        dx, dtable = gin_messages_bwd(x, src, dst, boh, table, g.contiguous(),
+                                      bf16=ctx.bf16, impl=ctx.impl)
+        return dx, None, None, None, dtable, None, None
+
+
 def gin_messages(x, src, dst, bond_onehot, table, *, bf16: bool = False,
                  impl: str = "auto") -> torch.Tensor:
-    """Fused GIN message block; returns [B, N, F] float32.
+    """Fused GIN message block; returns [B, N, F] float32, differentiable
+    in ``x`` and ``table``.
 
-    ``x``: [B, N, F] node features; ``src``/``dst``: [B, E] int32 local
-    edge endpoints, masked edges set to N; ``bond_onehot``: [B, E, D]
+    ``x``: [B, N, F] node features (f32); ``src``/``dst``: [B, E] int32
+    local edge endpoints, masked edges set to N; ``bond_onehot``: [B, E, D]
     concatenated bond-feature one-hots; ``table``: [D, F] row-stacked bond
-    embedding tables.  ``impl``: "auto" (the kernel for a CUDA tensor, the
-    plain version for a CPU tensor), "kernel" or "plain".
+    embedding tables.  ``impl``: "auto" (the kernels for a CUDA tensor, the
+    plain versions for a CPU tensor), "kernel" or "plain".
     """
-    if impl == "auto":
-        impl = "kernel" if x.is_cuda else "plain"
-    if impl == "plain":
-        return gin_messages_plain(x, src, dst, bond_onehot, table, bf16=bf16)
-    if impl == "kernel":
-        return _launch(x, src, dst, bond_onehot, table, bf16)
-    raise ValueError(f"unknown gin_messages impl: {impl}")
+    return _GinMessages.apply(x, src, dst, bond_onehot, table, bf16,
+                              resolve_impl(impl, x, "gin_messages"))
 
 
 gin_messages.launches = 0
+gin_messages_bwd.launches = 0

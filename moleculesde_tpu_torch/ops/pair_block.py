@@ -3,15 +3,16 @@
 statistics of an implicit pair tensor.
 
 Counterpart of ``moleculesde_tpu/ops/pair_block.py`` (``pair_mean_var``
-and ``pair_relu_project`` forward).  On a CUDA tensor
-:func:`pair_relu_project` launches the hand-written kernel
-``csrc/pair_block.cu``, which replaces the TPU kernel ``_fwd_kernel`` /
-``pallas_call`` at ``ops/pair_block.py:170``: it is arithmetic-bound, and
-each thread forms one pair value per channel and feeds it to 32 register
-accumulators, so the pair tensor lives only in registers (the source's
-header says more).  On a CPU tensor it takes
-:func:`pair_relu_project_plain`.  The backward kernel comes with the
-training slice, so the wrapper refuses inputs that autograd would track.
+and ``pair_relu_project``, forward and backward).  On a CUDA tensor the
+wrappers launch the hand-written kernels of ``csrc/pair_block.cu``, which
+replace the TPU kernels ``_fwd_kernel`` (``pallas_call`` at
+``ops/pair_block.py:170``) and ``_bwd_kernel`` (l.193): both are
+arithmetic-bound and form each pair value in registers, once per channel,
+so the pair tensor never reaches device memory (the source's header says
+more).  On a CPU tensor they take :func:`pair_relu_project_plain` and
+:func:`pair_relu_project_bwd_plain`.  :func:`pair_relu_project` is
+differentiable through a ``torch.autograd.Function``: a, c, w and the bias
+get gradients, as from the TPU kernel's custom VJP.
 """
 
 from __future__ import annotations
@@ -22,9 +23,9 @@ from typing import Optional, Tuple
 import torch
 
 from moleculesde_tpu_torch.kernels import build
+from moleculesde_tpu_torch.ops.common import SMEM_LIMIT, resolve_impl, round_bf16, stream
 
 _CHAN_TILE = 32            # output channels per register pass (csrc/pair_block.cu)
-_SMEM_LIMIT = 232448       # dynamic shared memory a block may use on Hopper
 
 
 def pair_mean_var(src: torch.Tensor, dst: torch.Tensor, pair_mask: torch.Tensor
@@ -56,12 +57,23 @@ def pair_relu_project_plain(a, c, w, bias: Optional[torch.Tensor] = None, *,
     tensor): [B, N, N, H] float32.  ``bf16`` rounds the relu'd pair and ``w``
     to bf16 with f32 accumulation, as the kernel does."""
     pair = torch.relu(a.float()[:, :, None, :] + c.float()[:, None, :, :])
-    w = w.float()
-    if bf16:
-        pair = pair.to(torch.bfloat16).float()
-        w = w.to(torch.bfloat16).float()
-    out = pair @ w
+    out = round_bf16(pair, bf16) @ round_bf16(w, bf16)
     return out if bias is None else out + bias.float()
+
+
+def pair_relu_project_bwd_plain(a, c, w, g, *, bf16: bool = False):
+    """Plain PyTorch version of the backward kernel: (da, dc [B, N, C],
+    dw [C, H], db [H]), f32, for the output cotangent ``g`` [B, N, N, H].
+
+    The relu mask comes from the f32 pair; ``bf16`` rounds g, w and the
+    relu'd pair to bf16 for the two products (f32 accumulation) and keeps
+    db unrounded, as the TPU kernel does."""
+    pair = a.float()[:, :, None, :] + c.float()[:, None, :, :]
+    relu, gg, ww = (round_bf16(t, bf16) for t in (torch.relu(pair), g, w))
+    dpair = torch.where(pair > 0, gg @ ww.t(), torch.zeros((), device=g.device))
+    cdim, h = w.shape
+    dw = relu.reshape(-1, cdim).t() @ gg.reshape(-1, h)
+    return dpair.sum(dim=2), dpair.sum(dim=1), dw, g.float().reshape(-1, h).sum(dim=0)
 
 
 def _source_tile(n: int) -> int:
@@ -69,8 +81,11 @@ def _source_tile(n: int) -> int:
     return max(1, min(n, 256 // n))
 
 
-def _check_kernel_inputs(a, c, w, bias):
-    tensors = {"a": a, "c": c, "w": w, "bias": bias}
+def _check_kernel_inputs(a, c, w, bias=None, g=None):
+    tensors = {"a": a, "c": c, "w": w}
+    for name, t in (("bias", bias), ("g", g)):
+        if t is not None:
+            tensors[name] = t
     for name, t in tensors.items():
         if t.device != a.device or not t.is_cuda:
             raise ValueError(f"pair_relu_project kernel: {name} must be on {a.device} (CUDA)")
@@ -78,31 +93,32 @@ def _check_kernel_inputs(a, c, w, bias):
             raise ValueError(f"pair_relu_project kernel: {name} must be contiguous")
         if t.dtype != torch.float32:
             raise TypeError(f"pair_relu_project kernel: {name} must be float32")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors.values()):
-        raise RuntimeError("pair_relu_project kernel is forward-only: its "
-                           "backward kernel is not ported yet; call it under "
-                           "torch.no_grad()")
     if a.ndim != 3 or w.ndim != 2:
         raise ValueError("pair_relu_project kernel: expected a, c [B,N,C], w [C,H]")
     b, n, cdim = a.shape
     h = w.shape[1]
     if (tuple(c.shape) != (b, n, cdim) or tuple(w.shape) != (cdim, h)
-            or tuple(bias.shape) != (h,)):
+            or (bias is not None and tuple(bias.shape) != (h,))
+            or (g is not None and tuple(g.shape) != (b, n, n, h))):
         raise ValueError("pair_relu_project kernel: inconsistent shapes "
                          f"a{tuple(a.shape)} c{tuple(c.shape)} w{tuple(w.shape)} "
-                         f"bias{tuple(bias.shape)}")
-    if n > 1024:
-        raise ValueError(f"pair_relu_project kernel: N={n} > 1024 threads per block")
-    hp = -(-h // _CHAN_TILE) * _CHAN_TILE
-    smem = (cdim * hp + hp + (_source_tile(n) + n) * (cdim + 1)) * 4
-    if smem > _SMEM_LIMIT:
+                         f"g{None if g is None else tuple(g.shape)}")
+    if g is not None:
+        if h > _CHAN_TILE or cdim > 1024:
+            raise ValueError(f"pair_relu_project backward kernel: needs H <= "
+                             f"{_CHAN_TILE} and C <= 1024 (H={h}, C={cdim})")
+        smem = (n * _CHAN_TILE + 2 * n * cdim) * 4
+    else:
+        if n > 1024:
+            raise ValueError(f"pair_relu_project kernel: N={n} > 1024 threads per block")
+        hp = -(-h // _CHAN_TILE) * _CHAN_TILE
+        smem = (cdim * hp + hp + (_source_tile(n) + n) * (cdim + 1)) * 4
+    if smem > SMEM_LIMIT:
         raise ValueError(f"pair_relu_project kernel: C={cdim}, H={h}, N={n} "
-                         f"need {smem} B of shared memory (> {_SMEM_LIMIT})")
+                         f"need {smem} B of shared memory (> {SMEM_LIMIT})")
 
 
 def _launch(a, c, w, bias, bf16: bool) -> torch.Tensor:
-    if bias is None:
-        bias = torch.zeros(w.shape[-1], dtype=torch.float32, device=a.device)
     _check_kernel_inputs(a, c, w, bias)
     b, n, cdim = a.shape
     h = w.shape[1]
@@ -113,25 +129,74 @@ def _launch(a, c, w, bias, bf16: bool) -> torch.Tensor:
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     rc = fn(a.data_ptr(), c.data_ptr(), w.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), b, n, cdim, h, _source_tile(n), int(bf16),
-            torch.cuda.current_stream(a.device).cuda_stream)
+            out.data_ptr(), b, n, cdim, h, _source_tile(n), int(bf16), stream(a))
     build.check_launch(rc, "pair_relu_project_fwd")
     pair_relu_project.launches += 1
     return out
 
 
+def _launch_bwd(a, c, w, g, bf16: bool):
+    _check_kernel_inputs(a, c, w, g=g)
+    b, n, cdim = a.shape
+    h = w.shape[1]
+    da = torch.empty_like(a)
+    dc = torch.empty_like(a)
+    dw = torch.empty((cdim, h), dtype=torch.float32, device=a.device)
+    db = torch.empty((h,), dtype=torch.float32, device=a.device)
+    if a.numel() == 0:
+        return da, dc, dw.zero_(), db.zero_()
+    dw_part = torch.empty((b, cdim, h), dtype=torch.float32, device=a.device)
+    db_part = torch.empty((b, h), dtype=torch.float32, device=a.device)
+    fn = build.load("pair_block").pair_relu_project_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    rc = fn(a.data_ptr(), c.data_ptr(), w.data_ptr(), g.data_ptr(), da.data_ptr(),
+            dc.data_ptr(), dw.data_ptr(), db.data_ptr(), dw_part.data_ptr(),
+            db_part.data_ptr(), b, n, cdim, h, int(bf16), stream(a))
+    build.check_launch(rc, "pair_relu_project_bwd")
+    pair_relu_project_bwd.launches += 1
+    return da, dc, dw, db
+
+
+def pair_relu_project_bwd(a, c, w, g, *, bf16: bool = False, impl: str = "auto"):
+    """Backward of :func:`pair_relu_project` for the output cotangent ``g``
+    [B, N, N, H]: returns (da, dc, dw, db), f32.  ``impl`` as in
+    :func:`pair_relu_project`."""
+    if resolve_impl(impl, a, "pair_relu_project") == "plain":
+        return pair_relu_project_bwd_plain(a, c, w, g, bf16=bf16)
+    return _launch_bwd(a, c, w, g, bf16)
+
+
+class _PairReluProject(torch.autograd.Function):
+    """The kernel pair (or the plain pair) under autograd."""
+
+    @staticmethod
+    def forward(ctx, a, c, w, bias, bf16, impl):
+        ctx.save_for_backward(a, c, w)
+        ctx.bf16, ctx.impl = bf16, impl
+        if impl == "plain":
+            return pair_relu_project_plain(a, c, w, bias, bf16=bf16)
+        return _launch(a, c, w, bias, bf16)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, c, w = ctx.saved_tensors
+        da, dc, dw, db = pair_relu_project_bwd(a, c, w, g.contiguous(),
+                                               bf16=ctx.bf16, impl=ctx.impl)
+        return da, dc, dw, db, None, None
+
+
 def pair_relu_project(a, c, w, bias: Optional[torch.Tensor] = None, *,
                       bf16: bool = False, impl: str = "auto") -> torch.Tensor:
     """``out[b, s, d, :] = relu(a[b, s, :] + c[b, d, :]) @ w + bias`` ->
-    [B, N, N, H] float32, bias fused.  ``impl``: "auto" (the kernel for a
-    CUDA tensor, the plain version for a CPU tensor), "kernel" or "plain"."""
-    if impl == "auto":
-        impl = "kernel" if a.is_cuda else "plain"
-    if impl == "plain":
-        return pair_relu_project_plain(a, c, w, bias, bf16=bf16)
-    if impl == "kernel":
-        return _launch(a, c, w, bias, bf16)
-    raise ValueError(f"unknown pair_relu_project impl: {impl}")
+    [B, N, N, H] float32, bias fused; differentiable in a, c, w and bias.
+    ``impl``: "auto" (the kernels for a CUDA tensor, the plain versions for
+    a CPU tensor), "kernel" or "plain"."""
+    if bias is None:
+        bias = torch.zeros(w.shape[-1], dtype=torch.float32, device=a.device)
+    return _PairReluProject.apply(a, c, w, bias, bf16,
+                                   resolve_impl(impl, a, "pair_relu_project"))
 
 
 pair_relu_project.launches = 0
+pair_relu_project_bwd.launches = 0

@@ -68,6 +68,17 @@ class SDE:
                        device: Optional[torch.device] = None) -> torch.Tensor:
         return torch.randn(shape, generator=generator, device=device)
 
+    def prior_sampling_sym(self, shape, generator: Optional[torch.Generator] = None,
+                           device: Optional[torch.device] = None,
+                           z: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Symmetric prior noise for adjacency matrices: the strict upper
+        triangle of a normal draw mirrored (ref SDE_dense.py:148-150).  ``z``
+        is that draw when the caller makes it."""
+        if z is None:
+            z = torch.randn(shape, generator=generator, device=device)
+        z = torch.triu(z, diagonal=1)
+        return z + z.transpose(-1, -2)
+
     def discretize(self, x, t):
         """Euler-Maruyama: x_{i+1} = x_i + f + G z."""
         dt = 1.0 / self.N
@@ -199,4 +210,13 @@ SDE_PRESETS_2DTO3D = {
     "VP02": ("VP", 0.2, 30.0, 1000),
     "VE03": ("VE", 0.1, 1000.0, 1000),
     "VP03": ("VP", 0.2, 1000.0, 1000),
+}
+# the same for --SDE_type_3Dto2D
+SDE_PRESETS_3DTO2D = {
+    "VE": ("VE", 0.1, 1.0, 1000),
+    "VP": ("VP", 0.2, 1.0, 1000),
+    "VE02": ("VE", 0.1, 10.0, 1000),
+    "VP02": ("VP", 0.1, 30.0, 1000),
+    "VE03": ("VE", 0.1, 1000.0, 1000),
+    "VP03": ("VP", 0.1, 1000.0, 1000),
 }

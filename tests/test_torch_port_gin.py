@@ -125,3 +125,43 @@ def test_masked_batchnorm_train_stats_match_jax():
                                atol=1e-6)
     np.testing.assert_allclose(tm.var.numpy(), np.asarray(upd["batch_stats"]["var"]),
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("compute_dtype", [None, "bfloat16"], ids=["f32", "bf16"])
+def test_gnn2d_training_forward_and_grads_match_jax(gnn_pair, compute_dtype):
+    """Training mode (batch statistics) with dropout off, and the gradients
+    of every parameter.  The JAX side runs its message block as the Pallas
+    kernel in interpret mode, whose roundings the port's plain version
+    follows.  Output: f32 1e-5, bf16 2e-2 relative.  Gradients relative to
+    each leaf's largest value: f32 1e-4, bf16 1e-2 (the same roundings in
+    the same places; most leaves agree exactly).  The two Dense biases of a
+    GINConv sit in front of a training-mode BatchNorm, so their gradient is
+    zero in exact arithmetic and rounding noise in practice: they are held
+    to 1e-6 (f32) or 5e-3 (bf16) of the largest gradient instead."""
+    _, v, _, jb, tb = gnn_pair
+    jm = JaxGNN2D(num_layers=2, emb_dim=16, compute_dtype=compute_dtype,
+                  msg_impl="pallas_interpret")
+    g = np.random.default_rng(8).normal(size=(jb.num_nodes, 16)).astype(np.float32)
+
+    def jax_loss(params):
+        out, _ = jm.apply({"params": params, "batch_stats": v["batch_stats"]}, jb,
+                          deterministic=True, use_running_average=False,
+                          mutable=["batch_stats"])
+        return (out * g).sum(), out
+
+    (_, out_j), grads_j = jax.value_and_grad(jax_loss, has_aux=True)(v["params"])
+    tm = load_flax_variables(GNN2D(num_layers=2, emb_dim=16, compute_dtype=compute_dtype,
+                                   device=CPU), np_tree(v))
+    out_t = tm(tb, use_running_average=False)
+    (out_t * t(g)).sum().backward()
+    f32 = compute_dtype is None
+    assert rel_err(out_t.detach().numpy(), np.asarray(out_j)) < (1e-5 if f32 else 2e-2)
+    flat_j = _flat(np_tree({"params": grads_j})["params"])
+    scale = max(float(np.abs(r).max()) for r in flat_j.values())
+    for name, p in tm.named_parameters():
+        diff = float(np.abs(p.grad.numpy() - flat_j[name]).max())
+        if name.startswith("GINConv_") and name.endswith(("Dense_0.bias", "Dense_1.bias")):
+            assert diff <= (1e-6 if f32 else 5e-3) * scale, (name, diff)
+        else:
+            err = diff / max(float(np.abs(flat_j[name]).max()), 1e-12)
+            assert err < (1e-4 if f32 else 1e-2), (name, err)

@@ -17,12 +17,16 @@ import torch
 
 import chip_smoke
 from moleculesde_tpu_torch.convert import load_checkpoint, save_checkpoint
+from moleculesde_tpu_torch.examples import pretrain as pretrain_cli
 from moleculesde_tpu_torch.examples import sample_2d_to_3d as cli
 from moleculesde_tpu_torch.kernels import build
 from moleculesde_tpu_torch.models.gnn2d import GNN2D
+from moleculesde_tpu_torch.models.schnet import SchNet
 from moleculesde_tpu_torch.models.score_2d3d import SDEModel2Dto3D
-from moleculesde_tpu_torch.ops.gin_messages import gin_messages
-from moleculesde_tpu_torch.ops.pair_block import pair_relu_project
+from moleculesde_tpu_torch.models.score_3d2d import SDEModel3Dto2D
+from moleculesde_tpu_torch.ops.cfconv import fused_cfconv, fused_cfconv_bwd
+from moleculesde_tpu_torch.ops.gin_messages import gin_messages, gin_messages_bwd
+from moleculesde_tpu_torch.ops.pair_block import pair_relu_project, pair_relu_project_bwd
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "moleculesde_tpu")
@@ -52,7 +56,13 @@ def test_entry_points_raise_without_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SDEModel2Dto3D(emb_dim=8, hidden_dim=8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        SchNet(hidden_channels=8, num_filters=8, num_interactions=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SDEModel3Dto2D(dim3d=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["--end", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pretrain_cli.main(["--synthetic_molecules", "4", "--batch_size", "4"])
     assert chip_smoke.main() == 2   # no result printed, non-zero exit
     GNN2D(num_layers=2, emb_dim=8, device="cpu")
 
@@ -81,7 +91,7 @@ def test_port_checkpoint_roundtrip_through_cli(tmp_path, capsys):
         for p in list(model_2d.parameters()) + list(sde_model.parameters()):
             p.add_(0.01)  # weights the seed alone would not give
     path = str(tmp_path / "port.pt")
-    save_checkpoint(path, model_2d, sde_model, vars(args))
+    save_checkpoint(path, {"model_2D": model_2d, "SDE_2Dto3D_model": sde_model}, vars(args))
     assert load_checkpoint(path)["config"]["emb_dim"] == 8
     loaded = cli.build_models(cli.get_parser().parse_args(argv + ["--input_model_file", path]),
                               "cpu")
@@ -101,20 +111,44 @@ def test_kernel_wrappers_take_plain_on_cpu_and_count_no_launch():
     boh[..., 0] = 1
     tbl = torch.ones(3, 5)
     w, bias = torch.ones(5, 2), torch.zeros(2)
-    k1, k3 = gin_messages.launches, pair_relu_project.launches
+    ea, env = torch.rand(2, 4, 4, 3), torch.rand(2, 4, 4)
+    x4 = torch.randn(2, 4, 4)
+    cf_w = (torch.ones(3, 4), torch.zeros(4), torch.eye(4), torch.zeros(4))
+    wrappers = (gin_messages, gin_messages_bwd, fused_cfconv, fused_cfconv_bwd,
+                pair_relu_project, pair_relu_project_bwd)
+    counts = [f.launches for f in wrappers]
     assert gin_messages(x, idx, idx, boh, tbl).shape == (2, 4, 5)
+    assert gin_messages_bwd(x, idx, idx, boh, tbl, x)[1].shape == (3, 5)
+    assert fused_cfconv(ea, env, x4, *cf_w).shape == (2, 4, 4)
+    assert len(fused_cfconv_bwd(ea, env, x4, *cf_w, x4)) == 5
     assert pair_relu_project(x, x, w, bias).shape == (2, 4, 4, 2)
+    assert pair_relu_project_bwd(x, x, w, torch.ones(2, 4, 4, 2))[2].shape == (5, 2)
     with pytest.raises(ValueError, match="CUDA"):
         gin_messages(x, idx, idx, boh, tbl, impl="kernel")
     with pytest.raises(ValueError, match="CUDA"):
+        gin_messages_bwd(x, idx, idx, boh, tbl, x, impl="kernel")
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_cfconv(ea, env, x4, *cf_w, impl="kernel")
+    with pytest.raises(ValueError, match="CUDA"):
         pair_relu_project(x, x, w, bias, impl="kernel")
+    with pytest.raises(ValueError, match="CUDA"):
+        pair_relu_project_bwd(x, x, w, torch.ones(2, 4, 4, 2), impl="kernel")
     with pytest.raises(ValueError, match="unknown"):
         pair_relu_project(x, x, w, bias, impl="xla")
-    assert (gin_messages.launches, pair_relu_project.launches) == (k1, k3)
+    assert [f.launches for f in wrappers] == counts
+
+
+def test_cfconv_refuses_gradients_for_positions():
+    """K2's contract: no gradient to ea or env, so asking for one raises
+    rather than returning zero forces."""
+    ea = torch.rand(2, 4, 4, 3, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no gradient to ea or env"):
+        fused_cfconv(ea, torch.rand(2, 4, 4), torch.randn(2, 4, 4), torch.ones(3, 4),
+                     torch.zeros(4), torch.eye(4), torch.zeros(4))
 
 
 def test_every_kernel_source_is_built_by_name():
-    assert build.kernel_names() == ["gin_messages", "pair_block"]
+    assert build.kernel_names() == ["cfconv", "gin_messages", "pair_block"]
     for name in build.kernel_names():
         lib = build._library_path(name)
         assert lib.parent == build.BUILD_DIR and name in lib.name

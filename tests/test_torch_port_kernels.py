@@ -2,15 +2,22 @@
 
 Marked ``gpu``: they skip without a CUDA device (the kernels have no CPU
 mode).  Run them on a GPU machine with
-``python -m pytest tests/test_torch_port_kernels.py -q``.
-Tolerance 1e-5 of the largest output (the same f32 sums in another order).
+``python -m pytest --noconftest tests/test_torch_port_kernels.py -q``.
+Forward tolerance 1e-5 of the largest output in f32 (the same sums in
+another order); gradients 1e-4 in f32 (batch-wide weight sums of up to
+1.3e5 terms in another order).  bf16 tolerances are stated per test: the
+two sides round at the same places, so they differ only where an f32 sum
+taken in another order lands on the other side of a bf16 rounding boundary.
 """
 
 import pytest
 import torch
 
-from moleculesde_tpu_torch.ops.gin_messages import gin_messages, gin_messages_plain
-from moleculesde_tpu_torch.ops.pair_block import pair_relu_project, pair_relu_project_plain
+from moleculesde_tpu_torch.ops.cfconv import fused_cfconv, fused_cfconv_bwd
+from moleculesde_tpu_torch.ops.gin_messages import gin_messages, gin_messages_bwd
+from moleculesde_tpu_torch.ops.gin_messages import gin_messages_plain
+from moleculesde_tpu_torch.ops.pair_block import (
+    pair_relu_project, pair_relu_project_bwd, pair_relu_project_plain)
 
 pytestmark = pytest.mark.gpu
 
@@ -26,20 +33,49 @@ def _close(out, ref, tol):
     assert (out - ref).abs().max().item() <= tol * max(1.0, ref.abs().max().item())
 
 
-@pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("shape", [(64, 32, 128, 13, 300), (3, 7, 11, 13, 130)])
-def test_gin_messages_kernel_matches_plain(cuda, shape, bf16):
-    b, n, e, d, f = shape
+def _grads(fn, inputs, g):
+    """Output and gradients of ``fn`` for the cotangent ``g``."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = fn(*leaves)
+    return (out.detach(),) + torch.autograd.grad(out, leaves, g)
+
+
+def _gin_operands(cuda, b, n, e, d, f):
     g = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn(b, n, f, device=cuda, generator=g)
     src = torch.randint(0, n + 1, (b, e), device=cuda, generator=g, dtype=torch.int32)
     dst = torch.randint(0, n + 1, (b, e), device=cuda, generator=g, dtype=torch.int32)
     boh = (torch.rand(b, e, d, device=cuda, generator=g) < 0.25).float()
     tbl = torch.randn(d, f, device=cuda, generator=g)
+    return x, src, dst, boh, tbl, torch.randn(b, n, f, device=cuda, generator=g)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("shape", [(64, 32, 128, 13, 300), (3, 7, 11, 13, 130)])
+def test_gin_messages_kernel_matches_plain(cuda, shape, bf16):
+    x, src, dst, boh, tbl, _ = _gin_operands(cuda, *shape)
     launches = gin_messages.launches
     out = gin_messages(x, src, dst, boh, tbl, bf16=bf16)
     assert gin_messages.launches == launches + 1
     _close(out, gin_messages_plain(x, src, dst, boh, tbl, bf16=bf16), 1e-2 if bf16 else 1e-5)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("shape", [(128, 32, 128, 13, 300), (3, 7, 11, 13, 130)])
+def test_gin_messages_bwd_kernel_matches_plain(cuda, shape, bf16):
+    """dx and dtable through autograd; sentinel edges (src or dst = N) on
+    both sides.  bf16 tolerance 1e-2: dx is returned rounded to bf16."""
+    x, src, dst, boh, tbl, g = _gin_operands(cuda, *shape)
+    launches = gin_messages_bwd.launches
+
+    def run(impl):
+        return _grads(lambda x_, t_: gin_messages(x_, src, dst, boh, t_, bf16=bf16,
+                                                  impl=impl), (x, tbl), g)
+
+    kern, plain = run("kernel"), run("plain")
+    assert gin_messages_bwd.launches == launches + 1
+    for k, p in zip(kern, plain):
+        _close(k, p, 1e-2 if bf16 else 1e-4)
 
 
 @pytest.mark.parametrize("bf16", [False, True])
@@ -57,7 +93,76 @@ def test_pair_relu_project_kernel_matches_plain(cuda, shape, bf16):
     _close(out, pair_relu_project_plain(a, cc, w, bias, bf16=bf16), 1e-3 if bf16 else 1e-5)
 
 
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("shape", [(128, 32, 300, 32), (3, 9, 17, 20)])
+def test_pair_relu_project_bwd_kernel_matches_plain(cuda, shape, bf16):
+    """da, dc, dw, db through autograd.  bf16 tolerance 1e-3: both sides
+    round g, w and the relu'd pair identically and sum in f32."""
+    b, n, c, h = shape
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    a = torch.randn(b, n, c, device=cuda, generator=gen)
+    cc = torch.randn(b, n, c, device=cuda, generator=gen)
+    w = torch.randn(c, h, device=cuda, generator=gen) / c ** 0.5
+    bias = torch.randn(h, device=cuda, generator=gen)
+    g = torch.randn(b, n, n, h, device=cuda, generator=gen)
+    launches = pair_relu_project_bwd.launches
+
+    def run(impl):
+        return _grads(lambda *t: pair_relu_project(*t, bf16=bf16, impl=impl),
+                      (a, cc, w, bias), g)
+
+    kern, plain = run("kernel"), run("plain")
+    assert pair_relu_project_bwd.launches == launches + 1
+    for k, p in zip(kern, plain):
+        _close(k, p, 1e-3 if bf16 else 1e-4)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("shape", [(128, 32, 51, 128), (3, 7, 5, 16)])
+def test_fused_cfconv_kernel_matches_plain(cuda, shape, bf16):
+    """Output and dx, dw1, db1, dw2, db2 through autograd.  bf16 tolerance
+    2e-2: the softplus output and the backward's dwf / dpre are rounded to
+    bf16 on both sides, so a one-ulp difference in an f32 intermediate can
+    move a rounded value by one bf16 ulp.  In bf16 mode ea comes in bf16, as
+    SchNet hands it over; the kernel then agrees bit for bit with itself on
+    the same values in f32."""
+    b, n, gdim, f = shape
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    ea = torch.rand(b, n, n, gdim, device=cuda, generator=gen)
+    if bf16:
+        ea = ea.to(torch.bfloat16)
+    env = torch.rand(b, n, n, device=cuda, generator=gen) * (
+        torch.rand(b, n, n, device=cuda, generator=gen) < 0.8)
+    x = torch.randn(b, n, f, device=cuda, generator=gen)
+    w1 = torch.randn(gdim, f, device=cuda, generator=gen) / gdim ** 0.5
+    b1 = torch.randn(f, device=cuda, generator=gen) * 0.1
+    w2 = torch.randn(f, f, device=cuda, generator=gen) / f ** 0.5
+    b2 = torch.randn(f, device=cuda, generator=gen) * 0.1
+    g = torch.randn(b, n, f, device=cuda, generator=gen)
+    launches = (fused_cfconv.launches, fused_cfconv_bwd.launches)
+
+    def run(impl):
+        return _grads(lambda *t: fused_cfconv(ea, env, *t, bf16=bf16, impl=impl),
+                      (x, w1, b1, w2, b2), g)
+
+    kern, plain = run("kernel"), run("plain")
+    assert (fused_cfconv.launches, fused_cfconv_bwd.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    _close(kern[0], plain[0], 2e-2 if bf16 else 1e-5)
+    for k, p in zip(kern[1:], plain[1:]):
+        _close(k, p, 2e-2 if bf16 else 1e-4)
+    if bf16:
+        ea32 = _grads(lambda *t: fused_cfconv(ea.float(), env, *t, bf16=True,
+                                              impl="kernel"), (x, w1, b1, w2, b2), g)
+        for k, k32 in zip(kern, ea32):
+            assert torch.equal(k, k32)
+
+
 def test_kernels_refuse_autograd_inputs(cuda):
-    a = torch.randn(2, 4, 8, device=cuda, requires_grad=True)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        pair_relu_project(a, a, torch.ones(8, 2, device=cuda))
+    """K2 gives no gradient to ea or env: asking for one raises."""
+    ea = torch.rand(2, 4, 4, 3, device=cuda, requires_grad=True)
+    x = torch.randn(2, 4, 8, device=cuda)
+    with pytest.raises(RuntimeError, match="no gradient to ea or env"):
+        fused_cfconv(ea, torch.ones(2, 4, 4, device=cuda), x, torch.ones(3, 8, device=cuda),
+                     torch.zeros(8, device=cuda), torch.ones(8, 8, device=cuda),
+                     torch.zeros(8, device=cuda))
