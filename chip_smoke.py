@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the CUDA kernels,
-holds each against its plain PyTorch version, then drives both ported
-paths at full width -- 2D->3D conformer generation through the sampler CLI,
-and pretraining steps through the pretraining CLI's functions -- and checks
+holds each against its plain PyTorch version, then drives the ported paths
+at full width -- 2D->3D conformer generation through the sampler CLI (the
+channel-major chain, the fused chain and the pair_cm_direct chain), and
+pretraining steps through the pretraining CLI's functions -- and checks
 what comes out.
 
     python3 chip_smoke.py
@@ -9,12 +10,14 @@ what comes out.
 Phases (any failure exits non-zero):
   1. the card's name and power limit; build every kernel (one nvcc per source);
   2. kernel phases on the operands each path gives each kernel, in f32 and
-     bf16 mode: K1 (GIN message block) and K3 (pair block) forward on the
-     sampler's operands; K1, K2 (CFConv) and K3 forward and backward on the
-     pretraining step's (the backward's cotangent is a seeded normal draw of
-     the output's shape).  Each is held against its plain version (output
-     and every gradient); CUDA-event medians of kernel and plain times and
-     the card's bound for the same work;
+     bf16 mode: K1 (GIN message block), K3 (pair block) and K4 (its
+     channel-major form) forward on the sampler's operands; K1, K2 (CFConv),
+     K3 and K4 forward and backward on the pretraining step's (the
+     backward's cotangent is a seeded normal draw of the output's shape);
+     K6 (the fused score evaluation), variants 1 and 2, on the fused chain's.
+     Each is held against its plain version (output and every gradient);
+     CUDA-event medians of kernel and plain times and the card's bound for
+     the same work;
   3. sampler path: the sampler CLI at full width (GIN 5 x 300,
      SDEModel2Dto3D variant 1, VE, hidden 32, bf16 score) on 8 synthetic
      molecules x 8 repeats (B=64, n_max 32), 20 PC steps with 1 corrector
@@ -22,13 +25,22 @@ Phases (any failure exits non-zero):
      smoke run), random weights from the seed.  Launch counts are read
      around that run; then the conditioning is compared with an all-plain
      build of the same weights, and the chain is timed;
-  4. training path: the pretraining CLI's models at full width (defaults:
+  4. fused chain: the same chain with ``fused=True`` (launches K1 5, K3 1,
+     K6 40), conformers/s against the channel-major chain in turns, and 5
+     f32 steps against the channel-major chain on the same weights and
+     draws (atol 2e-4, rtol 1e-3);
+  5. pair_cm_direct chain: K4 forward once, K3 never; K4's edge features
+     against K3's;
+  6. training path: the pretraining CLI's models at full width (defaults:
      GIN 5 x 300, SchNet 6 x 128, both SDE models, InfoNCE, bf16) on B=128
      synthetic molecules, n_max 32; one warm-up step, then five timed steps
      with the launch counts read around them (5 / 5 / 6 / 6 / 1 / 1 per
      step); every metric finite; then one step's loss terms, gradient
      norms per component and the kernels' own gradient leaves, one by one,
-     against an all-plain build of the same weights and draws.
+     against an all-plain build of the same weights and draws;
+  7. pair_cm_direct training: two steps (K4 forward and backward once per
+     step, K3 never), then one step's losses and K4's gradient leaves
+     against the K3 build of the same weights and draws.
 The line before the last lists every kernel as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -50,7 +62,10 @@ from moleculesde_tpu_torch.ops.gin_messages import (
     gin_messages, gin_messages_bwd, gin_messages_bwd_plain, gin_messages_plain)
 from moleculesde_tpu_torch.ops.pair_block import (
     pair_relu_project, pair_relu_project_bwd, pair_relu_project_bwd_plain,
-    pair_relu_project_plain)
+    pair_relu_project_cm, pair_relu_project_cm_bwd, pair_relu_project_cm_bwd_plain,
+    pair_relu_project_cm_plain, pair_relu_project_plain)
+from moleculesde_tpu_torch.ops.score_kernel import (
+    score_eval_fused, score_eval_fused_plain, score_param_layout)
 
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12         # H100 SXM, CUDA cores
@@ -129,13 +144,47 @@ def k3_cost(a, w, bwd: bool = False):
             b * n * n * (2 * cdim + 2 * cdim * h + h))
 
 
+def k4_cost(a, w, bwd: bool = False):
+    """(bytes, operations) of K4: K3 without the bias (read, added, or its
+    gradient summed)."""
+    b, n, cdim = a.shape
+    h = w.shape[1]
+    if bwd:
+        return (4 * (4 * b * n * cdim + 2 * cdim * h + b * n * n * h),
+                b * n * n * (4 * cdim * h + 3 * cdim))
+    return (4 * (2 * b * n * cdim + cdim * h + b * n * n * h),
+            b * n * n * (2 * cdim + 2 * cdim * h))
+
+
+def k6_cost(b: int, n: int, variant: int, h: int = 32, coff_dim: int = 128,
+            num_layers: int = 2, num_convs: int = 2):
+    """(bytes, operations) of one K6 evaluation: inputs read
+    once (pos, node_attr, edge_attr_2d and the mask in f32, as the wrapper
+    hands them over, and the packed weights), the output written once; the
+    multiply-adds of every product (2 operations each) without the TPU's
+    selector products, plus the elementwise work per pair."""
+    nn_ = n * n
+    total_w = score_param_layout(variant, h, coff_dim, num_layers, num_convs)[1]
+    nbytes = 4 * (b * n * 3 + b * n * h + b * nn_ * h + b * nn_ + total_w + b * n * 3)
+    per_pair = 2 * (4 * h * h) + 2 * h * h + h * h                   # embeds, project
+    if variant == 2:
+        per_pair += 2 * h * h
+    per_layer_pair = h * h + 3 * h                                    # e2, logits, message
+    per_module_pair = h * coff_dim + coff_dim * 3 + 3 * coff_dim
+    per_node = (num_layers * num_convs * (6 * h * h) + num_layers * h * coff_dim)
+    macs = b * (nn_ * (per_pair + num_layers * num_convs * per_layer_pair
+                       + num_layers * per_module_pair) + n * per_node)
+    return nbytes, 2 * macs
+
+
 def _tuple(x):
     return x if isinstance(x, tuple) else (x,)
 
 
 def _counters():
     return (gin_messages, gin_messages_bwd, fused_cfconv, fused_cfconv_bwd,
-            pair_relu_project, pair_relu_project_bwd)
+            pair_relu_project, pair_relu_project_bwd, pair_relu_project_cm,
+            pair_relu_project_cm_bwd, score_eval_fused)
 
 
 def _timed(run):
@@ -147,29 +196,31 @@ def _timed(run):
     return ms
 
 
-def compare(name, run_k, run_p, tol_rel):
+def compare(name, run_k, run_p, tol_rel, floor: float = 1.0):
     """Outputs of a kernel run and of its plain version on the same
-    operands; raise if any output disagrees beyond ``tol_rel`` of its
-    largest plain value.  Returns the largest absolute error."""
+    operands; raise if any output disagrees beyond ``tol_rel`` of
+    max(``floor``, its largest plain value).  Returns the largest absolute
+    error and the largest error relative to that scale."""
     saved = [c.launches for c in _counters()]
     outs_k, outs_p = _tuple(run_k()), _tuple(run_p())
     torch.cuda.synchronize()
     for c, n in zip(_counters(), saved):
         c.launches = n
-    worst = 0.0
+    worst = worst_rel = 0.0
     for i, (k, p) in enumerate(zip(outs_k, outs_p)):
         check(bool(torch.isfinite(k).all()), f"{name}: non-finite output {i}")
         err = (k - p).abs().max().item()
-        scale = max(1.0, p.abs().max().item())
+        scale = max(floor, p.abs().max().item())
         check(err <= tol_rel * scale, f"{name}: output {i} disagrees with the plain "
               f"version ({err:.3e} > {tol_rel:g} x {scale:.3g})")
         worst = max(worst, err)
-    return worst
+        worst_rel = max(worst_rel, err / scale)
+    return worst, worst_rel
 
 
-def report(name, err, tol_rel, kernel_ms, plain_ms, nbytes, ops, peak_ops):
+def report(name, err, tol_rel, kernel_ms, plain_ms, nbytes, ops, peak_ops, floor=1.0):
     bound_ms, bound_by = bound(nbytes, ops, peak_ops)
-    print(f"{name}: max_abs_err={err:.3e} (tolerance {tol_rel:g} x max(1, |plain|)) "
+    print(f"{name}: max_abs_err={err:.3e} (tolerance {tol_rel:g} x max({floor:g}, |plain|)) "
           f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
           f"bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
     return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
@@ -180,7 +231,7 @@ def kernel_phase(name, wrapper, plain, args, bf16, tol_rel, nbytes, ops, peak_op
     """A forward-only kernel wrapper against its plain version."""
     run_k = lambda: wrapper(*args, bf16=bf16, impl="kernel")  # noqa: E731
     run_p = lambda: plain(*args, bf16=bf16)  # noqa: E731
-    err = compare(name, run_k, run_p, tol_rel)
+    err, _ = compare(name, run_k, run_p, tol_rel)
     return report(name, err, tol_rel, _timed(run_k), _timed(run_p), nbytes, ops, peak_ops)
 
 
@@ -197,8 +248,8 @@ def grad_phase(name, fwd, bwd, bwd_plain, diff, g, bf16, tol_rel, fwd_cost,
         out = fwd(*leaves, bf16=bf16, impl=impl)
         return (out.detach(),) + torch.autograd.grad(out, leaves, g)
 
-    err = compare(name, lambda: through_autograd("kernel"),
-                  lambda: through_autograd("plain"), tol_rel)
+    err, _ = compare(name, lambda: through_autograd("kernel"),
+                     lambda: through_autograd("plain"), tol_rel)
     with torch.no_grad():
         f_k = _timed(lambda: fwd(*diff, bf16=bf16, impl="kernel"))
         f_p = _timed(lambda: fwd(*diff, bf16=bf16, impl="plain"))
@@ -214,6 +265,7 @@ def sampler_kernel_phases(k1_args, k3_args):
     k1 = k1_cost(x, src, dst, table)
     a, c, w, bias = k3_args
     k3 = k3_cost(a, w)
+    k4 = k4_cost(a, w)
     print(f"sampler K1 operands: x {tuple(x.shape)}, edges {tuple(src.shape)} "
           f"({valid_edges} valid), table {tuple(table.shape)}", flush=True)
     print(f"sampler K3 operands: a, c {tuple(a.shape)}, W {tuple(w.shape)}", flush=True)
@@ -230,6 +282,51 @@ def sampler_kernel_phases(k1_args, k3_args):
             "sampler K3 pair_relu_project" + sfx, pair_relu_project,
             pair_relu_project_plain, k3_args, bf16, 1e-3 if bf16 else 1e-5,
             *k3, peak)
+        # K4 on the same operands (the pair_cm_direct chain), without bias
+        results["pair_relu_project_cm" + sfx] = kernel_phase(
+            "sampler K4 pair_relu_project_cm" + sfx, pair_relu_project_cm,
+            pair_relu_project_cm_plain, (a, c, w), bf16, 1e-3 if bf16 else 1e-5,
+            *k4, peak)
+    return results
+
+
+def k6_phases(models, node_2d, batch, dev):
+    """K6 against its plain version on the fused chain's operands: the
+    feature-layout conditioning of each variant's model and prior
+    positions, in f32 and bf16 mode; the error relative to max |plain|."""
+    results = {}
+    b, n = batch.num_graphs, batch.n_max
+    for variant, model in models.items():
+        with torch.no_grad():
+            cond = model.precompute_conditioning(node_2d, batch, layout="feature")
+            gen = torch.Generator(device=dev).manual_seed(3)
+            pos = (model.sde_pos.prior_sampling(tuple(batch.positions.shape), gen, dev)
+                   * batch.node_mask[:, None]).reshape(b, n, 3)
+            # the wrapper's f32 operands, made once so the timings hold the
+            # kernel alone
+            args = (pos, cond["node_attr"].float(), cond["edge_attr_2d"].float(),
+                    cond["pair_mask"].float(), model.packed_score_params())
+        print(f"K6 operands (variant {variant}): pos {tuple(pos.shape)}, edge_attr_2d "
+              f"{tuple(args[2].shape)}, {int(cond['pair_mask'].sum())} valid pairs, "
+              f"{args[4].numel()} packed weights", flush=True)
+        nbytes, ops = k6_cost(b, n, variant)
+        for bf16 in (False, True):
+            name = f"score_eval_fused[v{variant}]" + ("[bf16]" if bf16 else "")
+            # f32: sums in another order and a warp-shuffle softmax; bf16:
+            # the same roundings, plus one bf16 ulp where an f32 value taken
+            # in another order lands on the other side of a boundary
+            tol = 2e-2 if bf16 else 1e-4
+            with torch.no_grad():
+                run_k = lambda: score_eval_fused(*args, variant=variant, bf16=bf16,  # noqa: E731
+                                                 impl="kernel")
+                run_p = lambda: score_eval_fused_plain(*args, variant=variant,  # noqa: E731
+                                                       bf16=bf16)
+                err, rel = compare("K6 " + name, run_k, run_p, tol, floor=0.0)
+                results[name] = report("K6 " + name, err, tol, _timed(run_k), _timed(run_p),
+                                       nbytes, ops, PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS,
+                                       floor=0.0)
+                results[name]["max_rel_err"] = rel
+                print(f"K6 {name}: max_rel_err={rel:.3e} (of max |plain|)", flush=True)
     return results
 
 
@@ -265,6 +362,7 @@ def training_kernel_phases(k1, k2, k3):
     g2 = torch.randn(x2.shape, generator=gen, device=x2.device)
     a, c, w, bias = k3
     g3 = torch.randn((b, n, n, w.shape[1]), generator=gen, device=a.device)
+    g4 = torch.randn((b, w.shape[1], n * n), generator=gen, device=a.device)
     print(f"training K1 operands: x {tuple(x.shape)}, edges {tuple(src.shape)} "
           f"({valid_edges} valid); K2: ea {tuple(ea_bf16.shape)} {ea_bf16.dtype}, "
           f"x {tuple(x2.shape)} ({int((env != 0).sum())} pairs in the cutoff); "
@@ -298,6 +396,13 @@ def training_kernel_phases(k1, k2, k3):
                            a_, c_, w_, g_, **kw),
                        (a, c, w, bias), g3, bf16, 1e-3 if bf16 else 1e-4,
                        k3_cost(a, w), k3_cost(a, w, bwd=True), peak)
+        # K4 (the pair_cm_direct step) on the same operands; its cotangent is
+        # channel-major, and the bias is added outside the kernel
+        results["pair_relu_project_cm" + sfx], results["pair_relu_project_cm_bwd" + sfx] = \
+            grad_phase("training K4 pair_relu_project_cm" + sfx, pair_relu_project_cm,
+                       pair_relu_project_cm_bwd, pair_relu_project_cm_bwd_plain,
+                       (a, c, w), g4, bf16, 1e-3 if bf16 else 1e-4,
+                       k4_cost(a, w), k4_cost(a, w, bwd=True), peak)
     return results
 
 
@@ -308,6 +413,11 @@ def reset_counts():
 
 def read_counts():
     return {c.__name__: c.launches for c in _counters()}
+
+
+def expect(**counts):
+    """Every counter, at 0 unless given."""
+    return {c.__name__: counts.get(c.__name__, 0) for c in _counters()}
 
 
 def sampler_path(dev):
@@ -337,9 +447,7 @@ def sampler_path(dev):
     launches = read_counts()
     print(f"sampler path launches: {launches} (expected 5 and 1 per chain); first run "
           f"{first_run_s:.2f} s", flush=True)
-    check(launches == {"gin_messages": args.num_layer, "gin_messages_bwd": 0,
-                       "fused_cfconv": 0, "fused_cfconv_bwd": 0,
-                       "pair_relu_project": 1, "pair_relu_project_bwd": 0},
+    check(launches == expect(gin_messages=args.num_layer, pair_relu_project=1),
           f"sampler path launch counts {launches}")
     check(len(cli_results) == len(graphs), "CLI returned too few molecules")
     for r in cli_results:
@@ -370,9 +478,9 @@ def sampler_path(dev):
     with torch.no_grad():
         plain_2d, plain_sde = cli.build_models(args, dev, msg_impl="plain",
                                                pair_impl="plain")
-        cond_k = sde_model.precompute_conditioning(node_2d, batch)
+        cond_k = sde_model.precompute_conditioning(node_2d, batch, layout="channel")
         node_p = plain_2d(batch, use_running_average=True)
-        cond_p = plain_sde.precompute_conditioning(node_p, batch)
+        cond_p = plain_sde.precompute_conditioning(node_p, batch, layout="channel")
     node_err = (node_2d - node_p).abs().max().item()
     edge_err = (cond_k["edge_attr_2d"].float() - cond_p["edge_attr_2d"].float()
                 ).abs().max().item()
@@ -393,6 +501,122 @@ def sampler_path(dev):
           f"pc_steps_per_s={N_STEPS / chain_s:.2f} "
           f"conformers_per_s={b_conf / chain_s:.2f}", flush=True)
     return results, launches
+
+
+def fused_chain_path(dev):
+    """Phase 5: the sampler with ``fused=True`` at the same full width, bf16
+    score: K6 against its plain version (variants 1 and 2), the counted
+    chain (K1 5, K3 1, K6 40), conformers/s against the channel-major chain
+    in turns, and 5 f32 steps against the channel-major chain on the same
+    weights and draws.  Returns (K6 results, launch counts)."""
+    from moleculesde_tpu_torch.benchmarks.profile_sampler import (
+        CORRECTOR_STEPS, N_STEPS, PATH_ARGS)
+    from moleculesde_tpu_torch.examples import sample_2d_to_3d as cli
+    from moleculesde_tpu_torch.sampling.pc import sample_positions_pc
+
+    args = cli.get_parser().parse_args(PATH_ARGS)
+    batch = cli.make_batch(cli.load_graphs(args), args, dev)
+    model_2d, sde_model = cli.build_models(args, dev)
+    args_v2 = cli.get_parser().parse_args(PATH_ARGS + ["--SDE_2Dto3D_model",
+                                                       "SDEModel2Dto3D_02"])
+    with torch.no_grad():
+        node_2d = model_2d(batch, use_running_average=True)
+    results = k6_phases({1: sde_model, 2: cli.build_models(args_v2, dev)[1]}, node_2d,
+                        batch, dev)
+
+    evals = N_STEPS * (CORRECTOR_STEPS + 1)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    reset_counts()
+    pos = cli.generate(model_2d, sde_model, batch, gen, args, fused=True)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print(f"fused chain launches: {launches} (expected K1 {args.num_layer}, K3 1, K6 {evals})",
+          flush=True)
+    check(launches == expect(gin_messages=args.num_layer, pair_relu_project=1,
+                             score_eval_fused=evals), f"fused chain launch counts {launches}")
+    mask = batch.node_mask
+    check(tuple(pos.shape) == (batch.num_nodes, 3), "fused chain: positions shape")
+    check(bool(torch.isfinite(pos).all()), "fused chain: non-finite positions")
+    check(bool((pos[~mask] == 0).all()), "fused chain: padded rows are not exactly 0")
+
+    # conformers/s of the two chains, in turns on the same card
+    walls = {"channel": [], "fused": []}
+    for name in ("channel", "fused", "fused", "channel"):
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cli.generate(model_2d, sde_model, batch, gen, args, fused=name == "fused")
+        torch.cuda.synchronize()
+        walls[name].append(time.perf_counter() - t0)
+    b_conf = batch.num_graphs
+    for name, ws in walls.items():
+        print(f"{name} chain (GIN + conditioning + {N_STEPS} PC steps, B={b_conf}, bf16): "
+              f"wall_ms={' / '.join(f'{w * 1e3:.2f}' for w in ws)} conformers_per_s="
+              f"{' / '.join(f'{b_conf / w:.2f}' for w in ws)} pc_steps_per_s="
+              f"{' / '.join(f'{N_STEPS / w:.2f}' for w in ws)}", flush=True)
+
+    # 5 f32 steps, fused against channel-major, same weights and draws
+    args32 = cli.get_parser().parse_args(PATH_ARGS + ["--sampler_precision", "float32"])
+    model_2d32, sde32 = cli.build_models(args32, dev)
+    steps = 5
+    gen = torch.Generator(device=dev).manual_seed(11)
+    shape = tuple(batch.positions.shape)
+    draws = {"prior": sde32.sde_pos.prior_sampling(shape, gen, dev),
+             "noise_p": torch.randn((steps,) + shape, generator=gen, device=dev),
+             "noise_c": torch.randn((steps, 1) + shape, generator=gen, device=dev)}
+    with torch.no_grad():
+        node32 = model_2d32(batch, use_running_average=True)
+        saved = [c.launches for c in _counters()]
+        out_f = sample_positions_pc(sde32, node32, batch, n_steps=steps, fused=True, **draws)
+        out_c = sample_positions_pc(sde32, node32, batch, n_steps=steps, **draws)
+        torch.cuda.synchronize()
+        for c, n in zip(_counters(), saved):
+            c.launches = n
+    excess = ((out_f - out_c).abs() - (2e-4 + 1e-3 * out_c.abs())).max().item()
+    print(f"fused vs channel-major chain, f32, {steps} steps: max_abs_err="
+          f"{(out_f - out_c).abs().max().item():.3e} (tolerance atol 2e-4 + rtol 1e-3; "
+          f"largest excess {excess:.3e})", flush=True)
+    check(excess <= 0.0, "the f32 fused chain disagrees with the channel-major chain")
+    return results, launches, walls
+
+
+def pair_cm_direct_chain(dev):
+    """Phase 6: one chain with ``SDEModel2Dto3D(pair_cm_direct=True)``: K4
+    forward once, K3 never; its f32 edge features against K3's on the same
+    weights.  Returns the launch counts."""
+    from moleculesde_tpu_torch.benchmarks.profile_sampler import PATH_ARGS
+    from moleculesde_tpu_torch.examples import sample_2d_to_3d as cli
+
+    args = cli.get_parser().parse_args(PATH_ARGS)
+    batch = cli.make_batch(cli.load_graphs(args), args, dev)
+    model_2d, sde_cm = cli.build_models(args, dev, pair_cm_direct=True)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    reset_counts()
+    pos = cli.generate(model_2d, sde_cm, batch, gen, args)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print(f"pair_cm_direct chain launches: {launches} (expected K1 {args.num_layer}, K4 1, "
+          "K3 0)", flush=True)
+    check(launches == expect(gin_messages=args.num_layer, pair_relu_project_cm=1),
+          f"pair_cm_direct chain launch counts {launches}")
+    check(bool(torch.isfinite(pos).all()), "pair_cm_direct chain: non-finite positions")
+    with torch.no_grad():
+        node_2d = model_2d(batch, use_running_average=True)
+        saved = [c.launches for c in _counters()]
+        k4 = sde_cm.precompute_conditioning(node_2d, batch, layout="channel")["edge_attr_2d"]
+        k3 = sde_cm.precompute_conditioning(node_2d, batch, layout="feature")["edge_attr_2d"]
+        for c, n in zip(_counters(), saved):
+            c.launches = n
+    b, n = batch.num_graphs, batch.n_max
+    k3 = k3.reshape(b, n * n, -1).transpose(1, 2)
+    err = (k4 - k3).abs().max().item()
+    scale = max(1.0, k3.abs().max().item())
+    # both f32 (the sampler's pair block): the same sums in another order
+    print(f"pair_cm_direct edge_attr_2d (K4, f32) vs K3's transposed: max_abs_err={err:.3e} "
+          f"(tolerance {1e-5 * scale:.3e})", flush=True)
+    check(k4.dtype == torch.float32 and err <= 1e-5 * scale,
+          "K4's edge features disagree with K3's")
+    return launches
 
 
 # the gradient leaves the kernels write or feed first: K1's bond tables,
@@ -453,10 +677,10 @@ def training_path(dev):
     step_ms = (time.perf_counter() - t0) * 1e3 / steps
     launches = read_counts()
     per_step = {k: v / steps for k, v in launches.items()}
-    expected = {"gin_messages": cfg.num_layer, "gin_messages_bwd": cfg.num_layer,
-                "fused_cfconv": cfg.schnet_num_interactions,
-                "fused_cfconv_bwd": cfg.schnet_num_interactions,
-                "pair_relu_project": 1, "pair_relu_project_bwd": 1}
+    expected = expect(gin_messages=cfg.num_layer, gin_messages_bwd=cfg.num_layer,
+                      fused_cfconv=cfg.schnet_num_interactions,
+                      fused_cfconv_bwd=cfg.schnet_num_interactions,
+                      pair_relu_project=1, pair_relu_project_bwd=1)
     print(f"training path launches over {steps} steps: {launches} (per step {per_step}; "
           f"expected {expected})", flush=True)
     check(per_step == expected, f"training path launch counts {launches}")
@@ -516,7 +740,73 @@ def training_path(dev):
           flush=True)
     for k, v in worst:
         check(v <= leaf_tol, f"gradient of {k} disagrees with the all-plain step ({v:.3e})")
-    return results, launches
+    cm_launches = pair_cm_direct_steps(dev, args, cfg, models, batches, leaf_tol)
+    return results, launches, cm_launches
+
+
+def pair_cm_direct_steps(dev, args, cfg, models, batches, leaf_tol):
+    """Phase 7: two pretraining steps with ``pair_cm_direct=True`` on the
+    trained weights (K4 forward and backward once per step, K3 never), then
+    one step's losses and K4's own gradient leaves against the K3 build of
+    the same weights and draws.  Returns the launch counts of the two
+    steps."""
+    from moleculesde_tpu_torch.pretrain.train_state import build_models, make_optimizer
+    from moleculesde_tpu_torch.pretrain.train_step import (
+        METRICS, draw_losses, pretrain_loss, pretrain_step)
+
+    def copy(pair_cm_direct):
+        ms = build_models(cfg, dev, pair_cm_direct=pair_cm_direct)
+        for name in models:
+            ms[name].load_state_dict(models[name].state_dict())
+        return ms
+
+    cm = copy(True)
+    optimizer = make_optimizer(cm, cfg)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
+    steps = 2
+    reset_counts()
+    history = [pretrain_step(cm, optimizer, cfg, batch, gen) for batch in batches[1:steps + 1]]
+    torch.cuda.synchronize()
+    launches = read_counts()
+    expected = expect(gin_messages=steps * cfg.num_layer, gin_messages_bwd=steps * cfg.num_layer,
+                      fused_cfconv=steps * cfg.schnet_num_interactions,
+                      fused_cfconv_bwd=steps * cfg.schnet_num_interactions,
+                      pair_relu_project_cm=steps, pair_relu_project_cm_bwd=steps)
+    print(f"pair_cm_direct training launches over {steps} steps: {launches} (expected "
+          f"{expected})", flush=True)
+    check(launches == expected, f"pair_cm_direct training launch counts {launches}")
+    for m in history:
+        vals = {k: float(m[k]) for k in METRICS}
+        check(all(math.isfinite(v) for v in vals.values()), f"non-finite metrics {vals}")
+
+    batch = batches[steps + 1]
+    out = {}
+    saved = [c.launches for c in _counters()]
+    for label, ms in (("K3", copy(False)), ("K4", copy(True))):
+        g = torch.Generator(device=dev).manual_seed(args.seed + 3)
+        total, mets = pretrain_loss(ms, cfg, batch, g, draws=draw_losses(ms, cfg, batch, g))
+        total.backward()
+        leaves = {n: p.grad.detach().float().clone()
+                  for n, p in ms["SDE_2Dto3D_model"].named_parameters()
+                  if n.startswith("edge_2D_emb_") and f"SDE_2Dto3D_model.{n}" not in
+                  ZERO_GRAD_LEAVES}
+        out[label] = ({k: v.item() for k, v in mets.items()}, leaves)
+    for c, n in zip(_counters(), saved):
+        c.launches = n
+    (m3, l3), (m4, l4) = out["K3"], out["K4"]
+    tol = 1e-3
+    for k in METRICS:
+        err = abs(m4[k] - m3[k]) / max(1e-6, abs(m3[k]))
+        print(f"K4 vs K3 step: {k} {m4[k]:.6f} vs {m3[k]:.6f} rel {err:.2e} (tolerance {tol:g})",
+              flush=True)
+        check(err <= tol, f"{k} of the pair_cm_direct step disagrees with the K3 step")
+    check(sorted(l4) == sorted(l3) and len(l4) == 5, f"K4 leaves {sorted(l4)}")
+    for k in sorted(l4):
+        err = ((l4[k] - l3[k]).norm() / l3[k].norm().clamp(min=1e-30)).item()
+        print(f"K4 vs K3 step: grad {k} relative L2 {err:.2e} (tolerance {leaf_tol:g})",
+              flush=True)
+        check(err <= leaf_tol, f"gradient of {k} disagrees with the K3 step ({err:.3e})")
+    return launches
 
 
 def main() -> int:
@@ -539,43 +829,57 @@ def main() -> int:
     # 1. build every kernel, one nvcc per source, in parallel
     t0 = time.perf_counter()
     for name, report_ in build.build().items():
-        regs = [ln.strip() for ln in report_.splitlines() if "registers" in ln]
+        regs = [ln.strip() for ln in report_.splitlines() if "registers" in ln or "spill" in ln]
         print(f"built {name}: {'; '.join(regs)}", flush=True)
     print(f"kernel build {time.perf_counter() - t0:.1f} s", flush=True)
 
     sampler_results, sampler_launches = sampler_path(dev)
-    train_results, train_launches = training_path(dev)
+    fused_results, fused_launches, _ = fused_chain_path(dev)
+    cm_chain_launches = pair_cm_direct_chain(dev)
+    train_results, train_launches, cm_train_launches = training_path(dev)
 
+    runs = {"sample_2d_to_3d": sampler_launches, "sample_2d_to_3d_fused": fused_launches,
+            "sample_2d_to_3d_pair_cm_direct": cm_chain_launches,
+            "pretrain_5_steps": train_launches,
+            "pretrain_pair_cm_direct_2_steps": cm_train_launches}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    k6_keys = keys + ("max_rel_err",)
     kernels = []
-    for name, source, replaces in (
-            ("gin_messages", "moleculesde_tpu_torch/csrc/gin_messages.cu",
-             "moleculesde_tpu/ops/gin_messages.py:128"),
-            ("gin_messages_bwd", "moleculesde_tpu_torch/csrc/gin_messages.cu",
-             "moleculesde_tpu/ops/gin_messages.py:144"),
-            ("fused_cfconv", "moleculesde_tpu_torch/csrc/cfconv.cu",
-             "moleculesde_tpu/ops/cfconv.py:212"),
-            ("fused_cfconv_bwd", "moleculesde_tpu_torch/csrc/cfconv.cu",
-             "moleculesde_tpu/ops/cfconv.py:228"),
-            ("pair_relu_project", "moleculesde_tpu_torch/csrc/pair_block.cu",
-             "moleculesde_tpu/ops/pair_block.py:170"),
-            ("pair_relu_project_bwd", "moleculesde_tpu_torch/csrc/pair_block.cu",
-             "moleculesde_tpu/ops/pair_block.py:193")):
-        r = train_results[name]
-        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                 "launches": train_launches[name],
-                 "launches_by_path": {"sample_2d_to_3d": sampler_launches[name],
-                                      "pretrain_5_steps": train_launches[name]},
-                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                 "bound_by": r["bound_by"], "library_ms": None, "mode": "bf16",
-                 "f32": {k: train_results[name + "[f32]"][k] for k in (
-                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}}
-        if name in sampler_results:
-            entry["sampler_operands"] = {
-                mode: {k: sampler_results[name + sfx][k] for k in (
-                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
-                for mode, sfx in (("f32", ""), ("bf16", "[bf16]"))}
-        kernels.append(entry)
+    for name, source, replaces, main_path in (
+            ("gin_messages", "gin_messages.cu", "gin_messages.py:128", "pretrain_5_steps"),
+            ("gin_messages_bwd", "gin_messages.cu", "gin_messages.py:144", "pretrain_5_steps"),
+            ("fused_cfconv", "cfconv.cu", "cfconv.py:212", "pretrain_5_steps"),
+            ("fused_cfconv_bwd", "cfconv.cu", "cfconv.py:228", "pretrain_5_steps"),
+            ("pair_relu_project", "pair_block.cu", "pair_block.py:170", "pretrain_5_steps"),
+            ("pair_relu_project_bwd", "pair_block.cu", "pair_block.py:193", "pretrain_5_steps"),
+            ("pair_relu_project_cm", "pair_block.cu", "pair_block.py:337",
+             "pretrain_pair_cm_direct_2_steps"),
+            ("pair_relu_project_cm_bwd", "pair_block.cu", "pair_block.py:361",
+             "pretrain_pair_cm_direct_2_steps"),
+            ("score_eval_fused", "score_eval.cu", "score_kernel.py:388",
+             "sample_2d_to_3d_fused")):
+        if name == "score_eval_fused":   # the fused chain's mode: variant 1, bf16
+            r, f32 = fused_results["score_eval_fused[v1][bf16]"], fused_results[
+                "score_eval_fused[v1]"]
+            extra = {"max_rel_err": r["max_rel_err"],
+                     "variant_2": {mode: {k: fused_results["score_eval_fused[v2]" + sfx][k]
+                                          for k in k6_keys}
+                                   for mode, sfx in (("f32", ""), ("bf16", "[bf16]"))}}
+        else:
+            r, f32 = train_results[name], train_results[name + "[f32]"]
+            extra = {}
+            if name in sampler_results:
+                extra["sampler_operands"] = {
+                    mode: {k: sampler_results[name + sfx][k] for k in keys}
+                    for mode, sfx in (("f32", ""), ("bf16", "[bf16]"))}
+        kernels.append({
+            "name": name, "route": "cuda", "source": "moleculesde_tpu_torch/csrc/" + source,
+            "replaces": "moleculesde_tpu/ops/" + replaces,
+            "launches": runs[main_path][name], "main_path": main_path,
+            "launches_by_path": {path: counts[name] for path, counts in runs.items()},
+            **{k: r[k] for k in keys}, "library_ms": None, "mode": "bf16",
+            "f32": {k: f32[k] for k in (k6_keys if "max_rel_err" in f32 else keys)},
+            **extra})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -40,6 +40,24 @@
 // both products.  dw and db are batch-wide sums: each block writes its
 // graph's partial and a second launch adds them in graph order
 // (partials.cuh), so the result is the same on every run.
+//
+// K4, the channel-major variant (template flag CM), replaces
+// moleculesde_tpu/ops/pair_block.py::_fwd_kernel_cm (pallas_call at l.337)
+// and ::_bwd_kernel_cm (l.361), entry pair_relu_project_cm (l.409):
+//   out[b, h, s*N + d] = sum_c relu(a[b, s, c] + cc[b, d, c]) * w[c, h]
+// with no bias (the wrapper adds it, so autograd gives db).  The TPU kernel
+// builds the pair slab [C, N*N] with two selector matmuls because its lanes
+// want the N*N axis minor; on this card the pair value is formed in
+// registers as in K3, and only the store changes: a warp holds 32
+// neighbouring d of one source row, so each output channel is written as a
+// contiguous 128-byte run.  Same bound as K3: arithmetic, 2*N*N*C*H flops
+// per graph forward, 4*N*N*C*H backward.  Its bf16 mode rounds where the
+// TPU kernel rounds, which is not where K3 does: a and cc are rounded to
+// bf16 BEFORE the add (the TPU kernel casts its inputs), the relu mask
+// comes from that f32 sum, and the backward rounds the masked dpair to
+// bf16 before the da / dc sums.  The backward stages g's [H, N*N] rows with
+// neighbouring threads on neighbouring d, gives no db, and sums dw through
+// partials.cuh like K3.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -54,6 +72,7 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+template <bool CM>
 __global__ void pair_relu_project_fwd_kernel(const float* __restrict__ a,
                                              const float* __restrict__ cc,
                                              const float* __restrict__ w,
@@ -79,16 +98,18 @@ __global__ void pair_relu_project_fwd_kernel(const float* __restrict__ a,
     const float v = h < H ? w[static_cast<size_t>(k) * H + h] : 0.f;
     ws[i] = bf16 ? round_bf16(v) : v;
   }
-  for (int i = tid; i < HP; i += nthr) bs[i] = i < H ? bias[i] : 0.f;
+  for (int i = tid; i < HP; i += nthr) bs[i] = (!CM && i < H) ? bias[i] : 0.f;
   const float* ab = a + static_cast<size_t>(b) * N * C;
   const float* cb = cc + static_cast<size_t>(b) * N * C;
+  const bool round_halves = CM && bf16;  // K4 rounds a and cc before the add
   for (int i = tid; i < TS * C; i += nthr) {
     const int r = i / C, k = i - r * C;
-    as[r * CP + k] = (s0 + r < N) ? ab[static_cast<size_t>(s0 + r) * C + k] : 0.f;
+    const float v = (s0 + r < N) ? ab[static_cast<size_t>(s0 + r) * C + k] : 0.f;
+    as[r * CP + k] = round_halves ? round_bf16(v) : v;
   }
   for (int i = tid; i < N * C; i += nthr) {
     const int r = i / C, k = i - r * C;
-    cs[r * CP + k] = cb[i];
+    cs[r * CP + k] = round_halves ? round_bf16(cb[i]) : cb[i];
   }
   __syncthreads();
 
@@ -98,7 +119,7 @@ __global__ void pair_relu_project_fwd_kernel(const float* __restrict__ a,
   if (r >= TS || s >= N) return;  // no barrier below this point
   const float* arow = as + r * CP;
   const float* crow = cs + d * CP;
-  float* orow = out + ((static_cast<size_t>(b) * N + s) * N + d) * H;
+  float* orow = out + ((static_cast<size_t>(b) * N + s) * N + d) * H;  // !CM
   const bool vec_store = (H % 4) == 0;
 
   for (int h0 = 0; h0 < HP; h0 += kChanTile) {
@@ -118,7 +139,15 @@ __global__ void pair_relu_project_fwd_kernel(const float* __restrict__ a,
         acc[4 * j + 3] = fmaf(p, wv.w, acc[4 * j + 3]);
       }
     }
-    if (vec_store) {
+    if (CM) {
+      // channel-major [B, H, N*N]: a warp's threads hold neighbouring d,
+      // so each channel's store is one contiguous run
+      const size_t nn = static_cast<size_t>(N) * N;
+      float* ob = out + static_cast<size_t>(b) * H * nn + static_cast<size_t>(s) * N + d;
+#pragma unroll
+      for (int j = 0; j < kChanTile; ++j)
+        if (h0 + j < H) ob[(h0 + j) * nn] = acc[j];
+    } else if (vec_store) {
 #pragma unroll
       for (int j = 0; j < kChanTile; j += 4) {
         if (h0 + j < H) {
@@ -138,6 +167,7 @@ __global__ void pair_relu_project_fwd_kernel(const float* __restrict__ a,
   }
 }
 
+template <bool CM>
 __global__ void pair_relu_project_bwd_kernel(const float* __restrict__ a,
                                              const float* __restrict__ cc,
                                              const float* __restrict__ w,
@@ -145,7 +175,7 @@ __global__ void pair_relu_project_bwd_kernel(const float* __restrict__ a,
                                              float* __restrict__ da,
                                              float* __restrict__ dc,
                                              float* __restrict__ dw_part,  // [B, C, H]
-                                             float* __restrict__ db_part,  // [B, H]
+                                             float* __restrict__ db_part,  // [B, H]; !CM
                                              int N, int C, int H, int bf16) {
   extern __shared__ __align__(16) float smem[];
   float* grow = smem;                  // [N][kChanTile]: g[b, s, :, :]
@@ -158,10 +188,11 @@ __global__ void pair_relu_project_bwd_kernel(const float* __restrict__ a,
   const size_t nn = static_cast<size_t>(N) * N;
   const float* ab = a + static_cast<size_t>(b) * N * C;
   const float* cb = cc + static_cast<size_t>(b) * N * C;
-  const float* gb = g + static_cast<size_t>(b) * nn * H;
+  const float* gb = g + static_cast<size_t>(b) * nn * H;  // [N*N, H], or [H, N*N] if CM
+  const bool round_halves = CM && bf16;
 
   for (int i = c; i < N * C; i += blockDim.x) {
-    cs[i] = cb[i];
+    cs[i] = round_halves ? round_bf16(cb[i]) : cb[i];
     dcs[i] = 0.f;
   }
   float wr[kChanTile], dwr[kChanTile];
@@ -172,7 +203,7 @@ __global__ void pair_relu_project_bwd_kernel(const float* __restrict__ a,
     dwr[h] = 0.f;
   }
   // db: unrounded f32 sum of g over the graph's pairs, in pair order
-  if (c < H) {
+  if (!CM && c < H) {
     float acc = 0.f;
     for (size_t p = 0; p < nn; ++p) acc += gb[p * H + c];
     db_part[static_cast<size_t>(b) * H + c] = acc;
@@ -181,13 +212,23 @@ __global__ void pair_relu_project_bwd_kernel(const float* __restrict__ a,
   for (int s = 0; s < N; ++s) {
     __syncthreads();  // previous row's g fully consumed (and cs / dcs ready)
     for (int i = c; i < N * kChanTile; i += blockDim.x) {
-      const int d = i / kChanTile, h = i - d * kChanTile;
-      const float v = h < H ? gb[(static_cast<size_t>(s) * N + d) * H + h] : 0.f;
-      grow[i] = bf16 ? round_bf16(v) : v;
+      float v;
+      int d, h;
+      if (CM) {  // neighbouring threads read neighbouring d of one channel
+        h = i / N;
+        d = i - h * N;
+        v = h < H ? gb[static_cast<size_t>(h) * nn + static_cast<size_t>(s) * N + d] : 0.f;
+      } else {
+        d = i / kChanTile;
+        h = i - d * kChanTile;
+        v = h < H ? gb[(static_cast<size_t>(s) * N + d) * H + h] : 0.f;
+      }
+      grow[d * kChanTile + h] = bf16 ? round_bf16(v) : v;
     }
     __syncthreads();
     if (!active) continue;
-    const float as = ab[static_cast<size_t>(s) * C + c];
+    const float a_raw = ab[static_cast<size_t>(s) * C + c];
+    const float as = round_halves ? round_bf16(a_raw) : a_raw;
     float da_acc = 0.f;
     for (int d = 0; d < N; ++d) {
       const float pair = as + cs[d * C + c];
@@ -207,7 +248,8 @@ __global__ void pair_relu_project_bwd_kernel(const float* __restrict__ a,
         dwr[4 * j + 2] = fmaf(rr, gv.z, dwr[4 * j + 2]);
         dwr[4 * j + 3] = fmaf(rr, gv.w, dwr[4 * j + 3]);
       }
-      const float dp = pair > 0.f ? dr : 0.f;
+      float dp = pair > 0.f ? dr : 0.f;
+      if (round_halves) dp = round_bf16(dp);  // K4 rounds dpair before the sums
       da_acc += dp;
       dcs[d * C + c] += dp;
     }
@@ -233,13 +275,32 @@ extern "C" int pair_relu_project_fwd(const float* a, const float* cc,
   const size_t smem = (static_cast<size_t>(C) * HP + HP +
                        static_cast<size_t>(TS + N) * (C + 1)) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      pair_relu_project_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      pair_relu_project_fwd_kernel<false>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B, (N + TS - 1) / TS);
-  pair_relu_project_fwd_kernel<<<grid, TS * N, smem,
-                                 static_cast<cudaStream_t>(stream)>>>(
+  pair_relu_project_fwd_kernel<false><<<grid, TS * N, smem,
+                                        static_cast<cudaStream_t>(stream)>>>(
       a, cc, w, bias, out, N, C, H, TS, bf16);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K4 forward: out [B, H, N*N] channel-major, no bias; same launch as K3's.
+extern "C" int pair_relu_project_cm_fwd(const float* a, const float* cc,
+                                        const float* w, float* out, int B,
+                                        int N, int C, int H, int TS, int bf16,
+                                        void* stream) {
+  const int HP = ((H + kChanTile - 1) / kChanTile) * kChanTile;
+  const size_t smem = (static_cast<size_t>(C) * HP + HP +
+                       static_cast<size_t>(TS + N) * (C + 1)) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      pair_relu_project_fwd_kernel<true>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B, (N + TS - 1) / TS);
+  pair_relu_project_fwd_kernel<true><<<grid, TS * N, smem,
+                                       static_cast<cudaStream_t>(stream)>>>(
+      a, cc, w, nullptr, out, N, C, H, TS, bf16);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -255,16 +316,40 @@ extern "C" int pair_relu_project_bwd(const float* a, const float* cc,
   const size_t smem = (static_cast<size_t>(N) * kChanTile +
                        2 * static_cast<size_t>(N) * C) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      pair_relu_project_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      pair_relu_project_bwd_kernel<false>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int threads = ((C + 31) / 32) * 32;
-  pair_relu_project_bwd_kernel<<<B, threads, smem, s>>>(
+  pair_relu_project_bwd_kernel<false><<<B, threads, smem, s>>>(
       a, cc, w, g, da, dc, dw_part, db_part, N, C, H, bf16);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   partials::sum_rows(dw_part, dw, B, C * H, s);
   partials::sum_rows(db_part, db, B, H, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K4 backward: g [B, H, N*N]; da, dc [B, N, C], dw [C, H], no db; dw_part
+// (B * C * H floats) is caller-allocated scratch.  Needs H <= 32 and
+// C <= 1024.
+extern "C" int pair_relu_project_cm_bwd(const float* a, const float* cc,
+                                        const float* w, const float* g,
+                                        float* da, float* dc, float* dw,
+                                        float* dw_part, int B, int N, int C,
+                                        int H, int bf16, void* stream) {
+  const size_t smem = (static_cast<size_t>(N) * kChanTile +
+                       2 * static_cast<size_t>(N) * C) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      pair_relu_project_bwd_kernel<true>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int threads = ((C + 31) / 32) * 32;
+  pair_relu_project_bwd_kernel<true><<<B, threads, smem, s>>>(
+      a, cc, w, g, da, dc, dw_part, nullptr, N, C, H, bf16);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  partials::sum_rows(dw_part, dw, B, C * H, s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -101,9 +101,12 @@ def make_batch(mols: list, args, device) -> GraphBatch:
                       ext_e_max=args.ext_e_max or n_max * n_max).to(device)
 
 
-def build_models(args, device, msg_impl: str = "auto", pair_impl: str = "auto"):
+def build_models(args, device, msg_impl: str = "auto", pair_impl: str = "auto",
+                 pair_cm_direct: bool = False):
     """(GNN2D, SDEModel2Dto3D) at the flags' widths, weights from
-    ``--input_model_file`` or drawn from ``--seed``."""
+    ``--input_model_file`` or drawn from ``--seed``.  ``pair_cm_direct``
+    builds the 2D->3D model with the channel-major pair kernel (no CLI
+    flag, as in the JAX CLI)."""
     t23, bmin, bmax, n_steps = SDE_PRESETS_2DTO3D[args.SDE_type_2Dto3D]
     gen = torch.Generator().manual_seed(args.seed)
     model_2d = GNN2D(num_layers=args.num_layer, emb_dim=args.emb_dim,
@@ -114,7 +117,7 @@ def build_models(args, device, msg_impl: str = "auto", pair_impl: str = "auto"):
         beta_min=bmin, beta_max=bmax, num_diffusion_timesteps=n_steps,
         use_extend_graph=args.use_extend_graph,
         score_dtype=args.sampler_precision, pair_impl=pair_impl,
-        device=device, generator=gen)
+        pair_cm_direct=pair_cm_direct, device=device, generator=gen)
     if args.input_model_file:
         ckpt = load_checkpoint(args.input_model_file)
         model_2d.load_state_dict(ckpt["model_2D"])
@@ -123,9 +126,12 @@ def build_models(args, device, msg_impl: str = "auto", pair_impl: str = "auto"):
     return model_2d, sde_model
 
 
-def generate(model_2d, sde_model, batch, generator, args) -> torch.Tensor:
+def generate(model_2d, sde_model, batch, generator, args, fused: bool = False
+             ) -> torch.Tensor:
     """Conformers for one padded batch: GIN encoding then the PC chain;
-    returns positions [B * n_max, 3] on the batch's device."""
+    returns positions [B * n_max, 3] on the batch's device.  ``fused`` runs
+    the chain's score evaluations as the fused kernel (no CLI flag, as in
+    the JAX CLI; the benchmarks and ``chip_smoke.py`` set it)."""
     corrector_steps = (args.corrector_steps if args.corrector_steps is not None
                        else args.steps_pos)
     with torch.no_grad():
@@ -133,7 +139,7 @@ def generate(model_2d, sde_model, batch, generator, args) -> torch.Tensor:
         return sample_positions_pc(
             sde_model, node_2d, batch, generator,
             n_steps=args.num_diffusion_timesteps_2Dto3D_inference or None,
-            corrector_steps=corrector_steps,
+            corrector_steps=corrector_steps, fused=fused,
             score_chunk=args.sampler_score_chunk or None)
 
 

@@ -1,18 +1,21 @@
-"""2D->3D frame-based SE(3)-equivariant score model, channel-major sampling
-path (variants 1 and 2).
+"""2D->3D frame-based SE(3)-equivariant score model (variants 1 and 2).
 
 Counterpart of ``moleculesde_tpu/models/score_2d3d.py`` (reference
 Geom3D/models/MoleculeSDE/SDE_model_2D_to_3D.py, SDEModel2Dto3D_01/02, and
 equivariant_scorenetwork.py).  Per-pair quantities live on dense tensors
-indexed ``[batch, source, dest]`` and masked by the extended adjacency;
-pair tensors of the score evaluation are channel-major ``[B, C, N*N]`` with
-the flat pair index ``p = s * N + d``.  The conditioning (2D edge
-embedding, node embedding, pair mask) depends on the graph only and is
-computed once per chain (:meth:`SDEModel2Dto3D.precompute_conditioning`);
-:meth:`SDEModel2Dto3D.score_from_cond_cm` evaluates the score at given
-positions.  :meth:`SDEModel2Dto3D.loss` is the denoising score-matching
-training loss, which runs the same channel-major path (the JAX package's
-``loss_layout="channel"``) with dropout in the attention layers.
+indexed ``[batch, source, dest]`` and masked by the extended adjacency.
+The conditioning (2D edge embedding, node embedding, pair mask) depends on
+the graph only and is computed once per chain
+(:meth:`SDEModel2Dto3D.precompute_conditioning`); the score at given
+positions comes from one of three methods with the same math:
+- :meth:`SDEModel2Dto3D.score_from_cond_cm`: pair tensors channel-major
+  ``[B, C, N*N]``, flat pair index ``p = s * N + d``;
+- :meth:`SDEModel2Dto3D.score_from_cond`: feature-minor ``[B, N, N, C]``;
+- :meth:`SDEModel2Dto3D.score_from_cond_fused`: one fused kernel (K6) on
+  the feature-layout conditioning, forward only.
+:meth:`SDEModel2Dto3D.loss` is the denoising score-matching training loss
+in ``loss_layout`` (channel-major by default, as in JAX) with dropout in
+the attention layers.
 
 ``score_dtype="bfloat16"`` runs the invariant-feature and score-network
 pipeline in bf16 (frame geometry, softmax and the equivariant mixing stay
@@ -33,8 +36,9 @@ from moleculesde_tpu_torch.core.segment import masked_segment_mean
 from moleculesde_tpu_torch.models.layers import (
     MLP, Dense, LayerNorm, PairMaskedBatchNorm, dropout, init_parameters)
 from moleculesde_tpu_torch.ops.common import EPSILON, SQRT_GUARD
-from moleculesde_tpu_torch.ops.fourier import gaussian_fourier_projection_cm
-from moleculesde_tpu_torch.ops.pair_block import pair_relu_project
+from moleculesde_tpu_torch.ops.fourier import (
+    gaussian_fourier_projection, gaussian_fourier_projection_cm)
+from moleculesde_tpu_torch.ops.pair_block import pair_relu_project, pair_relu_project_cm
 from moleculesde_tpu_torch.sde.base import SDE, make_sde
 from moleculesde_tpu_torch.utils.device import resolve_device
 
@@ -54,6 +58,18 @@ class PairDense(nn.Module):
         return h @ self.kernel[:f], h @ self.kernel[f:] + self.bias
 
 
+def dense_frames(pos: torch.Tensor):
+    """All-pairs frame basis and invariant coefficients on ``[B, N, N]``
+    planes indexed ``[b, s, d]`` (JAX ``dense_frames``; reference
+    coord2basis, SDE_model_2D_to_3D.py:35-47).
+
+    Returns ``(basis, coff_s, coff_d, (pseudo_sin, pseudo_cos))``: ``basis``
+    is the (diff, cross, vertical) triple of component triples, ``coff_s`` /
+    ``coff_d`` the frame coefficients of the source and dest positions."""
+    comps = [pos[..., k] for k in range(3)]             # [B, N]
+    return _frames([c[:, :, None] for c in comps], [c[:, None, :] for c in comps])
+
+
 def dense_frames_flat(pos: torch.Tensor):
     """All-pairs frame basis and invariant coefficients, every plane
     pair-flattened to ``[B, N*N]`` (``p = s*N + d``).
@@ -63,9 +79,14 @@ def dense_frames_flat(pos: torch.Tensor):
     the two source-frame coefficients the Fourier features embed."""
     n = pos.shape[1]
     comps = [pos[..., k] for k in range(3)]             # [B, N]
-    ps = [c.repeat_interleave(n, dim=1) for c in comps]  # source: p // N
-    pd = [c.repeat(1, n) for c in comps]                 # dest:   p % N
+    basis, coff_s, _, angle = _frames([c.repeat_interleave(n, dim=1) for c in comps],
+                                      [c.repeat(1, n) for c in comps])
+    return basis, (coff_s[0], coff_s[2]), angle
 
+
+def _frames(ps, pd):
+    """Frame math on source / dest component planes that broadcast
+    together (``ps``, ``pd``: the x, y, z planes)."""
     diff = [s - d for s, d in zip(ps, pd)]
     cross = [ps[1] * pd[2] - ps[2] * pd[1],
              ps[2] * pd[0] - ps[0] * pd[2],
@@ -92,12 +113,14 @@ def dense_frames_flat(pos: torch.Tensor):
     dot = sum(a * b for a, b in zip(coff_s, coff_d))
     pseudo_cos = dot / (norm3(coff_s) + EPSILON) / (norm3(coff_d) + EPSILON)
     pseudo_sin = torch.sqrt(torch.clamp(1.0 - pseudo_cos ** 2, min=1e-12))
-    return (diff, cross, vert), (coff_s[0], coff_s[2]), (pseudo_sin, pseudo_cos)
+    return (diff, cross, vert), coff_s, coff_d, (pseudo_sin, pseudo_cos)
 
 
 class DenseGATLayer(nn.Module):
     """TransformerConv + FFN with post-norm residuals as masked dense
-    attention, channel-major pair input ``[B, H, N*N]``.
+    attention; the pair input is channel-major ``[B, H, N*N]`` or
+    feature-minor ``[B, N, N, H]`` (``channel_major``), same parameters and
+    math.
 
     logits = q_d . (k_s + e_sd) / sqrt(c), softmax over sources s per
     destination d (f32, ``finfo.min`` masking, then ``alpha * mask`` so an
@@ -149,10 +172,36 @@ class DenseGATLayer(nn.Module):
         alpha_full = alpha.to(dt)[:, :, None].expand(b, h, c, n, n).reshape(b, hd, n, n)
         return torch.einsum("bcsd->bdc", alpha_full * (v_t[:, :, :, None] + e4))
 
-    def forward(self, x, edge_cm, pair_mask, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None):
-        mha = (self._attend_cm(x, edge_cm, pair_mask, deterministic, generator)
-               + self.lin_skip(x))
+    def _attend(self, x, edge_attr, pair_mask, deterministic, generator):
+        """Feature-minor form (JAX ``DenseGATLayer``, l.242-267): q, k, v and
+        e in the layer's dtype, logits and softmax in f32."""
+        h = self.n_head
+        c = self.hidden_dim // h
+        b, n, _ = x.shape
+        dt = self.dtype or x.dtype
+        xd = x.to(dt)
+
+        def lin(inp, mod):
+            return inp @ mod.kernel.to(dt) + mod.bias.to(dt)
+
+        q4 = lin(xd, self.lin_query).reshape(b, n, h, c)
+        k4 = lin(xd, self.lin_key).reshape(b, n, h, c)
+        v4 = lin(xd, self.lin_value).reshape(b, n, h, c)
+        e5 = lin(edge_attr.to(dt), self.lin_edge).reshape(b, n, n, h, c)
+        logits = (torch.einsum("bdhc,bshc->bhsd", q4, k4).float()
+                  + torch.einsum("bdhc,bsdhc->bhsd", q4, e5).float()) / math.sqrt(float(c))
+        mask4 = pair_mask[:, None, :, :]
+        alpha = torch.softmax(torch.where(mask4, logits, torch.finfo(torch.float32).min),
+                              dim=2)
+        alpha = dropout(alpha * mask4, self.dropout, generator, deterministic).to(v4.dtype)
+        out = (torch.einsum("bhsd,bshc->bdhc", alpha, v4)
+               + torch.einsum("bhsd,bsdhc->bdhc", alpha, e5))
+        return out.reshape(b, n, h * c)
+
+    def forward(self, x, edge_attr, pair_mask, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None, channel_major: bool = True):
+        attend = self._attend_cm if channel_major else self._attend
+        mha = attend(x, edge_attr, pair_mask, deterministic, generator) + self.lin_skip(x)
         x = x + self.LayerNorm_0(mha)
         ffn = dropout(F.silu(self.Dense_0(x)), self.dropout, generator, deterministic)
         return x + self.LayerNorm_1(self.Dense_1(ffn))
@@ -203,25 +252,49 @@ class EquivariantScoreNetwork(nn.Module):
                  ).reshape(b, n, n).sum(dim=1)
                 for bx in zip(*basis)]
 
-    def forward(self, node_attr, edge_cm, pair_mask, basis, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """node_attr [B, N, H]; edge_cm [B, H, N*N]; pair_mask [B, N, N] bool;
-        ``basis`` from :func:`dense_frames_flat`.  Returns [B, N, 3] f32.
-        ``deterministic=False`` turns dropout on (masks from ``generator``)."""
+    def _coff_mix(self, m, node_f, edge_attr, basis, maskf):
+        """Feature-minor form (JAX ``coff_mix``, l.422-438): ``edge_attr``
+        [B, N, N, H], basis planes [B, N, N]."""
+        wh = getattr(self, f"basis_node_{m}").kernel
+        be_mod = getattr(self, f"basis_edge_{m}")
+        wo_mod = getattr(self, f"basis_out_{m}")
+        dt = self.dtype or node_f.dtype
+        h_part = node_f.to(dt) @ wh.to(dt)                            # [B, N, cd]
+        e_part = edge_attr.to(dt) @ be_mod.kernel.to(dt) + be_mod.bias.to(dt)
+        coff = F.silu(h_part[:, :, None, :] + h_part[:, None, :, :] + e_part)
+        c = (torch.einsum("bsdf,fc->cbsd", coff, wo_mod.kernel.to(dt)).float()
+             + wo_mod.bias[:, None, None, None])                     # [3, B, N, N]
+        return [((c[0] * bx[0] + c[1] * bx[1] + c[2] * bx[2]) * maskf).sum(dim=1)
+                for bx in zip(*basis)]
+
+    def forward(self, node_attr, edge_attr, pair_mask, basis, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None,
+                channel_major: bool = True) -> torch.Tensor:
+        """node_attr [B, N, H]; ``edge_attr`` [B, H, N*N] with ``basis`` from
+        :func:`dense_frames_flat` (``channel_major``), or [B, N, N, H] with
+        ``basis`` from :func:`dense_frames`; pair_mask [B, N, N] bool.
+        Returns [B, N, 3] f32.  ``deterministic=False`` turns dropout on
+        (masks from ``generator``)."""
         b, n, _ = node_attr.shape
         count = pair_mask.sum(dim=1).clamp(min=1)          # valid sources per dest
-        maskf = pair_mask.reshape(b, n * n).to(node_attr.dtype)
+        if channel_major:
+            maskf = pair_mask.reshape(b, n * n).to(node_attr.dtype)
+            mix = self._coff_mix_cm
+        else:
+            maskf = pair_mask.to(node_attr.dtype)
+            mix = self._coff_mix
         grad = [torch.zeros((b, n), dtype=node_attr.dtype, device=node_attr.device)
                 for _ in range(3)]
         conv_input = node_attr
         for m in range(self.num_layers):
             for conv in range(self.num_convs):
                 layer = getattr(self, f"DenseGATLayer_{m * self.num_convs + conv}")
-                hidden = layer(conv_input, edge_cm, pair_mask, deterministic, generator)
+                hidden = layer(conv_input, edge_attr, pair_mask, deterministic, generator,
+                               channel_major)
                 if conv < self.num_convs - 1:
                     hidden = F.silu(hidden)
                 conv_input = hidden
-            mixed = self._coff_mix_cm(m, conv_input, edge_cm, basis, maskf)
+            mixed = mix(m, conv_input, edge_attr, basis, maskf)
             grad = [g + mx / count for g, mx in zip(grad, mixed)]
         return torch.stack(grad, dim=-1)
 
@@ -236,19 +309,26 @@ class SDEModel2Dto3D(nn.Module):
     ``device`` ("cuda" by default; raises without a GPU unless "cpu").
     ``pair_impl`` selects the pair block: "auto" (kernel on a CUDA tensor,
     plain on a CPU tensor), "kernel" or "plain"; ``bf16_pairs`` runs it in
-    its bf16 mode (pretraining's choice; the samplers keep f32)."""
+    its bf16 mode (pretraining's choice; the samplers keep f32).
+    ``loss_layout`` is the pair layout of :meth:`loss` and :meth:`get_score`
+    ("channel" ``[B, C, N*N]`` or "feature" ``[B, N, N, C]``, same math);
+    ``pair_cm_direct`` makes the channel-layout conditioning take the
+    channel-major pair kernel (K4) instead of K3 and a transpose."""
 
     def __init__(self, emb_dim: int, hidden_dim: int = 32, variant: int = 2,
                  beta_min: float = 0.2, beta_max: float = 1.0,
                  num_diffusion_timesteps: int = 1000, sde_type: str = "VE",
                  use_extend_graph: bool = True, score_dtype: str = "float32",
                  bf16_pairs: bool = False, pair_impl: str = "auto",
+                 loss_layout: str = "channel", pair_cm_direct: bool = False,
                  device: str | torch.device = "cuda",
                  generator: torch.Generator | None = None):
         super().__init__()
         if variant not in (1, 2):
             raise NotImplementedError(
                 f"SDEModel2Dto3D variant {variant} is not ported yet (1, 2 are)")
+        if loss_layout not in ("channel", "feature"):
+            raise ValueError(f"unknown loss_layout {loss_layout}")
         dev = resolve_device(device)
         h = hidden_dim
         self.emb_dim = emb_dim
@@ -260,6 +340,8 @@ class SDEModel2Dto3D(nn.Module):
         self.score_dtype = score_dtype
         self.bf16_pairs = bf16_pairs
         self.pair_impl = pair_impl
+        self.loss_layout = loss_layout
+        self.pair_cm_direct = pair_cm_direct
         dt = torch.bfloat16 if score_dtype == "bfloat16" else None
         self.cdt = dt or torch.float32
         self.edge_2D_emb_0 = PairDense(emb_dim, emb_dim)
@@ -304,33 +386,126 @@ class SDEModel2Dto3D(nn.Module):
 
     def precompute_conditioning(self, node_2d_repr: torch.Tensor,
                                 batch: GraphBatch,
-                                use_running_average: bool = True
-                                ) -> Dict[str, torch.Tensor]:
-        """Position-independent conditioning, channel-major layout:
-        ``edge_attr_2d`` [B, H, N*N] (score dtype), ``node_attr`` [B, N, H],
-        ``pair_mask`` [B, N, N].  One pair-block launch."""
+                                use_running_average: bool = True,
+                                layout: str = "feature") -> Dict[str, torch.Tensor]:
+        """Position-independent conditioning: ``edge_attr_2d``, ``node_attr``
+        [B, N, H] and ``pair_mask`` [B, N, N], as JAX's method gives them.
+
+        ``layout="feature"``: ``edge_attr_2d`` [B, N, N, H] f32 from the pair
+        block (K3).  ``layout="channel"``: [B, H, N*N]; from K3 cast to the
+        score dtype and transposed, or with ``pair_cm_direct`` straight from
+        the channel-major pair block (K4), f32 with its bias.  One
+        pair-block launch either way."""
+        if layout not in ("feature", "channel"):
+            raise ValueError(f"unknown layout {layout}")
         b, n = batch.num_graphs, batch.n_max
         pair_mask, _ = self._pair_mask_attr(batch)
-        edge_attr_2d = pair_relu_project(
-            *self.pair_block_inputs(node_2d_repr, batch, pair_mask, use_running_average),
-            bf16=self.bf16_pairs, impl=self.pair_impl)
+        inputs = self.pair_block_inputs(node_2d_repr, batch, pair_mask, use_running_average)
         node_attr = self.node_emb(node_2d_repr.reshape(b, n, -1))
-        edge_attr_2d = edge_attr_2d.to(self.cdt).reshape(b, n * n, -1
-                                                         ).transpose(1, 2).contiguous()
+        if layout == "channel" and self.pair_cm_direct:
+            edge_attr_2d = pair_relu_project_cm(*inputs, bf16=self.bf16_pairs,
+                                                impl=self.pair_impl)
+        else:
+            edge_attr_2d = pair_relu_project(*inputs, bf16=self.bf16_pairs,
+                                             impl=self.pair_impl)
+            if layout == "channel":
+                edge_attr_2d = edge_attr_2d.to(self.cdt).reshape(
+                    b, n * n, -1).transpose(1, 2).contiguous()
         return {"edge_attr_2d": edge_attr_2d, "node_attr": node_attr,
                 "pair_mask": pair_mask}
+
+    def score_from_cond(self, cond: Dict[str, torch.Tensor], pos: torch.Tensor,
+                        deterministic: bool = True,
+                        generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Feature-layout twin of :meth:`score_from_cond_cm` (JAX
+        ``score_from_cond``, l.672-729): every pair tensor is [B, N, N, C].
+        ``cond`` comes from ``precompute_conditioning(layout="feature")``,
+        whose f32 ``edge_attr_2d`` keeps the edge features f32 in bf16 score
+        mode, as in JAX."""
+        h = self.hidden_dim
+        pair_mask = cond["pair_mask"]
+        b, n = pair_mask.shape[0], pair_mask.shape[1]
+        edge_attr_2d = cond["edge_attr_2d"]
+        if edge_attr_2d.ndim != 4:
+            raise ValueError("cond must be precomputed with layout='feature'")
+        cdt = self.cdt
+        pos3 = pos.reshape(b, n, 3)
+        basis, coff_s, _, (pseudo_sin, pseudo_cos) = dense_frames(pos3)
+
+        # Fourier features of the source-frame coefficients only (the s<->d
+        # symmetry of score_from_cond_cm, pair-transposed over axes 1, 2)
+        w_coff = self.coff_fourier_W
+        full = torch.cat([gaussian_fourier_projection(coff_s[0][..., None], w_coff),
+                          gaussian_fourier_projection(coff_s[2][..., None], w_coff)],
+                         dim=-1).to(cdt)                               # [B, N, N, 4h]
+        wm_c = self.coff_mlp.kernel.to(cdt)
+        wm_neg = torch.cat([-wm_c[:h], wm_c[h:]], dim=0)
+        bm_c = self.coff_mlp.bias.to(cdt)
+        embed_s = full @ wm_c + bm_c
+        embed_d = (full @ wm_neg).transpose(1, 2) + bm_c
+        # the concatenation promotes to f32, as jnp.concatenate does
+        edge_embed = torch.cat([pseudo_sin[..., None], pseudo_cos[..., None],
+                                embed_s.float(), embed_d.float()], dim=-1)
+        frame_inv = self.project(edge_embed)
+
+        if self.variant == 2:
+            sq = sum((pos3[..., k][:, :, None] - pos3[..., k][:, None, :]) ** 2
+                     for k in range(3))
+            dist = torch.sqrt(sq + SQRT_GUARD)[..., None]
+            dist_inv = self.input_mlp(gaussian_fourier_projection(dist, self.dist_fourier_W))
+            edge_attr = dist_inv * edge_attr_2d + frame_inv
+        else:
+            edge_attr = edge_attr_2d + frame_inv
+        edge_attr = edge_attr * pair_mask[..., None]
+
+        out = self.score_network(cond["node_attr"], edge_attr, pair_mask, basis,
+                                 deterministic, generator, channel_major=False)
+        return out.reshape(b * n, 3)
+
+    def packed_score_params(self) -> torch.Tensor:
+        """The weights the fused score kernel reads, packed once
+        (``ops/score_kernel.py::pack_score_params``)."""
+        from moleculesde_tpu_torch.ops.score_kernel import pack_score_params
+
+        return pack_score_params(self, self.variant)
+
+    def score_from_cond_fused(self, cond: Dict[str, torch.Tensor], pos: torch.Tensor,
+                              packed: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The position-dependent half as one fused kernel launch (K6,
+        ``ops/score_kernel.py``; JAX ``score_from_cond_fused``, l.809-834):
+        forward only, for samplers.  ``cond`` from
+        ``precompute_conditioning(layout="feature")``; ``packed`` from
+        :meth:`packed_score_params` (packed here when None)."""
+        from moleculesde_tpu_torch.ops.score_kernel import score_eval_fused
+
+        net = self.score_network
+        if getattr(net, "short_cut", False) or getattr(net, "concat_hidden", False):
+            # JAX routes these to score_from_cond; the port's network has neither
+            raise NotImplementedError("the fused score kernel takes neither short_cut "
+                                      "nor concat_hidden")
+        pair_mask = cond["pair_mask"]
+        b, n = pair_mask.shape[0], pair_mask.shape[1]
+        out = score_eval_fused(
+            pos.reshape(b, n, 3), cond["node_attr"], cond["edge_attr_2d"], pair_mask,
+            self.packed_score_params() if packed is None else packed,
+            variant=self.variant, bf16=self.score_dtype == "bfloat16")
+        return out.reshape(b * n, 3)
 
     def score_from_cond_cm(self, cond: Dict[str, torch.Tensor], pos: torch.Tensor,
                            deterministic: bool = True,
                            generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Raw network output at positions ``pos`` [B*N, 3] -> [B*N, 3] f32,
-        from conditioning precomputed by :meth:`precompute_conditioning`
-        (dropout on when ``deterministic`` is False)."""
+        from conditioning precomputed by ``precompute_conditioning(...,
+        layout="channel")`` (dropout on when ``deterministic`` is False).
+        With ``pair_cm_direct`` the 2D edge features arrive f32, and the
+        edge features stay f32 in bf16 score mode, as in JAX."""
         h = self.hidden_dim
         pair_mask = cond["pair_mask"]
         b, n = pair_mask.shape[0], pair_mask.shape[1]
         nn_ = n * n
         edge2d_cm = cond["edge_attr_2d"]
+        if edge2d_cm.ndim != 3:
+            raise ValueError("cond must be precomputed with layout='channel'")
         cdt = self.cdt
         pos3 = pos.reshape(b, n, 3)
         basis, (c0, c2), (pseudo_sin, pseudo_cos) = dense_frames_flat(pos3)
@@ -397,9 +572,27 @@ class SDEModel2Dto3D(nn.Module):
         t_pos = time_step[node2graph]
         mean_pos, std_pos = sde.marginal_prob(batch.positions, t_pos)
         pos_perturbed = mean_pos + std_pos[:, None] * pos_noise
-        cond = self.precompute_conditioning(node_2d_repr, batch, use_running_average)
-        scores = self.score_from_cond_cm(cond, pos_perturbed, deterministic, generator)
+        scores = self._score_output(node_2d_repr, batch, pos_perturbed, deterministic,
+                                    use_running_average, generator)
         loss_pos = ((scores - pos_noise) ** 2).sum(dim=-1)
         if anneal_power != 0.0:
             loss_pos = loss_pos * std_pos ** anneal_power
         return masked_segment_mean(loss_pos, node2graph, b, batch.node_mask).mean()
+
+    def _score_output(self, node_2d_repr, batch, pos, deterministic: bool,
+                      use_running_average: bool,
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Conditioning and score network in ``loss_layout`` -> [N_nodes, 3]."""
+        cond = self.precompute_conditioning(node_2d_repr, batch, use_running_average,
+                                            layout=self.loss_layout)
+        score = self.score_from_cond_cm if self.loss_layout == "channel" else self.score_from_cond
+        return score(cond, pos, deterministic, generator)
+
+    def get_score(self, node_2d_repr: torch.Tensor, batch: GraphBatch,
+                  pos_perturbed: torch.Tensor, t_pos: torch.Tensor) -> torch.Tensor:
+        """Score for reverse-SDE sampling, ``-net(x_t) / std(t)`` (ref
+        SDE_model_2D_to_3D.py:393-445; JAX ``get_score``), in eval mode: no
+        dropout, running BatchNorm statistics."""
+        out = self._score_output(node_2d_repr, batch, pos_perturbed, True, True)
+        _, std_pos = self.sde_pos.marginal_prob(pos_perturbed, t_pos)
+        return -out / std_pos[:, None]

@@ -2,17 +2,19 @@
 ``[B, N, N, C]`` to device memory, and the analytic masked BatchNorm
 statistics of an implicit pair tensor.
 
-Counterpart of ``moleculesde_tpu/ops/pair_block.py`` (``pair_mean_var``
-and ``pair_relu_project``, forward and backward).  On a CUDA tensor the
-wrappers launch the hand-written kernels of ``csrc/pair_block.cu``, which
-replace the TPU kernels ``_fwd_kernel`` (``pallas_call`` at
-``ops/pair_block.py:170``) and ``_bwd_kernel`` (l.193): both are
+Counterpart of ``moleculesde_tpu/ops/pair_block.py`` (``pair_mean_var``,
+``pair_relu_project`` and ``pair_relu_project_cm``, forward and backward).
+On a CUDA tensor the wrappers launch the hand-written kernels of
+``csrc/pair_block.cu``, which replace the TPU kernels ``_fwd_kernel``
+(``pallas_call`` at ``ops/pair_block.py:170``), ``_bwd_kernel`` (l.193),
+``_fwd_kernel_cm`` (l.337) and ``_bwd_kernel_cm`` (l.361): all are
 arithmetic-bound and form each pair value in registers, once per channel,
 so the pair tensor never reaches device memory (the source's header says
-more).  On a CPU tensor they take :func:`pair_relu_project_plain` and
-:func:`pair_relu_project_bwd_plain`.  :func:`pair_relu_project` is
-differentiable through a ``torch.autograd.Function``: a, c, w and the bias
-get gradients, as from the TPU kernel's custom VJP.
+more).  On a CPU tensor they take the ``*_plain`` versions.
+:func:`pair_relu_project` (K3, ``[B, N, N, H]``) and
+:func:`pair_relu_project_cm` (K4, ``[B, H, N*N]``) are differentiable
+through ``torch.autograd.Function``s: a, c, w and the bias get gradients,
+as from the TPU kernels' custom VJPs.
 """
 
 from __future__ import annotations
@@ -76,12 +78,41 @@ def pair_relu_project_bwd_plain(a, c, w, g, *, bf16: bool = False):
     return dpair.sum(dim=2), dpair.sum(dim=1), dw, g.float().reshape(-1, h).sum(dim=0)
 
 
+def pair_relu_project_cm_plain(a, c, w, *, bf16: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of the channel-major kernel (K4):
+    ``out[b, h, s*N + d] = relu(a[b, s] + c[b, d]) @ w[:, h]`` -> [B, H, N*N]
+    float32, no bias.  ``bf16`` rounds a and c before the add, the relu'd
+    pair and ``w`` to bf16 (f32 accumulation), as the TPU kernel does."""
+    b, n, _ = a.shape
+    pair = torch.relu(round_bf16(a, bf16)[:, :, None, :] + round_bf16(c, bf16)[:, None, :, :])
+    out = round_bf16(pair, bf16) @ round_bf16(w, bf16)          # [B, N, N, H]
+    return out.reshape(b, n * n, -1).transpose(1, 2).contiguous()
+
+
+def pair_relu_project_cm_bwd_plain(a, c, w, g, *, bf16: bool = False):
+    """Plain PyTorch version of the channel-major backward kernel: (da, dc
+    [B, N, C], dw [C, H]), f32, for the cotangent ``g`` [B, H, N*N]; no db
+    (the bias is added outside the kernel).  ``bf16`` rounds a and c, g, w
+    and the relu'd pair to bf16, masks the f32 ``dpair`` by ``pair > 0`` and
+    rounds it to bf16 before the two sums, as the TPU kernel does."""
+    b, n, cdim = a.shape
+    h = w.shape[1]
+    pair = round_bf16(a, bf16)[:, :, None, :] + round_bf16(c, bf16)[:, None, :, :]
+    relu = round_bf16(torch.relu(pair), bf16)
+    gg = round_bf16(g, bf16).transpose(1, 2).reshape(b, n, n, h)
+    dpair = torch.where(pair > 0, gg @ round_bf16(w, bf16).t(),
+                        torch.zeros((), device=g.device))
+    dpair = round_bf16(dpair, bf16)
+    dw = relu.reshape(-1, cdim).t() @ gg.reshape(-1, h)
+    return dpair.sum(dim=2), dpair.sum(dim=1), dw
+
+
 def _source_tile(n: int) -> int:
     """Source rows per block: about 256 threads, one per (source, dest)."""
     return max(1, min(n, 256 // n))
 
 
-def _check_kernel_inputs(a, c, w, bias=None, g=None):
+def _check_kernel_inputs(a, c, w, bias=None, g=None, cm: bool = False):
     tensors = {"a": a, "c": c, "w": w}
     for name, t in (("bias", bias), ("g", g)):
         if t is not None:
@@ -97,9 +128,10 @@ def _check_kernel_inputs(a, c, w, bias=None, g=None):
         raise ValueError("pair_relu_project kernel: expected a, c [B,N,C], w [C,H]")
     b, n, cdim = a.shape
     h = w.shape[1]
+    g_shape = (b, h, n * n) if cm else (b, n, n, h)
     if (tuple(c.shape) != (b, n, cdim) or tuple(w.shape) != (cdim, h)
             or (bias is not None and tuple(bias.shape) != (h,))
-            or (g is not None and tuple(g.shape) != (b, n, n, h))):
+            or (g is not None and tuple(g.shape) != g_shape)):
         raise ValueError("pair_relu_project kernel: inconsistent shapes "
                          f"a{tuple(a.shape)} c{tuple(c.shape)} w{tuple(w.shape)} "
                          f"g{None if g is None else tuple(g.shape)}")
@@ -158,6 +190,84 @@ def _launch_bwd(a, c, w, g, bf16: bool):
     return da, dc, dw, db
 
 
+def _launch_cm(a, c, w, bf16: bool) -> torch.Tensor:
+    _check_kernel_inputs(a, c, w)
+    b, n, cdim = a.shape
+    h = w.shape[1]
+    out = torch.empty((b, h, n * n), dtype=torch.float32, device=a.device)
+    if out.numel() == 0:
+        return out
+    fn = build.load("pair_block").pair_relu_project_cm_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    rc = fn(a.data_ptr(), c.data_ptr(), w.data_ptr(), out.data_ptr(), b, n, cdim, h,
+            _source_tile(n), int(bf16), stream(a))
+    build.check_launch(rc, "pair_relu_project_cm_fwd")
+    pair_relu_project_cm.launches += 1
+    return out
+
+
+def _launch_cm_bwd(a, c, w, g, bf16: bool):
+    _check_kernel_inputs(a, c, w, g=g, cm=True)
+    b, n, cdim = a.shape
+    h = w.shape[1]
+    da = torch.empty_like(a)
+    dc = torch.empty_like(a)
+    dw = torch.empty((cdim, h), dtype=torch.float32, device=a.device)
+    if a.numel() == 0:
+        return da, dc, dw.zero_()
+    dw_part = torch.empty((b, cdim, h), dtype=torch.float32, device=a.device)
+    fn = build.load("pair_block").pair_relu_project_cm_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    rc = fn(a.data_ptr(), c.data_ptr(), w.data_ptr(), g.data_ptr(), da.data_ptr(),
+            dc.data_ptr(), dw.data_ptr(), dw_part.data_ptr(), b, n, cdim, h, int(bf16),
+            stream(a))
+    build.check_launch(rc, "pair_relu_project_cm_bwd")
+    pair_relu_project_cm_bwd.launches += 1
+    return da, dc, dw
+
+
+def pair_relu_project_cm_bwd(a, c, w, g, *, bf16: bool = False, impl: str = "auto"):
+    """Backward of :func:`pair_relu_project_cm` for the cotangent ``g``
+    [B, H, N*N]: returns (da, dc, dw), f32.  ``impl`` as in
+    :func:`pair_relu_project`."""
+    if resolve_impl(impl, a, "pair_relu_project_cm") == "plain":
+        return pair_relu_project_cm_bwd_plain(a, c, w, g, bf16=bf16)
+    return _launch_cm_bwd(a, c, w, g, bf16)
+
+
+class _PairReluProjectCm(torch.autograd.Function):
+    """The channel-major kernel pair (or the plain pair) under autograd."""
+
+    @staticmethod
+    def forward(ctx, a, c, w, bf16, impl):
+        ctx.save_for_backward(a, c, w)
+        ctx.bf16, ctx.impl = bf16, impl
+        if impl == "plain":
+            return pair_relu_project_cm_plain(a, c, w, bf16=bf16)
+        return _launch_cm(a, c, w, bf16)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, c, w = ctx.saved_tensors
+        da, dc, dw = pair_relu_project_cm_bwd(a, c, w, g.contiguous(), bf16=ctx.bf16,
+                                              impl=ctx.impl)
+        return da, dc, dw, None, None
+
+
+def pair_relu_project_cm(a, c, w, bias: Optional[torch.Tensor] = None, *,
+                         bf16: bool = False, impl: str = "auto") -> torch.Tensor:
+    """``out[b, h, s*N + d] = relu(a[b, s, :] + c[b, d, :]) @ w[:, h] + bias[h]``
+    -> [B, H, N*N] float32, the channel-major layout the score pipeline
+    consumes; differentiable in a, c, w and bias.  The kernel (K4) has no
+    bias: it is added here, so autograd gives its gradient.  a and c stay
+    [B, N, C] (the TPU wrapper transposes them only for its lanes)."""
+    out = _PairReluProjectCm.apply(a, c, w, bf16,
+                                   resolve_impl(impl, a, "pair_relu_project_cm"))
+    return out if bias is None else out + bias.float()[None, :, None]
+
+
 def pair_relu_project_bwd(a, c, w, g, *, bf16: bool = False, impl: str = "auto"):
     """Backward of :func:`pair_relu_project` for the output cotangent ``g``
     [B, N, N, H]: returns (da, dc, dw, db), f32.  ``impl`` as in
@@ -200,3 +310,5 @@ def pair_relu_project(a, c, w, bias: Optional[torch.Tensor] = None, *,
 
 pair_relu_project.launches = 0
 pair_relu_project_bwd.launches = 0
+pair_relu_project_cm.launches = 0
+pair_relu_project_cm_bwd.launches = 0

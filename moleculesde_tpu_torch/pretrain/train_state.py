@@ -90,11 +90,14 @@ class PretrainConfig:
 
 def build_models(cfg: PretrainConfig, device: str | torch.device = "cuda",
                  generator: Optional[torch.Generator] = None,
-                 impl: str = "auto") -> Dict[str, nn.Module]:
+                 impl: str = "auto", pair_cm_direct: bool = False) -> Dict[str, nn.Module]:
     """The four components at ``cfg``'s widths, initialized in order from
     ``generator`` (default: seed 0) on ``device``.  ``impl`` selects every
     kernel wrapper's implementation ("auto": the kernels on a CUDA device,
-    the plain versions on the CPU; "plain" or "kernel" forces one)."""
+    the plain versions on the CPU; "plain" or "kernel" forces one).
+    ``pair_cm_direct`` gives the 2D->3D model the channel-major pair kernel
+    (``SDEModel2Dto3D(pair_cm_direct=True)``; not a config field, as in
+    JAX)."""
     if cfg.gnn_type != "GIN" or cfg.jk != "last":
         raise NotImplementedError("only GIN with JK 'last' is ported so far")
     if cfg.model_3d != "SchNet":
@@ -118,7 +121,8 @@ def build_models(cfg: PretrainConfig, device: str | torch.device = "cuda",
         variant=cfg.sde_2dto3d_variant, sde_type=t23, beta_min=bmin23,
         beta_max=bmax23, num_diffusion_timesteps=n23,
         use_extend_graph=cfg.use_extend_graph, score_dtype=cfg.train_precision,
-        bf16_pairs=cfg.bf16, pair_impl=impl, device=device, generator=gen)
+        bf16_pairs=cfg.bf16, pair_impl=impl, pair_cm_direct=pair_cm_direct,
+        device=device, generator=gen)
     t32, bmin32, bmax32, n32 = SDE_PRESETS_3DTO2D[cfg.sde_type_3dto2d]
     # dense-net widths hard-coded by the reference's pretraining script
     # (pretrain_MoleculeSDE.py:309-315)
@@ -132,6 +136,23 @@ def build_models(cfg: PretrainConfig, device: str | torch.device = "cuda",
             "SDE_2Dto3D_model": sde_2dto3d, "SDE_3Dto2D_model": sde_3dto2d}
 
 
+class PretrainAdam(torch.optim.Adam):
+    """``torch.optim.Adam`` that, under weight decay, also steps the frozen
+    parameters (``requires_grad=False``, the Fourier weights) as the JAX
+    package's flattened Adam does: they get no gradient from autograd (JAX's
+    ``stop_gradient``), so each is given a zero ``.grad`` before the step and
+    the L2 term ``0 + decay * p`` moves it.  ``torch.optim.Adam`` would skip
+    a parameter whose ``.grad`` is None."""
+
+    def step(self, closure=None):
+        for group in self.param_groups:
+            if group["weight_decay"]:
+                for p in group["params"]:
+                    if p.grad is None and not p.requires_grad:
+                        p.grad = torch.zeros_like(p)
+        return super().step(closure)
+
+
 def make_optimizer(models: Dict[str, nn.Module], cfg: PretrainConfig
                    ) -> torch.optim.Adam:
     """Adam with the reference's two LR groups (pretrain_MoleculeSDE.py:
@@ -142,14 +163,14 @@ def make_optimizer(models: Dict[str, nn.Module], cfg: PretrainConfig
     ``weight_decay`` adds ``decay * p`` to the gradient (L2, not AdamW),
     and its step ``lr / (1 - b1^t) * m / (sqrt(v) / sqrt(1 - b2^t) + eps)``
     is ``lr * m_hat / (sqrt(v_hat) + eps)`` with eps outside the square
-    root; b1 0.9, b2 0.999, eps 1e-8.  Frozen parameters (the Fourier
-    weights) are left out, as the reference's ``requires_grad=False``
-    leaves them out.  The JAX package gives them zero gradients instead,
-    which leaves them unchanged too unless ``decay`` > 0: then its L2 term
-    moves them."""
+    root; b1 0.9, b2 0.999, eps 1e-8.  Every parameter is in its group,
+    the frozen Fourier weights too: the JAX package ravels them into its
+    Adam with zero gradients, so at ``decay`` > 0 its L2 term moves them
+    (:class:`PretrainAdam`); at ``decay`` 0 they stay put.  The reference
+    keeps them frozen (``requires_grad=False``) under any decay."""
     groups = []
     for names, scale in ((GROUP_2D, cfg.gnn_2d_lr_scale), (GROUP_3D, cfg.gnn_3d_lr_scale)):
-        params = [p for n in names for p in models[n].parameters() if p.requires_grad]
+        params = [p for n in names for p in models[n].parameters()]
         groups.append({"params": params, "lr": cfg.lr * scale})
-    return torch.optim.Adam(groups, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=cfg.decay)
+    return PretrainAdam(groups, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8,
+                        weight_decay=cfg.decay)

@@ -58,6 +58,8 @@ def sample_positions_pc(
     eps: float = 1e-4,
     denoise: bool = True,
     probability_flow: bool = False,
+    fused: bool = False,
+    layout: str = "channel",
     score_chunk: Optional[int] = None,
     prior: Optional[torch.Tensor] = None,
     noise_p: Optional[torch.Tensor] = None,
@@ -66,9 +68,15 @@ def sample_positions_pc(
     """Generate conformers for the graphs of ``batch``; returns positions
     ``[N_nodes, 3]`` (the final predictor mean when ``denoise``).
 
-    ``score_chunk`` evaluates the score over batch chunks of that size
-    (``None``, or a size that does not divide B into several chunks,
-    disables it); the result is the same.  Injected draws: ``prior``
+    ``layout`` is the score's pair layout: "channel" (``[B, C, N*N]``,
+    :meth:`SDEModel2Dto3D.score_from_cond_cm`) or "feature"
+    (``[B, N, N, C]``, :meth:`SDEModel2Dto3D.score_from_cond`).  ``fused``
+    evaluates the score as one kernel launch (K6,
+    :meth:`SDEModel2Dto3D.score_from_cond_fused`) on the feature-layout
+    conditioning, and so forces ``layout="feature"``.  ``score_chunk``
+    evaluates the score over batch chunks of that size (``None``, or a size
+    that does not divide B into several chunks, disables it); the result is
+    the same.  Injected draws: ``prior``
     [N_nodes, 3], ``noise_p`` [n_steps, N_nodes, 3], ``noise_c`` [n_steps,
     corrector_steps, N_nodes, 3]; they are masked here."""
     sde = model.sde_pos
@@ -83,16 +91,24 @@ def sample_positions_pc(
         prior = sde.prior_sampling(shape, generator, dev)
     pos = prior * m3
 
-    cond = model.precompute_conditioning(node_2d_repr, batch, True)
+    if fused:
+        layout = "feature"
+    cond = model.precompute_conditioning(node_2d_repr, batch, True, layout=layout)
+    if fused:
+        packed = model.packed_score_params()   # once per chain
+
+        def score_fn(c, p):
+            return model.score_from_cond_fused(c, p, packed)
+    else:
+        score_fn = model.score_from_cond_cm if layout == "channel" else model.score_from_cond
     b, n = batch.num_graphs, batch.n_max
     chunk = score_chunk if score_chunk and 0 < score_chunk < b and b % score_chunk == 0 else b
 
     def raw_score(p: torch.Tensor) -> torch.Tensor:
         if chunk == b:
-            return model.score_from_cond_cm(cond, p)
+            return score_fn(cond, p)
         return torch.cat([
-            model.score_from_cond_cm({k: v[i:i + chunk] for k, v in cond.items()},
-                                     p[i * n:(i + chunk) * n])
+            score_fn({k: v[i:i + chunk] for k, v in cond.items()}, p[i * n:(i + chunk) * n])
             for i in range(0, b, chunk)])
 
     stds = sde.marginal_prob(torch.zeros_like(timesteps), timesteps)[1]

@@ -26,7 +26,9 @@ from moleculesde_tpu_torch.models.score_2d3d import SDEModel2Dto3D
 from moleculesde_tpu_torch.models.score_3d2d import SDEModel3Dto2D
 from moleculesde_tpu_torch.ops.cfconv import fused_cfconv, fused_cfconv_bwd
 from moleculesde_tpu_torch.ops.gin_messages import gin_messages, gin_messages_bwd
-from moleculesde_tpu_torch.ops.pair_block import pair_relu_project, pair_relu_project_bwd
+from moleculesde_tpu_torch.ops.pair_block import (
+    pair_relu_project, pair_relu_project_bwd, pair_relu_project_cm, pair_relu_project_cm_bwd)
+from moleculesde_tpu_torch.ops.score_kernel import score_eval_fused
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "moleculesde_tpu")
@@ -115,7 +117,8 @@ def test_kernel_wrappers_take_plain_on_cpu_and_count_no_launch():
     x4 = torch.randn(2, 4, 4)
     cf_w = (torch.ones(3, 4), torch.zeros(4), torch.eye(4), torch.zeros(4))
     wrappers = (gin_messages, gin_messages_bwd, fused_cfconv, fused_cfconv_bwd,
-                pair_relu_project, pair_relu_project_bwd)
+                pair_relu_project, pair_relu_project_bwd, pair_relu_project_cm,
+                pair_relu_project_cm_bwd, score_eval_fused)
     counts = [f.launches for f in wrappers]
     assert gin_messages(x, idx, idx, boh, tbl).shape == (2, 4, 5)
     assert gin_messages_bwd(x, idx, idx, boh, tbl, x)[1].shape == (3, 5)
@@ -123,6 +126,8 @@ def test_kernel_wrappers_take_plain_on_cpu_and_count_no_launch():
     assert len(fused_cfconv_bwd(ea, env, x4, *cf_w, x4)) == 5
     assert pair_relu_project(x, x, w, bias).shape == (2, 4, 4, 2)
     assert pair_relu_project_bwd(x, x, w, torch.ones(2, 4, 4, 2))[2].shape == (5, 2)
+    assert pair_relu_project_cm(x, x, w, bias).shape == (2, 2, 16)
+    assert pair_relu_project_cm_bwd(x, x, w, torch.ones(2, 2, 16))[2].shape == (5, 2)
     with pytest.raises(ValueError, match="CUDA"):
         gin_messages(x, idx, idx, boh, tbl, impl="kernel")
     with pytest.raises(ValueError, match="CUDA"):
@@ -133,6 +138,10 @@ def test_kernel_wrappers_take_plain_on_cpu_and_count_no_launch():
         pair_relu_project(x, x, w, bias, impl="kernel")
     with pytest.raises(ValueError, match="CUDA"):
         pair_relu_project_bwd(x, x, w, torch.ones(2, 4, 4, 2), impl="kernel")
+    with pytest.raises(ValueError, match="CUDA"):
+        pair_relu_project_cm(x, x, w, bias, impl="kernel")
+    with pytest.raises(ValueError, match="CUDA"):
+        pair_relu_project_cm_bwd(x, x, w, torch.ones(2, 2, 16), impl="kernel")
     with pytest.raises(ValueError, match="unknown"):
         pair_relu_project(x, x, w, bias, impl="xla")
     assert [f.launches for f in wrappers] == counts
@@ -148,7 +157,7 @@ def test_cfconv_refuses_gradients_for_positions():
 
 
 def test_every_kernel_source_is_built_by_name():
-    assert build.kernel_names() == ["cfconv", "gin_messages", "pair_block"]
+    assert build.kernel_names() == ["cfconv", "gin_messages", "pair_block", "score_eval"]
     for name in build.kernel_names():
         lib = build._library_path(name)
         assert lib.parent == build.BUILD_DIR and name in lib.name

@@ -13,11 +13,14 @@ taken in another order lands on the other side of a bf16 rounding boundary.
 import pytest
 import torch
 
+from moleculesde_tpu_torch.models.score_2d3d import SDEModel2Dto3D
 from moleculesde_tpu_torch.ops.cfconv import fused_cfconv, fused_cfconv_bwd
 from moleculesde_tpu_torch.ops.gin_messages import gin_messages, gin_messages_bwd
 from moleculesde_tpu_torch.ops.gin_messages import gin_messages_plain
 from moleculesde_tpu_torch.ops.pair_block import (
-    pair_relu_project, pair_relu_project_bwd, pair_relu_project_plain)
+    pair_relu_project, pair_relu_project_bwd, pair_relu_project_cm,
+    pair_relu_project_cm_bwd, pair_relu_project_cm_plain, pair_relu_project_plain)
+from moleculesde_tpu_torch.ops.score_kernel import score_eval_fused, score_eval_fused_plain
 
 pytestmark = pytest.mark.gpu
 
@@ -115,6 +118,91 @@ def test_pair_relu_project_bwd_kernel_matches_plain(cuda, shape, bf16):
     assert pair_relu_project_bwd.launches == launches + 1
     for k, p in zip(kern, plain):
         _close(k, p, 1e-3 if bf16 else 1e-4)
+
+
+def _pair_operands(device, shape, seed):
+    b, n, c, h = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    a = torch.randn(b, n, c, device=device, generator=gen)
+    cc = torch.randn(b, n, c, device=device, generator=gen)
+    w = torch.randn(c, h, device=device, generator=gen) / c ** 0.5
+    bias = torch.randn(h, device=device, generator=gen)
+    g = torch.randn(b, h, n * n, device=device, generator=gen)
+    return a, cc, w, bias, g
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("shape", [(64, 32, 300, 32), (3, 9, 17, 40)])
+def test_pair_relu_project_cm_kernel_matches_plain(cuda, shape, bf16):
+    """K4 forward: [B, H, N*N], no bias inside the kernel.  bf16 tolerance
+    1e-3: both sides round a, c, w and the relu'd pair identically."""
+    a, cc, w, bias, _ = _pair_operands(cuda, shape, 5)
+    launches = pair_relu_project_cm.launches
+    out = pair_relu_project_cm(a, cc, w, bias, bf16=bf16)
+    assert pair_relu_project_cm.launches == launches + 1
+    ref = pair_relu_project_cm_plain(a, cc, w, bf16=bf16) + bias[None, :, None]
+    _close(out, ref, 1e-3 if bf16 else 1e-5)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("shape", [(128, 32, 300, 32), (3, 9, 17, 20)])
+def test_pair_relu_project_cm_bwd_kernel_matches_plain(cuda, shape, bf16):
+    """K4 da, dc, dw (and the bias gradient, outside the kernel) through
+    autograd.  bf16 tolerance 1e-3: dpair is rounded to bf16 on both sides
+    before the sums."""
+    a, cc, w, bias, g = _pair_operands(cuda, shape, 6)
+    launches = pair_relu_project_cm_bwd.launches
+
+    def run(impl):
+        return _grads(lambda *t: pair_relu_project_cm(*t, bf16=bf16, impl=impl),
+                      (a, cc, w, bias), g)
+
+    kern, plain = run("kernel"), run("plain")
+    assert pair_relu_project_cm_bwd.launches == launches + 1
+    for k, p in zip(kern, plain):
+        _close(k, p, 1e-3 if bf16 else 1e-4)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("variant", [1, 2])
+@pytest.mark.parametrize("shape", [(64, 32), (3, 11)])
+def test_score_eval_fused_kernel_matches_plain(cuda, shape, variant, bf16):
+    """K6 against its plain version on random operands and perturbed
+    weights (every bias and LayerNorm parameter non-trivial), relative to
+    the largest plain value: f32 1e-4 (sums in another order, warp-shuffle
+    softmax); bf16 2e-2 (both sides round at the same points, so they
+    differ where an f32 value taken in another order lands on the other side
+    of a bf16 rounding boundary)."""
+    b, n = shape
+    model = SDEModel2Dto3D(emb_dim=8, hidden_dim=32, variant=variant, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(10 + variant)
+    packed = model.packed_score_params()
+    packed = packed + 0.05 * torch.randn(packed.shape, device=cuda, generator=gen)
+    pos = 1.5 * torch.randn(b, n, 3, device=cuda, generator=gen)
+    node = torch.randn(b, n, 32, device=cuda, generator=gen)
+    edge = torch.randn(b, n, n, 32, device=cuda, generator=gen)
+    mask = torch.rand(b, n, n, device=cuda, generator=gen) < 0.6
+    # no self-pairs, as in the extended graph: at s == d the frame's cross
+    # product p x p is zero only where a*b - c*d is not fused into an FMA
+    mask[:, torch.arange(n), torch.arange(n)] = False
+    mask[0, :, 0] = False                  # a destination with no valid source
+    launches = score_eval_fused.launches
+    out = score_eval_fused(pos, node, edge, mask, packed, variant=variant, bf16=bf16)
+    assert score_eval_fused.launches == launches + 1
+    ref = score_eval_fused_plain(pos, node, edge, mask, packed, variant=variant, bf16=bf16)
+    assert out.shape == (b, n, 3) and bool(torch.isfinite(out).all())
+    err = ((out - ref).abs().max() / ref.abs().max()).item()
+    assert err <= (2e-2 if bf16 else 1e-4), err
+
+
+def test_score_eval_fused_kernel_refuses_shapes(cuda):
+    """Shapes the kernel is not built for raise, never fall back."""
+    model = SDEModel2Dto3D(emb_dim=8, hidden_dim=32, variant=1, device=cuda)
+    packed = model.packed_score_params()
+    pos, node = torch.zeros(2, 33, 3, device=cuda), torch.zeros(2, 33, 32, device=cuda)
+    edge, mask = torch.zeros(2, 33, 33, 32, device=cuda), torch.ones(2, 33, 33, device=cuda)
+    with pytest.raises(ValueError, match="n_max <= 32"):
+        score_eval_fused(pos, node, edge, mask, packed, variant=1)
 
 
 @pytest.mark.parametrize("bf16", [False, True])

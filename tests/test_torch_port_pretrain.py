@@ -204,17 +204,51 @@ def test_adam_matches_jax_on_the_same_gradients(step_pair):
         for name, param in module.named_parameters():
             key_ = f"{comp}.{name}"
             moved = param.detach().numpy() - flat_0[key_]
-            if not param.requires_grad:
-                # frozen Fourier weights stay put, as in the reference; the
-                # JAX package's L2 decay moves them (a recorded parity fault)
-                assert float(np.abs(moved).max()) == 0.0, key_
-                continue
-            # the two-step update itself: the same f32 formula evaluated in
-            # another order.  Where the decayed gradient g + decay * p nearly
-            # cancels, or |g| ~ eps, m / (sqrt(v) + eps) is sensitive to the
-            # last bit of its inputs, hence the floor of 1% of one lr step
+            # the two-step update itself, the frozen Fourier weights included
+            # (the L2 decay moves them in both): the same f32 formula
+            # evaluated in another order.  Where the decayed gradient
+            # g + decay * p nearly cancels, or |g| ~ eps, m / (sqrt(v) + eps)
+            # is sensitive to the last bit of its inputs, hence the floor of
+            # 1% of one lr step
             np.testing.assert_allclose(moved, flat_p[key_] - flat_0[key_], rtol=1e-4,
                                        atol=1e-2 * tcfg.lr, err_msg=key_)
+
+
+def test_weight_decay_moves_frozen_weights_as_jax(step_pair):
+    """Two steps at decay 0.01 and the default lr: the frozen Fourier weights
+    get no gradient from autograd (``.grad`` None, JAX's stop_gradient), the
+    rest get the JAX step's gradients; every parameter lands where the JAX
+    package's flattened Adam puts it, to 1e-6 of the leaf's largest value."""
+    p = step_pair
+    jcfg, tcfg = _configs(decay=0.01)
+    tx = jax_make_optimizer(jcfg)
+    params = p["state"].params
+    opt_state = tx.init(params)
+    models = load_flax_pretrain(build_models(tcfg, CPU), jax.device_get(params),
+                                jax.device_get(p["state"].batch_stats))
+    opt = make_optimizer(models, tcfg)
+    flat_g = _flat(jax.device_get(p["grads"]))
+    for _ in range(2):
+        updates, opt_state = tx.update(p["grads"], opt_state, params)
+        params = jax.tree_util.tree_map(lambda a, u: a + u, params, updates)
+        opt.zero_grad(set_to_none=True)
+        for comp, module in models.items():
+            for name, param in module.named_parameters():
+                if param.requires_grad:
+                    param.grad = torch.from_numpy(flat_g[f"{comp}.{name}"].copy())
+        opt.step()
+    flat_p, flat_0 = _flat(jax.device_get(params)), _flat(jax.device_get(p["state"].params))
+    frozen = 0
+    for comp, module in models.items():
+        for name, param in module.named_parameters():
+            key_ = f"{comp}.{name}"
+            ref = flat_p[key_]
+            if not param.requires_grad:
+                frozen += 1
+                assert float(np.abs(ref - flat_0[key_]).max()) > 0.0, key_
+            assert _leaf_err(param.detach().numpy(), ref) <= 1e-6, (key_, _leaf_err(
+                param.detach().numpy(), ref))
+    assert frozen == 1   # SDE_2Dto3D_model.coff_fourier_W (variant 1)
 
 
 def test_dropout_keep_rate_scaling_and_seed():

@@ -59,7 +59,7 @@ def test_precompute_conditioning_matches_jax(pair):
     jm, v, tm, jb, tb, node_2d = pair
     cj = jm.apply(v, jnp.asarray(node_2d), jb, True, layout="channel",
                   method=JaxSDEModel2Dto3D.precompute_conditioning)
-    ct = tm.precompute_conditioning(t(node_2d), tb, True)
+    ct = tm.precompute_conditioning(t(node_2d), tb, True, layout="channel")
     np.testing.assert_array_equal(ct["pair_mask"].numpy(), np.asarray(cj["pair_mask"]))
     tol = 1e-5 if tm.score_dtype == "float32" else 1e-2
     for k in ("edge_attr_2d", "node_attr"):
@@ -77,7 +77,8 @@ def test_score_from_cond_cm_matches_jax(pair):
     ref = np.asarray(jm.apply(v, cj, jb, jnp.asarray(pos),
                               method=JaxSDEModel2Dto3D.score_from_cond_cm))
     with torch.no_grad():
-        out = tm.score_from_cond_cm(tm.precompute_conditioning(t(node_2d), tb), t(pos))
+        out = tm.score_from_cond_cm(tm.precompute_conditioning(t(node_2d), tb,
+                                                          layout="channel"), t(pos))
     assert out.dtype == torch.float32 and tuple(out.shape) == (jb.num_nodes, 3)
     assert rel_err(out.numpy(), ref) < (2e-5 if tm.score_dtype == "float32" else 5e-2)
 
