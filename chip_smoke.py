@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the CUDA kernels,
 holds each against its plain PyTorch version, then drives the ported paths
 at full width -- 2D->3D conformer generation through the sampler CLI (the
-channel-major chain, the fused chain and the pair_cm_direct chain), and
+channel-major chain, the fused chain and the pair_cm_direct chain), 3D->2D
+graph generation through its CLI (three forms of the attention bank), and
 pretraining steps through the pretraining CLI's functions -- and checks
 what comes out.
 
@@ -31,16 +32,32 @@ Phases (any failure exits non-zero):
      draws (atol 2e-4, rtol 1e-3);
   5. pair_cm_direct chain: K4 forward once, K3 never; K4's edge features
      against K3's;
-  6. training path: the pretraining CLI's models at full width (defaults:
+  6. 3D->2D chain: the sampler CLI's models at full width (SchNet 6 x 128,
+     eager CFConv; SDEModel3Dto2D variant 1, VE, bf16 bank) on B=128
+     synthetic molecules, n_max 32, 20 PC steps x 2 corrector steps (CLI
+     default 100: depth cut).  K7 (attention-map bank) and K8 (q/k nets and
+     map bank), forward and backward, against their plain versions on the
+     chain's edge-layer 0 and 1 operands in bf16 (3e-3 of max |plain|; K7's
+     f32 maps 1e-4) and f32 (1e-4, operands from the q / k nets in f32);
+     then one counted
+     chain per form of the bank ("auto" through the CLI's main: no bank
+     kernel; "pallas": K7 240; "fused": K8 240), graphs/s in turns, and 3
+     f32 steps of the K7 and K8 chains against the "auto" chain on the same
+     weights and draws (atol 2e-4, rtol 1e-3);
+  7. training path: the pretraining CLI's models at full width (defaults:
      GIN 5 x 300, SchNet 6 x 128, both SDE models, InfoNCE, bf16) on B=128
      synthetic molecules, n_max 32; one warm-up step, then five timed steps
      with the launch counts read around them (5 / 5 / 6 / 6 / 1 / 1 per
      step); every metric finite; then one step's loss terms, gradient
      norms per component and the kernels' own gradient leaves, one by one,
      against an all-plain build of the same weights and draws;
-  7. pair_cm_direct training: two steps (K4 forward and backward once per
+  8. pair_cm_direct training: two steps (K4 forward and backward once per
      step, K3 never), then one step's losses and K4's gradient leaves
-     against the K3 build of the same weights and draws.
+     against the K3 build of the same weights and draws;
+  9. bank training: two steps each with ``attn_impl_3dto2d`` "pallas" (K7
+     forward and backward 4 per step) and "fused" (K8, 4 and 4), then one
+     step's losses (1e-3) and the edge network's q / k gradient leaves (5e-2
+     relative L2) of each against the "auto" build.
 The line before the last lists every kernel as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -56,6 +73,11 @@ import time
 
 import torch
 
+from moleculesde_tpu_torch.ops.attn_bank import (
+    attn_map_bank_bwd_plain, attn_map_bank_kernel, attn_map_bank_kernel_bwd,
+    attn_map_bank_plain)
+from moleculesde_tpu_torch.ops.attn_qk_bank import (
+    attn_qk_bank, attn_qk_bank_bwd, attn_qk_bank_bwd_plain)
 from moleculesde_tpu_torch.ops.cfconv import (
     fused_cfconv, fused_cfconv_bwd, fused_cfconv_bwd_plain)
 from moleculesde_tpu_torch.ops.gin_messages import (
@@ -96,6 +118,43 @@ def median_ms(fn, warmup: int = 5, reps: int = 30) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+# (name, result dict, kernel call, plain call) of every timed kernel, for
+# device_time_phase
+_DEVICE_RUNS = []
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Device time of one call of ``fn``: ``reps`` calls captured in one CUDA
+    graph, the graph replayed and timed with CUDA events (median of 10
+    replays after 2), divided by ``reps``.  Unlike the CUDA-event median of
+    single calls it leaves out the host's time between launches, which for
+    a kernel of a few microseconds is most of the event time; what is left
+    beside the kernels are the card's own gaps between launches."""
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    ms = median_ms(graph.replay, warmup=2, reps=10) / reps
+    del graph
+    return ms
+
+
+def device_time_phase():
+    """Last phase: the device time of every timed kernel and of its plain
+    version, into their results.  It runs after every chain and step is
+    timed, so that the graphs' memory pools touch no other number."""
+    saved = [c.launches for c in _counters()]
+    with torch.no_grad():
+        for name, result, run_k, run_p in _DEVICE_RUNS:
+            result["device_ms"], result["plain_device_ms"] = device_ms(run_k), device_ms(run_p)
+            print(f"{name}: device_ms={result['device_ms']:.4f} plain_device_ms="
+                  f"{result['plain_device_ms']:.4f} bound_ms={result['bound_ms']:.4f} "
+                  f"(CUDA-graph replay, time per call)", flush=True)
+    for c, n in zip(_counters(), saved):
+        c.launches = n
 
 
 def bound(nbytes: float, ops: float, peak_ops: float):
@@ -177,6 +236,37 @@ def k6_cost(b: int, n: int, variant: int, h: int = 32, coff_dim: int = 128,
     return nbytes, 2 * macs
 
 
+def k7_cost(q, ds: int, bwd: bool = False):
+    """(bytes, operations) of K7 on q, k [B, C, N, A] at their own width:
+    the logits' multiply-adds, tanh, scale and head sum forward; the
+    recomputed logits, du and the dq / dk products backward (g read, dq /
+    dk written at q's width)."""
+    b, c, n, a = q.shape
+    h, e = a // ds, q.element_size()
+    if bwd:
+        return (4 * e * q.numel() + 4 * b * c * n * n, b * c * n * n * (6 * a + 5 * h))
+    return 2 * e * q.numel() + 4 * b * c * n * n, b * c * n * n * (2 * a + 3 * h + 1)
+
+
+def k8_cost(qk, ws, ds: int, bwd: bool = False):
+    """(bytes, operations) of K8: qk at the width the kernel reads (bf16 in
+    bf16 mode), the f32 weights, the maps; the q / k nets' and the logits'
+    multiply-adds and the tanh forward, and backward the recomputation plus
+    the map's du / dq / dk, each net's dt1, dW2, dW1 and dqk products (g
+    read, dqk and the weight gradients written)."""
+    b, n, f = qk.shape
+    c, _, a = ws[0].shape
+    h = a // ds
+    w_bytes = 4 * sum(w.numel() for w in ws)
+    qk_bytes = qk.numel() * qk.element_size()
+    nets = 2 * (2 * n * f * a + 2 * n * a * a + 3 * n * a)
+    fwd_ops = b * c * (nets + n * n * (2 * a + 3 * h + 1))
+    if not bwd:
+        return qk_bytes + w_bytes + 4 * b * c * n * n, fwd_ops
+    back = 2 * (4 * n * a * a + 4 * n * f * a + 5 * n * a) + n * n * (4 * a + 5 * h)
+    return (2 * qk_bytes + 2 * w_bytes + 4 * b * c * n * n, fwd_ops + b * c * back)
+
+
 def _tuple(x):
     return x if isinstance(x, tuple) else (x,)
 
@@ -184,7 +274,8 @@ def _tuple(x):
 def _counters():
     return (gin_messages, gin_messages_bwd, fused_cfconv, fused_cfconv_bwd,
             pair_relu_project, pair_relu_project_bwd, pair_relu_project_cm,
-            pair_relu_project_cm_bwd, score_eval_fused)
+            pair_relu_project_cm_bwd, score_eval_fused, attn_map_bank_kernel,
+            attn_map_bank_kernel_bwd, attn_qk_bank, attn_qk_bank_bwd)
 
 
 def _timed(run):
@@ -208,6 +299,7 @@ def compare(name, run_k, run_p, tol_rel, floor: float = 1.0):
         c.launches = n
     worst = worst_rel = 0.0
     for i, (k, p) in enumerate(zip(outs_k, outs_p)):
+        k, p = k.float(), p.float()
         check(bool(torch.isfinite(k).all()), f"{name}: non-finite output {i}")
         err = (k - p).abs().max().item()
         scale = max(floor, p.abs().max().item())
@@ -218,13 +310,19 @@ def compare(name, run_k, run_p, tol_rel, floor: float = 1.0):
     return worst, worst_rel
 
 
-def report(name, err, tol_rel, kernel_ms, plain_ms, nbytes, ops, peak_ops, floor=1.0):
+def report(name, err, tol_rel, run_k, run_p, nbytes, ops, peak_ops, floor=1.0):
+    """Time the kernel call ``run_k`` and the plain call ``run_p`` (CUDA-event
+    medians now, device times in :func:`device_time_phase`) and print them
+    beside the bound."""
+    kernel_ms, plain_ms = _timed(run_k), _timed(run_p)
     bound_ms, bound_by = bound(nbytes, ops, peak_ops)
     print(f"{name}: max_abs_err={err:.3e} (tolerance {tol_rel:g} x max({floor:g}, |plain|)) "
           f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
           f"bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
-    return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+    out = {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    _DEVICE_RUNS.append((name, out, run_k, run_p))
+    return out
 
 
 def kernel_phase(name, wrapper, plain, args, bf16, tol_rel, nbytes, ops, peak_ops):
@@ -232,11 +330,11 @@ def kernel_phase(name, wrapper, plain, args, bf16, tol_rel, nbytes, ops, peak_op
     run_k = lambda: wrapper(*args, bf16=bf16, impl="kernel")  # noqa: E731
     run_p = lambda: plain(*args, bf16=bf16)  # noqa: E731
     err, _ = compare(name, run_k, run_p, tol_rel)
-    return report(name, err, tol_rel, _timed(run_k), _timed(run_p), nbytes, ops, peak_ops)
+    return report(name, err, tol_rel, run_k, run_p, nbytes, ops, peak_ops)
 
 
 def grad_phase(name, fwd, bwd, bwd_plain, diff, g, bf16, tol_rel, fwd_cost,
-               bwd_cost, peak_ops):
+               bwd_cost, peak_ops, floor: float = 1.0):
     """A kernel pair under autograd against the plain pair: the output and
     the gradient of every differentiable operand (``diff``), then the
     forward and backward wrappers timed on their own.  ``fwd(*diff)``,
@@ -248,15 +346,18 @@ def grad_phase(name, fwd, bwd, bwd_plain, diff, g, bf16, tol_rel, fwd_cost,
         out = fwd(*leaves, bf16=bf16, impl=impl)
         return (out.detach(),) + torch.autograd.grad(out, leaves, g)
 
-    err, _ = compare(name, lambda: through_autograd("kernel"),
-                     lambda: through_autograd("plain"), tol_rel)
+    err, rel = compare(name, lambda: through_autograd("kernel"),
+                       lambda: through_autograd("plain"), tol_rel, floor)
     with torch.no_grad():
-        f_k = _timed(lambda: fwd(*diff, bf16=bf16, impl="kernel"))
-        f_p = _timed(lambda: fwd(*diff, bf16=bf16, impl="plain"))
-        b_k = _timed(lambda: bwd(*diff, g, bf16=bf16, impl="kernel"))
-        b_p = _timed(lambda: bwd_plain(*diff, g, bf16=bf16))
-    return (report(name + " fwd", err, tol_rel, f_k, f_p, *fwd_cost, peak_ops),
-            report(name + " bwd", err, tol_rel, b_k, b_p, *bwd_cost, peak_ops))
+        out = (report(name + " fwd", err, tol_rel,
+                      lambda: fwd(*diff, bf16=bf16, impl="kernel"),
+                      lambda: fwd(*diff, bf16=bf16, impl="plain"), *fwd_cost, peak_ops, floor),
+               report(name + " bwd", err, tol_rel,
+                      lambda: bwd(*diff, g, bf16=bf16, impl="kernel"),
+                      lambda: bwd_plain(*diff, g, bf16=bf16), *bwd_cost, peak_ops, floor))
+    for r in out:
+        r["max_rel_err"] = rel
+    return out
 
 
 def sampler_kernel_phases(k1_args, k3_args):
@@ -317,12 +418,14 @@ def k6_phases(models, node_2d, batch, dev):
             # in another order lands on the other side of a boundary
             tol = 2e-2 if bf16 else 1e-4
             with torch.no_grad():
-                run_k = lambda: score_eval_fused(*args, variant=variant, bf16=bf16,  # noqa: E731
-                                                 impl="kernel")
-                run_p = lambda: score_eval_fused_plain(*args, variant=variant,  # noqa: E731
-                                                       bf16=bf16)
+                # defaults bind this iteration's operands: the device-time
+                # phase calls these after the loops have moved on
+                run_k = lambda a=args, v=variant, b=bf16: score_eval_fused(  # noqa: E731
+                    *a, variant=v, bf16=b, impl="kernel")
+                run_p = lambda a=args, v=variant, b=bf16: score_eval_fused_plain(  # noqa: E731
+                    *a, variant=v, bf16=b)
                 err, rel = compare("K6 " + name, run_k, run_p, tol, floor=0.0)
-                results[name] = report("K6 " + name, err, tol, _timed(run_k), _timed(run_p),
+                results[name] = report("K6 " + name, err, tol, run_k, run_p,
                                        nbytes, ops, PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS,
                                        floor=0.0)
                 results[name]["max_rel_err"] = rel
@@ -383,9 +486,9 @@ def training_kernel_phases(k1, k2, k3):
             k1_cost(x, src, dst, table), k1_cost(x, src, dst, table, bwd=True), peak)
         results["fused_cfconv" + sfx], results["fused_cfconv_bwd" + sfx] = grad_phase(
             "training K2 fused_cfconv" + sfx,
-            lambda *t, **kw: fused_cfconv(ea, env, *t, **kw),
-            lambda *t, **kw: fused_cfconv_bwd(ea, env, *t, **kw),
-            lambda *t, **kw: fused_cfconv_bwd_plain(ea, env, *t, **kw),
+            lambda *t, ea=ea, **kw: fused_cfconv(ea, env, *t, **kw),   # this mode's ea
+            lambda *t, ea=ea, **kw: fused_cfconv_bwd(ea, env, *t, **kw),
+            lambda *t, ea=ea, **kw: fused_cfconv_bwd_plain(ea, env, *t, **kw),
             (x2, w1, b1, w2, b2), g2, bf16, 2e-2 if bf16 else 1e-4,
             k2_cost(ea, env, x2, w1), k2_cost(ea, env, x2, w1, bwd=True), peak)
         results["pair_relu_project" + sfx], results["pair_relu_project_bwd" + sfx] = \
@@ -504,7 +607,7 @@ def sampler_path(dev):
 
 
 def fused_chain_path(dev):
-    """Phase 5: the sampler with ``fused=True`` at the same full width, bf16
+    """Phase 4: the sampler with ``fused=True`` at the same full width, bf16
     score: K6 against its plain version (variants 1 and 2), the counted
     chain (K1 5, K3 1, K6 40), conformers/s against the channel-major chain
     in turns, and 5 f32 steps against the channel-major chain on the same
@@ -581,7 +684,7 @@ def fused_chain_path(dev):
 
 
 def pair_cm_direct_chain(dev):
-    """Phase 6: one chain with ``SDEModel2Dto3D(pair_cm_direct=True)``: K4
+    """Phase 5: one chain with ``SDEModel2Dto3D(pair_cm_direct=True)``: K4
     forward once, K3 never; its f32 edge features against K3's on the same
     weights.  Returns the launch counts."""
     from moleculesde_tpu_torch.benchmarks.profile_sampler import PATH_ARGS
@@ -619,6 +722,216 @@ def pair_cm_direct_chain(dev):
     return launches
 
 
+def bank_operands(encoder, model, batch, dev):
+    """What the 3D->2D chain hands the attention bank in edge layers 0
+    (C = 2, F = emb_dim) and 1 (C = 8, F = nhid) at its first evaluation,
+    from the prior state: per layer the node features qk (f32), q and k in
+    the bank's dtype, q32 and k32 from the q / k nets run in f32 (true f32
+    operands, not bf16 values upcast), the raw q / k parameters and ds."""
+    from moleculesde_tpu_torch.core.masks import mask_adjs, mask_x, node_flags
+    from moleculesde_tpu_torch.models.score_3d2d import pow_tensor
+
+    b, n = batch.num_graphs, batch.n_max
+    gen = torch.Generator(device=dev).manual_seed(5)
+    layers = []
+    with torch.no_grad():
+        _, node_3d = encoder.encode_batch(batch)
+        edge_attr = torch.where(batch.edge_mask, batch.edge_feats[:, 0].float() + 1.0,
+                                torch.zeros((), device=dev))
+        flags = node_flags(batch.dense_adjacency(edge_attr))
+        x = mask_x(torch.randn((b, n, model.num_class_x), generator=gen, device=dev), flags)
+        adj = mask_adjs(torch.randn((b, n, n), generator=gen, device=dev), flags)
+        h = model.embedding_3D(batch.dense_nodes(node_3d)) + model.embedding_X(x)
+        edge = model.edge_score_network
+        adjc = pow_tensor(adj, edge.c_init)
+        for i in range(2):
+            layer = getattr(edge, f"layer_{i}")
+            attn, dt = layer.attn, layer.attn.dtype or torch.float32
+            layers.append({"qk": h.float().contiguous(),
+                           "q": attn.qk(h.to(dt), "q", dt).contiguous(),
+                           "k": attn.qk(h.to(dt), "k", dt).contiguous(),
+                           "q32": attn.qk(h.float(), "q", torch.float32).contiguous(),
+                           "k32": attn.qk(h.float(), "k", torch.float32).contiguous(),
+                           "ws": [w.detach().float().contiguous() for w in attn.qk_params()],
+                           "ds": attn.ds})
+            h, adjc = layer(h, adjc, flags)
+    return layers
+
+
+def qk_bank_phase(name, qk, ws, g, ds, bf16, tol):
+    """K8 under autograd against its plain pair: the maps and dqk by the
+    largest error over max |plain|, the eight weight gradients by relative
+    L2; then the forward and backward wrappers timed on their own, on the
+    operands as the wrapper hands them to the kernel."""
+
+    def through_autograd(impl):
+        leaves = [t.detach().clone().requires_grad_(True) for t in [qk] + list(ws)]
+        out = attn_qk_bank(*leaves, ds, bf16=bf16, impl=impl)
+        return (out.detach(),) + torch.autograd.grad(out, leaves, g)
+
+    saved = [c.launches for c in _counters()]
+    outs_k, outs_p = through_autograd("kernel"), through_autograd("plain")
+    torch.cuda.synchronize()
+    for c, n in zip(_counters(), saved):
+        c.launches = n
+    worst = worst_rel = 0.0
+    for i, (k, p) in enumerate(zip(outs_k, outs_p)):
+        k, p = k.float(), p.float()
+        check(bool(torch.isfinite(k).all()), f"{name}: non-finite output {i}")
+        rel = ((k - p).abs().max() / p.abs().max() if i < 2
+               else (k - p).norm() / p.norm()).item()
+        check(rel <= tol, f"{name}: output {i} disagrees with the plain version "
+              f"({rel:.3e} > {tol:g})")
+        worst = max(worst, (k - p).abs().max().item())
+        worst_rel = max(worst_rel, rel)
+    qd = qk.to(torch.bfloat16 if bf16 else torch.float32)
+    peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
+    with torch.no_grad():
+        out = (report(name + " fwd", worst, tol,
+                      lambda: attn_qk_bank(qd, *ws, ds, bf16=bf16, impl="kernel"),
+                      lambda: attn_qk_bank(qd, *ws, ds, bf16=bf16, impl="plain"),
+                      *k8_cost(qd, ws, ds), peak, 0.0),
+               report(name + " bwd", worst, tol,
+                      lambda: attn_qk_bank_bwd(qd, *ws, g, ds, bf16=bf16, impl="kernel"),
+                      lambda: attn_qk_bank_bwd_plain(qd, *ws, g, ds, bf16=bf16),
+                      *k8_cost(qd, ws, ds, True), peak, 0.0))
+    for r in out:
+        r["max_rel_err"] = worst_rel
+    print(f"{name}: largest relative error {worst_rel:.3e} (maps and dqk of max |plain|, "
+          f"weight gradients relative L2; tolerance {tol:g})", flush=True)
+    return out
+
+
+def bank_kernel_phases(layers):
+    """K7 and K8, forward and backward, against their plain versions on the
+    chain's layer-0 and layer-1 operands, in bf16 (the chain's mode) and
+    f32 (on the f32 q / k nets' outputs).  Errors relative to max |plain|:
+    f32 1e-4 (sums in another order); bf16 3e-3, about three times the
+    largest reading (the same roundings; dq, dk and dqk are bf16 outputs,
+    and K8's q and k are rounded to bf16, where an f32 sum in another order
+    can flip one rounding).  K7's bf16 maps round nothing after their bf16
+    operands, so they are also held at the f32 bar: a kernel that rounded
+    its logits or tanh to bf16 fails there."""
+    results = {}
+    for li, ops in enumerate(layers):
+        q, k, qk, ws, ds = ops["q"], ops["k"], ops["qk"], ops["ws"], ops["ds"]
+        gen = torch.Generator(device=q.device).manual_seed(9 + li)
+        g = torch.randn(q.shape[:3] + (q.shape[2],), generator=gen, device=q.device)
+        print(f"bank operands, edge layer {li}: q, k {tuple(q.shape)} {q.dtype}, qk "
+              f"{tuple(qk.shape)}, W1 {tuple(ws[0].shape)}, ds {ds}", flush=True)
+        for bf16 in (True, False):
+            sfx = f"[L{li}]" + ("" if bf16 else "[f32]")
+            tol = 3e-3 if bf16 else 1e-4
+            peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
+            qm, km = (q, k) if bf16 else (ops["q32"], ops["k32"])
+            if bf16:
+                _, rel = compare("K7 attn_map_bank" + sfx + " maps",
+                                 lambda: attn_map_bank_kernel(qm, km, ds, bf16=True,
+                                                              impl="kernel"),
+                                 lambda: attn_map_bank_plain(qm, km, ds, bf16=True), 1e-4)
+                print(f"K7 attn_map_bank{sfx} maps: relative error {rel:.3e} "
+                      "(tolerance 1e-4, f32 maps of bf16 operands)", flush=True)
+            fwd, bwd = grad_phase(
+                "K7 attn_map_bank" + sfx,
+                lambda q_, k_, ds=ds, **kw: attn_map_bank_kernel(q_, k_, ds, **kw),
+                lambda q_, k_, g_, ds=ds, **kw: attn_map_bank_kernel_bwd(q_, k_, g_, ds, **kw),
+                lambda q_, k_, g_, ds=ds, **kw: attn_map_bank_bwd_plain(q_, k_, g_, ds, **kw),
+                (qm, km), g, bf16, tol, k7_cost(qm, ds), k7_cost(qm, ds, True), peak, 0.0)
+            results["attn_map_bank" + sfx], results["attn_map_bank_bwd" + sfx] = fwd, bwd
+            results["attn_qk_bank" + sfx], results["attn_qk_bank_bwd" + sfx] = qk_bank_phase(
+                "K8 attn_qk_bank" + sfx, qk, ws, g, ds, bf16, tol)
+    return results
+
+
+def chain_3d2d_path(dev):
+    """Phase 6: 3D->2D graph generation at full width in three forms of one
+    chain (the bank's ``attn_impl``: "auto", "pallas" = K7, "fused" = K8):
+    the bank kernels against their plain versions on the chain's operands,
+    one counted chain per form (the "auto" one through the CLI's main),
+    graphs/s in turns, and 3 f32 steps of the K7 and K8 chains against the
+    "auto" chain on the same weights and draws.  Returns (kernel results,
+    {form: launch counts})."""
+    from moleculesde_tpu_torch.benchmarks.profile_sampler_3d2d import (
+        BATCH, CORRECTOR_STEPS, EDGE_EVALS, FORMS, N_STEPS, PATH_ARGS, path_batch)
+    from moleculesde_tpu_torch.examples import sample_3d_to_2d as cli
+    from moleculesde_tpu_torch.sampling.pc import sample_graph_pc
+
+    args = cli.get_parser().parse_args(PATH_ARGS)
+    batch = path_batch(args, dev)
+    models = {form: cli.build_models(args, dev, attn_impl=form) for form in FORMS}
+    results = bank_kernel_phases(bank_operands(*models["auto"], batch, dev))
+    layers = models["auto"][1].edge_score_network.num_layers
+    b, n, c = batch.num_graphs, batch.n_max, models["auto"][1].num_class_x
+    flags = batch.node_mask.reshape(b, n)
+    launches = {}
+    for form in FORMS:
+        reset_counts()
+        if form == "auto":     # the CLI as a user runs it
+            res = cli.main(PATH_ARGS)
+            check(len(res) == 1 and res[0]["x_gen"].shape == (b, n, c)
+                  and res[0]["adj_gen"].shape == (b, n, n), "3D->2D CLI result shapes")
+            adj_mean = torch.as_tensor(res[0]["adj_gen"])
+            x_mean = torch.as_tensor(res[0]["x_gen"])
+        else:
+            gen = torch.Generator(device=dev).manual_seed(args.seed)
+            _, _, x_mean, adj_mean = cli.generate(*models[form], batch, gen, args)
+        torch.cuda.synchronize()
+        launches[form] = read_counts()
+        want = {"pallas": {"attn_map_bank_kernel": EDGE_EVALS * layers},
+                "fused": {"attn_qk_bank": EDGE_EVALS * layers}}.get(form, {})
+        print(f"3D->2D chain [{form}] launches: {launches[form]} (expected {want or 'none'})",
+              flush=True)
+        check(launches[form] == expect(**want), f"3D->2D {form} chain launch counts")
+        check(bool(torch.isfinite(x_mean).all() and torch.isfinite(adj_mean).all()),
+              f"3D->2D {form} chain: non-finite graphs")
+        pad = ~flags.cpu().bool()
+        check(bool((adj_mean.cpu()[pad] == 0).all()), f"3D->2D {form} chain: padded rows")
+
+    walls = {form: [] for form in FORMS}
+    for form in FORMS + FORMS[::-1]:
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cli.generate(*models[form], batch, gen, args)
+        torch.cuda.synchronize()
+        walls[form].append(time.perf_counter() - t0)
+    for form, ws_ in walls.items():
+        print(f"3D->2D chain [{form}] (SchNet + {N_STEPS} PC steps x {CORRECTOR_STEPS} "
+              f"corrector steps, B={BATCH}, bf16 bank): wall_ms="
+              f"{' / '.join(f'{w * 1e3:.2f}' for w in ws_)} graphs_per_s="
+              f"{' / '.join(f'{BATCH / w:.2f}' for w in ws_)} pc_steps_per_s="
+              f"{' / '.join(f'{N_STEPS / w:.2f}' for w in ws_)}", flush=True)
+
+    # 3 f32 steps: K7 and K8 chains against the eager bank, same weights and draws
+    steps = 3
+    enc = models["auto"][0]
+    gen = torch.Generator(device=dev).manual_seed(13)
+    per_step = (1 + CORRECTOR_STEPS) * (b * n * c + b * n * n)
+    draws = {"x_prior": torch.randn((b, n, c), generator=gen, device=dev),
+             "adj_prior": torch.randn((b, n, n), generator=gen, device=dev),
+             "noise": torch.randn((steps, per_step), generator=gen, device=dev)}
+    saved = [cnt.launches for cnt in _counters()]
+    with torch.no_grad():
+        _, node_3d = enc.encode_batch(batch)
+        outs = {form: sample_graph_pc(cli.build_models(args, dev, attn_impl=form,
+                                                       bf16_attn=False)[1],
+                                      node_3d, batch, n_steps=steps,
+                                      corrector_steps=CORRECTOR_STEPS, **draws)
+                for form in FORMS}
+    torch.cuda.synchronize()
+    for cnt, v in zip(_counters(), saved):
+        cnt.launches = v
+    for form in ("pallas", "fused"):
+        for idx, name in ((2, "x_mean"), (3, "adj_mean")):
+            mine, ref = outs[form][idx], outs["auto"][idx]
+            excess = ((mine - ref).abs() - (2e-4 + 1e-3 * ref.abs())).max().item()
+            print(f"3D->2D {form} vs auto chain, f32, {steps} steps: {name} max_abs_err="
+                  f"{(mine - ref).abs().max().item():.3e} (tolerance atol 2e-4 + rtol 1e-3; "
+                  f"largest excess {excess:.3e})", flush=True)
+            check(excess <= 0.0, f"the f32 {form} chain's {name} disagrees with the auto chain")
+    return results, launches
+
+
 # the gradient leaves the kernels write or feed first: K1's bond tables,
 # K2's filter net, K3's W and bias and the pair halves' Linear and BatchNorm.
 # Left out: edge_2D_emb_0.bias, whose gradient is zero in exact arithmetic
@@ -649,7 +962,7 @@ def _kernel_leaf_grads(models):
 
 
 def training_path(dev):
-    """Phase 4 (and the training kernel phases): returns (kernel results,
+    """Phase 7 (and the training kernel phases): returns (kernel results,
     launch counts of the five timed steps)."""
     from moleculesde_tpu_torch.benchmarks.profile_pretrain import BATCH, PATH_ARGS, path_batches
     from moleculesde_tpu_torch.examples import pretrain as cli
@@ -741,11 +1054,12 @@ def training_path(dev):
     for k, v in worst:
         check(v <= leaf_tol, f"gradient of {k} disagrees with the all-plain step ({v:.3e})")
     cm_launches = pair_cm_direct_steps(dev, args, cfg, models, batches, leaf_tol)
-    return results, launches, cm_launches
+    bank_launches = bank_training_steps(dev, args, cfg, models, batches, leaf_tol)
+    return results, launches, cm_launches, bank_launches
 
 
 def pair_cm_direct_steps(dev, args, cfg, models, batches, leaf_tol):
-    """Phase 7: two pretraining steps with ``pair_cm_direct=True`` on the
+    """Phase 8: two pretraining steps with ``pair_cm_direct=True`` on the
     trained weights (K4 forward and backward once per step, K3 never), then
     one step's losses and K4's own gradient leaves against the K3 build of
     the same weights and draws.  Returns the launch counts of the two
@@ -809,6 +1123,90 @@ def pair_cm_direct_steps(dev, args, cfg, models, batches, leaf_tol):
     return launches
 
 
+def bank_training_steps(dev, args, cfg, models, batches, leaf_tol):
+    """Phase 9: two pretraining steps each with ``attn_impl_3dto2d="pallas"``
+    (K7 forward and backward once per edge layer) and ``"fused"`` (K8) on the
+    trained weights, K1-K3 as before; then one step's losses and the edge
+    network's q / k gradient leaves of each against the ``"auto"`` build of
+    the same weights and draws.  Returns {form: launch counts of its two
+    steps}."""
+    import dataclasses
+
+    from moleculesde_tpu_torch.pretrain.train_state import build_models, make_optimizer
+    from moleculesde_tpu_torch.pretrain.train_step import (
+        METRICS, draw_losses, pretrain_loss, pretrain_step)
+
+    def copy(impl):
+        ms = build_models(dataclasses.replace(cfg, attn_impl_3dto2d=impl), dev)
+        for name in models:
+            ms[name].load_state_dict(models[name].state_dict())
+        return ms
+
+    steps = 2
+    layers = models["SDE_3Dto2D_model"].edge_score_network.num_layers
+    launches = {}
+    for impl, fwd, bwd in (("pallas", attn_map_bank_kernel, attn_map_bank_kernel_bwd),
+                           ("fused", attn_qk_bank, attn_qk_bank_bwd)):
+        ms = copy(impl)
+        optimizer = make_optimizer(ms, cfg)
+        gen = torch.Generator(device=dev).manual_seed(args.seed + 4)
+        reset_counts()
+        t0 = time.perf_counter()
+        history = [pretrain_step(ms, optimizer, cfg, batch, gen)
+                   for batch in batches[1:steps + 1]]
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / steps
+        launches[impl] = read_counts()
+        expected = expect(
+            gin_messages=steps * cfg.num_layer, gin_messages_bwd=steps * cfg.num_layer,
+            fused_cfconv=steps * cfg.schnet_num_interactions,
+            fused_cfconv_bwd=steps * cfg.schnet_num_interactions,
+            pair_relu_project=steps, pair_relu_project_bwd=steps,
+            **{fwd.__name__: steps * layers, bwd.__name__: steps * layers})
+        print(f"{impl} bank training launches over {steps} steps: {launches[impl]} (expected "
+              f"{expected}); step_ms={step_ms:.2f} (first steps of a new build)", flush=True)
+        check(launches[impl] == expected, f"{impl} bank training launch counts")
+        for m in history:
+            vals = {k: float(m[k]) for k in METRICS}
+            check(all(math.isfinite(v) for v in vals.values()), f"non-finite metrics {vals}")
+
+    batch = batches[steps + 1]
+    out = {}
+    saved = [c.launches for c in _counters()]
+    for impl in ("auto", "pallas", "fused"):
+        ms = copy(impl)
+        g = torch.Generator(device=dev).manual_seed(args.seed + 5)
+        total, mets = pretrain_loss(ms, cfg, batch, g, draws=draw_losses(ms, cfg, batch, g))
+        total.backward()
+        leaves = {n: p.grad.detach().float().clone()
+                  for n, p in ms["SDE_3Dto2D_model"].edge_score_network.named_parameters()
+                  if ".attn.q_" in n or ".attn.k_" in n}
+        out[impl] = ({k: v.item() for k, v in mets.items()}, leaves)
+    for c, n in zip(_counters(), saved):
+        c.launches = n
+    # the XLA bank rounds the logits and tanh to bf16, K7 / K8 keep them in
+    # f32 (and K8 the q / k nets' bias adds and tanh): the losses move by
+    # rounding noise, the q / k leaves as PR 2's kernel-owned leaves
+    tol = 1e-3
+    (ma, la) = out["auto"]
+    for impl in ("pallas", "fused"):
+        mi, li = out[impl]
+        for k in METRICS:
+            err = abs(mi[k] - ma[k]) / max(1e-6, abs(ma[k]))
+            print(f"{impl} vs auto bank step: {k} {mi[k]:.6f} vs {ma[k]:.6f} rel {err:.2e} "
+                  f"(tolerance {tol:g})", flush=True)
+            check(err <= tol, f"{k} of the {impl} bank step disagrees with the auto step")
+        check(sorted(li) == sorted(la) and len(li) == 8 * layers, f"{impl} leaves {sorted(li)}")
+        errs = {k: ((li[k] - la[k]).norm() / la[k].norm().clamp(min=1e-30)).item() for k in li}
+        worst = sorted(errs.items(), key=lambda kv: -kv[1])
+        print(f"{impl} vs auto bank step: {len(errs)} q / k leaves, relative L2 errors "
+              + ", ".join(f"{k} {v:.2e}" for k, v in worst[:4])
+              + f" ... (tolerance {leaf_tol:g})", flush=True)
+        for k, v in worst:
+            check(v <= leaf_tol, f"gradient of {k} of the {impl} step disagrees ({v:.3e})")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -836,13 +1234,20 @@ def main() -> int:
     sampler_results, sampler_launches = sampler_path(dev)
     fused_results, fused_launches, _ = fused_chain_path(dev)
     cm_chain_launches = pair_cm_direct_chain(dev)
-    train_results, train_launches, cm_train_launches = training_path(dev)
+    bank_results, chain_3d2d_launches = chain_3d2d_path(dev)
+    train_results, train_launches, cm_train_launches, bank_train_launches = training_path(dev)
+    device_time_phase()
 
     runs = {"sample_2d_to_3d": sampler_launches, "sample_2d_to_3d_fused": fused_launches,
             "sample_2d_to_3d_pair_cm_direct": cm_chain_launches,
+            **{"sample_3d_to_2d" + ("" if form == "auto" else "_" + form): counts
+               for form, counts in chain_3d2d_launches.items()},
             "pretrain_5_steps": train_launches,
-            "pretrain_pair_cm_direct_2_steps": cm_train_launches}
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+            "pretrain_pair_cm_direct_2_steps": cm_train_launches,
+            **{f"pretrain_{form}_bank_2_steps": counts
+               for form, counts in bank_train_launches.items()}}
+    keys = ("max_abs_err", "ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms",
+            "bound_by")
     k6_keys = keys + ("max_rel_err",)
     kernels = []
     for name, source, replaces, main_path in (
@@ -880,6 +1285,27 @@ def main() -> int:
             **{k: r[k] for k in keys}, "library_ms": None, "mode": "bf16",
             "f32": {k: f32[k] for k in (k6_keys if "max_rel_err" in f32 else keys)},
             **extra})
+    # the bank kernels: edge layer 1's operands (C = 8, as layers 1-3) in bf16
+    # at the top, layer 0's (C = 2; K8 F = emb_dim) and f32 mode beside them
+    for name, counter, source, replaces, main_path in (
+            ("attn_map_bank", attn_map_bank_kernel, "attn_bank.cu",
+             "rejected/attn_bank.py:138", "sample_3d_to_2d_pallas"),
+            ("attn_map_bank_bwd", attn_map_bank_kernel_bwd, "attn_bank.cu",
+             "rejected/attn_bank.py:157", "pretrain_pallas_bank_2_steps"),
+            ("attn_qk_bank", attn_qk_bank, "attn_qk_bank.cu",
+             "rejected/attn_qk_bank.py:209", "sample_3d_to_2d_fused"),
+            ("attn_qk_bank_bwd", attn_qk_bank_bwd, "attn_qk_bank.cu",
+             "rejected/attn_qk_bank.py:232", "pretrain_fused_bank_2_steps")):
+        res = lambda sfx: {k: bank_results[name + sfx][k]  # noqa: E731
+                           for k in keys + ("max_rel_err",)}
+        kernels.append({
+            "name": name, "route": "cuda", "source": "moleculesde_tpu_torch/csrc/" + source,
+            "replaces": "moleculesde_tpu/ops/" + replaces,
+            "launches": runs[main_path][counter.__name__], "main_path": main_path,
+            "launches_by_path": {path: counts[counter.__name__]
+                                 for path, counts in runs.items()},
+            **res("[L1]"), "library_ms": None, "mode": "bf16", "operands": "edge layer 1",
+            "f32": res("[L1][f32]"), "layer_0": {"bf16": res("[L0]"), "f32": res("[L0][f32]")}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -38,7 +38,9 @@ from moleculesde_tpu_torch.sde.base import SDE_PRESETS_2DTO3D, SDE_PRESETS_3DTO2
 from moleculesde_tpu_torch.utils.device import resolve_device
 
 MODEL_2DTO3D_VARIANTS = {"SDEModel2Dto3D_01": 1, "SDEModel2Dto3D_02": 2}
-MODEL_3DTO2D_VARIANTS = {"SDEModel3Dto2D_node_adj_dense": 1}
+MODEL_3DTO2D_VARIANTS = {"SDEModel3Dto2D_node_adj_dense": 1,
+                         "SDEModel3Dto2D_node_adj_dense_02": 2,
+                         "SDEModel3Dto2D_node_adj_dense_03": 3}
 
 
 def get_parser() -> argparse.ArgumentParser:

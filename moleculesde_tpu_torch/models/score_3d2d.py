@@ -1,19 +1,25 @@
-"""3D->2D dense node / adjacency score model, variant 1.
+"""3D->2D dense node / adjacency score model, variants 1-3.
 
 Counterpart of ``moleculesde_tpu/models/score_3d2d.py`` (reference
 Geom3D/models/MoleculeSDE/SDE_model_3D_to_2D_node_adj_dense.py,
 invariant_scorenetwork_dense.py, layers/edge_network_dense.py and
 layers/node_network_dense.py): the conditioned diffusion over (atom-type
-one-hots, dense bond adjacency) whose node state is conditioned on the 3D
-latent as ``embedding_3D(repr) + embedding_X(x)``.  Everything runs on
-dense ``[B, N, N]`` tensors of the fixed bucket ``N``.  Parameter names and
-shapes are the JAX module's (channel-stacked q/k/v kernels ``[C, in,
-out]``), so a converted flax tree loads with ``load_state_dict``.
+one-hots, dense bond adjacency).  Its node state is conditioned on the 3D
+latent as ``embedding_3D(repr) + embedding_X(x)`` (variant 1), as their
+concatenation (variant 2, networks twice as wide), or as the concatenation
+with ``embedding_3D(repr)`` also joined to every layer's input (variant 3,
+the reference's "_03" networks).  Everything runs on dense ``[B, N, N]``
+tensors of the fixed bucket ``N``.  Parameter names and shapes are the JAX
+module's (channel-stacked q/k/v kernels ``[C, in, out]``), so a converted
+flax tree loads with ``load_state_dict``.
 
 ``bf16_attn`` runs the edge networks (q/k MLPs, attention maps, value
 aggregation, the channel MLPs) in bf16 as the JAX package's pretraining
-does; the node network, the losses and the parameters stay f32.  Variants
-2-3 (concatenated / injected 3D conditioning) are not ported yet.
+does; the node network, the losses and the parameters stay f32.
+``attn_impl`` picks the attention bank, with the JAX module's values:
+"auto" / "xla" and "wide" (eager, ``ops/attn_maps.py``), "pallas" (the map
+kernel K7, ``ops/attn_bank.py``) or "fused" (the q/k nets and the map in
+one kernel, K8, ``ops/attn_qk_bank.py``).
 """
 
 from __future__ import annotations
@@ -27,9 +33,13 @@ from moleculesde_tpu_torch.core.batch import NUM_ATOM_CLASSES, GraphBatch
 from moleculesde_tpu_torch.core.masks import mask_adjs, mask_x, node_flags
 from moleculesde_tpu_torch.models.layers import MLP, Dense, init_parameters
 from moleculesde_tpu_torch.ops.attn_maps import attn_map_bank
+from moleculesde_tpu_torch.ops.attn_qk_bank import attn_qk_bank
 from moleculesde_tpu_torch.ops.common import EPSILON
 from moleculesde_tpu_torch.sde.base import SDE, make_sde
 from moleculesde_tpu_torch.utils.device import resolve_device
+
+
+ATTN_IMPLS = ("auto", "xla", "wide", "pallas", "fused")
 
 
 def pow_tensor(adj: torch.Tensor, cnum: int) -> torch.Tensor:
@@ -66,13 +76,19 @@ class StackedEdgeLayers(nn.Module):
     """The C adjacency channels' attention layers with channel-stacked
     parameters (ref edge_network_dense.py:33-82): per channel a two-layer
     tanh MLP for q and for k, multi-head symmetric tanh attention maps, and
-    a dense-GCN value ``D^-1/2 (A_c + I) D^-1/2 X W_c + b_c``."""
+    a dense-GCN value ``D^-1/2 (A_c + I) D^-1/2 X W_c + b_c``.  With
+    ``node_3d`` given (variant 3, ref l.131-180) it is concatenated to the
+    node features before the q/k nets and the value; ``in_dim`` counts it."""
 
     def __init__(self, channels: int, in_dim: int, attn_dim: int, out_dim: int,
-                 num_heads: int = 4, dtype: Optional[torch.dtype] = None):
+                 num_heads: int = 4, dtype: Optional[torch.dtype] = None,
+                 attn_impl: str = "auto"):
         super().__init__()
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"unknown attn_impl {attn_impl} (one of {ATTN_IMPLS})")
         self.ds = attn_dim // num_heads
         self.dtype = dtype
+        self.attn_impl = attn_impl
         a2 = 2 * attn_dim
         for p in ("q", "k"):
             setattr(self, f"{p}_kernel_0", nn.Parameter(torch.empty(channels, in_dim, a2)))
@@ -82,22 +98,35 @@ class StackedEdgeLayers(nn.Module):
         self.v_kernel = nn.Parameter(torch.empty(channels, in_dim, out_dim))
         self.v_bias = nn.Parameter(torch.zeros(channels, out_dim))
 
-    def _qk(self, x: torch.Tensor, p: str, dt: torch.dtype) -> torch.Tensor:
+    def qk_params(self) -> Tuple[torch.Tensor, ...]:
+        """(Wq1, bq1, Wq2, bq2, Wk1, bk1, Wk2, bk2), the raw parameters."""
+        return tuple(getattr(self, f"{p}_{kind}_{i}") for p in ("q", "k")
+                     for i in (0, 1) for kind in ("kernel", "bias"))
+
+    def qk(self, x: torch.Tensor, p: str, dt: torch.dtype) -> torch.Tensor:
+        """q (``p="q"``) or k [B, C, N, A] of the node features ``x`` in ``dt``."""
         h = torch.tanh(torch.einsum("bnf,cfa->bcna", x, getattr(self, f"{p}_kernel_0").to(dt))
                        + getattr(self, f"{p}_bias_0").to(dt)[None, :, None])
         return (torch.einsum("bcna,cao->bcno", h, getattr(self, f"{p}_kernel_1").to(dt))
                 + getattr(self, f"{p}_bias_1").to(dt)[None, :, None])
 
-    def forward(self, x: torch.Tensor, adjc: torch.Tensor
+    def forward(self, x: torch.Tensor, adjc: torch.Tensor,
+                node_3d: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """x [B, N, F]; adjc [B, C, N, N] -> (v [B, C, N, out], a [B, C, N, N])
         in the compute dtype."""
-        dt = self.dtype or x.dtype
-        xd = x.to(dt)
-        a = attn_map_bank(self._qk(xd, "q", dt), self._qk(xd, "k", dt), self.ds,
-                          bf16=dt == torch.bfloat16).to(dt)
+        qk_in = x if node_3d is None else torch.cat([x, node_3d], dim=-1)
+        dt = self.dtype or qk_in.dtype
+        bf16 = dt == torch.bfloat16
+        if self.attn_impl == "fused":
+            a = attn_qk_bank(qk_in, *self.qk_params(), self.ds, bf16=bf16)
+        else:
+            xd = qk_in.to(dt)
+            a = attn_map_bank(self.qk(xd, "q", dt), self.qk(xd, "k", dt), self.ds,
+                              bf16=bf16, impl=self.attn_impl)
+        a = a.to(dt)
         a = (a + a.transpose(-1, -2)) / 2.0
-        hv = torch.einsum("bnf,cfo->bcno", xd, self.v_kernel.to(dt))
+        hv = torch.einsum("bnf,cfo->bcno", qk_in.to(dt), self.v_kernel.to(dt))
         v = (torch.einsum("bcij,bcjo->bcio", _norm_adj(adjc).to(dt), hv)
              + self.v_bias.to(dt)[None, :, None])
         return v, a
@@ -110,20 +139,21 @@ class EdgeNetworkDense(nn.Module):
 
     def __init__(self, num_linears: int, in_dim: int, attn_dim: int,
                  conv_output_dim: int, input_dim: int, output_dim: int,
-                 num_heads: int = 4, dtype: Optional[torch.dtype] = None):
+                 num_heads: int = 4, dtype: Optional[torch.dtype] = None,
+                 attn_impl: str = "auto"):
         super().__init__()
         self.dtype = dtype
         self.output_dim = output_dim
         hidden = 2 * max(input_dim, output_dim)
         self.attn = StackedEdgeLayers(input_dim, in_dim, attn_dim, conv_output_dim,
-                                      num_heads, dtype)
+                                      num_heads, dtype, attn_impl)
         self.multi_channel = MLP(input_dim * conv_output_dim, [hidden, conv_output_dim],
                                  activation="elu", dtype=dtype)
         self.mlp = MLP(2 * input_dim, [hidden] * (num_linears - 1) + [output_dim],
                        activation="elu", dtype=dtype)
 
-    def forward(self, x, adjc, flags):
-        v, attn_maps = self.attn(x, adjc)
+    def forward(self, x, adjc, flags, node_3d=None):
+        v, attn_maps = self.attn(x, adjc, node_3d)
         b, c, n, out = v.shape
         x_out = self.multi_channel(v.permute(0, 2, 1, 3).reshape(b, n, c * out))
         x_out = torch.tanh(mask_x(x_out, flags))
@@ -136,28 +166,30 @@ class EdgeNetworkDense(nn.Module):
 
 class EdgeScoreNetworkDense(nn.Module):
     """Adjacency score network over stacks of adjacency powers (ref
-    invariant_scorenetwork_dense.py:40-93)."""
+    invariant_scorenetwork_dense.py:40-93; with ``node_3d_dim`` > 0 the
+    "_03" network of l.134-187, whose layers also read the 3D embedding)."""
 
     def __init__(self, in_dim: int, nhid: int = 16, num_layers: int = 4,
                  num_linears: int = 3, c_init: int = 2, c_hid: int = 8,
                  c_final: int = 4, adim: int = 16, num_heads: int = 4,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, node_3d_dim: int = 0,
+                 attn_impl: str = "auto"):
         super().__init__()
         self.c_init = c_init
         self.num_layers = num_layers
         for i in range(num_layers):
             setattr(self, f"layer_{i}", EdgeNetworkDense(
-                num_linears, in_dim if i == 0 else nhid, nhid if i == 0 else adim, nhid,
-                c_init if i == 0 else c_hid,
-                c_final if i == num_layers - 1 else c_hid, num_heads, dtype))
+                num_linears, (in_dim if i == 0 else nhid) + node_3d_dim,
+                nhid if i == 0 else adim, nhid, c_init if i == 0 else c_hid,
+                c_final if i == num_layers - 1 else c_hid, num_heads, dtype, attn_impl))
         fdim = c_hid * (num_layers - 1) + c_final + c_init
         self.final = MLP(fdim, [2 * fdim, 2 * fdim, 1], activation="silu", dtype=dtype)
 
-    def forward(self, x, adj, flags):
+    def forward(self, x, adj, flags, node_3d=None):
         adjc = pow_tensor(adj, self.c_init)
         adj_list = [adjc]
         for i in range(self.num_layers):
-            x, adjc = getattr(self, f"layer_{i}")(x, adjc, flags)
+            x, adjc = getattr(self, f"layer_{i}")(x, adjc, flags, node_3d)
             adj_list.append(adjc)
         adjs = torch.cat(adj_list, dim=1)
         b, _, n, _ = adjs.shape
@@ -169,65 +201,108 @@ class EdgeScoreNetworkDense(nn.Module):
 
 class NodeScoreNetworkDense(nn.Module):
     """Node score network: dense-GCN stack with tanh, JK concatenation, MLP
-    head (ref invariant_scorenetwork_dense.py:96-131)."""
+    head (ref invariant_scorenetwork_dense.py:96-131; with ``node_3d_dim``
+    > 0 the "_03" network of l.190-225, which joins the 3D embedding to
+    every layer's input but not to the JK concatenation)."""
 
     def __init__(self, in_dim: int, nhid: int = 16, depth: int = 4,
-                 nout: int = NUM_ATOM_CLASSES):
+                 nout: int = NUM_ATOM_CLASSES, node_3d_dim: int = 0):
         super().__init__()
         self.depth = depth
         for i in range(depth):
-            setattr(self, f"layer_{i}", NodeNetworkDense(in_dim if i == 0 else nhid, nhid))
+            setattr(self, f"layer_{i}",
+                    NodeNetworkDense((in_dim if i == 0 else nhid) + node_3d_dim, nhid))
         fdim = in_dim + depth * nhid
         self.final = MLP(fdim, [2 * fdim, 2 * fdim, nout], activation="silu")
 
-    def forward(self, x, adj, flags):
+    def forward(self, x, adj, flags, node_3d=None):
         xs = [x]
         for i in range(self.depth):
-            xs.append(torch.tanh(getattr(self, f"layer_{i}")(xs[-1], adj)))
+            h = xs[-1] if node_3d is None else torch.cat([xs[-1], node_3d], dim=-1)
+            xs.append(torch.tanh(getattr(self, f"layer_{i}")(h, adj)))
         return mask_x(self.final(torch.cat(xs, dim=-1)), flags)
 
 
 class SDEModel3Dto2D(nn.Module):
-    """Conditioned 3D->2D diffusion over (x, adj), variant 1 (ref
-    SDE_model_3D_to_2D_node_adj_dense.py:13-179): ``embedding_3D(repr) +
-    embedding_X(x)`` conditions both score networks.  Built on the CPU,
-    initialized from ``generator`` (default: seed 0), then moved to
-    ``device`` ("cuda" by default; raises without a GPU unless "cpu")."""
+    """Conditioned 3D->2D diffusion over (x, adj) (ref
+    SDE_model_3D_to_2D_node_adj_dense.py): ``variant`` 1 conditions both
+    score networks on ``embedding_3D(repr) + embedding_X(x)`` (l.13-179),
+    2 on their concatenation with networks twice as wide (l.182-349), 3
+    like 2 with ``embedding_3D(repr)`` joined to every layer's input
+    (l.352-520).  ``attn_impl`` as in :class:`StackedEdgeLayers`.  Built on
+    the CPU, initialized from ``generator`` (default: seed 0), then moved
+    to ``device`` ("cuda" by default; raises without a GPU unless "cpu")."""
 
     def __init__(self, dim3d: int, nhid: int = 16, num_layers: int = 4,
                  num_linears: int = 3, c_init: int = 2, c_hid: int = 8,
                  c_final: int = 4, adim: int = 16, num_heads: int = 4,
-                 variant: int = 1, bf16_attn: bool = True, sde_type: str = "VE",
-                 beta_min: float = 0.1, beta_max: float = 1.0,
+                 variant: int = 1, bf16_attn: bool = True, attn_impl: str = "auto",
+                 sde_type: str = "VE", beta_min: float = 0.1, beta_max: float = 1.0,
                  num_diffusion_timesteps: int = 1000,
                  num_class_x: int = NUM_ATOM_CLASSES, noise_on_one_hot: bool = True,
                  device: str | torch.device = "cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if variant != 1:
-            raise NotImplementedError(
-                f"SDEModel3Dto2D variant {variant} is not ported yet (1 is)")
+        if variant not in (1, 2, 3):
+            raise ValueError(f"SDEModel3Dto2D variant {variant}: one of 1, 2, 3")
         dev = resolve_device(device)
+        self.variant = variant
         self.num_class_x = num_class_x
         self.noise_on_one_hot = noise_on_one_hot
         self.sde: SDE = make_sde(sde_type, beta_min, beta_max, num_diffusion_timesteps)
         dt = torch.bfloat16 if bf16_attn else None
         x_channels = num_class_x if noise_on_one_hot else 1
+        cond_dim = dim3d if variant == 1 else 2 * dim3d
+        inject = dim3d if variant == 3 else 0
         self.embedding_3D = Dense(dim3d, dim3d)
         self.embedding_X = Dense(x_channels, dim3d)
         self.edge_score_network = EdgeScoreNetworkDense(
-            dim3d, nhid, num_layers, num_linears, c_init, c_hid, c_final, adim,
-            num_heads, dt)
-        self.node_score_network = NodeScoreNetworkDense(dim3d, nhid, num_layers,
-                                                        x_channels)
+            cond_dim, nhid, num_layers, num_linears, c_init, c_hid, c_final, adim,
+            num_heads, dt, inject, attn_impl)
+        self.node_score_network = NodeScoreNetworkDense(cond_dim, nhid, num_layers,
+                                                        x_channels, inject)
         init_parameters(self, generator or torch.Generator().manual_seed(0))
         self.to(dev)
 
-    def apply_networks(self, node_3d_dense, x, adj, flags):
-        """Raw (net_x, net_adj) at the node state (x, adj)."""
-        cond = self.embedding_3D(node_3d_dense) + self.embedding_X(x)
-        return (self.node_score_network(cond, adj, flags),
-                self.edge_score_network(cond, adj, flags))
+    def apply_networks(self, node_3d_dense, x, adj, flags, which: str = "both"):
+        """Raw (net_x, net_adj) at the node state (x, adj), before the
+        ``-1 / std`` scaling.  ``which`` ("both", "x" or "adj") skips the
+        network whose output is not needed and returns None in its place,
+        as the sampler's adjacency-only corrector steps want."""
+        if which not in ("both", "x", "adj"):
+            raise ValueError(f"which={which}: one of 'both', 'x', 'adj'")
+        emb3d = self.embedding_3D(node_3d_dense)
+        embx = self.embedding_X(x)
+        if self.variant == 1:
+            cond, node_3d = emb3d + embx, None
+        else:
+            cond = torch.cat([emb3d, embx], dim=-1)
+            node_3d = emb3d if self.variant == 3 else None
+        net_adj = (self.edge_score_network(cond, adj, flags, node_3d)
+                   if which in ("both", "adj") else None)
+        net_x = (self.node_score_network(cond, adj, flags, node_3d)
+                 if which in ("both", "x") else None)
+        return net_x, net_adj
+
+    def _std(self, t: torch.Tensor) -> torch.Tensor:
+        return self.sde.marginal_prob(torch.zeros_like(t), t)[1][:, None, None]
+
+    def score_x(self, node_3d_dense, x, adj, flags, t):
+        """Node score ``-net_x / std(t)`` at the sampler state (x, adj); t [B]
+        (ref inference 3D->2D l.227-237)."""
+        return -self.apply_networks(node_3d_dense, x, adj, flags, which="x")[0] / self._std(t)
+
+    def score_adj(self, node_3d_dense, x, adj, flags, t):
+        """Adjacency score at the sampler state (ref ibid. l.239-249)."""
+        return -self.apply_networks(node_3d_dense, x, adj, flags, which="adj")[1] / self._std(t)
+
+    def scores(self, node_3d_dense, x, adj, flags, t):
+        """(score_x, score_adj) from one evaluation of both networks: the
+        sampler's corrector and predictor phases each read one state for
+        both updates."""
+        net_x, net_adj = self.apply_networks(node_3d_dense, x, adj, flags)
+        std = self._std(t)
+        return -net_x / std, -net_adj / std
 
     def draw(self, batch: GraphBatch, generator: Optional[torch.Generator]
              ) -> Dict[str, torch.Tensor]:

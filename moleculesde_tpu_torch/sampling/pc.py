@@ -1,27 +1,34 @@
-"""Reverse-SDE predictor-corrector sampler for 2D->3D conformer generation.
+"""Reverse-SDE predictor-corrector samplers for both generation directions.
 
-Counterpart of ``moleculesde_tpu/sampling/pc.py::sample_positions_pc``
-(reference examples/pretrain_MoleculeSDE_inference_2D_to_3D_VE_VP.py:
-92-212): a Langevin corrector then a reverse-diffusion predictor per step
-over ``linspace(T, eps, n_steps)``, with the conditioning computed once per
-chain.  The corrector's step size uses the batch-global SNR rule (mean row
-norms over the whole batch, also when the score is evaluated in chunks).
+Counterpart of ``moleculesde_tpu/sampling/pc.py``:
+- :func:`sample_positions_pc`, 2D->3D conformer generation (reference
+  examples/pretrain_MoleculeSDE_inference_2D_to_3D_VE_VP.py:92-212): a
+  Langevin corrector then a reverse-diffusion predictor per step over
+  ``linspace(T, eps, n_steps)``, with the conditioning computed once per
+  chain.  The corrector's step size uses the batch-global SNR rule (mean
+  row norms over the whole batch, also when the score is evaluated in
+  chunks).
+- :func:`sample_graph_pc`, 3D->2D joint (x, adj) generation (reference
+  examples/pretrain_MoleculeSDE_inference_3D_to_2D_VE_VP.py:95-252):
+  corrector then predictor updates of the adjacency and the node state per
+  step, with oracle node flags from the true bond graph.
 
-Random draws come from an explicit ``torch.Generator``, in the order prior,
-predictor noise, corrector noise; ``prior`` / ``noise_p`` / ``noise_c``
-may be passed in instead (the tests feed the JAX package's draws).  The
-corrector noise is drawn for the whole chain up front only while it stays
-under 128 MiB, and per step otherwise, as in the JAX package.
+Random draws come from an explicit ``torch.Generator`` and may be passed in
+instead (the tests feed the JAX package's draws).  Chain noise is drawn for
+the whole chain up front only while it stays under 128 MiB, and per step
+otherwise, as in the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from moleculesde_tpu_torch.core.batch import GraphBatch, pad_graphs
+from moleculesde_tpu_torch.core.masks import mask_adjs, mask_x, node_flags
 from moleculesde_tpu_torch.models.score_2d3d import SDEModel2Dto3D
+from moleculesde_tpu_torch.models.score_3d2d import SDEModel3Dto2D
 from moleculesde_tpu_torch.sde.base import linspace_f32
 
 _HOIST_LIMIT_BYTES = 128 * 1024 * 1024
@@ -142,3 +149,115 @@ def sample_positions_pc(
         pos = (x_mean + g[:, None] * noise_p[i]) * m3
         pos_mean = x_mean * m3
     return pos_mean if denoise else pos
+
+
+@torch.no_grad()
+def sample_graph_pc(
+    model: SDEModel3Dto2D,
+    node_3d_repr: torch.Tensor,
+    batch: GraphBatch,
+    generator: Optional[torch.Generator] = None,
+    *,
+    n_steps: Optional[int] = None,
+    snr: float = 0.2,
+    scale_eps: float = 0.9,
+    corrector_steps: int = 1,
+    eps: float = 1e-4,
+    probability_flow: bool = False,
+    x_prior: Optional[torch.Tensor] = None,
+    adj_prior: Optional[torch.Tensor] = None,
+    noise: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Joint (x, adj) generation conditioned on the 3D latent
+    ``node_3d_repr`` [N_nodes, D]; returns (x, adj, x_mean, adj_mean),
+    [B, N, X] / [B, N, N].
+
+    The JAX sampler's order and quirks are kept: node flags come from the
+    true bond adjacency (the atom count is given); the adjacency prior is
+    drawn asymmetric, then masked (ref l.121); each phase runs ONE
+    evaluation of both networks, so both corrector updates read the
+    pre-phase state and the x-corrector reuses its entry gradient for every
+    inner step; the adjacency corrector's inner steps after the first
+    re-evaluate the adjacency score alone at the stale phase-entry ``x``;
+    adjacency noise is ``triu(z, 1) + triu(z, 1)^T``, masked.
+
+    Draws, in this order from ``generator`` unless given: ``x_prior``
+    [B, N, X], ``adj_prior`` [B, N, N], then the chain's noise as flat
+    per-step slabs ``noise`` [n_steps, (1 + corrector_steps) (B N X + B N N)],
+    each sliced as the JAX sampler slices it (the corrector's adjacency
+    noises, its node noises, the predictor's adjacency noise, its node
+    noise).  The slabs are drawn for the whole chain at once only while
+    they stay under 128 MiB, else one per step."""
+    sde = model.sde
+    diff_steps = n_steps if n_steps is not None else sde.N
+    dev = node_3d_repr.device
+    timesteps = linspace_f32(sde.T, eps, diff_steps, dev)
+    b, n = batch.num_graphs, batch.n_max
+    c = model.num_class_x if model.noise_on_one_hot else 1
+
+    edge_attr = torch.where(batch.edge_mask, batch.edge_feats[:, 0].float() + 1.0,
+                            torch.zeros((), device=batch.edge_mask.device))
+    flags = node_flags(batch.dense_adjacency(edge_attr))
+    node_3d = batch.dense_nodes(node_3d_repr)
+
+    if x_prior is None:
+        x_prior = sde.prior_sampling((b, n, c), generator, dev)
+    if adj_prior is None:
+        adj_prior = sde.prior_sampling((b, n, n), generator, dev)
+    x = mask_x(x_prior, flags)
+    adj = mask_adjs(adj_prior, flags)
+
+    alphas = sde.corrector_alpha(timesteps)
+    flat_x, flat_adj = b * n * c, b * n * n
+    per_step = (1 + corrector_steps) * (flat_x + flat_adj)
+    if noise is None and diff_steps * per_step * 4 <= _HOIST_LIMIT_BYTES:
+        noise = torch.randn((diff_steps, per_step), generator=generator, device=dev)
+
+    def noise_x(z):
+        return mask_x(z.reshape(b, n, c), flags)
+
+    def noise_adj(z):
+        z = torch.triu(z.reshape(b, n, n), diagonal=1)
+        return mask_adjs(z + z.transpose(-1, -2), flags)
+
+    def step_size(grad, z, alpha):
+        # batch means of per-graph norms, as the 2D->3D corrector's unmasked rule
+        ratio = _masked_mean_rownorm(z, None) / _masked_mean_rownorm(grad, None).clamp(min=1e-12)
+        return (snr * ratio) ** 2 * 2 * alpha
+
+    x_mean, adj_mean = x, adj
+    for i in range(diff_steps):
+        slab = (noise[i] if noise is not None
+                else torch.randn((per_step,), generator=generator, device=dev))
+        parts = torch.split(slab, [flat_adj] * corrector_steps + [flat_x] * corrector_steps
+                            + [flat_adj, flat_x])
+        tv = timesteps[i].expand(b)
+        alpha = alphas[i]
+
+        # corrector: one dual evaluation at the phase-entry state
+        grad_x, grad_adj = model.scores(node_3d, x, adj, flags, tv)
+        aa, g = adj, grad_adj
+        for j in range(corrector_steps):
+            if j > 0:
+                g = model.score_adj(node_3d, x, aa, flags, tv)
+            z = noise_adj(parts[j])
+            step = step_size(g, z, alpha)
+            adj_mean = aa + step * g
+            aa = adj_mean + torch.sqrt(step * 2) * z * scale_eps
+        xx = x
+        for j in range(corrector_steps):
+            z = noise_x(parts[corrector_steps + j])
+            step = step_size(grad_x, z, alpha)
+            x_mean = xx + step * grad_x
+            xx = x_mean + torch.sqrt(step * 2) * z * scale_eps
+        x, adj = xx, aa
+
+        # reverse-diffusion predictor: one dual evaluation
+        grad_x, grad_adj = model.scores(node_3d, x, adj, flags, tv)
+        f_a, g_a = sde.reverse_discretize(adj, tv, grad_adj, probability_flow)
+        adj_mean = adj - f_a
+        adj = adj_mean + g_a[:, None, None] * noise_adj(parts[-2])
+        f_x, g_x = sde.reverse_discretize(x, tv, grad_x, probability_flow)
+        x_mean = x - f_x
+        x = x_mean + g_x[:, None, None] * noise_x(parts[-1])
+    return x, adj, x_mean, adj_mean

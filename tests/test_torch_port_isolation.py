@@ -19,6 +19,7 @@ import chip_smoke
 from moleculesde_tpu_torch.convert import load_checkpoint, save_checkpoint
 from moleculesde_tpu_torch.examples import pretrain as pretrain_cli
 from moleculesde_tpu_torch.examples import sample_2d_to_3d as cli
+from moleculesde_tpu_torch.examples import sample_3d_to_2d as cli_3d2d
 from moleculesde_tpu_torch.kernels import build
 from moleculesde_tpu_torch.models.gnn2d import GNN2D
 from moleculesde_tpu_torch.models.schnet import SchNet
@@ -65,6 +66,8 @@ def test_entry_points_raise_without_gpu(monkeypatch):
         cli.main(["--end", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pretrain_cli.main(["--synthetic_molecules", "4", "--batch_size", "4"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_3d2d.main(["--end", "1", "--batch_size", "1"])
     assert chip_smoke.main() == 2   # no result printed, non-zero exit
     GNN2D(num_layers=2, emb_dim=8, device="cpu")
 
@@ -157,7 +160,8 @@ def test_cfconv_refuses_gradients_for_positions():
 
 
 def test_every_kernel_source_is_built_by_name():
-    assert build.kernel_names() == ["cfconv", "gin_messages", "pair_block", "score_eval"]
+    assert build.kernel_names() == ["attn_bank", "attn_qk_bank", "cfconv", "gin_messages",
+                                    "pair_block", "score_eval"]
     for name in build.kernel_names():
         lib = build._library_path(name)
         assert lib.parent == build.BUILD_DIR and name in lib.name

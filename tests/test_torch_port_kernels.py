@@ -14,6 +14,8 @@ import pytest
 import torch
 
 from moleculesde_tpu_torch.models.score_2d3d import SDEModel2Dto3D
+from moleculesde_tpu_torch.ops.attn_bank import attn_map_bank_kernel, attn_map_bank_kernel_bwd
+from moleculesde_tpu_torch.ops.attn_qk_bank import attn_qk_bank, attn_qk_bank_bwd
 from moleculesde_tpu_torch.ops.cfconv import fused_cfconv, fused_cfconv_bwd
 from moleculesde_tpu_torch.ops.gin_messages import gin_messages, gin_messages_bwd
 from moleculesde_tpu_torch.ops.gin_messages import gin_messages_plain
@@ -254,3 +256,83 @@ def test_kernels_refuse_autograd_inputs(cuda):
         fused_cfconv(ea, torch.ones(2, 4, 4, device=cuda), x, torch.ones(3, 8, device=cuda),
                      torch.zeros(8, device=cuda), torch.ones(8, 8, device=cuda),
                      torch.zeros(8, device=cuda))
+
+
+def _bank_operands(device, b, c, n, a, seed, dtype=torch.float32):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = (0.8 * torch.randn(b, c, n, a, device=device, generator=gen)).to(dtype)
+    k = (0.8 * torch.randn(b, c, n, a, device=device, generator=gen)).to(dtype)
+    g = torch.randn(b, c, n, n, device=device, generator=gen)
+    return q, k, g
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(128, 8, 32, 32, 4), (3, 2, 9, 12, 2)])
+def test_attn_map_bank_kernel_matches_plain(cuda, shape, bf16):
+    """K7 forward and backward (dq, dk in q's dtype) through autograd,
+    relative to the largest plain value: f32 1e-5 forward, 1e-4 backward
+    (sums in another order); bf16 1e-2 (du is rounded to bf16 on both
+    sides; dq and dk are bf16 outputs)."""
+    b, c, n, a, ds = shape
+    q, k, g = _bank_operands(cuda, b, c, n, a, 20,
+                             torch.bfloat16 if bf16 else torch.float32)
+    launches = (attn_map_bank_kernel.launches, attn_map_bank_kernel_bwd.launches)
+
+    def run(impl):
+        return _grads(lambda q_, k_: attn_map_bank_kernel(q_, k_, ds, bf16=bf16, impl=impl),
+                      (q, k), g)
+
+    kern, plain = run("kernel"), run("plain")
+    assert (attn_map_bank_kernel.launches, attn_map_bank_kernel_bwd.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    assert kern[1].dtype == q.dtype
+    for i, (x, y) in enumerate(zip(kern, plain)):
+        tol = 1e-2 if bf16 else (1e-5 if i == 0 else 1e-4)
+        err = ((x.float() - y.float()).abs().max() / y.float().abs().max()).item()
+        assert err <= tol, (i, err)
+
+
+def _qk_bank_operands(device, b, n, f, c, a, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shapes = [(c, f, a), (c, a), (c, a, a), (c, a)] * 2
+    ws = [torch.randn(s, device=device, generator=gen) / (s[-2] ** 0.5 if len(s) == 3 else 4.0)
+          for s in shapes]
+    qk = torch.randn(b, n, f, device=device, generator=gen)
+    return qk, ws, torch.randn(b, c, n, n, device=device, generator=gen)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(128, 32, 300, 2, 32, 4), (128, 32, 16, 8, 32, 4),
+                                   (16, 32, 900, 2, 32, 4), (3, 9, 13, 3, 8, 2)])
+def test_attn_qk_bank_kernel_matches_plain(cuda, shape, bf16):
+    """K8 forward and backward (dqk and the eight weight gradients) through
+    autograd, relative to the largest plain value: f32 1e-5 forward, 1e-4
+    backward (weight sums over up to 4096 rows in another order); bf16
+    1e-2 (both sides round at the same points)."""
+    b, n, f, c, a, ds = shape
+    qk, ws, g = _qk_bank_operands(cuda, b, n, f, c, a, 21)
+    launches = (attn_qk_bank.launches, attn_qk_bank_bwd.launches)
+
+    def run(impl):
+        return _grads(lambda *t: attn_qk_bank(*t, ds, bf16=bf16, impl=impl), [qk] + ws, g)
+
+    kern, plain = run("kernel"), run("plain")
+    assert (attn_qk_bank.launches, attn_qk_bank_bwd.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    for i, (x, y) in enumerate(zip(kern, plain)):
+        tol = 1e-2 if bf16 else (1e-5 if i == 0 else 1e-4)
+        err = ((x.float() - y.float()).abs().max() / y.float().abs().max()).item()
+        assert err <= tol, (i, err)
+
+
+def test_attn_bank_kernels_refuse_shapes(cuda):
+    """Shapes the bank kernels are not built for raise, never fall back."""
+    q = torch.zeros(2, 2, 33, 32, device=cuda)
+    with pytest.raises(ValueError, match="N <= 32"):
+        attn_map_bank_kernel(q, q, 4)
+    q = torch.zeros(2, 2, 8, 30, device=cuda)
+    with pytest.raises(ValueError, match="multiple of ds"):
+        attn_map_bank_kernel(q, q, 4)
+    qk, ws, _ = _qk_bank_operands(cuda, 2, 32, 2000, 2, 32, 0)
+    with pytest.raises(ValueError, match="shared memory"):
+        attn_qk_bank(qk, *ws, 4)

@@ -1,0 +1,27 @@
+"""Port parity: the attention banks K7 (``attn_impl="pallas"``) and K8
+(``"fused"``) inside ``SDEModel3Dto2D``'s loss against the JAX package,
+whose model runs them as the Pallas kernels in interpret mode
+("pallas_interpret", "fused_interpret"); the port's plain versions follow
+their roundings.
+
+Tolerances relative to the largest value: f32 1e-5 for losses, 1e-4 for
+gradients; bf16 5e-2 for losses and 0.15 for gradients, the bars of
+``test_torch_port_score_losses.py`` (the two frameworks round the bf16
+MLPs around the bank after different ops)."""
+
+import pytest
+
+from test_torch_port_score_3d2d_variants import _check, _loss_pair, batches  # noqa: F401
+
+
+@pytest.mark.parametrize("bf16_attn", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("impl", ["pallas", "fused"])
+def test_bank_kernels_in_loss_match_jax(batches, impl, bf16_attn):
+    """Variant 1 with K7 / K8 as the bank: the port's plain versions inside
+    the loss against JAX's interpret-mode kernels, losses and gradients."""
+    # few channels and heads: the interpret-mode kernels unroll both
+    small = dict(variant=1, bf16_attn=bf16_attn, nhid=8, num_layers=2, c_hid=4,
+                 c_final=2, num_heads=2)
+    pair = _loss_pair(batches, dict(small, attn_impl=impl + "_interpret"),
+                      dict(small, attn_impl=impl))
+    _check(pair, *((5e-2, 0.15) if bf16_attn else (1e-5, 1e-4)))
