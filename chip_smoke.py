@@ -3,8 +3,9 @@ holds each against its plain PyTorch version, then drives the ported paths
 at full width -- 2D->3D conformer generation through the sampler CLI (the
 channel-major chain, the fused chain and the pair_cm_direct chain), 3D->2D
 graph generation through its CLI (three forms of the attention bank), and
-pretraining steps through the pretraining CLI's functions -- and checks
-what comes out.
+pretraining steps through the pretraining CLI's functions (padded ingest
+with K2; the JAX CLI's default compact ingest with K5; the three
+microbatch scopes; PaiNN) -- and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -57,7 +58,23 @@ Phases (any failure exits non-zero):
   9. bank training: two steps each with ``attn_impl_3dto2d`` "pallas" (K7
      forward and backward 4 per step) and "fused" (K8, 4 and 4), then one
      step's losses (1e-3) and the edge network's q / k gradient leaves (5e-2
-     relative L2) of each against the "auto" build.
+     relative L2) of each against the "auto" build;
+ 10. compact path: the pretraining CLI at the JAX CLI's defaults (compact
+     ingest, the extended graph built on the card) with ``--schnet_cfconv
+     pallas_rbf``, B=128: the first batch expanded on the card against the
+     padded collation of the same molecules; K5 (CFConv with the Gaussian
+     smearing built in the kernel) forward and backward against its plain
+     version on SchNet interaction 0's operands, bf16 and f32; one warm-up
+     and five timed steps with the launch counts per step (K1 5 / 5, K5 6 /
+     6, K3 1 / 1, K2 none), every metric finite; one step against an
+     all-plain build as in 7;
+ 11. microbatch: B=256 in two chunks of 128 on the compact K5 path, two
+     steps per scope with their launch counts ("step" K1 10 / 10, K5 12 / 12,
+     K3 2 / 2; "score" and "splice", one code path, K1 5 / 5, K5 6 / 6, K3
+     2 / 2), every metric finite;
+ 12. PaiNN: two steps with ``--model_3d PaiNN`` at full width (emb 300, 3
+     interactions, 20 radial functions), K1 5 / 5 and K3 1 / 1 per step,
+     every metric finite, step ms printed.
 The line before the last lists every kernel as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -79,7 +96,8 @@ from moleculesde_tpu_torch.ops.attn_bank import (
 from moleculesde_tpu_torch.ops.attn_qk_bank import (
     attn_qk_bank, attn_qk_bank_bwd, attn_qk_bank_bwd_plain)
 from moleculesde_tpu_torch.ops.cfconv import (
-    fused_cfconv, fused_cfconv_bwd, fused_cfconv_bwd_plain)
+    fused_cfconv, fused_cfconv_bwd, fused_cfconv_bwd_plain, fused_cfconv_rbf,
+    fused_cfconv_rbf_bwd, fused_cfconv_rbf_bwd_plain)
 from moleculesde_tpu_torch.ops.gin_messages import (
     gin_messages, gin_messages_bwd, gin_messages_bwd_plain, gin_messages_plain)
 from moleculesde_tpu_torch.ops.pair_block import (
@@ -191,6 +209,21 @@ def k2_cost(ea, env, x, w1, bwd: bool = False):
             pairs * (2 * gdim * f + 2 * f * f + 4 * f))
 
 
+def k5_cost(dist, env, x, w1, bwd: bool = False):
+    """(bytes, operations) of K5: K2's work on the pairs inside the cutoff
+    plus their smearing (a subtraction, two products and an exp per
+    Gaussian), reading the f32 distances where K2 reads ea."""
+    gdim, f = w1.shape
+    pairs = int((env != 0).sum())
+    weights = gdim * f + f * f + 2 * f
+    smear = pairs * gdim * 4
+    if bwd:
+        return (4 * (dist.numel() + env.numel() + 3 * x.numel() + 2 * weights),
+                pairs * (4 * gdim * f + 6 * f * f + 10 * f) + smear)
+    return (4 * (dist.numel() + env.numel() + 2 * x.numel() + weights),
+            pairs * (2 * gdim * f + 2 * f * f + 4 * f) + smear)
+
+
 def k3_cost(a, w, bwd: bool = False):
     """(bytes, operations) of K3: add, relu, product and bias forward; the
     two products, the relu mask and the sums backward."""
@@ -273,7 +306,7 @@ def _tuple(x):
 
 def _counters():
     return (gin_messages, gin_messages_bwd, fused_cfconv, fused_cfconv_bwd,
-            pair_relu_project, pair_relu_project_bwd, pair_relu_project_cm,
+            fused_cfconv_rbf, fused_cfconv_rbf_bwd, pair_relu_project, pair_relu_project_bwd, pair_relu_project_cm,
             pair_relu_project_cm_bwd, score_eval_fused, attn_map_bank_kernel,
             attn_map_bank_kernel_bwd, attn_qk_bank, attn_qk_bank_bwd)
 
@@ -441,7 +474,7 @@ def training_operands(models, batch):
     b, n = batch.num_graphs, batch.n_max
     x0 = m2d.AtomEncoder_0(batch.atom_feats)
     k1 = m2d.GINConv_0.message_inputs(x0, batch)
-    ea, cos_env, pair_mask = m3d.geometry(batch.positions, batch.node_mask, b, n)
+    ea, cos_env, pair_mask, _ = m3d.geometry(batch.positions, batch.node_mask, b, n)
     ea = ea.contiguous()
     env = (cos_env * pair_mask.to(cos_env.dtype)).contiguous()
     inter = m3d.SchNetInteraction_0
@@ -961,17 +994,79 @@ def _kernel_leaf_grads(models):
     return out
 
 
+def step_against_plain(dev, cfg, models, batch, seed: int, label: str) -> float:
+    """One step's loss terms, component gradient norms and the kernels' own
+    gradient leaves (KERNEL_LEAVES) against an all-plain build of the same
+    weights, batch statistics and draws (dropout masks from the same seed);
+    the models' state is left as it was.  Returns the leaves' bar."""
+    from moleculesde_tpu_torch.data.compact import CompactBatch, expand_on_device
+    from moleculesde_tpu_torch.pretrain.train_state import build_models
+    from moleculesde_tpu_torch.pretrain.train_step import METRICS, draw_losses, pretrain_loss
+
+    if isinstance(batch, CompactBatch):
+        batch = expand_on_device(batch)
+    plain = build_models(cfg, dev, impl="plain")
+    for name in models:
+        plain[name].load_state_dict(models[name].state_dict())
+    out = {}
+    saved_counts = [c.launches for c in _counters()]
+    for kind, ms in ((label, models), ("plain", plain)):
+        saved = {n: {k: v.clone() for k, v in m.state_dict().items()} for n, m in ms.items()}
+        g = torch.Generator(device=dev).manual_seed(seed)
+        for m in ms.values():
+            m.zero_grad(set_to_none=True)
+        total, mets = pretrain_loss(ms, cfg, batch, g, draws=draw_losses(ms, cfg, batch, g))
+        total.backward()
+        out[kind] = ({k: v.item() for k, v in mets.items()}, _grad_norms(ms),
+                     _kernel_leaf_grads(ms))
+        for n, m in ms.items():
+            m.load_state_dict(saved[n])
+            m.zero_grad(set_to_none=True)
+    for c, n in zip(_counters(), saved_counts):
+        c.launches = n
+    (mk, gk, lk), (mp, gp, lp) = out[label], out["plain"]
+    # bf16 step: both builds round at the same places; sums in another order
+    # move a rounded value by one bf16 ulp now and then.  Three runs read at
+    # most 1.2e-4 on loss terms and gradient norms: 1e-3 is about 10x that
+    tol = 1e-3
+    for k in METRICS:
+        err = abs(mk[k] - mp[k]) / max(1e-6, abs(mp[k]))
+        print(f"{label} vs plain step: {k} {mk[k]:.6f} vs {mp[k]:.6f} rel {err:.2e} "
+              f"(tolerance {tol:g})", flush=True)
+        check(err <= tol, f"{label}: {k} disagrees with the all-plain step")
+    for name in gk:
+        err = abs(gk[name] - gp[name]) / max(1e-12, gp[name])
+        print(f"{label} vs plain step: |grad {name}| {gk[name]:.6e} vs {gp[name]:.6e} "
+              f"rel {err:.2e} (tolerance {tol:g})", flush=True)
+        check(err <= tol, f"{label}: gradient norm of {name} disagrees with the all-plain step")
+    # the kernels' own leaves one by one: |g_kernel - g_plain| / |g_plain|
+    # (L2), so a dropped or wrong weight gradient (error ~1) cannot hide in a
+    # component's norm.  Readings reach 8.3e-3 (the bond tables: a sum over
+    # all edges of bf16-rounded cotangents, with cancellation): 5e-2 is
+    # about 6x that
+    leaf_tol = 5e-2
+    check(sorted(lk) == sorted(lp) and len(lk) == (
+        3 * cfg.num_layer + 4 * cfg.schnet_num_interactions + 5), f"kernel leaves {sorted(lk)}")
+    errs = {k: ((lk[k] - lp[k]).norm() / lp[k].norm().clamp(min=1e-30)).item() for k in lk}
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])
+    print(f"{label} vs plain step: {len(errs)} kernel leaves, relative L2 errors "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst[:6]) + f" ... (tolerance {leaf_tol:g})",
+          flush=True)
+    for k, v in worst:
+        check(v <= leaf_tol, f"{label}: gradient of {k} disagrees with the all-plain step "
+              f"({v:.3e})")
+    return leaf_tol
+
+
 def training_path(dev):
     """Phase 7 (and the training kernel phases): returns (kernel results,
     launch counts of the five timed steps)."""
-    from moleculesde_tpu_torch.benchmarks.profile_pretrain import BATCH, PATH_ARGS, path_batches
+    from moleculesde_tpu_torch.benchmarks.profile_pretrain import (
+        BATCH, PATH_ARGS, parse_path, path_batches)
     from moleculesde_tpu_torch.examples import pretrain as cli
-    from moleculesde_tpu_torch.pretrain.train_state import build_models
-    from moleculesde_tpu_torch.pretrain.train_step import (
-        METRICS, draw_losses, pretrain_loss, pretrain_step)
+    from moleculesde_tpu_torch.pretrain.train_step import METRICS, pretrain_step
 
-    args = cli.get_parser().parse_args(PATH_ARGS)
-    cli.check_supported(args)
+    args = parse_path(PATH_ARGS)
     batches = path_batches(args, dev)
     cfg, models, optimizer, gen = cli.setup(args, dev)
     with torch.no_grad():
@@ -1005,54 +1100,7 @@ def training_path(dev):
     print(f"training path: B={BATCH} molecules, n_max {args.n_max}, bf16, {steps} steps "
           f"step_ms={step_ms:.2f} molecules_per_s={BATCH / step_ms * 1e3:.2f}", flush=True)
 
-    # one step's loss and gradients against an all-plain build of the same
-    # weights, batch statistics and draws (dropout masks from the same seed)
-    plain = build_models(cfg, dev, impl="plain")
-    for name in models:
-        plain[name].load_state_dict(models[name].state_dict())
-    batch = batches[steps]
-    out = {}
-    for label, ms in (("kernel", models), ("plain", plain)):
-        saved = {n: {k: v.clone() for k, v in m.state_dict().items()} for n, m in ms.items()}
-        g = torch.Generator(device=dev).manual_seed(args.seed + 1)
-        for m in ms.values():
-            m.zero_grad(set_to_none=True)
-        total, mets = pretrain_loss(ms, cfg, batch, g, draws=draw_losses(ms, cfg, batch, g))
-        total.backward()
-        out[label] = ({k: v.item() for k, v in mets.items()}, _grad_norms(ms),
-                      _kernel_leaf_grads(ms))
-        for n, m in ms.items():
-            m.load_state_dict(saved[n])
-    (mk, gk, lk), (mp, gp, lp) = out["kernel"], out["plain"]
-    # bf16 step: both builds round at the same places; sums in another order
-    # move a rounded value by one bf16 ulp now and then.  Three runs read at
-    # most 1.2e-4 on loss terms and gradient norms: 1e-3 is about 10x that
-    tol = 1e-3
-    for k in METRICS:
-        err = abs(mk[k] - mp[k]) / max(1e-6, abs(mp[k]))
-        print(f"kernel vs plain step: {k} {mk[k]:.6f} vs {mp[k]:.6f} rel {err:.2e} "
-              f"(tolerance {tol:g})", flush=True)
-        check(err <= tol, f"{k} disagrees with the all-plain step")
-    for name in gk:
-        err = abs(gk[name] - gp[name]) / max(1e-12, gp[name])
-        print(f"kernel vs plain step: |grad {name}| {gk[name]:.6e} vs {gp[name]:.6e} "
-              f"rel {err:.2e} (tolerance {tol:g})", flush=True)
-        check(err <= tol, f"gradient norm of {name} disagrees with the all-plain step")
-    # the kernels' own leaves one by one: |g_kernel - g_plain| / |g_plain|
-    # (L2), so a dropped or wrong weight gradient (error ~1) cannot hide in a
-    # component's norm.  Readings reach 8.3e-3 (the bond tables: a sum over
-    # all edges of bf16-rounded cotangents, with cancellation): 5e-2 is
-    # about 6x that
-    leaf_tol = 5e-2
-    check(sorted(lk) == sorted(lp) and len(lk) == (
-        3 * cfg.num_layer + 4 * cfg.schnet_num_interactions + 5), f"kernel leaves {sorted(lk)}")
-    errs = {k: ((lk[k] - lp[k]).norm() / lp[k].norm().clamp(min=1e-30)).item() for k in lk}
-    worst = sorted(errs.items(), key=lambda kv: -kv[1])
-    print(f"kernel vs plain step: {len(errs)} kernel leaves, relative L2 errors "
-          + ", ".join(f"{k} {v:.2e}" for k, v in worst[:6]) + f" ... (tolerance {leaf_tol:g})",
-          flush=True)
-    for k, v in worst:
-        check(v <= leaf_tol, f"gradient of {k} disagrees with the all-plain step ({v:.3e})")
+    leaf_tol = step_against_plain(dev, cfg, models, batches[steps], args.seed + 1, "kernel")
     cm_launches = pair_cm_direct_steps(dev, args, cfg, models, batches, leaf_tol)
     bank_launches = bank_training_steps(dev, args, cfg, models, batches, leaf_tol)
     return results, launches, cm_launches, bank_launches
@@ -1207,6 +1255,198 @@ def bank_training_steps(dev, args, cfg, models, batches, leaf_tol):
     return launches
 
 
+def compact_kernel_phases(models, batch):
+    """K5 forward and backward against its plain version on the compact
+    path's SchNet interaction-0 operands (distances from the expanded
+    batch), bf16 (the path's mode) and f32, at K2's bars."""
+    from moleculesde_tpu_torch.data.compact import expand_on_device
+
+    m3d = models["model_3D"]
+    with torch.no_grad():
+        eb = expand_on_device(batch)
+        b, n = eb.num_graphs, eb.n_max
+        _, cos_env, pair_mask, dist = m3d.geometry(eb.positions, eb.node_mask, b, n)
+        env = (cos_env * pair_mask.to(cos_env.dtype)).contiguous()
+        inter = m3d.SchNetInteraction_0
+        h0 = m3d.Embed_0.embedding[eb.atomic_numbers.long()].reshape(b, n, -1)
+        x = inter.Dense_2(h0).float().contiguous()
+        dist = dist.contiguous()
+    params = tuple(t.detach() for t in (inter.Dense_0.kernel, inter.Dense_0.bias,
+                                        inter.Dense_1.kernel, inter.Dense_1.bias))
+    kw = dict(start=0.0, stop=m3d.cutoff, num_gaussians=m3d.num_gaussians)
+    g = torch.randn(x.shape, generator=torch.Generator(device=x.device).manual_seed(7),
+                    device=x.device)
+    print(f"compact K5 operands: dist {tuple(dist.shape)}, x {tuple(x.shape)}, "
+          f"G {m3d.num_gaussians} ({int((env != 0).sum())} pairs in the cutoff)", flush=True)
+    results = {}
+    for bf16 in (True, False):   # bf16 is the path's mode
+        sfx = "" if bf16 else "[f32]"
+        results["fused_cfconv_rbf" + sfx], results["fused_cfconv_rbf_bwd" + sfx] = grad_phase(
+            "compact K5 fused_cfconv_rbf" + sfx,
+            lambda *t, **k: fused_cfconv_rbf(dist, env, *t, **kw, **k),
+            lambda *t, **k: fused_cfconv_rbf_bwd(dist, env, *t, **kw, **k),
+            lambda *t, **k: fused_cfconv_rbf_bwd_plain(dist, env, *t, **kw, **k),
+            (x,) + params, g, bf16, 2e-2 if bf16 else 1e-4,
+            k5_cost(dist, env, x, params[0]), k5_cost(dist, env, x, params[0], bwd=True),
+            PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS)
+    return results
+
+
+def check_expansion(dev, args, compact_batch):
+    """The first compact batch, expanded on the card, against the padded
+    collation of the same molecules (the padded loader's first batch, same
+    seed): every list field equal, and the dense extended graph equal to
+    the scatter of the host-built extended lists."""
+    import argparse
+
+    from moleculesde_tpu_torch.benchmarks.profile_pretrain import path_batches
+    from moleculesde_tpu_torch.core.batch import dense_scatter
+    from moleculesde_tpu_torch.data.compact import expand_on_device
+
+    padded_args = argparse.Namespace(**{**vars(args), "ingest": "padded"})
+    gb = path_batches(padded_args, dev)[0]
+    eb = expand_on_device(compact_batch)
+    for f in ("atom_feats", "node_mask", "positions", "edge_src", "edge_dst", "edge_feats",
+              "edge_mask"):
+        check(torch.equal(getattr(eb, f), getattr(gb, f)), f"expanded {f} differs from padded")
+    b, n = gb.num_graphs, gb.n_max
+    mask = dense_scatter(gb.ext_src, gb.ext_dst, gb.ext_mask, torch.ones_like(gb.ext_mask), b, n)
+    attr = dense_scatter(gb.ext_src, gb.ext_dst, gb.ext_mask, gb.ext_attr, b, n)
+    check(torch.equal(eb.ext_dense_mask, mask) and torch.equal(eb.ext_dense_attr, attr),
+          "expanded extended graph differs from the padded path's")
+    print(f"compact expansion: B={b} batch equal to its padded collation "
+          f"({int(mask.sum())} extended edges)", flush=True)
+
+
+def compact_training_path(dev):
+    """Phase 10: the pretraining CLI at the JAX CLI's defaults (compact
+    ingest) with ``--schnet_cfconv pallas_rbf``, B=128: K5 phases, the
+    expansion against the padded collation, one warm-up and five timed
+    steps with the launch counts per step (K1 5 / 5, K5 6 / 6, K3 1 / 1, K2
+    none), then one step against an all-plain build.  Returns (K5 results,
+    launch counts of the five steps)."""
+    from moleculesde_tpu_torch.benchmarks.profile_pretrain import (
+        COMPACT_ARGS, parse_path, path_batches)
+    from moleculesde_tpu_torch.data.compact import CompactBatch
+    from moleculesde_tpu_torch.examples import pretrain as cli
+    from moleculesde_tpu_torch.pretrain.train_step import METRICS, pretrain_step
+
+    args = parse_path(COMPACT_ARGS)
+    batches = path_batches(args, dev)
+    check(args.ingest == "compact" and isinstance(batches[0], CompactBatch),
+          "the CLI's default ingest is not compact")
+    check_expansion(dev, args, batches[0])
+    cfg, models, optimizer, gen = cli.setup(args, dev)
+    results = compact_kernel_phases(models, batches[0])
+
+    steps = 5
+    metrics = pretrain_step(models, optimizer, cfg, batches[0], gen)   # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    history = [pretrain_step(models, optimizer, cfg, batch, gen)
+               for batch in batches[1:steps + 1]]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    launches = read_counts()
+    per_step = {k: v / steps for k, v in launches.items()}
+    expected = expect(gin_messages=cfg.num_layer, gin_messages_bwd=cfg.num_layer,
+                      fused_cfconv_rbf=cfg.schnet_num_interactions,
+                      fused_cfconv_rbf_bwd=cfg.schnet_num_interactions,
+                      pair_relu_project=1, pair_relu_project_bwd=1)
+    print(f"compact path launches over {steps} steps: {launches} (per step {per_step}; "
+          f"expected {expected})", flush=True)
+    check(per_step == expected, f"compact path launch counts {launches}")
+    for m in [metrics] + history:
+        vals = {k: float(m[k]) for k in METRICS}
+        check(all(math.isfinite(v) for v in vals.values()), f"non-finite metrics {vals}")
+    print(f"compact path: B={args.batch_size} molecules, n_max {args.n_max}, bf16, K5, "
+          f"{steps} steps step_ms={step_ms:.2f} molecules_per_s="
+          f"{args.batch_size / step_ms * 1e3:.2f}", flush=True)
+    step_against_plain(dev, cfg, models, batches[steps], args.seed + 6, "compact K5")
+    return results, launches
+
+
+def microbatch_steps(dev):
+    """Phase 11: B=256 in two chunks of 128 on the compact K5 path, two
+    steps per scope (the second timed), launch counts per step: "step" K1
+    10 / 10, K5 12 / 12, K3 2 / 2; "score" and "splice" (one code path) K1
+    5 / 5, K5 6 / 6, K3 2 / 2.  Returns {scope: launch counts}."""
+    import argparse
+
+    from moleculesde_tpu_torch.benchmarks.profile_pretrain import (
+        COMPACT_ARGS, parse_path, path_batches)
+    from moleculesde_tpu_torch.examples import pretrain as cli
+    from moleculesde_tpu_torch.pretrain.train_step import METRICS, SCOPES, pretrain_step
+
+    base = parse_path(COMPACT_ARGS + ["--batch_size", "256", "--microbatch", "128"], batches=2)
+    batches = path_batches(base, dev)
+    layers, inters = base.num_layer, base.SchNet_num_interactions
+    per_step = {
+        "step": dict(gin_messages=2 * layers, gin_messages_bwd=2 * layers,
+                     fused_cfconv_rbf=2 * inters, fused_cfconv_rbf_bwd=2 * inters,
+                     pair_relu_project=2, pair_relu_project_bwd=2),
+        "score": dict(gin_messages=layers, gin_messages_bwd=layers, fused_cfconv_rbf=inters,
+                      fused_cfconv_rbf_bwd=inters, pair_relu_project=2,
+                      pair_relu_project_bwd=2)}
+    per_step["splice"] = per_step["score"]
+    launches = {}
+    for scope in SCOPES:
+        args = argparse.Namespace(**{**vars(base), "microbatch_scope": scope})
+        cfg, models, optimizer, gen = cli.setup(args, dev)
+        reset_counts()
+        times = []
+        for b in batches:
+            t0 = time.perf_counter()
+            metrics = pretrain_step(models, optimizer, cfg, b, gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            vals = {k: float(metrics[k]) for k in METRICS}
+            check(all(math.isfinite(v) for v in vals.values()), f"non-finite metrics {vals}")
+        launches[scope] = read_counts()
+        expected = expect(**{k: len(batches) * v for k, v in per_step[scope].items()})
+        print(f"microbatch {scope}: B=256 in 2 chunks, launches over {len(batches)} steps "
+              f"{launches[scope]} (expected {expected}); step_ms={times[0]:.2f} (first step "
+              f"of a new build), {times[1]:.2f}", flush=True)
+        check(launches[scope] == expected, f"microbatch {scope} launch counts")
+
+    return launches
+
+
+def painn_steps(dev):
+    """Phase 12: two steps with ``--model_3d PaiNN`` at full width (emb 300,
+    3 interactions, 20 radial functions) on the compact path: launches K1 5
+    / 5 and K3 1 / 1 per step, no CFConv kernel; every metric finite.
+    Returns the launch counts."""
+    from moleculesde_tpu_torch.benchmarks.profile_pretrain import (
+        COMMON_ARGS, parse_path, path_batches)
+    from moleculesde_tpu_torch.examples import pretrain as cli
+    from moleculesde_tpu_torch.pretrain.train_step import METRICS, pretrain_step
+
+    args = parse_path(COMMON_ARGS + ["--model_3d", "PaiNN"], batches=2)
+    batches = path_batches(args, dev)
+    cfg, models, optimizer, gen = cli.setup(args, dev)
+    steps = 2
+    reset_counts()
+    times = []
+    for batch in batches[:steps]:
+        t0 = time.perf_counter()
+        metrics = pretrain_step(models, optimizer, cfg, batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        vals = {k: float(metrics[k]) for k in METRICS}
+        check(all(math.isfinite(v) for v in vals.values()), f"PaiNN non-finite metrics {vals}")
+    launches = read_counts()
+    expected = expect(gin_messages=steps * cfg.num_layer, gin_messages_bwd=steps * cfg.num_layer,
+                      pair_relu_project=steps, pair_relu_project_bwd=steps)
+    print(f"PaiNN training: B={args.batch_size}, emb {cfg.emb_dim}, "
+          f"{cfg.painn_n_interactions} interactions, {cfg.painn_n_rbf} RBF; launches "
+          f"{launches} (expected {expected}); step_ms={times[0]:.2f}, {times[1]:.2f} (first "
+          f"steps of a new build)", flush=True)
+    check(launches == expected, "PaiNN training launch counts")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1236,6 +1476,10 @@ def main() -> int:
     cm_chain_launches = pair_cm_direct_chain(dev)
     bank_results, chain_3d2d_launches = chain_3d2d_path(dev)
     train_results, train_launches, cm_train_launches, bank_train_launches = training_path(dev)
+    k5_results, compact_launches = compact_training_path(dev)
+    train_results.update(k5_results)
+    microbatch_launches = microbatch_steps(dev)
+    painn_launches = painn_steps(dev)
     device_time_phase()
 
     runs = {"sample_2d_to_3d": sampler_launches, "sample_2d_to_3d_fused": fused_launches,
@@ -1245,7 +1489,11 @@ def main() -> int:
             "pretrain_5_steps": train_launches,
             "pretrain_pair_cm_direct_2_steps": cm_train_launches,
             **{f"pretrain_{form}_bank_2_steps": counts
-               for form, counts in bank_train_launches.items()}}
+               for form, counts in bank_train_launches.items()},
+            "pretrain_compact_5_steps": compact_launches,
+            **{f"pretrain_microbatch_{scope}_2_steps": counts
+               for scope, counts in microbatch_launches.items()},
+            "pretrain_painn_2_steps": painn_launches}
     keys = ("max_abs_err", "ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms",
             "bound_by")
     k6_keys = keys + ("max_rel_err",)
@@ -1255,6 +1503,8 @@ def main() -> int:
             ("gin_messages_bwd", "gin_messages.cu", "gin_messages.py:144", "pretrain_5_steps"),
             ("fused_cfconv", "cfconv.cu", "cfconv.py:212", "pretrain_5_steps"),
             ("fused_cfconv_bwd", "cfconv.cu", "cfconv.py:228", "pretrain_5_steps"),
+            ("fused_cfconv_rbf", "cfconv.cu", "cfconv.py:212", "pretrain_compact_5_steps"),
+            ("fused_cfconv_rbf_bwd", "cfconv.cu", "cfconv.py:228", "pretrain_compact_5_steps"),
             ("pair_relu_project", "pair_block.cu", "pair_block.py:170", "pretrain_5_steps"),
             ("pair_relu_project_bwd", "pair_block.cu", "pair_block.py:193", "pretrain_5_steps"),
             ("pair_relu_project_cm", "pair_block.cu", "pair_block.py:337",

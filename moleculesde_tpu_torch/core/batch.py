@@ -33,6 +33,10 @@ class GraphBatch:
     ``edge_dst`` [E] int32 flat node indices (padded edges point at node 0),
     ``edge_feats`` [E, 3] int32, ``edge_mask`` [E] bool, and the extended
     (1-4 hop) graph ``ext_src`` / ``ext_dst`` / ``ext_attr`` / ``ext_mask``.
+    The compact ingest path (``data/compact.py::expand_on_device``) also
+    sets the extended graph in dense form, ``ext_dense_mask`` [B, N, N]
+    bool and ``ext_dense_attr`` [B, N, N] int32, which the 2D->3D model
+    then reads instead of scattering the ``ext_*`` lists.
     """
 
     atom_feats: torch.Tensor
@@ -46,6 +50,8 @@ class GraphBatch:
     ext_dst: torch.Tensor
     ext_attr: torch.Tensor
     ext_mask: torch.Tensor
+    ext_dense_mask: Optional[torch.Tensor] = None
+    ext_dense_attr: Optional[torch.Tensor] = None
     num_graphs: int = 1
     n_max: int = 32
 
@@ -57,9 +63,14 @@ class GraphBatch:
     def device(self) -> torch.device:
         return self.node_mask.device
 
-    def to(self, device: str | torch.device) -> "GraphBatch":
+    def to(self, device: str | torch.device, non_blocking: bool = False) -> "GraphBatch":
         fields = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
-        return GraphBatch(**{k: v.to(device) if torch.is_tensor(v) else v
+        return GraphBatch(**{k: v.to(device, non_blocking=non_blocking)
+                             if torch.is_tensor(v) else v for k, v in fields.items()})
+
+    def pin_memory(self) -> "GraphBatch":
+        fields = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
+        return GraphBatch(**{k: v.pin_memory() if torch.is_tensor(v) else v
                              for k, v in fields.items()})
 
     def node2graph(self) -> torch.Tensor:

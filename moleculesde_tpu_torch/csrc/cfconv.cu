@@ -14,6 +14,17 @@
 // fused_cfconv l.301.  Gradient contract as there: dx, dw1, db1, dw2, db2;
 // ea and env get none (the Python wrapper refuses them if they need one).
 //
+// K5 (cfconv_rbf_fwd / cfconv_rbf_bwd) is the same pair of kernels fed from
+// the raw distances dist [B, N, N] f32 instead of ea: the block builds each
+// ea value it stages in shared memory as the TPU kernel's _smear does
+// (ops/cfconv.py:66-89, the smear= form of the same two pallas_calls, entry
+// fused_cfconv_rbf l.337):
+//   ea[g] = exp((coeff * diff) * diff),  diff = dist - (float(g) * step + start)
+// in f32 without contraction into FMAs, with accurate expf, rounded to bf16
+// in bf16 mode.  The [B, N, N, G] slab never exists in device memory: the
+// kernels read 4 bytes per pair where K2 reads 2G (bf16) and pay N*G / F
+// expf per thread per row (forward) or per column (backward) instead.
+//
 // bf16 != 0 reproduces the TPU kernel's bf16 mode: ea, x, w1, w2 and s are
 // rounded to bf16 before the products, which accumulate in f32; the biases,
 // softplus, envelope and the aggregation stay f32.  In the backward, dwf =
@@ -83,10 +94,33 @@ __device__ __forceinline__ float load(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 
+// Where a block's ea values come from; ``pair`` is (b * N + i) * N + j.
+// EaRead: the smeared distances ea [B, N, N, G] in device memory (K2).
+template <typename EA>
+struct EaRead {
+  const EA* ea;
+  __device__ __forceinline__ float operator()(size_t pair, int g, int G) const {
+    return load(ea + pair * G + g);
+  }
+};
+
+// EaSmear: built from the raw distances dist [B, N, N] (K5), as _smear:
+// offset = float(g) * step + start, exp((coeff * diff) * diff), every op
+// rounded to f32 on its own (the _rn intrinsics keep nvcc from fusing them).
+struct EaSmear {
+  const float* dist;
+  float start, step, coeff;
+  __device__ __forceinline__ float operator()(size_t pair, int g, int) const {
+    const float offset = __fadd_rn(__fmul_rn(static_cast<float>(g), step), start);
+    const float diff = __fsub_rn(__ldg(dist + pair), offset);
+    return expf(__fmul_rn(__fmul_rn(coeff, diff), diff));
+  }
+};
+
 __host__ __device__ inline int align4(int n) { return (n + 3) & ~3; }
 
-template <typename EA>
-__global__ void cfconv_fwd_kernel(const EA* __restrict__ ea,
+template <typename Src>
+__global__ void cfconv_fwd_kernel(const Src ea,
                                   const float* __restrict__ env,
                                   const float* __restrict__ x,
                                   const float* __restrict__ w1,
@@ -116,8 +150,11 @@ __global__ void cfconv_fwd_kernel(const EA* __restrict__ ea,
   for (int q = t; q < F * F; q += nthr) w2s[q] = rnd(w2[q], bf16);
   const float* xb = x + static_cast<size_t>(b) * N * F;
   for (int q = t; q < N * F; q += nthr) xs[q] = rnd(xb[q], bf16);
-  const EA* eab = ea + (static_cast<size_t>(b) * N + (row_ok ? i : 0)) * N * G;
-  for (int q = f; q < N * G; q += F) eas[q] = row_ok ? rnd(load(eab + q), bf16) : 0.f;
+  const size_t row = (static_cast<size_t>(b) * N + (row_ok ? i : 0)) * N;
+  for (int q = f; q < N * G; q += F) {
+    const int j = q / G;
+    eas[q] = row_ok ? rnd(ea(row + j, q - j * G, G), bf16) : 0.f;
+  }
   const float* envb = env + (static_cast<size_t>(b) * N + (row_ok ? i : 0)) * N;
   for (int q = f; q < N; q += F) envs[q] = row_ok ? envb[q] : 0.f;
   __syncthreads();
@@ -160,8 +197,8 @@ __global__ void cfconv_fwd_kernel(const EA* __restrict__ ea,
   out[(static_cast<size_t>(b) * N + i) * F + f] = out_acc;
 }
 
-template <typename EA>
-__global__ void cfconv_bwd_kernel(const EA* __restrict__ ea,
+template <typename Src>
+__global__ void cfconv_bwd_kernel(const Src ea,
                                   const float* __restrict__ env,
                                   const float* __restrict__ x,
                                   const float* __restrict__ w1,
@@ -209,7 +246,7 @@ __global__ void cfconv_bwd_kernel(const EA* __restrict__ ea,
     __syncthreads();  // previous column's tiles fully consumed
     for (int q = t; q < N * G; q += nthr) {
       const int i = q / G, gg = q - i * G;
-      eas[q] = rnd(load(ea + ((static_cast<size_t>(b) * N + i) * N + j) * G + gg), bf16);
+      eas[q] = rnd(ea((static_cast<size_t>(b) * N + i) * N + j, gg, G), bf16);
     }
     for (int i = t; i < N; i += nthr) envs[i] = env[static_cast<size_t>(b) * nn + i * N + j];
     __syncthreads();
@@ -355,29 +392,29 @@ size_t bwd_smem(int N, int G, int F) {
          sizeof(float);
 }
 
-template <typename EA>
-int launch_fwd(const EA* ea, const float* env, const float* x, const float* w1,
+template <typename Src>
+int launch_fwd(Src ea, const float* env, const float* x, const float* w1,
                const float* b1, const float* w2, const float* b2, float* out,
                int B, int N, int G, int F, int RG, int bf16, cudaStream_t s) {
   const size_t smem = fwd_smem(N, G, F, RG);
   cudaError_t err = cudaFuncSetAttribute(
-      cfconv_fwd_kernel<EA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      cfconv_fwd_kernel<Src>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B, (N + RG - 1) / RG);
-  cfconv_fwd_kernel<EA><<<grid, RG * F, smem, s>>>(ea, env, x, w1, b1, w2, b2, out,
-                                                   N, G, F, RG, bf16);
+  cfconv_fwd_kernel<Src><<<grid, RG * F, smem, s>>>(ea, env, x, w1, b1, w2, b2, out,
+                                                    N, G, F, RG, bf16);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename EA>
-int launch_bwd(const EA* ea, const float* env, const float* x, const float* w1,
+template <typename Src>
+int launch_bwd(Src ea, const float* env, const float* x, const float* w1,
                const float* b1, const float* w2, const float* b2, const float* g,
                float* dx, float* dw1, float* db1, float* dw2, float* db2,
                float* part, int B, int N, int G, int F, int bf16, cudaStream_t s) {
   const size_t smem = bwd_smem(N, G, F);
   cudaError_t err = cudaFuncSetAttribute(
-      cfconv_bwd_kernel<EA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      cfconv_bwd_kernel<Src>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   float* dw1_part = part;
@@ -385,9 +422,9 @@ int launch_bwd(const EA* ea, const float* env, const float* x, const float* w1,
   float* db1_part = dw2_part + static_cast<size_t>(B) * F * F;
   float* db2_part = db1_part + static_cast<size_t>(B) * F;
   const int S = bwd_groups(F);
-  cfconv_bwd_kernel<EA><<<B, S * F, smem, s>>>(ea, env, x, w1, b1, w2, b2, g, dx,
-                                               dw1_part, db1_part, dw2_part,
-                                               db2_part, N, G, F, S, bf16);
+  cfconv_bwd_kernel<Src><<<B, S * F, smem, s>>>(ea, env, x, w1, b1, w2, b2, g, dx,
+                                                dw1_part, db1_part, dw2_part,
+                                                db2_part, N, G, F, S, bf16);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   partials::sum_rows(dw1_part, dw1, B, G * F, s);
@@ -399,7 +436,8 @@ int launch_bwd(const EA* ea, const float* env, const float* x, const float* w1,
 
 }  // namespace
 
-// Shared memory each launch needs, for the wrapper's checks.
+// Shared memory each launch needs, for the wrapper's checks (K5's launches
+// stage the same tiles as K2's and need the same).
 extern "C" long long cfconv_fwd_smem(int N, int G, int F, int RG) {
   return static_cast<long long>(fwd_smem(N, G, F, RG));
 }
@@ -416,10 +454,10 @@ extern "C" int cfconv_fwd(const void* ea, const float* env, const float* x,
                           int F, int RG, int ea_bf16, int bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (ea_bf16)
-    return launch_fwd(static_cast<const __nv_bfloat16*>(ea), env, x, w1, b1, w2,
-                      b2, out, B, N, G, F, RG, bf16, s);
-  return launch_fwd(static_cast<const float*>(ea), env, x, w1, b1, w2, b2, out, B,
-                    N, G, F, RG, bf16, s);
+    return launch_fwd(EaRead<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(ea)},
+                      env, x, w1, b1, w2, b2, out, B, N, G, F, RG, bf16, s);
+  return launch_fwd(EaRead<float>{static_cast<const float*>(ea)}, env, x, w1, b1,
+                    w2, b2, out, B, N, G, F, RG, bf16, s);
 }
 
 // dx [B, N, F], dw1 [G, F], db1 [F], dw2 [F, F], db2 [F]; ea as in
@@ -433,8 +471,32 @@ extern "C" int cfconv_bwd(const void* ea, const float* env, const float* x,
                           int bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (ea_bf16)
-    return launch_bwd(static_cast<const __nv_bfloat16*>(ea), env, x, w1, b1, w2,
-                      b2, g, dx, dw1, db1, dw2, db2, part, B, N, G, F, bf16, s);
-  return launch_bwd(static_cast<const float*>(ea), env, x, w1, b1, w2, b2, g, dx,
-                    dw1, db1, dw2, db2, part, B, N, G, F, bf16, s);
+    return launch_bwd(EaRead<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(ea)},
+                      env, x, w1, b1, w2, b2, g, dx, dw1, db1, dw2, db2, part, B, N,
+                      G, F, bf16, s);
+  return launch_bwd(EaRead<float>{static_cast<const float*>(ea)}, env, x, w1, b1,
+                    w2, b2, g, dx, dw1, db1, dw2, db2, part, B, N, G, F, bf16, s);
+}
+
+// K5: cfconv_fwd / cfconv_bwd with ea built in-kernel from dist [B, N, N]
+// f32 (EaSmear); start, step = (stop - start) / (G - 1) and coeff =
+// -0.5 / step^2 come from the wrapper as f32.
+extern "C" int cfconv_rbf_fwd(const float* dist, const float* env, const float* x,
+                              const float* w1, const float* b1, const float* w2,
+                              const float* b2, float* out, int B, int N, int G,
+                              int F, int RG, float start, float step, float coeff,
+                              int bf16, void* stream) {
+  return launch_fwd(EaSmear{dist, start, step, coeff}, env, x, w1, b1, w2, b2, out,
+                    B, N, G, F, RG, bf16, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int cfconv_rbf_bwd(const float* dist, const float* env, const float* x,
+                              const float* w1, const float* b1, const float* w2,
+                              const float* b2, const float* g, float* dx,
+                              float* dw1, float* db1, float* dw2, float* db2,
+                              float* part, int B, int N, int G, int F, float start,
+                              float step, float coeff, int bf16, void* stream) {
+  return launch_bwd(EaSmear{dist, start, step, coeff}, env, x, w1, b1, w2, b2, g, dx,
+                    dw1, db1, dw2, db2, part, B, N, G, F, bf16,
+                    static_cast<cudaStream_t>(stream));
 }

@@ -1,29 +1,47 @@
-"""Host batching: shuffle and fixed-shape padded collation.
+"""Host batching: shuffle, fixed-shape collation, worker threads and
+prefetch to the device.
 
-Counterpart of ``moleculesde_tpu/data/loader.py::GraphLoader`` with the
-padded collation only (``--ingest padded``).  Every batch has the same
-shapes; with ``drop_last`` only full batches are produced, otherwise the
-tail batch is padded with empty graphs.  The shuffle draws from
-``numpy.random.default_rng(seed)``, so the same seed visits molecules in
-the JAX package's order.
+Counterpart of ``moleculesde_tpu/data/loader.py``: :class:`GraphLoader`
+with the padded (``--ingest padded``) and the compact (``--ingest
+compact``, :mod:`~moleculesde_tpu_torch.data.compact`) collations,
+:class:`ThreadedLoader` (``--num_workers``) and :func:`device_prefetch`.
+Every batch has the same shapes; with ``drop_last`` only full batches are
+produced, otherwise the tail batch is padded with empty graphs.  The
+shuffle draws from ``numpy.random.default_rng(seed)``, so the same seed
+visits molecules in the JAX package's order.  Size buckets
+(``BucketedGraphLoader``) are not ported yet.
 """
 
 from __future__ import annotations
 
+import collections
 import warnings
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
 from moleculesde_tpu_torch.core.batch import GraphBatch, pad_graphs
+from moleculesde_tpu_torch.data.compact import CompactBatch, collate_compact
+
+Batch = Union[GraphBatch, CompactBatch]
 
 
 class GraphLoader:
-    """Iterate ``(GraphBatch on the CPU, n_real_graphs)`` over graph dicts."""
+    """Iterate ``(batch on the CPU, n_real_graphs)`` over graph dicts: a
+    :class:`GraphBatch` with ``collate="padded"``, a :class:`CompactBatch`
+    with ``collate="compact"`` (``use_extend`` then tells the device
+    whether to build the extended graph)."""
 
     def __init__(self, graphs: Sequence[Dict], batch_size: int, n_max: int,
                  e_max: Optional[int] = None, ext_e_max: Optional[int] = None,
-                 shuffle: bool = True, drop_last: bool = True, seed: int = 0):
+                 shuffle: bool = True, drop_last: bool = True, seed: int = 0,
+                 collate: str = "padded", use_extend: bool = True):
+        if collate not in ("padded", "compact"):
+            raise ValueError(f"unknown collate {collate}")
+        self.collate_mode = collate
+        self.use_extend = use_extend
         self.graphs = list(graphs)
         self.batch_size = batch_size
         self.n_max = n_max
@@ -52,13 +70,19 @@ class GraphLoader:
                   f"{dropped}/{len(self.graphs)} molecules this epoch")
         return [order[b * bs:(b + 1) * bs] for b in range(len(self))]
 
-    def collate_indices(self, idx: np.ndarray) -> Tuple[GraphBatch, int]:
+    def collate_indices(self, idx: np.ndarray) -> Tuple[Batch, int]:
+        """One batch of dataset indices (no loader state changes, so worker
+        threads may call it)."""
         chunk = [self.graphs[i] for i in idx]
+        if self.collate_mode == "compact":
+            return collate_compact(chunk, n_max=self.n_max, e_max=self.e_max,
+                                   num_graphs=self.batch_size,
+                                   use_extend=self.use_extend), len(chunk)
         self._check_budgets(chunk)
         return pad_graphs(chunk, n_max=self.n_max, e_max=self.e_max,
                           ext_e_max=self.ext_e_max, num_graphs=self.batch_size), len(chunk)
 
-    def __iter__(self) -> Iterator[Tuple[GraphBatch, int]]:
+    def __iter__(self) -> Iterator[Tuple[Batch, int]]:
         for idx in self.epoch_indices():
             yield self.collate_indices(idx)
 
@@ -79,3 +103,54 @@ class GraphLoader:
                           f"ext-edges>{self.ext_e_max}: {x_over}); raise --n_max, "
                           f"--e_max_factor or --ext_e_max")
             self._warned_truncate = True
+
+
+class ThreadedLoader:
+    """Collate ``loader``'s batches in ``num_workers`` threads, in the
+    loader's order, with up to ``prefetch`` batches in flight (the JAX
+    package's ``ThreadedLoader``; the reference's DataLoader workers).
+    numpy's gathers release the GIL, so collation overlaps the training
+    loop's launches."""
+
+    def __init__(self, loader: GraphLoader, num_workers: int = 2,
+                 prefetch: Optional[int] = None):
+        self.loader = loader
+        self.num_workers = max(1, num_workers)
+        self.prefetch = prefetch if prefetch is not None else 2 * self.num_workers
+
+    def __len__(self) -> int:
+        return len(self.loader)
+
+    def __iter__(self) -> Iterator[Tuple[Batch, int]]:
+        batches = iter(self.loader.epoch_indices())
+        with ThreadPoolExecutor(self.num_workers) as ex:
+            # range first: zip stops on it without drawing another batch
+            futs = collections.deque(ex.submit(self.loader.collate_indices, idx)
+                                     for _, idx in zip(range(self.prefetch), batches))
+            while futs:
+                yield futs.popleft().result()
+                nxt = next(batches, None)
+                if nxt is not None:
+                    futs.append(ex.submit(self.loader.collate_indices, nxt))
+
+
+def device_prefetch(iterator: Iterable[Tuple[Batch, int]], device: str | torch.device,
+                    size: int = 2) -> Iterator[Tuple[Batch, int]]:
+    """Move each ``(batch, n_real)`` to ``device`` up to ``size`` batches
+    ahead of the consumer.  On a CUDA device the host batch is pinned and
+    copied with ``non_blocking`` on the current stream: the copy overlaps
+    the host's work, and the step that reads it is queued behind it on the
+    same stream, so no synchronisation is needed."""
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    queue = collections.deque()
+    for batch, n_real in iterator:
+        if cuda:
+            batch = batch.pin_memory().to(device, non_blocking=True)
+        else:
+            batch = batch.to(device)
+        queue.append((batch, n_real))
+        if len(queue) >= size:
+            yield queue.popleft()
+    while queue:
+        yield queue.popleft()

@@ -1,17 +1,19 @@
 """Joint MoleculeSDE pretraining CLI.
 
 Counterpart of ``examples/pretrain.py`` of the JAX package (reference
-examples/pretrain_MoleculeSDE.py): the same flag names and defaults for
-everything the port supports, the same per-epoch console metrics, and the
+examples/pretrain_MoleculeSDE.py): the JAX CLI's flag names and defaults
+for everything the port runs, the same per-epoch console metrics, and the
 four-component checkpoint (``model_complete.pt`` at the best epoch loss,
 ``model_complete_final.pt`` at the end), whose ``model_2D`` and
 ``SDE_2Dto3D_model`` the port's sampler CLI loads with
-``--input_model_file``.
+``--input_model_file``.  As in JAX, ``--ingest compact`` (the default)
+collates compact batches and builds the extended graph on the device,
+``--microbatch`` / ``--microbatch_scope`` chunk the step, ``--model_3d
+PaiNN`` swaps the 3D encoder and ``--schnet_cfconv pallas_rbf`` runs K5.
 
 Runs on the GPU (``--device cuda``, the default) and raises without one;
 ``--device cpu`` runs the plain PyTorch path.  Not ported yet, and refused
-with an error: ``--ingest compact`` (use ``padded``), ``--microbatch``,
-``--buckets``, ``--model_3d PaiNN`` and datasets other than ``synthetic``.
+with an error: ``--buckets`` and datasets other than ``synthetic``.
 
 Example:
   python -m moleculesde_tpu_torch.examples.pretrain --dataset=synthetic \\
@@ -28,12 +30,12 @@ import numpy as np
 import torch
 
 from moleculesde_tpu_torch.convert import save_checkpoint
-from moleculesde_tpu_torch.data.loader import GraphLoader
+from moleculesde_tpu_torch.data.loader import GraphLoader, ThreadedLoader, device_prefetch
 from moleculesde_tpu_torch.data.synthetic import random_molecule
 from moleculesde_tpu_torch.pretrain.contrastive import METRICS as CL_METRICS
 from moleculesde_tpu_torch.pretrain.train_state import (
     PretrainConfig, build_models, make_optimizer)
-from moleculesde_tpu_torch.pretrain.train_step import METRICS, pretrain_step
+from moleculesde_tpu_torch.pretrain.train_step import METRICS, SCOPES, pretrain_step
 from moleculesde_tpu_torch.sde.base import SDE_PRESETS_2DTO3D, SDE_PRESETS_3DTO2D
 from moleculesde_tpu_torch.utils.device import resolve_device
 
@@ -53,7 +55,12 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--dataset", type=str, default="synthetic")
     p.add_argument("--synthetic_molecules", type=int, default=0,
                    help="number of synthetic molecules (0 -> 1024)")
-    p.add_argument("--ingest", type=str, default="padded", choices=["compact", "padded"])
+    p.add_argument("--num_workers", type=int, default=0,
+                   help="host collation threads (0: collate in the training loop)")
+    p.add_argument("--ingest", type=str, default="compact", choices=["compact", "padded"],
+                   help="'compact': minimal host batches, expanded (extended graph "
+                        "included) on the device; 'padded': full batches collated "
+                        "on the host")
     p.add_argument("--batch_size", type=int, default=128)
     p.add_argument("--epochs", type=int, default=100)
     p.add_argument("--lr", type=float, default=1e-4)
@@ -65,6 +72,10 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--SchNet_num_gaussians", type=int, default=51)
     p.add_argument("--SchNet_cutoff", type=float, default=10)
     p.add_argument("--SchNet_readout", type=str, default="mean", choices=["mean", "add"])
+    p.add_argument("--PaiNN_radius_cutoff", type=float, default=5.0)
+    p.add_argument("--PaiNN_n_interactions", type=int, default=3)
+    p.add_argument("--PaiNN_n_rbf", type=int, default=20)
+    p.add_argument("--PaiNN_readout", type=str, default="add", choices=["mean", "add"])
     p.add_argument("--gnn_type", type=str, default="GIN")
     p.add_argument("--num_layer", type=int, default=5)
     p.add_argument("--emb_dim", type=int, default=300)
@@ -98,8 +109,23 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--SDE_anneal_power", type=float, default=0)
     p.add_argument("--train_precision", type=str, default="bfloat16",
                    choices=["bfloat16", "float32"])
-    p.add_argument("--microbatch", type=int, default=0)
-    p.add_argument("--schnet_cfconv", type=str, default="auto", choices=["auto", "xla"])
+    p.add_argument("--microbatch", type=int, default=0,
+                   help="chunk size: batches larger than this run in batch / "
+                        "microbatch chunks under --microbatch_scope; 0 disables")
+    p.add_argument("--microbatch_scope", type=str, default="step", choices=list(SCOPES),
+                   help="'step' = gradient accumulation over the whole loss; "
+                        "'score' / 'splice' = only the two score losses chunked "
+                        "(encoders and contrastive at full batch); both run the "
+                        "same spliced backward here, nothing recomputed")
+    p.add_argument("--microbatch_unroll", type=int, default=1,
+                   help="accepted for the JAX CLI's sake (it unrolls its "
+                        "accumulation scan); eager PyTorch has no scan, so it "
+                        "changes nothing")
+    p.add_argument("--schnet_cfconv", type=str, default="auto",
+                   choices=["auto", "xla", "pallas", "pallas_rbf"],
+                   help="'auto' / 'pallas' = the fused CFConv kernel K2; "
+                        "'pallas_rbf' = K5, the Gaussian smearing built in the "
+                        "kernel; 'xla' = eager PyTorch")
     p.add_argument("--n_max", type=int, default=32)
     p.add_argument("--buckets", type=int, nargs="+", default=[])
     p.add_argument("--e_max_factor", type=int, default=4)
@@ -114,28 +140,27 @@ def check_supported(args) -> None:
     if args.dataset != "synthetic":
         raise NotImplementedError(f"--dataset={args.dataset} is not ported yet: only "
                                   f"'synthetic' is")
-    if args.ingest == "compact":
-        raise NotImplementedError("--ingest compact is not ported yet; use --ingest padded")
-    if args.microbatch:
-        raise NotImplementedError("--microbatch is not ported yet; use 0")
     if args.buckets:
         raise NotImplementedError("--buckets is not ported yet")
-    if args.model_3d != "SchNet":
-        raise NotImplementedError(f"--model_3d {args.model_3d} is not ported yet")
 
 
 def load_graphs(args) -> list:
     rng = np.random.default_rng(args.seed)
-    return [random_molecule(rng, int(rng.integers(4, args.n_max + 1)),
-                            extend=args.use_extend_graph)
+    # compact ingest builds the extended graph on the device: the host
+    # skips it
+    extend = args.use_extend_graph and args.ingest != "compact"
+    return [random_molecule(rng, int(rng.integers(4, args.n_max + 1)), extend=extend)
             for _ in range(args.synthetic_molecules or 1024)]
 
 
-def make_loader(graphs, args) -> GraphLoader:
-    return GraphLoader(graphs, batch_size=args.batch_size, n_max=args.n_max,
-                       e_max=args.e_max_factor * args.n_max,
-                       ext_e_max=args.ext_e_max or args.n_max * args.n_max,
-                       shuffle=True, drop_last=True, seed=args.seed)
+def make_loader(graphs, args):
+    """The host loader of ``--ingest`` (in ``--num_workers`` threads)."""
+    loader = GraphLoader(graphs, batch_size=args.batch_size, n_max=args.n_max,
+                         e_max=args.e_max_factor * args.n_max,
+                         ext_e_max=args.ext_e_max or args.n_max * args.n_max,
+                         shuffle=True, drop_last=True, seed=args.seed,
+                         collate=args.ingest, use_extend=args.use_extend_graph)
+    return ThreadedLoader(loader, args.num_workers) if args.num_workers > 0 else loader
 
 
 def config_from_args(args) -> PretrainConfig:
@@ -146,6 +171,9 @@ def config_from_args(args) -> PretrainConfig:
         schnet_num_interactions=args.SchNet_num_interactions,
         schnet_num_gaussians=args.SchNet_num_gaussians, schnet_cutoff=args.SchNet_cutoff,
         schnet_readout=args.SchNet_readout,
+        painn_radius_cutoff=args.PaiNN_radius_cutoff,
+        painn_n_interactions=args.PaiNN_n_interactions, painn_n_rbf=args.PaiNN_n_rbf,
+        painn_readout=args.PaiNN_readout,
         sde_type_2dto3d=args.SDE_type_2Dto3D, sde_type_3dto2d=args.SDE_type_3Dto2D,
         sde_2dto3d_variant=MODEL_2DTO3D_VARIANTS[args.SDE_2Dto3D_model],
         sde_3dto2d_variant=MODEL_3DTO2D_VARIANTS[args.SDE_3Dto2D_model],
@@ -154,7 +182,8 @@ def config_from_args(args) -> PretrainConfig:
         coeff_generative_3dto2d=args.SDE_coeff_generative_3Dto2D,
         anneal_power=args.SDE_anneal_power, use_extend_graph=args.use_extend_graph,
         noise_on_one_hot=args.noise_on_one_hot, train_precision=args.train_precision,
-        schnet_cfconv=args.schnet_cfconv,
+        schnet_cfconv=args.schnet_cfconv, microbatch=args.microbatch,
+        microbatch_scope=args.microbatch_scope,
         cl_similarity_metric=args.CL_similarity_metric, T=args.T,
         cl_neg_samples=args.CL_neg_samples, normalize=args.normalize,
         lr=args.lr, decay=args.decay, gnn_2d_lr_scale=args.gnn_2d_lr_scale,
@@ -185,8 +214,8 @@ def main(argv=None):
         t0 = time.time()
         print(f"epoch: {epoch}")
         sums, n_batches = None, 0
-        for batch, _ in loader:
-            metrics = pretrain_step(models, optimizer, cfg, batch.to(device), gen, coeff_cl)
+        for batch, _ in device_prefetch(loader, device):
+            metrics = pretrain_step(models, optimizer, cfg, batch, gen, coeff_cl)
             vals = torch.stack([metrics[k] for k in METRICS])
             sums = vals if sums is None else sums + vals
             n_batches += 1

@@ -360,7 +360,12 @@ class SDEModel2Dto3D(nn.Module):
 
     def _pair_mask_attr(self, batch: GraphBatch):
         """Dense [B, N, N] extended-adjacency mask and edge labels, indexed
-        [b, s, d].  Masked edges are dropped by the scatter."""
+        [b, s, d].  Masked edges are dropped by the scatter.  A batch from
+        the compact ingest path carries the dense form already (built on
+        the device, with or without the extension as the batch was
+        collated): it is used as it is, as in JAX."""
+        if batch.ext_dense_mask is not None:
+            return batch.ext_dense_mask, batch.ext_dense_attr
         if self.use_extend_graph:
             src, dst, emask, eattr = (batch.ext_src, batch.ext_dst,
                                       batch.ext_mask, batch.ext_attr)
@@ -546,7 +551,7 @@ class SDEModel2Dto3D(nn.Module):
         """The loss's random draws: ``pos_noise`` [B*N, 3] ~ N(0, 1) and the
         antithetic timestep half ``half`` [B // 2 + 1] ~ U{0 .. steps-1}."""
         dev = batch.positions.device
-        return {"pos_noise": torch.randn(batch.positions.shape, generator=generator,
+        return {"pos_noise": torch.randn((batch.num_nodes, 3), generator=generator,
                                          device=dev),
                 "half": torch.randint(0, self.sde_pos.N, (batch.num_graphs // 2 + 1,),
                                       generator=generator, device=dev)}

@@ -15,10 +15,18 @@ more).  On a CPU tensor they take :func:`fused_cfconv_plain` and
 :func:`fused_cfconv_bwd_plain`, which round to bf16 where the TPU kernel
 rounds.
 
-GRADIENT CONTRACT, as in the JAX package: ``ea`` and ``env`` get no
-gradient.  The kernel serves paths where positions carry none
-(pretraining); :func:`fused_cfconv` raises if either needs one, so a force
-path (F = -dE/dpos) can never get zero forces without notice.
+K5, :func:`fused_cfconv_rbf`, is the same convolution from the raw
+distances ``dist`` [B, N, N]: counterpart of ``fused_cfconv_rbf``
+(``ops/cfconv.py:337``, the ``smear=`` form of both ``pallas_call``s),
+whose kernels build the Gaussian smearing in shared memory as the TPU
+kernel's ``_smear`` does (l.66-89), so the ``[B, N, N, G]`` slab never
+reaches device memory.  Its plain versions smear with :func:`smear` and
+then run K2's.
+
+GRADIENT CONTRACT, as in the JAX package: ``ea`` (``dist``) and ``env`` get
+no gradient.  The kernels serve paths where positions carry none
+(pretraining); the wrappers raise if either needs one, so a force path
+(F = -dE/dpos) can never get zero forces without notice.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from moleculesde_tpu_torch.kernels import build
@@ -77,8 +86,47 @@ def fused_cfconv_bwd_plain(ea, env, x, w1, b1, w2, b2, g, *, bf16: bool = False)
     return dx, dw1, dpre.sum(dim=(0, 1, 2)), dw2, dwf.sum(dim=(0, 1, 2))
 
 
-def _check_kernel_inputs(ea, env, x, w1, b1, w2, b2, g=None):
-    tensors = {"ea": ea, "env": env, "x": x, "w1": w1, "b1": b1, "w2": w2, "b2": b2}
+def smear_constants(start: float, stop: float, num_gaussians: int):
+    """(start, step, coeff) of the in-kernel smearing, each rounded to f32
+    as the JAX package's weak-typed Python constants are."""
+    step = (stop - start) / (num_gaussians - 1)
+    return tuple(float(np.float32(v)) for v in (start, step, -0.5 / float(step) ** 2))
+
+
+def smear(dist, start: float, stop: float, num_gaussians: int, *, bf16: bool = False):
+    """The Gaussian smearing as K5 builds it (the TPU kernel's ``_smear``):
+    ``dist`` [B, N, N] -> ea [B, N, N, G] f32, rounded to bf16 in bf16 mode.
+    Offsets ``float(g) * step + start`` from an iota and ``exp((coeff *
+    diff) * diff)``, all in f32; :func:`~moleculesde_tpu_torch.ops.fourier.
+    gaussian_smearing` takes ``linspace``'s grid and ``coeff * diff**2``."""
+    start32, step32, coeff32 = smear_constants(start, stop, num_gaussians)
+    offset = (torch.arange(num_gaussians, device=dist.device, dtype=torch.float32)
+              * step32 + start32)
+    diff = dist.float()[..., None] - offset
+    return round_bf16(torch.exp((coeff32 * diff) * diff), bf16)
+
+
+def fused_cfconv_rbf_plain(dist, env, x, w1, b1, w2, b2, *, start: float, stop: float,
+                           num_gaussians: int, bf16: bool = False):
+    """Plain PyTorch version of K5's forward: :func:`fused_cfconv_plain` on
+    :func:`smear` of ``dist``."""
+    ea = smear(dist, start, stop, num_gaussians, bf16=bf16)
+    return fused_cfconv_plain(ea, env, x, w1, b1, w2, b2, bf16=bf16)
+
+
+def fused_cfconv_rbf_bwd_plain(dist, env, x, w1, b1, w2, b2, g, *, start: float,
+                               stop: float, num_gaussians: int, bf16: bool = False):
+    """Plain PyTorch version of K5's backward: :func:`fused_cfconv_bwd_plain`
+    on :func:`smear` of ``dist``."""
+    ea = smear(dist, start, stop, num_gaussians, bf16=bf16)
+    return fused_cfconv_bwd_plain(ea, env, x, w1, b1, w2, b2, g, bf16=bf16)
+
+
+def _check_kernel_inputs(ea, env, x, w1, b1, w2, b2, g=None, rbf: bool = False):
+    """Device, type, contiguity and shapes; ``ea`` is ``dist`` [B, N, N] for
+    K5 (``rbf``).  Returns (B, N, G, F)."""
+    first = "dist" if rbf else "ea"
+    tensors = {first: ea, "env": env, "x": x, "w1": w1, "b1": b1, "w2": w2, "b2": b2}
     if g is not None:
         tensors["g"] = g
     for name, t in tensors.items():
@@ -89,19 +137,23 @@ def _check_kernel_inputs(ea, env, x, w1, b1, w2, b2, g=None):
         if t.dtype != torch.float32 and not (name == "ea" and t.dtype == torch.bfloat16):
             raise TypeError(f"fused_cfconv kernel: {name} must be float32"
                             + (" or bfloat16" if name == "ea" else ""))
-    if ea.ndim != 4 or x.ndim != 3:
-        raise ValueError("fused_cfconv kernel: expected ea [B,N,N,G], x [B,N,F]")
-    b, n, _, gdim = ea.shape
+    if ea.ndim != (3 if rbf else 4) or x.ndim != 3:
+        raise ValueError(f"fused_cfconv kernel: expected {first} "
+                         f"{'[B,N,N]' if rbf else '[B,N,N,G]'}, x [B,N,F]")
+    b, n = ea.shape[:2]
+    gdim = w1.shape[0] if rbf else ea.shape[3]
     f = x.shape[2]
-    if (tuple(env.shape) != (b, n, n) or tuple(x.shape) != (b, n, f)
+    if (tuple(ea.shape[:3]) != (b, n, n) or tuple(env.shape) != (b, n, n)
+            or tuple(x.shape) != (b, n, f)
             or tuple(w1.shape) != (gdim, f) or tuple(b1.shape) != (f,)
             or tuple(w2.shape) != (f, f) or tuple(b2.shape) != (f,)
             or (g is not None and tuple(g.shape) != (b, n, f))):
         raise ValueError("fused_cfconv kernel: inconsistent shapes "
-                         f"ea{tuple(ea.shape)} env{tuple(env.shape)} x{tuple(x.shape)} "
+                         f"{first}{tuple(ea.shape)} env{tuple(env.shape)} x{tuple(x.shape)} "
                          f"w1{tuple(w1.shape)} w2{tuple(w2.shape)}")
     if f % 4 or f > 1024:
         raise ValueError(f"fused_cfconv kernel: needs F % 4 == 0 and F <= 1024 (F={f})")
+    return b, n, gdim, f
 
 
 def _smem(fn_name: str, *args) -> int:
@@ -121,29 +173,41 @@ def _row_groups(n: int, gdim: int, f: int) -> int:
                      f"{SMEM_LIMIT} B of shared memory")
 
 
-def _launch(ea, env, x, w1, b1, w2, b2, bf16: bool) -> torch.Tensor:
-    _check_kernel_inputs(ea, env, x, w1, b1, w2, b2)
-    b, n, _, gdim = ea.shape
-    f = x.shape[2]
+def _launch(ea, env, x, w1, b1, w2, b2, bf16: bool, smear_args=None) -> torch.Tensor:
+    """K2's forward, or K5's with ``smear_args`` = (start, stop, G) and
+    ``ea`` the distances."""
+    b, n, gdim, f = _check_kernel_inputs(ea, env, x, w1, b1, w2, b2,
+                                         rbf=smear_args is not None)
     out = torch.empty((b, n, f), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
-    fn = build.load("cfconv").cfconv_fwd
+    rg = _row_groups(n, gdim, f)
+    ptrs = (ea.data_ptr(), env.data_ptr(), x.data_ptr(), w1.data_ptr(),
+            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr())
+    lib = build.load("cfconv")
+    if smear_args is None:
+        fn = lib.cfconv_fwd
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        tail = (int(ea.dtype == torch.bfloat16), int(bf16), stream(x))
+    else:
+        fn = lib.cfconv_rbf_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
+                       + [ctypes.c_int, ctypes.c_void_p])
+        tail = (*smear_constants(*smear_args), int(bf16), stream(x))
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    rc = fn(ea.data_ptr(), env.data_ptr(), x.data_ptr(), w1.data_ptr(),
-            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-            b, n, gdim, f, _row_groups(n, gdim, f), int(ea.dtype == torch.bfloat16),
-            int(bf16), stream(x))
-    build.check_launch(rc, "cfconv_fwd")
-    fused_cfconv.launches += 1
+    rc = fn(*ptrs, b, n, gdim, f, rg, *tail)
+    build.check_launch(rc, fn.__name__)
+    if smear_args is None:
+        fused_cfconv.launches += 1
+    else:
+        fused_cfconv_rbf.launches += 1
     return out
 
 
-def _launch_bwd(ea, env, x, w1, b1, w2, b2, g, bf16: bool):
-    _check_kernel_inputs(ea, env, x, w1, b1, w2, b2, g)
-    b, n, _, gdim = ea.shape
-    f = x.shape[2]
+def _launch_bwd(ea, env, x, w1, b1, w2, b2, g, bf16: bool, smear_args=None):
+    """K2's backward, or K5's (``smear_args`` as in :func:`_launch`)."""
+    b, n, gdim, f = _check_kernel_inputs(ea, env, x, w1, b1, w2, b2, g,
+                                         rbf=smear_args is not None)
     if _smem("cfconv_bwd_smem", n, gdim, f) > SMEM_LIMIT:
         raise ValueError(f"fused_cfconv backward kernel: N={n}, G={gdim}, F={f} "
                          f"do not fit {SMEM_LIMIT} B of shared memory")
@@ -157,16 +221,27 @@ def _launch_bwd(ea, env, x, w1, b1, w2, b2, g, bf16: bool):
         return dx, dw1.zero_(), db1.zero_(), dw2.zero_(), db2.zero_()
     part = torch.empty((b * (gdim * f + f * f + 2 * f),), dtype=torch.float32,
                        device=dev)
-    fn = build.load("cfconv").cfconv_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    rc = fn(ea.data_ptr(), env.data_ptr(), x.data_ptr(), w1.data_ptr(),
+    ptrs = (ea.data_ptr(), env.data_ptr(), x.data_ptr(), w1.data_ptr(),
             b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), g.data_ptr(),
             dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(),
-            db2.data_ptr(), part.data_ptr(), b, n, gdim, f,
-            int(ea.dtype == torch.bfloat16), int(bf16), stream(x))
-    build.check_launch(rc, "cfconv_bwd")
-    fused_cfconv_bwd.launches += 1
+            db2.data_ptr(), part.data_ptr())
+    lib = build.load("cfconv")
+    if smear_args is None:
+        fn = lib.cfconv_bwd
+        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        tail = (int(ea.dtype == torch.bfloat16), int(bf16), stream(x))
+    else:
+        fn = lib.cfconv_rbf_bwd
+        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
+                       + [ctypes.c_int, ctypes.c_void_p])
+        tail = (*smear_constants(*smear_args), int(bf16), stream(x))
+    fn.restype = ctypes.c_int
+    rc = fn(*ptrs, b, n, gdim, f, *tail)
+    build.check_launch(rc, fn.__name__)
+    if smear_args is None:
+        fused_cfconv_bwd.launches += 1
+    else:
+        fused_cfconv_rbf_bwd.launches += 1
     return dx, dw1, db1, dw2, db2
 
 
@@ -180,24 +255,50 @@ def fused_cfconv_bwd(ea, env, x, w1, b1, w2, b2, g, *, bf16: bool = False,
     return _launch_bwd(ea, env, x, w1, b1, w2, b2, g, bf16)
 
 
+def fused_cfconv_rbf_bwd(dist, env, x, w1, b1, w2, b2, g, *, start: float, stop: float,
+                         num_gaussians: int, bf16: bool = False, impl: str = "auto"):
+    """Backward of :func:`fused_cfconv_rbf` for the output cotangent ``g``
+    [B, N, F]: returns (dx, dw1, db1, dw2, db2), f32."""
+    if resolve_impl(impl, x, "fused_cfconv_rbf") == "plain":
+        return fused_cfconv_rbf_bwd_plain(dist, env, x, w1, b1, w2, b2, g, start=start,
+                                          stop=stop, num_gaussians=num_gaussians, bf16=bf16)
+    return _launch_bwd(dist, env, x, w1, b1, w2, b2, g, bf16, (start, stop, num_gaussians))
+
+
 class _FusedCFConv(torch.autograd.Function):
-    """The kernel pair (or the plain pair) under autograd; no gradient for
-    ``ea`` or ``env`` (the wrapper refuses them if they need one)."""
+    """A kernel pair (or its plain pair) under autograd: K2, or K5 when
+    ``smear_args`` = (start, stop, G) and ``ea`` holds the distances; no
+    gradient for ``ea`` or ``env`` (the wrappers refuse them if they need
+    one)."""
 
     @staticmethod
-    def forward(ctx, ea, env, x, w1, b1, w2, b2, bf16, impl):
+    def forward(ctx, ea, env, x, w1, b1, w2, b2, bf16, impl, smear_args):
         ctx.save_for_backward(ea, env, x, w1, b1, w2, b2)
-        ctx.bf16, ctx.impl = bf16, impl
-        if impl == "plain":
-            return fused_cfconv_plain(ea, env, x, w1, b1, w2, b2, bf16=bf16)
-        return _launch(ea, env, x, w1, b1, w2, b2, bf16)
+        ctx.bf16, ctx.impl, ctx.smear_args = bf16, impl, smear_args
+        if impl == "kernel":
+            return _launch(ea, env, x, w1, b1, w2, b2, bf16, smear_args)
+        if smear_args is not None:
+            ea = smear(ea, *smear_args, bf16=bf16)
+        return fused_cfconv_plain(ea, env, x, w1, b1, w2, b2, bf16=bf16)
 
     @staticmethod
     def backward(ctx, g):
         ea, env, x, w1, b1, w2, b2 = ctx.saved_tensors
-        dx, dw1, db1, dw2, db2 = fused_cfconv_bwd(
-            ea, env, x, w1, b1, w2, b2, g.contiguous(), bf16=ctx.bf16, impl=ctx.impl)
-        return None, None, dx, dw1, db1, dw2, db2, None, None
+        g = g.contiguous()
+        if ctx.impl == "kernel":
+            grads = _launch_bwd(ea, env, x, w1, b1, w2, b2, g, ctx.bf16, ctx.smear_args)
+        else:
+            if ctx.smear_args is not None:
+                ea = smear(ea, *ctx.smear_args, bf16=ctx.bf16)
+            grads = fused_cfconv_bwd_plain(ea, env, x, w1, b1, w2, b2, g, bf16=ctx.bf16)
+        return (None, None, *grads, None, None, None)
+
+
+def _refuse_geometry_grads(ea, env, first: str) -> None:
+    if torch.is_grad_enabled() and (ea.requires_grad or env.requires_grad):
+        raise RuntimeError(f"fused_cfconv gives no gradient to {first} or env (the "
+                           "TPU kernel's contract): positions must not require "
+                           "grad through it")
 
 
 def fused_cfconv(ea, env, x, w1, b1, w2, b2, *, bf16: bool = False,
@@ -212,13 +313,29 @@ def fused_cfconv(ea, env, x, w1, b1, w2, b2, *, bf16: bool = False,
     products in bf16 as the TPU kernel does.  ``impl``: "auto" (the kernels
     for a CUDA tensor, the plain versions for a CPU tensor), "kernel" or
     "plain".  Raises if ``ea`` or ``env`` requires a gradient."""
-    if torch.is_grad_enabled() and (ea.requires_grad or env.requires_grad):
-        raise RuntimeError("fused_cfconv gives no gradient to ea or env (the "
-                           "TPU kernel's contract): positions must not require "
-                           "grad through it")
+    _refuse_geometry_grads(ea, env, "ea")
     return _FusedCFConv.apply(ea, env, x, w1, b1, w2, b2, bf16,
-                               resolve_impl(impl, x, "fused_cfconv"))
+                               resolve_impl(impl, x, "fused_cfconv"), None)
+
+
+def fused_cfconv_rbf(dist, env, x, w1, b1, w2, b2, *, start: float, stop: float,
+                     num_gaussians: int, bf16: bool = False,
+                     impl: str = "auto") -> torch.Tensor:
+    """K5: :func:`fused_cfconv` on the Gaussian smearing of ``dist``
+    [B, N, N] f32 over ``num_gaussians`` centres from ``start`` to ``stop``,
+    built inside the kernels (:func:`smear` gives the same values).  Same
+    arguments, ``impl`` and gradient contract as :func:`fused_cfconv`; raises
+    if ``dist`` or ``env`` requires a gradient."""
+    _refuse_geometry_grads(dist, env, "dist")
+    if w1.shape[0] != num_gaussians:
+        raise ValueError(f"fused_cfconv_rbf: w1 has {w1.shape[0]} rows for "
+                         f"{num_gaussians} Gaussians")
+    return _FusedCFConv.apply(dist, env, x, w1, b1, w2, b2, bf16,
+                               resolve_impl(impl, x, "fused_cfconv_rbf"),
+                               (float(start), float(stop), int(num_gaussians)))
 
 
 fused_cfconv.launches = 0
 fused_cfconv_bwd.launches = 0
+fused_cfconv_rbf.launches = 0
+fused_cfconv_rbf_bwd.launches = 0

@@ -1,6 +1,7 @@
 """Distance and noise-level embeddings: Gaussian Fourier projection
 (reference SDE_model_2D_to_3D.py:57-66), SchNet's Gaussian smearing and
-shifted softplus (reference schnet.py:198-216).
+shifted softplus (reference schnet.py:198-216), PaiNN's Gaussian radial
+basis and cosine cutoff (reference painn_utils.py:99-155).
 
 Counterpart of ``moleculesde_tpu/ops/fourier.py``.
 """
@@ -26,6 +27,22 @@ def gaussian_smearing(dist: torch.Tensor, start: float, stop: float,
     coeff = -0.5 / float((stop - start) / (num_gaussians - 1)) ** 2
     diff = dist[..., None] - offset
     return torch.exp(coeff * diff ** 2)
+
+
+def gaussian_rbf(dist: torch.Tensor, n_rbf: int, cutoff: float,
+                 start: float = 0.0) -> torch.Tensor:
+    """PaiNN's Gaussian radial basis: ``dist`` [...] -> [..., n_rbf], on
+    ``jnp.linspace``'s f32 grid."""
+    offsets = linspace_f32(start, cutoff, n_rbf, dist.device)
+    coeff = -0.5 / abs((cutoff - start) / (n_rbf - 1)) ** 2
+    diff = dist[..., None] - offsets
+    return torch.exp(coeff * diff ** 2)
+
+
+def cosine_cutoff(dist: torch.Tensor, cutoff: float) -> torch.Tensor:
+    """Behler's cosine cutoff envelope, zero from ``cutoff`` on."""
+    val = 0.5 * (torch.cos(dist * math.pi / cutoff) + 1.0)
+    return val * (dist < cutoff).to(val.dtype)
 
 
 def shifted_softplus(x: torch.Tensor) -> torch.Tensor:

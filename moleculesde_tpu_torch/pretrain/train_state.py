@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from moleculesde_tpu_torch.models.gnn2d import GNN2D
+from moleculesde_tpu_torch.models.painn import PaiNN
 from moleculesde_tpu_torch.models.schnet import SchNet
 from moleculesde_tpu_torch.models.score_2d3d import SDEModel2Dto3D
 from moleculesde_tpu_torch.models.score_3d2d import SDEModel3Dto2D
@@ -44,6 +45,10 @@ class PretrainConfig:
     schnet_num_gaussians: int = 51
     schnet_cutoff: float = 10.0
     schnet_readout: str = "mean"
+    painn_radius_cutoff: float = 5.0
+    painn_n_interactions: int = 3
+    painn_n_rbf: int = 20
+    painn_readout: str = "add"
     # SDE selection (config.py:107-114; presets resolved at build time)
     sde_type_2dto3d: str = "VE"
     sde_type_3dto2d: str = "VE"
@@ -62,9 +67,17 @@ class PretrainConfig:
     # (the JAX config's five precision fields, all set from that one flag);
     # params, optimizer, losses and BatchNorm stay f32
     train_precision: str = "bfloat16"
-    # CFConv: "auto" = the fused K2 pair (no gradient to positions), "xla" =
-    # eager PyTorch
+    # CFConv, the JAX names: "auto" / "pallas" = the fused K2 pair (no
+    # gradient to positions), "pallas_rbf" = K5 (the smearing built in the
+    # kernel from the distances), "xla" = eager PyTorch
     schnet_cfconv: str = "auto"
+    # microbatching (train_step.py): batches of more than ``microbatch``
+    # molecules (0: off) run in B / microbatch chunks under
+    # ``microbatch_scope`` "step" (gradient accumulation over the whole
+    # loss) or "score" / "splice" (only the two score losses chunked; one
+    # code path here, see train_step.py)
+    microbatch: int = 0
+    microbatch_scope: str = "step"
     # 3D->2D attention bank (SDEModel3Dto2D.attn_impl): "auto" = the eager
     # form (JAX's off-TPU default), "pallas" = the map kernel K7, "fused" =
     # the q/k-net and map kernel K8
@@ -104,21 +117,27 @@ def build_models(cfg: PretrainConfig, device: str | torch.device = "cuda",
     JAX)."""
     if cfg.gnn_type != "GIN" or cfg.jk != "last":
         raise NotImplementedError("only GIN with JK 'last' is ported so far")
-    if cfg.model_3d != "SchNet":
-        raise NotImplementedError(f"--model_3d {cfg.model_3d}: only SchNet is ported so far")
+    if cfg.schnet_cfconv not in ("auto", "xla", "pallas", "pallas_rbf"):
+        raise ValueError(f"unknown schnet_cfconv {cfg.schnet_cfconv}")
     gen = generator or torch.Generator().manual_seed(0)
     compute_dtype = "bfloat16" if cfg.bf16 else None
     model_2d = GNN2D(num_layers=cfg.num_layer, emb_dim=cfg.emb_dim,
                      drop_ratio=cfg.dropout_ratio,
                      compute_dtype=compute_dtype,
                      msg_impl=impl, device=device, generator=gen)
-    model_3d = SchNet(hidden_channels=cfg.emb_dim, num_filters=cfg.schnet_num_filters,
-                      num_interactions=cfg.schnet_num_interactions,
-                      num_gaussians=cfg.schnet_num_gaussians, cutoff=cfg.schnet_cutoff,
-                      readout=cfg.schnet_readout,
-                      compute_dtype=compute_dtype,
-                      cfconv="xla" if cfg.schnet_cfconv == "xla" else impl,
-                      device=device, generator=gen)
+    if cfg.model_3d == "SchNet":
+        model_3d = SchNet(hidden_channels=cfg.emb_dim, num_filters=cfg.schnet_num_filters,
+                          num_interactions=cfg.schnet_num_interactions,
+                          num_gaussians=cfg.schnet_num_gaussians, cutoff=cfg.schnet_cutoff,
+                          readout=cfg.schnet_readout, compute_dtype=compute_dtype,
+                          cfconv=cfg.schnet_cfconv, impl=impl, device=device, generator=gen)
+    elif cfg.model_3d == "PaiNN":
+        model_3d = PaiNN(n_atom_basis=cfg.emb_dim, n_interactions=cfg.painn_n_interactions,
+                         n_rbf=cfg.painn_n_rbf, cutoff=cfg.painn_radius_cutoff,
+                         readout=cfg.painn_readout, compute_dtype=compute_dtype,
+                         device=device, generator=gen)
+    else:
+        raise NotImplementedError(f"Model {cfg.model_3d} not included.")
     t23, bmin23, bmax23, n23 = SDE_PRESETS_2DTO3D[cfg.sde_type_2dto3d]
     sde_2dto3d = SDEModel2Dto3D(
         emb_dim=cfg.emb_dim, hidden_dim=cfg.hidden_dim_2dto3d,

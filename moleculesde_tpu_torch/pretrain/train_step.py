@@ -1,54 +1,157 @@
 """One step of the joint pretraining objective.
 
-Counterpart of ``moleculesde_tpu/pretrain/train_step.py`` (the
-single-batch branch of ``make_pretrain_step``, l.455-468, and
-``make_pretrain_loss``; reference examples/pretrain_MoleculeSDE.py:106-156):
-GIN and SchNet forward, the dual contrastive loss, the 2D->3D and 3D->2D
-score-matching losses, one Adam update.  BatchNorm running statistics of
-``model_2D`` and ``SDE_2Dto3D_model`` update in place as the forward runs.
+Counterpart of ``moleculesde_tpu/pretrain/train_step.py`` (reference
+examples/pretrain_MoleculeSDE.py:106-156): GIN and the 3D encoder forward,
+the dual contrastive loss, the 2D->3D and 3D->2D score-matching losses, one
+Adam update.  BatchNorm running statistics of ``model_2D`` and
+``SDE_2Dto3D_model`` update in place as the forward runs.
+
+A step takes a padded :class:`GraphBatch` or a :class:`CompactBatch`, which
+it expands on the device (``data/compact.py``).  With ``cfg.microbatch = m``
+and a batch of B > m molecules, B % m == 0, the step runs in k = B / m
+chunks (JAX's ``make_pretrain_step`` gating, l.128-131 and 443-449) under
+``cfg.microbatch_scope``:
+
+- ``"step"``: gradient accumulation over the whole loss, each chunk's loss
+  (its own contrastive negatives) scaled by 1/k, metrics averaged; a
+  compact batch is expanded chunk by chunk;
+- ``"score"`` / ``"splice"``: the encoders and the contrastive loss at the
+  full batch, the two score losses chunk by chunk (their mean over chunks).
+  Both run one code path: each chunk's score losses run their backward into
+  leaf copies of the encoder outputs and the score models' weights, then one
+  backward takes the encoders the summed cotangents (JAX's ``"splice"``).
+  JAX's ``"score"`` gets the same numbers by recomputing each chunk in its
+  backward, a memory choice for the TPU; here nothing is recomputed.
+
+``"score"`` and ``"splice"`` need both generative coefficients > 0;
+otherwise, and when B <= m or m does not divide B, the step is the plain
+single-batch step.  Under every scope the 2D->3D model's BatchNorm
+statistics update chunk by chunk, in order.
 
 Randomness: dropout masks and every loss draw come from one
 ``torch.Generator`` in execution order, or the draws are passed explicitly
-(``draws``, as :func:`draw_losses` makes them) so a test can hand both
-frameworks the same noise.  The microbatch scopes are not ported yet.
+(``draws``, as :func:`draw_losses` / :func:`draw_chunked` make them) so a
+test can hand both frameworks the same noise.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import dataclasses
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
 from moleculesde_tpu_torch.core.batch import GraphBatch
+from moleculesde_tpu_torch.data.compact import CompactBatch, expand_on_device
 from moleculesde_tpu_torch.pretrain.contrastive import draw_shift, dual_cl
 from moleculesde_tpu_torch.pretrain.train_state import PretrainConfig
 
 METRICS = ("CL_loss", "CL_acc", "SDE_loss_2Dto3D", "SDE_loss_3Dto2D", "loss")
+SCOPES = ("step", "score", "splice")
+
+Batch = Union[GraphBatch, CompactBatch]
 
 
-def draw_losses(models: Dict[str, nn.Module], cfg: PretrainConfig, batch: GraphBatch,
+def _expanded(batch: Batch) -> GraphBatch:
+    return expand_on_device(batch) if isinstance(batch, CompactBatch) else batch
+
+
+def _split_rows(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Flat per-graph rows [B * per, ...] as k chunks [k, B / k * per, ...]."""
+    return x.reshape((k, x.shape[0] // k) + tuple(x.shape[1:]))
+
+
+def split_microbatches(batch: Batch, k: int) -> List[Batch]:
+    """``batch`` as k equal chunks of B / k graphs, in order.  A compact
+    batch holds graph-local indices, so its chunks are slices.  A padded
+    batch numbers nodes ``b * n_max + i``: the four edge endpoint lists are
+    shifted to chunk-local numbering, and padded edges, which point at
+    global node 0, are clamped back to node 0 of their chunk (masked
+    anyway), as JAX's ``split_microbatches`` does."""
+    nb = batch.num_graphs
+    if nb % k:
+        raise ValueError(f"{nb} graphs do not split into {k} chunks")
+    mb = nb // k
+    shifted = ("edge_src", "edge_dst", "ext_src", "ext_dst")
+    tensors = {f.name: getattr(batch, f.name) for f in dataclasses.fields(batch)
+               if torch.is_tensor(getattr(batch, f.name))}
+    chunks = []
+    for i in range(k):
+        fields = {name: _split_rows(v, k)[i] for name, v in tensors.items()}
+        if isinstance(batch, GraphBatch):
+            for name in shifted:
+                fields[name] = (fields[name] - i * mb * batch.n_max).clamp(min=0)
+        chunks.append(dataclasses.replace(batch, **fields, num_graphs=mb))
+    return chunks
+
+
+def microbatch_chunks(cfg: PretrainConfig, num_graphs: int) -> int:
+    """The number of chunks the step runs in: B / microbatch where JAX's
+    gating holds for ``cfg.microbatch_scope``, else 1."""
+    if cfg.microbatch_scope not in SCOPES:
+        raise ValueError(f"unknown microbatch_scope {cfg.microbatch_scope}")
+    mb = cfg.microbatch
+    if not mb or num_graphs <= mb or num_graphs % mb:
+        return 1
+    if cfg.microbatch_scope != "step" and not (cfg.coeff_generative_2dto3d > 0
+                                               and cfg.coeff_generative_3dto2d > 0):
+        return 1
+    return num_graphs // mb
+
+
+def draw_losses(models: Dict[str, nn.Module], cfg: PretrainConfig, batch: Batch,
                 generator: Optional[torch.Generator]) -> Dict[str, object]:
     """Every loss draw of one step: the two contrastive shifts
     (``EBM_node_dot_prod`` only) and each score model's noise and
-    timesteps."""
-    dev = batch.positions.device
-    cl = None
-    if cfg.cl_similarity_metric == "EBM_node_dot_prod":
-        cl = tuple(draw_shift(batch.num_nodes, generator, dev) for _ in range(2))
-    return {"cl": cl,
-            "sde_2dto3d": models["SDE_2Dto3D_model"].draw(batch, generator),
+    timesteps (the same for a padded batch and the compact batch of the
+    same molecules)."""
+    return {"cl": _draw_cl(cfg, batch, generator), **_draw_sde(models, batch, generator)}
+
+
+def _draw_cl(cfg, batch, generator):
+    if cfg.cl_similarity_metric != "EBM_node_dot_prod":
+        return None
+    return tuple(draw_shift(batch.num_nodes, generator, batch.positions.device)
+                 for _ in range(2))
+
+
+def _draw_sde(models, batch, generator):
+    return {"sde_2dto3d": models["SDE_2Dto3D_model"].draw(batch, generator),
             "sde_3dto2d": models["SDE_3Dto2D_model"].draw(batch, generator)}
 
 
-def pretrain_loss(models: Dict[str, nn.Module], cfg: PretrainConfig, batch: GraphBatch,
+def draw_chunked(models: Dict[str, nn.Module], cfg: PretrainConfig, batch: Batch,
+                 k: int, generator: Optional[torch.Generator]) -> Dict[str, object]:
+    """The draws of a ``"score"`` / ``"splice"`` step: the contrastive
+    shifts at the full batch, then each chunk's score-model draws
+    (``{"cl": ..., "chunks": [{"sde_2dto3d": ..., "sde_3dto2d": ...}]}``)."""
+    return {"cl": _draw_cl(cfg, batch, generator),
+            "chunks": [_draw_sde(models, c, generator)
+                       for c in split_microbatches(batch, k)]}
+
+
+def _score_losses(models, cfg, node_2d, node_3d, batch, generator, deterministic, d):
+    """(2D->3D loss, 3D->2D loss) of one batch or chunk."""
+    loss_23 = models["SDE_2Dto3D_model"].loss(
+        node_2d, batch, generator, cfg.anneal_power, deterministic,
+        use_running_average=False, draws=d["sde_2dto3d"])
+    loss_x, loss_adj = models["SDE_3Dto2D_model"].loss(
+        node_3d, batch, generator, cfg.anneal_power, cfg.reduce_mean,
+        draws=d["sde_3dto2d"])
+    return loss_23, 0.5 * (loss_x + loss_adj)
+
+
+def pretrain_loss(models: Dict[str, nn.Module], cfg: PretrainConfig, batch: Batch,
                   generator: Optional[torch.Generator] = None,
                   coeff_contrastive: Optional[float] = None, deterministic: bool = False,
                   draws: Optional[Dict[str, object]] = None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The joint loss and its metrics (``CL_loss, CL_acc, SDE_loss_2Dto3D,
+    """The joint loss of one unchunked batch (padded, or compact and then
+    expanded) and its metrics (``CL_loss, CL_acc, SDE_loss_2Dto3D,
     SDE_loss_3Dto2D, loss``).  ``deterministic`` turns dropout off;
     ``coeff_contrastive`` defaults to the config's."""
+    batch = _expanded(batch)
     coeff = cfg.coeff_contrastive if coeff_contrastive is None else coeff_contrastive
     d = draws if draws is not None else draw_losses(models, cfg, batch, generator)
     node_2d = models["model_2D"](batch, use_running_average=False,
@@ -75,17 +178,76 @@ def pretrain_loss(models: Dict[str, nn.Module], cfg: PretrainConfig, batch: Grap
                    "SDE_loss_3Dto2D": loss_32, "loss": total}
 
 
+def _splice_scope_grads(models, cfg, batch, k, generator, coeff, deterministic, d):
+    """The ``"score"`` / ``"splice"`` scopes (JAX ``make_pretrain_grads_spliced``):
+    fills every ``.grad`` and returns the metrics.  The contrastive loss and
+    the chunks' score losses run their backward into leaf copies of the
+    encoder outputs (a chunk's row slice accumulates into the leaves'
+    ``.grad``) and the score models' weights; the encoders' backward then
+    runs once, on the summed cotangents."""
+    node_2d = models["model_2D"](batch, use_running_average=False,
+                                 deterministic=deterministic, generator=generator)
+    _, node_3d = models["model_3D"].encode_batch(batch)
+    leaf_2d = node_2d.detach().requires_grad_(True)
+    leaf_3d = node_3d.detach().requires_grad_(True)
+    cl_loss, cl_acc = dual_cl(leaf_2d, leaf_3d, cfg.cl_similarity_metric, cfg.T,
+                              cfg.cl_neg_samples, batch.node_mask, cfg.normalize,
+                              shifts=d["cl"])
+    (coeff * cl_loss).backward()
+    l23 = l32 = 0.0
+    for i, (chunk, dc) in enumerate(zip(split_microbatches(batch, k), d["chunks"])):
+        a, b = _score_losses(models, cfg, _split_rows(leaf_2d, k)[i],
+                             _split_rows(leaf_3d, k)[i], chunk, generator, deterministic, dc)
+        ((cfg.coeff_generative_2dto3d * a + cfg.coeff_generative_3dto2d * b) / k).backward()
+        l23, l32 = l23 + a.detach(), l32 + b.detach()
+    torch.autograd.backward((node_2d, node_3d), (leaf_2d.grad, leaf_3d.grad))
+    cl_loss = cl_loss.detach()
+    loss_23, loss_32 = l23 / k, l32 / k
+    total = (coeff * cl_loss + cfg.coeff_generative_2dto3d * loss_23
+             + cfg.coeff_generative_3dto2d * loss_32)
+    return {"CL_loss": cl_loss, "CL_acc": cl_acc.detach(), "SDE_loss_2Dto3D": loss_23,
+            "SDE_loss_3Dto2D": loss_32, "loss": total}
+
+
+def pretrain_grads(models: Dict[str, nn.Module], cfg: PretrainConfig, batch: Batch,
+                   generator: Optional[torch.Generator] = None,
+                   coeff_contrastive: Optional[float] = None, deterministic: bool = False,
+                   draws=None) -> Dict[str, torch.Tensor]:
+    """The step's gradients, into every parameter's ``.grad`` (added to what
+    is there), under the microbatch scope that applies (module docstring);
+    returns the metrics.  ``draws``: :func:`draw_losses`' dict for an
+    unchunked step, a list of them (one per chunk) under ``"step"``,
+    :func:`draw_chunked`'s dict under ``"score"`` / ``"splice"``."""
+    coeff = cfg.coeff_contrastive if coeff_contrastive is None else coeff_contrastive
+    k = microbatch_chunks(cfg, batch.num_graphs)
+    if k > 1 and cfg.microbatch_scope == "step":
+        sums = None
+        for i, chunk in enumerate(split_microbatches(batch, k)):
+            total, metrics = pretrain_loss(models, cfg, _expanded(chunk), generator, coeff,
+                                           deterministic, draws[i] if draws else None)
+            (total / k).backward()
+            vals = {m: v.detach() for m, v in metrics.items()}
+            sums = vals if sums is None else {m: sums[m] + vals[m] for m in METRICS}
+        return {m: v / k for m, v in sums.items()}
+    batch = _expanded(batch)
+    if k > 1:
+        d = draws if draws is not None else draw_chunked(models, cfg, batch, k, generator)
+        return _splice_scope_grads(models, cfg, batch, k, generator, coeff, deterministic, d)
+    total, metrics = pretrain_loss(models, cfg, batch, generator, coeff, deterministic, draws)
+    total.backward()
+    return metrics
+
+
 def pretrain_step(models: Dict[str, nn.Module], optimizer: torch.optim.Optimizer,
-                  cfg: PretrainConfig, batch: GraphBatch,
+                  cfg: PretrainConfig, batch: Batch,
                   generator: Optional[torch.Generator] = None,
                   coeff_contrastive: Optional[float] = None,
-                  deterministic: bool = False,
-                  draws: Optional[Dict[str, object]] = None) -> Dict[str, torch.Tensor]:
-    """Loss, gradients and one optimizer update; returns the metrics as
-    detached device scalars (reading them is the caller's sync)."""
+                  deterministic: bool = False, draws=None) -> Dict[str, torch.Tensor]:
+    """Gradients (:func:`pretrain_grads`) and one optimizer update; returns
+    the metrics as detached device scalars (reading them is the caller's
+    sync)."""
     optimizer.zero_grad(set_to_none=True)
-    total, metrics = pretrain_loss(models, cfg, batch, generator, coeff_contrastive,
-                                   deterministic, draws)
-    total.backward()
+    metrics = pretrain_grads(models, cfg, batch, generator, coeff_contrastive,
+                             deterministic, draws)
     optimizer.step()
     return {k: v.detach() for k, v in metrics.items()}

@@ -17,15 +17,21 @@ import torch
 
 import chip_smoke
 from moleculesde_tpu_torch.convert import load_checkpoint, save_checkpoint
+from moleculesde_tpu_torch.data.compact import CompactBatch, expand_on_device
+from moleculesde_tpu_torch.data.loader import GraphLoader, ThreadedLoader, device_prefetch
+from moleculesde_tpu_torch.data.synthetic import random_molecule
 from moleculesde_tpu_torch.examples import pretrain as pretrain_cli
 from moleculesde_tpu_torch.examples import sample_2d_to_3d as cli
 from moleculesde_tpu_torch.examples import sample_3d_to_2d as cli_3d2d
 from moleculesde_tpu_torch.kernels import build
 from moleculesde_tpu_torch.models.gnn2d import GNN2D
+from moleculesde_tpu_torch.models.painn import PaiNN
 from moleculesde_tpu_torch.models.schnet import SchNet
 from moleculesde_tpu_torch.models.score_2d3d import SDEModel2Dto3D
 from moleculesde_tpu_torch.models.score_3d2d import SDEModel3Dto2D
-from moleculesde_tpu_torch.ops.cfconv import fused_cfconv, fused_cfconv_bwd
+from moleculesde_tpu_torch.ops.cfconv import (
+    fused_cfconv, fused_cfconv_bwd, fused_cfconv_rbf, fused_cfconv_rbf_bwd)
+from moleculesde_tpu_torch.pretrain.train_step import split_microbatches
 from moleculesde_tpu_torch.ops.gin_messages import gin_messages, gin_messages_bwd
 from moleculesde_tpu_torch.ops.pair_block import (
     pair_relu_project, pair_relu_project_bwd, pair_relu_project_cm, pair_relu_project_cm_bwd)
@@ -62,6 +68,8 @@ def test_entry_points_raise_without_gpu(monkeypatch):
         SchNet(hidden_channels=8, num_filters=8, num_interactions=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SDEModel3Dto2D(dim3d=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PaiNN(n_atom_basis=8, n_interactions=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["--end", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -119,14 +127,19 @@ def test_kernel_wrappers_take_plain_on_cpu_and_count_no_launch():
     ea, env = torch.rand(2, 4, 4, 3), torch.rand(2, 4, 4)
     x4 = torch.randn(2, 4, 4)
     cf_w = (torch.ones(3, 4), torch.zeros(4), torch.eye(4), torch.zeros(4))
+    dist = torch.rand(2, 4, 4) * 5
+    rbf = dict(start=0.0, stop=5.0, num_gaussians=3)
     wrappers = (gin_messages, gin_messages_bwd, fused_cfconv, fused_cfconv_bwd,
-                pair_relu_project, pair_relu_project_bwd, pair_relu_project_cm,
-                pair_relu_project_cm_bwd, score_eval_fused)
+                fused_cfconv_rbf, fused_cfconv_rbf_bwd, pair_relu_project,
+                pair_relu_project_bwd, pair_relu_project_cm, pair_relu_project_cm_bwd,
+                score_eval_fused)
     counts = [f.launches for f in wrappers]
     assert gin_messages(x, idx, idx, boh, tbl).shape == (2, 4, 5)
     assert gin_messages_bwd(x, idx, idx, boh, tbl, x)[1].shape == (3, 5)
     assert fused_cfconv(ea, env, x4, *cf_w).shape == (2, 4, 4)
     assert len(fused_cfconv_bwd(ea, env, x4, *cf_w, x4)) == 5
+    assert fused_cfconv_rbf(dist, env, x4, *cf_w, **rbf).shape == (2, 4, 4)
+    assert len(fused_cfconv_rbf_bwd(dist, env, x4, *cf_w, x4, **rbf)) == 5
     assert pair_relu_project(x, x, w, bias).shape == (2, 4, 4, 2)
     assert pair_relu_project_bwd(x, x, w, torch.ones(2, 4, 4, 2))[2].shape == (5, 2)
     assert pair_relu_project_cm(x, x, w, bias).shape == (2, 2, 16)
@@ -137,6 +150,10 @@ def test_kernel_wrappers_take_plain_on_cpu_and_count_no_launch():
         gin_messages_bwd(x, idx, idx, boh, tbl, x, impl="kernel")
     with pytest.raises(ValueError, match="CUDA"):
         fused_cfconv(ea, env, x4, *cf_w, impl="kernel")
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_cfconv_rbf(dist, env, x4, *cf_w, impl="kernel", **rbf)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_cfconv_rbf_bwd(dist, env, x4, *cf_w, x4, impl="kernel", **rbf)
     with pytest.raises(ValueError, match="CUDA"):
         pair_relu_project(x, x, w, bias, impl="kernel")
     with pytest.raises(ValueError, match="CUDA"):
@@ -166,3 +183,21 @@ def test_every_kernel_source_is_built_by_name():
         lib = build._library_path(name)
         assert lib.parent == build.BUILD_DIR and name in lib.name
     assert build.build([]) == {}   # nothing to build: no compiler needed
+
+
+def test_compact_ingest_stays_on_the_cpu_when_asked():
+    """The compact path on the CPU: worker threads, the prefetch (no pinned
+    memory without a card), the expansion and the chunk split all run
+    there."""
+    rng = np.random.default_rng(2)
+    gs = [random_molecule(rng, int(rng.integers(3, 7)), extend=False) for _ in range(8)]
+    loader = ThreadedLoader(GraphLoader(gs, batch_size=4, n_max=6, collate="compact"), 2)
+    seen = 0
+    for batch, n_real in device_prefetch(loader, "cpu"):
+        assert isinstance(batch, CompactBatch) and n_real == 4
+        assert not batch.atom_feats.is_pinned()
+        expanded = expand_on_device(batch)
+        assert expanded.ext_dense_mask.device.type == "cpu"
+        assert [c.num_graphs for c in split_microbatches(batch, 2)] == [2, 2]
+        seen += 1
+    assert seen == 2

@@ -16,7 +16,9 @@ import torch
 from moleculesde_tpu_torch.models.score_2d3d import SDEModel2Dto3D
 from moleculesde_tpu_torch.ops.attn_bank import attn_map_bank_kernel, attn_map_bank_kernel_bwd
 from moleculesde_tpu_torch.ops.attn_qk_bank import attn_qk_bank, attn_qk_bank_bwd
-from moleculesde_tpu_torch.ops.cfconv import fused_cfconv, fused_cfconv_bwd
+from moleculesde_tpu_torch.ops.cfconv import (
+    fused_cfconv, fused_cfconv_bwd, fused_cfconv_rbf, fused_cfconv_rbf_bwd, smear)
+from moleculesde_tpu_torch.ops.fourier import gaussian_smearing
 from moleculesde_tpu_torch.ops.gin_messages import gin_messages, gin_messages_bwd
 from moleculesde_tpu_torch.ops.gin_messages import gin_messages_plain
 from moleculesde_tpu_torch.ops.pair_block import (
@@ -256,6 +258,71 @@ def test_kernels_refuse_autograd_inputs(cuda):
         fused_cfconv(ea, torch.ones(2, 4, 4, device=cuda), x, torch.ones(3, 8, device=cuda),
                      torch.zeros(8, device=cuda), torch.ones(8, 8, device=cuda),
                      torch.zeros(8, device=cuda))
+
+
+def _rbf_operands(cuda, b, n, gdim, f):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    dist = torch.rand(b, n, n, device=cuda, generator=gen) * 12.0
+    env = torch.rand(b, n, n, device=cuda, generator=gen) * (
+        torch.rand(b, n, n, device=cuda, generator=gen) < 0.8)
+    x = torch.randn(b, n, f, device=cuda, generator=gen)
+    w1 = torch.randn(gdim, f, device=cuda, generator=gen) / gdim ** 0.5
+    b1 = torch.randn(f, device=cuda, generator=gen) * 0.1
+    w2 = torch.randn(f, f, device=cuda, generator=gen) / f ** 0.5
+    b2 = torch.randn(f, device=cuda, generator=gen) * 0.1
+    return dist, env, (x, w1, b1, w2, b2), torch.randn(b, n, f, device=cuda, generator=gen)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("shape", [(128, 32, 51, 128), (3, 7, 5, 16)])
+def test_fused_cfconv_rbf_kernel_matches_plain(cuda, shape, bf16):
+    """K5: output and dx, dw1, db1, dw2, db2 through autograd against its
+    plain version (tolerances as K2's); then against K2 fed the same
+    smearing, which stages the same values: equal bit for bit."""
+    b, n, gdim, f = shape
+    dist, env, params, g = _rbf_operands(cuda, *shape)
+    kw = dict(start=0.0, stop=10.0, num_gaussians=gdim, bf16=bf16)
+    launches = (fused_cfconv_rbf.launches, fused_cfconv_rbf_bwd.launches)
+
+    def run(impl):
+        return _grads(lambda *t: fused_cfconv_rbf(dist, env, *t, impl=impl, **kw), params, g)
+
+    kern, plain = run("kernel"), run("plain")
+    assert (fused_cfconv_rbf.launches, fused_cfconv_rbf_bwd.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    _close(kern[0], plain[0], 2e-2 if bf16 else 1e-5)
+    for k, p in zip(kern[1:], plain[1:]):
+        _close(k, p, 2e-2 if bf16 else 1e-4)
+    ea = smear(dist, 0.0, 10.0, gdim, bf16=bf16)
+    k2 = _grads(lambda *t: fused_cfconv(ea, env, *t, bf16=bf16, impl="kernel"), params, g)
+    for k, k2_ in zip(kern, k2):
+        assert torch.equal(k, k2_)
+
+
+def test_fused_cfconv_rbf_kernel_matches_k2_on_gaussian_smearing(cuda):
+    """K5 against K2 on ``gaussian_smearing(dist)``, f32: the two smearings
+    differ in their last bits only (iota * step against linspace)."""
+    dist, env, params, g = _rbf_operands(cuda, 16, 32, 51, 128)
+    ea = gaussian_smearing(dist, 0.0, 10.0, 51)
+    _close(fused_cfconv_rbf(dist, env, *params, start=0.0, stop=10.0, num_gaussians=51),
+           fused_cfconv(ea, env, *params), 1e-5)
+    for k5, k2 in zip(fused_cfconv_rbf_bwd(dist, env, *params, g, start=0.0, stop=10.0,
+                                           num_gaussians=51),
+                      fused_cfconv_bwd(ea, env, *params, g)):
+        _close(k5, k2, 1e-4)
+
+
+def test_fused_cfconv_rbf_kernel_refuses(cuda):
+    """K5 refuses gradients for dist / env, a bf16 dist, and a backward
+    whose tiles do not fit shared memory (n_max 64), naming the sizes."""
+    dist, env, params, g = _rbf_operands(cuda, 2, 64, 51, 128)
+    kw = dict(start=0.0, stop=10.0, num_gaussians=51)
+    with pytest.raises(RuntimeError, match="no gradient to dist or env"):
+        fused_cfconv_rbf(dist.clone().requires_grad_(True), env, *params, **kw)
+    with pytest.raises(TypeError, match="dist must be float32"):
+        fused_cfconv_rbf(dist.bfloat16(), env, *params, **kw)
+    with pytest.raises(ValueError, match="N=64, G=51, F=128"):
+        fused_cfconv_rbf_bwd(dist, env, *params, g, **kw)
 
 
 def _bank_operands(device, b, c, n, a, seed, dtype=torch.float32):

@@ -7,8 +7,13 @@ the port as arrays; weights move JAX -> port through
 
 from __future__ import annotations
 
+import contextlib
+import functools
+import re
+
 import jax
 import numpy as np
+import pytest
 import torch
 
 from moleculesde_tpu.core.batch import pad_graphs as jax_pad_graphs
@@ -50,3 +55,66 @@ def rel_err(a, b) -> float:
     a = np.asarray(a, np.float64)
     b = np.asarray(b, np.float64)
     return float(np.abs(a - b).max() / (np.abs(b).max() + 1e-12))
+
+
+# leaves whose gradient is zero in exact arithmetic: the biases in front of a
+# training-mode BatchNorm (GIN's two Dense layers, the 2D->3D pair Linear)
+# and the attention key bias (the softmax over keys drops a shift).  Both
+# frameworks hold rounding noise there, which a first Adam step turns into
+# steps of up to lr either way.
+ZERO_GRAD = re.compile(r"GINConv_\d+\.Dense_\d\.bias|edge_2D_emb_0\.bias|lin_key\.bias")
+
+
+def flat_tree(tree, prefix=""):
+    """A nested dict of arrays as {dotted key: f32 numpy array}."""
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}.{k}" if prefix else str(k)
+        out.update(flat_tree(v, key) if isinstance(v, dict)
+                   else {key: np.asarray(v, np.float32)})
+    return out
+
+
+def replay_score_draws(k_23, k_32, b: int, n: int):
+    """The two score losses' draws of a batch of ``b`` graphs of ``n_max =
+    n``, replayed from the JAX keys each loss splits (``SDEModel2Dto3D.loss``
+    and ``SDEModel3Dto2D.loss``)."""
+    k_noise, k_t = jax.random.split(k_23)
+    k_t3, k_adj, k_x = jax.random.split(k_32, 3)
+    return {"sde_2dto3d": {"pos_noise": t(jax.random.normal(k_noise, (b * n, 3))),
+                           "half": t(jax.random.randint(k_t, (b // 2 + 1,), 0, 1000)).long()},
+            "sde_3dto2d": {"half": t(jax.random.randint(k_t3, (b // 2 + 1,), 0, 1000)).long(),
+                           "z_adj": t(jax.random.normal(k_adj, (b, n, n))),
+                           "z_x": t(jax.random.normal(k_x, (b, n, 119)))}}
+
+
+@contextlib.contextmanager
+def jax_score_dropout_off():
+    """JAX's 2D->3D score network built with dropout 0 (its 0.1 is fixed,
+    and the JAX training step runs it in training mode), so that the JAX
+    package's own step can be held against the port's deterministic one."""
+    import moleculesde_tpu.models.score_2d3d as jax_score_2d3d
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_score_2d3d, "EquivariantScoreNetwork", functools.partial(
+            jax_score_2d3d.EquivariantScoreNetwork, dropout=0.0))
+        yield
+
+
+def assert_params_after_step(models, params_ref, lr: float) -> None:
+    """Every port parameter against the JAX package's after one Adam step:
+    1e-4 of the leaf's largest value (floored at 1e-2); the ``ZERO_GRAD``
+    leaves to 2 lr."""
+    flat = flat_tree(params_ref)
+    checked = 0
+    for comp, module in models.items():
+        for name, p in module.named_parameters():
+            key = f"{comp}.{name}"
+            ref = flat[key]
+            diff = np.abs(p.detach().numpy() - ref).max()
+            if ZERO_GRAD.search(key):
+                assert diff <= 2 * lr, (key, diff)
+            else:
+                assert diff / max(np.abs(ref).max(), 1e-2) < 1e-4, (key, diff)
+            checked += 1
+    assert checked == len(flat)
