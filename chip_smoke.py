@@ -5,12 +5,14 @@ channel-major chain, the fused chain and the pair_cm_direct chain), 3D->2D
 graph generation through its CLI (three forms of the attention bank), and
 pretraining steps through the pretraining CLI's functions (padded ingest
 with K2; the JAX CLI's default compact ingest with K5; the three
-microbatch scopes; PaiNN) -- and checks what comes out.
+microbatch scopes; PaiNN; the default path at n_max 64) -- and checks what
+comes out.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
   1. the card's name and power limit; build every kernel (one nvcc per source);
+     the CFConv library's SASS holds HMMA (its backward's tensor-core products);
   2. kernel phases on the operands each path gives each kernel, in f32 and
      bf16 mode: K1 (GIN message block), K3 (pair block) and K4 (its
      channel-major form) forward on the sampler's operands; K1, K2 (CFConv),
@@ -74,7 +76,14 @@ Phases (any failure exits non-zero):
      2 / 2), every metric finite;
  12. PaiNN: two steps with ``--model_3d PaiNN`` at full width (emb 300, 3
      interactions, 20 radial functions), K1 5 / 5 and K3 1 / 1 per step,
-     every metric finite, step ms printed.
+     every metric finite, step ms printed;
+ 13. n_max 64: the JAX CLI's default path (compact ingest, K2) at
+     ``--n_max 64``, B=128: K2 and K5 forward and backward against their
+     plain versions on its operands (bf16 and f32, the bars of 7), two
+     backward runs of each bit for bit and K5's backward equal to K2's on
+     the same smearing; two steps with K1 5 / 5, K2 6 / 6, K3 1 / 1 per
+     step, every metric finite; one step against an all-plain build as in
+     7; then the K2 / K5 phases at ``--n_max 128``, B=32.
 The line before the last lists every kernel as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1367,6 +1376,118 @@ def compact_training_path(dev):
     return results, launches
 
 
+def large_n_kernel_phases(models, batch, label):
+    """K2 and K5, forward and backward, against their plain versions on
+    SchNet interaction 0's operands of ``batch`` (expanded on the card), in
+    bf16 (the path's mode) and f32 at the main path's bars; then two
+    backward runs of each, bit for bit, and K5's backward against K2's fed
+    the same smearing, bit for bit."""
+    from moleculesde_tpu_torch.data.compact import expand_on_device
+    from moleculesde_tpu_torch.ops.cfconv import smear
+
+    m3d = models["model_3D"]
+    with torch.no_grad():
+        eb = expand_on_device(batch)
+        b, n = eb.num_graphs, eb.n_max
+        ea, cos_env, pair_mask, dist = m3d.geometry(eb.positions, eb.node_mask, b, n)
+        env = (cos_env * pair_mask.to(cos_env.dtype)).contiguous()
+        ea, dist = ea.contiguous(), dist.contiguous()
+        inter = m3d.SchNetInteraction_0
+        h0 = m3d.Embed_0.embedding[eb.atomic_numbers.long()].reshape(b, n, -1)
+        x = inter.Dense_2(h0).float().contiguous()
+    params = (x,) + tuple(t.detach() for t in (inter.Dense_0.kernel, inter.Dense_0.bias,
+                                                inter.Dense_1.kernel, inter.Dense_1.bias))
+    kw = dict(start=0.0, stop=m3d.cutoff, num_gaussians=m3d.num_gaussians)
+    g = torch.randn(x.shape, generator=torch.Generator(device=x.device).manual_seed(7),
+                    device=x.device)
+    print(f"{label} CFConv operands: ea {tuple(ea.shape)} {ea.dtype}, x {tuple(x.shape)} "
+          f"({int((env != 0).sum())} pairs in the cutoff)", flush=True)
+    results = {}
+    for bf16 in (True, False):   # bf16 is the path's mode
+        sfx = "" if bf16 else "[f32]"
+        peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
+        ea_m = ea if bf16 else ea.float()
+        results["fused_cfconv" + sfx], results["fused_cfconv_bwd" + sfx] = grad_phase(
+            f"{label} K2 fused_cfconv" + sfx,
+            lambda *t, ea=ea_m, **k: fused_cfconv(ea, env, *t, **k),
+            lambda *t, ea=ea_m, **k: fused_cfconv_bwd(ea, env, *t, **k),
+            lambda *t, ea=ea_m, **k: fused_cfconv_bwd_plain(ea, env, *t, **k),
+            params, g, bf16, 2e-2 if bf16 else 1e-4,
+            k2_cost(ea_m, env, x, params[1]), k2_cost(ea_m, env, x, params[1], bwd=True), peak)
+        results["fused_cfconv_rbf" + sfx], results["fused_cfconv_rbf_bwd" + sfx] = grad_phase(
+            f"{label} K5 fused_cfconv_rbf" + sfx,
+            lambda *t, **k: fused_cfconv_rbf(dist, env, *t, **kw, **k),
+            lambda *t, **k: fused_cfconv_rbf_bwd(dist, env, *t, **kw, **k),
+            lambda *t, **k: fused_cfconv_rbf_bwd_plain(dist, env, *t, **kw, **k),
+            params, g, bf16, 2e-2 if bf16 else 1e-4,
+            k5_cost(dist, env, x, params[1]), k5_cost(dist, env, x, params[1], bwd=True), peak)
+    saved = [c.launches for c in _counters()]
+    with torch.no_grad():
+        for name, run in (
+                ("K2", lambda: fused_cfconv_bwd(ea, env, *params, g, bf16=True)),
+                ("K5", lambda: fused_cfconv_rbf_bwd(dist, env, *params, g, bf16=True, **kw))):
+            first, second = run(), run()
+            check(all(torch.equal(u, v) for u, v in zip(first, second)),
+                  f"{label} {name} backward: two runs differ")
+        k5 = fused_cfconv_rbf_bwd(dist, env, *params, g, bf16=True, **kw)
+        k2 = fused_cfconv_bwd(smear(dist, bf16=True, **kw).contiguous(), env, *params, g,
+                              bf16=True)
+        check(all(torch.equal(u, v) for u, v in zip(k5, k2)),
+              f"{label}: K5's backward differs from K2's on the same smearing")
+    for c, k in zip(_counters(), saved):
+        c.launches = k
+    print(f"{label}: K2 and K5 backward bit-identical over two runs; K5 == K2 on the same "
+          f"smearing, bit for bit", flush=True)
+    return results
+
+
+def large_n_path(dev):
+    """Phase 13: the JAX CLI's default path (compact ingest, K2) at
+    ``--n_max 64``, B=128: K2 / K5 phases on its operands, two steps with
+    the launch counts per step (K1 5 / 5, K2 6 / 6, K3 1 / 1), every metric
+    finite, one step against an all-plain build; then K2 / K5 phases at
+    ``--n_max 128``, B=32.  Returns ({"n_max_64": ..., "n_max_128": ...}
+    kernel results, launch counts of the two steps)."""
+    from moleculesde_tpu_torch.benchmarks.profile_pretrain import (
+        COMMON_ARGS, parse_path, path_batches)
+    from moleculesde_tpu_torch.examples import pretrain as cli
+    from moleculesde_tpu_torch.pretrain.train_step import METRICS, pretrain_step
+
+    args = parse_path(COMMON_ARGS + ["--n_max", "64"], batches=3)
+    batches = path_batches(args, dev)
+    cfg, models, optimizer, gen = cli.setup(args, dev)
+    check(cfg.schnet_cfconv == "auto" and args.ingest == "compact",
+          "the n_max 64 steps are not on the CLI's default path")
+    results = {"n_max_64": large_n_kernel_phases(models, batches[0], "n_max 64")}
+    steps = 2
+    reset_counts()
+    times = []
+    for batch in batches[:steps]:
+        t0 = time.perf_counter()
+        metrics = pretrain_step(models, optimizer, cfg, batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        vals = {k: float(metrics[k]) for k in METRICS}
+        check(all(math.isfinite(v) for v in vals.values()), f"n_max 64 non-finite metrics {vals}")
+    launches = read_counts()
+    expected = expect(gin_messages=steps * cfg.num_layer, gin_messages_bwd=steps * cfg.num_layer,
+                      fused_cfconv=steps * cfg.schnet_num_interactions,
+                      fused_cfconv_bwd=steps * cfg.schnet_num_interactions,
+                      pair_relu_project=steps, pair_relu_project_bwd=steps)
+    print(f"n_max 64 training: B={args.batch_size}, K2 path; launches {launches} (expected "
+          f"{expected}); step_ms={times[0]:.2f}, {times[1]:.2f} (first steps of a new build)",
+          flush=True)
+    check(launches == expected, "n_max 64 training launch counts")
+    step_against_plain(dev, cfg, models, batches[steps], args.seed + 7, "n_max 64")
+    del models, optimizer, batches
+
+    args = parse_path(COMMON_ARGS + ["--n_max", "128", "--batch_size", "32"], batches=1)
+    _, models, _, _ = cli.setup(args, dev)
+    results["n_max_128"] = large_n_kernel_phases(models, path_batches(args, dev)[0],
+                                                 "n_max 128")
+    return results, launches
+
+
 def microbatch_steps(dev):
     """Phase 11: B=256 in two chunks of 128 on the compact K5 path, two
     steps per scope (the second timed), launch counts per step: "step" K1
@@ -1447,6 +1568,23 @@ def painn_steps(dev):
     return launches
 
 
+def tensor_core_note(build) -> None:
+    """The CFConv backward's bf16 products run on the tensor cores: its
+    source issues mma.sync and the built library's SASS holds HMMA."""
+    import shutil
+    from pathlib import Path
+
+    src = (build.CSRC_DIR / "cfconv.cu").read_text()
+    check("mma.sync.aligned.m16n8k16" in src, "cfconv.cu issues no mma.sync")
+    cuobjdump = shutil.which("cuobjdump") or str(Path(build.nvcc_path()).parent / "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(build._library_path("cfconv"))],
+                          capture_output=True, text=True, timeout=300).stdout
+    hmma = sum("HMMA" in ln for ln in sass.splitlines())
+    print(f"cfconv SASS: {hmma} HMMA instructions (tensor-core products of the backward)",
+          flush=True)
+    check(hmma > 0, "the CFConv library holds no HMMA instruction")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1470,6 +1608,7 @@ def main() -> int:
         regs = [ln.strip() for ln in report_.splitlines() if "registers" in ln or "spill" in ln]
         print(f"built {name}: {'; '.join(regs)}", flush=True)
     print(f"kernel build {time.perf_counter() - t0:.1f} s", flush=True)
+    tensor_core_note(build)
 
     sampler_results, sampler_launches = sampler_path(dev)
     fused_results, fused_launches, _ = fused_chain_path(dev)
@@ -1480,6 +1619,7 @@ def main() -> int:
     train_results.update(k5_results)
     microbatch_launches = microbatch_steps(dev)
     painn_launches = painn_steps(dev)
+    large_n_results, large_n_launches = large_n_path(dev)
     device_time_phase()
 
     runs = {"sample_2d_to_3d": sampler_launches, "sample_2d_to_3d_fused": fused_launches,
@@ -1493,7 +1633,8 @@ def main() -> int:
             "pretrain_compact_5_steps": compact_launches,
             **{f"pretrain_microbatch_{scope}_2_steps": counts
                for scope, counts in microbatch_launches.items()},
-            "pretrain_painn_2_steps": painn_launches}
+            "pretrain_painn_2_steps": painn_launches,
+            "pretrain_n_max_64_2_steps": large_n_launches}
     keys = ("max_abs_err", "ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms",
             "bound_by")
     k6_keys = keys + ("max_rel_err",)
@@ -1523,6 +1664,10 @@ def main() -> int:
         else:
             r, f32 = train_results[name], train_results[name + "[f32]"]
             extra = {}
+            if name.startswith("fused_cfconv"):   # past n_max 32, bf16 and f32
+                extra = {size: {mode: {k: res[name + sfx][k] for k in keys + ("max_rel_err",)}
+                                for mode, sfx in (("bf16", ""), ("f32", "[f32]"))}
+                         for size, res in large_n_results.items()}
             if name in sampler_results:
                 extra["sampler_operands"] = {
                     mode: {k: sampler_results[name + sfx][k] for k in keys}

@@ -12,8 +12,13 @@ collates compact batches and builds the extended graph on the device,
 PaiNN`` swaps the 3D encoder and ``--schnet_cfconv pallas_rbf`` runs K5.
 
 Runs on the GPU (``--device cuda``, the default) and raises without one;
-``--device cpu`` runs the plain PyTorch path.  Not ported yet, and refused
-with an error: ``--buckets`` and datasets other than ``synthetic``.
+``--device cpu`` runs the plain PyTorch path.  Every flag the JAX CLI reads
+is parsed with its name and default.  Not ported yet, and refused with a
+``NotImplementedError`` that names the flag: ``--buckets``, datasets other
+than ``synthetic``, ``--resume_from``, ``--num_devices`` > 1,
+``--distributed`` and ``--dist_*``, ``--profile_dir`` and ``--debug_nans``.
+``--input_data_dir`` and ``--max_molecules`` are read only with the QM9 /
+PCQM4Mv2 datasets, as in JAX, so with ``synthetic`` they change nothing.
 
 Example:
   python -m moleculesde_tpu_torch.examples.pretrain --dataset=synthetic \\
@@ -131,8 +136,35 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--e_max_factor", type=int, default=4)
     p.add_argument("--ext_e_max", type=int, default=0,
                    help="extended-edge budget (0 -> n_max^2)")
+    p.add_argument("--input_data_dir", type=str, default="")
+    p.add_argument("--max_molecules", type=int, default=0,
+                   help="cap on the dataset's size (0 -> all); read with QM9 / "
+                        "PCQM4Mv2 only, as in JAX")
+    p.add_argument("--num_devices", type=int, default=0,
+                   help="data-parallel devices (0 -> one, as JAX with one "
+                        "process); > 1 is not ported yet")
+    p.add_argument("--distributed", action="store_true",
+                   help="multi-process data parallelism: not ported yet")
+    p.add_argument("--dist_coordinator", type=str, default="")
+    p.add_argument("--dist_num_processes", type=int, default=0)
+    p.add_argument("--dist_process_id", type=int, default=-1)
+    p.add_argument("--profile_dir", type=str, default="",
+                   help="profiler trace of the first epoch: not ported yet")
+    p.add_argument("--debug_nans", dest="debug_nans", action="store_true",
+                   help="abort on the first NaN: not ported yet")
+    p.set_defaults(debug_nans=False)
+    p.add_argument("--resume_from", type=str, default="",
+                   help="full train-state checkpoint to resume from: not ported yet")
     p.add_argument("--output_model_dir", type=str, default="")
     return p
+
+
+def refuse_unported(refused: dict) -> None:
+    """Raise ``NotImplementedError`` naming the first flag of ``refused``
+    ({flag: whether its value asks for what is not ported}) that is set."""
+    for flag, asked in refused.items():
+        if asked:
+            raise NotImplementedError(f"{flag} is not ported yet")
 
 
 def check_supported(args) -> None:
@@ -140,8 +172,13 @@ def check_supported(args) -> None:
     if args.dataset != "synthetic":
         raise NotImplementedError(f"--dataset={args.dataset} is not ported yet: only "
                                   f"'synthetic' is")
-    if args.buckets:
-        raise NotImplementedError("--buckets is not ported yet")
+    refuse_unported({
+        "--buckets": bool(args.buckets), "--resume_from": bool(args.resume_from),
+        "--num_devices": args.num_devices > 1, "--distributed": args.distributed,
+        "--dist_coordinator": bool(args.dist_coordinator),
+        "--dist_num_processes": args.dist_num_processes != 0,
+        "--dist_process_id": args.dist_process_id != -1,
+        "--profile_dir": bool(args.profile_dir), "--debug_nans": args.debug_nans})
 
 
 def load_graphs(args) -> list:

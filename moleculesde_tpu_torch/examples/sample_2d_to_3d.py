@@ -11,7 +11,11 @@ Runs on the GPU (``--device cuda``, the default) and raises without one;
 ``--device cpu`` runs the plain PyTorch path.  Weights come from a port
 checkpoint (``--input_model_file``, a ``.pt`` written by
 ``moleculesde_tpu_torch.convert.save_checkpoint``) or are drawn from
-``--seed``.  Only ``--dataset synthetic`` is ported so far.
+``--seed``.  Every flag the JAX CLI reads is parsed with its name and
+default.  Not ported yet, and refused with a ``NotImplementedError`` that
+names the flag: datasets other than ``synthetic`` (so ``--input_data_dir``,
+which only they read, changes nothing), ``--gnn_type`` other than GIN,
+``--JK`` other than ``last`` and ``--num_devices`` > 1.
 
 Example:
   python -m moleculesde_tpu_torch.examples.sample_2d_to_3d --dataset=synthetic \\
@@ -31,6 +35,7 @@ import torch
 from moleculesde_tpu_torch.convert import load_checkpoint
 from moleculesde_tpu_torch.core.batch import GraphBatch, pad_graphs
 from moleculesde_tpu_torch.data.synthetic import random_molecule
+from moleculesde_tpu_torch.examples.pretrain import refuse_unported
 from moleculesde_tpu_torch.models.gnn2d import GNN2D
 from moleculesde_tpu_torch.models.score_2d3d import SDEModel2Dto3D
 from moleculesde_tpu_torch.sampling.pc import sample_positions_pc
@@ -48,8 +53,13 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device", type=str, default="cuda")
     p.add_argument("--dataset", type=str, default="synthetic")
+    p.add_argument("--input_data_dir", type=str, default="")
+    p.add_argument("--gnn_type", type=str, default="GIN")
     p.add_argument("--num_layer", type=int, default=5)
     p.add_argument("--emb_dim", type=int, default=300)
+    p.add_argument("--dropout_ratio", type=float, default=0.5,
+                   help="GIN's dropout (off while sampling)")
+    p.add_argument("--JK", type=str, default="last")
     p.add_argument("--SDE_type_2Dto3D", type=str, default="VE",
                    choices=sorted(SDE_PRESETS_2DTO3D))
     p.add_argument("--SDE_2Dto3D_model", type=str, default="SDEModel2Dto3D_01",
@@ -76,6 +86,8 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--e_max_factor", type=int, default=4)
     p.add_argument("--ext_e_max", type=int, default=0,
                    help="extended-edge budget (0 -> n_max^2)")
+    p.add_argument("--num_devices", type=int, default=0,
+                   help="data-parallel devices (0 -> one); > 1 is not ported yet")
     p.add_argument("--threshold", type=float, default=0)
     p.add_argument("--generator", type=str, default="PC")
     p.add_argument("--input_model_file", type=str, default="")
@@ -83,10 +95,16 @@ def get_parser() -> argparse.ArgumentParser:
     return p
 
 
-def load_graphs(args) -> list:
+def check_supported(args) -> None:
+    """Raise on the flag values the port does not run yet."""
     if args.dataset != "synthetic":
         raise NotImplementedError(
             f"--dataset={args.dataset}: only 'synthetic' is ported so far")
+    refuse_unported({"--gnn_type": args.gnn_type != "GIN", "--JK": args.JK != "last",
+                     "--num_devices": args.num_devices > 1})
+
+
+def load_graphs(args) -> list:
     rng = np.random.default_rng(args.seed)
     return [random_molecule(rng, int(rng.integers(4, args.n_max + 1)))
             for _ in range(max(args.end, 1))]
@@ -110,7 +128,8 @@ def build_models(args, device, msg_impl: str = "auto", pair_impl: str = "auto",
     t23, bmin, bmax, n_steps = SDE_PRESETS_2DTO3D[args.SDE_type_2Dto3D]
     gen = torch.Generator().manual_seed(args.seed)
     model_2d = GNN2D(num_layers=args.num_layer, emb_dim=args.emb_dim,
-                     msg_impl=msg_impl, device=device, generator=gen)
+                     drop_ratio=args.dropout_ratio, msg_impl=msg_impl, device=device,
+                     generator=gen)
     sde_model = SDEModel2Dto3D(
         emb_dim=args.emb_dim, hidden_dim=32,
         variant=MODEL_2DTO3D_VARIANTS[args.SDE_2Dto3D_model], sde_type=t23,
@@ -145,6 +164,7 @@ def generate(model_2d, sde_model, batch, generator, args, fused: bool = False
 
 def main(argv=None):
     args = get_parser().parse_args(argv)
+    check_supported(args)
     device = resolve_device(args.device)
     graphs = load_graphs(args)
     model_2d, sde_model = build_models(args, device)

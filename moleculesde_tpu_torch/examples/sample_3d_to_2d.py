@@ -2,20 +2,23 @@
 
 Counterpart of ``examples/sample_3d_to_2d.py`` of the JAX package
 (reference examples/pretrain_MoleculeSDE_inference_3D_to_2D_VE_VP.py):
-conditioned on the SchNet latent of each molecule, jointly denoise node
+conditioned on the 3D latent of each molecule, jointly denoise node
 one-hots and the dense adjacency with corrector / predictor updates, using
 oracle node flags from the true bond graph.  Batches of ``--batch_size``
 molecules; results are pickled per batch as {x_gen, adj_gen,
 atom_feats_true} to ``3D_to_2D_{generator}_{start}_{end}.pkl``.
 
 Runs on the GPU (``--device cuda``, the default) and raises without one;
-``--device cpu`` runs the plain PyTorch path.  SchNet runs its eager CFConv
-(``cfconv="xla"``), as the JAX CLI builds it.  Weights come from a port
-checkpoint (``--input_model_file``: ``model_3D`` and ``SDE_3Dto2D_model``
-of a ``.pt`` written by ``moleculesde_tpu_torch.convert.save_checkpoint``
-or the port's pretraining CLI) or are drawn from ``--seed``.  Not ported
-yet, and refused: ``--model_3d PaiNN``, datasets other than ``synthetic``
-and ``--num_devices`` > 1.
+``--device cpu`` runs the plain PyTorch path.  The 3D encoder is SchNet
+with its eager CFConv (``cfconv="xla"``), as the JAX CLI builds it, or
+PaiNN (``--model_3d PaiNN``, f32).  Weights come from a port checkpoint
+(``--input_model_file``: ``model_3D`` and ``SDE_3Dto2D_model`` of a ``.pt``
+written by ``moleculesde_tpu_torch.convert.save_checkpoint`` or the port's
+pretraining CLI) or are drawn from ``--seed``.  Every flag the JAX CLI
+reads is parsed with its name and default.  Not ported yet, and refused
+with a ``NotImplementedError`` that names the flag: datasets other than
+``synthetic`` (so ``--input_data_dir`` and ``--use_extend_graph``, which
+only they read, change nothing) and ``--num_devices`` > 1.
 
 Example:
   python -m moleculesde_tpu_torch.examples.sample_3d_to_2d --dataset=synthetic \\
@@ -35,7 +38,8 @@ import torch
 from moleculesde_tpu_torch.convert import load_checkpoint
 from moleculesde_tpu_torch.data.loader import GraphLoader
 from moleculesde_tpu_torch.data.synthetic import random_molecule
-from moleculesde_tpu_torch.examples.pretrain import MODEL_3DTO2D_VARIANTS
+from moleculesde_tpu_torch.examples.pretrain import MODEL_3DTO2D_VARIANTS, refuse_unported
+from moleculesde_tpu_torch.models.painn import PaiNN
 from moleculesde_tpu_torch.models.schnet import SchNet
 from moleculesde_tpu_torch.models.score_3d2d import SDEModel3Dto2D
 from moleculesde_tpu_torch.sampling.pc import sample_graph_pc
@@ -60,6 +64,13 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--SchNet_num_gaussians", type=int, default=51)
     p.add_argument("--SchNet_cutoff", type=float, default=10)
     p.add_argument("--SchNet_readout", type=str, default="mean", choices=["mean", "add"])
+    p.add_argument("--PaiNN_radius_cutoff", type=float, default=5.0)
+    p.add_argument("--PaiNN_n_interactions", type=int, default=3)
+    p.add_argument("--PaiNN_n_rbf", type=int, default=20)
+    p.add_argument("--PaiNN_readout", type=str, default="add", choices=["mean", "add"])
+    p.add_argument("--use_extend_graph", dest="use_extend_graph", action="store_true")
+    p.add_argument("--no_extend_graph", dest="use_extend_graph", action="store_false")
+    p.set_defaults(use_extend_graph=True)
     p.add_argument("--SDE_type_3Dto2D", type=str, default="VE", choices=sorted(SDE_PRESETS_3DTO2D))
     p.add_argument("--SDE_3Dto2D_model", type=str, default="SDEModel3Dto2D_node_adj_dense",
                    choices=sorted(MODEL_3DTO2D_VARIANTS))
@@ -88,10 +99,7 @@ def check_supported(args) -> None:
     if args.dataset != "synthetic":
         raise NotImplementedError(f"--dataset={args.dataset} is not ported yet: only "
                                   f"'synthetic' is")
-    if args.model_3d != "SchNet":
-        raise NotImplementedError(f"--model_3d {args.model_3d} is not ported yet")
-    if args.num_devices > 1:
-        raise NotImplementedError("--num_devices > 1 is not ported yet")
+    refuse_unported({"--num_devices": args.num_devices > 1})
 
 
 def load_graphs(args) -> list:
@@ -107,18 +115,23 @@ def make_loader(graphs, args) -> GraphLoader:
 
 
 def build_models(args, device, attn_impl: str = "auto", bf16_attn: bool = True):
-    """(SchNet, SDEModel3Dto2D) at the flags' widths, weights from
+    """(SchNet or PaiNN, SDEModel3Dto2D) at the flags' widths, weights from
     ``--input_model_file`` or drawn from ``--seed``.  ``attn_impl`` picks
     the attention bank ("auto", "pallas": K7, "fused": K8) and
     ``bf16_attn`` its precision; neither is a CLI flag, as in the JAX CLI
     (the benchmarks and ``chip_smoke.py`` set them)."""
     t32, bmin, bmax, n_steps = SDE_PRESETS_3DTO2D[args.SDE_type_3Dto2D]
     gen = torch.Generator().manual_seed(args.seed)
-    encoder = SchNet(hidden_channels=args.emb_dim, num_filters=args.SchNet_num_filters,
-                     num_interactions=args.SchNet_num_interactions,
-                     num_gaussians=args.SchNet_num_gaussians, cutoff=args.SchNet_cutoff,
-                     readout=args.SchNet_readout, cfconv="xla", device=device,
-                     generator=gen)
+    if args.model_3d == "SchNet":
+        encoder = SchNet(hidden_channels=args.emb_dim, num_filters=args.SchNet_num_filters,
+                         num_interactions=args.SchNet_num_interactions,
+                         num_gaussians=args.SchNet_num_gaussians, cutoff=args.SchNet_cutoff,
+                         readout=args.SchNet_readout, cfconv="xla", device=device,
+                         generator=gen)
+    else:
+        encoder = PaiNN(n_atom_basis=args.emb_dim, n_interactions=args.PaiNN_n_interactions,
+                        n_rbf=args.PaiNN_n_rbf, cutoff=args.PaiNN_radius_cutoff,
+                        readout=args.PaiNN_readout, device=device, generator=gen)
     # dense-net widths hard-coded by the reference (pretrain_MoleculeSDE.py:309-315)
     sde_model = SDEModel3Dto2D(
         dim3d=args.emb_dim, c_init=2, c_hid=8, c_final=4, num_heads=4, adim=16, nhid=16,
@@ -140,7 +153,7 @@ def corrector_steps_of(args) -> int:
 
 def generate(encoder, sde_model, batch, generator, args):
     """(x, adj, x_mean, adj_mean) for one padded batch on its device: the
-    SchNet latent, then the PC chain."""
+    3D encoder's latent, then the PC chain."""
     with torch.no_grad():
         _, node_3d = encoder.encode_batch(batch)
         return sample_graph_pc(

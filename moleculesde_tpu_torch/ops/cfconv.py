@@ -10,8 +10,10 @@ and backward.  On a CUDA tensor the wrappers launch the hand-written
 kernels of ``csrc/cfconv.cu``, which replace the TPU kernels
 ``_fwd_kernel`` (``pallas_call`` at ``ops/cfconv.py:212``) and
 ``_bwd_kernel`` (l.228): both are arithmetic-bound; the backward
-recomputes the filter instead of reading it (the source's header says
-more).  On a CPU tensor they take :func:`fused_cfconv_plain` and
+recomputes the filter instead of reading it, on the tensor cores in bf16
+mode, in persistent blocks over (graph, column tile) units whose plan
+:func:`bwd_plan` states (the source's header says more).  Neither puts a
+cap on N.  On a CPU tensor they take :func:`fused_cfconv_plain` and
 :func:`fused_cfconv_bwd_plain`, which round to bf16 where the TPU kernel
 rounds.
 
@@ -165,12 +167,60 @@ def _smem(fn_name: str, *args) -> int:
 
 def _row_groups(n: int, gdim: int, f: int) -> int:
     """Rows per forward block: the most (4, 2, 1) that fit 1024 threads and
-    the shared memory."""
+    the shared memory (which does not grow past N = 32)."""
     for rg in (4, 2, 1):
         if rg * f <= 1024 and _smem("cfconv_fwd_smem", n, gdim, f, rg) <= SMEM_LIMIT:
             return rg
-    raise ValueError(f"fused_cfconv kernel: N={n}, G={gdim}, F={f} do not fit "
-                     f"{SMEM_LIMIT} B of shared memory")
+    raise ValueError(f"fused_cfconv kernel: the weights w1 [{gdim}, {f}] and w2 [{f}, {f}] "
+                     f"with one row's tiles do not fit {SMEM_LIMIT} B of shared memory")
+
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def bwd_plan(n: int, gdim: int, f: int, bf16: bool, pair_bytes: int) -> dict:
+    """The backward kernel's tiling (``csrc/cfconv.cu::bwd_plan``, which the
+    C query ``cfconv_bwd_plan`` returns) for ``pair_bytes`` bytes of ea
+    source per pair (2 G or 4 G: K2's bf16 or f32 ea; 4: K5's distance): F
+    padded to ``fp`` (64, 128 or 256), ``m`` = 128 / (fp / 64) pair rows
+    per tile, ``ic`` rows i per chunk (the power of two >= max(N, 16), at
+    most ``m``), ``j`` = m / ic columns per work unit, ``chunks`` row chunks
+    per unit, ``tiles`` units per graph (B * tiles in all), G padded to
+    ``g16``, and the shared memory in bytes (``smem``).  None where F >
+    256."""
+    if f > 256:
+        return None
+    fp = 64 if f <= 64 else 128 if f <= 128 else 256
+    m = 128 // (fp // 64)
+    ic = 16
+    while ic < n and ic < m:
+        ic *= 2
+    j = m // ic
+    g16 = -(-gdim // 16) * 16
+    esz, pad = (2, 8) if bf16 else (4, 4)
+    gs, fs = g16 + pad, fp + pad
+    copy_words = (j * pair_bytes + 3) // 4 + 1     # a row of the ea copy
+    staged_gx = (ic, j) if fp <= 128 and bf16 else ()   # g and x rows, f32
+    smem = sum(_align16(v) for v in (
+        g16 * fs * esz, fp * fs * esz, m * gs * esz, m * fs * esz, m * fs * esz,
+        m * 4, fp * 4, fp * 4, (m // 16) * fp * 4, j * fp * 4, ic * copy_words * 4,
+        *(rows * (fp + 8) * 4 for rows in staged_gx)))
+    return dict(fp=fp, m=m, ic=ic, j=j, chunks=-(-n // ic), tiles=-(-n // j), g16=g16,
+                smem=smem)
+
+
+def bwd_plan_kernel(n: int, gdim: int, f: int, bf16: bool, pair_bytes: int) -> dict:
+    """:func:`bwd_plan` as the CUDA source computes it (``cfconv_bwd_plan``),
+    for the card-side check that the two agree.  Builds the library."""
+    fn = build.load("cfconv").cfconv_bwd_plan
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    out = (ctypes.c_int * 7)()
+    smem = int(fn(n, gdim, f, int(bf16), pair_bytes, ctypes.addressof(out)))
+    if smem < 0:
+        return None
+    return dict(zip(("fp", "m", "ic", "j", "chunks", "tiles", "g16"), out), smem=smem)
 
 
 def _launch(ea, env, x, w1, b1, w2, b2, bf16: bool, smear_args=None) -> torch.Tensor:
@@ -208,9 +258,13 @@ def _launch_bwd(ea, env, x, w1, b1, w2, b2, g, bf16: bool, smear_args=None):
     """K2's backward, or K5's (``smear_args`` as in :func:`_launch`)."""
     b, n, gdim, f = _check_kernel_inputs(ea, env, x, w1, b1, w2, b2, g,
                                          rbf=smear_args is not None)
-    if _smem("cfconv_bwd_smem", n, gdim, f) > SMEM_LIMIT:
-        raise ValueError(f"fused_cfconv backward kernel: N={n}, G={gdim}, F={f} "
-                         f"do not fit {SMEM_LIMIT} B of shared memory")
+    pair_bytes = 4 if smear_args is not None else gdim * ea.element_size()
+    plan = bwd_plan(n, gdim, f, bf16, pair_bytes)
+    if plan is None or plan["smem"] > SMEM_LIMIT:
+        raise ValueError(f"fused_cfconv backward kernel: the weights of G={gdim}, F={f} "
+                         f"({'bf16' if bf16 else 'f32'} mode) cannot be staged in "
+                         f"{SMEM_LIMIT} B of shared memory"
+                         + (" (F > 256)" if plan is None else f" (plan {plan['smem']} B)"))
     dev = x.device
     dx = torch.empty((b, n, f), dtype=torch.float32, device=dev)
     dw1 = torch.empty((gdim, f), dtype=torch.float32, device=dev)
@@ -219,7 +273,10 @@ def _launch_bwd(ea, env, x, w1, b1, w2, b2, g, bf16: bool, smear_args=None):
     db2 = torch.empty((f,), dtype=torch.float32, device=dev)
     if dx.numel() == 0:
         return dx, dw1.zero_(), db1.zero_(), dw2.zero_(), db2.zero_()
-    part = torch.empty((b * (gdim * f + f * f + 2 * f),), dtype=torch.float32,
+    # persistent blocks: one per SM, at most one per unit
+    blocks = min(torch.cuda.get_device_properties(dev).multi_processor_count,
+                 b * plan["tiles"])
+    part = torch.empty((blocks * (gdim * f + f * f + 2 * f),), dtype=torch.float32,
                        device=dev)
     ptrs = (ea.data_ptr(), env.data_ptr(), x.data_ptr(), w1.data_ptr(),
             b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), g.data_ptr(),
@@ -228,13 +285,13 @@ def _launch_bwd(ea, env, x, w1, b1, w2, b2, g, bf16: bool, smear_args=None):
     lib = build.load("cfconv")
     if smear_args is None:
         fn = lib.cfconv_bwd
-        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        tail = (int(ea.dtype == torch.bfloat16), int(bf16), stream(x))
+        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        tail = (int(ea.dtype == torch.bfloat16), int(bf16), blocks, stream(x))
     else:
         fn = lib.cfconv_rbf_bwd
         fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
-                       + [ctypes.c_int, ctypes.c_void_p])
-        tail = (*smear_constants(*smear_args), int(bf16), stream(x))
+                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        tail = (*smear_constants(*smear_args), int(bf16), blocks, stream(x))
     fn.restype = ctypes.c_int
     rc = fn(*ptrs, b, n, gdim, f, *tail)
     build.check_launch(rc, fn.__name__)

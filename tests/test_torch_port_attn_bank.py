@@ -10,6 +10,8 @@ sides round at the same points, so they differ only where an f32 value
 summed in another order lands on the other side of a bf16 rounding
 boundary (one bf16 ulp, 2^-8, of an intermediate)."""
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +25,7 @@ from moleculesde_tpu_torch.ops.attn_bank import (
 from moleculesde_tpu_torch.ops.attn_maps import attn_map_bank
 from moleculesde_tpu_torch.ops.attn_qk_bank import attn_qk_bank, attn_qk_bank_bwd
 
-from torch_port_common import rel_err, t
+from torch_port_common import ieee_f32, rel_err, t  # noqa: F401 (ieee_f32: autouse)
 
 
 def _tols(bf16):
@@ -38,11 +40,36 @@ def _map_operands(seed, b=2, c=3, n=8, a=16):
     return q, k, g
 
 
+def _map_oracle(q, k, g, ds, bf16):
+    """float64 numpy oracle of K7: the maps and (dq, dk) for the cotangent
+    ``g``, from q / k rounded to bf16 first in bf16 mode."""
+    if bf16:
+        q, k = (torch.from_numpy(v).bfloat16().double().numpy() for v in (q, k))
+    b, c, n, a = q.shape
+    h, inv = a // ds, 1.0 / math.sqrt(ds)
+    qh = q.astype(np.float64).reshape(b, c, n, h, ds)
+    kh = k.astype(np.float64).reshape(b, c, n, h, ds)
+    th = np.tanh(np.einsum("bcnhd,bcmhd->bchnm", qh, kh) * inv)
+    du = g.astype(np.float64)[:, :, None] * (1.0 - th * th) * (inv / h)
+    return (th.sum(axis=2) / h,
+            np.einsum("bchnm,bcmhd->bcnhd", du, kh).reshape(b, c, n, a),
+            np.einsum("bchnm,bcnhd->bcmhd", du, qh).reshape(b, c, n, a))
+
+
 @pytest.mark.parametrize("ds", [2, 4])
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
 def test_attn_map_bank_plain_matches_pallas_kernel(ds, bf16):
     """K7 through JAX's dispatcher (``impl="pallas_interpret"``) and the
-    port's (``impl="pallas"``, the plain version on the CPU): maps, dq, dk."""
+    port's (``impl="pallas"``, the plain version on the CPU): maps, dq, dk,
+    each side also against a float64 oracle at the same bars.
+
+    Runs with IEEE f32 products pinned in both frameworks (the autouse
+    ``ieee_f32`` fixture).  Without the pin this case once failed in a
+    6-worker run of the suite at rel_err 4.24e-5: the port's map read
+    0.18826655 where the oracle reads 0.18825617 (= JAX's), 1e-5 off, which
+    is ~100x what f32 summation order can give a 2-term dot: torch's CPU
+    products had run below f32 precision, as a reduced process-wide
+    float32 matmul precision makes them do."""
     q, k, g = _map_operands(1)
     out_j, vjp = jax.vjp(lambda q_, k_: jax_attn_map_bank(
         q_, k_, ds, bf16=bf16, impl="pallas_interpret"), jnp.asarray(q), jnp.asarray(k))
@@ -52,9 +79,13 @@ def test_attn_map_bank_plain_matches_pallas_kernel(ds, bf16):
     out_t.backward(t(g))
     tol_f, tol_g = _tols(bf16)
     assert out_t.dtype == torch.float32 and out_t.shape == (2, 3, 8, 8)
-    assert rel_err(out_t.detach().numpy(), out_j) < tol_f
-    assert rel_err(qt.grad.numpy(), dq_j) < tol_g
-    assert rel_err(kt.grad.numpy(), dk_j) < tol_g
+    oracle = _map_oracle(q, k, g, ds, bf16)
+    for ref in ((out_j, dq_j, dk_j), oracle):
+        assert rel_err(out_t.detach().numpy(), ref[0]) < tol_f
+        assert rel_err(qt.grad.numpy(), ref[1]) < tol_g
+        assert rel_err(kt.grad.numpy(), ref[2]) < tol_g
+    for mine, ref, tol in zip((out_j, dq_j, dk_j), oracle, (tol_f, tol_g, tol_g)):
+        assert rel_err(mine, ref) < tol
 
 
 @pytest.mark.parametrize("impl", ["xla", "wide"])

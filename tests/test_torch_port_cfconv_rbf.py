@@ -30,7 +30,8 @@ from moleculesde_tpu_torch.ops.cfconv import (
     fused_cfconv, fused_cfconv_rbf, fused_cfconv_rbf_bwd, fused_cfconv_rbf_plain, smear)
 from moleculesde_tpu_torch.ops.fourier import gaussian_smearing
 
-from torch_port_common import CPU, both_batches, graphs, np_tree, rel_err, t
+from torch_port_common import (  # noqa: F401 (ieee_f32: autouse)
+    both_batches, CPU, graphs, ieee_f32, np_tree, rel_err, t)
 
 CUTOFF = 10.0
 

@@ -33,7 +33,7 @@ from moleculesde_tpu_torch.data.synthetic import random_molecule
 from moleculesde_tpu_torch.pretrain.train_state import PretrainConfig, build_models
 from moleculesde_tpu_torch.pretrain.train_step import METRICS, draw_losses, pretrain_grads
 
-from torch_port_common import CPU
+from torch_port_common import CPU, ieee_f32  # noqa: F401 (ieee_f32: autouse)
 
 COMPACT_FIELDS = ("atom_feats", "positions", "n_atoms", "edge_index", "edge_feats",
                   "edge_valid")

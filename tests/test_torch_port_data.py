@@ -14,7 +14,7 @@ from moleculesde_tpu_torch.data.extend import extend_graph
 from moleculesde_tpu_torch.data.synthetic import random_molecule, synthetic_batch
 from moleculesde_tpu_torch.sampling.pc import repeat_graph_batch
 
-from torch_port_common import both_batches, graphs
+from torch_port_common import both_batches, graphs, ieee_f32  # noqa: F401 (ieee_f32: autouse)
 
 BATCH_FIELDS = ("atom_feats", "node_mask", "positions", "edge_src", "edge_dst",
                 "edge_feats", "edge_mask", "ext_src", "ext_dst", "ext_attr",

@@ -21,7 +21,8 @@ from moleculesde_tpu_torch.models.gnn2d import GNN2D
 from moleculesde_tpu_torch.models.layers import MaskedBatchNorm
 from moleculesde_tpu_torch.ops.gin_messages import gin_messages, gin_messages_plain
 
-from torch_port_common import CPU, both_batches, graphs, np_tree, rel_err, t
+from torch_port_common import (  # noqa: F401 (ieee_f32: autouse)
+    both_batches, CPU, graphs, ieee_f32, np_tree, rel_err, t)
 
 
 @pytest.fixture(scope="module")

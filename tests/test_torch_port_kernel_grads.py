@@ -24,7 +24,7 @@ from moleculesde_tpu_torch.ops.cfconv import fused_cfconv
 from moleculesde_tpu_torch.ops.gin_messages import gin_messages
 from moleculesde_tpu_torch.ops.pair_block import pair_relu_project
 
-from torch_port_common import rel_err, t
+from torch_port_common import ieee_f32, rel_err, t  # noqa: F401 (ieee_f32: autouse)
 
 
 def _gin_operands():

@@ -17,7 +17,8 @@ from moleculesde_tpu_torch.models.score_2d3d import SDEModel2Dto3D
 from moleculesde_tpu_torch.ops.attn_bank import attn_map_bank_kernel, attn_map_bank_kernel_bwd
 from moleculesde_tpu_torch.ops.attn_qk_bank import attn_qk_bank, attn_qk_bank_bwd
 from moleculesde_tpu_torch.ops.cfconv import (
-    fused_cfconv, fused_cfconv_bwd, fused_cfconv_rbf, fused_cfconv_rbf_bwd, smear)
+    bwd_plan, bwd_plan_kernel, fused_cfconv, fused_cfconv_bwd, fused_cfconv_rbf,
+    fused_cfconv_rbf_bwd, smear)
 from moleculesde_tpu_torch.ops.fourier import gaussian_smearing
 from moleculesde_tpu_torch.ops.gin_messages import gin_messages, gin_messages_bwd
 from moleculesde_tpu_torch.ops.gin_messages import gin_messages_plain
@@ -209,8 +210,12 @@ def test_score_eval_fused_kernel_refuses_shapes(cuda):
         score_eval_fused(pos, node, edge, mask, packed, variant=1)
 
 
+# the main path's shape, n_max 64 and 128 (no cap on N), and a small one
+CFCONV_SHAPES = [(128, 32, 51, 128), (128, 64, 51, 128), (32, 128, 51, 128), (3, 7, 5, 16)]
+
+
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("shape", [(128, 32, 51, 128), (3, 7, 5, 16)])
+@pytest.mark.parametrize("shape", CFCONV_SHAPES)
 def test_fused_cfconv_kernel_matches_plain(cuda, shape, bf16):
     """Output and dx, dw1, db1, dw2, db2 through autograd.  bf16 tolerance
     2e-2: the softplus output and the backward's dwf / dpre are rounded to
@@ -250,6 +255,53 @@ def test_fused_cfconv_kernel_matches_plain(cuda, shape, bf16):
             assert torch.equal(k, k32)
 
 
+def _cfconv_operands(cuda, b, n, gdim, f, seed=3):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    ea = torch.rand(b, n, n, gdim, device=cuda, generator=gen).to(torch.bfloat16)
+    env = torch.rand(b, n, n, device=cuda, generator=gen) * (
+        torch.rand(b, n, n, device=cuda, generator=gen) < 0.8)
+    x = torch.randn(b, n, f, device=cuda, generator=gen)
+    w1 = torch.randn(gdim, f, device=cuda, generator=gen) / gdim ** 0.5
+    b1 = torch.randn(f, device=cuda, generator=gen) * 0.1
+    w2 = torch.randn(f, f, device=cuda, generator=gen) / f ** 0.5
+    b2 = torch.randn(f, device=cuda, generator=gen) * 0.1
+    return ea, env, (x, w1, b1, w2, b2), torch.randn(b, n, f, device=cuda, generator=gen)
+
+
+@pytest.mark.parametrize("shape", [(4, 40, 51, 256), (6, 33, 100, 128), (5, 200, 51, 100)])
+def test_fused_cfconv_bwd_kernel_other_plans(cuda, shape):
+    """bf16 backward on the plans the main path does not take: F padded to
+    256 (dW1 and dW2 added into the block partials per tile), G16 > 64 (dW1
+    so), and N = 200 in four row chunks with F padded to 128; bar as K2's."""
+    b, n, gdim, f = shape
+    ea, env, params, g = _cfconv_operands(cuda, *shape)
+    for k, p in zip(fused_cfconv_bwd(ea, env, *params, g, bf16=True, impl="kernel"),
+                    fused_cfconv_bwd(ea, env, *params, g, bf16=True, impl="plain")):
+        _close(k, p, 2e-2)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_fused_cfconv_bwd_kernel_is_deterministic(cuda, bf16):
+    """Two backward runs give the same bits: fixed unit assignment, fixed
+    orders within and across blocks, no atomics."""
+    ea, env, params, g = _cfconv_operands(cuda, 64, 64, 51, 128)
+    ea = ea if bf16 else ea.float()
+    first = fused_cfconv_bwd(ea, env, *params, g, bf16=bf16)
+    second = fused_cfconv_bwd(ea, env, *params, g, bf16=bf16)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_fused_cfconv_bwd_plan_matches_kernel(cuda):
+    """The wrapper's plan (ops/cfconv.py::bwd_plan) is the CUDA source's."""
+    for n in (1, 7, 16, 32, 33, 64, 128, 200):
+        for gdim, f in ((51, 128), (5, 16), (100, 64), (51, 256), (64, 300)):
+            for bf16 in (False, True):
+                for pair_bytes in (2 * gdim, 4 * gdim, 4):
+                    assert (bwd_plan(n, gdim, f, bf16, pair_bytes)
+                            == bwd_plan_kernel(n, gdim, f, bf16, pair_bytes))
+
+
 def test_kernels_refuse_autograd_inputs(cuda):
     """K2 gives no gradient to ea or env: asking for one raises."""
     ea = torch.rand(2, 4, 4, 3, device=cuda, requires_grad=True)
@@ -274,7 +326,7 @@ def _rbf_operands(cuda, b, n, gdim, f):
 
 
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("shape", [(128, 32, 51, 128), (3, 7, 5, 16)])
+@pytest.mark.parametrize("shape", CFCONV_SHAPES)
 def test_fused_cfconv_rbf_kernel_matches_plain(cuda, shape, bf16):
     """K5: output and dx, dw1, db1, dw2, db2 through autograd against its
     plain version (tolerances as K2's); then against K2 fed the same
@@ -313,15 +365,18 @@ def test_fused_cfconv_rbf_kernel_matches_k2_on_gaussian_smearing(cuda):
 
 
 def test_fused_cfconv_rbf_kernel_refuses(cuda):
-    """K5 refuses gradients for dist / env, a bf16 dist, and a backward
-    whose tiles do not fit shared memory (n_max 64), naming the sizes."""
+    """K5 refuses gradients for dist / env, a bf16 dist, and an f32
+    backward whose weights cannot be staged in shared memory (F = 256),
+    naming the sizes.  N = 64 is no longer refused."""
     dist, env, params, g = _rbf_operands(cuda, 2, 64, 51, 128)
     kw = dict(start=0.0, stop=10.0, num_gaussians=51)
     with pytest.raises(RuntimeError, match="no gradient to dist or env"):
         fused_cfconv_rbf(dist.clone().requires_grad_(True), env, *params, **kw)
     with pytest.raises(TypeError, match="dist must be float32"):
         fused_cfconv_rbf(dist.bfloat16(), env, *params, **kw)
-    with pytest.raises(ValueError, match="N=64, G=51, F=128"):
+    fused_cfconv_rbf_bwd(dist, env, *params, g, **kw)
+    dist, env, params, g = _rbf_operands(cuda, 2, 8, 51, 256)
+    with pytest.raises(ValueError, match="G=51, F=256 .f32 mode. cannot be staged"):
         fused_cfconv_rbf_bwd(dist, env, *params, g, **kw)
 
 

@@ -52,9 +52,9 @@ from moleculesde_tpu_torch.pretrain.train_step import (
     METRICS, _score_losses, draw_chunked, microbatch_chunks, pretrain_grads, pretrain_step,
     split_microbatches)
 
-from torch_port_common import (
-    CPU, ZERO_GRAD, assert_params_after_step, both_batches, flat_tree, graphs,
-    jax_score_dropout_off, replay_score_draws)
+from torch_port_common import (  # noqa: F401 (ieee_f32: autouse)
+    assert_params_after_step, both_batches, CPU, flat_tree, graphs, ieee_f32,
+    jax_score_dropout_off, replay_score_draws, ZERO_GRAD)
 
 TINY = dict(emb_dim=16, num_layer=2, schnet_num_filters=8, schnet_num_interactions=2,
             schnet_num_gaussians=11, hidden_dim_2dto3d=16, dropout_ratio=0.0,

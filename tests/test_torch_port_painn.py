@@ -30,9 +30,9 @@ from moleculesde_tpu_torch.pretrain.train_state import (
     PretrainConfig, build_models, make_optimizer)
 from moleculesde_tpu_torch.pretrain.train_step import METRICS, pretrain_step
 
-from torch_port_common import (
-    CPU, assert_params_after_step, both_batches, graphs, jax_score_dropout_off, np_tree,
-    rel_err, replay_score_draws, t)
+from torch_port_common import (  # noqa: F401 (ieee_f32: autouse)
+    assert_params_after_step, both_batches, CPU, graphs, ieee_f32, jax_score_dropout_off,
+    np_tree, rel_err, replay_score_draws, t)
 
 WIDTH = dict(n_atom_basis=16, n_interactions=2, n_rbf=8, cutoff=5.0)
 

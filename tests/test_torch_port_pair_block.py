@@ -18,7 +18,7 @@ from moleculesde_tpu_torch.models.layers import PairMaskedBatchNorm
 from moleculesde_tpu_torch.ops.pair_block import (
     pair_mean_var, pair_relu_project, pair_relu_project_plain)
 
-from torch_port_common import np_tree, rel_err, t
+from torch_port_common import ieee_f32, np_tree, rel_err, t  # noqa: F401 (ieee_f32: autouse)
 
 
 @pytest.fixture(scope="module")

@@ -29,7 +29,8 @@ from moleculesde_tpu_torch.ops.pair_block import (
     pair_relu_project, pair_relu_project_cm, pair_relu_project_cm_plain)
 
 from test_torch_port_score_losses import _check_grads
-from torch_port_common import CPU, both_batches, graphs, np_tree, rel_err, t
+from torch_port_common import (  # noqa: F401 (ieee_f32: autouse)
+    both_batches, CPU, graphs, ieee_f32, np_tree, rel_err, t)
 
 EMB = 16
 

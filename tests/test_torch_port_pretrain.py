@@ -16,6 +16,10 @@ the JAX package, plus the pretraining CLI on the CPU.
   two-step updates agree to 1e-4 relative (floor: 1% of one lr step).
 """
 
+import importlib.util
+import re
+from pathlib import Path
+
 import jax
 import numpy as np
 import pytest
@@ -34,6 +38,7 @@ from moleculesde_tpu_torch.convert import load_checkpoint, load_flax_pretrain
 from moleculesde_tpu_torch.data.loader import GraphLoader
 from moleculesde_tpu_torch.examples import pretrain as cli
 from moleculesde_tpu_torch.examples import sample_2d_to_3d as sample_cli
+from moleculesde_tpu_torch.examples import sample_3d_to_2d as sample_3d2d_cli
 from moleculesde_tpu_torch.models.gnn2d import GNN2D
 from moleculesde_tpu_torch.models.layers import dropout
 from moleculesde_tpu_torch.pretrain.contrastive import dual_cl
@@ -41,7 +46,7 @@ from moleculesde_tpu_torch.pretrain.train_state import (
     PretrainConfig, build_models, make_optimizer)
 from moleculesde_tpu_torch.pretrain.train_step import METRICS, pretrain_loss
 
-from torch_port_common import CPU, graphs, rel_err, t
+from torch_port_common import CPU, graphs, ieee_f32, rel_err, t  # noqa: F401 (ieee_f32: autouse)
 
 TINY = dict(emb_dim=16, num_layer=2, schnet_num_filters=8, schnet_num_interactions=2,
             schnet_num_gaussians=11, hidden_dim_2dto3d=16,
@@ -327,15 +332,83 @@ def test_pretrain_cli_refuses_unported_options(flags):
     ["--microbatch", "2", "--microbatch_scope", "score"],
     ["--microbatch", "2", "--microbatch_scope", "splice"],
     ["--model_3d", "PaiNN", "--PaiNN_n_interactions", "2", "--PaiNN_n_rbf", "8"],
-    ["--schnet_cfconv", "pallas_rbf"]],
+    ["--schnet_cfconv", "pallas_rbf"],
+    ["--num_devices", "1", "--input_data_dir", "data", "--max_molecules", "4"]],
     ids=["compact", "microbatch_step", "microbatch_score", "microbatch_splice", "painn",
-         "pallas_rbf"])
+         "pallas_rbf", "jax_only_flags"])
 def test_pretrain_cli_trains_with(flags):
     """Two tiny CPU epochs under each option the JAX CLI has and the port
     once refused: every epoch's losses finite."""
     history = cli.main(TINY_FLAGS + ["--epochs", "2"] + flags)
     assert len(history) == 2
     assert all(np.isfinite(list(h.values())).all() for h in history)
+
+
+def _jax_cli_parser():
+    """The JAX CLIs' one parser, ``examples/config.py`` (argparse only)."""
+    path = Path(__file__).resolve().parents[1] / "examples" / "config.py"
+    spec = importlib.util.spec_from_file_location("jax_cli_config", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.get_parser()
+
+
+PORT_CLIS = {"pretrain": cli, "sample_2d_to_3d": sample_cli,
+             "sample_3d_to_2d": sample_3d2d_cli}
+# the flags each JAX CLI reads that the port's parser once rejected (exit 2)
+JAX_ONLY_FLAGS = {
+    "pretrain": ("resume_from", "num_devices", "input_data_dir", "max_molecules",
+                 "profile_dir", "debug_nans", "distributed", "dist_coordinator",
+                 "dist_num_processes", "dist_process_id"),
+    "sample_2d_to_3d": ("gnn_type", "JK", "dropout_ratio", "num_devices", "input_data_dir"),
+    "sample_3d_to_2d": ("PaiNN_radius_cutoff", "PaiNN_n_interactions", "PaiNN_n_rbf",
+                        "PaiNN_readout", "use_extend_graph")}
+
+
+@pytest.mark.parametrize("name", sorted(PORT_CLIS))
+def test_cli_parses_the_jax_flags_with_jax_defaults(name):
+    """Every flag a port CLI shares with the JAX CLIs has JAX's default,
+    except ``--dataset`` (the one ported dataset) and ``--device`` (a CUDA
+    device, not a TPU index); the flags it once lacked are among them."""
+    port = vars(PORT_CLIS[name].get_parser().parse_args([]))
+    ref = vars(_jax_cli_parser().parse_args([]))
+    assert set(JAX_ONLY_FLAGS[name]) <= set(port)
+    for flag in sorted(set(port) & set(ref) - {"dataset", "device"}):
+        assert port[flag] == ref[flag], flag
+
+
+@pytest.mark.parametrize("name,flags", [
+    ("pretrain", ["--resume_from", "ckpt.msgpack"]),
+    ("pretrain", ["--num_devices", "2"]),
+    ("pretrain", ["--distributed"]),
+    ("pretrain", ["--dist_coordinator", "localhost:1234"]),
+    ("pretrain", ["--dist_num_processes", "2"]),
+    ("pretrain", ["--dist_process_id", "0"]),
+    ("pretrain", ["--profile_dir", "prof"]),
+    ("pretrain", ["--debug_nans"]),
+    ("sample_2d_to_3d", ["--gnn_type", "GCN"]),
+    ("sample_2d_to_3d", ["--JK", "concat"]),
+    ("sample_2d_to_3d", ["--num_devices", "2"]),
+    ("sample_3d_to_2d", ["--num_devices", "2"])],
+    ids=lambda v: v if isinstance(v, str) else v[0].lstrip("-"))
+def test_cli_refuses_unported_flag_by_name(name, flags):
+    """A flag the port does not run raises NotImplementedError naming it
+    (never argparse's exit 2), before any work."""
+    with pytest.raises(NotImplementedError, match=re.escape(flags[0]) + " is not ported"):
+        PORT_CLIS[name].main(["--device", "cpu"] + flags)
+
+
+def test_3d2d_cli_runs_painn(tmp_path):
+    """``--model_3d PaiNN`` (the JAX CLI builds it): graphs of the expected
+    shapes, finite, from a tiny PaiNN encoder."""
+    res = sample_3d2d_cli.main([
+        "--device", "cpu", "--batch_size", "2", "--end", "2", "--n_max", "8",
+        "--emb_dim", "16", "--model_3d", "PaiNN", "--PaiNN_n_interactions", "2",
+        "--PaiNN_n_rbf", "8", "--num_diffusion_timesteps_3Dto2D_inference", "2",
+        "--steps_pos", "1", "--output_model_dir", str(tmp_path)])
+    assert [r["x_gen"].shape for r in res] == [(2, 8, 119)]
+    assert res[0]["adj_gen"].shape == (2, 8, 8)
+    assert np.isfinite(res[0]["x_gen"]).all() and np.isfinite(res[0]["adj_gen"]).all()
 
 
 def test_pretrain_cli_raises_without_gpu(monkeypatch):

@@ -27,7 +27,8 @@ from moleculesde_tpu_torch.pretrain.train_state import PretrainConfig, build_mod
 from moleculesde_tpu_torch.pretrain.train_step import draw_losses, pretrain_loss
 from moleculesde_tpu_torch.sampling import pc
 
-from torch_port_common import CPU, both_batches, graphs, np_tree, t
+from torch_port_common import (  # noqa: F401 (ieee_f32: autouse)
+    both_batches, CPU, graphs, ieee_f32, np_tree, t)
 
 EMB, STEPS, CORRECTOR = 16, 3, 2
 TINY = ["--device", "cpu", "--batch_size", "2", "--end", "3", "--n_max", "8",
@@ -109,7 +110,7 @@ def test_cli_needs_a_gpu_unless_asked_and_refuses_what_is_not_ported(monkeypatch
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(TINY[2:])
-    for flags in (["--model_3d", "PaiNN"], ["--dataset", "PCQM4Mv2"], ["--num_devices", "2"]):
+    for flags in (["--dataset", "PCQM4Mv2"], ["--num_devices", "2"]):
         with pytest.raises(NotImplementedError, match="not ported"):
             cli.main(TINY + flags)
 

@@ -22,7 +22,7 @@ from moleculesde_tpu_torch.sampling.pc import sample_positions_pc
 from moleculesde_tpu_torch.utils import rmsd
 
 from test_torch_port_score_2d3d import make_pair
-from torch_port_common import CPU, np_tree, rel_err, t
+from torch_port_common import CPU, ieee_f32, np_tree, rel_err, t  # noqa: F401 (ieee_f32: autouse)
 
 N_STEPS = 3
 

@@ -19,7 +19,8 @@ from moleculesde_tpu.models.schnet import radius_pair_mask as jax_radius_pair_ma
 from moleculesde_tpu_torch.convert import load_flax_variables
 from moleculesde_tpu_torch.models.schnet import SchNet, pairwise_distances, radius_pair_mask
 
-from torch_port_common import CPU, both_batches, graphs, np_tree, rel_err, t
+from torch_port_common import (  # noqa: F401 (ieee_f32: autouse)
+    both_batches, CPU, graphs, ieee_f32, np_tree, rel_err, t)
 
 WIDTH = dict(hidden_channels=16, num_filters=16, num_interactions=2, num_gaussians=11,
              cutoff=5.0)

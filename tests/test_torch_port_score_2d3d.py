@@ -17,7 +17,8 @@ from moleculesde_tpu.models.score_2d3d import dense_frames_flat as jax_frames_fl
 from moleculesde_tpu_torch.convert import load_flax_variables
 from moleculesde_tpu_torch.models.score_2d3d import SDEModel2Dto3D, dense_frames_flat
 
-from torch_port_common import CPU, both_batches, graphs, np_tree, rel_err, t
+from torch_port_common import (  # noqa: F401 (ieee_f32: autouse)
+    both_batches, CPU, graphs, ieee_f32, np_tree, rel_err, t)
 
 EMB, HID = 16, 16
 

@@ -12,6 +12,7 @@ MLPs around the bank after different ops)."""
 import pytest
 
 from test_torch_port_score_3d2d_variants import _check, _loss_pair, batches  # noqa: F401
+from torch_port_common import ieee_f32  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("bf16_attn", [False, True], ids=["f32", "bf16"])

@@ -17,7 +17,8 @@ from moleculesde_tpu_torch.convert import load_flax_variables
 from moleculesde_tpu_torch.models.score_3d2d import SDEModel3Dto2D
 
 from test_torch_port_score_losses import _check_grads
-from torch_port_common import CPU, both_batches, graphs, np_tree, rel_err, t
+from torch_port_common import (  # noqa: F401 (ieee_f32: autouse)
+    both_batches, CPU, graphs, ieee_f32, np_tree, rel_err, t)
 
 EMB = 16
 

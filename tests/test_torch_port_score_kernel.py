@@ -37,7 +37,8 @@ from moleculesde_tpu_torch.ops.score_kernel import (
 from moleculesde_tpu_torch.sampling.pc import sample_positions_pc
 
 from test_torch_port_score_2d3d import make_pair
-from torch_port_common import CPU, both_batches, graphs, np_tree, rel_err, t
+from torch_port_common import (  # noqa: F401 (ieee_f32: autouse)
+    both_batches, CPU, graphs, ieee_f32, np_tree, rel_err, t)
 
 EMB, HID = 16, 32
 N_STEPS = 5

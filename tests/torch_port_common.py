@@ -23,6 +23,33 @@ from moleculesde_tpu_torch.data.synthetic import random_molecule
 CPU = "cpu"
 
 
+@contextlib.contextmanager
+def ieee_f32_products():
+    """Full-f32 products in both frameworks for the block: torch's float32
+    matmul precision "highest" (which sets oneDNN's fp32 math mode on the
+    CPU to IEEE) and JAX's default matmul precision "highest"; torch's
+    process-wide setting is restored afterwards.  A reduced mode ("high" /
+    "medium") left in the process lets torch's CPU products of f32 operands
+    run at less than f32 precision, far past the 1e-5 parity bars: once, in
+    a 6-worker run of the suite, K7's 2-term per-head dots read 1e-5 off the
+    float64 oracle on the port's side (test_torch_port_attn_bank.py)."""
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        with jax.default_matmul_precision("highest"):
+            yield
+    finally:
+        torch.set_float32_matmul_precision(saved)
+
+
+@pytest.fixture(autouse=True)
+def ieee_f32():
+    """Every test of a module that imports this fixture runs under
+    :func:`ieee_f32_products`."""
+    with ieee_f32_products():
+        yield
+
+
 def graphs(seed: int, count: int, n_max: int, min_atoms: int = 3):
     rng = np.random.default_rng(seed)
     return [random_molecule(rng, int(rng.integers(min_atoms, n_max + 1)))
