@@ -12,7 +12,8 @@ comes out.
 
 Phases (any failure exits non-zero):
   1. the card's name and power limit; build every kernel (one nvcc per source);
-     the CFConv library's SASS holds HMMA (its backward's tensor-core products);
+     the CFConv forward's and backward's SASS hold HMMA (their tensor-core
+     products), counted per kernel function;
   2. kernel phases on the operands each path gives each kernel, in f32 and
      bf16 mode: K1 (GIN message block), K3 (pair block) and K4 (its
      channel-major form) forward on the sampler's operands; K1, K2 (CFConv),
@@ -80,8 +81,8 @@ Phases (any failure exits non-zero):
  13. n_max 64: the JAX CLI's default path (compact ingest, K2) at
      ``--n_max 64``, B=128: K2 and K5 forward and backward against their
      plain versions on its operands (bf16 and f32, the bars of 7), two
-     backward runs of each bit for bit and K5's backward equal to K2's on
-     the same smearing; two steps with K1 5 / 5, K2 6 / 6, K3 1 / 1 per
+     forward and two backward runs of each bit for bit and K5's forward and
+     backward equal to K2's on the same smearing; two steps with K1 5 / 5, K2 6 / 6, K3 1 / 1 per
      step, every metric finite; one step against an all-plain build as in
      7; then the K2 / K5 phases at ``--n_max 128``, B=32.
 The line before the last lists every kernel as JSON; the last line is
@@ -92,13 +93,13 @@ from __future__ import annotations
 
 import json
 import math
-import statistics
 import subprocess
 import sys
 import time
 
 import torch
 
+from moleculesde_tpu_torch.benchmarks.timing import device_ms, median_ms
 from moleculesde_tpu_torch.ops.attn_bank import (
     attn_map_bank_bwd_plain, attn_map_bank_kernel, attn_map_bank_kernel_bwd,
     attn_map_bank_plain)
@@ -130,43 +131,9 @@ def check(cond: bool, what: str) -> None:
         raise PhaseError(what)
 
 
-def median_ms(fn, warmup: int = 5, reps: int = 30) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn`` after ``warmup`` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 # (name, result dict, kernel call, plain call) of every timed kernel, for
 # device_time_phase
 _DEVICE_RUNS = []
-
-
-def device_ms(fn, reps: int = 10) -> float:
-    """Device time of one call of ``fn``: ``reps`` calls captured in one CUDA
-    graph, the graph replayed and timed with CUDA events (median of 10
-    replays after 2), divided by ``reps``.  Unlike the CUDA-event median of
-    single calls it leaves out the host's time between launches, which for
-    a kernel of a few microseconds is most of the event time; what is left
-    beside the kernels are the card's own gaps between launches."""
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    ms = median_ms(graph.replay, warmup=2, reps=10) / reps
-    del graph
-    return ms
 
 
 def device_time_phase():
@@ -205,12 +172,12 @@ def k1_cost(x, src, dst, table, bwd: bool = False):
 
 def k2_cost(ea, env, x, w1, bwd: bool = False):
     """(bytes, operations) of K2: ea at its own width (bf16 on the
-    pretraining path), the filter net only for the pairs inside the cutoff
-    (env != 0), the only ones whose filter the output needs."""
+    pretraining path), both only for the pairs inside the cutoff (env !=
+    0), the only ones whose filter the output needs; env for every pair."""
     gdim, f = w1.shape
     pairs = int((env != 0).sum())
     weights = gdim * f + f * f + 2 * f
-    ea_bytes = ea.numel() * ea.element_size()
+    ea_bytes = pairs * gdim * ea.element_size()
     if bwd:
         return (ea_bytes + 4 * (env.numel() + 3 * x.numel() + 2 * weights),
                 pairs * (4 * gdim * f + 6 * f * f + 10 * f))
@@ -218,18 +185,18 @@ def k2_cost(ea, env, x, w1, bwd: bool = False):
             pairs * (2 * gdim * f + 2 * f * f + 4 * f))
 
 
-def k5_cost(dist, env, x, w1, bwd: bool = False):
+def k5_cost(env, x, w1, bwd: bool = False):
     """(bytes, operations) of K5: K2's work on the pairs inside the cutoff
     plus their smearing (a subtraction, two products and an exp per
-    Gaussian), reading the f32 distances where K2 reads ea."""
+    Gaussian), reading those pairs' f32 distances where K2 reads ea."""
     gdim, f = w1.shape
     pairs = int((env != 0).sum())
     weights = gdim * f + f * f + 2 * f
     smear = pairs * gdim * 4
     if bwd:
-        return (4 * (dist.numel() + env.numel() + 3 * x.numel() + 2 * weights),
+        return (4 * (pairs + env.numel() + 3 * x.numel() + 2 * weights),
                 pairs * (4 * gdim * f + 6 * f * f + 10 * f) + smear)
-    return (4 * (dist.numel() + env.numel() + 2 * x.numel() + weights),
+    return (4 * (pairs + env.numel() + 2 * x.numel() + weights),
             pairs * (2 * gdim * f + 2 * f * f + 4 * f) + smear)
 
 
@@ -1296,7 +1263,7 @@ def compact_kernel_phases(models, batch):
             lambda *t, **k: fused_cfconv_rbf_bwd(dist, env, *t, **kw, **k),
             lambda *t, **k: fused_cfconv_rbf_bwd_plain(dist, env, *t, **kw, **k),
             (x,) + params, g, bf16, 2e-2 if bf16 else 1e-4,
-            k5_cost(dist, env, x, params[0]), k5_cost(dist, env, x, params[0], bwd=True),
+            k5_cost(env, x, params[0]), k5_cost(env, x, params[0], bwd=True),
             PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS)
     return results
 
@@ -1380,8 +1347,8 @@ def large_n_kernel_phases(models, batch, label):
     """K2 and K5, forward and backward, against their plain versions on
     SchNet interaction 0's operands of ``batch`` (expanded on the card), in
     bf16 (the path's mode) and f32 at the main path's bars; then two
-    backward runs of each, bit for bit, and K5's backward against K2's fed
-    the same smearing, bit for bit."""
+    forward and two backward runs of each, bit for bit, and K5's forward
+    and backward against K2's fed the same smearing, bit for bit."""
     from moleculesde_tpu_torch.data.compact import expand_on_device
     from moleculesde_tpu_torch.ops.cfconv import smear
 
@@ -1420,24 +1387,30 @@ def large_n_kernel_phases(models, batch, label):
             lambda *t, **k: fused_cfconv_rbf_bwd(dist, env, *t, **kw, **k),
             lambda *t, **k: fused_cfconv_rbf_bwd_plain(dist, env, *t, **kw, **k),
             params, g, bf16, 2e-2 if bf16 else 1e-4,
-            k5_cost(dist, env, x, params[1]), k5_cost(dist, env, x, params[1], bwd=True), peak)
+            k5_cost(env, x, params[1]), k5_cost(env, x, params[1], bwd=True), peak)
     saved = [c.launches for c in _counters()]
     with torch.no_grad():
-        for name, run in (
-                ("K2", lambda: fused_cfconv_bwd(ea, env, *params, g, bf16=True)),
-                ("K5", lambda: fused_cfconv_rbf_bwd(dist, env, *params, g, bf16=True, **kw))):
+        ea_k5 = smear(dist, bf16=True, **kw).contiguous()   # K5's smearing, in bf16
+        for what, run in (
+                ("K2 forward", lambda: (fused_cfconv(ea, env, *params, bf16=True),)),
+                ("K5 forward", lambda: (fused_cfconv_rbf(dist, env, *params, bf16=True, **kw),)),
+                ("K2 backward", lambda: fused_cfconv_bwd(ea, env, *params, g, bf16=True)),
+                ("K5 backward",
+                 lambda: fused_cfconv_rbf_bwd(dist, env, *params, g, bf16=True, **kw))):
             first, second = run(), run()
             check(all(torch.equal(u, v) for u, v in zip(first, second)),
-                  f"{label} {name} backward: two runs differ")
+                  f"{label} {what}: two runs differ")
+        check(torch.equal(fused_cfconv_rbf(dist, env, *params, bf16=True, **kw),
+                          fused_cfconv(ea_k5, env, *params, bf16=True)),
+              f"{label}: K5's forward differs from K2's on the same smearing")
         k5 = fused_cfconv_rbf_bwd(dist, env, *params, g, bf16=True, **kw)
-        k2 = fused_cfconv_bwd(smear(dist, bf16=True, **kw).contiguous(), env, *params, g,
-                              bf16=True)
+        k2 = fused_cfconv_bwd(ea_k5, env, *params, g, bf16=True)
         check(all(torch.equal(u, v) for u, v in zip(k5, k2)),
               f"{label}: K5's backward differs from K2's on the same smearing")
     for c, k in zip(_counters(), saved):
         c.launches = k
-    print(f"{label}: K2 and K5 backward bit-identical over two runs; K5 == K2 on the same "
-          f"smearing, bit for bit", flush=True)
+    print(f"{label}: K2 and K5 forward and backward bit-identical over two runs; K5 == K2 "
+          f"on the same smearing, forward and backward, bit for bit", flush=True)
     return results
 
 
@@ -1569,8 +1542,10 @@ def painn_steps(dev):
 
 
 def tensor_core_note(build) -> None:
-    """The CFConv backward's bf16 products run on the tensor cores: its
-    source issues mma.sync and the built library's SASS holds HMMA."""
+    """The CFConv kernels' bf16 products run on the tensor cores: the source
+    issues mma.sync, and the built library's SASS holds HMMA in the forward
+    kernel's functions and in the backward's (counted per function from
+    ``cuobjdump -sass``'s ``Function :`` headers)."""
     import shutil
     from pathlib import Path
 
@@ -1579,10 +1554,22 @@ def tensor_core_note(build) -> None:
     cuobjdump = shutil.which("cuobjdump") or str(Path(build.nvcc_path()).parent / "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(build._library_path("cfconv"))],
                           capture_output=True, text=True, timeout=300).stdout
-    hmma = sum("HMMA" in ln for ln in sass.splitlines())
-    print(f"cfconv SASS: {hmma} HMMA instructions (tensor-core products of the backward)",
-          flush=True)
-    check(hmma > 0, "the CFConv library holds no HMMA instruction")
+    per_function, current = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            current = ln.split("Function :", 1)[1].strip()
+            per_function[current] = 0
+        elif current is not None and "HMMA" in ln:
+            per_function[current] += 1
+    counts = {}
+    for kernel in ("cfconv_fwd_kernel", "cfconv_bwd_kernel"):
+        fns = {name: k for name, k in per_function.items() if kernel in name}
+        counts[kernel] = sum(fns.values())
+        print(f"cfconv SASS: {kernel}: {counts[kernel]} HMMA over {len(fns)} functions "
+              f"({sum(k > 0 for k in fns.values())} with HMMA: the bf16-mode "
+              f"instantiations)", flush=True)
+    check(counts["cfconv_fwd_kernel"] > 0, "the CFConv forward's SASS holds no HMMA instruction")
+    check(counts["cfconv_bwd_kernel"] > 0, "the CFConv backward's SASS holds no HMMA instruction")
 
 
 def main() -> int:

@@ -89,26 +89,69 @@
 // and no more at any N.  f32 mode at FP = 128: 186-199 KB (g and x not
 // staged); the wrapper raises where the plan exceeds the 227 KB a block may
 // use (f32 mode at F > 128, or at F > 64 with G > 64), naming the sizes.
-// Registers and spills (nvcc -Xptxas -v, sm_90a, CUDA 12.8): bf16 mode at
-// FP = 128 (the main path) 255 registers and 140-152 B of spill stores per
-// thread (72 B stack); FP = 64 255 and 176-184 B; FP = 256 216-220 and none.
-// f32 mode: FP = 128 255 and 16-20 B; FP = 64 225-231 and none.  The dW1 /
-// dW2 accumulators take 96 of them, so a block of 8 warps fills an SM.
+// Registers and spills (nvcc -Xptxas -v, sm_90a, CUDA 12.8, from
+// benchmarks/profile_cfconv.py): bf16 mode at FP = 128 (the main path) 255
+// registers and 140-164 B of spill stores per thread; FP = 64 255 and
+// 208-316 B; FP = 256 227-229 and none.  f32 mode: FP = 128 255 and 0-8 B;
+// FP = 64 252-254 and none.  The dW1 / dW2 accumulators take 96 of them,
+// so a block of 8 warps fills an SM.
 //
-// FORWARD (cfconv_fwd_kernel): grid (B, N / RG); RG row groups of F
-// threads, one group per output row i, one thread per feature f.  w1 and w2
-// (90 KB at G=51, F=128) are staged in shared memory once per block; the
-// columns j are walked in chunks of at most kFwdChunk, each staging its x
-// rows (shared by the groups) and each group's ea [chunk, G] and env.
-// Phase 1: thread f forms pre / s for every j of the chunk (ea reads are
-// broadcasts) into a shared [chunk, F] tile.  Phase 2: thread f forms wf for
-// 8 rows j at a time in registers (float4 broadcast reads of s, one w2 read
-// per 8 FMAs) and folds each into its running sum over j, in order.  Shared
-// memory does not grow with N.  On the CUDA cores: its bound is the f32
-// rate (>= 0.09 ms at B=128, N=32); its tensor-core redesign is later work.
+// FORWARD (cfconv_fwd_kernel): two products per pair --
+//   (1) pre = ea @ W1 + b1, s = softplus(pre) - log 2
+//   (2) wf = s @ W2 + b2;  out[i, f] += (wf * env) * x[j, f]
+// Bound at B=128, N=32, G=51, F=128: K2 in bf16 by its bytes (bf16 ea read
+// once, 13 MB, ~5 us), K5 by its operations (2 (G F + F^2) flops per pair
+// inside the cutoff, ~2 us on the tensor cores); f32 mode by the CUDA
+// cores' FMA rate (~30 us).  Design (plan: fwd_plan, ops/cfconv.py::fwd_plan):
+//  * Work unit = (graph b, a tile of R rows i) over all columns j, in chunks
+//    of C = 16 (N <= 16) or 32 columns: tile of M = R * C = 128 / CW pair
+//    rows (pair p = r * C + jj), F padded to FP = 64 * CW.  Each warp's 16
+//    pair rows share one row i; the sum over j of an output row stays in its
+//    unit -- no partials, no atomics, one write of out[b, i, :].  For fixed
+//    i the ea source of a chunk is one contiguous run.
+//  * Persistent blocks: min(units, resident blocks per SM x #SMs) blocks of
+//    8 warps, block k taking units k, k + grid, ...  Units are numbered row
+//    tile major (u = row tile * B + b), so each block walks every grid/B-th
+//    row tile across many graphs: rows past a graph's atoms, whose tiles are
+//    skipped, fall to every block alike.
+//  * W1 [G16][FS] and W2 [FP][FS] are staged once per block in the mode's
+//    type.  Each tile's ea source bytes are copied one tile ahead by cp.async
+//    and fixed up in shared memory (copy_ea_rows / fix_up_ea, as the
+//    backward; 16-byte pieces from the aligned address that holds a row's
+//    first byte, since a row here is a long run), its env and the chunk's x
+//    rows (16-byte cp.async) one tile ahead from the end of (2), their only
+//    reader.
+//  * Skips: a tile whose env is zero on every pair (rows past the atoms,
+//    padding) is skipped after a block-wide vote (__syncthreads_or; each
+//    thread reads the env word it copied itself); a warp whose 16 pairs all
+//    have env == 0 skips (1) and (2); pairs with env == 0 stage ea = 0.
+//    Such a pair adds exactly 0 to out, so the skips change no bit, and a
+//    skipped row of out is written as zeros.
+//  * bf16 mode: (1) and (2) on the tensor cores, mma.sync m16n8k16 bf16 ->
+//    f32 (frag_gemm, ldmatrix); the softplus in the fast __expf / __logf
+//    (s is rounded to bf16 next).  f32 mode: the same tiles and schedule,
+//    the products as f32 FMAs (frag_gemm's f32 overload) and the accurate
+//    expf / log1pf, for its 1e-4 bar.
+//  * (2)'s epilogue folds (wf + b2) * env * x in registers and sums the
+//    fragment's 16 rows j by shuffles; then a row's warps in warp order, then
+//    the chunks in order.  No [M, FP] wf tile goes to shared memory.
+//  * Coverage: where W1, W2 and the tiles do not fit, the plan stages ea in
+//    chunks of 64 entries of G read straight from device memory (no copy),
+//    and then reads the weights from device memory on the CUDA cores
+//    (frag_gemm_dev): every G and F <= 256 has a plan at every N.
+// Shared memory (bf16 mode, bf16 ea, G16 = 64, FP = 128, M = 64, N > 16):
+// W1 17.0 KB, W2 34.0 KB, ea 9.0 KB, s 17.0 KB, x 17.0 KB, the ea copy
+// 6.4 KB, env, biases and row sums 4.3 KB: 104.7 KB, two blocks per SM
+// (K5: 98.5 KB).  f32 mode: 170.5-183.0 KB, one block.
+// Registers and spills (nvcc -Xptxas -v, sm_90a, CUDA 12.8, from
+// benchmarks/profile_cfconv.py): bf16 mode, held to 128 for two blocks per
+// SM, K2 (bf16 or f32 ea): FP = 128 (the main path) 128 registers and 36 B
+// of spill stores, FP = 64 128 and 84 B, FP = 256 127 and none; K5: 128 and
+// none (4 B at FP = 256).  f32 mode: 147-167 registers, no spills.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <atomic>
 #include <cstdint>
 
 #include "partials.cuh"
@@ -116,8 +159,34 @@
 namespace {
 
 constexpr float kLog2 = 0.693147180559945309f;
-constexpr int kTile = 8;       // forward: rows per register tile
-constexpr int kFwdChunk = 32;  // forward: columns j per staged chunk
+constexpr size_t kSmemLimit = 232448;   // dynamic shared memory a block may use
+// pieces the ea copies are made of: the forward's rows are long runs
+// (a 32-column chunk of one row i), the backward's short (J pairs)
+constexpr int kFwdCopyBytes = 16, kBwdCopyBytes = 4;
+
+// Phase clocks for benchmarks/profile_cfconv.py, which builds this source
+// with -DCFCONV_PROFILE: thread 0 of each block adds the clock64 cycles
+// since its last mark to slot k of the block (backward 0-6, forward 8-13;
+// CFCONV_COUNT adds one).  Empty in the kernels' own build.
+#ifdef CFCONV_PROFILE
+constexpr int kProfileBlocks = 1024;
+__device__ unsigned long long g_cfconv_phase[kProfileBlocks * 16];
+#define CFCONV_CLOCK unsigned long long last_clk_ = clock64()
+#define CFCONV_MARK(k)                                                        \
+  do {                                                                        \
+    if (threadIdx.x == 0) {                                                   \
+      const unsigned long long c_ = clock64();                                \
+      g_cfconv_phase[blockIdx.x * 16 + (k)] += c_ - last_clk_;                \
+      last_clk_ = c_;                                                         \
+    }                                                                         \
+  } while (0)
+#define CFCONV_COUNT(k) \
+  do { if (threadIdx.x == 0) g_cfconv_phase[blockIdx.x * 16 + (k)] += 1; } while (0)
+#else
+#define CFCONV_CLOCK
+#define CFCONV_MARK(k)
+#define CFCONV_COUNT(k)
+#endif
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -143,9 +212,9 @@ __device__ __forceinline__ float value(const float* p) { return *p; }
 __device__ __forceinline__ float value(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 
 // Where a block's ea values come from; ``pair`` is (b * N + i) * N + j.
-// The forward reads them with operator(); the backward copies each pair's
-// source bytes (``pair_bytes(G)`` from ``src``, ``bytes`` in all) to shared
-// memory and reads them there with from_copy.
+// The kernels copy each pair's source bytes (``pair_bytes(G)`` from ``src``,
+// ``bytes`` in all) to shared memory and read them there with from_copy; a
+// forward plan without the copy reads them with operator().
 // EaRead: the smeared distances ea [B, N, N, G] in device memory (K2).
 template <typename EA>
 struct EaRead {
@@ -185,127 +254,21 @@ struct EaSmear {
   }
 };
 
-__host__ __device__ inline int align4(int n) { return (n + 3) & ~3; }
-
 // ---------------------------------------------------------------------------
-// forward
-// ---------------------------------------------------------------------------
-
-template <typename Src>
-__global__ void cfconv_fwd_kernel(const Src ea,
-                                  const float* __restrict__ env,
-                                  const float* __restrict__ x,
-                                  const float* __restrict__ w1,
-                                  const float* __restrict__ b1,
-                                  const float* __restrict__ w2,
-                                  const float* __restrict__ b2,
-                                  float* __restrict__ out,
-                                  int N, int G, int F, int RG, int bf16) {
-  extern __shared__ __align__(16) float smem[];
-  const int CH = N < kFwdChunk ? N : kFwdChunk;
-  const int per_group = align4(CH * G) + align4(CH) + CH * F;
-  float* w1s = smem;            // [G][F]
-  float* w2s = w1s + G * F;     // [F][F]
-  float* xs = w2s + F * F;      // [CH][F]: x[b, chunk, :]
-  const int t = threadIdx.x;
-  const int r = t / F;
-  const int f = t - r * F;
-  float* eas = xs + CH * F + r * per_group;  // [CH][G]: ea[b, i, chunk, :]
-  float* envs = eas + align4(CH * G);        // [CH]
-  float* ss = envs + align4(CH);             // [CH][F]
-
-  const int b = blockIdx.x;
-  const int i = blockIdx.y * RG + r;
-  const bool row_ok = i < N;
-  const int nthr = blockDim.x;
-
-  for (int q = t; q < G * F; q += nthr) w1s[q] = rnd(w1[q], bf16);
-  for (int q = t; q < F * F; q += nthr) w2s[q] = rnd(w2[q], bf16);
-  const float* xb = x + static_cast<size_t>(b) * N * F;
-  const size_t row = (static_cast<size_t>(b) * N + (row_ok ? i : 0)) * N;
-  const float* envb = env + row;
-  const float b1f = b1[f], b2f = b2[f];
-  float out_acc = 0.f;
-
-  for (int jc = 0; jc < N; jc += CH) {
-    const int nch = N - jc < CH ? N - jc : CH;
-    __syncthreads();  // the previous chunk's tiles fully consumed
-    for (int q = t; q < nch * F; q += nthr) xs[q] = rnd(xb[jc * F + q], bf16);
-    for (int q = f; q < nch * G; q += F) {
-      const int j = q / G;
-      eas[q] = row_ok ? rnd(ea(row + jc + j, q - j * G, G), bf16) : 0.f;
-    }
-    for (int q = f; q < nch; q += F) envs[q] = row_ok ? envb[jc + q] : 0.f;
-    __syncthreads();
-
-    for (int j = 0; j < nch; ++j) {
-      const float* er = eas + j * G;
-      float pre = 0.f;
-      for (int g = 0; g < G; ++g) pre = fmaf(er[g], w1s[g * F + f], pre);
-      ss[j * F + f] = rnd(ssp(pre + b1f), bf16);
-    }
-    __syncthreads();
-
-    if (row_ok) {
-      for (int j0 = 0; j0 < nch; j0 += kTile) {
-        float acc[kTile];
-#pragma unroll
-        for (int jj = 0; jj < kTile; ++jj) acc[jj] = 0.f;
-        for (int k = 0; k < F; k += 4) {
-          const float wa = w2s[(k + 0) * F + f], wb = w2s[(k + 1) * F + f];
-          const float wc = w2s[(k + 2) * F + f], wd = w2s[(k + 3) * F + f];
-#pragma unroll
-          for (int jj = 0; jj < kTile; ++jj) {
-            const int j = min(j0 + jj, nch - 1);
-            const float4 sv = *reinterpret_cast<const float4*>(ss + j * F + k);
-            acc[jj] = fmaf(sv.x, wa, acc[jj]);
-            acc[jj] = fmaf(sv.y, wb, acc[jj]);
-            acc[jj] = fmaf(sv.z, wc, acc[jj]);
-            acc[jj] = fmaf(sv.w, wd, acc[jj]);
-          }
-        }
-#pragma unroll
-        for (int jj = 0; jj < kTile; ++jj) {
-          const int j = j0 + jj;
-          if (j < nch) out_acc += ((acc[jj] + b2f) * envs[j]) * xs[j * F + f];
-        }
-      }
-    }
-  }
-  if (row_ok) out[(static_cast<size_t>(b) * N + i) * F + f] = out_acc;
-}
-
-size_t fwd_smem(int N, int G, int F, int RG) {
-  const int CH = N < kFwdChunk ? N : kFwdChunk;
-  return (static_cast<size_t>(G) * F + static_cast<size_t>(F) * F +
-          static_cast<size_t>(CH) * F +
-          static_cast<size_t>(RG) * (align4(CH * G) + align4(CH) + CH * F)) *
-         sizeof(float);
-}
-
-template <typename Src>
-int launch_fwd(Src ea, const float* env, const float* x, const float* w1,
-               const float* b1, const float* w2, const float* b2, float* out,
-               int B, int N, int G, int F, int RG, int bf16, cudaStream_t s) {
-  const size_t smem = fwd_smem(N, G, F, RG);
-  cudaError_t err = cudaFuncSetAttribute(
-      cfconv_fwd_kernel<Src>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B, (N + RG - 1) / RG);
-  cfconv_fwd_kernel<Src><<<grid, RG * F, smem, s>>>(ea, env, x, w1, b1, w2, b2, out,
-                                                    N, G, F, RG, bf16);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------------------
-// backward: tile plan, fragment products, kernel
+// shared pieces: fragment products, the ea copy
 // ---------------------------------------------------------------------------
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
+
+// 4-byte words of a row of the ea copy holding ``cols`` pairs of ``pb``
+// source bytes in pieces of ``bytes`` (4 or 16): the pieces from the one
+// that holds the row's first byte, and one more.
+__host__ __device__ inline int copy_row_words(int cols, int pb, int bytes) {
+  return ((cols * pb + bytes - 1) / bytes + 1) * (bytes / 4);
+}
 
 // The backward's tiling and shared-memory plan (mirrored by
 // moleculesde_tpu_torch/ops/cfconv.py::bwd_plan).  esz: 2 (bf16 mode) or
@@ -347,7 +310,7 @@ __host__ __device__ inline BwdPlan bwd_plan(int N, int G, int F, int esz, int pa
   P.off_dx = o;  o += align16(static_cast<size_t>(P.J) * P.FP * 4);       // [J][FP]
   // the copy of a tile's ea source bytes: row ii holds pairs (i0 + ii, j0 ..
   // j0 + J - 1) from the 4-byte word that holds their first byte
-  P.RS = (P.J * pair_bytes + 3) / 4 + 1;
+  P.RS = copy_row_words(P.J, pair_bytes, kBwdCopyBytes);
   P.off_copy = o; o += align16(static_cast<size_t>(P.IC) * P.RS * 4);   // [IC][RS] words
   P.GXS = P.FP + 8;  // f32 rows padded by 32 bytes: 2-way bank conflicts at most
   P.off_g = o;   // g rows of the chunk [IC][GXS], x rows of the unit [J][GXS]
@@ -403,6 +366,13 @@ __device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+// 16 bytes, asynchronously; only the first ``valid`` of them read, the
+// rest zero-filled.
+__device__ __forceinline__ void cp_async16n(void* dst, const void* src, int valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid) : "memory");
 }
 
 // 4 bytes, asynchronously; only the first ``valid`` of them read, the rest
@@ -582,6 +552,93 @@ __device__ __forceinline__ void block_col_sum(float (&v)[8][2], float* red, floa
   __syncthreads();
 }
 
+// f32 mode's products where the weights are not in shared memory (plans
+// whose weights do not fit): acc[0][nt] += A[m0:m0+16, 0:K] @ w[k0:k0+K,
+// n0 + 8 nt ...] as f32 FMAs, A from shared memory, w [kmax][nmax] f32 in
+// device memory (row stride nmax, zero outside), rounded to bf16 in bf16
+// mode.  Warp-uniform.
+template <typename T>
+__device__ __forceinline__ void frag_gemm_dev(float (&acc)[1][8][4], const T* A, int lda,
+                                              const float* __restrict__ w, int k0, int kmax,
+                                              int nmax, int m0, int n0, int K) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  const int lane = threadIdx.x & 31;
+  const int r = lane >> 2, c2 = (lane & 3) * 2;
+  for (int k = 0; k < K; ++k) {
+    const float a0 = value(A + (m0 + r) * lda + k), a1 = value(A + (m0 + r + 8) * lda + k);
+    const bool kok = k0 + k < kmax;
+    const float* wk = w + static_cast<size_t>(k0 + k) * nmax;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int n = n0 + nt * 8 + c2;
+      const float b0 = kok && n < nmax ? rnd(__ldg(wk + n), kBf16) : 0.f;
+      const float b1 = kok && n + 1 < nmax ? rnd(__ldg(wk + n + 1), kBf16) : 0.f;
+      acc[0][nt][0] = fmaf(a0, b0, acc[0][nt][0]);
+      acc[0][nt][1] = fmaf(a0, b1, acc[0][nt][1]);
+      acc[0][nt][2] = fmaf(a1, b0, acc[0][nt][2]);
+      acc[0][nt][3] = fmaf(a1, b1, acc[0][nt][3]);
+    }
+  }
+}
+
+// A tile's ea source bytes into ``copy`` ([rows][RS] 4-byte words): row k
+// the pairs (i0 + k, j0 .. j0 + cols - 1) inside N, by cp.async of BYTES
+// (4 or 16) from the BYTES-aligned address that holds the row's first byte
+// (a bf16 row of odd G starts mid-word, so the rows cannot be copied
+// aligned), the last piece of the tensor read only as far as it goes.  The
+// block's threads take the pieces of all rows in turn.  Needs ``ea.src()``
+// 16-byte aligned (the wrapper checks it).
+template <int BYTES, typename Src>
+__device__ __forceinline__ void copy_ea_rows(const Src& ea, unsigned char* copy, int RS,
+                                             int rows, int cols, int b, int i0, int j0,
+                                             int N, int pb) {
+  const int nbytes = min(cols, N - j0) * pb;
+  const int per_row = RS * 4 / BYTES;
+  for (int q = threadIdx.x; q < rows * per_row; q += kThreads) {
+    const int k = q / per_row, c = q - k * per_row;
+    if (i0 + k >= N) break;
+    const size_t start = ((static_cast<size_t>(b) * N + i0 + k) * N + j0) * pb;
+    if (c >= (static_cast<int>(start % BYTES) + nbytes + BYTES - 1) / BYTES) continue;
+    const size_t off = (start / BYTES + c) * BYTES;
+    const int valid = off + BYTES <= ea.bytes ? BYTES : static_cast<int>(ea.bytes - off);
+    if (BYTES == 16)
+      cp_async16n(copy + k * RS * 4 + c * 16, ea.src() + off, valid);
+    else
+      cp_async4(copy + k * RS * 4 + c * 4, ea.src() + off, valid);
+  }
+}
+
+// The tile's ea from its copy into eas [M][GS], entries g < G16 (zero past
+// G; K5: the smearing is built here): warp w takes pairs p = w, w + 8, ...,
+// lane l the entries l, l + 32, ... of each.  at(p, k, jj) returns whether
+// pair p is staged and places it in the copy (row k, the row's jj-th pair);
+// a pair not staged gets zeros.  BYTES as in copy_ea_rows.
+template <int M, int BYTES, typename T, typename Src, typename At>
+__device__ __forceinline__ void fix_up_ea(T* eas, int GS, const unsigned char* copy, int RS,
+                                          const Src& ea, int b, int N, int i0, int j0, int G,
+                                          int G16, int pb, At at) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int g0 = 0; g0 < G16; g0 += 64) {
+#pragma unroll
+    for (int k = 0; k < M / kWarps; ++k) {
+      const int p = warp + kWarps * k;
+      int row, jj;
+      const bool ok = at(p, row, jj);
+      // the row's first byte sits at offset start % BYTES of its copy (32-bit
+      // arithmetic keeps the low bits of the 64-bit offset)
+      const unsigned un = static_cast<unsigned>(N);
+      const unsigned shift = ((static_cast<unsigned>(b) * un + i0 + row) * un + j0) *
+                             static_cast<unsigned>(pb) % static_cast<unsigned>(BYTES);
+      const unsigned char* pair = copy + row * RS * 4 + shift + jj * pb;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int gg = g0 + lane + 32 * h;
+        if (gg < G16) eas[p * GS + gg] = Elem<T>::from(ok && gg < G ? ea.from_copy(pair, gg) : 0.f);
+      }
+    }
+  }
+}
+
 // T: __nv_bfloat16 (bf16 mode, tensor cores) or float (f32 mode).  CW:
 // FP = 64 CW padded features, M = 128 / CW pair rows per tile.
 template <typename Src, typename T, int CW>
@@ -664,6 +721,7 @@ cfconv_bwd_kernel(const Src ea, const float* __restrict__ env,
   // The block's tiles in order: its units blk, blk + grid, ..., each unit's
   // row chunks in order.
   const int units = B * P.tiles;
+  CFCONV_CLOCK;
   const int ntiles = (units - blk + gridDim.x - 1) / gridDim.x * P.chunks;
   auto tile_at = [&](int tau, int& b, int& j0, int& i0, int& ch) {
     const int u = blk + tau / P.chunks * gridDim.x;
@@ -672,26 +730,10 @@ cfconv_bwd_kernel(const Src ea, const float* __restrict__ env,
     j0 = (u - b * P.tiles) * J;
     i0 = ch * IC;
   };
-  // Byte offset of pair (b, i, j0)'s source.
-  auto pair_at = [&](int b, int i, int j0) -> size_t {
-    return ((static_cast<size_t>(b) * N + i) * N + j0) * pb;
-  };
-  // A tile's ea source bytes into copy, 4-byte words by cp.async (the row
-  // of an odd G in bf16 starts mid-word, so 16-byte copies cannot be
-  // aligned), the last word of the tensor read only as far as it goes.
   auto issue_ea = [&](int tau) {
     int b, j0, i0, ch;
     tile_at(tau, b, j0, i0, ch);
-    const int nbytes = min(J, N - j0) * pb;
-    for (int ii = warp; ii < IC && i0 + ii < N; ii += kWarps) {   // warp w: rows w, w + 8, ...
-      const size_t start = pair_at(b, i0 + ii, j0);
-      const int words = (static_cast<int>(start % 4) + nbytes + 3) / 4;
-      for (int w = lane; w < words; w += 32) {
-        const size_t off = (start / 4 + w) * 4;
-        cp_async4(copy + (ii * P.RS + w) * 4, ea.src() + off,
-                  off + 4 <= ea.bytes ? 4 : static_cast<int>(ea.bytes - off));
-      }
-    }
+    copy_ea_rows<kBwdCopyBytes>(ea, copy, P.RS, IC, J, b, i0, j0, N, pb);
   };
   // A tile's env into envs, its g and x rows into gs / xs (16 bytes per
   // cp.async, zero-filled past N and F; F % 4 == 0: a 16-byte chunk never
@@ -733,30 +775,18 @@ cfconv_bwd_kernel(const Src ea, const float* __restrict__ env,
     const float* xb = x + static_cast<size_t>(b) * N * F;
     cp_async_wait_all();
     __syncthreads();  // this tile's copies landed; the previous tile's (5) has read eas
-    // ea from the copy: warp w takes pairs p = w, w + 8, ..., lane l the
-    // entries l, l + 32, ... of each (K5: the smearing, built here)
-    for (int g0 = 0; g0 < G16; g0 += 64) {
-#pragma unroll
-      for (int k = 0; k < M / kWarps; ++k) {
-        const int p = warp + kWarps * k;
-        const int jj = p / IC, ii = p - jj * IC, i = i0 + ii, j = j0 + jj;
-        // the row's first byte sits at offset start % 4 of its copy (32-bit
-        // arithmetic keeps the low bits of the 64-bit offset)
-        const unsigned un = static_cast<unsigned>(N);
-        const unsigned shift =
-            ((static_cast<unsigned>(b) * un + i) * un + j0) * static_cast<unsigned>(pb) % 4u;
-        const unsigned char* pair = copy + ii * P.RS * 4 + shift + jj * pb;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int gg = g0 + lane + 32 * h;
-          if (gg < G16)
-            eas[p * GS + gg] =
-                Elem<T>::from(i < N && j < N && gg < G ? ea.from_copy(pair, gg) : 0.f);
-        }
-      }
-    }
+    CFCONV_MARK(0);
+    // ea from the copy (K5: the smearing, built here); row ii of the copy
+    // holds column j0 + jj's pair at place jj
+    fix_up_ea<M, kBwdCopyBytes>(eas, GS, copy, P.RS, ea, b, N, i0, j0, G, G16, pb,
+                    [&](int p, int& ii, int& jj) {
+                      jj = p / IC;
+                      ii = p - jj * IC;
+                      return i0 + ii < N && j0 + jj < N;
+                    });
     __syncthreads();
     if (tau + 1 < ntiles) issue_ea(tau + 1);
+    CFCONV_MARK(1);
 
     // (1) pre = ea @ W1 + b1 -> s (to shared memory), sigma (registers)
     float acc[1][8][4], sig[8][4];
@@ -778,6 +808,7 @@ cfconv_bwd_kernel(const Src ea, const float* __restrict__ env,
       Elem<T>::store2(row + 8 * FS, acc[0][nt][2], acc[0][nt][3]);
     }
     __syncthreads();
+    CFCONV_MARK(2);
 
     // (2) wf = s @ W2 + b2 -> this warp's part of dx; dwf = (g x) env
     zero(acc);
@@ -827,6 +858,7 @@ cfconv_bwd_kernel(const Src ea, const float* __restrict__ env,
     }
     __syncthreads();
     if (tau + 1 < ntiles) issue_env_gx(tau + 1);
+    CFCONV_MARK(3);
 
     // dx[j, f]: the row-warps of each column in order, then the chunks
     for (int q = t; q < J * FP; q += kThreads) {
@@ -855,6 +887,7 @@ cfconv_bwd_kernel(const Src ea, const float* __restrict__ env,
         }
     }
 
+    CFCONV_MARK(4);
     // (3) ds = dwf @ W2^T, dpre = ds * sigma
     zero(acc);
     frag_gemm<1, 8, false, false>(acc, dwfs, FS, w2s, FS, m0, n0, FP, 1);
@@ -867,6 +900,7 @@ cfconv_bwd_kernel(const Src ea, const float* __restrict__ env,
         acc[0][nt][e] = dp;
       }
     __syncthreads();  // (4) has read s
+    CFCONV_MARK(5);
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
       T* row = ss + (m0 + r) * FS + n0 + nt * 8 + c2;
@@ -874,6 +908,7 @@ cfconv_bwd_kernel(const Src ea, const float* __restrict__ env,
       Elem<T>::store2(row + 8 * FS, acc[0][nt][2], acc[0][nt][3]);
     }
     __syncthreads();
+    CFCONV_MARK(6);
 
     // (5) dW1 += ea^T @ dpre
     if (reg_w1) {
@@ -944,12 +979,365 @@ int launch_bwd(Src ea, const float* env, const float* x, const float* w1,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ---------------------------------------------------------------------------
+// forward
+// ---------------------------------------------------------------------------
+
+// The forward's tiling and shared-memory plan (mirrored by
+// moleculesde_tpu_torch/ops/cfconv.py::fwd_plan).  esz: 2 (bf16 mode) or
+// 4 (f32 mode).  w_res: W1 and W2 staged in shared memory (else read from
+// device memory); copy: each tile's ea source copied one tile ahead and
+// fixed up, ea staged whole (GK = G16; else ea staged GK = 64 entries of G
+// at a time, read straight from device memory).  FP = 0 where F > 256.
+struct FwdPlan {
+  int FP, M, C, R, chunks, tiles, G16, GK, GS, FS, XS, RS;
+  bool w_res, copy;
+  size_t off_w2, off_ea, off_s, off_x, off_env, off_b1, off_b2, off_red, off_acc, off_copy,
+      bytes;
+};
+
+__host__ __device__ inline FwdPlan fwd_plan_with(int N, int G, int F, int esz, int pair_bytes,
+                                                 bool w_res, bool copy) {
+  FwdPlan P{};
+  P.FP = F <= 64 ? 64 : (F <= 128 ? 128 : (F <= 256 ? 256 : 0));
+  if (P.FP == 0) return P;
+  P.M = 128 / (P.FP / 64);
+  P.C = N <= 16 ? 16 : 32;
+  P.R = P.M / P.C;
+  P.chunks = (N + P.C - 1) / P.C;
+  P.tiles = (N + P.R - 1) / P.R;
+  P.G16 = (G + 15) / 16 * 16;
+  P.GK = copy || P.G16 < 64 ? P.G16 : 64;
+  P.w_res = w_res;
+  P.copy = copy;
+  const int pad = esz == 2 ? 8 : 4;  // 16 bytes per row
+  P.GS = P.GK + pad;
+  P.FS = P.FP + pad;
+  P.XS = P.FP + 8;                   // f32 rows padded by 32 bytes
+  P.RS = copy_row_words(P.C, pair_bytes, kFwdCopyBytes);
+  size_t o = 0;
+  if (w_res) o += align16(static_cast<size_t>(P.G16) * P.FS * esz);    // W1 [G16][FS]
+  P.off_w2 = o;
+  if (w_res) o += align16(static_cast<size_t>(P.FP) * P.FS * esz);     // W2 [FP][FS]
+  P.off_ea = o;  o += align16(static_cast<size_t>(P.M) * P.GS * esz);    // ea [M][GS]
+  P.off_s = o;   o += align16(static_cast<size_t>(P.M) * P.FS * esz);    // s [M][FS]
+  P.off_x = o;   o += align16(static_cast<size_t>(P.C) * P.XS * 4);      // x [C][XS]
+  P.off_env = o; o += align16(static_cast<size_t>(P.M) * 4);             // env [M]
+  P.off_b1 = o;  o += align16(static_cast<size_t>(P.FP) * 4);
+  P.off_b2 = o;  o += align16(static_cast<size_t>(P.FP) * 4);
+  P.off_red = o; o += align16(static_cast<size_t>(P.M / 16) * P.FP * 4);  // [M/16][FP]
+  P.off_acc = o; o += align16(static_cast<size_t>(P.R) * P.FP * 4);       // [R][FP]
+  P.off_copy = o;                                                          // [R][RS] words
+  if (copy) o += align16(static_cast<size_t>(P.R) * P.RS * 4);
+  P.bytes = o;
+  return P;
+}
+
+// The first plan that fits: weights resident with the ea copy (the main
+// path), weights resident with ea in chunks, weights in device memory with
+// the copy, then with chunks (which fits at every G and F <= 256).
+__host__ __device__ inline FwdPlan fwd_plan(int N, int G, int F, int esz, int pair_bytes) {
+  FwdPlan P{};
+  for (int k = 0; k < 4; ++k) {
+    P = fwd_plan_with(N, G, F, esz, pair_bytes, k < 2, k % 2 == 0);
+    if (P.FP == 0 || P.bytes <= kSmemLimit) break;
+  }
+  return P;
+}
+
+// T: __nv_bfloat16 (bf16 mode, tensor cores) or float (f32 mode).  CW:
+// FP = 64 CW padded features, M = 128 / CW pair rows per tile.  Two blocks
+// per SM in bf16 mode: at most 128 registers a thread.
+template <typename Src, typename T, int CW>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
+cfconv_fwd_kernel(const Src ea, const float* __restrict__ env,
+                  const float* __restrict__ x, const float* __restrict__ w1,
+                  const float* __restrict__ b1, const float* __restrict__ w2,
+                  const float* __restrict__ b2, float* __restrict__ out,
+                  int B, int N, int G, int F) {
+  constexpr int FP = 64 * CW, M = 128 / CW, RW = M / 16;
+  constexpr bool kBf16 = sizeof(T) == 2;
+  const int pb = Src::pair_bytes(G);
+  const FwdPlan P = fwd_plan(N, G, F, sizeof(T), pb);
+  const int C = P.C, R = P.R, G16 = P.G16, GK = P.GK, GS = P.GS, FS = P.FS, XS = P.XS;
+
+  extern __shared__ __align__(16) float smem_f[];   // one declaration per file
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
+  T* w1s = reinterpret_cast<T*>(smem);                  // [G16][FS] (w_res)
+  T* w2s = reinterpret_cast<T*>(smem + P.off_w2);       // [FP][FS] (w_res)
+  T* eas = reinterpret_cast<T*>(smem + P.off_ea);       // [M][GS]
+  T* ss = reinterpret_cast<T*>(smem + P.off_s);         // [M][FS]
+  float* xs = reinterpret_cast<float*>(smem + P.off_x);     // [C][XS]
+  float* envs = reinterpret_cast<float*>(smem + P.off_env);
+  float* b1s = reinterpret_cast<float*>(smem + P.off_b1);
+  float* b2s = reinterpret_cast<float*>(smem + P.off_b2);
+  float* red = reinterpret_cast<float*>(smem + P.off_red);  // [RW][FP]
+  float* accs = reinterpret_cast<float*>(smem + P.off_acc); // [R][FP]
+  unsigned char* copy = smem + P.off_copy;                 // [R][RS] words (copy)
+
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int r = lane >> 2, c2 = (lane & 3) * 2;
+  const int rw = warp % RW, m0 = rw * 16, n0 = (warp / RW) * 64;
+  const int jw = m0 % C;   // the warp's 16 pairs: one row i, columns jw .. jw + 15
+  const int blk = blockIdx.x;
+
+  if (P.w_res) {
+    for (int q = t; q < G16 * FP; q += kThreads) {
+      const int gg = q / FP, f = q - gg * FP;
+      w1s[gg * FS + f] = Elem<T>::from(gg < G && f < F ? w1[gg * F + f] : 0.f);
+    }
+    for (int q = t; q < FP * FP; q += kThreads) {
+      const int k = q / FP, f = q - k * FP;
+      w2s[k * FS + f] = Elem<T>::from(k < F && f < F ? w2[k * F + f] : 0.f);
+    }
+  }
+  for (int f = t; f < FP; f += kThreads) {
+    b1s[f] = f < F ? b1[f] : 0.f;
+    b2s[f] = f < F ? b2[f] : 0.f;
+  }
+
+  // The block's tiles in order: its units blk, blk + grid, ... (u = row
+  // tile * B + b), each unit's column chunks in order.
+  const int units = B * P.tiles;
+  CFCONV_CLOCK;
+  const int ntiles = (units - blk + gridDim.x - 1) / gridDim.x * P.chunks;
+  auto tile_at = [&](int tau, int& b, int& i0, int& j0, int& ch) {
+    const int u = blk + tau / P.chunks * gridDim.x;
+    ch = tau % P.chunks;
+    const int rt = u / B;
+    b = u - rt * B;
+    i0 = rt * R;
+    j0 = ch * C;
+  };
+  auto issue_ea = [&](int tau) {
+    int b, i0, j0, ch;
+    tile_at(tau, b, i0, j0, ch);
+    copy_ea_rows<kFwdCopyBytes>(ea, copy, P.RS, R, C, b, i0, j0, N, pb);
+  };
+  // A tile's env into envs (thread p < M its pair p, so that it can read
+  // it after its own wait), the chunk's x rows into xs (16 bytes per
+  // cp.async, zero-filled past N and F; F % 4 == 0).
+  auto issue_env_x = [&](int tau) {
+    int b, i0, j0, ch;
+    tile_at(tau, b, i0, j0, ch);
+    if (t < M) {
+      const int row = t / C, i = i0 + row, j = j0 + t - row * C;
+      const bool ok = i < N && j < N;
+      cp_async4(envs + t, ok ? env + (static_cast<size_t>(b) * N + i) * N + j : env,
+                ok ? 4 : 0);
+    }
+    const int quads = FP / 4;
+    for (int q = t; q < C * quads; q += kThreads) {
+      const int row = q / quads, c = (q - row * quads) * 4, j = j0 + row;
+      const bool ok = j < N && c < F;
+      cp_async16(xs + row * XS + c, ok ? x + (static_cast<size_t>(b) * N + j) * F + c : x, ok);
+    }
+  };
+  // Plans without the copy: ea entries g0 .. g0 + GK - 1 of the tile's
+  // pairs from device memory (zero where env == 0, past N and past G).
+  auto stage_direct = [&](int b, int i0, int j0, int g0) {
+    for (int q = t; q < M * GK; q += kThreads) {
+      const int p = q / GK, gg = q - p * GK, g = g0 + gg;
+      const int row = p / C, i = i0 + row, j = j0 + p - row * C;
+      const bool ok = i < N && j < N && g < G && envs[p] != 0.f;
+      eas[p * GS + gg] = Elem<T>::from(
+          ok ? ea((static_cast<size_t>(b) * N + i) * N + j, g, G) : 0.f);
+    }
+  };
+
+  // Software pipeline: the next tile's ea copy is in flight while this tile
+  // computes; its env and x from the end of this tile's (2), their only
+  // reader.
+  if (ntiles > 0) {
+    if (P.copy) issue_ea(0);
+    issue_env_x(0);
+  }
+  for (int tau = 0; tau < ntiles; ++tau) {
+    int b, i0, j0, ch;
+    tile_at(tau, b, i0, j0, ch);
+    const bool last = ch == P.chunks - 1;
+    cp_async_wait_all();
+    // this tile's copies landed; the previous tile has read eas, ss and red.
+    // The vote: does any pair of the tile lie inside the cutoff?
+    const int any = __syncthreads_or(t < M && envs[t] != 0.f);
+    CFCONV_MARK(8);
+    if (!any) {   // every pair adds 0: the rows' sums stand as they are
+      if (tau + 1 < ntiles) {
+        if (P.copy) issue_ea(tau + 1);
+        issue_env_x(tau + 1);
+      }
+      for (int q = t; q < R * FP; q += kThreads) {
+        const int row = q / FP, f = q - row * FP;
+        const float tot = ch == 0 ? 0.f : accs[q];
+        accs[q] = tot;
+        if (last && i0 + row < N && f < F)
+          out[(static_cast<size_t>(b) * N + i0 + row) * F + f] = tot;
+      }
+      CFCONV_COUNT(15);
+      CFCONV_MARK(9);
+      continue;
+    }
+    // the warp's 16 pairs: any inside the cutoff?
+    const bool live = __any_sync(0xffffffffu, envs[m0 + (lane & 15)] != 0.f);
+    if (P.copy) {
+      // ea from the copy (K5: the smearing, built here); row r of the copy
+      // holds row i0 + r's pairs from column j0
+      fix_up_ea<M, kFwdCopyBytes>(eas, GS, copy, P.RS, ea, b, N, i0, j0, G, G16, pb,
+                   [&](int p, int& row, int& jj) {
+                     row = p / C;
+                     jj = p - row * C;
+                     return i0 + row < N && j0 + jj < N && envs[p] != 0.f;
+                   });
+    } else {
+      stage_direct(b, i0, j0, 0);
+    }
+    __syncthreads();
+    if (P.copy && tau + 1 < ntiles) issue_ea(tau + 1);
+    CFCONV_MARK(10);
+
+    // (1) pre = ea @ W1 + b1 -> s (to shared memory)
+    float acc[1][8][4];
+    zero(acc);
+    for (int g0 = 0; g0 < G16; g0 += GK) {
+      if (g0 > 0) {   // plans without the copy: the next GK entries of G
+        __syncthreads();
+        stage_direct(b, i0, j0, g0);
+        __syncthreads();
+      }
+      const int K = min(GK, G16 - g0);
+      if (live) {
+        if (P.w_res)
+          frag_gemm<1, 8, false, true>(acc, eas, GS, w1s + g0 * FS, FS, m0, n0, K, 1);
+        else
+          frag_gemm_dev(acc, eas, GS, w1, g0, G, F, m0, n0, K);
+      }
+    }
+    if (live) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float pre = acc[0][nt][e] + b1s[n0 + nt * 8 + c2 + (e & 1)];
+          // bf16 mode rounds s to bf16 next: the fast intrinsics (a few f32
+          // ulps) suffice there; f32 mode takes the accurate ones
+          acc[0][nt][e] = kBf16 ? fmaxf(pre, 0.f) + __logf(1.f + __expf(-fabsf(pre))) - kLog2
+                                : ssp(pre);
+        }
+        T* row = ss + (m0 + r) * FS + n0 + nt * 8 + c2;
+        Elem<T>::store2(row, acc[0][nt][0], acc[0][nt][1]);
+        Elem<T>::store2(row + 8 * FS, acc[0][nt][2], acc[0][nt][3]);
+      }
+    }
+    __syncthreads();
+    CFCONV_MARK(11);
+
+    // (2) wf = s @ W2 + b2, folded at once into the warp's part of out:
+    // sum over its 16 columns j of (wf + b2) env x
+    if (live) {
+      zero(acc);
+      if (P.w_res)
+        frag_gemm<1, 8, false, true>(acc, ss, FS, w2s, FS, m0, n0, FP, 1);
+      else
+        frag_gemm_dev(acc, ss, FS, w2, 0, F, F, m0, n0, FP);
+      const float env_lo = envs[m0 + r], env_hi = envs[m0 + r + 8];
+      const float* x_lo = xs + (jw + r) * XS;
+      const float* x_hi = x_lo + 8 * XS;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = n0 + nt * 8 + c2 + e;
+          float v = ((acc[0][nt][e] + b2s[col]) * env_lo) * rnd(x_lo[col], kBf16) +
+                    ((acc[0][nt][2 + e] + b2s[col]) * env_hi) * rnd(x_hi[col], kBf16);
+          v += __shfl_xor_sync(0xffffffffu, v, 4);
+          v += __shfl_xor_sync(0xffffffffu, v, 8);
+          v += __shfl_xor_sync(0xffffffffu, v, 16);
+          if (lane < 4) red[rw * FP + col] = v;
+        }
+      }
+    } else {
+      for (int c = lane; c < 64; c += 32) red[rw * FP + n0 + c] = 0.f;
+    }
+    __syncthreads();
+    if (tau + 1 < ntiles) issue_env_x(tau + 1);
+    CFCONV_MARK(12);
+
+    // out[b, i, :]: the row-warps of each row in order, then the chunks
+    for (int q = t; q < R * FP; q += kThreads) {
+      const int row = q / FP, f = q - row * FP;
+      float v = 0.f;
+      for (int k = row * (C / 16); k < (row + 1) * (C / 16); ++k) v += red[k * FP + f];
+      const float tot = ch == 0 ? v : accs[q] + v;
+      accs[q] = tot;
+      if (last && i0 + row < N && f < F)
+        out[(static_cast<size_t>(b) * N + i0 + row) * F + f] = tot;
+    }
+    CFCONV_MARK(13);
+  }
+}
+
+template <typename Src, typename T, int CW>
+int launch_fwd_t(Src ea, const float* env, const float* x, const float* w1, const float* b1,
+                 const float* w2, const float* b2, float* out, int B, int N, int G, int F,
+                 int sms, cudaStream_t s) {
+  const FwdPlan P = fwd_plan(N, G, F, sizeof(T), Src::pair_bytes(G));
+  if (P.bytes > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = cfconv_fwd_kernel<Src, T, CW>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(P.bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // persistent blocks: as many as are resident at once on the ``sms`` SMs,
+  // at most one per unit.  The residency query runs once per instantiation
+  // and shared-memory size, kept as bytes << 32 | blocks per SM.
+  static std::atomic<unsigned long long> resident_for{0};
+  unsigned long long known = resident_for.load(std::memory_order_relaxed);
+  int per_sm = static_cast<int>(known & 0xffffffffull);
+  if ((known >> 32) != P.bytes) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, P.bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    per_sm = per_sm > 0 ? per_sm : 1;
+    resident_for.store(static_cast<unsigned long long>(P.bytes) << 32 | per_sm,
+                       std::memory_order_relaxed);
+  }
+  const long long units = static_cast<long long>(B) * P.tiles;
+  const long long resident = static_cast<long long>(per_sm) * sms;
+  const int blocks = static_cast<int>(units < resident ? units : resident);
+  kernel<<<blocks, kThreads, P.bytes, s>>>(ea, env, x, w1, b1, w2, b2, out, B, N, G, F);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Src>
+int launch_fwd(Src ea, const float* env, const float* x, const float* w1, const float* b1,
+               const float* w2, const float* b2, float* out, int B, int N, int G, int F,
+               int bf16, int sms, cudaStream_t s) {
+  const int fp = fwd_plan(N, G, F, bf16 ? 2 : 4, Src::pair_bytes(G)).FP;
+#define CFCONV_FWD(T, CW) \
+  return launch_fwd_t<Src, T, CW>(ea, env, x, w1, b1, w2, b2, out, B, N, G, F, sms, s)
+  if (bf16) {
+    if (fp == 64) CFCONV_FWD(__nv_bfloat16, 1);
+    if (fp == 128) CFCONV_FWD(__nv_bfloat16, 2);
+    if (fp == 256) CFCONV_FWD(__nv_bfloat16, 4);
+  } else {
+    if (fp == 64) CFCONV_FWD(float, 1);
+    if (fp == 128) CFCONV_FWD(float, 2);
+    if (fp == 256) CFCONV_FWD(float, 4);
+  }
+#undef CFCONV_FWD
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
-// Shared memory each launch needs, for the wrapper's checks (K5's launches
-// stage the same tiles as K2's and need the same).
-extern "C" long long cfconv_fwd_smem(int N, int G, int F, int RG) {
-  return static_cast<long long>(fwd_smem(N, G, F, RG));
+// The forward's plan for the wrapper (ops/cfconv.py::fwd_plan mirrors it),
+// ``pair_bytes`` as in cfconv_bwd_plan: out[0..9] = FP, M, C, R, chunks,
+// row tiles per graph, G16, GK, w_res, copy; returns the shared-memory
+// bytes, or -1 where F > 256.
+extern "C" long long cfconv_fwd_plan(int N, int G, int F, int bf16, int pair_bytes, int* out) {
+  const FwdPlan P = fwd_plan(N, G, F, bf16 ? 2 : 4, pair_bytes);
+  if (P.FP == 0) return -1;
+  const int v[10] = {P.FP, P.M, P.C, P.R, P.chunks, P.tiles, P.G16, P.GK, P.w_res, P.copy};
+  for (int k = 0; k < 10; ++k) out[k] = v[k];
+  return static_cast<long long>(P.bytes);
 }
 
 // The backward's plan for the wrapper (ops/cfconv.py::bwd_plan mirrors it),
@@ -964,18 +1352,21 @@ extern "C" long long cfconv_bwd_plan(int N, int G, int F, int bf16, int pair_byt
   return static_cast<long long>(P.bytes);
 }
 
-// out [B, N, F]; ea is bf16 if ea_bf16 != 0, else f32.  Needs F % 4 == 0
-// and RG * F <= 1024.
+// out [B, N, F]; ea is bf16 if ea_bf16 != 0, else f32; ``sms`` the card's
+// SM count.  Needs F % 4 == 0, F <= 256 and the plan's shared memory within
+// the limit.
 extern "C" int cfconv_fwd(const void* ea, const float* env, const float* x,
                           const float* w1, const float* b1, const float* w2,
                           const float* b2, float* out, int B, int N, int G,
-                          int F, int RG, int ea_bf16, int bf16, void* stream) {
+                          int F, int ea_bf16, int bf16, int sms, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t pairs = static_cast<size_t>(B) * N * N;
   if (ea_bf16)
-    return launch_fwd(EaRead<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(ea), 0},
-                      env, x, w1, b1, w2, b2, out, B, N, G, F, RG, bf16, s);
-  return launch_fwd(EaRead<float>{static_cast<const float*>(ea), 0}, env, x, w1, b1,
-                    w2, b2, out, B, N, G, F, RG, bf16, s);
+    return launch_fwd(EaRead<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(ea),
+                                            pairs * G * sizeof(__nv_bfloat16)},
+                      env, x, w1, b1, w2, b2, out, B, N, G, F, bf16, sms, s);
+  return launch_fwd(EaRead<float>{static_cast<const float*>(ea), pairs * G * sizeof(float)},
+                    env, x, w1, b1, w2, b2, out, B, N, G, F, bf16, sms, s);
 }
 
 // dx [B, N, F], dw1 [G, F], db1 [F], dw2 [F, F], db2 [F]; ea as in
@@ -1005,11 +1396,12 @@ extern "C" int cfconv_bwd(const void* ea, const float* env, const float* x,
 // -0.5 / step^2 come from the wrapper as f32.
 extern "C" int cfconv_rbf_fwd(const float* dist, const float* env, const float* x,
                               const float* w1, const float* b1, const float* w2,
-                              const float* b2, float* out, int B, int N, int G,
-                              int F, int RG, float start, float step, float coeff,
-                              int bf16, void* stream) {
-  return launch_fwd(EaSmear{dist, start, step, coeff, 0}, env, x, w1, b1, w2, b2, out,
-                    B, N, G, F, RG, bf16, static_cast<cudaStream_t>(stream));
+                              const float* b2, float* out, int B, int N, int G, int F,
+                              float start, float step, float coeff, int bf16, int sms,
+                              void* stream) {
+  const size_t pairs = static_cast<size_t>(B) * N * N;
+  return launch_fwd(EaSmear{dist, start, step, coeff, pairs * sizeof(float)}, env, x, w1, b1,
+                    w2, b2, out, B, N, G, F, bf16, sms, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int cfconv_rbf_bwd(const float* dist, const float* env, const float* x,
@@ -1024,3 +1416,14 @@ extern "C" int cfconv_rbf_bwd(const float* dist, const float* env, const float* 
                     w2, b2, g, dx, dw1, db1, dw2, db2, part, B, N, G, F, bf16, blocks,
                     static_cast<cudaStream_t>(stream));
 }
+
+#ifdef CFCONV_PROFILE
+// The phase clocks (benchmarks/profile_cfconv.py): read, and reset to zero.
+extern "C" int cfconv_phase_read(unsigned long long* out) {
+  return static_cast<int>(cudaMemcpyFromSymbol(out, g_cfconv_phase, sizeof(g_cfconv_phase)));
+}
+extern "C" int cfconv_phase_reset() {
+  static unsigned long long zeros[kProfileBlocks * 16];
+  return static_cast<int>(cudaMemcpyToSymbol(g_cfconv_phase, zeros, sizeof(zeros)));
+}
+#endif

@@ -9,13 +9,15 @@ Counterpart of ``moleculesde_tpu/ops/cfconv.py::fused_cfconv``, forward
 and backward.  On a CUDA tensor the wrappers launch the hand-written
 kernels of ``csrc/cfconv.cu``, which replace the TPU kernels
 ``_fwd_kernel`` (``pallas_call`` at ``ops/cfconv.py:212``) and
-``_bwd_kernel`` (l.228): both are arithmetic-bound; the backward
-recomputes the filter instead of reading it, on the tensor cores in bf16
-mode, in persistent blocks over (graph, column tile) units whose plan
-:func:`bwd_plan` states (the source's header says more).  Neither puts a
-cap on N.  On a CPU tensor they take :func:`fused_cfconv_plain` and
-:func:`fused_cfconv_bwd_plain`, which round to bf16 where the TPU kernel
-rounds.
+``_bwd_kernel`` (l.228).  Both recompute the filter instead of reading
+it, on the tensor cores in bf16 mode, in persistent blocks that stage the
+weights once: the forward over (graph, row tile) units, each summing its
+output rows over all columns j in chunks and skipping tiles with no pair
+inside the cutoff (plan: :func:`fwd_plan`); the backward over (graph,
+column tile) units (plan: :func:`bwd_plan`).  The source's header says
+more.  Neither puts a cap on N.  On a CPU tensor they take
+:func:`fused_cfconv_plain` and :func:`fused_cfconv_bwd_plain`, which round
+to bf16 where the TPU kernel rounds.
 
 K5, :func:`fused_cfconv_rbf`, is the same convolution from the raw
 distances ``dist`` [B, N, N]: counterpart of ``fused_cfconv_rbf``
@@ -131,11 +133,17 @@ def _check_kernel_inputs(ea, env, x, w1, b1, w2, b2, g=None, rbf: bool = False):
     tensors = {first: ea, "env": env, "x": x, "w1": w1, "b1": b1, "w2": w2, "b2": b2}
     if g is not None:
         tensors["g"] = g
+    # the kernels copy ea / dist, x and g in 16-byte pieces and env in 4-byte
+    # ones; they read the weights and biases element by element
+    align = {first: 16, "x": 16, "g": 16, "env": 4}
     for name, t in tensors.items():
         if t.device != x.device or not t.is_cuda:
             raise ValueError(f"fused_cfconv kernel: {name} must be on {x.device} (CUDA)")
         if not t.is_contiguous():
             raise ValueError(f"fused_cfconv kernel: {name} must be contiguous")
+        if t.data_ptr() % align.get(name, 1):
+            raise ValueError(f"fused_cfconv kernel: {name} must be {align[name]}-byte "
+                             f"aligned (address {t.data_ptr():#x})")
         if t.dtype != torch.float32 and not (name == "ea" and t.dtype == torch.bfloat16):
             raise TypeError(f"fused_cfconv kernel: {name} must be float32"
                             + (" or bfloat16" if name == "ea" else ""))
@@ -158,25 +166,15 @@ def _check_kernel_inputs(ea, env, x, w1, b1, w2, b2, g=None, rbf: bool = False):
     return b, n, gdim, f
 
 
-def _smem(fn_name: str, *args) -> int:
-    fn = getattr(build.load("cfconv"), fn_name)
-    fn.restype = ctypes.c_longlong
-    fn.argtypes = [ctypes.c_int] * len(args)
-    return int(fn(*args))
-
-
-def _row_groups(n: int, gdim: int, f: int) -> int:
-    """Rows per forward block: the most (4, 2, 1) that fit 1024 threads and
-    the shared memory (which does not grow past N = 32)."""
-    for rg in (4, 2, 1):
-        if rg * f <= 1024 and _smem("cfconv_fwd_smem", n, gdim, f, rg) <= SMEM_LIMIT:
-            return rg
-    raise ValueError(f"fused_cfconv kernel: the weights w1 [{gdim}, {f}] and w2 [{f}, {f}] "
-                     f"with one row's tiles do not fit {SMEM_LIMIT} B of shared memory")
-
-
 def _align16(n: int) -> int:
     return (n + 15) // 16 * 16
+
+
+def _copy_row_words(cols: int, pair_bytes: int, piece: int) -> int:
+    """4-byte words of a row of the ea copy in pieces of ``piece`` bytes (the
+    backward 4, the forward 16): the pieces from the one that holds the
+    row's first byte, and one more."""
+    return ((cols * pair_bytes + piece - 1) // piece + 1) * (piece // 4)
 
 
 def bwd_plan(n: int, gdim: int, f: int, bf16: bool, pair_bytes: int) -> dict:
@@ -200,7 +198,7 @@ def bwd_plan(n: int, gdim: int, f: int, bf16: bool, pair_bytes: int) -> dict:
     g16 = -(-gdim // 16) * 16
     esz, pad = (2, 8) if bf16 else (4, 4)
     gs, fs = g16 + pad, fp + pad
-    copy_words = (j * pair_bytes + 3) // 4 + 1     # a row of the ea copy
+    copy_words = _copy_row_words(j, pair_bytes, 4)     # a row of the ea copy
     staged_gx = (ic, j) if fp <= 128 and bf16 else ()   # g and x rows, f32
     smem = sum(_align16(v) for v in (
         g16 * fs * esz, fp * fs * esz, m * gs * esz, m * fs * esz, m * fs * esz,
@@ -223,29 +221,90 @@ def bwd_plan_kernel(n: int, gdim: int, f: int, bf16: bool, pair_bytes: int) -> d
     return dict(zip(("fp", "m", "ic", "j", "chunks", "tiles", "g16"), out), smem=smem)
 
 
+def fwd_plan(n: int, gdim: int, f: int, bf16: bool, pair_bytes: int) -> dict:
+    """The forward kernel's tiling (``csrc/cfconv.cu::fwd_plan``, which the
+    C query ``cfconv_fwd_plan`` returns), ``pair_bytes`` as in
+    :func:`bwd_plan`: F padded to ``fp`` (64, 128 or 256), ``m`` = 128 /
+    (fp / 64) pair rows per tile, ``c`` columns j per chunk (16 where N <=
+    16, else 32), ``r`` = m / c rows i per work unit, ``chunks`` column
+    chunks per unit, ``tiles`` units (row tiles) per graph (B * tiles in
+    all), G padded to ``g16``, ``gk`` entries of G staged at a time,
+    ``w_res`` (W1 and W2 in shared memory), ``copy`` (each tile's ea source
+    copied one tile ahead, ea staged whole) and the shared memory in bytes
+    (``smem``): the first of four plans that fits ``SMEM_LIMIT`` -- weights
+    resident with the copy (the main path), resident with ea in chunks of
+    64, in device memory with the copy, in device memory with chunks (which
+    fits at every G and F <= 256).  None where F > 256.
+
+    Schedule: persistent blocks take units k, k + grid, ..., numbered row
+    tile major (u = row tile * B + b), so every block walks row tiles spread
+    over the rows of many graphs; the tiles a block skips (env zero on every
+    pair: rows past a graph's atoms) are spread over the blocks alike, and
+    no block is left with a run of full tiles."""
+    if f > 256:
+        return None
+    fp = 64 if f <= 64 else 128 if f <= 128 else 256
+    m = 128 // (fp // 64)
+    c = 16 if n <= 16 else 32
+    r = m // c
+    g16 = -(-gdim // 16) * 16
+    esz, pad = (2, 8) if bf16 else (4, 4)
+    for w_res, copy in ((True, True), (True, False), (False, True), (False, False)):
+        gk = g16 if copy or g16 < 64 else 64
+        weights = (g16 * (fp + pad) * esz, fp * (fp + pad) * esz) if w_res else ()
+        copy_bytes = (r * _copy_row_words(c, pair_bytes, 16) * 4,) if copy else ()
+        smem = sum(_align16(v) for v in (
+            *weights, m * (gk + pad) * esz, m * (fp + pad) * esz, c * (fp + 8) * 4, m * 4,
+            fp * 4, fp * 4, (m // 16) * fp * 4, r * fp * 4, *copy_bytes))
+        if smem <= SMEM_LIMIT:
+            break
+    return dict(fp=fp, m=m, c=c, r=r, chunks=-(-n // c), tiles=-(-n // r), g16=g16, gk=gk,
+                w_res=w_res, copy=copy, smem=smem)
+
+
+def fwd_plan_kernel(n: int, gdim: int, f: int, bf16: bool, pair_bytes: int) -> dict:
+    """:func:`fwd_plan` as the CUDA source computes it (``cfconv_fwd_plan``),
+    for the card-side check that the two agree.  Builds the library."""
+    fn = build.load("cfconv").cfconv_fwd_plan
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    out = (ctypes.c_int * 10)()
+    smem = int(fn(n, gdim, f, int(bf16), pair_bytes, ctypes.addressof(out)))
+    if smem < 0:
+        return None
+    plan = dict(zip(("fp", "m", "c", "r", "chunks", "tiles", "g16", "gk", "w_res", "copy"),
+                    out), smem=smem)
+    plan["w_res"], plan["copy"] = bool(plan["w_res"]), bool(plan["copy"])
+    return plan
+
+
 def _launch(ea, env, x, w1, b1, w2, b2, bf16: bool, smear_args=None) -> torch.Tensor:
     """K2's forward, or K5's with ``smear_args`` = (start, stop, G) and
     ``ea`` the distances."""
     b, n, gdim, f = _check_kernel_inputs(ea, env, x, w1, b1, w2, b2,
                                          rbf=smear_args is not None)
+    pair_bytes = 4 if smear_args is not None else gdim * ea.element_size()
+    if fwd_plan(n, gdim, f, bf16, pair_bytes) is None:
+        raise ValueError(f"fused_cfconv forward kernel: F={f} > 256 cannot be staged in "
+                         f"{SMEM_LIMIT} B of shared memory (G={gdim})")
     out = torch.empty((b, n, f), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
-    rg = _row_groups(n, gdim, f)
     ptrs = (ea.data_ptr(), env.data_ptr(), x.data_ptr(), w1.data_ptr(),
             b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr())
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     lib = build.load("cfconv")
     if smear_args is None:
         fn = lib.cfconv_fwd
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        tail = (int(ea.dtype == torch.bfloat16), int(bf16), stream(x))
+        tail = (int(ea.dtype == torch.bfloat16), int(bf16), sms, stream(x))
     else:
         fn = lib.cfconv_rbf_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
-                       + [ctypes.c_int, ctypes.c_void_p])
-        tail = (*smear_constants(*smear_args), int(bf16), stream(x))
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
+                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        tail = (*smear_constants(*smear_args), int(bf16), sms, stream(x))
     fn.restype = ctypes.c_int
-    rc = fn(*ptrs, b, n, gdim, f, rg, *tail)
+    rc = fn(*ptrs, b, n, gdim, f, *tail)
     build.check_launch(rc, fn.__name__)
     if smear_args is None:
         fused_cfconv.launches += 1

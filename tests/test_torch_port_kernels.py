@@ -17,8 +17,8 @@ from moleculesde_tpu_torch.models.score_2d3d import SDEModel2Dto3D
 from moleculesde_tpu_torch.ops.attn_bank import attn_map_bank_kernel, attn_map_bank_kernel_bwd
 from moleculesde_tpu_torch.ops.attn_qk_bank import attn_qk_bank, attn_qk_bank_bwd
 from moleculesde_tpu_torch.ops.cfconv import (
-    bwd_plan, bwd_plan_kernel, fused_cfconv, fused_cfconv_bwd, fused_cfconv_rbf,
-    fused_cfconv_rbf_bwd, smear)
+    bwd_plan, bwd_plan_kernel, fused_cfconv, fused_cfconv_bwd, fused_cfconv_plain,
+    fused_cfconv_rbf, fused_cfconv_rbf_bwd, fwd_plan, fwd_plan_kernel, smear)
 from moleculesde_tpu_torch.ops.fourier import gaussian_smearing
 from moleculesde_tpu_torch.ops.gin_messages import gin_messages, gin_messages_bwd
 from moleculesde_tpu_torch.ops.gin_messages import gin_messages_plain
@@ -300,6 +300,95 @@ def test_fused_cfconv_bwd_plan_matches_kernel(cuda):
                 for pair_bytes in (2 * gdim, 4 * gdim, 4):
                     assert (bwd_plan(n, gdim, f, bf16, pair_bytes)
                             == bwd_plan_kernel(n, gdim, f, bf16, pair_bytes))
+
+
+# (B, N, G, F): F padded to 64 and 128 with 16 / 100 real features, G = 5
+# and 20, N = 200 in seven column chunks; F = 200 (bf16: weights resident,
+# ea in chunks; f32: weights in device memory), G = 300 (ea in chunks) and
+# G = 700 (f32: weights in device memory, ea in chunks)
+FWD_OTHER_PLANS = [(4, 40, 5, 16), (6, 33, 20, 100), (3, 200, 51, 100), (2, 24, 51, 200),
+                   (2, 9, 300, 64), (2, 40, 700, 16)]
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", FWD_OTHER_PLANS)
+def test_fused_cfconv_fwd_kernel_other_plans(cuda, shape, bf16):
+    """The forward on the plans the main path does not take, against the
+    plain version (bars of ``test_fused_cfconv_kernel_matches_plain``)."""
+    ea, env, params, _ = _cfconv_operands(cuda, *shape)
+    ea = ea if bf16 else ea.float()
+    launches = fused_cfconv.launches
+    out = fused_cfconv(ea, env, *params, bf16=bf16, impl="kernel")
+    assert fused_cfconv.launches == launches + 1
+    _close(out, fused_cfconv_plain(ea, env, *params, bf16=bf16), 2e-2 if bf16 else 1e-5)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_fused_cfconv_fwd_kernel_is_deterministic(cuda, bf16):
+    """Two forward runs give the same bits (each output row is summed in one
+    unit, in a fixed order), for K2 and K5."""
+    ea, env, params, _ = _cfconv_operands(cuda, 64, 64, 51, 128)
+    ea = ea if bf16 else ea.float()
+    assert torch.equal(fused_cfconv(ea, env, *params, bf16=bf16),
+                       fused_cfconv(ea, env, *params, bf16=bf16))
+    dist, env, params, _ = _rbf_operands(cuda, 64, 64, 51, 128)
+    kw = dict(start=0.0, stop=10.0, num_gaussians=51, bf16=bf16)
+    assert torch.equal(fused_cfconv_rbf(dist, env, *params, **kw),
+                       fused_cfconv_rbf(dist, env, *params, **kw))
+
+
+def test_fused_cfconv_fwd_plan_matches_kernel(cuda):
+    """The wrapper's plan (ops/cfconv.py::fwd_plan) is the CUDA source's."""
+    for n in (1, 7, 16, 17, 32, 33, 64, 128, 200):
+        for gdim, f in ((51, 128), (5, 16), (100, 64), (51, 200), (300, 64), (700, 16),
+                        (64, 300)):
+            for bf16 in (False, True):
+                for pair_bytes in (2 * gdim, 4 * gdim, 4):
+                    assert (fwd_plan(n, gdim, f, bf16, pair_bytes)
+                            == fwd_plan_kernel(n, gdim, f, bf16, pair_bytes))
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_fused_cfconv_fwd_kernel_zero_env_rows_are_zero(cuda, bf16):
+    """Rows whose env is zero on every pair (past each graph's atoms; one
+    graph empty) come out as exact zeros -- the kernel skips their tiles --
+    and the other rows agree with the plain version."""
+    b, n = 8, 64
+    ea, env, params, _ = _cfconv_operands(cuda, b, n, 51, 128)
+    ea = ea if bf16 else ea.float()
+    atoms = torch.tensor([0, 3, 17, 31, 32, 33, 50, 64], device=cuda)
+    live = torch.arange(n, device=cuda)[None, :] < atoms[:, None]       # [B, N]
+    env = (env * (live[:, :, None] & live[:, None, :])).contiguous()
+    out = fused_cfconv(ea, env, *params, bf16=bf16, impl="kernel")
+    assert torch.equal(out[~live], torch.zeros_like(out[~live]))
+    _close(out, fused_cfconv_plain(ea, env, *params, bf16=bf16), 2e-2 if bf16 else 1e-5)
+
+
+def _offset_copy(t, elements: int = 1):
+    """A contiguous copy of ``t`` starting ``elements`` past an allocation's
+    start, so not 16-byte aligned."""
+    store = torch.empty(elements + t.numel(), dtype=t.dtype, device=t.device)
+    return store[elements:].view_as(t).copy_(t)
+
+
+def test_fused_cfconv_kernel_alignment(cuda):
+    """The kernels read the weights and biases element by element and copy
+    env in 4-byte pieces, so views of them at any offset run, forward and
+    backward; ea, copied in 16-byte pieces, raises by name where it is not
+    16-byte aligned."""
+    ea, env, (x, w1, b1, w2, b2), g = _cfconv_operands(cuda, 2, 24, 51, 128)
+    env_o, w1_o, b1_o, w2_o = (_offset_copy(t) for t in (env, w1, b1, w2))
+    assert all(t.data_ptr() % 16 for t in (env_o, w1_o, b1_o, w2_o))
+    _close(fused_cfconv(ea, env_o, x, w1_o, b1_o, w2_o, b2, bf16=True, impl="kernel"),
+           fused_cfconv_plain(ea, env, x, w1, b1, w2, b2, bf16=True), 2e-2)
+    for k, p in zip(fused_cfconv_bwd(ea, env_o, x, w1_o, b1_o, w2_o, b2, g, bf16=True,
+                                     impl="kernel"),
+                    fused_cfconv_bwd(ea, env, x, w1, b1, w2, b2, g, bf16=True, impl="plain")):
+        _close(k, p, 2e-2)
+    with pytest.raises(ValueError, match="ea must be 16-byte aligned"):
+        fused_cfconv(_offset_copy(ea), env, x, w1, b1, w2, b2, bf16=True, impl="kernel")
+    with pytest.raises(ValueError, match="x must be 16-byte aligned"):
+        fused_cfconv(ea, env, _offset_copy(x), w1, b1, w2, b2, bf16=True, impl="kernel")
 
 
 def test_kernels_refuse_autograd_inputs(cuda):
