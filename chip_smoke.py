@@ -12,8 +12,9 @@ comes out.
 
 Phases (any failure exits non-zero):
   1. the card's name and power limit; build every kernel (one nvcc per source);
-     the CFConv forward's and backward's SASS hold HMMA (their tensor-core
-     products), counted per kernel function;
+     the CFConv forward's and backward's SASS and every bf16 instantiation
+     of K6 hold HMMA (their tensor-core products), counted per kernel
+     function;
   2. kernel phases on the operands each path gives each kernel, in f32 and
      bf16 mode: K1 (GIN message block), K3 (pair block) and K4 (its
      channel-major form) forward on the sampler's operands; K1, K2 (CFConv),
@@ -30,10 +31,15 @@ Phases (any failure exits non-zero):
      smoke run), random weights from the seed.  Launch counts are read
      around that run; then the conditioning is compared with an all-plain
      build of the same weights, and the chain is timed;
-  4. fused chain: the same chain with ``fused=True`` (launches K1 5, K3 1,
-     K6 40), conformers/s against the channel-major chain in turns, and 5
-     f32 steps against the channel-major chain on the same weights and
-     draws (atol 2e-4, rtol 1e-3);
+  4. fused chain: K6's launch plan per n_max (cluster size) and K6 against
+     its plain version also on the chain's operands at ``--n_max 64`` (B=64,
+     variants 1 and 2, bf16 2e-2 and f32 1e-4 of max |plain|), every K6
+     phase two launches bit for bit; n_max 128 refused by the plan, naming
+     its limit; the same chain with ``fused=True`` (launches K1 5, K3 1,
+     K6 40), conformers/s against the channel-major chain in turns, wall
+     and device-busy time under the profiler beside the earlier kernel's,
+     and 5 f32 steps against the channel-major chain on the same weights
+     and draws (atol 2e-4, rtol 1e-3);
   5. pair_cm_direct chain: K4 forward once, K3 never; K4's edge features
      against K3's;
   6. 3D->2D chain: the sampler CLI's models at full width (SchNet 6 x 128,
@@ -42,12 +48,16 @@ Phases (any failure exits non-zero):
      default 100: depth cut).  K7 (attention-map bank) and K8 (q/k nets and
      map bank), forward and backward, against their plain versions on the
      chain's edge-layer 0 and 1 operands in bf16 (3e-3 of max |plain|; K7's
-     f32 maps 1e-4) and f32 (1e-4, operands from the q / k nets in f32);
+     f32 maps 1e-4) and f32 (1e-4, operands from the q / k nets in f32),
+     K8's forward two runs bit for bit, and K8's forward also on the
+     chain's operands at ``--n_max 64`` (both layers and modes, the same
+     bars, bit for bit; the backward refuses N = 64, naming its limit);
      then one counted
      chain per form of the bank ("auto" through the CLI's main: no bank
      kernel; "pallas": K7 240; "fused": K8 240), graphs/s in turns, and 3
      f32 steps of the K7 and K8 chains against the "auto" chain on the same
-     weights and draws (atol 2e-4, rtol 1e-3);
+     weights and draws (atol 2e-4, rtol 1e-3); the "fused" chain's wall and
+     device-busy time under the profiler beside the earlier kernel's;
   7. training path: the pretraining CLI's models at full width (defaults:
      GIN 5 x 300, SchNet 6 x 128, both SDE models, InfoNCE, bf16) on B=128
      synthetic molecules, n_max 32; one warm-up step, then five timed steps
@@ -99,12 +109,12 @@ import time
 
 import torch
 
-from moleculesde_tpu_torch.benchmarks.timing import device_ms, median_ms
+from moleculesde_tpu_torch.benchmarks.timing import device_ms, median_ms, profiled_ms
 from moleculesde_tpu_torch.ops.attn_bank import (
     attn_map_bank_bwd_plain, attn_map_bank_kernel, attn_map_bank_kernel_bwd,
     attn_map_bank_plain)
 from moleculesde_tpu_torch.ops.attn_qk_bank import (
-    attn_qk_bank, attn_qk_bank_bwd, attn_qk_bank_bwd_plain)
+    BWD_N_MAX, attn_qk_bank, attn_qk_bank_bwd, attn_qk_bank_bwd_plain, attn_qk_bank_plain)
 from moleculesde_tpu_torch.ops.cfconv import (
     fused_cfconv, fused_cfconv_bwd, fused_cfconv_bwd_plain, fused_cfconv_rbf,
     fused_cfconv_rbf_bwd, fused_cfconv_rbf_bwd_plain)
@@ -115,7 +125,7 @@ from moleculesde_tpu_torch.ops.pair_block import (
     pair_relu_project_cm, pair_relu_project_cm_bwd, pair_relu_project_cm_bwd_plain,
     pair_relu_project_cm_plain, pair_relu_project_plain)
 from moleculesde_tpu_torch.ops.score_kernel import (
-    score_eval_fused, score_eval_fused_plain, score_param_layout)
+    KERNEL_N_MAX, score_eval_fused, score_eval_fused_plain, score_param_layout, score_plan)
 
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12         # H100 SXM, CUDA cores
@@ -319,6 +329,17 @@ def compare(name, run_k, run_p, tol_rel, floor: float = 1.0):
     return worst, worst_rel
 
 
+def same_bits(name, run):
+    """Two runs of a kernel call give the same bits in every output (launch
+    counts are left as they were)."""
+    saved = [c.launches for c in _counters()]
+    first, second = _tuple(run()), _tuple(run())
+    torch.cuda.synchronize()
+    for c, n in zip(_counters(), saved):
+        c.launches = n
+    check(all(torch.equal(u, v) for u, v in zip(first, second)), f"{name}: two runs differ")
+
+
 def report(name, err, tol_rel, run_k, run_p, nbytes, ops, peak_ops, floor=1.0):
     """Time the kernel call ``run_k`` and the plain call ``run_p`` (CUDA-event
     medians now, device times in :func:`device_time_phase`) and print them
@@ -400,12 +421,17 @@ def sampler_kernel_phases(k1_args, k3_args):
     return results
 
 
-def k6_phases(models, node_2d, batch, dev):
+def k6_phases(models, node_2d, batch, dev, label: str = ""):
     """K6 against its plain version on the fused chain's operands: the
     feature-layout conditioning of each variant's model and prior
-    positions, in f32 and bf16 mode; the error relative to max |plain|."""
+    positions, in f32 and bf16 mode; the error relative to max |plain|;
+    two launches of each bit for bit.  ``label`` tags the results of
+    another n_max than the chain's."""
     results = {}
     b, n = batch.num_graphs, batch.n_max
+    for bf16 in (True, False):
+        print(f"K6 plan at n_max {n}, {'bf16' if bf16 else 'f32'}: {score_plan(n, bf16)} "
+              "(cluster = blocks per molecule)", flush=True)
     for variant, model in models.items():
         with torch.no_grad():
             cond = model.precompute_conditioning(node_2d, batch, layout="feature")
@@ -421,7 +447,7 @@ def k6_phases(models, node_2d, batch, dev):
               f"{args[4].numel()} packed weights", flush=True)
         nbytes, ops = k6_cost(b, n, variant)
         for bf16 in (False, True):
-            name = f"score_eval_fused[v{variant}]" + ("[bf16]" if bf16 else "")
+            name = f"score_eval_fused[v{variant}]" + ("[bf16]" if bf16 else "") + label
             # f32: sums in another order and a warp-shuffle softmax; bf16:
             # the same roundings, plus one bf16 ulp where an f32 value taken
             # in another order lands on the other side of a boundary
@@ -438,7 +464,37 @@ def k6_phases(models, node_2d, batch, dev):
                                        nbytes, ops, PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS,
                                        floor=0.0)
                 results[name]["max_rel_err"] = rel
-                print(f"K6 {name}: max_rel_err={rel:.3e} (of max |plain|)", flush=True)
+                same_bits("K6 " + name, run_k)
+                print(f"K6 {name}: max_rel_err={rel:.3e} (of max |plain|); two launches bit "
+                      "for bit", flush=True)
+    return results
+
+
+def k6_large_n_phases(dev):
+    """K6 past n_max 32: the fused chain's models and operands at ``--n_max
+    64`` (B=64, molecules of 4-64 atoms; the same weights), variants 1 and
+    2, bf16 and f32 at the chain's bars, two launches bit for bit; n_max 128
+    is past the cluster plan and raises in both modes, naming the limit."""
+    from moleculesde_tpu_torch.benchmarks.profile_sampler import PATH_ARGS
+    from moleculesde_tpu_torch.examples import sample_2d_to_3d as cli
+
+    args = cli.get_parser().parse_args(PATH_ARGS + ["--n_max", "64"])
+    batch = cli.make_batch(cli.load_graphs(args), args, dev)
+    model_2d, sde_model = cli.build_models(args, dev)
+    args_v2 = cli.get_parser().parse_args(PATH_ARGS + ["--n_max", "64", "--SDE_2Dto3D_model",
+                                                       "SDEModel2Dto3D_02"])
+    with torch.no_grad():
+        node_2d = model_2d(batch, use_running_average=True)
+    results = k6_phases({1: sde_model, 2: cli.build_models(args_v2, dev)[1]}, node_2d, batch,
+                        dev, "[n64]")
+    for bf16 in (True, False):
+        try:
+            score_plan(128, bf16)
+        except ValueError as e:
+            check(f"n_max <= {KERNEL_N_MAX}" in str(e), f"K6 n_max 128 refusal: {e}")
+            print(f"K6 at n_max 128 ({'bf16' if bf16 else 'f32'}): refused: {e}", flush=True)
+        else:
+            raise PhaseError("K6 takes n_max 128, past its plan")
     return results
 
 
@@ -635,6 +691,7 @@ def fused_chain_path(dev):
         node_2d = model_2d(batch, use_running_average=True)
     results = k6_phases({1: sde_model, 2: cli.build_models(args_v2, dev)[1]}, node_2d,
                         batch, dev)
+    results.update(k6_large_n_phases(dev))
 
     evals = N_STEPS * (CORRECTOR_STEPS + 1)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -666,6 +723,16 @@ def fused_chain_path(dev):
               f"wall_ms={' / '.join(f'{w * 1e3:.2f}' for w in ws)} conformers_per_s="
               f"{' / '.join(f'{b_conf / w:.2f}' for w in ws)} pc_steps_per_s="
               f"{' / '.join(f'{N_STEPS / w:.2f}' for w in ws)}", flush=True)
+    saved = [c.launches for c in _counters()]
+    for _ in range(2):   # the second reading after a warm profiler
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        wall, busy = profiled_ms(lambda: cli.generate(model_2d, sde_model, batch, gen, args,
+                                                      fused=True))
+    for c, n in zip(_counters(), saved):
+        c.launches = n
+    print(f"fused chain under the profiler: wall_ms={wall:.2f} device_busy_ms={busy:.2f}; with "
+          "the one-block-per-molecule K6 (PERF.md section 5, H100, 700 W): wall 29.54-36.94 "
+          "ms, device busy 21.37 ms, K6 17.9 ms of it", flush=True)
 
     # 5 f32 steps, fused against channel-major, same weights and draws
     args32 = cli.get_parser().parse_args(PATH_ARGS + ["--sampler_precision", "float32"])
@@ -796,6 +863,7 @@ def qk_bank_phase(name, qk, ws, g, ds, bf16, tol):
     qd = qk.to(torch.bfloat16 if bf16 else torch.float32)
     peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
     with torch.no_grad():
+        same_bits(name + " fwd", lambda: attn_qk_bank(qd, *ws, ds, bf16=bf16, impl="kernel"))
         out = (report(name + " fwd", worst, tol,
                       lambda: attn_qk_bank(qd, *ws, ds, bf16=bf16, impl="kernel"),
                       lambda: attn_qk_bank(qd, *ws, ds, bf16=bf16, impl="plain"),
@@ -852,6 +920,51 @@ def bank_kernel_phases(layers):
     return results
 
 
+def qk_bank_large_n_phases(dev):
+    """K8's forward past N = 32: the 3D->2D chain's models and operands at
+    ``--n_max 64`` (B=128; the same weights), edge layers 0 (C=2, F=300)
+    and 1 (C=8, F=16), bf16 and f32 against the plain version at the
+    chain's bars, two runs bit for bit; the backward refuses N = 64, naming
+    its limit."""
+    from moleculesde_tpu_torch.benchmarks.profile_sampler_3d2d import PATH_ARGS, path_batch
+    from moleculesde_tpu_torch.examples import sample_3d_to_2d as cli
+
+    args = cli.get_parser().parse_args(PATH_ARGS + ["--n_max", "64"])
+    batch = path_batch(args, dev)
+    layers = bank_operands(*cli.build_models(args, dev, attn_impl="auto"), batch, dev)
+    results = {}
+    for li, ops in enumerate(layers):
+        qk, ws, ds = ops["qk"], ops["ws"], ops["ds"]
+        for bf16 in (True, False):
+            sfx = f"[L{li}]" + ("" if bf16 else "[f32]") + "[n64]"
+            tol = 3e-3 if bf16 else 1e-4
+            qd = qk.to(torch.bfloat16 if bf16 else torch.float32)
+            with torch.no_grad():
+                run_k = lambda q=qd, w=ws, d=ds, b=bf16: attn_qk_bank(  # noqa: E731
+                    q, *w, d, bf16=b, impl="kernel")
+                run_p = lambda q=qd, w=ws, d=ds, b=bf16: attn_qk_bank_plain(  # noqa: E731
+                    q, *w, d, bf16=b)
+                err, rel = compare("K8 attn_qk_bank fwd" + sfx, run_k, run_p, tol, floor=0.0)
+                same_bits("K8 attn_qk_bank fwd" + sfx, run_k)
+                results["attn_qk_bank" + sfx] = report(
+                    "K8 attn_qk_bank fwd" + sfx, err, tol, run_k, run_p, *k8_cost(qd, ws, ds),
+                    PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS, floor=0.0)
+                results["attn_qk_bank" + sfx]["max_rel_err"] = rel
+            print(f"K8 attn_qk_bank fwd{sfx}: qk {tuple(qk.shape)}, W1 {tuple(ws[0].shape)}; "
+                  f"relative error {rel:.3e} (tolerance {tol:g}); two runs bit for bit",
+                  flush=True)
+    qk, ws, ds = layers[1]["qk"], layers[1]["ws"], layers[1]["ds"]
+    g = torch.zeros(qk.shape[0], ws[0].shape[0], qk.shape[1], qk.shape[1], device=dev)
+    try:
+        attn_qk_bank_bwd(qk, *ws, g, ds, impl="kernel")
+    except ValueError as e:
+        check(f"backward kernel: needs N <= {BWD_N_MAX}" in str(e), f"K8 backward refusal: {e}")
+        print(f"K8 backward at N=64: refused: {e}", flush=True)
+    else:
+        raise PhaseError("K8's backward takes N = 64, past its cap")
+    return results
+
+
 def chain_3d2d_path(dev):
     """Phase 6: 3D->2D graph generation at full width in three forms of one
     chain (the bank's ``attn_impl``: "auto", "pallas" = K7, "fused" = K8):
@@ -869,6 +982,7 @@ def chain_3d2d_path(dev):
     batch = path_batch(args, dev)
     models = {form: cli.build_models(args, dev, attn_impl=form) for form in FORMS}
     results = bank_kernel_phases(bank_operands(*models["auto"], batch, dev))
+    results.update(qk_bank_large_n_phases(dev))
     layers = models["auto"][1].edge_score_network.num_layers
     b, n, c = batch.num_graphs, batch.n_max, models["auto"][1].num_class_x
     flags = batch.node_mask.reshape(b, n)
@@ -910,6 +1024,15 @@ def chain_3d2d_path(dev):
               f"{' / '.join(f'{w * 1e3:.2f}' for w in ws_)} graphs_per_s="
               f"{' / '.join(f'{BATCH / w:.2f}' for w in ws_)} pc_steps_per_s="
               f"{' / '.join(f'{N_STEPS / w:.2f}' for w in ws_)}", flush=True)
+    saved = [cnt.launches for cnt in _counters()]
+    for _ in range(2):   # the second reading after a warm profiler
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        wall, busy = profiled_ms(lambda: cli.generate(*models["fused"], batch, gen, args))
+    for cnt, v in zip(_counters(), saved):
+        cnt.launches = v
+    print(f"3D->2D chain [fused] under the profiler: wall_ms={wall:.2f} device_busy_ms="
+          f"{busy:.2f}; with the one-block-per-graph K8 (PERF.md section 5, H100, 700 W): wall "
+          "398.46-559.91 ms, device busy 108.26 ms, K8 24.5 ms of it", flush=True)
 
     # 3 f32 steps: K7 and K8 chains against the eager bank, same weights and draws
     steps = 3
@@ -1541,18 +1664,14 @@ def painn_steps(dev):
     return launches
 
 
-def tensor_core_note(build) -> None:
-    """The CFConv kernels' bf16 products run on the tensor cores: the source
-    issues mma.sync, and the built library's SASS holds HMMA in the forward
-    kernel's functions and in the backward's (counted per function from
-    ``cuobjdump -sass``'s ``Function :`` headers)."""
+def _hmma_per_function(build, source: str) -> dict:
+    """{kernel function: HMMA instructions} of a built library's SASS
+    (``cuobjdump -sass``, split at its ``Function :`` headers)."""
     import shutil
     from pathlib import Path
 
-    src = (build.CSRC_DIR / "cfconv.cu").read_text()
-    check("mma.sync.aligned.m16n8k16" in src, "cfconv.cu issues no mma.sync")
     cuobjdump = shutil.which("cuobjdump") or str(Path(build.nvcc_path()).parent / "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(build._library_path("cfconv"))],
+    sass = subprocess.run([cuobjdump, "-sass", str(build._library_path(source))],
                           capture_output=True, text=True, timeout=300).stdout
     per_function, current = {}, None
     for ln in sass.splitlines():
@@ -1561,6 +1680,18 @@ def tensor_core_note(build) -> None:
             per_function[current] = 0
         elif current is not None and "HMMA" in ln:
             per_function[current] += 1
+    return per_function
+
+
+def tensor_core_note(build) -> None:
+    """The bf16 products of the CFConv kernels and of K6 run on the tensor
+    cores: each source issues mma.sync, and the built library's SASS holds
+    HMMA in the CFConv forward's and backward's functions and in every bf16
+    instantiation of K6 (``score_eval_kernel<true, S>``)."""
+    for source in ("cfconv", "score_eval"):
+        src = (build.CSRC_DIR / f"{source}.cu").read_text()
+        check("mma.sync.aligned.m16n8k16" in src, f"{source}.cu issues no mma.sync")
+    per_function = _hmma_per_function(build, "cfconv")
     counts = {}
     for kernel in ("cfconv_fwd_kernel", "cfconv_bwd_kernel"):
         fns = {name: k for name, k in per_function.items() if kernel in name}
@@ -1570,6 +1701,14 @@ def tensor_core_note(build) -> None:
               f"instantiations)", flush=True)
     check(counts["cfconv_fwd_kernel"] > 0, "the CFConv forward's SASS holds no HMMA instruction")
     check(counts["cfconv_bwd_kernel"] > 0, "the CFConv backward's SASS holds no HMMA instruction")
+    per_function = _hmma_per_function(build, "score_eval")
+    k6 = {name: k for name, k in per_function.items() if "score_eval_kernel" in name}
+    bf16_fns = {name: k for name, k in k6.items() if "score_eval_kernelILb1E" in name}
+    print(f"score_eval SASS: {sum(k6.values())} HMMA over {len(k6)} functions; the bf16 "
+          f"instantiations: {sorted(bf16_fns.values())}", flush=True)
+    check(len(bf16_fns) == 2 and all(k > 0 for k in bf16_fns.values()),
+          f"a bf16 instantiation of K6 holds no HMMA instruction ({bf16_fns})")
+    check(sum(k6.values()) == sum(bf16_fns.values()), "K6's f32 mode issues HMMA")
 
 
 def main() -> int:
@@ -1647,7 +1786,11 @@ def main() -> int:
             extra = {"max_rel_err": r["max_rel_err"],
                      "variant_2": {mode: {k: fused_results["score_eval_fused[v2]" + sfx][k]
                                           for k in k6_keys}
-                                   for mode, sfx in (("f32", ""), ("bf16", "[bf16]"))}}
+                                   for mode, sfx in (("f32", ""), ("bf16", "[bf16]"))},
+                     "n_max_64": {f"v{v}": {mode: {k: fused_results[
+                         f"score_eval_fused[v{v}]" + sfx + "[n64]"][k] for k in k6_keys}
+                         for mode, sfx in (("f32", ""), ("bf16", "[bf16]"))} for v in (1, 2)},
+                     "cluster_by_n_max": {n: score_plan(n, True)["cluster"] for n in (32, 64)}}
         else:
             r, f32 = train_results[name], train_results[name + "[f32]"]
             extra = {}
@@ -1680,6 +1823,11 @@ def main() -> int:
              "rejected/attn_qk_bank.py:232", "pretrain_fused_bank_2_steps")):
         res = lambda sfx: {k: bank_results[name + sfx][k]  # noqa: E731
                            for k in keys + ("max_rel_err",)}
+        extra = {}
+        if name == "attn_qk_bank":   # the forward past N = 32
+            extra["n_max_64"] = {f"layer_{li}": {"bf16": res(f"[L{li}][n64]"),
+                                                 "f32": res(f"[L{li}][f32][n64]")}
+                                 for li in (1, 0)}
         kernels.append({
             "name": name, "route": "cuda", "source": "moleculesde_tpu_torch/csrc/" + source,
             "replaces": "moleculesde_tpu/ops/" + replaces,
@@ -1687,7 +1835,8 @@ def main() -> int:
             "launches_by_path": {path: counts[counter.__name__]
                                  for path, counts in runs.items()},
             **res("[L1]"), "library_ms": None, "mode": "bf16", "operands": "edge layer 1",
-            "f32": res("[L1][f32]"), "layer_0": {"bf16": res("[L0]"), "f32": res("[L0][f32]")}})
+            "f32": res("[L1][f32]"), "layer_0": {"bf16": res("[L0]"), "f32": res("[L0][f32]")},
+            **extra})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

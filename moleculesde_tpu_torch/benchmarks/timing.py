@@ -4,6 +4,7 @@ profile scripts."""
 from __future__ import annotations
 
 import statistics
+import time
 
 import torch
 
@@ -40,3 +41,21 @@ def device_ms(fn, reps: int = 10) -> float:
     ms = median_ms(graph.replay, warmup=2, reps=10) / reps
     del graph
     return ms
+
+
+def profiled_ms(fn):
+    """(wall ms, device-busy ms) of one call of ``fn`` under
+    ``torch.profiler`` (CPU and CUDA activities): the host clock around the
+    call and its synchronize, and the sum of the device times of its CUDA
+    events (one stream), as the profile scripts count them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_us = sum(e.device_time for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return wall_ms, busy_us / 1e3

@@ -11,38 +11,60 @@
 // (pallas_call at l.388, entry score_eval_fused l.353).
 //
 // What bounds it on this card: as separate operators an evaluation is ~550
-// launches, and the PC chain was bound by the host issuing them (the device
-// idle 84-92% of the chain).  In one launch the work itself is what is
-// left: ~54 MFLOP per molecule (3.5 GFLOP at B=64, N=32), of which the
-// per-pair products dominate (the two coefficient embeddings [128 -> 32],
-// the projection MLP, the edge projection of each GAT layer [32 -> 32] and
-// each basis module's [32 -> 128] edge MLP), against ~9 MB of compulsory
-// traffic.  Arithmetic-bound: ~0.05 ms on the CUDA cores' f32 rate, the
-// rate this first version runs at in both modes (no tensor cores yet).
+// launches, and the PC chain was bound by the host issuing them.  In one
+// launch the work itself is left: ~54 MFLOP per molecule at N = 32 (3.5
+// GFLOP at B=64), ~95% of it per-pair products (the two coefficient
+// embeddings [128 -> 32], the projection MLP, variant 2's input MLP, the
+// edge projection of each GAT layer [32 -> 32], each basis module's edge
+// MLP [32 -> 128] and its output [128 -> 3]), against ~9 MB of compulsory
+// traffic.  Operation-bound: the tensor cores in bf16 mode, the CUDA cores
+// in f32 mode.
 //
-// Design.  One block per molecule: each GAT layer needs every node's new
-// state before the next starts, and a molecule's whole working set fits in
-// one SM's shared memory.  At B=64 that is 64 of the 132 SMs.  512 threads
-// = 16 warps; every pair phase maps a warp to a destination d and a lane to
-// a source s (N <= 32), so sums over sources are warp shuffles.
-// - The masked edge features [N*N, 32] are the only large tensor: computed
-//   once per evaluation and kept in shared memory for the whole of it
-//   (f32 147 KB, bf16 80 KB), rows [d][s] padded to 36 f32 / 40 bf16 so the
-//   32 lanes' 16-byte row reads hit distinct banks.
-// - The frame basis is recomputed from the 96 position floats wherever it
-//   is needed instead of storing nine [N, N] planes.
-// - Attention streams over pairs: each lane forms its e2[s, d, :] row, the
-//   8 head logits, its softmax weight (warp max / sum; a destination with
-//   no valid source gets alpha = 0, as the TPU kernel's mask multiply
-//   gives) and its message terms in registers; a reduce-scatter of 31
-//   shuffles leaves the message of channel c in lane c, which then does
-//   LayerNorm and the FFN with warp reductions.  e2, alpha and the
-//   [N*N, 128] basis-MLP slab never reach memory.
-// - Each phase's weights are staged into one 37 KB shared buffer before it.
-// - Registers: 512 threads leave at most 128 per thread; the heaviest
-//   phase holds two 32-float rows.
-// The batch-wide order of every sum is fixed, so results are the same on
-// every run.
+// Design.
+// - A thread-block cluster per molecule (cudaLaunchKernelEx): 2 blocks at
+//   N <= 32, 4 at N <= 64 (ops/score_kernel.py::score_plan), so that B=64
+//   molecules fill 128 or 256 SMs' worth of blocks.  Block r of a cluster
+//   owns destinations [r * D, (r + 1) * D) and holds their masked edge
+//   features ("the slab", rows [d][s] for every source s) in its shared
+//   memory for the whole evaluation: the slab is the only large tensor.
+//   Every block forms k and v of all N nodes, and q and skip of its own
+//   destinations, itself (cheap); after each GAT layer it writes its destinations' new node state into every
+//   peer's shared memory (distributed shared memory,
+//   cluster.map_shared_rank) and the cluster synchronises.  The node state
+//   is double-buffered, so one cluster.sync per layer separates a layer's
+//   reads from the next layer's remote writes.  The basis modules and the
+//   output rows belong to the owning block: a score row is summed in one
+//   block in a fixed order, and two runs agree bit for bit.
+// - A warp takes one destination d at a time, a lane one source s (s = 32j
+//   + lane for the j-th chunk of 32 sources, N <= 64: two chunks); sums over
+//   sources are warp shuffles, and the softmax over sources takes its max
+//   and sum over every chunk.  A lane forms its pair's frame, logits,
+//   softmax weight and message terms in registers; a reduce-scatter of 31
+//   shuffles leaves the message of channel c in lane c, which then runs
+//   LayerNorm and the FFN with warp reductions.
+// - bf16 mode: the per-pair products run on the tensor cores, mma.sync
+//   m16n8k16 bf16 -> f32 with the warp's 32 pairs as M and the output
+//   channels as N.  Operands come from shared memory through ldmatrix: the
+//   Fourier features, embeddings and silu outputs a lane writes into its
+//   warp's 4.5 KB tile, the slab rows, and the weights staged once per
+//   phase as bf16 tiles.  Products whose result the lanes need as rows go
+//   back through the same tile (f32); the basis edge MLP's silu output
+//   feeds basis_out (3 outputs, padded to 8) straight from the accumulator
+//   fragments.  Both operands were already rounded to bf16 by the kernel
+//   this replaces, so the products are the same and only the order of the
+//   f32 sums changes.  silu takes __expf / __fdividef (its output is
+//   rounded to bf16); sincosf stays accurate (its arguments c * W * 2 pi
+//   are not small).
+// - f32 mode: every product on the CUDA cores as per-lane FMA rows (no
+//   TF32), the slab rows 128 B with their 16-byte chunks XOR-swizzled by
+//   row so that the lanes' row reads hit distinct banks.
+// - 512 threads at N <= 32, 256 at N <= 64 (the second source chunk holds
+//   more registers per lane, and shared memory is full).
+// - The frame basis is recomputed from the position floats wherever it is
+//   needed instead of storing nine [N, N] planes.
+// - Each phase's weights are staged into one 37 KB shared buffer before it,
+//   by asynchronous 16-byte copies, all in flight at once (bf16 mode rounds
+//   them in place; its product weights become bf16 tiles).
 //
 // bf16 != 0 rounds where the TPU kernel rounds (its mm() casts both
 // operands, so the products with its selector matrices round too): every
@@ -57,33 +79,102 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cooperative_groups.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
+
+constexpr int kPhaseSlots = 32;   // PHASE_PROFILE marks per block
+
+// With -DPHASE_PROFILE (benchmarks/profile_score_bank.py): thread 0 of each
+// block stamps %globaltimer at the marks into g_phase[block][slot].
+#ifdef PHASE_PROFILE
+__device__ long long* g_phase = nullptr;
+extern "C" int set_phase_profile(long long* p) {
+  return static_cast<int>(cudaMemcpyToSymbol(g_phase, &p, sizeof(p)));
+}
+#define PHASE_MARK(k)                                                          \
+  do {                                                                         \
+    if (g_phase && threadIdx.x == 0) {                                         \
+      long long t_;                                                            \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));                  \
+      g_phase[blockIdx.x * kPhaseSlots + (k)] = t_;                            \
+    }                                                                          \
+  } while (0)
+#else
+#define PHASE_MARK(k) ((void)(k))
+#endif
 
 namespace {
 
-constexpr int kN = 32;          // n_max the kernel takes (at most)
 constexpr int kH = 32;          // hidden width
 constexpr int kHeads = 8;
 constexpr int kCHead = kH / kHeads;
 constexpr int kCD = 128;        // basis-MLP width (hidden_coff_dim)
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
+constexpr int kMaxS = 2;        // chunks of 32 sources a lane takes (N <= 64)
+constexpr int kMaxCluster = 8;
 constexpr int kMaxSegments = 128;
 constexpr unsigned kFull = 0xffffffffu;
 
 constexpr int kNR = kH + 1;     // q / k / v / skip row stride (bank-conflict free)
 constexpr int kHPR = kCD + 1;   // basis-MLP node part row stride
-constexpr int kMR = kN + 1;     // transposed mask row stride
+constexpr int kWBuf = 9472;     // floats: the largest phase's weights (f32 variant 2 features)
+constexpr int kScratch = 4608;  // bytes of a warp's tile (bf16 mode)
+constexpr int kAT = 72;         // the tile as bf16 A operand: [32][72]
+constexpr int kCT = 36;         // the tile as f32 rows: [32][36]
+constexpr int kB32 = 40;        // bf16 weight tiles [K][32], row stride
+constexpr int kB128 = 136;      // [K][128]
+constexpr int kB8 = 24;         // [K][8] (basis_out, 3 columns used)
+constexpr int kSlabF32Row = 32;     // floats, 16-byte chunks swizzled
+constexpr int kSlabBf16Row = 40;    // bf16 values (80 bytes)
 
-// shared memory, after the edge slab (in floats)
-constexpr int kWBuf = 9472;     // the largest phase's weights (variant 2 features)
-constexpr int kNodeQ = 4 * kN * kNR;   // q, k, v, skip; the basis phase's hp aliases it
-constexpr int kFloats = kWBuf + kN * kH + kNodeQ + kWarps * kH + 128 + kN * kMR + kN + 128;
-
-static_assert(kN * kHPR <= kNodeQ, "hp must fit in the q/k/v/skip area");
+// threads per block: 16 warps at N <= 32; 8 with two source chunks, which
+// hold more per lane (and, in bf16 mode, more shared memory)
+__host__ __device__ constexpr int threads_for(bool bf16, int S) {
+  return S > 1 ? 256 : 512;
+}
 
 struct Offsets {
   int v[kMaxSegments];
 };
+
+__host__ __device__ constexpr int align16(int v) { return (v + 15) & ~15; }
+
+// byte offsets of the shared-memory regions; ops/score_kernel.py::
+// score_layout counts the same
+struct Layout {
+  int slab, wbuf, xs, node, scratch, fs, pos, mask, cnt, grad, total;
+};
+
+__host__ __device__ inline Layout make_layout(int N, int nd, bool bf16) {
+  const int nsp = 32 * ((N + 31) / 32);
+  const int warps = threads_for(bf16, nsp / 32) / 32;
+  const int node_floats = 4 * nsp * kNR > nsp * kHPR ? 4 * nsp * kNR : nsp * kHPR;
+  Layout L;
+  int o = 0;
+  L.slab = o;
+  o += align16(nd * nsp * (bf16 ? kSlabBf16Row * 2 : kSlabF32Row * 4));
+  L.wbuf = o;
+  o += kWBuf * 4;
+  L.xs = o;
+  o += 2 * nsp * kH * 4;
+  L.node = o;
+  o += align16(node_floats * 4);
+  L.scratch = o;
+  o += bf16 ? warps * kScratch : 0;
+  L.fs = o;
+  o += warps * kH * 4;
+  L.pos = o;
+  o += align16(nsp * 3 * 4);
+  L.mask = o;
+  o += align16(nd * (nsp + 1) * 4);
+  L.cnt = o;
+  o += align16(nd * 4);
+  L.grad = o;
+  o += align16(nd * 3 * 4);
+  L.total = o;
+  return L;
+}
 
 __device__ __forceinline__ float rbf(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -94,15 +185,14 @@ __device__ __forceinline__ float rnd(float v) {
   return BF16 ? rbf(v) : v;
 }
 
-__device__ __forceinline__ float silu(float v) { return v / (1.f + expf(-v)); }
-
-__device__ __forceinline__ unsigned pack_bf16x2(float a, float b) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<unsigned*>(&h);
+template <bool BF16>
+__device__ __forceinline__ float silu(float v) {
+  return BF16 ? __fdividef(v, 1.f + __expf(-v)) : v / (1.f + expf(-v));
 }
 
-__device__ __forceinline__ float2 unpack_bf16x2(unsigned u) {
-  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
+__device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<uint32_t*>(&h);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -140,58 +230,149 @@ __device__ __forceinline__ float reduce_scatter(float (&v)[32], int lane) {
   return v[0];
 }
 
-// the masked edge features, rows [d * kN + s]
-template <bool BF16>
-struct Slab;
+// ---- tensor-core fragments (bf16 mode) -----------------------------------
 
-template <>
-struct Slab<false> {
-  static constexpr int kRow = 36;   // floats
-  static constexpr int kBytes = kN * kN * kRow * 4;
-  __device__ static void store(void* base, int row, const float (&v)[32]) {
-    float4* p = reinterpret_cast<float4*>(static_cast<float*>(base) + row * kRow);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_u32(p)) : "memory");
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// acc[mt][nt] += A[16 mt .. +16, 0:K] @ B[0:K, 8 nt .. +8]: the warp's
+// accumulator fragments (lane l holds rows l/4 and l/4 + 8, columns
+// 2 (l%4) and +1 of each); A row-major [M][lda], B row-major [K][ldb], both
+// bf16 in shared memory with 16-byte aligned rows.
+template <int MT, int NT>
+__device__ __forceinline__ void warp_mma(float (&acc)[MT][NT][4], const __nv_bfloat16* A,
+                                         int lda, const __nv_bfloat16* B, int ldb, int K) {
+  const int lane = threadIdx.x & 31;
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    uint32_t a[MT][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) p[j] = make_float4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
+    for (int mt = 0; mt < MT; ++mt)
+      ldsm_x4(a[mt], A + (mt * 16 + (lane & 15)) * lda + k0 + (lane >> 4) * 8);
+    const int kk = k0 + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+    for (int nt = 0; nt < NT; nt += 2) {
+      uint32_t b[4];
+      if (nt + 1 < NT) {
+        ldsm_x4_t(b, B + kk * ldb + nt * 8 + ((lane >> 4) & 1) * 8);
+      } else {
+        ldsm_x2_t(*reinterpret_cast<uint32_t(*)[2]>(b), B + kk * ldb + nt * 8);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (nt + h >= NT) break;
+        const uint32_t bh[2] = {b[2 * h], b[2 * h + 1]};
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][nt + h], a[mt], bh);
+      }
+    }
+  }
+}
+
+template <int MT, int NT>
+__device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+}
+
+// the fragments (+ bias[column], if given), rounded, into a bf16 tile at
+// column col0
+template <int NT>
+__device__ __forceinline__ void frag_to_tile(const float (&acc)[2][NT][4], const float* bias,
+                                             __nv_bfloat16* T, int col0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, c2 = (lane & 3) * 2;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int r = mt * 16 + g, c = nt * 8 + c2;
+      const float b0 = bias ? bias[c] : 0.f, b1 = bias ? bias[c + 1] : 0.f;
+      *reinterpret_cast<uint32_t*>(T + r * kAT + col0 + c) =
+          pack_bf16x2(acc[mt][nt][0] + b0, acc[mt][nt][1] + b1);
+      *reinterpret_cast<uint32_t*>(T + (r + 8) * kAT + col0 + c) =
+          pack_bf16x2(acc[mt][nt][2] + b0, acc[mt][nt][3] + b1);
+    }
+}
+
+// the [32][32] fragments into the f32 tile, then this lane's row + bias into v
+__device__ __forceinline__ void frag_rows(const float (&acc)[2][4][4], float* T,
+                                          const float* bias, float (&v)[32]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, c2 = (lane & 3) * 2;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int r = mt * 16 + g, c = nt * 8 + c2;
+      *reinterpret_cast<float2*>(T + r * kCT + c) = make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+      *reinterpret_cast<float2*>(T + (r + 8) * kCT + c) =
+          make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+    }
+  __syncwarp();
+  const float4* row = reinterpret_cast<const float4*>(T + lane * kCT);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float4 q = row[j];
+    v[4 * j] = q.x + bias[4 * j];
+    v[4 * j + 1] = q.y + bias[4 * j + 1];
+    v[4 * j + 2] = q.z + bias[4 * j + 2];
+    v[4 * j + 3] = q.w + bias[4 * j + 3];
+  }
+  __syncwarp();
+}
+
+// ---- the slab: masked edge features, rows [dl * NSP + s] -----------------
+// bf16 mode: 40 bf16 values (80 bytes) per row, written from the
+// accumulator fragments and read by ldmatrix.  f32 mode: 32 floats per
+// row, 16-byte chunk j stored at j ^ (row & 7), written and read by the
+// row's lane.
+
+struct SlabF32 {
+  __device__ static void store(void* base, int row, const float (&v)[32]) {
+    float4* p = reinterpret_cast<float4*>(static_cast<float*>(base) + row * kSlabF32Row);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      p[j ^ (row & 7)] = make_float4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
   }
   __device__ static void load(const void* base, int row, float (&v)[32]) {
     const float4* p =
-        reinterpret_cast<const float4*>(static_cast<const float*>(base) + row * kRow);
+        reinterpret_cast<const float4*>(static_cast<const float*>(base) + row * kSlabF32Row);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const float4 q = p[j];
+      const float4 q = p[j ^ (row & 7)];
       v[4 * j] = q.x;
       v[4 * j + 1] = q.y;
       v[4 * j + 2] = q.z;
       v[4 * j + 3] = q.w;
-    }
-  }
-};
-
-template <>
-struct Slab<true> {
-  static constexpr int kRow = 40;   // bf16 values (80 bytes)
-  static constexpr int kBytes = kN * kN * kRow * 2;
-  __device__ static void store(void* base, int row, const float (&v)[32]) {
-    uint4* p = reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(base) + row * kRow);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      p[j] = make_uint4(pack_bf16x2(v[8 * j], v[8 * j + 1]), pack_bf16x2(v[8 * j + 2], v[8 * j + 3]),
-                        pack_bf16x2(v[8 * j + 4], v[8 * j + 5]),
-                        pack_bf16x2(v[8 * j + 6], v[8 * j + 7]));
-  }
-  __device__ static void load(const void* base, int row, float (&v)[32]) {
-    const uint4* p =
-        reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(base) + row * kRow);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const uint4 u = p[j];
-      const unsigned w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 f = unpack_bf16x2(w[i]);
-        v[8 * j + 2 * i] = f.x;
-        v[8 * j + 2 * i + 1] = f.y;
-      }
     }
   }
 };
@@ -228,6 +409,18 @@ __device__ __forceinline__ void frame_coffs(const Frame& f, const float* r, floa
   c[2] = f.vt[0] * r[0] + f.vt[1] * r[1] + f.vt[2] * r[2];
 }
 
+// the pair's coefficients of s and of d in its frame and the pseudo-angle
+__device__ __forceinline__ void pair_geometry(const float* ps, const float* pd, float (&cs)[3],
+                                              float (&cd)[3], float& psin, float& pcos) {
+  Frame f;
+  make_frame(ps, pd, f);
+  frame_coffs(f, ps, cs);
+  frame_coffs(f, pd, cd);
+  const float dot = cs[0] * cd[0] + cs[1] * cd[1] + cs[2] * cd[2];
+  pcos = dot / (norm3(cs[0], cs[1], cs[2]) + 1e-6f) / (norm3(cd[0], cd[1], cd[2]) + 1e-6f);
+  psin = sqrtf(fmaxf(1.f - pcos * pcos, 1e-12f));
+}
+
 // acc[j] += sum_k v[k] * w[k][j] for a [32, 32]-slice of a row-major weight
 // with row stride ws (in floats); w is 16-byte aligned
 __device__ __forceinline__ void matvec32(const float (&v)[32], const float* w, int ws,
@@ -247,9 +440,8 @@ __device__ __forceinline__ void matvec32(const float (&v)[32], const float* w, i
   }
 }
 
-// embedding of one coefficient pair: [sin, cos](c0 * wc) | [sin, cos](c2 * wc)
-// through the [4h, h] coff_mlp kernel, plus its bias
-template <bool BF16>
+// f32 mode: embedding of one coefficient pair: [sin, cos](c0 * wc) |
+// [sin, cos](c2 * wc) through the [4h, h] coff_mlp kernel, plus its bias
 __device__ __forceinline__ void coff_embed(float c0, float c2, const float* wc, const float* wm,
                                            const float* bm, float (&acc)[32]) {
 #pragma unroll
@@ -259,10 +451,6 @@ __device__ __forceinline__ void coff_embed(float c0, float c2, const float* wc, 
     float s0, k0, s2, k2;
     sincosf(c0 * wc[k], &s0, &k0);
     sincosf(c2 * wc[k], &s2, &k2);
-    s0 = rnd<BF16>(s0);
-    k0 = rnd<BF16>(k0);
-    s2 = rnd<BF16>(s2);
-    k2 = rnd<BF16>(k2);
     const float4* r0 = reinterpret_cast<const float4*>(wm + k * kH);
     const float4* r1 = reinterpret_cast<const float4*>(wm + (kH + k) * kH);
     const float4* r2 = reinterpret_cast<const float4*>(wm + (2 * kH + k) * kH);
@@ -280,247 +468,480 @@ __device__ __forceinline__ void coff_embed(float c0, float c2, const float* wc, 
   for (int j = 0; j < 32; ++j) acc[j] += bm[j];
 }
 
-__device__ __forceinline__ void stage(float* dst, const float* src, int n, bool round) {
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    const float v = src[i];
-    dst[i] = round ? rbf(v) : v;
+// bf16 mode: a lane's [sin, cos](c * w[k]) for k < n (16 or 32) into its
+// row of the tile from column col0 (n sin, then n cos), rounded
+__device__ __forceinline__ void fourier_row(float c, const float* w, int n, __nv_bfloat16* T,
+                                            int col0) {
+  const int lane = threadIdx.x & 31;
+  uint4* row = reinterpret_cast<uint4*>(T + lane * kAT + col0);
+#pragma unroll 1
+  for (int k0 = 0; k0 < n; k0 += 8) {
+    float sn[8], cs[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) sincosf(c * w[k0 + i], &sn[i], &cs[i]);
+    row[k0 / 8] = make_uint4(pack_bf16x2(sn[0], sn[1]), pack_bf16x2(sn[2], sn[3]),
+                             pack_bf16x2(sn[4], sn[5]), pack_bf16x2(sn[6], sn[7]));
+    row[n / 8 + k0 / 8] = make_uint4(pack_bf16x2(cs[0], cs[1]), pack_bf16x2(cs[2], cs[3]),
+                                     pack_bf16x2(cs[4], cs[5]), pack_bf16x2(cs[6], cs[7]));
   }
 }
 
-// local offsets in the weight buffer
-// phase 1 (frame features)
+// n floats from device to shared memory (both 16-byte aligned) by
+// asynchronous 16-byte copies, every copy of a phase in flight at once;
+// they land after staged().  The tail past a multiple of 4 is copied
+// directly.
+__device__ __forceinline__ void stage(float* dst, const float* src, int n, int threads) {
+  const int n4 = n & ~3;
+  for (int i = threadIdx.x * 4; i < n4; i += threads * 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(smem_u32(dst + i)), "l"(src + i) : "memory");
+  for (int i = n4 + threadIdx.x; i < n; i += threads) dst[i] = src[i];
+}
+
+__device__ __forceinline__ void staged() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// after staged(): what this thread staged of dst (n % 4 == 0) rounded to
+// bf16 values in place
+__device__ __forceinline__ void round_staged(float* dst, int n, int threads) {
+  for (int i = threadIdx.x * 4; i < n; i += threads * 4) {
+    const float4 v = *reinterpret_cast<const float4*>(dst + i);
+    *reinterpret_cast<float4*>(dst + i) = make_float4(rbf(v.x), rbf(v.y), rbf(v.z), rbf(v.w));
+  }
+}
+
+// a [K][cols] row-major f32 weight as a bf16 tile [K][ld]; columns cols ..
+// 8 * ceil(cols / 8) (read by the last n-tile) zero
+__device__ __forceinline__ void stage_tile(__nv_bfloat16* __restrict__ dst, int ld,
+                                           const float* __restrict__ src, int K, int cols,
+                                           int threads) {
+  if (cols % 4 == 0) {
+    const int n4 = K * cols / 4;
+    for (int i = threadIdx.x; i < n4; i += threads) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(src) + i);
+      const int k = 4 * i / cols, c = 4 * i - k * cols;
+      *reinterpret_cast<uint2*>(dst + k * ld + c) =
+          make_uint2(pack_bf16x2(v.x, v.y), pack_bf16x2(v.z, v.w));
+    }
+  } else {
+    const int wide = (cols + 7) / 8 * 8;
+    for (int i = threadIdx.x; i < K * wide; i += threads) {
+      const int k = i / wide, c = i - k * wide;
+      dst[k * ld + c] = __float2bfloat16_rn(c < cols ? src[k * cols + c] : 0.f);
+    }
+  }
+}
+
+// weight-buffer offsets, in floats (f32 parts) or bytes (bf16 tiles)
+// phase 1, f32 mode
 constexpr int kWC = 0, kCM = 32, kBM = kCM + 4 * kH * kH, kP1 = kBM + kH,
               kB1 = kP1 + (2 * kH + 2) * kH, kP2 = kB1 + kH, kB2 = kP2 + kH * kH,
               kDW = kB2 + kH, kIN = kDW + kH, kBI = kIN + 2 * kH * kH;
 static_assert(kBI + kH <= kWBuf, "phase-1 weights");
+// phase 1, bf16 mode: the elementwise parts in f32, then the product tiles
+constexpr int kXWC = 0, kXBM = 32, kXP1 = 64, kXB1 = 128, kXB2 = 160, kXDW = 192,
+              kXBI = 224;
+constexpr int kTCM = 1024, kTP1 = kTCM + 128 * kB32 * 2, kTP2 = kTP1 + 64 * kB32 * 2,
+              kTIN = kTP2 + 32 * kB32 * 2;
+static_assert(kTIN + 64 * kB32 * 2 <= kWBuf * 4, "phase-1 tiles");
 // a GAT layer: seven [h, h] kernels (q, k, v, edge, skip, FFN 1, FFN 2),
-// seven biases, two LayerNorms
+// seven biases, two LayerNorms; bf16 mode stages the edge kernel as a tile
 constexpr int kGBias = 7 * kH * kH, kGNorm = kGBias + 7 * kH;
 constexpr int kWE = 3 * kH * kH, kWF1 = 5 * kH * kH, kWF2 = 6 * kH * kH;
+constexpr int kTWE = (kGNorm + 4 * kH) * 4;
+static_assert(kTWE + kH * kB32 * 2 <= kWBuf * 4, "GAT weights");
 // a basis module
 constexpr int kWH = 0, kWBE = kH * kCD, kBBE = 2 * kH * kCD, kWO = kBBE + kCD,
               kBO = kWO + kCD * 3;
 static_assert(kBO + 4 <= kWBuf, "basis weights");
+constexpr int kXBBE = kH * kCD, kXBO = kXBBE + kCD;     // bf16 mode, floats
+constexpr int kTBE = align16((kXBO + 4) * 4), kTWO = kTBE + kH * kB128 * 2;
+static_assert(kTWO + kCD * kB8 * 2 <= kWBuf * 4, "basis tiles");
 
-template <bool BF16>
-__global__ void __launch_bounds__(kThreads, 1)
+// ---- the kernel ------------------------------------------------------------
+
+// Shared memory (make_layout): the slab; the weight buffer; the node state
+// xs [2][NSP][kH], double-buffered by layer; q, k, v, skip [NSP][kNR] each
+// (hp [NSP][kHPR] in the basis phases); the warps' tiles (bf16 mode); FFN
+// rows; positions; mask[s, d0 + dl] as [dl][NSP + 1]; valid sources per
+// destination (>= 1); the block's score rows.  S: chunks of 32 sources.
+template <bool BF16, int S>
+__global__ void __launch_bounds__(threads_for(BF16, S), 1)
 score_eval_kernel(const float* __restrict__ pos, const float* __restrict__ node,
                   const float* __restrict__ edge2d, const float* __restrict__ mask,
                   const float* __restrict__ params, const Offsets off,
-                  float* __restrict__ out, int N, int variant, int L, int NC) {
-  using SlabT = Slab<BF16>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  void* slab = smem_raw;
-  float* wbuf = reinterpret_cast<float*>(smem_raw + SlabT::kBytes);
-  float* xs = wbuf + kWBuf;               // [kN][kH] node state
-  float* qs = xs + kN * kH;               // [kN][kNR] each: q, k, v, skip
-  float* ks = qs + kN * kNR;
-  float* vs = ks + kN * kNR;
-  float* sks = vs + kN * kNR;
-  float* hps = qs;                        // [kN][kHPR] in the basis phases
-  float* fs = qs + kNodeQ;                // [kWarps][kH] FFN scratch
-  float* posS = fs + kWarps * kH;         // [kN][3] (128 floats)
-  float* maskT = posS + 128;              // [d][kMR]: mask[s, d]
-  float* cnt = maskT + kN * kMR;          // [kN] valid sources per dest (>= 1)
-  float* gradS = cnt + kN;                // [kN][3] (128 floats)
+                  float* __restrict__ out, int N, int variant, int L, int NC, int nd) {
+  constexpr int T = threads_for(BF16, S), W = T / 32, NSP = 32 * S;
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int cs = static_cast<int>(cluster.num_blocks());
+  const int b = blockIdx.x / cs;
+  const int d0 = rank * nd;
+  const int nown = max(0, min(nd, N - d0));
+  const int MR = NSP + 1;
+  const Layout lay = make_layout(N, nd, BF16);
+  void* slab = smem + lay.slab;
+  float* wbuf = reinterpret_cast<float*>(smem + lay.wbuf);
+  unsigned char* wbytes = smem + lay.wbuf;
+  float* xs = reinterpret_cast<float*>(smem + lay.xs);
+  float* qs = reinterpret_cast<float*>(smem + lay.node);
+  float* ks = qs + NSP * kNR;
+  float* vs = ks + NSP * kNR;
+  float* sks = vs + NSP * kNR;
+  float* hps = qs;
+  float* fs = reinterpret_cast<float*>(smem + lay.fs);
+  float* posS = reinterpret_cast<float*>(smem + lay.pos);
+  float* maskT = reinterpret_cast<float*>(smem + lay.mask);
+  float* cnt = reinterpret_cast<float*>(smem + lay.cnt);
+  float* gradS = reinterpret_cast<float*>(smem + lay.grad);
 
-  const int b = blockIdx.x;
+  int phase = 0;
+  PHASE_MARK(phase++);
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
+  unsigned char* tile = smem + lay.scratch + warp * kScratch;   // bf16 mode
+  __nv_bfloat16* At = reinterpret_cast<__nv_bfloat16*>(tile);
+  float* Ct = reinterpret_cast<float*>(tile);
   const int gat0 = variant == 2 ? 10 : 7;      // first GAT segment
   const int basis0 = gat0 + 18 * L * NC;       // first basis segment
 
-  for (int i = tid; i < kN * 3; i += kThreads) {
+  for (int i = tid; i < NSP * 3; i += T)
     posS[i] = i < N * 3 ? pos[static_cast<size_t>(b) * N * 3 + i] : 0.f;
-    gradS[i] = 0.f;
+  for (int i = tid; i < nd * 3; i += T) gradS[i] = 0.f;
+  for (int i = tid; i < nd * NSP; i += T) {
+    const int dl = i / NSP, s = i - dl * NSP;
+    maskT[dl * MR + s] = (s < N && dl < nown)
+                             ? mask[(static_cast<size_t>(b) * N + s) * N + d0 + dl] : 0.f;
   }
-  for (int i = tid; i < kN * kN; i += kThreads) {
-    const int s = i / kN, d = i - s * kN;
-    maskT[d * kMR + s] =
-        (s < N && d < N) ? mask[(static_cast<size_t>(b) * N + s) * N + d] : 0.f;
-  }
-  for (int i = tid; i < kN * kH; i += kThreads) {
-    const int n = i / kH;
-    xs[i] = n < N ? rnd<BF16>(node[static_cast<size_t>(b) * N * kH + i]) : 0.f;
+  for (int i = tid; i < 2 * NSP * kH; i += T) {
+    const int n = (i / kH) % NSP;
+    xs[i] = (i < NSP * kH && n < N) ? rnd<BF16>(node[static_cast<size_t>(b) * N * kH + i]) : 0.f;
   }
   {
     const float two_pi = static_cast<float>(2.0 * 3.14159265358979323846);
-    for (int i = tid; i < kH; i += kThreads) {
-      wbuf[kWC + i] = params[off.v[0] + i] * two_pi;
-      if (variant == 2) wbuf[kDW + i] = params[off.v[7] + i] * two_pi;
-    }
-    stage(wbuf + kCM, params + off.v[1], 4 * kH * kH, BF16);
-    stage(wbuf + kBM, params + off.v[2], kH, false);
-    stage(wbuf + kP1, params + off.v[3], 2 * kH, false);  // angle rows: elementwise
-    stage(wbuf + kP1 + 2 * kH, params + off.v[3] + 2 * kH, 2 * kH * kH, BF16);
-    stage(wbuf + kB1, params + off.v[4], kH, false);
-    stage(wbuf + kP2, params + off.v[5], kH * kH, BF16);
-    stage(wbuf + kB2, params + off.v[6], kH, false);
-    if (variant == 2) {
-      stage(wbuf + kIN, params + off.v[8], 2 * kH * kH, BF16);
-      stage(wbuf + kBI, params + off.v[9], kH, false);
-    }
-  }
-  __syncthreads();
-
-  // ---- phase 1: masked edge features of every pair into the slab --------
-  for (int d = warp; d < kN; d += kWarps) {
-    const int s = lane;
-    const float m = maskT[d * kMR + s];
-    const float count = warp_sum(m);
-    if (lane == 0) cnt[d] = fmaxf(count, 1.f);
-    const float* ps = posS + 3 * s;
-    const float* pd = posS + 3 * d;
-    float cs[3], cd[3];
-    float psin, pcos;
-    {
-      Frame f;
-      make_frame(ps, pd, f);
-      frame_coffs(f, ps, cs);
-      frame_coffs(f, pd, cd);
-      const float dot = cs[0] * cd[0] + cs[1] * cd[1] + cs[2] * cd[2];
-      pcos = dot / (norm3(cs[0], cs[1], cs[2]) + 1e-6f) / (norm3(cd[0], cd[1], cd[2]) + 1e-6f);
-      psin = sqrtf(fmaxf(1.f - pcos * pcos, 1e-12f));
-    }
-    float pre[32], acc[32];
-#pragma unroll
-    for (int j = 0; j < 32; ++j) pre[j] = 0.f;
-    coff_embed<BF16>(cs[0], cs[2], wbuf + kWC, wbuf + kCM, wbuf + kBM, acc);
-#pragma unroll
-    for (int j = 0; j < 32; ++j) acc[j] = rnd<BF16>(acc[j]);
-    matvec32(acc, wbuf + kP1 + 2 * kH, kH, pre);
-    coff_embed<BF16>(cd[0], cd[2], wbuf + kWC, wbuf + kCM, wbuf + kBM, acc);
-#pragma unroll
-    for (int j = 0; j < 32; ++j) acc[j] = rnd<BF16>(acc[j]);
-    matvec32(acc, wbuf + kP1 + (2 + kH) * kH, kH, pre);
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      pre[j] += psin * wbuf[kP1 + j] + pcos * wbuf[kP1 + kH + j] + wbuf[kB1 + j];
-      pre[j] = rnd<BF16>(silu(pre[j]));
-      acc[j] = 0.f;
-    }
-    matvec32(pre, wbuf + kP2, kH, acc);          // frame_inv (without bias)
-    const bool real = s < N && d < N;
-    const float4* e2d = reinterpret_cast<const float4*>(
-        edge2d + ((static_cast<size_t>(b) * N + (real ? s : 0)) * N + (real ? d : 0)) * kH);
-    if (variant == 2) {
-      // input_mlp: one Linear on [sin, cos](dist * w) (no activation)
-      const float dist = norm3(ps[0] - pd[0], ps[1] - pd[1], ps[2] - pd[2]);
-#pragma unroll
-      for (int j = 0; j < 32; ++j) pre[j] = 0.f;
-#pragma unroll 2
-      for (int k = 0; k < 32; ++k) {
-        float sn, cs_;
-        sincosf(dist * wbuf[kDW + k], &sn, &cs_);
-        sn = rnd<BF16>(sn);
-        cs_ = rnd<BF16>(cs_);
-        const float4* ra = reinterpret_cast<const float4*>(wbuf + kIN + k * kH);
-        const float4* rb = reinterpret_cast<const float4*>(wbuf + kIN + (kH + k) * kH);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float4 qa = ra[j], qb = rb[j];
-          pre[4 * j] += sn * qa.x + cs_ * qb.x;
-          pre[4 * j + 1] += sn * qa.y + cs_ * qb.y;
-          pre[4 * j + 2] += sn * qa.z + cs_ * qb.z;
-          pre[4 * j + 3] += sn * qa.w + cs_ * qb.w;
+    if (BF16) {
+      for (int i = tid; i < kH; i += T) {
+        wbuf[kXWC + i] = params[off.v[0] + i] * two_pi;
+        wbuf[kXBM + i] = params[off.v[2] + i];
+        wbuf[kXB1 + i] = params[off.v[4] + i];
+        wbuf[kXB2 + i] = params[off.v[6] + i];
+        if (variant == 2) {
+          wbuf[kXDW + i] = params[off.v[7] + i] * two_pi;
+          wbuf[kXBI + i] = params[off.v[9] + i];
         }
       }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float4 e = real ? e2d[j] : make_float4(0.f, 0.f, 0.f, 0.f);
-        const float ev[4] = {e.x, e.y, e.z, e.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int c = 4 * j + i;
-          acc[c] = (pre[c] + wbuf[kBI + c]) * ev[i] + (acc[c] + wbuf[kB2 + c]);
-        }
-      }
+      stage(wbuf + kXP1, params + off.v[3], 2 * kH, T);   // angle rows: elementwise
+      stage_tile(reinterpret_cast<__nv_bfloat16*>(wbytes + kTCM), kB32, params + off.v[1],
+                 4 * kH, kH, T);
+      stage_tile(reinterpret_cast<__nv_bfloat16*>(wbytes + kTP1), kB32,
+                 params + off.v[3] + 2 * kH, 2 * kH, kH, T);
+      stage_tile(reinterpret_cast<__nv_bfloat16*>(wbytes + kTP2), kB32, params + off.v[5], kH,
+                 kH, T);
+      if (variant == 2)
+        stage_tile(reinterpret_cast<__nv_bfloat16*>(wbytes + kTIN), kB32, params + off.v[8],
+                   2 * kH, kH, T);
     } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float4 e = real ? e2d[j] : make_float4(0.f, 0.f, 0.f, 0.f);
-        const float ev[4] = {e.x, e.y, e.z, e.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int c = 4 * j + i;
-          acc[c] = ev[i] + (acc[c] + wbuf[kB2 + c]);
-        }
+      for (int i = tid; i < kH; i += T) {
+        wbuf[kWC + i] = params[off.v[0] + i] * two_pi;
+        if (variant == 2) wbuf[kDW + i] = params[off.v[7] + i] * two_pi;
+      }
+      stage(wbuf + kCM, params + off.v[1], 4 * kH * kH, T);
+      stage(wbuf + kBM, params + off.v[2], kH, T);
+      stage(wbuf + kP1, params + off.v[3], (2 * kH + 2) * kH, T);
+      stage(wbuf + kB1, params + off.v[4], kH, T);
+      stage(wbuf + kP2, params + off.v[5], kH * kH, T);
+      stage(wbuf + kB2, params + off.v[6], kH, T);
+      if (variant == 2) {
+        stage(wbuf + kIN, params + off.v[8], 2 * kH * kH, T);
+        stage(wbuf + kBI, params + off.v[9], kH, T);
       }
     }
+  }
+  staged();
+  __syncthreads();
+  PHASE_MARK(phase++);
+
+  // ---- phase 1: masked edge features of the block's pairs into the slab ---
+  for (int dl = warp; dl < nown; dl += W) {
+    const int d = d0 + dl;
+    const float* pd = posS + 3 * d;
+    float count = 0.f;
+#pragma unroll 1
+    for (int j = 0; j < S; ++j) {
+      const int s = 32 * j + lane;
+      const float m = maskT[dl * MR + s];
+      count += warp_sum(m);
+      const float* ps = posS + 3 * s;
+      float cs[3], cd[3], psin, pcos;
+      pair_geometry(ps, pd, cs, cd, psin, pcos);
+      if constexpr (BF16) {
+        // each embedding in four steps of 16 frequencies of one coefficient
+        // (sin and cos features in tile columns 32-63), the first embedding
+        // parked, rounded, in columns 0-31 while the second accumulates
+        const __nv_bfloat16* tcm = reinterpret_cast<const __nv_bfloat16*>(wbytes + kTCM);
+#pragma unroll 1
+        for (int side = 0; side < 2; ++side) {
+          float emb[2][4][4];
+          zero(emb);
+#pragma unroll 1
+          for (int q = 0; q < 4; ++q) {
+            const int k0 = (q & 1) * 16, row0 = (q >> 1) * 64 + k0;   // coff_mlp's sin rows
+            fourier_row((side ? cd : cs)[(q >> 1) * 2], wbuf + kXWC + k0, 16, At, 32);
+            __syncwarp();
+            warp_mma(emb, At + 32, kAT, tcm + row0 * kB32, kB32, 16);
+            warp_mma(emb, At + 48, kAT, tcm + (row0 + 32) * kB32, kB32, 16);
+            __syncwarp();
+          }
+          frag_to_tile(emb, wbuf + kXBM, At, side * kH);
+        }
+        __syncwarp();
+        float pre[2][4][4];
+        zero(pre);
+        warp_mma(pre, At, kAT, reinterpret_cast<const __nv_bfloat16*>(wbytes + kTP1), kB32,
+                 2 * kH);
+        __syncwarp();
 #pragma unroll
-    for (int j = 0; j < 32; ++j) acc[j] = rnd<BF16>(acc[j] * m);
-    SlabT::store(slab, d * kN + s, acc);
+        for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+          for (int h8 = 0; h8 < 2; ++h8) {
+            const int r = mt * 16 + g + 8 * h8;
+            const float rs = __shfl_sync(kFull, psin, r), rc = __shfl_sync(kFull, pcos, r);
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int c = nt * 8 + c2 + e;
+                float& v = pre[mt][nt][2 * h8 + e];
+                v += rs * wbuf[kXP1 + c] + rc * wbuf[kXP1 + kH + c] + wbuf[kXB1 + c];
+                v = silu<true>(v);
+              }
+          }
+        }
+        frag_to_tile(pre, nullptr, At, 0);
+        __syncwarp();
+        float fi[2][4][4];
+        zero(fi);
+        warp_mma(fi, At, kAT, reinterpret_cast<const __nv_bfloat16*>(wbytes + kTP2), kB32, kH);
+        __syncwarp();
+        if (variant == 2) {   // input_mlp: one Linear on [sin, cos](dist * w)
+          fourier_row(norm3(ps[0] - pd[0], ps[1] - pd[1], ps[2] - pd[2]), wbuf + kXDW, 32, At,
+                      0);
+          __syncwarp();
+          zero(pre);
+          warp_mma(pre, At, kAT, reinterpret_cast<const __nv_bfloat16*>(wbytes + kTIN), kB32,
+                   2 * kH);
+          __syncwarp();
+        }
+        __nv_bfloat16* sl = static_cast<__nv_bfloat16*>(slab);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int h8 = 0; h8 < 2; ++h8) {
+            const int r = mt * 16 + g + 8 * h8, sr = 32 * j + r;
+            const float mr = maskT[dl * MR + sr];
+            const float* e2d = edge2d + ((static_cast<size_t>(b) * N + (sr < N ? sr : 0)) * N + d) * kH;
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) {
+              const int c = nt * 8 + c2;
+              const float2 e = sr < N ? *reinterpret_cast<const float2*>(e2d + c)
+                                      : make_float2(0.f, 0.f);
+              float v[2];
+#pragma unroll
+              for (int i = 0; i < 2; ++i) {
+                const float ev = i ? e.y : e.x;
+                const float f = fi[mt][nt][2 * h8 + i] + wbuf[kXB2 + c + i];
+                v[i] = (variant == 2 ? (pre[mt][nt][2 * h8 + i] + wbuf[kXBI + c + i]) * ev + f
+                                     : ev + f) * mr;
+              }
+              *reinterpret_cast<uint32_t*>(sl + (dl * NSP + sr) * kSlabBf16Row + c) =
+                  pack_bf16x2(v[0], v[1]);
+            }
+          }
+      } else {
+        const bool real = s < N;
+        float pre[32], acc[32];
+#pragma unroll
+        for (int k = 0; k < 32; ++k) pre[k] = 0.f;
+        coff_embed(cs[0], cs[2], wbuf + kWC, wbuf + kCM, wbuf + kBM, acc);
+        matvec32(acc, wbuf + kP1 + 2 * kH, kH, pre);
+        coff_embed(cd[0], cd[2], wbuf + kWC, wbuf + kCM, wbuf + kBM, acc);
+        matvec32(acc, wbuf + kP1 + (2 + kH) * kH, kH, pre);
+#pragma unroll
+        for (int k = 0; k < 32; ++k) {
+          pre[k] += psin * wbuf[kP1 + k] + pcos * wbuf[kP1 + kH + k] + wbuf[kB1 + k];
+          pre[k] = silu<false>(pre[k]);
+          acc[k] = 0.f;
+        }
+        matvec32(pre, wbuf + kP2, kH, acc);          // frame_inv (without bias)
+        const float4* e2d = reinterpret_cast<const float4*>(
+            edge2d + ((static_cast<size_t>(b) * N + (real ? s : 0)) * N + d) * kH);
+        if (variant == 2) {
+          const float dist = norm3(ps[0] - pd[0], ps[1] - pd[1], ps[2] - pd[2]);
+#pragma unroll
+          for (int k = 0; k < 32; ++k) pre[k] = 0.f;
+#pragma unroll 2
+          for (int k = 0; k < 32; ++k) {
+            float sn, cs_;
+            sincosf(dist * wbuf[kDW + k], &sn, &cs_);
+            const float4* ra = reinterpret_cast<const float4*>(wbuf + kIN + k * kH);
+            const float4* rb = reinterpret_cast<const float4*>(wbuf + kIN + (kH + k) * kH);
+#pragma unroll
+            for (int q = 0; q < 8; ++q) {
+              const float4 qa = ra[q], qb = rb[q];
+              pre[4 * q] += sn * qa.x + cs_ * qb.x;
+              pre[4 * q + 1] += sn * qa.y + cs_ * qb.y;
+              pre[4 * q + 2] += sn * qa.z + cs_ * qb.z;
+              pre[4 * q + 3] += sn * qa.w + cs_ * qb.w;
+            }
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const float4 e = real ? e2d[q] : make_float4(0.f, 0.f, 0.f, 0.f);
+          const float ev[4] = {e.x, e.y, e.z, e.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int c = 4 * q + i;
+            acc[c] = variant == 2 ? (pre[c] + wbuf[kBI + c]) * ev[i] + (acc[c] + wbuf[kB2 + c])
+                                  : ev[i] + (acc[c] + wbuf[kB2 + c]);
+            acc[c] *= m;
+          }
+        }
+        SlabF32::store(slab, dl * NSP + s, acc);
+      }
+    }
+    if (lane == 0) cnt[dl] = fmaxf(count, 1.f);
   }
 
+  // the e2 = slab @ W_edge + b_edge row of this lane's pair (dl, 32 j + lane)
+  auto edge_row = [&](int dl, int j, float (&e2)[32]) {
+    const int row = dl * NSP + 32 * j;
+    if constexpr (BF16) {
+      float acc[2][4][4];
+      zero(acc);
+      warp_mma(acc, static_cast<const __nv_bfloat16*>(slab) + row * kSlabBf16Row, kSlabBf16Row,
+               reinterpret_cast<const __nv_bfloat16*>(wbytes + kTWE), kB32, kH);
+      frag_rows(acc, Ct, wbuf + kGBias + 3 * kH, e2);
+    } else {
+      float ea[32];
+      SlabF32::load(slab, row + lane, ea);
+#pragma unroll
+      for (int c = 0; c < 32; ++c) e2[c] = 0.f;
+      matvec32(ea, wbuf + kWE, kH, e2);
+#pragma unroll
+      for (int c = 0; c < 32; ++c) e2[c] += wbuf[kGBias + 3 * kH + c];
+    }
+  };
+
+  PHASE_MARK(phase++);
+  cluster.sync();    // every block of the cluster runs before any remote write
+  PHASE_MARK(phase++);
   const float scale = 1.f / sqrtf(static_cast<float>(kCHead));
+  int cur = 0;
   for (int mod = 0; mod < L; ++mod) {
     for (int conv = 0; conv < NC; ++conv) {
       const int seg = gat0 + 18 * (mod * NC + conv);
-      __syncthreads();   // the previous phase is done with wbuf and xs
+      float* xc = xs + cur * NSP * kH;
+      float* xn = xs + (cur ^ 1) * NSP * kH;
+      __syncthreads();   // the previous phase is done with wbuf and the node area
       for (int j = 0; j < 7; ++j) {
-        stage(wbuf + j * kH * kH, params + off.v[seg + 2 * j], kH * kH, BF16);
-        stage(wbuf + kGBias + j * kH, params + off.v[seg + 2 * j + 1], kH, false);
+        if (!(BF16 && j == 3)) stage(wbuf + j * kH * kH, params + off.v[seg + 2 * j], kH * kH, T);
+        stage(wbuf + kGBias + j * kH, params + off.v[seg + 2 * j + 1], kH, T);
       }
-      for (int j = 0; j < 4; ++j) stage(wbuf + kGNorm + j * kH, params + off.v[seg + 14 + j], kH, false);
+      for (int j = 0; j < 4; ++j) stage(wbuf + kGNorm + j * kH, params + off.v[seg + 14 + j], kH, T);
+      if (BF16)
+        stage_tile(reinterpret_cast<__nv_bfloat16*>(wbytes + kTWE), kB32, params + off.v[seg + 6],
+                   kH, kH, T);
+      staged();
+      if (BF16)
+        for (int j = 0; j < 7; ++j)
+          if (j != 3) round_staged(wbuf + j * kH * kH, kH * kH, T);
       __syncthreads();
+      PHASE_MARK(phase++);
 
-      // q, k, v and the skip projection of every node
-      for (int o = tid; o < kN * 4 * kH; o += kThreads) {
-        const int n = o / (4 * kH), col = o - n * 4 * kH;
-        const int which = col / kH, c = col - which * kH;
+      // k and v of every node, q and the skip projection of the block's own
+      // destinations
+      const int kv = NSP * 2 * kH;
+      for (int o = tid; o < kv + nown * 2 * kH; o += T) {
+        const bool own = o >= kv;
+        const int r = own ? o - kv : o;
+        const int n = (own ? d0 : 0) + r / (2 * kH), col = r % (2 * kH);
+        const int which = (own ? 0 : 1) + (own ? 3 : 1) * (col / kH), c = col % kH;
         const int wi = which == 3 ? 4 : which;   // q, k, v, skip = kernels 0, 1, 2, 4
         const float* w = wbuf + wi * kH * kH;
         float acc = 0.f;
 #pragma unroll 8
-        for (int k = 0; k < kH; ++k) acc = fmaf(xs[n * kH + k], w[k * kH + c], acc);
-        qs[which * kN * kNR + n * kNR + c] = acc + wbuf[kGBias + wi * kH + c];
+        for (int k = 0; k < kH; ++k) acc = fmaf(xc[n * kH + k], w[k * kH + c], acc);
+        qs[which * NSP * kNR + n * kNR + c] = acc + wbuf[kGBias + wi * kH + c];
       }
       __syncthreads();
+      PHASE_MARK(phase++);
 
       // attention, LayerNorm, FFN, LayerNorm: warp = destination d
       const float* s1 = wbuf + kGNorm;
       const float* o1 = s1 + kH;
       const float* s2 = o1 + kH;
       const float* o2 = s2 + kH;
-      for (int d = warp; d < kN; d += kWarps) {
-        const int s = lane;
-        const float m = maskT[d * kMR + s];
-        float ea[32], e2[32];
-        SlabT::load(slab, d * kN + s, ea);
+      for (int dl = warp; dl < nown; dl += W) {
+        const int d = d0 + dl;
+        float e2[S][32], alpha[S][kHeads], mj[S];
 #pragma unroll
-        for (int j = 0; j < 32; ++j) e2[j] = 0.f;
-        matvec32(ea, wbuf + kWE, kH, e2);
+        for (int j = 0; j < S; ++j) {
+          const int s = 32 * j + lane;
+          const float m = maskT[dl * MR + s];
+          mj[j] = m;
+          edge_row(dl, j, e2[j]);
 #pragma unroll
-        for (int j = 0; j < 32; ++j) e2[j] += wbuf[kGBias + 3 * kH + j];
-        float alpha[kHeads];
+          for (int hh = 0; hh < kHeads; ++hh) {
+            float l = 0.f;
 #pragma unroll
-        for (int hh = 0; hh < kHeads; ++hh) {
-          float l = 0.f;
-#pragma unroll
-          for (int cc = 0; cc < kCHead; ++cc) {
-            const int c = hh * kCHead + cc;
-            l += rnd<BF16>((ks[s * kNR + c] + e2[c]) * qs[d * kNR + c]);
+            for (int cc = 0; cc < kCHead; ++cc) {
+              const int c = hh * kCHead + cc;
+              l += rnd<BF16>((ks[s * kNR + c] + e2[j][c]) * qs[d * kNR + c]);
+            }
+            alpha[j][hh] = m > 0.f ? l * scale : -3.402823466e38f;
           }
-          l = m > 0.f ? l * scale : -3.402823466e38f;
-          const float ex = expf(l - warp_max(l));
-          alpha[hh] = rnd<BF16>(ex / fmaxf(warp_sum(ex), 1e-30f) * m);
         }
 #pragma unroll
-        for (int c = 0; c < 32; ++c) e2[c] = alpha[c / kCHead] * (vs[s * kNR + c] + e2[c]);
+        for (int hh = 0; hh < kHeads; ++hh) {
+          float mx = alpha[0][hh];
+#pragma unroll
+          for (int j = 1; j < S; ++j) mx = fmaxf(mx, alpha[j][hh]);
+          mx = warp_max(mx);
+          float ex[S], sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < S; ++j) {
+            ex[j] = expf(alpha[j][hh] - mx);
+            sum += ex[j];
+          }
+          sum = fmaxf(warp_sum(sum), 1e-30f);
+#pragma unroll
+          for (int j = 0; j < S; ++j) alpha[j][hh] = rnd<BF16>(ex[j] / sum * mj[j]);
+        }
+        // message terms, summed over the chunks in order, in place of e2[0]
+#pragma unroll
+        for (int c = 0; c < 32; ++c) {
+          float t = alpha[0][c / kCHead] * (vs[lane * kNR + c] + e2[0][c]);
+#pragma unroll
+          for (int j = 1; j < S; ++j)
+            t += alpha[j][c / kCHead] * (vs[(32 * j + lane) * kNR + c] + e2[j][c]);
+          e2[0][c] = t;
+        }
         const int c = lane;
-        const float mha = rnd<BF16>(reduce_scatter(e2, lane) + sks[d * kNR + c]);
+        const float mha = rnd<BF16>(reduce_scatter(e2[0], lane) + sks[d * kNR + c]);
         float mean = warp_sum(mha) * (1.f / kH);
         float dv = mha - mean;
         float y = dv * rsqrtf(warp_sum(dv * dv) * (1.f / kH) + 1e-6f) * s1[c] + o1[c];
-        const float x1 = rnd<BF16>(xs[d * kH + c] + rnd<BF16>(y));
+        const float x1 = rnd<BF16>(xc[d * kH + c] + rnd<BF16>(y));
         float* f = fs + warp * kH;
         f[c] = x1;
         __syncwarp();
         float hacc = 0.f;
 #pragma unroll 8
         for (int k = 0; k < kH; ++k) hacc = fmaf(f[k], wbuf[kWF1 + k * kH + c], hacc);
-        const float hval = rnd<BF16>(silu(hacc + wbuf[kGBias + 5 * kH + c]));
+        const float hval = rnd<BF16>(silu<BF16>(hacc + wbuf[kGBias + 5 * kH + c]));
         __syncwarp();
         f[c] = hval;
         __syncwarp();
@@ -533,104 +954,244 @@ score_eval_kernel(const float* __restrict__ pos, const float* __restrict__ node,
         dv = o - mean;
         y = dv * rsqrtf(warp_sum(dv * dv) * (1.f / kH) + 1e-6f) * s2[c] + o2[c];
         float x2 = rnd<BF16>(x1 + rnd<BF16>(y));
-        if (conv < NC - 1) x2 = silu(x2);
-        xs[d * kH + c] = rnd<BF16>(x2);
+        if (conv < NC - 1) x2 = silu<BF16>(x2);
+        xn[d * kH + c] = rnd<BF16>(x2);
       }
+      // this block's new rows into every peer's node state, then the cluster
+      // waits for all of them
+      __syncthreads();
+      PHASE_MARK(phase++);
+      const int own = nown * kH;
+      for (int i = tid; i < (cs - 1) * own; i += T) {
+        const int k = i / own, e = i - k * own;
+        const int r = k < rank ? k : k + 1;
+        float* peer = cluster.map_shared_rank(xn, r);
+        peer[d0 * kH + e] = xn[d0 * kH + e];
+      }
+      cluster.sync();
+      PHASE_MARK(phase++);
+      cur ^= 1;
     }
 
     // ---- basis module: dynamic coefficients mix the frame basis --------
+    const float* xc = xs + cur * NSP * kH;
     const int seg = basis0 + 5 * mod;
     __syncthreads();
-    stage(wbuf + kWH, params + off.v[seg], kH * kCD, BF16);
-    stage(wbuf + kWBE, params + off.v[seg + 1], kH * kCD, BF16);
-    stage(wbuf + kBBE, params + off.v[seg + 2], kCD, false);
-    stage(wbuf + kWO, params + off.v[seg + 3], kCD * 3, BF16);
-    stage(wbuf + kBO, params + off.v[seg + 4], 3, false);
+    if (BF16) {
+      stage(wbuf + kWH, params + off.v[seg], kH * kCD, T);
+      stage(wbuf + kXBBE, params + off.v[seg + 2], kCD, T);
+      stage(wbuf + kXBO, params + off.v[seg + 4], 3, T);
+      stage_tile(reinterpret_cast<__nv_bfloat16*>(wbytes + kTBE), kB128, params + off.v[seg + 1],
+                 kH, kCD, T);
+      stage_tile(reinterpret_cast<__nv_bfloat16*>(wbytes + kTWO), kB8, params + off.v[seg + 3],
+                 kCD, 3, T);
+    } else {
+      stage(wbuf + kWH, params + off.v[seg], kH * kCD, T);
+      stage(wbuf + kWBE, params + off.v[seg + 1], kH * kCD, T);
+      stage(wbuf + kBBE, params + off.v[seg + 2], kCD, T);
+      stage(wbuf + kWO, params + off.v[seg + 3], kCD * 3, T);
+      stage(wbuf + kBO, params + off.v[seg + 4], 3, T);
+    }
+    staged();
+    if (BF16) round_staged(wbuf + kWH, kH * kCD, T);
     __syncthreads();
-    for (int o = tid; o < kN * kCD; o += kThreads) {
+    for (int o = tid; o < NSP * kCD; o += T) {
       const int n = o / kCD, c = o - n * kCD;
       float acc = 0.f;
 #pragma unroll 8
-      for (int k = 0; k < kH; ++k) acc = fmaf(xs[n * kH + k], wbuf[kWH + k * kCD + c], acc);
+      for (int k = 0; k < kH; ++k) acc = fmaf(xc[n * kH + k], wbuf[kWH + k * kCD + c], acc);
       hps[n * kHPR + c] = acc;
     }
     __syncthreads();
-    for (int d = warp; d < kN; d += kWarps) {
-      const int s = lane;
-      float ea[32];
-      SlabT::load(slab, d * kN + s, ea);
-      float cc[3] = {wbuf[kBO], wbuf[kBO + 1], wbuf[kBO + 2]};
-      float part[3] = {0.f, 0.f, 0.f};
-      for (int c0 = 0; c0 < kCD; c0 += 32) {
-        float acc[32];
+    PHASE_MARK(phase++);
+    for (int dl = warp; dl < nown; dl += W) {
+      const int d = d0 + dl;
+      float tot[3] = {0.f, 0.f, 0.f};
+#pragma unroll 1
+      for (int j = 0; j < S; ++j) {
+        const int s = 32 * j + lane;
+        float cc[3];
+        if constexpr (BF16) {
+          // cc = (bo + chunk 0 @ wo) + chunk 1 @ wo, the TPU kernel's 64-channel
+          // chunks, each from the edge MLP's fragments straight into basis_out
+          const __nv_bfloat16* rows =
+              static_cast<const __nv_bfloat16*>(slab) + (dl * NSP + 32 * j) * kSlabBf16Row;
+          const __nv_bfloat16* wbe = reinterpret_cast<const __nv_bfloat16*>(wbytes + kTBE);
+          const __nv_bfloat16* wo = reinterpret_cast<const __nv_bfloat16*>(wbytes + kTWO);
+          float part[2][2][1][4];   // [TPU chunk][m-tile]
+          zero(part[0]);
+          zero(part[1]);
+#pragma unroll 1
+          for (int qc = 0; qc < 4; ++qc) {   // 32 channels at a time
+            const int ch = qc >> 1, c0 = 32 * qc;
+            float ep[2][4][4];
+            zero(ep);
+            warp_mma(ep, rows, kSlabBf16Row, wbe + c0, kB128, kH);
 #pragma unroll
-        for (int j = 0; j < 32; ++j) acc[j] = 0.f;
-        matvec32(ea, wbuf + kWBE + c0, kCD, acc);
+            for (int kk = 0; kk < 2; ++kk) {
+              uint32_t a[2][4];
 #pragma unroll
-        for (int j = 0; j < 32; ++j) {
-          const int c = c0 + j;
-          const float coff = rnd<BF16>(silu((hps[s * kHPR + c] + hps[d * kHPR + c]) +
-                                            (acc[j] + wbuf[kBBE + c])));
-          part[0] = fmaf(coff, wbuf[kWO + 3 * c], part[0]);
-          part[1] = fmaf(coff, wbuf[kWO + 3 * c + 1], part[1]);
-          part[2] = fmaf(coff, wbuf[kWO + 3 * c + 2], part[2]);
-        }
-        if ((c0 + 32) % 64 == 0) {   // the TPU kernel's 64-channel chunks
+              for (int mt = 0; mt < 2; ++mt) {
+                float v[2][4];
 #pragma unroll
-          for (int i = 0; i < 3; ++i) {
-            cc[i] += part[i];
-            part[i] = 0.f;
+                for (int h = 0; h < 2; ++h)
+#pragma unroll
+                  for (int e = 0; e < 4; ++e) {
+                    const int r = mt * 16 + g + (e >> 1) * 8;
+                    const int col = c0 + (2 * kk + h) * 8 + c2 + (e & 1);
+                    const int sr = 32 * j + r;
+                    v[h][e] = silu<true>((hps[sr * kHPR + col] + hps[d * kHPR + col]) +
+                                         (ep[mt][2 * kk + h][e] + wbuf[kXBBE + col]));
+                  }
+                a[mt][0] = pack_bf16x2(v[0][0], v[0][1]);
+                a[mt][1] = pack_bf16x2(v[0][2], v[0][3]);
+                a[mt][2] = pack_bf16x2(v[1][0], v[1][1]);
+                a[mt][3] = pack_bf16x2(v[1][2], v[1][3]);
+              }
+              uint32_t bw[2];
+              ldsm_x2_t(bw, wo + (c0 + kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kB8);
+#pragma unroll
+              for (int mt = 0; mt < 2; ++mt) mma_bf16(part[ch][mt][0], a[mt], bw);
+            }
+          }
+          // columns 0-2 of each row sit in lanes 4r (0, 1) and 4r + 1 (2):
+          // through the tile to the row's lane
+          if (c2 < 4) {
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+              for (int h8 = 0; h8 < 2; ++h8) {
+                const int r = mt * 16 + g + 8 * h8;
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  const int col = c2 + e;
+                  if (col < 3)
+                    Ct[r * kCT + col] = (wbuf[kXBO + col] + part[0][mt][0][2 * h8 + e]) +
+                                        part[1][mt][0][2 * h8 + e];
+                }
+              }
+          }
+          __syncwarp();
+#pragma unroll
+          for (int i = 0; i < 3; ++i) cc[i] = Ct[lane * kCT + i];
+          __syncwarp();
+        } else {
+          float ea[32];
+          SlabF32::load(slab, dl * NSP + s, ea);
+          float part[3] = {0.f, 0.f, 0.f};
+          cc[0] = wbuf[kBO];
+          cc[1] = wbuf[kBO + 1];
+          cc[2] = wbuf[kBO + 2];
+          for (int c0 = 0; c0 < kCD; c0 += 32) {
+            float acc[32];
+#pragma unroll
+            for (int k = 0; k < 32; ++k) acc[k] = 0.f;
+            matvec32(ea, wbuf + kWBE + c0, kCD, acc);
+#pragma unroll
+            for (int k = 0; k < 32; ++k) {
+              const int c = c0 + k;
+              const float coff = silu<false>((hps[s * kHPR + c] + hps[d * kHPR + c]) +
+                                             (acc[k] + wbuf[kBBE + c]));
+              part[0] = fmaf(coff, wbuf[kWO + 3 * c], part[0]);
+              part[1] = fmaf(coff, wbuf[kWO + 3 * c + 1], part[1]);
+              part[2] = fmaf(coff, wbuf[kWO + 3 * c + 2], part[2]);
+            }
+            if ((c0 + 32) % 64 == 0) {   // the TPU kernel's 64-channel chunks
+#pragma unroll
+              for (int i = 0; i < 3; ++i) {
+                cc[i] += part[i];
+                part[i] = 0.f;
+              }
+            }
           }
         }
-      }
-      Frame f;
-      make_frame(posS + 3 * s, posS + 3 * d, f);
-      const float mn = maskT[d * kMR + s] / cnt[d];
+        Frame f;
+        make_frame(posS + 3 * s, posS + 3 * d, f);
+        const float mn = maskT[dl * MR + s] / cnt[dl];
 #pragma unroll
-      for (int comp = 0; comp < 3; ++comp) {
-        const float rows = rnd<BF16>(cc[0] * f.df[comp]) + rnd<BF16>(cc[1] * f.cr[comp]) +
-                           rnd<BF16>(cc[2] * f.vt[comp]);
-        const float tot = warp_sum(rows * mn);
-        if (lane == 0) gradS[d * 3 + comp] += tot;
+        for (int comp = 0; comp < 3; ++comp) {
+          const float rows = rnd<BF16>(cc[0] * f.df[comp]) + rnd<BF16>(cc[1] * f.cr[comp]) +
+                             rnd<BF16>(cc[2] * f.vt[comp]);
+          tot[comp] += warp_sum(rows * mn);
+        }
+      }
+      if (lane == 0) {
+#pragma unroll
+        for (int comp = 0; comp < 3; ++comp) gradS[dl * 3 + comp] += tot[comp];
       }
     }
+    __syncthreads();
+    PHASE_MARK(phase++);
   }
   __syncthreads();
-  for (int i = tid; i < N * 3; i += kThreads) out[static_cast<size_t>(b) * N * 3 + i] = gradS[i];
+  for (int i = tid; i < nown * 3; i += T)
+    out[(static_cast<size_t>(b) * N + d0) * 3 + i] = gradS[i];
+}
+
+template <bool BF16, int S>
+int launch(const float* pos, const float* node, const float* edge2d, const float* mask,
+           const float* params, const Offsets& off, float* out, int B, int N, int variant,
+           int L, int NC, int cluster, int nd, int smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(score_eval_kernel<BF16, S>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * cluster);
+  cfg.blockDim = dim3(threads_for(BF16, S));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, score_eval_kernel<BF16, S>, pos, node, edge2d, mask, params,
+                           off, out, N, variant, L, NC, nd);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool BF16>
-int launch(const float* pos, const float* node, const float* edge2d, const float* mask,
-           const float* params, const Offsets& off, float* out, int B, int N, int variant,
-           int L, int NC, cudaStream_t stream) {
-  const size_t smem = Slab<BF16>::kBytes + static_cast<size_t>(kFloats) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(score_eval_kernel<BF16>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  score_eval_kernel<BF16><<<B, kThreads, smem, stream>>>(pos, node, edge2d, mask, params, off,
-                                                          out, N, variant, L, NC);
-  return static_cast<int>(cudaGetLastError());
+int launch_n(const float* pos, const float* node, const float* edge2d, const float* mask,
+             const float* params, const Offsets& off, float* out, int B, int N, int variant,
+             int L, int NC, int cluster, int nd, int smem, cudaStream_t stream) {
+  return N <= 32 ? launch<BF16, 1>(pos, node, edge2d, mask, params, off, out, B, N, variant,
+                                   L, NC, cluster, nd, smem, stream)
+                 : launch<BF16, 2>(pos, node, edge2d, mask, params, off, out, B, N, variant,
+                                   L, NC, cluster, nd, smem, stream);
 }
 
 }  // namespace
 
+// Shared-memory bytes of one block at n_max N with nd destinations per
+// block (ops/score_kernel.py::score_plan counts the same).
+extern "C" int score_eval_smem_bytes(int N, int nd, int bf16) {
+  return make_layout(N, nd, bf16 != 0).total;
+}
+
 // offsets: the packed buffer's segment offsets in floats, in
-// pack_score_params order (n_offsets of them).  Takes N <= 32, hidden 32,
-// 8 heads and basis width 128; returns cudaErrorInvalidValue otherwise.
+// pack_score_params order (n_offsets of them).  cluster, nd and smem: the
+// wrapper's plan (ops/score_kernel.py::score_plan): blocks per molecule,
+// destinations per block, shared-memory bytes per block.  Takes N <= 64,
+// hidden 32, 8 heads and basis width 128; returns cudaErrorInvalidValue
+// otherwise or when the plan does not cover N or disagrees with the layout.
 extern "C" int score_eval_fused(const float* pos, const float* node, const float* edge2d,
                                 const float* mask, const float* params, const int* offsets,
                                 int n_offsets, float* out, int B, int N, int variant,
-                                int num_layers, int num_convs, int bf16, void* stream) {
+                                int num_layers, int num_convs, int bf16, int cluster, int nd,
+                                int smem, void* stream) {
   const int expected = (variant == 2 ? 10 : 7) + 18 * num_layers * num_convs + 5 * num_layers;
-  if (N < 1 || N > kN || (variant != 1 && variant != 2) || n_offsets != expected ||
-      n_offsets > kMaxSegments)
+  if (N < 1 || N > 32 * kMaxS || (variant != 1 && variant != 2) || n_offsets != expected ||
+      n_offsets > kMaxSegments || cluster < 1 || cluster > kMaxCluster || nd < 1 ||
+      cluster * nd < N || smem != make_layout(N, nd, bf16 != 0).total)
     return static_cast<int>(cudaErrorInvalidValue);
   Offsets off;
   for (int i = 0; i < kMaxSegments; ++i) off.v[i] = i < n_offsets ? offsets[i] : 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<true>(pos, node, edge2d, mask, params, off, out, B, N, variant,
-                             num_layers, num_convs, s)
-              : launch<false>(pos, node, edge2d, mask, params, off, out, B, N, variant,
-                              num_layers, num_convs, s);
+  return bf16 ? launch_n<true>(pos, node, edge2d, mask, params, off, out, B, N, variant,
+                               num_layers, num_convs, cluster, nd, smem, s)
+              : launch_n<false>(pos, node, edge2d, mask, params, off, out, B, N, variant,
+                                num_layers, num_convs, cluster, nd, smem, s);
 }

@@ -9,9 +9,11 @@ Counterpart of ``moleculesde_tpu/ops/rejected/attn_qk_bank.py::attn_qk_bank``
 (its Pallas impls), forward and backward.  On a CUDA tensor the wrappers
 launch the hand-written kernels of ``csrc/attn_qk_bank.cu``, which replace
 the TPU kernels ``_fwd_kernel`` (``pallas_call`` at
-``ops/rejected/attn_qk_bank.py:209``) and ``_bwd_kernel`` (l.232): one block
-per graph, only the node features, the weights and ``a`` touch device
-memory (the source's header says more).  On a CPU tensor they take
+``ops/rejected/attn_qk_bank.py:209``) and ``_bwd_kernel`` (l.232): the
+forward one block per (graph, channel) and any N whose plan fits
+(:func:`fwd_plan`), the backward one block per graph and N <= 32; only the
+node features, the weights and ``a`` touch device memory (the source's
+header says more).  On a CPU tensor they take
 :func:`attn_qk_bank_plain` and :func:`attn_qk_bank_bwd_plain`, which round
 to bf16 where the TPU kernel rounds: qk cast by the wrapper, each weight as
 it enters its product, t1 only as the second product's operand, q and k
@@ -86,12 +88,37 @@ def _shapes(qk, ws):
     return b, n, f, c, a
 
 
-def _smem_bytes(n: int, f: int, c: int, a: int, h: int, bwd: bool) -> int:
-    """Shared memory of a block (csrc/attn_qk_bank.cu), in bytes."""
+FWD_MAX_CHUNK = 128         # csrc/attn_qk_bank.cu: W1 / qk features staged at once
+BWD_N_MAX = 32              # the backward holds every head's du of the map
+
+
+def _fwd_stride(width: int) -> int:
+    """Row stride of the forward's staged rows (csrc/attn_qk_bank.cu::
+    fwd_stride): 16-byte aligned, 4 words past a multiple of 32."""
+    return -(-width // 4) * 4 + 4
+
+
+def fwd_plan(n: int, f: int, a: int) -> Tuple[int, int]:
+    """The forward kernel's plan for one (graph, channel) block: (features
+    staged per chunk, shared-memory bytes).  Rows are paired (n, n + ceil(N
+    / 2)), so 2 ceil(N / 2) rows are staged: a qk chunk [rows, FC], the
+    chunk's W1 rows and W2 of both nets, the biases, the nets' t1 and q / k
+    [rows, A] each, every region 16-byte aligned (csrc/attn_qk_bank.cu)."""
+    fc = min(f, FWD_MAX_CHUNK)
+    rows = 2 * -(-n // 2)
+    fp, as_ = _fwd_stride(fc), _fwd_stride(a)
+
+    def al4(v):
+        return -(-v // 4) * 4
+
+    return fc, 4 * (rows * fp + al4(2 * fc * a) + al4(2 * a * a) + al4(4 * a) + 4 * rows * as_)
+
+
+def _bwd_smem_bytes(n: int, f: int, c: int, a: int, h: int) -> int:
+    """Shared memory of a backward block (csrc/attn_qk_bank.cu), in bytes:
+    qk, t1 x2, q / k, W2, du of every head, dq3 / dk3, dpre, rounded dpre of
+    every channel."""
     ap = a + 1
-    if not bwd:   # qk, t1, q, k, W2
-        return 4 * (n * f + 3 * n * ap + a * ap)
-    # qk, t1 x2, q / k, W2, du of every head, dq3 / dk3, dpre, rounded dpre of every channel
     return 4 * (n * f + 4 * n * ap + a * ap + h * (n * n + 1) + 2 * n * a + n * ap
                 + 2 * c * n * ap)
 
@@ -120,12 +147,22 @@ def _check_kernel_inputs(qk, ws, ds, g=None):
                          f"g{None if g is None else tuple(g.shape)}")
     if ds <= 0 or a % ds:
         raise ValueError(f"attn_qk_bank kernel: A={a} is not a multiple of ds={ds}")
-    if n > 32:
-        raise ValueError(f"attn_qk_bank kernel: needs N <= 32 (N={n})")
-    smem = _smem_bytes(n, f, c, a, a // ds, g is not None)
+    check_plan(n, f, c, a, a // ds, g is not None)
+
+
+def check_plan(n: int, f: int, c: int, a: int, h: int, bwd: bool) -> int:
+    """Shared-memory bytes of a block of the forward (``bwd`` False) or the
+    backward kernel at these widths; raises where the kernel takes no such
+    shape: the backward past N = 32, either past the shared memory."""
+    if bwd and n > BWD_N_MAX:
+        raise ValueError(f"attn_qk_bank backward kernel: needs N <= {BWD_N_MAX} (N={n}); "
+                         "the forward takes any N whose plan fits")
+    smem = _bwd_smem_bytes(n, f, c, a, h) if bwd else fwd_plan(n, f, a)[1]
     if smem > SMEM_LIMIT:
-        raise ValueError(f"attn_qk_bank kernel: N={n}, F={f}, C={c}, A={a} need {smem} B "
-                         f"of shared memory (> {SMEM_LIMIT})")
+        raise ValueError(f"attn_qk_bank {'backward' if bwd else 'forward'} kernel: N={n}, "
+                         f"F={f}, C={c}, A={a} need {smem} B of shared memory per block "
+                         f"(> {SMEM_LIMIT})")
+    return smem
 
 
 def _weight_ptrs(ws):
@@ -140,11 +177,11 @@ def _launch(qk, ws, ds: int, bf16: bool) -> torch.Tensor:
         return out
     fn = build.load("attn_qk_bank").attn_qk_bank_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     ptrs = _weight_ptrs(ws)
+    fc, smem = fwd_plan(n, f, a)
     rc = fn(qk.data_ptr(), ctypes.addressof(ptrs), out.data_ptr(), b, n, f, c, a, ds,
-            int(qk.dtype == torch.bfloat16), int(bf16),
-            _smem_bytes(n, f, c, a, a // ds, False), stream(qk))
+            int(qk.dtype == torch.bfloat16), int(bf16), fc, smem, stream(qk))
     build.check_launch(rc, "attn_qk_bank_fwd")
     attn_qk_bank.launches += 1
     return out
@@ -169,7 +206,7 @@ def _launch_bwd(qk, ws, g, ds: int, bf16: bool):
         rc = fn(qk.data_ptr(), ctypes.addressof(ptrs), g.data_ptr(), dqk.data_ptr(),
                 wgrad.data_ptr(), part.data_ptr(), b, n, f, c, a, ds,
                 int(qk.dtype == torch.bfloat16), int(bf16),
-                _smem_bytes(n, f, c, a, a // ds, True), stream(qk))
+                _bwd_smem_bytes(n, f, c, a, a // ds), stream(qk))
         build.check_launch(rc, "attn_qk_bank_bwd")
         attn_qk_bank_bwd.launches += 1
     grads = [t.view(w.shape) for t, w in zip(torch.split(wgrad, sizes), ws)]

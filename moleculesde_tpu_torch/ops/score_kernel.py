@@ -8,7 +8,9 @@ construction, the Gaussian-Fourier coefficient embeddings, the projection
 MLP, the four DenseGAT layers (LayerNorm, FFN) and both basis-mixing
 modules of ``SDEModel2Dto3D`` variants 1 and 2 in one launch of
 ``csrc/score_eval.cu``, which replaces the TPU kernel ``_kernel``
-(``pallas_call`` at ``ops/score_kernel.py:388``).  On a CPU tensor it takes
+(``pallas_call`` at ``ops/score_kernel.py:388``): a thread-block cluster per
+molecule, its blocks splitting the destinations, at any n_max up to 64
+(:func:`score_plan`).  On a CPU tensor it takes
 :func:`score_eval_fused_plain`, the same function in PyTorch.
 
 The weights the kernel reads are packed once into one contiguous f32
@@ -36,7 +38,7 @@ from moleculesde_tpu_torch.models.score_2d3d import dense_frames
 from moleculesde_tpu_torch.ops.common import SQRT_GUARD, resolve_impl, round_bf16, stream
 
 # the widths csrc/score_eval.cu is compiled for
-KERNEL_N_MAX = 32
+KERNEL_N_MAX = 64         # two chunks of 32 sources per lane
 KERNEL_HIDDEN = 32
 KERNEL_HEADS = 8
 KERNEL_COFF_DIM = 128
@@ -231,14 +233,60 @@ def score_eval_fused_plain(pos3, node_attr, edge_attr_2d, pair_mask, packed, *,
     return grad
 
 
+# csrc/score_eval.cu's shared-memory layout
+_ROW_BYTES = {True: 80, False: 128}       # a slab row: 40 bf16 / 32 f32 values
+_WBUF_BYTES = 9472 * 4
+_TILE_BYTES = 4608                        # a warp's tile, bf16 mode
+
+
+def _align16(v: int) -> int:
+    return (v + 15) & ~15
+
+
+def _threads(n: int) -> int:
+    """Threads per block (csrc/score_eval.cu::threads_for): 512 at n_max <=
+    32, 256 above (two source chunks per lane hold more registers)."""
+    return 512 if n <= 32 else 256
+
+
+def score_layout_bytes(n: int, dests: int, bf16: bool) -> int:
+    """Shared-memory bytes of one block of K6 at n_max ``n`` with ``dests``
+    destinations per block, as ``csrc/score_eval.cu::make_layout`` counts
+    them: the block's slab rows, the weight buffer, the double-buffered
+    node state, q / k / v / skip (or the basis node part), the warps' tiles
+    (bf16 mode), the FFN rows, positions, mask, counts and score rows."""
+    nsp = 32 * -(-n // 32)
+    warps = _threads(n) // 32
+    node = max(4 * nsp * (KERNEL_HIDDEN + 1), nsp * (KERNEL_COFF_DIM + 1))
+    return (_align16(dests * nsp * _ROW_BYTES[bf16]) + _WBUF_BYTES + 2 * nsp * KERNEL_HIDDEN * 4
+            + _align16(node * 4) + (warps * _TILE_BYTES if bf16 else 0) + warps * KERNEL_HIDDEN * 4
+            + _align16(nsp * 12) + _align16(dests * (nsp + 1) * 4) + _align16(dests * 4)
+            + _align16(dests * 12))
+
+
+def score_plan(n: int, bf16: bool) -> Dict[str, int]:
+    """K6's launch plan at n_max ``n``: ``cluster`` blocks per molecule (2 up
+    to n_max 32, 4 up to 64), ``dests`` destinations per block, ``threads``
+    per block and ``smem`` bytes of shared memory per block.  Raises past
+    n_max 64 in either mode (the slab of 16 destinations x 64 sources and
+    the node state of 64 rows fill the f32 plan: 220 KB)."""
+    if not 1 <= n <= KERNEL_N_MAX:
+        raise ValueError(f"score_eval_fused kernel: n_max {n} is past the cluster plan "
+                         f"(n_max <= {KERNEL_N_MAX} in {'bf16' if bf16 else 'f32'} mode)")
+    cluster = 2 if n <= 32 else 4
+    dests = -(-n // cluster)
+    return {"cluster": cluster, "dests": dests, "threads": _threads(n),
+            "smem": score_layout_bytes(n, dests, bf16)}
+
+
 def _check_kernel_inputs(pos3, node_attr, edge_attr_2d, maskf, packed, variant,
-                         num_layers, num_convs, n_head):
+                         num_layers, num_convs, n_head, bf16):
     b, n, h = node_attr.shape
-    if (h != KERNEL_HIDDEN or n > KERNEL_N_MAX or n_head != KERNEL_HEADS
-            or variant not in (1, 2)):
+    if h != KERNEL_HIDDEN or n_head != KERNEL_HEADS or variant not in (1, 2):
         raise ValueError(f"score_eval_fused kernel: takes hidden {KERNEL_HIDDEN}, "
-                         f"{KERNEL_HEADS} heads, n_max <= {KERNEL_N_MAX}, variant 1 or 2 "
-                         f"(got hidden {h}, {n_head} heads, n_max {n}, variant {variant})")
+                         f"{KERNEL_HEADS} heads, variant 1 or 2 "
+                         f"(got hidden {h}, {n_head} heads, variant {variant})")
+    plan = score_plan(n, bf16)
     layout, total = score_param_layout(variant, h, KERNEL_COFF_DIM, num_layers, num_convs)
     if packed.numel() != total or len(layout) > MAX_SEGMENTS:
         raise ValueError(f"score_eval_fused kernel: packed weights have {packed.numel()} "
@@ -253,14 +301,14 @@ def _check_kernel_inputs(pos3, node_attr, edge_attr_2d, maskf, packed, variant,
         if not t.is_cuda or t.device != node_attr.device:
             raise ValueError(f"score_eval_fused kernel: {name} must be on {node_attr.device} "
                              "(CUDA)")
-    return layout
+    return layout, plan
 
 
 def _launch(pos3, node_attr, edge_attr_2d, pair_mask, packed, variant, bf16,
             num_layers, num_convs, n_head):
     f32 = [t.to(torch.float32).contiguous()
            for t in (pos3, node_attr, edge_attr_2d, pair_mask, packed)]
-    layout = _check_kernel_inputs(*f32, variant, num_layers, num_convs, n_head)
+    layout, plan = _check_kernel_inputs(*f32, variant, num_layers, num_convs, n_head, bf16)
     pos3, node_attr, edge_attr_2d, maskf, packed = f32
     b, n, _ = node_attr.shape
     out = torch.empty((b, n, 3), dtype=torch.float32, device=node_attr.device)
@@ -270,10 +318,11 @@ def _launch(pos3, node_attr, edge_attr_2d, pair_mask, packed, variant, bf16,
     fn = build.load("score_eval").score_eval_fused
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     rc = fn(pos3.data_ptr(), node_attr.data_ptr(), edge_attr_2d.data_ptr(), maskf.data_ptr(),
             packed.data_ptr(), offsets, len(layout), out.data_ptr(), b, n, variant,
-            num_layers, num_convs, int(bf16), stream(node_attr))
+            num_layers, num_convs, int(bf16), plan["cluster"], plan["dests"], plan["smem"],
+            stream(node_attr))
     build.check_launch(rc, "score_eval_fused")
     score_eval_fused.launches += 1
     return out
@@ -287,7 +336,7 @@ def score_eval_fused(pos3, node_attr, edge_attr_2d, pair_mask, packed, *, varian
     requires grad, as the TPU kernel has no VJP.  ``impl``: "auto" (the
     kernel for a CUDA tensor, the plain version for a CPU tensor), "kernel"
     or "plain".  The kernel takes hidden 32, 8 heads, basis width 128 and
-    n_max <= 32 and raises on other shapes."""
+    n_max <= 64 (:func:`score_plan`) and raises on other shapes."""
     args = (pos3, node_attr, edge_attr_2d, pair_mask, packed)
     if any(t.requires_grad for t in args):
         raise RuntimeError("score_eval_fused is forward only: no input may require grad")

@@ -25,7 +25,8 @@ from moleculesde_tpu_torch.ops.attn_bank import (
 from moleculesde_tpu_torch.ops.attn_maps import attn_map_bank
 from moleculesde_tpu_torch.ops.attn_qk_bank import attn_qk_bank, attn_qk_bank_bwd
 
-from torch_port_common import ieee_f32, rel_err, t  # noqa: F401 (ieee_f32: autouse)
+from torch_port_common import (  # noqa: F401 (ieee_f32: autouse)
+    ieee_f32, numeric_state, rel_err, t)
 
 
 def _tols(bf16):
@@ -56,20 +57,34 @@ def _map_oracle(q, k, g, ds, bf16):
             np.einsum("bchnm,bcnhd->bcmhd", du, qh).reshape(b, c, n, a))
 
 
+def _where(mine, ref):
+    """(rel_err, argmax index, mine there, ref there) of ``mine`` against
+    ``ref``: the error relative to max |ref| and where it is largest."""
+    mine = np.asarray(mine, np.float64)
+    ref = np.asarray(ref, np.float64)
+    diff = np.abs(mine - ref)
+    at = tuple(int(i) for i in np.unravel_index(int(diff.argmax()), diff.shape))
+    return float(diff.max() / (np.abs(ref).max() + 1e-12)), at, float(mine[at]), float(ref[at])
+
+
+def _check_side(side, name, mine, ref, tol):
+    rel, at, got, want = _where(mine, ref)
+    assert rel < tol, (f"{side}: {name} rel_err {rel:.3e} >= {tol:g} at {at}: "
+                       f"{got!r} against {want!r}; {numeric_state()}")
+
+
 @pytest.mark.parametrize("ds", [2, 4])
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
 def test_attn_map_bank_plain_matches_pallas_kernel(ds, bf16):
     """K7 through JAX's dispatcher (``impl="pallas_interpret"``) and the
     port's (``impl="pallas"``, the plain version on the CPU): maps, dq, dk,
-    each side also against a float64 oracle at the same bars.
+    the port against JAX, the port against a float64 oracle and JAX against
+    the oracle, each at the same bars.  A failure names the side, the
+    output, the relative error and where it is largest.
 
     Runs with IEEE f32 products pinned in both frameworks (the autouse
-    ``ieee_f32`` fixture).  Without the pin this case once failed in a
-    6-worker run of the suite at rel_err 4.24e-5: the port's map read
-    0.18826655 where the oracle reads 0.18825617 (= JAX's), 1e-5 off, which
-    is ~100x what f32 summation order can give a 2-term dot: torch's CPU
-    products had run below f32 precision, as a reduced process-wide
-    float32 matmul precision makes them do."""
+    ``ieee_f32`` fixture); a failure also prints the process's numeric
+    settings (``torch_port_common.numeric_state``)."""
     q, k, g = _map_operands(1)
     out_j, vjp = jax.vjp(lambda q_, k_: jax_attn_map_bank(
         q_, k_, ds, bf16=bf16, impl="pallas_interpret"), jnp.asarray(q), jnp.asarray(k))
@@ -79,13 +94,14 @@ def test_attn_map_bank_plain_matches_pallas_kernel(ds, bf16):
     out_t.backward(t(g))
     tol_f, tol_g = _tols(bf16)
     assert out_t.dtype == torch.float32 and out_t.shape == (2, 3, 8, 8)
+    port = (out_t.detach().numpy(), qt.grad.numpy(), kt.grad.numpy())
+    jax_side = tuple(np.asarray(x) for x in (out_j, dq_j, dk_j))
     oracle = _map_oracle(q, k, g, ds, bf16)
-    for ref in ((out_j, dq_j, dk_j), oracle):
-        assert rel_err(out_t.detach().numpy(), ref[0]) < tol_f
-        assert rel_err(qt.grad.numpy(), ref[1]) < tol_g
-        assert rel_err(kt.grad.numpy(), ref[2]) < tol_g
-    for mine, ref, tol in zip((out_j, dq_j, dk_j), oracle, (tol_f, tol_g, tol_g)):
-        assert rel_err(mine, ref) < tol
+    for side, mine, ref in (("port vs JAX", port, jax_side),
+                            ("port vs float64 oracle", port, oracle),
+                            ("JAX vs float64 oracle", jax_side, oracle)):
+        for name, m, r, tol in zip(("map", "dq", "dk"), mine, ref, (tol_f, tol_g, tol_g)):
+            _check_side(side, name, m, r, tol)
 
 
 @pytest.mark.parametrize("impl", ["xla", "wide"])

@@ -15,7 +15,8 @@ import torch
 
 from moleculesde_tpu_torch.models.score_2d3d import SDEModel2Dto3D
 from moleculesde_tpu_torch.ops.attn_bank import attn_map_bank_kernel, attn_map_bank_kernel_bwd
-from moleculesde_tpu_torch.ops.attn_qk_bank import attn_qk_bank, attn_qk_bank_bwd
+from moleculesde_tpu_torch.ops.attn_qk_bank import (
+    attn_qk_bank, attn_qk_bank_bwd, attn_qk_bank_plain)
 from moleculesde_tpu_torch.ops.cfconv import (
     bwd_plan, bwd_plan_kernel, fused_cfconv, fused_cfconv_bwd, fused_cfconv_plain,
     fused_cfconv_rbf, fused_cfconv_rbf_bwd, fwd_plan, fwd_plan_kernel, smear)
@@ -25,7 +26,8 @@ from moleculesde_tpu_torch.ops.gin_messages import gin_messages_plain
 from moleculesde_tpu_torch.ops.pair_block import (
     pair_relu_project, pair_relu_project_bwd, pair_relu_project_cm,
     pair_relu_project_cm_bwd, pair_relu_project_cm_plain, pair_relu_project_plain)
-from moleculesde_tpu_torch.ops.score_kernel import score_eval_fused, score_eval_fused_plain
+from moleculesde_tpu_torch.ops.score_kernel import (
+    score_eval_fused, score_eval_fused_plain, score_layout_bytes, score_plan)
 
 pytestmark = pytest.mark.gpu
 
@@ -168,17 +170,7 @@ def test_pair_relu_project_cm_bwd_kernel_matches_plain(cuda, shape, bf16):
         _close(k, p, 1e-3 if bf16 else 1e-4)
 
 
-@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
-@pytest.mark.parametrize("variant", [1, 2])
-@pytest.mark.parametrize("shape", [(64, 32), (3, 11)])
-def test_score_eval_fused_kernel_matches_plain(cuda, shape, variant, bf16):
-    """K6 against its plain version on random operands and perturbed
-    weights (every bias and LayerNorm parameter non-trivial), relative to
-    the largest plain value: f32 1e-4 (sums in another order, warp-shuffle
-    softmax); bf16 2e-2 (both sides round at the same points, so they
-    differ where an f32 value taken in another order lands on the other side
-    of a bf16 rounding boundary)."""
-    b, n = shape
+def _score_operands(cuda, b, n, variant):
     model = SDEModel2Dto3D(emb_dim=8, hidden_dim=32, variant=variant, device=cuda)
     gen = torch.Generator(device=cuda).manual_seed(10 + variant)
     packed = model.packed_score_params()
@@ -191,6 +183,26 @@ def test_score_eval_fused_kernel_matches_plain(cuda, shape, variant, bf16):
     # product p x p is zero only where a*b - c*d is not fused into an FMA
     mask[:, torch.arange(n), torch.arange(n)] = False
     mask[0, :, 0] = False                  # a destination with no valid source
+    return pos, node, edge, mask, packed
+
+
+# the fused chain's shape, n_max 64 (cluster of 4), 40 (two source chunks,
+# the second ragged) and small ones
+SCORE_SHAPES = [(64, 32), (3, 11), (64, 64), (2, 40), (1, 33)]
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("variant", [1, 2])
+@pytest.mark.parametrize("shape", SCORE_SHAPES)
+def test_score_eval_fused_kernel_matches_plain(cuda, shape, variant, bf16):
+    """K6 against its plain version on random operands and perturbed
+    weights (every bias and LayerNorm parameter non-trivial), relative to
+    the largest plain value: f32 1e-4 (sums in another order, warp-shuffle
+    softmax); bf16 2e-2 (both sides round at the same points, so they
+    differ where an f32 value taken in another order lands on the other side
+    of a bf16 rounding boundary)."""
+    b, n = shape
+    pos, node, edge, mask, packed = _score_operands(cuda, b, n, variant)
     launches = score_eval_fused.launches
     out = score_eval_fused(pos, node, edge, mask, packed, variant=variant, bf16=bf16)
     assert score_eval_fused.launches == launches + 1
@@ -200,14 +212,45 @@ def test_score_eval_fused_kernel_matches_plain(cuda, shape, variant, bf16):
     assert err <= (2e-2 if bf16 else 1e-4), err
 
 
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(64, 32), (8, 64)])
+def test_score_eval_fused_kernel_is_deterministic(cuda, shape, bf16):
+    """Two launches give the same bits: every score row is summed in its
+    owning block in a fixed order."""
+    pos, node, edge, mask, packed = _score_operands(cuda, *shape, 1)
+    first = score_eval_fused(pos, node, edge, mask, packed, bf16=bf16)
+    assert torch.equal(first, score_eval_fused(pos, node, edge, mask, packed, bf16=bf16))
+
+
+def test_score_eval_plan_matches_kernel(cuda):
+    """The wrapper's shared-memory count is the kernel's own layout."""
+    import ctypes
+
+    from moleculesde_tpu_torch.kernels import build
+
+    fn = build.load("score_eval").score_eval_smem_bytes
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3
+    for n in (1, 11, 32, 33, 40, 64):
+        for bf16 in (False, True):
+            plan = score_plan(n, bf16)
+            assert plan["smem"] == fn(n, plan["dests"], int(bf16))
+            assert plan["smem"] == score_layout_bytes(n, plan["dests"], bf16)
+
+
 def test_score_eval_fused_kernel_refuses_shapes(cuda):
-    """Shapes the kernel is not built for raise, never fall back."""
+    """Shapes the kernel is not built for raise, never fall back: n_max
+    past the cluster plan (64) in either mode, another hidden width."""
     model = SDEModel2Dto3D(emb_dim=8, hidden_dim=32, variant=1, device=cuda)
     packed = model.packed_score_params()
-    pos, node = torch.zeros(2, 33, 3, device=cuda), torch.zeros(2, 33, 32, device=cuda)
-    edge, mask = torch.zeros(2, 33, 33, 32, device=cuda), torch.ones(2, 33, 33, device=cuda)
-    with pytest.raises(ValueError, match="n_max <= 32"):
-        score_eval_fused(pos, node, edge, mask, packed, variant=1)
+    pos, node = torch.zeros(2, 65, 3, device=cuda), torch.zeros(2, 65, 32, device=cuda)
+    edge, mask = torch.zeros(2, 65, 65, 32, device=cuda), torch.ones(2, 65, 65, device=cuda)
+    for bf16 in (False, True):
+        with pytest.raises(ValueError, match="past the cluster plan"):
+            score_eval_fused(pos, node, edge, mask, packed, variant=1, bf16=bf16)
+    node16 = torch.zeros(2, 8, 16, device=cuda)
+    with pytest.raises(ValueError, match="hidden 32"):
+        score_eval_fused(pos[:, :8], node16, edge[:, :8, :8, :16], mask[:, :8, :8], packed)
 
 
 # the main path's shape, n_max 64 and 128 (no cap on N), and a small one
@@ -536,6 +579,40 @@ def test_attn_qk_bank_kernel_matches_plain(cuda, shape, bf16):
         assert err <= tol, (i, err)
 
 
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(128, 64, 16, 8, 32, 4), (128, 64, 300, 2, 32, 4),
+                                   (4, 100, 13, 3, 8, 2), (2, 33, 260, 2, 32, 8)])
+def test_attn_qk_bank_fwd_kernel_past_n32(cuda, shape, bf16):
+    """K8's forward past N = 32 (its backward stops there): the maps against
+    the plain version at the bars of the test above, and two runs bit for
+    bit (every sum in a fixed order).  (2, 33, 260, ...) stages W1 in three
+    chunks and pairs rows past N."""
+    b, n, f, c, a, ds = shape
+    qk, ws, _ = _qk_bank_operands(cuda, b, n, f, c, a, 22)
+    qk = qk.to(torch.bfloat16 if bf16 else torch.float32)
+    out = attn_qk_bank(qk, *ws, ds, bf16=bf16, impl="kernel")
+    ref = attn_qk_bank_plain(qk, *ws, ds, bf16=bf16)
+    err = ((out - ref).abs().max() / ref.abs().max()).item()
+    assert err <= (1e-2 if bf16 else 1e-5), err
+    assert torch.equal(out, attn_qk_bank(qk, *ws, ds, bf16=bf16, impl="kernel"))
+
+
+def test_attn_qk_bank_fwd_plan_matches_kernel(cuda):
+    """The wrapper's shared-memory count is the forward kernel's own layout."""
+    import ctypes
+
+    from moleculesde_tpu_torch.kernels import build
+    from moleculesde_tpu_torch.ops.attn_qk_bank import fwd_plan
+
+    fn = build.load("attn_qk_bank").attn_qk_bank_fwd_smem_bytes
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3
+    for n, f, a in ((32, 16, 32), (32, 300, 32), (64, 16, 32), (9, 13, 8), (33, 260, 32),
+                    (334, 16, 32)):
+        fc, smem = fwd_plan(n, f, a)
+        assert smem == fn(n, fc, a)
+
+
 def test_attn_bank_kernels_refuse_shapes(cuda):
     """Shapes the bank kernels are not built for raise, never fall back."""
     q = torch.zeros(2, 2, 33, 32, device=cuda)
@@ -544,6 +621,9 @@ def test_attn_bank_kernels_refuse_shapes(cuda):
     q = torch.zeros(2, 2, 8, 30, device=cuda)
     with pytest.raises(ValueError, match="multiple of ds"):
         attn_map_bank_kernel(q, q, 4)
-    qk, ws, _ = _qk_bank_operands(cuda, 2, 32, 2000, 2, 32, 0)
-    with pytest.raises(ValueError, match="shared memory"):
+    qk, ws, _ = _qk_bank_operands(cuda, 2, 600, 16, 2, 32, 0)
+    with pytest.raises(ValueError, match="forward kernel.*shared memory"):
         attn_qk_bank(qk, *ws, 4)
+    qk, ws, g = _qk_bank_operands(cuda, 2, 33, 16, 2, 32, 0)
+    with pytest.raises(ValueError, match="backward kernel: needs N <= 32"):
+        attn_qk_bank_bwd(qk, *ws, g, 4, impl="kernel")

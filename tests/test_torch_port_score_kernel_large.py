@@ -1,0 +1,97 @@
+"""Port parity past n_max 32: K6's plain version
+(``moleculesde_tpu_torch.ops.score_kernel.score_eval_fused_plain``) at N = 40
+against the JAX package's Pallas kernel in interpret mode (variants 1 and
+2, f32 and bf16, at the bars of ``test_torch_port_score_kernel.py``: f32
+2e-5 of the largest value, sums in another order; bf16 1e-2, both sides
+rounding at the same points), and K6's launch plan ``score_plan``: a
+cluster of 2 blocks per molecule up to n_max 32 and 4 up to 64, the
+shared memory of each plan, and the message past it (n_max 64 is the limit
+in both modes).  The kernel itself runs only on the card
+(``test_torch_port_kernels.py``)."""
+
+import numpy as np
+import pytest
+import torch
+
+from moleculesde_tpu.ops.score_kernel import pack_score_params as jax_pack
+from moleculesde_tpu.ops.score_kernel import score_eval_fused as jax_score_eval_fused
+from moleculesde_tpu_torch.ops.common import SMEM_LIMIT
+from moleculesde_tpu_torch.ops.score_kernel import (
+    KERNEL_N_MAX, pack_score_params, score_eval_fused, score_eval_fused_plain,
+    score_layout_bytes, score_plan)
+
+from test_torch_port_score_kernel import _models, _operands
+from torch_port_common import ieee_f32, rel_err, t  # noqa: F401 (ieee_f32: autouse)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("variant", [1, 2])
+def test_score_eval_fused_plain_matches_pallas_kernel_past_32(variant, bf16):
+    """N = 40: two chunks of 32 sources in the kernel, the second ragged."""
+    v, tm = _models(variant)
+    pos, node, edge, mask = _operands(10 + variant, b=1, n=40)
+    ref = np.asarray(jax_score_eval_fused(pos, node, edge, mask, jax_pack(v["params"], variant),
+                                          variant=variant, bf16=bf16, interpret=True))
+    out = score_eval_fused_plain(t(pos), t(node), t(edge), t(mask),
+                                 pack_score_params(tm, variant), variant=variant, bf16=bf16)
+    assert out.shape == ref.shape == (1, 40, 3)
+    assert rel_err(out.numpy(), ref) <= (1e-2 if bf16 else 2e-5)
+
+
+# (n_max, blocks per molecule, destinations per block, threads per block)
+PLANS = [(1, 2, 1, 512), (11, 2, 6, 512), (32, 2, 16, 512), (33, 4, 9, 256),
+         (40, 4, 10, 256), (64, 4, 16, 256)]
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n, cluster, dests, threads", PLANS)
+def test_score_plan_clusters(n, cluster, dests, threads, bf16):
+    plan = score_plan(n, bf16)
+    assert (plan["cluster"], plan["dests"], plan["threads"]) == (cluster, dests, threads)
+    assert dests == -(-n // cluster)   # the last block may own fewer, or none
+    assert plan["smem"] == score_layout_bytes(n, dests, bf16) <= SMEM_LIMIT
+
+
+def test_score_plan_fits_every_n_max_it_takes():
+    for n in range(1, KERNEL_N_MAX + 1):
+        for bf16 in (False, True):
+            assert score_plan(n, bf16)["smem"] <= SMEM_LIMIT
+
+
+def test_score_plan_shared_memory_at_the_main_shapes():
+    """The bytes csrc/score_eval.cu's layout gives (the card test
+    test_score_eval_plan_matches_kernel holds the kernel's own count to
+    them): the slab, 37 KB of weights, the double-buffered node state, q /
+    k / v / skip, the warps' tiles in bf16 mode and the small rows."""
+    assert score_plan(32, True)["smem"] == 182464
+    assert score_plan(32, False)["smem"] == 133312
+    assert score_plan(64, True)["smem"] == 213056
+    assert score_plan(64, False)["smem"] == 225344
+    # a bf16 slab row is 80 bytes, an f32 one 128: 16 destinations x 64
+    # sources differ by 48 B a row
+    assert (score_layout_bytes(64, 16, False) - score_layout_bytes(64, 16, True)
+            == 16 * 64 * 48 - 8 * 4608)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [65, 128])
+def test_score_plan_refuses_past_64(n, bf16):
+    mode = "bf16" if bf16 else "f32"
+    with pytest.raises(ValueError, match=f"n_max {n} is past the cluster plan .*"
+                                         f"n_max <= {KERNEL_N_MAX} in {mode} mode"):
+        score_plan(n, bf16)
+
+
+def test_kernel_wrapper_checks_the_plan_before_the_device():
+    """On CPU tensors ``impl="kernel"`` raises: past the plan with the plan's
+    message, inside it for want of a CUDA tensor; no launch is counted."""
+    _, tm = _models(1)
+    packed = pack_score_params(tm, 1)
+    launches = score_eval_fused.launches
+    for n, match in ((65, "past the cluster plan"), (40, "CUDA")):
+        pos, node, edge, mask = (t(x) for x in _operands(7, b=1, n=n))
+        with pytest.raises(ValueError, match=match):
+            score_eval_fused(pos, node, edge, mask, packed, variant=1, impl="kernel")
+    assert score_eval_fused.launches == launches
+    out = score_eval_fused(pos, node, edge, mask, packed, variant=1)   # plain on the CPU
+    assert out.shape == (1, 40, 3) and bool(torch.isfinite(out).all())

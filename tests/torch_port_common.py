@@ -23,20 +23,42 @@ from moleculesde_tpu_torch.data.synthetic import random_molecule
 CPU = "cpu"
 
 
+def numeric_state() -> str:
+    """The process-wide settings that the two frameworks' f32 products
+    read, as one line for a failure message: torch's float32 matmul
+    precision (legacy and per-backend), its intra-op threads, JAX's
+    default matmul precision and x64 flag."""
+    def read(get):
+        try:
+            return get()
+        except RuntimeError as e:   # torch's legacy getter after a mix of the two APIs
+            return f"unreadable ({str(e)[:40]})"
+
+    return (f"torch matmul precision {read(torch.get_float32_matmul_precision)!r}, "
+            f"mkldnn matmul {read(lambda: torch.backends.mkldnn.matmul.fp32_precision)!r}, "
+            f"mkldnn {read(lambda: torch.backends.mkldnn.fp32_precision)!r}, "
+            f"threads {torch.get_num_threads()}; jax matmul precision "
+            f"{jax.config.jax_default_matmul_precision!r}, x64 {jax.config.jax_enable_x64}")
+
+
 @contextlib.contextmanager
 def ieee_f32_products():
     """Full-f32 products in both frameworks for the block: torch's float32
-    matmul precision "highest" (which sets oneDNN's fp32 math mode on the
-    CPU to IEEE) and JAX's default matmul precision "highest"; torch's
-    process-wide setting is restored afterwards.  A reduced mode ("high" /
-    "medium") left in the process lets torch's CPU products of f32 operands
-    run at less than f32 precision, far past the 1e-5 parity bars: once, in
-    a 6-worker run of the suite, K7's 2-term per-head dots read 1e-5 off the
-    float64 oracle on the port's side (test_torch_port_attn_bank.py)."""
+    matmul precision "highest" (which also sets the oneDNN and CUDA matmul
+    backends' fp32 precision to IEEE), JAX's default matmul precision
+    "highest" and 32-bit JAX types; torch's process-wide setting is
+    restored afterwards.  A reduced mode ("high" / "medium") left in the
+    process lets torch's CPU products of f32 operands run at less than f32
+    precision, far past the 1e-5 parity bars: once, in a 6-worker run of
+    the suite, K7's 2-term per-head dots read 1e-5 off the float64 oracle
+    on the port's side (test_torch_port_attn_bank.py).  That failure and a
+    later one have not been reproduced since (two 6-worker runs and the K7
+    test after each other test file in one process); the K7 test's
+    messages name the side, the place and :func:`numeric_state`."""
     saved = torch.get_float32_matmul_precision()
     torch.set_float32_matmul_precision("highest")
     try:
-        with jax.default_matmul_precision("highest"):
+        with jax.default_matmul_precision("highest"), jax.enable_x64(False):
             yield
     finally:
         torch.set_float32_matmul_precision(saved)
