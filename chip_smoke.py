@@ -5,8 +5,8 @@ channel-major chain, the fused chain and the pair_cm_direct chain), 3D->2D
 graph generation through its CLI (three forms of the attention bank), and
 pretraining steps through the pretraining CLI's functions (padded ingest
 with K2; the JAX CLI's default compact ingest with K5; the three
-microbatch scopes; PaiNN; the default path at n_max 64) -- and checks what
-comes out.
+microbatch scopes; PaiNN; the default path at n_max 64 and 128) -- and
+checks what comes out.
 
     python3 chip_smoke.py
 
@@ -88,13 +88,18 @@ Phases (any failure exits non-zero):
  12. PaiNN: two steps with ``--model_3d PaiNN`` at full width (emb 300, 3
      interactions, 20 radial functions), K1 5 / 5 and K3 1 / 1 per step,
      every metric finite, step ms printed;
- 13. n_max 64: the JAX CLI's default path (compact ingest, K2) at
-     ``--n_max 64``, B=128: K2 and K5 forward and backward against their
-     plain versions on its operands (bf16 and f32, the bars of 7), two
-     forward and two backward runs of each bit for bit and K5's forward and
-     backward equal to K2's on the same smearing; two steps with K1 5 / 5, K2 6 / 6, K3 1 / 1 per
-     step, every metric finite; one step against an all-plain build as in
-     7; then the K2 / K5 phases at ``--n_max 128``, B=32.
+ 13. n_max 64 and 128: the JAX CLI's default path (compact ingest, K2) at
+     ``--n_max 64``, B=128, then at ``--n_max 128``, B=32 (the CLI's B=128
+     cut to 32): K2 and K5 forward and backward against their plain
+     versions on its operands (bf16 and f32, the bars of 7), two forward
+     and two backward runs of each bit for bit and K5's forward and
+     backward equal to K2's on the same smearing; K1 forward and backward
+     on GIN layer 0's operands (and at n_max 128 K3 and K4 on the edge
+     embedding's) against their plain versions at the bars of 7, two
+     backward runs of each bit for bit in both modes; two steps with K1 5 /
+     5, K2 6 / 6, K3 1 / 1 per step, every metric finite; a third step's
+     wall and device-busy time under the profiler and the peak device
+     memory; one step against an all-plain build as in 7.
 The line before the last lists every kernel as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1537,25 +1542,79 @@ def large_n_kernel_phases(models, batch, label):
     return results
 
 
-def large_n_path(dev):
-    """Phase 13: the JAX CLI's default path (compact ingest, K2) at
-    ``--n_max 64``, B=128: K2 / K5 phases on its operands, two steps with
-    the launch counts per step (K1 5 / 5, K2 6 / 6, K3 1 / 1), every metric
-    finite, one step against an all-plain build; then K2 / K5 phases at
-    ``--n_max 128``, B=32.  Returns ({"n_max_64": ..., "n_max_128": ...}
-    kernel results, launch counts of the two steps)."""
-    from moleculesde_tpu_torch.benchmarks.profile_pretrain import (
-        COMMON_ARGS, parse_path, path_batches)
-    from moleculesde_tpu_torch.examples import pretrain as cli
+def large_n_gin_pair_phases(models, batch, label, pair: bool):
+    """K1 (and with ``pair`` K3 and K4), forward and backward, against their
+    plain versions on GIN layer 0's (and the 2D->3D edge embedding's)
+    operands of ``batch`` (expanded on the card), in bf16 (the path's mode)
+    and f32 at the training phase's bars; then two backward runs of each,
+    bit for bit, in both modes."""
+    from moleculesde_tpu_torch.data.compact import expand_on_device
+
+    with torch.no_grad():
+        k1, _, k3 = training_operands(models, expand_on_device(batch))
+    x, src, dst, boh, table = k1
+    a, c, w, bias = k3
+    b, n, _ = x.shape
+    h = w.shape[1]
+    gen = torch.Generator(device=x.device).manual_seed(7)
+    g1 = torch.randn(x.shape, generator=gen, device=x.device)
+    g3 = torch.randn((b, n, n, h), generator=gen, device=a.device)
+    g4 = torch.randn((b, h, n * n), generator=gen, device=a.device)
+    valid_edges = int(((dst >= 0) & (dst < n)).sum())
+    print(f"{label} K1 operands: x {tuple(x.shape)}, edges {tuple(src.shape)} ({valid_edges} "
+          f"valid)" + (f"; K3 / K4: a, c {tuple(a.shape)}, W {tuple(w.shape)}" if pair else ""),
+          flush=True)
+    results = {}
+    for bf16 in (True, False):   # bf16 is the path's mode
+        sfx = "" if bf16 else "[f32]"
+        peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
+        results["gin_messages" + sfx], results["gin_messages_bwd" + sfx] = grad_phase(
+            f"{label} K1 gin_messages" + sfx,
+            lambda x_, t_, **kw: gin_messages(x_, src, dst, boh, t_, **kw),
+            lambda x_, t_, g_, **kw: gin_messages_bwd(x_, src, dst, boh, t_, g_, **kw),
+            lambda x_, t_, g_, **kw: gin_messages_bwd_plain(x_, src, dst, boh, t_, g_, **kw),
+            (x, table), g1, bf16, 1e-2 if bf16 else 1e-4,
+            k1_cost(x, src, dst, table), k1_cost(x, src, dst, table, bwd=True), peak)
+        with torch.no_grad():
+            same_bits(f"{label} K1 backward" + sfx, lambda bf16=bf16: gin_messages_bwd(
+                x, src, dst, boh, table, g1, bf16=bf16, impl="kernel"))
+        if not pair:
+            continue
+        results["pair_relu_project" + sfx], results["pair_relu_project_bwd" + sfx] = \
+            grad_phase(f"{label} K3 pair_relu_project" + sfx, pair_relu_project,
+                       lambda a_, c_, w_, b_, g_, **kw: pair_relu_project_bwd(
+                           a_, c_, w_, g_, **kw),
+                       lambda a_, c_, w_, b_, g_, **kw: pair_relu_project_bwd_plain(
+                           a_, c_, w_, g_, **kw),
+                       (a, c, w, bias), g3, bf16, 1e-3 if bf16 else 1e-4,
+                       k3_cost(a, w), k3_cost(a, w, bwd=True), peak)
+        results["pair_relu_project_cm" + sfx], results["pair_relu_project_cm_bwd" + sfx] = \
+            grad_phase(f"{label} K4 pair_relu_project_cm" + sfx, pair_relu_project_cm,
+                       pair_relu_project_cm_bwd, pair_relu_project_cm_bwd_plain,
+                       (a, c, w), g4, bf16, 1e-3 if bf16 else 1e-4,
+                       k4_cost(a, w), k4_cost(a, w, bwd=True), peak)
+        with torch.no_grad():
+            same_bits(f"{label} K3 backward" + sfx, lambda bf16=bf16: pair_relu_project_bwd(
+                a, c, w, g3, bf16=bf16, impl="kernel"))
+            same_bits(f"{label} K4 backward" + sfx, lambda bf16=bf16: pair_relu_project_cm_bwd(
+                a, c, w, g4, bf16=bf16, impl="kernel"))
+    print(f"{label}: K1 backward" + (", K3 backward and K4 backward" if pair else "")
+          + " bit-identical over two runs, bf16 and f32", flush=True)
+    return results
+
+
+def large_n_steps(dev, args, cfg, models, optimizer, gen, batches, label, seed):
+    """Two pretraining steps on ``batches[:2]`` with the launch counts per
+    step (K1 5 / 5, K2 6 / 6, K3 1 / 1), every metric finite; a third
+    under the profiler (wall and device-busy ms) and the peak device memory
+    of the three; then one step against an all-plain build on
+    ``batches[3]``.  Returns the launch counts of the two steps."""
     from moleculesde_tpu_torch.pretrain.train_step import METRICS, pretrain_step
 
-    args = parse_path(COMMON_ARGS + ["--n_max", "64"], batches=3)
-    batches = path_batches(args, dev)
-    cfg, models, optimizer, gen = cli.setup(args, dev)
-    check(cfg.schnet_cfconv == "auto" and args.ingest == "compact",
-          "the n_max 64 steps are not on the CLI's default path")
-    results = {"n_max_64": large_n_kernel_phases(models, batches[0], "n_max 64")}
     steps = 2
+    check(len(batches) >= steps + 2, f"{label}: only {len(batches)} batches")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     times = []
     for batch in batches[:steps]:
@@ -1564,23 +1623,54 @@ def large_n_path(dev):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         vals = {k: float(metrics[k]) for k in METRICS}
-        check(all(math.isfinite(v) for v in vals.values()), f"n_max 64 non-finite metrics {vals}")
+        check(all(math.isfinite(v) for v in vals.values()), f"{label} non-finite metrics {vals}")
     launches = read_counts()
     expected = expect(gin_messages=steps * cfg.num_layer, gin_messages_bwd=steps * cfg.num_layer,
                       fused_cfconv=steps * cfg.schnet_num_interactions,
                       fused_cfconv_bwd=steps * cfg.schnet_num_interactions,
                       pair_relu_project=steps, pair_relu_project_bwd=steps)
-    print(f"n_max 64 training: B={args.batch_size}, K2 path; launches {launches} (expected "
+    print(f"{label} training: B={args.batch_size}, K2 path; launches {launches} (expected "
           f"{expected}); step_ms={times[0]:.2f}, {times[1]:.2f} (first steps of a new build)",
           flush=True)
-    check(launches == expected, "n_max 64 training launch counts")
-    step_against_plain(dev, cfg, models, batches[steps], args.seed + 7, "n_max 64")
-    del models, optimizer, batches
+    check(launches == expected, f"{label} training launch counts")
+    saved = [c.launches for c in _counters()]
+    wall, busy = profiled_ms(lambda: pretrain_step(models, optimizer, cfg, batches[steps], gen))
+    for c, k in zip(_counters(), saved):
+        c.launches = k
+    print(f"{label} training, third step under the profiler: wall_ms={wall:.2f} "
+          f"device_busy_ms={busy:.2f}; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB over the three steps",
+          flush=True)
+    step_against_plain(dev, cfg, models, batches[steps + 1], seed, label)
+    return launches
 
-    args = parse_path(COMMON_ARGS + ["--n_max", "128", "--batch_size", "32"], batches=1)
-    _, models, _, _ = cli.setup(args, dev)
-    results["n_max_128"] = large_n_kernel_phases(models, path_batches(args, dev)[0],
-                                                 "n_max 128")
+
+def large_n_path(dev):
+    """Phase 13: the JAX CLI's default path (compact ingest, K2) at
+    ``--n_max 64``, B=128: K2 / K5 and K1 phases on its operands, two steps
+    with the launch counts per step (K1 5 / 5, K2 6 / 6, K3 1 / 1), every
+    metric finite, one profiled step, one step against an all-plain build;
+    then the same at ``--n_max 128``, B=32 (cut from the CLI's 128), with
+    K3 and K4 phases besides.  Returns ({"n_max_64": ..., "n_max_128": ...}
+    kernel results, {n_max: launch counts of the two steps})."""
+    from moleculesde_tpu_torch.benchmarks.profile_pretrain import (
+        COMMON_ARGS, parse_path, path_batches)
+    from moleculesde_tpu_torch.examples import pretrain as cli
+
+    results, launches = {}, {}
+    for n_max, extra in ((64, []), (128, ["--batch_size", "32"])):
+        label = f"n_max {n_max}"
+        args = parse_path(COMMON_ARGS + ["--n_max", str(n_max)] + extra, batches=4)
+        batches = path_batches(args, dev)
+        cfg, models, optimizer, gen = cli.setup(args, dev)
+        check(cfg.schnet_cfconv == "auto" and args.ingest == "compact",
+              f"the {label} steps are not on the CLI's default path")
+        res = large_n_kernel_phases(models, batches[0], label)
+        res.update(large_n_gin_pair_phases(models, batches[0], label, pair=n_max == 128))
+        results[f"n_max_{n_max}"] = res
+        launches[n_max] = large_n_steps(dev, args, cfg, models, optimizer, gen, batches, label,
+                                        args.seed + 7)
+        del models, optimizer, batches
     return results, launches
 
 
@@ -1760,7 +1850,7 @@ def main() -> int:
             **{f"pretrain_microbatch_{scope}_2_steps": counts
                for scope, counts in microbatch_launches.items()},
             "pretrain_painn_2_steps": painn_launches,
-            "pretrain_n_max_64_2_steps": large_n_launches}
+            **{f"pretrain_n_max_{n}_2_steps": counts for n, counts in large_n_launches.items()}}
     keys = ("max_abs_err", "ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms",
             "bound_by")
     k6_keys = keys + ("max_rel_err",)
@@ -1793,11 +1883,11 @@ def main() -> int:
                      "cluster_by_n_max": {n: score_plan(n, True)["cluster"] for n in (32, 64)}}
         else:
             r, f32 = train_results[name], train_results[name + "[f32]"]
-            extra = {}
-            if name.startswith("fused_cfconv"):   # past n_max 32, bf16 and f32
-                extra = {size: {mode: {k: res[name + sfx][k] for k in keys + ("max_rel_err",)}
-                                for mode, sfx in (("bf16", ""), ("f32", "[f32]"))}
-                         for size, res in large_n_results.items()}
+            # past n_max 32, bf16 and f32: K1, K2 / K5 at n_max 64 and 128, K3 /
+            # K4 at n_max 128
+            extra = {size: {mode: {k: res[name + sfx][k] for k in keys + ("max_rel_err",)}
+                            for mode, sfx in (("bf16", ""), ("f32", "[f32]"))}
+                     for size, res in large_n_results.items() if name in res}
             if name in sampler_results:
                 extra["sampler_operands"] = {
                     mode: {k: sampler_results[name + sfx][k] for k in keys}

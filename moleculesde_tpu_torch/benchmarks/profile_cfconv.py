@@ -37,7 +37,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import importlib.util
 import re
 import shutil
 import subprocess
@@ -199,22 +198,10 @@ def run_backward(lib, b: int, n: int, bf16: bool, reps: int = 20) -> None:
           + f"; total {slots[:7].sum() / tiles:.0f}", flush=True)
 
 
-def _device_ms():
-    """``chip_smoke.py``'s device-time method (``timing.py`` beside this
-    file), loaded by path: with ``--times`` a parent checkout's package may
-    come first on the path, and it need not hold the module."""
-    spec = importlib.util.spec_from_file_location(
-        "cfconv_profile_timing", Path(__file__).resolve().with_name("timing.py"))
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.device_ms
-
-
 def times(label: str) -> None:
+    from moleculesde_tpu_torch.benchmarks.timing import device_ms
     from moleculesde_tpu_torch.ops.cfconv import (
         fused_cfconv, fused_cfconv_bwd, fused_cfconv_rbf, fused_cfconv_rbf_bwd, smear)
-
-    device_ms = _device_ms()
 
     for b, n in SHAPES:
         dist, env, params, g = operands(b, n)

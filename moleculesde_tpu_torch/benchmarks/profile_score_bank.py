@@ -28,9 +28,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import subprocess
 
-import numpy as np
 import torch
 
 K6_PHASES = (["staging", "phase 1", "cluster sync"]
@@ -72,49 +70,14 @@ def k8_operands(b: int, n: int, f: int, c: int, a: int = 32, seed: int = 21):
     return torch.randn(b, n, f, device=dev, generator=gen), ws
 
 
-def _build(name: str) -> ctypes.CDLL:
-    from moleculesde_tpu_torch.kernels import build
-
-    out = build.BUILD_DIR.parent / "profile"
-    out.mkdir(parents=True, exist_ok=True)
-    lib = out / f"lib{name}_phases.so"
-    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-DPHASE_PROFILE", "-o", str(lib),
-                    str(build.CSRC_DIR / f"{name}.cu")], check=True, capture_output=True,
-                   text=True)
-    return ctypes.CDLL(str(lib))
-
-
-def _stamps(lib, blocks: int, slots: int, launch) -> np.ndarray:
-    """[blocks, slots] globaltimer stamps (ns) of one launch after warm-up."""
-    for _ in range(3):
-        launch()
-    stamps = torch.zeros(blocks * slots, dtype=torch.int64, device="cuda")
-    lib.set_phase_profile(ctypes.c_void_p(stamps.data_ptr()))
-    launch()
-    torch.cuda.synchronize()
-    lib.set_phase_profile(ctypes.c_void_p(0))
-    return stamps.view(blocks, slots).cpu().numpy()
-
-
-def _print_stamps(title: str, p: np.ndarray, phases) -> None:
-    p = p[:, :len(phases) + 1]
-    t0 = p[:, 0].min()
-    dur = (p[:, -1] - p[:, 0]) / 1e3
-    step = np.median(np.diff(p, axis=1), axis=0) / 1e3
-    starts = np.sort(p[:, 0] - t0) / 1e3
-    print(f"{title}: span {(p[:, -1].max() - t0) / 1e3:.2f} us, block median {np.median(dur):.2f} "
-          f"us (min {dur.min():.2f}, max {dur.max():.2f})", flush=True)
-    print("  phase medians us: " + ", ".join(f"{k} {v:.2f}" for k, v in zip(phases, step)))
-    print("  block start quantiles us (0, 25, 50, 75, 100%): "
-          + ", ".join(f"{np.quantile(starts, q):.1f}" for q in (0, 0.25, 0.5, 0.75, 1.0)))
-
-
 def phases() -> None:
+    from moleculesde_tpu_torch.benchmarks.timing import (
+        phase_library, phase_stamps, print_phase_stamps)
     from moleculesde_tpu_torch.ops.attn_qk_bank import _weight_ptrs, fwd_plan
     from moleculesde_tpu_torch.ops.common import stream
     from moleculesde_tpu_torch.ops.score_kernel import score_param_layout, score_plan
 
-    lib = _build("score_eval")
+    lib = phase_library("score_eval")
     fn = lib.score_eval_fused
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
                    + [ctypes.c_int] * 9 + [ctypes.c_void_p])
@@ -131,9 +94,9 @@ def phases() -> None:
                     int(bf16), plan["cluster"], plan["dests"], plan["smem"], stream(pos))
             assert rc == 0, rc
 
-        _print_stamps(f"K6 B={b} n_max {n} {'bf16' if bf16 else 'f32'} {plan}",
-                      _stamps(lib, b * plan["cluster"], 32, launch), K6_PHASES)
-    lib = _build("attn_qk_bank")
+        print_phase_stamps(f"K6 B={b} n_max {n} {'bf16' if bf16 else 'f32'} {plan}",
+                           phase_stamps(lib, b * plan["cluster"], 32, launch), K6_PHASES)
+    lib = phase_library("attn_qk_bank")
     fn = lib.attn_qk_bank_fwd
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     for b, n, f, c, bf16 in K8_SHAPES:
@@ -148,8 +111,8 @@ def phases() -> None:
                     int(bf16), int(bf16), fc, smem, stream(qk))
             assert rc == 0, rc
 
-        _print_stamps(f"K8 forward B={b} N={n} F={f} C={c} {'bf16' if bf16 else 'f32'}",
-                      _stamps(lib, b * c, 8, launch), K8_PHASES)
+        print_phase_stamps(f"K8 forward B={b} N={n} F={f} C={c} {'bf16' if bf16 else 'f32'}",
+                           phase_stamps(lib, b * c, 8, launch), K8_PHASES)
 
 
 def times(label: str) -> None:

@@ -1,11 +1,15 @@
 """Device timings on the GPU, one method for ``chip_smoke.py`` and the
-profile scripts."""
+profile scripts, and the block phase stamps of a kernel source built with
+``-DPHASE_PROFILE`` (``csrc/hopper.cuh``)."""
 
 from __future__ import annotations
 
+import ctypes
 import statistics
+import subprocess
 import time
 
+import numpy as np
 import torch
 
 
@@ -59,3 +63,46 @@ def profiled_ms(fn):
     busy_us = sum(e.device_time for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA)
     return wall_ms, busy_us / 1e3
+
+
+def phase_library(name: str) -> ctypes.CDLL:
+    """``csrc/<name>.cu`` built with ``-DPHASE_PROFILE`` (the port's ``nvcc``
+    flags otherwise) into ``build/profile/``, loaded."""
+    from moleculesde_tpu_torch.kernels import build
+
+    out = build.BUILD_DIR.parent / "profile"
+    out.mkdir(parents=True, exist_ok=True)
+    lib = out / f"lib{name}_phases.so"
+    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-DPHASE_PROFILE", "-o", str(lib),
+                    str(build.CSRC_DIR / f"{name}.cu")], check=True, capture_output=True,
+                   text=True)
+    return ctypes.CDLL(str(lib))
+
+
+def phase_stamps(lib: ctypes.CDLL, blocks: int, slots: int, launch) -> np.ndarray:
+    """[blocks, slots] ``%globaltimer`` stamps (ns) of one ``launch`` of a
+    :func:`phase_library` kernel, after three launches of warm-up."""
+    for _ in range(3):
+        launch()
+    stamps = torch.zeros(blocks * slots, dtype=torch.int64, device="cuda")
+    lib.set_phase_profile(ctypes.c_void_p(stamps.data_ptr()))
+    launch()
+    torch.cuda.synchronize()
+    lib.set_phase_profile(ctypes.c_void_p(0))
+    return stamps.view(blocks, slots).cpu().numpy()
+
+
+def print_phase_stamps(title: str, p: np.ndarray, phases) -> None:
+    """The span from the first block's start to the last block's end, the
+    median block time, the median of each phase (between consecutive marks)
+    and the quantiles of the blocks' start times, which show the waves."""
+    p = p[:, :len(phases) + 1]
+    t0 = p[:, 0].min()
+    dur = (p[:, -1] - p[:, 0]) / 1e3
+    step = np.median(np.diff(p, axis=1), axis=0) / 1e3
+    starts = np.sort(p[:, 0] - t0) / 1e3
+    print(f"{title}: span {(p[:, -1].max() - t0) / 1e3:.2f} us, block median {np.median(dur):.2f} "
+          f"us (min {dur.min():.2f}, max {dur.max():.2f})", flush=True)
+    print("  phase medians us: " + ", ".join(f"{k} {v:.2f}" for k, v in zip(phases, step)))
+    print("  block start quantiles us (0, 25, 50, 75, 100%): "
+          + ", ".join(f"{np.quantile(starts, q):.1f}" for q in (0, 0.25, 0.5, 0.75, 1.0)))

@@ -154,12 +154,12 @@
 #include <atomic>
 #include <cstdint>
 
+#include "hopper.cuh"
 #include "partials.cuh"
 
 namespace {
 
 constexpr float kLog2 = 0.693147180559945309f;
-constexpr size_t kSmemLimit = 232448;   // dynamic shared memory a block may use
 // pieces the ea copies are made of: the forward's rows are long runs
 // (a 32-column chunk of one row i), the backward's short (J pairs)
 constexpr int kFwdCopyBytes = 16, kBwdCopyBytes = 4;

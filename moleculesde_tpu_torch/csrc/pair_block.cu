@@ -32,14 +32,19 @@
 // relu mask still comes from the f32 pair) and keeps db in f32, as the TPU
 // kernel does.  Bound: arithmetic, 4*N*N*C*H flops per graph (two
 // products), ~2.5 GFLOP at B=128, N=32, C=300, H=32.  Design: one block
-// per graph, one thread per channel c.  A thread holds w[c, :] and its
-// dw[c, :] accumulators in registers; the graph's cc rows and the dc
-// accumulators live in shared memory (the thread's own column, so no
-// conflicts), and g is staged one source row s at a time ([N, 32],
-// broadcast reads).  The pair value is formed once per (s, d, c) and feeds
-// both products.  dw and db are batch-wide sums: each block writes its
-// graph's partial and a second launch adds them in graph order
-// (partials.cuh), so the result is the same on every run.
+// per (graph, chunk of CC channels), one thread per channel c.  A thread
+// holds w[c, :] and its dw[c, :] accumulators in registers; the chunk's
+// columns of the graph's cc rows and its dc accumulators live in shared
+// memory (the thread's own column, so no conflicts), and each block stages
+// g one source row s at a time ([N, 32], broadcast reads).  The pair value
+// is formed once per (s, d, c) and feeds both products.  Shared memory is
+// (32*N + 2*N*CC) words: bwd_chunk picks the fewest chunks that fit (one,
+// CC = C, up to N = 64 at C = 300; two of up to 160 channels at N = 128),
+// and a thread's order of operations does not depend on the chunking, so
+// neither does the result.  dw and db are batch-wide sums: each block
+// writes its channels' share of its graph's partial (chunk 0 also db) and
+// a second launch adds them in graph order (partials.cuh), so the result
+// is the same on every run.
 //
 // K4, the channel-major variant (template flag CM), replaces
 // moleculesde_tpu/ops/pair_block.py::_fwd_kernel_cm (pallas_call at l.337)
@@ -62,6 +67,7 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include "hopper.cuh"
 #include "partials.cuh"
 
 namespace {
@@ -176,23 +182,27 @@ __global__ void pair_relu_project_bwd_kernel(const float* __restrict__ a,
                                              float* __restrict__ dc,
                                              float* __restrict__ dw_part,  // [B, C, H]
                                              float* __restrict__ db_part,  // [B, H]; !CM
-                                             int N, int C, int H, int bf16) {
+                                             int N, int C, int H, int CC, int bf16) {
   extern __shared__ __align__(16) float smem[];
   float* grow = smem;                  // [N][kChanTile]: g[b, s, :, :]
-  float* cs = grow + N * kChanTile;    // [N][C]
-  float* dcs = cs + N * C;             // [N][C]
+  float* cs = grow + N * kChanTile;    // [N][CC]: the chunk's columns of cc
+  float* dcs = cs + N * CC;            // [N][CC]
 
   const int b = blockIdx.x;
-  const int c = threadIdx.x;
-  const bool active = c < C;
+  const int c0 = blockIdx.y * CC;      // the chunk's first channel
+  const int cl = threadIdx.x;          // the thread's channel within the chunk
+  const int c = c0 + cl;
+  const bool active = cl < CC && c < C;
   const size_t nn = static_cast<size_t>(N) * N;
   const float* ab = a + static_cast<size_t>(b) * N * C;
   const float* cb = cc + static_cast<size_t>(b) * N * C;
   const float* gb = g + static_cast<size_t>(b) * nn * H;  // [N*N, H], or [H, N*N] if CM
   const bool round_halves = CM && bf16;
 
-  for (int i = c; i < N * C; i += blockDim.x) {
-    cs[i] = round_halves ? round_bf16(cb[i]) : cb[i];
+  for (int i = cl; i < N * CC; i += blockDim.x) {
+    const int r = i / CC, k = i - r * CC;
+    const float v = c0 + k < C ? cb[static_cast<size_t>(r) * C + c0 + k] : 0.f;
+    cs[i] = round_halves ? round_bf16(v) : v;
     dcs[i] = 0.f;
   }
   float wr[kChanTile], dwr[kChanTile];
@@ -202,16 +212,16 @@ __global__ void pair_relu_project_bwd_kernel(const float* __restrict__ a,
     wr[h] = bf16 ? round_bf16(v) : v;
     dwr[h] = 0.f;
   }
-  // db: unrounded f32 sum of g over the graph's pairs, in pair order
-  if (!CM && c < H) {
+  // db: unrounded f32 sum of g over the graph's pairs, in pair order (chunk 0)
+  if (!CM && blockIdx.y == 0 && cl < H) {
     float acc = 0.f;
-    for (size_t p = 0; p < nn; ++p) acc += gb[p * H + c];
-    db_part[static_cast<size_t>(b) * H + c] = acc;
+    for (size_t p = 0; p < nn; ++p) acc += gb[p * H + cl];
+    db_part[static_cast<size_t>(b) * H + cl] = acc;
   }
 
   for (int s = 0; s < N; ++s) {
     __syncthreads();  // previous row's g fully consumed (and cs / dcs ready)
-    for (int i = c; i < N * kChanTile; i += blockDim.x) {
+    for (int i = cl; i < N * kChanTile; i += blockDim.x) {
       float v;
       int d, h;
       if (CM) {  // neighbouring threads read neighbouring d of one channel
@@ -231,7 +241,7 @@ __global__ void pair_relu_project_bwd_kernel(const float* __restrict__ a,
     const float as = round_halves ? round_bf16(a_raw) : a_raw;
     float da_acc = 0.f;
     for (int d = 0; d < N; ++d) {
-      const float pair = as + cs[d * C + c];
+      const float pair = as + cs[d * CC + cl];
       const float r = fmaxf(pair, 0.f);
       const float rr = bf16 ? round_bf16(r) : r;
       const float4* gr = reinterpret_cast<const float4*>(grow + d * kChanTile);
@@ -251,18 +261,52 @@ __global__ void pair_relu_project_bwd_kernel(const float* __restrict__ a,
       float dp = pair > 0.f ? dr : 0.f;
       if (round_halves) dp = round_bf16(dp);  // K4 rounds dpair before the sums
       da_acc += dp;
-      dcs[d * C + c] += dp;
+      dcs[d * CC + cl] += dp;
     }
     da[(static_cast<size_t>(b) * N + s) * C + c] = da_acc;
   }
 
   if (!active) return;  // no barrier below this point
   for (int d = 0; d < N; ++d)
-    dc[(static_cast<size_t>(b) * N + d) * C + c] = dcs[d * C + c];
+    dc[(static_cast<size_t>(b) * N + d) * C + c] = dcs[d * CC + cl];
   float* pw = dw_part + (static_cast<size_t>(b) * C + c) * H;
 #pragma unroll
   for (int h = 0; h < kChanTile; ++h)
     if (h < H) pw[h] = dwr[h];
+}
+
+// Channels per block of the backward: the fewest chunks of
+// min(C, 32 * ceil(ceil(C / k) / 32)) channels whose shared memory,
+// (32*N + 2*N*CC) words, fits a block; 0 if even 32 channels do not fit.
+// Mirrored by ops/pair_block.py::bwd_plan.
+int bwd_chunk(int N, int C) {
+  for (int k = 1;; ++k) {
+    const int per = ((C + k - 1) / k + 31) / 32 * 32;
+    const int cc = per < C ? per : C;
+    const size_t smem = (static_cast<size_t>(N) * kChanTile +
+                         2 * static_cast<size_t>(N) * cc) * sizeof(float);
+    if (cc <= 1024 && smem <= kSmemLimit) return cc;
+    if (cc <= 32) return 0;
+  }
+}
+
+template <bool CM>
+int launch_bwd(const float* a, const float* cc, const float* w, const float* g, float* da,
+               float* dc, float* dw_part, float* db_part, int B, int N, int C, int H,
+               int bf16, cudaStream_t s) {
+  const int CC = bwd_chunk(N, C);
+  if (CC <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = (static_cast<size_t>(N) * kChanTile +
+                       2 * static_cast<size_t>(N) * CC) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      pair_relu_project_bwd_kernel<CM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B, (C + CC - 1) / CC);
+  const int threads = ((CC + 31) / 32) * 32;
+  pair_relu_project_bwd_kernel<CM><<<grid, threads, smem, s>>>(
+      a, cc, w, g, da, dc, dw_part, db_part, N, C, H, CC, bf16);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -306,50 +350,38 @@ extern "C" int pair_relu_project_cm_fwd(const float* a, const float* cc,
 
 // da, dc [B, N, C], dw [C, H], db [H]; dw_part (B * C * H floats) and
 // db_part (B * H floats) are caller-allocated scratch.  Needs H <= 32 and
-// C <= 1024.
+// a channel chunk that fits (bwd_chunk).
 extern "C" int pair_relu_project_bwd(const float* a, const float* cc,
                                      const float* w, const float* g, float* da,
                                      float* dc, float* dw, float* db,
                                      float* dw_part, float* db_part, int B,
                                      int N, int C, int H, int bf16,
                                      void* stream) {
-  const size_t smem = (static_cast<size_t>(N) * kChanTile +
-                       2 * static_cast<size_t>(N) * C) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      pair_relu_project_bwd_kernel<false>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int threads = ((C + 31) / 32) * 32;
-  pair_relu_project_bwd_kernel<false><<<B, threads, smem, s>>>(
-      a, cc, w, g, da, dc, dw_part, db_part, N, C, H, bf16);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rc = launch_bwd<false>(a, cc, w, g, da, dc, dw_part, db_part, B, N, C, H,
+                                   bf16, s);
+  if (rc != 0) return rc;
   partials::sum_rows(dw_part, dw, B, C * H, s);
   partials::sum_rows(db_part, db, B, H, s);
   return static_cast<int>(cudaGetLastError());
 }
 
 // K4 backward: g [B, H, N*N]; da, dc [B, N, C], dw [C, H], no db; dw_part
-// (B * C * H floats) is caller-allocated scratch.  Needs H <= 32 and
-// C <= 1024.
+// (B * C * H floats) is caller-allocated scratch.  Needs H <= 32 and a
+// channel chunk that fits (bwd_chunk).
 extern "C" int pair_relu_project_cm_bwd(const float* a, const float* cc,
                                         const float* w, const float* g,
                                         float* da, float* dc, float* dw,
                                         float* dw_part, int B, int N, int C,
                                         int H, int bf16, void* stream) {
-  const size_t smem = (static_cast<size_t>(N) * kChanTile +
-                       2 * static_cast<size_t>(N) * C) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      pair_relu_project_bwd_kernel<true>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int threads = ((C + 31) / 32) * 32;
-  pair_relu_project_bwd_kernel<true><<<B, threads, smem, s>>>(
-      a, cc, w, g, da, dc, dw_part, nullptr, N, C, H, bf16);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rc = launch_bwd<true>(a, cc, w, g, da, dc, dw_part, nullptr, B, N, C, H,
+                                  bf16, s);
+  if (rc != 0) return rc;
   partials::sum_rows(dw_part, dw, B, C * H, s);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The backward's channels per block at (N, C), 0 where none fits: the
+// plan the wrappers mirror (ops/pair_block.py::bwd_plan).
+extern "C" int pair_relu_project_bwd_chunk(int N, int C) { return bwd_chunk(N, C); }

@@ -82,28 +82,11 @@
 #include <cooperative_groups.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace cg = cooperative_groups;
 
 constexpr int kPhaseSlots = 32;   // PHASE_PROFILE marks per block
-
-// With -DPHASE_PROFILE (benchmarks/profile_score_bank.py): thread 0 of each
-// block stamps %globaltimer at the marks into g_phase[block][slot].
-#ifdef PHASE_PROFILE
-__device__ long long* g_phase = nullptr;
-extern "C" int set_phase_profile(long long* p) {
-  return static_cast<int>(cudaMemcpyToSymbol(g_phase, &p, sizeof(p)));
-}
-#define PHASE_MARK(k)                                                          \
-  do {                                                                         \
-    if (g_phase && threadIdx.x == 0) {                                         \
-      long long t_;                                                            \
-      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));                  \
-      g_phase[blockIdx.x * kPhaseSlots + (k)] = t_;                            \
-    }                                                                          \
-  } while (0)
-#else
-#define PHASE_MARK(k) ((void)(k))
-#endif
 
 namespace {
 

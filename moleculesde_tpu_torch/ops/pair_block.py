@@ -9,8 +9,10 @@ On a CUDA tensor the wrappers launch the hand-written kernels of
 (``pallas_call`` at ``ops/pair_block.py:170``), ``_bwd_kernel`` (l.193),
 ``_fwd_kernel_cm`` (l.337) and ``_bwd_kernel_cm`` (l.361): all are
 arithmetic-bound and form each pair value in registers, once per channel,
-so the pair tensor never reaches device memory (the source's header says
-more).  On a CPU tensor they take the ``*_plain`` versions.
+so the pair tensor never reaches device memory; the backward splits a
+graph's channels into as many blocks as its shared memory needs
+(:func:`bwd_plan`), so it takes any N up to ~600 at C = 300 (the source's
+header says more).  On a CPU tensor they take the ``*_plain`` versions.
 :func:`pair_relu_project` (K3, ``[B, N, N, H]``) and
 :func:`pair_relu_project_cm` (K4, ``[B, H, N*N]``) are differentiable
 through ``torch.autograd.Function``s: a, c, w and the bias get gradients,
@@ -107,6 +109,38 @@ def pair_relu_project_cm_bwd_plain(a, c, w, g, *, bf16: bool = False):
     return dpair.sum(dim=2), dpair.sum(dim=1), dw
 
 
+def bwd_plan(n: int, cdim: int) -> dict:
+    """Launch plan of the backward kernels (K3 and K4), mirrored from
+    ``csrc/pair_block.cu::bwd_chunk``: one block per (graph, chunk of
+    ``chunk`` channels), the fewest chunks of
+    ``min(C, 32 * ceil(ceil(C / k) / 32))`` channels whose shared memory,
+    ``(32 N + 2 N chunk)`` words, fits ``SMEM_LIMIT``: one chunk (C
+    channels, a block per graph) at N <= 64 for C = 300.  Raises past the
+    last plan (32-channel chunks), naming the limit."""
+    k = 1
+    while True:
+        per_block = -(-cdim // k)
+        chunk = min(cdim, -(-per_block // _CHAN_TILE) * _CHAN_TILE)
+        smem = (n * _CHAN_TILE + 2 * n * chunk) * 4
+        if chunk <= 1024 and smem <= SMEM_LIMIT:
+            return {"chunk": chunk, "chunks": -(-cdim // chunk), "smem": smem,
+                    "threads": -(-chunk // 32) * 32}
+        if chunk <= _CHAN_TILE:
+            raise ValueError(f"pair_relu_project backward kernel: N={n} needs {smem} B of "
+                             f"shared memory even in {chunk}-channel chunks (> SMEM_LIMIT "
+                             f"= {SMEM_LIMIT})")
+        k += 1
+
+
+def bwd_plan_kernel(n: int, cdim: int) -> int:
+    """The backward kernels' channels per block as their C entry computes
+    it (0 where none fits); builds the library on first use."""
+    fn = build.load("pair_block").pair_relu_project_bwd_chunk
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    return fn(n, cdim)
+
+
 def _source_tile(n: int) -> int:
     """Source rows per block: about 256 threads, one per (source, dest)."""
     return max(1, min(n, 256 // n))
@@ -136,15 +170,15 @@ def _check_kernel_inputs(a, c, w, bias=None, g=None, cm: bool = False):
                          f"a{tuple(a.shape)} c{tuple(c.shape)} w{tuple(w.shape)} "
                          f"g{None if g is None else tuple(g.shape)}")
     if g is not None:
-        if h > _CHAN_TILE or cdim > 1024:
+        if h > _CHAN_TILE:
             raise ValueError(f"pair_relu_project backward kernel: needs H <= "
-                             f"{_CHAN_TILE} and C <= 1024 (H={h}, C={cdim})")
-        smem = (n * _CHAN_TILE + 2 * n * cdim) * 4
-    else:
-        if n > 1024:
-            raise ValueError(f"pair_relu_project kernel: N={n} > 1024 threads per block")
-        hp = -(-h // _CHAN_TILE) * _CHAN_TILE
-        smem = (cdim * hp + hp + (_source_tile(n) + n) * (cdim + 1)) * 4
+                             f"{_CHAN_TILE} (H={h})")
+        bwd_plan(n, cdim)
+        return
+    if n > 1024:
+        raise ValueError(f"pair_relu_project kernel: N={n} > 1024 threads per block")
+    hp = -(-h // _CHAN_TILE) * _CHAN_TILE
+    smem = (cdim * hp + hp + (_source_tile(n) + n) * (cdim + 1)) * 4
     if smem > SMEM_LIMIT:
         raise ValueError(f"pair_relu_project kernel: C={cdim}, H={h}, N={n} "
                          f"need {smem} B of shared memory (> {SMEM_LIMIT})")

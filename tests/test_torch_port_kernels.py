@@ -21,6 +21,8 @@ from moleculesde_tpu_torch.ops.cfconv import (
     bwd_plan, bwd_plan_kernel, fused_cfconv, fused_cfconv_bwd, fused_cfconv_plain,
     fused_cfconv_rbf, fused_cfconv_rbf_bwd, fwd_plan, fwd_plan_kernel, smear)
 from moleculesde_tpu_torch.ops.fourier import gaussian_smearing
+from moleculesde_tpu_torch.ops import gin_messages as gin_ops
+from moleculesde_tpu_torch.ops import pair_block as pair_ops
 from moleculesde_tpu_torch.ops.gin_messages import gin_messages, gin_messages_bwd
 from moleculesde_tpu_torch.ops.gin_messages import gin_messages_plain
 from moleculesde_tpu_torch.ops.pair_block import (
@@ -70,8 +72,14 @@ def test_gin_messages_kernel_matches_plain(cuda, shape, bf16):
     _close(out, gin_messages_plain(x, src, dst, boh, tbl, bf16=bf16), 1e-2 if bf16 else 1e-5)
 
 
+# the pretraining step's shapes at n_max 32, 64 (B=128) and 128 (B=32), E =
+# 4 n_max; a small ragged one; D = 20 (the 32-column instantiation)
+GIN_BWD_SHAPES = [(128, 32, 128, 13, 300), (3, 7, 11, 13, 130), (128, 64, 256, 13, 300),
+                  (32, 128, 512, 13, 300), (2, 9, 40, 20, 70)]
+
+
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("shape", [(128, 32, 128, 13, 300), (3, 7, 11, 13, 130)])
+@pytest.mark.parametrize("shape", GIN_BWD_SHAPES)
 def test_gin_messages_bwd_kernel_matches_plain(cuda, shape, bf16):
     """dx and dtable through autograd; sentinel edges (src or dst = N) on
     both sides.  bf16 tolerance 1e-2: dx is returned rounded to bf16."""
@@ -86,6 +94,56 @@ def test_gin_messages_bwd_kernel_matches_plain(cuda, shape, bf16):
     assert gin_messages_bwd.launches == launches + 1
     for k, p in zip(kern, plain):
         _close(k, p, 1e-2 if bf16 else 1e-4)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("shape, case", [
+    ((128, 32, 128, 13, 300), None), ((128, 64, 256, 13, 300), None),
+    ((32, 128, 512, 13, 300), None), ((4, 256, 1024, 13, 300), None),
+    ((3, 7, 11, 13, 130), None),
+    ((3, 7, 11, 13, 130), "graph 2 keeps no edge"),
+    ((2, 3, 40, 13, 70), "fewer nodes than node ranges"),
+    ((2, 3, 40, 13, 70), "every source of graph 1 masked")])
+def test_gin_messages_bwd_kernel_is_deterministic(cuda, shape, case, bf16):
+    """Two backward runs give the same bits (one owner per dx word, dtable
+    summed in fixed orders), and every node without a valid edge gets an
+    exact zero; N = 256 runs (no tile grows with N), and so do the
+    schedule's corners: a graph whose edges all have a masked dst, N = 3
+    below the block's 4 node ranges, a graph whose sources are all masked
+    (its edges still reach dtable)."""
+    x, src, dst, boh, tbl, g = _gin_operands(cuda, *shape)
+    n = shape[1]
+    src[:, ::3] = n                        # more sentinel sources
+    if case == "graph 2 keeps no edge":
+        dst[2] = n
+    elif case == "every source of graph 1 masked":
+        src[1] = n
+    first = gin_messages_bwd(x, src, dst, boh, tbl, g, bf16=bf16, impl="kernel")
+    second = gin_messages_bwd(x, src, dst, boh, tbl, g, bf16=bf16, impl="kernel")
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    plain = gin_messages_bwd(x, src, dst, boh, tbl, g, bf16=bf16, impl="plain")
+    for k, p in zip(first, plain):
+        _close(k, p, 1e-2 if bf16 else 1e-4)
+    has_edge = torch.zeros(shape[0], n + 1, dtype=torch.bool, device=cuda)
+    valid = (dst >= 0) & (dst < n)
+    has_edge.scatter_(1, torch.where(valid, src.long(), n), valid)
+    assert float(first[0][~has_edge[:, :n]].abs().sum()) == 0.0
+
+
+def test_gin_messages_bwd_plan_matches_kernel(cuda):
+    """The wrapper's plan (ops/gin_messages.py::bwd_plan) is the CUDA
+    source's, and the launch past it raises, naming the limit."""
+    for n in (1, 7, 16, 32, 64, 128, 256, 650, 660, 1024):
+        for e in (0, 4 * n, 11):
+            for d in (1, 13, 16, 17, 32, 33):
+                try:
+                    smem = gin_ops.bwd_plan(n, e, d, 300)["smem"]
+                except ValueError:
+                    smem = 0
+                assert smem == gin_ops.bwd_plan_kernel(n, e, d), (n, e, d)
+    x, src, dst, boh, tbl, g = _gin_operands(cuda, 1, 1024, 4096, 13, 32)
+    with pytest.raises(ValueError, match="SMEM_LIMIT"):
+        gin_messages_bwd(x, src, dst, boh, tbl, g, impl="kernel")
 
 
 @pytest.mark.parametrize("bf16", [False, True])
@@ -104,7 +162,7 @@ def test_pair_relu_project_kernel_matches_plain(cuda, shape, bf16):
 
 
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("shape", [(128, 32, 300, 32), (3, 9, 17, 20)])
+@pytest.mark.parametrize("shape", [(128, 32, 300, 32), (3, 9, 17, 20), (32, 128, 300, 32)])
 def test_pair_relu_project_bwd_kernel_matches_plain(cuda, shape, bf16):
     """da, dc, dw, db through autograd.  bf16 tolerance 1e-3: both sides
     round g, w and the relu'd pair identically and sum in f32."""
@@ -152,7 +210,7 @@ def test_pair_relu_project_cm_kernel_matches_plain(cuda, shape, bf16):
 
 
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("shape", [(128, 32, 300, 32), (3, 9, 17, 20)])
+@pytest.mark.parametrize("shape", [(128, 32, 300, 32), (3, 9, 17, 20), (32, 128, 300, 32)])
 def test_pair_relu_project_cm_bwd_kernel_matches_plain(cuda, shape, bf16):
     """K4 da, dc, dw (and the bias gradient, outside the kernel) through
     autograd.  bf16 tolerance 1e-3: dpair is rounded to bf16 on both sides
@@ -168,6 +226,54 @@ def test_pair_relu_project_cm_bwd_kernel_matches_plain(cuda, shape, bf16):
     assert pair_relu_project_cm_bwd.launches == launches + 1
     for k, p in zip(kern, plain):
         _close(k, p, 1e-3 if bf16 else 1e-4)
+
+
+@pytest.mark.parametrize("cm", [False, True], ids=["K3", "K4"])
+@pytest.mark.parametrize("shape", [(32, 128, 300, 32), (2, 256, 300, 32), (4, 40, 1100, 8)])
+def test_pair_relu_project_bwd_kernel_chunks(cuda, shape, cm):
+    """The backward in channel chunks (two at N = 128, four at N = 256,
+    C = 1100 past 1024 threads) against the plain version in bf16 mode, two
+    runs bit for bit, and at N = 128 bit for bit equal to one-chunk
+    launches of the same graphs' channel halves: a thread's arithmetic does
+    not depend on the chunking."""
+    a, cc, w, _, g = _pair_operands(cuda, shape, 7)
+    b, n, c, h = shape
+    if not cm:
+        g = g.reshape(b, h, n, n).permute(0, 2, 3, 1).contiguous()
+    bwd = pair_relu_project_cm_bwd if cm else pair_relu_project_bwd
+    plain = pair_ops.pair_relu_project_cm_bwd_plain if cm else pair_ops.pair_relu_project_bwd_plain
+    assert pair_ops.bwd_plan(n, c)["chunks"] > 1
+    first = bwd(a, cc, w, g, bf16=True, impl="kernel")
+    second = bwd(a, cc, w, g, bf16=True, impl="kernel")
+    assert all(torch.equal(u, v) for u, v in zip(first, second))
+    for k, p in zip(first, plain(a, cc, w, g, bf16=True)):
+        _close(k, p, 1e-3)
+    if n == 128:   # each channel half fits one chunk: the same arithmetic per channel
+        half = c // 2
+        for lo, hi in ((0, half), (half, c)):
+            sub = bwd(a[..., lo:hi].contiguous(), cc[..., lo:hi].contiguous(),
+                      w[lo:hi].contiguous(), g, bf16=True, impl="kernel")
+            assert pair_ops.bwd_plan(n, hi - lo)["chunks"] == 1
+            for i in range(2):
+                assert torch.equal(sub[i], first[i][..., lo:hi])
+            assert torch.equal(sub[2], first[2][lo:hi])
+
+
+def test_pair_relu_project_bwd_plan_matches_kernel(cuda):
+    """The wrapper's chunk plan (ops/pair_block.py::bwd_plan) is the CUDA
+    source's, one chunk at N <= 64 for C = 300, and the launch past the
+    last plan raises, naming the limit."""
+    for n in (1, 7, 16, 32, 64, 65, 128, 200, 256, 512, 605, 606):
+        for c in (17, 32, 40, 300, 1024, 1100, 2000):
+            try:
+                chunk = pair_ops.bwd_plan(n, c)["chunk"]
+            except ValueError:
+                chunk = 0
+            assert chunk == pair_ops.bwd_plan_kernel(n, c), (n, c)
+    assert all(pair_ops.bwd_plan(n, 300)["chunks"] == 1 for n in (16, 32, 64))
+    a, cc, w, _, g = _pair_operands(cuda, (1, 606, 32, 8), 8)
+    with pytest.raises(ValueError, match="SMEM_LIMIT"):
+        pair_relu_project_cm_bwd(a, cc, w, g, impl="kernel")
 
 
 def _score_operands(cuda, b, n, variant):
