@@ -13,8 +13,9 @@ checks what comes out.
 Phases (any failure exits non-zero):
   1. the card's name and power limit; build every kernel (one nvcc per source);
      the CFConv forward's and backward's SASS and every bf16 instantiation
-     of K6 hold HMMA (their tensor-core products), counted per kernel
-     function;
+     of K6 and of the pair block's backward (K3 and K4) hold HMMA (their
+     tensor-core products), counted per kernel function, and the pair
+     block's f32 backward none;
   2. kernel phases on the operands each path gives each kernel, in f32 and
      bf16 mode: K1 (GIN message block), K3 (pair block) and K4 (its
      channel-major form) forward on the sampler's operands; K1, K2 (CFConv),
@@ -23,7 +24,8 @@ Phases (any failure exits non-zero):
      K6 (the fused score evaluation), variants 1 and 2, on the fused chain's.
      Each is held against its plain version (output and every gradient);
      CUDA-event medians of kernel and plain times and the card's bound for
-     the same work;
+     the same work; two runs of K1's forward and backward and of K3's and
+     K4's backward on the pretraining step's operands, bit for bit;
   3. sampler path: the sampler CLI at full width (GIN 5 x 300,
      SDEModel2Dto3D variant 1, VE, hidden 32, bf16 score) on 8 synthetic
      molecules x 8 repeats (B=64, n_max 32), 20 PC steps with 1 corrector
@@ -94,9 +96,10 @@ Phases (any failure exits non-zero):
      versions on its operands (bf16 and f32, the bars of 7), two forward
      and two backward runs of each bit for bit and K5's forward and
      backward equal to K2's on the same smearing; K1 forward and backward
-     on GIN layer 0's operands (and at n_max 128 K3 and K4 on the edge
-     embedding's) against their plain versions at the bars of 7, two
-     backward runs of each bit for bit in both modes; two steps with K1 5 /
+     on GIN layer 0's operands and K3 and K4 on the edge embedding's
+     against their plain versions at the bars of 7, two runs of K1's
+     forward and backward and of K3's and K4's backward bit for bit in
+     both modes; two steps with K1 5 /
      5, K2 6 / 6, K3 1 / 1 per step, every metric finite; a third step's
      wall and device-busy time under the profiler and the peak device
      memory; one step against an all-plain build as in 7.
@@ -576,6 +579,7 @@ def training_kernel_phases(k1, k2, k3):
                        pair_relu_project_cm_bwd, pair_relu_project_cm_bwd_plain,
                        (a, c, w), g4, bf16, 1e-3 if bf16 else 1e-4,
                        k4_cost(a, w), k4_cost(a, w, bwd=True), peak)
+    gin_pair_same_bits("training", k1, g1, k3, g3, g4)
     return results
 
 
@@ -1542,12 +1546,32 @@ def large_n_kernel_phases(models, batch, label):
     return results
 
 
-def large_n_gin_pair_phases(models, batch, label, pair: bool):
-    """K1 (and with ``pair`` K3 and K4), forward and backward, against their
-    plain versions on GIN layer 0's (and the 2D->3D edge embedding's)
-    operands of ``batch`` (expanded on the card), in bf16 (the path's mode)
-    and f32 at the training phase's bars; then two backward runs of each,
-    bit for bit, in both modes."""
+def gin_pair_same_bits(label, k1, g1, k3, g3, g4):
+    """Two runs of K1's forward and backward and of K3's and K4's backward
+    give the same bits, in bf16 and f32 (launch counts left as they were)."""
+    x, src, dst, boh, table = k1
+    a, c, w = k3[:3]
+    with torch.no_grad():
+        for bf16 in (True, False):
+            sfx = "" if bf16 else "[f32]"
+            same_bits(f"{label} K1 forward" + sfx, lambda: gin_messages(
+                x, src, dst, boh, table, bf16=bf16, impl="kernel"))
+            same_bits(f"{label} K1 backward" + sfx, lambda: gin_messages_bwd(
+                x, src, dst, boh, table, g1, bf16=bf16, impl="kernel"))
+            same_bits(f"{label} K3 backward" + sfx, lambda: pair_relu_project_bwd(
+                a, c, w, g3, bf16=bf16, impl="kernel"))
+            same_bits(f"{label} K4 backward" + sfx, lambda: pair_relu_project_cm_bwd(
+                a, c, w, g4, bf16=bf16, impl="kernel"))
+    print(f"{label}: K1 forward and backward, K3 backward and K4 backward bit-identical "
+          f"over two runs, bf16 and f32", flush=True)
+
+
+def large_n_gin_pair_phases(models, batch, label):
+    """K1, K3 and K4, forward and backward, against their plain versions on
+    GIN layer 0's and the 2D->3D edge embedding's operands of ``batch``
+    (expanded on the card), in bf16 (the path's mode) and f32 at the
+    training phase's bars; then two runs of K1's forward and backward and
+    of K3's and K4's backward, bit for bit, in both modes."""
     from moleculesde_tpu_torch.data.compact import expand_on_device
 
     with torch.no_grad():
@@ -1562,8 +1586,7 @@ def large_n_gin_pair_phases(models, batch, label, pair: bool):
     g4 = torch.randn((b, h, n * n), generator=gen, device=a.device)
     valid_edges = int(((dst >= 0) & (dst < n)).sum())
     print(f"{label} K1 operands: x {tuple(x.shape)}, edges {tuple(src.shape)} ({valid_edges} "
-          f"valid)" + (f"; K3 / K4: a, c {tuple(a.shape)}, W {tuple(w.shape)}" if pair else ""),
-          flush=True)
+          f"valid); K3 / K4: a, c {tuple(a.shape)}, W {tuple(w.shape)}", flush=True)
     results = {}
     for bf16 in (True, False):   # bf16 is the path's mode
         sfx = "" if bf16 else "[f32]"
@@ -1575,11 +1598,6 @@ def large_n_gin_pair_phases(models, batch, label, pair: bool):
             lambda x_, t_, g_, **kw: gin_messages_bwd_plain(x_, src, dst, boh, t_, g_, **kw),
             (x, table), g1, bf16, 1e-2 if bf16 else 1e-4,
             k1_cost(x, src, dst, table), k1_cost(x, src, dst, table, bwd=True), peak)
-        with torch.no_grad():
-            same_bits(f"{label} K1 backward" + sfx, lambda bf16=bf16: gin_messages_bwd(
-                x, src, dst, boh, table, g1, bf16=bf16, impl="kernel"))
-        if not pair:
-            continue
         results["pair_relu_project" + sfx], results["pair_relu_project_bwd" + sfx] = \
             grad_phase(f"{label} K3 pair_relu_project" + sfx, pair_relu_project,
                        lambda a_, c_, w_, b_, g_, **kw: pair_relu_project_bwd(
@@ -1593,13 +1611,7 @@ def large_n_gin_pair_phases(models, batch, label, pair: bool):
                        pair_relu_project_cm_bwd, pair_relu_project_cm_bwd_plain,
                        (a, c, w), g4, bf16, 1e-3 if bf16 else 1e-4,
                        k4_cost(a, w), k4_cost(a, w, bwd=True), peak)
-        with torch.no_grad():
-            same_bits(f"{label} K3 backward" + sfx, lambda bf16=bf16: pair_relu_project_bwd(
-                a, c, w, g3, bf16=bf16, impl="kernel"))
-            same_bits(f"{label} K4 backward" + sfx, lambda bf16=bf16: pair_relu_project_cm_bwd(
-                a, c, w, g4, bf16=bf16, impl="kernel"))
-    print(f"{label}: K1 backward" + (", K3 backward and K4 backward" if pair else "")
-          + " bit-identical over two runs, bf16 and f32", flush=True)
+    gin_pair_same_bits(label, k1, g1, (a, c, w), g3, g4)
     return results
 
 
@@ -1647,11 +1659,11 @@ def large_n_steps(dev, args, cfg, models, optimizer, gen, batches, label, seed):
 
 def large_n_path(dev):
     """Phase 13: the JAX CLI's default path (compact ingest, K2) at
-    ``--n_max 64``, B=128: K2 / K5 and K1 phases on its operands, two steps
-    with the launch counts per step (K1 5 / 5, K2 6 / 6, K3 1 / 1), every
-    metric finite, one profiled step, one step against an all-plain build;
-    then the same at ``--n_max 128``, B=32 (cut from the CLI's 128), with
-    K3 and K4 phases besides.  Returns ({"n_max_64": ..., "n_max_128": ...}
+    ``--n_max 64``, B=128: K2 / K5, K1, K3 and K4 phases on its operands,
+    two steps with the launch counts per step (K1 5 / 5, K2 6 / 6, K3 1 /
+    1), every metric finite, one profiled step, one step against an
+    all-plain build; then the same at ``--n_max 128``, B=32 (cut from the
+    CLI's 128).  Returns ({"n_max_64": ..., "n_max_128": ...}
     kernel results, {n_max: launch counts of the two steps})."""
     from moleculesde_tpu_torch.benchmarks.profile_pretrain import (
         COMMON_ARGS, parse_path, path_batches)
@@ -1666,7 +1678,7 @@ def large_n_path(dev):
         check(cfg.schnet_cfconv == "auto" and args.ingest == "compact",
               f"the {label} steps are not on the CLI's default path")
         res = large_n_kernel_phases(models, batches[0], label)
-        res.update(large_n_gin_pair_phases(models, batches[0], label, pair=n_max == 128))
+        res.update(large_n_gin_pair_phases(models, batches[0], label))
         results[f"n_max_{n_max}"] = res
         launches[n_max] = large_n_steps(dev, args, cfg, models, optimizer, gen, batches, label,
                                         args.seed + 7)
@@ -1774,13 +1786,18 @@ def _hmma_per_function(build, source: str) -> dict:
 
 
 def tensor_core_note(build) -> None:
-    """The bf16 products of the CFConv kernels and of K6 run on the tensor
-    cores: each source issues mma.sync, and the built library's SASS holds
-    HMMA in the CFConv forward's and backward's functions and in every bf16
-    instantiation of K6 (``score_eval_kernel<true, S>``)."""
-    for source in ("cfconv", "score_eval"):
-        src = (build.CSRC_DIR / f"{source}.cu").read_text()
-        check("mma.sync.aligned.m16n8k16" in src, f"{source}.cu issues no mma.sync")
+    """The bf16 products of the CFConv kernels, of K6 and of the pair
+    block's backward (K3 and K4) run on the tensor cores: each source
+    issues mma.sync through ``hopper.cuh``'s ``mma_bf16``, and the built
+    libraries' SASS holds HMMA in the CFConv forward's and backward's
+    functions, in every bf16 instantiation of K6 (``score_eval_kernel<true,
+    S>``) and of the pair block's backward (``pair_relu_project_bwd_kernel
+    <CM, true>``), and in none of their f32 instantiations."""
+    check("mma.sync.aligned.m16n8k16" in (build.CSRC_DIR / "hopper.cuh").read_text(),
+          "hopper.cuh issues no mma.sync")
+    for source in ("cfconv.cu", "score_eval.cu", "pair_block.cu"):
+        check("mma_bf16(" in (build.CSRC_DIR / source).read_text(),
+              f"{source} issues no mma.sync (hopper.cuh's mma_bf16)")
     per_function = _hmma_per_function(build, "cfconv")
     counts = {}
     for kernel in ("cfconv_fwd_kernel", "cfconv_bwd_kernel"):
@@ -1799,6 +1816,20 @@ def tensor_core_note(build) -> None:
     check(len(bf16_fns) == 2 and all(k > 0 for k in bf16_fns.values()),
           f"a bf16 instantiation of K6 holds no HMMA instruction ({bf16_fns})")
     check(sum(k6.values()) == sum(bf16_fns.values()), "K6's f32 mode issues HMMA")
+    per_function = _hmma_per_function(build, "pair_block")
+    pair = {}
+    for name, k in per_function.items():
+        if "pair_relu_project_bwd_kernel" in name:
+            for flags, label in (("ILb0ELb1E", "K3 bf16"), ("ILb1ELb1E", "K4 bf16"),
+                                 ("ILb0ELb0E", "K3 f32"), ("ILb1ELb0E", "K4 f32")):
+                if flags in name:
+                    pair[label] = k
+    print(f"pair_block SASS: backward HMMA per instantiation {pair}", flush=True)
+    check(len(pair) == 4, f"the pair block's backward instantiations not found ({pair})")
+    check(pair["K3 bf16"] > 0 and pair["K4 bf16"] > 0,
+          "a bf16 instantiation of the pair block's backward holds no HMMA instruction")
+    check(pair["K3 f32"] == 0 and pair["K4 f32"] == 0,
+          "an f32 instantiation of the pair block's backward issues HMMA")
 
 
 def main() -> int:
@@ -1883,8 +1914,7 @@ def main() -> int:
                      "cluster_by_n_max": {n: score_plan(n, True)["cluster"] for n in (32, 64)}}
         else:
             r, f32 = train_results[name], train_results[name + "[f32]"]
-            # past n_max 32, bf16 and f32: K1, K2 / K5 at n_max 64 and 128, K3 /
-            # K4 at n_max 128
+            # past n_max 32, bf16 and f32: K1, K2 / K5, K3 / K4 at n_max 64 and 128
             extra = {size: {mode: {k: res[name + sfx][k] for k in keys + ("max_rel_err",)}
                             for mode, sfx in (("bf16", ""), ("f32", "[f32]"))}
                      for size, res in large_n_results.items() if name in res}

@@ -1,6 +1,6 @@
-"""Device times of K1's backward (the GIN message block) and of K3's and
-K4's backward (the pair block) at the pretraining step's operands, for
-parent / change turns on the GPU.
+"""Device times of K1's forward and backward (the GIN message block) and of
+K3's and K4's forward and backward (the pair block) at the pretraining
+step's operands, for parent / change turns on the GPU.
 
 K1's operands are GIN layer 0's of the pretraining CLI's models (random
 weights from seed 42) on its synthetic molecules, padded ingest: n_max 32
@@ -13,13 +13,15 @@ timed in turns with this one: 10 calls captured in a CUDA graph, the
 replays timed with CUDA events (median of 10), per call (``timing.py``).
 A shape the checkout's kernel refuses prints its message.
 
-``--phases``: K1's backward kernel built with ``-DPHASE_PROFILE`` into
-``build/profile/`` and launched through its C entry at the same operands
-in bf16 mode; thread 0 of every block stamps ``%globaltimer`` after the
-staging, the sort, the walk and the dtable sum over the node ranges, and
-``timing.py`` prints the span, median block time, phase medians and
-the quantiles of the blocks' start times (the waves), as it does for K6 in
-``profile_score_bank.py``.
+``--phases``: K1's and K3's sources built with ``-DPHASE_PROFILE`` into
+``build/profile/`` and their kernels launched through their C entries at
+the same operands in bf16 mode; thread 0 of every block stamps
+``%globaltimer``: K1's forward and backward after the staging, the sort,
+the walk (and the backward after the dtable sum over the node ranges);
+K3's backward after staging a, after each of the first three stages of g,
+after the last and at the end.  ``timing.py`` prints the span, median
+block time, phase medians and the quantiles of the blocks' start times
+(the waves), as it does for K6 in ``profile_score_bank.py``.
 
     python -m moleculesde_tpu_torch.benchmarks.profile_gin_pair [--phases]
     PYTHONPATH=<checkout> python <this file> --label parent
@@ -75,34 +77,46 @@ def _time(device_ms, run) -> str:
 
 def times(label: str) -> None:
     from moleculesde_tpu_torch.benchmarks.timing import device_ms
-    from moleculesde_tpu_torch.ops.gin_messages import gin_messages_bwd
+    from moleculesde_tpu_torch.ops.gin_messages import gin_messages, gin_messages_bwd
     from moleculesde_tpu_torch.ops.pair_block import (
-        pair_relu_project_bwd, pair_relu_project_cm_bwd)
+        pair_relu_project, pair_relu_project_bwd, pair_relu_project_cm,
+        pair_relu_project_cm_bwd)
 
     dev = torch.device("cuda")
+    modes = (("bf16", True), ("f32", False))
     for n_max, b in K1_SHAPES:
         x, src, dst, boh, table = k1_operands(n_max, b, dev)
         g = torch.randn(x.shape, generator=torch.Generator(device=dev).manual_seed(7),
                         device=dev)
         valid = int(((dst >= 0) & (dst < n_max)).sum())
-        line = ", ".join(
+        fwd = ", ".join(
+            f"{mode} " + _time(device_ms, lambda bf16=bf16: gin_messages(
+                x, src, dst, boh, table, bf16=bf16, impl="kernel"))
+            for mode, bf16 in modes)
+        bwd = ", ".join(
             f"{mode} " + _time(device_ms, lambda bf16=bf16: gin_messages_bwd(
                 x, src, dst, boh, table, g, bf16=bf16, impl="kernel"))
-            for mode, bf16 in (("bf16", True), ("f32", False)))
-        print(f"[{label}] K1 bwd B={b} n_max={n_max} E={src.shape[1]} ({valid} valid edges) "
-              f"device_ms: {line}", flush=True)
+            for mode, bf16 in modes)
+        print(f"[{label}] K1 B={b} n_max={n_max} E={src.shape[1]} ({valid} valid edges) "
+              f"device_ms: fwd {fwd}; bwd {bwd}", flush=True)
     for n, b in PAIR_SHAPES:
         a, cc, w, g, g_cm = pair_operands(n, b, dev)
-        line = ", ".join(
-            f"{name} {mode} " + _time(device_ms, lambda fn=fn, gg=gg, bf16=bf16: fn(
-                a, cc, w, gg, bf16=bf16, impl="kernel"))
-            for name, fn, gg in (("K3", pair_relu_project_bwd, g),
-                                 ("K4", pair_relu_project_cm_bwd, g_cm))
-            for mode, bf16 in (("bf16", True), ("f32", False)))
-        print(f"[{label}] pair bwd B={b} N={n} C=300 H=32 device_ms: {line}", flush=True)
+        bias = torch.zeros(w.shape[1], device=dev)
+        runs = (("K3 fwd", lambda bf16: pair_relu_project(a, cc, w, bias, bf16=bf16,
+                                                            impl="kernel")),
+                ("K4 fwd", lambda bf16: pair_relu_project_cm(a, cc, w, bf16=bf16, impl="kernel")),
+                ("K3 bwd", lambda bf16: pair_relu_project_bwd(a, cc, w, g, bf16=bf16,
+                                                                impl="kernel")),
+                ("K4 bwd", lambda bf16: pair_relu_project_cm_bwd(a, cc, w, g_cm, bf16=bf16,
+                                                                   impl="kernel")))
+        line = ", ".join(f"{name} {mode} " + _time(device_ms, lambda fn=fn, bf16=bf16: fn(bf16))
+                         for name, fn in runs for mode, bf16 in modes)
+        print(f"[{label}] pair B={b} N={n} C=300 H=32 device_ms: {line}", flush=True)
 
 
-K1_PHASES = ("staging", "sort", "walk", "dtable sum")
+K1_BWD_PHASES = ("staging", "sort", "walk", "dtable sum")
+K1_FWD_PHASES = ("staging", "sort", "walk")
+PAIR_BWD_PHASES = ("a staging", "stage 0", "stage 1", "stage 2", "stages 3 on", "dW, db, da out")
 
 
 def phases(label: str) -> None:
@@ -110,32 +124,46 @@ def phases(label: str) -> None:
 
     from moleculesde_tpu_torch.benchmarks.timing import (
         phase_library, phase_stamps, print_phase_stamps)
+    from moleculesde_tpu_torch.kernels import build
     from moleculesde_tpu_torch.ops.common import stream
-    from moleculesde_tpu_torch.ops.gin_messages import bwd_plan
+    from moleculesde_tpu_torch.ops.gin_messages import bwd_plan, fwd_plan
+    from moleculesde_tpu_torch.ops.pair_block import bwd_plan as pair_plan
 
     lib = phase_library("gin_messages")
-    fn = lib.gin_messages_bwd
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fwd = lib.gin_messages_fwd
+    fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    bwd = lib.gin_messages_bwd
+    bwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     dev = torch.device("cuda")
     for n_max, b in K1_SHAPES:
         x, src, dst, boh, table = k1_operands(n_max, b, dev)
         g = torch.randn(x.shape, generator=torch.Generator(device=dev).manual_seed(7),
                         device=dev)
         d, f = table.shape
+        out = torch.empty_like(x)
         dx = torch.empty_like(x)
         dtable = torch.empty_like(table)
         part = torch.empty((b, d, f), device=dev)
 
-        def launch():
-            rc = fn(x.data_ptr(), src.data_ptr(), dst.data_ptr(), boh.data_ptr(),
-                    table.data_ptr(), g.data_ptr(), dx.data_ptr(), dtable.data_ptr(),
-                    part.data_ptr(), b, n_max, src.shape[1], d, f, 1, stream(x))
-            assert rc == 0, rc
+        def launch_fwd():
+            build.check_launch(fwd(x.data_ptr(), src.data_ptr(), dst.data_ptr(), boh.data_ptr(),
+                                   table.data_ptr(), out.data_ptr(), b, n_max, src.shape[1], d,
+                                   f, 1, stream(x)), "gin_messages_fwd")
 
+        def launch_bwd():
+            build.check_launch(bwd(x.data_ptr(), src.data_ptr(), dst.data_ptr(), boh.data_ptr(),
+                                   table.data_ptr(), g.data_ptr(), dx.data_ptr(),
+                                   dtable.data_ptr(), part.data_ptr(), b, n_max, src.shape[1],
+                                   d, f, 1, stream(x)), "gin_messages_bwd")
+
+        plan = fwd_plan(n_max, src.shape[1], d, f)
+        stamps = phase_stamps(lib, b * plan["chunks"], 8, launch_fwd)
+        print_phase_stamps(f"[{label}] K1 fwd B={b} n_max={n_max} bf16 {plan}", stamps,
+                           K1_FWD_PHASES)
         plan = bwd_plan(n_max, src.shape[1], d, f)
-        stamps = phase_stamps(lib, b * plan["chunks"], 8, launch)
+        stamps = phase_stamps(lib, b * plan["chunks"], 8, launch_bwd)
         print_phase_stamps(f"[{label}] K1 bwd B={b} n_max={n_max} bf16 {plan}", stamps,
-                           K1_PHASES)
+                           K1_BWD_PHASES)
         # warp 0's first edge groups (blocks whose warp 0 walks three or more)
         walked = stamps[(stamps[:, 5] > 0) & (stamps[:, 6] > 0) & (stamps[:, 7] > 0)]
         if len(walked):
@@ -145,12 +173,33 @@ def phases(label: str) -> None:
                   f"{np.median(walked[:, 7] - walked[:, 6]) / 1e3:.2f} ({len(walked)} blocks)",
                   flush=True)
 
+    lib = phase_library("pair_block")
+    pbwd = lib.pair_relu_project_bwd
+    pbwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    for n, b in PAIR_SHAPES:
+        a, cc, w, g, _ = pair_operands(n, b, dev)
+        c, h = w.shape
+        da, dc = torch.empty_like(a), torch.empty_like(a)
+        dw, db = torch.empty_like(w), torch.empty(h, device=dev)
+        dw_part, db_part = torch.empty((b, c, h), device=dev), torch.empty((b, h), device=dev)
+
+        def launch_pair():
+            build.check_launch(pbwd(a.data_ptr(), cc.data_ptr(), w.data_ptr(), g.data_ptr(),
+                                    da.data_ptr(), dc.data_ptr(), dw.data_ptr(), db.data_ptr(),
+                                    dw_part.data_ptr(), db_part.data_ptr(), b, n, c, h, 1,
+                                    stream(a)), "pair_relu_project_bwd")
+
+        plan = pair_plan(n, c)
+        stamps = phase_stamps(lib, b * plan["chunks"], 8, launch_pair)
+        print_phase_stamps(f"[{label}] K3 bwd B={b} N={n} bf16 {plan}", stamps, PAIR_BWD_PHASES)
+
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--label", default="this checkout", help="tag of the lines")
     parser.add_argument("--phases", action="store_true",
-                        help="K1 backward's block time by phase (a -DPHASE_PROFILE build)")
+                        help="K1's forward and backward and K3's backward block time by "
+                             "phase (-DPHASE_PROFILE builds)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_gin_pair: needs a CUDA device")

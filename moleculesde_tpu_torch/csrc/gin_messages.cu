@@ -14,14 +14,20 @@
 //
 // Bound: device memory.  The work is ~2*E*F*(D+1) flops per graph against
 // reading x and writing out once (~5.4 MB at B=64, N=32, E=128, F=300,
-// D=13), far below the 295 flop/byte ridge.  Design: one block per
-// (graph, 128-feature chunk); the graph's x columns, the table columns,
-// its bond one-hots and its edge lists are staged in shared memory, so x is
-// read from device memory once and the output written once.  Each thread
-// owns one feature column and walks the edges in order, accumulating into
-// its own column of a shared [N, 128] tile: no atomics, a fixed summation
-// order, and conflict-free shared accesses (consecutive threads,
-// consecutive words).
+// D=13), far below the 295 flop/byte ridge.  Like the backward's, the
+// walk is bound by instruction issue per (edge, feature).  Design
+// (redesigned on the backward's layout, keyed by dst): the backward's
+// blocks of 8 warps per (graph, 64-feature chunk), its staging (step 1
+// below) and its stable counting sort (step 2), the edges binned by dst
+// (an out-of-range dst drops the edge); each warp walks whole dst nodes
+// cut at equal shares of the kept edges, gathering x[src] straight from
+// device memory 4 edges ahead, the table column in registers, and writes
+// each node's sum once (zero for a node with no edge).  The sort is stable,
+// so a node's messages are summed in edge order, as the first version of
+// this kernel summed them: the same bits.  No tile grows with N: any N
+// whose edge data fits a block runs (edge_smem; N ~ 717 at E = 4 N).
+// With -DPHASE_PROFILE, thread 0 stamps the start and the end of the
+// staging, the sort and the walk.
 //
 // bf16 != 0 reproduces the TPU kernel's bf16 mode: x, boh and table are
 // rounded to bf16, the embedding and the sum accumulate in f32, and each
@@ -47,7 +53,9 @@
 // each warp's walk, not by bytes.  Design: one block of 8 warps per
 // (graph, 64-feature chunk): 2 warp columns of 32 features (one a lane,
 // its table column in registers) by 4 node ranges.  No tile grows with N:
-// any N whose edge data fits a block runs (bwd_smem; N ~ 660 at E = 4 N).
+// any N whose edge data fits a block runs (edge_smem; N ~ 660 at E = 4 N).
+// Steps 1 and 2 are one device function for both directions
+// (stage_and_sort), which bins by src here and by dst in the forward.
 //  1. staging: the graph's edge lists and bond one-hot rows (zero padded
 //     to MAXD columns), every load of a round issued before its stores;
 //  2. a stable counting sort of the edges whose dst is valid by source
@@ -79,13 +87,170 @@ constexpr int kPhaseSlots = 8;   // PHASE_PROFILE marks per block
 
 namespace {
 
-constexpr int kFeatChunk = 128;  // features per block == threads per block
+constexpr int kWarps = 8;                        // warps per block (both directions)
+constexpr int kGroups = 2;                       // warp columns of 32 features
+constexpr int kFeat = 32 * kGroups;              // features per block
+constexpr int kSlots = kWarps / kGroups;         // node ranges per block
+constexpr int kThreads = 32 * kWarps;
+constexpr int kUnroll = 4;                       // edges whose gathers fly together
+constexpr int kStage = 8;                        // one-hot words a thread copies per round
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-__global__ void __launch_bounds__(kFeatChunk)
+// One-hot columns staged per edge: D rounded up to 16 or 32, 0 if D > 32.
+int maxd_of(int D) { return D <= 16 ? 16 : D <= 32 ? 32 : 0; }
+
+// Shared memory at (N, E, D), 0 where it has no plan: one-hot rows
+// [E][MAXD], the edges' bins, src, dst and sorted order [E] each, bin
+// starts [N + 2]; the backward adds the warps' dtable columns
+// [slots][MAXD][64].  Mirrored by ops/gin_messages.py::fwd_plan / bwd_plan.
+size_t edge_smem(int N, int E, int D, bool bwd) {
+  const int maxd = maxd_of(D);
+  if (maxd == 0) return 0;
+  const size_t words = static_cast<size_t>(E) * maxd + (bwd ? kSlots * maxd * kFeat : 0) +
+                       4 * static_cast<size_t>(E) + static_cast<size_t>(N) + 2;
+  return words * 4 <= kSmemLimit ? words * 4 : 0;
+}
+
+// The shared-memory arrays of a block's edges (edge_smem's layout; the
+// backward's dtable columns follow the one-hot rows).
+struct EdgeArrays {
+  float* bo;      // [E][MAXD] one-hot rows, rounded in bf16 mode
+  float* red;     // [kSlots][MAXD][kFeat] (backward)
+  int* bins;      // [E] the edge's node (src or dst), N, or -1 = dropped
+  int* s_src;     // [E]
+  int* s_dst;     // [E]
+  int* order;     // [E] kept edges by (bin, edge)
+  int* start;     // [N + 2] bin starts
+};
+
+template <int MAXD>
+__device__ __forceinline__ EdgeArrays edge_arrays(float* smem, int E, bool bwd) {
+  EdgeArrays s;
+  s.bo = smem;
+  s.red = s.bo + static_cast<size_t>(E) * MAXD;
+  s.bins = reinterpret_cast<int*>(s.red + (bwd ? kSlots * MAXD * kFeat : 0));
+  s.s_src = s.bins + E;
+  s.s_dst = s.s_src + E;
+  s.order = s.s_dst + E;
+  s.start = s.order + E;
+  return s;
+}
+
+// Steps 1 and 2 of both directions (the header): stage graph b's edges and
+// one-hot rows, then sort the kept edges stably by bin.  BY_DST (forward):
+// an edge's bin is its dst, -1 (dropped) if out of range.  Otherwise
+// (backward): -1 for an out-of-range dst, else its src, N for an
+// out-of-range src.  Stamps PHASE_MARK 1 and 2.
+template <int MAXD, bool BY_DST>
+__device__ __forceinline__ void stage_and_sort(const EdgeArrays& s, const int* __restrict__ src,
+                                               const int* __restrict__ dst,
+                                               const float* __restrict__ boh, int b, int N,
+                                               int E, int D, int bf16) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  for (int i = tid; i < N + 2; i += kThreads) s.start[i] = 0;
+  const int* srcb = src + static_cast<size_t>(b) * E;
+  const int* dstb = dst + static_cast<size_t>(b) * E;
+  for (int i = tid; i < E; i += kThreads) {
+    const int sn = srcb[i], dn = dstb[i];
+    s.s_src[i] = sn;
+    s.s_dst[i] = dn;
+    s.bins[i] = (dn < 0 || dn >= N) ? -1 : BY_DST ? dn : (sn >= 0 && sn < N) ? sn : N;
+  }
+  // every load of a round issued before its stores
+  const float* bob = boh + static_cast<size_t>(b) * E * D;
+  for (int base = 0; base < E * MAXD; base += kThreads * kStage) {
+    float v[kStage];
+#pragma unroll
+    for (int j = 0; j < kStage; ++j) {
+      const int i = base + j * kThreads + tid;
+      const int e = i / MAXD, k = i - e * MAXD;
+      v[j] = (i < E * MAXD && k < D) ? bob[static_cast<size_t>(e) * D + k] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kStage; ++j) {
+      const int i = base + j * kThreads + tid;
+      if (i < E * MAXD) s.bo[i] = bf16 ? round_bf16(v[j]) : v[j];
+    }
+  }
+  __syncthreads();
+  PHASE_MARK(1);
+
+  // counts (integer atomics, the same counts whatever their order), a
+  // warp scan of them, and each edge's rank among the earlier edges of
+  // its bin
+  for (int i = tid; i < E; i += kThreads)
+    if (s.bins[i] >= 0) atomicAdd(&s.start[s.bins[i] + 1], 1);
+  __syncthreads();
+  if (tid < 32) {   // inclusive scan of start[0 .. N+1]: start[i] = edges of bins < i
+    int carry = 0;
+    for (int base = 0; base < N + 2; base += 32) {
+      const int i = base + lane;
+      int v = i < N + 2 ? s.start[i] : 0;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int t = __shfl_up_sync(0xffffffffu, v, o);
+        if (lane >= o) v += t;
+      }
+      if (i < N + 2) s.start[i] = v + carry;
+      carry += __shfl_sync(0xffffffffu, v, 31);
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < E; e += kThreads) {
+    const int bin = s.bins[e];
+    if (bin < 0) continue;
+    int rank = 0, q = 0;
+    const int4* b4 = reinterpret_cast<const int4*>(s.bins);
+    for (; q + 4 <= e; q += 4) {
+      const int4 v = b4[q >> 2];
+      rank += (v.x == bin) + (v.y == bin) + (v.z == bin) + (v.w == bin);
+    }
+    for (; q < e; ++q) rank += s.bins[q] == bin;
+    s.order[s.start[bin] + rank] = e;
+  }
+  __syncthreads();
+  PHASE_MARK(2);
+}
+
+// The first node whose edges start at or past share r of the kept edges:
+// warp slot r walks nodes [node_at(r), node_at(r + 1)), whole nodes at
+// about equal shares of the edges (molecules fill the low node indices, so
+// equal node ranges would leave most warps idle).
+__device__ __forceinline__ int node_at(const int* start, int N, int kept, int r) {
+  const int target = static_cast<int>(static_cast<long long>(r) * kept / kSlots);
+  int lo = 0, hi = N;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (start[mid] >= target) hi = mid; else lo = mid + 1;
+  }
+  return lo;
+}
+
+// The edge's one-hot row as KD values: whole float4 broadcasts, then the
+// KD % 4 rest.
+template <int MAXD, int KD>
+__device__ __forceinline__ void one_hot_row(const float* bo, int e, float (&bk)[KD]) {
+  const float* row = bo + static_cast<size_t>(e) * MAXD;
+#pragma unroll
+  for (int k4 = 0; k4 < KD / 4; ++k4) {
+    const float4 v = reinterpret_cast<const float4*>(row)[k4];
+    bk[4 * k4 + 0] = v.x;
+    bk[4 * k4 + 1] = v.y;
+    bk[4 * k4 + 2] = v.z;
+    bk[4 * k4 + 3] = v.w;
+  }
+#pragma unroll
+  for (int k = KD / 4 * 4; k < KD; ++k) bk[k] = row[k];
+}
+
+// MAXD: staged one-hot columns (16 or 32); KD: the columns summed, D
+// itself for the repo's bond one-hots (D = 13), else MAXD (zero padded).
+template <int MAXD, int KD>
+__global__ void __launch_bounds__(kThreads)
 gin_messages_fwd_kernel(const float* __restrict__ x,
                         const int* __restrict__ src,
                         const int* __restrict__ dst,
@@ -94,85 +259,85 @@ gin_messages_fwd_kernel(const float* __restrict__ x,
                         float* __restrict__ out,
                         int N, int E, int D, int F, int bf16) {
   extern __shared__ __align__(16) float smem[];
-  float* xs = smem;                          // [N][kFeatChunk]
-  float* acc = xs + N * kFeatChunk;          // [N][kFeatChunk]
-  float* tbl = acc + N * kFeatChunk;         // [D][kFeatChunk]
-  float* bo = tbl + D * kFeatChunk;          // [E][D]
-  int* s_src = reinterpret_cast<int*>(bo + E * D);  // [E]
-  int* s_dst = s_src + E;                            // [E]
-
+  const EdgeArrays s = edge_arrays<MAXD>(smem, E, false);
   const int b = blockIdx.x;
-  const int t = threadIdx.x;
-  const int f = blockIdx.y * kFeatChunk + t;
+  const int warp = threadIdx.x >> 5;
+  const int slot = warp / kGroups;
+  const int f = blockIdx.y * kFeat + (warp % kGroups) * 32 + (threadIdx.x & 31);
   const bool active = f < F;
 
+  PHASE_MARK(0);
+  float tb[KD];   // the table column, in registers
+#pragma unroll
+  for (int k = 0; k < KD; ++k) {
+    const float v = (active && k < D) ? table[static_cast<size_t>(k) * F + f] : 0.f;
+    tb[k] = bf16 ? round_bf16(v) : v;
+  }
+  stage_and_sort<MAXD, true>(s, src, dst, boh, b, N, E, D, bf16);
+
+  // the warp's dst nodes [n0, n1) and their edges order[p0 .. p1)
+  const int kept = s.start[N];
+  const int n0 = node_at(s.start, N, kept, slot);
+  const int n1 = slot == kSlots - 1 ? N : node_at(s.start, N, kept, slot + 1);
+  const int p0 = s.start[n0];
+  const int p1 = s.start[n1];
   const float* xb = x + static_cast<size_t>(b) * N * F;
-  for (int n = 0; n < N; ++n) {
-    float v = active ? xb[static_cast<size_t>(n) * F + f] : 0.f;
-    xs[n * kFeatChunk + t] = bf16 ? round_bf16(v) : v;
-    acc[n * kFeatChunk + t] = 0.f;
-  }
-  for (int k = 0; k < D; ++k) {
-    float v = active ? table[static_cast<size_t>(k) * F + f] : 0.f;
-    tbl[k * kFeatChunk + t] = bf16 ? round_bf16(v) : v;
-  }
-  const float* bob = boh + static_cast<size_t>(b) * E * D;
-  for (int i = t; i < E * D; i += blockDim.x) {
-    float v = bob[i];
-    bo[i] = bf16 ? round_bf16(v) : v;
-  }
-  for (int i = t; i < E; i += blockDim.x) {
-    s_src[i] = src[static_cast<size_t>(b) * E + i];
-    s_dst[i] = dst[static_cast<size_t>(b) * E + i];
-  }
-  __syncthreads();
+  float* ob = out + static_cast<size_t>(b) * N * F;
 
-  for (int e = 0; e < E; ++e) {
-    const int dn = s_dst[e];
-    if (dn < 0 || dn >= N) continue;  // same branch for the whole block
-    const int sn = s_src[e];
-    const float* bor = bo + e * D;
-    float emb = 0.f;
-    for (int k = 0; k < D; ++k) emb = fmaf(bor[k], tbl[k * kFeatChunk + t], emb);
-    const float g = (sn >= 0 && sn < N) ? xs[sn * kFeatChunk + t] : 0.f;
-    float m = fmaxf(g + emb, 0.f);
-    if (bf16) m = round_bf16(m);
-    acc[dn * kFeatChunk + t] += m;
+  // kUnroll edges' gathers of x[src] in flight together, the next group's
+  // issued before the current group is summed
+  int es[kUnroll], es_next[kUnroll];
+  float xv[kUnroll], xv_next[kUnroll];
+  auto gather = [&](int p, int (&e_o)[kUnroll], float (&x_o)[kUnroll]) {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      e_o[u] = -1;
+      x_o[u] = 0.f;
+      if (p + u < p1) {
+        const int e = s.order[p + u];
+        const int sn = s.s_src[e];
+        e_o[u] = e;
+        if (active && sn >= 0 && sn < N) x_o[u] = xb[static_cast<size_t>(sn) * F + f];
+      }
+    }
+  };
+  auto flush = [&](int node, float& a) {
+    if (active) ob[static_cast<size_t>(node) * F + f] = a;
+    a = 0.f;
+  };
+  float acc = 0.f;   // out of node n: its messages in edge order
+  int n = n0;
+  gather(p0, es, xv);
+  for (int p = p0; p < p1; p += kUnroll) {
+    gather(p + kUnroll, es_next, xv_next);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int e = es[u];
+      if (e >= 0) {
+        const int bin = s.bins[e];
+        for (; n < bin; ++n) flush(n, acc);   // nodes before this edge's are done
+        float bk[KD];
+        one_hot_row<MAXD, KD>(s.bo, e, bk);
+        float emb = 0.f;
+#pragma unroll
+        for (int k = 0; k < KD; ++k) emb = fmaf(bk[k], tb[k], emb);
+        float m = fmaxf((bf16 ? round_bf16(xv[u]) : xv[u]) + emb, 0.f);
+        if (bf16) m = round_bf16(m);
+        acc += m;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      es[u] = es_next[u];
+      xv[u] = xv_next[u];
+    }
   }
-
-  // each thread read and wrote only its own column: no barrier needed
-  if (active) {
-    float* ob = out + static_cast<size_t>(b) * N * F;
-    for (int n = 0; n < N; ++n) ob[static_cast<size_t>(n) * F + f] = acc[n * kFeatChunk + t];
-  }
+  for (; n < n1; ++n) flush(n, acc);
+  PHASE_MARK(3);
 }
 
-constexpr int kBwdWarps = 8;                     // warps per backward block
-constexpr int kBwdGroups = 2;                    // warp columns of 32 features
-constexpr int kBwdFeat = 32 * kBwdGroups;        // features per block
-constexpr int kBwdSlots = kBwdWarps / kBwdGroups;  // node ranges per block
-constexpr int kUnroll = 4;                       // edges whose gathers fly together
-constexpr int kStage = 8;                        // one-hot words a thread copies per round
-
-// One-hot columns staged per edge: D rounded up to 16 or 32, 0 if D > 32.
-int bwd_maxd(int D) { return D <= 16 ? 16 : D <= 32 ? 32 : 0; }
-
-// Shared memory of the backward at (N, E, D), 0 where it has no plan:
-// one-hot rows [E][MAXD], the warps' dtable columns [slots][MAXD][64],
-// the edges' bins, src, dst and sorted order [E] each, bin starts
-// [N + 2].  Mirrored by ops/gin_messages.py::bwd_plan.
-size_t bwd_smem(int N, int E, int D) {
-  const int maxd = bwd_maxd(D);
-  if (maxd == 0) return 0;
-  const size_t words = static_cast<size_t>(E) * maxd + kBwdSlots * maxd * kBwdFeat +
-                       4 * static_cast<size_t>(E) + static_cast<size_t>(N) + 2;
-  return words * 4 <= kSmemLimit ? words * 4 : 0;
-}
-
-// MAXD: staged one-hot columns (16 or 32); KD: the columns summed, D
-// itself for the repo's bond one-hots (D = 13), else MAXD (zero padded).
 template <int MAXD, int KD>
-__global__ void __launch_bounds__(32 * kBwdWarps)
+__global__ void __launch_bounds__(kThreads)
 gin_messages_bwd_kernel(const float* __restrict__ x,
                         const int* __restrict__ src,
                         const int* __restrict__ dst,
@@ -183,116 +348,31 @@ gin_messages_bwd_kernel(const float* __restrict__ x,
                         float* __restrict__ dtable_part,   // [B, D, F]
                         int N, int E, int D, int F, int bf16) {
   extern __shared__ __align__(16) float smem[];
-  float* bo = smem;                                   // [E][MAXD]
-  float* red = bo + static_cast<size_t>(E) * MAXD;    // [kBwdSlots][MAXD][kBwdFeat]
-  int* bins = reinterpret_cast<int*>(red + kBwdSlots * MAXD * kBwdFeat);  // [E]
-  int* s_src = bins + E;                              // [E]
-  int* s_dst = s_src + E;                             // [E]
-  int* order = s_dst + E;                             // [E] kept edges by (bin, edge)
-  int* start = order + E;                             // [N + 2] bin starts
-
+  const EdgeArrays s = edge_arrays<MAXD>(smem, E, true);
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int grp = warp % kBwdGroups;
-  const int slot = warp / kBwdGroups;
-  const int nthr = 32 * kBwdWarps;
-  const int col = grp * 32 + lane;                    // the thread's feature in the block
-  const int f = blockIdx.y * kBwdFeat + col;
+  const int slot = warp / kGroups;
+  const int col = (warp % kGroups) * 32 + (tid & 31);   // the thread's feature in the block
+  const int f = blockIdx.y * kFeat + col;
   const bool active = f < F;
 
   PHASE_MARK(0);
-  // stage the edges (each with its bin: its src node, N for an
-  // out-of-range src, -1 = dropped for an out-of-range dst) and the
-  // one-hot rows, every load of a round issued before its stores; the
-  // table column goes to registers
-  float tb[KD];
+  float tb[KD];   // the table column, in registers
 #pragma unroll
   for (int k = 0; k < KD; ++k) {
     const float v = (active && k < D) ? table[static_cast<size_t>(k) * F + f] : 0.f;
     tb[k] = bf16 ? round_bf16(v) : v;
   }
-  for (int i = tid; i < N + 2; i += nthr) start[i] = 0;
-  const int* srcb = src + static_cast<size_t>(b) * E;
-  const int* dstb = dst + static_cast<size_t>(b) * E;
-  for (int i = tid; i < E; i += nthr) {
-    const int sn = srcb[i], dn = dstb[i];
-    s_src[i] = sn;
-    s_dst[i] = dn;
-    bins[i] = (dn < 0 || dn >= N) ? -1 : (sn >= 0 && sn < N) ? sn : N;
-  }
-  const float* bob = boh + static_cast<size_t>(b) * E * D;
-  for (int base = 0; base < E * MAXD; base += nthr * kStage) {
-    float v[kStage];
-#pragma unroll
-    for (int j = 0; j < kStage; ++j) {
-      const int i = base + j * nthr + tid;
-      const int e = i / MAXD, k = i - e * MAXD;
-      v[j] = (i < E * MAXD && k < D) ? bob[static_cast<size_t>(e) * D + k] : 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < kStage; ++j) {
-      const int i = base + j * nthr + tid;
-      if (i < E * MAXD) bo[i] = bf16 ? round_bf16(v[j]) : v[j];
-    }
-  }
-  __syncthreads();
-  PHASE_MARK(1);
+  stage_and_sort<MAXD, false>(s, src, dst, boh, b, N, E, D, bf16);
 
-  // stable counting sort of the kept edges by bin: counts (integer
-  // atomics, the same counts whatever their order), a warp scan of them,
-  // and each edge's rank among the earlier edges of its bin
-  for (int i = tid; i < E; i += nthr)
-    if (bins[i] >= 0) atomicAdd(&start[bins[i] + 1], 1);
-  __syncthreads();
-  if (warp == 0) {   // inclusive scan of start[0 .. N+1]: start[i] = edges of bins < i
-    int carry = 0;
-    for (int base = 0; base < N + 2; base += 32) {
-      const int i = base + lane;
-      int v = i < N + 2 ? start[i] : 0;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int t = __shfl_up_sync(0xffffffffu, v, o);
-        if (lane >= o) v += t;
-      }
-      if (i < N + 2) start[i] = v + carry;
-      carry += __shfl_sync(0xffffffffu, v, 31);
-    }
-  }
-  __syncthreads();
-  for (int e = tid; e < E; e += nthr) {
-    const int bin = bins[e];
-    if (bin < 0) continue;
-    int rank = 0, q = 0;
-    const int4* b4 = reinterpret_cast<const int4*>(bins);
-    for (; q + 4 <= e; q += 4) {
-      const int4 v = b4[q >> 2];
-      rank += (v.x == bin) + (v.y == bin) + (v.z == bin) + (v.w == bin);
-    }
-    for (; q < e; ++q) rank += bins[q] == bin;
-    order[start[bin] + rank] = e;
-  }
-  __syncthreads();
-  PHASE_MARK(2);
-
-  // the warp's nodes [n0, n1), whole nodes cut at about equal shares of
-  // the kept edges, and their edges order[p0 .. p1) (the last range also
-  // walks bin N: dtable only)
-  const int kept = start[N + 1];
-  auto node_at = [&](int r) {   // first node whose edges start at or past share r
-    const int target = static_cast<int>(static_cast<long long>(r) * kept / kBwdSlots);
-    int lo = 0, hi = N;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (start[mid] >= target) hi = mid; else lo = mid + 1;
-    }
-    return lo;
-  };
-  const int n0 = node_at(slot);
-  const int n1 = slot == kBwdSlots - 1 ? N : node_at(slot + 1);
-  const int p0 = start[n0];
-  const int p1 = slot == kBwdSlots - 1 ? kept : start[n1];
+  // the warp's src nodes [n0, n1) and their edges order[p0 .. p1) (the
+  // last range also walks bin N: dtable only)
+  const int kept = s.start[N + 1];
+  const int n0 = node_at(s.start, N, kept, slot);
+  const int n1 = slot == kSlots - 1 ? N : node_at(s.start, N, kept, slot + 1);
+  const int p0 = s.start[n0];
+  const int p1 = slot == kSlots - 1 ? kept : s.start[n1];
   const float* xb = x + static_cast<size_t>(b) * N * F;
   const float* gb = g + static_cast<size_t>(b) * N * F;
   float* dxb = dx + static_cast<size_t>(b) * N * F;
@@ -307,11 +387,11 @@ gin_messages_bwd_kernel(const float* __restrict__ x,
       e_o[u] = -1;
       x_o[u] = g_o[u] = 0.f;
       if (p + u < p1) {
-        const int e = order[p + u];
-        const int sn = s_src[e];
+        const int e = s.order[p + u];
+        const int sn = s.s_src[e];
         e_o[u] = e;
         if (active) {
-          g_o[u] = gb[static_cast<size_t>(s_dst[e]) * F + f];
+          g_o[u] = gb[static_cast<size_t>(s.s_dst[e]) * F + f];
           if (sn >= 0 && sn < N) x_o[u] = xb[static_cast<size_t>(sn) * F + f];
         }
       }
@@ -334,21 +414,10 @@ gin_messages_bwd_kernel(const float* __restrict__ x,
     for (int u = 0; u < kUnroll; ++u) {
       const int e = es[u];
       if (e >= 0) {
-        const int bin = bins[e];
+        const int bin = s.bins[e];
         for (; n < bin && n < n1; ++n) flush(n, acc);   // nodes before this edge's are done
-        // the one-hot row: whole float4 broadcasts, then the KD % 4 rest
         float bk[KD];
-        const float* row = bo + static_cast<size_t>(e) * MAXD;
-#pragma unroll
-        for (int k4 = 0; k4 < KD / 4; ++k4) {
-          const float4 v = reinterpret_cast<const float4*>(row)[k4];
-          bk[4 * k4 + 0] = v.x;
-          bk[4 * k4 + 1] = v.y;
-          bk[4 * k4 + 2] = v.z;
-          bk[4 * k4 + 3] = v.w;
-        }
-#pragma unroll
-        for (int k = KD / 4 * 4; k < KD; ++k) bk[k] = row[k];
+        one_hot_row<MAXD, KD>(s.bo, e, bk);
         float emb = 0.f;
 #pragma unroll
         for (int k = 0; k < KD; ++k) emb = fmaf(bk[k], tb[k], emb);
@@ -370,19 +439,33 @@ gin_messages_bwd_kernel(const float* __restrict__ x,
 
   // the block's dtable partial: the node ranges' columns summed in order
 #pragma unroll
-  for (int k = 0; k < KD; ++k) red[(slot * MAXD + k) * kBwdFeat + col] = dt[k];
+  for (int k = 0; k < KD; ++k) s.red[(slot * MAXD + k) * kFeat + col] = dt[k];
   __syncthreads();
   PHASE_MARK(3);
   float* pb = dtable_part + static_cast<size_t>(b) * D * F;
-  for (int i = tid; i < D * kBwdFeat; i += nthr) {
-    const int k = i / kBwdFeat, fl = i - k * kBwdFeat;
-    const int fg = blockIdx.y * kBwdFeat + fl;
+  for (int i = tid; i < D * kFeat; i += kThreads) {
+    const int k = i / kFeat, fl = i - k * kFeat;
+    const int fg = blockIdx.y * kFeat + fl;
     if (fg >= F) continue;
     float v = 0.f;
-    for (int r = 0; r < kBwdSlots; ++r) v += red[(r * MAXD + k) * kBwdFeat + fl];
+    for (int r = 0; r < kSlots; ++r) v += s.red[(r * MAXD + k) * kFeat + fl];
     pb[static_cast<size_t>(k) * F + fg] = v;
   }
   PHASE_MARK(4);
+}
+
+template <int MAXD, int KD>
+int launch_fwd(const float* x, const int* src, const int* dst, const float* boh,
+               const float* table, float* out, int B, int N, int E, int D, int F, int bf16,
+               size_t smem, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(
+      gin_messages_fwd_kernel<MAXD, KD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B, (F + kFeat - 1) / kFeat);
+  gin_messages_fwd_kernel<MAXD, KD><<<grid, kThreads, smem, s>>>(
+      x, src, dst, boh, table, out, N, E, D, F, bf16);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int MAXD, int KD>
@@ -394,47 +477,44 @@ int launch_bwd(const float* x, const int* src, const int* dst, const float* boh,
       gin_messages_bwd_kernel<MAXD, KD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B, (F + kBwdFeat - 1) / kBwdFeat);
-  gin_messages_bwd_kernel<MAXD, KD><<<grid, 32 * kBwdWarps, smem, s>>>(
+  const dim3 grid(B, (F + kFeat - 1) / kFeat);
+  gin_messages_bwd_kernel<MAXD, KD><<<grid, kThreads, smem, s>>>(
       x, src, dst, boh, table, g, dx, dtable_part, N, E, D, F, bf16);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// out [B, N, F].  Needs D <= 32 and edge data that fits (edge_smem).
 extern "C" int gin_messages_fwd(const float* x, const int* src, const int* dst,
                                 const float* boh, const float* table, float* out,
                                 int B, int N, int E, int D, int F, int bf16,
                                 void* stream) {
-  const size_t smem = static_cast<size_t>(2 * N + D) * kFeatChunk * sizeof(float) +
-                      static_cast<size_t>(E) * D * sizeof(float) +
-                      static_cast<size_t>(2 * E) * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      gin_messages_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B, (F + kFeatChunk - 1) / kFeatChunk);
-  gin_messages_fwd_kernel<<<grid, kFeatChunk, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      x, src, dst, boh, table, out, N, E, D, F, bf16);
-  return static_cast<int>(cudaGetLastError());
+  const size_t smem = edge_smem(N, E, D, false);
+  if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return D == 13 ? launch_fwd<16, 13>(x, src, dst, boh, table, out, B, N, E, D, F, bf16,
+                                      smem, s)
+         : maxd_of(D) == 16 ? launch_fwd<16, 16>(x, src, dst, boh, table, out, B, N, E, D, F,
+                                                 bf16, smem, s)
+         : launch_fwd<32, 32>(x, src, dst, boh, table, out, B, N, E, D, F, bf16, smem, s);
 }
 
 // dx [B, N, F] and dtable [D, F]; dtable_part is caller-allocated scratch
-// of B * D * F floats.  Needs D <= 32 and edge data that fits (bwd_smem).
+// of B * D * F floats.  Needs D <= 32 and edge data that fits (edge_smem).
 extern "C" int gin_messages_bwd(const float* x, const int* src, const int* dst,
                                 const float* boh, const float* table,
                                 const float* g, float* dx, float* dtable,
                                 float* dtable_part, int B, int N, int E, int D,
                                 int F, int bf16, void* stream) {
-  const size_t smem = bwd_smem(N, E, D);
+  const size_t smem = edge_smem(N, E, D, true);
   if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rc =
       D == 13 ? launch_bwd<16, 13>(x, src, dst, boh, table, g, dx, dtable_part, B, N, E, D,
                                    F, bf16, smem, s)
-      : bwd_maxd(D) == 16 ? launch_bwd<16, 16>(x, src, dst, boh, table, g, dx, dtable_part,
-                                               B, N, E, D, F, bf16, smem, s)
+      : maxd_of(D) == 16 ? launch_bwd<16, 16>(x, src, dst, boh, table, g, dx, dtable_part,
+                                              B, N, E, D, F, bf16, smem, s)
       : launch_bwd<32, 32>(x, src, dst, boh, table, g, dx, dtable_part, B, N, E, D, F, bf16,
                            smem, s);
   if (rc != 0) return rc;
@@ -442,8 +522,13 @@ extern "C" int gin_messages_bwd(const float* x, const int* src, const int* dst,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The backward's shared memory at (N, E, D) as the launch computes it, 0
-// where it has no plan (ops/gin_messages.py::bwd_plan mirrors it).
+// The forward's and the backward's shared memory at (N, E, D) as their
+// launches compute it, 0 where there is no plan (ops/gin_messages.py::
+// fwd_plan and bwd_plan mirror them).
+extern "C" long long gin_messages_fwd_smem(int N, int E, int D) {
+  return static_cast<long long>(edge_smem(N, E, D, false));
+}
+
 extern "C" long long gin_messages_bwd_smem(int N, int E, int D) {
-  return static_cast<long long>(bwd_smem(N, E, D));
+  return static_cast<long long>(edge_smem(N, E, D, true));
 }

@@ -31,20 +31,55 @@
 // bf16 mode rounds g, w and relu(pair) to bf16 for the two products (the
 // relu mask still comes from the f32 pair) and keeps db in f32, as the TPU
 // kernel does.  Bound: arithmetic, 4*N*N*C*H flops per graph (two
-// products), ~2.5 GFLOP at B=128, N=32, C=300, H=32.  Design: one block
-// per (graph, chunk of CC channels), one thread per channel c.  A thread
-// holds w[c, :] and its dw[c, :] accumulators in registers; the chunk's
-// columns of the graph's cc rows and its dc accumulators live in shared
-// memory (the thread's own column, so no conflicts), and each block stages
-// g one source row s at a time ([N, 32], broadcast reads).  The pair value
-// is formed once per (s, d, c) and feeds both products.  Shared memory is
-// (32*N + 2*N*CC) words: bwd_chunk picks the fewest chunks that fit (one,
-// CC = C, up to N = 64 at C = 300; two of up to 160 channels at N = 128),
-// and a thread's order of operations does not depend on the chunking, so
-// neither does the result.  dw and db are batch-wide sums: each block
-// writes its channels' share of its graph's partial (chunk 0 also db) and
-// a second launch adds them in graph order (partials.cuh), so the result
-// is the same on every run.
+// products), 5.0 GFLOP at B=128, N=32, C=300, H=32 (5 us on the bf16
+// tensor cores), 20 GFLOP at B=32, N=128.  Both products are per-graph
+// GEMMs: dpair^T [C, pairs] = W [C, H] @ g^T (K = H = 32) and dW [C, H] =
+// relu(pair)^T @ g (K = pairs).  Design (redesigned for the tensor cores):
+//  * Block = (graph, chunk of CH channels), numbered graph-major, so the
+//    chunks of a graph read its g while it sits in L2; CH = 64, or 32 where
+//    64 does not fit (bwd_chunk: 64 up to N = 366, 32 up to 748), C padded
+//    to a multiple of CH with zero rows.  Two halves of CH / 32 warps (bf16;
+//    a warp owns 32 channels, two m16 tiles that share each g fragment) or
+//    CH / 16 warps (f32): warp (cg, half) owns its channels and half of each
+//    stage's source rows.
+//  * Work = (dest tile of 16 d, source row s) tiles: the dest tile is the
+//    outer loop, so the lane's cc values and dc sums for it stay in
+//    registers; da[s] sums over the dest tiles in shared memory.  Stages of
+//    8 source rows x 16 dest nodes of g are copied with cp.async, double
+//    buffered (the next stage flies while this one computes), zero-filled
+//    past N and H, a thread's slots fixed at compile time; bf16 mode rounds
+//    each stage once into a bf16 tile.
+//  * bf16 mode, per tile, on the tensor cores (mma.sync m16n8k16 bf16 ->
+//    f32): W's A fragments stay in registers for the whole block; g's B
+//    fragments come through ldmatrix (.trans where the layout is [k][n]).
+//    The dpair^T accumulator of a 16 x 16 tile has exactly the layout of an
+//    m16k16 A fragment, so the pair is formed in registers at those
+//    positions (a from shared memory, cc from registers), relu'd and
+//    packed to bf16 in one cvt and fed straight to the dW product: the pair
+//    tensor never reaches shared or device memory.  The mask (f32 pair > 0)
+//    and K4's rounding apply to the accumulator elements; da is reduced
+//    over the quad's lanes by a reduce-scatter (3 shuffles a row), each
+//    lane adding one channel's sum to its row in shared memory, and dc
+//    stays in registers.
+//    a's columns and the da sums keep a lane's channels side by side
+//    (chan_slot), so one vector load reads a[s] for a row.
+//  * f32 mode keeps f32 products (its bar against plain is 1e-4, so not
+//    TF32): the same blocks, stages and lane positions, the two products as
+//    f32 FMAs on the CUDA cores into 8 + 64 independent accumulators a lane
+//    (its 8 dpair values over h, its dW partial over its pairs, W's two
+//    rows in registers), g read from the f32 stage 4 h at a time.
+//  * Fixed orders: dc of the two halves added half 0 first, dW likewise
+//    (f32: over the quad's lanes first); db (K3, chunk 0) sums the f32
+//    stages' unrounded g, a thread a column, then the threads in order; a
+//    second launch adds the graphs' dW and db partials (partials.cuh).  No
+//    atomics: the same bits on every run.
+//  * What holds it back (benchmarks/profile_gin_pair.py, PERF.md): not the
+//    tensor cores.  The ~7 elementwise operations per (pair, channel) issue
+//    at a third of the card's rate, and each block stages and rounds all
+//    of its graph's g, once per channel chunk.  With -DPHASE_PROFILE,
+//    thread 0 stamps the start, a's staging, the first three stages, the
+//    last and the end.
+// Shared memory: (2 N CH + 32 CH) words + a 36 KB stage area (bwd_smem).
 //
 // K4, the channel-major variant (template flag CM), replaces
 // moleculesde_tpu/ops/pair_block.py::_fwd_kernel_cm (pallas_call at l.337)
@@ -60,15 +95,17 @@
 // TPU kernel rounds, which is not where K3 does: a and cc are rounded to
 // bf16 BEFORE the add (the TPU kernel casts its inputs), the relu mask
 // comes from that f32 sum, and the backward rounds the masked dpair to
-// bf16 before the da / dc sums.  The backward stages g's [H, N*N] rows with
-// neighbouring threads on neighbouring d, gives no db, and sums dw through
-// partials.cuh like K3.
+// bf16 before the da / dc sums.  The backward is K3's template with CM:
+// its stages keep g's [H, N*N] rows, so the ldmatrix transposes swap, and
+// it gives no db.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
 #include "hopper.cuh"
 #include "partials.cuh"
+
+constexpr int kPhaseSlots = 8;   // PHASE_PROFILE marks per block (the backward)
 
 namespace {
 
@@ -173,140 +210,530 @@ __global__ void pair_relu_project_fwd_kernel(const float* __restrict__ a,
   }
 }
 
-template <bool CM>
-__global__ void pair_relu_project_bwd_kernel(const float* __restrict__ a,
-                                             const float* __restrict__ cc,
-                                             const float* __restrict__ w,
-                                             const float* __restrict__ g,
-                                             float* __restrict__ da,
-                                             float* __restrict__ dc,
-                                             float* __restrict__ dw_part,  // [B, C, H]
-                                             float* __restrict__ db_part,  // [B, H]; !CM
-                                             int N, int C, int H, int CC, int bf16) {
-  extern __shared__ __align__(16) float smem[];
-  float* grow = smem;                  // [N][kChanTile]: g[b, s, :, :]
-  float* cs = grow + N * kChanTile;    // [N][CC]: the chunk's columns of cc
-  float* dcs = cs + N * CC;            // [N][CC]
+// ---- backward (K3 and K4): see the header ----
 
-  const int b = blockIdx.x;
-  const int c0 = blockIdx.y * CC;      // the chunk's first channel
-  const int cl = threadIdx.x;          // the thread's channel within the chunk
-  const int c = c0 + cl;
-  const bool active = cl < CC && c < C;
+constexpr int kStageRows = 8;                          // source rows per stage
+constexpr int kDTile = 16;                             // dest nodes per tile
+constexpr int kStagePairs = kStageRows * kDTile;       // pair rows per stage
+constexpr int kSlots = kStagePairs * kChanTile / 4;    // 16-byte slots of g per stage
+constexpr size_t kStageBytes = 36864;                  // the stage area, every layout
+
+// A stage of g in shared memory: K3 keeps g's pair rows ([128][32]), K4 its
+// channel rows ([32][128]), each padded so that the rows a warp reads
+// together fall in distinct banks.  f32 mode computes on two f32 tiles of
+// FS floats a row; bf16 mode copies into one f32 tile (unpadded) and
+// computes on two bf16 tiles of BS halves a row.
+template <bool CM, bool BF16>
+struct StageLayout {
+  static constexpr int kRows = CM ? kChanTile : kStagePairs;
+  static constexpr int kCols = CM ? kStagePairs : kChanTile;
+  static constexpr int FS = kCols + (BF16 ? 0 : 4);
+  static constexpr int BS = kCols + 8;
+  static constexpr int kTile32 = kRows * FS;
+  static constexpr int kTile16 = kRows * BS;
+  static_assert((BF16 ? 4 * kTile32 + 2 * 2 * kTile16 : 2 * 4 * kTile32) <= kStageBytes,
+                "stage area");
+};
+
+// Channels a warp owns: two m16 tiles in bf16 mode (they share each g
+// fragment), one in f32 mode (a lane holds W's rows and its dW partial).
+template <bool BF16>
+constexpr int kWarpChan = BF16 ? 32 : 16;
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// pack_bf16(relu(lo), relu(hi)) in one instruction
+__device__ __forceinline__ uint32_t pack_relu_bf16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// Threads of a block of CH channels: two halves of CH / kWarpChan warps.
+template <bool BF16, int CH>
+constexpr int kBwdThreads = 2 * 32 * (CH / kWarpChan<BF16>);
+
+// Where channel k of a block's chunk sits in a row of a's columns and of
+// the da sums: a lane's 2 MT channels (m tile mt, accumulator rows q and
+// q + 8) side by side, so one vector load reads them.
+template <bool BF16>
+__device__ __forceinline__ int chan_slot(int k) {
+  constexpr int W = kWarpChan<BF16>;
+  const int rem = k % W, q = rem % 8;
+  return k - rem + q * (W / 8) + rem / 8;   // rem / 8 = 2 mt + hi
+}
+
+template <bool CM, bool BF16, int CH>
+__global__ void __launch_bounds__(kBwdThreads<BF16, CH>, BF16 ? 3 : 1)
+pair_relu_project_bwd_kernel(const float* __restrict__ a,
+                             const float* __restrict__ cc,
+                             const float* __restrict__ w,
+                             const float* __restrict__ g,
+                             float* __restrict__ da,
+                             float* __restrict__ dc,
+                             float* __restrict__ dw_part,   // [B, C, H]
+                             float* __restrict__ db_part,   // [B, H]; !CM
+                             int N, int C, int H, int chunks) {
+  using L = StageLayout<CM, BF16>;
+  constexpr int MT = kWarpChan<BF16> / 16;          // m16 tiles a warp
+  constexpr int nthr = kBwdThreads<BF16, CH>;
+  constexpr int kPer = kSlots / nthr;                // g slots a thread copies per stage
+  static_assert(kSlots % nthr == 0, "slots per thread");
+  extern __shared__ __align__(16) float smem[];
+  float* as = smem;                                  // [N][CH] a's chunk columns
+  float* das = as + N * CH;                          // [N][CH] da sums (both chan_slot order)
+  float* dcx = das + N * CH;                         // [2][kDTile][CH] half 1's dc
+  float* stage = dcx + 2 * kDTile * CH;              // kStageBytes
+  float* tile32 = stage;
+  __nv_bfloat16* tile16 = reinterpret_cast<__nv_bfloat16*>(stage + L::kTile32);
+
+  const int b = blockIdx.x / chunks;                 // graph-major block numbers
+  const int chunk = blockIdx.x - b * chunks;
+  const int c0 = chunk * CH;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  constexpr int groups = CH / kWarpChan<BF16>;
+  const int cg = warp % groups;                      // the warp's channels
+  const int half = warp / groups;                    // the warp's rows of a stage
+  const int q = lane >> 2, r4 = lane & 3;
+  const int slot0 = cg * kWarpChan<BF16> + q * 2 * MT;   // the lane's channels' chan_slot
+  // the lane's channels in the chunk: [m tile][accumulator rows q, q + 8]
+  int cl[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    cl[mt][0] = cg * kWarpChan<BF16> + 16 * mt + q;
+    cl[mt][1] = cl[mt][0] + 8;
+  }
+  const bool round_halves = CM && BF16;
   const size_t nn = static_cast<size_t>(N) * N;
   const float* ab = a + static_cast<size_t>(b) * N * C;
   const float* cb = cc + static_cast<size_t>(b) * N * C;
-  const float* gb = g + static_cast<size_t>(b) * nn * H;  // [N*N, H], or [H, N*N] if CM
-  const bool round_halves = CM && bf16;
+  const float* gb = g + static_cast<size_t>(b) * nn * H;
+  const bool db_block = !CM && chunk == 0;
+  const bool vec = CM ? (N % 4 == 0) : (H % 4 == 0);  // 16-byte aligned g slots
 
-  for (int i = cl; i < N * CC; i += blockDim.x) {
-    const int r = i / CC, k = i - r * CC;
-    const float v = c0 + k < C ? cb[static_cast<size_t>(r) * C + c0 + k] : 0.f;
-    cs[i] = round_halves ? round_bf16(v) : v;
-    dcs[i] = 0.f;
+  PHASE_MARK(0);
+  for (int i = tid; i < N * CH; i += nthr) {
+    const int r = i / CH, k = i - r * CH;
+    const float v = c0 + k < C ? ab[static_cast<size_t>(r) * C + c0 + k] : 0.f;
+    as[r * CH + chan_slot<BF16>(k)] = round_halves ? round_bf16(v) : v;
+    das[i] = 0.f;
   }
-  float wr[kChanTile], dwr[kChanTile];
+  auto wval = [&](int cl_, int h) {
+    const int c = c0 + cl_;
+    const float v = (c < C && h < H) ? w[static_cast<size_t>(c) * H + h] : 0.f;
+    return BF16 ? round_bf16(v) : v;
+  };
+  // BF16: W's A fragments (m = channel, k = h), the dW accumulator
+  // fragments (m = channel, n = h); f32: W's two rows and the lane's dW
+  // partial over its pairs
+  uint32_t wa[MT][2][4];
+  float dwa[MT][4][4];
+  float wr[2][kChanTile], dwr[2][kChanTile];
+  if constexpr (BF16) {
 #pragma unroll
-  for (int h = 0; h < kChanTile; ++h) {
-    const float v = (active && h < H) ? w[static_cast<size_t>(c) * H + h] : 0.f;
-    wr[h] = bf16 ? round_bf16(v) : v;
-    dwr[h] = 0.f;
-  }
-  // db: unrounded f32 sum of g over the graph's pairs, in pair order (chunk 0)
-  if (!CM && blockIdx.y == 0 && cl < H) {
-    float acc = 0.f;
-    for (size_t p = 0; p < nn; ++p) acc += gb[p * H + cl];
-    db_part[static_cast<size_t>(b) * H + cl] = acc;
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int h = 16 * ks + (j >> 1) * 8 + 2 * r4;
+          wa[mt][ks][j] = pack_bf16(wval(cl[mt][j & 1], h), wval(cl[mt][j & 1], h + 1));
+        }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dwa[mt][j][e] = 0.f;
+  } else {
+#pragma unroll
+    for (int h = 0; h < kChanTile; ++h) {
+      wr[0][h] = wval(cl[0][0], h);
+      wr[1][h] = wval(cl[0][1], h);
+      dwr[0][h] = dwr[1][h] = 0.f;
+    }
   }
 
-  for (int s = 0; s < N; ++s) {
-    __syncthreads();  // previous row's g fully consumed (and cs / dcs ready)
-    for (int i = cl; i < N * kChanTile; i += blockDim.x) {
-      float v;
-      int d, h;
-      if (CM) {  // neighbouring threads read neighbouring d of one channel
-        h = i / N;
-        d = i - h * N;
-        v = h < H ? gb[static_cast<size_t>(h) * nn + static_cast<size_t>(s) * N + d] : 0.f;
+  const int ndt = (N + kDTile - 1) / kDTile;
+  const int nsg = (N + kStageRows - 1) / kStageRows;
+  const int stages = ndt * nsg;
+  // slot j of this thread in a stage: tile row (K3: pair, K4: h) and its
+  // first column, the same in every stage; the stage's source rows and
+  // dest tile move the device address
+  auto slot = [&](int j, int& row, int& col) {
+    const int i = tid + j * nthr;
+    row = i / (L::kCols / 4);
+    col = 4 * (i % (L::kCols / 4));
+  };
+  auto issue = [&](int st) {   // cp.async of stage st, zero-filled past N and H
+    const int d0 = (st / nsg) * kDTile, s0 = (st % nsg) * kStageRows;
+    float* dst32 = tile32 + (BF16 ? 0 : (st & 1) * L::kTile32);
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      int row, col, nvalid;
+      const float* src;
+      slot(j, row, col);
+      if (CM) {   // row h, pairs col .. col + 3 of the stage
+        const int s = s0 + col / kDTile, d = d0 + col % kDTile;
+        nvalid = (row < H && s < N) ? max(0, min(4, N - d)) : 0;
+        src = gb + static_cast<size_t>(row) * nn + s * N + d;
+      } else {    // pair row, h col .. col + 3
+        const int s = s0 + row / kDTile, d = d0 + row % kDTile;
+        nvalid = (s < N && d < N) ? max(0, min(4, H - col)) : 0;
+        src = gb + (s * N + d) * H + col;
+      }
+      float* dst = dst32 + row * L::FS + col;
+      if (vec) {
+        hopper::cp_async16n(dst, nvalid ? src : g, 4 * nvalid);
       } else {
-        d = i / kChanTile;
-        h = i - d * kChanTile;
-        v = h < H ? gb[(static_cast<size_t>(s) * N + d) * H + h] : 0.f;
-      }
-      grow[d * kChanTile + h] = bf16 ? round_bf16(v) : v;
-    }
-    __syncthreads();
-    if (!active) continue;
-    const float a_raw = ab[static_cast<size_t>(s) * C + c];
-    const float as = round_halves ? round_bf16(a_raw) : a_raw;
-    float da_acc = 0.f;
-    for (int d = 0; d < N; ++d) {
-      const float pair = as + cs[d * CC + cl];
-      const float r = fmaxf(pair, 0.f);
-      const float rr = bf16 ? round_bf16(r) : r;
-      const float4* gr = reinterpret_cast<const float4*>(grow + d * kChanTile);
-      float dr = 0.f;
 #pragma unroll
-      for (int j = 0; j < kChanTile / 4; ++j) {
-        const float4 gv = gr[j];
-        dr = fmaf(gv.x, wr[4 * j + 0], dr);
-        dr = fmaf(gv.y, wr[4 * j + 1], dr);
-        dr = fmaf(gv.z, wr[4 * j + 2], dr);
-        dr = fmaf(gv.w, wr[4 * j + 3], dr);
-        dwr[4 * j + 0] = fmaf(rr, gv.x, dwr[4 * j + 0]);
-        dwr[4 * j + 1] = fmaf(rr, gv.y, dwr[4 * j + 1]);
-        dwr[4 * j + 2] = fmaf(rr, gv.z, dwr[4 * j + 2]);
-        dwr[4 * j + 3] = fmaf(rr, gv.w, dwr[4 * j + 3]);
+        for (int e = 0; e < 4; ++e)
+          hopper::cp_async4(dst + e, e < nvalid ? src + e : g, e < nvalid ? 4 : 0);
       }
-      float dp = pair > 0.f ? dr : 0.f;
-      if (round_halves) dp = round_bf16(dp);  // K4 rounds dpair before the sums
-      da_acc += dp;
-      dcs[d * CC + cl] += dp;
     }
-    da[(static_cast<size_t>(b) * N + s) * C + c] = da_acc;
-  }
+  };
+  // this thread's slots of stage st, once its copies have landed: db's
+  // unrounded sums (K3, chunk 0: a thread's slots keep one column of 4 h),
+  // and in bf16 mode the rounding into the bf16 tile
+  float db4[4] = {0.f, 0.f, 0.f, 0.f};
+  auto settle = [&](int st) {
+    if (!BF16 && !db_block) return;
+    const float* src32 = tile32 + (BF16 ? 0 : (st & 1) * L::kTile32);
+    __nv_bfloat16* dst16 = tile16 + (st & 1) * L::kTile16;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      int row, col;
+      slot(j, row, col);
+      const float4 v = *reinterpret_cast<const float4*>(src32 + row * L::FS + col);
+      if (db_block) {
+        db4[0] += v.x;
+        db4[1] += v.y;
+        db4[2] += v.z;
+        db4[3] += v.w;
+      }
+      if constexpr (BF16) {
+        uint2 u;
+        u.x = pack_bf16(v.x, v.y);
+        u.y = pack_bf16(v.z, v.w);
+        *reinterpret_cast<uint2*>(dst16 + row * L::BS + col) = u;
+      }
+    }
+  };
+  // the lane's values at its accumulator positions [m tile][nt][e] of a
+  // tile: channel cl[mt][e >> 1], dest d0 + 8 nt + 2 r4 + (e & 1)
+  float ccr[MT][2][4], dcr[MT][2][4];
+  auto finish_dc = [&](int dt) {   // half 0: half 1's dc of dest tile dt added, stored
+    if (half != 0) return;
+    const float* x = dcx + (dt & 1) * kDTile * CH;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int dl = 8 * nt + 2 * r4 + (e & 1), c_l = cl[mt][e >> 1];
+          const int d = dt * kDTile + dl, c = c0 + c_l;
+          const float v = dcr[mt][nt][e] + x[dl * CH + c_l];
+          if (d < N && c < C) dc[(static_cast<size_t>(b) * N + d) * C + c] = v;
+        }
+  };
 
-  if (!active) return;  // no barrier below this point
-  for (int d = 0; d < N; ++d)
-    dc[(static_cast<size_t>(b) * N + d) * C + c] = dcs[d * CC + cl];
-  float* pw = dw_part + (static_cast<size_t>(b) * C + c) * H;
+  PHASE_MARK(1);
+  issue(0);
+  for (int st = 0; st < stages; ++st) {
+    hopper::cp_async_wait_all();
+    settle(st);
+    __syncthreads();   // stage st in place; stage st - 1 consumed by every warp
+    if (st + 1 < stages) issue(st + 1);
+    const int dt = st / nsg, sg = st - dt * nsg;
+    if (sg == 0) {   // a new dest tile: the last one's dc out, this one's cc in
+      if (dt > 0) finish_dc(dt - 1);
 #pragma unroll
-  for (int h = 0; h < kChanTile; ++h)
-    if (h < H) pw[h] = dwr[h];
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int d = dt * kDTile + 8 * nt + 2 * r4 + (e & 1), c = c0 + cl[mt][e >> 1];
+            const float v = (d < N && c < C) ? cb[static_cast<size_t>(d) * C + c] : 0.f;
+            ccr[mt][nt][e] = round_halves ? round_bf16(v) : v;
+            dcr[mt][nt][e] = 0.f;
+          }
+    }
+    for (int i = 0; i < kStageRows / 2; ++i) {
+      const int sl = half * (kStageRows / 2) + i;   // the row within the stage
+      const int s = sg * kStageRows + sl;
+      if (s >= N) break;                            // warp-uniform
+      const int p0 = sl * kDTile;                   // its first pair in the stage
+      float pair[MT][2][4], rl[MT][2][4], dr[MT][2][4];
+      float av[2 * MT];   // a[s] at the lane's channels, in chan_slot order
+      if constexpr (MT == 2) {
+        const float4 v = *reinterpret_cast<const float4*>(as + s * CH + slot0);
+        av[0] = v.x;
+        av[1] = v.y;
+        av[2] = v.z;
+        av[3] = v.w;
+      } else {
+        const float2 v = *reinterpret_cast<const float2*>(as + s * CH + slot0);
+        av[0] = v.x;
+        av[1] = v.y;
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const float av0 = av[2 * mt], av1 = av[2 * mt + 1];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            pair[mt][nt][e] = (e < 2 ? av0 : av1) + ccr[mt][nt][e];
+            rl[mt][nt][e] = fmaxf(pair[mt][nt][e], 0.f);
+            dr[mt][nt][e] = 0.f;
+          }
+      }
+      if constexpr (BF16) {
+        const __nv_bfloat16* t16 = tile16 + (st & 1) * L::kTile16;
+        // dpair^T (m = channel, n = pair) = W (k = h) @ g^T; each g
+        // fragment feeds both m tiles
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {
+          uint32_t bq[4];
+          if (CM)   // g stored [h][pair]: [k][n]
+            hopper::ldsm_x4_t(bq, t16 + (16 * ks + (lane & 7) + ((lane >> 3) & 1) * 8) * L::BS +
+                                      p0 + ((lane >> 4) & 1) * 8);
+          else      // g stored [pair][h]: [n][k]
+            hopper::ldsm_x4(bq, t16 + (p0 + (lane & 7) + ((lane >> 4) & 1) * 8) * L::BS +
+                                    16 * ks + ((lane >> 3) & 1) * 8);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            hopper::mma_bf16(dr[mt][0], wa[mt][ks], {bq[0], bq[1]});
+            hopper::mma_bf16(dr[mt][1], wa[mt][ks], {bq[2], bq[3]});
+          }
+        }
+        // dW (m = channel, n = h) += relu(pair)^T (k = pair, from these
+        // registers: an accumulator's layout is an A fragment's) @ g
+        uint32_t ra[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          ra[mt][0] = pack_relu_bf16(pair[mt][0][0], pair[mt][0][1]);
+          ra[mt][1] = pack_relu_bf16(pair[mt][0][2], pair[mt][0][3]);
+          ra[mt][2] = pack_relu_bf16(pair[mt][1][0], pair[mt][1][1]);
+          ra[mt][3] = pack_relu_bf16(pair[mt][1][2], pair[mt][1][3]);
+        }
+#pragma unroll
+        for (int nh = 0; nh < 2; ++nh) {
+          uint32_t bq[4];
+          if (CM)   // [n][k]
+            hopper::ldsm_x4(bq, t16 + (16 * nh + (lane & 7) + ((lane >> 4) & 1) * 8) * L::BS +
+                                    p0 + ((lane >> 3) & 1) * 8);
+          else      // [k][n]
+            hopper::ldsm_x4_t(bq, t16 + (p0 + (lane & 7) + ((lane >> 3) & 1) * 8) * L::BS +
+                                      16 * nh + ((lane >> 4) & 1) * 8);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            hopper::mma_bf16(dwa[mt][2 * nh], ra[mt], {bq[0], bq[1]});
+            hopper::mma_bf16(dwa[mt][2 * nh + 1], ra[mt], {bq[2], bq[3]});
+          }
+        }
+      } else {
+        // the same products as f32 FMAs: the lane's 8 dpair values over h,
+        // and its dW partial over its 4 pairs, from g's rows 4 h at a time
+        const float* t32 = tile32 + (st & 1) * L::kTile32;
+#pragma unroll
+        for (int h4 = 0; h4 < kChanTile / 4; ++h4) {
+          float gv[2][2][4];   // [nt][pair j][h]
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            const int p = p0 + 8 * nt + 2 * r4;
+            if (CM) {
+#pragma unroll
+              for (int k = 0; k < 4; ++k) {
+                const float2 v = *reinterpret_cast<const float2*>(t32 + (4 * h4 + k) * L::FS + p);
+                gv[nt][0][k] = v.x;
+                gv[nt][1][k] = v.y;
+              }
+            } else {
+#pragma unroll
+              for (int j = 0; j < 2; ++j) {
+                const float4 v = *reinterpret_cast<const float4*>(t32 + (p + j) * L::FS + 4 * h4);
+                gv[nt][j][0] = v.x;
+                gv[nt][j][1] = v.y;
+                gv[nt][j][2] = v.z;
+                gv[nt][j][3] = v.w;
+              }
+            }
+          }
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+#pragma unroll
+              for (int k = 0; k < 4; ++k) {
+                const float gk = gv[nt][e & 1][k];
+                dr[0][nt][e] = fmaf(wr[e >> 1][4 * h4 + k], gk, dr[0][nt][e]);
+                dwr[e >> 1][4 * h4 + k] = fmaf(rl[0][nt][e], gk, dwr[e >> 1][4 * h4 + k]);
+              }
+        }
+      }
+      // dpair = 1[pair > 0] * dr (K4 bf16: rounded), summed into da and dc
+      float dsum[MT][2];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        dsum[mt][0] = dsum[mt][1] = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float dp = pair[mt][nt][e] > 0.f ? dr[mt][nt][e] : 0.f;
+            if (round_halves) dp = round_bf16(dp);
+            dsum[mt][e >> 1] += dp;
+            dcr[mt][nt][e] += dp;
+          }
+      }
+      // da: the quad's lanes hold the row's other pairs.  A reduce-scatter
+      // over the quad leaves lane r4 the sum of its channel 2 mt + hi = r4
+      // (with MT = 1, lanes r4 and r4 ^ 2 both hold channel r4 & 1), which
+      // it adds to the row in shared memory.
+      float v = (r4 & 1) ? dsum[0][1] : dsum[0][0];
+      float u = (r4 & 1) ? dsum[0][0] : dsum[0][1];
+      if constexpr (MT == 2) {
+        const bool b1 = r4 & 2;
+        const float keep0 = b1 ? dsum[1][0] : dsum[0][0], keep1 = b1 ? dsum[1][1] : dsum[0][1];
+        const float send0 = b1 ? dsum[0][0] : dsum[1][0], send1 = b1 ? dsum[0][1] : dsum[1][1];
+        const float w0 = keep0 + __shfl_xor_sync(0xffffffffu, send0, 2);
+        const float w1 = keep1 + __shfl_xor_sync(0xffffffffu, send1, 2);
+        v = (r4 & 1) ? w1 : w0;
+        u = (r4 & 1) ? w0 : w1;
+        v += __shfl_xor_sync(0xffffffffu, u, 1);
+      } else {
+        v += __shfl_xor_sync(0xffffffffu, u, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+      }
+      if (r4 < 2 * MT) das[s * CH + slot0 + r4] += v;
+    }
+    if (st < 3) PHASE_MARK(2 + st);
+    if (sg == nsg - 1 && half == 1) {   // the dest tile's last stage: half 1's dc
+      float* x = dcx + (dt & 1) * kDTile * CH;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            x[(8 * nt + 2 * r4 + (e & 1)) * CH + cl[mt][e >> 1]] = dcr[mt][nt][e];
+    }
+  }
+  __syncthreads();
+  PHASE_MARK(5);
+  finish_dc(ndt - 1);
+
+  // dW: the lane's values (f32: summed over the quad's pairs first), half
+  // 1's through the stage area, added by half 0 and stored; db's columns
+  // summed over the threads in thread order
+  float* xw = stage;                    // [CH][kChanTile]
+  float* xdb = stage + CH * kChanTile;  // [nthr][4]
+  if constexpr (!BF16) {
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi)
+#pragma unroll
+      for (int h = 0; h < kChanTile; ++h) {
+        dwr[hi][h] += __shfl_xor_sync(0xffffffffu, dwr[hi][h], 1);
+        dwr[hi][h] += __shfl_xor_sync(0xffffffffu, dwr[hi][h], 2);
+      }
+  }
+  // the lane's dW values: fn(channel in the chunk, h, value)
+  auto dw_each = [&](auto&& fn) {
+    if constexpr (BF16) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nh = 0; nh < 4; ++nh)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            fn(cl[mt][e >> 1], 8 * nh + 2 * r4 + (e & 1), dwa[mt][nh][e]);
+    } else {
+#pragma unroll
+      for (int h = 0; h < kChanTile; ++h)
+        if ((h >> 3) == r4) {
+          fn(cl[0][0], h, dwr[0][h]);
+          fn(cl[0][1], h, dwr[1][h]);
+        }
+    }
+  };
+  if (half == 1) dw_each([&](int c_l, int h, float v) { xw[c_l * kChanTile + h] = v; });
+  if (db_block) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) xdb[tid * 4 + k] = db4[k];
+  }
+  __syncthreads();
+  if (half == 0) {
+    float* pw = dw_part + (static_cast<size_t>(b) * C + c0) * H;
+    dw_each([&](int c_l, int h, float v) {
+      if (c0 + c_l < C && h < H) pw[c_l * H + h] = v + xw[c_l * kChanTile + h];
+    });
+  }
+  if (db_block && tid < H) {
+    float v = 0.f;
+    for (int t = (tid >> 2); t < nthr; t += kChanTile / 4) v += xdb[t * 4 + (tid & 3)];
+    db_part[static_cast<size_t>(b) * H + tid] = v;
+  }
+  for (int i = tid; i < N * CH; i += nthr) {
+    const int r = i / CH, k = i - r * CH;
+    if (c0 + k < C) da[(static_cast<size_t>(b) * N + r) * C + c0 + k] = das[r * CH + chan_slot<BF16>(k)];
+  }
+  PHASE_MARK(6);
 }
 
-// Channels per block of the backward: the fewest chunks of
-// min(C, 32 * ceil(ceil(C / k) / 32)) channels whose shared memory,
-// (32*N + 2*N*CC) words, fits a block; 0 if even 32 channels do not fit.
-// Mirrored by ops/pair_block.py::bwd_plan.
-int bwd_chunk(int N, int C) {
-  for (int k = 1;; ++k) {
-    const int per = ((C + k - 1) / k + 31) / 32 * 32;
-    const int cc = per < C ? per : C;
-    const size_t smem = (static_cast<size_t>(N) * kChanTile +
-                         2 * static_cast<size_t>(N) * cc) * sizeof(float);
-    if (cc <= 1024 && smem <= kSmemLimit) return cc;
-    if (cc <= 32) return 0;
-  }
+// Shared memory of the backward at N with CH channels a block: a's
+// columns and the da sums [N][CH] each, half 1's dc [2][16][CH], the stage
+// area.  Mirrored by ops/pair_block.py::bwd_plan.
+size_t bwd_smem(int N, int CH) {
+  return (2 * static_cast<size_t>(N) * CH + 2 * kDTile * CH) * sizeof(float) + kStageBytes;
 }
 
+// Channels per block: 64 or 32, the most whose shared memory fits; 0 if
+// neither does.
+int bwd_chunk(int N) {
+  for (int ch = 64; ch >= 32; ch /= 2)
+    if (bwd_smem(N, ch) <= kSmemLimit) return ch;
+  return 0;
+}
+
+template <bool CM, bool BF16, int CH>
+int launch_bwd_chunk(const float* a, const float* cc, const float* w, const float* g, float* da,
+                     float* dc, float* dw_part, float* db_part, int B, int N, int C, int H,
+                     cudaStream_t s) {
+  const size_t smem = bwd_smem(N, CH);
+  cudaError_t err = cudaFuncSetAttribute(
+      pair_relu_project_bwd_kernel<CM, BF16, CH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int chunks = (C + CH - 1) / CH;
+  pair_relu_project_bwd_kernel<CM, BF16, CH><<<B * chunks, kBwdThreads<BF16, CH>, smem, s>>>(
+      a, cc, w, g, da, dc, dw_part, db_part, N, C, H, chunks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The backward in the mode and with the chunk bwd_chunk picks for N.
 template <bool CM>
 int launch_bwd(const float* a, const float* cc, const float* w, const float* g, float* da,
                float* dc, float* dw_part, float* db_part, int B, int N, int C, int H,
                int bf16, cudaStream_t s) {
-  const int CC = bwd_chunk(N, C);
-  if (CC <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = (static_cast<size_t>(N) * kChanTile +
-                       2 * static_cast<size_t>(N) * CC) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      pair_relu_project_bwd_kernel<CM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B, (C + CC - 1) / CC);
-  const int threads = ((CC + 31) / 32) * 32;
-  pair_relu_project_bwd_kernel<CM><<<grid, threads, smem, s>>>(
-      a, cc, w, g, da, dc, dw_part, db_part, N, C, H, CC, bf16);
-  return static_cast<int>(cudaGetLastError());
+  const int CH = bwd_chunk(N);
+  if (CH == 0 || H > kChanTile) return static_cast<int>(cudaErrorInvalidValue);
+  if (bf16)
+    return CH == 64 ? launch_bwd_chunk<CM, true, 64>(a, cc, w, g, da, dc, dw_part, db_part, B,
+                                                     N, C, H, s)
+                    : launch_bwd_chunk<CM, true, 32>(a, cc, w, g, da, dc, dw_part, db_part, B,
+                                                     N, C, H, s);
+  return CH == 64 ? launch_bwd_chunk<CM, false, 64>(a, cc, w, g, da, dc, dw_part, db_part, B, N,
+                                                    C, H, s)
+                  : launch_bwd_chunk<CM, false, 32>(a, cc, w, g, da, dc, dw_part, db_part, B, N,
+                                                    C, H, s);
 }
 
 }  // namespace
@@ -382,6 +809,6 @@ extern "C" int pair_relu_project_cm_bwd(const float* a, const float* cc,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The backward's channels per block at (N, C), 0 where none fits: the
-// plan the wrappers mirror (ops/pair_block.py::bwd_plan).
-extern "C" int pair_relu_project_bwd_chunk(int N, int C) { return bwd_chunk(N, C); }
+// The backward's channels per block at N, 0 where none fits: the plan
+// the wrappers mirror (ops/pair_block.py::bwd_plan).
+extern "C" int pair_relu_project_bwd_chunk(int N) { return bwd_chunk(N); }

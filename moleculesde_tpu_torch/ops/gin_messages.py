@@ -6,11 +6,12 @@ Counterpart of ``moleculesde_tpu/ops/gin_messages.py::gin_messages``,
 forward and backward.  On a CUDA tensor the wrappers launch the
 hand-written kernels of ``csrc/gin_messages.cu``, which replace the TPU
 kernels ``_fwd_kernel`` (``pallas_call`` at ``ops/gin_messages.py:128``)
-and ``_bwd_kernel`` (l.144): both are bound by device memory.  The forward
-stages each graph's node columns and edge lists in shared memory; the
-backward stages only the edge data, sorts the edges by source node and
-gathers x and g straight from device memory, so it takes any N whose edge
-data fits a block (:func:`bwd_plan`; the source's header says more).  On a CPU tensor they take :func:`gin_messages_plain` and
+and ``_bwd_kernel`` (l.144): both are bound by device memory.  Both stage
+only each graph's edge data, sort its edges (the forward by destination,
+the backward by source node) and gather x (and g) straight from device
+memory, so they take any N whose edge data fits a block
+(:func:`fwd_plan`, :func:`bwd_plan`; the source's header says more).  On
+a CPU tensor they take :func:`gin_messages_plain` and
 :func:`gin_messages_bwd_plain`.  :func:`gin_messages` is differentiable
 through a ``torch.autograd.Function`` with the TPU kernel's gradient
 contract: x and the table get gradients, the indices and one-hots none.
@@ -30,9 +31,8 @@ from moleculesde_tpu_torch.core.segment import edge_aggregate, edge_gather
 from moleculesde_tpu_torch.kernels import build
 from moleculesde_tpu_torch.ops.common import SMEM_LIMIT, resolve_impl, round_bf16, stream
 
-_FEAT_CHUNK = 128          # features per forward block (csrc/gin_messages.cu)
-_BWD_FEAT = 64             # features per backward block
-_BWD_SLOTS = 4             # node ranges (warps per 32 features) per backward block
+_FEAT = 64                 # features per block (csrc/gin_messages.cu)
+_SLOTS = 4                 # node ranges (warps per 32 features) per block
 
 
 def _operands(x, src, dst, bond_onehot, table, bf16: bool):
@@ -86,33 +86,56 @@ def gin_messages_bwd_plain(x, src, dst, bond_onehot, table, g, *,
     return round_bf16(dx, bf16), dtable
 
 
-def bwd_plan(n: int, e: int, d: int, f: int) -> dict:
-    """Launch plan of the backward kernel, mirrored from
-    ``csrc/gin_messages.cu::bwd_smem``: one block of 8 warps per (graph,
+def _edge_plan(n: int, e: int, d: int, f: int, bwd: bool) -> dict:
+    """The launch plan both kernels share, mirrored from
+    ``csrc/gin_messages.cu::edge_smem``: one block of 8 warps per (graph,
     64-feature chunk), 2 warp columns of 32 features by 4 node ranges.
     Shared memory holds the graph's bond one-hot rows (zero padded to
-    ``maxd`` = 16 or 32 columns), the warps' dtable columns, the edges'
-    bins, src, dst and sorted order and the bins' starts: nothing grows
-    with F, and N only by a word a node.  Raises past D = 32 or past
-    ``SMEM_LIMIT`` (N ~ 660 at E = 4 N, D = 13), naming the limit."""
+    ``maxd`` = 16 or 32 columns), the edges' bins, src, dst and sorted
+    order and the bins' starts, and in the backward the warps' dtable
+    columns: nothing grows with F, and N only by a word a node.  Raises
+    past D = 32 or past ``SMEM_LIMIT``, naming the limit."""
+    what = "backward" if bwd else "forward"
     if d > 32:
-        raise ValueError(f"gin_messages backward kernel: D={d} bond one-hot columns "
+        raise ValueError(f"gin_messages {what} kernel: D={d} bond one-hot columns "
                          "(> 32, the columns a thread holds)")
     maxd = 16 if d <= 16 else 32
-    smem = 4 * (e * maxd + _BWD_SLOTS * maxd * _BWD_FEAT + 4 * e + n + 2)
+    smem = 4 * (e * maxd + (_SLOTS * maxd * _FEAT if bwd else 0) + 4 * e + n + 2)
     if smem > SMEM_LIMIT:
-        raise ValueError(f"gin_messages backward kernel: N={n}, E={e}, D={d} need {smem} B "
+        raise ValueError(f"gin_messages {what} kernel: N={n}, E={e}, D={d} need {smem} B "
                          f"of shared memory (> SMEM_LIMIT = {SMEM_LIMIT})")
-    return {"maxd": maxd, "smem": smem, "chunks": -(-f // _BWD_FEAT)}
+    return {"maxd": maxd, "smem": smem, "chunks": -(-f // _FEAT)}
+
+
+def fwd_plan(n: int, e: int, d: int, f: int) -> dict:
+    """Launch plan of the forward kernel (:func:`_edge_plan`): N ~ 717 at
+    E = 4 N, D = 13."""
+    return _edge_plan(n, e, d, f, bwd=False)
+
+
+def bwd_plan(n: int, e: int, d: int, f: int) -> dict:
+    """Launch plan of the backward kernel (:func:`_edge_plan`, plus the
+    warps' dtable columns): N ~ 660 at E = 4 N, D = 13."""
+    return _edge_plan(n, e, d, f, bwd=True)
+
+
+def _plan_kernel(entry: str, n: int, e: int, d: int) -> int:
+    fn = getattr(build.load("gin_messages"), entry)
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_int] * 3
+    return fn(n, e, d)
+
+
+def fwd_plan_kernel(n: int, e: int, d: int) -> int:
+    """The forward's shared memory as its C entry computes it (0 where it
+    has no plan); builds the library on first use."""
+    return _plan_kernel("gin_messages_fwd_smem", n, e, d)
 
 
 def bwd_plan_kernel(n: int, e: int, d: int) -> int:
     """The backward's shared memory as its C entry computes it (0 where it
     has no plan); builds the library on first use."""
-    fn = build.load("gin_messages").gin_messages_bwd_smem
-    fn.restype = ctypes.c_longlong
-    fn.argtypes = [ctypes.c_int] * 3
-    return fn(n, e, d)
+    return _plan_kernel("gin_messages_bwd_smem", n, e, d)
 
 
 def _check_kernel_inputs(x, src, dst, boh, table, g=None):
@@ -143,13 +166,7 @@ def _check_kernel_inputs(x, src, dst, boh, table, g=None):
                          f"x{tuple(x.shape)} src{tuple(src.shape)} "
                          f"dst{tuple(dst.shape)} boh{tuple(boh.shape)} "
                          f"table{tuple(table.shape)}")
-    if g is not None:
-        bwd_plan(n, e, d, f)
-        return
-    smem = (2 * n + d) * _FEAT_CHUNK * 4 + e * d * 4 + 2 * e * 4
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"gin_messages kernel: N={n}, E={e}, D={d} need "
-                         f"{smem} B of shared memory (> {SMEM_LIMIT})")
+    _edge_plan(n, e, d, f, bwd=g is not None)
 
 
 def _launch(x, src, dst, boh, table, bf16: bool) -> torch.Tensor:

@@ -8,11 +8,11 @@ On a CUDA tensor the wrappers launch the hand-written kernels of
 ``csrc/pair_block.cu``, which replace the TPU kernels ``_fwd_kernel``
 (``pallas_call`` at ``ops/pair_block.py:170``), ``_bwd_kernel`` (l.193),
 ``_fwd_kernel_cm`` (l.337) and ``_bwd_kernel_cm`` (l.361): all are
-arithmetic-bound and form each pair value in registers, once per channel,
-so the pair tensor never reaches device memory; the backward splits a
-graph's channels into as many blocks as its shared memory needs
-(:func:`bwd_plan`), so it takes any N up to ~600 at C = 300 (the source's
-header says more).  On a CPU tensor they take the ``*_plain`` versions.
+arithmetic-bound and form each pair value in registers, so the pair tensor
+never reaches device memory.  The backward runs its two products on the
+tensor cores in bf16 mode, in blocks of (graph, 64 or 32 channels) chosen
+by N (:func:`bwd_plan`), so it takes any N up to 748 (the source's header
+says more).  On a CPU tensor they take the ``*_plain`` versions.
 :func:`pair_relu_project` (K3, ``[B, N, N, H]``) and
 :func:`pair_relu_project_cm` (K4, ``[B, H, N*N]``) are differentiable
 through ``torch.autograd.Function``s: a, c, w and the bias get gradients,
@@ -109,36 +109,32 @@ def pair_relu_project_cm_bwd_plain(a, c, w, g, *, bf16: bool = False):
     return dpair.sum(dim=2), dpair.sum(dim=1), dw
 
 
+_BWD_STAGE_BYTES = 36864   # the backward's stage area (csrc/pair_block.cu)
+
+
 def bwd_plan(n: int, cdim: int) -> dict:
     """Launch plan of the backward kernels (K3 and K4), mirrored from
     ``csrc/pair_block.cu::bwd_chunk``: one block per (graph, chunk of
-    ``chunk`` channels), the fewest chunks of
-    ``min(C, 32 * ceil(ceil(C / k) / 32))`` channels whose shared memory,
-    ``(32 N + 2 N chunk)`` words, fits ``SMEM_LIMIT``: one chunk (C
-    channels, a block per graph) at N <= 64 for C = 300.  Raises past the
-    last plan (32-channel chunks), naming the limit."""
-    k = 1
-    while True:
-        per_block = -(-cdim // k)
-        chunk = min(cdim, -(-per_block // _CHAN_TILE) * _CHAN_TILE)
-        smem = (n * _CHAN_TILE + 2 * n * chunk) * 4
-        if chunk <= 1024 and smem <= SMEM_LIMIT:
-            return {"chunk": chunk, "chunks": -(-cdim // chunk), "smem": smem,
-                    "threads": -(-chunk // 32) * 32}
-        if chunk <= _CHAN_TILE:
-            raise ValueError(f"pair_relu_project backward kernel: N={n} needs {smem} B of "
-                             f"shared memory even in {chunk}-channel chunks (> SMEM_LIMIT "
-                             f"= {SMEM_LIMIT})")
-        k += 1
+    ``chunk`` = 64 or 32 channels), the larger whose shared memory fits
+    ``SMEM_LIMIT``: a's chunk columns and the da sums (``N * chunk`` words
+    each), the dc exchange (``32 * chunk`` words) and a 36 KB stage area of
+    g.  64 channels up to N = 366, 32 up to 748; raises past that, naming
+    the limit."""
+    for chunk in (64, 32):
+        smem = 4 * (2 * n * chunk + 32 * chunk) + _BWD_STAGE_BYTES
+        if smem <= SMEM_LIMIT:
+            return {"chunk": chunk, "chunks": -(-cdim // chunk), "smem": smem}
+    raise ValueError(f"pair_relu_project backward kernel: N={n} needs {smem} B of shared "
+                     f"memory even in 32-channel chunks (> SMEM_LIMIT = {SMEM_LIMIT})")
 
 
-def bwd_plan_kernel(n: int, cdim: int) -> int:
+def bwd_plan_kernel(n: int) -> int:
     """The backward kernels' channels per block as their C entry computes
     it (0 where none fits); builds the library on first use."""
     fn = build.load("pair_block").pair_relu_project_bwd_chunk
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.c_int]
-    return fn(n, cdim)
+    fn.argtypes = [ctypes.c_int]
+    return fn(n)
 
 
 def _source_tile(n: int) -> int:

@@ -8,11 +8,11 @@ lifted: K1 (``gin_messages``) and K3 / K4 (``pair_relu_project`` /
   each output's largest value (the same sums in another order), bf16 as
   ``test_torch_port_kernel_grads.py`` states it (2^-8: the two sides round
   at the same places).
-- The launch plans: K1's backward (``ops/gin_messages.py::bwd_plan``) and
-  the K3 / K4 backward's channel chunks (``ops/pair_block.py::bwd_plan``)
-  fit ``SMEM_LIMIT`` for every n_max the loader's buckets give and N = 256
-  (E = 4 N, D = 13, F = C = 300), the chunk plan is one chunk (a block per
-  graph, the earlier launch) at N <= 64 and its chunks cover the channels;
+- The launch plans: K1's forward and backward (``ops/gin_messages.py::
+  fwd_plan`` / ``bwd_plan``) and the K3 / K4 backward's channel chunks
+  (``ops/pair_block.py::bwd_plan``) fit ``SMEM_LIMIT`` for every n_max the
+  loader's buckets give and N = 256 (E = 4 N, D = 13, F = C = 300), the
+  chunk plan is 64-channel blocks there and its chunks cover the channels;
   each plan raises past its limit, naming it.
 - K1's plain backward against the Pallas kernel at the corners of the
   card kernel's schedule (fewer nodes than its node ranges, a graph with no
@@ -135,21 +135,40 @@ def test_bwd_plans_fit_every_bucket(n):
     k1 = gin_ops.bwd_plan(n, 4 * n, 13, 300)
     assert k1["smem"] <= SMEM_LIMIT and k1["maxd"] == 16 and k1["chunks"] == 5
     pair = pair_ops.bwd_plan(n, 300)
-    assert pair["smem"] <= SMEM_LIMIT and pair["threads"] <= 1024
+    assert pair["smem"] <= SMEM_LIMIT
     assert pair["chunk"] * pair["chunks"] >= 300 > pair["chunk"] * (pair["chunks"] - 1)
-    assert pair["chunks"] == (1 if n <= 64 else 2 if n == 128 else 4)
-    if n <= 64:   # one chunk: a block per graph and the earlier kernel's shared memory
-        assert pair["chunk"] == 300 and pair["smem"] == (n * 32 + 2 * n * 300) * 4
+    # 64-channel blocks at every bucket: 5 blocks a graph
+    assert pair["chunk"] == 64 and pair["chunks"] == 5
+    assert pair["smem"] == 4 * (2 * n * 64 + 32 * 64) + 36864
 
 
-@pytest.mark.parametrize("case", ["k1_smem", "k1_d", "pair_smem"])
+@pytest.mark.parametrize("n", [16, 32, 64, 128, 256])
+def test_fwd_plan_fits_every_bucket(n):
+    """K1's forward at E = 4 N takes every bucket, N = 256 too (past the
+    first forward's ~178), and needs less than the backward."""
+    k1 = gin_ops.fwd_plan(n, 4 * n, 13, 300)
+    assert k1["smem"] <= SMEM_LIMIT and k1["maxd"] == 16 and k1["chunks"] == 5
+    assert k1["smem"] < gin_ops.bwd_plan(n, 4 * n, 13, 300)["smem"]
+    assert k1["smem"] == 4 * (4 * n * 16 + 4 * 4 * n + n + 2)
+
+
+@pytest.mark.parametrize("case", ["k1_smem", "k1_d", "pair_smem", "k1_fwd_smem", "k1_fwd_d"])
 def test_bwd_plans_raise_past_their_limits(case):
-    with pytest.raises(ValueError, match="SMEM_LIMIT" if case != "k1_d" else "> 32"):
+    with pytest.raises(ValueError, match="> 32" if case.endswith("_d") else "SMEM_LIMIT"):
         if case == "k1_smem":
             gin_ops.bwd_plan(1024, 4096, 13, 300)
         elif case == "k1_d":
             gin_ops.bwd_plan(32, 128, 33, 300)
+        elif case == "k1_fwd_smem":
+            gin_ops.fwd_plan(718, 4 * 718, 13, 300)
+        elif case == "k1_fwd_d":
+            gin_ops.fwd_plan(32, 128, 33, 300)
         else:
-            pair_ops.bwd_plan(606, 300)
-    if case == "pair_smem":   # the last plan that fits: 32-channel chunks
+            pair_ops.bwd_plan(749, 300)
+    if case == "pair_smem":   # the last plans of each chunk size
+        assert pair_ops.bwd_plan(366, 300)["chunk"] == 64
+        assert pair_ops.bwd_plan(367, 300)["chunk"] == 32
         assert pair_ops.bwd_plan(605, 300)["chunk"] == 32
+        assert pair_ops.bwd_plan(748, 300)["chunk"] == 32
+    if case == "k1_fwd_smem":   # the last forward plan at E = 4 N
+        assert gin_ops.fwd_plan(717, 4 * 717, 13, 300)["smem"] <= SMEM_LIMIT

@@ -62,14 +62,68 @@ def _gin_operands(cuda, b, n, e, d, f):
     return x, src, dst, boh, tbl, torch.randn(b, n, f, device=cuda, generator=g)
 
 
+# the forward's shapes: the sampler's (B=64), the pretraining step's at
+# n_max 32, 64 (B=128), 128 (B=32) and N = 256, E = 4 n_max; small ragged
+# ones, D = 20 (the 32-column instantiation) and E = 0
+GIN_FWD_SHAPES = [(64, 32, 128, 13, 300), (3, 7, 11, 13, 130), (128, 32, 128, 13, 300),
+                  (128, 64, 256, 13, 300), (32, 128, 512, 13, 300), (4, 256, 1024, 13, 300),
+                  (2, 9, 40, 20, 70), (2, 5, 0, 13, 70)]
+
+
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("shape", [(64, 32, 128, 13, 300), (3, 7, 11, 13, 130)])
+@pytest.mark.parametrize("shape", GIN_FWD_SHAPES)
 def test_gin_messages_kernel_matches_plain(cuda, shape, bf16):
     x, src, dst, boh, tbl, _ = _gin_operands(cuda, *shape)
     launches = gin_messages.launches
     out = gin_messages(x, src, dst, boh, tbl, bf16=bf16)
     assert gin_messages.launches == launches + 1
     _close(out, gin_messages_plain(x, src, dst, boh, tbl, bf16=bf16), 1e-2 if bf16 else 1e-5)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("shape, case", [
+    ((128, 32, 128, 13, 300), None), ((32, 128, 512, 13, 300), None),
+    ((4, 256, 1024, 13, 300), None), ((3, 7, 11, 13, 130), "graph 2 keeps no edge"),
+    ((2, 3, 40, 13, 70), "fewer nodes than node ranges"),
+    ((2, 3, 40, 13, 70), "every source of graph 1 masked")])
+def test_gin_messages_fwd_kernel_is_deterministic(cuda, shape, case, bf16):
+    """Two forward runs give the same bits (one owner per output word, each
+    node's messages summed in edge order), out-of-range src (negative) and
+    dst (past N) edges besides the sentinel N, every node without a kept
+    edge an exact zero; the schedule's corners as in the backward's test."""
+    x, src, dst, boh, tbl, _ = _gin_operands(cuda, *shape)
+    n = shape[1]
+    src[:, ::3] = n
+    src[:, 5::37] = -3
+    dst[:, 9::41] = n + 7
+    if case == "graph 2 keeps no edge":
+        dst[2] = n
+    elif case == "every source of graph 1 masked":
+        src[1] = n
+    first = gin_messages(x, src, dst, boh, tbl, bf16=bf16, impl="kernel")
+    second = gin_messages(x, src, dst, boh, tbl, bf16=bf16, impl="kernel")
+    assert torch.equal(first, second)
+    _close(first, gin_messages_plain(x, src, dst, boh, tbl, bf16=bf16), 1e-2 if bf16 else 1e-5)
+    has_edge = torch.zeros(shape[0], n + 1, dtype=torch.bool, device=cuda)
+    valid = (dst >= 0) & (dst < n)
+    has_edge.scatter_(1, torch.where(valid, dst.long(), n), valid)
+    assert float(first[~has_edge[:, :n]].abs().sum()) == 0.0
+
+
+def test_gin_messages_fwd_plan_matches_kernel(cuda):
+    """The wrapper's forward plan (ops/gin_messages.py::fwd_plan) is the
+    CUDA source's, and the launch past it raises, naming the limit."""
+    for n in (1, 7, 16, 32, 64, 128, 256, 700, 717, 718, 1024):
+        for e in (0, 4 * n, 11):
+            for d in (1, 13, 16, 17, 32, 33):
+                try:
+                    smem = gin_ops.fwd_plan(n, e, d, 300)["smem"]
+                except ValueError:
+                    smem = 0
+                assert smem == gin_ops.fwd_plan_kernel(n, e, d), (n, e, d)
+    x, src, dst, boh, tbl, _ = _gin_operands(cuda, 1, 1024, 4096, 13, 32)
+    with pytest.raises(ValueError, match="SMEM_LIMIT"):
+        gin_messages(x, src, dst, boh, tbl, impl="kernel")
 
 
 # the pretraining step's shapes at n_max 32, 64 (B=128) and 128 (B=32), E =
@@ -161,8 +215,15 @@ def test_pair_relu_project_kernel_matches_plain(cuda, shape, bf16):
     _close(out, pair_relu_project_plain(a, cc, w, bias, bf16=bf16), 1e-3 if bf16 else 1e-5)
 
 
+# the backward's shapes: the pretraining step's at n_max 32 (B=128) and 128
+# (B=32), N = 8 .. 64 at C = 300 (no multiple of the 64-channel blocks), N
+# not a multiple of the 16-node tiles, narrow C and H
+PAIR_BWD_SHAPES = [(128, 32, 300, 32), (3, 9, 17, 20), (32, 128, 300, 32), (4, 8, 300, 32),
+                   (3, 13, 300, 32), (2, 37, 300, 32), (8, 64, 300, 32), (2, 13, 40, 5)]
+
+
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("shape", [(128, 32, 300, 32), (3, 9, 17, 20), (32, 128, 300, 32)])
+@pytest.mark.parametrize("shape", PAIR_BWD_SHAPES)
 def test_pair_relu_project_bwd_kernel_matches_plain(cuda, shape, bf16):
     """da, dc, dw, db through autograd.  bf16 tolerance 1e-3: both sides
     round g, w and the relu'd pair identically and sum in f32."""
@@ -210,7 +271,7 @@ def test_pair_relu_project_cm_kernel_matches_plain(cuda, shape, bf16):
 
 
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("shape", [(128, 32, 300, 32), (3, 9, 17, 20), (32, 128, 300, 32)])
+@pytest.mark.parametrize("shape", PAIR_BWD_SHAPES)
 def test_pair_relu_project_cm_bwd_kernel_matches_plain(cuda, shape, bf16):
     """K4 da, dc, dw (and the bias gradient, outside the kernel) through
     autograd.  bf16 tolerance 1e-3: dpair is rounded to bf16 on both sides
@@ -228,50 +289,61 @@ def test_pair_relu_project_cm_bwd_kernel_matches_plain(cuda, shape, bf16):
         _close(k, p, 1e-3 if bf16 else 1e-4)
 
 
+@pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("cm", [False, True], ids=["K3", "K4"])
-@pytest.mark.parametrize("shape", [(32, 128, 300, 32), (2, 256, 300, 32), (4, 40, 1100, 8)])
-def test_pair_relu_project_bwd_kernel_chunks(cuda, shape, cm):
-    """The backward in channel chunks (two at N = 128, four at N = 256,
-    C = 1100 past 1024 threads) against the plain version in bf16 mode, two
-    runs bit for bit, and at N = 128 bit for bit equal to one-chunk
-    launches of the same graphs' channel halves: a thread's arithmetic does
-    not depend on the chunking."""
+@pytest.mark.parametrize("shape", PAIR_BWD_SHAPES + [(4, 40, 1100, 8)])
+def test_pair_relu_project_bwd_kernel_is_deterministic(cuda, shape, cm, bf16):
+    """Two backward runs give the same bits: fixed reduction orders, no
+    float atomics."""
     a, cc, w, _, g = _pair_operands(cuda, shape, 7)
     b, n, c, h = shape
     if not cm:
         g = g.reshape(b, h, n, n).permute(0, 2, 3, 1).contiguous()
     bwd = pair_relu_project_cm_bwd if cm else pair_relu_project_bwd
-    plain = pair_ops.pair_relu_project_cm_bwd_plain if cm else pair_ops.pair_relu_project_bwd_plain
-    assert pair_ops.bwd_plan(n, c)["chunks"] > 1
-    first = bwd(a, cc, w, g, bf16=True, impl="kernel")
-    second = bwd(a, cc, w, g, bf16=True, impl="kernel")
+    first = bwd(a, cc, w, g, bf16=bf16, impl="kernel")
+    second = bwd(a, cc, w, g, bf16=bf16, impl="kernel")
     assert all(torch.equal(u, v) for u, v in zip(first, second))
-    for k, p in zip(first, plain(a, cc, w, g, bf16=True)):
-        _close(k, p, 1e-3)
-    if n == 128:   # each channel half fits one chunk: the same arithmetic per channel
-        half = c // 2
-        for lo, hi in ((0, half), (half, c)):
-            sub = bwd(a[..., lo:hi].contiguous(), cc[..., lo:hi].contiguous(),
-                      w[lo:hi].contiguous(), g, bf16=True, impl="kernel")
-            assert pair_ops.bwd_plan(n, hi - lo)["chunks"] == 1
-            for i in range(2):
-                assert torch.equal(sub[i], first[i][..., lo:hi])
-            assert torch.equal(sub[2], first[2][lo:hi])
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("cm", [False, True], ids=["K3", "K4"])
+def test_pair_relu_project_bwd_kernel_chunks(cuda, cm, bf16):
+    """Plans with different chunk sizes agree within the bar: one graph of
+    300 nodes run as it is (64-channel blocks) and zero padded to N = 400
+    and 700 (32-channel blocks), each against the plain version of the
+    unpadded graph.  Zero rows of a, c and g add nothing to any sum."""
+    a, cc, w, _, g = _pair_operands(cuda, (1, 300, 300, 32), 9)
+    if not cm:
+        g = g.reshape(1, 32, 300, 300).permute(0, 2, 3, 1).contiguous()
+    bwd = pair_relu_project_cm_bwd if cm else pair_relu_project_bwd
+    plain = pair_ops.pair_relu_project_cm_bwd_plain if cm else pair_ops.pair_relu_project_bwd_plain
+    ref = plain(a, cc, w, g, bf16=bf16)
+    for npad, chunk in ((300, 64), (400, 32), (700, 32)):
+        assert pair_ops.bwd_plan(npad, 300)["chunk"] == chunk
+        pad = npad - 300
+        ap, ccp = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (a, cc))
+        if cm:
+            gp = torch.nn.functional.pad(g.reshape(1, 32, 300, 300), (0, pad, 0, pad))
+            gp = gp.reshape(1, 32, npad * npad)
+        else:
+            gp = torch.nn.functional.pad(g, (0, 0, 0, pad, 0, pad))
+        out = bwd(ap, ccp, w, gp.contiguous(), bf16=bf16, impl="kernel")
+        for i, (k, p) in enumerate(zip(out, ref)):
+            _close(k[:, :300] if i < 2 else k, p, 1e-3 if bf16 else 1e-4)
 
 
 def test_pair_relu_project_bwd_plan_matches_kernel(cuda):
     """The wrapper's chunk plan (ops/pair_block.py::bwd_plan) is the CUDA
-    source's, one chunk at N <= 64 for C = 300, and the launch past the
-    last plan raises, naming the limit."""
-    for n in (1, 7, 16, 32, 64, 65, 128, 200, 256, 512, 605, 606):
-        for c in (17, 32, 40, 300, 1024, 1100, 2000):
-            try:
-                chunk = pair_ops.bwd_plan(n, c)["chunk"]
-            except ValueError:
-                chunk = 0
-            assert chunk == pair_ops.bwd_plan_kernel(n, c), (n, c)
-    assert all(pair_ops.bwd_plan(n, 300)["chunks"] == 1 for n in (16, 32, 64))
-    a, cc, w, _, g = _pair_operands(cuda, (1, 606, 32, 8), 8)
+    source's: 64-channel blocks at N <= 366, 32 to 748; and the launch
+    past the last plan raises, naming the limit."""
+    for n in (1, 7, 16, 32, 64, 65, 128, 200, 256, 366, 367, 512, 605, 748, 749, 1024):
+        try:
+            chunk = pair_ops.bwd_plan(n, 300)["chunk"]
+        except ValueError:
+            chunk = 0
+        assert chunk == pair_ops.bwd_plan_kernel(n), n
+    assert all(pair_ops.bwd_plan(n, 300)["chunk"] == 64 for n in (16, 32, 64, 128, 256))
+    a, cc, w, _, g = _pair_operands(cuda, (1, 749, 16, 8), 8)
     with pytest.raises(ValueError, match="SMEM_LIMIT"):
         pair_relu_project_cm_bwd(a, cc, w, g, impl="kernel")
 
