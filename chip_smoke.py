@@ -13,9 +13,9 @@ checks what comes out.
 Phases (any failure exits non-zero):
   1. the card's name and power limit; build every kernel (one nvcc per source);
      the CFConv forward's and backward's SASS and every bf16 instantiation
-     of K6 and of the pair block's backward (K3 and K4) hold HMMA (their
-     tensor-core products), counted per kernel function, and the pair
-     block's f32 backward none;
+     of K6 and of the pair block's forward and backward (K3 and K4) hold
+     HMMA (their tensor-core products), counted per kernel function, and
+     the pair block's f32 instantiations none;
   2. kernel phases on the operands each path gives each kernel, in f32 and
      bf16 mode: K1 (GIN message block), K3 (pair block) and K4 (its
      channel-major form) forward on the sampler's operands; K1, K2 (CFConv),
@@ -24,8 +24,8 @@ Phases (any failure exits non-zero):
      K6 (the fused score evaluation), variants 1 and 2, on the fused chain's.
      Each is held against its plain version (output and every gradient);
      CUDA-event medians of kernel and plain times and the card's bound for
-     the same work; two runs of K1's forward and backward and of K3's and
-     K4's backward on the pretraining step's operands, bit for bit;
+     the same work; two runs of K1's, K3's and K4's forward and backward on
+     the pretraining step's operands, bit for bit;
   3. sampler path: the sampler CLI at full width (GIN 5 x 300,
      SDEModel2Dto3D variant 1, VE, hidden 32, bf16 score) on 8 synthetic
      molecules x 8 repeats (B=64, n_max 32), 20 PC steps with 1 corrector
@@ -97,9 +97,10 @@ Phases (any failure exits non-zero):
      and two backward runs of each bit for bit and K5's forward and
      backward equal to K2's on the same smearing; K1 forward and backward
      on GIN layer 0's operands and K3 and K4 on the edge embedding's
-     against their plain versions at the bars of 7, two runs of K1's
-     forward and backward and of K3's and K4's backward bit for bit in
-     both modes; two steps with K1 5 /
+     against their plain versions at the bars of 7, two runs of K1's,
+     K3's and K4's forward and backward bit for bit in both modes; K3 and
+     K4 forward also at N = 256, B = 2 (past the first forward's N <= 160)
+     on seeded operands against their plain versions; two steps with K1 5 /
      5, K2 6 / 6, K3 1 / 1 per step, every metric finite; a third step's
      wall and device-busy time under the profiler and the peak device
      memory; one step against an all-plain build as in 7.
@@ -1547,10 +1548,11 @@ def large_n_kernel_phases(models, batch, label):
 
 
 def gin_pair_same_bits(label, k1, g1, k3, g3, g4):
-    """Two runs of K1's forward and backward and of K3's and K4's backward
-    give the same bits, in bf16 and f32 (launch counts left as they were)."""
+    """Two runs of K1's, K3's and K4's forward and backward give the same
+    bits, in bf16 and f32 (launch counts left as they were)."""
     x, src, dst, boh, table = k1
     a, c, w = k3[:3]
+    bias = k3[3] if len(k3) > 3 else None
     with torch.no_grad():
         for bf16 in (True, False):
             sfx = "" if bf16 else "[f32]"
@@ -1558,12 +1560,16 @@ def gin_pair_same_bits(label, k1, g1, k3, g3, g4):
                 x, src, dst, boh, table, bf16=bf16, impl="kernel"))
             same_bits(f"{label} K1 backward" + sfx, lambda: gin_messages_bwd(
                 x, src, dst, boh, table, g1, bf16=bf16, impl="kernel"))
+            same_bits(f"{label} K3 forward" + sfx, lambda: pair_relu_project(
+                a, c, w, bias, bf16=bf16, impl="kernel"))
+            same_bits(f"{label} K4 forward" + sfx, lambda: pair_relu_project_cm(
+                a, c, w, bf16=bf16, impl="kernel"))
             same_bits(f"{label} K3 backward" + sfx, lambda: pair_relu_project_bwd(
                 a, c, w, g3, bf16=bf16, impl="kernel"))
             same_bits(f"{label} K4 backward" + sfx, lambda: pair_relu_project_cm_bwd(
                 a, c, w, g4, bf16=bf16, impl="kernel"))
-    print(f"{label}: K1 forward and backward, K3 backward and K4 backward bit-identical "
-          f"over two runs, bf16 and f32", flush=True)
+    print(f"{label}: K1, K3 and K4 forward and backward bit-identical over two runs, bf16 "
+          f"and f32", flush=True)
 
 
 def large_n_gin_pair_phases(models, batch, label):
@@ -1615,6 +1621,33 @@ def large_n_gin_pair_phases(models, batch, label):
     return results
 
 
+def pair_fwd_n256_phases(dev):
+    """K3 and K4 forward at N = 256, B = 2 (C = 300, H = 32, seeded normal
+    operands; the first forward took N <= 160) against their plain versions
+    in bf16 and f32 at the bars of 7, timed beside their bounds."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    a, c = (torch.randn(2, 256, 300, device=dev, generator=gen) for _ in range(2))
+    w = torch.randn(300, 32, device=dev, generator=gen) / 300 ** 0.5
+    bias = torch.randn(32, device=dev, generator=gen)
+    results = {}
+    for bf16 in (True, False):
+        sfx = "" if bf16 else "[f32]"
+        peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
+        tol = 1e-3 if bf16 else 1e-5
+        for name, wrapper, plain, args, cost in (
+                ("pair_relu_project", pair_relu_project, pair_relu_project_plain,
+                 (a, c, w, bias), k3_cost(a, w)),
+                ("pair_relu_project_cm", pair_relu_project_cm, pair_relu_project_cm_plain,
+                 (a, c, w), k4_cost(a, w))):
+            run_k = lambda f=wrapper, t=args, m=bf16: f(*t, bf16=m, impl="kernel")  # noqa: E731
+            run_p = lambda f=plain, t=args, m=bf16: f(*t, bf16=m)  # noqa: E731
+            label = f"N=256 B=2 {'K4' if 'cm' in name else 'K3'} {name}" + sfx
+            err, rel = compare(label, run_k, run_p, tol)
+            results[name + sfx] = report(label, err, tol, run_k, run_p, *cost, peak)
+            results[name + sfx]["max_rel_err"] = rel
+    return results
+
+
 def large_n_steps(dev, args, cfg, models, optimizer, gen, batches, label, seed):
     """Two pretraining steps on ``batches[:2]`` with the launch counts per
     step (K1 5 / 5, K2 6 / 6, K3 1 / 1), every metric finite; a third
@@ -1663,8 +1696,9 @@ def large_n_path(dev):
     two steps with the launch counts per step (K1 5 / 5, K2 6 / 6, K3 1 /
     1), every metric finite, one profiled step, one step against an
     all-plain build; then the same at ``--n_max 128``, B=32 (cut from the
-    CLI's 128).  Returns ({"n_max_64": ..., "n_max_128": ...}
-    kernel results, {n_max: launch counts of the two steps})."""
+    CLI's 128); then K3 / K4 forward at N = 256, B = 2.  Returns
+    ({"n_max_64": ..., "n_max_128": ..., "n_256_b_2": ...} kernel results,
+    {n_max: launch counts of the two steps})."""
     from moleculesde_tpu_torch.benchmarks.profile_pretrain import (
         COMMON_ARGS, parse_path, path_batches)
     from moleculesde_tpu_torch.examples import pretrain as cli
@@ -1683,6 +1717,7 @@ def large_n_path(dev):
         launches[n_max] = large_n_steps(dev, args, cfg, models, optimizer, gen, batches, label,
                                         args.seed + 7)
         del models, optimizer, batches
+    results["n_256_b_2"] = pair_fwd_n256_phases(dev)
     return results, launches
 
 
@@ -1787,12 +1822,13 @@ def _hmma_per_function(build, source: str) -> dict:
 
 def tensor_core_note(build) -> None:
     """The bf16 products of the CFConv kernels, of K6 and of the pair
-    block's backward (K3 and K4) run on the tensor cores: each source
-    issues mma.sync through ``hopper.cuh``'s ``mma_bf16``, and the built
-    libraries' SASS holds HMMA in the CFConv forward's and backward's
+    block's forward and backward (K3 and K4) run on the tensor cores: each
+    source issues mma.sync through ``hopper.cuh``'s ``mma_bf16``, and the
+    built libraries' SASS holds HMMA in the CFConv forward's and backward's
     functions, in every bf16 instantiation of K6 (``score_eval_kernel<true,
-    S>``) and of the pair block's backward (``pair_relu_project_bwd_kernel
-    <CM, true>``), and in none of their f32 instantiations."""
+    S>``) and of the pair block's two directions
+    (``pair_relu_project_{fwd,bwd}_kernel<CM, true, ...>``), and in none of
+    their f32 instantiations."""
     check("mma.sync.aligned.m16n8k16" in (build.CSRC_DIR / "hopper.cuh").read_text(),
           "hopper.cuh issues no mma.sync")
     for source in ("cfconv.cu", "score_eval.cu", "pair_block.cu"):
@@ -1817,19 +1853,21 @@ def tensor_core_note(build) -> None:
           f"a bf16 instantiation of K6 holds no HMMA instruction ({bf16_fns})")
     check(sum(k6.values()) == sum(bf16_fns.values()), "K6's f32 mode issues HMMA")
     per_function = _hmma_per_function(build, "pair_block")
-    pair = {}
-    for name, k in per_function.items():
-        if "pair_relu_project_bwd_kernel" in name:
-            for flags, label in (("ILb0ELb1E", "K3 bf16"), ("ILb1ELb1E", "K4 bf16"),
-                                 ("ILb0ELb0E", "K3 f32"), ("ILb1ELb0E", "K4 f32")):
-                if flags in name:
-                    pair[label] = k
-    print(f"pair_block SASS: backward HMMA per instantiation {pair}", flush=True)
-    check(len(pair) == 4, f"the pair block's backward instantiations not found ({pair})")
-    check(pair["K3 bf16"] > 0 and pair["K4 bf16"] > 0,
-          "a bf16 instantiation of the pair block's backward holds no HMMA instruction")
-    check(pair["K3 f32"] == 0 and pair["K4 f32"] == 0,
-          "an f32 instantiation of the pair block's backward issues HMMA")
+    for kernel, what in (("pair_relu_project_bwd_kernel", "backward"),
+                         ("pair_relu_project_fwd_kernel", "forward")):
+        pair = {}   # HMMA of each (K3 / K4, mode), over its instantiations (chunk, TS)
+        for name, k in per_function.items():
+            if kernel in name:
+                for flags, label in (("ILb0ELb1E", "K3 bf16"), ("ILb1ELb1E", "K4 bf16"),
+                                     ("ILb0ELb0E", "K3 f32"), ("ILb1ELb0E", "K4 f32")):
+                    if flags in name:
+                        pair.setdefault(label, []).append(k)
+        print(f"pair_block SASS: {what} HMMA per instantiation {pair}", flush=True)
+        check(len(pair) == 4, f"the pair block's {what} instantiations not found ({pair})")
+        check(all(k > 0 for k in pair["K3 bf16"] + pair["K4 bf16"]),
+              f"a bf16 instantiation of the pair block's {what} holds no HMMA instruction")
+        check(sum(pair["K3 f32"] + pair["K4 f32"]) == 0,
+              f"an f32 instantiation of the pair block's {what} issues HMMA")
 
 
 def main() -> int:

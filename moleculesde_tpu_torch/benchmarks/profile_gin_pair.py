@@ -6,7 +6,7 @@ K1's operands are GIN layer 0's of the pretraining CLI's models (random
 weights from seed 42) on its synthetic molecules, padded ingest: n_max 32
 and 64 at B=128, n_max 128 at B=32, each with e_max = 4 n_max; K3's and
 K4's are seeded normal draws at C = 300, H = 32 (their time does not depend
-on the values): N = 32 at B=128 and N = 128 at B=32.  The cotangents are
+on the values) at the same three (N, B).  The cotangents are
 seeded normal draws.  Times come through the wrappers of whichever
 ``moleculesde_tpu_torch`` is first on the path, so a parent checkout can be
 timed in turns with this one: 10 calls captured in a CUDA graph, the
@@ -18,8 +18,10 @@ A shape the checkout's kernel refuses prints its message.
 the same operands in bf16 mode; thread 0 of every block stamps
 ``%globaltimer``: K1's forward and backward after the staging, the sort,
 the walk (and the backward after the dtable sum over the node ranges);
-K3's backward after staging a, after each of the first three stages of g,
-after the last and at the end.  ``timing.py`` prints the span, median
+K3's and K4's forward (persistent blocks) after staging W, once the first
+unit's rows landed, after the first unit, once the last unit's rows landed
+and at the end; K3's backward after staging a, after each of the first
+three stages of g, after the last and at the end.  ``timing.py`` prints the span, median
 block time, phase medians and the quantiles of the blocks' start times
 (the waves), as it does for K6 in ``profile_score_bank.py``.
 
@@ -36,7 +38,7 @@ import numpy as np
 import torch
 
 K1_SHAPES = ((32, 128), (64, 128), (128, 32))      # (n_max, B)
-PAIR_SHAPES = ((32, 128), (128, 32))                # (N, B)
+PAIR_SHAPES = ((32, 128), (64, 128), (128, 32))     # (N, B)
 
 
 def k1_operands(n_max: int, batch: int, dev):
@@ -116,6 +118,8 @@ def times(label: str) -> None:
 
 K1_BWD_PHASES = ("staging", "sort", "walk", "dtable sum")
 K1_FWD_PHASES = ("staging", "sort", "walk")
+PAIR_FWD_PHASES = ("W staging", "first unit's rows", "first unit", "units to the last's rows",
+                   "last unit")
 PAIR_BWD_PHASES = ("a staging", "stage 0", "stage 1", "stage 2", "stages 3 on", "dW, db, da out")
 
 
@@ -128,6 +132,7 @@ def phases(label: str) -> None:
     from moleculesde_tpu_torch.ops.common import stream
     from moleculesde_tpu_torch.ops.gin_messages import bwd_plan, fwd_plan
     from moleculesde_tpu_torch.ops.pair_block import bwd_plan as pair_plan
+    from moleculesde_tpu_torch.ops.pair_block import fwd_plan_kernel
 
     lib = phase_library("gin_messages")
     fwd = lib.gin_messages_fwd
@@ -174,6 +179,28 @@ def phases(label: str) -> None:
                   flush=True)
 
     lib = phase_library("pair_block")
+    pfwd = {False: lib.pair_relu_project_fwd, True: lib.pair_relu_project_cm_fwd}
+    pfwd[False].argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    pfwd[True].argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for n, b in PAIR_SHAPES:
+        a, cc, w, _, _ = pair_operands(n, b, dev)
+        c, h = w.shape
+        bias = torch.zeros(h, device=dev)
+        for cm in (False, True):
+            out = torch.empty((b, h, n * n) if cm else (b, n, n, h), device=dev)
+            ptrs = ((a, cc, w, out) if cm else (a, cc, w, bias, out))
+
+            def launch_fwd_pair():
+                build.check_launch(pfwd[cm](*(t.data_ptr() for t in ptrs), b, n, c, h, 1, sms,
+                                            stream(a)), "pair_relu_project_fwd")
+
+            plan = fwd_plan_kernel(n, c, h, True, cm=cm)
+            units = b * -(-n // 16) * -(-n // plan["ts"])
+            blocks = min(units, plan["resident"])
+            stamps = phase_stamps(lib, blocks, 8, launch_fwd_pair)
+            print_phase_stamps(f"[{label}] {'K4' if cm else 'K3'} fwd B={b} N={n} bf16 {plan}, "
+                               f"{units} units on {blocks} blocks", stamps, PAIR_FWD_PHASES)
     pbwd = lib.pair_relu_project_bwd
     pbwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     for n, b in PAIR_SHAPES:
@@ -198,8 +225,8 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--label", default="this checkout", help="tag of the lines")
     parser.add_argument("--phases", action="store_true",
-                        help="K1's forward and backward and K3's backward block time by "
-                             "phase (-DPHASE_PROFILE builds)")
+                        help="K1's forward and backward, K3's and K4's forward and K3's "
+                             "backward block time by phase (-DPHASE_PROFILE builds)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_gin_pair: needs a CUDA device")

@@ -12,7 +12,7 @@
 // Without the flag a mark compiles to nothing.
 //
 // namespace hopper: the warp-level tensor-core and copy instructions the
-// CFConv kernels, K6 and the pair block's backward issue (mma.sync
+// CFConv kernels, K6 and the pair block's two directions issue (mma.sync
 // m16n8k16 bf16 -> f32, ldmatrix, cp.async), as inline PTX.
 
 #pragma once
@@ -82,6 +82,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
 // rest zero-filled.
 __device__ __forceinline__ void cp_async16n(void* dst, const void* src, int valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid) : "memory");
+}
+
+// 8 bytes, asynchronously (both addresses 8-byte aligned); only the first
+// ``valid`` of them read, the rest zero-filled.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, int valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
                :: "r"(smem_u32(dst)), "l"(src), "r"(valid) : "memory");
 }
 

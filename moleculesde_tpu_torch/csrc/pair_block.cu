@@ -1,4 +1,4 @@
-// Fused pair block, forward:
+// Fused pair block, forward (K3):
 //   out[b, s, d, h] = sum_c relu(a[b, s, c] + cc[b, d, c]) * w[c, h] + bias[h]
 // with a, cc [B, N, C] f32, w [C, H] f32, bias [H] f32, out [B, N, N, H] f32.
 // The [B, N, N, C] pair tensor is never written to device memory.
@@ -6,21 +6,57 @@
 // Replaces the Pallas kernel moleculesde_tpu/ops/pair_block.py::_fwd_kernel
 // (pallas_call at l.170, entry pair_relu_project l.449).
 //
-// Bound: arithmetic.  2*N*N*C*H flops per graph (1.26 GFLOP at B=64, N=32,
-// C=300, H=32) against ~13 MB of compulsory traffic (a, cc read once, out
-// written once).  This first version runs on the CUDA cores in f32 (67
-// TFLOP/s peak), not the tensor cores; wgmma is later work.  Design: one
-// block per (graph, tile of TS source rows); w (38 KB at C=300, H=32, zero
-// padded to a multiple of 32 columns), the bias, the tile's a rows and all
-// N cc rows are staged in shared memory.  Each thread owns one (s, d) pair
-// and 32 output channels in registers: it forms relu(a + cc) once per c and
-// feeds 32 FMAs, so the pair value is computed once per (s, d, c), not once
-// per output.  Rows of a/cc are padded to an odd stride (C + 1 words) so
-// the 32 threads of a warp, which read 32 different d rows, hit 32
-// different banks; w and a reads are warp-wide broadcasts.
-//
-// bf16 != 0 reproduces the TPU kernel's bf16 mode: the relu'd pair value
-// and w are rounded to bf16, the products accumulate in f32.
+// Bound: per graph one GEMM, out[pairs, H] = relu(a_s + c_d)[pairs, C] @
+// W[C, H] (M = N^2, K = C, n = H): 2 N^2 C H operations against the
+// output's 4 N^2 H bytes.  In bf16 the output's bytes bound it (16.8 MB at
+// B=128, N=32, C=300, H=32: 5 us), in f32 the CUDA cores' 67 TFLOP/s.
+// Design (redesigned for the tensor cores):
+//  * Unit = (graph, dest tile of 16 d, source tile of TS s rows), numbered
+//    graph-major, so a graph's a and cc rows are read while they sit in L2.
+//    Persistent blocks, as many as are resident (the occupancy query), walk
+//    the units blockIdx.x, + gridDim.x, ...  A block has 16 TS threads; TS
+//    is 32, or 16 where 32 does not fit (fwd_ts).
+//  * A block stages W once (bf16 mode rounded to bf16, [C'][H' + 8] halves;
+//    f32 [C'][H'] floats), then per unit only that unit's TS a rows and 16
+//    cc rows, f32, with cp.async, double buffered: the next unit's rows fly
+//    while this one computes.  C is zero-padded to C', a multiple of 16
+//    (each padded channel adds relu(0) * 0 = 0), N to whole tiles (rows
+//    past N zero-filled, their outputs dropped), H to H', passes of 32 (zero
+//    columns of W).  Shared memory does not depend on N: the forward takes
+//    any N whose B N^2 H output the int32 index reaches.  A staged row keeps
+//    each 16-channel group in the order a lane's A fragment reads it
+//    (fwd_slot: channels 2 r4, 2 r4 + 1, 2 r4 + 8, 2 r4 + 9 side by side),
+//    so one vector load gives a lane its four channels of a row.
+//  * bf16 mode on the tensor cores (mma.sync m16n8k16 bf16 -> f32): a warp
+//    owns two source rows of the unit and the 32 h of a pass.  The m16 rows
+//    of the A fragment are the unit's 16 dests, its k16 columns 16
+//    channels: a lane loads cc at its two dests (two vector loads a k step,
+//    shared by the warp's rows) and a[s] (one), adds, relus and packs in
+//    registers (8 FADD, 4 cvt.rn.relu.bf16x2) and never stores the
+//    fragment.  W's B fragments come from the resident copy by ldmatrix
+//    .trans, two x4 loads a k step for both rows: 4 HMMA per (row, k step).
+//    K3 forms the pair in f32 and rounds relu(pair) and W; K4 rounds a and
+//    cc at the stage, before the add, as the TPU kernel casts its inputs.
+//  * f32 mode keeps f32 products (its bar is 1e-5, so not TF32): the same
+//    units and stages, a thread owning 2 source rows x 2 dests x 8 h, one
+//    vector load of each of its rows per 4 channels: each relu'd pair feeds
+//    8 FMAs, each W value read serves 4 pairs.
+//  * Stores: K3 writes [B, N, N, H], the bias added after the product in
+//    f32; K4 [B, H, N*N], each h row's 16 pairs s N + d0 .. d0 + 15 of a
+//    unit contiguous.  The accumulators go out directly from registers: at
+//    N and H multiples of 8 each store instruction fills whole 32-byte
+//    sectors.  Each output is written once, by one lane, its k order fixed:
+//    two runs give the same bits.
+//  * What holds it back (benchmarks/profile_gin_pair.py --phases, PERF.md):
+//    not the tensor cores.  A unit takes ~7 us on the H100: its 16 warps
+//    issue ~40 instructions a k step (the A build; the loads of cc, a and
+//    W's fragments, ~18 shared-memory wavefronts a warp) for 8 HMMAs.  At
+//    B=128, N=32 a block (two units) also spends ~3.8 us staging W and
+//    ~2.4 us more waiting for its first unit's rows.  With -DPHASE_PROFILE
+//    thread 0 stamps the start, W staged, the first unit staged, the first
+//    unit done, the last unit staged and the end.
+// Shared memory: W (bf16 C' (H' + 8) x 2 B, f32 C' H' x 4 B) and two stages
+// of (TS + 16) rows of C' + 16 or C' floats (fwd_smem).
 //
 // Backward (replaces _bwd_kernel, pallas_call at l.193), for H <= 32:
 //   pair[s, d, c] = a[s, c] + cc[d, c]                     (f32)
@@ -88,10 +124,10 @@
 // with no bias (the wrapper adds it, so autograd gives db).  The TPU kernel
 // builds the pair slab [C, N*N] with two selector matmuls because its lanes
 // want the N*N axis minor; on this card the pair value is formed in
-// registers as in K3, and only the store changes: a warp holds 32
-// neighbouring d of one source row, so each output channel is written as a
-// contiguous 128-byte run.  Same bound as K3: arithmetic, 2*N*N*C*H flops
-// per graph forward, 4*N*N*C*H backward.  Its bf16 mode rounds where the
+// registers as in K3, and only the store changes: a unit's 16 dests of one
+// source row are contiguous in each h row.  Same bound as K3: the output's
+// bytes (bf16) or 2*N*N*C*H operations (f32) per graph forward,
+// 4*N*N*C*H backward.  Its bf16 mode rounds where the
 // TPU kernel rounds, which is not where K3 does: a and cc are rounded to
 // bf16 BEFORE the add (the TPU kernel casts its inputs), the relu mask
 // comes from that f32 sum, and the backward rounds the masked dpair to
@@ -101,11 +137,14 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <atomic>
+#include <climits>
+#include <cstdint>
 
 #include "hopper.cuh"
 #include "partials.cuh"
 
-constexpr int kPhaseSlots = 8;   // PHASE_PROFILE marks per block (the backward)
+constexpr int kPhaseSlots = 8;   // PHASE_PROFILE marks per block (both directions)
 
 namespace {
 
@@ -113,101 +152,6 @@ constexpr int kChanTile = 32;  // output channels held in registers per pass
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-template <bool CM>
-__global__ void pair_relu_project_fwd_kernel(const float* __restrict__ a,
-                                             const float* __restrict__ cc,
-                                             const float* __restrict__ w,
-                                             const float* __restrict__ bias,
-                                             float* __restrict__ out,
-                                             int N, int C, int H, int TS,
-                                             int bf16) {
-  extern __shared__ __align__(16) float smem[];
-  const int HP = ((H + kChanTile - 1) / kChanTile) * kChanTile;
-  const int CP = C + 1;
-  float* ws = smem;              // [C][HP]
-  float* bs = ws + C * HP;       // [HP]
-  float* as = bs + HP;           // [TS][CP]
-  float* cs = as + TS * CP;      // [N][CP]
-
-  const int b = blockIdx.x;
-  const int s0 = blockIdx.y * TS;
-  const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
-
-  for (int i = tid; i < C * HP; i += nthr) {
-    const int k = i / HP, h = i - k * HP;
-    const float v = h < H ? w[static_cast<size_t>(k) * H + h] : 0.f;
-    ws[i] = bf16 ? round_bf16(v) : v;
-  }
-  for (int i = tid; i < HP; i += nthr) bs[i] = (!CM && i < H) ? bias[i] : 0.f;
-  const float* ab = a + static_cast<size_t>(b) * N * C;
-  const float* cb = cc + static_cast<size_t>(b) * N * C;
-  const bool round_halves = CM && bf16;  // K4 rounds a and cc before the add
-  for (int i = tid; i < TS * C; i += nthr) {
-    const int r = i / C, k = i - r * C;
-    const float v = (s0 + r < N) ? ab[static_cast<size_t>(s0 + r) * C + k] : 0.f;
-    as[r * CP + k] = round_halves ? round_bf16(v) : v;
-  }
-  for (int i = tid; i < N * C; i += nthr) {
-    const int r = i / C, k = i - r * C;
-    cs[r * CP + k] = round_halves ? round_bf16(cb[i]) : cb[i];
-  }
-  __syncthreads();
-
-  const int r = tid / N;
-  const int d = tid - r * N;
-  const int s = s0 + r;
-  if (r >= TS || s >= N) return;  // no barrier below this point
-  const float* arow = as + r * CP;
-  const float* crow = cs + d * CP;
-  float* orow = out + ((static_cast<size_t>(b) * N + s) * N + d) * H;  // !CM
-  const bool vec_store = (H % 4) == 0;
-
-  for (int h0 = 0; h0 < HP; h0 += kChanTile) {
-    float acc[kChanTile];
-#pragma unroll
-    for (int j = 0; j < kChanTile; ++j) acc[j] = 0.f;
-    for (int k = 0; k < C; ++k) {
-      float p = fmaxf(arow[k] + crow[k], 0.f);
-      if (bf16) p = round_bf16(p);
-      const float4* wr = reinterpret_cast<const float4*>(ws + k * HP + h0);
-#pragma unroll
-      for (int j = 0; j < kChanTile / 4; ++j) {
-        const float4 wv = wr[j];
-        acc[4 * j + 0] = fmaf(p, wv.x, acc[4 * j + 0]);
-        acc[4 * j + 1] = fmaf(p, wv.y, acc[4 * j + 1]);
-        acc[4 * j + 2] = fmaf(p, wv.z, acc[4 * j + 2]);
-        acc[4 * j + 3] = fmaf(p, wv.w, acc[4 * j + 3]);
-      }
-    }
-    if (CM) {
-      // channel-major [B, H, N*N]: a warp's threads hold neighbouring d,
-      // so each channel's store is one contiguous run
-      const size_t nn = static_cast<size_t>(N) * N;
-      float* ob = out + static_cast<size_t>(b) * H * nn + static_cast<size_t>(s) * N + d;
-#pragma unroll
-      for (int j = 0; j < kChanTile; ++j)
-        if (h0 + j < H) ob[(h0 + j) * nn] = acc[j];
-    } else if (vec_store) {
-#pragma unroll
-      for (int j = 0; j < kChanTile; j += 4) {
-        if (h0 + j < H) {
-          float4 o;
-          o.x = acc[j + 0] + bs[h0 + j + 0];
-          o.y = acc[j + 1] + bs[h0 + j + 1];
-          o.z = acc[j + 2] + bs[h0 + j + 2];
-          o.w = acc[j + 3] + bs[h0 + j + 3];
-          *reinterpret_cast<float4*>(orow + h0 + j) = o;
-        }
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < kChanTile; ++j)
-        if (h0 + j < H) orow[h0 + j] = acc[j] + bs[h0 + j];
-    }
-  }
 }
 
 // ---- backward (K3 and K4): see the header ----
@@ -736,43 +680,412 @@ int launch_bwd(const float* a, const float* cc, const float* w, const float* g, 
                                                     C, H, s);
 }
 
-}  // namespace
+// ---- forward (K3 and K4): see the header ----
 
-extern "C" int pair_relu_project_fwd(const float* a, const float* cc,
-                                     const float* w, const float* bias,
-                                     float* out, int B, int N, int C, int H,
-                                     int TS, int bf16, void* stream) {
-  const int HP = ((H + kChanTile - 1) / kChanTile) * kChanTile;
-  const size_t smem = (static_cast<size_t>(C) * HP + HP +
-                       static_cast<size_t>(TS + N) * (C + 1)) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      pair_relu_project_fwd_kernel<false>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+constexpr int kFwdTS = 32;     // source rows a unit where they fit (else 16; 32 ran faster)
+constexpr int kFwdRows = 2;    // bf16 mode: source rows a warp (4 ran slower)
+
+// Threads of a forward block: bf16 TS / kFwdRows warps; f32 a thread's 2 x
+// 2 pairs x 8 h.
+template <int TS>
+constexpr int kFwdThreads = 16 * TS;
+static_assert(kFwdThreads<32> == 32 * 32 / kFwdRows, "bf16 warps of kFwdRows rows");
+
+__host__ __device__ constexpr int fwd_cpad(int C) { return (C + 15) / 16 * 16; }
+// A staged row's floats: C' or C' + 16, so that rows 1 apart fall 64 bytes
+// apart in the banks (a lane's cc loads of rows q and q + 1 do not collide).
+__host__ __device__ constexpr int fwd_stride(int C) {
+  return fwd_cpad(C) % 32 ? fwd_cpad(C) : fwd_cpad(C) + 16;
+}
+__host__ __device__ constexpr int fwd_hp(int H) { return (H + 31) / 32 * 32; }
+
+// Where channel k sits in a staged row: within its 16-channel group, lane
+// r4's A-fragment channels 2 r4, 2 r4 + 1, 2 r4 + 8, 2 r4 + 9 at slots 4 r4
+// .. 4 r4 + 3.  Even k and k + 1 stay neighbours (8-byte copies).
+__host__ __device__ constexpr int fwd_slot(int k) {
+  return (k & ~15) + 4 * ((k & 7) >> 1) + 2 * ((k >> 3) & 1) + (k & 1);
+}
+
+// Shared memory of the forward: W, then two stages of TS a rows and 16 cc
+// rows.  Mirrored by ops/pair_block.py::fwd_plan.
+size_t fwd_smem(int C, int H, bool bf16, int TS) {
+  const size_t w = bf16 ? static_cast<size_t>(fwd_cpad(C)) * (fwd_hp(H) + 8) * 2
+                        : static_cast<size_t>(fwd_cpad(C)) * fwd_hp(H) * 4;
+  return w + 2 * static_cast<size_t>(TS + kDTile) * fwd_stride(C) * sizeof(float);
+}
+
+// Source rows a unit: kFwdTS where its shared memory fits, else 16; 0 if
+// neither fits.
+int fwd_ts(int C, int H, bool bf16) {
+  if (fwd_smem(C, H, bf16, kFwdTS) <= kSmemLimit) return kFwdTS;
+  return fwd_smem(C, H, bf16, 16) <= kSmemLimit ? 16 : 0;
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+template <bool CM, bool BF16, int TS>
+__global__ void __launch_bounds__(kFwdThreads<TS>, TS == 16 ? 2 : 1)
+pair_relu_project_fwd_kernel(const float* __restrict__ a, const float* __restrict__ cc,
+                             const float* __restrict__ w, const float* __restrict__ bias,
+                             float* __restrict__ out, int B, int N, int C, int H) {
+  constexpr int nthr = kFwdThreads<TS>;
+  constexpr int kRows = TS + kDTile;                // staged rows a unit
+  extern __shared__ __align__(16) float smem[];
+  const int CP = fwd_cpad(C), stride = fwd_stride(C), HP = fwd_hp(H);
+  const int HB = HP + 8;                            // a bf16 W row, halves
+  __nv_bfloat16* wb = reinterpret_cast<__nv_bfloat16*>(smem);   // [CP][HB], channel order
+  float* wf = smem;                                 // [CP][HP], fwd_slot order
+  float* stage = smem + (BF16 ? CP * HB / 2 : CP * HP);
+  const int buf_floats = kRows * stride;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ndt = (N + kDTile - 1) / kDTile, nst = (N + TS - 1) / TS;
+  const int per_graph = ndt * nst;
+  const int units = B * per_graph;
+  const int nn = N * N;                             // B N^2 H < 2^31: the wrapper's check
+  const bool vec = (C % 2 == 0) &&
+                   ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(cc)) % 8 == 0);
+
+  // this thread's 8-byte staging slots, the same in every unit: columns
+  // col0, col0 + nthr, ... of C' / 2, rows row0, row0 + rstep, ...
+  const int half_c = CP / 2;
+  const int rstep = nthr >= half_c ? nthr / half_c : 1;
+  const int col0 = nthr >= half_c ? tid % half_c : tid;
+  const int row0 = nthr >= half_c ? tid / half_c : 0;
+  const bool stager = row0 < rstep;
+  auto origin = [&](int u, int& b, int& s0, int& d0) {
+    b = u / per_graph;
+    const int r = u - b * per_graph, dt = r / nst;
+    d0 = dt * kDTile;
+    s0 = (r - dt * nst) * TS;
+  };
+  // cp.async of unit u's rows into buffer buf, zero-filled past N and C
+  auto issue = [&](int u, int buf) {
+    if (!stager) return;
+    int b, s0, d0;
+    origin(u, b, s0, d0);
+    const float* ab = a + b * N * C;
+    const float* cb = cc + b * N * C;
+    float* dst0 = stage + buf * buf_floats;
+    for (int col = col0; col < half_c; col += nthr) {
+      const int k = 2 * col, slot = fwd_slot(k);
+      for (int r = row0; r < kRows; r += rstep) {
+        const int node = r < TS ? s0 + r : d0 + r - TS;
+        const float* src = (r < TS ? ab : cb) + node * C + k;
+        float* dst = dst0 + r * stride + slot;
+        const int nvalid = node < N ? max(0, min(2, C - k)) : 0;
+        if (vec) {
+          hopper::cp_async8(dst, nvalid ? src : a, 4 * nvalid);
+        } else {
+          hopper::cp_async4(dst, nvalid > 0 ? src : a, nvalid > 0 ? 4 : 0);
+          hopper::cp_async4(dst + 1, nvalid > 1 ? src + 1 : a, nvalid > 1 ? 4 : 0);
+        }
+      }
+    }
+  };
+  // K4's bf16 mode: this thread's slots rounded to bf16 once they landed
+  auto settle = [&](int buf) {
+    if (!(CM && BF16) || !stager) return;
+    float* dst0 = stage + buf * buf_floats;
+    for (int col = col0; col < half_c; col += nthr) {
+      const int slot = fwd_slot(2 * col);
+      for (int r = row0; r < kRows; r += rstep) {
+        float2* p = reinterpret_cast<float2*>(dst0 + r * stride + slot);
+        const float2 v = *p;
+        *p = make_float2(round_bf16(v.x), round_bf16(v.y));
+      }
+    }
+  };
+
+  PHASE_MARK(0);
+  if (static_cast<int>(blockIdx.x) < units) issue(blockIdx.x, 0);
+  // W once a block, while the first unit's rows fly: elements i = k HP + h
+  // at tid, tid + nthr, ..., eight loads in flight at a time
+  {
+    const int dk = nthr / HP, dh = nthr - dk * HP;
+    int k = tid / HP, h = tid - k * HP;
+    while (k < CP) {
+      float v[8];
+      int at[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        at[j] = k < CP ? (BF16 ? k * HB : fwd_slot(k) * HP) + h : -1;
+        v[j] = (k < C && h < H) ? w[k * H + h] : 0.f;
+        h += dh;
+        k += dk;
+        if (h >= HP) {
+          h -= HP;
+          ++k;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (at[j] < 0) continue;
+        if constexpr (BF16)
+          wb[at[j]] = __float2bfloat16_rn(v[j]);
+        else
+          wf[at[j]] = v[j];
+      }
+    }
+  }
+  PHASE_MARK(1);
+
+  const int q = lane >> 2, r4 = lane & 3;
+  int it = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x, ++it) {
+    const int buf = it & 1;
+    hopper::cp_async_wait_all();
+    settle(buf);
+    __syncthreads();   // unit u in place; the other buffer consumed by every warp
+    const bool last = u + static_cast<int>(gridDim.x) >= units;
+    if (!last) issue(u + gridDim.x, buf ^ 1);
+    if (it == 0) PHASE_MARK(2);
+    if (last) PHASE_MARK(4);
+    int b, s0, d0;
+    origin(u, b, s0, d0);
+    const float* as = stage + buf * buf_floats;
+    const float* cs = as + TS * stride;
+    // the warp's first row in the unit (f32: its threads', 2 rows a thread)
+    const int sl = kFwdRows * warp;
+    if (s0 + sl < N) {   // warp-uniform; no barrier below
+      if constexpr (BF16) {
+        const float* c0p = cs + q * stride + 4 * r4;
+        const float* c1p = c0p + 8 * stride;
+        const float* ap = as + sl * stride + 4 * r4;   // row sl + r at ap + r stride
+        const __nv_bfloat16* wl =
+            wb + ((lane & 7) + ((lane >> 3) & 1) * 8) * HB + ((lane >> 4) & 1) * 8;
+        for (int hp0 = 0; hp0 < HP; hp0 += 32) {
+          float acc[kFwdRows][4][4];
+#pragma unroll
+          for (int r = 0; r < kFwdRows; ++r)
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[r][nt][e] = 0.f;
+#pragma unroll 2
+          for (int k0 = 0; k0 < CP; k0 += 16) {
+            const float4 c0 = lds4(c0p + k0), c1 = lds4(c1p + k0);
+            uint32_t blo[4], bhi[4];   // W's B fragments: h 0-15 and 16-31 of the pass
+            hopper::ldsm_x4_t(blo, wl + k0 * HB + hp0);
+            hopper::ldsm_x4_t(bhi, wl + k0 * HB + hp0 + 16);
+#pragma unroll
+            for (int r = 0; r < kFwdRows; ++r) {
+              const float4 av = lds4(ap + r * stride + k0);
+              // rows d0 + q, d0 + q + 8; channels 2 r4, 2 r4 + 1 | 2 r4 + 8, 2 r4 + 9
+              const uint32_t fa[4] = {pack_relu_bf16(av.x + c0.x, av.y + c0.y),
+                                      pack_relu_bf16(av.x + c1.x, av.y + c1.y),
+                                      pack_relu_bf16(av.z + c0.z, av.w + c0.w),
+                                      pack_relu_bf16(av.z + c1.z, av.w + c1.w)};
+              hopper::mma_bf16(acc[r][0], fa, {blo[0], blo[1]});
+              hopper::mma_bf16(acc[r][1], fa, {blo[2], blo[3]});
+              hopper::mma_bf16(acc[r][2], fa, {bhi[0], bhi[1]});
+              hopper::mma_bf16(acc[r][3], fa, {bhi[2], bhi[3]});
+            }
+          }
+          // accumulator e of n tile nt: dest d0 + q + 8 (e >> 1), h 8 nt + 2 r4 + (e & 1)
+#pragma unroll
+          for (int r = 0; r < kFwdRows; ++r) {
+            const int s = s0 + sl + r;
+            if (s >= N) continue;
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) {
+              const int h = hp0 + 8 * nt + 2 * r4;
+              float b0 = 0.f, b1 = 0.f;
+              if (!CM) {
+                b0 = h < H ? bias[h] : 0.f;
+                b1 = h + 1 < H ? bias[h + 1] : 0.f;
+              }
+#pragma unroll
+              for (int hf = 0; hf < 2; ++hf) {
+                const int d = d0 + q + 8 * hf;
+                if (d >= N) continue;
+                const float v0 = acc[r][nt][2 * hf], v1 = acc[r][nt][2 * hf + 1];
+                if (CM) {
+                  float* o = out + (b * H + h) * nn + s * N + d;
+                  if (h < H) o[0] = v0;
+                  if (h + 1 < H) o[nn] = v1;
+                } else {
+                  float* o = out + ((b * N + s) * N + d) * H + h;
+                  if (H % 2 == 0 && h < H) {
+                    *reinterpret_cast<float2*>(o) = make_float2(v0 + b0, v1 + b1);
+                  } else {
+                    if (h < H) o[0] = v0 + b0;
+                    if (h + 1 < H) o[1] = v1 + b1;
+                  }
+                }
+              }
+            }
+          }
+        }
+      } else {
+        // the thread's rows sl, sl + 1, dests dp, dp + 8, h 8 hg .. 8 hg + 7 of a pass
+        const int hg = tid & 3, dp = (tid >> 2) & 7;
+        const float* a0p = as + sl * stride;
+        const float* a1p = a0p + stride;
+        const float* c0p = cs + dp * stride;
+        const float* c1p = c0p + 8 * stride;
+        for (int hp0 = 0; hp0 < HP; hp0 += 32) {
+          const float* wl = wf + hp0 + 8 * hg;
+          float acc[2][2][8];
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+#pragma unroll
+              for (int h = 0; h < 8; ++h) acc[i][j][h] = 0.f;
+#pragma unroll 2
+          for (int k0 = 0; k0 < CP; k0 += 4) {
+            const float4 a0 = lds4(a0p + k0), a1 = lds4(a1p + k0);
+            const float4 c0 = lds4(c0p + k0), c1 = lds4(c1p + k0);
+            const float av[2][4] = {{a0.x, a0.y, a0.z, a0.w}, {a1.x, a1.y, a1.z, a1.w}};
+            const float cv[2][4] = {{c0.x, c0.y, c0.z, c0.w}, {c1.x, c1.y, c1.z, c1.w}};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {   // slot k0 + e: W's row of that channel
+              const float4 w0 = lds4(wl + (k0 + e) * HP), w1 = lds4(wl + (k0 + e) * HP + 4);
+              const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+              for (int i = 0; i < 2; ++i)
+#pragma unroll
+                for (int j = 0; j < 2; ++j) {
+                  const float p = fmaxf(av[i][e] + cv[j][e], 0.f);
+#pragma unroll
+                  for (int h = 0; h < 8; ++h) acc[i][j][h] = fmaf(p, wv[h], acc[i][j][h]);
+                }
+            }
+          }
+          const int hb = hp0 + 8 * hg;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int s = s0 + sl + i;
+            if (s >= N) continue;
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const int d = d0 + dp + 8 * j;
+              if (d >= N) continue;
+              if (CM) {
+                float* o = out + (b * H + hb) * nn + s * N + d;
+#pragma unroll
+                for (int h = 0; h < 8; ++h)
+                  if (hb + h < H) o[h * nn] = acc[i][j][h];
+              } else {
+                float* o = out + ((b * N + s) * N + d) * H + hb;
+#pragma unroll
+                for (int x = 0; x < 2; ++x) {
+                  const int h4 = hb + 4 * x;
+                  if (H % 4 == 0 && h4 + 4 <= H) {
+                    *reinterpret_cast<float4*>(o + 4 * x) = make_float4(
+                        acc[i][j][4 * x] + bias[h4], acc[i][j][4 * x + 1] + bias[h4 + 1],
+                        acc[i][j][4 * x + 2] + bias[h4 + 2], acc[i][j][4 * x + 3] + bias[h4 + 3]);
+                  } else {
+#pragma unroll
+                    for (int y = 0; y < 4; ++y)
+                      if (h4 + y < H) o[4 * x + y] = acc[i][j][4 * x + y] + bias[h4 + y];
+                  }
+                }
+              }
+            }
+          }
+        }
+      }
+    }
+    if (it == 0) PHASE_MARK(3);
+  }
+  PHASE_MARK(5);
+}
+
+// One forward launch with TS source rows a unit: persistent blocks, as many
+// as are resident at once on the ``sms`` SMs, at most one per unit.  With
+// ``resident`` set, only the residency query: *resident = blocks an SM x
+// sms, nothing launched.  The query runs once per instantiation and shared
+// memory size, kept as bytes << 32 | blocks an SM.
+template <bool CM, bool BF16, int TS>
+int launch_fwd_t(const float* a, const float* cc, const float* w, const float* bias, float* out,
+                 int B, int N, int C, int H, int sms, cudaStream_t s, int* resident) {
+  const size_t smem = fwd_smem(C, H, BF16, TS);
+  auto kernel = pair_relu_project_fwd_kernel<CM, BF16, TS>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B, (N + TS - 1) / TS);
-  pair_relu_project_fwd_kernel<false><<<grid, TS * N, smem,
-                                        static_cast<cudaStream_t>(stream)>>>(
-      a, cc, w, bias, out, N, C, H, TS, bf16);
+  static std::atomic<unsigned long long> resident_for{0};
+  unsigned long long known = resident_for.load(std::memory_order_relaxed);
+  int per_sm = static_cast<int>(known & 0xffffffffull);
+  if ((known >> 32) != smem) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kFwdThreads<TS>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    per_sm = per_sm > 0 ? per_sm : 1;
+    resident_for.store(static_cast<unsigned long long>(smem) << 32 | per_sm,
+                       std::memory_order_relaxed);
+  }
+  const long long all = static_cast<long long>(per_sm) * sms;
+  if (resident) {
+    *resident = static_cast<int>(all);
+    return 0;
+  }
+  const long long units = static_cast<long long>(B) * ((N + kDTile - 1) / kDTile) *
+                          ((N + TS - 1) / TS);
+  const int blocks = static_cast<int>(units < all ? units : all);
+  if (blocks == 0) return 0;
+  kernel<<<blocks, kFwdThreads<TS>, smem, s>>>(a, cc, w, bias, out, B, N, C, H);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The forward in the mode and with the TS that fwd_ts picks; refuses an
+// output or input that the int32 index does not reach.
+template <bool CM>
+int launch_fwd(const float* a, const float* cc, const float* w, const float* bias, float* out,
+               int B, int N, int C, int H, int bf16, int sms, cudaStream_t s,
+               int* resident = nullptr) {
+  const int ts = fwd_ts(C, H, bf16 != 0);
+  const long long nout = static_cast<long long>(B) * N * N * H;
+  const long long nin = static_cast<long long>(B) * N * C;
+  if (ts == 0 || nout > INT_MAX || nin > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  if (bf16)
+    return ts == 32 ? launch_fwd_t<CM, true, 32>(a, cc, w, bias, out, B, N, C, H, sms, s, resident)
+                    : launch_fwd_t<CM, true, 16>(a, cc, w, bias, out, B, N, C, H, sms, s, resident);
+  return ts == 32 ? launch_fwd_t<CM, false, 32>(a, cc, w, bias, out, B, N, C, H, sms, s, resident)
+                  : launch_fwd_t<CM, false, 16>(a, cc, w, bias, out, B, N, C, H, sms, s, resident);
+}
+
+}  // namespace
+
+// K3 forward: out [B, N, N, H], bias added.  Refuses (cudaErrorInvalidValue)
+// what fwd_ts or the int32 index does not take.
+extern "C" int pair_relu_project_fwd(const float* a, const float* cc, const float* w,
+                                     const float* bias, float* out, int B, int N, int C,
+                                     int H, int bf16, int sms, void* stream) {
+  return launch_fwd<false>(a, cc, w, bias, out, B, N, C, H, bf16, sms,
+                           static_cast<cudaStream_t>(stream));
+}
+
 // K4 forward: out [B, H, N*N] channel-major, no bias; same launch as K3's.
-extern "C" int pair_relu_project_cm_fwd(const float* a, const float* cc,
-                                        const float* w, float* out, int B,
-                                        int N, int C, int H, int TS, int bf16,
-                                        void* stream) {
-  const int HP = ((H + kChanTile - 1) / kChanTile) * kChanTile;
-  const size_t smem = (static_cast<size_t>(C) * HP + HP +
-                       static_cast<size_t>(TS + N) * (C + 1)) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      pair_relu_project_fwd_kernel<true>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B, (N + TS - 1) / TS);
-  pair_relu_project_fwd_kernel<true><<<grid, TS * N, smem,
-                                       static_cast<cudaStream_t>(stream)>>>(
-      a, cc, w, nullptr, out, N, C, H, TS, bf16);
-  return static_cast<int>(cudaGetLastError());
+extern "C" int pair_relu_project_cm_fwd(const float* a, const float* cc, const float* w,
+                                        float* out, int B, int N, int C, int H, int bf16,
+                                        int sms, void* stream) {
+  return launch_fwd<true>(a, cc, w, nullptr, out, B, N, C, H, bf16, sms,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// The forward's plan at one graph of N nodes: returns its shared bytes and
+// writes out[0] = TS, out[1] = threads a block, out[2] = resident blocks on
+// ``sms`` SMs; -1 where no plan fits (ops/pair_block.py::fwd_plan mirrors
+// it), -1000 - the CUDA error where the residency query fails.
+extern "C" long long pair_relu_project_fwd_plan(int N, int C, int H, int bf16, int cm, int sms,
+                                                int* out) {
+  const int ts = fwd_ts(C, H, bf16 != 0);
+  if (ts == 0 || static_cast<long long>(N) * N * H > INT_MAX ||
+      static_cast<long long>(N) * C > INT_MAX)
+    return -1;
+  int resident = 0;
+  const int rc = cm ? launch_fwd<true>(nullptr, nullptr, nullptr, nullptr, nullptr, 1, N, C, H,
+                                       bf16, sms, nullptr, &resident)
+                    : launch_fwd<false>(nullptr, nullptr, nullptr, nullptr, nullptr, 1, N, C, H,
+                                        bf16, sms, nullptr, &resident);
+  if (rc != 0) return -1000 - rc;
+  out[0] = ts;
+  out[1] = ts == 32 ? kFwdThreads<32> : kFwdThreads<16>;
+  out[2] = resident;
+  return static_cast<long long>(fwd_smem(C, H, bf16 != 0, ts));
 }
 
 // da, dc [B, N, C], dw [C, H], db [H]; dw_part (B * C * H floats) and

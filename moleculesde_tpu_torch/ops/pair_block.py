@@ -7,12 +7,15 @@ Counterpart of ``moleculesde_tpu/ops/pair_block.py`` (``pair_mean_var``,
 On a CUDA tensor the wrappers launch the hand-written kernels of
 ``csrc/pair_block.cu``, which replace the TPU kernels ``_fwd_kernel``
 (``pallas_call`` at ``ops/pair_block.py:170``), ``_bwd_kernel`` (l.193),
-``_fwd_kernel_cm`` (l.337) and ``_bwd_kernel_cm`` (l.361): all are
-arithmetic-bound and form each pair value in registers, so the pair tensor
-never reaches device memory.  The backward runs its two products on the
-tensor cores in bf16 mode, in blocks of (graph, 64 or 32 channels) chosen
-by N (:func:`bwd_plan`), so it takes any N up to 748 (the source's header
-says more).  On a CPU tensor they take the ``*_plain`` versions.
+``_fwd_kernel_cm`` (l.337) and ``_bwd_kernel_cm`` (l.361): all form each
+pair value in registers, so the pair tensor never reaches device memory,
+and all run their products on the tensor cores in bf16 mode.  The forward
+walks (graph, 16 dests, TS sources) units in persistent blocks whose
+shared memory does not depend on N (:func:`fwd_plan`): it takes any N whose
+output the int32 index reaches.  The backward runs in blocks of (graph, 64
+or 32 channels) chosen by N (:func:`bwd_plan`), so it takes any N up to 748
+(the source's header says more).  On a CPU tensor they take the
+``*_plain`` versions.
 :func:`pair_relu_project` (K3, ``[B, N, N, H]``) and
 :func:`pair_relu_project_cm` (K4, ``[B, H, N*N]``) are differentiable
 through ``torch.autograd.Function``s: a, c, w and the bias get gradients,
@@ -29,7 +32,7 @@ import torch
 from moleculesde_tpu_torch.kernels import build
 from moleculesde_tpu_torch.ops.common import SMEM_LIMIT, resolve_impl, round_bf16, stream
 
-_CHAN_TILE = 32            # output channels per register pass (csrc/pair_block.cu)
+_CHAN_TILE = 32            # the backward's output channels, H <= 32 (csrc/pair_block.cu)
 
 
 def pair_mean_var(src: torch.Tensor, dst: torch.Tensor, pair_mask: torch.Tensor
@@ -137,12 +140,59 @@ def bwd_plan_kernel(n: int) -> int:
     return fn(n)
 
 
-def _source_tile(n: int) -> int:
-    """Source rows per block: about 256 threads, one per (source, dest)."""
-    return max(1, min(n, 256 // n))
+_FWD_TS = 32               # the forward's source rows a unit where they fit (kFwdTS)
+_INT32_MAX = 2 ** 31 - 1
 
 
-def _check_kernel_inputs(a, c, w, bias=None, g=None, cm: bool = False):
+def _fwd_smem(cdim: int, h: int, bf16: bool, ts: int) -> int:
+    cpad = -(-cdim // 16) * 16
+    stride = cpad if cpad % 32 else cpad + 16
+    hp = -(-h // 32) * 32
+    w = cpad * (hp + 8) * 2 if bf16 else cpad * hp * 4
+    return w + 2 * (ts + 16) * stride * 4
+
+
+def fwd_plan(n: int, cdim: int, h: int, bf16: bool, b: int = 1) -> dict:
+    """Launch plan of the forward kernels (K3 and K4), mirrored from
+    ``csrc/pair_block.cu::fwd_ts`` / ``fwd_smem``: units of (graph, 16
+    dests, ``ts`` sources) in persistent blocks of ``16 * ts`` threads; a
+    block's shared memory holds W (bf16 mode in bf16 with rows padded by 8
+    halves, f32 in f32; C padded to a multiple of 16, H to one of 32) and
+    two stages of ``ts + 16`` rows of a and c, and does not depend on N.
+    ``ts`` is 32, or 16 where 32 does not fit ``SMEM_LIMIT``.  Raises,
+    naming the limit, where the output ``b * n * n * h`` or the input
+    ``b * n * cdim`` passes the kernel's int32 index, or (at a C or H far
+    past the models') no plan fits."""
+    if b * n * n * h > _INT32_MAX or b * n * cdim > _INT32_MAX:
+        raise ValueError(f"pair_relu_project forward kernel: B*N*N*H = {b * n * n * h} or "
+                         f"B*N*C = {b * n * cdim} past the int32 index ({_INT32_MAX})")
+    for ts in (_FWD_TS, 16):
+        smem = _fwd_smem(cdim, h, bf16, ts)
+        if smem <= SMEM_LIMIT:
+            return {"ts": ts, "threads": 16 * ts, "smem": smem}
+    raise ValueError(f"pair_relu_project forward kernel: C={cdim}, H={h} need {smem} B of "
+                     f"shared memory even at 16 source rows a unit (> SMEM_LIMIT = {SMEM_LIMIT})")
+
+
+def fwd_plan_kernel(n: int, cdim: int, h: int, bf16: bool, cm: bool = False,
+                    device=None) -> Optional[dict]:
+    """The forward's plan as its C entry computes it at one graph of ``n``
+    nodes (None where no plan fits), with its resident blocks on
+    ``device``'s SMs; builds the library on first use."""
+    fn = build.load("pair_block").pair_relu_project_fwd_plan
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    sms = torch.cuda.get_device_properties(device or 0).multi_processor_count
+    out = (ctypes.c_int * 3)()
+    smem = fn(n, cdim, h, int(bf16), int(cm), sms, ctypes.addressof(out))
+    if smem < -1:
+        raise RuntimeError(f"pair_relu_project_fwd_plan: CUDA error {-1000 - smem}")
+    if smem == -1:
+        return None
+    return {"ts": out[0], "threads": out[1], "smem": smem, "resident": out[2]}
+
+
+def _check_kernel_inputs(a, c, w, bias=None, g=None, cm: bool = False, bf16: bool = False):
     tensors = {"a": a, "c": c, "w": w}
     for name, t in (("bias", bias), ("g", g)):
         if t is not None:
@@ -171,17 +221,15 @@ def _check_kernel_inputs(a, c, w, bias=None, g=None, cm: bool = False):
                              f"{_CHAN_TILE} (H={h})")
         bwd_plan(n, cdim)
         return
-    if n > 1024:
-        raise ValueError(f"pair_relu_project kernel: N={n} > 1024 threads per block")
-    hp = -(-h // _CHAN_TILE) * _CHAN_TILE
-    smem = (cdim * hp + hp + (_source_tile(n) + n) * (cdim + 1)) * 4
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"pair_relu_project kernel: C={cdim}, H={h}, N={n} "
-                         f"need {smem} B of shared memory (> {SMEM_LIMIT})")
+    fwd_plan(n, cdim, h, bf16, b)
+
+
+def _sms(t: torch.Tensor) -> int:
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
 
 
 def _launch(a, c, w, bias, bf16: bool) -> torch.Tensor:
-    _check_kernel_inputs(a, c, w, bias)
+    _check_kernel_inputs(a, c, w, bias, bf16=bf16)
     b, n, cdim = a.shape
     h = w.shape[1]
     out = torch.empty((b, n, n, h), dtype=torch.float32, device=a.device)
@@ -191,7 +239,7 @@ def _launch(a, c, w, bias, bf16: bool) -> torch.Tensor:
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     rc = fn(a.data_ptr(), c.data_ptr(), w.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), b, n, cdim, h, _source_tile(n), int(bf16), stream(a))
+            out.data_ptr(), b, n, cdim, h, int(bf16), _sms(a), stream(a))
     build.check_launch(rc, "pair_relu_project_fwd")
     pair_relu_project.launches += 1
     return out
@@ -221,7 +269,7 @@ def _launch_bwd(a, c, w, g, bf16: bool):
 
 
 def _launch_cm(a, c, w, bf16: bool) -> torch.Tensor:
-    _check_kernel_inputs(a, c, w)
+    _check_kernel_inputs(a, c, w, cm=True, bf16=bf16)
     b, n, cdim = a.shape
     h = w.shape[1]
     out = torch.empty((b, h, n * n), dtype=torch.float32, device=a.device)
@@ -231,7 +279,7 @@ def _launch_cm(a, c, w, bf16: bool) -> torch.Tensor:
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     rc = fn(a.data_ptr(), c.data_ptr(), w.data_ptr(), out.data_ptr(), b, n, cdim, h,
-            _source_tile(n), int(bf16), stream(a))
+            int(bf16), _sms(a), stream(a))
     build.check_launch(rc, "pair_relu_project_cm_fwd")
     pair_relu_project_cm.launches += 1
     return out

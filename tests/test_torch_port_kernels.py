@@ -200,8 +200,22 @@ def test_gin_messages_bwd_plan_matches_kernel(cuda):
         gin_messages_bwd(x, src, dst, boh, tbl, g, impl="kernel")
 
 
+# the backward's shapes: the pretraining step's at n_max 32 (B=128) and 128
+# (B=32), N = 8 .. 64 at C = 300 (no multiple of the 64-channel blocks), N
+# not a multiple of the 16-node tiles, narrow C and H
+PAIR_BWD_SHAPES = [(128, 32, 300, 32), (3, 9, 17, 20), (32, 128, 300, 32), (4, 8, 300, 32),
+                   (3, 13, 300, 32), (2, 37, 300, 32), (8, 64, 300, 32), (2, 13, 40, 5)]
+
+
+# the forward's: the backward's, the 2D->3D sampler's (B=64), N past the
+# first forward's cap of 160 (200, 256), H = 40 (two passes of 32 h) at
+# ragged C
+PAIR_FWD_SHAPES = PAIR_BWD_SHAPES + [(64, 32, 300, 32), (3, 9, 17, 40), (2, 200, 300, 32),
+                                     (2, 256, 300, 32), (2, 40, 64, 40)]
+
+
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("shape", [(64, 32, 300, 32), (3, 9, 17, 40)])
+@pytest.mark.parametrize("shape", PAIR_FWD_SHAPES)
 def test_pair_relu_project_kernel_matches_plain(cuda, shape, bf16):
     b, n, c, h = shape
     g = torch.Generator(device=cuda).manual_seed(1)
@@ -213,13 +227,6 @@ def test_pair_relu_project_kernel_matches_plain(cuda, shape, bf16):
     out = pair_relu_project(a, cc, w, bias, bf16=bf16)
     assert pair_relu_project.launches == launches + 1
     _close(out, pair_relu_project_plain(a, cc, w, bias, bf16=bf16), 1e-3 if bf16 else 1e-5)
-
-
-# the backward's shapes: the pretraining step's at n_max 32 (B=128) and 128
-# (B=32), N = 8 .. 64 at C = 300 (no multiple of the 64-channel blocks), N
-# not a multiple of the 16-node tiles, narrow C and H
-PAIR_BWD_SHAPES = [(128, 32, 300, 32), (3, 9, 17, 20), (32, 128, 300, 32), (4, 8, 300, 32),
-                   (3, 13, 300, 32), (2, 37, 300, 32), (8, 64, 300, 32), (2, 13, 40, 5)]
 
 
 @pytest.mark.parametrize("bf16", [False, True])
@@ -258,7 +265,7 @@ def _pair_operands(device, shape, seed):
 
 
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("shape", [(64, 32, 300, 32), (3, 9, 17, 40)])
+@pytest.mark.parametrize("shape", PAIR_FWD_SHAPES)
 def test_pair_relu_project_cm_kernel_matches_plain(cuda, shape, bf16):
     """K4 forward: [B, H, N*N], no bias inside the kernel.  bf16 tolerance
     1e-3: both sides round a, c, w and the relu'd pair identically."""
@@ -287,6 +294,51 @@ def test_pair_relu_project_cm_bwd_kernel_matches_plain(cuda, shape, bf16):
     assert pair_relu_project_cm_bwd.launches == launches + 1
     for k, p in zip(kern, plain):
         _close(k, p, 1e-3 if bf16 else 1e-4)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("cm", [False, True], ids=["K3", "K4"])
+@pytest.mark.parametrize("shape", PAIR_FWD_SHAPES + [(2, 64, 500, 32)])
+def test_pair_relu_project_fwd_kernel_is_deterministic(cuda, shape, cm, bf16):
+    """Two forward runs give the same bits: each output written once, its
+    k order fixed (C = 500 runs the 16-source units)."""
+    a, cc, w, bias, _ = _pair_operands(cuda, shape, 11)
+    if cm:
+        run = lambda: pair_relu_project_cm(a, cc, w, bf16=bf16, impl="kernel")  # noqa: E731
+    else:
+        run = lambda: pair_relu_project(a, cc, w, bias, bf16=bf16, impl="kernel")  # noqa: E731
+    first, second = run(), run()
+    assert torch.equal(first, second)
+    if shape[2] == 500:   # and the 16-source plan against the plain version
+        assert pair_ops.fwd_plan(shape[1], 500, 32, bf16)["ts"] == 16
+        ref = (pair_relu_project_cm_plain(a, cc, w, bf16=bf16) if cm
+               else pair_relu_project_plain(a, cc, w, bias, bf16=bf16))
+        _close(first, ref, 1e-3 if bf16 else 1e-5)
+
+
+def test_pair_relu_project_fwd_plan_matches_kernel(cuda):
+    """The wrapper's forward plan (ops/pair_block.py::fwd_plan) is the CUDA
+    source's at every N, width and mode: 32-source units, 16 at C = 500,
+    none at C = 1000 or past the int32 index; its blocks are resident.  A
+    launch past the int32 index raises, naming it."""
+    for n in (1, 9, 32, 128, 160, 161, 256, 1024, 8191, 8192):
+        for c, h in ((300, 32), (17, 40), (40, 5), (500, 32), (1000, 32)):
+            for bf16 in (False, True):
+                for cm in (False, True):
+                    try:
+                        plan = pair_ops.fwd_plan(n, c, h, bf16)
+                    except ValueError:
+                        plan = None
+                    kern = pair_ops.fwd_plan_kernel(n, c, h, bf16, cm=cm, device=cuda)
+                    if plan is None:
+                        assert kern is None, (n, c, h, bf16, cm)
+                        continue
+                    assert kern.pop("resident") >= 1
+                    assert kern == plan, (n, c, h, bf16, cm)
+    a = torch.zeros(1, 8192, 16, device=cuda)   # the output would be 2^31 floats
+    w, bias = torch.zeros(16, 32, device=cuda), torch.zeros(32, device=cuda)
+    with pytest.raises(ValueError, match="int32 index"):
+        pair_relu_project(a, a, w, bias, impl="kernel")
 
 
 @pytest.mark.parametrize("bf16", [False, True])
