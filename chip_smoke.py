@@ -5,7 +5,8 @@ channel-major chain, the fused chain and the pair_cm_direct chain), 3D->2D
 graph generation through its CLI (three forms of the attention bank), and
 pretraining steps through the pretraining CLI's functions (padded ingest
 with K2; the JAX CLI's default compact ingest with K5; the three
-microbatch scopes; PaiNN; the default path at n_max 64 and 128) -- and
+microbatch scopes; PaiNN; the default path at n_max 64 and 128, also with
+the K7 and K8 attention banks) -- and
 checks what comes out.
 
     python3 chip_smoke.py
@@ -15,7 +16,8 @@ Phases (any failure exits non-zero):
      the CFConv forward's and backward's SASS and every bf16 instantiation
      of K6 and of the pair block's forward and backward (K3 and K4) hold
      HMMA (their tensor-core products), counted per kernel function, and
-     the pair block's f32 instantiations none;
+     the pair block's f32 instantiations none; so does K8's backward (its
+     weight gradients on mma.sync in bf16 mode);
   2. kernel phases on the operands each path gives each kernel, in f32 and
      bf16 mode: K1 (GIN message block), K3 (pair block) and K4 (its
      channel-major form) forward on the sampler's operands; K1, K2 (CFConv),
@@ -51,10 +53,9 @@ Phases (any failure exits non-zero):
      map bank), forward and backward, against their plain versions on the
      chain's edge-layer 0 and 1 operands in bf16 (3e-3 of max |plain|; K7's
      f32 maps 1e-4) and f32 (1e-4, operands from the q / k nets in f32),
-     K8's forward two runs bit for bit, and K8's forward also on the
-     chain's operands at ``--n_max 64`` (both layers and modes, the same
-     bars, bit for bit; the backward refuses N = 64, naming its limit);
-     then one counted
+     each kernel two runs bit for bit, and all four again on the chain's
+     operands at ``--n_max 64``, B=128 (both layers and modes, the same
+     bars, bit for bit); then one counted
      chain per form of the bank ("auto" through the CLI's main: no bank
      kernel; "pallas": K7 240; "fused": K8 240), graphs/s in turns, and 3
      f32 steps of the K7 and K8 chains against the "auto" chain on the same
@@ -103,7 +104,15 @@ Phases (any failure exits non-zero):
      on seeded operands against their plain versions; two steps with K1 5 /
      5, K2 6 / 6, K3 1 / 1 per step, every metric finite; a third step's
      wall and device-busy time under the profiler and the peak device
-     memory; one step against an all-plain build as in 7.
+     memory; one step against an all-plain build as in 7; then two steps
+     each with ``attn_impl_3dto2d`` "pallas" and "fused" (K7 or K8 4 / 4,
+     K1 5 / 5, K2 6 / 6, K3 1 / 1 per step, every metric finite), a third
+     "fused" step profiled (wall, device busy, peak memory), and one
+     step's losses (1e-3) and q / k gradient leaves of each against the
+     "auto" build, as in 9.  At n_max 128 also K7 and K8, forward and
+     backward, on the 3D->2D chain's edge-layer operands at B=32 as in 6,
+     and both at N = 256, B = 2 on seeded operands (K8 at F = 16, C = 8),
+     each kernel two runs bit for bit.
 The line before the last lists every kernel as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -118,12 +127,13 @@ import time
 
 import torch
 
+from moleculesde_tpu_torch.benchmarks.profile_sampler_3d2d import bank_operands
 from moleculesde_tpu_torch.benchmarks.timing import device_ms, median_ms, profiled_ms
 from moleculesde_tpu_torch.ops.attn_bank import (
     attn_map_bank_bwd_plain, attn_map_bank_kernel, attn_map_bank_kernel_bwd,
     attn_map_bank_plain)
 from moleculesde_tpu_torch.ops.attn_qk_bank import (
-    BWD_N_MAX, attn_qk_bank, attn_qk_bank_bwd, attn_qk_bank_bwd_plain, attn_qk_bank_plain)
+    attn_qk_bank, attn_qk_bank_bwd, attn_qk_bank_bwd_plain)
 from moleculesde_tpu_torch.ops.cfconv import (
     fused_cfconv, fused_cfconv_bwd, fused_cfconv_bwd_plain, fused_cfconv_rbf,
     fused_cfconv_rbf_bwd, fused_cfconv_rbf_bwd_plain)
@@ -808,42 +818,6 @@ def pair_cm_direct_chain(dev):
     return launches
 
 
-def bank_operands(encoder, model, batch, dev):
-    """What the 3D->2D chain hands the attention bank in edge layers 0
-    (C = 2, F = emb_dim) and 1 (C = 8, F = nhid) at its first evaluation,
-    from the prior state: per layer the node features qk (f32), q and k in
-    the bank's dtype, q32 and k32 from the q / k nets run in f32 (true f32
-    operands, not bf16 values upcast), the raw q / k parameters and ds."""
-    from moleculesde_tpu_torch.core.masks import mask_adjs, mask_x, node_flags
-    from moleculesde_tpu_torch.models.score_3d2d import pow_tensor
-
-    b, n = batch.num_graphs, batch.n_max
-    gen = torch.Generator(device=dev).manual_seed(5)
-    layers = []
-    with torch.no_grad():
-        _, node_3d = encoder.encode_batch(batch)
-        edge_attr = torch.where(batch.edge_mask, batch.edge_feats[:, 0].float() + 1.0,
-                                torch.zeros((), device=dev))
-        flags = node_flags(batch.dense_adjacency(edge_attr))
-        x = mask_x(torch.randn((b, n, model.num_class_x), generator=gen, device=dev), flags)
-        adj = mask_adjs(torch.randn((b, n, n), generator=gen, device=dev), flags)
-        h = model.embedding_3D(batch.dense_nodes(node_3d)) + model.embedding_X(x)
-        edge = model.edge_score_network
-        adjc = pow_tensor(adj, edge.c_init)
-        for i in range(2):
-            layer = getattr(edge, f"layer_{i}")
-            attn, dt = layer.attn, layer.attn.dtype or torch.float32
-            layers.append({"qk": h.float().contiguous(),
-                           "q": attn.qk(h.to(dt), "q", dt).contiguous(),
-                           "k": attn.qk(h.to(dt), "k", dt).contiguous(),
-                           "q32": attn.qk(h.float(), "q", torch.float32).contiguous(),
-                           "k32": attn.qk(h.float(), "k", torch.float32).contiguous(),
-                           "ws": [w.detach().float().contiguous() for w in attn.qk_params()],
-                           "ds": attn.ds})
-            h, adjc = layer(h, adjc, flags)
-    return layers
-
-
 def qk_bank_phase(name, qk, ws, g, ds, bf16, tol):
     """K8 under autograd against its plain pair: the maps and dqk by the
     largest error over max |plain|, the eight weight gradients by relative
@@ -874,6 +848,8 @@ def qk_bank_phase(name, qk, ws, g, ds, bf16, tol):
     peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
     with torch.no_grad():
         same_bits(name + " fwd", lambda: attn_qk_bank(qd, *ws, ds, bf16=bf16, impl="kernel"))
+        same_bits(name + " bwd",
+                  lambda: attn_qk_bank_bwd(qd, *ws, g, ds, bf16=bf16, impl="kernel"))
         out = (report(name + " fwd", worst, tol,
                       lambda: attn_qk_bank(qd, *ws, ds, bf16=bf16, impl="kernel"),
                       lambda: attn_qk_bank(qd, *ws, ds, bf16=bf16, impl="plain"),
@@ -889,14 +865,16 @@ def qk_bank_phase(name, qk, ws, g, ds, bf16, tol):
     return out
 
 
-def bank_kernel_phases(layers):
+def bank_kernel_phases(layers, size: str = ""):
     """K7 and K8, forward and backward, against their plain versions on the
-    chain's layer-0 and layer-1 operands, in bf16 (the chain's mode) and
-    f32 (on the f32 q / k nets' outputs).  Errors relative to max |plain|:
-    f32 1e-4 (sums in another order); bf16 3e-3, about three times the
-    largest reading (the same roundings; dq, dk and dqk are bf16 outputs,
-    and K8's q and k are rounded to bf16, where an f32 sum in another order
-    can flip one rounding).  K7's bf16 maps round nothing after their bf16
+    chain's layer-0 and layer-1 operands (``layers``, from bank_operands),
+    in bf16 (the chain's mode) and f32 (on the f32 q / k nets' outputs),
+    each kernel also two runs bit for bit; ``size`` ends the results' keys
+    ("" at n_max 32, "[n64]", ...).  Errors relative to max |plain|: f32
+    1e-4 (sums in another order); bf16 3e-3, about three times the largest
+    reading (the same roundings; dq, dk and dqk are bf16 outputs, and K8's
+    q and k are rounded to bf16, where an f32 sum in another order can flip
+    one rounding).  K7's bf16 maps round nothing after their bf16
     operands, so they are also held at the f32 bar: a kernel that rounded
     its logits or tanh to bf16 fails there."""
     results = {}
@@ -904,10 +882,10 @@ def bank_kernel_phases(layers):
         q, k, qk, ws, ds = ops["q"], ops["k"], ops["qk"], ops["ws"], ops["ds"]
         gen = torch.Generator(device=q.device).manual_seed(9 + li)
         g = torch.randn(q.shape[:3] + (q.shape[2],), generator=gen, device=q.device)
-        print(f"bank operands, edge layer {li}: q, k {tuple(q.shape)} {q.dtype}, qk "
+        print(f"bank operands{size}, edge layer {li}: q, k {tuple(q.shape)} {q.dtype}, qk "
               f"{tuple(qk.shape)}, W1 {tuple(ws[0].shape)}, ds {ds}", flush=True)
         for bf16 in (True, False):
-            sfx = f"[L{li}]" + ("" if bf16 else "[f32]")
+            sfx = f"[L{li}]" + ("" if bf16 else "[f32]") + size
             tol = 3e-3 if bf16 else 1e-4
             peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
             qm, km = (q, k) if bf16 else (ops["q32"], ops["k32"])
@@ -924,55 +902,43 @@ def bank_kernel_phases(layers):
                 lambda q_, k_, g_, ds=ds, **kw: attn_map_bank_kernel_bwd(q_, k_, g_, ds, **kw),
                 lambda q_, k_, g_, ds=ds, **kw: attn_map_bank_bwd_plain(q_, k_, g_, ds, **kw),
                 (qm, km), g, bf16, tol, k7_cost(qm, ds), k7_cost(qm, ds, True), peak, 0.0)
+            with torch.no_grad():
+                same_bits("K7 attn_map_bank fwd" + sfx, lambda: attn_map_bank_kernel(
+                    qm, km, ds, bf16=bf16, impl="kernel"))
+                same_bits("K7 attn_map_bank bwd" + sfx, lambda: attn_map_bank_kernel_bwd(
+                    qm, km, g, ds, bf16=bf16, impl="kernel"))
             results["attn_map_bank" + sfx], results["attn_map_bank_bwd" + sfx] = fwd, bwd
             results["attn_qk_bank" + sfx], results["attn_qk_bank_bwd" + sfx] = qk_bank_phase(
                 "K8 attn_qk_bank" + sfx, qk, ws, g, ds, bf16, tol)
     return results
 
 
-def qk_bank_large_n_phases(dev):
-    """K8's forward past N = 32: the 3D->2D chain's models and operands at
-    ``--n_max 64`` (B=128; the same weights), edge layers 0 (C=2, F=300)
-    and 1 (C=8, F=16), bf16 and f32 against the plain version at the
-    chain's bars, two runs bit for bit; the backward refuses N = 64, naming
-    its limit."""
-    from moleculesde_tpu_torch.benchmarks.profile_sampler_3d2d import PATH_ARGS, path_batch
-    from moleculesde_tpu_torch.examples import sample_3d_to_2d as cli
+def bank_large_n_phases(dev, n_max: int, batch_size: int):
+    """K7 and K8, forward and backward, past N = 32: the 3D->2D chain's
+    models (the same weights) and edge-layer 0 (C=2, F=300) and 1 (C=8,
+    F=16) operands at ``--n_max n_max``, B=``batch_size``, held as
+    bank_kernel_phases holds them at n_max 32 (bf16 and f32, the same
+    bars, two runs of each kernel bit for bit)."""
+    from moleculesde_tpu_torch.benchmarks.profile_sampler_3d2d import chain_bank_operands
 
-    args = cli.get_parser().parse_args(PATH_ARGS + ["--n_max", "64"])
-    batch = path_batch(args, dev)
-    layers = bank_operands(*cli.build_models(args, dev, attn_impl="auto"), batch, dev)
-    results = {}
-    for li, ops in enumerate(layers):
-        qk, ws, ds = ops["qk"], ops["ws"], ops["ds"]
-        for bf16 in (True, False):
-            sfx = f"[L{li}]" + ("" if bf16 else "[f32]") + "[n64]"
-            tol = 3e-3 if bf16 else 1e-4
-            qd = qk.to(torch.bfloat16 if bf16 else torch.float32)
-            with torch.no_grad():
-                run_k = lambda q=qd, w=ws, d=ds, b=bf16: attn_qk_bank(  # noqa: E731
-                    q, *w, d, bf16=b, impl="kernel")
-                run_p = lambda q=qd, w=ws, d=ds, b=bf16: attn_qk_bank_plain(  # noqa: E731
-                    q, *w, d, bf16=b)
-                err, rel = compare("K8 attn_qk_bank fwd" + sfx, run_k, run_p, tol, floor=0.0)
-                same_bits("K8 attn_qk_bank fwd" + sfx, run_k)
-                results["attn_qk_bank" + sfx] = report(
-                    "K8 attn_qk_bank fwd" + sfx, err, tol, run_k, run_p, *k8_cost(qd, ws, ds),
-                    PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS, floor=0.0)
-                results["attn_qk_bank" + sfx]["max_rel_err"] = rel
-            print(f"K8 attn_qk_bank fwd{sfx}: qk {tuple(qk.shape)}, W1 {tuple(ws[0].shape)}; "
-                  f"relative error {rel:.3e} (tolerance {tol:g}); two runs bit for bit",
-                  flush=True)
-    qk, ws, ds = layers[1]["qk"], layers[1]["ws"], layers[1]["ds"]
-    g = torch.zeros(qk.shape[0], ws[0].shape[0], qk.shape[1], qk.shape[1], device=dev)
-    try:
-        attn_qk_bank_bwd(qk, *ws, g, ds, impl="kernel")
-    except ValueError as e:
-        check(f"backward kernel: needs N <= {BWD_N_MAX}" in str(e), f"K8 backward refusal: {e}")
-        print(f"K8 backward at N=64: refused: {e}", flush=True)
-    else:
-        raise PhaseError("K8's backward takes N = 64, past its cap")
-    return results
+    return bank_kernel_phases(chain_bank_operands(dev, n_max, batch_size), f"[n{n_max}]")
+
+
+def bank_n256_phases(dev):
+    """K7 and K8, forward and backward, at N = 256, B = 2 on seeded
+    operands at the chain's edge layers 1-3 widths (C = 8, A = 32, ds = 4;
+    K8's F = 16, the width its forward takes at N = 256): bank_kernel_phases
+    on them, keys ending in [n256]."""
+    gen = torch.Generator(device=dev).manual_seed(17)
+    b, c, n, a, f = 2, 8, 256, 32, 16
+    q32, k32 = (0.8 * torch.randn(b, c, n, a, device=dev, generator=gen) for _ in range(2))
+    shapes = [(c, f, a), (c, a), (c, a, a), (c, a)] * 2
+    ws = [torch.randn(sh, device=dev, generator=gen) / (sh[-2] ** 0.5 if len(sh) == 3 else 4.0)
+          for sh in shapes]
+    qk = torch.randn(b, n, f, device=dev, generator=gen)
+    ops = {"q": q32.bfloat16(), "k": k32.bfloat16(), "q32": q32, "k32": k32, "qk": qk,
+           "ws": ws, "ds": 4}
+    return bank_kernel_phases([ops], "[n256]")
 
 
 def chain_3d2d_path(dev):
@@ -992,7 +958,7 @@ def chain_3d2d_path(dev):
     batch = path_batch(args, dev)
     models = {form: cli.build_models(args, dev, attn_impl=form) for form in FORMS}
     results = bank_kernel_phases(bank_operands(*models["auto"], batch, dev))
-    results.update(qk_bank_large_n_phases(dev))
+    results.update(bank_large_n_phases(dev, 64, 128))
     layers = models["auto"][1].edge_score_network.num_layers
     b, n, c = batch.num_graphs, batch.n_max, models["auto"][1].num_class_x
     flags = batch.node_mask.reshape(b, n)
@@ -1280,13 +1246,16 @@ def pair_cm_direct_steps(dev, args, cfg, models, batches, leaf_tol):
     return launches
 
 
-def bank_training_steps(dev, args, cfg, models, batches, leaf_tol):
-    """Phase 9: two pretraining steps each with ``attn_impl_3dto2d="pallas"``
-    (K7 forward and backward once per edge layer) and ``"fused"`` (K8) on the
-    trained weights, K1-K3 as before; then one step's losses and the edge
-    network's q / k gradient leaves of each against the ``"auto"`` build of
-    the same weights and draws.  Returns {form: launch counts of its two
-    steps}."""
+def bank_training_steps(dev, args, cfg, models, batches, leaf_tol, label: str = "",
+                        profile: bool = False):
+    """Phase 9 (and 13 at n_max 64 and 128): two pretraining steps each
+    with ``attn_impl_3dto2d="pallas"`` (K7 forward and backward once per
+    edge layer) and ``"fused"`` (K8) on the trained weights, K1-K3 as
+    before; with ``profile``, a third "fused" step under the profiler (wall
+    and device-busy ms) and the peak device memory of the three; then one
+    step's losses and the edge network's q / k gradient leaves of each
+    against the ``"auto"`` build of the same weights and draws.  Returns
+    {form: launch counts of its two steps}."""
     import dataclasses
 
     from moleculesde_tpu_torch.pretrain.train_state import build_models, make_optimizer
@@ -1307,6 +1276,8 @@ def bank_training_steps(dev, args, cfg, models, batches, leaf_tol):
         ms = copy(impl)
         optimizer = make_optimizer(ms, cfg)
         gen = torch.Generator(device=dev).manual_seed(args.seed + 4)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         reset_counts()
         t0 = time.perf_counter()
         history = [pretrain_step(ms, optimizer, cfg, batch, gen)
@@ -1320,12 +1291,24 @@ def bank_training_steps(dev, args, cfg, models, batches, leaf_tol):
             fused_cfconv_bwd=steps * cfg.schnet_num_interactions,
             pair_relu_project=steps, pair_relu_project_bwd=steps,
             **{fwd.__name__: steps * layers, bwd.__name__: steps * layers})
-        print(f"{impl} bank training launches over {steps} steps: {launches[impl]} (expected "
-              f"{expected}); step_ms={step_ms:.2f} (first steps of a new build)", flush=True)
-        check(launches[impl] == expected, f"{impl} bank training launch counts")
+        print(f"{label}{impl} bank training launches over {steps} steps: {launches[impl]} "
+              f"(expected {expected}); step_ms={step_ms:.2f} (first steps of a new build)",
+              flush=True)
+        check(launches[impl] == expected, f"{label}{impl} bank training launch counts")
         for m in history:
             vals = {k: float(m[k]) for k in METRICS}
-            check(all(math.isfinite(v) for v in vals.values()), f"non-finite metrics {vals}")
+            check(all(math.isfinite(v) for v in vals.values()),
+                  f"{label}{impl} bank: non-finite metrics {vals}")
+        if profile and impl == "fused":
+            saved = [c.launches for c in _counters()]
+            wall, busy = profiled_ms(lambda: pretrain_step(ms, optimizer, cfg, batches[0], gen))
+            for c, n in zip(_counters(), saved):
+                c.launches = n
+            print(f"{label}fused bank training, a third step under the profiler: wall_ms="
+                  f"{wall:.2f} device_busy_ms={busy:.2f}; max_memory_allocated "
+                  f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB over the three steps",
+                  flush=True)
+        del ms, optimizer
 
     batch = batches[steps + 1]
     out = {}
@@ -1350,17 +1333,18 @@ def bank_training_steps(dev, args, cfg, models, batches, leaf_tol):
         mi, li = out[impl]
         for k in METRICS:
             err = abs(mi[k] - ma[k]) / max(1e-6, abs(ma[k]))
-            print(f"{impl} vs auto bank step: {k} {mi[k]:.6f} vs {ma[k]:.6f} rel {err:.2e} "
-                  f"(tolerance {tol:g})", flush=True)
-            check(err <= tol, f"{k} of the {impl} bank step disagrees with the auto step")
+            print(f"{label}{impl} vs auto bank step: {k} {mi[k]:.6f} vs {ma[k]:.6f} rel "
+                  f"{err:.2e} (tolerance {tol:g})", flush=True)
+            check(err <= tol, f"{label}{k} of the {impl} bank step disagrees with the auto step")
         check(sorted(li) == sorted(la) and len(li) == 8 * layers, f"{impl} leaves {sorted(li)}")
         errs = {k: ((li[k] - la[k]).norm() / la[k].norm().clamp(min=1e-30)).item() for k in li}
         worst = sorted(errs.items(), key=lambda kv: -kv[1])
-        print(f"{impl} vs auto bank step: {len(errs)} q / k leaves, relative L2 errors "
+        print(f"{label}{impl} vs auto bank step: {len(errs)} q / k leaves, relative L2 errors "
               + ", ".join(f"{k} {v:.2e}" for k, v in worst[:4])
               + f" ... (tolerance {leaf_tol:g})", flush=True)
         for k, v in worst:
-            check(v <= leaf_tol, f"gradient of {k} of the {impl} step disagrees ({v:.3e})")
+            check(v <= leaf_tol, f"{label}gradient of {k} of the {impl} step disagrees "
+                  f"({v:.3e})")
     return launches
 
 
@@ -1653,7 +1637,8 @@ def large_n_steps(dev, args, cfg, models, optimizer, gen, batches, label, seed):
     step (K1 5 / 5, K2 6 / 6, K3 1 / 1), every metric finite; a third
     under the profiler (wall and device-busy ms) and the peak device memory
     of the three; then one step against an all-plain build on
-    ``batches[3]``.  Returns the launch counts of the two steps."""
+    ``batches[3]``.  Returns (the launch counts of the two steps, the
+    leaves' bar of that comparison)."""
     from moleculesde_tpu_torch.pretrain.train_step import METRICS, pretrain_step
 
     steps = 2
@@ -1686,8 +1671,7 @@ def large_n_steps(dev, args, cfg, models, optimizer, gen, batches, label, seed):
           f"device_busy_ms={busy:.2f}; max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB over the three steps",
           flush=True)
-    step_against_plain(dev, cfg, models, batches[steps + 1], seed, label)
-    return launches
+    return launches, step_against_plain(dev, cfg, models, batches[steps + 1], seed, label)
 
 
 def large_n_path(dev):
@@ -1695,10 +1679,13 @@ def large_n_path(dev):
     ``--n_max 64``, B=128: K2 / K5, K1, K3 and K4 phases on its operands,
     two steps with the launch counts per step (K1 5 / 5, K2 6 / 6, K3 1 /
     1), every metric finite, one profiled step, one step against an
-    all-plain build; then the same at ``--n_max 128``, B=32 (cut from the
-    CLI's 128); then K3 / K4 forward at N = 256, B = 2.  Returns
-    ({"n_max_64": ..., "n_max_128": ..., "n_256_b_2": ...} kernel results,
-    {n_max: launch counts of the two steps})."""
+    all-plain build, then two steps each with the "pallas" (K7) and "fused"
+    (K8) bank (K7 / K8 4 / 4 a step, one profiled "fused" step) against the
+    "auto" build; then the same at ``--n_max 128``, B=32 (cut from the
+    CLI's 128), where K7 and K8 are also held against their plain versions
+    on the 3D->2D chain's edge-layer operands; then K3 / K4 forward and K7 /
+    K8 at N = 256, B = 2.  Returns ({"n_max_64": ..., "n_max_128": ...,
+    "n_256_b_2": ...} kernel results, {run name: launch counts})."""
     from moleculesde_tpu_torch.benchmarks.profile_pretrain import (
         COMMON_ARGS, parse_path, path_batches)
     from moleculesde_tpu_torch.examples import pretrain as cli
@@ -1713,11 +1700,18 @@ def large_n_path(dev):
               f"the {label} steps are not on the CLI's default path")
         res = large_n_kernel_phases(models, batches[0], label)
         res.update(large_n_gin_pair_phases(models, batches[0], label))
+        if n_max == 128:
+            res.update(bank_large_n_phases(dev, n_max, args.batch_size))
         results[f"n_max_{n_max}"] = res
-        launches[n_max] = large_n_steps(dev, args, cfg, models, optimizer, gen, batches, label,
-                                        args.seed + 7)
+        counts, leaf_tol = large_n_steps(dev, args, cfg, models, optimizer, gen, batches,
+                                         label, args.seed + 7)
+        launches[f"pretrain_n_max_{n_max}_2_steps"] = counts
+        for form, counts in bank_training_steps(dev, args, cfg, models, batches, leaf_tol,
+                                                label=label + " ", profile=True).items():
+            launches[f"pretrain_n_max_{n_max}_{form}_bank_2_steps"] = counts
         del models, optimizer, batches
     results["n_256_b_2"] = pair_fwd_n256_phases(dev)
+    results["n_256_b_2"].update(bank_n256_phases(dev))
     return results, launches
 
 
@@ -1821,14 +1815,15 @@ def _hmma_per_function(build, source: str) -> dict:
 
 
 def tensor_core_note(build) -> None:
-    """The bf16 products of the CFConv kernels, of K6 and of the pair
-    block's forward and backward (K3 and K4) run on the tensor cores: each
-    source issues mma.sync through ``hopper.cuh``'s ``mma_bf16``, and the
-    built libraries' SASS holds HMMA in the CFConv forward's and backward's
-    functions, in every bf16 instantiation of K6 (``score_eval_kernel<true,
-    S>``) and of the pair block's two directions
-    (``pair_relu_project_{fwd,bwd}_kernel<CM, true, ...>``), and in none of
-    their f32 instantiations."""
+    """The bf16 products of the CFConv kernels, of K6, of the pair block's
+    forward and backward (K3 and K4) and K8's backward weight gradients run
+    on the tensor cores: each source issues mma.sync through
+    ``hopper.cuh``'s ``mma_bf16``, and the built libraries' SASS holds HMMA
+    in the CFConv forward's and backward's functions, in every bf16
+    instantiation of K6 (``score_eval_kernel<true, S>``), of the pair
+    block's two directions (``pair_relu_project_{fwd,bwd}_kernel<CM, true,
+    ...>``) and of K8's backward (``attn_qk_bank_bwd_kernel<T, true>``), and
+    in none of their f32 instantiations."""
     check("mma.sync.aligned.m16n8k16" in (build.CSRC_DIR / "hopper.cuh").read_text(),
           "hopper.cuh issues no mma.sync")
     for source in ("cfconv.cu", "score_eval.cu", "pair_block.cu"):
@@ -1868,6 +1863,16 @@ def tensor_core_note(build) -> None:
               f"a bf16 instantiation of the pair block's {what} holds no HMMA instruction")
         check(sum(pair["K3 f32"] + pair["K4 f32"]) == 0,
               f"an f32 instantiation of the pair block's {what} issues HMMA")
+    k8 = {name: k for name, k in _hmma_per_function(build, "attn_qk_bank").items()
+          if "attn_qk_bank_bwd_kernel" in name}
+    modes = {"bf16": [k for name, k in k8.items() if "Lb1E" in name],
+             "f32": [k for name, k in k8.items() if "Lb0E" in name]}
+    print(f"attn_qk_bank SASS: K8 backward HMMA per instantiation {modes}", flush=True)
+    check(len(modes["bf16"]) == 4 and len(modes["f32"]) == 4,
+          f"K8 backward's instantiations not found ({k8})")
+    check(all(k > 0 for k in modes["bf16"]),
+          "a bf16 instantiation of K8's backward holds no HMMA instruction")
+    check(sum(modes["f32"]) == 0, "an f32 instantiation of K8's backward issues HMMA")
 
 
 def main() -> int:
@@ -1895,17 +1900,25 @@ def main() -> int:
     print(f"kernel build {time.perf_counter() - t0:.1f} s", flush=True)
     tensor_core_note(build)
 
+    def done(what):
+        print(f"[{time.perf_counter() - t0:.1f} s] {what} done", flush=True)
+
     sampler_results, sampler_launches = sampler_path(dev)
     fused_results, fused_launches, _ = fused_chain_path(dev)
     cm_chain_launches = pair_cm_direct_chain(dev)
+    done("2D->3D chains (phases 2-5)")
     bank_results, chain_3d2d_launches = chain_3d2d_path(dev)
+    done("3D->2D chain (phase 6)")
     train_results, train_launches, cm_train_launches, bank_train_launches = training_path(dev)
     k5_results, compact_launches = compact_training_path(dev)
     train_results.update(k5_results)
     microbatch_launches = microbatch_steps(dev)
     painn_launches = painn_steps(dev)
+    done("pretraining at n_max 32 (phases 7-12)")
     large_n_results, large_n_launches = large_n_path(dev)
+    done("n_max 64 / 128 (phase 13)")
     device_time_phase()
+    done("device times")
 
     runs = {"sample_2d_to_3d": sampler_launches, "sample_2d_to_3d_fused": fused_launches,
             "sample_2d_to_3d_pair_cm_direct": cm_chain_launches,
@@ -1919,7 +1932,7 @@ def main() -> int:
             **{f"pretrain_microbatch_{scope}_2_steps": counts
                for scope, counts in microbatch_launches.items()},
             "pretrain_painn_2_steps": painn_launches,
-            **{f"pretrain_n_max_{n}_2_steps": counts for n, counts in large_n_launches.items()}}
+            **large_n_launches}
     keys = ("max_abs_err", "ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms",
             "bound_by")
     k6_keys = keys + ("max_rel_err",)
@@ -1970,6 +1983,8 @@ def main() -> int:
             **extra})
     # the bank kernels: edge layer 1's operands (C = 8, as layers 1-3) in bf16
     # at the top, layer 0's (C = 2; K8 F = emb_dim) and f32 mode beside them
+    bank_all = {**bank_results, **large_n_results["n_max_128"],
+                **large_n_results["n_256_b_2"]}
     for name, counter, source, replaces, main_path in (
             ("attn_map_bank", attn_map_bank_kernel, "attn_bank.cu",
              "rejected/attn_bank.py:138", "sample_3d_to_2d_pallas"),
@@ -1979,13 +1994,14 @@ def main() -> int:
              "rejected/attn_qk_bank.py:209", "sample_3d_to_2d_fused"),
             ("attn_qk_bank_bwd", attn_qk_bank_bwd, "attn_qk_bank.cu",
              "rejected/attn_qk_bank.py:232", "pretrain_fused_bank_2_steps")):
-        res = lambda sfx: {k: bank_results[name + sfx][k]  # noqa: E731
+        res = lambda sfx: {k: bank_all[name + sfx][k]  # noqa: E731
                            for k in keys + ("max_rel_err",)}
-        extra = {}
-        if name == "attn_qk_bank":   # the forward past N = 32
-            extra["n_max_64"] = {f"layer_{li}": {"bf16": res(f"[L{li}][n64]"),
-                                                 "f32": res(f"[L{li}][f32][n64]")}
-                                 for li in (1, 0)}
+        # past N = 32: the chain's operands at n_max 64 (B=128) and 128 (B=32),
+        # seeded ones at N = 256, B = 2
+        extra = {f"n_max_{n}": {f"layer_{li}": {"bf16": res(f"[L{li}][n{n}]"),
+                                                "f32": res(f"[L{li}][f32][n{n}]")}
+                                for li in (1, 0)} for n in (64, 128)}
+        extra["n_256_b_2"] = {"bf16": res("[L0][n256]"), "f32": res("[L0][f32][n256]")}
         kernels.append({
             "name": name, "route": "cuda", "source": "moleculesde_tpu_torch/csrc/" + source,
             "replaces": "moleculesde_tpu/ops/" + replaces,

@@ -55,6 +55,51 @@ def path_batch(args, device):
     return next(iter(cli.make_loader(cli.load_graphs(args), args)))[0].to(device)
 
 
+def bank_operands(encoder, model, batch, dev):
+    """What the 3D->2D chain hands the attention bank in edge layers 0
+    (C = 2, F = emb_dim) and 1 (C = 8, F = nhid) at its first evaluation,
+    from the prior state: per layer the node features qk (f32), q and k in
+    the bank's dtype, q32 and k32 from the q / k nets run in f32 (true f32
+    operands, not bf16 values upcast), the raw q / k parameters and ds."""
+    from moleculesde_tpu_torch.core.masks import mask_adjs, mask_x, node_flags
+    from moleculesde_tpu_torch.models.score_3d2d import pow_tensor
+
+    b, n = batch.num_graphs, batch.n_max
+    gen = torch.Generator(device=dev).manual_seed(5)
+    layers = []
+    with torch.no_grad():
+        _, node_3d = encoder.encode_batch(batch)
+        edge_attr = torch.where(batch.edge_mask, batch.edge_feats[:, 0].float() + 1.0,
+                                torch.zeros((), device=dev))
+        flags = node_flags(batch.dense_adjacency(edge_attr))
+        x = mask_x(torch.randn((b, n, model.num_class_x), generator=gen, device=dev), flags)
+        adj = mask_adjs(torch.randn((b, n, n), generator=gen, device=dev), flags)
+        h = model.embedding_3D(batch.dense_nodes(node_3d)) + model.embedding_X(x)
+        edge = model.edge_score_network
+        adjc = pow_tensor(adj, edge.c_init)
+        for i in range(2):
+            layer = getattr(edge, f"layer_{i}")
+            attn, dt = layer.attn, layer.attn.dtype or torch.float32
+            layers.append({"qk": h.float().contiguous(),
+                           "q": attn.qk(h.to(dt), "q", dt).contiguous(),
+                           "k": attn.qk(h.to(dt), "k", dt).contiguous(),
+                           "q32": attn.qk(h.float(), "q", torch.float32).contiguous(),
+                           "k32": attn.qk(h.float(), "k", torch.float32).contiguous(),
+                           "ws": [w.detach().float().contiguous() for w in attn.qk_params()],
+                           "ds": attn.ds})
+            h, adjc = layer(h, adjc, flags)
+    return layers
+
+
+def chain_bank_operands(dev, n_max: int = 32, batch_size: int = BATCH):
+    """:func:`bank_operands` of the chain's "auto" models (the same weights,
+    from the seed) at ``--n_max n_max``, B=``batch_size``."""
+    args = cli.get_parser().parse_args(PATH_ARGS + [
+        "--n_max", str(n_max), "--batch_size", str(batch_size), "--end", str(batch_size)])
+    return bank_operands(*cli.build_models(args, dev, attn_impl="auto"), path_batch(args, dev),
+                         dev)
+
+
 def main(out_dir: str = "chiprun_out") -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("profile_sampler_3d2d: needs a CUDA device")

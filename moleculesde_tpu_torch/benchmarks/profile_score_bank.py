@@ -1,5 +1,6 @@
-"""Where the time of K6 (the fused score evaluation) and of K8's forward (the
-q/k-net attention bank) goes on the GPU, and their device times.
+"""Where the time of K6 (the fused score evaluation) and of K8 (the q/k-net
+attention bank), forward and backward, goes on the GPU, and the device
+times of K6, K7 and K8.
 
 Phases (the default): builds ``csrc/score_eval.cu`` and
 ``csrc/attn_qk_bank.cu`` with ``-DPHASE_PROFILE`` into ``build/profile/``
@@ -8,20 +9,35 @@ Phases (the default): builds ``csrc/score_eval.cu`` and
 their C entries on seeded operands: K6 at B=64, n_max 32 in bf16 and f32
 mode and at n_max 64 in bf16 (variant 1, the fused chain's shapes); K8's
 forward at B=128, N=32, the 3D->2D chain's edge layers 1-3 (F=16, C=8, bf16)
-and 0 (F=300, C=2, f32), with the chain's A = 32 and ds = 4 (8 heads).  Prints, per launch, the span from the first
+and 0 (F=300, C=2, f32), with the chain's A = 32 and ds = 4 (8 heads); K8's
+backward (staging, the forward's two layers again, the map backward, the
+nets' backward, the dW1 / dqk partials) at B=128, N=32 and at n_max 128,
+B=32 (F=16, C=8, bf16, and F=300, C=2 at N=32).  Prints, per launch, the span from the first
 block's start to the last block's end, the median block duration, the
 median time of each phase (between consecutive marks) and the quantiles of
 the blocks' start times, which show the waves.  The marks cost a few
 instructions; ``chip_smoke.py`` gives the real times.
 
-Device times (``--times``): K6 and K8's forward through the wrappers of
+Device times (``--times``): K6, K7 and K8 through the wrappers of
 whichever ``moleculesde_tpu_torch`` is first on the path (so that a parent
-checkout can be timed in turns with this one), at the shapes above plus K6
-at n_max 64 in f32 and K8 at N=64: 10 calls captured in a CUDA graph, the
-replays timed with CUDA events (median of 10), per call (``timing.py``).
+checkout can be timed in turns with this one; a shape the checkout's
+kernel refuses prints its message): K6 at the shapes above plus n_max 64
+in f32; K8's forward also at N=64; K8's backward and K7's forward and
+backward at B=128, N=32 and 64 and at N=128, B=32 (F=16, C=8, and for K8
+F=300, C=2; bf16 and f32): 10 calls captured in a CUDA graph, the replays
+timed with CUDA events (median of 10), per call (``timing.py``).
+
+Numerics (``--numerics``): K8's backward in bf16 on the 3D->2D chain's
+edge-layer 0 and 1 operands (``chip_smoke.py``'s, with its cotangents) at
+n_max 32 and 64 (B=128) and 128 (B=32): dqk's largest error of max
+|plain| and the elements that differ, the kernel against the plain
+version on the card, and the plain version on the CPU against the one on
+the card (dqk is a bf16 output: an f32 sum in another order can flip its
+rounding, by one bf16 ulp, 2^-8 to 2^-7 of the value).
 
     python -m moleculesde_tpu_torch.benchmarks.profile_score_bank
     PYTHONPATH=<checkout> python <this file> --times --label parent
+    python -m moleculesde_tpu_torch.benchmarks.profile_score_bank --numerics
 """
 
 from __future__ import annotations
@@ -42,6 +58,10 @@ K8_PHASES = ("W2 + bias copies issued", "chunk copies + wait", "layer 1", "barri
              "layer 2", "barrier", "map")
 K6_SHAPES = ((64, 32, True), (64, 32, False), (64, 64, True))
 K8_SHAPES = ((128, 32, 16, 8, True), (128, 32, 300, 2, False))
+K8_BWD_PHASES = ("W2 + bias copies issued", "layer 1 (qk chunks staged)", "layer 2",
+                 "map backward", "nets' backward", "dW1 + dqk partials")
+K8_BWD_SHAPES = ((128, 32, 16, 8), (128, 32, 300, 2), (32, 128, 16, 8))
+BANK_SHAPES = ((128, 32), (128, 64), (32, 128))   # (B, N) of the device times
 K8_DS = 4          # the 3D->2D chain's head width (A = 32, 8 heads)
 
 
@@ -73,7 +93,7 @@ def k8_operands(b: int, n: int, f: int, c: int, a: int = 32, seed: int = 21):
 def phases() -> None:
     from moleculesde_tpu_torch.benchmarks.timing import (
         phase_library, phase_stamps, print_phase_stamps)
-    from moleculesde_tpu_torch.ops.attn_qk_bank import _weight_ptrs, fwd_plan
+    from moleculesde_tpu_torch.ops.attn_qk_bank import _weight_ptrs, bwd_plan, fwd_plan
     from moleculesde_tpu_torch.ops.common import stream
     from moleculesde_tpu_torch.ops.score_kernel import score_param_layout, score_plan
 
@@ -113,11 +133,33 @@ def phases() -> None:
 
         print_phase_stamps(f"K8 forward B={b} N={n} F={f} C={c} {'bf16' if bf16 else 'f32'}",
                            phase_stamps(lib, b * c, 8, launch), K8_PHASES)
+    fn = lib.attn_qk_bank_bwd
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    for b, n, f, c in K8_BWD_SHAPES:
+        qk, ws = k8_operands(b, n, f, c)
+        qk = qk.bfloat16()
+        g = torch.randn(b, c, n, n, device="cuda")
+        dqk = torch.empty_like(qk)
+        sizes = sum(w.numel() for w in ws)
+        wgrad = torch.empty(sizes, device="cuda")
+        part = torch.empty(b * sizes + 2 * b * c * n * f, device="cuda")
+        rows, fc, smem = bwd_plan(n, f, 32, 32 // K8_DS)
+        ptrs = _weight_ptrs(ws)
+
+        def launch():
+            rc = fn(qk.data_ptr(), ctypes.addressof(ptrs), g.data_ptr(), dqk.data_ptr(),
+                    wgrad.data_ptr(), part.data_ptr(), b, n, f, c, 32, K8_DS, 1, 1, rows, fc,
+                    smem, stream(qk))
+            assert rc == 0, rc
+
+        print_phase_stamps(f"K8 backward B={b} N={n} F={f} C={c} bf16 (rows {rows}, chunk {fc}, "
+                           f"{smem} B)", phase_stamps(lib, b * c, 8, launch), K8_BWD_PHASES)
 
 
 def times(label: str) -> None:
     from moleculesde_tpu_torch.benchmarks.timing import device_ms
-    from moleculesde_tpu_torch.ops.attn_qk_bank import attn_qk_bank
+    from moleculesde_tpu_torch.ops.attn_bank import attn_map_bank_kernel, attn_map_bank_kernel_bwd
+    from moleculesde_tpu_torch.ops.attn_qk_bank import attn_qk_bank, attn_qk_bank_bwd
     from moleculesde_tpu_torch.ops.score_kernel import score_eval_fused
 
     def show(what, fn):
@@ -139,17 +181,66 @@ def times(label: str) -> None:
             q = qk.to(torch.bfloat16 if bf16 else torch.float32)
             show(f"K8 forward B={b} N={n} F={f} C={c} {'bf16' if bf16 else 'f32'}",
                  lambda: attn_qk_bank(q, *ws, K8_DS, bf16=bf16))
+    dev = torch.device("cuda")
+    for b, n in BANK_SHAPES:
+        for f, c in ((16, 8), (300, 2)):
+            qk, ws = k8_operands(b, n, f, c)
+            g = torch.randn(b, c, n, n, device=dev, generator=torch.Generator(dev).manual_seed(3))
+            for bf16 in (True, False):
+                q = qk.to(torch.bfloat16 if bf16 else torch.float32)
+                show(f"K8 backward B={b} N={n} F={f} C={c} {'bf16' if bf16 else 'f32'}",
+                     lambda: attn_qk_bank_bwd(q, *ws, g, K8_DS, bf16=bf16))
+        gen = torch.Generator(dev).manual_seed(4)
+        q, k = (0.8 * torch.randn(b, 8, n, 32, device=dev, generator=gen) for _ in range(2))
+        g = torch.randn(b, 8, n, n, device=dev, generator=gen)
+        for bf16 in (True, False):
+            qm, km = (q.bfloat16(), k.bfloat16()) if bf16 else (q, k)
+            mode = "bf16" if bf16 else "f32"
+            show(f"K7 forward B={b} N={n} C=8 {mode}",
+                 lambda: attn_map_bank_kernel(qm, km, K8_DS, bf16=bf16))
+            show(f"K7 backward B={b} N={n} C=8 {mode}",
+                 lambda: attn_map_bank_kernel_bwd(qm, km, g, K8_DS, bf16=bf16))
+
+
+def numerics() -> None:
+    from moleculesde_tpu_torch.benchmarks.profile_sampler_3d2d import chain_bank_operands
+    from moleculesde_tpu_torch.ops.attn_qk_bank import attn_qk_bank_bwd, attn_qk_bank_bwd_plain
+
+    dev = torch.device("cuda")
+
+    def diff(x, y):
+        x, y = x.float().cpu(), y.float().cpu()
+        return (f"{((x - y).abs().max() / y.abs().max()).item():.3e} of max |plain|, "
+                f"{int((x != y).sum())} of {y.numel()} elements differ")
+
+    for n_max, b in ((32, 128), (64, 128), (128, 32)):
+        for li, ops in enumerate(chain_bank_operands(dev, n_max, b)):
+            qd, ws, ds = ops["qk"].bfloat16(), ops["ws"], ops["ds"]
+            gen = torch.Generator(device=dev).manual_seed(9 + li)
+            g = torch.randn(qd.shape[0], ws[0].shape[0], qd.shape[1], qd.shape[1],
+                            generator=gen, device=dev)
+            with torch.no_grad():
+                kernel = attn_qk_bank_bwd(qd, *ws, g, ds, bf16=True, impl="kernel")[0]
+                card = attn_qk_bank_bwd_plain(qd, *ws, g, ds, bf16=True)[0]
+                cpu = attn_qk_bank_bwd_plain(qd.cpu(), *(w.cpu() for w in ws), g.cpu(), ds,
+                                             bf16=True)[0]
+            print(f"K8 backward bf16 dqk, n_max {n_max} B={b} edge layer {li}: kernel vs "
+                  f"plain on the card {diff(kernel, card)}; plain on the CPU vs on the card "
+                  f"{diff(cpu, card)}", flush=True)
 
 
 def main() -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--times", action="store_true", help="device times through the wrappers")
+    p.add_argument("--numerics", action="store_true", help="K8 backward's bf16 dqk vs plain")
     p.add_argument("--label", default="this checkout")
     opts = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_score_bank: needs a CUDA device")
     if opts.times:
         times(opts.label)
+    elif opts.numerics:
+        numerics()
     else:
         phases()
 

@@ -26,28 +26,37 @@
 // bf16 (a no-op when they arrive in bf16), the logits accumulate in f32 and
 // tanh and the head mean run in f32.
 //
-// Backward, per (graph, channel): recompute each head's logits and
-// t_h = tanh(inv u_h), form du_h = g * (1 - t_h^2) * (inv / H) (rounded to
-// bf16 in bf16 mode, as the TPU kernel rounds it before both products),
-// keep all H heads' du in shared memory (H (N*N + 1) words, 32 KB at H=8,
-// N=32), then
-//   dq[n, a] = sum_m du_{h(a)}[n, m] k[m, a]
-//   dk[m, a] = sum_n du_{h(a)}[n, m] q[n, a]
-// in f32, stored in q's dtype.  Bound: bytes (q, k, g read, dq, dk
-// written), 3 N*N*A multiply-adds per (graph, channel).
+// Backward, per (graph, channel): attn_map.cuh's tiled map backward.  A
+// tile of R rows recomputes each head's logits and t_h = tanh(inv u_h),
+// forms du_h = g * (1 - t_h^2) * (inv / H) (rounded to bf16 in bf16 mode,
+// as the TPU kernel rounds it before both products) for its R x N pairs,
+// holds them in shared memory (H (R N + 1) words; a thread per 2 x 2
+// pairs, q and k rows read 16 bytes at a time), then
+//   dq[n, a] = sum_m du_{h(a)}[n, m] k[m, a]   (the tile's rows, stored)
+//   dk[m, a] = sum_n du_{h(a)}[n, m] q[n, a]   (the tile's rows added)
+// in f32, dk carried between tiles in shared memory ([N, A]) and stored in
+// q's dtype after the last.  R is the plan's (attn_bank_plan): the whole
+// map at N = 32 (one tile, as the kernel before tiles), 8 rows at N = 128,
+// fewer where shared memory runs out; any N whose plan fits (N <= 518 at
+// A = 32, H = 8; the forward N <= 880).  512 threads, three blocks an SM:
+// faster than 1024 threads at two blocks, whose 32 registers spilled
+// (PERF.md, PR 13).  Bound: bytes (q, k, g read, dq, dk written), 3 N*N*A
+// multiply-adds per (graph, channel).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include <algorithm>
+
 #include "attn_map.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-// q, k rows of one (graph, channel) into shared memory, stride A + 1
+// q, k rows of one (graph, channel) into shared memory, QS words apart
 template <typename T>
 __device__ void stage_qk(const T* __restrict__ q, const T* __restrict__ k,
-                         float* qs, float* ks, int N, int A, int bf16) {
-  const int AP = A + 1;
+                         float* qs, float* ks, int N, int A, int QS, int bf16) {
   for (int i = threadIdx.x; i < N * A; i += blockDim.x) {
     const int r = i / A, c = i - r * A;
     float qv = attn_map::load(q, i), kv = attn_map::load(k, i);
@@ -55,8 +64,8 @@ __device__ void stage_qk(const T* __restrict__ q, const T* __restrict__ k,
       qv = attn_map::round_bf16(qv);
       kv = attn_map::round_bf16(kv);
     }
-    qs[r * AP + c] = qv;
-    ks[r * AP + c] = kv;
+    qs[r * QS + c] = qv;
+    ks[r * QS + c] = kv;
   }
 }
 
@@ -65,31 +74,52 @@ __global__ void attn_map_bank_fwd_kernel(const T* __restrict__ q,
                                          const T* __restrict__ k,
                                          float* __restrict__ out, int N,
                                          int A, int ds, int bf16) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   float* qs = smem;                // [N][A + 1]
   float* ks = qs + N * (A + 1);    // [N][A + 1]
   const size_t bc = blockIdx.x;
-  stage_qk(q + bc * N * A, k + bc * N * A, qs, ks, N, A, bf16);
+  stage_qk(q + bc * N * A, k + bc * N * A, qs, ks, N, A, A + 1, bf16);
   __syncthreads();
   attn_map::forward(qs, ks, out + bc * N * N, N, A, ds);
 }
 
+constexpr int kBwdThreads = 512;   // three blocks an SM (40 registers)
+constexpr int kDuBudget = 8192;    // words of a row tile's du (attn_map.cuh)
+
 template <typename T>
-__global__ void attn_map_bank_bwd_kernel(const T* __restrict__ q,
-                                         const T* __restrict__ k,
-                                         const float* __restrict__ g,
-                                         T* __restrict__ dq, T* __restrict__ dk,
-                                         int N, int A, int ds, int bf16) {
-  extern __shared__ float smem[];
-  float* qs = smem;                // [N][A + 1]
-  float* ks = qs + N * (A + 1);    // [N][A + 1]
-  float* dus = ks + N * (A + 1);   // [H][N * N + 1]
+__global__ void __launch_bounds__(kBwdThreads, 3)
+attn_map_bank_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const float* __restrict__ g, T* __restrict__ dq, T* __restrict__ dk,
+                         int N, int A, int ds, int R, int bf16) {
+  extern __shared__ __align__(16) float smem[];
+  const int QS = attn_map::row_stride(A);
+  float* qs = smem;                // [N][QS]
+  float* ks = qs + N * QS;         // [N][QS]
+  float* dus = ks + N * QS;        // [H][R * N + 1]
+  float* dk_acc = dus + attn_map::du_words(N, R, A / ds);   // [N][A] when R < N
   const size_t bc = blockIdx.x;
-  stage_qk(q + bc * N * A, k + bc * N * A, qs, ks, N, A, bf16);
+  stage_qk(q + bc * N * A, k + bc * N * A, qs, ks, N, A, QS, bf16);
   __syncthreads();
-  attn_map::backward_du(qs, ks, g + bc * N * N, dus, N, A, ds, bf16);
-  __syncthreads();
-  attn_map::backward_dqdk(qs, ks, dus, dq + bc * N * A, dk + bc * N * A, N, A, ds);
+  attn_map::backward_tiled(qs, ks, g + bc * N * N, dus, dq + bc * N * A, dk + bc * N * A,
+                           dk_acc, N, A, ds, R, bf16);
+}
+
+// The plan of a block: rows R of the backward's tile (N in the forward,
+// which walks the whole map) and the shared-memory floats (q and k rows,
+// A + 1 words apart in the forward and row_stride(A) in the backward; the
+// du tile; dk between tiles), R halved from tile_rows until the block fits
+// kSmemLimit (or R = 1: then nothing fits).
+struct Plan {
+  int rows, words;
+};
+
+Plan make_plan(int N, int A, int H, bool bwd) {
+  if (!bwd) return Plan{N, 2 * N * (A + 1)};
+  const int qk = 2 * N * attn_map::row_stride(A);
+  auto words = [&](int r) { return qk + attn_map::du_words(N, r, H) + (r < N ? N * A : 0); };
+  int r = attn_map::tile_rows(N, H, kDuBudget);
+  while (r > 1 && 4 * static_cast<size_t>(words(r)) > kSmemLimit) r /= 2;
+  return Plan{r, words(r)};
 }
 
 template <typename T>
@@ -105,37 +135,51 @@ int launch_fwd(const void* q, const void* k, float* out, int BC, int N, int A,
 
 template <typename T>
 int launch_bwd(const void* q, const void* k, const float* g, void* dq, void* dk,
-               int BC, int N, int A, int ds, int bf16, int smem, cudaStream_t s) {
+               int BC, int N, int A, int ds, int R, int bf16, int smem, cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(
       attn_map_bank_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int work = N * N > N * A ? N * N : N * A;
-  attn_map_bank_bwd_kernel<T><<<BC, attn_map::threads_for(work), smem, s>>>(
+  const int work = R * N > N * A ? R * N : N * A;
+  const int threads = std::min(attn_map::threads_for(work), kBwdThreads);
+  attn_map_bank_bwd_kernel<T><<<BC, threads, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), g, static_cast<T*>(dq),
-      static_cast<T*>(dk), N, A, ds, bf16);
+      static_cast<T*>(dk), N, A, ds, R, bf16);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q, k [BC, N, A] (bf16 if in_bf16, else f32), out [BC, N, N] f32; smem is
-// the wrapper's count of the block's shared memory (2 N (A + 1) floats).
-// Needs N <= 32 and A % ds == 0.
+// The plan of a forward (bwd = 0) or backward block at these widths:
+// out[0] the backward's row tile R (N in the forward), out[1] the shared
+// memory in bytes, past kSmemLimit where no plan fits.
+// ops/attn_bank.py::plan is the same.
+extern "C" void attn_bank_plan(int N, int A, int H, int bwd, int* out) {
+  const Plan p = make_plan(N, A, H, bwd != 0);
+  out[0] = p.rows;
+  out[1] = 4 * p.words;
+}
+
+// q, k [BC, N, A] (bf16 if in_bf16, else f32), out [BC, N, N] f32; smem the
+// plan's bytes (cudaErrorInvalidValue if it disagrees).  Needs A % ds == 0.
 extern "C" int attn_map_bank_fwd(const void* q, const void* k, float* out, int BC,
                                  int N, int A, int ds, int in_bf16, int bf16,
                                  int smem, void* stream) {
+  if (smem != 4 * make_plan(N, A, A / ds, false).words)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return in_bf16 ? launch_fwd<__nv_bfloat16>(q, k, out, BC, N, A, ds, bf16, smem, s)
                  : launch_fwd<float>(q, k, out, BC, N, A, ds, bf16, smem, s);
 }
 
-// g [BC, N, N] f32; dq, dk [BC, N, A] in q's dtype; smem = (2 N (A + 1) +
-// H (N*N + 1)) floats.
+// g [BC, N, N] f32; dq, dk [BC, N, A] in q's dtype; rows and smem the
+// plan's (cudaErrorInvalidValue if they disagree).
 extern "C" int attn_map_bank_bwd(const void* q, const void* k, const float* g,
                                  void* dq, void* dk, int BC, int N, int A, int ds,
-                                 int in_bf16, int bf16, int smem, void* stream) {
+                                 int in_bf16, int bf16, int rows, int smem, void* stream) {
+  const Plan p = make_plan(N, A, A / ds, true);
+  if (rows != p.rows || smem != 4 * p.words) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return in_bf16
-             ? launch_bwd<__nv_bfloat16>(q, k, g, dq, dk, BC, N, A, ds, bf16, smem, s)
-             : launch_bwd<float>(q, k, g, dq, dk, BC, N, A, ds, bf16, smem, s);
+             ? launch_bwd<__nv_bfloat16>(q, k, g, dq, dk, BC, N, A, ds, rows, bf16, smem, s)
+             : launch_bwd<float>(q, k, g, dq, dk, BC, N, A, ds, rows, bf16, smem, s);
 }

@@ -33,16 +33,39 @@
 // the order of the kernel it replaced (f ascending, j ascending, each
 // head's d ascending, heads in order), so the bits are the same.
 //
-// Backward design: one block per graph walking the channels in order, as
-// the TPU kernel's grid step does.  qk[b] is staged once in shared memory
-// ([N, F] f32: 115 KB at variant 3's F = 900); a thread per (n, j) forms
-// pre = qk[n] . W1[:, j] reading W1 rows straight from global memory
-// (neighbouring threads on neighbouring j, every warp of the block on the
-// same rows, so the reads are coalesced and served by L1 after the first
-// warp), then t1, then q or k against W2 staged in shared memory, then
-// K7's map terms for the channel.  N <= 32 (the per-head du of the whole
-// map is held in shared memory).  Only qk, the weights, g and the
-// gradients touch device memory.
+// Backward design: one block per (graph, channel), as the forward's grid,
+// of 256 threads (512 where one block fills an SM's shared memory, as at
+// n_max 128), B x C blocks (1024 at the chain's layers 1-3; the
+// kernel it replaced ran one 1024-thread block per graph, 128 blocks on
+// 132 SMs, walking the channels in turn and holding every head's du of the
+// whole map and every channel's dpre, so it stopped at N = 32).  A block
+// stages W2 and the biases of both nets and, in chunks of FC <= 64
+// features, qk and the chunk's W1 rows by asynchronous 4-byte copies into
+// rows padded to A + 1 words, rounding the weights in place in bf16 mode;
+// recomputes t1 (f32) and q / k; runs attn_map.cuh's tiled map backward
+// (R rows at a time: the whole map at N = 32, 16 rows at N = 128), which
+// leaves dq and dk in shared memory; forms each net's dpre, dW2, db2 and
+// db1; then walks qk's chunks again for dW1 and the channel's terms of
+// dqk.  The scratch region holds a qk / W1 chunk while the nets run and
+// the du tile in between, so shared memory grows as N (A + 1) and not as
+// N^2 H: any N whose plan fits (ops/attn_qk_bank.py::bwd_plan; N <= 266
+// at A = 32, H = 8, whatever F).
+//
+// Products: every one whose result is rounded again (pre -> t1, t1 @ W2 ->
+// q / k, the map's dq / dk -> dout, dout @ W2^T -> dpre, dpre @ W1^T ->
+// dqk) runs as FMAs, each element one chain in index order (fma_gemm, a
+// thread per 2 rows x 4 columns): the plain version's cuBLAS products sum
+// in that order, so few of those bf16 roundings flip.  Run on mma.sync,
+// they flipped enough of them that dqk's bf16 error left its 3e-3 bar at
+// n_max 128 (PERF.md, PR 13).  dW2 and
+// dW1, f32 outputs that nothing rounds again, run on mma.sync in bf16 mode
+// (hopper.cuh's mma_gemm) and as FMAs in f32 mode.  dqk: each unit writes
+// its channel's q and k terms (f32) to a partial buffer [B, C, 2, N, F],
+// added in channel order, q's before k's (the plain version's order), and
+// cast once to qk's dtype (sum_channels_kernel); the weight gradients are
+// per-(graph, channel) slices of per-graph partial rows [B, P] summed over
+// graphs in graph order (partials.cuh).  No float atomics: the same bits
+// every run.
 //
 // The TPU verdict ("rejected") does not carry over.  On the TPU the
 // statically unrolled channels x heads structure turned one batched
@@ -64,12 +87,9 @@
 //   dout = d3 (f32), dt1 = round(dout) @ round(W2)^T, dpre = dt1 * (1 - t1^2)
 //   dW2 = round(t1)^T round(dout)   db2 = sum_n dout   (unrounded)
 //   dW1 = qk^T round(dpre)          db1 = sum_n dpre   (unrounded)
-// and, after the last channel,
+// and
 //   dqk = sum_c (round(dpre_q,c) @ round(Wq1[c])^T + round(dpre_k,c) @ round(Wk1[c])^T)
-// accumulated in f32 in that order and stored in qk's dtype.  The rounded
-// dpre of every channel stays in shared memory for the dqk pass.  The
-// weight gradients are per-graph partials [B, P] summed over graphs in
-// graph order (partials.cuh): no float atomics, the same bits every run.
+// accumulated in f32 and stored in qk's dtype.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -96,48 +116,6 @@ struct Nets {
 };
 
 __device__ __forceinline__ float rb(float v, int bf16) { return bf16 ? round_bf16(v) : v; }
-
-// qk[b] into shared memory as f32 [N][F]
-template <typename T>
-__device__ void stage_qk(const T* __restrict__ qk, float* qks, int N, int F) {
-  for (int i = threadIdx.x; i < N * F; i += blockDim.x) qks[i] = attn_map::load(qk, i);
-}
-
-// W2[c] (rounded in bf16 mode) into shared memory [A][A + 1]
-__device__ void stage_w2(const float* __restrict__ w2, float* w2s, int A, int bf16) {
-  for (int i = threadIdx.x; i < A * A; i += blockDim.x) {
-    const int j = i / A, o = i - j * A;
-    w2s[j * (A + 1) + o] = rb(w2[i], bf16);
-  }
-}
-
-// One channel's net: t1 = tanh(qk @ W1 + b1) (f32, into t1s [N][A + 1]) and
-// out = round(t1) @ round(W2) + b2, rounded to bf16 in bf16 mode, into
-// outs [N][A + 1].  Ends with a barrier; w2s is scratch.
-__device__ void run_net(const float* qks, const Net& net, int c, float* t1s,
-                        float* w2s, float* outs, int N, int F, int A, int bf16) {
-  const int AP = A + 1;
-  const float* w1 = net.w1 + static_cast<size_t>(c) * F * A;
-  const float* b1 = net.b1 + c * A;
-  stage_w2(net.w2 + static_cast<size_t>(c) * A * A, w2s, A, bf16);
-  for (int i = threadIdx.x; i < N * A; i += blockDim.x) {
-    const int n = i / A, j = i - n * A;
-    const float* xr = qks + n * F;
-    float acc = 0.f;
-    for (int f = 0; f < F; ++f) acc = fmaf(xr[f], rb(__ldg(w1 + f * A + j), bf16), acc);
-    t1s[n * AP + j] = tanhf(acc + b1[j]);
-  }
-  __syncthreads();
-  const float* b2 = net.b2 + c * A;
-  for (int i = threadIdx.x; i < N * A; i += blockDim.x) {
-    const int n = i / A, o = i - n * A;
-    const float* tr = t1s + n * AP;
-    float acc = 0.f;
-    for (int j = 0; j < A; ++j) acc = fmaf(rb(tr[j], bf16), w2s[j * AP + o], acc);
-    outs[n * AP + o] = rb(acc + b2[o], bf16);
-  }
-  __syncthreads();
-}
 
 constexpr int kFwdThreads = 256;
 constexpr int kBatch = 4;   // register-staged loads in flight per thread
@@ -450,106 +428,293 @@ attn_qk_bank_fwd_kernel(const T* __restrict__ qk, Nets nets, float* __restrict__
   PHASE_MARK(7);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(1024)
+// C_t = A_t B_t for t < batches (M x N, depth K) as FMAs: a thread takes
+// rows m and m + ceil(M / 2) by four neighbouring columns, so that each A
+// value read serves four products and each B value two; every element is
+// one chain in k order from init(t, m, n), the bits of a thread per
+// element.  A_t(m, k) = fa(t, m, k), B_t(k, n) = fb(t, k, n) (never called
+// out of range); epi(t, m, n, c) takes each element.
+template <typename FA, typename FB, typename Init, typename Epi>
+__device__ __forceinline__ void fma_gemm(int batches, int M, int N, int K, FA fa, FB fb,
+                                         Init init, Epi epi) {
+  const int MH = (M + 1) / 2, NQ = (N + 3) / 4, items = batches * MH * NQ;
+  for (int it = threadIdx.x; it < items; it += blockDim.x) {
+    const int t = it / (MH * NQ), r = it - t * MH * NQ, m0 = r / NQ, n0 = 4 * (r - m0 * NQ);
+    const bool two = m0 + MH < M;
+    const int m1 = two ? m0 + MH : m0, nc = min(4, N - n0);
+    float acc[2][4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      acc[0][c] = c < nc ? init(t, m0, n0 + c) : 0.f;
+      acc[1][c] = c < nc && two ? init(t, m1, n0 + c) : 0.f;
+    }
+    for (int k = 0; k < K; ++k) {
+      const float a0 = fa(t, m0, k), a1 = fa(t, m1, k);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float b = c < nc ? fb(t, k, n0 + c) : 0.f;
+        acc[0][c] = fmaf(a0, b, acc[0][c]);
+        acc[1][c] = fmaf(a1, b, acc[1][c]);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (c >= nc) continue;
+      epi(t, m0, n0 + c, acc[0][c]);
+      if (two) epi(t, m1, n0 + c, acc[1][c]);
+    }
+  }
+}
+
+constexpr int kBwdMaxChunk = 64;   // features of qk and W1 staged at once
+constexpr int kBwdDuBudget = 16384;   // words of a row tile's du (attn_map.cuh)
+
+// float offsets of the backward block's shared-memory regions (rows of A
+// values padded to A + 1 words, but q / k's: attn_map.cuh's row_stride(A),
+// 16-byte aligned); the scratch region holds a qk chunk [N][fc] and the
+// chunk's W1 rows [2][FC][A + 1] while the nets run, and the map
+// backward's du tile in between.  ops/attn_qk_bank.py::bwd_plan counts the
+// same.
+struct BwdLayout {
+  int b, t1, qo, d3, scratch, total;
+};
+
+__host__ __device__ inline BwdLayout bwd_layout(int N, int A, int H, int R, int FC) {
+  const int AP = A + 1;
+  const int chunk = N * FC + 2 * FC * AP, du = attn_map::du_words(N, R, H);
+  BwdLayout L;
+  L.b = 2 * A * AP;            // after W2 [2][A][A + 1]
+  L.t1 = L.b + 4 * A;
+  L.qo = align4(L.t1 + 2 * N * AP);
+  L.d3 = L.qo + 2 * N * attn_map::row_stride(A);
+  L.scratch = L.d3 + 2 * N * A;
+  L.total = L.scratch + (chunk > du ? chunk : du);
+  return L;
+}
+
+struct BwdPlan {
+  int rows, fc, smem;
+};
+
+// The backward's plan: the map backward's row tile R (attn_map.cuh's
+// tile_rows) and the feature chunk FC (min(F, 64)), the larger of the two
+// scratch uses halved (R last) until the block fits kSmemLimit; smem in
+// bytes, past the limit where nothing fits.
+BwdPlan make_bwd_plan(int N, int F, int A, int H) {
+  int r = attn_map::tile_rows(N, H, kBwdDuBudget), fc = F < kBwdMaxChunk ? F : kBwdMaxChunk;
+  for (;;) {
+    const size_t bytes = 4 * static_cast<size_t>(bwd_layout(N, A, H, r, fc).total);
+    const int chunk = N * fc + 2 * fc * (A + 1);
+    if (bytes <= kSmemLimit || (r == 1 && fc == 1)) return BwdPlan{r, fc, static_cast<int>(bytes)};
+    if (fc > 1 && (chunk >= attn_map::du_words(N, r, H) || r == 1))
+      fc /= 2;
+    else
+      r /= 2;
+  }
+}
+
+// Threads of a backward block: 256 while two or more blocks fit on an SM
+// (three at N = 32), 512 where the plan's shared memory leaves room for
+// one (n_max 128: 16 warps an SM, not 8).
+inline int bwd_threads(int smem) { return 2 * static_cast<size_t>(smem) > kSmemLimit ? 512 : 256; }
+
+// One (graph, channel) unit of the backward, B x C blocks of THREADS.
+// Shared memory (bwd_layout): W2 and the biases of both nets, t1 [2][N]
+// (f32), q / k [2][N] (rounded; then each net's f32 dpre), dq / dk [2][N]
+// (f32) and the scratch region.  part: this graph's row of the weight
+// gradients' partials (per net [W1 C*F*A][b1 C*A][W2 C*A*A][b2 C*A], the
+// unit writes its channel's slices); dqk_part [B][C][N][F]: the unit's
+// terms of dqk.  BF16: the TPU kernel's bf16 mode, where dW1 and dW2 run
+// on mma.sync (an f32 instantiation holds no tensor-core instruction).
+template <typename T, bool BF16, int THREADS>
+__global__ void __launch_bounds__(THREADS, THREADS == 256 ? 3 : 1)
 attn_qk_bank_bwd_kernel(const T* __restrict__ qk, Nets nets, const float* __restrict__ g,
-                        T* __restrict__ dqk, float* __restrict__ part, int N, int F,
-                        int C, int A, int ds, int bf16) {
-  extern __shared__ float smem[];
-  const int AP = A + 1, H = A / ds;
-  float* qks = smem;                      // [N][F]
-  float* t1s = qks + N * F;               // [2][N][A + 1]: f32 t1 of q, k
-  float* outs = t1s + 2 * N * AP;         // [2][N][A + 1]: rounded q, k
-  float* w2s = outs + 2 * N * AP;         // [A][A + 1]
-  float* dus = w2s + A * AP;              // [H][N*N + 1]
-  float* d3s = dus + H * (N * N + 1);     // [2][N][A]: dq3, dk3 (f32)
-  float* dpt = d3s + 2 * N * A;           // [N][A + 1]: f32 dpre of one net
-  float* dpl = dpt + N * AP;              // [C][2][N][A + 1]: rounded dpre
-  const int b = blockIdx.x;
-  stage_qk(qk + static_cast<size_t>(b) * N * F, qks, N, F);
+                        float* __restrict__ part, float* __restrict__ dqk_part, int N, int F,
+                        int C, int A, int ds, int R, int FC) {
+  constexpr int bf16 = BF16;
+  extern __shared__ __align__(16) float smem[];
+  const int AP = A + 1, QS = attn_map::row_stride(A), H = A / ds;
+  const BwdLayout lay = bwd_layout(N, A, H, R, FC);
+  float* w2s = smem;                 // [2][A][AP], rounded in bf16 mode
+  float* bs = smem + lay.b;          // [2][2][A]: b1, b2 of q, then of k
+  float* t1s = smem + lay.t1;        // [2][N][AP]: pre-activation, then f32 t1
+  float* qo = smem + lay.qo;         // [2][N][QS]: rounded q, k; then dpre
+  float* d3 = smem + lay.d3;         // [2][N][A]: dq, dk (f32)
+  float* xs = smem + lay.scratch;    // [N][fc]: qk chunk (f32)
+  float* w1s = xs + N * FC;          // [2][FC][AP]: the chunk's W1 rows, rounded in bf16 mode
+  float* dus = smem + lay.scratch;   // [H][R N + 1]: the map backward's du tile
+  const int b = blockIdx.x / C, c = blockIdx.x - b * C;
+  const int tid = threadIdx.x;
+  PHASE_MARK(0);
+
+  for (int i = tid; i < 2 * A * A; i += THREADS) {
+    const int p = i / (A * A), r = i - p * A * A, j = r / A;
+    hopper::cp_async4(w2s + (p * A + j) * AP + r - j * A,
+                      nets.p[p].w2 + static_cast<size_t>(c) * A * A + r, 4);
+  }
+  for (int i = tid; i < 4 * A; i += THREADS) {
+    const int p = i / (2 * A), which = (i / A) & 1;
+    hopper::cp_async4(bs + i, (which ? nets.p[p].b2 : nets.p[p].b1) + c * A + i % A, 4);
+  }
+  PHASE_MARK(1);
+
+  // qk's features f0 .. f0 + fc - 1 into xs and both nets' W1 rows into
+  // w1s, rounded in bf16 mode (and W2, whose copies land with the first
+  // chunk's: round_w2), then a barrier
+  const T* x = qk + static_cast<size_t>(b) * N * F;
+  auto stage_chunk = [&](int f0, int fc, bool round_w2) {
+    for (int i = tid; i < 2 * fc * A; i += THREADS) {
+      const int p = i / (fc * A), r = i - p * fc * A, f = r / A;
+      hopper::cp_async4(w1s + (p * FC + f) * AP + r - f * A,
+                        nets.p[p].w1 + (static_cast<size_t>(c) * F + f0) * A + r, 4);
+    }
+    for (int i = tid; i < N * fc; i += THREADS) {
+      const int n = i / fc, f = i - n * fc;
+      if constexpr (sizeof(T) == 4)
+        hopper::cp_async4(xs + i, x + static_cast<size_t>(n) * F + f0 + f, 4);
+      else
+        xs[i] = attn_map::load(x, static_cast<size_t>(n) * F + f0 + f);
+    }
+    hopper::cp_async_wait_all();
+    if (bf16) {   // what this thread copied
+      for (int i = tid; i < 2 * fc * A; i += THREADS) {
+        const int p = i / (fc * A), r = i - p * fc * A, f = r / A;
+        float* w = w1s + (p * FC + f) * AP + r - f * A;
+        *w = round_bf16(*w);
+      }
+      if (round_w2) {
+        for (int i = tid; i < 2 * A * A; i += THREADS) {
+          const int j = i / A;
+          float* w = w2s + j * AP + i - j * A;
+          *w = round_bf16(*w);
+        }
+      }
+    }
+    __syncthreads();
+  };
+
+  // the forward again: pre = qk @ W1 (f in order, one chain across the
+  // chunks), t1 = tanh(pre + b1) in f32, then q / k = round(round(t1) @ W2
+  // + b2); every product here and below that is rounded again afterwards
+  // runs as FMAs in index order (fma_gemm), the order of the plain
+  // version's cuBLAS products, so that few of those roundings flip
+  auto zero = [](int, int, int) { return 0.f; };
+  for (int f0 = 0; f0 < F; f0 += FC) {
+    const int fc = min(FC, F - f0);
+    const bool last = f0 + fc >= F;
+    if (f0 > 0) __syncthreads();   // the previous chunk is read
+    stage_chunk(f0, fc, f0 == 0);
+    fma_gemm(
+        2, N, A, fc, [&](int, int n, int f) { return xs[n * fc + f]; },
+        [&](int p, int f, int j) { return w1s[(p * FC + f) * AP + j]; },
+        [&](int p, int n, int j) { return f0 > 0 ? t1s[(p * N + n) * AP + j] : 0.f; },
+        [&](int p, int n, int j, float acc) {
+          t1s[(p * N + n) * AP + j] = last ? tanhf(acc + bs[2 * p * A + j]) : acc;
+        });
+  }
   __syncthreads();
+  PHASE_MARK(2);
+  fma_gemm(
+      2, N, A, A, [&](int p, int n, int j) { return rb(t1s[(p * N + n) * AP + j], bf16); },
+      [&](int p, int j, int o) { return w2s[(p * A + j) * AP + o]; }, zero,
+      [&](int p, int n, int o, float acc) {
+        qo[(p * N + n) * QS + o] = rb(acc + bs[(2 * p + 1) * A + o], bf16);
+      });
+  __syncthreads();
+  PHASE_MARK(3);
 
-  // this graph's partials: per net [W1 C*F*A][b1 C*A][W2 C*A*A][b2 C*A]
-  const size_t per_net = static_cast<size_t>(C) * F * A + C * A + C * A * A + C * A;
+  // the map's backward: dq, dk of this channel into d3
+  attn_map::backward_tiled(qo, qo + N * QS, g + static_cast<size_t>(blockIdx.x) * N * N, dus,
+                           d3, d3 + N * A, d3 + N * A, N, A, ds, R, bf16);
+  PHASE_MARK(4);
+
+  // the nets' backward, both nets at once (dout = d3[p]):
+  //   dpre = (round(dout) @ round(W2)^T) * (1 - t1^2)   (f32, over q / k)
+  //   dW2 = round(t1)^T round(dout)   db2 = sum_n dout   db1 = sum_n dpre
+  // dW2 and dW1 are f32 outputs that nothing rounds again: in bf16 mode they
+  // run on mma.sync (pack_bf16 rounds their operands as the TPU kernel does)
+  const size_t per_net = static_cast<size_t>(C) * (F * A + A + A * A + A);
   float* pb = part + static_cast<size_t>(b) * 2 * per_net;
-
-  for (int c = 0; c < C; ++c) {
-    for (int p = 0; p < 2; ++p)
-      run_net(qks, nets.p[p], c, t1s + p * N * AP, w2s, outs + p * N * AP, N, F, A, bf16);
-    attn_map::backward_du(outs, outs + N * AP, g + (static_cast<size_t>(b) * C + c) * N * N,
-                          dus, N, A, ds, bf16);
-    __syncthreads();
-    attn_map::backward_dqdk(outs, outs + N * AP, dus, d3s, d3s + N * A, N, A, ds);
-    __syncthreads();
-
-    for (int p = 0; p < 2; ++p) {
-      const float* t1 = t1s + p * N * AP;
-      const float* d3 = d3s + p * N * A;
-      float* dl = dpl + (static_cast<size_t>(c) * 2 + p) * N * AP;
-      float* pw1 = pb + p * per_net + static_cast<size_t>(c) * F * A;
-      float* pb1 = pb + p * per_net + static_cast<size_t>(C) * F * A + c * A;
-      float* pw2 = pb + p * per_net + static_cast<size_t>(C) * F * A + C * A +
-                   static_cast<size_t>(c) * A * A;
-      float* pb2 = pb + p * per_net + static_cast<size_t>(C) * F * A + C * A +
-                   static_cast<size_t>(C) * A * A + c * A;
-      stage_w2(nets.p[p].w2 + static_cast<size_t>(c) * A * A, w2s, A, bf16);
-      __syncthreads();
-      // dt1 = round(dout) @ round(W2)^T, dpre = dt1 * (1 - t1^2)
-      for (int i = threadIdx.x; i < N * A; i += blockDim.x) {
-        const int n = i / A, j = i - n * A;
-        float acc = 0.f;
-        for (int o = 0; o < A; ++o) acc = fmaf(rb(d3[n * A + o], bf16), w2s[j * AP + o], acc);
-        const float t = t1[n * AP + j];
-        const float dpre = acc * (1.0f - t * t);
-        dpt[n * AP + j] = dpre;
-        dl[n * AP + j] = rb(dpre, bf16);
-      }
-      // dW2 = round(t1)^T round(dout); db2 = sum_n dout
-      for (int i = threadIdx.x; i < A * A; i += blockDim.x) {
-        const int j = i / A, o = i - j * A;
-        float acc = 0.f;
-        for (int n = 0; n < N; ++n)
-          acc = fmaf(rb(t1[n * AP + j], bf16), rb(d3[n * A + o], bf16), acc);
-        pw2[i] = acc;
-      }
-      for (int o = threadIdx.x; o < A; o += blockDim.x) {
-        float acc = 0.f;
-        for (int n = 0; n < N; ++n) acc += d3[n * A + o];
-        pb2[o] = acc;
-      }
-      __syncthreads();
-      // db1 = sum_n dpre; dW1 = qk^T round(dpre)
-      for (int j = threadIdx.x; j < A; j += blockDim.x) {
-        float acc = 0.f;
-        for (int n = 0; n < N; ++n) acc += dpt[n * AP + j];
-        pb1[j] = acc;
-      }
-      for (int i = threadIdx.x; i < F * A; i += blockDim.x) {
-        const int f = i / A, j = i - f * A;
-        float acc = 0.f;
-        for (int n = 0; n < N; ++n) acc = fmaf(qks[n * F + f], dl[n * AP + j], acc);
-        pw1[i] = acc;
-      }
-      __syncthreads();          // w2s, dpt are rewritten by the next net
-    }
-  }
-
-  // dqk[n, f] = sum_c sum_{q, k} round(dpre) @ round(W1)^T, a lane per n
-  T* db = dqk + static_cast<size_t>(b) * N * F;
-  for (int i = threadIdx.x; i < N * F; i += blockDim.x) {
-    const int f = i / N, n = i - f * N;
+  auto pw1 = [&](int p) { return pb + p * per_net + static_cast<size_t>(c) * F * A; };
+  auto pb1 = [&](int p) { return pb + p * per_net + static_cast<size_t>(C) * F * A + c * A; };
+  auto pw2 = [&](int p) {
+    return pb + p * per_net + static_cast<size_t>(C) * (F * A + A) +
+           static_cast<size_t>(c) * A * A;
+  };
+  auto pb2 = [&](int p) {
+    return pb + p * per_net + static_cast<size_t>(C) * (F * A + A + A * A) + c * A;
+  };
+  fma_gemm(
+      2, N, A, A, [&](int p, int n, int o) { return rb(d3[(p * N + n) * A + o], bf16); },
+      [&](int p, int o, int j) { return w2s[(p * A + j) * AP + o]; }, zero,
+      [&](int p, int n, int j, float acc) {
+        const float t = t1s[(p * N + n) * AP + j];
+        qo[(p * N + n) * QS + j] = acc * (1.0f - t * t);
+      });
+  auto t1_of = [&](int p, int j, int n) { return rb(t1s[(p * N + n) * AP + j], bf16); };
+  auto dout_of = [&](int p, int n, int o) { return rb(d3[(p * N + n) * A + o], bf16); };
+  auto dw2 = [&](int p, int j, int o, float v) { pw2(p)[j * A + o] = v; };
+  if constexpr (BF16)
+    hopper::mma_gemm(2, A, A, N, t1_of, dout_of, dw2);
+  else
+    fma_gemm(2, A, A, N, t1_of, dout_of, zero, dw2);
+  for (int i = tid; i < 2 * A; i += THREADS) {
+    const int p = i / A, o = i - p * A;
+    const float* dc = d3 + p * N * A + o;
     float acc = 0.f;
-    for (int c = 0; c < C; ++c) {
-      for (int p = 0; p < 2; ++p) {
-        const float* dl = dpl + ((static_cast<size_t>(c) * 2 + p) * N + n) * AP;
-        const float* w1 = nets.p[p].w1 + (static_cast<size_t>(c) * F + f) * A;
-        float s = 0.f;
-        for (int j = 0; j < A; ++j) s = fmaf(dl[j], rb(__ldg(w1 + j), bf16), s);
-        acc += s;
-      }
-    }
-    attn_map::store(db, static_cast<size_t>(n) * F + f, acc);
+    for (int n = 0; n < N; ++n) acc += dc[n * A];
+    pb2(p)[o] = acc;
   }
+  __syncthreads();
+  for (int i = tid; i < 2 * A; i += THREADS) {
+    const int p = i / A, j = i - p * A;
+    const float* dc = qo + p * N * QS + j;
+    float acc = 0.f;
+    for (int n = 0; n < N; ++n) acc += dc[n * QS];
+    pb1(p)[j] = acc;
+  }
+  PHASE_MARK(5);
+
+  // per qk chunk: dW1 = qk^T round(dpre) and this channel's terms of dqk,
+  // round(dpre_q) @ round(Wq1)^T and round(dpre_k) @ round(Wk1)^T, apart
+  // (dx [2][N][F]: the sum over channels adds them in the plain version's
+  // order)
+  float* dx = dqk_part + static_cast<size_t>(blockIdx.x) * 2 * N * F;
+  for (int f0 = 0; f0 < F; f0 += FC) {
+    const int fc = min(FC, F - f0);
+    __syncthreads();   // dpre is written, the previous chunk read
+    stage_chunk(f0, fc, false);
+    auto qk_of = [&](int, int f, int n) { return xs[n * fc + f]; };
+    auto dpre_of = [&](int p, int n, int j) { return rb(qo[(p * N + n) * QS + j], bf16); };
+    auto dw1 = [&](int p, int f, int j, float v) {
+      pw1(p)[static_cast<size_t>(f0 + f) * A + j] = v;
+    };
+    if constexpr (BF16)
+      hopper::mma_gemm(2, fc, A, N, qk_of, dpre_of, dw1);
+    else
+      fma_gemm(2, fc, A, N, qk_of, dpre_of, zero, dw1);
+    fma_gemm(
+        2, N, fc, A, dpre_of, [&](int p, int j, int f) { return w1s[(p * FC + f) * AP + j]; },
+        zero, [&](int p, int n, int f, float acc) {
+          dx[(static_cast<size_t>(p) * N + n) * F + f0 + f] = acc;
+        });
+  }
+  PHASE_MARK(6);
+}
+
+// dqk[b, n, f] = sum_c (part[b, c, 0, n, f] + part[b, c, 1, n, f]), the
+// terms added one by one in channel order, q's before k's (the plain
+// version's order), cast once to qk's dtype (NF = N * F)
+template <typename T>
+__global__ void sum_channels_kernel(const float* __restrict__ part, T* __restrict__ dqk,
+                                    int B, int C, int NF) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<size_t>(B) * NF) return;
+  const size_t b = i / NF;
+  const float* p = part + b * C * 2 * NF + (i - b * NF);
+  float acc = 0.f;
+  for (int t = 0; t < 2 * C; ++t) acc += p[static_cast<size_t>(t) * NF];
+  attn_map::store(dqk, i, acc);
 }
 
 Nets make_nets(const float* const* w) {
@@ -576,21 +741,50 @@ int launch_fwd(const void* qk, const float* const* w, float* out, int B, int N, 
                  : launch_fwd_a<T, 0>(qk, w, out, B, N, F, C, A, ds, FC, bf16, smem, s);
 }
 
-template <typename T>
-int launch_bwd(const void* qk, const float* const* w, const float* g, void* dqk,
-               float* wgrad, float* part, int B, int N, int F, int C, int A, int ds,
-               int bf16, int smem, cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_qk_bank_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+template <typename T, bool BF16, int THREADS>
+cudaError_t launch_bwd_kernel(const T* qk, const Nets& nets, const float* g, float* part,
+                              float* dqk_part, int B, int N, int F, int C, int A, int ds, int R,
+                              int FC, int smem, cudaStream_t s) {
+  const cudaError_t err = cudaFuncSetAttribute(attn_qk_bank_bwd_kernel<T, BF16, THREADS>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  attn_qk_bank_bwd_kernel<T, BF16, THREADS><<<B * C, THREADS, smem, s>>>(
+      qk, nets, g, part, dqk_part, N, F, C, A, ds, R, FC);
+  return cudaGetLastError();
+}
+
+template <typename T, bool BF16>
+int launch_bwd_mode(const void* qk, const float* const* w, const float* g, void* dqk,
+                    float* wgrad, float* part, int B, int N, int F, int C, int A, int ds, int R,
+                    int FC, int smem, cudaStream_t s) {
+  const int P = 2 * C * (F * A + A + A * A + A);
+  float* dqk_part = part + static_cast<size_t>(B) * P;
+  const T* x = static_cast<const T*>(qk);
+  const Nets nets = make_nets(w);
+  cudaError_t err =
+      bwd_threads(smem) == 512
+          ? launch_bwd_kernel<T, BF16, 512>(x, nets, g, part, dqk_part, B, N, F, C, A, ds, R,
+                                            FC, smem, s)
+          : launch_bwd_kernel<T, BF16, 256>(x, nets, g, part, dqk_part, B, N, F, C, A, ds, R,
+                                            FC, smem, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  attn_qk_bank_bwd_kernel<T><<<B, 1024, smem, s>>>(
-      static_cast<const T*>(qk), make_nets(w), g, static_cast<T*>(dqk), part, N, F, C, A,
-      ds, bf16);
+  const size_t total = static_cast<size_t>(B) * N * F;
+  sum_channels_kernel<T><<<static_cast<unsigned>((total + 255) / 256), 256, 0, s>>>(
+      dqk_part, static_cast<T*>(dqk), B, C, N * F);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int P = 2 * (C * F * A + C * A + C * A * A + C * A);
   partials::sum_rows(part, wgrad, B, P, s);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd(const void* qk, const float* const* w, const float* g, void* dqk,
+               float* wgrad, float* part, int B, int N, int F, int C, int A, int ds, int R,
+               int FC, int bf16, int smem, cudaStream_t s) {
+  return bf16 ? launch_bwd_mode<T, true>(qk, w, g, dqk, wgrad, part, B, N, F, C, A, ds, R, FC,
+                                         smem, s)
+              : launch_bwd_mode<T, false>(qk, w, g, dqk, wgrad, part, B, N, F, C, A, ds, R,
+                                          FC, smem, s);
 }
 
 }  // namespace
@@ -617,16 +811,32 @@ extern "C" int attn_qk_bank_fwd(const void* qk, const float* const* w, float* ou
              : launch_fwd<float>(qk, w, out, B, N, F, C, A, ds, fc, bf16, smem, s);
 }
 
+// The backward's plan at these widths: out[0] the map backward's row tile,
+// out[1] the feature chunk, out[2] the shared memory in bytes (past
+// kSmemLimit where nothing fits).  ops/attn_qk_bank.py::bwd_plan is the
+// same.
+extern "C" void attn_qk_bank_bwd_plan(int N, int F, int A, int H, int* out) {
+  const BwdPlan p = make_bwd_plan(N, F, A, H);
+  out[0] = p.rows;
+  out[1] = p.fc;
+  out[2] = p.smem;
+}
+
 // g [B, C, N, N] f32; dqk [B, N, F] in qk's dtype; wgrad: the eight weight
 // gradients packed as [dWq1 dbq1 dWq2 dbq2 dWk1 dbk1 dWk2 dbk2] (P floats);
-// part: caller-allocated scratch of B * P floats.
+// part: caller-allocated scratch of B * P + 2 * B * C * N * F floats; rows, fc
+// and smem the plan's (cudaErrorInvalidValue if they disagree).  Needs
+// A % ds == 0.
 extern "C" int attn_qk_bank_bwd(const void* qk, const float* const* w, const float* g,
                                 void* dqk, float* wgrad, float* part, int B, int N, int F,
-                                int C, int A, int ds, int in_bf16, int bf16, int smem,
-                                void* stream) {
+                                int C, int A, int ds, int in_bf16, int bf16, int rows, int fc,
+                                int smem, void* stream) {
+  const BwdPlan p = make_bwd_plan(N, F, A, A / ds);
+  if (rows != p.rows || fc != p.fc || smem != p.smem)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return in_bf16 ? launch_bwd<__nv_bfloat16>(qk, w, g, dqk, wgrad, part, B, N, F, C, A,
-                                             ds, bf16, smem, s)
-                 : launch_bwd<float>(qk, w, g, dqk, wgrad, part, B, N, F, C, A, ds, bf16,
-                                     smem, s);
+                                             ds, rows, fc, bf16, smem, s)
+                 : launch_bwd<float>(qk, w, g, dqk, wgrad, part, B, N, F, C, A, ds, rows, fc,
+                                     bf16, smem, s);
 }

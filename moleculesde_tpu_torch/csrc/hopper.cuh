@@ -13,11 +13,14 @@
 //
 // namespace hopper: the warp-level tensor-core and copy instructions the
 // CFConv kernels, K6 and the pair block's two directions issue (mma.sync
-// m16n8k16 bf16 -> f32, ldmatrix, cp.async), as inline PTX.
+// m16n8k16 bf16 -> f32, ldmatrix, cp.async), as inline PTX, and
+// mma_gemm, a block's small products on mma.sync with operands read from
+// f32 shared memory through accessors (the attention banks' backward).
 
 #pragma once
 
 #include <cuda_runtime.h>
+#include <cuda_bf16.h>
 #include <stddef.h>
 #include <stdint.h>
 
@@ -113,6 +116,50 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Two values as the bf16 pair of one fragment register (lo in the low
+// half), each rounded to nearest even as __float2bfloat16_rn rounds.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// C_t = A_t B_t for t < batches (M x N, depth K) on mma.sync: the block's
+// warps take the 16 x 8 tiles of every C_t in turn (tile warp, warp +
+// warps, ...: the same warp and lane own an element whenever the shapes
+// are the same).  A_t(m, k) = fa(t, m, k) and B_t(k, n) = fb(t, k, n) are
+// read as f32 and rounded to bf16 here (the accessors are never called out
+// of range, which reads as 0); epi(t, m, n, c) takes each element of C_t
+// once its f32 K-sum is done, in the tensor cores' order, the same every
+// run.  Needs blockDim.x % 32 == 0; every warp of the block must call it.
+template <typename FA, typename FB, typename Epi>
+__device__ __forceinline__ void mma_gemm(int batches, int M, int N, int K, FA fa, FB fb,
+                                         Epi epi) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t2 = 2 * (lane & 3);
+  const int mt = (M + 15) / 16, nt = (N + 7) / 8, tiles = batches * mt * nt;
+  for (int tile = threadIdx.x >> 5; tile < tiles; tile += blockDim.x >> 5) {
+    const int bt = tile / (mt * nt), r = tile - bt * mt * nt;
+    const int m0 = r / nt * 16, n0 = (r - r / nt * nt) * 8;
+    auto a = [&](int m, int k) { return m < M && k < K ? fa(bt, m, k) : 0.f; };
+    auto b = [&](int k, int n) { return k < K && n < N ? fb(bt, k, n) : 0.f; };
+    float c[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int k0 = 0; k0 < K; k0 += 16) {
+      const int k = k0 + t2;
+      const uint32_t af[4] = {pack_bf16(a(m0 + g, k), a(m0 + g, k + 1)),
+                              pack_bf16(a(m0 + g + 8, k), a(m0 + g + 8, k + 1)),
+                              pack_bf16(a(m0 + g, k + 8), a(m0 + g, k + 9)),
+                              pack_bf16(a(m0 + g + 8, k + 8), a(m0 + g + 8, k + 9))};
+      const uint32_t bf[2] = {pack_bf16(b(k, n0 + g), b(k + 1, n0 + g)),
+                              pack_bf16(b(k + 8, n0 + g), b(k + 9, n0 + g))};
+      mma_bf16(c, af, bf);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = m0 + g + (i >> 1) * 8, n = n0 + t2 + (i & 1);
+      if (m < M && n < N) epi(bt, m, n, c[i]);
+    }
+  }
 }
 
 }  // namespace hopper

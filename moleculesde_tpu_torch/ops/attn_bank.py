@@ -9,8 +9,9 @@ forward and backward.  On a CUDA tensor the wrappers launch the
 hand-written kernels of ``csrc/attn_bank.cu``, which replace the TPU
 kernels ``_fwd_kernel`` (``pallas_call`` at ``ops/rejected/attn_bank.py:138``)
 and ``_bwd_kernel`` (l.157): one block per (graph, channel), the per-head
-logits never leave the block (the source's header says more).  On a CPU
-tensor they take :func:`attn_map_bank_plain` and
+logits never leave the block, the backward walks the map in tiles of rows
+(:func:`plan`), so both take any N whose plan fits (the source's header
+says more).  On a CPU tensor they take :func:`attn_map_bank_plain` and
 :func:`attn_map_bank_bwd_plain`.
 
 Numerics, as the TPU kernel's (and not as the eager bank of
@@ -85,11 +86,53 @@ def attn_map_bank_bwd_plain(q: torch.Tensor, k: torch.Tensor, g: torch.Tensor, d
     return dq.to(q.dtype), dk.to(q.dtype)
 
 
-def _smem_bytes(n: int, a: int, h: int, bwd: bool) -> int:
-    """Shared memory of a block (csrc/attn_bank.cu): q and k rows padded to
-    A + 1 words, and in the backward every head's du with a one-word pad
-    per head."""
-    return 4 * (2 * n * (a + 1) + (h * (n * n + 1) if bwd else 0))
+DU_WORDS = 8192     # csrc/attn_bank.cu::kDuBudget: du of a row tile, every head
+
+
+def tile_rows(n: int, h: int, budget: int = DU_WORDS) -> int:
+    """Rows of the map a backward takes at once before shared memory
+    forces fewer (``attn_map.cuh::tile_rows``): as many as keep every
+    head's du within ``budget`` words (K7's :data:`DU_WORDS`, K8's
+    ``attn_qk_bank.BWD_DU_WORDS``), 1 to N."""
+    return min(n, max(1, budget // (h * n)))
+
+
+def du_words(n: int, rows: int, h: int) -> int:
+    """Words of a row tile's du, every head padded by one word."""
+    return h * (rows * n + 1)
+
+
+def row_stride(a: int) -> int:
+    """Words between the q / k rows the backward reads (``attn_map.cuh::
+    row_stride``): 16-byte aligned, 4 past a multiple of 4 words."""
+    return -(-a // 4) * 4 + 4
+
+
+def plan(n: int, a: int, h: int, bwd: bool) -> Tuple[int, int]:
+    """The launch plan of a forward (``bwd`` False) or backward block of
+    csrc/attn_bank.cu: (the backward's row tile R, N in the forward, which
+    walks the whole map; shared-memory bytes).  q and k rows padded to A + 1
+    words in the forward, :func:`row_stride` in the backward, with the
+    tile's du and, where R < N, dk carried between tiles ([N, A]); R halved
+    from :func:`tile_rows` until the block fits.  Raises where no plan fits
+    in the shared memory of a block."""
+    qk = 2 * n * (row_stride(a) if bwd else a + 1)
+    rows = n
+    if bwd:
+        def words(r):
+            return qk + du_words(n, r, h) + (n * a if r < n else 0)
+
+        rows = tile_rows(n, h)
+        while rows > 1 and 4 * words(rows) > SMEM_LIMIT:
+            rows //= 2
+        smem = 4 * words(rows)
+    else:
+        smem = 4 * qk
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"attn_map_bank {'backward' if bwd else 'forward'} kernel: N={n}, "
+                         f"A={a}, H={h} need {smem} B of shared memory per block "
+                         f"(> {SMEM_LIMIT})" + (" at a row tile of 1" if bwd else ""))
+    return rows, smem
 
 
 def _check_kernel_inputs(q, k, ds, g=None):
@@ -111,16 +154,11 @@ def _check_kernel_inputs(q, k, ds, g=None):
     h = _heads(q, ds)
     if g is not None and tuple(g.shape) != (b, c, n, n):
         raise ValueError(f"attn_map_bank kernel: g{tuple(g.shape)} != {(b, c, n, n)}")
-    if n > 32 or a > 1024:
-        raise ValueError(f"attn_map_bank kernel: needs N <= 32 and A <= 1024 (N={n}, A={a})")
-    smem = _smem_bytes(n, a, h, g is not None)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"attn_map_bank kernel: N={n}, A={a}, H={h} need {smem} B of "
-                         f"shared memory (> {SMEM_LIMIT})")
+    return plan(n, a, h, g is not None)
 
 
 def _launch(q, k, ds: int, bf16: bool) -> torch.Tensor:
-    _check_kernel_inputs(q, k, ds)
+    _, smem = _check_kernel_inputs(q, k, ds)
     b, c, n, a = q.shape
     out = torch.empty((b, c, n, n), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
@@ -129,15 +167,14 @@ def _launch(q, k, ds: int, bf16: bool) -> torch.Tensor:
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     rc = fn(q.data_ptr(), k.data_ptr(), out.data_ptr(), b * c, n, a, ds,
-            int(q.dtype == torch.bfloat16), int(bf16), _smem_bytes(n, a, a // ds, False),
-            stream(q))
+            int(q.dtype == torch.bfloat16), int(bf16), smem, stream(q))
     build.check_launch(rc, "attn_map_bank_fwd")
     attn_map_bank_kernel.launches += 1
     return out
 
 
 def _launch_bwd(q, k, g, ds: int, bf16: bool):
-    _check_kernel_inputs(q, k, ds, g)
+    rows, smem = _check_kernel_inputs(q, k, ds, g)
     b, c, n, a = q.shape
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
@@ -145,10 +182,9 @@ def _launch_bwd(q, k, g, ds: int, bf16: bool):
         return dq.zero_(), dk.zero_()
     fn = build.load("attn_bank").attn_map_bank_bwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     rc = fn(q.data_ptr(), k.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            b * c, n, a, ds, int(q.dtype == torch.bfloat16), int(bf16),
-            _smem_bytes(n, a, a // ds, True), stream(q))
+            b * c, n, a, ds, int(q.dtype == torch.bfloat16), int(bf16), rows, smem, stream(q))
     build.check_launch(rc, "attn_map_bank_bwd")
     attn_map_bank_kernel_bwd.launches += 1
     return dq, dk
@@ -186,8 +222,8 @@ def attn_map_bank_kernel(q: torch.Tensor, k: torch.Tensor, ds: int, *, bf16: boo
     """Head-mean tanh maps [B, C, N, N] float32 from q, k [B, C, N, A]
     (float32 or bfloat16, one dtype), differentiable in q and k.  ``impl``:
     "auto" (the kernels for a CUDA tensor, the plain versions for a CPU
-    tensor), "kernel" or "plain".  The kernels take N <= 32 and raise on
-    shapes they are not built for."""
+    tensor), "kernel" or "plain".  The kernels take any N whose plan fits
+    (:func:`plan`) and raise on shapes they are not built for."""
     return _AttnMapBank.apply(q, k, ds, bf16, resolve_impl(impl, q, "attn_map_bank"))
 
 

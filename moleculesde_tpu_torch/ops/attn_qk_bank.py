@@ -9,11 +9,12 @@ Counterpart of ``moleculesde_tpu/ops/rejected/attn_qk_bank.py::attn_qk_bank``
 (its Pallas impls), forward and backward.  On a CUDA tensor the wrappers
 launch the hand-written kernels of ``csrc/attn_qk_bank.cu``, which replace
 the TPU kernels ``_fwd_kernel`` (``pallas_call`` at
-``ops/rejected/attn_qk_bank.py:209``) and ``_bwd_kernel`` (l.232): the
-forward one block per (graph, channel) and any N whose plan fits
-(:func:`fwd_plan`), the backward one block per graph and N <= 32; only the
-node features, the weights and ``a`` touch device memory (the source's
-header says more).  On a CPU tensor they take
+``ops/rejected/attn_qk_bank.py:209``) and ``_bwd_kernel`` (l.232): both
+one block per (graph, channel) and any N whose plan fits (:func:`fwd_plan`,
+:func:`bwd_plan`; the backward walks the map in tiles of rows and qk in
+chunks of features); only the node features, the weights, ``a`` and, in
+the backward, per-(graph, channel) partial sums touch device memory (the
+source's header says more).  On a CPU tensor they take
 :func:`attn_qk_bank_plain` and :func:`attn_qk_bank_bwd_plain`, which round
 to bf16 where the TPU kernel rounds: qk cast by the wrapper, each weight as
 it enters its product, t1 only as the second product's operand, q and k
@@ -31,7 +32,8 @@ from typing import Tuple
 import torch
 
 from moleculesde_tpu_torch.kernels import build
-from moleculesde_tpu_torch.ops.attn_bank import attn_map_bank_plain, map_bank_bwd_f32
+from moleculesde_tpu_torch.ops.attn_bank import (
+    attn_map_bank_plain, du_words, map_bank_bwd_f32, row_stride, tile_rows)
 from moleculesde_tpu_torch.ops.common import SMEM_LIMIT, resolve_impl, round_bf16, stream
 
 WEIGHTS = ("wq1", "bq1", "wq2", "bq2", "wk1", "bk1", "wk2", "bk2")
@@ -89,7 +91,8 @@ def _shapes(qk, ws):
 
 
 FWD_MAX_CHUNK = 128         # csrc/attn_qk_bank.cu: W1 / qk features staged at once
-BWD_N_MAX = 32              # the backward holds every head's du of the map
+BWD_MAX_CHUNK = 64          # the same in the backward
+BWD_DU_WORDS = 16384        # the backward's du of a row tile (csrc kBwdDuBudget)
 
 
 def _fwd_stride(width: int) -> int:
@@ -114,13 +117,31 @@ def fwd_plan(n: int, f: int, a: int) -> Tuple[int, int]:
     return fc, 4 * (rows * fp + al4(2 * fc * a) + al4(2 * a * a) + al4(4 * a) + 4 * rows * as_)
 
 
-def _bwd_smem_bytes(n: int, f: int, c: int, a: int, h: int) -> int:
-    """Shared memory of a backward block (csrc/attn_qk_bank.cu), in bytes:
-    qk, t1 x2, q / k, W2, du of every head, dq3 / dk3, dpre, rounded dpre of
-    every channel."""
+def bwd_plan(n: int, f: int, a: int, h: int) -> Tuple[int, int, int]:
+    """The backward kernel's plan for one (graph, channel) block: (rows of
+    the map's tile, features staged per chunk, shared-memory bytes).  The
+    block holds W2 and the biases of both nets, t1, q / k (later dpre) and
+    dq / dk [N, A] each (rows padded to A + 1 words, q / k's to
+    :func:`row_stride` from a 16-byte boundary, dq / dk's not), and a
+    scratch region that holds a qk chunk [N, FC] with the chunk's W1 rows
+    while the nets run and the du tile between (csrc/attn_qk_bank.cu::
+    bwd_layout).  R starts at :func:`tile_rows` of :data:`BWD_DU_WORDS`, FC
+    at min(F, 64); the larger of the two scratch uses is halved (R last)
+    until the block fits, and the bytes are past the limit where nothing
+    does."""
     ap = a + 1
-    return 4 * (n * f + 4 * n * ap + a * ap + h * (n * n + 1) + 2 * n * a + n * ap
-                + 2 * c * n * ap)
+    qo = -(-(2 * a * ap + 4 * a + 2 * n * ap) // 4) * 4    # 16-byte aligned
+    fixed = qo + 2 * n * row_stride(a) + 2 * n * a
+    rows, fc = tile_rows(n, h, BWD_DU_WORDS), min(f, BWD_MAX_CHUNK)
+    while True:
+        chunk, du = n * fc + 2 * fc * ap, du_words(n, rows, h)
+        smem = 4 * (fixed + max(chunk, du))
+        if smem <= SMEM_LIMIT or (rows == 1 and fc == 1):
+            return rows, fc, smem
+        if fc > 1 and (chunk >= du or rows == 1):
+            fc //= 2
+        else:
+            rows //= 2
 
 
 def _check_kernel_inputs(qk, ws, ds, g=None):
@@ -153,11 +174,8 @@ def _check_kernel_inputs(qk, ws, ds, g=None):
 def check_plan(n: int, f: int, c: int, a: int, h: int, bwd: bool) -> int:
     """Shared-memory bytes of a block of the forward (``bwd`` False) or the
     backward kernel at these widths; raises where the kernel takes no such
-    shape: the backward past N = 32, either past the shared memory."""
-    if bwd and n > BWD_N_MAX:
-        raise ValueError(f"attn_qk_bank backward kernel: needs N <= {BWD_N_MAX} (N={n}); "
-                         "the forward takes any N whose plan fits")
-    smem = _bwd_smem_bytes(n, f, c, a, h) if bwd else fwd_plan(n, f, a)[1]
+    shape: past the shared memory of a block."""
+    smem = bwd_plan(n, f, a, h)[2] if bwd else fwd_plan(n, f, a)[1]
     if smem > SMEM_LIMIT:
         raise ValueError(f"attn_qk_bank {'backward' if bwd else 'forward'} kernel: N={n}, "
                          f"F={f}, C={c}, A={a} need {smem} B of shared memory per block "
@@ -198,15 +216,18 @@ def _launch_bwd(qk, ws, g, ds: int, bf16: bool):
         wgrad.zero_()
         dqk.zero_()
     else:
-        part = torch.empty(b * sum(sizes), dtype=torch.float32, device=dev)
+        # per-graph rows of the weight gradients, then each unit's q and k
+        # terms of dqk
+        part = torch.empty(b * sum(sizes) + 2 * b * c * n * f, dtype=torch.float32,
+                           device=dev)
         fn = build.load("attn_qk_bank").attn_qk_bank_bwd
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
         ptrs = _weight_ptrs(ws)
+        rows, fc, smem = bwd_plan(n, f, a, a // ds)
         rc = fn(qk.data_ptr(), ctypes.addressof(ptrs), g.data_ptr(), dqk.data_ptr(),
                 wgrad.data_ptr(), part.data_ptr(), b, n, f, c, a, ds,
-                int(qk.dtype == torch.bfloat16), int(bf16),
-                _bwd_smem_bytes(n, f, c, a, a // ds), stream(qk))
+                int(qk.dtype == torch.bfloat16), int(bf16), rows, fc, smem, stream(qk))
         build.check_launch(rc, "attn_qk_bank_bwd")
         attn_qk_bank_bwd.launches += 1
     grads = [t.view(w.shape) for t, w in zip(torch.split(wgrad, sizes), ws)]

@@ -1,0 +1,131 @@
+"""Port parity past N = 32 for the attention-bank backward kernels: the
+plain versions (what the wrappers take on the CPU) of K7
+(``attn_map_bank_plain`` / ``attn_map_bank_bwd_plain``) and of K8's
+backward (``attn_qk_bank_bwd_plain``) at N = 40 against the JAX package's
+Pallas kernels in interpret mode through ``jax.vjp``, on the same
+numpy-seeded operands and cotangent (f32 1e-5 of the largest value for
+the maps and 1e-4 for the gradients, the same sums in another order; bf16
+1e-2, both sides rounding at the same points); and the launch plans that
+replaced the N <= 32 caps: K7's ``plan`` (the backward's row tile) and
+K8's ``bwd_plan`` (row tile and feature chunk) at the 3D->2D chain's
+widths, under the shared memory of a block, and their messages past it.
+The kernels themselves run only on the card (``test_torch_port_kernels.py``)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from moleculesde_tpu.ops.rejected.attn_bank import attn_map_bank_pallas
+from moleculesde_tpu.ops.rejected.attn_qk_bank import attn_qk_bank as jax_attn_qk_bank
+from moleculesde_tpu_torch.ops.attn_bank import (
+    attn_map_bank_bwd_plain, attn_map_bank_plain, plan, tile_rows)
+from moleculesde_tpu_torch.ops.attn_qk_bank import (
+    BWD_DU_WORDS, BWD_MAX_CHUNK, attn_qk_bank_bwd_plain, bwd_plan, check_plan)
+from moleculesde_tpu_torch.ops.common import SMEM_LIMIT
+
+from test_torch_port_attn_bank import _map_operands, _qk_operands
+from torch_port_common import ieee_f32, rel_err, t  # noqa: F401 (ieee_f32: autouse)
+
+
+def _tols(bf16):
+    return (1e-2, 1e-2) if bf16 else (1e-5, 1e-4)
+
+
+@pytest.mark.parametrize("ds", [2, 4])
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_attn_map_bank_plain_matches_pallas_kernel_past_32(ds, bf16):
+    """K7 at N = 40: the maps, dq and dk of the plain versions against
+    ``jax.vjp`` of the Pallas kernels in interpret mode."""
+    q, k, g = _map_operands(11, b=2, c=2, n=40, a=16)
+    out_j, vjp = jax.vjp(lambda q_, k_: attn_map_bank_pallas(q_, k_, ds, bf16, True),
+                         jnp.asarray(q), jnp.asarray(k))
+    dq_j, dk_j = vjp(jnp.asarray(g))
+    out = attn_map_bank_plain(t(q), t(k), ds, bf16=bf16)
+    dq, dk = attn_map_bank_bwd_plain(t(q), t(k), t(g), ds, bf16=bf16)
+    tol_f, tol_g = _tols(bf16)
+    assert out.shape == (2, 2, 40, 40) and dq.dtype == torch.float32
+    assert rel_err(out.numpy(), jax.device_get(out_j)) < tol_f
+    assert rel_err(dq.numpy(), jax.device_get(dq_j)) < tol_g
+    assert rel_err(dk.numpy(), jax.device_get(dk_j)) < tol_g
+
+
+@pytest.mark.parametrize("ds", [2, 4])
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_attn_qk_bank_bwd_plain_matches_pallas_kernel_past_32(ds, bf16):
+    """K8's backward at N = 40: dqk and the eight weight gradients of the
+    plain version against ``jax.vjp`` of the Pallas kernel in interpret
+    mode (on qk as the wrapper hands it over: rounded to bf16 in bf16 mode)."""
+    ops, g = _qk_operands(12, b=2, n=40)
+    _, vjp = jax.vjp(lambda *a: jax_attn_qk_bank(*a, ds, bf16=bf16, impl="pallas_interpret"),
+                     *(jnp.asarray(o) for o in ops))
+    grads_j = vjp(jnp.asarray(g))
+    qk = t(ops[0]).to(torch.bfloat16 if bf16 else torch.float32)
+    grads = attn_qk_bank_bwd_plain(qk, *(t(o) for o in ops[1:]), t(g), ds, bf16=bf16)
+    assert grads[0].dtype == qk.dtype and grads[0].shape == (2, 40, 12)
+    _, tol_g = _tols(bf16)
+    for i, (mine, ref) in enumerate(zip(grads, grads_j)):
+        assert rel_err(mine.float().numpy(), np.asarray(ref, np.float32)) < tol_g, i
+
+
+# (N, A, H) -> K7's backward plan (row tile, shared bytes): the whole map
+# at N = 32 (the kernel before tiles), one row short at 33, then 16 / 8 / 4
+# rows at the loader's buckets and N = 256, and the forward (N, 2 N (A + 1)
+# words) beside each
+K7_PLANS = [((32, 32, 8), (32, 42016)), ((33, 32, 8), (31, 46496)),
+            ((64, 32, 8), (16, 59424)), ((128, 32, 8), (8, 86048)),
+            ((256, 32, 8), (4, 139296)), ((518, 32, 8), (1, 232096))]
+
+
+@pytest.mark.parametrize("shape, want", K7_PLANS)
+def test_attn_map_bank_plan(shape, want):
+    n, a, h = shape
+    assert plan(n, a, h, bwd=True) == want
+    assert want[1] <= SMEM_LIMIT and want[0] <= tile_rows(n, h)
+    assert plan(n, a, h, bwd=False) == (n, 8 * n * (a + 1))
+
+
+def test_attn_map_bank_plan_refuses_past_shared_memory():
+    """K7 takes any N whose plan fits, and raises past it naming the limit:
+    the forward past N = 880, the backward past N = 518 at A = 32, H = 8."""
+    assert plan(880, 32, 8, bwd=False)[1] <= SMEM_LIMIT
+    with pytest.raises(ValueError, match=r"forward kernel: N=881, A=32, H=8 need 232584 B of "
+                                         r"shared memory per block \(> 232448\)"):
+        plan(881, 32, 8, bwd=False)
+    with pytest.raises(ValueError, match=r"backward kernel: N=519, A=32, H=8 need \d+ B of "
+                                         r"shared memory per block \(> 232448\) at a row tile"):
+        plan(519, 32, 8, bwd=True)
+
+
+# (N, F) -> K8's backward plan (row tile, feature chunk, shared bytes) at the
+# 3D->2D chain's A = 32, H = 8: edge layers 1-3 (F = 16), 0 (F = 300) and
+# variant 3's F = 900; the whole map a tile up to N = 32 (64: 32 rows), 16
+# rows at 128, 2 rows and 8-feature chunks at 256
+K8_BWD_PLANS = [((32, 16), (32, 16, 67616)), ((64, 16), (32, 16, 126240)),
+                ((128, 16), (16, 16, 177952)), ((256, 16), (2, 8, 232224)),
+                ((32, 300), (32, 64, 67616)), ((64, 300), (32, 64, 126240)),
+                ((128, 300), (16, 64, 177952)), ((256, 300), (2, 8, 232224)),
+                ((32, 900), (32, 64, 67616)), ((128, 900), (16, 64, 177952)),
+                ((256, 900), (2, 8, 232224))]
+
+
+@pytest.mark.parametrize("shape, want", K8_BWD_PLANS)
+def test_attn_qk_bank_bwd_plan(shape, want):
+    n, f = shape
+    rows, fc, smem = bwd_plan(n, f, 32, 8)
+    assert (rows, fc, smem) == want
+    assert smem <= SMEM_LIMIT and rows <= tile_rows(n, 8, BWD_DU_WORDS)
+    assert fc <= min(f, BWD_MAX_CHUNK)
+    for c in (2, 8):   # one channel a block: C does not enter the plan
+        assert check_plan(n, f, c, 32, 8, bwd=True) == smem
+
+
+def test_attn_qk_bank_bwd_plan_refuses_past_shared_memory():
+    """K8's backward takes N <= 266 at A = 32, H = 8 whatever F, and
+    raises past it naming the limit."""
+    assert bwd_plan(266, 900, 32, 8)[2] <= SMEM_LIMIT
+    assert bwd_plan(267, 16, 32, 8)[:2] == (1, 1)
+    with pytest.raises(ValueError, match=r"backward kernel: N=267, F=16, C=8, A=32 need \d+ B "
+                                         r"of shared memory per block \(> 232448\)"):
+        check_plan(267, 16, 8, 32, 8, bwd=True)

@@ -811,9 +811,10 @@ def test_attn_qk_bank_kernel_matches_plain(cuda, shape, bf16):
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
 @pytest.mark.parametrize("shape", [(128, 64, 16, 8, 32, 4), (128, 64, 300, 2, 32, 4),
-                                   (4, 100, 13, 3, 8, 2), (2, 33, 260, 2, 32, 8)])
+                                   (4, 100, 13, 3, 8, 2), (2, 33, 260, 2, 32, 8),
+                                   (2, 256, 16, 8, 32, 4)])
 def test_attn_qk_bank_fwd_kernel_past_n32(cuda, shape, bf16):
-    """K8's forward past N = 32 (its backward stops there): the maps against
+    """K8's forward past N = 32: the maps against
     the plain version at the bars of the test above, and two runs bit for
     bit (every sum in a fixed order).  (2, 33, 260, ...) stages W1 in three
     chunks and pairs rows past N."""
@@ -843,17 +844,114 @@ def test_attn_qk_bank_fwd_plan_matches_kernel(cuda):
         assert smem == fn(n, fc, a)
 
 
+# (B, C, N, A, ds) past N = 32: one tile short of the whole map (N = 33,
+# R = 31), 16 / 8 / 4 rows a tile (N = 64 / 128 / 256)
+MAP_LARGE_N = [(4, 8, 33, 32, 4), (16, 8, 64, 32, 4), (8, 8, 128, 32, 4), (2, 8, 256, 32, 4),
+               (3, 2, 40, 12, 2)]
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", MAP_LARGE_N)
+def test_attn_map_bank_kernel_past_n32(cuda, shape, bf16):
+    """K7 forward and backward past N = 32 (the backward in row tiles)
+    against the plain versions at the bars of the N = 32 test, and two
+    runs of each kernel bit for bit."""
+    b, c, n, a, ds = shape
+    q, k, g = _bank_operands(cuda, b, c, n, a, 23, torch.bfloat16 if bf16 else torch.float32)
+
+    def run(impl):
+        return _grads(lambda q_, k_: attn_map_bank_kernel(q_, k_, ds, bf16=bf16, impl=impl),
+                      (q, k), g)
+
+    for i, (x, y) in enumerate(zip(run("kernel"), run("plain"))):
+        tol = 1e-2 if bf16 else (1e-5 if i == 0 else 1e-4)
+        err = ((x.float() - y.float()).abs().max() / y.float().abs().max()).item()
+        assert err <= tol, (i, err)
+    with torch.no_grad():
+        assert torch.equal(attn_map_bank_kernel(q, k, ds, bf16=bf16),
+                           attn_map_bank_kernel(q, k, ds, bf16=bf16))
+        first = attn_map_bank_kernel_bwd(q, k, g, ds, bf16=bf16)
+        assert all(torch.equal(u, v)
+                   for u, v in zip(first, attn_map_bank_kernel_bwd(q, k, g, ds, bf16=bf16)))
+
+
+# (B, N, F, C, A, ds) past N = 32: the 3D->2D chain's edge layers 1-3
+# (F = 16, C = 8) and 0 (F = 300, C = 2), variant 3's F = 900, a ragged
+# small shape; 2 rows a tile and 16-feature chunks at N = 256
+QK_BWD_LARGE_N = [(4, 33, 16, 8, 32, 4), (16, 64, 300, 2, 32, 4), (8, 128, 16, 8, 32, 4),
+                  (2, 128, 900, 2, 32, 4), (2, 256, 16, 8, 32, 4), (2, 256, 300, 2, 32, 4),
+                  (3, 40, 13, 3, 8, 2)]
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", QK_BWD_LARGE_N)
+def test_attn_qk_bank_bwd_kernel_past_n32(cuda, shape, bf16):
+    """K8's backward past N = 32 (dqk and the eight weight gradients)
+    against the plain version on the operands as the wrapper hands them
+    over, at the bars of the N = 32 test, and two runs bit for bit (every
+    sum in a fixed order, no atomics).  On its own, not through autograd:
+    the forward takes N = 256 only at F = 16 (its own test)."""
+    b, n, f, c, a, ds = shape
+    qk, ws, g = _qk_bank_operands(cuda, b, n, f, c, a, 24)
+    qd = qk.to(torch.bfloat16 if bf16 else torch.float32)
+    first = attn_qk_bank_bwd(qd, *ws, g, ds, bf16=bf16, impl="kernel")
+    plain = attn_qk_bank_bwd(qd, *ws, g, ds, bf16=bf16, impl="plain")
+    assert first[0].dtype == qd.dtype
+    for i, (x, y) in enumerate(zip(first, plain)):
+        err = ((x.float() - y.float()).abs().max() / y.float().abs().max()).item()
+        assert err <= (1e-2 if bf16 else 1e-4), (i, err)
+    second = attn_qk_bank_bwd(qd, *ws, g, ds, bf16=bf16, impl="kernel")
+    assert all(torch.equal(u, v) for u, v in zip(first, second))
+
+
+def test_attn_bank_plans_match_kernels(cuda):
+    """The wrappers' plans are the kernels' own: K7's (row tile, shared
+    bytes) forward and backward, K8's backward (row tile, feature chunk,
+    shared bytes)."""
+    import ctypes
+
+    from moleculesde_tpu_torch.kernels import build
+    from moleculesde_tpu_torch.ops.attn_bank import plan
+    from moleculesde_tpu_torch.ops.attn_qk_bank import bwd_plan
+
+    k7 = build.load("attn_bank").attn_bank_plan
+    k7.restype = None
+    k7.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    k8 = build.load("attn_qk_bank").attn_qk_bank_bwd_plan
+    k8.restype = None
+    k8.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    out = (ctypes.c_int * 3)()
+    for n, a, h in ((32, 32, 8), (33, 32, 8), (64, 32, 8), (128, 32, 8), (256, 32, 8),
+                    (518, 32, 8), (40, 12, 6), (9, 8, 4)):
+        for bwd in (False, True):
+            k7(n, a, h, int(bwd), ctypes.addressof(out))
+            assert (out[0], out[1]) == plan(n, a, h, bwd), (n, a, h, bwd)
+    for n, f, a, h in ((32, 16, 32, 8), (64, 300, 32, 8), (128, 16, 32, 8), (128, 900, 32, 8),
+                       (256, 16, 32, 8), (256, 300, 32, 8), (266, 900, 32, 8), (267, 16, 32, 8),
+                       (40, 13, 8, 4), (3, 5, 8, 4)):
+        k8(n, f, a, h, ctypes.addressof(out))
+        assert tuple(out) == bwd_plan(n, f, a, h), (n, f, a, h)
+
+
 def test_attn_bank_kernels_refuse_shapes(cuda):
-    """Shapes the bank kernels are not built for raise, never fall back."""
-    q = torch.zeros(2, 2, 33, 32, device=cuda)
-    with pytest.raises(ValueError, match="N <= 32"):
-        attn_map_bank_kernel(q, q, 4)
+    """Shapes the bank kernels are not built for raise, never fall back:
+    A not a multiple of ds, and any N past the plans' shared memory (K7's
+    forward N > 880, its backward N > 518, K8's forward N > 334 at F = 16,
+    its backward N > 266)."""
     q = torch.zeros(2, 2, 8, 30, device=cuda)
     with pytest.raises(ValueError, match="multiple of ds"):
         attn_map_bank_kernel(q, q, 4)
+    q = torch.zeros(1, 1, 881, 32, device=cuda)
+    with pytest.raises(ValueError, match="forward kernel: N=881, A=32, H=8 need .* shared memory"):
+        attn_map_bank_kernel(q, q, 4)
+    q = torch.zeros(1, 1, 519, 32, device=cuda)
+    g = torch.zeros(1, 1, 519, 519, device=cuda)
+    with pytest.raises(ValueError, match="backward kernel: N=519, A=32, H=8 need .* shared"):
+        attn_map_bank_kernel_bwd(q, q, g, 4, impl="kernel")
     qk, ws, _ = _qk_bank_operands(cuda, 2, 600, 16, 2, 32, 0)
     with pytest.raises(ValueError, match="forward kernel.*shared memory"):
         attn_qk_bank(qk, *ws, 4)
-    qk, ws, g = _qk_bank_operands(cuda, 2, 33, 16, 2, 32, 0)
-    with pytest.raises(ValueError, match="backward kernel: needs N <= 32"):
+    qk, ws, g = _qk_bank_operands(cuda, 1, 267, 16, 2, 32, 0)
+    with pytest.raises(ValueError, match="backward kernel: N=267, F=16, C=2, A=32 need .* "
+                                         "shared memory"):
         attn_qk_bank_bwd(qk, *ws, g, 4, impl="kernel")

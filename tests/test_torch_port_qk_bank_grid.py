@@ -5,7 +5,7 @@ CPU) at N = 40 against the JAX package's Pallas kernel in interpret mode
 both sides rounding at the same points), and the forward kernel's launch
 plan ``fwd_plan`` -- one block per (graph, channel), W1 and qk staged in
 chunks of at most 128 features, rows paired -- with the messages past each
-kernel's limits: the forward's shared memory, the backward's N <= 32.
+kernel's shared memory (the backward's plan: test_torch_port_bank_bwd_large.py).
 The kernels themselves run only on the card (``test_torch_port_kernels.py``)."""
 
 import jax
@@ -15,7 +15,7 @@ import torch
 
 from moleculesde_tpu.ops.rejected.attn_qk_bank import attn_qk_bank as jax_attn_qk_bank
 from moleculesde_tpu_torch.ops.attn_qk_bank import (
-    BWD_N_MAX, FWD_MAX_CHUNK, attn_qk_bank, attn_qk_bank_bwd, check_plan, fwd_plan)
+    FWD_MAX_CHUNK, attn_qk_bank, attn_qk_bank_bwd, bwd_plan, check_plan, fwd_plan)
 from moleculesde_tpu_torch.ops.common import SMEM_LIMIT
 
 from test_torch_port_attn_bank import _qk_operands
@@ -51,20 +51,24 @@ def test_fwd_plan(shape, plan):
     assert fwd_plan(n + n % 2, f, a) == (fc, smem)
 
 
-def test_fwd_plan_takes_any_n_that_fits():
-    """The forward raises only where its shared memory runs out (past N =
-    334 at A = 32, F = 16); the backward stops at N = 32."""
-    assert check_plan(64, 16, 8, 32, 4, bwd=False) == fwd_plan(64, 16, 32)[1]
-    assert check_plan(334, 16, 8, 32, 4, bwd=False) <= SMEM_LIMIT
-    with pytest.raises(ValueError, match="forward kernel: N=335, F=16, C=8, A=32 need "
+@pytest.mark.parametrize("bwd", [False, True], ids=["forward", "backward"])
+def test_fwd_plan_takes_any_n_that_fits(bwd):
+    """Either kernel raises only where its shared memory runs out: the
+    forward past N = 334 at A = 32, F = 16, the backward (which took N <=
+    32 before its row tiles) past N = 266, naming the limit."""
+    if not bwd:
+        assert check_plan(64, 16, 8, 32, 4, bwd=False) == fwd_plan(64, 16, 32)[1]
+        assert check_plan(334, 16, 8, 32, 4, bwd=False) <= SMEM_LIMIT
+        with pytest.raises(ValueError, match="forward kernel: N=335, F=16, C=8, A=32 need "
+                                             r"\d+ B of shared memory per block"):
+            check_plan(335, 16, 8, 32, 4, bwd=False)
+        return
+    for n in (33, 64, 128, 256, 266):
+        assert check_plan(n, 16, 8, 32, 8, bwd=True) == bwd_plan(n, 16, 32, 8)[2] <= SMEM_LIMIT
+    assert check_plan(128, 900, 8, 32, 8, bwd=True) <= SMEM_LIMIT
+    with pytest.raises(ValueError, match="backward kernel: N=267, F=900, C=8, A=32 need "
                                          r"\d+ B of shared memory per block"):
-        check_plan(335, 16, 8, 32, 4, bwd=False)
-    assert check_plan(BWD_N_MAX, 16, 8, 32, 4, bwd=True) <= SMEM_LIMIT
-    with pytest.raises(ValueError, match="backward kernel: needs N <= 32 .N=33.; the forward "
-                                         "takes any N whose plan fits"):
-        check_plan(33, 16, 8, 32, 4, bwd=True)
-    with pytest.raises(ValueError, match="backward kernel: N=32, F=900, C=8"):
-        check_plan(32, 900, 8, 32, 4, bwd=True)
+        check_plan(267, 900, 8, 32, 8, bwd=True)
 
 
 def test_kernel_wrappers_check_the_device():
