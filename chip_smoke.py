@@ -36,14 +36,16 @@ Phases (any failure exits non-zero):
      around that run; then the conditioning is compared with an all-plain
      build of the same weights, and the chain is timed;
   4. fused chain: K6's launch plan per n_max (cluster size) and K6 against
-     its plain version also on the chain's operands at ``--n_max 64`` (B=64,
-     variants 1 and 2, bf16 2e-2 and f32 1e-4 of max |plain|), every K6
-     phase two launches bit for bit; n_max 128 refused by the plan, naming
-     its limit; the same chain with ``fused=True`` (launches K1 5, K3 1,
-     K6 40), conformers/s against the channel-major chain in turns, wall
-     and device-busy time under the profiler beside the earlier kernel's,
-     and 5 f32 steps against the channel-major chain on the same weights
-     and draws (atol 2e-4, rtol 1e-3);
+     its plain version also on the chain's operands at ``--n_max 64`` and
+     ``--n_max 128`` (B=64, variants 1 and 2, bf16 2e-2 and f32 1e-4 of max
+     |plain|), every K6 phase two launches bit for bit; n_max 129 refused
+     by the plan, naming its limit; 3 f32 PC steps of the fused chain at
+     n_max 128 against the channel-major chain on the same weights and
+     draws (K6 6 launches); the same chain at n_max 32 with ``fused=True``
+     (launches K1 5, K3 1, K6 40), conformers/s against the channel-major
+     chain in turns, wall and device-busy time under the profiler beside
+     the earlier kernel's, and 5 f32 steps against the channel-major chain
+     on the same weights and draws (atol 2e-4, rtol 1e-3);
   5. pair_cm_direct chain: K4 forward once, K3 never; K4's edge features
      against K3's;
   6. 3D->2D chain: the sampler CLI's models at full width (SchNet 6 x 128,
@@ -491,30 +493,80 @@ def k6_phases(models, node_2d, batch, dev, label: str = ""):
 
 def k6_large_n_phases(dev):
     """K6 past n_max 32: the fused chain's models and operands at ``--n_max
-    64`` (B=64, molecules of 4-64 atoms; the same weights), variants 1 and
-    2, bf16 and f32 at the chain's bars, two launches bit for bit; n_max 128
-    is past the cluster plan and raises in both modes, naming the limit."""
+    64`` and ``--n_max 128`` (B=64, molecules of 4-64 and 4-128 atoms; the
+    same weights), variants 1 and 2, bf16 and f32 at the chain's bars, two
+    launches bit for bit; n_max 129 is past the cluster plan and raises in
+    both modes, naming the limit; then the fused chain at n_max 128 in f32
+    against the channel-major chain (fused_f32_steps)."""
     from moleculesde_tpu_torch.benchmarks.profile_sampler import PATH_ARGS
     from moleculesde_tpu_torch.examples import sample_2d_to_3d as cli
 
-    args = cli.get_parser().parse_args(PATH_ARGS + ["--n_max", "64"])
-    batch = cli.make_batch(cli.load_graphs(args), args, dev)
-    model_2d, sde_model = cli.build_models(args, dev)
-    args_v2 = cli.get_parser().parse_args(PATH_ARGS + ["--n_max", "64", "--SDE_2Dto3D_model",
-                                                       "SDEModel2Dto3D_02"])
-    with torch.no_grad():
-        node_2d = model_2d(batch, use_running_average=True)
-    results = k6_phases({1: sde_model, 2: cli.build_models(args_v2, dev)[1]}, node_2d, batch,
-                        dev, "[n64]")
+    results = {}
+    for n_max in (64, 128):
+        size = ["--n_max", str(n_max)]
+        args = cli.get_parser().parse_args(PATH_ARGS + size)
+        batch = cli.make_batch(cli.load_graphs(args), args, dev)
+        model_2d, sde_model = cli.build_models(args, dev)
+        args_v2 = cli.get_parser().parse_args(PATH_ARGS + size + ["--SDE_2Dto3D_model",
+                                                                  "SDEModel2Dto3D_02"])
+        with torch.no_grad():
+            node_2d = model_2d(batch, use_running_average=True)
+        print(f"K6 at n_max {n_max}: B={batch.num_graphs}, molecules of "
+              f"{int(batch.node_mask.reshape(batch.num_graphs, -1).sum(1).min())}-"
+              f"{int(batch.node_mask.reshape(batch.num_graphs, -1).sum(1).max())} atoms",
+              flush=True)
+        results.update(k6_phases({1: sde_model, 2: cli.build_models(args_v2, dev)[1]},
+                                 node_2d, batch, dev, f"[n{n_max}]"))
+    past = KERNEL_N_MAX + 1
     for bf16 in (True, False):
         try:
-            score_plan(128, bf16)
+            score_plan(past, bf16)
         except ValueError as e:
-            check(f"n_max <= {KERNEL_N_MAX}" in str(e), f"K6 n_max 128 refusal: {e}")
-            print(f"K6 at n_max 128 ({'bf16' if bf16 else 'f32'}): refused: {e}", flush=True)
+            check(f"n_max <= {KERNEL_N_MAX}" in str(e), f"K6 n_max {past} refusal: {e}")
+            print(f"K6 at n_max {past} ({'bf16' if bf16 else 'f32'}): refused: {e}", flush=True)
         else:
-            raise PhaseError("K6 takes n_max 128, past its plan")
+            raise PhaseError(f"K6 takes n_max {past}, past its plan")
+    results["chain_n128_k6_launches"] = fused_f32_steps(dev, ["--n_max", "128"], 3, "n_max 128")
     return results
+
+
+def fused_f32_steps(dev, extra_args, steps: int, label: str) -> int:
+    """``steps`` f32 PC steps (1 corrector step each) of the fused chain
+    against the channel-major chain on the same weights and draws (atol
+    2e-4, rtol 1e-3), the sampler CLI's models at ``extra_args``; returns
+    the fused run's K6 launches (2 per step), checked."""
+    from moleculesde_tpu_torch.benchmarks.profile_sampler import PATH_ARGS
+    from moleculesde_tpu_torch.examples import sample_2d_to_3d as cli
+    from moleculesde_tpu_torch.sampling.pc import sample_positions_pc
+
+    args32 = cli.get_parser().parse_args(PATH_ARGS + extra_args +
+                                         ["--sampler_precision", "float32"])
+    batch = cli.make_batch(cli.load_graphs(args32), args32, dev)
+    model_2d32, sde32 = cli.build_models(args32, dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    shape = tuple(batch.positions.shape)
+    draws = {"prior": sde32.sde_pos.prior_sampling(shape, gen, dev),
+             "noise_p": torch.randn((steps,) + shape, generator=gen, device=dev),
+             "noise_c": torch.randn((steps, 1) + shape, generator=gen, device=dev)}
+    saved = [c.launches for c in _counters()]
+    with torch.no_grad():
+        node32 = model_2d32(batch, use_running_average=True)
+        reset_counts()
+        out_f = sample_positions_pc(sde32, node32, batch, n_steps=steps, fused=True, **draws)
+        torch.cuda.synchronize()
+        k6 = score_eval_fused.launches
+        out_c = sample_positions_pc(sde32, node32, batch, n_steps=steps, **draws)
+        torch.cuda.synchronize()
+    for c, n in zip(_counters(), saved):
+        c.launches = n
+    check(k6 == 2 * steps, f"fused chain ({label}): K6 launched {k6} times, not {2 * steps}")
+    check(bool(torch.isfinite(out_f).all()), f"fused chain ({label}): non-finite positions")
+    excess = ((out_f - out_c).abs() - (2e-4 + 1e-3 * out_c.abs())).max().item()
+    print(f"fused vs channel-major chain ({label}, B={batch.num_graphs}), f32, {steps} steps: "
+          f"K6 launches {k6}; max_abs_err={(out_f - out_c).abs().max().item():.3e} (tolerance "
+          f"atol 2e-4 + rtol 1e-3; largest excess {excess:.3e})", flush=True)
+    check(excess <= 0.0, f"the f32 fused chain ({label}) disagrees with the channel-major chain")
+    return k6
 
 
 def training_operands(models, batch):
@@ -693,14 +745,14 @@ def sampler_path(dev):
 
 def fused_chain_path(dev):
     """Phase 4: the sampler with ``fused=True`` at the same full width, bf16
-    score: K6 against its plain version (variants 1 and 2), the counted
-    chain (K1 5, K3 1, K6 40), conformers/s against the channel-major chain
-    in turns, and 5 f32 steps against the channel-major chain on the same
+    score: K6 against its plain version (variants 1 and 2; also at n_max 64
+    and 128, with 3 f32 steps of the n_max 128 chain), the counted chain
+    (K1 5, K3 1, K6 40), conformers/s against the channel-major chain in
+    turns, and 5 f32 steps against the channel-major chain on the same
     weights and draws.  Returns (K6 results, launch counts)."""
     from moleculesde_tpu_torch.benchmarks.profile_sampler import (
         CORRECTOR_STEPS, N_STEPS, PATH_ARGS)
     from moleculesde_tpu_torch.examples import sample_2d_to_3d as cli
-    from moleculesde_tpu_torch.sampling.pc import sample_positions_pc
 
     args = cli.get_parser().parse_args(PATH_ARGS)
     batch = cli.make_batch(cli.load_graphs(args), args, dev)
@@ -755,27 +807,7 @@ def fused_chain_path(dev):
           "ms, device busy 21.37 ms, K6 17.9 ms of it", flush=True)
 
     # 5 f32 steps, fused against channel-major, same weights and draws
-    args32 = cli.get_parser().parse_args(PATH_ARGS + ["--sampler_precision", "float32"])
-    model_2d32, sde32 = cli.build_models(args32, dev)
-    steps = 5
-    gen = torch.Generator(device=dev).manual_seed(11)
-    shape = tuple(batch.positions.shape)
-    draws = {"prior": sde32.sde_pos.prior_sampling(shape, gen, dev),
-             "noise_p": torch.randn((steps,) + shape, generator=gen, device=dev),
-             "noise_c": torch.randn((steps, 1) + shape, generator=gen, device=dev)}
-    with torch.no_grad():
-        node32 = model_2d32(batch, use_running_average=True)
-        saved = [c.launches for c in _counters()]
-        out_f = sample_positions_pc(sde32, node32, batch, n_steps=steps, fused=True, **draws)
-        out_c = sample_positions_pc(sde32, node32, batch, n_steps=steps, **draws)
-        torch.cuda.synchronize()
-        for c, n in zip(_counters(), saved):
-            c.launches = n
-    excess = ((out_f - out_c).abs() - (2e-4 + 1e-3 * out_c.abs())).max().item()
-    print(f"fused vs channel-major chain, f32, {steps} steps: max_abs_err="
-          f"{(out_f - out_c).abs().max().item():.3e} (tolerance atol 2e-4 + rtol 1e-3; "
-          f"largest excess {excess:.3e})", flush=True)
-    check(excess <= 0.0, "the f32 fused chain disagrees with the channel-major chain")
+    fused_f32_steps(dev, [], 5, f"n_max {batch.n_max}")
     return results, launches, walls
 
 
@@ -1814,6 +1846,38 @@ def _hmma_per_function(build, source: str) -> dict:
     return per_function
 
 
+def ptxas_functions(report: str) -> dict:
+    """{kernel function: (registers, spill store bytes, spill load bytes)}
+    from nvcc's ``-Xptxas -v`` report of one source."""
+    import re
+
+    out, current = {}, None
+    for ln in report.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", ln)
+        if m:
+            current = m.group(1)
+            out.setdefault(current, [0, 0, 0])
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and current:
+            out[current][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and current:
+            out[current][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def no_spills(reports: dict) -> None:
+    """K6's four-chunk instantiations (n_max 65-128, both modes) and K7's
+    forward (both input types) hold everything in registers: no spill."""
+    for source, pick in (("score_eval", lambda f: "score_eval_kernel" in f and "Li4E" in f),
+                         ("attn_bank", lambda f: "attn_map_bank_fwd_kernel" in f)):
+        fns = {f: v for f, v in ptxas_functions(reports[source]).items() if pick(f)}
+        print(f"{source}: registers / spill stores / spill loads {fns}", flush=True)
+        check(len(fns) == 2, f"{source}: the instantiations were not found in the nvcc report")
+        check(all(v[1] == 0 and v[2] == 0 for v in fns.values()), f"{source} spills: {fns}")
+
+
 def tensor_core_note(build) -> None:
     """The bf16 products of the CFConv kernels, of K6, of the pair block's
     forward and backward (K3 and K4) and K8's backward weight gradients run
@@ -1844,7 +1908,7 @@ def tensor_core_note(build) -> None:
     bf16_fns = {name: k for name, k in k6.items() if "score_eval_kernelILb1E" in name}
     print(f"score_eval SASS: {sum(k6.values())} HMMA over {len(k6)} functions; the bf16 "
           f"instantiations: {sorted(bf16_fns.values())}", flush=True)
-    check(len(bf16_fns) == 2 and all(k > 0 for k in bf16_fns.values()),
+    check(len(bf16_fns) == 3 and all(k > 0 for k in bf16_fns.values()),
           f"a bf16 instantiation of K6 holds no HMMA instruction ({bf16_fns})")
     check(sum(k6.values()) == sum(bf16_fns.values()), "K6's f32 mode issues HMMA")
     per_function = _hmma_per_function(build, "pair_block")
@@ -1894,10 +1958,16 @@ def main() -> int:
 
     # 1. build every kernel, one nvcc per source, in parallel
     t0 = time.perf_counter()
-    for name, report_ in build.build().items():
+    reports = build.build()
+    for name, report_ in reports.items():
         regs = [ln.strip() for ln in report_.splitlines() if "registers" in ln or "spill" in ln]
         print(f"built {name}: {'; '.join(regs)}", flush=True)
     print(f"kernel build {time.perf_counter() - t0:.1f} s", flush=True)
+    for name in ("score_eval", "attn_bank"):   # built before this run: build again for the report
+        if name not in reports:
+            build._library_path(name).unlink()
+            reports.update(build.build([name]))
+    no_spills(reports)
     tensor_core_note(build)
 
     def done(what):
@@ -1959,10 +2029,14 @@ def main() -> int:
                      "variant_2": {mode: {k: fused_results["score_eval_fused[v2]" + sfx][k]
                                           for k in k6_keys}
                                    for mode, sfx in (("f32", ""), ("bf16", "[bf16]"))},
-                     "n_max_64": {f"v{v}": {mode: {k: fused_results[
-                         f"score_eval_fused[v{v}]" + sfx + "[n64]"][k] for k in k6_keys}
-                         for mode, sfx in (("f32", ""), ("bf16", "[bf16]"))} for v in (1, 2)},
-                     "cluster_by_n_max": {n: score_plan(n, True)["cluster"] for n in (32, 64)}}
+                     **{f"n_max_{n}": {f"v{v}": {mode: {k: fused_results[
+                         f"score_eval_fused[v{v}]" + sfx + f"[n{n}]"][k] for k in k6_keys}
+                         for mode, sfx in (("f32", ""), ("bf16", "[bf16]"))} for v in (1, 2)}
+                        for n in (64, 128)},
+                     "chain_n_max_128_f32_3_steps": {
+                         "launches": fused_results["chain_n128_k6_launches"]},
+                     "cluster_by_n_max": {n: score_plan(n, True)["cluster"]
+                                          for n in (32, 64, 128)}}
         else:
             r, f32 = train_results[name], train_results[name + "[f32]"]
             # past n_max 32, bf16 and f32: K1, K2 / K5, K3 / K4 at n_max 64 and 128

@@ -1,13 +1,21 @@
-"""Where the time of K6 (the fused score evaluation) and of K8 (the q/k-net
-attention bank), forward and backward, goes on the GPU, and the device
-times of K6, K7 and K8.
+"""Where the time of K6 (the fused score evaluation), of K7's forward and of
+K8 (the q/k-net attention bank), forward and backward, goes on the GPU,
+and the device times of K6, K7 and K8.
 
-Phases (the default): builds ``csrc/score_eval.cu`` and
-``csrc/attn_qk_bank.cu`` with ``-DPHASE_PROFILE`` into ``build/profile/``
-(the port's ``nvcc`` flags otherwise), where thread 0 of every block stamps
-``%globaltimer`` at the kernels' phase marks, and launches them through
-their C entries on seeded operands: K6 at B=64, n_max 32 in bf16 and f32
-mode and at n_max 64 in bf16 (variant 1, the fused chain's shapes); K8's
+Phases (the default): builds ``csrc/score_eval.cu``, ``csrc/attn_bank.cu``
+and ``csrc/attn_qk_bank.cu`` with ``-DPHASE_PROFILE`` into
+``build/profile/`` (the port's ``nvcc`` flags otherwise), where thread 0 of
+every block stamps ``%globaltimer`` at the kernels' phase marks, and
+launches them through their C entries on seeded operands: K6 at B=64,
+n_max 32 in bf16 and f32 mode and at n_max 64 and 128 in bf16 (variant 1,
+the fused chain's shapes); K7's forward (A = 32, ds = 4, C = 8) at B=128,
+N=32 in bf16 and f32, n_max 128, B=32 and N = 256, B = 2 in bf16: per
+persistent block its first unit's copies landing, the conversion of its
+rows (and the next unit's copies issued) and the tile with its stores (the
+last unit's, where a block takes several); with ``--old-k7 CHECKOUT`` also
+the forward of that checkout (the earlier one block per (graph, channel),
+marks inserted around its staging and its map into a copy of its source
+beside it); K8's
 forward at B=128, N=32, the 3D->2D chain's edge layers 1-3 (F=16, C=8, bf16)
 and 0 (F=300, C=2, f32), with the chain's A = 32 and ds = 4 (8 heads); K8's
 backward (staging, the forward's two layers again, the map backward, the
@@ -21,11 +29,14 @@ instructions; ``chip_smoke.py`` gives the real times.
 Device times (``--times``): K6, K7 and K8 through the wrappers of
 whichever ``moleculesde_tpu_torch`` is first on the path (so that a parent
 checkout can be timed in turns with this one; a shape the checkout's
-kernel refuses prints its message): K6 at the shapes above plus n_max 64
-in f32; K8's forward also at N=64; K8's backward and K7's forward and
-backward at B=128, N=32 and 64 and at N=128, B=32 (F=16, C=8, and for K8
-F=300, C=2; bf16 and f32): 10 calls captured in a CUDA graph, the replays
-timed with CUDA events (median of 10), per call (``timing.py``).
+kernel refuses prints its message): K6 at B=64, n_max 32, 64 and 128,
+variants 1 and 2, in bf16 and f32; K8's forward also at N=64; K8's
+backward and K7's forward and backward at B=128, N=32 and 64 and at N=128,
+B=32 (F=16, C=8, and for K8 F=300, C=2; bf16 and f32), K7's forward also
+at C=2 and at N = 256, B = 2:
+10 calls captured in a CUDA graph, the replays timed with CUDA events
+(median of 10), per call (``timing.py``), and the first 16 hex digits of
+the SHA-256 of the outputs' bytes, which tell two checkouts' bits apart.
 
 Numerics (``--numerics``): K8's backward in bf16 on the 3D->2D chain's
 edge-layer 0 and 1 operands (``chip_smoke.py``'s, with its cotangents) at
@@ -35,7 +46,7 @@ version on the card, and the plain version on the CPU against the one on
 the card (dqk is a bf16 output: an f32 sum in another order can flip its
 rounding, by one bf16 ulp, 2^-8 to 2^-7 of the value).
 
-    python -m moleculesde_tpu_torch.benchmarks.profile_score_bank
+    python -m moleculesde_tpu_torch.benchmarks.profile_score_bank [--old-k7 out/parent]
     PYTHONPATH=<checkout> python <this file> --times --label parent
     python -m moleculesde_tpu_torch.benchmarks.profile_score_bank --numerics
 """
@@ -44,6 +55,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 
 import torch
 
@@ -56,7 +68,10 @@ K6_PHASES = (["staging", "phase 1", "cluster sync"]
              + ["basis 1: staging + hp", "basis 1: pairs"])
 K8_PHASES = ("W2 + bias copies issued", "chunk copies + wait", "layer 1", "barrier",
              "layer 2", "barrier", "map")
-K6_SHAPES = ((64, 32, True), (64, 32, False), (64, 64, True))
+K6_SHAPES = ((64, 32, True), (64, 32, False), (64, 64, True), (64, 128, True))
+K7_PHASES = ("first unit's rows land", "rows converted, next copies issued", "tile + stores")
+K7_OLD_PHASES = ("staging (f32, a value a thread)", "map (a thread a pair) + barrier")
+K7_SHAPES = ((128, 32, True), (128, 32, False), (32, 128, True), (2, 256, True))   # C = 8
 K8_SHAPES = ((128, 32, 16, 8, True), (128, 32, 300, 2, False))
 K8_BWD_PHASES = ("W2 + bias copies issued", "layer 1 (qk chunks staged)", "layer 2",
                  "map backward", "nets' backward", "dW1 + dqk partials")
@@ -90,32 +105,99 @@ def k8_operands(b: int, n: int, f: int, c: int, a: int = 32, seed: int = 21):
     return torch.randn(b, n, f, device=dev, generator=gen), ws
 
 
-def phases() -> None:
+def k7_operands(b: int, n: int, bf16: bool, c: int = 8, seed: int = 4):
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(seed)
+    q, k = (0.8 * torch.randn(b, c, n, 32, device=dev, generator=gen) for _ in range(2))
+    return (q.bfloat16(), k.bfloat16()) if bf16 else (q, k)
+
+
+def k7_phases(lib, names, title: str) -> None:
+    """K7's forward through the C entry of ``lib`` at K7_SHAPES; the shared
+    memory the entry checks is asked of the entry's own plan."""
+    from moleculesde_tpu_torch.benchmarks.timing import phase_stamps, print_phase_stamps
+    from moleculesde_tpu_torch.ops.common import stream
+
+    fn = lib.attn_map_bank_fwd
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    plan = lib.attn_bank_plan
+    plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    for b, n, bf16 in K7_SHAPES:
+        q, k = k7_operands(b, n, bf16)
+        out = torch.empty(b, 8, n, n, device="cuda")
+        got = (ctypes.c_int * 2)()
+        plan(n, 32, 8, 0, ctypes.addressof(got))
+        smem = got[1]
+
+        def launch():
+            rc = fn(q.data_ptr(), k.data_ptr(), out.data_ptr(), b * 8, n, 32, K8_DS,
+                    int(bf16), int(bf16), smem, stream(q))
+            assert rc == 0, rc
+
+        tiles = -(-n // 32)
+        print_phase_stamps(f"K7 forward{title} B={b} N={n} C=8 {'bf16' if bf16 else 'f32'} "
+                           f"({smem} B)", phase_stamps(lib, b * 8 * tiles * tiles, 4, launch),
+                           names)
+
+
+def old_k7_library(checkout: str):
+    """The forward of ``checkout`` (an earlier attn_bank.cu: one block per
+    (graph, channel), staging then the map) with phase marks inserted
+    around its staging and its map, built beside its source."""
+    from pathlib import Path
+
+    from moleculesde_tpu_torch.benchmarks.timing import phase_library
+
+    csrc = Path(checkout) / "moleculesde_tpu_torch" / "csrc"
+    src = (csrc / "attn_bank.cu").read_text()
+    body = ("  stage_qk(q + bc * N * A, k + bc * N * A, qs, ks, N, A, A + 1, bf16);\n"
+            "  __syncthreads();\n"
+            "  attn_map::forward(qs, ks, out + bc * N * N, N, A, ds);\n")
+    if body not in src or "namespace {" not in src:
+        raise SystemExit(f"--old-k7: {csrc / 'attn_bank.cu'} is not the one-block-per-map forward")
+    marked = body.replace("  stage_qk", "  PHASE_MARK(0);\n  stage_qk").replace(
+        "  __syncthreads();\n", "  __syncthreads();\n  PHASE_MARK(1);\n") + (
+        "  __syncthreads();\n  PHASE_MARK(2);\n")
+    src = src.replace(body, marked).replace("namespace {", "constexpr int kPhaseSlots = 4;\n"
+                                            "namespace {", 1)
+    path = csrc / "attn_bank_old_phases.cu"
+    path.write_text(src)
+    return phase_library("attn_bank_old", path)
+
+
+def phases(old_k7: str = "") -> None:
     from moleculesde_tpu_torch.benchmarks.timing import (
         phase_library, phase_stamps, print_phase_stamps)
     from moleculesde_tpu_torch.ops.attn_qk_bank import _weight_ptrs, bwd_plan, fwd_plan
     from moleculesde_tpu_torch.ops.common import stream
-    from moleculesde_tpu_torch.ops.score_kernel import score_param_layout, score_plan
+    from moleculesde_tpu_torch.ops.score_kernel import (
+        score_param_layout, score_plan, score_slab_bytes)
 
     lib = phase_library("score_eval")
     fn = lib.score_eval_fused
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-                   + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_void_p, ctypes.c_int]
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     layout, _ = score_param_layout(1)
     offsets = (ctypes.c_int * len(layout))(*(o for _, _, o in layout))
     for b, n, bf16 in K6_SHAPES:
         pos, node, edge, mask, packed = k6_operands(b, n)
         out = torch.empty(b, n, 3, device="cuda")
         plan = score_plan(n, bf16)
+        slab = torch.empty(max(1, score_slab_bytes(b, n, bf16)), dtype=torch.uint8,
+                           device="cuda")
 
         def launch():
             rc = fn(pos.data_ptr(), node.data_ptr(), edge.data_ptr(), mask.data_ptr(),
-                    packed.data_ptr(), offsets, len(layout), out.data_ptr(), b, n, 1, 2, 2,
-                    int(bf16), plan["cluster"], plan["dests"], plan["smem"], stream(pos))
+                    packed.data_ptr(), offsets, len(layout), out.data_ptr(), slab.data_ptr(),
+                    b, n, 1, 2, 2, int(bf16), plan["cluster"], plan["dests"], plan["smem"],
+                    stream(pos))
             assert rc == 0, rc
 
         print_phase_stamps(f"K6 B={b} n_max {n} {'bf16' if bf16 else 'f32'} {plan}",
                            phase_stamps(lib, b * plan["cluster"], 32, launch), K6_PHASES)
+    k7_phases(phase_library("attn_bank"), K7_PHASES, "")
+    if old_k7:
+        k7_phases(old_k7_library(old_k7), K7_OLD_PHASES, f" ({old_k7}'s forward)")
     lib = phase_library("attn_qk_bank")
     fn = lib.attn_qk_bank_fwd
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
@@ -164,17 +246,22 @@ def times(label: str) -> None:
 
     def show(what, fn):
         try:
-            fn()   # outside graph capture: a checkout whose kernel takes no such shape raises
+            out = fn()   # outside graph capture: a checkout whose kernel takes no such shape raises
         except ValueError as e:
             print(f"{label}: {what}: refused ({e})", flush=True)
             return
-        print(f"{label}: {what}: device_ms={device_ms(fn):.4f}", flush=True)
+        bits = hashlib.sha256()
+        for t in out if isinstance(out, tuple) else (out,):
+            bits.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        print(f"{label}: {what}: device_ms={device_ms(fn):.4f} bits={bits.hexdigest()[:16]}",
+              flush=True)
 
-    for b, n in ((64, 32), (64, 64)):
-        args = k6_operands(b, n)
-        for bf16 in (True, False):
-            show(f"K6 B={b} n_max {n} {'bf16' if bf16 else 'f32'}",
-                 lambda: score_eval_fused(*args, variant=1, bf16=bf16))
+    for b, n in ((64, 32), (64, 64), (64, 128)):
+        for variant in (1, 2):
+            args = k6_operands(b, n, variant)
+            for bf16 in (True, False):
+                show(f"K6 B={b} n_max {n} v{variant} {'bf16' if bf16 else 'f32'}",
+                     lambda: score_eval_fused(*args, variant=variant, bf16=bf16))
     for b, n, f, c in ((128, 32, 16, 8), (128, 32, 300, 2), (128, 64, 16, 8)):
         qk, ws = k8_operands(b, n, f, c)
         for bf16 in (True, False):
@@ -190,16 +277,19 @@ def times(label: str) -> None:
                 q = qk.to(torch.bfloat16 if bf16 else torch.float32)
                 show(f"K8 backward B={b} N={n} F={f} C={c} {'bf16' if bf16 else 'f32'}",
                      lambda: attn_qk_bank_bwd(q, *ws, g, K8_DS, bf16=bf16))
-        gen = torch.Generator(dev).manual_seed(4)
-        q, k = (0.8 * torch.randn(b, 8, n, 32, device=dev, generator=gen) for _ in range(2))
-        g = torch.randn(b, 8, n, n, device=dev, generator=gen)
+        g = torch.randn(b, 8, n, n, device=dev, generator=torch.Generator(dev).manual_seed(5))
         for bf16 in (True, False):
-            qm, km = (q.bfloat16(), k.bfloat16()) if bf16 else (q, k)
+            qm, km = k7_operands(b, n, bf16)
             mode = "bf16" if bf16 else "f32"
             show(f"K7 forward B={b} N={n} C=8 {mode}",
                  lambda: attn_map_bank_kernel(qm, km, K8_DS, bf16=bf16))
             show(f"K7 backward B={b} N={n} C=8 {mode}",
                  lambda: attn_map_bank_kernel_bwd(qm, km, g, K8_DS, bf16=bf16))
+    for b, n, c in ((128, 32, 2), (128, 64, 2), (32, 128, 2), (2, 256, 8)):
+        for bf16 in (True, False):
+            qm, km = k7_operands(b, n, bf16, c)
+            show(f"K7 forward B={b} N={n} C={c} {'bf16' if bf16 else 'f32'}",
+                 lambda: attn_map_bank_kernel(qm, km, K8_DS, bf16=bf16))
 
 
 def numerics() -> None:
@@ -234,6 +324,8 @@ def main() -> None:
     p.add_argument("--times", action="store_true", help="device times through the wrappers")
     p.add_argument("--numerics", action="store_true", help="K8 backward's bf16 dqk vs plain")
     p.add_argument("--label", default="this checkout")
+    p.add_argument("--old-k7", default="", metavar="CHECKOUT",
+                   help="also stamp the K7 forward of this (earlier) checkout")
     opts = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_score_bank: needs a CUDA device")
@@ -242,7 +334,7 @@ def main() -> None:
     elif opts.numerics:
         numerics()
     else:
-        phases()
+        phases(opts.old_k7)
 
 
 if __name__ == "__main__":

@@ -65,17 +65,18 @@ def profiled_ms(fn):
     return wall_ms, busy_us / 1e3
 
 
-def phase_library(name: str) -> ctypes.CDLL:
-    """``csrc/<name>.cu`` built with ``-DPHASE_PROFILE`` (the port's ``nvcc``
-    flags otherwise) into ``build/profile/``, loaded."""
+def phase_library(name: str, source=None) -> ctypes.CDLL:
+    """``csrc/<name>.cu`` (or the file ``source``) built with
+    ``-DPHASE_PROFILE`` (the port's ``nvcc`` flags otherwise) into
+    ``build/profile/lib<name>_phases.so``, loaded."""
     from moleculesde_tpu_torch.kernels import build
 
     out = build.BUILD_DIR.parent / "profile"
     out.mkdir(parents=True, exist_ok=True)
     lib = out / f"lib{name}_phases.so"
     subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-DPHASE_PROFILE", "-o", str(lib),
-                    str(build.CSRC_DIR / f"{name}.cu")], check=True, capture_output=True,
-                   text=True)
+                    str(source or build.CSRC_DIR / f"{name}.cu")], check=True,
+                   capture_output=True, text=True)
     return ctypes.CDLL(str(lib))
 
 
@@ -95,8 +96,10 @@ def phase_stamps(lib: ctypes.CDLL, blocks: int, slots: int, launch) -> np.ndarra
 def print_phase_stamps(title: str, p: np.ndarray, phases) -> None:
     """The span from the first block's start to the last block's end, the
     median block time, the median of each phase (between consecutive marks)
-    and the quantiles of the blocks' start times, which show the waves."""
+    and the quantiles of the blocks' start times, which show the waves.
+    Rows of blocks that never ran (no first stamp) are left out."""
     p = p[:, :len(phases) + 1]
+    p = p[p[:, 0] > 0]
     t0 = p[:, 0].min()
     dur = (p[:, -1] - p[:, 0]) / 1e3
     step = np.median(np.diff(p, axis=1), axis=0) / 1e3

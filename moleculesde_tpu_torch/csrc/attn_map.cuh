@@ -1,15 +1,13 @@
-// The head-mean tanh map of one (graph, channel), shared by K7
-// (attn_bank.cu) and K8 (attn_qk_bank.cu):
+// The backward of the head-mean tanh map of one (graph, channel), shared
+// by K7 (attn_bank.cu) and K8 (attn_qk_bank.cu):
 //   a[n, m] = (1/H) * sum_h tanh(inv * sum_{a in head h} q[n, a] k[m, a])
 // with heads the contiguous ds-wide chunks of A (H = A / ds) and
-// inv = 1 / sqrt(ds), and its backward, taken in tiles of rows so that
-// shared memory grows as N, not as N^2 H.  q and k lie in shared memory
-// as f32, rows padded to A + 1 words in the forward, so the threads of a
-// warp, which read different k rows, hit different banks, and to
-// row_stride(A) in the backward, which reads them 16 bytes at a time.
-// tanh is the accurate tanhf, not tanh.approx.f32, whose ~2^-11 relative
-// error would break the f32 agreement with the plain versions.  Every loop strides over the block's
-// threads; the callers put the barriers between phases.
+// inv = 1 / sqrt(ds), taken in tiles of rows so that shared memory grows
+// as N, not as N^2 H.  q and k lie in shared memory as f32, rows
+// row_stride(A) words apart, read 16 bytes at a time.  tanh is the
+// accurate tanhf, not tanh.approx.f32, whose ~2^-11 relative error would
+// break the f32 agreement with the plain versions.  Every loop strides
+// over the block's threads; the callers put the barriers between phases.
 //
 // The backward's two du products run as FMAs in index order in both
 // modes, not on mma.sync, though du, q and k are bf16 values in bf16 mode:
@@ -45,25 +43,6 @@ __device__ __forceinline__ float inv_sqrt(int ds) {
 }
 __device__ __forceinline__ float du_scale(int ds, int H) {
   return static_cast<float>(1.0 / sqrt(static_cast<double>(ds)) / H);
-}
-
-// a[n, m] into out (N*N values, row-major)
-__device__ void forward(const float* qs, const float* ks, float* out, int N,
-                        int A, int ds) {
-  const int AP = A + 1, H = A / ds;
-  const float inv = inv_sqrt(ds);
-  for (int i = threadIdx.x; i < N * N; i += blockDim.x) {
-    const int n = i / N, m = i - n * N;
-    const float* qr = qs + n * AP;
-    const float* kr = ks + m * AP;
-    float acc = 0.f;
-    for (int h = 0; h < H; ++h) {
-      float u = 0.f;
-      for (int d = h * ds; d < (h + 1) * ds; ++d) u = fmaf(qr[d], kr[d], u);
-      acc += tanhf(u * inv);
-    }
-    out[i] = acc / static_cast<float>(H);
-  }
 }
 
 // Rows of the map the backward takes at once, before shared memory

@@ -22,8 +22,8 @@
 //
 // Design.
 // - A thread-block cluster per molecule (cudaLaunchKernelEx): 2 blocks at
-//   N <= 32, 4 at N <= 64 (ops/score_kernel.py::score_plan), so that B=64
-//   molecules fill 128 or 256 SMs' worth of blocks.  Block r of a cluster
+//   N <= 32, 4 at N <= 64, 8 at N <= 128 (ops/score_kernel.py::score_plan),
+//   so that B=64 molecules fill 128, 256 or 512 SMs' worth of blocks.  Block r of a cluster
 //   owns destinations [r * D, (r + 1) * D) and holds their masked edge
 //   features ("the slab", rows [d][s] for every source s) in its shared
 //   memory for the whole evaluation: the slab is the only large tensor.
@@ -35,8 +35,26 @@
 //   reads from the next layer's remote writes.  The basis modules and the
 //   output rows belong to the owning block: a score row is summed in one
 //   block in a fixed order, and two runs agree bit for bit.
+// - N in 65..128 (four chunks of 32 sources a lane): the slab of 16
+//   destinations x 128 sources is 160 KB in bf16 and 256 KB in f32, and
+//   beside the 37 KB weight buffer, the 32 KB node state and the 66 KB
+//   basis node part no split of it fits a block's 227 KB (16 destinations
+//   a block: 350 KB; clusters of 16 blocks x 8 destinations: 232,160 B in
+//   bf16, 288 B under the limit, 244,448 B in f32).  So past N = 64 the
+//   slab lives in device memory, in a scratch buffer the wrapper allocates
+//   (1 MB a molecule in bf16, 2 MB in f32; the 16 clusters of 8 blocks in
+//   flight hold 16-32 MB, which the 50 MB L2 keeps), laid out so that each
+//   lane writes in phase 1 exactly the 64 or 128 bytes it reads back in
+//   the 4 GAT layers and 2 basis modules: in bf16 mode its mma.sync A
+//   fragments, in f32 mode its pair's row (store_frags / store_row).
+//   Shared memory is then 186,176 B (bf16) / 149,312 B (f32) whatever the
+//   clusters hold, and the plans at N <= 64 keep their layout and bits.
+//   A lane holds one e2 row, not four (128 floats would spill at 256
+//   threads): the GAT layer takes its logits chunk by chunk, the softmax
+//   its max and sum over all four, and the message forms e2 again chunk by
+//   chunk, summing the terms in the same order.
 // - A warp takes one destination d at a time, a lane one source s (s = 32j
-//   + lane for the j-th chunk of 32 sources, N <= 64: two chunks); sums over
+//   + lane for the j-th chunk of 32 sources: one, two or four chunks); sums over
 //   sources are warp shuffles, and the softmax over sources takes its max
 //   and sum over every chunk.  A lane forms its pair's frame, logits,
 //   softmax weight and message terms in registers; a reduce-scatter of 31
@@ -58,8 +76,8 @@
 // - f32 mode: every product on the CUDA cores as per-lane FMA rows (no
 //   TF32), the slab rows 128 B with their 16-byte chunks XOR-swizzled by
 //   row so that the lanes' row reads hit distinct banks.
-// - 512 threads at N <= 32, 256 at N <= 64 (the second source chunk holds
-//   more registers per lane, and shared memory is full).
+// - 512 threads at N <= 32, 256 above (a second source chunk holds more
+//   registers per lane, and shared memory is full).
 // - The frame basis is recomputed from the position floats wherever it is
 //   needed instead of storing nine [N, N] planes.
 // - Each phase's weights are staged into one 37 KB shared buffer before it,
@@ -94,7 +112,7 @@ constexpr int kH = 32;          // hidden width
 constexpr int kHeads = 8;
 constexpr int kCHead = kH / kHeads;
 constexpr int kCD = 128;        // basis-MLP width (hidden_coff_dim)
-constexpr int kMaxS = 2;        // chunks of 32 sources a lane takes (N <= 64)
+constexpr int kMaxS = 4;        // chunks of 32 sources a lane takes (N <= 128)
 constexpr int kMaxCluster = 8;
 constexpr int kMaxSegments = 128;
 constexpr unsigned kFull = 0xffffffffu;
@@ -111,11 +129,17 @@ constexpr int kB8 = 24;         // [K][8] (basis_out, 3 columns used)
 constexpr int kSlabF32Row = 32;     // floats, 16-byte chunks swizzled
 constexpr int kSlabBf16Row = 40;    // bf16 values (80 bytes)
 
-// threads per block: 16 warps at N <= 32; 8 with two source chunks, which
-// hold more per lane (and, in bf16 mode, more shared memory)
+// threads per block: 16 warps at N <= 32; 8 with two or four source
+// chunks, which hold more per lane (and, in bf16 mode, more shared memory)
 __host__ __device__ constexpr int threads_for(bool bf16, int S) {
   return S > 1 ? 256 : 512;
 }
+
+// past 64 sources (four chunks a lane) the slab lives in device memory
+__host__ __device__ constexpr bool global_slab(int S) { return S > 2; }
+
+// chunks of 32 sources a lane takes at n_max N: the instantiation's S
+__host__ __device__ constexpr int chunks_for(int N) { return N <= 32 ? 1 : N <= 64 ? 2 : 4; }
 
 struct Offsets {
   int v[kMaxSegments];
@@ -130,13 +154,13 @@ struct Layout {
 };
 
 __host__ __device__ inline Layout make_layout(int N, int nd, bool bf16) {
-  const int nsp = 32 * ((N + 31) / 32);
+  const int nsp = 32 * chunks_for(N);
   const int warps = threads_for(bf16, nsp / 32) / 32;
   const int node_floats = 4 * nsp * kNR > nsp * kHPR ? 4 * nsp * kNR : nsp * kHPR;
   Layout L;
   int o = 0;
   L.slab = o;
-  o += align16(nd * nsp * (bf16 ? kSlabBf16Row * 2 : kSlabF32Row * 4));
+  if (!global_slab(nsp / 32)) o += align16(nd * nsp * (bf16 ? kSlabBf16Row * 2 : kSlabF32Row * 4));
   L.wbuf = o;
   o += kWBuf * 4;
   L.xs = o;
@@ -332,6 +356,83 @@ struct SlabF32 {
   }
 };
 
+// ---- the slab in device memory (four source chunks, N > 64) --------------
+// Each (molecule, destination, chunk of 32 sources) owns a unit of 32 lanes
+// x 64 bytes (bf16 mode) or x 128 bytes (f32 mode) of a scratch buffer the
+// wrapper allocates (ops/score_kernel.py::score_slab_bytes).  A lane reads
+// back only what it wrote itself in phase 1: in bf16 mode its mma.sync A
+// fragments of the unit's [32 pairs][32 channels] block (phase 1's
+// accumulator fragments are exactly those), in f32 mode its pair's row.  So
+// no barrier orders a read after its write, and no shared memory stages
+// the rows.  16-byte word k of lane l sits at word 32 k + l: a warp's load
+// or store covers 512 contiguous bytes.  Cached in L2 only (.cg).
+
+__device__ __forceinline__ void store_frags(uint4* p, const uint32_t (&a)[2][2][4]) {
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+      __stcg(p + (2 * mt + kk) * 32, make_uint4(a[mt][kk][0], a[mt][kk][1], a[mt][kk][2],
+                                                a[mt][kk][3]));
+}
+
+__device__ __forceinline__ void load_frags(const uint4* p, uint32_t (&a)[2][2][4]) {
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const uint4 v = __ldcg(p + (2 * mt + kk) * 32);
+      a[mt][kk][0] = v.x;
+      a[mt][kk][1] = v.y;
+      a[mt][kk][2] = v.z;
+      a[mt][kk][3] = v.w;
+    }
+}
+
+__device__ __forceinline__ void store_row(uint4* p, const float (&v)[32]) {
+  float4* q = reinterpret_cast<float4*>(p);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    __stcg(q + 32 * j, make_float4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]));
+}
+
+__device__ __forceinline__ void load_row(const uint4* p, float (&v)[32]) {
+  const float4* q = reinterpret_cast<const float4*>(p);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float4 r = __ldcg(q + 32 * j);
+    v[4 * j] = r.x;
+    v[4 * j + 1] = r.y;
+    v[4 * j + 2] = r.z;
+    v[4 * j + 3] = r.w;
+  }
+}
+
+// acc[mt][nt] += A @ B[0:32, 8 nt .. +8] with A the warp's [32][32] block
+// held as A fragments (a[mt][kk]: m-tile mt, k-step kk); B as in warp_mma
+template <int NT>
+__device__ __forceinline__ void warp_mma_regs(float (&acc)[2][NT][4],
+                                              const uint32_t (&a)[2][2][4],
+                                              const __nv_bfloat16* B, int ldb) {
+  static_assert(NT % 2 == 0, "n-tiles in pairs");
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    const int k = 16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+    for (int nt = 0; nt < NT; nt += 2) {
+      uint32_t b[4];
+      ldsm_x4_t(b, B + k * ldb + nt * 8 + ((lane >> 4) & 1) * 8);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t bh[2] = {b[2 * h], b[2 * h + 1]};
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) mma_bf16(acc[mt][nt + h], a[mt][kk], bh);
+      }
+    }
+  }
+}
+
 // frame basis of the pair (s, d), as score_2d3d.dense_frames computes it
 struct Frame {
   float df[3], cr[3], vt[3];
@@ -524,7 +625,8 @@ __global__ void __launch_bounds__(threads_for(BF16, S), 1)
 score_eval_kernel(const float* __restrict__ pos, const float* __restrict__ node,
                   const float* __restrict__ edge2d, const float* __restrict__ mask,
                   const float* __restrict__ params, const Offsets off,
-                  float* __restrict__ out, int N, int variant, int L, int NC, int nd) {
+                  float* __restrict__ out, void* __restrict__ gslab, int N, int variant,
+                  int L, int NC, int nd) {
   constexpr int T = threads_for(BF16, S), W = T / 32, NSP = 32 * S;
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -559,6 +661,11 @@ score_eval_kernel(const float* __restrict__ pos, const float* __restrict__ node,
   unsigned char* tile = smem + lay.scratch + warp * kScratch;   // bf16 mode
   __nv_bfloat16* At = reinterpret_cast<__nv_bfloat16*>(tile);
   float* Ct = reinterpret_cast<float*>(tile);
+  // this lane's 16-byte words of the device-memory slab unit (d, chunk j)
+  auto gunit = [&](int d, int j) {
+    return static_cast<uint4*>(gslab) + ((static_cast<size_t>(b) * N + d) * S + j) *
+                                            (BF16 ? 4 : 8) * 32 + lane;
+  };
   const int gat0 = variant == 2 ? 10 : 7;      // first GAT segment
   const int basis0 = gat0 + 18 * L * NC;       // first basis segment
 
@@ -690,6 +797,7 @@ score_eval_kernel(const float* __restrict__ pos, const float* __restrict__ node,
           __syncwarp();
         }
         __nv_bfloat16* sl = static_cast<__nv_bfloat16*>(slab);
+        uint32_t fr[2][2][4];   // the same values as A fragments (device-memory slab)
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -710,10 +818,14 @@ score_eval_kernel(const float* __restrict__ pos, const float* __restrict__ node,
                 v[i] = (variant == 2 ? (pre[mt][nt][2 * h8 + i] + wbuf[kXBI + c + i]) * ev + f
                                      : ev + f) * mr;
               }
-              *reinterpret_cast<uint32_t*>(sl + (dl * NSP + sr) * kSlabBf16Row + c) =
-                  pack_bf16x2(v[0], v[1]);
+              const uint32_t two = pack_bf16x2(v[0], v[1]);
+              if constexpr (global_slab(S))
+                fr[mt][nt >> 1][2 * (nt & 1) + h8] = two;
+              else
+                *reinterpret_cast<uint32_t*>(sl + (dl * NSP + sr) * kSlabBf16Row + c) = two;
             }
           }
+        if constexpr (global_slab(S)) store_frags(gunit(d, j), fr);
       } else {
         const bool real = s < N;
         float pre[32], acc[32];
@@ -764,7 +876,10 @@ score_eval_kernel(const float* __restrict__ pos, const float* __restrict__ node,
             acc[c] *= m;
           }
         }
-        SlabF32::store(slab, dl * NSP + s, acc);
+        if constexpr (global_slab(S))
+          store_row(gunit(d, j), acc);
+        else
+          SlabF32::store(slab, dl * NSP + s, acc);
       }
     }
     if (lane == 0) cnt[dl] = fmaxf(count, 1.f);
@@ -774,14 +889,24 @@ score_eval_kernel(const float* __restrict__ pos, const float* __restrict__ node,
   auto edge_row = [&](int dl, int j, float (&e2)[32]) {
     const int row = dl * NSP + 32 * j;
     if constexpr (BF16) {
+      const __nv_bfloat16* we = reinterpret_cast<const __nv_bfloat16*>(wbytes + kTWE);
       float acc[2][4][4];
       zero(acc);
-      warp_mma(acc, static_cast<const __nv_bfloat16*>(slab) + row * kSlabBf16Row, kSlabBf16Row,
-               reinterpret_cast<const __nv_bfloat16*>(wbytes + kTWE), kB32, kH);
+      if constexpr (global_slab(S)) {
+        uint32_t a[2][2][4];
+        load_frags(gunit(d0 + dl, j), a);
+        warp_mma_regs(acc, a, we, kB32);
+      } else {
+        warp_mma(acc, static_cast<const __nv_bfloat16*>(slab) + row * kSlabBf16Row,
+                 kSlabBf16Row, we, kB32, kH);
+      }
       frag_rows(acc, Ct, wbuf + kGBias + 3 * kH, e2);
     } else {
       float ea[32];
-      SlabF32::load(slab, row + lane, ea);
+      if constexpr (global_slab(S))
+        load_row(gunit(d0 + dl, j), ea);
+      else
+        SlabF32::load(slab, row + lane, ea);
 #pragma unroll
       for (int c = 0; c < 32; ++c) e2[c] = 0.f;
       matvec32(ea, wbuf + kWE, kH, e2);
@@ -841,22 +966,47 @@ score_eval_kernel(const float* __restrict__ pos, const float* __restrict__ node,
       const float* o2 = s2 + kH;
       for (int dl = warp; dl < nown; dl += W) {
         const int d = d0 + dl;
-        float e2[S][32], alpha[S][kHeads], mj[S];
-#pragma unroll
-        for (int j = 0; j < S; ++j) {
-          const int s = 32 * j + lane;
-          const float m = maskT[dl * MR + s];
-          mj[j] = m;
-          edge_row(dl, j, e2[j]);
+        // four chunks keep one e2 row a lane and form it again for the
+        // message: 4 x 32 floats do not stay in registers at 256 threads.
+        // Their loops over the chunks are not unrolled (the compiler would
+        // keep every chunk's rows live at once); alpha and mj take chunk
+        // j's values through selects, so that they stay in registers.
+        constexpr int SK = global_slab(S) ? 1 : S;
+        float e2[SK][32], alpha[S][kHeads], mj[S];
+        auto logits = [&](int s, const float (&ej)[32], float m, float (&l8)[kHeads]) {
 #pragma unroll
           for (int hh = 0; hh < kHeads; ++hh) {
             float l = 0.f;
 #pragma unroll
             for (int cc = 0; cc < kCHead; ++cc) {
               const int c = hh * kCHead + cc;
-              l += rnd<BF16>((ks[s * kNR + c] + e2[j][c]) * qs[d * kNR + c]);
+              l += rnd<BF16>((ks[s * kNR + c] + ej[c]) * qs[d * kNR + c]);
             }
-            alpha[j][hh] = m > 0.f ? l * scale : -3.402823466e38f;
+            l8[hh] = m > 0.f ? l * scale : -3.402823466e38f;
+          }
+        };
+        if constexpr (global_slab(S)) {
+#pragma unroll 1
+          for (int j = 0; j < S; ++j) {
+            const float m = maskT[dl * MR + 32 * j + lane];
+            float l8[kHeads];
+            edge_row(dl, j, e2[0]);
+            logits(32 * j + lane, e2[0], m, l8);
+#pragma unroll
+            for (int i = 0; i < S; ++i) {
+              if (i == j) {
+                mj[i] = m;
+#pragma unroll
+                for (int hh = 0; hh < kHeads; ++hh) alpha[i][hh] = l8[hh];
+              }
+            }
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < S; ++j) {
+            mj[j] = maskT[dl * MR + 32 * j + lane];
+            edge_row(dl, j, e2[j]);
+            logits(32 * j + lane, e2[j], mj[j], alpha[j]);
           }
         }
 #pragma unroll
@@ -876,13 +1026,35 @@ score_eval_kernel(const float* __restrict__ pos, const float* __restrict__ node,
           for (int j = 0; j < S; ++j) alpha[j][hh] = rnd<BF16>(ex[j] / sum * mj[j]);
         }
         // message terms, summed over the chunks in order, in place of e2[0]
+        if constexpr (global_slab(S)) {
 #pragma unroll
-        for (int c = 0; c < 32; ++c) {
-          float t = alpha[0][c / kCHead] * (vs[lane * kNR + c] + e2[0][c]);
+          for (int c = 0; c < 32; ++c) e2[0][c] = 0.f;
+#pragma unroll 1
+          for (int j = 0; j < S; ++j) {
+            float ej[32], aj[kHeads];
+            edge_row(dl, j, ej);
 #pragma unroll
-          for (int j = 1; j < S; ++j)
-            t += alpha[j][c / kCHead] * (vs[(32 * j + lane) * kNR + c] + e2[j][c]);
-          e2[0][c] = t;
+            for (int hh = 0; hh < kHeads; ++hh) aj[hh] = alpha[0][hh];
+#pragma unroll
+            for (int i = 1; i < S; ++i) {
+              if (i == j) {
+#pragma unroll
+                for (int hh = 0; hh < kHeads; ++hh) aj[hh] = alpha[i][hh];
+              }
+            }
+#pragma unroll
+            for (int c = 0; c < 32; ++c)
+              e2[0][c] += aj[c / kCHead] * (vs[(32 * j + lane) * kNR + c] + ej[c]);
+          }
+        } else {
+#pragma unroll
+          for (int c = 0; c < 32; ++c) {
+            float t = alpha[0][c / kCHead] * (vs[lane * kNR + c] + e2[0][c]);
+#pragma unroll
+            for (int j = 1; j < S; ++j)
+              t += alpha[j][c / kCHead] * (vs[(32 * j + lane) * kNR + c] + e2[j][c]);
+            e2[0][c] = t;
+          }
         }
         const int c = lane;
         const float mha = rnd<BF16>(reduce_scatter(e2[0], lane) + sks[d * kNR + c]);
@@ -976,12 +1148,17 @@ score_eval_kernel(const float* __restrict__ pos, const float* __restrict__ node,
           float part[2][2][1][4];   // [TPU chunk][m-tile]
           zero(part[0]);
           zero(part[1]);
+          uint32_t sa[2][2][4];   // the slab unit's A fragments (device-memory slab)
+          if constexpr (global_slab(S)) load_frags(gunit(d, j), sa);
 #pragma unroll 1
           for (int qc = 0; qc < 4; ++qc) {   // 32 channels at a time
             const int ch = qc >> 1, c0 = 32 * qc;
             float ep[2][4][4];
             zero(ep);
-            warp_mma(ep, rows, kSlabBf16Row, wbe + c0, kB128, kH);
+            if constexpr (global_slab(S))
+              warp_mma_regs(ep, sa, wbe + c0, kB128);
+            else
+              warp_mma(ep, rows, kSlabBf16Row, wbe + c0, kB128, kH);
 #pragma unroll
             for (int kk = 0; kk < 2; ++kk) {
               uint32_t a[2][4];
@@ -1032,7 +1209,10 @@ score_eval_kernel(const float* __restrict__ pos, const float* __restrict__ node,
           __syncwarp();
         } else {
           float ea[32];
-          SlabF32::load(slab, dl * NSP + s, ea);
+          if constexpr (global_slab(S))
+            load_row(gunit(d, j), ea);
+          else
+            SlabF32::load(slab, dl * NSP + s, ea);
           float part[3] = {0.f, 0.f, 0.f};
           cc[0] = wbuf[kBO];
           cc[1] = wbuf[kBO + 1];
@@ -1085,8 +1265,8 @@ score_eval_kernel(const float* __restrict__ pos, const float* __restrict__ node,
 
 template <bool BF16, int S>
 int launch(const float* pos, const float* node, const float* edge2d, const float* mask,
-           const float* params, const Offsets& off, float* out, int B, int N, int variant,
-           int L, int NC, int cluster, int nd, int smem, cudaStream_t stream) {
+           const float* params, const Offsets& off, float* out, void* gslab, int B, int N,
+           int variant, int L, int NC, int cluster, int nd, int smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(score_eval_kernel<BF16, S>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1103,19 +1283,23 @@ int launch(const float* pos, const float* node, const float* edge2d, const float
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, score_eval_kernel<BF16, S>, pos, node, edge2d, mask, params,
-                           off, out, N, variant, L, NC, nd);
+                           off, out, gslab, N, variant, L, NC, nd);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool BF16>
 int launch_n(const float* pos, const float* node, const float* edge2d, const float* mask,
-             const float* params, const Offsets& off, float* out, int B, int N, int variant,
-             int L, int NC, int cluster, int nd, int smem, cudaStream_t stream) {
-  return N <= 32 ? launch<BF16, 1>(pos, node, edge2d, mask, params, off, out, B, N, variant,
-                                   L, NC, cluster, nd, smem, stream)
-                 : launch<BF16, 2>(pos, node, edge2d, mask, params, off, out, B, N, variant,
-                                   L, NC, cluster, nd, smem, stream);
+             const float* params, const Offsets& off, float* out, void* gslab, int B, int N,
+             int variant, int L, int NC, int cluster, int nd, int smem, cudaStream_t stream) {
+  if (chunks_for(N) == 1)
+    return launch<BF16, 1>(pos, node, edge2d, mask, params, off, out, gslab, B, N, variant, L,
+                           NC, cluster, nd, smem, stream);
+  if (chunks_for(N) == 2)
+    return launch<BF16, 2>(pos, node, edge2d, mask, params, off, out, gslab, B, N, variant, L,
+                           NC, cluster, nd, smem, stream);
+  return launch<BF16, 4>(pos, node, edge2d, mask, params, off, out, gslab, B, N, variant, L,
+                         NC, cluster, nd, smem, stream);
 }
 
 }  // namespace
@@ -1129,24 +1313,28 @@ extern "C" int score_eval_smem_bytes(int N, int nd, int bf16) {
 // offsets: the packed buffer's segment offsets in floats, in
 // pack_score_params order (n_offsets of them).  cluster, nd and smem: the
 // wrapper's plan (ops/score_kernel.py::score_plan): blocks per molecule,
-// destinations per block, shared-memory bytes per block.  Takes N <= 64,
-// hidden 32, 8 heads and basis width 128; returns cudaErrorInvalidValue
-// otherwise or when the plan does not cover N or disagrees with the layout.
+// destinations per block, shared-memory bytes per block.  slab: past N =
+// 64, device scratch of B * N * 128 * 32 values in the mode's type (bf16 or
+// f32; ops/score_kernel.py::score_slab_bytes), 16-byte aligned; not read
+// at N <= 64.  Takes N <= 128, hidden 32, 8 heads and basis width 128;
+// returns cudaErrorInvalidValue otherwise, when the plan does not cover N
+// or disagrees with the layout, or when N > 64 has no slab.
 extern "C" int score_eval_fused(const float* pos, const float* node, const float* edge2d,
                                 const float* mask, const float* params, const int* offsets,
-                                int n_offsets, float* out, int B, int N, int variant,
-                                int num_layers, int num_convs, int bf16, int cluster, int nd,
-                                int smem, void* stream) {
+                                int n_offsets, float* out, void* slab, int B, int N,
+                                int variant, int num_layers, int num_convs, int bf16,
+                                int cluster, int nd, int smem, void* stream) {
   const int expected = (variant == 2 ? 10 : 7) + 18 * num_layers * num_convs + 5 * num_layers;
   if (N < 1 || N > 32 * kMaxS || (variant != 1 && variant != 2) || n_offsets != expected ||
       n_offsets > kMaxSegments || cluster < 1 || cluster > kMaxCluster || nd < 1 ||
-      cluster * nd < N || smem != make_layout(N, nd, bf16 != 0).total)
+      cluster * nd < N || smem != make_layout(N, nd, bf16 != 0).total ||
+      (N > 64 && (slab == nullptr || reinterpret_cast<uintptr_t>(slab) % 16 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   Offsets off;
   for (int i = 0; i < kMaxSegments; ++i) off.v[i] = i < n_offsets ? offsets[i] : 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_n<true>(pos, node, edge2d, mask, params, off, out, B, N, variant,
+  return bf16 ? launch_n<true>(pos, node, edge2d, mask, params, off, out, slab, B, N, variant,
                                num_layers, num_convs, cluster, nd, smem, s)
-              : launch_n<false>(pos, node, edge2d, mask, params, off, out, B, N, variant,
+              : launch_n<false>(pos, node, edge2d, mask, params, off, out, slab, B, N, variant,
                                 num_layers, num_convs, cluster, nd, smem, s);
 }

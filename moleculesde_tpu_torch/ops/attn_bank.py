@@ -8,10 +8,12 @@ the feature axis (``H = A // ds``).  Counterpart of
 forward and backward.  On a CUDA tensor the wrappers launch the
 hand-written kernels of ``csrc/attn_bank.cu``, which replace the TPU
 kernels ``_fwd_kernel`` (``pallas_call`` at ``ops/rejected/attn_bank.py:138``)
-and ``_bwd_kernel`` (l.157): one block per (graph, channel), the per-head
-logits never leave the block, the backward walks the map in tiles of rows
-(:func:`plan`), so both take any N whose plan fits (the source's header
-says more).  On a CPU tensor they take :func:`attn_map_bank_plain` and
+and ``_bwd_kernel`` (l.157): the forward in persistent blocks over
+(graph, channel, 32 x 32 tile) units, whose shared memory does not depend
+on N; the backward one block per (graph, channel) walking the map in tiles
+of rows (:func:`plan`), so it takes any N whose plan fits; the per-head
+logits never leave the block (the source's header says more).  On a CPU
+tensor they take :func:`attn_map_bank_plain` and
 :func:`attn_map_bank_bwd_plain`.
 
 Numerics, as the TPU kernel's (and not as the eager bank of
@@ -87,6 +89,7 @@ def attn_map_bank_bwd_plain(q: torch.Tensor, k: torch.Tensor, g: torch.Tensor, d
 
 
 DU_WORDS = 8192     # csrc/attn_bank.cu::kDuBudget: du of a row tile, every head
+FWD_TILE = 32       # csrc/attn_bank.cu::kFwdTile: rows and columns of a forward unit
 
 
 def tile_rows(n: int, h: int, budget: int = DU_WORDS) -> int:
@@ -110,24 +113,24 @@ def row_stride(a: int) -> int:
 
 def plan(n: int, a: int, h: int, bwd: bool) -> Tuple[int, int]:
     """The launch plan of a forward (``bwd`` False) or backward block of
-    csrc/attn_bank.cu: (the backward's row tile R, N in the forward, which
-    walks the whole map; shared-memory bytes).  q and k rows padded to A + 1
-    words in the forward, :func:`row_stride` in the backward, with the
-    tile's du and, where R < N, dk carried between tiles ([N, A]); R halved
-    from :func:`tile_rows` until the block fits.  Raises where no plan fits
-    in the shared memory of a block."""
-    qk = 2 * n * (row_stride(a) if bwd else a + 1)
-    rows = n
+    csrc/attn_bank.cu: (rows, shared-memory bytes).  The forward's unit is a
+    :data:`FWD_TILE` x :data:`FWD_TILE` tile of one map: rows is the tile's,
+    and the bytes (the staged q and k rows, room for f32, and their f32
+    copies :func:`row_stride` words apart) do not depend on N.  The
+    backward's rows are its row tile R: q and k rows :func:`row_stride`
+    words apart, the tile's du and, where R < N, dk carried between tiles
+    ([N, A]); R halved from :func:`tile_rows` until the block fits.  Raises
+    where no plan fits in the shared memory of a block."""
     if bwd:
         def words(r):
-            return qk + du_words(n, r, h) + (n * a if r < n else 0)
+            return 2 * n * row_stride(a) + du_words(n, r, h) + (n * a if r < n else 0)
 
         rows = tile_rows(n, h)
         while rows > 1 and 4 * words(rows) > SMEM_LIMIT:
             rows //= 2
         smem = 4 * words(rows)
     else:
-        smem = 4 * qk
+        rows, smem = FWD_TILE, 4 * 2 * FWD_TILE * (a + row_stride(a))
     if smem > SMEM_LIMIT:
         raise ValueError(f"attn_map_bank {'backward' if bwd else 'forward'} kernel: N={n}, "
                          f"A={a}, H={h} need {smem} B of shared memory per block "
@@ -222,8 +225,9 @@ def attn_map_bank_kernel(q: torch.Tensor, k: torch.Tensor, ds: int, *, bf16: boo
     """Head-mean tanh maps [B, C, N, N] float32 from q, k [B, C, N, A]
     (float32 or bfloat16, one dtype), differentiable in q and k.  ``impl``:
     "auto" (the kernels for a CUDA tensor, the plain versions for a CPU
-    tensor), "kernel" or "plain".  The kernels take any N whose plan fits
-    (:func:`plan`) and raise on shapes they are not built for."""
+    tensor), "kernel" or "plain".  The forward takes any N, the backward
+    any N whose plan fits (:func:`plan`); both raise on shapes they are not
+    built for."""
     return _AttnMapBank.apply(q, k, ds, bf16, resolve_impl(impl, q, "attn_map_bank"))
 
 

@@ -9,8 +9,9 @@ MLP, the four DenseGAT layers (LayerNorm, FFN) and both basis-mixing
 modules of ``SDEModel2Dto3D`` variants 1 and 2 in one launch of
 ``csrc/score_eval.cu``, which replaces the TPU kernel ``_kernel``
 (``pallas_call`` at ``ops/score_kernel.py:388``): a thread-block cluster per
-molecule, its blocks splitting the destinations, at any n_max up to 64
-(:func:`score_plan`).  On a CPU tensor it takes
+molecule, its blocks splitting the destinations, at any n_max up to 128
+(:func:`score_plan`; past 64 the masked edge features live in a scratch
+buffer in device memory, :func:`score_slab_bytes`).  On a CPU tensor it takes
 :func:`score_eval_fused_plain`, the same function in PyTorch.
 
 The weights the kernel reads are packed once into one contiguous f32
@@ -38,7 +39,7 @@ from moleculesde_tpu_torch.models.score_2d3d import dense_frames
 from moleculesde_tpu_torch.ops.common import SQRT_GUARD, resolve_impl, round_bf16, stream
 
 # the widths csrc/score_eval.cu is compiled for
-KERNEL_N_MAX = 64         # two chunks of 32 sources per lane
+KERNEL_N_MAX = 128        # four chunks of 32 sources per lane
 KERNEL_HIDDEN = 32
 KERNEL_HEADS = 8
 KERNEL_COFF_DIM = 128
@@ -245,20 +246,42 @@ def _align16(v: int) -> int:
 
 def _threads(n: int) -> int:
     """Threads per block (csrc/score_eval.cu::threads_for): 512 at n_max <=
-    32, 256 above (two source chunks per lane hold more registers)."""
+    32, 256 above (two or four source chunks per lane hold more registers)."""
     return 512 if n <= 32 else 256
+
+
+def _chunks(n: int) -> int:
+    """Chunks of 32 sources a lane takes (csrc/score_eval.cu::chunks_for):
+    1, 2 or 4; the block pads the sources to 32 times as many."""
+    return 1 if n <= 32 else 2 if n <= 64 else 4
+
+
+def _global_slab(n: int) -> bool:
+    """Past n_max 64 (four source chunks) the slab lives in device memory
+    (csrc/score_eval.cu::global_slab)."""
+    return n > 64
+
+
+def score_slab_bytes(b: int, n: int, bf16: bool) -> int:
+    """Bytes of the device-memory slab past n_max 64: 32 values in the
+    mode's type for each of the B x N x 128 pairs of 128 padded sources
+    (1 MB a molecule at n_max 128 in bf16, 2 MB in f32); 0 at n_max <= 64,
+    where it lives in shared memory."""
+    return b * n * 128 * KERNEL_HIDDEN * (2 if bf16 else 4) if _global_slab(n) else 0
 
 
 def score_layout_bytes(n: int, dests: int, bf16: bool) -> int:
     """Shared-memory bytes of one block of K6 at n_max ``n`` with ``dests``
     destinations per block, as ``csrc/score_eval.cu::make_layout`` counts
-    them: the block's slab rows, the weight buffer, the double-buffered
-    node state, q / k / v / skip (or the basis node part), the warps' tiles
-    (bf16 mode), the FFN rows, positions, mask, counts and score rows."""
-    nsp = 32 * -(-n // 32)
+    them: the block's slab rows (none past n_max 64), the weight buffer,
+    the double-buffered node state, q / k / v / skip (or the basis node
+    part), the warps' tiles (bf16 mode), the FFN rows, positions, mask,
+    counts and score rows."""
+    nsp = 32 * _chunks(n)
     warps = _threads(n) // 32
     node = max(4 * nsp * (KERNEL_HIDDEN + 1), nsp * (KERNEL_COFF_DIM + 1))
-    return (_align16(dests * nsp * _ROW_BYTES[bf16]) + _WBUF_BYTES + 2 * nsp * KERNEL_HIDDEN * 4
+    slab = 0 if _global_slab(n) else _align16(dests * nsp * _ROW_BYTES[bf16])
+    return (slab + _WBUF_BYTES + 2 * nsp * KERNEL_HIDDEN * 4
             + _align16(node * 4) + (warps * _TILE_BYTES if bf16 else 0) + warps * KERNEL_HIDDEN * 4
             + _align16(nsp * 12) + _align16(dests * (nsp + 1) * 4) + _align16(dests * 4)
             + _align16(dests * 12))
@@ -266,14 +289,14 @@ def score_layout_bytes(n: int, dests: int, bf16: bool) -> int:
 
 def score_plan(n: int, bf16: bool) -> Dict[str, int]:
     """K6's launch plan at n_max ``n``: ``cluster`` blocks per molecule (2 up
-    to n_max 32, 4 up to 64), ``dests`` destinations per block, ``threads``
-    per block and ``smem`` bytes of shared memory per block.  Raises past
-    n_max 64 in either mode (the slab of 16 destinations x 64 sources and
-    the node state of 64 rows fill the f32 plan: 220 KB)."""
+    to n_max 32, 4 up to 64, 8 up to 128), ``dests`` destinations per
+    block, ``threads`` per block and ``smem`` bytes of shared memory per
+    block.  Raises past n_max 128 in either mode (the kernel's lanes take
+    at most four chunks of 32 sources)."""
     if not 1 <= n <= KERNEL_N_MAX:
         raise ValueError(f"score_eval_fused kernel: n_max {n} is past the cluster plan "
                          f"(n_max <= {KERNEL_N_MAX} in {'bf16' if bf16 else 'f32'} mode)")
-    cluster = 2 if n <= 32 else 4
+    cluster = 2 if n <= 32 else 4 if n <= 64 else 8
     dests = -(-n // cluster)
     return {"cluster": cluster, "dests": dests, "threads": _threads(n),
             "smem": score_layout_bytes(n, dests, bf16)}
@@ -315,12 +338,16 @@ def _launch(pos3, node_attr, edge_attr_2d, pair_mask, packed, variant, bf16,
     if b == 0:
         return out
     offsets = (ctypes.c_int * len(layout))(*(off for _, _, off in layout))
+    slab_bytes = score_slab_bytes(b, n, bf16)
+    slab = (torch.empty(slab_bytes, dtype=torch.uint8, device=node_attr.device)
+            if slab_bytes else None)
     fn = build.load("score_eval").score_eval_fused
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-                   + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_void_p, ctypes.c_int]
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     rc = fn(pos3.data_ptr(), node_attr.data_ptr(), edge_attr_2d.data_ptr(), maskf.data_ptr(),
-            packed.data_ptr(), offsets, len(layout), out.data_ptr(), b, n, variant,
+            packed.data_ptr(), offsets, len(layout), out.data_ptr(),
+            slab.data_ptr() if slab is not None else None, b, n, variant,
             num_layers, num_convs, int(bf16), plan["cluster"], plan["dests"], plan["smem"],
             stream(node_attr))
     build.check_launch(rc, "score_eval_fused")
@@ -336,7 +363,7 @@ def score_eval_fused(pos3, node_attr, edge_attr_2d, pair_mask, packed, *, varian
     requires grad, as the TPU kernel has no VJP.  ``impl``: "auto" (the
     kernel for a CUDA tensor, the plain version for a CPU tensor), "kernel"
     or "plain".  The kernel takes hidden 32, 8 heads, basis width 128 and
-    n_max <= 64 (:func:`score_plan`) and raises on other shapes."""
+    n_max <= 128 (:func:`score_plan`) and raises on other shapes."""
     args = (pos3, node_attr, edge_attr_2d, pair_mask, packed)
     if any(t.requires_grad for t in args):
         raise RuntimeError("score_eval_fused is forward only: no input may require grad")

@@ -20,7 +20,7 @@ import torch
 from moleculesde_tpu.ops.rejected.attn_bank import attn_map_bank_pallas
 from moleculesde_tpu.ops.rejected.attn_qk_bank import attn_qk_bank as jax_attn_qk_bank
 from moleculesde_tpu_torch.ops.attn_bank import (
-    attn_map_bank_bwd_plain, attn_map_bank_plain, plan, tile_rows)
+    attn_map_bank_bwd_plain, attn_map_bank_plain, plan, row_stride, tile_rows)
 from moleculesde_tpu_torch.ops.attn_qk_bank import (
     BWD_DU_WORDS, BWD_MAX_CHUNK, attn_qk_bank_bwd_plain, bwd_plan, check_plan)
 from moleculesde_tpu_torch.ops.common import SMEM_LIMIT
@@ -71,8 +71,8 @@ def test_attn_qk_bank_bwd_plain_matches_pallas_kernel_past_32(ds, bf16):
 
 # (N, A, H) -> K7's backward plan (row tile, shared bytes): the whole map
 # at N = 32 (the kernel before tiles), one row short at 33, then 16 / 8 / 4
-# rows at the loader's buckets and N = 256, and the forward (N, 2 N (A + 1)
-# words) beside each
+# rows at the loader's buckets and N = 256, and the forward (its 32 x 32
+# tile, 2 x 32 (A + row_stride(A)) words whatever N) beside each
 K7_PLANS = [((32, 32, 8), (32, 42016)), ((33, 32, 8), (31, 46496)),
             ((64, 32, 8), (16, 59424)), ((128, 32, 8), (8, 86048)),
             ((256, 32, 8), (4, 139296)), ((518, 32, 8), (1, 232096))]
@@ -83,16 +83,18 @@ def test_attn_map_bank_plan(shape, want):
     n, a, h = shape
     assert plan(n, a, h, bwd=True) == want
     assert want[1] <= SMEM_LIMIT and want[0] <= tile_rows(n, h)
-    assert plan(n, a, h, bwd=False) == (n, 8 * n * (a + 1))
+    assert plan(n, a, h, bwd=False) == (32, 4 * 64 * (a + row_stride(a))) == (32, 17408)
 
 
 def test_attn_map_bank_plan_refuses_past_shared_memory():
     """K7 takes any N whose plan fits, and raises past it naming the limit:
-    the forward past N = 880, the backward past N = 518 at A = 32, H = 8."""
-    assert plan(880, 32, 8, bwd=False)[1] <= SMEM_LIMIT
-    with pytest.raises(ValueError, match=r"forward kernel: N=881, A=32, H=8 need 232584 B of "
-                                         r"shared memory per block \(> 232448\)"):
-        plan(881, 32, 8, bwd=False)
+    the backward past N = 518 at A = 32, H = 8; the forward, whose tile
+    does not grow with N, takes N = 881 (past its old plan) and refuses
+    only a q / k width whose tile does not fit (A = 1024)."""
+    assert plan(881, 32, 8, bwd=False) == plan(32, 32, 8, bwd=False)
+    with pytest.raises(ValueError, match=r"forward kernel: N=881, A=1024, H=256 need 525312 B "
+                                         r"of shared memory per block \(> 232448\)"):
+        plan(881, 1024, 256, bwd=False)
     with pytest.raises(ValueError, match=r"backward kernel: N=519, A=32, H=8 need \d+ B of "
                                          r"shared memory per block \(> 232448\) at a row tile"):
         plan(519, 32, 8, bwd=True)

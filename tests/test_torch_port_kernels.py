@@ -417,8 +417,10 @@ def _score_operands(cuda, b, n, variant):
 
 
 # the fused chain's shape, n_max 64 (cluster of 4), 40 (two source chunks,
-# the second ragged) and small ones
-SCORE_SHAPES = [(64, 32), (3, 11), (64, 64), (2, 40), (1, 33)]
+# the second ragged) and small ones; past 64 (clusters of 8, four source
+# chunks, the slab in device memory): 65 (one pair of sources past 64),
+# 96 (the last chunk empty) and 128
+SCORE_SHAPES = [(64, 32), (3, 11), (64, 64), (2, 40), (1, 33), (2, 65), (2, 96), (8, 128)]
 
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
@@ -443,7 +445,7 @@ def test_score_eval_fused_kernel_matches_plain(cuda, shape, variant, bf16):
 
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
-@pytest.mark.parametrize("shape", [(64, 32), (8, 64)])
+@pytest.mark.parametrize("shape", [(64, 32), (8, 64), (4, 96), (8, 128)])
 def test_score_eval_fused_kernel_is_deterministic(cuda, shape, bf16):
     """Two launches give the same bits: every score row is summed in its
     owning block in a fixed order."""
@@ -461,7 +463,7 @@ def test_score_eval_plan_matches_kernel(cuda):
     fn = build.load("score_eval").score_eval_smem_bytes
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int] * 3
-    for n in (1, 11, 32, 33, 40, 64):
+    for n in (1, 11, 32, 33, 40, 64, 65, 96, 100, 128):
         for bf16 in (False, True):
             plan = score_plan(n, bf16)
             assert plan["smem"] == fn(n, plan["dests"], int(bf16))
@@ -470,11 +472,11 @@ def test_score_eval_plan_matches_kernel(cuda):
 
 def test_score_eval_fused_kernel_refuses_shapes(cuda):
     """Shapes the kernel is not built for raise, never fall back: n_max
-    past the cluster plan (64) in either mode, another hidden width."""
+    past the cluster plan (128) in either mode, another hidden width."""
     model = SDEModel2Dto3D(emb_dim=8, hidden_dim=32, variant=1, device=cuda)
     packed = model.packed_score_params()
-    pos, node = torch.zeros(2, 65, 3, device=cuda), torch.zeros(2, 65, 32, device=cuda)
-    edge, mask = torch.zeros(2, 65, 65, 32, device=cuda), torch.ones(2, 65, 65, device=cuda)
+    pos, node = torch.zeros(2, 129, 3, device=cuda), torch.zeros(2, 129, 32, device=cuda)
+    edge, mask = torch.zeros(2, 129, 129, 32, device=cuda), torch.ones(2, 129, 129, device=cuda)
     for bf16 in (False, True):
         with pytest.raises(ValueError, match="past the cluster plan"):
             score_eval_fused(pos, node, edge, mask, packed, variant=1, bf16=bf16)
@@ -849,6 +851,37 @@ def test_attn_qk_bank_fwd_plan_matches_kernel(cuda):
 MAP_LARGE_N = [(4, 8, 33, 32, 4), (16, 8, 64, 32, 4), (8, 8, 128, 32, 4), (2, 8, 256, 32, 4),
                (3, 2, 40, 12, 2)]
 
+# (B, N) of K7's forward in (graph, channel, 32 x 32 tile) units: one
+# ragged tile (1, 7), one whole tile (32), a ragged second tile (33),
+# 2 x 2 to 8 x 8 tiles (64, 128, 256)
+MAP_FWD_SHAPES = [(3, 1), (5, 7), (16, 32), (4, 33), (8, 64), (4, 128), (2, 256)]
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("c", [2, 8])
+@pytest.mark.parametrize("shape", MAP_FWD_SHAPES)
+def test_attn_map_bank_fwd_kernel_tiles(cuda, shape, c, bf16):
+    """K7's forward against its plain version at the chain's A = 32, ds = 4
+    and C = 2 / 8 (edge layers 0 / 1-3), q and k in the mode's dtype:
+    1e-5 of the largest plain value in f32 (its tanh is ~5e-7 absolute
+    off tanhf, the logits' sums run in another order) and, with nothing
+    rounded after the bf16 operands, in bf16 mode too; two launches bit
+    for bit; f32 operands in bf16 mode are rounded as the plain version
+    rounds them."""
+    b, n = shape
+    dt = torch.bfloat16 if bf16 else torch.float32
+    q, k, _ = _bank_operands(cuda, b, c, n, 32, 25, dt)
+    out = attn_map_bank_kernel(q, k, 4, bf16=bf16, impl="kernel")
+    ref = attn_map_bank_kernel(q, k, 4, bf16=bf16, impl="plain")
+    assert out.shape == (b, c, n, n) and out.dtype == torch.float32
+    assert ((out - ref).abs().max() / ref.abs().max()).item() <= 1e-5
+    assert torch.equal(out, attn_map_bank_kernel(q, k, 4, bf16=bf16, impl="kernel"))
+    if bf16:
+        q32, k32 = q.float() + 1e-3, k.float()   # off the bf16 grid: the kernel rounds
+        ref = attn_map_bank_kernel(q32, k32, 4, bf16=True, impl="plain")
+        out = attn_map_bank_kernel(q32, k32, 4, bf16=True, impl="kernel")
+        assert ((out - ref).abs().max() / ref.abs().max()).item() <= 1e-5
+
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
 @pytest.mark.parametrize("shape", MAP_LARGE_N)
@@ -935,14 +968,17 @@ def test_attn_bank_plans_match_kernels(cuda):
 
 def test_attn_bank_kernels_refuse_shapes(cuda):
     """Shapes the bank kernels are not built for raise, never fall back:
-    A not a multiple of ds, and any N past the plans' shared memory (K7's
-    forward N > 880, its backward N > 518, K8's forward N > 334 at F = 16,
-    its backward N > 266)."""
+    A not a multiple of ds, K7's forward past its shared memory (A = 1024:
+    its tile does not depend on N, and N = 881, past the old forward's
+    plan, runs), its backward N > 518, K8's forward N > 334 at F = 16,
+    its backward N > 266."""
     q = torch.zeros(2, 2, 8, 30, device=cuda)
     with pytest.raises(ValueError, match="multiple of ds"):
         attn_map_bank_kernel(q, q, 4)
     q = torch.zeros(1, 1, 881, 32, device=cuda)
-    with pytest.raises(ValueError, match="forward kernel: N=881, A=32, H=8 need .* shared memory"):
+    assert attn_map_bank_kernel(q, q, 4).shape == (1, 1, 881, 881)
+    q = torch.zeros(1, 1, 8, 1024, device=cuda)
+    with pytest.raises(ValueError, match="forward kernel: N=8, A=1024, H=256 need .* shared"):
         attn_map_bank_kernel(q, q, 4)
     q = torch.zeros(1, 1, 519, 32, device=cuda)
     g = torch.zeros(1, 1, 519, 519, device=cuda)
