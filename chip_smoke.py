@@ -13,6 +13,7 @@ checks what comes out.
 
 Phases (any failure exits non-zero):
   1. the card's name and power limit; build every kernel (one nvcc per source);
+     no spill in K6's four-chunk instantiations or in K7's forward and backward;
      the CFConv forward's and backward's SASS and every bf16 instantiation
      of K6 and of the pair block's forward and backward (K3 and K4) hold
      HMMA (their tensor-core products), counted per kernel function, and
@@ -114,6 +115,7 @@ Phases (any failure exits non-zero):
      "auto" build, as in 9.  At n_max 128 also K7 and K8, forward and
      backward, on the 3D->2D chain's edge-layer operands at B=32 as in 6,
      and both at N = 256, B = 2 on seeded operands (K8 at F = 16, C = 8),
+     K7 also at N = 600, B = 1, C = 8 (past its old backward's N <= 518),
      each kernel two runs bit for bit.
 The line before the last lists every kernel as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -898,7 +900,8 @@ def qk_bank_phase(name, qk, ws, g, ds, bf16, tol):
 
 
 def bank_kernel_phases(layers, size: str = ""):
-    """K7 and K8, forward and backward, against their plain versions on the
+    """K7 and K8 (where an operand set has ``qk``), forward and backward,
+    against their plain versions on the
     chain's layer-0 and layer-1 operands (``layers``, from bank_operands),
     in bf16 (the chain's mode) and f32 (on the f32 q / k nets' outputs),
     each kernel also two runs bit for bit; ``size`` ends the results' keys
@@ -911,11 +914,12 @@ def bank_kernel_phases(layers, size: str = ""):
     its logits or tanh to bf16 fails there."""
     results = {}
     for li, ops in enumerate(layers):
-        q, k, qk, ws, ds = ops["q"], ops["k"], ops["qk"], ops["ws"], ops["ds"]
+        q, k, qk, ws, ds = ops["q"], ops["k"], ops.get("qk"), ops.get("ws"), ops["ds"]
         gen = torch.Generator(device=q.device).manual_seed(9 + li)
         g = torch.randn(q.shape[:3] + (q.shape[2],), generator=gen, device=q.device)
-        print(f"bank operands{size}, edge layer {li}: q, k {tuple(q.shape)} {q.dtype}, qk "
-              f"{tuple(qk.shape)}, W1 {tuple(ws[0].shape)}, ds {ds}", flush=True)
+        print(f"bank operands{size}, edge layer {li}: q, k {tuple(q.shape)} {q.dtype}"
+              + ("" if qk is None else f", qk {tuple(qk.shape)}, W1 {tuple(ws[0].shape)}")
+              + f", ds {ds}", flush=True)
         for bf16 in (True, False):
             sfx = f"[L{li}]" + ("" if bf16 else "[f32]") + size
             tol = 3e-3 if bf16 else 1e-4
@@ -940,8 +944,9 @@ def bank_kernel_phases(layers, size: str = ""):
                 same_bits("K7 attn_map_bank bwd" + sfx, lambda: attn_map_bank_kernel_bwd(
                     qm, km, g, ds, bf16=bf16, impl="kernel"))
             results["attn_map_bank" + sfx], results["attn_map_bank_bwd" + sfx] = fwd, bwd
-            results["attn_qk_bank" + sfx], results["attn_qk_bank_bwd" + sfx] = qk_bank_phase(
-                "K8 attn_qk_bank" + sfx, qk, ws, g, ds, bf16, tol)
+            if qk is not None:
+                results["attn_qk_bank" + sfx], results["attn_qk_bank_bwd" + sfx] = (
+                    qk_bank_phase("K8 attn_qk_bank" + sfx, qk, ws, g, ds, bf16, tol))
     return results
 
 
@@ -971,6 +976,17 @@ def bank_n256_phases(dev):
     ops = {"q": q32.bfloat16(), "k": k32.bfloat16(), "q32": q32, "k32": k32, "qk": qk,
            "ws": ws, "ds": 4}
     return bank_kernel_phases([ops], "[n256]")
+
+
+def k7_n600_phases(dev):
+    """K7, forward and backward, at N = 600, B = 1, C = 8 (A = 32, ds = 4),
+    past the old backward's N <= 518 (19 row tiles, dk summed over them), on
+    seeded operands: bank_kernel_phases without K8 (whose plans stop at
+    N = 334 / 266), keys ending in [n600]."""
+    gen = torch.Generator(device=dev).manual_seed(19)
+    q32, k32 = (0.8 * torch.randn(1, 8, 600, 32, device=dev, generator=gen) for _ in range(2))
+    ops = {"q": q32.bfloat16(), "k": k32.bfloat16(), "q32": q32, "k32": k32, "ds": 4}
+    return bank_kernel_phases([ops], "[n600]")
 
 
 def chain_3d2d_path(dev):
@@ -1716,8 +1732,9 @@ def large_n_path(dev):
     "auto" build; then the same at ``--n_max 128``, B=32 (cut from the
     CLI's 128), where K7 and K8 are also held against their plain versions
     on the 3D->2D chain's edge-layer operands; then K3 / K4 forward and K7 /
-    K8 at N = 256, B = 2.  Returns ({"n_max_64": ..., "n_max_128": ...,
-    "n_256_b_2": ...} kernel results, {run name: launch counts})."""
+    K8 at N = 256, B = 2, and K7 at N = 600, B = 1.  Returns ({"n_max_64":
+    ..., "n_max_128": ..., "n_256_b_2": ..., "n_600_b_1": ...} kernel
+    results, {run name: launch counts})."""
     from moleculesde_tpu_torch.benchmarks.profile_pretrain import (
         COMMON_ARGS, parse_path, path_batches)
     from moleculesde_tpu_torch.examples import pretrain as cli
@@ -1744,6 +1761,7 @@ def large_n_path(dev):
         del models, optimizer, batches
     results["n_256_b_2"] = pair_fwd_n256_phases(dev)
     results["n_256_b_2"].update(bank_n256_phases(dev))
+    results["n_600_b_1"] = k7_n600_phases(dev)
     return results, launches
 
 
@@ -1869,9 +1887,11 @@ def ptxas_functions(report: str) -> dict:
 
 def no_spills(reports: dict) -> None:
     """K6's four-chunk instantiations (n_max 65-128, both modes) and K7's
-    forward (both input types) hold everything in registers: no spill."""
+    forward and backward (both input types each) hold everything in
+    registers: no spill."""
     for source, pick in (("score_eval", lambda f: "score_eval_kernel" in f and "Li4E" in f),
-                         ("attn_bank", lambda f: "attn_map_bank_fwd_kernel" in f)):
+                         ("attn_bank", lambda f: "attn_map_bank_fwd_kernel" in f),
+                         ("attn_bank", lambda f: "attn_map_bank_bwd_kernel" in f)):
         fns = {f: v for f, v in ptxas_functions(reports[source]).items() if pick(f)}
         print(f"{source}: registers / spill stores / spill loads {fns}", flush=True)
         check(len(fns) == 2, f"{source}: the instantiations were not found in the nvcc report")
@@ -2058,7 +2078,7 @@ def main() -> int:
     # the bank kernels: edge layer 1's operands (C = 8, as layers 1-3) in bf16
     # at the top, layer 0's (C = 2; K8 F = emb_dim) and f32 mode beside them
     bank_all = {**bank_results, **large_n_results["n_max_128"],
-                **large_n_results["n_256_b_2"]}
+                **large_n_results["n_256_b_2"], **large_n_results["n_600_b_1"]}
     for name, counter, source, replaces, main_path in (
             ("attn_map_bank", attn_map_bank_kernel, "attn_bank.cu",
              "rejected/attn_bank.py:138", "sample_3d_to_2d_pallas"),
@@ -2076,6 +2096,8 @@ def main() -> int:
                                                 "f32": res(f"[L{li}][f32][n{n}]")}
                                 for li in (1, 0)} for n in (64, 128)}
         extra["n_256_b_2"] = {"bf16": res("[L0][n256]"), "f32": res("[L0][f32][n256]")}
+        if name.startswith("attn_map_bank"):   # K7 past the old backward's N <= 518
+            extra["n_600_b_1"] = {"bf16": res("[L0][n600]"), "f32": res("[L0][f32][n600]")}
         kernels.append({
             "name": name, "route": "cuda", "source": "moleculesde_tpu_torch/csrc/" + source,
             "replaces": "moleculesde_tpu/ops/" + replaces,

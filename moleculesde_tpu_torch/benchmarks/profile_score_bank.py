@@ -12,10 +12,13 @@ the fused chain's shapes); K7's forward (A = 32, ds = 4, C = 8) at B=128,
 N=32 in bf16 and f32, n_max 128, B=32 and N = 256, B = 2 in bf16: per
 persistent block its first unit's copies landing, the conversion of its
 rows (and the next unit's copies issued) and the tile with its stores (the
-last unit's, where a block takes several); with ``--old-k7 CHECKOUT`` also
-the forward of that checkout (the earlier one block per (graph, channel),
-marks inserted around its staging and its map into a copy of its source
-beside it); K8's
+last unit's, where a block takes several); K7's backward at the same
+shapes and N = 600, B = 1: per persistent block each phase's time summed
+over its chunks (rows landed and converted, logits + du, the unit's dq or,
+in a column unit, dk products, dk's where one unit holds the map and the
+stores); with ``--old-k7 CHECKOUT`` also the backward of that checkout
+(the earlier one block per (graph, channel), marks inserted around its
+staging and its map backward into a copy of its source beside it); K8's
 forward at B=128, N=32, the 3D->2D chain's edge layers 1-3 (F=16, C=8, bf16)
 and 0 (F=300, C=2, f32), with the chain's A = 32 and ds = 4 (8 heads); K8's
 backward (staging, the forward's two layers again, the map backward, the
@@ -32,11 +35,13 @@ checkout can be timed in turns with this one; a shape the checkout's
 kernel refuses prints its message): K6 at B=64, n_max 32, 64 and 128,
 variants 1 and 2, in bf16 and f32; K8's forward also at N=64; K8's
 backward and K7's forward and backward at B=128, N=32 and 64 and at N=128,
-B=32 (F=16, C=8, and for K8 F=300, C=2; bf16 and f32), K7's forward also
-at C=2 and at N = 256, B = 2:
+B=32 (F=16, C=8, and for K8 F=300, C=2; bf16 and f32), K7's forward and
+backward also at C=2 and at N = 256, B = 2 and N = 600, B = 1:
 10 calls captured in a CUDA graph, the replays timed with CUDA events
 (median of 10), per call (``timing.py``), and the first 16 hex digits of
 the SHA-256 of the outputs' bytes, which tell two checkouts' bits apart.
+``--times --old-k7 CHECKOUT`` runs that in turns, CHECKOUT / this / this /
+CHECKOUT, each a process of its own with its package first on the path.
 
 Numerics (``--numerics``): K8's backward in bf16 on the 3D->2D chain's
 edge-layer 0 and 1 operands (``chip_smoke.py``'s, with its cotangents) at
@@ -47,6 +52,7 @@ the card (dqk is a bf16 output: an f32 sum in another order can flip its
 rounding, by one bf16 ulp, 2^-8 to 2^-7 of the value).
 
     python -m moleculesde_tpu_torch.benchmarks.profile_score_bank [--old-k7 out/parent]
+    python -m moleculesde_tpu_torch.benchmarks.profile_score_bank --times --old-k7 out/parent
     PYTHONPATH=<checkout> python <this file> --times --label parent
     python -m moleculesde_tpu_torch.benchmarks.profile_score_bank --numerics
 """
@@ -56,6 +62,9 @@ from __future__ import annotations
 import argparse
 import ctypes
 import hashlib
+import os
+import subprocess
+import sys
 
 import torch
 
@@ -70,8 +79,12 @@ K8_PHASES = ("W2 + bias copies issued", "chunk copies + wait", "layer 1", "barri
              "layer 2", "barrier", "map")
 K6_SHAPES = ((64, 32, True), (64, 32, False), (64, 64, True), (64, 128, True))
 K7_PHASES = ("first unit's rows land", "rows converted, next copies issued", "tile + stores")
-K7_OLD_PHASES = ("staging (f32, a value a thread)", "map (a thread a pair) + barrier")
+K7_BWD_PHASES = ("rows landed + converted", "logits + du", "dq (or dk) products",
+                 "dk products (N <= 32) + stores")
+K7_OLD_BWD_PHASES = ("staging (f32, a value a thread)", "map backward (row tiles)")
 K7_SHAPES = ((128, 32, True), (128, 32, False), (32, 128, True), (2, 256, True))   # C = 8
+K7_BWD_SHAPES = K7_SHAPES + ((1, 600, True),)
+K7_SLOTS = 5       # csrc/attn_bank.cu::kPhaseSlots
 K8_SHAPES = ((128, 32, 16, 8, True), (128, 32, 300, 2, False))
 K8_BWD_PHASES = ("W2 + bias copies issued", "layer 1 (qk chunks staged)", "layer 2",
                  "map backward", "nets' backward", "dW1 + dqk partials")
@@ -112,7 +125,7 @@ def k7_operands(b: int, n: int, bf16: bool, c: int = 8, seed: int = 4):
     return (q.bfloat16(), k.bfloat16()) if bf16 else (q, k)
 
 
-def k7_phases(lib, names, title: str) -> None:
+def k7_phases(lib) -> None:
     """K7's forward through the C entry of ``lib`` at K7_SHAPES; the shared
     memory the entry checks is asked of the entry's own plan."""
     from moleculesde_tpu_torch.benchmarks.timing import phase_stamps, print_phase_stamps
@@ -135,31 +148,57 @@ def k7_phases(lib, names, title: str) -> None:
             assert rc == 0, rc
 
         tiles = -(-n // 32)
-        print_phase_stamps(f"K7 forward{title} B={b} N={n} C=8 {'bf16' if bf16 else 'f32'} "
-                           f"({smem} B)", phase_stamps(lib, b * 8 * tiles * tiles, 4, launch),
-                           names)
+        print_phase_stamps(f"K7 forward B={b} N={n} C=8 {'bf16' if bf16 else 'f32'} "
+                           f"({smem} B)", phase_stamps(lib, b * 8 * tiles * tiles, K7_SLOTS,
+                                                       launch), K7_PHASES)
 
 
-def old_k7_library(checkout: str):
-    """The forward of ``checkout`` (an earlier attn_bank.cu: one block per
-    (graph, channel), staging then the map) with phase marks inserted
-    around its staging and its map, built beside its source."""
+def k7_bwd_phases(lib, shapes, slots: int, names, title: str = "") -> None:
+    """K7's backward through the C entry of ``lib`` at ``shapes``, rows and
+    shared memory asked of the entry's own plan (this checkout's units, or
+    an earlier checkout's row tile), ``slots`` stamps a block."""
+    from moleculesde_tpu_torch.benchmarks.timing import phase_stamps, print_phase_stamps
+    from moleculesde_tpu_torch.ops.common import stream
+
+    fn = lib.attn_map_bank_bwd
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    plan = lib.attn_bank_plan
+    plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    for b, n, bf16 in shapes:
+        q, k = k7_operands(b, n, bf16)
+        g = torch.randn(b, 8, n, n, device="cuda", generator=torch.Generator("cuda").manual_seed(5))
+        dq, dk = torch.empty_like(q), torch.empty_like(k)
+        got = (ctypes.c_int * 2)()
+        plan(n, 32, 8, 1, ctypes.addressof(got))
+        rows, smem = got[0], got[1]
+
+        def launch():
+            rc = fn(q.data_ptr(), k.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                    b * 8, n, 32, K8_DS, int(bf16), int(bf16), rows, smem, stream(q))
+            assert rc == 0, rc
+
+        print_phase_stamps(f"K7 backward{title} B={b} N={n} C=8 {'bf16' if bf16 else 'f32'} "
+                           f"(rows {rows}, {smem} B)",
+                           phase_stamps(lib, 2 * b * 8 * -(-n // 32), slots, launch), names)
+
+
+def old_k7_bwd_library(checkout: str):
+    """The backward of ``checkout`` (an earlier attn_bank.cu: one block per
+    (graph, channel), staging then the map backward in row tiles) with
+    phase marks inserted around its staging and its map backward, built
+    beside its source."""
     from pathlib import Path
 
     from moleculesde_tpu_torch.benchmarks.timing import phase_library
 
     csrc = Path(checkout) / "moleculesde_tpu_torch" / "csrc"
     src = (csrc / "attn_bank.cu").read_text()
-    body = ("  stage_qk(q + bc * N * A, k + bc * N * A, qs, ks, N, A, A + 1, bf16);\n"
-            "  __syncthreads();\n"
-            "  attn_map::forward(qs, ks, out + bc * N * N, N, A, ds);\n")
-    if body not in src or "namespace {" not in src:
-        raise SystemExit(f"--old-k7: {csrc / 'attn_bank.cu'} is not the one-block-per-map forward")
-    marked = body.replace("  stage_qk", "  PHASE_MARK(0);\n  stage_qk").replace(
-        "  __syncthreads();\n", "  __syncthreads();\n  PHASE_MARK(1);\n") + (
-        "  __syncthreads();\n  PHASE_MARK(2);\n")
-    src = src.replace(body, marked).replace("namespace {", "constexpr int kPhaseSlots = 4;\n"
-                                            "namespace {", 1)
+    stage = "  stage_qk(q + bc * N * A, k + bc * N * A, qs, ks, N, A, QS, bf16);\n  __syncthreads();\n"
+    tail = "dk_acc, N, A, ds, R, bf16);\n"
+    if stage not in src or tail not in src:
+        raise SystemExit(f"--old-k7: {csrc / 'attn_bank.cu'} is not the one-block-per-map backward")
+    src = src.replace(stage, "  PHASE_MARK(0);\n" + stage + "  PHASE_MARK(1);\n").replace(
+        tail, tail + "  PHASE_MARK(2);\n")
     path = csrc / "attn_bank_old_phases.cu"
     path.write_text(src)
     return phase_library("attn_bank_old", path)
@@ -195,9 +234,12 @@ def phases(old_k7: str = "") -> None:
 
         print_phase_stamps(f"K6 B={b} n_max {n} {'bf16' if bf16 else 'f32'} {plan}",
                            phase_stamps(lib, b * plan["cluster"], 32, launch), K6_PHASES)
-    k7_phases(phase_library("attn_bank"), K7_PHASES, "")
+    lib = phase_library("attn_bank")
+    k7_phases(lib)
+    k7_bwd_phases(lib, K7_BWD_SHAPES, K7_SLOTS, K7_BWD_PHASES)
     if old_k7:
-        k7_phases(old_k7_library(old_k7), K7_OLD_PHASES, f" ({old_k7}'s forward)")
+        k7_bwd_phases(old_k7_bwd_library(old_k7), K7_SHAPES, 4, K7_OLD_BWD_PHASES,
+                      f" ({old_k7})")
     lib = phase_library("attn_qk_bank")
     fn = lib.attn_qk_bank_fwd
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
@@ -285,11 +327,15 @@ def times(label: str) -> None:
                  lambda: attn_map_bank_kernel(qm, km, K8_DS, bf16=bf16))
             show(f"K7 backward B={b} N={n} C=8 {mode}",
                  lambda: attn_map_bank_kernel_bwd(qm, km, g, K8_DS, bf16=bf16))
-    for b, n, c in ((128, 32, 2), (128, 64, 2), (32, 128, 2), (2, 256, 8)):
+    for b, n, c in ((128, 32, 2), (128, 64, 2), (32, 128, 2), (2, 256, 8), (1, 600, 8)):
+        g = torch.randn(b, c, n, n, device=dev, generator=torch.Generator(dev).manual_seed(5))
         for bf16 in (True, False):
             qm, km = k7_operands(b, n, bf16, c)
-            show(f"K7 forward B={b} N={n} C={c} {'bf16' if bf16 else 'f32'}",
+            mode = "bf16" if bf16 else "f32"
+            show(f"K7 forward B={b} N={n} C={c} {mode}",
                  lambda: attn_map_bank_kernel(qm, km, K8_DS, bf16=bf16))
+            show(f"K7 backward B={b} N={n} C={c} {mode}",
+                 lambda: attn_map_bank_kernel_bwd(qm, km, g, K8_DS, bf16=bf16))
 
 
 def numerics() -> None:
@@ -325,11 +371,18 @@ def main() -> None:
     p.add_argument("--numerics", action="store_true", help="K8 backward's bf16 dqk vs plain")
     p.add_argument("--label", default="this checkout")
     p.add_argument("--old-k7", default="", metavar="CHECKOUT",
-                   help="also stamp the K7 forward of this (earlier) checkout")
+                   help="also stamp the K7 backward of this (earlier) checkout; with --times, "
+                        "time it and this checkout in turns")
     opts = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_score_bank: needs a CUDA device")
-    if opts.times:
+    if opts.times and opts.old_k7:
+        here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+        for path, label in ((opts.old_k7, opts.old_k7), (here, "this checkout"), (here, "this checkout"),
+                            (opts.old_k7, opts.old_k7)):
+            subprocess.run([sys.executable, os.path.abspath(__file__), "--times", "--label", label],
+                           env={**os.environ, "PYTHONPATH": os.path.abspath(path)}, check=True)
+    elif opts.times:
         times(opts.label)
     elif opts.numerics:
         numerics()

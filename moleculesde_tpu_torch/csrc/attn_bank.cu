@@ -46,58 +46,59 @@
 // bf16 (a no-op when they arrive in bf16), the logits accumulate in f32 and
 // tanh and the head mean run in f32.
 //
-// Backward, per (graph, channel): attn_map.cuh's tiled map backward.  A
-// tile of R rows recomputes each head's logits and t_h = tanh(inv u_h),
-// forms du_h = g * (1 - t_h^2) * (inv / H) (rounded to bf16 in bf16 mode,
-// as the TPU kernel rounds it before both products) for its R x N pairs,
-// holds them in shared memory (H (R N + 1) words; a thread per 2 x 2
-// pairs, q and k rows read 16 bytes at a time), then
-//   dq[n, a] = sum_m du_{h(a)}[n, m] k[m, a]   (the tile's rows, stored)
-//   dk[m, a] = sum_n du_{h(a)}[n, m] q[n, a]   (the tile's rows added)
-// in f32, dk carried between tiles in shared memory ([N, A]) and stored in
-// q's dtype after the last.  R is the plan's (attn_bank_plan): the whole
-// map at N = 32 (one tile, as the kernel before tiles), 8 rows at N = 128,
-// fewer where shared memory runs out; any N whose plan fits (N <= 518 at
-// A = 32, H = 8).  512 threads, three blocks an SM:
-// faster than 1024 threads at two blocks, whose 32 registers spilled
-// (PERF.md, PR 13).  Bound: bytes (q, k, g read, dq, dk written), 3 N*N*A
-// multiply-adds per (graph, channel).
+// Backward: persistent blocks of 128 threads walk units of (graph,
+// channel, 32-row tile), as the forward walks its tiles.  A unit holds its
+// 32 rows (f32) and loops over the map's 32-column chunks; each chunk's 32
+// rows of the other operand arrive by 16-byte cp.async, and each thread's
+// g by a register load, while the previous chunk computes.  Per chunk:
+//   du_h[n, m] = g[n, m] * (1 - t_h^2) * (inv / H), t_h = tanh(inv u_h)
+//                recomputed (2 x 4 pairs a thread, as the forward's tile),
+//                rounded to bf16 in bf16 mode (the TPU kernel rounds it
+//                before both products), every head's 32 x 32 in shared
+//                memory, each head padded against bank conflicts;
+//   dq[n, a]  += sum_m du_{h(a)}[n, m] k[m, a]   (2 rows x 4 features a
+//                thread, du and k read 16 bytes at a time; one FMA chain
+//                per element over m in index order across the chunks,
+//                kept in shared memory between chunks).
+// dk[m, a] = sum_n du_{h(a)}[n, m] q[n, a] is the same product on the
+// transposed map: where one tile holds the map (N <= 32) its unit also
+// runs dk's chains (4 columns x 2 features a thread); past that a second
+// set of units, (graph, channel, 32 columns), holds k's rows and streams
+// q's, recomputing du, so that dk too is one FMA chain per element over n
+// in index order.  Partial sums of the row tiles, added in a second pass,
+// were tried first (PERF.md): they took dk further from the plain
+// version's sums, and in bf16 mode at N = 600 one more rounding flip left
+// the 3e-3 bar.  t is the accurate tanhf, the same bits as torch.tanh on
+// the card (bwd_du says why no cheaper 1 - t^2 without t).  No atomics:
+// two runs give the same bits.  Shared memory depends on A and H, not on N
+// (54,400 B at A = 32, H = 8, four blocks an SM): N is capped by nothing
+// but the int32 index.  Bound: bytes (q, k, g read, dq, dk written) or the
+// 3 N*N*A multiply-adds per (graph, channel); in practice the issue of the
+// products' FMAs and shared-memory loads and du's tanhf.  The products
+// stay FMAs in index order, off the tensor cores: see attn_map.cuh's
+// header (K8's bf16 output on mma.sync).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
 #include <algorithm>
 #include <atomic>
+#include <cmath>
 #include <stdint.h>
 
 #include "attn_map.cuh"
 #include "hopper.cuh"
 
-constexpr int kPhaseSlots = 4;   // PHASE_PROFILE marks per forward block
+// PHASE_PROFILE slots per block: the forward marks 0-3; the backward's
+// block writes its start and its running phase totals in 0-4 (Laps)
+constexpr int kPhaseSlots = 5;
 
 namespace {
 
-// q, k rows of one (graph, channel) into shared memory, QS words apart (the
-// backward)
-template <typename T>
-__device__ void stage_qk(const T* __restrict__ q, const T* __restrict__ k,
-                         float* qs, float* ks, int N, int A, int QS, int bf16) {
-  for (int i = threadIdx.x; i < N * A; i += blockDim.x) {
-    const int r = i / A, c = i - r * A;
-    float qv = attn_map::load(q, i), kv = attn_map::load(k, i);
-    if (bf16) {
-      qv = attn_map::round_bf16(qv);
-      kv = attn_map::round_bf16(kv);
-    }
-    qs[r * QS + c] = qv;
-    ks[r * QS + c] = kv;
-  }
-}
+// ---- what both directions share: persistent blocks over 32-row units ----
 
-// ---- the forward: persistent blocks over (graph, channel, 32 x 32 tile) ----
-
-constexpr int kFwdThreads = 128;   // 4 warps, each a 16 x 16 quarter of the tile
-constexpr int kFwdTile = 32;       // rows and columns of a unit's tile
+constexpr int kThreads = 128;   // 4 warps, each a 16 x 16 quarter of a 32 x 32 tile
+constexpr int kTile = 32;       // rows (and columns) of a unit's tile
 
 // t0 = tanh(x0), t1 = tanh(x1) to ~5e-7 absolute, from a0 = 2 |x0| log2(e)
 // and a1 (the caller folds 1 / sqrt(ds) into that factor): with d = 1 +
@@ -132,62 +133,132 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
-// The q rows [r0, r0 + 32) and k rows [c0, c0 + 32) of map bc (clipped to
-// N) into the staging buffers, as they lie in device memory: by 16-byte
-// cp.async copies where the rows are 16-byte aligned (vec), else one value
-// at a time, synchronously.
+// The rows [r0, r0 + 32) of map bc of x (clipped to N) into the staging
+// buffer s, as they lie in device memory: by 16-byte cp.async copies where
+// the rows are 16-byte aligned (vec), else one value at a time,
+// synchronously.
 template <typename T>
-__device__ __forceinline__ void fwd_stage(const T* __restrict__ q, const T* __restrict__ k,
-                                          T* sq, T* sk, size_t bc, int r0, int c0, int N,
-                                          int A, bool vec) {
-  const int nq = (min(kFwdTile, N - r0)) * A, nk = (min(kFwdTile, N - c0)) * A;
-  const T* gq = q + (bc * N + r0) * A;
-  const T* gk = k + (bc * N + c0) * A;
+__device__ __forceinline__ void stage_rows(const T* __restrict__ x, T* s, size_t bc, int r0,
+                                           int N, int A, bool vec) {
+  const int n = min(kTile, N - r0) * A;
+  const T* gx = x + (bc * N + r0) * A;
   if (vec) {
     constexpr int E = 16 / sizeof(T);
-    for (int i = threadIdx.x * E; i < nq; i += kFwdThreads * E) hopper::cp_async16(sq + i, gq + i, true);
-    for (int i = threadIdx.x * E; i < nk; i += kFwdThreads * E) hopper::cp_async16(sk + i, gk + i, true);
+    for (int i = threadIdx.x * E; i < n; i += kThreads * E) hopper::cp_async16(s + i, gx + i, true);
   } else {
-    for (int i = threadIdx.x; i < nq; i += kFwdThreads) sq[i] = gq[i];
-    for (int i = threadIdx.x; i < nk; i += kFwdThreads) sk[i] = gk[i];
+    for (int i = threadIdx.x; i < n; i += kThreads) s[i] = gx[i];
   }
 }
 
+// k rows sit in slot (c % 4) 8 + c / 4 of a tile, so that the four lanes of
+// a row (columns 4 tx + j) read four consecutive slots
+__host__ __device__ __forceinline__ int kslot(int c) { return (c & 3) * 8 + (c >> 2); }
+
+// The staged rows as f32, rounded to bf16 in bf16 mode (bf16 operands are
+// on the grid already), QS words a row: sq's nq valid rows into qc in row
+// order (unless sq is null) and sk's nk into kc in k's slots, in one pass;
+// rows past the valid ones read as 0.  A quad of columns a step where A is
+// a multiple of 4 whose quads divide the block.
+template <typename T>
+__device__ __forceinline__ void convert_rows(const T* sq, float* qc, int nq, const T* sk,
+                                             float* kc, int nk, int A, int QS, int bf16) {
+  if (A >= 4 && A % 4 == 0 && kThreads % (A / 4) == 0) {
+    const int c4 = 4 * (threadIdx.x % (A / 4));
+    auto quad = [&](const T* s, int r, int n) {
+      float4 v = r < n ? load4(s + r * A + c4) : make_float4(0.f, 0.f, 0.f, 0.f);
+      if (bf16 && sizeof(T) == 4)
+        v = make_float4(attn_map::round_bf16(v.x), attn_map::round_bf16(v.y),
+                        attn_map::round_bf16(v.z), attn_map::round_bf16(v.w));
+      return v;
+    };
+    for (int r = threadIdx.x / (A / 4); r < kTile; r += kThreads / (A / 4)) {
+      if (sq) *reinterpret_cast<float4*>(qc + r * QS + c4) = quad(sq, r, nq);
+      *reinterpret_cast<float4*>(kc + kslot(r) * QS + c4) = quad(sk, r, nk);
+    }
+  } else {
+    auto one = [&](const T* s, int i, int r, int n) {
+      const float v = r < n ? attn_map::load(s, i) : 0.f;
+      return bf16 ? attn_map::round_bf16(v) : v;
+    };
+    for (int i = threadIdx.x; i < kTile * A; i += kThreads) {
+      const int r = i / A, a = i - r * A;
+      if (sq) qc[r * QS + a] = one(sq, i, r, nq);
+      kc[kslot(r) * QS + a] = one(sk, i, r, nk);
+    }
+  }
+}
+
+// u[i][j] = q_h[row i] . k_h[col j] for head h = d0 / ds of the thread's 2
+// rows and 4 columns; q rows at qr[i], k rows at kr[j] (f32, QS-strided
+// slots), the products as FMAs in index order.  V: ds % 4 == 0, four
+// values of a row in one 16-byte load.
+template <bool V>
+__device__ __forceinline__ void head_logits(const float* const (&qr)[2],
+                                            const float* const (&kr)[4], float (&u)[2][4],
+                                            int d0, int ds) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) u[i][j] = 0.f;
+  const int e = d0 + ds;
+  if (V) {
+    for (int d = d0; d < e; d += 4) {
+      float4 a[2], b[4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) a[i] = *reinterpret_cast<const float4*>(qr[i] + d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = *reinterpret_cast<const float4*>(kr[j] + d);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          u[i][j] = fmaf(a[i].x, b[j].x, u[i][j]);
+          u[i][j] = fmaf(a[i].y, b[j].y, u[i][j]);
+          u[i][j] = fmaf(a[i].z, b[j].z, u[i][j]);
+          u[i][j] = fmaf(a[i].w, b[j].w, u[i][j]);
+        }
+    }
+  } else {
+    for (int d = d0; d < e; ++d)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) u[i][j] = fmaf(qr[i][d], kr[j][d], u[i][j]);
+  }
+}
+
+// The blocks an SM holds of kernel at smem bytes, times the SMs: queried
+// once per instantiation and size (cache: smem << 32 | blocks on the card)
+template <typename K>
+cudaError_t resident_blocks(K kernel, int smem, std::atomic<long long>& cache, long long& all) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem);
+  if (err != cudaSuccess) return err;
+  const long long known = cache.load(std::memory_order_relaxed);
+  all = known & 0xffffffffll;
+  if ((known >> 32) != smem) {
+    int per_sm = 0, dev = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    all = static_cast<long long>(per_sm > 0 ? per_sm : 1) * sms;
+    cache.store(static_cast<long long>(smem) << 32 | all, std::memory_order_relaxed);
+  }
+  return cudaSuccess;
+}
+
+// ---- the forward: persistent blocks over (graph, channel, 32 x 32 tile) ----
+
 // acc[i][j] = sum_h tanh(inv * q_h[row i] . k_h[col j]) for the thread's
-// 2 rows and 4 columns; q rows at qr[i], k rows at kr[j] (f32, QS-strided
-// slots), each head's products as FMAs in index order; c = 2 log2(e) inv.
-// V: ds % 4 == 0, four values of a row in one 16-byte load.
+// 2 rows and 4 columns (head_logits); c = 2 log2(e) inv.
 template <bool V>
 __device__ __forceinline__ void fwd_tile(const float* const (&qr)[2], const float* const (&kr)[4],
                                          float (&acc)[2][4], int H, int ds, float c) {
 #pragma unroll 2
   for (int h = 0; h < H; ++h) {
-    float u[2][4] = {};
-    const int e = (h + 1) * ds;
-    if (V) {
-      for (int d = h * ds; d < e; d += 4) {
-        float4 a[2], b[4];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) a[i] = *reinterpret_cast<const float4*>(qr[i] + d);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = *reinterpret_cast<const float4*>(kr[j] + d);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            u[i][j] = fmaf(a[i].x, b[j].x, u[i][j]);
-            u[i][j] = fmaf(a[i].y, b[j].y, u[i][j]);
-            u[i][j] = fmaf(a[i].z, b[j].z, u[i][j]);
-            u[i][j] = fmaf(a[i].w, b[j].w, u[i][j]);
-          }
-      }
-    } else {
-      for (int d = h * ds; d < e; ++d)
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) u[i][j] = fmaf(qr[i][d], kr[j][d], u[i][j]);
-    }
+    float u[2][4];
+    head_logits<V>(qr, kr, u, h * ds, ds);
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -206,29 +277,27 @@ __device__ __forceinline__ void fwd_tile(const float* const (&qr)[2], const floa
 // and 32 k rows in q's dtype, room for f32), then the unit's q rows and k
 // rows in f32, QS = row_stride(A) words apart.  A unit's rows are staged
 // while the previous unit computes: the staging buffers are free once
-// their values are converted.  k rows sit in slot (c % 4) 8 + c / 4, so
-// that the four lanes of a row (columns 4 tx + j) read four consecutive
-// slots, 16 bytes each, on distinct banks; a thread owns rows
-// {16 (w / 2) + ty, + 8} and columns 16 (w % 2) + 4 tx + {0..3} (warp w,
-// ty = lane / 4, tx = lane % 4) and stores each row's four values in one
-// 16-byte store where the map's rows are 16-byte aligned.
+// their values are converted.  k rows sit in their slots (kslot), so that
+// the four lanes of a row read four consecutive slots, 16 bytes each, on
+// distinct banks; a thread owns rows {16 (w / 2) + ty, + 8} and columns
+// 16 (w % 2) + 4 tx + {0..3} (warp w, ty = lane / 4, tx = lane % 4) and
+// stores each row's four values in one 16-byte store where the map's rows
+// are 16-byte aligned.
 template <typename T>
-__global__ void __launch_bounds__(kFwdThreads)
+__global__ void __launch_bounds__(kThreads)
 attn_map_bank_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          float* __restrict__ out, int BC, int N, int A, int ds, int bf16,
                          int vec) {
   extern __shared__ __align__(16) float smem[];
-  const int QS = attn_map::row_stride(A), H = A / ds, tiles = (N + kFwdTile - 1) / kFwdTile;
+  const int QS = attn_map::row_stride(A), H = A / ds, tiles = (N + kTile - 1) / kTile;
   T* sq = reinterpret_cast<T*>(smem);
-  T* sk = reinterpret_cast<T*>(smem + kFwdTile * A);
-  float* qc = smem + 2 * kFwdTile * A;
-  float* kc = qc + kFwdTile * QS;
+  T* sk = reinterpret_cast<T*>(smem + kTile * A);
+  float* qc = smem + 2 * kTile * A;
+  float* kc = qc + kTile * QS;
   const long long units = static_cast<long long>(BC) * tiles * tiles;
   // 2 log2(e) / sqrt(ds), rounded once from double
   const float c2 = static_cast<float>(2.0 * 1.4426950408889634 / sqrt(static_cast<double>(ds)));
   const float hinv = 1.f / static_cast<float>(H);
-  // the conversion's fast path: A a multiple of 4 whose quads divide the block
-  const bool quads = A >= 4 && A % 4 == 0 && kFwdThreads % (A / 4) == 0;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, ty = lane >> 2, tx = lane & 3;
   const int wr = (w >> 1) * 16, wc = (w & 1) * 16;
   const float* qr[2] = {qc + (wr + ty) * QS, qc + (wr + ty + 8) * QS};
@@ -238,57 +307,29 @@ attn_map_bank_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   auto where = [&](long long u, size_t& bc, int& r0, int& c0) {
     bc = static_cast<size_t>(u / (static_cast<long long>(tiles) * tiles));
     const int t = static_cast<int>(u - static_cast<long long>(bc) * tiles * tiles);
-    r0 = (t / tiles) * kFwdTile;
-    c0 = (t % tiles) * kFwdTile;
+    r0 = (t / tiles) * kTile;
+    c0 = (t % tiles) * kTile;
+  };
+  auto stage = [&](long long u) {
+    size_t bc;
+    int r0, c0;
+    where(u, bc, r0, c0);
+    stage_rows(q, sq, bc, r0, N, A, vec != 0);
+    stage_rows(k, sk, bc, c0, N, A, vec != 0);
   };
   PHASE_MARK(0);
   long long u = blockIdx.x;
-  size_t bc;
-  int r0, c0;
-  if (u < units) {
-    where(u, bc, r0, c0);
-    fwd_stage(q, k, sq, sk, bc, r0, c0, N, A, vec != 0);
-  }
+  if (u < units) stage(u);
   for (; u < units; u += gridDim.x) {
+    size_t bc;
+    int r0, c0;
     where(u, bc, r0, c0);
     hopper::cp_async_wait_all();
     __syncthreads();   // the staged rows are in; the last unit's reads of qc / kc are done
     PHASE_MARK(1);
-    const int nq = min(kFwdTile, N - r0), nk = min(kFwdTile, N - c0);
-    if (quads) {   // a thread keeps one quad of columns, four values a step
-      const int c4 = 4 * (threadIdx.x % (A / 4));
-      for (int r = threadIdx.x / (A / 4); r < kFwdTile; r += kFwdThreads / (A / 4)) {
-        const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-        float4 vq = r < nq ? load4(sq + r * A + c4) : z, vk = r < nk ? load4(sk + r * A + c4) : z;
-        if (bf16 && sizeof(T) == 4) {   // bf16 operands are on the grid already
-          vq = make_float4(attn_map::round_bf16(vq.x), attn_map::round_bf16(vq.y),
-                           attn_map::round_bf16(vq.z), attn_map::round_bf16(vq.w));
-          vk = make_float4(attn_map::round_bf16(vk.x), attn_map::round_bf16(vk.y),
-                           attn_map::round_bf16(vk.z), attn_map::round_bf16(vk.w));
-        }
-        *reinterpret_cast<float4*>(qc + r * QS + c4) = vq;
-        *reinterpret_cast<float4*>(kc + ((r & 3) * 8 + (r >> 2)) * QS + c4) = vk;
-      }
-    } else {
-      for (int i = threadIdx.x; i < kFwdTile * A; i += kFwdThreads) {
-        const int r = i / A, a = i - r * A;
-        float vq = r < nq ? attn_map::load(sq, i) : 0.f;
-        float vk = r < nk ? attn_map::load(sk, i) : 0.f;
-        if (bf16) {
-          vq = attn_map::round_bf16(vq);
-          vk = attn_map::round_bf16(vk);
-        }
-        qc[r * QS + a] = vq;
-        kc[((r & 3) * 8 + (r >> 2)) * QS + a] = vk;
-      }
-    }
+    convert_rows(sq, qc, min(kTile, N - r0), sk, kc, min(kTile, N - c0), A, QS, bf16);
     __syncthreads();   // qc / kc are written; the staging buffers are free
-    if (u + gridDim.x < units) {
-      size_t bn;
-      int rn, cn;
-      where(u + gridDim.x, bn, rn, cn);
-      fwd_stage(q, k, sq, sk, bn, rn, cn, N, A, vec != 0);
-    }
+    if (u + gridDim.x < units) stage(u + gridDim.x);
     PHASE_MARK(2);
     float acc[2][4] = {};
     if (ds % 4 == 0)
@@ -316,106 +357,397 @@ attn_map_bank_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-constexpr int kBwdThreads = 512;   // three blocks an SM (40 registers)
-constexpr int kDuBudget = 8192;    // words of a row tile's du (attn_map.cuh)
+// ---- the backward: persistent blocks over (graph, channel, 32-row tile) ----
 
-template <typename T>
-__global__ void __launch_bounds__(kBwdThreads, 3)
-attn_map_bank_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const float* __restrict__ g, T* __restrict__ dq, T* __restrict__ dk,
-                         int N, int A, int ds, int R, int bf16) {
-  extern __shared__ __align__(16) float smem[];
-  const int QS = attn_map::row_stride(A);
-  float* qs = smem;                // [N][QS]
-  float* ks = qs + N * QS;         // [N][QS]
-  float* dus = ks + N * QS;        // [H][R * N + 1]
-  float* dk_acc = dus + attn_map::du_words(N, R, A / ds);   // [N][A] when R < N
-  const size_t bc = blockIdx.x;
-  stage_qk(q + bc * N * A, k + bc * N * A, qs, ks, N, A, QS, bf16);
-  __syncthreads();
-  attn_map::backward_tiled(qs, ks, g + bc * N * N, dus, dq + bc * N * A, dk + bc * N * A,
-                           dk_acc, N, A, ds, R, bf16);
+constexpr int kDuHead = kTile * kTile + 4;   // one head's du, 32 x 32: 4 banks past the last
+
+// With -DPHASE_PROFILE each thread times the phases of its chunks (one lap
+// closes phase k) and thread 0 writes the block's start and its running
+// totals at the end, so that consecutive slots differ by each phase's time
+// summed over the block's chunks; otherwise nothing.
+struct Laps {
+#ifdef PHASE_PROFILE
+  long long start, last, sum[4];
+  __device__ static long long now() {
+    long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    return t;
+  }
+  __device__ Laps() : sum{0, 0, 0, 0} { start = last = now(); }
+  __device__ void lap(int k) {
+    const long long t = now();
+    sum[k] += t - last;
+    last = t;
+  }
+  __device__ void write() const {
+    if (!g_phase || threadIdx.x != 0) return;
+    long long* p = g_phase + static_cast<size_t>(blockIdx.x) * kPhaseSlots;
+    p[0] = start;
+    for (int k = 0; k < 4; ++k) p[k + 1] = p[k] + sum[k];
+  }
+#else
+  __device__ void lap(int) {}
+  __device__ void write() const {}
+#endif
+};
+
+// g of the thread's 2 rows x 4 columns of a chunk into registers (zero past
+// N): held rows r[i], chunk columns c + j, g[r, c + j] for a row unit and
+// g[c + j, r] for a column unit; a 16-byte load a row where N % 4 == 0 and
+// g is 16-byte aligned (vec).
+__device__ __forceinline__ void load_g(const float* __restrict__ gm, const int (&r)[2], int c,
+                                       int N, bool col, bool vec, float (&gv)[2][4]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!col && vec && r[i] < N && c + 3 < N) {
+      const float4 v =
+          __ldg(reinterpret_cast<const float4*>(gm + static_cast<size_t>(r[i]) * N + c));
+      gv[i][0] = v.x, gv[i][1] = v.y, gv[i][2] = v.z, gv[i][3] = v.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const size_t at = col ? static_cast<size_t>(c + j) * N + r[i]
+                              : static_cast<size_t>(r[i]) * N + c + j;
+        gv[i][j] = r[i] < N && c + j < N ? __ldg(gm + at) : 0.f;
+      }
+    }
+  }
 }
 
-// The plan of a block: rows R of the backward's tile (the forward's
-// kFwdTile) and the shared-memory floats: the forward's staging buffers
-// and f32 q / k rows of one 32 x 32 tile (fwd_words, whatever N); the
-// backward's q and k rows (row_stride(A) words apart), the du tile and dk
-// between tiles, R halved from tile_rows until the block fits kSmemLimit
-// (or R = 1: then nothing fits).
+// du of the thread's 2 rows and 4 columns for every head into dus (head h
+// at h kDuHead, row r at 32 r, one 16-byte store a row and head):
+// g gv, t = tanhf(inv u), du = g (1 - t^2) scale (scale = inv / H),
+// rounded to bf16 in bf16 mode.  The accurate tanhf, as torch.tanh on the
+// card, and not 4 e / (1 + e)^2 on ex2 / rcp.approx (1.5 MUFU operations a
+// value, 11-15% less time): that is as accurate, but 1 - t^2 then lacks
+// the plain version's rounding of t, and in bf16 mode far more values of
+// du round to the other bf16 neighbour, which took dk to 3.6e-3 of max
+// |plain| on the 3D->2D chain's operands at n_max 128, past the 3e-3 bar
+// (benchmarks/k7_du_ablation.py builds that form beside this one).
+template <bool V>
+__device__ __forceinline__ void bwd_du(const float* const (&qr)[2], const float* const (&kr)[4],
+                                       const float (&gv)[2][4], float* const (&dr)[2], int H,
+                                       int ds, float inv, float scale, int bf16) {
+#pragma unroll 2
+  for (int h = 0; h < H; ++h) {
+    float u[2][4];
+    head_logits<V>(qr, kr, u, h * ds, ds);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float s[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float t = tanhf(u[i][j] * inv);
+        s[j] = gv[i][j] * (1.0f - t * t) * scale;
+        if (bf16) s[j] = attn_map::round_bf16(s[j]);
+      }
+      *reinterpret_cast<float4*>(dr[i] + h * kDuHead) = make_float4(s[0], s[1], s[2], s[3]);
+    }
+  }
+}
+
+// dq of the unit's rows, continued over this chunk's nk columns: V, a
+// thread per 2 rows (p, p + 16) x 4 features, du rows and k slots read 16
+// bytes at a time; else a thread per element.  The chains live in dqs
+// ([32, A] f32; first: they start at 0) between chunks, each owned by one
+// thread in every chunk.
+template <bool V>
+__device__ __forceinline__ void bwd_dq(const float* dus, const float* kc, float* dqs, int nk,
+                                       int A, int ds, int QS, bool first) {
+  if (V) {
+    const int nq = A / 4, m4s = (nk + 3) / 4;
+    for (int it = threadIdx.x; it < (kTile / 2) * nq; it += kThreads) {
+      const int p = it / nq, f = 4 * (it - p * nq);
+      const float* d0 = dus + (f / ds) * kDuHead + p * kTile;
+      const float* d1 = d0 + (kTile / 2) * kTile;
+      float* s0 = dqs + p * A + f;
+      float* s1 = s0 + (kTile / 2) * A;
+      float4 a0 = first ? make_float4(0.f, 0.f, 0.f, 0.f) : load4(s0);
+      float4 a1 = first ? make_float4(0.f, 0.f, 0.f, 0.f) : load4(s1);
+#pragma unroll 2
+      for (int m4 = 0; m4 < m4s; ++m4) {
+        const float4 x0 = load4(d0 + 4 * m4), x1 = load4(d1 + 4 * m4);
+        const float w0[4] = {x0.x, x0.y, x0.z, x0.w}, w1[4] = {x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float4 kv = load4(kc + (8 * j + m4) * QS + f);
+          a0.x = fmaf(w0[j], kv.x, a0.x);
+          a0.y = fmaf(w0[j], kv.y, a0.y);
+          a0.z = fmaf(w0[j], kv.z, a0.z);
+          a0.w = fmaf(w0[j], kv.w, a0.w);
+          a1.x = fmaf(w1[j], kv.x, a1.x);
+          a1.y = fmaf(w1[j], kv.y, a1.y);
+          a1.z = fmaf(w1[j], kv.z, a1.z);
+          a1.w = fmaf(w1[j], kv.w, a1.w);
+        }
+      }
+      *reinterpret_cast<float4*>(s0) = a0;
+      *reinterpret_cast<float4*>(s1) = a1;
+    }
+  } else {
+    for (int it = threadIdx.x; it < kTile * A; it += kThreads) {
+      const int r = it / A, a = it - r * A;
+      const float* d = dus + (a / ds) * kDuHead + r * kTile;
+      float acc = first ? 0.f : dqs[it];
+      for (int m = 0; m < nk; ++m) acc = fmaf(d[m], kc[kslot(m) * QS + a], acc);
+      dqs[it] = acc;
+    }
+  }
+}
+
+// dk of this chunk's columns over the unit's nr rows where one unit holds
+// the whole map (T = 1), into out (row m at m A): V, a thread per 4
+// columns x 2 features, du read 16 bytes and q 8 bytes at a time; else a
+// thread per element.  One FMA chain per element over n in index order.
+template <bool V, typename T>
+__device__ __forceinline__ void bwd_dk(const float* dus, const float* qc, T* out, int nr,
+                                       int nk, int A, int ds, int QS) {
+  if (V) {
+    const int np = A / 2;
+    for (int it = threadIdx.x; it < (kTile / 4) * np; it += kThreads) {
+      const int mq = it & 7, f = 2 * (it >> 3);
+      const float* d = dus + (f / ds) * kDuHead + 4 * mq;
+      float acc[4][2] = {};
+      for (int n = 0; n < nr; ++n) {
+        const float4 x = load4(d + n * kTile);
+        const float2 qv = *reinterpret_cast<const float2*>(qc + n * QS + f);
+        const float w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc[j][0] = fmaf(w[j], qv.x, acc[j][0]);
+          acc[j][1] = fmaf(w[j], qv.y, acc[j][1]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int m = 4 * mq + j;
+        if (m >= nk) break;
+        attn_map::store(out, static_cast<size_t>(m) * A + f, acc[j][0]);
+        attn_map::store(out, static_cast<size_t>(m) * A + f + 1, acc[j][1]);
+      }
+    }
+  } else {
+    for (int it = threadIdx.x; it < kTile * A; it += kThreads) {
+      const int m = it / A, a = it - m * A;
+      if (m >= nk) continue;
+      const float* d = dus + (a / ds) * kDuHead + m;
+      float acc = 0.f;
+      for (int n = 0; n < nr; ++n) acc = fmaf(d[n * kTile], qc[n * QS + a], acc);
+      attn_map::store(out, it, acc);
+    }
+  }
+}
+
+// Persistent blocks walk the units u = blockIdx.x, + gridDim.x, ...  Where
+// one 32-row tile holds the map (T = 1) unit u is map u, and gives dq and
+// dk.  Past that (T row tiles) the first BC T units are row units, map u /
+// T, rows [32 (u % T), + 32), which give dq; the next BC T are column
+// units, which give dk: the same work on the transposed map, k's rows held
+// and q's streamed, g read across (du_h[n, m] is symmetric in its
+// logits: k . q gives the bits of q . k).  So every element of dq and dk
+// is one FMA chain over the map in index order, and each unit's du is
+// computed twice where T > 1.  A unit holds its 32 rows and loops over the
+// map's 32-column chunks.  Shared memory (bwd_words): the staging buffers
+// (the unit's 32 rows and a chunk's 32 rows in q's dtype, room for f32),
+// the held rows and the chunk's rows in f32 (QS = row_stride(A) apart,
+// the chunk's in k's slots), every head's du (kDuHead words a head) and
+// the output's chains ([32, A]).  The next chunk's rows (or the next
+// unit's) are staged while this chunk computes, and each thread loads its
+// next g into registers.  The logits run on the forward's 2 x 4 tile of a
+// thread.  Four blocks an SM, by shared memory and by registers (128 a
+// thread: with no minimum of blocks nvcc held the kernel to 80 and
+// spilled).
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 4)
+attn_map_bank_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const float* __restrict__ g, T* __restrict__ dq, T* __restrict__ dk,
+                         int BC, int N, int A, int ds, float inv, float scale, int bf16,
+                         int vec, int vecg) {
+  extern __shared__ __align__(16) float smem[];
+  const int QS = attn_map::row_stride(A), H = A / ds, tiles = (N + kTile - 1) / kTile;
+  T* sq = reinterpret_cast<T*>(smem);
+  T* sk = reinterpret_cast<T*>(smem + kTile * A);
+  float* qc = smem + 2 * kTile * A;
+  float* kc = qc + kTile * QS;
+  float* dus = kc + kTile * QS;
+  float* dqs = dus + H * kDuHead;
+  const int rows_units = BC * tiles, units = tiles == 1 ? BC : 2 * rows_units;
+  const bool V = ds % 4 == 0;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, ty = lane >> 2, tx = lane & 3;
+  const int wr = (w >> 1) * 16, wc = (w & 1) * 16;
+  const float* qr[2] = {qc + (wr + ty) * QS, qc + (wr + ty + 8) * QS};
+  const float* kr[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) kr[j] = kc + (8 * j + wc / 4 + tx) * QS;
+  float* const dr[2] = {dus + (wr + ty) * kTile + wc + 4 * tx,
+                        dus + (wr + ty + 8) * kTile + wc + 4 * tx};
+  // unit u: its map, first row and direction (column unit: dk)
+  auto where = [&](int u, size_t& bc, int& r0, bool& col) {
+    col = u >= rows_units;
+    const int v = col ? u - rows_units : u;
+    bc = v / tiles;
+    r0 = (v - static_cast<int>(bc) * tiles) * kTile;
+  };
+  // chunk c0 of unit u: its rows staged (the held rows with chunk 0), its g
+  // into gn
+  auto stage = [&](int u, int c0, float (&gn)[2][4]) {
+    size_t bc;
+    int r0;
+    bool col;
+    where(u, bc, r0, col);
+    if (c0 == 0) stage_rows(col ? k : q, sq, bc, r0, N, A, vec != 0);
+    stage_rows(col ? q : k, sk, bc, c0, N, A, vec != 0);
+    const int r[2] = {r0 + wr + ty, r0 + wr + ty + 8};
+    load_g(g + bc * N * N, r, c0 + wc + 4 * tx, N, col, vecg != 0, gn);
+  };
+  Laps laps;
+  float gv[2][4], gn[2][4];
+  int u = blockIdx.x;
+  if (u < units) stage(u, 0, gn);
+  for (; u < units; u += gridDim.x) {
+    size_t bc;
+    int r0;
+    bool col;
+    where(u, bc, r0, col);
+    const int nr = min(kTile, N - r0);
+    for (int c0 = 0; c0 < N; c0 += kTile) {
+      const int nk = min(kTile, N - c0);
+      hopper::cp_async_wait_all();
+      __syncthreads();   // staged; the last chunk's reads of qc / kc / dus are done
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) gv[i][j] = gn[i][j];
+      convert_rows(c0 == 0 ? sq : nullptr, qc, nr, sk, kc, nk, A, QS, bf16);
+      __syncthreads();   // qc / kc are written: the staging buffers are free
+      if (c0 + kTile < N)
+        stage(u, c0 + kTile, gn);
+      else if (u + static_cast<int>(gridDim.x) < units)
+        stage(u + gridDim.x, 0, gn);
+      laps.lap(0);
+      if (V)
+        bwd_du<true>(qr, kr, gv, dr, H, ds, inv, scale, bf16);
+      else
+        bwd_du<false>(qr, kr, gv, dr, H, ds, inv, scale, bf16);
+      __syncthreads();   // du of the chunk is in
+      laps.lap(1);
+      if (V)
+        bwd_dq<true>(dus, kc, dqs, nk, A, ds, QS, c0 == 0);
+      else
+        bwd_dq<false>(dus, kc, dqs, nk, A, ds, QS, c0 == 0);
+      laps.lap(2);
+      if (tiles == 1) {   // the unit is the whole map: dk too
+        if (V)
+          bwd_dk<true>(dus, qc, dk + bc * N * A, nr, nk, A, ds, QS);
+        else
+          bwd_dk<false>(dus, qc, dk + bc * N * A, nr, nk, A, ds, QS);
+      }
+      laps.lap(3);
+    }
+    // the unit's chains (dq, or dk for a column unit), each stored by the
+    // thread that ran it (bwd_dq's items)
+    T* o = (col ? dk : dq) + (bc * N + r0) * A;
+    if (V) {
+      const int nq = A / 4;
+      for (int it = threadIdx.x; it < (kTile / 2) * nq; it += kThreads) {
+        const int p = it / nq, f = 4 * (it - p * nq);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int r = p + i * (kTile / 2);
+          if (r >= nr) continue;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            attn_map::store(o, static_cast<size_t>(r) * A + f + j, dqs[r * A + f + j]);
+        }
+      }
+    } else {
+      for (int it = threadIdx.x; it < nr * A; it += kThreads) attn_map::store(o, it, dqs[it]);
+    }
+    laps.lap(3);
+  }
+  laps.write();
+}
+
+// The plan of a block: the rows of its unit (kTile, both directions) and
+// the shared-memory floats.  The forward: its staging buffers and f32 q /
+// k rows of one 32 x 32 tile (fwd_words); the backward: the same staging
+// buffers and rows, every head's du and the output's chains (bwd_words).
+// Neither depends on N.
 struct Plan {
   int rows, words;
 };
 
 __host__ __device__ inline int fwd_words(int A) {
-  return 2 * kFwdTile * (A + attn_map::row_stride(A));
+  return 2 * kTile * (A + attn_map::row_stride(A));
 }
 
-Plan make_plan(int N, int A, int H, bool bwd) {
-  if (!bwd) return Plan{kFwdTile, fwd_words(A)};
-  const int qk = 2 * N * attn_map::row_stride(A);
-  auto words = [&](int r) { return qk + attn_map::du_words(N, r, H) + (r < N ? N * A : 0); };
-  int r = attn_map::tile_rows(N, H, kDuBudget);
-  while (r > 1 && 4 * static_cast<size_t>(words(r)) > kSmemLimit) r /= 2;
-  return Plan{r, words(r)};
+__host__ __device__ inline int bwd_words(int A, int H) {
+  return 3 * kTile * A + 2 * kTile * attn_map::row_stride(A) + H * kDuHead;
 }
 
-// The forward on min(units, resident) persistent blocks; the blocks an SM
-// holds at this shared memory are queried once per instantiation and size.
+Plan make_plan(int A, int H, bool bwd) {
+  return Plan{kTile, bwd ? bwd_words(A, H) : fwd_words(A)};
+}
+
+// The forward on min(units, resident) persistent blocks.
 template <typename T>
 int launch_fwd(const void* q, const void* k, float* out, int BC, int N, int A,
                int ds, int bf16, int smem, cudaStream_t s) {
-  auto kernel = attn_map_bank_fwd_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         smem);
+  static std::atomic<long long> resident{0};
+  long long all = 0;
+  const cudaError_t err = resident_blocks(attn_map_bank_fwd_kernel<T>, smem, resident, all);
   if (err != cudaSuccess) return static_cast<int>(err);
-  static std::atomic<long long> resident_for{0};   // smem << 32 | blocks on the card
-  long long known = resident_for.load(std::memory_order_relaxed);
-  long long all = known & 0xffffffffll;
-  if ((known >> 32) != smem) {
-    int per_sm = 0, dev = 0, sms = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kFwdThreads, smem);
-    if (err == cudaSuccess) err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    all = static_cast<long long>(per_sm > 0 ? per_sm : 1) * sms;
-    resident_for.store(static_cast<long long>(smem) << 32 | all, std::memory_order_relaxed);
-  }
-  const long long tiles = (N + kFwdTile - 1) / kFwdTile;
+  const long long tiles = (N + kTile - 1) / kTile;
   const long long units = static_cast<long long>(BC) * tiles * tiles;
   const int blocks = static_cast<int>(units < all ? units : all);
   if (blocks == 0) return 0;
-  const size_t e = sizeof(T);
-  const int vec = (static_cast<size_t>(A) * e) % 16 == 0 &&
+  const int vec = (static_cast<size_t>(A) * sizeof(T)) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(k) % 16 == 0;
-  kernel<<<blocks, kFwdThreads, smem, s>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                           out, BC, N, A, ds, bf16, vec);
+  attn_map_bank_fwd_kernel<T><<<blocks, kThreads, smem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), out, BC, N, A, ds, bf16, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The backward on min(units, resident) persistent blocks.  The units (BC,
+// or 2 BC T past one tile) and the constants go in as 32-bit values: a
+// 64-bit divide or a double one in the kernel is a subroutine call, whose
+// saved registers spilled.
 template <typename T>
-int launch_bwd(const void* q, const void* k, const float* g, void* dq, void* dk,
-               int BC, int N, int A, int ds, int R, int bf16, int smem, cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_map_bank_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+int launch_bwd(const void* q, const void* k, const float* g, void* dq, void* dk, int BC,
+               int N, int A, int ds, int bf16, int smem, cudaStream_t s) {
+  static std::atomic<long long> resident{0};
+  long long all = 0;
+  const cudaError_t err = resident_blocks(attn_map_bank_bwd_kernel<T>, smem, resident, all);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int work = R * N > N * A ? R * N : N * A;
-  const int threads = std::min(attn_map::threads_for(work), kBwdThreads);
-  attn_map_bank_bwd_kernel<T><<<BC, threads, smem, s>>>(
+  const long long tiles = (N + kTile - 1) / kTile;
+  const long long units = tiles == 1 ? BC : 2ll * BC * tiles;
+  if (units > 0x7fffffffll) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = static_cast<int>(units < all ? units : all);
+  if (blocks == 0) return 0;
+  const int vec = (static_cast<size_t>(A) * sizeof(T)) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(k) % 16 == 0;
+  const int vecg = N % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0;
+  // 1 / sqrt(ds) and 1 / (H sqrt(ds)), each rounded once from double, as
+  // the plain versions' Python constants are
+  const float inv = static_cast<float>(1.0 / std::sqrt(static_cast<double>(ds)));
+  const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(ds)) / (A / ds));
+  attn_map_bank_bwd_kernel<T><<<blocks, kThreads, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), g, static_cast<T*>(dq),
-      static_cast<T*>(dk), N, A, ds, R, bf16);
+      static_cast<T*>(dk), BC, N, A, ds, inv, scale, bf16, vec, vecg);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // The plan of a forward (bwd = 0) or backward block at these widths:
-// out[0] the backward's row tile R (the forward's 32-row tile), out[1] the
-// shared memory in bytes, past kSmemLimit where no plan fits.
+// out[0] the unit's rows (32), out[1] the shared memory in bytes (past
+// kSmemLimit where the widths do not fit).  N enters neither.
 // ops/attn_bank.py::plan is the same.
 extern "C" void attn_bank_plan(int N, int A, int H, int bwd, int* out) {
-  const Plan p = make_plan(N, A, H, bwd != 0);
+  (void)N;
+  const Plan p = make_plan(A, H, bwd != 0);
   out[0] = p.rows;
   out[1] = 4 * p.words;
 }
@@ -425,7 +757,7 @@ extern "C" void attn_bank_plan(int N, int A, int H, int bwd, int* out) {
 extern "C" int attn_map_bank_fwd(const void* q, const void* k, float* out, int BC,
                                  int N, int A, int ds, int in_bf16, int bf16,
                                  int smem, void* stream) {
-  if (smem != 4 * make_plan(N, A, A / ds, false).words)
+  if (smem != 4 * make_plan(A, A / ds, false).words)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return in_bf16 ? launch_fwd<__nv_bfloat16>(q, k, out, BC, N, A, ds, bf16, smem, s)
@@ -437,10 +769,9 @@ extern "C" int attn_map_bank_fwd(const void* q, const void* k, float* out, int B
 extern "C" int attn_map_bank_bwd(const void* q, const void* k, const float* g,
                                  void* dq, void* dk, int BC, int N, int A, int ds,
                                  int in_bf16, int bf16, int rows, int smem, void* stream) {
-  const Plan p = make_plan(N, A, A / ds, true);
+  const Plan p = make_plan(A, A / ds, true);
   if (rows != p.rows || smem != 4 * p.words) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return in_bf16
-             ? launch_bwd<__nv_bfloat16>(q, k, g, dq, dk, BC, N, A, ds, rows, bf16, smem, s)
-             : launch_bwd<float>(q, k, g, dq, dk, BC, N, A, ds, rows, bf16, smem, s);
+  return in_bf16 ? launch_bwd<__nv_bfloat16>(q, k, g, dq, dk, BC, N, A, ds, bf16, smem, s)
+                 : launch_bwd<float>(q, k, g, dq, dk, BC, N, A, ds, bf16, smem, s);
 }

@@ -1,5 +1,5 @@
-// The backward of the head-mean tanh map of one (graph, channel), shared
-// by K7 (attn_bank.cu) and K8 (attn_qk_bank.cu):
+// The backward of the head-mean tanh map of one (graph, channel), K8's
+// (attn_qk_bank.cu; K7's backward has its own, in attn_bank.cu):
 //   a[n, m] = (1/H) * sum_h tanh(inv * sum_{a in head h} q[n, a] k[m, a])
 // with heads the contiguous ds-wide chunks of A (H = A / ds) and
 // inv = 1 / sqrt(ds), taken in tiles of rows so that shared memory grows
@@ -7,14 +7,14 @@
 // row_stride(A) words apart, read 16 bytes at a time.  tanh is the
 // accurate tanhf, not tanh.approx.f32, whose ~2^-11 relative error would
 // break the f32 agreement with the plain versions.  Every loop strides
-// over the block's threads; the callers put the barriers between phases.
+// over the block's threads; the caller puts the barriers between phases.
 //
 // The backward's two du products run as FMAs in index order in both
-// modes, not on mma.sync, though du, q and k are bf16 values in bf16 mode:
-// dq and dk are rounded again (K7's outputs, K8's dout), and mma.sync's
-// f32 sums, in another order than the plain versions' (cuBLAS, one chain
-// in k order), flipped enough of those roundings that K8's bf16 dqk left
-// its 3e-3 bar at n_max 128 (PERF.md, PR 13).
+// modes, not on mma.sync, though du, q and k are bf16 values in bf16 mode
+// (K7's backward keeps the rule): dq and dk are rounded again (K7's
+// outputs, K8's dout), and mma.sync's f32 sums, in another order than the
+// plain versions' (cuBLAS, one chain in k order), flipped enough of those
+// roundings that K8's bf16 dqk left its 3e-3 bar at n_max 128 (PERF.md).
 
 #pragma once
 
@@ -47,8 +47,7 @@ __device__ __forceinline__ float du_scale(int ds, int H) {
 
 // Rows of the map the backward takes at once, before shared memory
 // forces fewer: as many as keep every head's du of the tile within
-// du_budget words (K7: 8192, the whole map at N = 32, H = 8 and 8 rows at
-// N = 128; K8: 16384, 16 rows at N = 128).  ops/attn_bank.py and
+// du_budget words (K8: 16384, 16 rows at N = 128).  ops/attn_bank.py and
 // ops/attn_qk_bank.py count the same.
 __host__ __device__ inline int tile_rows(int N, int H, int du_budget) {
   const int r = du_budget / (H * N);
@@ -172,11 +171,6 @@ __device__ void backward_tiled(const float* qs, const float* ks, const float* g,
     }
     __syncthreads();   // dus is rewritten by the next tile
   }
-}
-
-inline int threads_for(int work) {
-  const int t = ((work + 31) / 32) * 32;
-  return t < 1024 ? t : 1024;
 }
 
 }  // namespace attn_map

@@ -8,13 +8,13 @@ the feature axis (``H = A // ds``).  Counterpart of
 forward and backward.  On a CUDA tensor the wrappers launch the
 hand-written kernels of ``csrc/attn_bank.cu``, which replace the TPU
 kernels ``_fwd_kernel`` (``pallas_call`` at ``ops/rejected/attn_bank.py:138``)
-and ``_bwd_kernel`` (l.157): the forward in persistent blocks over
-(graph, channel, 32 x 32 tile) units, whose shared memory does not depend
-on N; the backward one block per (graph, channel) walking the map in tiles
-of rows (:func:`plan`), so it takes any N whose plan fits; the per-head
-logits never leave the block (the source's header says more).  On a CPU
-tensor they take :func:`attn_map_bank_plain` and
-:func:`attn_map_bank_bwd_plain`.
+and ``_bwd_kernel`` (l.157): both run persistent blocks over units of one
+map, the forward (graph, channel, 32 x 32 tile), the backward (graph,
+channel, 32 rows) for dq and, past one tile, (graph, channel, 32 columns)
+for dk, walking the map in 32-wide chunks, so neither's shared memory
+depends on N (:func:`plan`); the per-head logits never leave the block
+(the source's header says more).  On a CPU tensor they take
+:func:`attn_map_bank_plain` and :func:`attn_map_bank_bwd_plain`.
 
 Numerics, as the TPU kernel's (and not as the eager bank of
 ``ops/attn_maps.py``): ``bf16`` rounds q and k to bf16, forms each head's
@@ -88,53 +88,48 @@ def attn_map_bank_bwd_plain(q: torch.Tensor, k: torch.Tensor, g: torch.Tensor, d
     return dq.to(q.dtype), dk.to(q.dtype)
 
 
-DU_WORDS = 8192     # csrc/attn_bank.cu::kDuBudget: du of a row tile, every head
-FWD_TILE = 32       # csrc/attn_bank.cu::kFwdTile: rows and columns of a forward unit
+FWD_TILE = 32       # csrc/attn_bank.cu::kTile: rows (and columns) of a unit, both directions
 
 
-def tile_rows(n: int, h: int, budget: int = DU_WORDS) -> int:
-    """Rows of the map a backward takes at once before shared memory
+def tile_rows(n: int, h: int, budget: int) -> int:
+    """Rows of the map K8's backward takes at once before shared memory
     forces fewer (``attn_map.cuh::tile_rows``): as many as keep every
-    head's du within ``budget`` words (K7's :data:`DU_WORDS`, K8's
-    ``attn_qk_bank.BWD_DU_WORDS``), 1 to N."""
+    head's du within ``budget`` words (``attn_qk_bank.BWD_DU_WORDS``), 1
+    to N."""
     return min(n, max(1, budget // (h * n)))
 
 
 def du_words(n: int, rows: int, h: int) -> int:
-    """Words of a row tile's du, every head padded by one word."""
+    """Words of a row tile's du in K8's backward, every head padded by one
+    word."""
     return h * (rows * n + 1)
 
 
 def row_stride(a: int) -> int:
-    """Words between the q / k rows the backward reads (``attn_map.cuh::
+    """Words between the f32 q / k rows a block reads (``attn_map.cuh::
     row_stride``): 16-byte aligned, 4 past a multiple of 4 words."""
     return -(-a // 4) * 4 + 4
 
 
 def plan(n: int, a: int, h: int, bwd: bool) -> Tuple[int, int]:
     """The launch plan of a forward (``bwd`` False) or backward block of
-    csrc/attn_bank.cu: (rows, shared-memory bytes).  The forward's unit is a
-    :data:`FWD_TILE` x :data:`FWD_TILE` tile of one map: rows is the tile's,
-    and the bytes (the staged q and k rows, room for f32, and their f32
-    copies :func:`row_stride` words apart) do not depend on N.  The
-    backward's rows are its row tile R: q and k rows :func:`row_stride`
-    words apart, the tile's du and, where R < N, dk carried between tiles
-    ([N, A]); R halved from :func:`tile_rows` until the block fits.  Raises
-    where no plan fits in the shared memory of a block."""
+    csrc/attn_bank.cu: (rows, shared-memory bytes), neither depending on N.
+    The forward's unit is a :data:`FWD_TILE` x :data:`FWD_TILE` tile of one
+    map: the staged q and k rows, room for f32, and their f32 copies
+    :func:`row_stride` words apart.  The backward's unit is :data:`FWD_TILE`
+    rows of one map (or, past one tile, as many columns), walked in chunks
+    of as many columns: the forward's staged and f32 rows, every head's
+    32 x 32 du (4 words apart) and the output's chains [32, A].
+    Raises where a block's shared memory does not fit (A, H too wide)."""
+    rows = FWD_TILE
     if bwd:
-        def words(r):
-            return 2 * n * row_stride(a) + du_words(n, r, h) + (n * a if r < n else 0)
-
-        rows = tile_rows(n, h)
-        while rows > 1 and 4 * words(rows) > SMEM_LIMIT:
-            rows //= 2
-        smem = 4 * words(rows)
+        smem = 4 * (3 * rows * a + 2 * rows * row_stride(a) + h * (rows * rows + 4))
     else:
-        rows, smem = FWD_TILE, 4 * 2 * FWD_TILE * (a + row_stride(a))
+        smem = 4 * 2 * rows * (a + row_stride(a))
     if smem > SMEM_LIMIT:
         raise ValueError(f"attn_map_bank {'backward' if bwd else 'forward'} kernel: N={n}, "
                          f"A={a}, H={h} need {smem} B of shared memory per block "
-                         f"(> {SMEM_LIMIT})" + (" at a row tile of 1" if bwd else ""))
+                         f"(> {SMEM_LIMIT})")
     return rows, smem
 
 
@@ -225,9 +220,8 @@ def attn_map_bank_kernel(q: torch.Tensor, k: torch.Tensor, ds: int, *, bf16: boo
     """Head-mean tanh maps [B, C, N, N] float32 from q, k [B, C, N, A]
     (float32 or bfloat16, one dtype), differentiable in q and k.  ``impl``:
     "auto" (the kernels for a CUDA tensor, the plain versions for a CPU
-    tensor), "kernel" or "plain".  The forward takes any N, the backward
-    any N whose plan fits (:func:`plan`); both raise on shapes they are not
-    built for."""
+    tensor), "kernel" or "plain".  Both kernels take any N (:func:`plan`);
+    they raise on shapes they are not built for."""
     return _AttnMapBank.apply(q, k, ds, bf16, resolve_impl(impl, q, "attn_map_bank"))
 
 

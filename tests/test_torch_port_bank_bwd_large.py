@@ -6,9 +6,10 @@ Pallas kernels in interpret mode through ``jax.vjp``, on the same
 numpy-seeded operands and cotangent (f32 1e-5 of the largest value for
 the maps and 1e-4 for the gradients, the same sums in another order; bf16
 1e-2, both sides rounding at the same points); and the launch plans that
-replaced the N <= 32 caps: K7's ``plan`` (the backward's row tile) and
-K8's ``bwd_plan`` (row tile and feature chunk) at the 3D->2D chain's
-widths, under the shared memory of a block, and their messages past it.
+replaced the N <= 32 caps: K7's ``plan`` (the backward's 32-row unit,
+whose bytes do not depend on N) and K8's ``bwd_plan`` (row tile and
+feature chunk) at the 3D->2D chain's widths, under the shared memory of a
+block, and their messages past it.
 The kernels themselves run only on the card (``test_torch_port_kernels.py``)."""
 
 import jax
@@ -69,35 +70,53 @@ def test_attn_qk_bank_bwd_plain_matches_pallas_kernel_past_32(ds, bf16):
         assert rel_err(mine.float().numpy(), np.asarray(ref, np.float32)) < tol_g, i
 
 
-# (N, A, H) -> K7's backward plan (row tile, shared bytes): the whole map
-# at N = 32 (the kernel before tiles), one row short at 33, then 16 / 8 / 4
-# rows at the loader's buckets and N = 256, and the forward (its 32 x 32
-# tile, 2 x 32 (A + row_stride(A)) words whatever N) beside each
-K7_PLANS = [((32, 32, 8), (32, 42016)), ((33, 32, 8), (31, 46496)),
-            ((64, 32, 8), (16, 59424)), ((128, 32, 8), (8, 86048)),
-            ((256, 32, 8), (4, 139296)), ((518, 32, 8), (1, 232096))]
+# (N, A, H) -> K7's backward plan (rows of a unit, shared bytes): the same
+# 32-row unit and 54,400 B whatever N (the unit's rows and a 32-row chunk,
+# every head's du, the output's chains), where the old plan's
+# row tile shrank and its bytes grew with N (32 rows and 42,016 B at N =
+# 32, one row and 232,096 B at 518); the forward (its 32 x 32 tile, 2 x 32
+# (A + row_stride(A)) words whatever N) beside each
+K7_PLANS = [((32, 32, 8), (32, 54400)), ((33, 32, 8), (32, 54400)),
+            ((64, 32, 8), (32, 54400)), ((128, 32, 8), (32, 54400)),
+            ((256, 32, 8), (32, 54400)), ((518, 32, 8), (32, 54400))]
 
 
 @pytest.mark.parametrize("shape, want", K7_PLANS)
 def test_attn_map_bank_plan(shape, want):
     n, a, h = shape
     assert plan(n, a, h, bwd=True) == want
-    assert want[1] <= SMEM_LIMIT and want[0] <= tile_rows(n, h)
+    rows, smem = want
+    assert smem <= SMEM_LIMIT and smem == 4 * (
+        3 * rows * a + 2 * rows * row_stride(a) + h * (rows * rows + 4))
     assert plan(n, a, h, bwd=False) == (32, 4 * 64 * (a + row_stride(a))) == (32, 17408)
 
 
 def test_attn_map_bank_plan_refuses_past_shared_memory():
-    """K7 takes any N whose plan fits, and raises past it naming the limit:
-    the backward past N = 518 at A = 32, H = 8; the forward, whose tile
-    does not grow with N, takes N = 881 (past its old plan) and refuses
-    only a q / k width whose tile does not fit (A = 1024)."""
+    """K7 takes any N, and raises past its shared memory naming it: the
+    forward, whose tile does not grow with N, takes N = 881 (past its old
+    plan) and refuses only a q / k width whose tile does not fit (A =
+    1024); the backward takes N = 519 (past its old plan) in the bytes of
+    N = 32 and refuses A = 140, H = 35 (every head's du does not fit)."""
     assert plan(881, 32, 8, bwd=False) == plan(32, 32, 8, bwd=False)
     with pytest.raises(ValueError, match=r"forward kernel: N=881, A=1024, H=256 need 525312 B "
                                          r"of shared memory per block \(> 232448\)"):
         plan(881, 1024, 256, bwd=False)
-    with pytest.raises(ValueError, match=r"backward kernel: N=519, A=32, H=8 need \d+ B of "
-                                         r"shared memory per block \(> 232448\) at a row tile"):
-        plan(519, 32, 8, bwd=True)
+    assert plan(519, 32, 8, bwd=True) == plan(32, 32, 8, bwd=True)
+    with pytest.raises(ValueError, match=r"backward kernel: N=519, A=140, H=35 need 234544 B of "
+                                         r"shared memory per block \(> 232448\)"):
+        plan(519, 140, 35, bwd=True)
+
+
+@pytest.mark.parametrize("n", [16, 32, 33, 64, 128, 256, 519, 1024])
+def test_attn_map_bank_bwd_plan_takes_any_n(n):
+    """K7's backward from below one tile to past its old limit (518): the
+    same 32-row unit and shared bytes at every N, up to A = 136, H = 34, and
+    the first A it refuses named with its bytes."""
+    assert plan(n, 32, 8, bwd=True) == (32, 54400) and 4 * 54400 <= SMEM_LIMIT
+    assert plan(n, 136, 34, bwd=True) == (32, 227872) and 227872 <= SMEM_LIMIT
+    with pytest.raises(ValueError, match=rf"backward kernel: N={n}, A=140, H=35 need 234544 B "
+                                         r"of shared memory per block \(> 232448\)"):
+        plan(n, 140, 35, bwd=True)
 
 
 # (N, F) -> K8's backward plan (row tile, feature chunk, shared bytes) at the

@@ -846,10 +846,12 @@ def test_attn_qk_bank_fwd_plan_matches_kernel(cuda):
         assert smem == fn(n, fc, a)
 
 
-# (B, C, N, A, ds) past N = 32: one tile short of the whole map (N = 33,
-# R = 31), 16 / 8 / 4 rows a tile (N = 64 / 128 / 256)
+# (B, C, N, A, ds) past N = 32: the backward's 32-row units and 32-column
+# chunks with a ragged second tile (N = 33), 2 / 4 / 8 tiles a side (N = 64
+# / 128 / 256), 19 past the old backward's N <= 518 (N = 600), and the
+# scalar path (ds = 2, A = 12)
 MAP_LARGE_N = [(4, 8, 33, 32, 4), (16, 8, 64, 32, 4), (8, 8, 128, 32, 4), (2, 8, 256, 32, 4),
-               (3, 2, 40, 12, 2)]
+               (3, 2, 40, 12, 2), (1, 2, 600, 32, 4)]
 
 # (B, N) of K7's forward in (graph, channel, 32 x 32 tile) units: one
 # ragged tile (1, 7), one whole tile (32), a ragged second tile (33),
@@ -886,9 +888,9 @@ def test_attn_map_bank_fwd_kernel_tiles(cuda, shape, c, bf16):
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
 @pytest.mark.parametrize("shape", MAP_LARGE_N)
 def test_attn_map_bank_kernel_past_n32(cuda, shape, bf16):
-    """K7 forward and backward past N = 32 (the backward in row tiles)
-    against the plain versions at the bars of the N = 32 test, and two
-    runs of each kernel bit for bit."""
+    """K7 forward and backward past N = 32 (the backward's dq in row units,
+    dk in column units) against the plain versions at the bars of the N =
+    32 test, and two runs of each kernel bit for bit."""
     b, c, n, a, ds = shape
     q, k, g = _bank_operands(cuda, b, c, n, a, 23, torch.bfloat16 if bf16 else torch.float32)
 
@@ -938,9 +940,9 @@ def test_attn_qk_bank_bwd_kernel_past_n32(cuda, shape, bf16):
 
 
 def test_attn_bank_plans_match_kernels(cuda):
-    """The wrappers' plans are the kernels' own: K7's (row tile, shared
-    bytes) forward and backward, K8's backward (row tile, feature chunk,
-    shared bytes)."""
+    """The wrappers' plans are the kernels' own: K7's (rows, shared bytes)
+    forward and backward, K8's backward (row tile, feature chunk, shared
+    bytes)."""
     import ctypes
 
     from moleculesde_tpu_torch.kernels import build
@@ -955,7 +957,7 @@ def test_attn_bank_plans_match_kernels(cuda):
     k8.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     out = (ctypes.c_int * 3)()
     for n, a, h in ((32, 32, 8), (33, 32, 8), (64, 32, 8), (128, 32, 8), (256, 32, 8),
-                    (518, 32, 8), (40, 12, 6), (9, 8, 4)):
+                    (518, 32, 8), (600, 32, 8), (1024, 32, 8), (40, 12, 6), (9, 8, 4)):
         for bwd in (False, True):
             k7(n, a, h, int(bwd), ctypes.addressof(out))
             assert (out[0], out[1]) == plan(n, a, h, bwd), (n, a, h, bwd)
@@ -970,8 +972,9 @@ def test_attn_bank_kernels_refuse_shapes(cuda):
     """Shapes the bank kernels are not built for raise, never fall back:
     A not a multiple of ds, K7's forward past its shared memory (A = 1024:
     its tile does not depend on N, and N = 881, past the old forward's
-    plan, runs), its backward N > 518, K8's forward N > 334 at F = 16,
-    its backward N > 266."""
+    plan, runs), its backward past its shared memory (A = 140, H = 35:
+    every head's du; N = 519, past the old backward's plan, runs), K8's
+    forward N > 334 at F = 16, its backward N > 266."""
     q = torch.zeros(2, 2, 8, 30, device=cuda)
     with pytest.raises(ValueError, match="multiple of ds"):
         attn_map_bank_kernel(q, q, 4)
@@ -982,7 +985,11 @@ def test_attn_bank_kernels_refuse_shapes(cuda):
         attn_map_bank_kernel(q, q, 4)
     q = torch.zeros(1, 1, 519, 32, device=cuda)
     g = torch.zeros(1, 1, 519, 519, device=cuda)
-    with pytest.raises(ValueError, match="backward kernel: N=519, A=32, H=8 need .* shared"):
+    dq, dk = attn_map_bank_kernel_bwd(q, q, g, 4, impl="kernel")
+    assert dq.shape == dk.shape == (1, 1, 519, 32) and not dq.any() and not dk.any()
+    q = torch.zeros(1, 1, 8, 140, device=cuda)
+    g = torch.zeros(1, 1, 8, 8, device=cuda)
+    with pytest.raises(ValueError, match="backward kernel: N=8, A=140, H=35 need .* shared"):
         attn_map_bank_kernel_bwd(q, q, g, 4, impl="kernel")
     qk, ws, _ = _qk_bank_operands(cuda, 2, 600, 16, 2, 32, 0)
     with pytest.raises(ValueError, match="forward kernel.*shared memory"):
