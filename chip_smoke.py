@@ -6,8 +6,9 @@ graph generation through its CLI (three forms of the attention bank), and
 pretraining steps through the pretraining CLI's functions (padded ingest
 with K2; the JAX CLI's default compact ingest with K5; the three
 microbatch scopes; PaiNN; the default path at n_max 64 and 128, also with
-the K7 and K8 attention banks) -- and
-checks what comes out.
+the K7 and K8 attention banks; the CLI's ``main`` on size buckets, with the
+native collation and a resume from its train state) -- and checks what
+comes out.
 
     python3 chip_smoke.py
 
@@ -117,12 +118,28 @@ Phases (any failure exits non-zero):
      and both at N = 256, B = 2 on seeded operands (K8 at F = 16, C = 8),
      K7 also at N = 600, B = 1, C = 8 (past its old backward's N <= 518),
      each kernel two runs bit for bit.
-The line before the last lists every kernel as JSON; the last line is
-{"ok": true, "device": {...}}.
+ 14. buckets: the port's C++ collator against its numpy collation on a
+     B=128, n_max 32 batch, bit for bit, host ms per batch of each; the
+     pretraining CLI's ``main`` at the JAX CLI's defaults plus ``--n_max
+     128 --buckets 16 32 64 128 --batch_size 32 --synthetic_molecules 512
+     --epochs 1`` (about 15 steps over four buckets, padded batches), every
+     step K1 5 / 5, K2 6 / 6, K3 1 / 1, every metric finite, ``metrics.csv``
+     and ``train_state.pt`` written; on the 16-atom bucket's first batch K1,
+     K2, K3 and K4 forward and backward against their plain versions (bf16
+     and f32, the bars of 7, two runs bit for bit), K7 and K8 at N = 16, B
+     = 32 on seeded operands (the bars of 6) and one f32 step against an
+     all-plain f32 build as in 7 (the bf16 step's differences printed, with
+     no bar); ``train_state.pt`` loaded into a fresh state, one step
+     on that batch by it and by the run's own state, bit for bit; one epoch
+     of the same 512 molecules at ``--n_max 128`` without buckets (compact
+     ingest) and with them, in turns, molecules/s.
+The line before the last lists every kernel as JSON (the one before it
+phase 14's figures); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -593,7 +610,7 @@ def training_operands(models, batch):
         tuple(t.detach() for t in k3)
 
 
-def training_kernel_phases(k1, k2, k3):
+def training_kernel_phases(k1, k2, k3, label: str = "training"):
     gen = torch.Generator(device=k1[0].device).manual_seed(7)
     x, src, dst, boh, table = k1
     b, n, _ = x.shape
@@ -604,7 +621,7 @@ def training_kernel_phases(k1, k2, k3):
     a, c, w, bias = k3
     g3 = torch.randn((b, n, n, w.shape[1]), generator=gen, device=a.device)
     g4 = torch.randn((b, w.shape[1], n * n), generator=gen, device=a.device)
-    print(f"training K1 operands: x {tuple(x.shape)}, edges {tuple(src.shape)} "
+    print(f"{label} K1 operands: x {tuple(x.shape)}, edges {tuple(src.shape)} "
           f"({valid_edges} valid); K2: ea {tuple(ea_bf16.shape)} {ea_bf16.dtype}, "
           f"x {tuple(x2.shape)} ({int((env != 0).sum())} pairs in the cutoff); "
           f"K3: a, c {tuple(a.shape)}, W {tuple(w.shape)}", flush=True)
@@ -616,21 +633,21 @@ def training_kernel_phases(k1, k2, k3):
         # tolerances: f32 the same sums in another order (batch-wide weight
         # sums of up to 1.3e5 terms); bf16 as the card-only kernel tests
         results["gin_messages" + sfx], results["gin_messages_bwd" + sfx] = grad_phase(
-            "training K1 gin_messages" + sfx,
+            f"{label} K1 gin_messages" + sfx,
             lambda x_, t_, **kw: gin_messages(x_, src, dst, boh, t_, **kw),
             lambda x_, t_, g_, **kw: gin_messages_bwd(x_, src, dst, boh, t_, g_, **kw),
             lambda x_, t_, g_, **kw: gin_messages_bwd_plain(x_, src, dst, boh, t_, g_, **kw),
             (x, table), g1, bf16, 1e-2 if bf16 else 1e-4,
             k1_cost(x, src, dst, table), k1_cost(x, src, dst, table, bwd=True), peak)
         results["fused_cfconv" + sfx], results["fused_cfconv_bwd" + sfx] = grad_phase(
-            "training K2 fused_cfconv" + sfx,
+            f"{label} K2 fused_cfconv" + sfx,
             lambda *t, ea=ea, **kw: fused_cfconv(ea, env, *t, **kw),   # this mode's ea
             lambda *t, ea=ea, **kw: fused_cfconv_bwd(ea, env, *t, **kw),
             lambda *t, ea=ea, **kw: fused_cfconv_bwd_plain(ea, env, *t, **kw),
             (x2, w1, b1, w2, b2), g2, bf16, 2e-2 if bf16 else 1e-4,
             k2_cost(ea, env, x2, w1), k2_cost(ea, env, x2, w1, bwd=True), peak)
         results["pair_relu_project" + sfx], results["pair_relu_project_bwd" + sfx] = \
-            grad_phase("training K3 pair_relu_project" + sfx, pair_relu_project,
+            grad_phase(f"{label} K3 pair_relu_project" + sfx, pair_relu_project,
                        lambda a_, c_, w_, b_, g_, **kw: pair_relu_project_bwd(
                            a_, c_, w_, g_, **kw),
                        lambda a_, c_, w_, b_, g_, **kw: pair_relu_project_bwd_plain(
@@ -640,11 +657,11 @@ def training_kernel_phases(k1, k2, k3):
         # K4 (the pair_cm_direct step) on the same operands; its cotangent is
         # channel-major, and the bias is added outside the kernel
         results["pair_relu_project_cm" + sfx], results["pair_relu_project_cm_bwd" + sfx] = \
-            grad_phase("training K4 pair_relu_project_cm" + sfx, pair_relu_project_cm,
+            grad_phase(f"{label} K4 pair_relu_project_cm" + sfx, pair_relu_project_cm,
                        pair_relu_project_cm_bwd, pair_relu_project_cm_bwd_plain,
                        (a, c, w), g4, bf16, 1e-3 if bf16 else 1e-4,
                        k4_cost(a, w), k4_cost(a, w, bwd=True), peak)
-    gin_pair_same_bits("training", k1, g1, k3, g3, g4)
+    gin_pair_same_bits(label, k1, g1, k3, g3, g4)
     return results
 
 
@@ -961,13 +978,13 @@ def bank_large_n_phases(dev, n_max: int, batch_size: int):
     return bank_kernel_phases(chain_bank_operands(dev, n_max, batch_size), f"[n{n_max}]")
 
 
-def bank_n256_phases(dev):
-    """K7 and K8, forward and backward, at N = 256, B = 2 on seeded
-    operands at the chain's edge layers 1-3 widths (C = 8, A = 32, ds = 4;
-    K8's F = 16, the width its forward takes at N = 256): bank_kernel_phases
-    on them, keys ending in [n256]."""
-    gen = torch.Generator(device=dev).manual_seed(17)
-    b, c, n, a, f = 2, 8, 256, 32, 16
+def bank_seeded_phases(dev, b: int, n: int, seed: int, size: str):
+    """K7 and K8, forward and backward, on seeded operands at the chain's
+    edge layers 1-3 widths (C = 8, A = 32, ds = 4; K8's F = 16, the width
+    its forward takes at N = 256), B = ``b``, N = ``n``: bank_kernel_phases
+    on them, keys ending in ``size``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    c, a, f = 8, 32, 16
     q32, k32 = (0.8 * torch.randn(b, c, n, a, device=dev, generator=gen) for _ in range(2))
     shapes = [(c, f, a), (c, a), (c, a, a), (c, a)] * 2
     ws = [torch.randn(sh, device=dev, generator=gen) / (sh[-2] ** 0.5 if len(sh) == 3 else 4.0)
@@ -975,7 +992,13 @@ def bank_n256_phases(dev):
     qk = torch.randn(b, n, f, device=dev, generator=gen)
     ops = {"q": q32.bfloat16(), "k": k32.bfloat16(), "q32": q32, "k32": k32, "qk": qk,
            "ws": ws, "ds": 4}
-    return bank_kernel_phases([ops], "[n256]")
+    return bank_kernel_phases([ops], size)
+
+
+def bank_n256_phases(dev):
+    """K7 and K8, forward and backward, at N = 256, B = 2 on seeded
+    operands (bank_seeded_phases), keys ending in [n256]."""
+    return bank_seeded_phases(dev, 2, 256, 17, "[n256]")
 
 
 def k7_n600_phases(dev):
@@ -1117,14 +1140,14 @@ def _kernel_leaf_grads(models):
     return out
 
 
-def step_against_plain(dev, cfg, models, batch, seed: int, label: str) -> float:
-    """One step's loss terms, component gradient norms and the kernels' own
-    gradient leaves (KERNEL_LEAVES) against an all-plain build of the same
-    weights, batch statistics and draws (dropout masks from the same seed);
-    the models' state is left as it was.  Returns the leaves' bar."""
+def step_pair(dev, cfg, models, batch, seed: int):
+    """One step's (loss terms, component gradient norms, KERNEL_LEAVES
+    gradients) on ``models`` and on an all-plain build of the same weights,
+    batch statistics and draws (dropout masks from the same seed); the
+    models' state and the launch counts are left as they were."""
     from moleculesde_tpu_torch.data.compact import CompactBatch, expand_on_device
     from moleculesde_tpu_torch.pretrain.train_state import build_models
-    from moleculesde_tpu_torch.pretrain.train_step import METRICS, draw_losses, pretrain_loss
+    from moleculesde_tpu_torch.pretrain.train_step import draw_losses, pretrain_loss
 
     if isinstance(batch, CompactBatch):
         batch = expand_on_device(batch)
@@ -1133,7 +1156,7 @@ def step_against_plain(dev, cfg, models, batch, seed: int, label: str) -> float:
         plain[name].load_state_dict(models[name].state_dict())
     out = {}
     saved_counts = [c.launches for c in _counters()]
-    for kind, ms in ((label, models), ("plain", plain)):
+    for kind, ms in (("kernel", models), ("plain", plain)):
         saved = {n: {k: v.clone() for k, v in m.state_dict().items()} for n, m in ms.items()}
         g = torch.Generator(device=dev).manual_seed(seed)
         for m in ms.values():
@@ -1147,7 +1170,17 @@ def step_against_plain(dev, cfg, models, batch, seed: int, label: str) -> float:
             m.zero_grad(set_to_none=True)
     for c, n in zip(_counters(), saved_counts):
         c.launches = n
-    (mk, gk, lk), (mp, gp, lp) = out[label], out["plain"]
+    return out["kernel"], out["plain"]
+
+
+def step_against_plain(dev, cfg, models, batch, seed: int, label: str) -> float:
+    """One step's loss terms, component gradient norms and the kernels' own
+    gradient leaves (KERNEL_LEAVES) against an all-plain build of the same
+    weights, batch statistics and draws (:func:`step_pair`).  Returns the
+    leaves' bar."""
+    from moleculesde_tpu_torch.pretrain.train_step import METRICS
+
+    (mk, gk, lk), (mp, gp, lp) = step_pair(dev, cfg, models, batch, seed)
     # bf16 step: both builds round at the same places; sums in another order
     # move a rounded value by one bf16 ulp now and then.  Three runs read at
     # most 1.2e-4 on loss terms and gradient norms: 1e-3 is about 10x that
@@ -1845,6 +1878,232 @@ def painn_steps(dev):
     return launches
 
 
+def native_collation_phase(card: str):
+    """Phase 14.1: the port's C++ collator against its numpy collation on
+    one B=128, n_max 32 batch of the padded path's synthetic molecules (the
+    host graphs of phase 7), bit for bit; host ms per batch of each, median
+    of 20 after 3, printed with the card's name and power limit."""
+    import statistics
+
+    from moleculesde_tpu_torch.benchmarks.profile_pretrain import PATH_ARGS, parse_path
+    from moleculesde_tpu_torch.core.batch import pad_graphs
+    from moleculesde_tpu_torch.data.native_collate import native_pad_graphs
+    from moleculesde_tpu_torch.examples import pretrain as cli
+
+    args = parse_path(PATH_ARGS, batches=1)
+    graphs = cli.load_graphs(args)[:args.batch_size]
+    kw = dict(n_max=args.n_max, e_max=args.e_max_factor * args.n_max,
+              ext_e_max=args.n_max * args.n_max, num_graphs=args.batch_size)
+    mine, ref = native_pad_graphs(graphs, **kw), pad_graphs(graphs, **kw)
+    for f in dataclasses.fields(ref):
+        a, b = getattr(mine, f.name), getattr(ref, f.name)
+        check(torch.equal(a, b) if torch.is_tensor(b) else a == b,
+              f"native collation: {f.name} differs from the numpy collation")
+    times = {}
+    for name, fn in (("native", native_pad_graphs), ("numpy", pad_graphs)):
+        for _ in range(3):
+            fn(graphs, **kw)
+        runs = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            fn(graphs, **kw)
+            runs.append((time.perf_counter() - t0) * 1e3)
+        times[name] = statistics.median(runs)
+    print(f"native collation: B={args.batch_size}, n_max {args.n_max}, bit for bit with the "
+          f"numpy collation; host ms per batch native {times['native']:.4f} numpy "
+          f"{times['numpy']:.4f} (median of 20; {card})", flush=True)
+    return times
+
+
+def _states_equal(a, b, what: str) -> None:
+    """Every weight, buffer and Adam state tensor of two (models, optimizer)
+    pairs equal bit for bit."""
+    (ma, oa), (mb, ob) = a, b
+    for comp in ma:
+        for (k, u), (k2, v) in zip(ma[comp].state_dict().items(),
+                                   mb[comp].state_dict().items()):
+            check(k == k2 and torch.equal(u, v), f"{what}: {comp}.{k} differs")
+    sa, sb = oa.state_dict()["state"], ob.state_dict()["state"]
+    check(sa.keys() == sb.keys(), f"{what}: Adam holds state for other parameters")
+    for i in sa:
+        for k in sa[i]:
+            check(torch.equal(sa[i][k].cpu(), sb[i][k].cpu()), f"{what}: Adam {k} of {i} differs")
+
+
+# phase 14's run: the JAX CLI's defaults plus these
+BUCKET_FLAGS = ["--n_max", "128", "--buckets", "16", "32", "64", "128", "--batch_size", "32",
+                "--synthetic_molecules", "512", "--epochs", "1"]
+
+
+def _without(flags, name: str) -> list:
+    """``flags`` without the flag ``name`` and its values."""
+    out, skip = [], False
+    for f in flags:
+        if f.startswith("--"):
+            skip = f == name
+        if not skip:
+            out.append(f)
+    return out
+
+
+def bucketed_cli_path(dev, card: str):
+    """Phase 14: native collation (14.1); the pretraining CLI's ``main`` at
+    the JAX CLI's defaults plus ``--n_max 128 --buckets 16 32 64 128
+    --batch_size 32 --synthetic_molecules 512 --epochs 1`` with its outputs
+    in a temporary directory, the counts set to 0 just before and read just
+    after, every step K1 5 / 5, K2 6 / 6, K3 1 / 1, its batches per bucket,
+    every metric finite, ``metrics.csv`` and ``train_state.pt`` written
+    (14.2); on the 16-atom bucket's first batch K1, K2, K3 and K4 forward
+    and backward against their plain versions on the step's operands (bf16
+    and f32, phase 7's bars, two runs bit for bit), K7 / K8 at N = 16, B =
+    32 on seeded operands (phase 6's bars) and one f32 step against an
+    all-plain f32 build (14.3; the bf16 step's differences printed); the
+    run's ``train_state.pt`` loaded into a fresh ``create_pretrain_state``,
+    one step on that batch by it and by the run's own state, bit for bit
+    (14.4); one epoch of the same
+    molecules at ``--n_max 128`` without and with buckets, in turns,
+    molecules/s (14.5).  Returns (kernel results, the run's launch counts,
+    {"collate_ms": ..., "molecules_per_s": ...})."""
+    import collections
+    import os
+    import tempfile
+
+    from moleculesde_tpu_torch.data.loader import device_prefetch
+    from moleculesde_tpu_torch.examples import pretrain as cli
+    from moleculesde_tpu_torch.pretrain.train_state import build_models, create_pretrain_state
+    from moleculesde_tpu_torch.pretrain.train_step import METRICS
+    from moleculesde_tpu_torch.utils.checkpoints import load_train_state
+
+    collate_ms = native_collation_phase(card)
+    flags = BUCKET_FLAGS
+    steps, real_step = [], cli.pretrain_step
+
+    def recorded_step(models, optimizer, cfg, batch, generator, *rest):
+        before = read_counts()
+        out = real_step(models, optimizer, cfg, batch, generator, *rest)
+        after = read_counts()
+        steps.append({"n_max": batch.n_max, "batch": batch, "metrics": out,
+                      "counts": {k: after[k] - before[k] for k in after},
+                      "state": (models, optimizer, generator, cfg)})
+        return out
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        cli.pretrain_step = recorded_step
+        try:
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            history = cli.main(flags + ["--output_model_dir", out_dir])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+        finally:
+            cli.pretrain_step = real_step
+        args = cli.get_parser().parse_args(flags)
+        models, optimizer, gen, cfg = steps[-1]["state"]
+        per_bucket = collections.Counter(st["n_max"] for st in steps)
+        per_step = expect(gin_messages=cfg.num_layer, gin_messages_bwd=cfg.num_layer,
+                          fused_cfconv=cfg.schnet_num_interactions,
+                          fused_cfconv_bwd=cfg.schnet_num_interactions,
+                          pair_relu_project=1, pair_relu_project_bwd=1)
+        print(f"bucketed CLI run: {len(steps)} steps in {wall:.2f} s (first steps of each "
+              f"shape included), batches per bucket {dict(sorted(per_bucket.items()))}; "
+              f"launches {launches}", flush=True)
+        check(sorted(per_bucket) == sorted(args.buckets), f"buckets run {sorted(per_bucket)}")
+        check(all(st["counts"] == per_step for st in steps), "bucketed CLI run: a step's "
+              f"launch counts differ from {per_step}")
+        check(launches == {k: v * len(steps) for k, v in per_step.items()},
+              f"bucketed CLI run launch counts {launches}")
+        for st in steps:
+            vals = {k: float(st["metrics"][k]) for k in METRICS}
+            check(all(math.isfinite(v) for v in vals.values()),
+                  f"bucketed CLI run, n_max {st['n_max']}: non-finite metrics {vals}")
+        check(all(math.isfinite(v) for h in history for v in h.values()), "non-finite epoch")
+        for name in ("metrics.csv", "train_state.pt", "model_complete_final.pt"):
+            check(os.path.exists(os.path.join(out_dir, name)), f"the CLI wrote no {name}")
+        with open(os.path.join(out_dir, "metrics.csv")) as f:
+            rows = f.read().splitlines()
+        check(rows[0] == "step,wall_time,CL_loss,CL_acc,SDE_loss_2Dto3D,SDE_loss_3Dto2D"
+              and len(rows) == 2, f"metrics.csv holds {rows}")
+
+        # 14.3: n_max 16 on the card, on the run's weights
+        batch16 = next(st["batch"] for st in steps if st["n_max"] == 16)
+        with torch.no_grad():
+            k1, k2, k3 = training_operands(models, batch16)
+        results = training_kernel_phases(k1, k2, k3, label="n_max 16")
+        ea, env, *params = k2
+        g2 = torch.randn(params[0].shape, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(7))
+        with torch.no_grad():
+            same_bits("n_max 16 K2 forward", lambda: fused_cfconv(ea, env, *params, bf16=True,
+                                                                   impl="kernel"))
+            same_bits("n_max 16 K2 backward", lambda: fused_cfconv_bwd(
+                ea, env, *params, g2, bf16=True, impl="kernel"))
+        results.update(bank_seeded_phases(dev, args.batch_size, 16, 23, "[n16]"))
+        saved = [c.launches for c in _counters()]
+        # the step against plain in f32, with 7's bars: in bf16 the 3D->2D
+        # model, which runs no kernel, moves its gradient norm past the bf16
+        # bar of 1e-3 at n_max 16 from one-ulp differences in SchNet's output
+        # (K2 against its plain version), where the f32 step agrees to ~1e-6.
+        # The bf16 step's differences are printed at three seeds, with no bar
+        cfg32 = dataclasses.replace(cfg, train_precision="float32")
+        models32 = build_models(cfg32, dev)
+        for name, m in models32.items():
+            m.load_state_dict(models[name].state_dict())
+        step_against_plain(dev, cfg32, models32, batch16, args.seed + 8, "n_max 16 bucket f32")
+        del models32
+        for seed in range(args.seed + 8, args.seed + 11):
+            (mk, gk, _), (mp, gp, _) = step_pair(dev, cfg, models, batch16, seed)
+            print(f"n_max 16 bucket bf16 vs plain step, seed {seed} (no bar): " + ", ".join(
+                [f"{k} rel {abs(mk[k] - mp[k]) / max(1e-6, abs(mp[k])):.2e}" for k in METRICS]
+                + [f"|grad {k}| rel {abs(gk[k] - gp[k]) / max(1e-12, gp[k]):.2e}"
+                   for k in gk]), flush=True)
+
+        # 14.4: resume from the run's train_state.pt, one step each, bit for bit
+        fresh = create_pretrain_state(cfg, dev, args.seed + 1)
+        fresh, extra = load_train_state(os.path.join(out_dir, "train_state.pt"), fresh)
+        check(fresh.step == len(steps) and extra == {"epoch": 1},
+              f"train_state.pt: step {fresh.step}, extra {extra}")
+        _states_equal((models, optimizer), (fresh.models, fresh.optimizer), "resumed state")
+        check(torch.equal(gen.get_state(), fresh.generator.get_state()),
+              "resumed state: the step generator differs")
+        real_step(models, optimizer, cfg, batch16, gen)
+        real_step(fresh.models, fresh.optimizer, cfg, batch16, fresh.generator)
+        torch.cuda.synchronize()
+        _states_equal((models, optimizer), (fresh.models, fresh.optimizer),
+                      "a step after the resume")
+        print("resume: train_state.pt loaded into a fresh create_pretrain_state; one step "
+              "on the n_max 16 batch by it and by the run's own state: every weight, buffer "
+              "and Adam moment bit for bit", flush=True)
+        del fresh
+
+    # 14.5: one epoch of the same molecules without and with buckets, in turns
+    graphs = cli.load_graphs(args)
+    one = cli.get_parser().parse_args(_without(flags, "--buckets"))
+    loaders = {"one padding": cli.make_loader(graphs, one),
+               "buckets": cli.make_loader(graphs, args)}
+    state = create_pretrain_state(cfg, dev, args.seed)
+    rates = {name: [] for name in loaders}
+    for name in ("one padding", "buckets", "buckets", "one padding"):
+        torch.cuda.synchronize()
+        t0, molecules = time.perf_counter(), 0
+        for batch, n_real in device_prefetch(loaders[name], dev):
+            real_step(state.models, state.optimizer, cfg, batch, state.generator)
+            molecules += n_real
+        torch.cuda.synchronize()
+        rates[name].append(molecules / (time.perf_counter() - t0))
+        kind = f"{one.ingest} batches" if name == "one padding" else "padded batches"
+        print(f"epoch of {len(graphs)} molecules, {name} ({kind}): {molecules} trained, "
+              f"molecules_per_s={rates[name][-1]:.2f}", flush=True)
+    for c, k in zip(_counters(), saved):
+        c.launches = k
+    print(f"buckets against one padding at n_max {args.n_max}, B={args.batch_size} ({card}): "
+          + ", ".join(f"{k} molecules_per_s {v[0]:.2f} / {v[1]:.2f}" for k, v in rates.items()),
+          flush=True)
+    return results, launches, {"collate_ms_per_batch": collate_ms,
+                               "molecules_per_s": rates, "batches_per_bucket": dict(per_bucket)}
+
+
 def _hmma_per_function(build, source: str) -> dict:
     """{kernel function: HMMA instructions} of a built library's SASS
     (``cuobjdump -sass``, split at its ``Function :`` headers)."""
@@ -1970,8 +2229,9 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else
-          f"nvidia-smi failed: {smi.stderr.strip()}", flush=True)
+    card = (smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else
+            f"nvidia-smi failed: {smi.stderr.strip()}")
+    print(card, flush=True)
     dev = torch.device("cuda")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}", flush=True)
@@ -2007,6 +2267,9 @@ def main() -> int:
     done("pretraining at n_max 32 (phases 7-12)")
     large_n_results, large_n_launches = large_n_path(dev)
     done("n_max 64 / 128 (phase 13)")
+    bucket_results, bucket_launches, bucket_figures = bucketed_cli_path(dev, card)
+    large_n_results["n_max_16"] = bucket_results
+    done("buckets, resume and native collation (phase 14)")
     device_time_phase()
     done("device times")
 
@@ -2022,7 +2285,7 @@ def main() -> int:
             **{f"pretrain_microbatch_{scope}_2_steps": counts
                for scope, counts in microbatch_launches.items()},
             "pretrain_painn_2_steps": painn_launches,
-            **large_n_launches}
+            **large_n_launches, "pretrain_buckets_cli": bucket_launches}
     keys = ("max_abs_err", "ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms",
             "bound_by")
     k6_keys = keys + ("max_rel_err",)
@@ -2078,7 +2341,8 @@ def main() -> int:
     # the bank kernels: edge layer 1's operands (C = 8, as layers 1-3) in bf16
     # at the top, layer 0's (C = 2; K8 F = emb_dim) and f32 mode beside them
     bank_all = {**bank_results, **large_n_results["n_max_128"],
-                **large_n_results["n_256_b_2"], **large_n_results["n_600_b_1"]}
+                **large_n_results["n_256_b_2"], **large_n_results["n_600_b_1"],
+                **bucket_results}
     for name, counter, source, replaces, main_path in (
             ("attn_map_bank", attn_map_bank_kernel, "attn_bank.cu",
              "rejected/attn_bank.py:138", "sample_3d_to_2d_pallas"),
@@ -2096,6 +2360,7 @@ def main() -> int:
                                                 "f32": res(f"[L{li}][f32][n{n}]")}
                                 for li in (1, 0)} for n in (64, 128)}
         extra["n_256_b_2"] = {"bf16": res("[L0][n256]"), "f32": res("[L0][f32][n256]")}
+        extra["n_16_b_32"] = {"bf16": res("[L0][n16]"), "f32": res("[L0][f32][n16]")}
         if name.startswith("attn_map_bank"):   # K7 past the old backward's N <= 518
             extra["n_600_b_1"] = {"bf16": res("[L0][n600]"), "f32": res("[L0][f32][n600]")}
         kernels.append({
@@ -2107,6 +2372,7 @@ def main() -> int:
             **res("[L1]"), "library_ms": None, "mode": "bf16", "operands": "edge layer 1",
             "f32": res("[L1][f32]"), "layer_0": {"bf16": res("[L0]"), "f32": res("[L0][f32]")},
             **extra})
+    print(json.dumps({"pretrain_buckets_cli": bucket_figures}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

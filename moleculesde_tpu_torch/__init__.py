@@ -7,10 +7,12 @@ package on a ported path becomes a CUDA C++ kernel for ``sm_90a``
 bound through ``ctypes``.  Each kernel wrapper keeps a plain PyTorch
 version of the same function beside it, which tensors on the CPU take.
 
-Ported so far: 2D->3D conformer generation (GIN encoder, the 2D->3D score
-model's channel-major sampling path, the predictor-corrector sampler) and
-one step of joint pretraining (GIN and SchNet, the dual contrastive loss,
-both score-matching losses, Adam; ``pretrain/``, ``examples/pretrain.py``).
+Ported so far: 2D->3D conformer generation and 3D->2D graph generation
+(the encoders, both score models, both predictor-corrector samplers and
+their CLIs) and joint pretraining as the JAX package's CLI runs it on one
+device (``pretrain/``, ``examples/pretrain.py``: both ingests, size
+buckets, microbatching, full-state resume).  ``utils/checkpoints.py`` reads
+the JAX package's ``.msgpack`` checkpoints without JAX.
 """
 
 __version__ = "0.1.0"

@@ -6,11 +6,11 @@ checkpoint format.
 The port keeps the flax names and shapes (kernels ``[in, out]``), so the
 path ``params/GINConv_0/Dense_0/kernel`` is the state-dict key
 ``GINConv_0.Dense_0.kernel`` and ``batch_stats/.../mean`` a buffer.
-Reading the JAX package's ``.msgpack`` checkpoints needs flax or msgpack
-and is not part of the port yet; convert a tree to the port's ``.pt``
-(:func:`load_flax_pretrain`, then :func:`save_checkpoint`) where flax is
-installed.  The pretraining CLI writes the same four-component ``.pt``,
-whose 2D and 2D->3D components the sampler CLI loads.
+The JAX package's ``.msgpack`` checkpoints are read without flax by
+:mod:`moleculesde_tpu_torch.utils.checkpoints`, whose trees go through
+:func:`load_flax_pretrain`.  The pretraining CLI writes the same
+four-component tree as a ``.pt`` (:func:`save_checkpoint`), whose
+components the sampler CLIs load; they take either file.
 """
 
 from __future__ import annotations
@@ -24,14 +24,14 @@ from torch import nn
 
 def flatten_flax(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     """``{"params": tree, "batch_stats": tree}`` -> {dotted key: array}."""
-    flat: Dict[str, np.ndarray] = {}
+    flat: Dict[str, Any] = {}
 
     def walk(prefix: str, node: Any) -> None:
         if isinstance(node, Mapping):
             for k, v in node.items():
                 walk(f"{prefix}.{k}" if prefix else str(k), v)
-        else:
-            flat[prefix] = np.asarray(node)
+        else:   # a torch tensor where numpy has no dtype (bfloat16)
+            flat[prefix] = node if torch.is_tensor(node) else np.asarray(node)
 
     for collection in ("params", "batch_stats"):
         walk("", variables.get(collection, {}))
@@ -50,9 +50,10 @@ def load_flax_variables(module: nn.Module, variables: Mapping[str, Any]) -> nn.M
     with torch.no_grad():
         for key, value in flat.items():
             target = state[key]
-            if tuple(target.shape) != value.shape:
-                raise ValueError(f"{key}: shape {value.shape} != {tuple(target.shape)}")
-            target.copy_(torch.as_tensor(np.array(value), dtype=target.dtype))
+            if tuple(target.shape) != tuple(value.shape):
+                raise ValueError(f"{key}: shape {tuple(value.shape)} != {tuple(target.shape)}")
+            value = value if torch.is_tensor(value) else torch.as_tensor(np.array(value))
+            target.copy_(value.to(target.dtype))
     return module
 
 

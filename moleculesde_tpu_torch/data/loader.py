@@ -2,14 +2,17 @@
 prefetch to the device.
 
 Counterpart of ``moleculesde_tpu/data/loader.py``: :class:`GraphLoader`
-with the padded (``--ingest padded``) and the compact (``--ingest
-compact``, :mod:`~moleculesde_tpu_torch.data.compact`) collations,
-:class:`ThreadedLoader` (``--num_workers``) and :func:`device_prefetch`.
-Every batch has the same shapes; with ``drop_last`` only full batches are
-produced, otherwise the tail batch is padded with empty graphs.  The
-shuffle draws from ``numpy.random.default_rng(seed)``, so the same seed
-visits molecules in the JAX package's order.  Size buckets
-(``BucketedGraphLoader``) are not ported yet.
+with the padded (``--ingest padded``; in C++ by default,
+:mod:`~moleculesde_tpu_torch.data.native_collate`) and the compact
+(``--ingest compact``, :mod:`~moleculesde_tpu_torch.data.compact`)
+collations, the size buckets of :class:`BucketedGraphLoader`
+(``--buckets``) with :func:`max_atoms` and :func:`suggest_buckets`
+(``--n_max 0``), :class:`ThreadedLoader` (``--num_workers``) and
+:func:`device_prefetch`.  Every batch of a loader (of a bucket) has the same
+shapes; with ``drop_last`` only full batches are produced, otherwise the
+tail batch is padded with empty graphs.  Every shuffle draws from
+``numpy.random.default_rng(seed)``, so the same seed visits molecules, and
+buckets, in the JAX package's order.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 
 from moleculesde_tpu_torch.core.batch import GraphBatch, pad_graphs
 from moleculesde_tpu_torch.data.compact import CompactBatch, collate_compact
+from moleculesde_tpu_torch.data.native_collate import native_pad_graphs
 
 Batch = Union[GraphBatch, CompactBatch]
 
@@ -32,15 +36,23 @@ class GraphLoader:
     """Iterate ``(batch on the CPU, n_real_graphs)`` over graph dicts: a
     :class:`GraphBatch` with ``collate="padded"``, a :class:`CompactBatch`
     with ``collate="compact"`` (``use_extend`` then tells the device
-    whether to build the extended graph)."""
+    whether to build the extended graph).  ``collate_impl`` picks the
+    padded collation: "native" (C++, the default) or "numpy"; both give the
+    same bits.  ``quiet_drops`` leaves the drop message to a parent loader
+    (:class:`BucketedGraphLoader`)."""
 
     def __init__(self, graphs: Sequence[Dict], batch_size: int, n_max: int,
                  e_max: Optional[int] = None, ext_e_max: Optional[int] = None,
                  shuffle: bool = True, drop_last: bool = True, seed: int = 0,
-                 collate: str = "padded", use_extend: bool = True):
+                 collate: str = "padded", use_extend: bool = True,
+                 collate_impl: str = "native", quiet_drops: bool = False):
         if collate not in ("padded", "compact"):
             raise ValueError(f"unknown collate {collate}")
+        if collate_impl not in ("native", "numpy"):
+            raise ValueError(f"unknown collate_impl {collate_impl}")
         self.collate_mode = collate
+        self.collate_impl = collate_impl
+        self.quiet_drops = quiet_drops
         self.use_extend = use_extend
         self.graphs = list(graphs)
         self.batch_size = batch_size
@@ -65,7 +77,7 @@ class GraphLoader:
             order = self._rng.permutation(order)
         bs = self.batch_size
         dropped = len(self.graphs) - len(self) * bs if self.drop_last else 0
-        if dropped > 0:
+        if dropped > 0 and not self.quiet_drops:
             print(f"GraphLoader(n_max={self.n_max}): drop_last discards "
                   f"{dropped}/{len(self.graphs)} molecules this epoch")
         return [order[b * bs:(b + 1) * bs] for b in range(len(self))]
@@ -79,8 +91,9 @@ class GraphLoader:
                                    num_graphs=self.batch_size,
                                    use_extend=self.use_extend), len(chunk)
         self._check_budgets(chunk)
-        return pad_graphs(chunk, n_max=self.n_max, e_max=self.e_max,
-                          ext_e_max=self.ext_e_max, num_graphs=self.batch_size), len(chunk)
+        pad = native_pad_graphs if self.collate_impl == "native" else pad_graphs
+        return pad(chunk, n_max=self.n_max, e_max=self.e_max, ext_e_max=self.ext_e_max,
+                   num_graphs=self.batch_size), len(chunk)
 
     def __iter__(self) -> Iterator[Tuple[Batch, int]]:
         for idx in self.epoch_indices():
@@ -103,6 +116,59 @@ class GraphLoader:
                           f"ext-edges>{self.ext_e_max}: {x_over}); raise --n_max, "
                           f"--e_max_factor or --ext_e_max")
             self._warned_truncate = True
+
+
+class BucketedGraphLoader:
+    """Size buckets (JAX's ``BucketedGraphLoader``): each molecule goes to
+    the smallest bucket that holds its atoms (larger ones to the largest,
+    cut to it), each bucket is a padded :class:`GraphLoader` at n_max = the
+    bucket, ``e_max = e_max_factor * b`` and ``ext_e_max = b * b``, and
+    each epoch visits every bucket's batches in an order shuffled by
+    ``default_rng(seed)``.  Yields ``(GraphBatch, n_real)``; a step sees one
+    shape per bucket.
+
+    The buckets collate padded batches whatever ``--ingest`` says, as in
+    JAX: molecules built without the extended graph (the compact ingest's
+    host graphs) carry their bond graph in the extended-edge slots."""
+
+    def __init__(self, graphs: Sequence[Dict], batch_size: int,
+                 buckets: Sequence[int] = (16, 32, 64), e_max_factor: int = 4,
+                 shuffle: bool = True, drop_last: bool = True, seed: int = 0):
+        self.buckets = sorted(buckets)
+        graphs = list(graphs)
+        counts = np.array([np.asarray(g["atom_feats"]).shape[0] for g in graphs])
+        slot = np.minimum(np.searchsorted(np.asarray(self.buckets), counts, side="left"),
+                          len(self.buckets) - 1)
+        self.loaders: List[Optional[GraphLoader]] = []
+        for i, b in enumerate(self.buckets):
+            gs = [graphs[j] for j in np.flatnonzero(slot == i)]
+            self.loaders.append(GraphLoader(
+                gs, batch_size=batch_size, n_max=b, e_max=e_max_factor * b, ext_e_max=b * b,
+                shuffle=shuffle, drop_last=drop_last, seed=seed, quiet_drops=True)
+                if gs else None)
+        self.shuffle = shuffle
+        self._rng = np.random.default_rng(seed)
+
+    def __len__(self) -> int:
+        return sum(len(ld) for ld in self.loaders if ld is not None)
+
+    def __iter__(self) -> Iterator[Tuple[GraphBatch, int]]:
+        schedule, iters, dropped = [], [], []
+        for i, ld in enumerate(self.loaders):
+            iters.append(None if ld is None else iter(ld))
+            if ld is None:
+                continue
+            schedule.extend([i] * len(ld))
+            d = len(ld.graphs) - len(ld) * ld.batch_size if ld.drop_last else 0
+            if d:
+                dropped.append(f"bucket {ld.n_max}: {d}")
+        if dropped:
+            print("BucketedGraphLoader: drop_last discards " + ", ".join(dropped)
+                  + " molecules this epoch")
+        if self.shuffle:
+            self._rng.shuffle(schedule)
+        for i in schedule:
+            yield next(iters[i])
 
 
 class ThreadedLoader:
@@ -154,3 +220,15 @@ def device_prefetch(iterator: Iterable[Tuple[Batch, int]], device: str | torch.d
             yield queue.popleft()
     while queue:
         yield queue.popleft()
+
+
+def max_atoms(graphs: Sequence[Dict]) -> int:
+    """The largest molecule's atom count."""
+    return max(int(np.asarray(g["atom_feats"]).shape[0]) for g in graphs)
+
+
+def suggest_buckets(graphs: Sequence[Dict], candidates=(16, 32, 64, 128)) -> int:
+    """The smallest of ``candidates`` that holds every molecule (else the
+    largest molecule's size): ``--n_max 0``'s padding."""
+    m = max_atoms(graphs)
+    return next((c for c in candidates if m <= c), m)

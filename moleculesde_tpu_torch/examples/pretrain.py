@@ -2,23 +2,40 @@
 
 Counterpart of ``examples/pretrain.py`` of the JAX package (reference
 examples/pretrain_MoleculeSDE.py): the JAX CLI's flag names and defaults
-for everything the port runs, the same per-epoch console metrics, and the
-four-component checkpoint (``model_complete.pt`` at the best epoch loss,
-``model_complete_final.pt`` at the end), whose ``model_2D`` and
-``SDE_2Dto3D_model`` the port's sampler CLI loads with
-``--input_model_file``.  As in JAX, ``--ingest compact`` (the default)
-collates compact batches and builds the extended graph on the device,
-``--microbatch`` / ``--microbatch_scope`` chunk the step, ``--model_3d
-PaiNN`` swaps the 3D encoder and ``--schnet_cfconv pallas_rbf`` runs K5.
+for everything the port runs, the same per-epoch console metrics and
+``metrics.csv`` rows, the four-component checkpoint (``model_complete.pt``
+at the best epoch loss, ``model_complete_final.pt`` at the end), whose
+components the port's sampler CLIs load with ``--input_model_file``, and
+the full train state at the end (``train_state.pt``: weights, batch
+statistics, Adam's moments and step, the step generator, ``extra={"epoch":
+epochs}``).  As in JAX, ``--ingest compact`` (the default) collates compact
+batches and builds the extended graph on the device, ``--buckets`` trains
+on size buckets (padded batches, whatever ``--ingest`` says), ``--n_max 0``
+pads to :func:`suggest_buckets`, ``--microbatch`` / ``--microbatch_scope``
+chunk the step, ``--model_3d PaiNN`` swaps the 3D encoder and
+``--schnet_cfconv pallas_rbf`` runs K5.  ``--synthetic_molecules N > 0``
+trains on synthetic molecules whatever ``--dataset`` says, as in JAX.
+
+``--resume_from`` restores a full train state before the first epoch: the
+port's ``train_state.pt`` (everything, the step generator included, so the
+next step is the uninterrupted run's) or the JAX package's
+``train_state.msgpack``, read without JAX (weights, batch statistics,
+Adam's moments, step and LR scales).  JAX draws from ``--seed``'s key
+folded with the step, a stream the port does not reproduce: after a JAX
+checkpoint the port's dropout masks and loss draws come from its own
+generator seeded with ``--seed``.  Like JAX, the run then trains
+``--epochs`` epochs from epoch 1.  ``--n_max 0`` needs a dataset: synthetic
+molecules are drawn with 4 to ``--n_max`` atoms, so it raises there, as
+numpy raises in JAX.
 
 Runs on the GPU (``--device cuda``, the default) and raises without one;
 ``--device cpu`` runs the plain PyTorch path.  Every flag the JAX CLI reads
 is parsed with its name and default.  Not ported yet, and refused with a
-``NotImplementedError`` that names the flag: ``--buckets``, datasets other
-than ``synthetic``, ``--resume_from``, ``--num_devices`` > 1,
-``--distributed`` and ``--dist_*``, ``--profile_dir`` and ``--debug_nans``.
-``--input_data_dir`` and ``--max_molecules`` are read only with the QM9 /
-PCQM4Mv2 datasets, as in JAX, so with ``synthetic`` they change nothing.
+``NotImplementedError`` that names the flag: datasets other than synthetic
+molecules, ``--num_devices`` > 1, ``--distributed`` and ``--dist_*``,
+``--profile_dir`` and ``--debug_nans``.  ``--input_data_dir`` and
+``--max_molecules`` are read only with the QM9 / PCQM4Mv2 datasets, as in
+JAX, so with synthetic molecules they change nothing.
 
 Example:
   python -m moleculesde_tpu_torch.examples.pretrain --dataset=synthetic \\
@@ -35,14 +52,16 @@ import numpy as np
 import torch
 
 from moleculesde_tpu_torch.convert import save_checkpoint
-from moleculesde_tpu_torch.data.loader import GraphLoader, ThreadedLoader, device_prefetch
+from moleculesde_tpu_torch.data.loader import (
+    BucketedGraphLoader, GraphLoader, ThreadedLoader, device_prefetch, suggest_buckets)
 from moleculesde_tpu_torch.data.synthetic import random_molecule
 from moleculesde_tpu_torch.pretrain.contrastive import METRICS as CL_METRICS
-from moleculesde_tpu_torch.pretrain.train_state import (
-    PretrainConfig, build_models, make_optimizer)
+from moleculesde_tpu_torch.pretrain.train_state import PretrainConfig, create_pretrain_state
 from moleculesde_tpu_torch.pretrain.train_step import METRICS, SCOPES, pretrain_step
 from moleculesde_tpu_torch.sde.base import SDE_PRESETS_2DTO3D, SDE_PRESETS_3DTO2D
+from moleculesde_tpu_torch.utils.checkpoints import load_train_state, save_train_state
 from moleculesde_tpu_torch.utils.device import resolve_device
+from moleculesde_tpu_torch.utils.metrics import MetricsLogger
 
 MODEL_2DTO3D_VARIANTS = {"SDEModel2Dto3D_01": 1, "SDEModel2Dto3D_02": 2}
 MODEL_3DTO2D_VARIANTS = {"SDEModel3Dto2D_node_adj_dense": 1,
@@ -131,8 +150,11 @@ def get_parser() -> argparse.ArgumentParser:
                    help="'auto' / 'pallas' = the fused CFConv kernel K2; "
                         "'pallas_rbf' = K5, the Gaussian smearing built in the "
                         "kernel; 'xla' = eager PyTorch")
-    p.add_argument("--n_max", type=int, default=32)
-    p.add_argument("--buckets", type=int, nargs="+", default=[])
+    p.add_argument("--n_max", type=int, default=32,
+                   help="padding (0 -> the smallest of 16 / 32 / 64 / 128 that holds "
+                        "every molecule)")
+    p.add_argument("--buckets", type=int, nargs="+", default=[],
+                   help="size buckets: padded batches at n_max = each bucket")
     p.add_argument("--e_max_factor", type=int, default=4)
     p.add_argument("--ext_e_max", type=int, default=0,
                    help="extended-edge budget (0 -> n_max^2)")
@@ -154,7 +176,8 @@ def get_parser() -> argparse.ArgumentParser:
                    help="abort on the first NaN: not ported yet")
     p.set_defaults(debug_nans=False)
     p.add_argument("--resume_from", type=str, default="",
-                   help="full train-state checkpoint to resume from: not ported yet")
+                   help="full train state to resume from: the port's train_state.pt "
+                        "or the JAX package's train_state.msgpack")
     p.add_argument("--output_model_dir", type=str, default="")
     return p
 
@@ -169,11 +192,12 @@ def refuse_unported(refused: dict) -> None:
 
 def check_supported(args) -> None:
     """Raise on the flag values the port does not run yet."""
-    if args.dataset != "synthetic":
+    # JAX's condition for synthetic molecules (examples/pretrain.py:49)
+    if not (args.dataset == "synthetic" or args.synthetic_molecules > 0):
         raise NotImplementedError(f"--dataset={args.dataset} is not ported yet: only "
-                                  f"'synthetic' is")
+                                  f"synthetic molecules are (--dataset synthetic or "
+                                  f"--synthetic_molecules N)")
     refuse_unported({
-        "--buckets": bool(args.buckets), "--resume_from": bool(args.resume_from),
         "--num_devices": args.num_devices > 1, "--distributed": args.distributed,
         "--dist_coordinator": bool(args.dist_coordinator),
         "--dist_num_processes": args.dist_num_processes != 0,
@@ -182,6 +206,12 @@ def check_supported(args) -> None:
 
 
 def load_graphs(args) -> list:
+    """``--synthetic_molecules`` (0 -> 1024) molecules of 4 to ``--n_max``
+    atoms, drawn from ``--seed`` as JAX draws them."""
+    if args.n_max < 4:
+        raise ValueError(f"synthetic molecules have 4 to --n_max atoms: --n_max "
+                         f"{args.n_max} leaves no size to draw (--n_max 0, the "
+                         f"suggested bucket, needs a dataset)")
     rng = np.random.default_rng(args.seed)
     # compact ingest builds the extended graph on the device: the host
     # skips it
@@ -191,10 +221,17 @@ def load_graphs(args) -> list:
 
 
 def make_loader(graphs, args):
-    """The host loader of ``--ingest`` (in ``--num_workers`` threads)."""
-    loader = GraphLoader(graphs, batch_size=args.batch_size, n_max=args.n_max,
-                         e_max=args.e_max_factor * args.n_max,
-                         ext_e_max=args.ext_e_max or args.n_max * args.n_max,
+    """The host loader: size buckets with ``--buckets`` (padded batches, no
+    worker threads, as in JAX), else ``--ingest``'s loader at ``--n_max``
+    (or the suggested bucket at 0) in ``--num_workers`` threads."""
+    if args.buckets:
+        return BucketedGraphLoader(graphs, batch_size=args.batch_size, buckets=args.buckets,
+                                   e_max_factor=args.e_max_factor, shuffle=True,
+                                   drop_last=True, seed=args.seed)
+    n_max = args.n_max or suggest_buckets(graphs)
+    loader = GraphLoader(graphs, batch_size=args.batch_size, n_max=n_max,
+                         e_max=args.e_max_factor * n_max,
+                         ext_e_max=args.ext_e_max or n_max * n_max,
                          shuffle=True, drop_last=True, seed=args.seed,
                          collate=args.ingest, use_extend=args.use_extend_graph)
     return ThreadedLoader(loader, args.num_workers) if args.num_workers > 0 else loader
@@ -228,12 +265,14 @@ def config_from_args(args) -> PretrainConfig:
 
 
 def setup(args, device):
-    """(config, models, optimizer, step generator) for the parsed flags;
-    weights drawn from ``--seed``."""
+    """(config, models, optimizer, step generator) for the parsed flags:
+    :func:`create_pretrain_state`'s, weights drawn from ``--seed``."""
     cfg = config_from_args(args)
-    models = build_models(cfg, device, torch.Generator().manual_seed(args.seed))
-    return (cfg, models, make_optimizer(models, cfg),
-            torch.Generator(device=device).manual_seed(args.seed))
+    state = create_pretrain_state(cfg, device, args.seed)
+    return cfg, state.models, state.optimizer, state.generator
+
+
+LOGGED = ("CL_loss", "CL_acc", "SDE_loss_2Dto3D", "SDE_loss_3Dto2D")
 
 
 def main(argv=None):
@@ -241,8 +280,12 @@ def main(argv=None):
     check_supported(args)
     device = resolve_device(args.device)
     loader = make_loader(load_graphs(args), args)
-    cfg, models, optimizer, gen = setup(args, device)
-    logged = ("CL_loss", "CL_acc", "SDE_loss_2Dto3D", "SDE_loss_3Dto2D")
+    cfg = config_from_args(args)
+    state = create_pretrain_state(cfg, device, args.seed)
+    if args.resume_from:
+        state, extra = load_train_state(args.resume_from, state)
+        print(f"resumed from {args.resume_from} at step {state.step} (extra: {extra})")
+    logger = MetricsLogger(args.output_model_dir or None)
     optimal_loss = float("inf")
     history = []
     for epoch in range(1, args.epochs + 1):
@@ -252,7 +295,9 @@ def main(argv=None):
         print(f"epoch: {epoch}")
         sums, n_batches = None, 0
         for batch, _ in device_prefetch(loader, device):
-            metrics = pretrain_step(models, optimizer, cfg, batch, gen, coeff_cl)
+            metrics = pretrain_step(state.models, state.optimizer, cfg, batch,
+                                    state.generator, coeff_cl)
+            state.step += 1
             vals = torch.stack([metrics[k] for k in METRICS])
             sums = vals if sums is None else sums + vals
             n_batches += 1
@@ -267,12 +312,15 @@ def main(argv=None):
             if temp_loss < optimal_loss and args.output_model_dir:
                 optimal_loss = temp_loss
                 print(f"save model with loss: {optimal_loss:.5f}")
-                _save(args, models, "model_complete.pt")
-            print("CL Loss: {:.5f}\tCL Acc: {:.5f}\t\tSDE 2Dto3D Loss: {:.5f}\t"
-                  "SDE 3Dto2D Loss: {:.5f}".format(*(accum[k] for k in logged)))
+                _save(args, state.models, "model_complete.pt")
+            logger.log(epoch, {k: accum[k] for k in LOGGED},
+                       echo="CL Loss: {:.5f}\tCL Acc: {:.5f}\t\tSDE 2Dto3D Loss: {:.5f}\t"
+                            "SDE 3Dto2D Loss: {:.5f}".format(*(accum[k] for k in LOGGED)))
         print(f"Time: {time.time() - t0:.5f}\n")
     if args.output_model_dir:
-        _save(args, models, "model_complete_final.pt")
+        _save(args, state.models, "model_complete_final.pt")
+        save_train_state(os.path.join(args.output_model_dir, "train_state.pt"), state,
+                         extra={"epoch": args.epochs})
     return history
 
 

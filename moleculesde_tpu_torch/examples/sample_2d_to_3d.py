@@ -8,9 +8,11 @@ encoder and the 2D conditioning run once per batch, then the whole PC chain.
 Results are pickled as {atom_feats, positions_true, pos_gen [repeat, n, 3]}.
 
 Runs on the GPU (``--device cuda``, the default) and raises without one;
-``--device cpu`` runs the plain PyTorch path.  Weights come from a port
-checkpoint (``--input_model_file``, a ``.pt`` written by
-``moleculesde_tpu_torch.convert.save_checkpoint``) or are drawn from
+``--device cpu`` runs the plain PyTorch path.  Weights come from a
+checkpoint (``--input_model_file``: ``model_2D`` and ``SDE_2Dto3D_model``
+of a ``.pt`` written by ``moleculesde_tpu_torch.convert.save_checkpoint`` or
+the port's pretraining CLI, or of the JAX package's
+``model_complete*.msgpack``, read without JAX) or are drawn from
 ``--seed``.  Every flag the JAX CLI reads is parsed with its name and
 default.  Not ported yet, and refused with a ``NotImplementedError`` that
 names the flag: datasets other than ``synthetic`` (so ``--input_data_dir``,
@@ -32,7 +34,6 @@ import time
 import numpy as np
 import torch
 
-from moleculesde_tpu_torch.convert import load_checkpoint
 from moleculesde_tpu_torch.core.batch import GraphBatch, pad_graphs
 from moleculesde_tpu_torch.data.synthetic import random_molecule
 from moleculesde_tpu_torch.examples.pretrain import refuse_unported
@@ -40,6 +41,7 @@ from moleculesde_tpu_torch.models.gnn2d import GNN2D
 from moleculesde_tpu_torch.models.score_2d3d import SDEModel2Dto3D
 from moleculesde_tpu_torch.sampling.pc import sample_positions_pc
 from moleculesde_tpu_torch.sde.base import SDE_PRESETS_2DTO3D
+from moleculesde_tpu_torch.utils.checkpoints import load_components
 from moleculesde_tpu_torch.utils.device import resolve_device
 from moleculesde_tpu_torch.utils.rmsd import coverage_matching
 
@@ -138,9 +140,7 @@ def build_models(args, device, msg_impl: str = "auto", pair_impl: str = "auto",
         score_dtype=args.sampler_precision, pair_impl=pair_impl,
         pair_cm_direct=pair_cm_direct, device=device, generator=gen)
     if args.input_model_file:
-        ckpt = load_checkpoint(args.input_model_file)
-        model_2d.load_state_dict(ckpt["model_2D"])
-        sde_model.load_state_dict(ckpt["SDE_2Dto3D_model"])
+        load_components(args.input_model_file, {"model_2D": model_2d, "SDE_2Dto3D_model": sde_model})
         print(f"loaded checkpoint {args.input_model_file}")
     return model_2d, sde_model
 

@@ -14,7 +14,8 @@ with its eager CFConv (``cfconv="xla"``), as the JAX CLI builds it, or
 PaiNN (``--model_3d PaiNN``, f32).  Weights come from a port checkpoint
 (``--input_model_file``: ``model_3D`` and ``SDE_3Dto2D_model`` of a ``.pt``
 written by ``moleculesde_tpu_torch.convert.save_checkpoint`` or the port's
-pretraining CLI) or are drawn from ``--seed``.  Every flag the JAX CLI
+pretraining CLI, or of the JAX package's ``model_complete*.msgpack``, read
+without JAX) or are drawn from ``--seed``.  Every flag the JAX CLI
 reads is parsed with its name and default.  Not ported yet, and refused
 with a ``NotImplementedError`` that names the flag: datasets other than
 ``synthetic`` (so ``--input_data_dir`` and ``--use_extend_graph``, which
@@ -35,7 +36,6 @@ import time
 import numpy as np
 import torch
 
-from moleculesde_tpu_torch.convert import load_checkpoint
 from moleculesde_tpu_torch.data.loader import GraphLoader
 from moleculesde_tpu_torch.data.synthetic import random_molecule
 from moleculesde_tpu_torch.examples.pretrain import MODEL_3DTO2D_VARIANTS, refuse_unported
@@ -44,6 +44,7 @@ from moleculesde_tpu_torch.models.schnet import SchNet
 from moleculesde_tpu_torch.models.score_3d2d import SDEModel3Dto2D
 from moleculesde_tpu_torch.sampling.pc import sample_graph_pc
 from moleculesde_tpu_torch.sde.base import SDE_PRESETS_3DTO2D
+from moleculesde_tpu_torch.utils.checkpoints import load_components
 from moleculesde_tpu_torch.utils.device import resolve_device
 
 
@@ -140,9 +141,7 @@ def build_models(args, device, attn_impl: str = "auto", bf16_attn: bool = True):
         beta_max=bmax, num_diffusion_timesteps=n_steps,
         noise_on_one_hot=args.noise_on_one_hot, device=device, generator=gen)
     if args.input_model_file:
-        ckpt = load_checkpoint(args.input_model_file)
-        encoder.load_state_dict(ckpt["model_3D"])
-        sde_model.load_state_dict(ckpt["SDE_3Dto2D_model"])
+        load_components(args.input_model_file, {"model_3D": encoder, "SDE_3Dto2D_model": sde_model})
         print(f"loaded checkpoint {args.input_model_file}")
     return encoder, sde_model
 

@@ -1,17 +1,20 @@
-"""Pretraining configuration, the four models and the optimizer.
+"""Pretraining configuration, the four models, the optimizer and the state
+a run resumes from.
 
 Counterpart of ``moleculesde_tpu/pretrain/train_state.py`` (reference
 examples/pretrain_MoleculeSDE.py): the components {model_2D, model_3D,
 SDE_2Dto3D_model, SDE_3Dto2D_model}, the SDE presets, and Adam with the 2D
 and 3D learning-rate groups.  The port's parameters live in the modules and
-its batch statistics in their buffers, so there is no separate train-state
-object.
+its batch statistics in their buffers; :class:`PretrainState` gathers them
+with the optimizer, the step generator and the step count, which is what
+JAX's ``PretrainState`` holds (its random stream is a key folded with the
+step; the port's is the generator's state).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
@@ -197,3 +200,48 @@ def make_optimizer(models: Dict[str, nn.Module], cfg: PretrainConfig
         groups.append({"params": params, "lr": cfg.lr * scale})
     return PretrainAdam(groups, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8,
                         weight_decay=cfg.decay)
+
+
+@dataclasses.dataclass
+class PretrainState:
+    """Everything a pretraining run resumes from: the four models (weights
+    and batch statistics), Adam (moments, step, the groups' lr), the step
+    generator (dropout masks and every loss draw) and the number of steps
+    taken.  ``state_dict()`` holds CPU tensors and plain values only."""
+
+    models: Dict[str, nn.Module]
+    optimizer: torch.optim.Optimizer
+    generator: torch.Generator
+    step: int = 0
+
+    def state_dict(self) -> Dict[str, Any]:
+        def cpu(v):
+            if torch.is_tensor(v):
+                return v.detach().cpu().clone()
+            return {k: cpu(x) for k, x in v.items()} if isinstance(v, dict) else v
+
+        return {"models": {name: cpu(m.state_dict()) for name, m in self.models.items()},
+                "optimizer": cpu(self.optimizer.state_dict()),
+                "generator": self.generator.get_state(), "step": self.step}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Restore a :meth:`state_dict` into models and an optimizer built at
+        the same widths; every component, key and shape must match."""
+        if set(state["models"]) != set(self.models):
+            raise KeyError(f"state has components {sorted(state['models'])}, "
+                           f"not {sorted(self.models)}")
+        for name, module in self.models.items():
+            module.load_state_dict(state["models"][name])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.generator.set_state(state["generator"])
+        self.step = int(state["step"])
+
+
+def create_pretrain_state(cfg: PretrainConfig, device: str | torch.device = "cuda",
+                          seed: int = 0) -> PretrainState:
+    """The four models at ``cfg``'s widths with weights drawn from ``seed``,
+    their Adam and a step generator on ``device`` seeded with ``seed``, at
+    step 0."""
+    models = build_models(cfg, device, torch.Generator().manual_seed(seed))
+    return PretrainState(models, make_optimizer(models, cfg),
+                         torch.Generator(device=device).manual_seed(seed))

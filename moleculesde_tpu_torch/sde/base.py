@@ -1,7 +1,9 @@
 """Forward / reverse SDE math for score-based diffusion (VE / VP / sub-VP).
 
 Counterpart of ``moleculesde_tpu/sde/base.py``: every method returns
-time-shaped coefficients broadcast to the rank of ``x``.  Discrete schedules
+time-shaped coefficients broadcast to the rank of ``x``; with the reverse
+SDE, the prior's log-density, the transition kernels of VP and VE and
+:func:`get_beta_schedule`.  Discrete schedules
 are built in float32 the way ``jnp.linspace`` builds them
 (:func:`linspace_f32`), so integer timestep lookups land on the same table
 entries as in the JAX package.  The sub-VP ``marginal_prob`` keeps the
@@ -41,6 +43,34 @@ def _linspace_f32(start: float, stop: float, num: int, device: str) -> torch.Ten
     return torch.from_numpy(out.astype(np.float32)).to(device)
 
 
+def get_beta_schedule(beta_schedule: str, *, beta_min: float, beta_max: float,
+                      num_diffusion_timesteps: int) -> np.ndarray:
+    """Discrete beta schedules in float32 (reference SDE_model_2D_to_3D.py:
+    13-32): "quad", "linear", "const", "jsd" or "sigmoid", built in
+    float64 as the JAX package builds them."""
+    n = num_diffusion_timesteps
+    if beta_schedule == "quad":
+        betas = np.linspace(beta_min ** 0.5, beta_max ** 0.5, n, dtype=np.float64) ** 2
+    elif beta_schedule == "linear":
+        betas = np.linspace(beta_min, beta_max, n, dtype=np.float64)
+    elif beta_schedule == "const":
+        betas = beta_max * np.ones(n, dtype=np.float64)
+    elif beta_schedule == "jsd":
+        betas = 1.0 / np.linspace(n, 1, n, dtype=np.float64)
+    elif beta_schedule == "sigmoid":
+        betas = (1.0 / (np.exp(-np.linspace(-6, 6, n)) + 1.0)) * (beta_max - beta_min) + beta_min
+    else:
+        raise NotImplementedError(beta_schedule)
+    return betas.astype(np.float32)
+
+
+def _std_normal_logp(z: torch.Tensor, var: float = 1.0) -> torch.Tensor:
+    """log N(z; 0, var I) of each row of ``z`` (all axes past the first)."""
+    n = math.prod(z.shape[1:])
+    return (-n / 2.0 * math.log(2 * math.pi * var)
+            - torch.sum(z ** 2, dim=tuple(range(1, z.ndim))) / (2 * var))
+
+
 def _bcast(coeff: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Append singleton axes so a time-shaped coefficient broadcasts to x."""
     extra = x.ndim - coeff.ndim
@@ -78,6 +108,16 @@ class SDE:
             z = torch.randn(shape, generator=generator, device=device)
         z = torch.triu(z, diagonal=1)
         return z + z.transpose(-1, -2)
+
+    def prior_logp(self, z) -> torch.Tensor:
+        raise NotImplementedError
+
+    def reverse_sde(self, x, t, score, probability_flow: bool = False):
+        """Drift and diffusion of the reverse-time SDE for a score estimate
+        (ref SDE_sparse.py:85-92)."""
+        drift, diffusion = self.sde(x, t)
+        drift = drift - _bcast(diffusion, x) ** 2 * score * (0.5 if probability_flow else 1.0)
+        return drift, torch.zeros_like(diffusion) if probability_flow else diffusion
 
     def discretize(self, x, t):
         """Euler-Maruyama: x_{i+1} = x_i + f + G z."""
@@ -123,6 +163,15 @@ class VPSDE(SDE):
         lmc = -0.25 * t ** 2 * (self.beta_max - self.beta_min) - 0.5 * t * self.beta_min
         return _bcast(torch.exp(lmc), x) * x, torch.sqrt(1.0 - torch.exp(2.0 * lmc))
 
+    def prior_logp(self, z):
+        return _std_normal_logp(z)
+
+    def transition(self, x, t, dt):
+        """Mean and std of the transition kernel over a (negative) ``dt``
+        (ref SDE_sparse.py:164-169)."""
+        lmc = 0.25 * dt * (2 * self.beta_min + (2 * t + dt) * (self.beta_max - self.beta_min))
+        return _bcast(torch.exp(-lmc), x) * x, torch.sqrt(1.0 - torch.exp(2.0 * lmc))
+
     def discretize(self, x, t):
         """DDPM discretization."""
         ts = self.timestep_of(t).long()
@@ -154,6 +203,15 @@ class VESDE(SDE):
     def marginal_prob(self, x, t):
         return x, self.sigma_min * (self.sigma_max / self.sigma_min) ** t
 
+    def prior_logp(self, z):
+        """Under N(0, sigma_max^2 I), though the prior is drawn from N(0, I),
+        as the reference and the JAX package have it."""
+        return _std_normal_logp(z, self.sigma_max ** 2)
+
+    def transition(self, x, t, dt):
+        sigma = lambda s: self.sigma_min * (self.sigma_max / self.sigma_min) ** s  # noqa: E731
+        return x, torch.sqrt(sigma(t) ** 2 - sigma(t + dt) ** 2)
+
     def discretize(self, x, t):
         """SMLD (NCSN) discretization."""
         ts = self.timestep_of(t).long()
@@ -170,9 +228,11 @@ class SubVPSDE(SDE):
     beta_min: float = 0.1
     beta_max: float = 20.0
 
+    def discrete_betas(self, device=None) -> torch.Tensor:
+        return linspace_f32(self.beta_min / self.N, self.beta_max / self.N, self.N, device)
+
     def alphas(self, device=None) -> torch.Tensor:
-        return 1.0 - linspace_f32(self.beta_min / self.N, self.beta_max / self.N,
-                                  self.N, device)
+        return 1.0 - self.discrete_betas(device)
 
     def sde(self, x, t):
         beta_t = self.beta_min + t * (self.beta_max - self.beta_min)
@@ -184,6 +244,9 @@ class SubVPSDE(SDE):
         lmc = -0.25 * t ** 2 * (self.beta_max - self.beta_min) - 0.5 * t * self.beta_min
         # no sqrt: the reference's sub-VP std, kept as the JAX package keeps it
         return _bcast(torch.exp(lmc), x) * x, 1.0 - torch.exp(2.0 * lmc)
+
+    def prior_logp(self, z):
+        return _std_normal_logp(z)
 
     def corrector_alpha(self, t):
         return self.alphas(t.device)[self.timestep_of(t).long()]

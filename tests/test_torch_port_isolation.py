@@ -1,7 +1,7 @@
 """The PyTorch port stands alone and never falls back silently.
 
 - No module of ``moleculesde_tpu_torch/`` and not ``chip_smoke.py`` imports
-  jax, flax or the JAX package.
+  jax, flax, optax, msgpack or the JAX package.
 - Entry points raise without a GPU unless the caller asks for the CPU.
 - A kernel wrapper given a CPU tensor takes the plain version and counts no
   launch; asked for the kernel on a CPU tensor, it raises.
@@ -38,7 +38,7 @@ from moleculesde_tpu_torch.ops.pair_block import (
 from moleculesde_tpu_torch.ops.score_kernel import score_eval_fused
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "moleculesde_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "moleculesde_tpu")
 
 
 def _imported_modules(path: Path):

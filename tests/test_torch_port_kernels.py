@@ -998,3 +998,60 @@ def test_attn_bank_kernels_refuse_shapes(cuda):
     with pytest.raises(ValueError, match="backward kernel: N=267, F=16, C=2, A=32 need .* "
                                          "shared memory"):
         attn_qk_bank_bwd(qk, *ws, g, 4, impl="kernel")
+
+
+# the 16-atom size bucket (``--buckets 16 ...`` at --batch_size 32): K1 at
+# E = 4 n_max, K3 / K4 at C = 300, H = 32, K2 at 51 Gaussians x 128 filters
+N16_GIN, N16_PAIR, N16_CFCONV = (32, 16, 64, 13, 300), (32, 16, 300, 32), (32, 16, 51, 128)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_kernels_at_n_max_16_match_plain(cuda, bf16):
+    """K1, K2, K3 and K4, forward and backward, at the 16-atom bucket's
+    shapes, where one molecule fills only part of K3 / K4's (16 dests, 32
+    sources) unit and K2 / K5 take their 16-row forward: against their plain
+    versions at the tolerances above, and two runs of each bit for bit."""
+    x, src, dst, boh, tbl, g1 = _gin_operands(cuda, *N16_GIN)
+    ea, env, params, g2 = _cfconv_operands(cuda, *N16_CFCONV)
+    ea = ea if bf16 else ea.float()
+    a, cc, w, bias, g4 = _pair_operands(cuda, N16_PAIR, 7)
+    b, n, _, h = N16_PAIR
+    g3 = torch.randn(b, n, n, h, device=cuda, generator=torch.Generator(cuda).manual_seed(8))
+    cases = [
+        (lambda x_, t_, impl: gin_messages(x_, src, dst, boh, t_, bf16=bf16, impl=impl),
+         (x, tbl), g1, 1e-2 if bf16 else 1e-5, 1e-2 if bf16 else 1e-4),
+        (lambda *t, impl: fused_cfconv(ea, env, *t, bf16=bf16, impl=impl), params, g2,
+         2e-2 if bf16 else 1e-5, 2e-2 if bf16 else 1e-4),
+        (lambda *t, impl: pair_relu_project(*t, bf16=bf16, impl=impl), (a, cc, w, bias), g3,
+         1e-3 if bf16 else 1e-5, 1e-3 if bf16 else 1e-4),
+        (lambda *t, impl: pair_relu_project_cm(*t, bf16=bf16, impl=impl), (a, cc, w, bias), g4,
+         1e-3 if bf16 else 1e-5, 1e-3 if bf16 else 1e-4)]
+    for fn, inputs, g, fwd_tol, bwd_tol in cases:
+        kern = _grads(lambda *t: fn(*t, impl="kernel"), inputs, g)
+        plain = _grads(lambda *t: fn(*t, impl="plain"), inputs, g)
+        _close(kern[0], plain[0], fwd_tol)
+        for k, p in zip(kern[1:], plain[1:]):
+            _close(k, p, bwd_tol)
+        again = _grads(lambda *t: fn(*t, impl="kernel"), inputs, g)
+        assert all(torch.equal(u, v) for u, v in zip(kern, again))
+
+
+def test_native_collation_on_the_card_host(cuda):
+    """The C++ collator built on the GPU machine's host (``-march=native``
+    there) gives the numpy collation's bits on a B=128, n_max 32 batch,
+    and the batch moves to the card whole."""
+    import numpy as np
+
+    from moleculesde_tpu_torch.core.batch import pad_graphs
+    from moleculesde_tpu_torch.data.native_collate import native_pad_graphs
+    from moleculesde_tpu_torch.data.synthetic import random_molecule
+
+    rng = np.random.default_rng(0)
+    gs = [random_molecule(rng, int(rng.integers(4, 33)), extend=False) for _ in range(128)]
+    kw = dict(n_max=32, e_max=128, ext_e_max=1024)
+    mine, ref = native_pad_graphs(gs, **kw), pad_graphs(gs, **kw)
+    on_card = mine.pin_memory().to(cuda, non_blocking=True)
+    for f in ("atom_feats", "node_mask", "positions", "edge_src", "edge_dst", "edge_feats",
+              "edge_mask", "ext_src", "ext_dst", "ext_attr", "ext_mask"):
+        assert torch.equal(getattr(mine, f), getattr(ref, f)), f
+        assert torch.equal(getattr(on_card, f).cpu(), getattr(ref, f)), f

@@ -319,11 +319,13 @@ def test_pretrain_cli_trains_on_cpu_and_hands_off_to_the_sampler(tmp_path, capsy
     assert np.isfinite(res[0]["pos_gen"]).all()
 
 
-@pytest.mark.parametrize("flags", [["--buckets", "8", "16"], ["--dataset", "QM9"]],
-                         ids=["buckets", "qm9"])
-def test_pretrain_cli_refuses_unported_options(flags):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        cli.main(TINY_FLAGS + flags)
+@pytest.mark.parametrize("dataset", ["QM9", "PCQM4Mv2"], ids=["qm9", "pcqm4mv2"])
+def test_pretrain_cli_refuses_unported_options(dataset):
+    """A real dataset without ``--synthetic_molecules`` is not ported: the
+    error names ``--dataset``."""
+    flags = [a for a in TINY_FLAGS if a not in ("--synthetic_molecules", "12")]
+    with pytest.raises(NotImplementedError, match=f"--dataset={dataset} is not ported"):
+        cli.main(flags + ["--dataset", dataset])
 
 
 @pytest.mark.parametrize("flags", [
@@ -333,12 +335,15 @@ def test_pretrain_cli_refuses_unported_options(flags):
     ["--microbatch", "2", "--microbatch_scope", "splice"],
     ["--model_3d", "PaiNN", "--PaiNN_n_interactions", "2", "--PaiNN_n_rbf", "8"],
     ["--schnet_cfconv", "pallas_rbf"],
-    ["--num_devices", "1", "--input_data_dir", "data", "--max_molecules", "4"]],
+    ["--num_devices", "1", "--input_data_dir", "data", "--max_molecules", "4"],
+    ["--n_max", "16", "--buckets", "8", "16"],
+    ["--dataset", "QM9"]],
     ids=["compact", "microbatch_step", "microbatch_score", "microbatch_splice", "painn",
-         "pallas_rbf", "jax_only_flags"])
+         "pallas_rbf", "jax_only_flags", "buckets", "qm9_synthetic"])
 def test_pretrain_cli_trains_with(flags):
     """Two tiny CPU epochs under each option the JAX CLI has and the port
-    once refused: every epoch's losses finite."""
+    once refused: every epoch's losses finite.  ``--dataset QM9`` with
+    ``--synthetic_molecules`` trains on synthetic molecules, as in JAX."""
     history = cli.main(TINY_FLAGS + ["--epochs", "2"] + flags)
     assert len(history) == 2
     assert all(np.isfinite(list(h.values())).all() for h in history)
@@ -378,7 +383,6 @@ def test_cli_parses_the_jax_flags_with_jax_defaults(name):
 
 
 @pytest.mark.parametrize("name,flags", [
-    ("pretrain", ["--resume_from", "ckpt.msgpack"]),
     ("pretrain", ["--num_devices", "2"]),
     ("pretrain", ["--distributed"]),
     ("pretrain", ["--dist_coordinator", "localhost:1234"]),
