@@ -7,8 +7,9 @@ pretraining steps through the pretraining CLI's functions (padded ingest
 with K2; the JAX CLI's default compact ingest with K5; the three
 microbatch scopes; PaiNN; the default path at n_max 64 and 128, also with
 the K7 and K8 attention banks; the CLI's ``main`` on size buckets, with the
-native collation and a resume from its train state) -- and checks what
-comes out.
+native collation and a resume from its train state), and the three
+finetune CLIs (MoleculeNet with K1, QM9 with K2, MD17 with none) -- and
+checks what comes out.
 
     python3 chip_smoke.py
 
@@ -133,8 +134,26 @@ Phases (any failure exits non-zero):
      on that batch by it and by the run's own state, bit for bit; one epoch
      of the same 512 molecules at ``--n_max 128`` without buckets (compact
      ingest) and with them, in turns, molecules/s.
-The line before the last lists every kernel as JSON (the one before it
-phase 14's figures); the last line is {"ok": true, "device": {...}}.
+ 15. finetunes: each finetune CLI's ``main`` at its defaults on synthetic
+     molecules, cut to 512 molecules and 2 epochs, with the launch counts
+     read around it and per step and evaluation batch: MoleculeNet (GIN 5 x
+     300, dropout 0.5, mean pool, B=128, 3 tasks, n_max 32; K1 5 / 5 per
+     step, 5 per evaluation batch, f32), QM9 (SchNet 6 x 128 x 51, hidden
+     300, B=128, ``--split random``; K2 6 / 6 per step, 6 per evaluation
+     batch, f32), MD17 with SchNet (eager CFConv) and with PaiNN (B=32; no
+     kernel launch at all); every metric finite, every AUC in [0, 1], the
+     outputs written.  On each CLI's first training batch K1 (MoleculeNet)
+     and K2 (QM9) forward and backward against their plain versions in f32
+     (7's bar, 1e-4), two runs of each bit for bit, and one step's loss and
+     gradient norm per component against an all-plain build (1e-4); MD17's
+     forces against central differences of the energy in f64 on three
+     coordinates (1e-5); the molecules/s of two training epochs of each;
+     the pretraining CLI's ``model_complete.pt`` (its defaults, 128
+     molecules, one epoch) into the MoleculeNet and QM9 CLIs, every loaded
+     parameter equal to the checkpoint's, one epoch of each.
+The line before the last lists every kernel as JSON (the ones before it
+phase 15's and phase 14's figures); the last line is {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -2104,6 +2123,393 @@ def bucketed_cli_path(dev, card: str):
                                "molecules_per_s": rates, "batches_per_bucket": dict(per_bucket)}
 
 
+# phase 15's runs: the finetune CLIs at their defaults on synthetic data, cut
+# in data and epochs only
+FINETUNE_FLAGS = {
+    "moleculenet": ["--dataset", "synthetic", "--synthetic_molecules", "512", "--epochs", "2"],
+    "qm9": ["--dataset", "synthetic", "--synthetic_molecules", "512", "--split", "random",
+            "--epochs", "2"],
+    "md17": ["--dataset", "synthetic", "--synthetic_molecules", "512", "--batch_size", "32",
+             "--epochs", "2"]}
+
+
+def _recorded_cli(cli, step_name: str, eval_name: str):
+    """Wrap the CLI module's step and evaluation functions so that each call
+    records its launch counts (and the step its model and batch); returns
+    (records, restore)."""
+    records = {"steps": [], "evals": []}
+    originals = {name: getattr(cli, name) for name in (step_name, eval_name)}
+
+    def wrap(name, kind):
+        def run(model, *rest, **kw):
+            before = read_counts()
+            out = originals[name](model, *rest, **kw)
+            after = read_counts()
+            records[kind].append({"counts": {k: after[k] - before[k] for k in after},
+                                  "model": model, "batch": rest[1] if kind == "steps"
+                                  else rest[0]})
+            return out
+        return run
+
+    setattr(cli, step_name, wrap(step_name, "steps"))
+    setattr(cli, eval_name, wrap(eval_name, "evals"))
+
+    def restore():
+        for name, fn in originals.items():
+            setattr(cli, name, fn)
+    return records, restore
+
+
+def _finetune_run(cli, flags, step_name, eval_name, out_dir):
+    """``cli.main`` with the launch counts set to 0 just before and read just
+    after; returns (result, launches, records, wall s)."""
+    records, restore = _recorded_cli(cli, step_name, eval_name)
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        result = cli.main(flags + ["--output_model_dir", out_dir])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+    finally:
+        restore()
+    return result, launches, records, wall
+
+
+def _check_finetune_counts(label, launches, records, per_step, per_eval):
+    check(records["steps"] and records["evals"], f"{label}: no step or no evaluation ran")
+    check(all(r["counts"] == per_step for r in records["steps"]),
+          f"{label}: a step's launch counts differ from {per_step}")
+    check(all(r["counts"] == per_eval for r in records["evals"]),
+          f"{label}: an evaluation batch's launch counts differ from {per_eval}")
+    total = {k: per_step[k] * len(records["steps"]) + per_eval[k] * len(records["evals"])
+             for k in per_step}
+    check(launches == total, f"{label}: launch counts {launches}, expected {total}")
+    print(f"{label}: {len(records['steps'])} steps, {len(records['evals'])} evaluation "
+          f"batches; launches {({k: v for k, v in launches.items() if v})} (per step "
+          f"{({k: v for k, v in per_step.items() if v})}, per evaluation batch "
+          f"{({k: v for k, v in per_eval.items() if v})})", flush=True)
+
+
+def _grad_norms_by_child(model):
+    return {name: torch.sqrt(sum((p.grad.double() ** 2).sum() for p in m.parameters()
+                                 if p.grad is not None)).item()
+            for name, m in model.named_children()}
+
+
+def finetune_step_against_plain(label, model, plain, loss_of, tol: float = 1e-4):
+    """One f32 finetune step's loss and per-component gradient norms on
+    ``model`` (kernels) and ``plain`` (an all-plain build of the same
+    weights and statistics; dropout from the same seed); the models' state
+    and the launch counts are left as they were."""
+    plain.load_state_dict(model.state_dict())
+    saved_counts = [c.launches for c in _counters()]
+    out = {}
+    for kind, m in (("kernel", model), ("plain", plain)):
+        saved = {k: v.clone() for k, v in m.state_dict().items()}
+        m.zero_grad(set_to_none=True)
+        loss = loss_of(m)
+        loss.backward()
+        out[kind] = (loss.item(), _grad_norms_by_child(m))
+        m.load_state_dict(saved)
+        m.zero_grad(set_to_none=True)
+    for c, n in zip(_counters(), saved_counts):
+        c.launches = n
+    (lk, gk), (lp, gp) = out["kernel"], out["plain"]
+    err = abs(lk - lp) / max(1e-6, abs(lp))
+    print(f"{label} vs plain step (f32): loss {lk:.6f} vs {lp:.6f} rel {err:.2e} "
+          f"(tolerance {tol:g})", flush=True)
+    check(err <= tol, f"{label}: the loss disagrees with the all-plain step")
+    for name in gk:
+        err = abs(gk[name] - gp[name]) / max(1e-12, gp[name])
+        print(f"{label} vs plain step (f32): |grad {name}| {gk[name]:.6e} vs {gp[name]:.6e} "
+              f"rel {err:.2e} (tolerance {tol:g})", flush=True)
+        check(err <= tol, f"{label}: gradient norm of {name} disagrees with the all-plain step")
+
+
+def finetune_kernel_phases(label, k1=None, k2=None):
+    """K1 (GIN layer 0's operands) or K2 (SchNet interaction 0's) forward
+    and backward against their plain versions in f32, phase 7's f32 bar
+    (1e-4), then two runs of each direction bit for bit."""
+    results = {}
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    if k1 is not None:
+        x, src, dst, boh, table = k1
+        g1 = torch.randn(x.shape, generator=gen, device=x.device)
+        print(f"{label} K1 operands: x {tuple(x.shape)}, edges {tuple(src.shape)} "
+              f"({int(((dst >= 0) & (dst < x.shape[1])).sum())} valid)", flush=True)
+        results["gin_messages"], results["gin_messages_bwd"] = grad_phase(
+            f"{label} K1 gin_messages[f32]",
+            lambda x_, t_, **kw: gin_messages(x_, src, dst, boh, t_, **kw),
+            lambda x_, t_, g_, **kw: gin_messages_bwd(x_, src, dst, boh, t_, g_, **kw),
+            lambda x_, t_, g_, **kw: gin_messages_bwd_plain(x_, src, dst, boh, t_, g_, **kw),
+            (x, table), g1, False, 1e-4, k1_cost(x, src, dst, table),
+            k1_cost(x, src, dst, table, bwd=True), PEAK_F32_FLOPS)
+        with torch.no_grad():
+            same_bits(f"{label} K1 forward", lambda: gin_messages(x, src, dst, boh, table,
+                                                                 impl="kernel"))
+            same_bits(f"{label} K1 backward", lambda: gin_messages_bwd(
+                x, src, dst, boh, table, g1, impl="kernel"))
+    if k2 is not None:
+        ea, env, x2, w1, b1, w2, b2 = k2
+        g2 = torch.randn(x2.shape, generator=gen, device=x2.device)
+        print(f"{label} K2 operands: ea {tuple(ea.shape)} {ea.dtype}, x {tuple(x2.shape)} "
+              f"({int((env != 0).sum())} pairs in the cutoff)", flush=True)
+        results["fused_cfconv"], results["fused_cfconv_bwd"] = grad_phase(
+            f"{label} K2 fused_cfconv[f32]",
+            lambda *t_, **kw: fused_cfconv(ea, env, *t_, **kw),
+            lambda *t_, **kw: fused_cfconv_bwd(ea, env, *t_, **kw),
+            lambda *t_, **kw: fused_cfconv_bwd_plain(ea, env, *t_, **kw),
+            (x2, w1, b1, w2, b2), g2, False, 1e-4, k2_cost(ea, env, x2, w1),
+            k2_cost(ea, env, x2, w1, bwd=True), PEAK_F32_FLOPS)
+        with torch.no_grad():
+            same_bits(f"{label} K2 forward", lambda: fused_cfconv(ea, env, x2, w1, b1, w2, b2,
+                                                                 impl="kernel"))
+            same_bits(f"{label} K2 backward", lambda: fused_cfconv_bwd(
+                ea, env, x2, w1, b1, w2, b2, g2, impl="kernel"))
+    return results
+
+
+def _epochs_in_turns(label, card, run_epoch, molecules: int):
+    """Two training epochs timed on the host clock (synchronized); prints
+    molecules/s of each."""
+    rates = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_epoch()
+        torch.cuda.synchronize()
+        rates.append(molecules / (time.perf_counter() - t0))
+    print(f"{label}: training epoch of {molecules} molecules, molecules_per_s "
+          f"{rates[0]:.2f} / {rates[1]:.2f} ({card})", flush=True)
+    return rates
+
+
+def _metrics_rows(out_dir):
+    import csv
+    import os
+
+    with open(os.path.join(out_dir, "metrics.csv")) as f:
+        return list(csv.DictReader(f))
+
+
+def moleculenet_finetune(dev, card, out_dir):
+    """15.1: returns (K1 results, launches, molecules/s)."""
+    import os
+
+    from moleculesde_tpu_torch.examples import finetune_moleculenet as cli
+    from moleculesde_tpu_torch.finetune.classification import classification_loss
+
+    flags = FINETUNE_FLAGS["moleculenet"]
+    (best_val, best_test), launches, rec, wall = _finetune_run(
+        cli, flags, "classification_step", "classification_eval", out_dir)
+    args = cli.parse_args(flags)
+    _check_finetune_counts("MoleculeNet finetune", launches, rec,
+                           expect(gin_messages=args.num_layer,
+                                  gin_messages_bwd=args.num_layer),
+                           expect(gin_messages=args.num_layer))
+    rows = _metrics_rows(out_dir)
+    aucs = [float(r[k]) for r in rows for k in ("train_auc", "val_auc", "test_auc")]
+    check(len(rows) == args.epochs and all(math.isfinite(float(r["loss"])) for r in rows),
+          f"MoleculeNet metrics.csv {rows}")
+    check(all(0.0 <= a <= 1.0 for a in aucs + [best_val, best_test]), f"AUCs {aucs}")
+    for name in ("model_complete.pt", "model_complete_final.pt", "evaluation_best.npz"):
+        check(os.path.exists(os.path.join(out_dir, name)), f"MoleculeNet CLI wrote no {name}")
+    print(f"MoleculeNet finetune CLI (GIN {args.num_layer} x {args.emb_dim}, dropout "
+          f"{args.dropout_ratio}, {args.graph_pooling} pool, B={args.batch_size}, n_max "
+          f"{args.n_max}): {wall:.2f} s; best val AUC {best_val:.4f}, test {best_test:.4f}",
+          flush=True)
+
+    model, batch = rec["steps"][0]["model"], rec["steps"][0]["batch"]
+    with torch.no_grad():
+        x0 = model.gnn.AtomEncoder_0(batch.atom_feats)
+        k1 = tuple(t.detach() for t in model.gnn.GINConv_0.message_inputs(x0, batch))
+    results = finetune_kernel_phases("MoleculeNet", k1=k1)
+    plain = cli.build_model(args, model.graph_pred_linear.kernel.shape[1], dev,
+                            msg_impl="plain")
+    gm = torch.ones(batch.num_graphs, dtype=torch.bool, device=dev)
+    finetune_step_against_plain(
+        "MoleculeNet", model, plain, lambda m: classification_loss(
+            m, batch, gm, torch.Generator(device=dev).manual_seed(args.seed + 1)))
+    del plain
+
+    graphs, num_tasks, (train_idx, _, _) = cli.load_data(args)
+    loader = cli.make_loader(graphs, train_idx, args, args.n_max, True, num_tasks=num_tasks)
+    optimizer = cli.make_optimizer(model, args.lr, args.decay)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    sched = lambda step: args.lr  # noqa: E731
+    rates = _epochs_in_turns("MoleculeNet finetune", card, lambda: cli.train_epoch(
+        model, optimizer, loader, dev, sched, 0, gen), len(loader) * args.batch_size)
+    return results, launches, rates
+
+
+def qm9_finetune(dev, card, out_dir):
+    """15.2: returns (K2 results, launches, molecules/s)."""
+    import os
+
+    from moleculesde_tpu_torch.examples import finetune_qm9 as cli
+    from moleculesde_tpu_torch.finetune.regression import regression_loss
+
+    flags = FINETUNE_FLAGS["qm9"]
+    (best_val, best_test), launches, rec, wall = _finetune_run(
+        cli, flags, "regression_step", "regression_eval", out_dir)
+    args = cli.parse_args(flags)
+    n = args.SchNet_num_interactions
+    _check_finetune_counts("QM9 finetune", launches, rec,
+                           expect(fused_cfconv=n, fused_cfconv_bwd=n), expect(fused_cfconv=n))
+    rows = _metrics_rows(out_dir)
+    check(len(rows) == args.epochs and all(math.isfinite(float(r[k])) for r in rows
+                                           for k in ("loss", "val_mae", "test_mae"))
+          and math.isfinite(best_val) and math.isfinite(best_test),
+          f"QM9 metrics.csv {rows}")
+    for name in ("model_complete.pt", "model_complete_final.pt", "evaluation_best.npz"):
+        check(os.path.exists(os.path.join(out_dir, name)), f"QM9 CLI wrote no {name}")
+    print(f"QM9 finetune CLI (SchNet {n} x {args.SchNet_num_filters} x "
+          f"{args.SchNet_num_gaussians}, hidden {args.emb_dim}, B={args.batch_size}, n_max "
+          f"{args.n_max}, split {args.split}): {wall:.2f} s; best val MAE {best_val:.4f}, "
+          f"test {best_test:.4f}", flush=True)
+
+    model, batch = rec["steps"][0]["model"], rec["steps"][0]["batch"]
+    enc = model.encoder
+    with torch.no_grad():
+        b, nm = batch.num_graphs, batch.n_max
+        ea, cos_env, pair_mask, _ = enc.geometry(batch.positions, batch.node_mask, b, nm)
+        inter = enc.SchNetInteraction_0
+        h0 = enc.Embed_0.embedding[batch.atomic_numbers.long()].reshape(b, nm, -1)
+        k2 = tuple(t.detach().contiguous() for t in (
+            ea, cos_env * pair_mask.to(cos_env.dtype), inter.Dense_2(h0).float(),
+            inter.Dense_0.kernel, inter.Dense_0.bias, inter.Dense_1.kernel,
+            inter.Dense_1.bias))
+    results = finetune_kernel_phases("QM9", k2=k2)
+    plain = cli.build_model(args, dev, impl="plain")
+    gm = torch.ones(batch.num_graphs, dtype=torch.bool, device=dev)
+    finetune_step_against_plain("QM9", model, plain, lambda m: regression_loss(
+        m, batch, batch.y[:, 0], gm, args.loss))
+    del plain
+
+    graphs = cli.load_data(args)
+    train_idx = cli.split(args, len(graphs))[0]
+    loader = cli.make_loader(graphs, train_idx, args, args.n_max, True, num_tasks=1)
+    optimizer = cli.make_optimizer(model, args.lr, args.decay)
+    rates = _epochs_in_turns("QM9 finetune", card, lambda: cli.train_epoch(
+        model, optimizer, loader, dev, lambda step: args.lr, 0, 0.0, 1.0, args.loss),
+        len(loader) * args.batch_size)
+    return results, launches, rates
+
+
+def md17_finetune(dev, card, out_dir, model_3d: str):
+    """15.3: the MD17 CLI with ``model_3d``: no kernel launch, forces
+    against central differences of the energy in f64; returns (launches,
+    molecules/s)."""
+    import copy
+    import os
+
+    from moleculesde_tpu_torch.examples import finetune_md17 as cli
+    from moleculesde_tpu_torch.finetune.md17 import energy_and_forces
+
+    flags = FINETUNE_FLAGS["md17"] + ["--model_3d", model_3d]
+    (e_mae, f_mae), launches, rec, wall = _finetune_run(cli, flags, "md17_step", "md17_eval",
+                                                        out_dir)
+    args = cli.parse_args(flags)
+    label = f"MD17 finetune ({model_3d})"
+    _check_finetune_counts(label, launches, rec, expect(), expect())
+    rows = _metrics_rows(out_dir)
+    check(len(rows) == args.epochs and all(math.isfinite(float(v)) for r in rows
+                                           for k, v in r.items() if k != "step")
+          and math.isfinite(e_mae) and math.isfinite(f_mae), f"{label} metrics.csv {rows}")
+    print(f"{label} CLI (emb {args.emb_dim}, B={args.batch_size}): {wall:.2f} s; best test "
+          f"E MAE {e_mae:.4f}, F MAE {f_mae:.4f}", flush=True)
+
+    # -dE/dpos against central differences of E, in f64, on three coordinates
+    model, batch = rec["steps"][0]["model"], rec["steps"][0]["batch"]
+    m64 = copy.deepcopy(model).double()
+    b64 = dataclasses.replace(batch, positions=batch.positions.double())
+    _, forces = energy_and_forces(m64, b64, create_graph=False)
+    h, worst = 1e-4, 0.0
+    real = torch.nonzero(b64.node_mask).flatten().tolist()
+    for atom, axis in ((real[0], 0), (real[len(real) // 2], 1), (real[-1], 2)):
+        shifted = []
+        for sign in (1.0, -1.0):
+            pos = b64.positions.clone()
+            pos[atom, axis] += sign * h
+            with torch.no_grad():
+                shifted.append(m64(dataclasses.replace(b64, positions=pos)).sum().item())
+        fd = -(shifted[0] - shifted[1]) / (2 * h)
+        err = abs(forces[atom, axis].item() - fd) / max(1e-3, abs(fd))
+        worst = max(worst, err)
+        print(f"{label}: atom {atom} axis {axis}: force {forces[atom, axis].item():.8e}, "
+              f"central difference {fd:.8e}, rel {err:.2e} (tolerance 1e-5, f64, h {h:g})",
+              flush=True)
+    check(worst <= 1e-5, f"{label}: forces are not -dE/dpos ({worst:.3e})")
+    check(not forces[~b64.node_mask].any(), f"{label}: a padded atom has a force")
+    del m64
+
+    graphs = cli.load_data(args)
+    train_idx = cli.md17_split(len(graphs), seed=args.seed)[0]
+    loader = cli.make_loader(graphs, train_idx, args, args.n_max, True, num_tasks=1,
+                             with_forces=True)
+    optimizer = cli.make_optimizer(model, args.lr, args.decay)
+    saved = [c.launches for c in _counters()]
+    rates = _epochs_in_turns(label, card, lambda: cli.train_epoch(
+        model, optimizer, loader, dev, lambda step: args.lr, 0, 0.0, 1.0, args),
+        len(loader) * args.batch_size)
+    check([c.launches for c in _counters()] == saved, f"{label}: a kernel was launched")
+    return launches, rates
+
+
+def pretrain_handoff(dev, out_dir):
+    """15.4: the pretraining CLI's model_complete.pt (its defaults, one epoch
+    of 128 synthetic molecules) into the MoleculeNet and QM9 CLIs: the
+    finetune encoders' parameters equal the checkpoint's components, and
+    each CLI runs an epoch from it."""
+    import os
+
+    from moleculesde_tpu_torch.convert import load_checkpoint
+    from moleculesde_tpu_torch.examples import finetune_moleculenet as mnet
+    from moleculesde_tpu_torch.examples import finetune_qm9 as qm9
+    from moleculesde_tpu_torch.examples import pretrain
+
+    pre_dir = os.path.join(out_dir, "pretrain")
+    pretrain.main(["--synthetic_molecules", "128", "--batch_size", "64", "--epochs", "1",
+                   "--output_model_dir", pre_dir])
+    path = os.path.join(pre_dir, "model_complete.pt")
+    ckpt = load_checkpoint(path)
+    for cli, component, small in ((mnet, "model_2D", FINETUNE_FLAGS["moleculenet"]),
+                                  (qm9, "model_3D", FINETUNE_FLAGS["qm9"])):
+        flags = _without(_without(small, "--synthetic_molecules"), "--epochs") + [
+            "--synthetic_molecules", "160", "--epochs", "1", "--input_model_file", path]
+        args = cli.parse_args(flags)
+        model = cli.build_model(args, 3, dev) if cli is mnet else cli.build_model(args, dev)
+        part = model.gnn if cli is mnet else model.encoder
+        for name, p in part.named_parameters():
+            check(torch.equal(p.detach().cpu(), ckpt[component][name]),
+                  f"handoff: {component}.{name} differs from the checkpoint")
+        cli.main(flags)
+        print(f"pretrain -> finetune handoff: the pretraining CLI's model_complete.pt "
+              f"{component} ({sum(1 for _ in part.parameters())} tensors) loaded into the "
+              f"{cli.__name__.rsplit('.', 1)[-1]} CLI, every parameter equal; one epoch run",
+              flush=True)
+
+
+def finetune_path(dev, card):
+    """Phase 15: returns ({"moleculenet": K1 results, "qm9": K2 results},
+    {run: launch counts}, {finetune: molecules/s})."""
+    import tempfile
+
+    results, launches, rates = {}, {}, {}
+    with tempfile.TemporaryDirectory() as out_dir:
+        results["moleculenet"], launches["finetune_moleculenet"], rates["moleculenet"] = \
+            moleculenet_finetune(dev, card, out_dir + "/mnet")
+        results["qm9"], launches["finetune_qm9"], rates["qm9"] = qm9_finetune(
+            dev, card, out_dir + "/qm9")
+        for model_3d in ("SchNet", "PaiNN"):
+            launches[f"finetune_md17_{model_3d.lower()}"], rates[f"md17_{model_3d.lower()}"] = \
+                md17_finetune(dev, card, out_dir + f"/md17_{model_3d}", model_3d)
+        pretrain_handoff(dev, out_dir)
+    return results, launches, rates
+
+
 def _hmma_per_function(build, source: str) -> dict:
     """{kernel function: HMMA instructions} of a built library's SASS
     (``cuobjdump -sass``, split at its ``Function :`` headers)."""
@@ -2270,6 +2676,8 @@ def main() -> int:
     bucket_results, bucket_launches, bucket_figures = bucketed_cli_path(dev, card)
     large_n_results["n_max_16"] = bucket_results
     done("buckets, resume and native collation (phase 14)")
+    finetune_results, finetune_launches, finetune_rates = finetune_path(dev, card)
+    done("finetunes (phase 15)")
     device_time_phase()
     done("device times")
 
@@ -2285,7 +2693,7 @@ def main() -> int:
             **{f"pretrain_microbatch_{scope}_2_steps": counts
                for scope, counts in microbatch_launches.items()},
             "pretrain_painn_2_steps": painn_launches,
-            **large_n_launches, "pretrain_buckets_cli": bucket_launches}
+            **large_n_launches, "pretrain_buckets_cli": bucket_launches, **finetune_launches}
     keys = ("max_abs_err", "ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms",
             "bound_by")
     k6_keys = keys + ("max_rel_err",)
@@ -2326,6 +2734,10 @@ def main() -> int:
             extra = {size: {mode: {k: res[name + sfx][k] for k in keys + ("max_rel_err",)}
                             for mode, sfx in (("bf16", ""), ("f32", "[f32]"))}
                      for size, res in large_n_results.items() if name in res}
+            for finetune, res in finetune_results.items():   # f32, the finetune's operands
+                if name in res:
+                    extra[f"finetune_{finetune}_f32"] = {k: res[name][k]
+                                                         for k in keys + ("max_rel_err",)}
             if name in sampler_results:
                 extra["sampler_operands"] = {
                     mode: {k: sampler_results[name + sfx][k] for k in keys}
@@ -2373,6 +2785,7 @@ def main() -> int:
             "f32": res("[L1][f32]"), "layer_0": {"bf16": res("[L0]"), "f32": res("[L0][f32]")},
             **extra})
     print(json.dumps({"pretrain_buckets_cli": bucket_figures}))
+    print(json.dumps({"finetune_molecules_per_s": finetune_rates, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

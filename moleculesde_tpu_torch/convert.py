@@ -10,7 +10,11 @@ The JAX package's ``.msgpack`` checkpoints are read without flax by
 :mod:`moleculesde_tpu_torch.utils.checkpoints`, whose trees go through
 :func:`load_flax_pretrain`.  The pretraining CLI writes the same
 four-component tree as a ``.pt`` (:func:`save_checkpoint`), whose
-components the sampler CLIs load; they take either file.
+components the sampler CLIs load; they take either file.  The finetunes
+load one component's parameters into their encoder
+(:func:`load_pretrained_component`) from either file; a flax
+``GNNGraphPred`` or ``RegressionModel`` tree loads into the port's with
+:func:`load_flax_variables` as any other.
 """
 
 from __future__ import annotations
@@ -84,3 +88,40 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
     """Read a ``.pt`` written by :func:`save_checkpoint` (tensors and plain
     values only)."""
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_pretrained_component(module: nn.Module, path: str, component: str) -> nn.Module:
+    """Copy the parameters of one component of a pretraining checkpoint
+    (``model_2D`` into a finetune's ``gnn``, ``model_3D`` into its
+    ``encoder``) into ``module`` in place, from the port's ``.pt`` or a JAX
+    ``.msgpack`` (by suffix).  Only parameters move: running statistics
+    keep their initial values, as the JAX finetunes replace only the
+    component's ``params`` (``create_classification_state`` and the
+    like).  Every parameter name and shape must match."""
+    if path.endswith(".msgpack"):
+        from moleculesde_tpu_torch.utils.checkpoints import load_pretrain_checkpoint
+
+        params, _ = load_pretrain_checkpoint(path, component)
+        if params is None:
+            raise KeyError(f"{path} has no component {component}")
+        values = flatten_flax({"params": params})
+    else:
+        ckpt = load_checkpoint(path)
+        if component not in ckpt:
+            raise KeyError(f"{path} has no component {component}")
+        values = ckpt[component]
+    named = dict(module.named_parameters())
+    buffers = dict(module.named_buffers())
+    values = {k: v for k, v in values.items() if k not in buffers}
+    missing, unexpected = sorted(set(named) - set(values)), sorted(set(values) - set(named))
+    if missing or unexpected:
+        raise KeyError(f"{component} of {path} does not match {type(module).__name__}: "
+                       f"missing {missing}, unexpected {unexpected}")
+    with torch.no_grad():
+        for key, p in named.items():
+            value = values[key]
+            value = value if torch.is_tensor(value) else torch.as_tensor(np.array(value))
+            if tuple(value.shape) != tuple(p.shape):
+                raise ValueError(f"{key}: shape {tuple(value.shape)} != {tuple(p.shape)}")
+            p.copy_(value.to(p.dtype))
+    return module

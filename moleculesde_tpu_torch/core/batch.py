@@ -36,7 +36,9 @@ class GraphBatch:
     The compact ingest path (``data/compact.py::expand_on_device``) also
     sets the extended graph in dense form, ``ext_dense_mask`` [B, N, N]
     bool and ``ext_dense_attr`` [B, N, N] int32, which the 2D->3D model
-    then reads instead of scattering the ``ext_*`` lists.
+    then reads instead of scattering the ``ext_*`` lists.  The finetunes'
+    labels ride along: ``y`` [B, T] float32 graph labels and ``forces``
+    [N, 3] float32 per-atom forces (MD17), None where a batch has none.
     """
 
     atom_feats: torch.Tensor
@@ -52,6 +54,8 @@ class GraphBatch:
     ext_mask: torch.Tensor
     ext_dense_mask: Optional[torch.Tensor] = None
     ext_dense_attr: Optional[torch.Tensor] = None
+    y: Optional[torch.Tensor] = None
+    forces: Optional[torch.Tensor] = None
     num_graphs: int = 1
     n_max: int = 32
 
@@ -121,14 +125,20 @@ def pad_graphs(
     e_max: int,
     ext_e_max: Optional[int] = None,
     num_graphs: Optional[int] = None,
+    num_tasks: Optional[int] = None,
+    with_forces: bool = False,
 ) -> GraphBatch:
     """Collate numpy graph dicts into one padded ``GraphBatch`` (host side).
 
     Each dict holds ``atom_feats [n, 9]``, ``edge_index [2, e]``,
     ``edge_feats [e, 3]`` and optionally ``positions [n, 3]``,
-    ``ext_edge_index [2, ee]`` and ``ext_edge_attr [ee]``.  Atoms beyond
-    ``n_max`` and edges beyond the budgets are dropped.  Without an extended
-    graph the ext fields alias the bond graph with label ``bond type + 1``.
+    ``ext_edge_index [2, ee]``, ``ext_edge_attr [ee]``, ``y [T]`` and
+    ``forces [n, 3]``.  Atoms beyond ``n_max`` and edges beyond the budgets
+    are dropped.  Without an extended graph the ext fields alias the bond
+    graph with label ``bond type + 1``.  With ``num_tasks`` the batch
+    carries ``y`` [B, num_tasks] (each graph's first ``num_tasks`` labels;
+    padded graphs and graphs without labels 0 on every task), with
+    ``with_forces`` ``forces`` [B * n_max, 3] (zero on padded atoms).
     Returns CPU tensors; move the batch with ``.to(device)``.
     """
     b = num_graphs if num_graphs is not None else len(graphs)
@@ -148,6 +158,8 @@ def pad_graphs(
     ext_dst = np.zeros((b * ext_e_max,), dtype=np.int32)
     ext_attr = np.zeros((b * ext_e_max,), dtype=np.int32)
     ext_mask = np.zeros((b * ext_e_max,), dtype=bool)
+    y = np.zeros((b, num_tasks), dtype=np.float32) if num_tasks is not None else None
+    forces = np.zeros((b * n_max, 3), dtype=np.float32) if with_forces else None
 
     for g_idx, g in enumerate(graphs):
         af = np.asarray(g["atom_feats"], dtype=np.int32)
@@ -161,6 +173,10 @@ def pad_graphs(
         node_mask[base : base + n] = True
         if g.get("positions") is not None:
             positions[base : base + n] = np.asarray(g["positions"], np.float32)[:n]
+        if forces is not None and g.get("forces") is not None:
+            forces[base : base + n] = np.asarray(g["forces"], np.float32)[:n]
+        if y is not None and g.get("y") is not None:
+            y[g_idx] = np.asarray(g["y"], np.float32).reshape(-1)[:num_tasks]
 
         def fill(src_arr, dst_arr, attr_arr, mask_arr, eidx, eattr, budget):
             ei = np.asarray(eidx, dtype=np.int32)
@@ -192,4 +208,5 @@ def pad_graphs(
         positions=t(positions), edge_src=t(edge_src), edge_dst=t(edge_dst),
         edge_feats=t(edge_feats), edge_mask=t(edge_mask),
         ext_src=t(ext_src), ext_dst=t(ext_dst), ext_attr=t(ext_attr),
-        ext_mask=t(ext_mask), num_graphs=b, n_max=n_max)
+        ext_mask=t(ext_mask), y=None if y is None else t(y),
+        forces=None if forces is None else t(forces), num_graphs=b, n_max=n_max)

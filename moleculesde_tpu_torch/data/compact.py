@@ -39,7 +39,9 @@ class CompactBatch:
     - ``edge_feats`` [B, e_max, 3] int16 OGB bond features;
     - ``edge_valid`` [B, e_max] bool; valid bonds need not be contiguous
       (the JAX package's packed collation drops bonds in place), and
-      :func:`expand_on_device` takes the mask per bond.
+      :func:`expand_on_device` takes the mask per bond;
+    - ``y`` [B, T] float32 graph labels and ``forces`` [B, n_max, 3]
+      float32, or None.
     """
 
     atom_feats: torch.Tensor
@@ -48,6 +50,8 @@ class CompactBatch:
     edge_index: torch.Tensor
     edge_feats: torch.Tensor
     edge_valid: torch.Tensor
+    y: Optional[torch.Tensor] = None
+    forces: Optional[torch.Tensor] = None
     num_graphs: int = 1
     n_max: int = 32
     e_max: int = 128
@@ -140,17 +144,21 @@ def expand_on_device(cb: CompactBatch) -> GraphBatch:
         edge_src=edge_src, edge_dst=edge_dst, edge_feats=edge_feats, edge_mask=edge_mask,
         ext_src=edge_src, ext_dst=edge_dst,
         ext_attr=torch.where(edge_mask, edge_feats[:, 0] + 1, 0), ext_mask=edge_mask,
-        ext_dense_mask=ext_dense_mask, ext_dense_attr=ext_dense_attr,
+        ext_dense_mask=ext_dense_mask, ext_dense_attr=ext_dense_attr, y=cb.y,
+        forces=None if cb.forces is None else cb.forces.reshape(b * n, 3),
         num_graphs=b, n_max=n)
 
 
 def collate_compact(graphs: Sequence[Mapping[str, Any]], n_max: int, e_max: int,
-                    num_graphs: Optional[int] = None, use_extend: bool = True
+                    num_graphs: Optional[int] = None, use_extend: bool = True,
+                    num_tasks: Optional[int] = None, with_forces: bool = False
                     ) -> CompactBatch:
     """Collate graph dicts into a compact batch on the host (CPU tensors),
     truncating as ``core.batch.pad_graphs`` does: atoms past ``n_max`` are
     dropped, and so are bonds that touch them and bonds past ``e_max``; the
-    kept bonds fill each graph's first slots."""
+    kept bonds fill each graph's first slots.  ``num_tasks`` (when not 0)
+    and ``with_forces`` carry the labels as JAX's ``collate_compact`` does:
+    a graph's labels fill the first entries of its row of ``y``."""
     b = num_graphs if num_graphs is not None else len(graphs)
     if len(graphs) > b:
         raise ValueError(f"{len(graphs)} graphs do not fit num_graphs={b}")
@@ -160,6 +168,8 @@ def collate_compact(graphs: Sequence[Mapping[str, Any]], n_max: int, e_max: int,
     ei = np.zeros((b, e_max, 2), dtype=np.int16)
     ef = np.zeros((b, e_max, NUM_BOND_FEATURES), dtype=np.int16)
     ev = np.zeros((b, e_max), dtype=bool)
+    y = np.zeros((b, num_tasks), dtype=np.float32) if num_tasks else None
+    forces = np.zeros((b, n_max, 3), dtype=np.float32) if with_forces else None
     for gi, g in enumerate(graphs):
         af = np.asarray(g["atom_feats"])
         if af.ndim == 1:   # atomic-number-only graphs
@@ -171,6 +181,11 @@ def collate_compact(graphs: Sequence[Mapping[str, Any]], n_max: int, e_max: int,
         atom[gi, :n] = af[:n]
         if g.get("positions") is not None:
             pos[gi, :n] = np.asarray(g["positions"], np.float32)[:n]
+        if forces is not None and g.get("forces") is not None:
+            forces[gi, :n] = np.asarray(g["forces"], np.float32)[:n]
+        if y is not None and g.get("y") is not None:
+            yr = np.asarray(g["y"], np.float32).reshape(-1)
+            y[gi, :yr.shape[0]] = yr[:num_tasks]
         e_idx = np.asarray(g.get("edge_index", np.zeros((2, 0))), np.int64)
         ne = e_idx.shape[1] if e_idx.size else 0
         if ne:
@@ -184,4 +199,6 @@ def collate_compact(graphs: Sequence[Mapping[str, Any]], n_max: int, e_max: int,
     tt = torch.from_numpy
     return CompactBatch(atom_feats=tt(atom), positions=tt(pos), n_atoms=tt(cnt),
                         edge_index=tt(ei), edge_feats=tt(ef), edge_valid=tt(ev),
-                        num_graphs=b, n_max=n_max, e_max=e_max, use_extend=use_extend)
+                        y=None if y is None else tt(y),
+                        forces=None if forces is None else tt(forces), num_graphs=b,
+                        n_max=n_max, e_max=e_max, use_extend=use_extend)

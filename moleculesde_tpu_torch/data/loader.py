@@ -12,7 +12,10 @@ collations, the size buckets of :class:`BucketedGraphLoader`
 shapes; with ``drop_last`` only full batches are produced, otherwise the
 tail batch is padded with empty graphs.  Every shuffle draws from
 ``numpy.random.default_rng(seed)``, so the same seed visits molecules, and
-buckets, in the JAX package's order.
+buckets, in the JAX package's order.  The finetunes' labels ride along
+(``num_tasks``: ``y`` [B, T]; ``with_forces``: ``forces``), and
+``rotation_transform`` turns each training molecule by a random rotation
+drawn from the same generator, as JAX's ``GraphLoader._rotate`` does.
 """
 
 from __future__ import annotations
@@ -39,17 +42,24 @@ class GraphLoader:
     whether to build the extended graph).  ``collate_impl`` picks the
     padded collation: "native" (C++, the default) or "numpy"; both give the
     same bits.  ``quiet_drops`` leaves the drop message to a parent loader
-    (:class:`BucketedGraphLoader`)."""
+    (:class:`BucketedGraphLoader`).  ``num_tasks`` / ``with_forces`` carry
+    the labels; ``rotation_transform`` (padded batches only) rotates each
+    molecule's positions by a random SO(3) matrix from the loader's
+    generator, drawn as each batch is collated."""
 
     def __init__(self, graphs: Sequence[Dict], batch_size: int, n_max: int,
                  e_max: Optional[int] = None, ext_e_max: Optional[int] = None,
                  shuffle: bool = True, drop_last: bool = True, seed: int = 0,
                  collate: str = "padded", use_extend: bool = True,
-                 collate_impl: str = "native", quiet_drops: bool = False):
+                 collate_impl: str = "native", quiet_drops: bool = False,
+                 num_tasks: Optional[int] = None, with_forces: bool = False,
+                 rotation_transform: bool = False):
         if collate not in ("padded", "compact"):
             raise ValueError(f"unknown collate {collate}")
         if collate_impl not in ("native", "numpy"):
             raise ValueError(f"unknown collate_impl {collate_impl}")
+        if collate == "compact" and rotation_transform:
+            raise NotImplementedError("rotation_transform is a padded-path option")
         self.collate_mode = collate
         self.collate_impl = collate_impl
         self.quiet_drops = quiet_drops
@@ -61,6 +71,9 @@ class GraphLoader:
         self.ext_e_max = ext_e_max if ext_e_max is not None else n_max * n_max
         self.shuffle = shuffle
         self.drop_last = drop_last
+        self.num_tasks = num_tasks
+        self.with_forces = with_forces
+        self.rotation_transform = rotation_transform
         self._rng = np.random.default_rng(seed)
         self._warned_truncate = False
 
@@ -83,17 +96,34 @@ class GraphLoader:
         return [order[b * bs:(b + 1) * bs] for b in range(len(self))]
 
     def collate_indices(self, idx: np.ndarray) -> Tuple[Batch, int]:
-        """One batch of dataset indices (no loader state changes, so worker
-        threads may call it)."""
+        """One batch of dataset indices.  No loader state changes, so worker
+        threads may call it, unless ``rotation_transform`` draws from the
+        loader's generator."""
         chunk = [self.graphs[i] for i in idx]
+        labels = dict(num_tasks=self.num_tasks, with_forces=self.with_forces)
         if self.collate_mode == "compact":
             return collate_compact(chunk, n_max=self.n_max, e_max=self.e_max,
                                    num_graphs=self.batch_size,
-                                   use_extend=self.use_extend), len(chunk)
+                                   use_extend=self.use_extend, **labels), len(chunk)
+        if self.rotation_transform:
+            chunk = [self._rotate(g) for g in chunk]
         self._check_budgets(chunk)
         pad = native_pad_graphs if self.collate_impl == "native" else pad_graphs
         return pad(chunk, n_max=self.n_max, e_max=self.e_max, ext_e_max=self.ext_e_max,
-                   num_graphs=self.batch_size), len(chunk)
+                   num_graphs=self.batch_size, **labels), len(chunk)
+
+    def _rotate(self, g: Dict) -> Dict:
+        """``g`` with its positions turned by a random rotation: the Q of a
+        QR of a normal draw, signs fixed by R's diagonal and det +1 (the
+        reference's ``use_rotation_transform``, dataset_QM9.py:138-139)."""
+        if g.get("positions") is None:
+            return g
+        q, r = np.linalg.qr(self._rng.normal(size=(3, 3)))
+        q = q * np.sign(np.diag(r))
+        if np.linalg.det(q) < 0:
+            q[:, 0] = -q[:, 0]
+        return {**g, "positions": np.asarray(g["positions"], np.float32)
+                @ q.T.astype(np.float32)}
 
     def __iter__(self) -> Iterator[Tuple[Batch, int]]:
         for idx in self.epoch_indices():
@@ -133,7 +163,8 @@ class BucketedGraphLoader:
 
     def __init__(self, graphs: Sequence[Dict], batch_size: int,
                  buckets: Sequence[int] = (16, 32, 64), e_max_factor: int = 4,
-                 shuffle: bool = True, drop_last: bool = True, seed: int = 0):
+                 shuffle: bool = True, drop_last: bool = True, seed: int = 0,
+                 num_tasks: Optional[int] = None, with_forces: bool = False):
         self.buckets = sorted(buckets)
         graphs = list(graphs)
         counts = np.array([np.asarray(g["atom_feats"]).shape[0] for g in graphs])
@@ -144,7 +175,8 @@ class BucketedGraphLoader:
             gs = [graphs[j] for j in np.flatnonzero(slot == i)]
             self.loaders.append(GraphLoader(
                 gs, batch_size=batch_size, n_max=b, e_max=e_max_factor * b, ext_e_max=b * b,
-                shuffle=shuffle, drop_last=drop_last, seed=seed, quiet_drops=True)
+                shuffle=shuffle, drop_last=drop_last, seed=seed, quiet_drops=True,
+                num_tasks=num_tasks, with_forces=with_forces)
                 if gs else None)
         self.shuffle = shuffle
         self._rng = np.random.default_rng(seed)
@@ -180,6 +212,9 @@ class ThreadedLoader:
 
     def __init__(self, loader: GraphLoader, num_workers: int = 2,
                  prefetch: Optional[int] = None):
+        if getattr(loader, "rotation_transform", False):
+            raise NotImplementedError(
+                "rotation_transform draws from the loader's generator; use num_workers=0")
         self.loader = loader
         self.num_workers = max(1, num_workers)
         self.prefetch = prefetch if prefetch is not None else 2 * self.num_workers

@@ -104,9 +104,12 @@ def _ptr(a: np.ndarray, ctype):
 
 def native_pad_graphs(graphs: Sequence[Dict], n_max: int, e_max: int,
                       ext_e_max: Optional[int] = None,
-                      num_graphs: Optional[int] = None) -> GraphBatch:
+                      num_graphs: Optional[int] = None, num_tasks: Optional[int] = None,
+                      with_forces: bool = False) -> GraphBatch:
     """:func:`~moleculesde_tpu_torch.core.batch.pad_graphs` in C++: the same
-    arguments, the same batch (CPU tensors)."""
+    arguments, the same batch (CPU tensors).  The labels ``y`` and
+    ``forces`` are filled in numpy after the C call, as in the JAX
+    package."""
     lib = load()
     b = num_graphs if num_graphs is not None else len(graphs)
     if len(graphs) > b:
@@ -183,5 +186,17 @@ def native_pad_graphs(graphs: Sequence[Dict], n_max: int, e_max: int,
         raise RuntimeError(f"native collation failed (return code {rc})")
     for name in ("node_mask", "edge_mask", "ext_mask"):
         out[name] = out[name].view(np.bool_)
+    if num_tasks is not None:
+        out["y"] = np.zeros((b, num_tasks), np.float32)
+        for i, g in enumerate(graphs):
+            if g.get("y") is not None:
+                out["y"][i] = np.asarray(g["y"], np.float32).reshape(-1)[:num_tasks]
+    if with_forces:
+        out["forces"] = np.zeros((b * n_max, 3), np.float32)
+        for i, g in enumerate(graphs):
+            if g.get("forces") is not None:
+                f = np.asarray(g["forces"], np.float32)
+                n = min(f.shape[0], n_max)
+                out["forces"][i * n_max:i * n_max + n] = f[:n]
     return GraphBatch(**{k: torch.from_numpy(v) for k, v in out.items()},
                       num_graphs=b, n_max=n_max)

@@ -10,9 +10,15 @@ Padded rows of the output are exactly zero.  ``compute_dtype="bfloat16"``
 rounds where the JAX package's ``GINConv(dtype=bfloat16)`` does: the
 message block in its bf16 mode and the two Dense layers in bf16, while the
 residual, the BatchNorm statistics and the parameters stay f32.
+
+:func:`graph_pool` and :class:`GNNGraphPred` (reference
+molecule_gnn_model.py:200-281) put the MoleculeNet finetune's head on it:
+masked sum / mean / max pooling, then a linear layer per task.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -150,3 +156,73 @@ class GNN2D(nn.Module):
                 h = F.relu(h)
             h = dropout(h, self.drop_ratio, generator, deterministic)
         return h * batch.node_mask[:, None]
+
+
+def graph_pool(node_rep: torch.Tensor, batch: GraphBatch, pooling: str = "mean") -> torch.Tensor:
+    """Masked pooling of node rows [B * n_max, F] into [B, F]: "sum",
+    "mean" (over the real atoms, at least one) or "max" (0 for a graph
+    with no atom), as the JAX package's ``graph_pool``."""
+    b, n = batch.num_graphs, batch.n_max
+    x = node_rep.reshape((b, n) + tuple(node_rep.shape[1:]))
+    m = batch.node_mask.reshape(b, n, 1).to(node_rep.dtype)
+    if pooling == "sum":
+        return (x * m).sum(dim=1)
+    if pooling == "mean":
+        return (x * m).sum(dim=1) / m.sum(dim=1).clamp(min=1.0)
+    if pooling == "max":
+        out = torch.where(m > 0, x, float("-inf")).amax(dim=1)
+        return torch.where(torch.isfinite(out), out, torch.zeros((), dtype=out.dtype,
+                                                                 device=out.device))
+    raise ValueError(f"Invalid graph pooling type {pooling}.")
+
+
+def check_gnn(gnn_type: str, jk: str) -> None:
+    """Raise on the 2D encoders the port does not run yet (it runs GIN
+    with JK 'last')."""
+    if gnn_type != "GIN" or jk != "last":
+        raise NotImplementedError(f"only GIN with JK 'last' is ported (got --gnn_type "
+                                  f"{gnn_type}, --JK {jk})")
+
+
+def lecun_normal_(kernel: torch.Tensor, generator: torch.Generator) -> None:
+    """flax ``nn.Dense``'s default kernel init: a normal truncated at two
+    standard deviations, scaled to variance 1 / fan_in."""
+    std = math.sqrt(1.0 / kernel.shape[0]) / 0.87962566103423978
+    nn.init.trunc_normal_(kernel, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+class GNNGraphPred(nn.Module):
+    """GIN (JK "last") + :func:`graph_pool` + a linear head of
+    ``num_tasks`` logits (JAX ``GNNGraphPred``).  Submodules keep flax's
+    names, ``gnn`` and ``graph_pred_linear``, so a flax tree loads with
+    ``load_flax_variables``.  The head starts as flax's ``nn.Dense``
+    (lecun-normal kernel, zero bias); the GIN as :class:`GNN2D`, from
+    ``generator`` (default: seed 0).  ``msg_impl`` picks K1 as in
+    :class:`GINConv`; built on ``device`` ("cuda" by default; raises
+    without a GPU unless "cpu")."""
+
+    def __init__(self, num_tasks: int, num_layers: int = 5, emb_dim: int = 300,
+                 jk: str = "last", drop_ratio: float = 0.0, gnn_type: str = "GIN",
+                 graph_pooling: str = "mean", msg_impl: str = "auto",
+                 device: str | torch.device = "cuda",
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        check_gnn(gnn_type, jk)
+        if graph_pooling not in ("sum", "mean", "max"):
+            raise ValueError(f"Invalid graph pooling type {graph_pooling}.")
+        dev = resolve_device(device)
+        gen = generator or torch.Generator().manual_seed(0)
+        self.graph_pooling = graph_pooling
+        self.gnn = GNN2D(num_layers, emb_dim, drop_ratio, msg_impl=msg_impl, device="cpu",
+                         generator=gen)
+        self.graph_pred_linear = Dense(emb_dim, num_tasks)
+        with torch.no_grad():
+            lecun_normal_(self.graph_pred_linear.kernel, gen)
+        self.to(dev)
+
+    def forward(self, batch: GraphBatch, use_running_average: bool = False,
+                deterministic: bool = True,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """Logits [B, num_tasks]; the modes as :meth:`GNN2D.forward`."""
+        node_rep = self.gnn(batch, use_running_average, deterministic, generator)
+        return self.graph_pred_linear(graph_pool(node_rep, batch, self.graph_pooling))

@@ -57,13 +57,15 @@ class PaiNNInteraction(nn.Module):
         x = self.Dense_1(F.silu(self.Dense_0(q))).to(dt)        # [B, N, 3F]
         w_q, w_r, w_m = w[..., :f], w[..., f:2 * f], w[..., 2 * f:]
         x_q, x_r, x_m = x[..., :f], x[..., f:2 * f], x[..., 2 * f:]
-        # each product rounded to the compute dtype, every sum in f32, as
-        # JAX's sum(dtype=f32) and einsum(preferred_element_type=f32)
-        dq = (w_q * x_q[:, None]).sum(dim=2, dtype=torch.float32)
-        dmu_r = torch.einsum("bijf,bijv->bivf", (w_r * x_r[:, None]).float(),
-                             dir_ij.to(dt).float())
+        # each product rounded to the compute dtype, every sum in f32 (f64
+        # for a model in double), as JAX's sum(dtype=f32) and
+        # einsum(preferred_element_type=f32)
+        acc = torch.promote_types(q.dtype, torch.float32)
+        dq = (w_q * x_q[:, None]).sum(dim=2, dtype=acc)
+        dmu_r = torch.einsum("bijf,bijv->bivf", (w_r * x_r[:, None]).to(acc),
+                             dir_ij.to(dt).to(acc))
         xm_mu = (mu * x_m[:, :, None, :].to(mu.dtype)).to(dt)
-        dmu_m = torch.einsum("bijf,bjvf->bivf", w_m.float(), xm_mu.float())
+        dmu_m = torch.einsum("bijf,bjvf->bivf", w_m.to(acc), xm_mu.to(acc))
         return q + dq, mu + dmu_r + dmu_m
 
 

@@ -87,7 +87,9 @@ class SchNetInteraction(nn.Module):
 
     def forward(self, h, edge_attr, cos_env, pair_mask, dist=None) -> torch.Tensor:
         """``edge_attr`` [B, N, N, G] for the eager form and K2; K5 takes the
-        distances ``dist`` [B, N, N] instead."""
+        distances ``dist`` [B, N, N] instead.  The output is in the residual
+        stream's dtype (f32; f64 for a model in double, eager form)."""
+        acc = torch.promote_types(h.dtype, torch.float32)
         w1, b1 = self.Dense_0.kernel, self.Dense_0.bias
         w2, b2 = self.Dense_1.kernel, self.Dense_1.bias
         x = self.Dense_2(h)
@@ -101,7 +103,7 @@ class SchNetInteraction(nn.Module):
         elif self.cfconv == "xla":
             dt = self.dtype or h.dtype
             w = edge_attr.to(dt) @ w1.to(dt) + b1.to(dt)
-            w = shifted_softplus(w.float())
+            w = shifted_softplus(w.to(acc))
             w = w.to(dt) @ w2.to(dt) + b2.to(dt)
             w = w * envm[..., None].to(w.dtype)
             x = (w * x[:, None, :, :].to(w.dtype)).sum(dim=2)
@@ -109,8 +111,8 @@ class SchNetInteraction(nn.Module):
             x = fused_cfconv(edge_attr.contiguous(), envm.contiguous(),
                              x.float().contiguous(), w1, b1, w2, b2,
                              bf16=bf16, impl=self.impl)
-        x = shifted_softplus(self.Dense_3(x).float())
-        return self.Dense_4(x).float()
+        x = shifted_softplus(self.Dense_3(x).to(acc))
+        return self.Dense_4(x).to(acc)
 
 
 class SchNet(nn.Module):

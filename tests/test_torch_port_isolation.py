@@ -1,7 +1,8 @@
 """The PyTorch port stands alone and never falls back silently.
 
 - No module of ``moleculesde_tpu_torch/`` and not ``chip_smoke.py`` imports
-  jax, flax, optax, msgpack or the JAX package.
+  jax, flax, optax, msgpack, pandas, sklearn or the JAX package; rdkit is
+  imported only inside functions.
 - Entry points raise without a GPU unless the caller asks for the CPU.
 - A kernel wrapper given a CPU tensor takes the plain version and counts no
   launch; asked for the kernel on a CPU tensor, it raises.
@@ -20,11 +21,12 @@ from moleculesde_tpu_torch.convert import load_checkpoint, save_checkpoint
 from moleculesde_tpu_torch.data.compact import CompactBatch, expand_on_device
 from moleculesde_tpu_torch.data.loader import GraphLoader, ThreadedLoader, device_prefetch
 from moleculesde_tpu_torch.data.synthetic import random_molecule
+from moleculesde_tpu_torch.examples import finetune_md17, finetune_moleculenet, finetune_qm9
 from moleculesde_tpu_torch.examples import pretrain as pretrain_cli
 from moleculesde_tpu_torch.examples import sample_2d_to_3d as cli
 from moleculesde_tpu_torch.examples import sample_3d_to_2d as cli_3d2d
 from moleculesde_tpu_torch.kernels import build
-from moleculesde_tpu_torch.models.gnn2d import GNN2D
+from moleculesde_tpu_torch.models.gnn2d import GNN2D, GNNGraphPred
 from moleculesde_tpu_torch.models.painn import PaiNN
 from moleculesde_tpu_torch.models.schnet import SchNet
 from moleculesde_tpu_torch.models.score_2d3d import SDEModel2Dto3D
@@ -38,7 +40,8 @@ from moleculesde_tpu_torch.ops.pair_block import (
 from moleculesde_tpu_torch.ops.score_kernel import score_eval_fused
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "moleculesde_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "moleculesde_tpu", "pandas",
+             "sklearn")
 
 
 def _imported_modules(path: Path):
@@ -56,6 +59,21 @@ def test_port_imports_no_jax_and_no_jax_package():
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
+
+
+def test_port_imports_rdkit_only_inside_functions():
+    files = sorted((ROOT / "moleculesde_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    top = []
+    for f in files:
+        for node in ast.parse(f.read_text()).body:   # module level only
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                names = [a.name for a in node.names] if isinstance(node, ast.Import) \
+                    else [node.module or ""]
+                top += [(str(f.relative_to(ROOT)), n) for n in names
+                        if n.split(".")[0] == "rdkit"]
+    assert not top, top
+    lazy = [f for f in files if "from rdkit" in f.read_text()]
+    assert {f.name for f in lazy} >= {"featurize.py", "datasets.py", "splitters.py"}
 
 
 def test_entry_points_raise_without_gpu(monkeypatch):
@@ -76,6 +94,12 @@ def test_entry_points_raise_without_gpu(monkeypatch):
         pretrain_cli.main(["--synthetic_molecules", "4", "--batch_size", "4"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli_3d2d.main(["--end", "1", "--batch_size", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GNNGraphPred(2, num_layers=2, emb_dim=8)
+    for finetune in (finetune_moleculenet, finetune_qm9, finetune_md17):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            finetune.main(["--dataset", "synthetic", "--synthetic_molecules", "8",
+                           "--batch_size", "4", "--n_max", "6"])
     assert chip_smoke.main() == 2   # no result printed, non-zero exit
     GNN2D(num_layers=2, emb_dim=8, device="cpu")
 
