@@ -8,8 +8,10 @@ with K2; the JAX CLI's default compact ingest with K5; the three
 microbatch scopes; PaiNN; the default path at n_max 64 and 128, also with
 the K7 and K8 attention banks; the CLI's ``main`` on size buckets, with the
 native collation and a resume from its train state), and the three
-finetune CLIs (MoleculeNet with K1, QM9 with K2, MD17 with none) -- and
-checks what comes out.
+finetune CLIs (MoleculeNet with K1, QM9 with K2, MD17 with none), then the
+rest of the model surface (SDEModel2Dto3D variants 3 and 4 in the sampler
+and pretraining, GCN / GAT / GraphSAGE and the JK modes in pretraining and
+MoleculeNet) -- and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -151,6 +153,23 @@ Phases (any failure exits non-zero):
      the pretraining CLI's ``model_complete.pt`` (its defaults, 128
      molecules, one epoch) into the MoleculeNet and QM9 CLIs, every loaded
      parameter equal to the checkpoint's, one epoch of each.
+ 16. model surface: the sampler CLI's ``main`` with ``--SDE_2Dto3D_model
+     SDEModel2Dto3D_03``, then ``_04`` (the setting of 3 otherwise: bf16
+     score, B=64, n_max 32, 20 PC x 1 corrector step), launches K1 5, K3 0,
+     K4 0; each variant's K6 (kernel variant 1 on its own conditioning)
+     against its plain version on the fused chain's operands, bf16 and f32
+     (4's bars), two launches bit for bit; the counted fused chain (K1 5,
+     K6 40), conformers/s of both chains in turns and 5 f32 steps of the
+     fused chain against the channel-major chain (atol 2e-4, rtol 1e-3).
+     The pretraining CLI's models at its defaults (compact ingest, K2) plus
+     ``--SDE_2Dto3D_model SDEModel2Dto3D_04 --JK sum``, B=128, n_max 32:
+     two steps with K1 5 / 5, K2 6 / 6, K3 0 / 0 per step, every metric
+     finite, one step against an all-plain build as in 7; one step each
+     with ``--gnn_type GCN``, ``GAT`` and ``GraphSAGE`` and
+     SDEModel2Dto3D_03 (K1 0 / 0, K2 6 / 6), every metric finite.  The
+     MoleculeNet CLI's ``main`` with ``--JK concat`` (K1 5 / 5 a step, 5
+     per evaluation batch, f32) and with ``--gnn_type GAT`` (no kernel),
+     512 molecules and 1 epoch each, every AUC in [0, 1].
 The line before the last lists every kernel as JSON (the ones before it
 phase 15's and phase 14's figures); the last line is {"ok": true, "device":
 {...}}.
@@ -504,7 +523,10 @@ def k6_phases(models, node_2d, batch, dev, label: str = ""):
         print(f"K6 operands (variant {variant}): pos {tuple(pos.shape)}, edge_attr_2d "
               f"{tuple(args[2].shape)}, {int(cond['pair_mask'].sum())} valid pairs, "
               f"{args[4].numel()} packed weights", flush=True)
-        nbytes, ops = k6_cost(b, n, variant)
+        # variants 3 and 4 run as kernel variant 1 (their edge features
+        # enter as variant 1's do)
+        kv = model.kernel_variant
+        nbytes, ops = k6_cost(b, n, kv)
         for bf16 in (False, True):
             name = f"score_eval_fused[v{variant}]" + ("[bf16]" if bf16 else "") + label
             # f32: sums in another order and a warp-shuffle softmax; bf16:
@@ -514,9 +536,9 @@ def k6_phases(models, node_2d, batch, dev, label: str = ""):
             with torch.no_grad():
                 # defaults bind this iteration's operands: the device-time
                 # phase calls these after the loops have moved on
-                run_k = lambda a=args, v=variant, b=bf16: score_eval_fused(  # noqa: E731
+                run_k = lambda a=args, v=kv, b=bf16: score_eval_fused(  # noqa: E731
                     *a, variant=v, bf16=b, impl="kernel")
-                run_p = lambda a=args, v=variant, b=bf16: score_eval_fused_plain(  # noqa: E731
+                run_p = lambda a=args, v=kv, b=bf16: score_eval_fused_plain(  # noqa: E731
                     *a, variant=v, bf16=b)
                 err, rel = compare("K6 " + name, run_k, run_p, tol, floor=0.0)
                 results[name] = report("K6 " + name, err, tol, run_k, run_p,
@@ -1139,6 +1161,14 @@ KERNEL_LEAVES = (("model_2D", ".BondEncoder_0."),
                  ("model_3D", ".Dense_0."), ("model_3D", ".Dense_1."),
                  ("SDE_2Dto3D_model", "edge_2D_emb_"))
 ZERO_GRAD_LEAVES = ("SDE_2Dto3D_model.edge_2D_emb_0.bias",)
+# the SDE_2Dto3D_model leaves of KERNEL_LEAVES that each 2D->3D variant
+# has, named outright so that a renamed or dropped leaf fails the check:
+# variants 1 and 2 have K3's pair block, variant 4 its kernel and bias;
+# variant 3's ``edge_2D_emb.*`` feeds no kernel and is not one of them
+_PAIR_BLOCK_LEAVES = ("edge_2D_emb_0.kernel", "edge_2D_emb_bn.scale", "edge_2D_emb_bn.bias",
+                      "edge_2D_emb_1.kernel", "edge_2D_emb_1.bias")
+PAIR_LEAVES = {1: _PAIR_BLOCK_LEAVES, 2: _PAIR_BLOCK_LEAVES, 3: (),
+               4: ("edge_2D_emb_kernel", "edge_2D_emb_bias")}
 
 
 def _grad_norms(models):
@@ -1220,8 +1250,12 @@ def step_against_plain(dev, cfg, models, batch, seed: int, label: str) -> float:
     # all edges of bf16-rounded cotangents, with cancellation): 5e-2 is
     # about 6x that
     leaf_tol = 5e-2
+    pair = PAIR_LEAVES[cfg.sde_2dto3d_variant]
     check(sorted(lk) == sorted(lp) and len(lk) == (
-        3 * cfg.num_layer + 4 * cfg.schnet_num_interactions + 5), f"kernel leaves {sorted(lk)}")
+        3 * cfg.num_layer + 4 * cfg.schnet_num_interactions + len(pair))
+        and sorted(k.removeprefix("SDE_2Dto3D_model.") for k in lk
+                   if k.startswith("SDE_2Dto3D_model.")) == sorted(pair),
+        f"kernel leaves {sorted(lk)}")
     errs = {k: ((lk[k] - lp[k]).norm() / lp[k].norm().clamp(min=1e-30)).item() for k in lk}
     worst = sorted(errs.items(), key=lambda kv: -kv[1])
     print(f"{label} vs plain step: {len(errs)} kernel leaves, relative L2 errors "
@@ -2510,6 +2544,197 @@ def finetune_path(dev, card):
     return results, launches, rates
 
 
+# phase 16's runs: the other 2D->3D score models and 2D encoders
+SURFACE_PRETRAIN_FLAGS = ["--SDE_2Dto3D_model", "SDEModel2Dto3D_04", "--JK", "sum"]
+SURFACE_GNN_TYPES = ("GCN", "GAT", "GraphSAGE")
+
+
+def surface_sampler(dev, card, variant: int):
+    """16.1 for one variant: the sampler CLI's ``main`` (K1 5, K3 0, K4 0),
+    K6 on the fused chain's operands against its plain version (kernel
+    variant 1, bf16 and f32), the counted fused chain (K6 40), conformers/s
+    of both chains and 5 f32 steps of the fused chain against the
+    channel-major chain.  Returns (K6 results, {run: launch counts})."""
+    from moleculesde_tpu_torch.benchmarks.profile_sampler import (
+        CORRECTOR_STEPS, N_STEPS, PATH_ARGS)
+    from moleculesde_tpu_torch.examples import sample_2d_to_3d as cli
+
+    flags = ["--SDE_2Dto3D_model", f"SDEModel2Dto3D_0{variant}"]
+    args = cli.get_parser().parse_args(PATH_ARGS + flags)
+    runs = {}
+    reset_counts()
+    cli_results = cli.main(PATH_ARGS + flags)
+    torch.cuda.synchronize()
+    runs[f"sample_2d_to_3d_v{variant}"] = launches = read_counts()
+    print(f"sampler CLI, SDEModel2Dto3D_0{variant}: launches {launches} (expected K1 "
+          f"{args.num_layer}, K3 0, K4 0)", flush=True)
+    check(launches == expect(gin_messages=args.num_layer),
+          f"sampler v{variant} launch counts {launches}")
+    for r in cli_results:
+        check(r["pos_gen"].shape == (args.num_repeat_SDE_inference,
+                                     r["atom_feats"].shape[0], 3), "pos_gen shape")
+        check(bool(torch.isfinite(torch.as_tensor(r["pos_gen"])).all()),
+              f"v{variant}: non-finite conformer")
+
+    batch = cli.make_batch(cli.load_graphs(args), args, dev)
+    model_2d, sde_model = cli.build_models(args, dev)
+    check(sde_model.kernel_variant == 1, f"v{variant} runs K6 as variant 1")
+    with torch.no_grad():
+        node_2d = model_2d(batch, use_running_average=True)
+    results = k6_phases({variant: sde_model}, node_2d, batch, dev)
+
+    evals = N_STEPS * (CORRECTOR_STEPS + 1)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    reset_counts()
+    pos = cli.generate(model_2d, sde_model, batch, gen, args, fused=True)
+    torch.cuda.synchronize()
+    runs[f"sample_2d_to_3d_v{variant}_fused"] = launches = read_counts()
+    print(f"fused chain, SDEModel2Dto3D_0{variant}: launches {launches} (expected K1 "
+          f"{args.num_layer}, K6 {evals})", flush=True)
+    check(launches == expect(gin_messages=args.num_layer, score_eval_fused=evals),
+          f"fused chain v{variant} launch counts {launches}")
+    check(bool(torch.isfinite(pos).all()), f"fused chain v{variant}: non-finite positions")
+    check(bool((pos[~batch.node_mask] == 0).all()), f"fused chain v{variant}: padded rows")
+
+    walls = {"channel": [], "fused": []}
+    saved = [c.launches for c in _counters()]
+    for name in ("channel", "fused", "fused", "channel"):
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cli.generate(model_2d, sde_model, batch, gen, args, fused=name == "fused")
+        torch.cuda.synchronize()
+        walls[name].append(time.perf_counter() - t0)
+    for c, n in zip(_counters(), saved):
+        c.launches = n
+    b_conf = batch.num_graphs
+    for name, ws in walls.items():
+        print(f"SDEModel2Dto3D_0{variant} {name} chain (GIN + conditioning + {N_STEPS} PC "
+              f"steps, B={b_conf}, bf16): wall_ms={' / '.join(f'{w * 1e3:.2f}' for w in ws)} "
+              f"conformers_per_s={' / '.join(f'{b_conf / w:.2f}' for w in ws)} ({card})",
+              flush=True)
+    fused_f32_steps(dev, flags, 5, f"SDEModel2Dto3D_0{variant}, n_max {batch.n_max}")
+    return results, runs
+
+
+def _finite_metrics(label, metrics):
+    from moleculesde_tpu_torch.pretrain.train_step import METRICS
+
+    vals = {k: float(metrics[k]) for k in METRICS}
+    check(all(math.isfinite(v) for v in vals.values()), f"{label}: non-finite metrics {vals}")
+    return vals
+
+
+def surface_pretraining(dev, card):
+    """16.2: the pretraining CLI's models at its defaults plus
+    SURFACE_PRETRAIN_FLAGS, two counted steps (K1 5 / 5, K2 6 / 6, K3 0 / 0
+    a step), one step against an all-plain build; then one step with each
+    of SURFACE_GNN_TYPES and SDEModel2Dto3D_03 (no K1, K2 6 / 6).  Returns
+    {run: launch counts}."""
+    from moleculesde_tpu_torch.benchmarks.profile_pretrain import (
+        BATCH, COMMON_ARGS, parse_path, path_batches)
+    from moleculesde_tpu_torch.examples import pretrain as cli
+    from moleculesde_tpu_torch.pretrain.train_step import pretrain_step
+
+    args = parse_path(COMMON_ARGS + SURFACE_PRETRAIN_FLAGS, batches=3)
+    batches = path_batches(args, dev)
+    cfg, models, optimizer, gen = cli.setup(args, dev)
+    runs = {}
+    steps = 2
+    reset_counts()
+    t0 = time.perf_counter()
+    history = [pretrain_step(models, optimizer, cfg, b, gen) for b in batches[:steps]]
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / steps
+    runs["pretrain_v4_jk_sum_2_steps"] = launches = read_counts()
+    expected = expect(gin_messages=cfg.num_layer, gin_messages_bwd=cfg.num_layer,
+                      fused_cfconv=cfg.schnet_num_interactions,
+                      fused_cfconv_bwd=cfg.schnet_num_interactions)
+    per_step = {k: v / steps for k, v in launches.items()}
+    print(f"pretraining, SDEModel2Dto3D_04 + JK sum (compact ingest, B={BATCH}, n_max "
+          f"{args.n_max}, bf16): launches per step {per_step} (expected {expected}); "
+          f"step_ms={wall:.2f} incl. the first step ({card})", flush=True)
+    check(per_step == expected, f"v4 / JK sum launch counts {launches}")
+    for i, m in enumerate(history):
+        vals = _finite_metrics("v4 / JK sum", m)
+        print(f"v4 / JK sum step {i}: " + ", ".join(f"{k}={v:.5f}" for k, v in vals.items()),
+              flush=True)
+    step_against_plain(dev, cfg, models, batches[steps], args.seed + 1, "v4 / JK sum")
+    del models, optimizer
+
+    for gnn_type in SURFACE_GNN_TYPES:
+        flags = ["--gnn_type", gnn_type, "--SDE_2Dto3D_model", "SDEModel2Dto3D_03"]
+        args_t = parse_path(COMMON_ARGS + flags, batches=3)
+        cfg_t, models_t, opt_t, gen_t = cli.setup(args_t, dev)
+        check(isinstance(getattr(models_t["model_2D"], f"{gnn_type}Conv_0"), torch.nn.Module),
+              f"{gnn_type} encoder built")
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = pretrain_step(models_t, opt_t, cfg_t, batches[0], gen_t)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        runs[f"pretrain_{gnn_type.lower()}_v3_1_step"] = launches = read_counts()
+        expected = expect(fused_cfconv=cfg_t.schnet_num_interactions,
+                          fused_cfconv_bwd=cfg_t.schnet_num_interactions)
+        vals = _finite_metrics(gnn_type, metrics)
+        print(f"pretraining, --gnn_type {gnn_type} + SDEModel2Dto3D_03: launches {launches} "
+              f"(expected {expected}); first step_ms={wall:.2f} ({card}); "
+              + ", ".join(f"{k}={v:.5f}" for k, v in vals.items()), flush=True)
+        check(launches == expected, f"{gnn_type} / v3 launch counts {launches}")
+        del models_t, opt_t
+    return runs
+
+
+def surface_moleculenet(dev, card, out_dir):
+    """16.3: the MoleculeNet CLI's ``main`` with ``--JK concat`` (K1 5 / 5 a
+    step, 5 per evaluation batch, f32) and with ``--gnn_type GAT`` (no
+    kernel), 512 molecules, 1 epoch each, every AUC in [0, 1].  Returns
+    {run: launch counts}."""
+    from moleculesde_tpu_torch.examples import finetune_moleculenet as cli
+
+    runs = {}
+    base = ["--dataset", "synthetic", "--synthetic_molecules", "512", "--epochs", "1"]
+    for name, flags in (("jk_concat", ["--JK", "concat"]), ("gat", ["--gnn_type", "GAT"])):
+        args = cli.parse_args(base + flags)
+        k1 = args.num_layer if args.gnn_type == "GIN" else 0
+        (best_val, best_test), launches, rec, wall = _finetune_run(
+            cli, base + flags, "classification_step", "classification_eval",
+            f"{out_dir}/{name}")
+        _check_finetune_counts(f"MoleculeNet {name}", launches, rec,
+                               expect(gin_messages=k1, gin_messages_bwd=k1),
+                               expect(gin_messages=k1))
+        model = rec["steps"][0]["model"]
+        check(model.graph_pred_linear.kernel.shape[0] == model.gnn.out_dim,
+              f"MoleculeNet {name}: head width")
+        rows = _metrics_rows(f"{out_dir}/{name}")
+        aucs = [float(r[k]) for r in rows for k in ("train_auc", "val_auc", "test_auc")]
+        check(all(0.0 <= a <= 1.0 for a in aucs + [best_val, best_test]),
+              f"MoleculeNet {name}: AUCs {aucs}")
+        print(f"MoleculeNet CLI {' '.join(flags)} ({args.gnn_type} {args.num_layer} x "
+              f"{args.emb_dim}, head {model.gnn.out_dim} wide, B={args.batch_size}): "
+              f"{wall:.2f} s; best val AUC {best_val:.4f}, test {best_test:.4f} ({card})",
+              flush=True)
+        runs[f"finetune_moleculenet_{name}"] = launches
+    return runs
+
+
+def model_surface_path(dev, card):
+    """Phase 16: returns (K6 results of variants 3 and 4, {run: launch
+    counts})."""
+    import tempfile
+
+    results, runs = {}, {}
+    for variant in (3, 4):
+        res, r = surface_sampler(dev, card, variant)
+        results.update(res)
+        runs.update(r)
+    runs.update(surface_pretraining(dev, card))
+    with tempfile.TemporaryDirectory() as out_dir:
+        runs.update(surface_moleculenet(dev, card, out_dir))
+    return results, runs
+
+
 def _hmma_per_function(build, source: str) -> dict:
     """{kernel function: HMMA instructions} of a built library's SASS
     (``cuobjdump -sass``, split at its ``Function :`` headers)."""
@@ -2678,6 +2903,8 @@ def main() -> int:
     done("buckets, resume and native collation (phase 14)")
     finetune_results, finetune_launches, finetune_rates = finetune_path(dev, card)
     done("finetunes (phase 15)")
+    surface_results, surface_launches = model_surface_path(dev, card)
+    done("model surface (phase 16)")
     device_time_phase()
     done("device times")
 
@@ -2693,7 +2920,8 @@ def main() -> int:
             **{f"pretrain_microbatch_{scope}_2_steps": counts
                for scope, counts in microbatch_launches.items()},
             "pretrain_painn_2_steps": painn_launches,
-            **large_n_launches, "pretrain_buckets_cli": bucket_launches, **finetune_launches}
+            **large_n_launches, "pretrain_buckets_cli": bucket_launches, **finetune_launches,
+            **surface_launches}
     keys = ("max_abs_err", "ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms",
             "bound_by")
     k6_keys = keys + ("max_rel_err",)
@@ -2727,7 +2955,13 @@ def main() -> int:
                      "chain_n_max_128_f32_3_steps": {
                          "launches": fused_results["chain_n128_k6_launches"]},
                      "cluster_by_n_max": {n: score_plan(n, True)["cluster"]
-                                          for n in (32, 64, 128)}}
+                                          for n in (32, 64, 128)},
+                     # SDEModel2Dto3D_03 / _04's fused chains: kernel variant 1
+                     # on their own conditioning
+                     **{f"sde_v{v}": {mode: {k: surface_results[
+                         f"score_eval_fused[v{v}]" + sfx][k] for k in k6_keys}
+                         for mode, sfx in (("f32", ""), ("bf16", "[bf16]"))}
+                        for v in (3, 4)}}
         else:
             r, f32 = train_results[name], train_results[name + "[f32]"]
             # past n_max 32, bf16 and f32: K1, K2 / K5, K3 / K4 at n_max 64 and 128

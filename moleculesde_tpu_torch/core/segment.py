@@ -2,9 +2,10 @@
 
 Counterpart of ``moleculesde_tpu/core/segment.py``: the sums, means and
 gathers of the GIN plain message path and the samplers, and the max,
-degree and softmax that GCN / GAT layers read.  Where the JAX package
-writes these as one-hot matmuls (scatter-free on a TPU), the natural GPU
-form is a gather, an ``index_add_`` or a ``scatter_reduce_``.  Every op
+degree, mean and softmax that the GCN, GAT and GraphSAGE layers read.
+Where the JAX package writes these as one-hot matmuls (scatter-free on a
+TPU), the natural GPU form is a gather, an ``index_add_`` or a
+``scatter_reduce_``.  Every op
 takes a validity mask so padded rows contribute exactly zero.
 """
 
@@ -128,11 +129,29 @@ def edge_aggregate(
     edge_dst: torch.Tensor,
     num_nodes: int,
     edge_mask: Optional[torch.Tensor] = None,
+    reduce: str = "sum",
 ) -> torch.Tensor:
-    """Sum of edge rows at their destination node: [E, F] -> [num_nodes, F]."""
+    """Edge rows gathered at their destination node: [E, F] -> [num_nodes, F].
+
+    ``reduce`` "sum", or "mean": the sum over a node's valid edges divided
+    by their count, at least 1 (JAX's ``edge_aggregate``, torch_scatter's
+    ``scatter_mean``).  ``edge_dst`` holds flat node ids.  JAX groups the
+    edges of graph ``b`` in its ``e_max`` slots and reads the destination as
+    ``edge_dst % n_max`` in that graph; on every batch the collators build,
+    a valid edge in slot ``b`` has ``edge_dst // n_max == b``, so the two
+    forms agree (``tests/test_torch_port_gnn_types.py`` checks it)."""
+    if reduce not in ("sum", "mean"):
+        raise ValueError(f"unknown reduce {reduce}")
     idx = edge_dst.long()
     if edge_mask is not None:
         idx = torch.where(edge_mask, idx, torch.zeros_like(idx))
     out = torch.zeros((num_nodes,) + tuple(msg.shape[1:]), dtype=msg.dtype,
                       device=msg.device)
-    return out.index_add_(0, idx, _apply_mask(msg, edge_mask))
+    out.index_add_(0, idx, _apply_mask(msg, edge_mask))
+    if reduce == "mean":
+        ones = (torch.ones(idx.shape, dtype=msg.dtype, device=msg.device)
+                if edge_mask is None else edge_mask.to(msg.dtype))
+        count = torch.zeros(num_nodes, dtype=msg.dtype, device=msg.device)
+        count.index_add_(0, idx, ones)
+        out = out / _expand(count.clamp(min=1.0), out)
+    return out

@@ -1,7 +1,8 @@
 """MoleculeNet 2D classification finetuning CLI.
 
 Counterpart of ``examples/finetune_moleculenet.py`` of the JAX package
-(reference examples/finetune_MoleculeNet.py): GIN + pooling + a linear head
+(reference examples/finetune_MoleculeNet.py): a 2D encoder (``--gnn_type``
+GIN, GCN, GAT or GraphSAGE, ``--JK`` any mode) + pooling + a linear head
 per task, trained with the masked BCE over {-1, 0, +1} labels; the mean
 per-task ROC-AUC (tasks lacking a class skipped) on the validation set
 picks the best epoch.  ``--dataset synthetic`` trains on 3-task synthetic
@@ -9,7 +10,7 @@ molecules with a random 80 / 10 / 10 split; a MoleculeNet name reads
 ``<input_data_dir>/<dataset>/raw/<dataset>.csv[.gz]`` (RDKit needed),
 drops the SMILES RDKit cannot parse, caps the set at ``--max_molecules``
 and splits it by scaffold 80 / 10 / 10.  ``--input_model_file`` starts the
-GIN from a pretraining checkpoint's ``model_2D`` (the port's ``.pt`` or a
+encoder from a pretraining checkpoint's ``model_2D`` (the port's ``.pt`` or a
 JAX ``.msgpack``; parameters only, as JAX).  Like the JAX CLI it draws one
 training batch before the first epoch (JAX initializes its state from it),
 so epoch 1 sees the shuffle's second order, as in JAX.
@@ -19,7 +20,7 @@ train: .. val: .. test: .."), and with ``--output_model_dir`` writes
 ``metrics.csv``, ``model_complete.pt`` (the best epoch's model, component
 "model"), ``model_complete_final.pt`` and ``evaluation_best.npz`` (the best
 model's test labels and scores).  On the GPU (the default) GIN's message
-blocks run the K1 kernel; ``--device cpu`` runs the plain PyTorch path.
+blocks run the K1 kernel (the other encoders launch none); ``--device cpu`` runs the plain PyTorch path.
 
 Example:
   python -m moleculesde_tpu_torch.examples.finetune_moleculenet \\
@@ -44,7 +45,7 @@ from moleculesde_tpu_torch.examples.finetune_flags import (
 from moleculesde_tpu_torch.finetune.classification import (
     classification_eval, classification_step)
 from moleculesde_tpu_torch.finetune.common import BestTracker, make_optimizer, snapshot
-from moleculesde_tpu_torch.models.gnn2d import GNNGraphPred, check_gnn
+from moleculesde_tpu_torch.models.gnn2d import GNNGraphPred
 from moleculesde_tpu_torch.utils.device import resolve_device
 from moleculesde_tpu_torch.utils.metrics import MetricsLogger, roc_auc_mean
 from moleculesde_tpu_torch.utils.schedulers import make_lr_schedule
@@ -76,7 +77,7 @@ def load_data(args):
 
 def build_model(args, num_tasks: int, device, msg_impl: str = "auto") -> GNNGraphPred:
     """The finetune model, weights from ``--seed`` (then ``model_2D`` of
-    ``--input_model_file`` into its GIN)."""
+    ``--input_model_file`` into its encoder)."""
     model = GNNGraphPred(num_tasks, args.num_layer, args.emb_dim, args.JK, args.dropout_ratio,
                          args.gnn_type, args.graph_pooling, msg_impl=msg_impl, device=device,
                          generator=torch.Generator().manual_seed(args.seed))
@@ -117,7 +118,6 @@ def evaluate(model, loader, device, collect: bool = False):
 def main(argv=None):
     args = parse_args(argv)
     check_supported(args)
-    check_gnn(args.gnn_type, args.JK)
     device = resolve_device(args.device)
     graphs, num_tasks, (train_idx, valid_idx, test_idx) = load_data(args)
     n_max = args.n_max or suggest_buckets(graphs)

@@ -12,8 +12,11 @@ epochs}``).  As in JAX, ``--ingest compact`` (the default) collates compact
 batches and builds the extended graph on the device, ``--buckets`` trains
 on size buckets (padded batches, whatever ``--ingest`` says), ``--n_max 0``
 pads to :func:`suggest_buckets`, ``--microbatch`` / ``--microbatch_scope``
-chunk the step, ``--model_3d PaiNN`` swaps the 3D encoder and
-``--schnet_cfconv pallas_rbf`` runs K5.  ``--synthetic_molecules N > 0``
+chunk the step, ``--model_3d PaiNN`` swaps the 3D encoder,
+``--schnet_cfconv pallas_rbf`` runs K5, ``--gnn_type`` picks GIN, GCN, GAT
+or GraphSAGE, ``--JK`` last, max or sum (``concat`` raises a ``ValueError``
+before any step, where the JAX step fails) and ``--SDE_2Dto3D_model`` any of
+the four 2D->3D score models.  ``--synthetic_molecules N > 0``
 trains on synthetic molecules whatever ``--dataset`` says, as in JAX.
 
 ``--resume_from`` restores a full train state before the first epoch: the
@@ -63,7 +66,8 @@ from moleculesde_tpu_torch.utils.checkpoints import load_train_state, save_train
 from moleculesde_tpu_torch.utils.device import resolve_device
 from moleculesde_tpu_torch.utils.metrics import MetricsLogger
 
-MODEL_2DTO3D_VARIANTS = {"SDEModel2Dto3D_01": 1, "SDEModel2Dto3D_02": 2}
+MODEL_2DTO3D_VARIANTS = {"SDEModel2Dto3D_01": 1, "SDEModel2Dto3D_02": 2,
+                         "SDEModel2Dto3D_03": 3, "SDEModel2Dto3D_04": 4}
 MODEL_3DTO2D_VARIANTS = {"SDEModel3Dto2D_node_adj_dense": 1,
                          "SDEModel3Dto2D_node_adj_dense_02": 2,
                          "SDEModel3Dto2D_node_adj_dense_03": 3}

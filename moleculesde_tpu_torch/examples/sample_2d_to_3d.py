@@ -3,8 +3,10 @@
 Counterpart of ``examples/sample_2d_to_3d.py`` of the JAX package
 (reference examples/pretrain_MoleculeSDE_inference_2D_to_3D_VE_VP.py): each
 test molecule is cloned ``--num_repeat_SDE_inference`` times,
-``--sample_mols_per_batch`` molecules share one padded batch, the GIN
-encoder and the 2D conditioning run once per batch, then the whole PC chain.
+``--sample_mols_per_batch`` molecules share one padded batch, the 2D
+encoder (``--gnn_type`` GIN, GCN, GAT or GraphSAGE, ``--JK`` last, max or
+sum) and the 2D conditioning of ``--SDE_2Dto3D_model`` (any of the four)
+run once per batch, then the whole PC chain.
 Results are pickled as {atom_feats, positions_true, pos_gen [repeat, n, 3]}.
 
 Runs on the GPU (``--device cuda``, the default) and raises without one;
@@ -16,8 +18,9 @@ the port's pretraining CLI, or of the JAX package's
 ``--seed``.  Every flag the JAX CLI reads is parsed with its name and
 default.  Not ported yet, and refused with a ``NotImplementedError`` that
 names the flag: datasets other than ``synthetic`` (so ``--input_data_dir``,
-which only they read, changes nothing), ``--gnn_type`` other than GIN,
-``--JK`` other than ``last`` and ``--num_devices`` > 1.
+which only they read, changes nothing) and ``--num_devices`` > 1.  ``--JK
+concat`` raises a ``ValueError``: the JAX CLI builds the 2D->3D model at
+``--emb_dim`` and fails on the wider node representations.
 
 Example:
   python -m moleculesde_tpu_torch.examples.sample_2d_to_3d --dataset=synthetic \\
@@ -36,7 +39,7 @@ import torch
 
 from moleculesde_tpu_torch.core.batch import GraphBatch, pad_graphs
 from moleculesde_tpu_torch.data.synthetic import random_molecule
-from moleculesde_tpu_torch.examples.pretrain import refuse_unported
+from moleculesde_tpu_torch.examples.pretrain import MODEL_2DTO3D_VARIANTS, refuse_unported
 from moleculesde_tpu_torch.models.gnn2d import GNN2D
 from moleculesde_tpu_torch.models.score_2d3d import SDEModel2Dto3D
 from moleculesde_tpu_torch.sampling.pc import sample_positions_pc
@@ -45,7 +48,6 @@ from moleculesde_tpu_torch.utils.checkpoints import load_components
 from moleculesde_tpu_torch.utils.device import resolve_device
 from moleculesde_tpu_torch.utils.rmsd import coverage_matching
 
-MODEL_2DTO3D_VARIANTS = {"SDEModel2Dto3D_01": 1, "SDEModel2Dto3D_02": 2}
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -60,7 +62,7 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_layer", type=int, default=5)
     p.add_argument("--emb_dim", type=int, default=300)
     p.add_argument("--dropout_ratio", type=float, default=0.5,
-                   help="GIN's dropout (off while sampling)")
+                   help="the 2D encoder's dropout (off while sampling)")
     p.add_argument("--JK", type=str, default="last")
     p.add_argument("--SDE_type_2Dto3D", type=str, default="VE",
                    choices=sorted(SDE_PRESETS_2DTO3D))
@@ -102,8 +104,11 @@ def check_supported(args) -> None:
     if args.dataset != "synthetic":
         raise NotImplementedError(
             f"--dataset={args.dataset}: only 'synthetic' is ported so far")
-    refuse_unported({"--gnn_type": args.gnn_type != "GIN", "--JK": args.JK != "last",
-                     "--num_devices": args.num_devices > 1})
+    if args.JK == "concat":
+        raise ValueError(f"--JK concat gives {args.emb_dim * (args.num_layer + 1)}-wide node "
+                         f"representations; the 2D->3D model reads --emb_dim {args.emb_dim} "
+                         f"(the JAX CLI builds it at that width and fails on them too)")
+    refuse_unported({"--num_devices": args.num_devices > 1})
 
 
 def load_graphs(args) -> list:
@@ -129,9 +134,9 @@ def build_models(args, device, msg_impl: str = "auto", pair_impl: str = "auto",
     flag, as in the JAX CLI)."""
     t23, bmin, bmax, n_steps = SDE_PRESETS_2DTO3D[args.SDE_type_2Dto3D]
     gen = torch.Generator().manual_seed(args.seed)
-    model_2d = GNN2D(num_layers=args.num_layer, emb_dim=args.emb_dim,
-                     drop_ratio=args.dropout_ratio, msg_impl=msg_impl, device=device,
-                     generator=gen)
+    model_2d = GNN2D(num_layers=args.num_layer, emb_dim=args.emb_dim, jk=args.JK,
+                     drop_ratio=args.dropout_ratio, gnn_type=args.gnn_type,
+                     msg_impl=msg_impl, device=device, generator=gen)
     sde_model = SDEModel2Dto3D(
         emb_dim=args.emb_dim, hidden_dim=32,
         variant=MODEL_2DTO3D_VARIANTS[args.SDE_2Dto3D_model], sde_type=t23,
@@ -147,7 +152,7 @@ def build_models(args, device, msg_impl: str = "auto", pair_impl: str = "auto",
 
 def generate(model_2d, sde_model, batch, generator, args, fused: bool = False
              ) -> torch.Tensor:
-    """Conformers for one padded batch: GIN encoding then the PC chain;
+    """Conformers for one padded batch: the 2D encoding then the PC chain;
     returns positions [B * n_max, 3] on the batch's device.  ``fused`` runs
     the chain's score evaluations as the fused kernel (no CLI flag, as in
     the JAX CLI; the benchmarks and ``chip_smoke.py`` set it)."""

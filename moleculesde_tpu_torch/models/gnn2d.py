@@ -1,15 +1,25 @@
-"""2D molecular-graph encoder: GIN over padded batches.
+"""2D molecular-graph encoders: GIN, GCN, GAT and GraphSAGE over padded
+batches, with every jumping-knowledge mode.
 
-Counterpart of the GIN path of ``moleculesde_tpu/models/gnn2d.py``
-(reference Geom3D/models/molecule_gnn_model.py:13-32, 132-197):
-OGB atom / bond encoders as sums of per-feature embeddings; GINConv
-``mlp((1 + eps) * x + sum_j relu(x_j + bond_emb))`` whose message block is
-:func:`~moleculesde_tpu_torch.ops.gin_messages.gin_messages`; per layer conv
--> masked BatchNorm -> ReLU (not after the last) -> dropout; JK ``last``.
-Padded rows of the output are exactly zero.  ``compute_dtype="bfloat16"``
-rounds where the JAX package's ``GINConv(dtype=bfloat16)`` does: the
-message block in its bf16 mode and the two Dense layers in bf16, while the
-residual, the BatchNorm statistics and the parameters stay f32.
+Counterpart of ``moleculesde_tpu/models/gnn2d.py`` (reference
+Geom3D/models/molecule_gnn_model.py:13-197): OGB atom / bond encoders as
+sums of per-feature embeddings; per layer conv -> masked BatchNorm -> ReLU
+(not after the last) -> dropout; JK "last", "concat", "max" or "sum" over
+the atom embedding and the layers' outputs.  Padded rows of the output are
+exactly zero.
+
+- GINConv ``mlp((1 + eps) * x + sum_j relu(x_j + bond_emb))``, whose
+  message block is :func:`~moleculesde_tpu_torch.ops.gin_messages.gin_messages`
+  (K1).  ``compute_dtype="bfloat16"`` rounds where the JAX package's
+  ``GINConv(dtype=bfloat16)`` does: the message block in its bf16 mode and
+  the two Dense layers in bf16, while the residual, the BatchNorm
+  statistics and the parameters stay f32.
+- GCNConv, GATConv (2 heads, attention softmax grouped by the SOURCE node,
+  the reference's own choice) and GraphSAGEConv (mean aggregate, L2
+  normalized) are plain PyTorch on the segment helpers of
+  ``core/segment.py``, as the JAX package writes them on its one-hot
+  einsums.  Like JAX they take neither ``compute_dtype`` nor ``msg_impl``:
+  they run f32 and launch no kernel.
 
 :func:`graph_pool` and :class:`GNNGraphPred` (reference
 molecule_gnn_model.py:200-281) put the MoleculeNet finetune's head on it:
@@ -26,6 +36,8 @@ from torch import nn
 
 from moleculesde_tpu_torch.core.batch import (
     ATOM_FEATURE_DIMS, BOND_FEATURE_DIMS, GraphBatch)
+from moleculesde_tpu_torch.core.segment import (
+    edge_aggregate, edge_gather, node_degree, segment_softmax)
 from moleculesde_tpu_torch.models.layers import (
     Dense, Embed, MaskedBatchNorm, dropout, init_parameters)
 from moleculesde_tpu_torch.ops.gin_messages import gin_messages
@@ -72,6 +84,10 @@ class BondEncoder(nn.Module):
                            for i in range(len(BOND_FEATURE_DIMS))], dim=0)
         return torch.cat(onehots, dim=-1).to(table.dtype), table
 
+    def forward(self, edge_feats: torch.Tensor) -> torch.Tensor:
+        onehots, table = self.onehot_table(edge_feats)
+        return onehots @ table
+
 
 class GINConv(nn.Module):
     """GIN convolution with bond features; ``msg_impl`` selects the message
@@ -112,30 +128,142 @@ class GINConv(nn.Module):
         return self.Dense_1(h).float()
 
 
-class GNN2D(nn.Module):
-    """Stacked GIN with JK ``last`` (reference molecule_gnn_model.py:132-197).
+def _valid_ids(ids: torch.Tensor, edge_mask: torch.Tensor) -> torch.Tensor:
+    """Flat node ids [E] as int64 with masked edges at node 0 (their values
+    are read and then masked, as JAX reads its padded edges at node 0)."""
+    ids = ids.long()
+    return torch.where(edge_mask, ids, torch.zeros_like(ids))
 
-    ``drop_ratio`` is the dropout after each layer; ``compute_dtype``
-    "bfloat16" runs the convolutions in bf16 (module docstring).  Built on
-    the CPU, initialized from ``generator`` (default: seed 0), then moved to
+
+class GCNConv(nn.Module):
+    """GCN convolution (reference molecule_gnn_model.py:35-62; JAX
+    ``GCNConv``): ``x = Dense(x)``, messages ``norm_sd * relu(x_s + bond)``
+    with ``norm_sd = deg_s^-1/2 deg_d^-1/2`` summed at d, plus
+    ``relu(x + root_emb) / deg``; deg counts a node's valid edges as
+    source, plus one (the self loop)."""
+
+    def __init__(self, emb_dim: int):
+        super().__init__()
+        self.Dense_0 = Dense(emb_dim, emb_dim)
+        self.BondEncoder_0 = BondEncoder(emb_dim)
+        self.root_emb = nn.Parameter(torch.empty(1, emb_dim))
+
+    def forward(self, x, batch: GraphBatch, use_running_average: bool = False):
+        x = self.Dense_0(x)
+        em = batch.edge_mask
+        deg = node_degree(batch.edge_src, batch.num_graphs, batch.n_max, em) + 1.0
+        dinv = deg ** -0.5
+        norm = dinv[_valid_ids(batch.edge_src, em)] * dinv[_valid_ids(batch.edge_dst, em)]
+        msg = norm[:, None] * F.relu(edge_gather(x, batch.edge_src, em)
+                                     + self.BondEncoder_0(batch.edge_feats))
+        agg = edge_aggregate(msg, batch.edge_dst, x.shape[0], em)
+        return agg + F.relu(x + self.root_emb) / deg[:, None]
+
+
+class GATConv(nn.Module):
+    """GAT convolution (reference molecule_gnn_model.py:65-106; JAX
+    ``GATConv``): ``heads`` heads of width ``emb_dim``, logits
+    ``leaky_relu(att . [x_d, x_s + bond], 0.2)``, softmax over the edges
+    that share a SOURCE node (the reference groups by ``edge_index[0]``),
+    messages ``alpha * (x_s + bond)`` summed at d, the mean over heads plus
+    ``bias``."""
+
+    def __init__(self, emb_dim: int, heads: int = 2, negative_slope: float = 0.2):
+        super().__init__()
+        self.emb_dim = emb_dim
+        self.heads = heads
+        self.negative_slope = negative_slope
+        self.Dense_0 = Dense(emb_dim, heads * emb_dim)
+        self.BondEncoder_0 = BondEncoder(heads * emb_dim)
+        self.att = nn.Parameter(torch.empty(1, heads, 2 * emb_dim))
+        self.bias = nn.Parameter(torch.zeros(emb_dim))
+
+    def forward(self, x, batch: GraphBatch, use_running_average: bool = False):
+        hd, f = self.heads, self.emb_dim
+        em = batch.edge_mask
+        h = self.Dense_0(x)
+        x_i = edge_gather(h, batch.edge_dst, em).reshape(-1, hd, f)
+        x_j = (edge_gather(h, batch.edge_src, em)
+               + self.BondEncoder_0(batch.edge_feats)).reshape(-1, hd, f)
+        alpha = F.leaky_relu((torch.cat([x_i, x_j], dim=-1) * self.att).sum(dim=-1),
+                             self.negative_slope)
+        alpha = segment_softmax(alpha, _valid_ids(batch.edge_src, em), x.shape[0], em)
+        msg = (x_j * alpha[:, :, None]).reshape(-1, hd * f)
+        agg = edge_aggregate(msg, batch.edge_dst, x.shape[0], em)
+        return agg.reshape(-1, hd, f).mean(dim=1) + self.bias
+
+
+class GraphSAGEConv(nn.Module):
+    """GraphSAGE convolution (reference molecule_gnn_model.py:109-129; JAX
+    ``GraphSAGEConv``): Dense -> masked BatchNorm -> relu -> Dense, then the
+    mean over a node's valid in-edges of ``h_s + bond``, divided by
+    ``max(sqrt(|agg|^2 + 1e-24), 1e-12)``."""
+
+    def __init__(self, emb_dim: int):
+        super().__init__()
+        self.Dense_0 = Dense(emb_dim, emb_dim)
+        self.MaskedBatchNorm_0 = MaskedBatchNorm(emb_dim)
+        self.Dense_1 = Dense(emb_dim, emb_dim)
+        self.BondEncoder_0 = BondEncoder(emb_dim)
+
+    def forward(self, x, batch: GraphBatch, use_running_average: bool = False):
+        h = F.relu(self.MaskedBatchNorm_0(self.Dense_0(x), batch.node_mask,
+                                          use_running_average))
+        h = self.Dense_1(h)
+        msg = edge_gather(h, batch.edge_src, batch.edge_mask) \
+            + self.BondEncoder_0(batch.edge_feats)
+        agg = edge_aggregate(msg, batch.edge_dst, x.shape[0], batch.edge_mask,
+                             reduce="mean")
+        denom = torch.sqrt((agg ** 2).sum(dim=-1, keepdim=True) + 1e-24)
+        return agg / denom.clamp(min=1e-12)
+
+
+GNN_TYPES = ("GIN", "GCN", "GAT", "GraphSAGE")
+JK_MODES = ("last", "concat", "max", "sum")
+
+
+class GNN2D(nn.Module):
+    """Stacked 2D GNN with JK aggregation (reference
+    molecule_gnn_model.py:132-197; JAX ``GNN2D``).
+
+    ``gnn_type`` is "GIN", "GCN", "GAT" or "GraphSAGE"; ``jk`` "last",
+    "concat", "max" or "sum" over ``[x, h_1 .. h_L]`` (anything else raises
+    ``ValueError``).  :attr:`out_dim` is the output width: ``emb_dim *
+    (num_layers + 1)`` under "concat", else ``emb_dim``.  ``drop_ratio`` is
+    the dropout after each layer; ``compute_dtype`` "bfloat16" and
+    ``msg_impl`` reach GIN only (module docstring).  Built on the CPU,
+    initialized from ``generator`` (default: seed 0), then moved to
     ``device``, which defaults to "cuda" and raises without a GPU unless
     "cpu" is asked for."""
 
-    def __init__(self, num_layers: int = 5, emb_dim: int = 300,
-                 drop_ratio: float = 0.0, compute_dtype: str | None = None,
-                 msg_impl: str = "auto", device: str | torch.device = "cuda",
+    def __init__(self, num_layers: int = 5, emb_dim: int = 300, jk: str = "last",
+                 drop_ratio: float = 0.0, gnn_type: str = "GIN",
+                 compute_dtype: str | None = None, msg_impl: str = "auto",
+                 device: str | torch.device = "cuda",
                  generator: torch.Generator | None = None):
         super().__init__()
         if num_layers < 2:
             raise ValueError("Number of GNN layers must be greater than 1.")
+        if gnn_type not in GNN_TYPES:
+            raise ValueError(f"unknown gnn_type {gnn_type} (one of {', '.join(GNN_TYPES)})")
+        if jk not in JK_MODES:
+            raise ValueError(f"unknown JK mode {jk} (one of {', '.join(JK_MODES)})")
         dev = resolve_device(device)
         self.num_layers = num_layers
         self.emb_dim = emb_dim
+        self.jk = jk
+        self.gnn_type = gnn_type
         self.drop_ratio = drop_ratio
+        self.out_dim = emb_dim * (num_layers + 1) if jk == "concat" else emb_dim
         dt = torch.bfloat16 if compute_dtype == "bfloat16" else None
         self.AtomEncoder_0 = AtomEncoder(emb_dim)
         for layer in range(num_layers):
-            setattr(self, f"GINConv_{layer}", GINConv(emb_dim, msg_impl, dt))
+            if gnn_type == "GIN":
+                conv = GINConv(emb_dim, msg_impl, dt)
+            else:
+                conv = {"GCN": GCNConv, "GAT": GATConv, "GraphSAGE": GraphSAGEConv}[
+                    gnn_type](emb_dim)
+            setattr(self, f"{gnn_type}Conv_{layer}", conv)
             setattr(self, f"MaskedBatchNorm_{layer}", MaskedBatchNorm(emb_dim))
         init_parameters(self, generator or torch.Generator().manual_seed(0))
         self.to(dev)
@@ -143,19 +271,28 @@ class GNN2D(nn.Module):
     def forward(self, batch: GraphBatch, use_running_average: bool = False,
                 deterministic: bool = True,
                 generator: torch.Generator | None = None) -> torch.Tensor:
-        """Node representations [B * n_max, emb_dim] f32.  Training mode is
-        ``use_running_average=False`` (batch statistics, updated running
-        averages) with ``deterministic=False`` (dropout from
+        """Node representations [B * n_max, :attr:`out_dim`] f32.  Training
+        mode is ``use_running_average=False`` (batch statistics, updated
+        running averages) with ``deterministic=False`` (dropout from
         ``generator``)."""
-        h = self.AtomEncoder_0(batch.atom_feats)
+        h_list = [self.AtomEncoder_0(batch.atom_feats)]
         for layer in range(self.num_layers):
-            h = getattr(self, f"GINConv_{layer}")(h, batch, use_running_average)
+            h = getattr(self, f"{self.gnn_type}Conv_{layer}")(h_list[-1], batch,
+                                                              use_running_average)
             h = getattr(self, f"MaskedBatchNorm_{layer}")(
                 h, batch.node_mask, use_running_average)
             if layer < self.num_layers - 1:
                 h = F.relu(h)
-            h = dropout(h, self.drop_ratio, generator, deterministic)
-        return h * batch.node_mask[:, None]
+            h_list.append(dropout(h, self.drop_ratio, generator, deterministic))
+        if self.jk == "concat":
+            rep = torch.cat(h_list, dim=1)
+        elif self.jk == "last":
+            rep = h_list[-1]
+        elif self.jk == "max":
+            rep = torch.stack(h_list).amax(dim=0)
+        else:
+            rep = torch.stack(h_list).sum(dim=0)
+        return rep * batch.node_mask[:, None]
 
 
 def graph_pool(node_rep: torch.Tensor, batch: GraphBatch, pooling: str = "mean") -> torch.Tensor:
@@ -176,14 +313,6 @@ def graph_pool(node_rep: torch.Tensor, batch: GraphBatch, pooling: str = "mean")
     raise ValueError(f"Invalid graph pooling type {pooling}.")
 
 
-def check_gnn(gnn_type: str, jk: str) -> None:
-    """Raise on the 2D encoders the port does not run yet (it runs GIN
-    with JK 'last')."""
-    if gnn_type != "GIN" or jk != "last":
-        raise NotImplementedError(f"only GIN with JK 'last' is ported (got --gnn_type "
-                                  f"{gnn_type}, --JK {jk})")
-
-
 def lecun_normal_(kernel: torch.Tensor, generator: torch.Generator) -> None:
     """flax ``nn.Dense``'s default kernel init: a normal truncated at two
     standard deviations, scaled to variance 1 / fan_in."""
@@ -192,14 +321,15 @@ def lecun_normal_(kernel: torch.Tensor, generator: torch.Generator) -> None:
 
 
 class GNNGraphPred(nn.Module):
-    """GIN (JK "last") + :func:`graph_pool` + a linear head of
-    ``num_tasks`` logits (JAX ``GNNGraphPred``).  Submodules keep flax's
-    names, ``gnn`` and ``graph_pred_linear``, so a flax tree loads with
-    ``load_flax_variables``.  The head starts as flax's ``nn.Dense``
-    (lecun-normal kernel, zero bias); the GIN as :class:`GNN2D`, from
-    ``generator`` (default: seed 0).  ``msg_impl`` picks K1 as in
-    :class:`GINConv`; built on ``device`` ("cuda" by default; raises
-    without a GPU unless "cpu")."""
+    """:class:`GNN2D` (any ``gnn_type`` and ``jk``) + :func:`graph_pool` + a
+    linear head of ``num_tasks`` logits (JAX ``GNNGraphPred``), sized from
+    the encoder's :attr:`~GNN2D.out_dim` where flax infers it.  Submodules
+    keep flax's names, ``gnn`` and ``graph_pred_linear``, so a flax tree
+    loads with ``load_flax_variables``.  The head starts as flax's
+    ``nn.Dense`` (lecun-normal kernel, zero bias); the encoder as
+    :class:`GNN2D`, from ``generator`` (default: seed 0).  ``msg_impl``
+    picks K1 as in :class:`GINConv`; built on ``device`` ("cuda" by
+    default; raises without a GPU unless "cpu")."""
 
     def __init__(self, num_tasks: int, num_layers: int = 5, emb_dim: int = 300,
                  jk: str = "last", drop_ratio: float = 0.0, gnn_type: str = "GIN",
@@ -207,15 +337,14 @@ class GNNGraphPred(nn.Module):
                  device: str | torch.device = "cuda",
                  generator: torch.Generator | None = None):
         super().__init__()
-        check_gnn(gnn_type, jk)
         if graph_pooling not in ("sum", "mean", "max"):
             raise ValueError(f"Invalid graph pooling type {graph_pooling}.")
         dev = resolve_device(device)
         gen = generator or torch.Generator().manual_seed(0)
         self.graph_pooling = graph_pooling
-        self.gnn = GNN2D(num_layers, emb_dim, drop_ratio, msg_impl=msg_impl, device="cpu",
-                         generator=gen)
-        self.graph_pred_linear = Dense(emb_dim, num_tasks)
+        self.gnn = GNN2D(num_layers, emb_dim, jk=jk, drop_ratio=drop_ratio,
+                         gnn_type=gnn_type, msg_impl=msg_impl, device="cpu", generator=gen)
+        self.graph_pred_linear = Dense(self.gnn.out_dim, num_tasks)
         with torch.no_grad():
             lecun_normal_(self.graph_pred_linear.kernel, gen)
         self.to(dev)

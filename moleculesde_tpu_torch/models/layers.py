@@ -47,15 +47,17 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     """Initialize every parameter and statistic of ``module`` the way the
     JAX package initializes it: kernels and embeddings xavier-uniform (a
-    channel-stacked ``[C, in, out]`` kernel per channel slice), biases and
+    channel-stacked ``[C, in, out]`` kernel and GAT's ``att`` [1, heads,
+    2F] with flax's fans, the last two axes), biases and
     ``eps`` zero, norm scales one, frozen Fourier weights N(0, 1), running
     means zero and running variances one."""
     with torch.no_grad():
         for name, p in module.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
-            if leaf in ("kernel", "embedding"):
+            if leaf in ("kernel", "embedding", "root_emb") or (
+                    leaf.endswith("_kernel") and p.ndim == 2):
                 nn.init.xavier_uniform_(p, generator=generator)
-            elif "kernel" in leaf and p.ndim == 3:
+            elif ("kernel" in leaf or leaf == "att") and p.ndim == 3:
                 bound = math.sqrt(6.0 / (p.shape[1] + p.shape[2]))
                 nn.init.uniform_(p, -bound, bound, generator=generator)
             elif leaf in ("eps",) or "bias" in leaf:

@@ -1,7 +1,7 @@
-"""2D->3D frame-based SE(3)-equivariant score model (variants 1 and 2).
+"""2D->3D frame-based SE(3)-equivariant score models (variants 1 to 4).
 
 Counterpart of ``moleculesde_tpu/models/score_2d3d.py`` (reference
-Geom3D/models/MoleculeSDE/SDE_model_2D_to_3D.py, SDEModel2Dto3D_01/02, and
+Geom3D/models/MoleculeSDE/SDE_model_2D_to_3D.py, SDEModel2Dto3D_01..04, and
 equivariant_scorenetwork.py).  Per-pair quantities live on dense tensors
 indexed ``[batch, source, dest]`` and masked by the extended adjacency.
 The conditioning (2D edge embedding, node embedding, pair mask) depends on
@@ -34,7 +34,7 @@ from torch import nn
 from moleculesde_tpu_torch.core.batch import GraphBatch, dense_scatter
 from moleculesde_tpu_torch.core.segment import masked_segment_mean
 from moleculesde_tpu_torch.models.layers import (
-    MLP, Dense, LayerNorm, PairMaskedBatchNorm, dropout, init_parameters)
+    MLP, Dense, Embed, LayerNorm, PairMaskedBatchNorm, dropout, init_parameters)
 from moleculesde_tpu_torch.ops.common import EPSILON, SQRT_GUARD
 from moleculesde_tpu_torch.ops.fourier import (
     gaussian_fourier_projection, gaussian_fourier_projection_cm)
@@ -214,22 +214,28 @@ class EquivariantScoreNetwork(nn.Module):
     After each module of ``num_convs`` GAT layers, a basis MLP on
     ``[h_s + h_d, e_sd]`` emits 3 coefficients per pair that mix the frame
     basis; their mean over valid sources at each destination accumulates
-    into the score.  ``short_cut`` and ``concat_hidden`` (off in every
-    configuration the samplers run) are not ported."""
+    into the score.  ``short_cut`` adds each GAT layer's input to its output
+    (after the silu); ``concat_hidden`` feeds the basis MLP of module m the
+    concatenation of every GAT output so far, so ``basis_node_m`` takes
+    ``hidden_dim * num_convs * (m + 1)`` features (JAX l.397-414)."""
 
     def __init__(self, hidden_dim: int, hidden_coff_dim: int = 128,
                  num_layers: int = 2, num_convs: int = 2, n_head: int = 8,
-                 dtype: Optional[torch.dtype] = None, dropout: float = 0.1):
+                 dtype: Optional[torch.dtype] = None, dropout: float = 0.1,
+                 short_cut: bool = False, concat_hidden: bool = False):
         super().__init__()
         self.num_layers = num_layers
         self.num_convs = num_convs
         self.dtype = dtype
+        self.short_cut = short_cut
+        self.concat_hidden = concat_hidden
         for i in range(num_layers * num_convs):
             setattr(self, f"DenseGATLayer_{i}",
                     DenseGATLayer(hidden_dim, n_head, hidden_dim, dtype, dropout))
         for m in range(num_layers):
+            node_width = hidden_dim * num_convs * (m + 1) if concat_hidden else hidden_dim
             setattr(self, f"basis_node_{m}",
-                    Dense(hidden_dim, hidden_coff_dim, use_bias=False))
+                    Dense(node_width, hidden_coff_dim, use_bias=False))
             setattr(self, f"basis_edge_{m}", Dense(hidden_dim, hidden_coff_dim))
             setattr(self, f"basis_out_{m}", Dense(hidden_coff_dim, 3))
 
@@ -286,6 +292,7 @@ class EquivariantScoreNetwork(nn.Module):
         grad = [torch.zeros((b, n), dtype=node_attr.dtype, device=node_attr.device)
                 for _ in range(3)]
         conv_input = node_attr
+        hiddens = []
         for m in range(self.num_layers):
             for conv in range(self.num_convs):
                 layer = getattr(self, f"DenseGATLayer_{m * self.num_convs + conv}")
@@ -293,27 +300,41 @@ class EquivariantScoreNetwork(nn.Module):
                                channel_major)
                 if conv < self.num_convs - 1:
                     hidden = F.silu(hidden)
+                if self.short_cut and hidden.shape == conv_input.shape:
+                    hidden = hidden + conv_input
+                hiddens.append(hidden)
                 conv_input = hidden
-            mixed = mix(m, conv_input, edge_attr, basis, maskf)
+            node_feature = torch.cat(hiddens, dim=-1) if self.concat_hidden else conv_input
+            mixed = mix(m, node_feature, edge_attr, basis, maskf)
             grad = [g + mx / count for g, mx in zip(grad, mixed)]
         return torch.stack(grad, dim=-1)
 
 
 class SDEModel2Dto3D(nn.Module):
-    """SDEModel2Dto3D variants 1 and 2 (reference SDE_model_2D_to_3D.py):
-      1: edge_attr = edge_2D_emb + frame_invariant                  (l.69-249)
-      2: edge_attr = dist_inv * edge_2D_emb + frame_invariant       (l.252-445)
+    """SDEModel2Dto3D, the reference's four variants (SDE_model_2D_to_3D.py),
+    which differ in the 2D edge features ``edge_attr_2d``:
+      1: relu(BN(Linear[h_s, h_d])) -> Linear; + frame_invariant  (l.69-249)
+      2: as 1, gated by the perturbed-distance Fourier features:
+         dist_inv * edge_2D_emb + frame_invariant                   (l.252-445)
+      3: Linear[h_s, h_d] + a bond-type embedding                   (l.448-632)
+      4: [h_s * h_d, h_s + h_d] @ W + b + the bond-type embedding   (l.635-819)
+    Any other value runs as variant 4 (JAX builds variant 4's parameters
+    for it but no bond-type embedding, and fails in its conditioning).
 
-    Parameter names and shapes are the JAX module's.  Built on the CPU,
+    Parameter names and shapes are the JAX module's, for node
+    representations ``emb_dim`` wide.  ``short_cut`` and ``concat_hidden``
+    go to the score network.  Built on the CPU,
     initialized from ``generator`` (default: seed 0), then moved to
     ``device`` ("cuda" by default; raises without a GPU unless "cpu").
-    ``pair_impl`` selects the pair block: "auto" (kernel on a CUDA tensor,
-    plain on a CPU tensor), "kernel" or "plain"; ``bf16_pairs`` runs it in
-    its bf16 mode (pretraining's choice; the samplers keep f32).
+    ``pair_impl`` selects the pair block of variants 1 and 2: "auto"
+    (kernel on a CUDA tensor, plain on a CPU tensor), "kernel" or "plain";
+    ``bf16_pairs`` runs it in its bf16 mode (pretraining's choice; the
+    samplers keep f32).  Variants 3 and 4 run no pair block.
     ``loss_layout`` is the pair layout of :meth:`loss` and :meth:`get_score`
     ("channel" ``[B, C, N*N]`` or "feature" ``[B, N, N, C]``, same math);
-    ``pair_cm_direct`` makes the channel-layout conditioning take the
-    channel-major pair kernel (K4) instead of K3 and a transpose."""
+    ``pair_cm_direct`` makes the channel-layout conditioning of variants 1
+    and 2 take the channel-major pair kernel (K4) instead of K3 and a
+    transpose."""
 
     def __init__(self, emb_dim: int, hidden_dim: int = 32, variant: int = 2,
                  beta_min: float = 0.2, beta_max: float = 1.0,
@@ -321,12 +342,10 @@ class SDEModel2Dto3D(nn.Module):
                  use_extend_graph: bool = True, score_dtype: str = "float32",
                  bf16_pairs: bool = False, pair_impl: str = "auto",
                  loss_layout: str = "channel", pair_cm_direct: bool = False,
+                 short_cut: bool = False, concat_hidden: bool = False,
                  device: str | torch.device = "cuda",
                  generator: torch.Generator | None = None):
         super().__init__()
-        if variant not in (1, 2):
-            raise NotImplementedError(
-                f"SDEModel2Dto3D variant {variant} is not ported yet (1, 2 are)")
         if loss_layout not in ("channel", "feature"):
             raise ValueError(f"unknown loss_layout {loss_layout}")
         dev = resolve_device(device)
@@ -344,9 +363,17 @@ class SDEModel2Dto3D(nn.Module):
         self.pair_cm_direct = pair_cm_direct
         dt = torch.bfloat16 if score_dtype == "bfloat16" else None
         self.cdt = dt or torch.float32
-        self.edge_2D_emb_0 = PairDense(emb_dim, emb_dim)
-        self.edge_2D_emb_bn = PairMaskedBatchNorm(emb_dim)
-        self.edge_2D_emb_1 = Dense(emb_dim, h)
+        if variant in (1, 2):
+            self.edge_2D_emb_0 = PairDense(emb_dim, emb_dim)
+            self.edge_2D_emb_bn = PairMaskedBatchNorm(emb_dim)
+            self.edge_2D_emb_1 = Dense(emb_dim, h)
+        elif variant == 3:
+            self.edge_2D_emb = PairDense(emb_dim, h)
+        else:
+            self.edge_2D_emb_kernel = nn.Parameter(torch.empty(2 * emb_dim, h))
+            self.edge_2D_emb_bias = nn.Parameter(torch.zeros(h))
+        if variant not in (1, 2):
+            self.edge_emb = Embed(100, h)
         self.coff_fourier_W = nn.Parameter(torch.empty(h), requires_grad=False)
         self.coff_mlp = Dense(4 * h, h)
         self.project = MLP(2 + 2 * h, [h, h], activation="silu", dtype=dt)
@@ -354,9 +381,17 @@ class SDEModel2Dto3D(nn.Module):
             self.dist_fourier_W = nn.Parameter(torch.empty(h), requires_grad=False)
             self.input_mlp = MLP(2 * h, [h], activation="silu", dtype=dt)
         self.node_emb = MLP(emb_dim, [h], activation="silu", dtype=dt)
-        self.score_network = EquivariantScoreNetwork(hidden_dim=h, dtype=dt)
+        self.score_network = EquivariantScoreNetwork(
+            hidden_dim=h, dtype=dt, short_cut=short_cut, concat_hidden=concat_hidden)
         init_parameters(self, generator or torch.Generator().manual_seed(0))
         self.to(dev)
+
+    @property
+    def kernel_variant(self) -> int:
+        """The fused score kernel's variant: 2 for variant 2, else 1 (the
+        2D edge features of variants 3 and 4 enter as variant 1's do; JAX
+        l.826)."""
+        return 2 if self.variant == 2 else 1
 
     def _pair_mask_attr(self, batch: GraphBatch):
         """Dense [B, N, N] extended-adjacency mask and edge labels, indexed
@@ -389,6 +424,22 @@ class SDEModel2Dto3D(nn.Module):
                 self.edge_2D_emb_1.kernel.float().contiguous(),
                 self.edge_2D_emb_1.bias.float().contiguous())
 
+    def edge_features_2d(self, node_2d_repr: torch.Tensor, batch: GraphBatch,
+                         pair_attr: torch.Tensor) -> torch.Tensor:
+        """Variants 3 and 4: the 2D edge features [B, N, N, H] f32 for every
+        pair (JAX l.638-653), plus the embedding of the pair's edge label
+        clipped to 0..99 (label 0 where there is no edge)."""
+        h2d = node_2d_repr.reshape(batch.num_graphs, batch.n_max, -1)
+        if self.variant == 3:
+            src_p, dst_p = self.edge_2D_emb(h2d)
+            edge = src_p[:, :, None, :] + dst_p[:, None, :, :]
+        else:
+            w_mul = self.edge_2D_emb_kernel[:self.emb_dim]
+            add = h2d @ self.edge_2D_emb_kernel[self.emb_dim:]
+            edge = (torch.einsum("bsf,bdf,fo->bsdo", h2d, h2d, w_mul)
+                    + add[:, :, None, :] + add[:, None, :, :] + self.edge_2D_emb_bias)
+        return edge + self.edge_emb.embedding[pair_attr.long().clamp(0, 99)]
+
     def precompute_conditioning(self, node_2d_repr: torch.Tensor,
                                 batch: GraphBatch,
                                 use_running_average: bool = True,
@@ -396,26 +447,33 @@ class SDEModel2Dto3D(nn.Module):
         """Position-independent conditioning: ``edge_attr_2d``, ``node_attr``
         [B, N, H] and ``pair_mask`` [B, N, N], as JAX's method gives them.
 
-        ``layout="feature"``: ``edge_attr_2d`` [B, N, N, H] f32 from the pair
-        block (K3).  ``layout="channel"``: [B, H, N*N]; from K3 cast to the
-        score dtype and transposed, or with ``pair_cm_direct`` straight from
-        the channel-major pair block (K4), f32 with its bias.  One
-        pair-block launch either way."""
+        ``layout="feature"``: ``edge_attr_2d`` [B, N, N, H] f32, from the
+        pair block (K3) in variants 1 and 2, from :meth:`edge_features_2d`
+        in 3 and 4.  ``layout="channel"``: [B, H, N*N], the same cast to
+        the score dtype and transposed, or in variants 1 and 2 with
+        ``pair_cm_direct`` straight from the channel-major pair block (K4),
+        f32 with its bias.  Variants 1 and 2 launch the pair block once
+        either way; 3 and 4 launch nothing."""
         if layout not in ("feature", "channel"):
             raise ValueError(f"unknown layout {layout}")
         b, n = batch.num_graphs, batch.n_max
-        pair_mask, _ = self._pair_mask_attr(batch)
-        inputs = self.pair_block_inputs(node_2d_repr, batch, pair_mask, use_running_average)
+        pair_mask, pair_attr = self._pair_mask_attr(batch)
         node_attr = self.node_emb(node_2d_repr.reshape(b, n, -1))
-        if layout == "channel" and self.pair_cm_direct:
-            edge_attr_2d = pair_relu_project_cm(*inputs, bf16=self.bf16_pairs,
-                                                impl=self.pair_impl)
+        if self.variant not in (1, 2):
+            edge_attr_2d = self.edge_features_2d(node_2d_repr, batch, pair_attr)
         else:
+            inputs = self.pair_block_inputs(node_2d_repr, batch, pair_mask,
+                                            use_running_average)
+            if layout == "channel" and self.pair_cm_direct:
+                edge_attr_2d = pair_relu_project_cm(*inputs, bf16=self.bf16_pairs,
+                                                    impl=self.pair_impl)
+                return {"edge_attr_2d": edge_attr_2d, "node_attr": node_attr,
+                        "pair_mask": pair_mask}
             edge_attr_2d = pair_relu_project(*inputs, bf16=self.bf16_pairs,
                                              impl=self.pair_impl)
-            if layout == "channel":
-                edge_attr_2d = edge_attr_2d.to(self.cdt).reshape(
-                    b, n * n, -1).transpose(1, 2).contiguous()
+        if layout == "channel":
+            edge_attr_2d = edge_attr_2d.to(self.cdt).reshape(
+                b, n * n, -1).transpose(1, 2).contiguous()
         return {"edge_attr_2d": edge_attr_2d, "node_attr": node_attr,
                 "pair_mask": pair_mask}
 
@@ -472,7 +530,7 @@ class SDEModel2Dto3D(nn.Module):
         (``ops/score_kernel.py::pack_score_params``)."""
         from moleculesde_tpu_torch.ops.score_kernel import pack_score_params
 
-        return pack_score_params(self, self.variant)
+        return pack_score_params(self, self.kernel_variant)
 
     def score_from_cond_fused(self, cond: Dict[str, torch.Tensor], pos: torch.Tensor,
                               packed: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -480,20 +538,22 @@ class SDEModel2Dto3D(nn.Module):
         ``ops/score_kernel.py``; JAX ``score_from_cond_fused``, l.809-834):
         forward only, for samplers.  ``cond`` from
         ``precompute_conditioning(layout="feature")``; ``packed`` from
-        :meth:`packed_score_params` (packed here when None)."""
+        :meth:`packed_score_params` (packed here when None).  Variants 3
+        and 4 run the kernel as variant 1 (:attr:`kernel_variant`).  A
+        network with ``short_cut`` or ``concat_hidden`` has layers the
+        kernel lacks: it goes through :meth:`score_from_cond`, as JAX's
+        does (l.823-824)."""
         from moleculesde_tpu_torch.ops.score_kernel import score_eval_fused
 
         net = self.score_network
-        if getattr(net, "short_cut", False) or getattr(net, "concat_hidden", False):
-            # JAX routes these to score_from_cond; the port's network has neither
-            raise NotImplementedError("the fused score kernel takes neither short_cut "
-                                      "nor concat_hidden")
+        if net.short_cut or net.concat_hidden:
+            return self.score_from_cond(cond, pos, True)
         pair_mask = cond["pair_mask"]
         b, n = pair_mask.shape[0], pair_mask.shape[1]
         out = score_eval_fused(
             pos.reshape(b, n, 3), cond["node_attr"], cond["edge_attr_2d"], pair_mask,
             self.packed_score_params() if packed is None else packed,
-            variant=self.variant, bf16=self.score_dtype == "bfloat16")
+            variant=self.kernel_variant, bf16=self.score_dtype == "bfloat16")
         return out.reshape(b * n, 3)
 
     def score_from_cond_cm(self, cond: Dict[str, torch.Tensor], pos: torch.Tensor,

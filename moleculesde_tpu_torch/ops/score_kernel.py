@@ -6,13 +6,17 @@ operators each evaluation is ~550 launches on the card (the chain is
 bound by launches, not by the device).  :func:`score_eval_fused` runs frame
 construction, the Gaussian-Fourier coefficient embeddings, the projection
 MLP, the four DenseGAT layers (LayerNorm, FFN) and both basis-mixing
-modules of ``SDEModel2Dto3D`` variants 1 and 2 in one launch of
+modules of ``SDEModel2Dto3D`` in one launch of
 ``csrc/score_eval.cu``, which replaces the TPU kernel ``_kernel``
 (``pallas_call`` at ``ops/score_kernel.py:388``): a thread-block cluster per
 molecule, its blocks splitting the destinations, at any n_max up to 128
 (:func:`score_plan`; past 64 the masked edge features live in a scratch
-buffer in device memory, :func:`score_slab_bytes`).  On a CPU tensor it takes
-:func:`score_eval_fused_plain`, the same function in PyTorch.
+buffer in device memory, :func:`score_slab_bytes`).  The kernel has two
+variants: 2 gates the 2D edge features by the distance Fourier features, 1
+adds them as they are, which is also how model variants 3 and 4 use theirs
+(``SDEModel2Dto3D.kernel_variant``, as the JAX package passes them).  On a
+CPU tensor it takes :func:`score_eval_fused_plain`, the same function in
+PyTorch.
 
 The weights the kernel reads are packed once into one contiguous f32
 buffer (:func:`pack_score_params`) in the JAX package's order

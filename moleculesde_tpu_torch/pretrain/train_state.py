@@ -117,15 +117,22 @@ def build_models(cfg: PretrainConfig, device: str | torch.device = "cuda",
     the plain versions on the CPU; "plain" or "kernel" forces one).
     ``pair_cm_direct`` gives the 2D->3D model the channel-major pair kernel
     (``SDEModel2Dto3D(pair_cm_direct=True)``; not a config field, as in
-    JAX)."""
-    if cfg.gnn_type != "GIN" or cfg.jk != "last":
-        raise NotImplementedError("only GIN with JK 'last' is ported so far")
+    JAX).  JK "concat" raises a ``ValueError``: its
+    ``emb_dim * (num_layer + 1)``-wide 2D node representations meet the
+    ``emb_dim``-wide 3D ones in the contrastive loss, where the JAX
+    package's step fails on the shapes."""
+    if cfg.jk == "concat":
+        raise ValueError(
+            f"JK 'concat' gives {cfg.emb_dim * (cfg.num_layer + 1)}-wide 2D node "
+            f"representations, which the contrastive loss pairs with {cfg.emb_dim}-wide 3D "
+            f"ones: pretraining takes JK last, max or sum (the JAX package's step fails on "
+            f"these shapes)")
     if cfg.schnet_cfconv not in ("auto", "xla", "pallas", "pallas_rbf"):
         raise ValueError(f"unknown schnet_cfconv {cfg.schnet_cfconv}")
     gen = generator or torch.Generator().manual_seed(0)
     compute_dtype = "bfloat16" if cfg.bf16 else None
-    model_2d = GNN2D(num_layers=cfg.num_layer, emb_dim=cfg.emb_dim,
-                     drop_ratio=cfg.dropout_ratio,
+    model_2d = GNN2D(num_layers=cfg.num_layer, emb_dim=cfg.emb_dim, jk=cfg.jk,
+                     drop_ratio=cfg.dropout_ratio, gnn_type=cfg.gnn_type,
                      compute_dtype=compute_dtype,
                      msg_impl=impl, device=device, generator=gen)
     if cfg.model_3d == "SchNet":

@@ -16,6 +16,8 @@
   weights (lr 1e-3: 0.1% of one step).
 - The port's own ``train_state.pt``: a resumed step is bit-identical to the
   uninterrupted run's on the CPU, and the CLI resumes from either file.
+- GAT with SDEModel2Dto3D_03: a JAX ``model_complete.msgpack`` into the
+  port's sampler CLI, the port's ``.pt`` into the MoleculeNet CLI.
 """
 
 import jax
@@ -311,3 +313,48 @@ def test_cli_resumes_from_port_and_jax_train_states(jax_checkpoint, tmp_path, ca
     history = cli.main(TINY + ["--resume_from", jax_path])
     assert f"resumed from {jax_path} at step 1 (extra: {{'epoch': " in capsys.readouterr().out
     assert np.isfinite(list(history[0].values())).all()
+
+
+def test_gat_v3_checkpoints_reach_the_sampler_and_moleculenet(tmp_path, capsys):
+    """``--gnn_type GAT --SDE_2Dto3D_model SDEModel2Dto3D_03``: a JAX
+    ``model_complete.msgpack`` (``save_pretrain_checkpoint`` on the state
+    ``create_pretrain_state`` builds for those flags, the JAX pretraining
+    CLI's two calls) loads into the port's sampler CLI with every parameter
+    and statistic equal, and a chain runs on it; the port's pretraining
+    ``.pt`` of the same flags loads into the MoleculeNet CLI, its
+    ``model_2D`` parameters equal the checkpoint's."""
+    flags = ["--gnn_type", "GAT", "--SDE_2Dto3D_model", "SDEModel2Dto3D_03"]
+    jb = jax_pad_graphs(graphs(seed=6, count=4, n_max=8), n_max=8, e_max=32, ext_e_max=64)
+    jcfg = JaxPretrainConfig(**WIDTHS, gnn_type="GAT", sde_2dto3d_variant=3)
+    s = jax.device_get(jax.jit(lambda k: jax_create_state(jcfg, jb, k)[1])(
+        jax.random.PRNGKey(2)))
+    path = save_pretrain_checkpoint(str(tmp_path / "jax"), s.params, s.batch_stats)
+    params, stats = jax_load_pretrain(path)
+    ref = {**flat_tree(params), **flat_tree(stats)}
+    argv = ["--device", "cpu", "--end", "1", "--num_repeat_SDE_inference", "2",
+            "--n_max", "8", "--num_diffusion_timesteps_2Dto3D_inference", "2",
+            "--steps_pos", "1", "--input_model_file", path] + WIDTHS_2D + flags
+    models = sample_cli.build_models(sample_cli.get_parser().parse_args(argv), CPU)
+    checked = 0
+    for comp, module in zip(("model_2D", "SDE_2Dto3D_model"), models):
+        for key, value in module.state_dict().items():
+            np.testing.assert_array_equal(value.numpy(), ref[f"{comp}.{key}"], err_msg=key)
+            checked += 1
+    assert checked == sum(k.startswith(("model_2D.", "SDE_2Dto3D_model.")) for k in ref)
+    assert np.isfinite(sample_cli.main(argv)[0]["pos_gen"]).all()
+
+    from moleculesde_tpu_torch.convert import load_checkpoint
+    from moleculesde_tpu_torch.examples import finetune_moleculenet as mnet_cli
+
+    out = tmp_path / "port"
+    cli.main(TINY + flags + ["--output_model_dir", str(out)])
+    pt = str(out / "model_complete_final.pt")
+    mnet = ["--device", "cpu", "--n_max", "8", "--batch_size", "8", "--epochs", "1",
+            "--dataset", "synthetic", "--synthetic_molecules", "40", "--input_model_file",
+            pt] + WIDTHS_2D + flags[:2]
+    gnn = mnet_cli.build_model(mnet_cli.parse_args(mnet), 3, CPU).gnn
+    saved = load_checkpoint(pt)["model_2D"]
+    for name, p in gnn.named_parameters():
+        assert torch.equal(p.detach(), saved[name]), name
+    mnet_cli.main(mnet)
+    assert f"loaded pretrained model_2D from {pt}" in capsys.readouterr().out

@@ -208,14 +208,12 @@ def test_cli_loads_pretraining_checkpoint(pretrain_checkpoints, kind, cli, capsy
 
 @pytest.mark.parametrize("flags,match", [
     (["--num_devices", "2"], "--num_devices"), (["--distributed"], "--distributed"),
-    (["--profile_dir", "p"], "--profile_dir"), (["--gnn_type", "GCN"], "--gnn_type"),
-    (["--JK", "concat"], "JK")])
+    (["--profile_dir", "p"], "--profile_dir")])
 def test_unported_flags_are_refused(flags, match):
     with pytest.raises(NotImplementedError, match=match):
         mnet_cli.main(TINY + SYNTHETIC + flags)
-    if match not in ("--gnn_type", "JK"):
-        with pytest.raises(NotImplementedError, match=match):
-            qm9_cli.main(TINY + SYNTHETIC + flags)
+    with pytest.raises(NotImplementedError, match=match):
+        qm9_cli.main(TINY + SYNTHETIC + flags)
 
 
 def test_moleculenet_cli_refuses_unknown_dataset():

@@ -101,13 +101,18 @@ def test_dual_cl_matches_jax(metric):
 
 @pytest.fixture(scope="module")
 def step_pair():
+    return make_step_pair()
+
+
+def make_step_pair(**over):
     """JAX models, state, one step's loss terms, gradients and updated
-    statistics; the port's models carrying the same variables; the draws."""
+    statistics; the port's models carrying the same variables; the draws.
+    ``over``: config fields other than the tiny defaults."""
     gs = graphs(seed=41, count=4, n_max=8)
     jb = jax_pad_graphs(gs, n_max=8, e_max=32, ext_e_max=64)
     tb = GraphLoader(gs, batch_size=4, n_max=8, e_max=32, ext_e_max=64, shuffle=False
                      ).collate_indices(np.arange(4))[0]
-    jcfg, tcfg = _configs()
+    jcfg, tcfg = _configs(**over)
     models = jax_build_models(jcfg)
     state = jax.jit(lambda k: create_pretrain_state(jcfg, jb, k)[1])(jax.random.PRNGKey(0))
     key = jax.random.PRNGKey(77)
@@ -159,7 +164,15 @@ def step_pair():
 
 
 def test_whole_step_matches_jax(step_pair):
-    p = step_pair
+    check_whole_step(step_pair)
+
+
+def check_whole_step(p, zero_grad=None):
+    """The port's loss terms, every gradient leaf and the updated BatchNorm
+    statistics against the JAX step of :func:`make_step_pair` (the bars of
+    the module docstring).  Leaves matching ``zero_grad`` (a regex on
+    "component.name") have a zero gradient in exact arithmetic and are held
+    to 1e-6 of the step's largest gradient instead."""
     models = p["tmodels"]
     total, metrics = pretrain_loss(models, p["tcfg"], p["tb"], deterministic=True,
                                    draws=p["draws"])
@@ -168,13 +181,17 @@ def test_whole_step_matches_jax(step_pair):
         ref = float(p["metrics"][k])
         assert abs(metrics[k].item() - ref) <= 1e-5 * max(abs(ref), 1.0), k
     grads_j = _flat(jax.device_get(p["grads"]))
+    scale = max(float(np.abs(g).max()) for g in grads_j.values())
     checked = 0
     for comp, module in models.items():
         for name, param in module.named_parameters():
             ref = grads_j[f"{comp}.{name}"]
             mine = (param.grad.numpy() if param.grad is not None
                     else np.zeros(tuple(param.shape), np.float32))
-            assert _leaf_err(mine, ref) < 1e-4, (comp, name, _leaf_err(mine, ref))
+            if zero_grad is not None and re.search(zero_grad, f"{comp}.{name}"):
+                assert float(np.abs(mine - ref).max()) <= 1e-6 * scale, (comp, name)
+            else:
+                assert _leaf_err(mine, ref) < 1e-4, (comp, name, _leaf_err(mine, ref))
             checked += 1
     assert checked == len(grads_j)
     stats_j = _flat(jax.device_get(p["stats"]))
@@ -390,8 +407,6 @@ def test_cli_parses_the_jax_flags_with_jax_defaults(name):
     ("pretrain", ["--dist_process_id", "0"]),
     ("pretrain", ["--profile_dir", "prof"]),
     ("pretrain", ["--debug_nans"]),
-    ("sample_2d_to_3d", ["--gnn_type", "GCN"]),
-    ("sample_2d_to_3d", ["--JK", "concat"]),
     ("sample_2d_to_3d", ["--num_devices", "2"]),
     ("sample_3d_to_2d", ["--num_devices", "2"])],
     ids=lambda v: v if isinstance(v, str) else v[0].lstrip("-"))

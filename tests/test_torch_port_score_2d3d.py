@@ -85,5 +85,14 @@ def test_score_from_cond_cm_matches_jax(pair):
 
 
 def test_unported_variant_raises():
-    with pytest.raises(NotImplementedError):
-        SDEModel2Dto3D(emb_dim=8, hidden_dim=8, variant=3, device=CPU)
+    """Named for the refusal it once checked: variants 3 and 4 now build,
+    with their own 2D edge parameters, no pair block and no batch
+    statistics, and run the fused kernel as its variant 1 (their parity
+    with JAX: tests/test_torch_port_score_variants.py)."""
+    for variant, edge in ((3, ("edge_2D_emb.kernel", "edge_2D_emb.bias")),
+                          (4, ("edge_2D_emb_kernel", "edge_2D_emb_bias"))):
+        m = SDEModel2Dto3D(emb_dim=8, hidden_dim=8, variant=variant, device=CPU)
+        names = dict(m.named_parameters())
+        assert set(edge) | {"edge_emb.embedding"} <= set(names)
+        assert not any(k.startswith("edge_2D_emb_0") for k in names)
+        assert not list(m.buffers()) and m.kernel_variant == 1

@@ -22,6 +22,13 @@ from moleculesde_tpu_torch.data.synthetic import random_molecule
 
 CPU = "cpu"
 
+# One intra-op thread for torch in every process that runs the port's
+# tests: their tensors are tiny, and under pytest-xdist each worker's
+# OpenMP team would otherwise spin on the cores that the other workers use
+# (six concurrent runs of test_torch_port_model_surface.py's CLI drives on
+# an 8-core host: 174 s each with the default threads, 12 s with one)
+torch.set_num_threads(1)
+
 
 def numeric_state() -> str:
     """The process-wide settings that the two frameworks' f32 products
