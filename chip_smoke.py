@@ -11,7 +11,8 @@ native collation and a resume from its train state), and the three
 finetune CLIs (MoleculeNet with K1, QM9 with K2, MD17 with none), then the
 rest of the model surface (SDEModel2Dto3D variants 3 and 4 in the sampler
 and pretraining, GCN / GAT / GraphSAGE and the JK modes in pretraining and
-MoleculeNet) -- and checks what comes out.
+MoleculeNet), then the pretraining and both sampler CLIs on a PCQM4Mv2
+packed cache the script writes -- and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -170,9 +171,31 @@ Phases (any failure exits non-zero):
      MoleculeNet CLI's ``main`` with ``--JK concat`` (K1 5 / 5 a step, 5
      per evaluation batch, f32) and with ``--gnn_type GAT`` (no kernel),
      512 molecules and 1 epoch each, every AUC in [0, 1].
+ 17. packed data: 4096 synthetic molecules of 4-48 atoms from seed 42
+     (1448 past 32) with a ``y``, written as ``load_pcqm4mv2`` caches them
+     (``<tmp>/PCQM4Mv2/packed_ext1_n4096``, and the first 4 / 128 for the
+     samplers' ``--end``), so no RDKit is needed; ``PackedGraphs.load``
+     seconds.  The pretraining CLI's ``main`` with ``--dataset PCQM4Mv2
+     --input_data_dir <tmp> --max_molecules 4096 --epochs 1``, otherwise at
+     its defaults (compact ingest, full width, B=128, n_max 32; 32 steps),
+     then with ``--buckets 16 32 64`` (padded) and with ``--n_max 0`` (the
+     suggested 64): the loader holds the memory-mapped ``PackedGraphs`` (a
+     ``PackedSubset`` per bucket), every step K1 5 / 5, K2 6 / 6, K3 1 / 1,
+     every metric finite, ``model_complete_final.pt`` written.  One B=128
+     batch of molecules of 32 atoms or fewer by ``collate_compact_packed``
+     and by ``collate_compact`` of the same molecules as dicts: every
+     tensor equal, one step's loss terms and gradient norms on each bit for
+     bit, host ms per batch of each; one epoch of the cache with and
+     without buckets in turns, molecules/s.  The 2D->3D sampler CLI on the
+     cache (``--end 4 --num_repeat_SDE_inference 2``, 20 PC x 1 corrector
+     step: the CLI's 100 corrector steps cut; ``--n_max 64`` where a
+     molecule has more than 32 atoms, after the default has refused it by
+     name), K1 5 and K3 1 a chain, finite COV / MAT for every molecule; the
+     3D->2D sampler CLI on it (``--end 128``, 20 PC x 2 corrector steps), no
+     kernel, finite graphs.
 The line before the last lists every kernel as JSON (the ones before it
-phase 15's and phase 14's figures); the last line is {"ok": true, "device":
-{...}}.
+phase 17's, phase 15's and phase 14's figures); the last line is {"ok":
+true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1189,37 +1212,43 @@ def _kernel_leaf_grads(models):
     return out
 
 
-def step_pair(dev, cfg, models, batch, seed: int):
+def one_step(dev, cfg, models, batch, seed: int):
     """One step's (loss terms, component gradient norms, KERNEL_LEAVES
-    gradients) on ``models`` and on an all-plain build of the same weights,
-    batch statistics and draws (dropout masks from the same seed); the
-    models' state and the launch counts are left as they were."""
+    gradients) on ``models``, dropout masks and loss draws from ``seed``;
+    the models' state is left as it was."""
     from moleculesde_tpu_torch.data.compact import CompactBatch, expand_on_device
-    from moleculesde_tpu_torch.pretrain.train_state import build_models
     from moleculesde_tpu_torch.pretrain.train_step import draw_losses, pretrain_loss
 
     if isinstance(batch, CompactBatch):
         batch = expand_on_device(batch)
+    saved = {n: {k: v.clone() for k, v in m.state_dict().items()} for n, m in models.items()}
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for m in models.values():
+        m.zero_grad(set_to_none=True)
+    total, mets = pretrain_loss(models, cfg, batch, g, draws=draw_losses(models, cfg, batch, g))
+    total.backward()
+    out = ({k: v.item() for k, v in mets.items()}, _grad_norms(models),
+           _kernel_leaf_grads(models))
+    for n, m in models.items():
+        m.load_state_dict(saved[n])
+        m.zero_grad(set_to_none=True)
+    return out
+
+
+def step_pair(dev, cfg, models, batch, seed: int):
+    """:func:`one_step` on ``models`` and on an all-plain build of the same
+    weights, batch statistics and draws; the launch counts are left as
+    they were."""
+    from moleculesde_tpu_torch.pretrain.train_state import build_models
+
     plain = build_models(cfg, dev, impl="plain")
     for name in models:
         plain[name].load_state_dict(models[name].state_dict())
-    out = {}
     saved_counts = [c.launches for c in _counters()]
-    for kind, ms in (("kernel", models), ("plain", plain)):
-        saved = {n: {k: v.clone() for k, v in m.state_dict().items()} for n, m in ms.items()}
-        g = torch.Generator(device=dev).manual_seed(seed)
-        for m in ms.values():
-            m.zero_grad(set_to_none=True)
-        total, mets = pretrain_loss(ms, cfg, batch, g, draws=draw_losses(ms, cfg, batch, g))
-        total.backward()
-        out[kind] = ({k: v.item() for k, v in mets.items()}, _grad_norms(ms),
-                     _kernel_leaf_grads(ms))
-        for n, m in ms.items():
-            m.load_state_dict(saved[n])
-            m.zero_grad(set_to_none=True)
+    out = [one_step(dev, cfg, ms, batch, seed) for ms in (models, plain)]
     for c, n in zip(_counters(), saved_counts):
         c.launches = n
-    return out["kernel"], out["plain"]
+    return out[0], out[1]
 
 
 def step_against_plain(dev, cfg, models, batch, seed: int, label: str) -> float:
@@ -1985,7 +2014,7 @@ def _states_equal(a, b, what: str) -> None:
 
 # phase 14's run: the JAX CLI's defaults plus these
 BUCKET_FLAGS = ["--n_max", "128", "--buckets", "16", "32", "64", "128", "--batch_size", "32",
-                "--synthetic_molecules", "512", "--epochs", "1"]
+                "--dataset", "synthetic", "--synthetic_molecules", "512", "--epochs", "1"]
 
 
 def _without(flags, name: str) -> list:
@@ -2505,7 +2534,8 @@ def pretrain_handoff(dev, out_dir):
     from moleculesde_tpu_torch.examples import pretrain
 
     pre_dir = os.path.join(out_dir, "pretrain")
-    pretrain.main(["--synthetic_molecules", "128", "--batch_size", "64", "--epochs", "1",
+    pretrain.main(["--dataset", "synthetic", "--synthetic_molecules", "128", "--batch_size", "64",
+                   "--epochs", "1",
                    "--output_model_dir", pre_dir])
     path = os.path.join(pre_dir, "model_complete.pt")
     ckpt = load_checkpoint(path)
@@ -2735,6 +2765,289 @@ def model_surface_path(dev, card):
     return results, runs
 
 
+# phase 17: the CLIs on a PCQM4Mv2-layout packed cache the script writes
+PACKED_MOLECULES = 4096
+PACKED_ATOMS = (4, 48)   # some past --n_max 32, so the packed collation clips
+PACKED_SAMPLER_END = {"2d_to_3d": 4, "3d_to_2d": 128}
+
+
+def write_packed_cache(root: str, seed: int):
+    """17.1: PACKED_MOLECULES synthetic molecules of 4-48 atoms drawn from
+    ``seed`` (the extended graph built on the host, as ``load_pcqm4mv2``
+    stores it at the default ``--use_extend_graph``), each with a gap as
+    ``y`` [1], packed as ``load_pcqm4mv2`` would cache them under ``root``:
+    all of them as ``packed_ext1_n4096`` and, for the samplers' ``--end``,
+    the first 4 and 128 as ``packed_ext1_n4`` / ``_n128``.  Returns the
+    molecules as dicts and the seconds the write took."""
+    import os
+
+    import numpy as np
+
+    from moleculesde_tpu_torch.data.packed import PackedGraphs
+    from moleculesde_tpu_torch.data.synthetic import random_molecule
+
+    rng = np.random.default_rng(seed)
+    graphs = []
+    for _ in range(PACKED_MOLECULES):
+        g = random_molecule(rng, int(rng.integers(PACKED_ATOMS[0], PACKED_ATOMS[1] + 1)))
+        g["y"] = np.array([rng.uniform(1.0, 10.0)], dtype=np.float32)
+        graphs.append(g)
+    t0 = time.perf_counter()
+    for n in (PACKED_MOLECULES, *PACKED_SAMPLER_END.values()):
+        PackedGraphs.from_graphs(graphs[:n]).save(os.path.join(root, f"packed_ext1_n{n}"))
+    return graphs, time.perf_counter() - t0
+
+
+def packed_cli_run(label: str, flags, out_dir: str):
+    """17.2: the pretraining CLI's ``main`` on ``flags``, the counts set to
+    0 just before and read just after: the dataset it loads is the
+    memory-mapped ``PackedGraphs`` and every loader holds it or a
+    ``PackedSubset`` of it, every step launches K1 5 / 5, K2 6 / 6, K3 1 /
+    1, every metric finite, ``model_complete_final.pt`` written.  Returns
+    (launch counts, {steps, batches per n_max, wall s})."""
+    import collections
+    import os
+
+    import numpy as np
+
+    from moleculesde_tpu_torch.data.packed import PackedGraphs, PackedSubset
+    from moleculesde_tpu_torch.examples import pretrain as cli
+
+    steps, made = [], []
+    real_step, real_make = cli.pretrain_step, cli.make_loader
+
+    def recorded_step(models, optimizer, cfg, batch, generator, *rest):
+        before = read_counts()
+        out = real_step(models, optimizer, cfg, batch, generator, *rest)
+        after = read_counts()
+        steps.append({"n_max": batch.n_max, "metrics": out, "cfg": cfg,
+                      "counts": {k: after[k] - before[k] for k in after}})
+        return out
+
+    def recorded_loader(graphs, args):
+        loader = real_make(graphs, args)
+        made.append((graphs, loader))
+        return loader
+
+    cli.pretrain_step, cli.make_loader = recorded_step, recorded_loader
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        history = cli.main(flags + ["--output_model_dir", out_dir])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+    finally:
+        cli.pretrain_step, cli.make_loader = real_step, real_make
+    (graphs, loader), = made
+    check(isinstance(graphs, PackedGraphs) and isinstance(graphs.arrays["atom_feats"], np.memmap),
+          f"{label}: the CLI loaded {type(graphs).__name__}, not the memory-mapped cache")
+    held = [ld.graphs for ld in getattr(loader, "loaders", [loader]) if ld is not None]
+    check(all(isinstance(h, (PackedGraphs, PackedSubset)) for h in held),
+          f"{label}: a loader holds {[type(h).__name__ for h in held]}")
+    cfg = steps[-1]["cfg"]
+    per_step = expect(gin_messages=cfg.num_layer, gin_messages_bwd=cfg.num_layer,
+                      fused_cfconv=cfg.schnet_num_interactions,
+                      fused_cfconv_bwd=cfg.schnet_num_interactions,
+                      pair_relu_project=1, pair_relu_project_bwd=1)
+    per_n_max = dict(sorted(collections.Counter(st["n_max"] for st in steps).items()))
+    print(f"{label}: {len(steps)} steps, batches per n_max {per_n_max}, {wall:.2f} s (first "
+          f"steps of each shape included); launches {launches}", flush=True)
+    check(all(st["counts"] == per_step for st in steps),
+          f"{label}: a step's launch counts differ from {per_step}")
+    check(launches == {k: v * len(steps) for k, v in per_step.items()},
+          f"{label}: launch counts {launches}")
+    for st in steps:
+        _finite_metrics(f"{label}, n_max {st['n_max']}", st["metrics"])
+    check(all(math.isfinite(v) for h in history for v in h.values()), f"{label}: epoch")
+    check(os.path.exists(os.path.join(out_dir, "model_complete_final.pt")),
+          f"{label}: no model_complete_final.pt")
+    return launches, {"steps": len(steps), "batches_per_n_max": per_n_max, "wall_s": wall}
+
+
+def packed_collation_phase(dev, card, cache, graphs, cfg, models, seed: int):
+    """17.3: one B=128 batch of the cache's molecules of 32 atoms or fewer,
+    gathered by ``collate_compact_packed`` off the cache and collated by
+    ``collate_compact`` from the same molecules as dicts: every tensor
+    equal, and one step's loss terms and gradient norms on each equal bit
+    for bit; host ms per batch of each (median of 20 after 3)."""
+    import statistics
+
+    import numpy as np
+
+    from moleculesde_tpu_torch.data.compact import collate_compact, collate_compact_packed
+
+    idx = np.flatnonzero(cache.num_atoms <= 32)[:128]
+    kw = dict(n_max=32, e_max=128, num_graphs=128)
+    dicts = [graphs[i] for i in idx]
+    pb, lb = collate_compact_packed(cache, idx, **kw), collate_compact(dicts, **kw)
+    for f in dataclasses.fields(lb):
+        a, b = getattr(pb, f.name), getattr(lb, f.name)
+        check(torch.equal(a, b) if torch.is_tensor(b) else a == b,
+              f"packed collation: {f.name} differs from the dicts' collation")
+    terms = [one_step(dev, cfg, models, b.to(dev), seed)[:2] for b in (pb, lb)]
+    check(terms[0] == terms[1], f"a step on the packed batch {terms[0]} and on the dicts' "
+                                f"batch {terms[1]} differ")
+    times = {}
+    for name, run in (("packed", lambda: collate_compact_packed(cache, idx, **kw)),
+                      ("dicts", lambda: collate_compact(dicts, **kw))):
+        for _ in range(3):
+            run()
+        ms = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            run()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        times[name] = statistics.median(ms)
+    print(f"packed collation: B=128, n_max 32, equal to the dicts' collation in every "
+          f"tensor; one step on each, loss terms and gradient norms bit for bit "
+          f"({', '.join(f'{k}={v:.6f}' for k, v in terms[0][0].items())}); host ms per "
+          f"batch collate_compact_packed {times['packed']:.4f}, collate_compact of dicts "
+          f"{times['dicts']:.4f} (median of 20; {card})", flush=True)
+    return times
+
+
+def packed_samplers(dev, data: str, cache):
+    """17.5: the 2D->3D sampler CLI's ``main`` on the cache (``--end 4
+    --num_repeat_SDE_inference 2``; 20 PC steps, the CLI's, x 1 corrector
+    step, its default 100 cut), one chain a molecule, K1 5 and K3 1 a
+    chain, finite COV / MAT for each molecule (at the cache's 48 atoms past
+    ``--n_max 32``, the default first raises naming ``--n_max`` and the run
+    takes ``--n_max 64``); the 3D->2D sampler CLI's ``main`` (``--end
+    128``, one B=128 batch, n_max 32, 20 PC x 2 corrector steps, its
+    default 100 cut), no kernel, finite graphs.  Returns {run: launch
+    counts}."""
+    import numpy as np
+
+    from moleculesde_tpu_torch.examples import sample_2d_to_3d as s2d
+    from moleculesde_tpu_torch.examples import sample_3d_to_2d as s3d
+
+    end = PACKED_SAMPLER_END["2d_to_3d"]
+    flags = ["--dataset", "PCQM4Mv2", "--input_data_dir", data, "--end", str(end),
+             "--num_repeat_SDE_inference", "2", "--steps_pos", "1"]
+    largest = int(cache.num_atoms[:end].max())
+    if largest > 32:
+        try:
+            s2d.main(flags)
+            raised = ""
+        except ValueError as e:
+            raised = str(e)
+        check("--n_max 32" in raised, f"2D->3D sampler at --n_max 32 on a {largest}-atom "
+                                      f"molecule: {raised or 'no error'}")
+        flags += ["--n_max", "64"]
+    args = s2d.get_parser().parse_args(flags)
+    runs = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    res = s2d.main(flags)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    runs["sample_2d_to_3d_packed"] = launches = read_counts()
+    check(launches == expect(gin_messages=args.num_layer * end, pair_relu_project=end),
+          f"2D->3D sampler on the cache: launch counts {launches}")
+    check(len(res) == end, f"2D->3D sampler on the cache: {len(res)} molecules")
+    for i, r in enumerate(res):
+        n = int(cache.num_atoms[i])
+        check(r["pos_gen"].shape == (2, n, 3) and bool(np.isfinite(r["pos_gen"]).all()),
+              f"2D->3D sampler on the cache, molecule {i}: conformers")
+        check(0.0 <= r["cov"] <= 1.0 and math.isfinite(r["mat"]),
+              f"2D->3D sampler on the cache, molecule {i}: COV {r['cov']} MAT {r['mat']}")
+    print(f"2D->3D sampler CLI on the cache (--n_max {args.n_max}, {end} chains of 2 "
+          f"conformers, 20 PC x 1 corrector step): {wall:.2f} s, launches {launches}; atoms "
+          + ", ".join(f"{len(r['atom_feats'])} COV={r['cov']:.3f} MAT={r['mat']:.3f}"
+                      for r in res), flush=True)
+
+    end = PACKED_SAMPLER_END["3d_to_2d"]
+    flags = ["--dataset", "PCQM4Mv2", "--input_data_dir", data, "--end", str(end),
+             "--steps_pos", "2"]
+    reset_counts()
+    t0 = time.perf_counter()
+    res = s3d.main(flags)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    runs["sample_3d_to_2d_packed"] = launches = read_counts()
+    check(launches == expect(), f"3D->2D sampler on the cache: launch counts {launches}")
+    check(len(res) == 1 and res[0]["x_gen"].shape == (end, 32, 119)
+          and bool(np.isfinite(res[0]["x_gen"]).all() and np.isfinite(res[0]["adj_gen"]).all()),
+          "3D->2D sampler on the cache: graphs")
+    print(f"3D->2D sampler CLI on the cache (B={end}, n_max 32, 20 PC x 2 corrector steps, "
+          f"{int((cache.num_atoms[:end] > 32).sum())} molecules cut to 32 atoms): {wall:.2f} "
+          f"s, no kernel", flush=True)
+    return runs
+
+
+def packed_path(dev, card):
+    """Phase 17: the cache (17.1), the pretraining CLI's ``main`` on it at
+    its defaults (``--dataset PCQM4Mv2 --max_molecules 4096 --epochs 1``:
+    compact ingest, B=128, n_max 32), with ``--buckets 16 32 64`` and with
+    ``--n_max 0`` (17.2), packed against dicts' collation (17.3), the
+    cache's load seconds and one epoch of it with and without buckets, in
+    turns, molecules/s (17.4), both samplers (17.5).  Returns ({run: launch
+    counts}, figures)."""
+    import os
+    import statistics
+    import tempfile
+
+    from moleculesde_tpu_torch.data.loader import device_prefetch
+    from moleculesde_tpu_torch.data.packed import PackedGraphs
+    from moleculesde_tpu_torch.examples import pretrain as cli
+    from moleculesde_tpu_torch.pretrain.train_state import create_pretrain_state
+
+    runs, figures = {}, {}
+    with tempfile.TemporaryDirectory() as data:
+        root = os.path.join(data, "PCQM4Mv2")
+        graphs, write_s = write_packed_cache(root, seed=42)
+        cache_dir = os.path.join(root, f"packed_ext1_n{PACKED_MOLECULES}")
+        loads = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            cache = PackedGraphs.load(cache_dir)
+            loads.append(time.perf_counter() - t0)
+        figures["load_s"] = statistics.median(loads)
+        print(f"packed cache: {PACKED_MOLECULES} molecules of {PACKED_ATOMS[0]}-"
+              f"{PACKED_ATOMS[1]} atoms ({int((cache.num_atoms > 32).sum())} past 32), "
+              f"{cache.nbytes() / 1e6:.2f} MB of flat arrays written in {write_s:.3f} s; "
+              f"PackedGraphs.load {figures['load_s']:.6f} s (median of 5, memory-mapped, "
+              f"warm; {card})", flush=True)
+
+        base = ["--dataset", "PCQM4Mv2", "--input_data_dir", data, "--max_molecules",
+                str(PACKED_MOLECULES), "--epochs", "1"]
+        variants = {"pretrain_packed_cli": [], "pretrain_packed_buckets_cli":
+                    ["--buckets", "16", "32", "64"], "pretrain_packed_n_max_0_cli":
+                    ["--n_max", "0"]}
+        figures["cli"] = {}
+        for name, extra in variants.items():
+            runs[name], figures["cli"][name] = packed_cli_run(
+                name, base + extra, os.path.join(data, "out", name))
+
+        args = cli.get_parser().parse_args(base)
+        cfg = cli.config_from_args(args)
+        state = create_pretrain_state(cfg, dev, args.seed)
+        figures["collate_ms_per_batch"] = packed_collation_phase(
+            dev, card, cache, graphs, cfg, state.models, args.seed + 17)
+
+        loaders = {"packed": cli.make_loader(cache, args), "buckets": cli.make_loader(
+            cache, cli.get_parser().parse_args(base + variants["pretrain_packed_buckets_cli"]))}
+        rates = {name: [] for name in loaders}
+        for name in ("packed", "buckets", "buckets", "packed"):
+            torch.cuda.synchronize()
+            t0, molecules = time.perf_counter(), 0
+            for batch, n_real in device_prefetch(loaders[name], dev):
+                cli.pretrain_step(state.models, state.optimizer, cfg, batch, state.generator)
+                molecules += n_real
+            torch.cuda.synchronize()
+            rates[name].append(molecules / (time.perf_counter() - t0))
+            print(f"epoch of the cache, {name}: {molecules} trained, molecules_per_s="
+                  f"{rates[name][-1]:.2f}", flush=True)
+        figures["molecules_per_s"] = rates
+        print(f"packed epochs in turns ({card}): " + ", ".join(
+            f"{k} molecules_per_s {v[0]:.2f} / {v[1]:.2f}" for k, v in rates.items()), flush=True)
+        del state
+        runs.update(packed_samplers(dev, data, cache))
+    return runs, figures
+
+
 def _hmma_per_function(build, source: str) -> dict:
     """{kernel function: HMMA instructions} of a built library's SASS
     (``cuobjdump -sass``, split at its ``Function :`` headers)."""
@@ -2905,6 +3218,8 @@ def main() -> int:
     done("finetunes (phase 15)")
     surface_results, surface_launches = model_surface_path(dev, card)
     done("model surface (phase 16)")
+    packed_launches, packed_figures = packed_path(dev, card)
+    done("the CLIs on a packed cache (phase 17)")
     device_time_phase()
     done("device times")
 
@@ -2921,7 +3236,7 @@ def main() -> int:
                for scope, counts in microbatch_launches.items()},
             "pretrain_painn_2_steps": painn_launches,
             **large_n_launches, "pretrain_buckets_cli": bucket_launches, **finetune_launches,
-            **surface_launches}
+            **surface_launches, **packed_launches}
     keys = ("max_abs_err", "ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms",
             "bound_by")
     k6_keys = keys + ("max_rel_err",)
@@ -3019,6 +3334,7 @@ def main() -> int:
             "f32": res("[L1][f32]"), "layer_0": {"bf16": res("[L0]"), "f32": res("[L0][f32]")},
             **extra})
     print(json.dumps({"pretrain_buckets_cli": bucket_figures}))
+    print(json.dumps({"pretrain_packed": packed_figures, "card": card}))
     print(json.dumps({"finetune_molecules_per_s": finetune_rates, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -79,8 +79,7 @@ class GraphBatch:
 
     def node2graph(self) -> torch.Tensor:
         """Graph id of every flat node slot, ``[N]`` int64."""
-        return torch.arange(self.num_graphs, device=self.device
-                            ).repeat_interleave(self.n_max)
+        return node2graph_ids(self.num_graphs, self.n_max, self.device, torch.long)
 
     @property
     def atomic_numbers(self) -> torch.Tensor:
@@ -101,6 +100,14 @@ class GraphBatch:
         edges are dropped."""
         return dense_scatter(self.edge_src, self.edge_dst, self.edge_mask, edge_values,
                              self.num_graphs, self.n_max)
+
+
+def node2graph_ids(num_graphs: int, n_max: int, device: str | torch.device | None = None,
+                   dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """Graph id of every flat node slot of a batch of ``num_graphs``
+    molecules padded to ``n_max``, ``[num_graphs * n_max]`` (int32, as
+    JAX's)."""
+    return torch.arange(num_graphs, dtype=dtype, device=device).repeat_interleave(n_max)
 
 
 def dense_scatter(src: torch.Tensor, dst: torch.Tensor, mask: torch.Tensor,

@@ -10,10 +10,10 @@ extended graph as dense ``[B, N, N]`` boolean matrix powers
 (:func:`dense_extend`; reference Geom3D/datasets/dataset_3D.py:11-34, the
 host form in ``data/extend.py``).  The host never builds the extended
 graph, and the batch it copies to the device is about a tenth of the
-padded one.
-
-The vectorized collation off packed arrays (``collate_compact_packed``)
-waits for ``data/packed.py``.
+padded one.  :func:`collate_compact` collates graph dicts;
+:func:`collate_compact_packed` gathers the same batch straight off the flat
+arrays of :class:`~moleculesde_tpu_torch.data.packed.PackedGraphs`, a few
+vectorized numpy gathers per batch and no per-molecule Python object.
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ class CompactBatch:
     - ``edge_index`` [B, e_max, 2] int16 graph-local bond endpoints;
     - ``edge_feats`` [B, e_max, 3] int16 OGB bond features;
     - ``edge_valid`` [B, e_max] bool; valid bonds need not be contiguous
-      (the JAX package's packed collation drops bonds in place), and
+      (:func:`collate_compact_packed` drops bonds in place), and
       :func:`expand_on_device` takes the mask per bond;
     - ``y`` [B, T] float32 graph labels and ``forces`` [B, n_max, 3]
       float32, or None.
@@ -198,6 +198,82 @@ def collate_compact(graphs: Sequence[Mapping[str, Any]], n_max: int, e_max: int,
             ev[gi, :k] = True
     tt = torch.from_numpy
     return CompactBatch(atom_feats=tt(atom), positions=tt(pos), n_atoms=tt(cnt),
+                        edge_index=tt(ei), edge_feats=tt(ef), edge_valid=tt(ev),
+                        y=None if y is None else tt(y),
+                        forces=None if forces is None else tt(forces), num_graphs=b,
+                        n_max=n_max, e_max=e_max, use_extend=use_extend)
+
+
+def collate_compact_packed(dataset, idx: np.ndarray, n_max: int, e_max: int,
+                           num_graphs: Optional[int] = None, use_extend: bool = True,
+                           num_tasks: Optional[int] = None, with_forces: bool = False
+                           ) -> CompactBatch:
+    """The compact batch of molecules ``idx`` of a ``PackedGraphs`` (or of
+    a ``PackedSubset``, ``idx`` then indexing the subset), gathered off the
+    flat arrays as JAX's ``collate_compact_packed`` does: atoms clipped at
+    ``n_max``, each graph's first ``e_max`` bonds kept in their slots, and
+    the bonds among them that touch a clipped atom dropped in place (their
+    slots zero, ``edge_valid`` False), so the valid bonds need not be
+    contiguous.  A graph's labels fill the first entries of its row of
+    ``y``."""
+    from moleculesde_tpu_torch.data.packed import PackedSubset
+
+    if isinstance(dataset, PackedSubset):
+        idx = dataset.indices[np.asarray(idx)]
+        packed = dataset.packed
+    else:
+        idx = np.asarray(idx)
+        packed = dataset
+    a = packed.arrays
+    b = num_graphs if num_graphs is not None else len(idx)
+    nb = len(idx)
+    if nb > b:
+        raise ValueError(f"{nb} graphs do not fit num_graphs={b}")
+
+    def ragged_gather(starts, counts):
+        """(row, column, flat source) of every entry of a left-packed
+        [nb, cap] layout holding ``counts`` entries a row."""
+        rows = np.repeat(np.arange(nb), counts)
+        cum = np.zeros(nb + 1, np.int64)
+        np.cumsum(counts, out=cum[1:])
+        cols = np.arange(int(cum[-1])) - np.repeat(cum[:-1], counts)
+        return rows, cols, np.repeat(starts, counts) + cols
+
+    no = np.asarray(a["node_offsets"])
+    cnt = np.minimum(no[idx + 1] - no[idx], n_max).astype(np.int64)
+    atom = np.zeros((b, n_max, NUM_ATOM_FEATURES), dtype=np.int16)
+    pos = np.zeros((b, n_max, 3), dtype=np.float32)
+    n_atoms = np.zeros((b,), dtype=np.int32)
+    n_atoms[:nb] = cnt
+    r, c, s = ragged_gather(no[idx], cnt)
+    atom[r, c] = a["atom_feats"][s]
+    if "positions" in a:
+        pos[r, c] = a["positions"][s]
+    forces = None
+    if with_forces and "forces" in a:
+        forces = np.zeros((b, n_max, 3), dtype=np.float32)
+        forces[r, c] = a["forces"][s]
+
+    eo = np.asarray(a["edge_offsets"])
+    ecnt = np.minimum(eo[idx + 1] - eo[idx], e_max).astype(np.int64)
+    ei = np.zeros((b, e_max, 2), dtype=np.int16)
+    ef = np.zeros((b, e_max, NUM_BOND_FEATURES), dtype=np.int16)
+    ev = np.zeros((b, e_max), dtype=bool)
+    r, c, s = ragged_gather(eo[idx], ecnt)
+    pair = a["edge_index"][s]   # [E, 2] graph-local endpoints
+    ok = (pair[:, 0] < cnt[r]) & (pair[:, 1] < cnt[r])
+    ei[r, c] = np.where(ok[:, None], pair, 0)
+    ef[r, c] = np.where(ok[:, None], a["edge_feats"][s], 0)
+    ev[r, c] = ok
+
+    y = None
+    if num_tasks:
+        y = np.zeros((b, num_tasks), dtype=np.float32)
+        if "y" in a:
+            yv = np.asarray(a["y"][idx], np.float32)
+            y[:nb, :yv.shape[1]] = yv[:, :num_tasks]
+    tt = torch.from_numpy
+    return CompactBatch(atom_feats=tt(atom), positions=tt(pos), n_atoms=tt(n_atoms),
                         edge_index=tt(ei), edge_feats=tt(ef), edge_valid=tt(ev),
                         y=None if y is None else tt(y),
                         forces=None if forces is None else tt(forces), num_graphs=b,

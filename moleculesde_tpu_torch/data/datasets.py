@@ -1,16 +1,18 @@
-"""Dataset loaders of the finetunes: MD17, QM9 and MoleculeNet (2D).
+"""Dataset loaders: MD17, QM9, PCQM4Mv2 and MoleculeNet (2D).
 
 A copy of the loaders of ``moleculesde_tpu/data/datasets.py`` (reference
-Geom3D/datasets/): each gives a list of plain graph dicts for
-:class:`~moleculesde_tpu_torch.data.loader.GraphLoader`.  The CSVs are read
+Geom3D/datasets/): each gives plain graph dicts for
+:class:`~moleculesde_tpu_torch.data.loader.GraphLoader`, PCQM4Mv2 a
+memory-mapped :class:`~moleculesde_tpu_torch.data.packed.PackedGraphs`
+cache.  The CSVs are read
 with ``csv`` (and ``gzip``), with pandas' semantics where the JAX package
 reads them with pandas: a cell that pandas reads as missing ("", "NA",
 "nan", ...) is NaN, every other cell a float64.  MoleculeNet's
 classification labels become {1 -> 1, 0 -> -1, missing -> 0}; QM9's
 targets stay float64 until the last cast.  SMILES and SDF parsing need
-RDKit, imported inside the loaders; MD17 is numpy only.  Nothing here
-downloads: the loaders read files already on disk.  PCQM4Mv2 waits for the
-packed datasets.
+RDKit, imported inside the loaders (PCQM4Mv2's only when its cache is
+built); MD17 is numpy only.  Nothing here downloads: the loaders read
+files already on disk.
 """
 
 from __future__ import annotations
@@ -202,6 +204,52 @@ def load_qm9(root: str, calculate_thermo: bool = True, extend: bool = True,
     for g, y in zip(graphs, targets):
         g["y"] = y
     return graphs, smiles_list
+
+
+# ---------------------------------------------------------------- PCQM4Mv2
+def load_pcqm4mv2(root: str, max_molecules: Optional[int] = None, extend: bool = True,
+                  remove_center: bool = True, packed: bool = True):
+    """PCQM4Mv2 from ``root/raw/data.csv.gz`` and
+    ``root/raw/pcqm4m-v2-train.sdf`` (reference dataset_PCQM4Mv2.py:45-77),
+    each graph with its HOMO-LUMO gap as ``y`` [1] float32; SDF records
+    RDKit cannot read or featurize are skipped, and ``max_molecules`` caps
+    the molecules kept.  With ``packed`` (the default) the featurization
+    streams once into a :class:`PackedGraphs` cache under
+    ``root/packed_ext{0,1}[_n{max_molecules}]`` (JAX's name and format, so
+    either package's cache serves the other) and the cache is returned
+    memory-mapped; a cache already there is loaded without RDKit.
+    ``packed=False`` returns the list of graph dicts."""
+
+    def build():
+        from rdkit import Chem
+
+        from moleculesde_tpu_torch.data.featurize import mol_to_graph_3d
+
+        raw = os.path.join(root, "raw")
+        header, rows = _read_csv(os.path.join(raw, "data.csv.gz"))
+        gaps = _column(header, rows, "homolumogap")
+        suppl = Chem.SDMolSupplier(os.path.join(raw, "pcqm4m-v2-train.sdf"),
+                                   removeHs=False, sanitize=True)
+        count = 0
+        for i, mol in enumerate(suppl):
+            if max_molecules is not None and count >= max_molecules:
+                break
+            if mol is None:
+                continue
+            try:
+                g = mol_to_graph_3d(mol, remove_center=remove_center, extend=extend)
+            except Exception:   # a record RDKit parsed but cannot featurize: skipped
+                continue
+            g["y"] = np.array([gaps[i]], dtype=np.float32)
+            count += 1
+            yield g
+
+    if not packed:
+        return list(build())
+    from moleculesde_tpu_torch.data.packed import pack_or_load
+
+    tag = f"packed_ext{int(extend)}" + (f"_n{max_molecules}" if max_molecules else "")
+    return pack_or_load(os.path.join(root, tag), build)
 
 
 # -------------------------------------------------------------- MoleculeNet

@@ -3,7 +3,8 @@
 A copy of the part of ``moleculesde_tpu/data/featurize.py`` that the
 dataset loaders read (reference Geom3D/datasets/dataset_utils.py:73-169):
 OGB's atom and bond vocabularies as static tables (ogb/utils/features.py),
-so nothing here needs OGB, over the port's :func:`extend_graph`.  RDKit is
+so nothing here needs OGB, over the port's :func:`extend_graph`, and
+SMILES with MMFF94s conformers (:func:`smiles_to_graph_3d_mmff`).  RDKit is
 imported only inside the functions that parse SMILES; the mol functions
 take any object with RDKit's atom / bond / conformer methods.
 """
@@ -107,3 +108,29 @@ def smiles_to_graph_2d(smiles: str, extend: bool = False) -> Optional[Dict[str, 
     if mol is None:
         return None
     return mol_to_graph_2d(mol, extend=extend)
+
+
+def smiles_to_graph_3d_mmff(smiles: str, num_conformers: int = 5, remove_center: bool = True,
+                            extend: bool = True) -> Optional[Dict[str, np.ndarray]]:
+    """A SMILES string as a 3D graph dict (reference dataset_utils.py:35-65):
+    hydrogens added, ``num_conformers`` conformers embedded and optimized
+    with MMFF94s, the one of lowest energy kept (the first of equal
+    lowest); if embedding or optimization raises, 2D coordinates from
+    ``Compute2DCoords`` and conformer 0 instead.  None where RDKit cannot
+    parse the SMILES."""
+    Chem = _require_rdkit()
+    from rdkit.Chem import AllChem
+
+    mol = Chem.MolFromSmiles(smiles)
+    if mol is None:
+        return None
+    mol = Chem.AddHs(mol)
+    try:
+        AllChem.EmbedMultipleConfs(mol, num_conformers)
+        results = AllChem.MMFFOptimizeMoleculeConfs(mol, mmffVariant="MMFF94s")
+        best = int(np.argmin([r[1] for r in results]))
+    except Exception:
+        AllChem.Compute2DCoords(mol)
+        best = 0
+    return mol_to_graph_3d(mol, conformer_idx=best, remove_center=remove_center,
+                           extend=extend)

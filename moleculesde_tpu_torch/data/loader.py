@@ -5,10 +5,12 @@ Counterpart of ``moleculesde_tpu/data/loader.py``: :class:`GraphLoader`
 with the padded (``--ingest padded``; in C++ by default,
 :mod:`~moleculesde_tpu_torch.data.native_collate`) and the compact
 (``--ingest compact``, :mod:`~moleculesde_tpu_torch.data.compact`)
-collations, the size buckets of :class:`BucketedGraphLoader`
-(``--buckets``) with :func:`max_atoms` and :func:`suggest_buckets`
-(``--n_max 0``), :class:`ThreadedLoader` (``--num_workers``) and
-:func:`device_prefetch`.  Every batch of a loader (of a bucket) has the same
+collations over a list of graph dicts or a packed dataset
+(:class:`~moleculesde_tpu_torch.data.packed.PackedGraphs`, kept as it is,
+compact batches gathered off its flat arrays), the size buckets of
+:class:`BucketedGraphLoader` (``--buckets``) with :func:`max_atoms` and
+:func:`suggest_buckets` (``--n_max 0``), :class:`ThreadedLoader`
+(``--num_workers``) and :func:`device_prefetch`.  Every batch of a loader (of a bucket) has the same
 shapes; with ``drop_last`` only full batches are produced, otherwise the
 tail batch is padded with empty graphs.  Every shuffle draws from
 ``numpy.random.default_rng(seed)``, so the same seed visits molecules, and
@@ -29,20 +31,39 @@ import numpy as np
 import torch
 
 from moleculesde_tpu_torch.core.batch import GraphBatch, pad_graphs
-from moleculesde_tpu_torch.data.compact import CompactBatch, collate_compact
+from moleculesde_tpu_torch.data.compact import (
+    CompactBatch, collate_compact, collate_compact_packed)
 from moleculesde_tpu_torch.data.native_collate import native_pad_graphs
 
 Batch = Union[GraphBatch, CompactBatch]
 
 
+def _indexable(graphs):
+    """``graphs`` itself when it is an indexable, sized dataset (a list, or
+    a memory-mapped ``PackedGraphs`` that must not become millions of
+    dicts), else its items as a list."""
+    return (graphs if hasattr(graphs, "__getitem__") and hasattr(graphs, "__len__")
+            else list(graphs))
+
+
+def _atom_counts(graphs) -> np.ndarray:
+    """Each molecule's atom count: a packed dataset's ``num_atoms`` (read
+    off its offsets), else counted dict by dict."""
+    if hasattr(graphs, "num_atoms"):
+        return np.asarray(graphs.num_atoms)
+    return np.array([np.asarray(g["atom_feats"]).shape[0] for g in graphs])
+
+
 class GraphLoader:
-    """Iterate ``(batch on the CPU, n_real_graphs)`` over graph dicts: a
+    """Iterate ``(batch on the CPU, n_real_graphs)`` over graph dicts (any
+    indexable, sized dataset of them, kept as it is): a
     :class:`GraphBatch` with ``collate="padded"``, a :class:`CompactBatch`
     with ``collate="compact"`` (``use_extend`` then tells the device
-    whether to build the extended graph).  ``collate_impl`` picks the
-    padded collation: "native" (C++, the default) or "numpy"; both give the
-    same bits.  ``quiet_drops`` leaves the drop message to a parent loader
-    (:class:`BucketedGraphLoader`).  ``num_tasks`` / ``with_forces`` carry
+    whether to build the extended graph; a dataset with ``num_atoms``, a
+    packed one, is gathered by :func:`collate_compact_packed`).
+    ``collate_impl`` picks the padded collation: "native" (C++, the
+    default) or "numpy"; both give the same bits.  ``quiet_drops`` leaves
+    the drop message to a parent loader (:class:`BucketedGraphLoader`).  ``num_tasks`` / ``with_forces`` carry
     the labels; ``rotation_transform`` (padded batches only) rotates each
     molecule's positions by a random SO(3) matrix from the loader's
     generator, drawn as each batch is collated."""
@@ -64,7 +85,7 @@ class GraphLoader:
         self.collate_impl = collate_impl
         self.quiet_drops = quiet_drops
         self.use_extend = use_extend
-        self.graphs = list(graphs)
+        self.graphs = _indexable(graphs)
         self.batch_size = batch_size
         self.n_max = n_max
         self.e_max = e_max if e_max is not None else 4 * n_max
@@ -99,12 +120,17 @@ class GraphLoader:
         """One batch of dataset indices.  No loader state changes, so worker
         threads may call it, unless ``rotation_transform`` draws from the
         loader's generator."""
-        chunk = [self.graphs[i] for i in idx]
         labels = dict(num_tasks=self.num_tasks, with_forces=self.with_forces)
         if self.collate_mode == "compact":
-            return collate_compact(chunk, n_max=self.n_max, e_max=self.e_max,
-                                   num_graphs=self.batch_size,
-                                   use_extend=self.use_extend, **labels), len(chunk)
+            if hasattr(self.graphs, "num_atoms"):   # packed: gathers off the flat arrays
+                return collate_compact_packed(
+                    self.graphs, idx, n_max=self.n_max, e_max=self.e_max,
+                    num_graphs=self.batch_size, use_extend=self.use_extend,
+                    **labels), len(idx)
+            return collate_compact([self.graphs[i] for i in idx], n_max=self.n_max,
+                                   e_max=self.e_max, num_graphs=self.batch_size,
+                                   use_extend=self.use_extend, **labels), len(idx)
+        chunk = [self.graphs[i] for i in idx]
         if self.rotation_transform:
             chunk = [self._rotate(g) for g in chunk]
         self._check_budgets(chunk)
@@ -154,8 +180,9 @@ class BucketedGraphLoader:
     cut to it), each bucket is a padded :class:`GraphLoader` at n_max = the
     bucket, ``e_max = e_max_factor * b`` and ``ext_e_max = b * b``, and
     each epoch visits every bucket's batches in an order shuffled by
-    ``default_rng(seed)``.  Yields ``(GraphBatch, n_real)``; a step sees one
-    shape per bucket.
+    ``default_rng(seed)``.  A packed dataset is bucketed on its
+    ``num_atoms`` and each bucket holds a ``subset`` view of it.  Yields
+    ``(GraphBatch, n_real)``; a step sees one shape per bucket.
 
     The buckets collate padded batches whatever ``--ingest`` says, as in
     JAX: molecules built without the extended graph (the compact ingest's
@@ -166,18 +193,19 @@ class BucketedGraphLoader:
                  shuffle: bool = True, drop_last: bool = True, seed: int = 0,
                  num_tasks: Optional[int] = None, with_forces: bool = False):
         self.buckets = sorted(buckets)
-        graphs = list(graphs)
-        counts = np.array([np.asarray(g["atom_feats"]).shape[0] for g in graphs])
-        slot = np.minimum(np.searchsorted(np.asarray(self.buckets), counts, side="left"),
-                          len(self.buckets) - 1)
+        graphs = _indexable(graphs)
+        slot = np.minimum(np.searchsorted(np.asarray(self.buckets), _atom_counts(graphs),
+                                          side="left"), len(self.buckets) - 1)
         self.loaders: List[Optional[GraphLoader]] = []
         for i, b in enumerate(self.buckets):
-            gs = [graphs[j] for j in np.flatnonzero(slot == i)]
+            idx = np.flatnonzero(slot == i)
+            gs = (graphs.subset(idx) if hasattr(graphs, "subset")
+                  else [graphs[j] for j in idx])
             self.loaders.append(GraphLoader(
                 gs, batch_size=batch_size, n_max=b, e_max=e_max_factor * b, ext_e_max=b * b,
                 shuffle=shuffle, drop_last=drop_last, seed=seed, quiet_drops=True,
                 num_tasks=num_tasks, with_forces=with_forces)
-                if gs else None)
+                if len(gs) else None)
         self.shuffle = shuffle
         self._rng = np.random.default_rng(seed)
 
@@ -258,8 +286,9 @@ def device_prefetch(iterator: Iterable[Tuple[Batch, int]], device: str | torch.d
 
 
 def max_atoms(graphs: Sequence[Dict]) -> int:
-    """The largest molecule's atom count."""
-    return max(int(np.asarray(g["atom_feats"]).shape[0]) for g in graphs)
+    """The largest molecule's atom count (a packed dataset's read off its
+    offsets)."""
+    return int(_atom_counts(graphs).max())
 
 
 def suggest_buckets(graphs: Sequence[Dict], candidates=(16, 32, 64, 128)) -> int:

@@ -3,7 +3,8 @@
 A copy of the generator in ``moleculesde_tpu/data/synthetic.py``: from the
 same ``numpy.random.Generator`` state it draws the same molecules (OGB
 categorical features, bonds in both directions, centred conformers, 1-4 hop
-extended edges).
+extended edges), padded (:func:`synthetic_batch`) or compact
+(:func:`synthetic_compact_batch`).
 """
 
 from __future__ import annotations
@@ -114,3 +115,27 @@ def synthetic_batch(
         graphs, n_max=n_max,
         e_max=e_max if e_max is not None else 4 * n_max,
         ext_e_max=ext_e_max if ext_e_max is not None else n_max * n_max)
+
+
+def synthetic_compact_batch(num_graphs: int = 8, n_max: int = 16, e_max: Optional[int] = None,
+                            min_atoms: int = 4, seed: int = 0,
+                            num_tasks: Optional[int] = None, with_forces: bool = False):
+    """The molecules of :func:`synthetic_batch` (with ``y`` [num_tasks] and
+    ``forces`` drawn after each when asked), collated compact, as the
+    pretraining CLI feeds its step: a
+    :class:`~moleculesde_tpu_torch.data.compact.CompactBatch` on the CPU."""
+    from moleculesde_tpu_torch.data.compact import collate_compact
+
+    rng = np.random.default_rng(seed)
+    graphs: List[dict] = []
+    for _ in range(num_graphs):
+        n = int(rng.integers(min_atoms, n_max + 1))
+        g = random_molecule(rng, n, extend=False)
+        if num_tasks is not None:
+            g["y"] = rng.normal(size=(num_tasks,)).astype(np.float32)
+        if with_forces:
+            g["forces"] = rng.normal(size=(n, 3)).astype(np.float32)
+        graphs.append(g)
+    return collate_compact(graphs, n_max=n_max,
+                           e_max=e_max if e_max is not None else 4 * n_max,
+                           num_tasks=num_tasks, with_forces=with_forces)

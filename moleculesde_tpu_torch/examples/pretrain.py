@@ -16,8 +16,14 @@ chunk the step, ``--model_3d PaiNN`` swaps the 3D encoder,
 ``--schnet_cfconv pallas_rbf`` runs K5, ``--gnn_type`` picks GIN, GCN, GAT
 or GraphSAGE, ``--JK`` last, max or sum (``concat`` raises a ``ValueError``
 before any step, where the JAX step fails) and ``--SDE_2Dto3D_model`` any of
-the four 2D->3D score models.  ``--synthetic_molecules N > 0``
-trains on synthetic molecules whatever ``--dataset`` says, as in JAX.
+the four 2D->3D score models.  The data follow JAX's ``load_graphs``:
+synthetic molecules with ``--dataset synthetic`` or
+``--synthetic_molecules N > 0`` (whatever ``--dataset`` says),
+PCQM4Mv2 (``--dataset PCQM4Mv2`` or ``pcqm4m-v2``, in any case) from its
+packed cache under ``<--input_data_dir>/<--dataset>``, built there on first
+use from the raw files (RDKit needed only then) and memory-mapped, and
+QM9 (``--dataset QM9``, the default) from its raw files; ``--max_molecules``
+caps either, and any other name raises a ``ValueError``.
 
 ``--resume_from`` restores a full train state before the first epoch: the
 port's ``train_state.pt`` (everything, the step generator included, so the
@@ -34,15 +40,17 @@ numpy raises in JAX.
 Runs on the GPU (``--device cuda``, the default) and raises without one;
 ``--device cpu`` runs the plain PyTorch path.  Every flag the JAX CLI reads
 is parsed with its name and default.  Not ported yet, and refused with a
-``NotImplementedError`` that names the flag: datasets other than synthetic
-molecules, ``--num_devices`` > 1, ``--distributed`` and ``--dist_*``,
-``--profile_dir`` and ``--debug_nans``.  ``--input_data_dir`` and
-``--max_molecules`` are read only with the QM9 / PCQM4Mv2 datasets, as in
-JAX, so with synthetic molecules they change nothing.
+``NotImplementedError`` that names the flag: ``--num_devices`` > 1,
+``--distributed`` and ``--dist_*``, ``--profile_dir`` and
+``--debug_nans``.  ``--input_data_dir`` and ``--max_molecules`` are read
+only with the QM9 / PCQM4Mv2 datasets, as in JAX, so with synthetic
+molecules they change nothing.
 
 Example:
   python -m moleculesde_tpu_torch.examples.pretrain --dataset=synthetic \\
       --synthetic_molecules=1024 --epochs=2 --output_model_dir=out/pretrain
+  python -m moleculesde_tpu_torch.examples.pretrain --dataset=PCQM4Mv2 \\
+      --input_data_dir=data --epochs=50 --output_model_dir=out/pretrain
 """
 
 from __future__ import annotations
@@ -55,6 +63,7 @@ import numpy as np
 import torch
 
 from moleculesde_tpu_torch.convert import save_checkpoint
+from moleculesde_tpu_torch.data.datasets import load_pcqm4mv2, load_qm9
 from moleculesde_tpu_torch.data.loader import (
     BucketedGraphLoader, GraphLoader, ThreadedLoader, device_prefetch, suggest_buckets)
 from moleculesde_tpu_torch.data.synthetic import random_molecule
@@ -75,12 +84,13 @@ MODEL_3DTO2D_VARIANTS = {"SDEModel3Dto2D_node_adj_dense": 1,
 
 def get_parser() -> argparse.ArgumentParser:
     """The JAX CLI's flags (examples/config.py) that pretraining reads, with
-    the same names and defaults, plus ``--device``; ``--dataset`` defaults
-    to the one dataset ported so far."""
+    the same names and defaults, plus ``--device``."""
     p = argparse.ArgumentParser()
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device", type=str, default="cuda")
-    p.add_argument("--dataset", type=str, default="synthetic")
+    p.add_argument("--dataset", type=str, default="QM9",
+                   help="QM9, PCQM4Mv2 (or pcqm4m-v2) under --input_data_dir, or "
+                        "synthetic")
     p.add_argument("--synthetic_molecules", type=int, default=0,
                    help="number of synthetic molecules (0 -> 1024)")
     p.add_argument("--num_workers", type=int, default=0,
@@ -196,11 +206,6 @@ def refuse_unported(refused: dict) -> None:
 
 def check_supported(args) -> None:
     """Raise on the flag values the port does not run yet."""
-    # JAX's condition for synthetic molecules (examples/pretrain.py:49)
-    if not (args.dataset == "synthetic" or args.synthetic_molecules > 0):
-        raise NotImplementedError(f"--dataset={args.dataset} is not ported yet: only "
-                                  f"synthetic molecules are (--dataset synthetic or "
-                                  f"--synthetic_molecules N)")
     refuse_unported({
         "--num_devices": args.num_devices > 1, "--distributed": args.distributed,
         "--dist_coordinator": bool(args.dist_coordinator),
@@ -209,19 +214,33 @@ def check_supported(args) -> None:
         "--profile_dir": bool(args.profile_dir), "--debug_nans": args.debug_nans})
 
 
-def load_graphs(args) -> list:
-    """``--synthetic_molecules`` (0 -> 1024) molecules of 4 to ``--n_max``
-    atoms, drawn from ``--seed`` as JAX draws them."""
-    if args.n_max < 4:
-        raise ValueError(f"synthetic molecules have 4 to --n_max atoms: --n_max "
-                         f"{args.n_max} leaves no size to draw (--n_max 0, the "
-                         f"suggested bucket, needs a dataset)")
-    rng = np.random.default_rng(args.seed)
-    # compact ingest builds the extended graph on the device: the host
-    # skips it
-    extend = args.use_extend_graph and args.ingest != "compact"
-    return [random_molecule(rng, int(rng.integers(4, args.n_max + 1)), extend=extend)
-            for _ in range(args.synthetic_molecules or 1024)]
+def load_graphs(args):
+    """The training molecules, as JAX's ``load_graphs`` picks them
+    (examples/pretrain.py:48-70): ``--synthetic_molecules`` (0 -> 1024)
+    molecules of 4 to ``--n_max`` atoms drawn from ``--seed`` with
+    ``--dataset synthetic`` or ``--synthetic_molecules N``; else PCQM4Mv2's
+    memory-mapped packed cache or QM9's graph dicts from
+    ``<--input_data_dir>/<--dataset>``, cut to ``--max_molecules``."""
+    # JAX's condition for synthetic molecules (examples/pretrain.py:49)
+    if args.dataset == "synthetic" or args.synthetic_molecules > 0:
+        if args.n_max < 4:
+            raise ValueError(f"synthetic molecules have 4 to --n_max atoms: --n_max "
+                             f"{args.n_max} leaves no size to draw (--n_max 0, the "
+                             f"suggested bucket, needs a dataset)")
+        rng = np.random.default_rng(args.seed)
+        # compact ingest builds the extended graph on the device: the host
+        # skips it
+        extend = args.use_extend_graph and args.ingest != "compact"
+        return [random_molecule(rng, int(rng.integers(4, args.n_max + 1)), extend=extend)
+                for _ in range(args.synthetic_molecules or 1024)]
+    root = os.path.join(args.input_data_dir, args.dataset)
+    if args.dataset.lower() in ("pcqm4mv2", "pcqm4m-v2"):
+        return load_pcqm4mv2(root, max_molecules=args.max_molecules or None,
+                             extend=args.use_extend_graph)
+    if args.dataset == "QM9":
+        graphs, _ = load_qm9(root, extend=args.use_extend_graph)
+        return graphs[:args.max_molecules] if args.max_molecules else graphs
+    raise ValueError(f"unknown pretrain dataset {args.dataset}")
 
 
 def make_loader(graphs, args):

@@ -15,12 +15,18 @@ checkpoint (``--input_model_file``: ``model_2D`` and ``SDE_2Dto3D_model``
 of a ``.pt`` written by ``moleculesde_tpu_torch.convert.save_checkpoint`` or
 the port's pretraining CLI, or of the JAX package's
 ``model_complete*.msgpack``, read without JAX) or are drawn from
-``--seed``.  Every flag the JAX CLI reads is parsed with its name and
-default.  Not ported yet, and refused with a ``NotImplementedError`` that
-names the flag: datasets other than ``synthetic`` (so ``--input_data_dir``,
-which only they read, changes nothing) and ``--num_devices`` > 1.  ``--JK
-concat`` raises a ``ValueError``: the JAX CLI builds the 2D->3D model at
-``--emb_dim`` and fails on the wider node representations.
+``--seed``.  The molecules are JAX's: ``--dataset synthetic`` draws them
+from ``--seed``; any other ``--dataset`` (the default QM9 included, as in
+JAX) reads the PCQM4Mv2 packed cache under
+``<--input_data_dir>/<--dataset>`` (built there from the raw files on
+first use, RDKit needed only then), cut to ``--end`` molecules.  Every flag
+the JAX CLI reads is parsed with its name and default.  Not ported yet,
+and refused with a ``NotImplementedError`` that names the flag:
+``--num_devices`` > 1.  ``--JK concat`` raises a ``ValueError``: the JAX CLI
+builds the 2D->3D model at ``--emb_dim`` and fails on the wider node
+representations.  So does a molecule of more than ``--n_max`` atoms among
+``--start`` .. ``--end``, before any sampling: the padded batch would cut
+it, and JAX's CLI fails on its COV / MAT after the chain.
 
 Example:
   python -m moleculesde_tpu_torch.examples.sample_2d_to_3d --dataset=synthetic \\
@@ -38,6 +44,8 @@ import numpy as np
 import torch
 
 from moleculesde_tpu_torch.core.batch import GraphBatch, pad_graphs
+from moleculesde_tpu_torch.data.datasets import load_pcqm4mv2
+from moleculesde_tpu_torch.data.loader import max_atoms
 from moleculesde_tpu_torch.data.synthetic import random_molecule
 from moleculesde_tpu_torch.examples.pretrain import MODEL_2DTO3D_VARIANTS, refuse_unported
 from moleculesde_tpu_torch.models.gnn2d import GNN2D
@@ -56,7 +64,9 @@ def get_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device", type=str, default="cuda")
-    p.add_argument("--dataset", type=str, default="synthetic")
+    p.add_argument("--dataset", type=str, default="QM9",
+                   help="synthetic, or the name of the PCQM4Mv2 directory under "
+                        "--input_data_dir")
     p.add_argument("--input_data_dir", type=str, default="")
     p.add_argument("--gnn_type", type=str, default="GIN")
     p.add_argument("--num_layer", type=int, default=5)
@@ -101,9 +111,6 @@ def get_parser() -> argparse.ArgumentParser:
 
 def check_supported(args) -> None:
     """Raise on the flag values the port does not run yet."""
-    if args.dataset != "synthetic":
-        raise NotImplementedError(
-            f"--dataset={args.dataset}: only 'synthetic' is ported so far")
     if args.JK == "concat":
         raise ValueError(f"--JK concat gives {args.emb_dim * (args.num_layer + 1)}-wide node "
                          f"representations; the 2D->3D model reads --emb_dim {args.emb_dim} "
@@ -111,10 +118,27 @@ def check_supported(args) -> None:
     refuse_unported({"--num_devices": args.num_devices > 1})
 
 
-def load_graphs(args) -> list:
-    rng = np.random.default_rng(args.seed)
-    return [random_molecule(rng, int(rng.integers(4, args.n_max + 1)))
-            for _ in range(max(args.end, 1))]
+def load_graphs(args):
+    """JAX's molecules (examples/sample_2d_to_3d.py:42-52): ``max(--end, 1)``
+    synthetic ones of 4 to ``--n_max`` atoms drawn from ``--seed``, or the
+    PCQM4Mv2 packed cache under ``<--input_data_dir>/<--dataset>`` cut to
+    ``--end`` molecules (all at ``--end 0``)."""
+    if args.dataset == "synthetic":
+        rng = np.random.default_rng(args.seed)
+        return [random_molecule(rng, int(rng.integers(4, args.n_max + 1)))
+                for _ in range(max(args.end, 1))]
+    return load_pcqm4mv2(os.path.join(args.input_data_dir, args.dataset),
+                         max_molecules=args.end or None, extend=args.use_extend_graph)
+
+
+def check_sizes(mols, n_max: int) -> None:
+    """Raise before any sampling when a molecule of ``mols`` has more than
+    ``n_max`` atoms: its padded batch would hold only its first ``n_max``
+    atoms, and no conformer of the whole molecule could be scored."""
+    largest = max_atoms(mols) if len(mols) else 0
+    if largest > n_max:
+        raise ValueError(f"a molecule of --start .. --end has {largest} atoms, more than "
+                         f"--n_max {n_max}: raise --n_max")
 
 
 def make_batch(mols: list, args, device) -> GraphBatch:
@@ -171,15 +195,16 @@ def main(argv=None):
     args = get_parser().parse_args(argv)
     check_supported(args)
     device = resolve_device(args.device)
-    graphs = load_graphs(args)
+    mols = load_graphs(args)[args.start : args.end]
+    check_sizes(mols, args.n_max)
     model_2d, sde_model = build_models(args, device)
     sample_gen = torch.Generator(device=device).manual_seed(args.seed)
 
     rep = args.num_repeat_SDE_inference
     k_mols = max(1, args.sample_mols_per_batch)
-    mols = graphs[args.start : args.end]
     results = []
     for c0 in range(0, len(mols), k_mols):
+        # list(): a packed dataset's slice is a PackedSubset view
         chunk = list(mols[c0 : c0 + k_mols])
         # pad the last chunk with clones of its last molecule (one batch
         # shape for every chain); the extras are discarded below
@@ -198,7 +223,8 @@ def main(argv=None):
             msg = (f"molecule {c0 + j}: {n_atoms} atoms, {rep} conformers in "
                    f"{chunk_dt / len(chunk):.2f}s")
             if g.get("positions") is not None:
-                cov, mat = coverage_matching(pos_gen, np.asarray(g["positions"])[None],
+                # a copy: a packed molecule's positions are a read-only memmap view
+                cov, mat = coverage_matching(pos_gen, np.array(g["positions"])[None],
                                              threshold=args.threshold or 0.5)
                 entry["cov"], entry["mat"] = cov, mat
                 msg += f"  COV={cov:.3f} MAT={mat:.3f}"

@@ -15,11 +15,15 @@ PaiNN (``--model_3d PaiNN``, f32).  Weights come from a port checkpoint
 (``--input_model_file``: ``model_3D`` and ``SDE_3Dto2D_model`` of a ``.pt``
 written by ``moleculesde_tpu_torch.convert.save_checkpoint`` or the port's
 pretraining CLI, or of the JAX package's ``model_complete*.msgpack``, read
-without JAX) or are drawn from ``--seed``.  Every flag the JAX CLI
-reads is parsed with its name and default.  Not ported yet, and refused
-with a ``NotImplementedError`` that names the flag: datasets other than
-``synthetic`` (so ``--input_data_dir`` and ``--use_extend_graph``, which
-only they read, change nothing) and ``--num_devices`` > 1.
+without JAX) or are drawn from ``--seed``.  The molecules are JAX's:
+``--dataset synthetic`` draws ``max(--end, --batch_size)`` of them from
+``--seed``; any other ``--dataset`` (the default QM9 included, as in JAX)
+reads the PCQM4Mv2 packed cache under ``<--input_data_dir>/<--dataset>``
+(built there from the raw files on first use, RDKit needed only then; its
+extended graph with ``--use_extend_graph``), cut to ``--end`` molecules.
+Every flag the JAX CLI reads is parsed with its name and default.  Not
+ported yet, and refused with a ``NotImplementedError`` that names the
+flag: ``--num_devices`` > 1.
 
 Example:
   python -m moleculesde_tpu_torch.examples.sample_3d_to_2d --dataset=synthetic \\
@@ -36,6 +40,7 @@ import time
 import numpy as np
 import torch
 
+from moleculesde_tpu_torch.data.datasets import load_pcqm4mv2
 from moleculesde_tpu_torch.data.loader import GraphLoader
 from moleculesde_tpu_torch.data.synthetic import random_molecule
 from moleculesde_tpu_torch.examples.pretrain import MODEL_3DTO2D_VARIANTS, refuse_unported
@@ -50,12 +55,13 @@ from moleculesde_tpu_torch.utils.device import resolve_device
 
 def get_parser() -> argparse.ArgumentParser:
     """The JAX CLI's flags (examples/config.py) that this sampler reads,
-    with the same names and defaults, plus ``--device``; ``--dataset``
-    defaults to the one dataset ported so far."""
+    with the same names and defaults, plus ``--device``."""
     p = argparse.ArgumentParser()
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device", type=str, default="cuda")
-    p.add_argument("--dataset", type=str, default="synthetic")
+    p.add_argument("--dataset", type=str, default="QM9",
+                   help="synthetic, or the name of the PCQM4Mv2 directory under "
+                        "--input_data_dir")
     p.add_argument("--input_data_dir", type=str, default="")
     p.add_argument("--batch_size", type=int, default=128)
     p.add_argument("--model_3d", type=str, default="SchNet", choices=["SchNet", "PaiNN"])
@@ -97,16 +103,21 @@ def get_parser() -> argparse.ArgumentParser:
 
 def check_supported(args) -> None:
     """Raise on the flag values the port does not run yet."""
-    if args.dataset != "synthetic":
-        raise NotImplementedError(f"--dataset={args.dataset} is not ported yet: only "
-                                  f"'synthetic' is")
     refuse_unported({"--num_devices": args.num_devices > 1})
 
 
-def load_graphs(args) -> list:
-    rng = np.random.default_rng(args.seed)
-    return [random_molecule(rng, int(rng.integers(4, args.n_max + 1)))
-            for _ in range(max(args.end, args.batch_size))]
+def load_graphs(args):
+    """JAX's molecules (examples/sample_3d_to_2d.py:41-52): ``max(--end,
+    --batch_size)`` synthetic ones of 4 to ``--n_max`` atoms drawn from
+    ``--seed``, or the PCQM4Mv2 packed cache under
+    ``<--input_data_dir>/<--dataset>`` cut to ``--end`` molecules (all at
+    ``--end 0``)."""
+    if args.dataset == "synthetic":
+        rng = np.random.default_rng(args.seed)
+        return [random_molecule(rng, int(rng.integers(4, args.n_max + 1)))
+                for _ in range(max(args.end, args.batch_size))]
+    return load_pcqm4mv2(os.path.join(args.input_data_dir, args.dataset),
+                         max_molecules=args.end or None, extend=args.use_extend_graph)
 
 
 def make_loader(graphs, args) -> GraphLoader:

@@ -241,14 +241,14 @@ def test_sampler_cli_loads_jax_msgpack(jax_checkpoint, name, capsys):
     ref = {**flat_tree(params), **flat_tree(stats)}
     if name == "sample_2d_to_3d":
         mod, comps = sample_cli, ("model_2D", "SDE_2Dto3D_model")
-        argv = ["--device", "cpu", "--end", "1", "--num_repeat_SDE_inference", "2",
-                "--n_max", "8", "--num_diffusion_timesteps_2Dto3D_inference", "2",
-                "--steps_pos", "1"] + WIDTHS_2D
+        argv = ["--device", "cpu", "--dataset", "synthetic", "--end", "1",
+                "--num_repeat_SDE_inference", "2", "--n_max", "8",
+                "--num_diffusion_timesteps_2Dto3D_inference", "2", "--steps_pos", "1"] + WIDTHS_2D
     else:
         mod, comps = sample_3d2d_cli, ("model_3D", "SDE_3Dto2D_model")
-        argv = ["--device", "cpu", "--end", "2", "--batch_size", "2", "--n_max", "8",
-                "--num_diffusion_timesteps_3Dto2D_inference", "2", "--steps_pos", "1",
-                "--emb_dim", "16"] + WIDTHS_3D
+        argv = ["--device", "cpu", "--dataset", "synthetic", "--end", "2", "--batch_size", "2",
+                "--n_max", "8", "--num_diffusion_timesteps_3Dto2D_inference", "2",
+                "--steps_pos", "1", "--emb_dim", "16"] + WIDTHS_3D
     argv += ["--input_model_file", path]
     models = mod.build_models(mod.get_parser().parse_args(argv), CPU)
     for comp, module in zip(comps, models):
@@ -292,7 +292,8 @@ def test_port_resume_is_bit_identical(tmp_path):
     assert torch.equal(run.generator.get_state(), resumed.generator.get_state())
 
 
-TINY = ["--device", "cpu", "--synthetic_molecules", "12", "--batch_size", "4",
+TINY = ["--device", "cpu", "--dataset", "synthetic", "--synthetic_molecules", "12",
+        "--batch_size", "4",
         "--n_max", "8", "--epochs", "1", "--SchNet_num_gaussians", "11"] + CLI_WIDTHS
 
 
@@ -331,9 +332,10 @@ def test_gat_v3_checkpoints_reach_the_sampler_and_moleculenet(tmp_path, capsys):
     path = save_pretrain_checkpoint(str(tmp_path / "jax"), s.params, s.batch_stats)
     params, stats = jax_load_pretrain(path)
     ref = {**flat_tree(params), **flat_tree(stats)}
-    argv = ["--device", "cpu", "--end", "1", "--num_repeat_SDE_inference", "2",
-            "--n_max", "8", "--num_diffusion_timesteps_2Dto3D_inference", "2",
-            "--steps_pos", "1", "--input_model_file", path] + WIDTHS_2D + flags
+    argv = ["--device", "cpu", "--dataset", "synthetic", "--end", "1",
+            "--num_repeat_SDE_inference", "2", "--n_max", "8",
+            "--num_diffusion_timesteps_2Dto3D_inference", "2", "--steps_pos", "1",
+            "--input_model_file", path] + WIDTHS_2D + flags
     models = sample_cli.build_models(sample_cli.get_parser().parse_args(argv), CPU)
     checked = 0
     for comp, module in zip(("model_2D", "SDE_2Dto3D_model"), models):

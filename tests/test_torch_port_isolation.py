@@ -105,7 +105,8 @@ def test_entry_points_raise_without_gpu(monkeypatch):
 
 
 def test_cli_runs_on_cpu_when_asked(tmp_path, capsys):
-    res = cli.main(["--device", "cpu", "--end", "2", "--num_repeat_SDE_inference", "2",
+    res = cli.main(["--device", "cpu", "--dataset", "synthetic", "--end", "2",
+                    "--num_repeat_SDE_inference", "2",
                     "--sample_mols_per_batch", "2", "--n_max", "6", "--emb_dim", "8",
                     "--num_layer", "2", "--num_diffusion_timesteps_2Dto3D_inference", "2",
                     "--steps_pos", "1", "--output_model_dir", str(tmp_path)])
@@ -119,8 +120,8 @@ def test_cli_runs_on_cpu_when_asked(tmp_path, capsys):
 
 
 def test_port_checkpoint_roundtrip_through_cli(tmp_path, capsys):
-    argv = ["--device", "cpu", "--end", "1", "--num_repeat_SDE_inference", "2",
-            "--n_max", "6", "--emb_dim", "8", "--num_layer", "2",
+    argv = ["--device", "cpu", "--dataset", "synthetic", "--end", "1",
+            "--num_repeat_SDE_inference", "2", "--n_max", "6", "--emb_dim", "8", "--num_layer", "2",
             "--num_diffusion_timesteps_2Dto3D_inference", "2", "--steps_pos", "1"]
     args = cli.get_parser().parse_args(argv)
     model_2d, sde_model = cli.build_models(args, "cpu")

@@ -28,7 +28,8 @@ from moleculesde_tpu_torch.models.gnn2d import GATConv, GCNConv, GINConv, GraphS
 from test_torch_port_pretrain import TINY_FLAGS, check_whole_step, make_step_pair
 from torch_port_common import CPU, ieee_f32  # noqa: F401 (ieee_f32: autouse)
 
-SAMPLE_TINY = ["--device", "cpu", "--end", "1", "--num_repeat_SDE_inference", "2",
+SAMPLE_TINY = ["--device", "cpu", "--dataset", "synthetic", "--end", "1",
+               "--num_repeat_SDE_inference", "2",
                "--n_max", "8", "--emb_dim", "16", "--num_layer", "2",
                "--num_diffusion_timesteps_2Dto3D_inference", "2", "--steps_pos", "1"]
 MNET_TINY = ["--device", "cpu", "--n_max", "8", "--emb_dim", "16", "--num_layer", "2",

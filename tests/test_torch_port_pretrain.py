@@ -313,7 +313,8 @@ def test_loader_matches_jax_order_and_collation():
     assert len(mine) == len(theirs) == 2
 
 
-TINY_FLAGS = ["--device", "cpu", "--synthetic_molecules", "12", "--batch_size", "4",
+TINY_FLAGS = ["--device", "cpu", "--dataset", "synthetic", "--synthetic_molecules", "12",
+              "--batch_size", "4",
               "--n_max", "8", "--emb_dim", "16", "--num_layer", "2",
               "--SchNet_num_interactions", "2", "--SchNet_num_filters", "8"]
 
@@ -327,22 +328,14 @@ def test_pretrain_cli_trains_on_cpu_and_hands_off_to_the_sampler(tmp_path, capsy
     ckpt = load_checkpoint(str(tmp_path / "model_complete_final.pt"))
     assert {"model_2D", "model_3D", "SDE_2Dto3D_model", "SDE_3Dto2D_model"} <= set(ckpt)
     assert (tmp_path / "model_complete.pt").exists()
-    res = sample_cli.main(["--device", "cpu", "--end", "1", "--num_repeat_SDE_inference", "2",
+    res = sample_cli.main(["--device", "cpu", "--dataset", "synthetic", "--end", "1",
+                           "--num_repeat_SDE_inference", "2",
                            "--n_max", "8", "--emb_dim", "16", "--num_layer", "2",
                            "--num_diffusion_timesteps_2Dto3D_inference", "2",
                            "--steps_pos", "1",
                            "--input_model_file", str(tmp_path / "model_complete_final.pt")])
     assert "loaded checkpoint" in capsys.readouterr().out
     assert np.isfinite(res[0]["pos_gen"]).all()
-
-
-@pytest.mark.parametrize("dataset", ["QM9", "PCQM4Mv2"], ids=["qm9", "pcqm4mv2"])
-def test_pretrain_cli_refuses_unported_options(dataset):
-    """A real dataset without ``--synthetic_molecules`` is not ported: the
-    error names ``--dataset``."""
-    flags = [a for a in TINY_FLAGS if a not in ("--synthetic_molecules", "12")]
-    with pytest.raises(NotImplementedError, match=f"--dataset={dataset} is not ported"):
-        cli.main(flags + ["--dataset", dataset])
 
 
 @pytest.mark.parametrize("flags", [
@@ -389,13 +382,14 @@ JAX_ONLY_FLAGS = {
 
 @pytest.mark.parametrize("name", sorted(PORT_CLIS))
 def test_cli_parses_the_jax_flags_with_jax_defaults(name):
-    """Every flag a port CLI shares with the JAX CLIs has JAX's default,
-    except ``--dataset`` (the one ported dataset) and ``--device`` (a CUDA
-    device, not a TPU index); the flags it once lacked are among them."""
+    """Every flag a port CLI shares with the JAX CLIs has JAX's default
+    (``--dataset`` QM9 included), except ``--device`` (a CUDA device, not a
+    TPU index); the flags it once lacked are among them."""
     port = vars(PORT_CLIS[name].get_parser().parse_args([]))
     ref = vars(_jax_cli_parser().parse_args([]))
     assert set(JAX_ONLY_FLAGS[name]) <= set(port)
-    for flag in sorted(set(port) & set(ref) - {"dataset", "device"}):
+    assert port["dataset"] == ref["dataset"] == "QM9"
+    for flag in sorted(set(port) & set(ref) - {"device"}):
         assert port[flag] == ref[flag], flag
 
 
@@ -421,7 +415,7 @@ def test_3d2d_cli_runs_painn(tmp_path):
     """``--model_3d PaiNN`` (the JAX CLI builds it): graphs of the expected
     shapes, finite, from a tiny PaiNN encoder."""
     res = sample_3d2d_cli.main([
-        "--device", "cpu", "--batch_size", "2", "--end", "2", "--n_max", "8",
+        "--device", "cpu", "--dataset", "synthetic", "--batch_size", "2", "--end", "2", "--n_max", "8",
         "--emb_dim", "16", "--model_3d", "PaiNN", "--PaiNN_n_interactions", "2",
         "--PaiNN_n_rbf", "8", "--num_diffusion_timesteps_3Dto2D_inference", "2",
         "--steps_pos", "1", "--output_model_dir", str(tmp_path)])
