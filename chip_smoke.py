@@ -12,7 +12,8 @@ finetune CLIs (MoleculeNet with K1, QM9 with K2, MD17 with none), then the
 rest of the model surface (SDEModel2Dto3D variants 3 and 4 in the sampler
 and pretraining, GCN / GAT / GraphSAGE and the JK modes in pretraining and
 MoleculeNet), then the pretraining and both sampler CLIs on a PCQM4Mv2
-packed cache the script writes -- and checks what comes out.
+packed cache the script writes, then data parallelism (a 1-rank NCCL
+group, two gloo ranks sharing the card) -- and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -193,13 +194,31 @@ Phases (any failure exits non-zero):
      name), K1 5 and K3 1 a chain, finite COV / MAT for every molecule; the
      3D->2D sampler CLI on it (``--end 128``, 20 PC x 2 corrector steps), no
      kernel, finite graphs.
+  18. data parallelism (``parallel/``) at the pretraining CLI's defaults
+     (compact, K2, B=128, n_max 32): ``--num_devices 2`` refused on the one
+     card, naming 1 visible card; a 1-rank NCCL group (``env://``) whose
+     step launches K1 5 / 5, K2 6 / 6, K3 1 / 1 and whose loss terms,
+     gradient norms and running statistics equal the step with no group to
+     1e-5; two gloo ranks sharing the card (NCCL refuses two ranks on one
+     device; the collectives stage through host memory), 64 graphs each,
+     against the one-process step on the global batch: loss terms,
+     gradient norms before Adam and running statistics, f32 1e-4, bf16
+     1e-2 (``DP_PRECISIONS``), each bar checked to sit below two planted
+     faults' readings (BatchNorm statistics per rank, gradients summed
+     over the ranks), beside the all-plain build's readings and one
+     process's bf16 against f32; each rank's launches as above;
+     the 2D->3D chain of phase 3 in f32 on the two ranks (32 clones each)
+     against one process (atol 2e-4, rtol 1e-3; K1 5, K3 1 a rank); the
+     shared-card step's and gradient all-reduce's wall ms, labelled as two
+     ranks on one card, not scaling.
 The line before the last lists every kernel as JSON (the ones before it
-phase 17's, phase 15's and phase 14's figures); the last line is {"ok":
-true, "device": {...}}.
+phase 18's, phase 17's, phase 15's and phase 14's figures); the last line
+is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -3048,6 +3067,343 @@ def packed_path(dev, card):
     return runs, figures
 
 
+# phase 18: data parallelism (parallel/): a 1-rank NCCL group, and two gloo
+# ranks that share the card (NCCL refuses two ranks on one device)
+DP_DEADLINE_S = 300
+# (precision, seed, bar) of the two ranks against one process: loss terms
+# and gradient norms relative, running statistics.  Each bar sits between
+# the honest reading and the planted faults' (DP_FAULTS), which the phase
+# measures and checks on every run.  Readings on an H100 (PERF.md, PR 20):
+# bf16 3.9e-3 (model_2D's gradient norm), and the all-plain build 3.7e-3,
+# so no kernel makes it; f32 1.4e-6 to 1.5e-5 (seeds 8 and 7), while one
+# process, kernels against the all-plain build, moves the BatchNorm-heavy
+# GIN's gradient leaves by up to 3.6e-3 in f32 (sums in another order,
+# amplified by the BatchNorm backward's cancellation).  The faults read
+# 1e-1 to 1 in both.  Both precisions draw from one seed, so the
+# one-process bf16 step can be read against the f32 one (printed).
+DP_PRECISIONS = (("bfloat16", 7, 1e-2), ("float32", 7, 1e-4))
+
+
+@contextlib.contextmanager
+def local_batch_norm():
+    """A planted fault for the bars' witness: every BatchNorm (node and
+    pair) takes its statistics from the rank's own graphs, the global sums
+    dropped, as a data-parallel run without synchronized BatchNorm does."""
+    import types
+
+    from moleculesde_tpu_torch.models import layers
+    from moleculesde_tpu_torch.ops import pair_block
+
+    saved = layers.dp, pair_block.dp
+    local = types.SimpleNamespace(**{k: getattr(saved[0], k) for k in dir(saved[0])
+                                     if not k.startswith("__")})
+    local.global_sum = lambda x: x
+    layers.dp = pair_block.dp = local
+    try:
+        yield
+    finally:
+        layers.dp, pair_block.dp = saved
+
+
+@contextlib.contextmanager
+def summed_grads():
+    """A planted fault for the bars' witness: the world-size factor dropped
+    (parameter gradients summed over the ranks, not averaged)."""
+    from moleculesde_tpu_torch.parallel import collectives as dp
+
+    average = dp.average_grads
+
+    def summed(params):
+        params = list(params)
+        average(params)
+        for p in params:
+            if p.grad is not None:
+                p.grad.mul_(dp.world_size())
+
+    dp.average_grads = summed
+    try:
+        yield
+    finally:
+        dp.average_grads = average
+
+
+DP_FAULTS = {"BatchNorm statistics per rank": local_batch_norm,
+             "gradients summed over the ranks": summed_grads}
+
+
+def plain_copy(cfg, models, dev):
+    """An all-plain build (no kernel) of ``models``' weights and statistics."""
+    from moleculesde_tpu_torch.pretrain.train_state import build_models
+
+    plain = build_models(cfg, dev, impl="plain")
+    for name in models:
+        plain[name].load_state_dict(models[name].state_dict())
+    return plain
+
+
+def dp_setup(dev, precision: str):
+    """(cfg, models, optimizer, the first global batch on the host) at the
+    pretraining CLI's defaults (compact ingest, K2, B=128, n_max 32) in
+    ``precision``, weights from the seed."""
+    from moleculesde_tpu_torch.benchmarks.profile_pretrain import COMMON_ARGS, parse_path
+    from moleculesde_tpu_torch.examples import pretrain as cli
+
+    args = parse_path(COMMON_ARGS + ["--train_precision", precision], batches=1)
+    cfg, models, optimizer, _ = cli.setup(args, dev)
+    batch, _ = next(iter(cli.make_loader(cli.load_graphs(args), args)))
+    return cfg, models, optimizer, batch
+
+
+def dp_grads(dev, cfg, models, batch, seed: int):
+    """One step's (loss terms, component gradient norms before Adam, running
+    statistics) under the active group (gradients averaged over its ranks),
+    masks and draws from ``seed``; the models' state is left as it was."""
+    from moleculesde_tpu_torch.parallel import collectives as dp
+    from moleculesde_tpu_torch.pretrain.train_step import pretrain_grads
+
+    saved = {n: {k: v.clone() for k, v in m.state_dict().items()} for n, m in models.items()}
+    for m in models.values():
+        m.zero_grad(set_to_none=True)
+    metrics = pretrain_grads(models, cfg, batch, torch.Generator(device=dev).manual_seed(seed))
+    dp.average_grads(p for m in models.values() for p in m.parameters())
+    stats = {f"{c}.{n}": b.detach().float().cpu().clone() for c, m in models.items()
+             for n, b in m.named_buffers()}
+    stats.update({f"grad {c}.{n}": p.grad.detach().float().cpu().clone()
+                  for c, m in models.items() for n, p in m.named_parameters()
+                  if p.grad is not None})
+    out = ({k: float(v.detach()) for k, v in metrics.items()}, _grad_norms(models), stats)
+    for n, m in models.items():
+        m.load_state_dict(saved[n])
+        m.zero_grad(set_to_none=True)
+    return out
+
+
+def dp_errors(mine, ref) -> dict:
+    """Loss terms and gradient norms relative, running statistics relative to
+    max(1, their largest value)."""
+    from moleculesde_tpu_torch.pretrain.train_step import METRICS
+
+    (mk, gk, sk), (mr, gr, sr) = mine, ref
+    errs = {f"loss {k}": abs(mk[k] - mr[k]) / max(1e-6, abs(mr[k])) for k in METRICS}
+    errs.update({f"|grad {n}|": abs(gk[n] - gr[n]) / max(1e-12, gr[n]) for n in gr})
+    errs.update({f"stat {k}": (sk[k] - v).abs().max().item() / max(1.0, v.abs().max().item())
+                 for k, v in sr.items() if not k.startswith("grad ")})
+    return errs
+
+
+def dp_reading(label, mine, ref) -> float:
+    """Print the worst values of :func:`dp_errors` and the gradient leaves
+    that carry the norm, relative L2 (the biases in front of a BatchNorm
+    hold rounding noise, zero in exact arithmetic); returns the worst."""
+    _, _, sr = ref
+    _, _, sk = mine
+    top = max(v.norm().item() for k, v in sr.items() if k.startswith("grad "))
+    leaves = {k: ((sk[k] - v).norm() / v.norm()).item() for k, v in sr.items()
+              if k.startswith("grad ") and v.norm().item() >= 1e-3 * top}
+    print(f"{label}: gradient leaves within 1e-3 of the largest, relative L2, worst "
+          + ", ".join(
+        f"{k[5:]} {v:.2e} (|g| {sr[k].norm().item():.3e})"
+        for k, v in sorted(leaves.items(), key=lambda kv: -kv[1])[:6]), flush=True)
+    worst = sorted(dp_errors(mine, ref).items(), key=lambda kv: -kv[1])
+    print(f"{label}: {len(worst)} values, worst " + ", ".join(
+        f"{k} {v:.2e}" for k, v in worst[:4]), flush=True)
+    return worst[0][1]
+
+
+def dp_against(label, mine, ref, tol: float) -> float:
+    """:func:`dp_reading`, each value held to ``tol``; returns the worst."""
+    worst = dp_reading(f"{label} (tolerance {tol:g})", mine, ref)
+    for k, v in dp_errors(mine, ref).items():
+        check(v <= tol, f"{label}: {k} off by {v:.3e}")
+    return worst
+
+
+def dp_chain_args():
+    """The sampler CLI's chain of phase 3 (B=64 clones, 20 PC x 1 corrector
+    step) in f32."""
+    from moleculesde_tpu_torch.benchmarks.profile_sampler import PATH_ARGS
+    from moleculesde_tpu_torch.examples import sample_2d_to_3d as s2d
+
+    return s2d.get_parser().parse_args(PATH_ARGS + ["--sampler_precision", "float32"])
+
+
+def dp_chain(dev):
+    """The 2D->3D chain through the sampler CLI's functions (the rank's
+    block under a group): (positions, launch counts)."""
+    from moleculesde_tpu_torch.examples import sample_2d_to_3d as s2d
+
+    args = dp_chain_args()
+    batch = s2d.make_batch(s2d.load_graphs(args), args, dev)
+    model_2d, sde_model = s2d.build_models(args, dev)
+    reset_counts()
+    pos = s2d.generate(model_2d, sde_model, batch, torch.Generator(device=dev).manual_seed(
+        args.seed), args)
+    torch.cuda.synchronize()
+    return pos, read_counts()
+
+
+def _every_rank(counts: dict) -> list:
+    """Each rank's launch counts (gathered from every rank)."""
+    from moleculesde_tpu_torch.parallel import collectives as dp
+
+    names = sorted(counts)
+    rows = dp.all_gather_rows(torch.tensor([[counts[k] for k in names]]))
+    return [dict(zip(names, map(int, row))) for row in rows.tolist()]
+
+
+def _dp_shared_rank(group, dev):
+    """One of two gloo ranks on the card: the step of each precision on the
+    rank's block of the global batch (and each rank's launches), the
+    bf16 step's and the gradient all-reduce's wall ms, the chain's
+    positions (gathered) and launches."""
+    from moleculesde_tpu_torch.parallel import collectives as dp
+    from moleculesde_tpu_torch.parallel import mesh
+
+    full_f32()   # a spawned process starts with torch's defaults
+    out = {}
+    for precision, seed, _ in DP_PRECISIONS:
+        cfg, models, optimizer, batch = dp_setup(dev, precision)
+        block = mesh.rank_block(batch, group.rank, group.world).to(dev)
+        reset_counts()
+        res = dp_grads(dev, cfg, models, block, seed)
+        torch.cuda.synchronize()
+        out[precision] = (res, _every_rank(read_counts()))
+        # the bars' witnesses: the all-plain build, and the planted faults
+        out[f"plain {precision}"] = dp_grads(dev, cfg, plain_copy(cfg, models, dev), block, seed)
+        for fault, planted in DP_FAULTS.items():
+            with planted():
+                out[f"{fault} {precision}"] = dp_grads(dev, cfg, models, block, seed)
+        if precision != "bfloat16":
+            continue
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = [p for m in models.values() for p in m.parameters()]
+        step_ms, reduce_ms = [], []
+        for i in range(5):   # 2 warm-up steps, then 3 timed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mesh.pretrain_step(models, optimizer, cfg, block, group, gen)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            dp.average_grads(params)   # the step's all-reduce once more, alone
+            torch.cuda.synchronize()
+            if i >= 2:
+                step_ms.append((t1 - t0) * 1e3)
+                reduce_ms.append((time.perf_counter() - t1) * 1e3)
+        out["step_ms"], out["all_reduce_ms"] = step_ms, reduce_ms
+    pos, counts = dp_chain(dev)
+    out["chain"] = (dp.all_gather_rows(pos).cpu(), _every_rank(counts))
+    return out
+
+
+def data_parallel_path(dev, card: str):
+    """Phase 18: data parallelism at the pretraining CLI's defaults: the
+    refusal of 2 ranks on the one card; a 1-rank NCCL group's step (launch
+    counts K1 5 / 5, K2 6 / 6, K3 1 / 1) and its loss terms, gradient norms
+    and running statistics against the step with no group (1e-5); two gloo
+    ranks sharing the card on the two blocks of the global batch (B=128, 64
+    a rank) against the one-process step, bf16 1e-2 and f32 1e-4, each bar
+    checked to sit below the readings of two planted faults (DP_FAULTS),
+    with the all-plain build's readings beside them, each rank's launches,
+    the step's and the all-reduce's wall ms; the 2D->3D
+    chain on the two ranks against the one-process chain (f32, atol 2e-4 /
+    rtol 1e-3, K1 5 and K3 1 a rank).  The bars: ``DP_PRECISIONS``.
+    Returns (launch counts by run, the printed figures)."""
+    import os
+
+    from moleculesde_tpu_torch.examples import pretrain as cli
+    from moleculesde_tpu_torch.parallel import collectives as dp
+    from moleculesde_tpu_torch.parallel import mesh
+
+    try:
+        cli.main(["--dataset", "synthetic", "--num_devices", "2"])
+        check(False, "--num_devices 2 ran on one card")
+    except ValueError as e:
+        print(f"--num_devices 2 on one card: {e}", flush=True)
+        check("1 is visible" in str(e), f"the refusal does not name 1 visible card: {e}")
+
+    refs, runs = {}, {}
+    for precision, seed, _ in DP_PRECISIONS:
+        cfg, models, optimizer, batch = dp_setup(dev, precision)
+        refs[precision] = dp_grads(dev, cfg, models, batch.to(dev), seed)
+        refs[f"plain {precision}"] = dp_grads(dev, cfg, plain_copy(cfg, models, dev),
+                                              batch.to(dev), seed)
+    # a 1-rank NCCL group through parallel/ (env://, as a launcher sets it)
+    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(mesh.free_port()),
+           "WORLD_SIZE": "1", "RANK": "0"}
+    os.environ.update(env)
+    try:
+        mesh.initialize_distributed(device=dev)
+        group = mesh.current_group()
+        check(group.backend == "nccl" and group.world == 1, f"group {group}")
+        cfg, models, optimizer, batch = dp_setup(dev, "bfloat16")
+        batch = batch.to(dev)
+        with dp.data_parallel(group):
+            seed = DP_PRECISIONS[0][1]
+            dp_against("1-rank NCCL group vs no group, bf16",
+                       dp_grads(dev, cfg, models, batch, seed), refs["bfloat16"], 1e-5)
+            reset_counts()
+            metrics = mesh.pretrain_step(models, optimizer, cfg, batch, group,
+                                         torch.Generator(device=dev).manual_seed(seed))
+            torch.cuda.synchronize()
+        runs["pretrain_data_parallel_nccl_1_rank"] = launches = read_counts()
+        expected = expect(gin_messages=5, gin_messages_bwd=5, fused_cfconv=6,
+                          fused_cfconv_bwd=6, pair_relu_project=1, pair_relu_project_bwd=1)
+        print(f"1-rank NCCL step launches {launches}", flush=True)
+        check(launches == expected, f"1-rank NCCL step launches {launches}")
+        check(all(math.isfinite(float(v)) for v in metrics.values()), f"metrics {metrics}")
+    finally:
+        torch.distributed.destroy_process_group()
+        for k in env:
+            os.environ.pop(k)
+
+    t0 = time.perf_counter()
+    shared = mesh.spawn(_dp_shared_rank, 2, dev, backend="gloo", same_card=True,
+                        deadline_s=DP_DEADLINE_S)
+    spawn_s = time.perf_counter() - t0
+    # each bar sits between the honest reading and the planted faults'
+    faults = {}
+    for precision, _, _ in DP_PRECISIONS:
+        for fault in DP_FAULTS:
+            faults[fault, precision] = dp_reading(
+                f"planted fault ({fault}), 2 gloo ranks vs one process, {precision}",
+                shared[f"{fault} {precision}"], refs[precision])
+        dp_reading(f"all-plain build, 2 gloo ranks vs one process, {precision}",
+                   shared[f"plain {precision}"], refs[f"plain {precision}"])
+        dp_reading(f"one process, kernels vs all-plain build, {precision}", refs[precision],
+                   refs[f"plain {precision}"])
+    dp_reading("one process, bfloat16 vs float32 (same weights and draws)", refs["bfloat16"],
+               refs["float32"])
+    for precision, _, tol in DP_PRECISIONS:
+        for fault in DP_FAULTS:
+            check(faults[fault, precision] > tol, f"the {precision} bar {tol:g} does not catch "
+                  f"{fault} ({faults[fault, precision]:.3e})")
+    for precision, _, tol in DP_PRECISIONS:
+        res, counts = shared[precision]
+        dp_against(f"2 gloo ranks on one card vs one process, {precision}", res,
+                   refs[precision], tol)
+        for r, c in enumerate(counts):
+            runs[f"pretrain_data_parallel_gloo_{precision}_rank{r}"] = c
+            check(c == expected, f"rank {r}'s {precision} step launches {c}")
+    pos_ref, _ = dp_chain(dev)
+    pos, counts = shared["chain"]
+    err = (pos - pos_ref.cpu()).abs()
+    bar = 2e-4 + 1e-3 * pos_ref.cpu().abs()
+    print(f"2D->3D chain, 2 gloo ranks on one card vs one process: max_abs_err "
+          f"{err.max().item():.3e}, worst err / bar {(err / bar).max().item():.3f}", flush=True)
+    check(bool((err <= bar).all()), "the two ranks' chain disagrees with one process")
+    for r, c in enumerate(counts):
+        runs[f"sample_2d_to_3d_data_parallel_rank{r}"] = c
+        check(c == expect(gin_messages=5, pair_relu_project=1), f"rank {r}'s chain launches {c}")
+    figures = {"label": "two ranks sharing one card over gloo (host-staged collectives); "
+                        "not scaling", "global_batch": 128, "per_rank": 64,
+               "step_ms": shared["step_ms"], "all_reduce_ms": shared["all_reduce_ms"],
+               "spawn_and_run_s": spawn_s, "card": card}
+    print(f"data parallel, two ranks sharing one card over gloo (not scaling): bf16 step "
+          f"wall_ms {shared['step_ms']} (B=128, 64 a rank), gradient all-reduce wall_ms "
+          f"{shared['all_reduce_ms']}; spawn and run {spawn_s:.1f} s", flush=True)
+    return runs, figures
+
+
 def _hmma_per_function(build, source: str) -> dict:
     """{kernel function: HMMA instructions} of a built library's SASS
     (``cuobjdump -sass``, split at its ``Function :`` headers)."""
@@ -3162,14 +3518,21 @@ def tensor_core_note(build) -> None:
     check(sum(modes["f32"]) == 0, "an f32 instantiation of K8's backward issues HMMA")
 
 
+def full_f32() -> None:
+    """f32 products in full f32 (no TF32), for the plain versions and the
+    references; every process of the script (the ranks that it spawns too)
+    sets it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     from moleculesde_tpu_torch.kernels import build
 
-    torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in full f32
-    torch.backends.cudnn.allow_tf32 = False
+    full_f32()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60)
@@ -3220,6 +3583,8 @@ def main() -> int:
     done("model surface (phase 16)")
     packed_launches, packed_figures = packed_path(dev, card)
     done("the CLIs on a packed cache (phase 17)")
+    dp_launches, dp_figures = data_parallel_path(dev, card)
+    done("data parallelism (phase 18)")
     device_time_phase()
     done("device times")
 
@@ -3236,7 +3601,7 @@ def main() -> int:
                for scope, counts in microbatch_launches.items()},
             "pretrain_painn_2_steps": painn_launches,
             **large_n_launches, "pretrain_buckets_cli": bucket_launches, **finetune_launches,
-            **surface_launches, **packed_launches}
+            **surface_launches, **packed_launches, **dp_launches}
     keys = ("max_abs_err", "ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms",
             "bound_by")
     k6_keys = keys + ("max_rel_err",)
@@ -3333,6 +3698,7 @@ def main() -> int:
             **res("[L1]"), "library_ms": None, "mode": "bf16", "operands": "edge layer 1",
             "f32": res("[L1][f32]"), "layer_0": {"bf16": res("[L0]"), "f32": res("[L0][f32]")},
             **extra})
+    print(json.dumps({"data_parallel": dp_figures}))
     print(json.dumps({"pretrain_buckets_cli": bucket_figures}))
     print(json.dumps({"pretrain_packed": packed_figures, "card": card}))
     print(json.dumps({"finetune_molecules_per_s": finetune_rates, "card": card}))

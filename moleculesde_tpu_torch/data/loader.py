@@ -18,6 +18,13 @@ buckets, in the JAX package's order.  The finetunes' labels ride along
 (``num_tasks``: ``y`` [B, T]; ``with_forces``: ``forces``), and
 ``rotation_transform`` turns each training molecule by a random rotation
 drawn from the same generator, as JAX's ``GraphLoader._rotate`` does.
+
+A loader built with ``block=(rank, world)`` is one rank's view of a
+data-parallel run (``parallel/``): it visits the global batches of
+``batch_size`` molecules in the same order as every other rank's, and
+collates only the rank's block of each (``batch_size / world`` graphs,
+the block of a padded tail included), drawing the rotations of the whole
+global batch, so the ranks together see what one loader sees.
 """
 
 from __future__ import annotations
@@ -74,7 +81,10 @@ class GraphLoader:
                  collate: str = "padded", use_extend: bool = True,
                  collate_impl: str = "native", quiet_drops: bool = False,
                  num_tasks: Optional[int] = None, with_forces: bool = False,
-                 rotation_transform: bool = False):
+                 rotation_transform: bool = False, block: Optional[Tuple[int, int]] = None):
+        if block is not None and batch_size % block[1]:
+            raise ValueError(f"--batch_size {batch_size} does not split into {block[1]} "
+                             f"equal rank blocks")
         if collate not in ("padded", "compact"):
             raise ValueError(f"unknown collate {collate}")
         if collate_impl not in ("native", "numpy"):
@@ -95,6 +105,7 @@ class GraphLoader:
         self.num_tasks = num_tasks
         self.with_forces = with_forces
         self.rotation_transform = rotation_transform
+        self.block = block
         self._rng = np.random.default_rng(seed)
         self._warned_truncate = False
 
@@ -119,24 +130,30 @@ class GraphLoader:
     def collate_indices(self, idx: np.ndarray) -> Tuple[Batch, int]:
         """One batch of dataset indices.  No loader state changes, so worker
         threads may call it, unless ``rotation_transform`` draws from the
-        loader's generator."""
+        loader's generator.  With ``block`` the rank's block of the batch."""
         labels = dict(num_tasks=self.num_tasks, with_forces=self.with_forces)
+        nb, chunk = self.batch_size, None
+        if self.rotation_transform:   # every molecule's draw, the other ranks' too
+            chunk = [self._rotate(self.graphs[i]) for i in idx]
+        if self.block is not None:
+            rank, world = self.block
+            nb //= world
+            idx = idx[rank * nb:(rank + 1) * nb]
+            chunk = None if chunk is None else chunk[rank * nb:(rank + 1) * nb]
         if self.collate_mode == "compact":
             if hasattr(self.graphs, "num_atoms"):   # packed: gathers off the flat arrays
                 return collate_compact_packed(
                     self.graphs, idx, n_max=self.n_max, e_max=self.e_max,
-                    num_graphs=self.batch_size, use_extend=self.use_extend,
-                    **labels), len(idx)
+                    num_graphs=nb, use_extend=self.use_extend, **labels), len(idx)
             return collate_compact([self.graphs[i] for i in idx], n_max=self.n_max,
-                                   e_max=self.e_max, num_graphs=self.batch_size,
+                                   e_max=self.e_max, num_graphs=nb,
                                    use_extend=self.use_extend, **labels), len(idx)
-        chunk = [self.graphs[i] for i in idx]
-        if self.rotation_transform:
-            chunk = [self._rotate(g) for g in chunk]
+        if chunk is None:
+            chunk = [self.graphs[i] for i in idx]
         self._check_budgets(chunk)
         pad = native_pad_graphs if self.collate_impl == "native" else pad_graphs
         return pad(chunk, n_max=self.n_max, e_max=self.e_max, ext_e_max=self.ext_e_max,
-                   num_graphs=self.batch_size, **labels), len(chunk)
+                   num_graphs=nb, **labels), len(chunk)
 
     def _rotate(self, g: Dict) -> Dict:
         """``g`` with its positions turned by a random rotation: the Q of a
@@ -191,7 +208,8 @@ class BucketedGraphLoader:
     def __init__(self, graphs: Sequence[Dict], batch_size: int,
                  buckets: Sequence[int] = (16, 32, 64), e_max_factor: int = 4,
                  shuffle: bool = True, drop_last: bool = True, seed: int = 0,
-                 num_tasks: Optional[int] = None, with_forces: bool = False):
+                 num_tasks: Optional[int] = None, with_forces: bool = False,
+                 block: Optional[Tuple[int, int]] = None):
         self.buckets = sorted(buckets)
         graphs = _indexable(graphs)
         slot = np.minimum(np.searchsorted(np.asarray(self.buckets), _atom_counts(graphs),
@@ -204,7 +222,7 @@ class BucketedGraphLoader:
             self.loaders.append(GraphLoader(
                 gs, batch_size=batch_size, n_max=b, e_max=e_max_factor * b, ext_e_max=b * b,
                 shuffle=shuffle, drop_last=drop_last, seed=seed, quiet_drops=True,
-                num_tasks=num_tasks, with_forces=with_forces)
+                num_tasks=num_tasks, with_forces=with_forces, block=block)
                 if len(gs) else None)
         self.shuffle = shuffle
         self._rng = np.random.default_rng(seed)

@@ -5,20 +5,29 @@ The JAX package's finetune CLIs parse one flag surface
 them reads, with the same names and defaults, plus ``--device`` ("cuda":
 the CLIs raise without a GPU unless ``--device cpu``).  Flags whose values
 ask for what the port does not run are refused by name
-(:func:`check_supported`): ``--num_devices`` > 1, ``--distributed`` and
-``--dist_*``, ``--profile_dir``.
+(:func:`check_supported`): ``--distributed`` and ``--dist_*`` (the JAX
+finetunes parse them and do nothing with them), ``--profile_dir``.
+
+``--num_devices N`` > 1 runs N data-parallel ranks (``parallel/``, spawned
+by :func:`~moleculesde_tpu_torch.parallel.mesh.run_cli`): :func:`make_loader`
+then collates the rank's block of every batch (rotations drawn for the
+whole batch), the steps average their gradients over the ranks, the
+evaluations gather every rank's outputs (:func:`gathered`), so the metrics,
+the plateau controller and the best epoch are the whole set's on every
+rank, and :func:`writes` gives rank 0 alone the output directory.
 """
 
 from __future__ import annotations
 
 import argparse
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from moleculesde_tpu_torch.data.loader import GraphLoader
 from moleculesde_tpu_torch.examples.pretrain import refuse_unported
+from moleculesde_tpu_torch.parallel import collectives as dp
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -91,9 +100,11 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--graph_pooling", type=str, default="mean")
     p.add_argument("--JK", type=str, default="last")
     p.add_argument("--num_devices", type=int, default=0,
-                   help="data-parallel devices (0 -> one); > 1 is not ported yet")
+                   help="data-parallel ranks spawned here, one a card (0 -> one "
+                        "process); --device cpu: gloo ranks on the CPU")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-process data parallelism: not ported yet")
+                   help="multi-process data parallelism: parsed, as the JAX finetunes "
+                        "parse it, and refused")
     p.add_argument("--dist_coordinator", type=str, default="")
     p.add_argument("--dist_num_processes", type=int, default=0)
     p.add_argument("--dist_process_id", type=int, default=-1)
@@ -109,13 +120,19 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return args
 
 
-def check_supported(args) -> None:
+def check_supported(args, *batch_sizes: int) -> None:
+    """Refuse the flags the finetunes do not run, and batches (``--batch_size``
+    and ``batch_sizes``) that do not split over ``--num_devices`` ranks."""
     refuse_unported({
-        "--num_devices": args.num_devices > 1, "--distributed": args.distributed,
+        "--distributed": args.distributed,
         "--dist_coordinator": bool(args.dist_coordinator),
         "--dist_num_processes": args.dist_num_processes != 0,
         "--dist_process_id": args.dist_process_id != -1,
         "--profile_dir": bool(args.profile_dir)})
+    sizes = (args.batch_size,) + batch_sizes
+    if args.num_devices > 1 and any(b % args.num_devices for b in sizes):
+        raise ValueError(f"the batch sizes {' / '.join(map(str, sizes))} must be divisible by "
+                         f"--num_devices={args.num_devices}")
 
 
 def make_loader(graphs: Sequence[Dict], idx: np.ndarray, args, n_max: int, shuffle: bool,
@@ -123,10 +140,24 @@ def make_loader(graphs: Sequence[Dict], idx: np.ndarray, args, n_max: int, shuff
     """The finetune loader over ``graphs[idx]``: shuffled with drop_last for
     training, in order with a padded tail for evaluation, seeded by
     ``--seed``; ``labels`` are :class:`GraphLoader`'s ``num_tasks`` /
-    ``with_forces`` / ``rotation_transform``."""
+    ``with_forces`` / ``rotation_transform``.  Under a data-parallel group
+    it collates the rank's block of each batch."""
+    group = dp.active()
     return GraphLoader([graphs[i] for i in idx], batch_size=batch_size or args.batch_size,
                        n_max=n_max, e_max=args.e_max_factor * n_max, shuffle=shuffle,
-                       drop_last=shuffle, seed=args.seed, **labels)
+                       drop_last=shuffle, seed=args.seed,
+                       block=None if group is None else (group.rank, group.world), **labels)
+
+
+def gathered(x: torch.Tensor, n_real: int) -> Tuple[torch.Tensor, int]:
+    """A per-graph output of one evaluation batch as the whole batch's
+    (every rank's block, in order) and the batch's real graphs."""
+    return dp.all_gather_rows(x), int(dp.global_sum(torch.tensor(n_real, device=x.device)))
+
+
+def writes(args) -> str:
+    """The output directory on rank 0 ("" on the other ranks)."""
+    return args.output_model_dir if dp.rank() == 0 else ""
 
 
 def graph_mask(num_graphs: int, n_real: int, device) -> torch.Tensor:

@@ -20,7 +20,9 @@ Prints the JAX CLI's lines (per epoch "Epoch .. Loss .. val E MAE .. val F
 MAE .. test E MAE .. test F MAE", then "best test E MAE: .. F MAE: .."),
 and with ``--output_model_dir`` writes ``metrics.csv``,
 ``model_complete.pt`` and ``model_complete_final.pt``.  No kernel runs on
-this path.
+this path.  ``--num_devices N`` > 1 trains on N data-parallel ranks (the
+training and evaluation batch sizes divisible by N, as in JAX; see
+``finetune_flags.py``).
 
 Example:
   python -m moleculesde_tpu_torch.examples.finetune_md17 --dataset synthetic \\
@@ -41,12 +43,13 @@ from moleculesde_tpu_torch.data.loader import device_prefetch, suggest_buckets
 from moleculesde_tpu_torch.data.splitters import md17_split
 from moleculesde_tpu_torch.data.synthetic import random_molecule
 from moleculesde_tpu_torch.examples.finetune_flags import (
-    check_supported, flush_metrics, graph_mask, make_loader, parse_args)
+    check_supported, flush_metrics, graph_mask, make_loader, parse_args, writes)
 from moleculesde_tpu_torch.examples.finetune_qm9 import build_model as build_qm9_model
 from moleculesde_tpu_torch.finetune.common import BestTracker, make_optimizer, snapshot
 from moleculesde_tpu_torch.finetune.md17 import md17_eval, md17_step
 from moleculesde_tpu_torch.finetune.regression import RegressionModel
-from moleculesde_tpu_torch.utils.device import resolve_device
+from moleculesde_tpu_torch.parallel import collectives as dp
+from moleculesde_tpu_torch.parallel.mesh import run_cli
 from moleculesde_tpu_torch.utils.metrics import MetricsLogger
 from moleculesde_tpu_torch.utils.schedulers import make_lr_schedule
 
@@ -91,8 +94,8 @@ def train_epoch(model, optimizer, loader, device, schedule, step: int, e_shift: 
 
 def evaluate(model, loader, device, e_shift: float, e_scale: float):
     """(energy MAE, force MAE) on the raw scale over the real frames and
-    atoms (device scalars); NaN force labels count as no error
-    (reference finetune_MD17.py:127-130)."""
+    atoms (device scalars), every rank's under a data-parallel group; NaN
+    force labels count as no error (reference finetune_MD17.py:127-130)."""
     acc = [torch.zeros((), device=device) for _ in range(4)]
     for batch, n_real in device_prefetch(loader, device):
         gm = graph_mask(batch.num_graphs, n_real, device).float()
@@ -103,17 +106,31 @@ def evaluate(model, loader, device, e_shift: float, e_scale: float):
         vals = ((pred_e - batch.y[:, 0]).abs() * gm).sum(), gm.sum(), \
             (ferr * nm[..., None]).sum(), nm.sum() * 3
         acc = [a + v for a, v in zip(acc, vals)]
+    acc = [dp.global_sum(a) for a in acc]
     return acc[0] / acc[1].clamp(min=1.0), acc[2] / acc[3].clamp(min=1.0)
+
+
+def train_batch_size(args) -> int:
+    """``--MD17_train_batch_size`` on the real data, ``--batch_size`` on
+    synthetic frames."""
+    return max(args.MD17_train_batch_size if args.dataset != "synthetic" else args.batch_size,
+               1)
 
 
 def main(argv=None):
     args = parse_args(argv)
-    check_supported(args)
-    device = resolve_device(args.device)
+    check_supported(args, train_batch_size(args))
+    return run_cli(run, args, args.num_devices)
+
+
+def run(args, device):
+    """Finetune as the flags say on ``device``, as one rank of the active
+    data-parallel group or as the only process; returns the best epoch's
+    test (E MAE, F MAE)."""
     graphs = load_data(args)
     train_idx, valid_idx, test_idx = md17_split(len(graphs), seed=args.seed)
     n_max = args.n_max or suggest_buckets(graphs)
-    bs = max(args.MD17_train_batch_size if args.dataset != "synthetic" else args.batch_size, 1)
+    bs = train_batch_size(args)
     train_loader = make_loader(graphs, train_idx, args, n_max, True, batch_size=bs,
                                num_tasks=1, with_forces=True)
     val_loader = make_loader(graphs, valid_idx, args, n_max, False, num_tasks=1,
@@ -135,7 +152,8 @@ def main(argv=None):
         args.lr_decay_factor, args.lr_decay_step_size, args.min_lr,
         args.StepLRCustomized_scheduler)
     optimizer = make_optimizer(model, args.lr, args.decay)
-    logger = MetricsLogger(args.output_model_dir or None)
+    out_dir = writes(args)
+    logger = MetricsLogger(out_dir or None)
     zero = torch.zeros((), device=device)
     tracker = BestTracker("min")
     pending, step = [], 0
@@ -165,12 +183,12 @@ def main(argv=None):
     best_state, best_e, best_f = tracker.payload
     best = (float(best_e), float(best_f))
     print(f"best test E MAE: {best[0]:.6f}\tF MAE: {best[1]:.6f} (epoch {tracker.best_epoch})")
-    if args.output_model_dir:
-        os.makedirs(args.output_model_dir, exist_ok=True)
-        save_checkpoint(os.path.join(args.output_model_dir, "model_complete_final.pt"),
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        save_checkpoint(os.path.join(out_dir, "model_complete_final.pt"),
                         {"model": model}, vars(args))
         model.load_state_dict(best_state)
-        save_checkpoint(os.path.join(args.output_model_dir, "model_complete.pt"),
+        save_checkpoint(os.path.join(out_dir, "model_complete.pt"),
                         {"model": model}, vars(args))
     return best
 

@@ -21,6 +21,8 @@ train: .. val: .. test: .."), and with ``--output_model_dir`` writes
 "model"), ``model_complete_final.pt`` and ``evaluation_best.npz`` (the best
 model's test labels and scores).  On the GPU (the default) GIN's message
 blocks run the K1 kernel (the other encoders launch none); ``--device cpu`` runs the plain PyTorch path.
+``--num_devices N`` > 1 trains on N data-parallel ranks (``--batch_size``
+divisible by N, as in JAX; see ``finetune_flags.py``).
 
 Example:
   python -m moleculesde_tpu_torch.examples.finetune_moleculenet \\
@@ -41,12 +43,12 @@ from moleculesde_tpu_torch.data.loader import device_prefetch, suggest_buckets
 from moleculesde_tpu_torch.data.splitters import random_split, scaffold_split
 from moleculesde_tpu_torch.data.synthetic import random_molecule
 from moleculesde_tpu_torch.examples.finetune_flags import (
-    check_supported, flush_metrics, graph_mask, make_loader, parse_args)
+    check_supported, flush_metrics, gathered, graph_mask, make_loader, parse_args, writes)
 from moleculesde_tpu_torch.finetune.classification import (
     classification_eval, classification_step)
 from moleculesde_tpu_torch.finetune.common import BestTracker, make_optimizer, snapshot
 from moleculesde_tpu_torch.models.gnn2d import GNNGraphPred
-from moleculesde_tpu_torch.utils.device import resolve_device
+from moleculesde_tpu_torch.parallel.mesh import run_cli
 from moleculesde_tpu_torch.utils.metrics import MetricsLogger, roc_auc_mean
 from moleculesde_tpu_torch.utils.schedulers import make_lr_schedule
 
@@ -107,9 +109,9 @@ def evaluate(model, loader, device, collect: bool = False):
     scores, gms = list(ys), [torch.zeros(0, dtype=torch.bool, device=device)]
     for batch, n_real in device_prefetch(loader, device):
         gm = graph_mask(batch.num_graphs, n_real, device)
-        scores.append(classification_eval(model, batch))
-        ys.append(torch.where(gm[:, None], batch.y, 0.0))
-        gms.append(gm)
+        scores.append(gathered(classification_eval(model, batch), n_real)[0])
+        ys.append(gathered(torch.where(gm[:, None], batch.y, 0.0), n_real)[0])
+        gms.append(gathered(gm, n_real)[0])
     y, s = torch.cat(ys), torch.cat(scores)
     auc, n_ok = roc_auc_mean(y, s)
     return (auc, n_ok, y, s, torch.cat(gms)) if collect else (auc, n_ok)
@@ -118,7 +120,13 @@ def evaluate(model, loader, device, collect: bool = False):
 def main(argv=None):
     args = parse_args(argv)
     check_supported(args)
-    device = resolve_device(args.device)
+    return run_cli(run, args, args.num_devices)
+
+
+def run(args, device):
+    """Finetune as the flags say on ``device``, as one rank of the active
+    data-parallel group or as the only process; returns (best val AUC, its
+    test AUC)."""
     graphs, num_tasks, (train_idx, valid_idx, test_idx) = load_data(args)
     n_max = args.n_max or suggest_buckets(graphs)
     train_loader = make_loader(graphs, train_idx, args, n_max, True, num_tasks=num_tasks)
@@ -133,7 +141,8 @@ def main(argv=None):
         args.StepLRCustomized_scheduler)
     optimizer = make_optimizer(model, args.lr, args.decay)
     generator = torch.Generator(device=device).manual_seed(args.seed)
-    logger = MetricsLogger(args.output_model_dir or None)
+    out_dir = writes(args)
+    logger = MetricsLogger(out_dir or None)
     zero = torch.zeros((), device=device)
     # JAX's tracker starts from the initial state, so --epochs 0 still reports
     tracker = BestTracker("max", payload=(snapshot(model), zero, zero))
@@ -162,17 +171,19 @@ def main(argv=None):
         print(f"Some target is missing! Missing ratio: {1 - val_ok / num_tasks}")
     print(f"best train: {float(best_train):.6f}\tval: {tracker.best:.6f}\t"
           f"test: {float(best_test):.6f} (epoch {tracker.best_epoch})")
-    if args.output_model_dir:
-        os.makedirs(args.output_model_dir, exist_ok=True)
-        save_checkpoint(os.path.join(args.output_model_dir, "model_complete_final.pt"),
-                        {"model": model}, vars(args))
+    if args.output_model_dir:   # every rank: the evaluation gathers
+        if out_dir:
+            os.makedirs(out_dir, exist_ok=True)
+            save_checkpoint(os.path.join(out_dir, "model_complete_final.pt"),
+                            {"model": model}, vars(args))
         model.load_state_dict(best_state)
-        save_checkpoint(os.path.join(args.output_model_dir, "model_complete.pt"),
-                        {"model": model}, vars(args))
         # the best epoch's predictions (the reference's evaluation_best.pth)
         _, _, y, s, real = evaluate(model, test_loader, device, collect=True)
-        np.savez(os.path.join(args.output_model_dir, "evaluation_best.npz"),
-                 test_true=y[real].cpu().numpy(), test_scores=s[real].cpu().numpy())
+        if out_dir:
+            save_checkpoint(os.path.join(out_dir, "model_complete.pt"), {"model": model},
+                            vars(args))
+            np.savez(os.path.join(out_dir, "evaluation_best.npz"),
+                     test_true=y[real].cpu().numpy(), test_scores=s[real].cpu().numpy())
     return tracker.best, float(best_test)
 
 

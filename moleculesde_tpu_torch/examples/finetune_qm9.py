@@ -22,6 +22,8 @@ test .." per epoch, "best val: .. test: .."), and with
 best epoch's model), ``model_complete_final.pt`` and
 ``evaluation_best.npz``.  On the GPU (the default) SchNet's CFConv runs the
 K2 kernel; PaiNN runs eager; ``--device cpu`` runs the plain PyTorch path.
+``--num_devices N`` > 1 trains on N data-parallel ranks (``--batch_size``
+divisible by N, as in JAX; see ``finetune_flags.py``).
 
 Example:
   python -m moleculesde_tpu_torch.examples.finetune_qm9 --dataset synthetic \\
@@ -43,13 +45,14 @@ from moleculesde_tpu_torch.data.splitters import (
     qm9_random_customized_01, qm9_random_customized_02, random_split)
 from moleculesde_tpu_torch.data.synthetic import random_molecule
 from moleculesde_tpu_torch.examples.finetune_flags import (
-    check_supported, flush_metrics, graph_mask, make_loader, parse_args)
+    check_supported, flush_metrics, gathered, graph_mask, make_loader, parse_args, writes)
 from moleculesde_tpu_torch.finetune.common import BestTracker, make_optimizer, snapshot
 from moleculesde_tpu_torch.finetune.regression import (
     RegressionModel, regression_eval, regression_step)
 from moleculesde_tpu_torch.models.painn import PaiNN
 from moleculesde_tpu_torch.models.schnet import SchNet
-from moleculesde_tpu_torch.utils.device import resolve_device
+from moleculesde_tpu_torch.parallel import collectives as dp
+from moleculesde_tpu_torch.parallel.mesh import run_cli
 from moleculesde_tpu_torch.utils.metrics import MetricsLogger
 from moleculesde_tpu_torch.utils.schedulers import PlateauController, make_lr_schedule
 
@@ -122,20 +125,26 @@ def train_epoch(model, optimizer, loader, device, lr_of_step, step: int, y_mean:
 
 def evaluate(model, loader, device, y_mean: float, y_std: float) -> torch.Tensor:
     """The MAE on the raw scale over the loader's real graphs (device
-    scalar)."""
+    scalar), every rank's under a data-parallel group."""
     err, count = torch.zeros((), device=device), torch.zeros((), device=device)
     for batch, n_real in device_prefetch(loader, device):
         gm = graph_mask(batch.num_graphs, n_real, device).float()
         pred = regression_eval(model, batch) * y_std + y_mean
         err = err + ((pred - batch.y[:, 0]).abs() * gm).sum()
         count = count + gm.sum()
-    return err / count.clamp(min=1.0)
+    return dp.global_sum(err) / dp.global_sum(count).clamp(min=1.0)
 
 
 def main(argv=None):
     args = parse_args(argv)
     check_supported(args)
-    device = resolve_device(args.device)
+    return run_cli(run, args, args.num_devices)
+
+
+def run(args, device):
+    """Finetune as the flags say on ``device``, as one rank of the active
+    data-parallel group or as the only process; returns (best val MAE, its
+    test MAE)."""
     graphs = load_data(args)
     train_idx, valid_idx, test_idx = split(args, len(graphs))
     n_max = args.n_max or suggest_buckets(graphs)
@@ -162,7 +171,8 @@ def main(argv=None):
             args.lr_decay_factor, args.lr_decay_step_size, args.min_lr,
             args.StepLRCustomized_scheduler)
     optimizer = make_optimizer(model, args.lr, args.decay)
-    logger = MetricsLogger(args.output_model_dir or None)
+    out_dir = writes(args)
+    logger = MetricsLogger(out_dir or None)
     zero = torch.zeros((), device=device)
     tracker = BestTracker("min")
     pending, step = [], 0
@@ -189,21 +199,25 @@ def main(argv=None):
     best_state, best_test = tracker.payload
     print(f"best val: {tracker.best:.6f}\ttest: {float(best_test):.6f} "
           f"(epoch {tracker.best_epoch})")
-    if args.output_model_dir:
-        os.makedirs(args.output_model_dir, exist_ok=True)
-        save_checkpoint(os.path.join(args.output_model_dir, "model_complete_final.pt"),
-                        {"model": model}, vars(args))
+    if args.output_model_dir:   # every rank: the predictions are gathered
+        if out_dir:
+            os.makedirs(out_dir, exist_ok=True)
+            save_checkpoint(os.path.join(out_dir, "model_complete_final.pt"),
+                            {"model": model}, vars(args))
         model.load_state_dict(best_state)
-        save_checkpoint(os.path.join(args.output_model_dir, "model_complete.pt"),
-                        {"model": model}, vars(args))
         # the best epoch's test predictions (the reference's evaluation_best.pth)
         preds, trues = [], []
         for batch, n_real in device_prefetch(test_loader, device):
-            preds.append((regression_eval(model, batch)[:n_real] * y_std + y_mean).cpu())
-            trues.append(batch.y[:n_real, 0].cpu())
-        if preds:
-            np.savez(os.path.join(args.output_model_dir, "evaluation_best.npz"),
-                     test_pred=torch.cat(preds).numpy(), test_true=torch.cat(trues).numpy())
+            pred, n = gathered(regression_eval(model, batch) * y_std + y_mean, n_real)
+            preds.append(pred[:n].cpu())
+            trues.append(gathered(batch.y[:, 0], n_real)[0][:n].cpu())
+        if out_dir:
+            save_checkpoint(os.path.join(out_dir, "model_complete.pt"), {"model": model},
+                            vars(args))
+            if preds:
+                np.savez(os.path.join(out_dir, "evaluation_best.npz"),
+                         test_pred=torch.cat(preds).numpy(),
+                         test_true=torch.cat(trues).numpy())
     return tracker.best, float(best_test)
 
 

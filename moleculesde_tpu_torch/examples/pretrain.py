@@ -40,11 +40,31 @@ numpy raises in JAX.
 Runs on the GPU (``--device cuda``, the default) and raises without one;
 ``--device cpu`` runs the plain PyTorch path.  Every flag the JAX CLI reads
 is parsed with its name and default.  Not ported yet, and refused with a
-``NotImplementedError`` that names the flag: ``--num_devices`` > 1,
-``--distributed`` and ``--dist_*``, ``--profile_dir`` and
+``NotImplementedError`` that names the flag: ``--profile_dir`` and
 ``--debug_nans``.  ``--input_data_dir`` and ``--max_molecules`` are read
 only with the QM9 / PCQM4Mv2 datasets, as in JAX, so with synthetic
 molecules they change nothing.
+
+Data parallelism (``parallel/``), ``--batch_size`` being the global batch
+in both forms, as in JAX:
+
+- ``--num_devices N`` > 1 spawns N ranks here, one a visible card (more
+  ranks than cards raise), or N gloo ranks on the CPU with ``--device
+  cpu``.  Every rank builds the same loader and collates only its block of
+  each global batch, so ``--buckets`` take the same bucket on every rank.
+- ``--distributed`` (or ``--dist_num_processes`` > 1) makes this process
+  one rank of a group that meets at ``--dist_coordinator host:port`` with
+  ``--dist_num_processes`` and ``--dist_process_id``, or at a launcher's
+  ``env://``.  Each process trains on its ``shard_for_process`` share of
+  the molecules in batches of ``--batch_size`` / processes.  ``--buckets``
+  and ``--n_max 0`` would put different shapes on different ranks (JAX's
+  global assembly fails there) and are refused by name, and so is
+  ``--num_devices`` beside it (one rank a process).
+
+Each step is the global batch's step (the same loss terms and gradient on
+every rank, the same random stream as one process on the global batch
+with ``--num_devices``); rank 0 alone prints and writes ``metrics.csv`` and
+the checkpoints, and every rank reads ``--resume_from``.
 
 Example:
   python -m moleculesde_tpu_torch.examples.pretrain --dataset=synthetic \\
@@ -67,12 +87,13 @@ from moleculesde_tpu_torch.data.datasets import load_pcqm4mv2, load_qm9
 from moleculesde_tpu_torch.data.loader import (
     BucketedGraphLoader, GraphLoader, ThreadedLoader, device_prefetch, suggest_buckets)
 from moleculesde_tpu_torch.data.synthetic import random_molecule
+from moleculesde_tpu_torch.parallel import collectives as dp
+from moleculesde_tpu_torch.parallel import mesh
 from moleculesde_tpu_torch.pretrain.contrastive import METRICS as CL_METRICS
 from moleculesde_tpu_torch.pretrain.train_state import PretrainConfig, create_pretrain_state
 from moleculesde_tpu_torch.pretrain.train_step import METRICS, SCOPES, pretrain_step
 from moleculesde_tpu_torch.sde.base import SDE_PRESETS_2DTO3D, SDE_PRESETS_3DTO2D
 from moleculesde_tpu_torch.utils.checkpoints import load_train_state, save_train_state
-from moleculesde_tpu_torch.utils.device import resolve_device
 from moleculesde_tpu_torch.utils.metrics import MetricsLogger
 
 MODEL_2DTO3D_VARIANTS = {"SDEModel2Dto3D_01": 1, "SDEModel2Dto3D_02": 2,
@@ -177,10 +198,10 @@ def get_parser() -> argparse.ArgumentParser:
                    help="cap on the dataset's size (0 -> all); read with QM9 / "
                         "PCQM4Mv2 only, as in JAX")
     p.add_argument("--num_devices", type=int, default=0,
-                   help="data-parallel devices (0 -> one, as JAX with one "
-                        "process); > 1 is not ported yet")
+                   help="data-parallel ranks spawned here, one a card (0 -> one "
+                        "process); --device cpu: gloo ranks on the CPU")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-process data parallelism: not ported yet")
+                   help="this process is one rank of a group: --dist_* (or env://)")
     p.add_argument("--dist_coordinator", type=str, default="")
     p.add_argument("--dist_num_processes", type=int, default=0)
     p.add_argument("--dist_process_id", type=int, default=-1)
@@ -204,14 +225,30 @@ def refuse_unported(refused: dict) -> None:
             raise NotImplementedError(f"{flag} is not ported yet")
 
 
+def distributed(args) -> bool:
+    """Whether this process is one rank of a group (JAX's condition,
+    examples/pretrain.py:82)."""
+    return args.distributed or args.dist_num_processes > 1
+
+
 def check_supported(args) -> None:
-    """Raise on the flag values the port does not run yet."""
-    refuse_unported({
-        "--num_devices": args.num_devices > 1, "--distributed": args.distributed,
-        "--dist_coordinator": bool(args.dist_coordinator),
-        "--dist_num_processes": args.dist_num_processes != 0,
-        "--dist_process_id": args.dist_process_id != -1,
-        "--profile_dir": bool(args.profile_dir), "--debug_nans": args.debug_nans})
+    """Raise on the flag values the port does not run yet, and on those the
+    data-parallel forms refuse."""
+    refuse_unported({"--profile_dir": bool(args.profile_dir),
+                     "--debug_nans": args.debug_nans})
+    if distributed(args):
+        for flag, asked in (("--num_devices", args.num_devices > 1),
+                            ("--buckets", bool(args.buckets)),
+                            ("--n_max 0", args.n_max == 0)):
+            if asked:
+                raise ValueError(f"{flag} is refused under --distributed: "
+                                 + ("one process is one rank" if flag == "--num_devices" else
+                                    "each process's molecules would set its own batch shapes"))
+    world = args.num_devices if args.num_devices > 1 else 1
+    if args.batch_size % world:
+        raise ValueError(f"--batch_size {args.batch_size} must be divisible by "
+                         f"--num_devices={args.num_devices}")
+    mesh.check_microbatch(args.microbatch, world)
 
 
 def load_graphs(args):
@@ -243,20 +280,23 @@ def load_graphs(args):
     raise ValueError(f"unknown pretrain dataset {args.dataset}")
 
 
-def make_loader(graphs, args):
+def make_loader(graphs, args, block=None, batch_size=None):
     """The host loader: size buckets with ``--buckets`` (padded batches, no
     worker threads, as in JAX), else ``--ingest``'s loader at ``--n_max``
-    (or the suggested bucket at 0) in ``--num_workers`` threads."""
+    (or the suggested bucket at 0) in ``--num_workers`` threads; ``block``
+    ((rank, ranks)) collates the rank's block of each batch, ``batch_size``
+    overrides ``--batch_size``."""
+    batch_size = batch_size or args.batch_size
     if args.buckets:
-        return BucketedGraphLoader(graphs, batch_size=args.batch_size, buckets=args.buckets,
+        return BucketedGraphLoader(graphs, batch_size=batch_size, buckets=args.buckets,
                                    e_max_factor=args.e_max_factor, shuffle=True,
-                                   drop_last=True, seed=args.seed)
+                                   drop_last=True, seed=args.seed, block=block)
     n_max = args.n_max or suggest_buckets(graphs)
-    loader = GraphLoader(graphs, batch_size=args.batch_size, n_max=n_max,
+    loader = GraphLoader(graphs, batch_size=batch_size, n_max=n_max,
                          e_max=args.e_max_factor * n_max,
                          ext_e_max=args.ext_e_max or n_max * n_max,
                          shuffle=True, drop_last=True, seed=args.seed,
-                         collate=args.ingest, use_extend=args.use_extend_graph)
+                         collate=args.ingest, use_extend=args.use_extend_graph, block=block)
     return ThreadedLoader(loader, args.num_workers) if args.num_workers > 0 else loader
 
 
@@ -301,14 +341,35 @@ LOGGED = ("CL_loss", "CL_acc", "SDE_loss_2Dto3D", "SDE_loss_3Dto2D")
 def main(argv=None):
     args = get_parser().parse_args(argv)
     check_supported(args)
-    device = resolve_device(args.device)
-    loader = make_loader(load_graphs(args), args)
+    return mesh.run_cli(run, args, args.num_devices, distributed(args))
+
+
+def run(args, device):
+    """Train as the flags say, on ``device``, as one rank of the active
+    data-parallel group or as the only process; returns the printed
+    epochs' metrics."""
+    group = dp.active()
+    graphs = load_graphs(args)
+    if group is None:
+        loader = make_loader(graphs, args)
+    elif args.num_devices > 1:      # spawned ranks: one loader, each rank its block
+        loader = make_loader(graphs, args, block=(group.rank, group.world))
+    else:                           # a process of a group: its molecules, its share
+        if args.batch_size % group.world:
+            raise ValueError(f"--batch_size {args.batch_size} must be divisible by the "
+                             f"{group.world} processes")
+        mesh.check_microbatch(args.microbatch, group.world)
+        loader = make_loader(mesh.shard_for_process(graphs), args,
+                             batch_size=args.batch_size // group.world)
     cfg = config_from_args(args)
     state = create_pretrain_state(cfg, device, args.seed)
+    if group is not None:
+        mesh.replicate(state.models.values())
     if args.resume_from:
         state, extra = load_train_state(args.resume_from, state)
         print(f"resumed from {args.resume_from} at step {state.step} (extra: {extra})")
-    logger = MetricsLogger(args.output_model_dir or None)
+    writes = args.output_model_dir if dp.rank() == 0 else ""
+    logger = MetricsLogger(writes or None)
     optimal_loss = float("inf")
     history = []
     for epoch in range(1, args.epochs + 1):
@@ -332,7 +393,7 @@ def main(argv=None):
             temp_loss = (coeff_cl * accum["CL_loss"]
                          + args.SDE_coeff_generative_2Dto3D * accum["SDE_loss_2Dto3D"]
                          + args.SDE_coeff_generative_3Dto2D * accum["SDE_loss_3Dto2D"])
-            if temp_loss < optimal_loss and args.output_model_dir:
+            if temp_loss < optimal_loss and writes:
                 optimal_loss = temp_loss
                 print(f"save model with loss: {optimal_loss:.5f}")
                 _save(args, state.models, "model_complete.pt")
@@ -340,7 +401,7 @@ def main(argv=None):
                        echo="CL Loss: {:.5f}\tCL Acc: {:.5f}\t\tSDE 2Dto3D Loss: {:.5f}\t"
                             "SDE 3Dto2D Loss: {:.5f}".format(*(accum[k] for k in LOGGED)))
         print(f"Time: {time.time() - t0:.5f}\n")
-    if args.output_model_dir:
+    if writes:
         _save(args, state.models, "model_complete_final.pt")
         save_train_state(os.path.join(args.output_model_dir, "train_state.pt"), state,
                          extra={"epoch": args.epochs})

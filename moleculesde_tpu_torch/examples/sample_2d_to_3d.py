@@ -20,9 +20,13 @@ from ``--seed``; any other ``--dataset`` (the default QM9 included, as in
 JAX) reads the PCQM4Mv2 packed cache under
 ``<--input_data_dir>/<--dataset>`` (built there from the raw files on
 first use, RDKit needed only then), cut to ``--end`` molecules.  Every flag
-the JAX CLI reads is parsed with its name and default.  Not ported yet,
-and refused with a ``NotImplementedError`` that names the flag:
-``--num_devices`` > 1.  ``--JK concat`` raises a ``ValueError``: the JAX CLI
+the JAX CLI reads is parsed with its name and default.  ``--num_devices N``
+> 1 spawns N data-parallel ranks (``parallel/``; one a card, or gloo ranks
+with ``--device cpu``; ``--sample_mols_per_batch *
+--num_repeat_SDE_inference`` divisible by N, as in JAX): each rank runs the
+chain on its block of every batch of clones, with the draws of the whole
+batch and the score unchunked, and rank 0 gathers the conformers for COV /
+MAT, prints and writes.  ``--JK concat`` raises a ``ValueError``: the JAX CLI
 builds the 2D->3D model at ``--emb_dim`` and fails on the wider node
 representations.  So does a molecule of more than ``--n_max`` atoms among
 ``--start`` .. ``--end``, before any sampling: the padded batch would cut
@@ -47,13 +51,14 @@ from moleculesde_tpu_torch.core.batch import GraphBatch, pad_graphs
 from moleculesde_tpu_torch.data.datasets import load_pcqm4mv2
 from moleculesde_tpu_torch.data.loader import max_atoms
 from moleculesde_tpu_torch.data.synthetic import random_molecule
-from moleculesde_tpu_torch.examples.pretrain import MODEL_2DTO3D_VARIANTS, refuse_unported
+from moleculesde_tpu_torch.examples.pretrain import MODEL_2DTO3D_VARIANTS
 from moleculesde_tpu_torch.models.gnn2d import GNN2D
 from moleculesde_tpu_torch.models.score_2d3d import SDEModel2Dto3D
+from moleculesde_tpu_torch.parallel import collectives as dp
+from moleculesde_tpu_torch.parallel import mesh
 from moleculesde_tpu_torch.sampling.pc import sample_positions_pc
 from moleculesde_tpu_torch.sde.base import SDE_PRESETS_2DTO3D
 from moleculesde_tpu_torch.utils.checkpoints import load_components
-from moleculesde_tpu_torch.utils.device import resolve_device
 from moleculesde_tpu_torch.utils.rmsd import coverage_matching
 
 
@@ -101,7 +106,8 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--ext_e_max", type=int, default=0,
                    help="extended-edge budget (0 -> n_max^2)")
     p.add_argument("--num_devices", type=int, default=0,
-                   help="data-parallel devices (0 -> one); > 1 is not ported yet")
+                   help="data-parallel ranks spawned here, one a card (0 -> one "
+                        "process); --device cpu: gloo ranks on the CPU")
     p.add_argument("--threshold", type=float, default=0)
     p.add_argument("--generator", type=str, default="PC")
     p.add_argument("--input_model_file", type=str, default="")
@@ -115,7 +121,10 @@ def check_supported(args) -> None:
         raise ValueError(f"--JK concat gives {args.emb_dim * (args.num_layer + 1)}-wide node "
                          f"representations; the 2D->3D model reads --emb_dim {args.emb_dim} "
                          f"(the JAX CLI builds it at that width and fails on them too)")
-    refuse_unported({"--num_devices": args.num_devices > 1})
+    if args.num_devices > 1 and (args.sample_mols_per_batch * args.num_repeat_SDE_inference
+                                 % args.num_devices):
+        raise ValueError("--sample_mols_per_batch * --num_repeat_SDE_inference must be "
+                         f"divisible by --num_devices={args.num_devices}")
 
 
 def load_graphs(args):
@@ -143,11 +152,16 @@ def check_sizes(mols, n_max: int) -> None:
 
 def make_batch(mols: list, args, device) -> GraphBatch:
     """One padded batch on ``device``: each molecule of ``mols`` cloned
-    ``--num_repeat_SDE_inference`` times."""
+    ``--num_repeat_SDE_inference`` times (under a data-parallel group the
+    rank's block of it)."""
     n_max = args.n_max
-    return pad_graphs([g for g in mols for _ in range(args.num_repeat_SDE_inference)],
-                      n_max=n_max, e_max=args.e_max_factor * n_max,
-                      ext_e_max=args.ext_e_max or n_max * n_max).to(device)
+    batch = pad_graphs([g for g in mols for _ in range(args.num_repeat_SDE_inference)],
+                       n_max=n_max, e_max=args.e_max_factor * n_max,
+                       ext_e_max=args.ext_e_max or n_max * n_max)
+    group = dp.active()
+    if group is not None:
+        batch = mesh.rank_block(batch, group.rank, group.world)
+    return batch.to(device)
 
 
 def build_models(args, device, msg_impl: str = "auto", pair_impl: str = "auto",
@@ -188,13 +202,19 @@ def generate(model_2d, sde_model, batch, generator, args, fused: bool = False
             sde_model, node_2d, batch, generator,
             n_steps=args.num_diffusion_timesteps_2Dto3D_inference or None,
             corrector_steps=corrector_steps, fused=fused,
-            score_chunk=args.sampler_score_chunk or None)
+            score_chunk=None if dp.active() else args.sampler_score_chunk or None)
 
 
 def main(argv=None):
     args = get_parser().parse_args(argv)
     check_supported(args)
-    device = resolve_device(args.device)
+    return mesh.run_cli(run, args, args.num_devices)
+
+
+def run(args, device):
+    """Sample as the flags say on ``device``, as one rank of the active
+    data-parallel group or as the only process; returns the results (none
+    on ranks other than 0)."""
     mols = load_graphs(args)[args.start : args.end]
     check_sizes(mols, args.n_max)
     model_2d, sde_model = build_models(args, device)
@@ -211,7 +231,9 @@ def main(argv=None):
         padded = chunk + [chunk[-1]] * (k_mols - len(chunk))
         batch = make_batch(padded, args, device)
         t0 = time.perf_counter()
-        pos = generate(model_2d, sde_model, batch, sample_gen, args)
+        pos = dp.all_gather_rows(generate(model_2d, sde_model, batch, sample_gen, args))
+        if dp.rank() != 0:      # rank 0 scores and keeps the conformers
+            continue
         pos_all = pos.cpu().numpy().reshape(k_mols, rep, args.n_max, 3)
         chunk_dt = time.perf_counter() - t0
         for j, g in enumerate(chunk):
@@ -231,7 +253,7 @@ def main(argv=None):
             results.append(entry)
             print(msg)
 
-    if args.output_model_dir:
+    if args.output_model_dir and dp.rank() == 0:
         os.makedirs(args.output_model_dir, exist_ok=True)
         out = os.path.join(
             args.output_model_dir,

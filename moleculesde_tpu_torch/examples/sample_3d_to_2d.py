@@ -21,9 +21,12 @@ without JAX) or are drawn from ``--seed``.  The molecules are JAX's:
 reads the PCQM4Mv2 packed cache under ``<--input_data_dir>/<--dataset>``
 (built there from the raw files on first use, RDKit needed only then; its
 extended graph with ``--use_extend_graph``), cut to ``--end`` molecules.
-Every flag the JAX CLI reads is parsed with its name and default.  Not
-ported yet, and refused with a ``NotImplementedError`` that names the
-flag: ``--num_devices`` > 1.
+Every flag the JAX CLI reads is parsed with its name and default.
+``--num_devices N`` > 1 spawns N data-parallel ranks (``parallel/``; one a
+card, or gloo ranks with ``--device cpu``; ``--batch_size`` divisible by N,
+as in JAX): each rank runs the chain on its block of every batch, with the
+draws of the whole batch, and rank 0 gathers the graphs, prints and
+writes.
 
 Example:
   python -m moleculesde_tpu_torch.examples.sample_3d_to_2d --dataset=synthetic \\
@@ -43,14 +46,15 @@ import torch
 from moleculesde_tpu_torch.data.datasets import load_pcqm4mv2
 from moleculesde_tpu_torch.data.loader import GraphLoader
 from moleculesde_tpu_torch.data.synthetic import random_molecule
-from moleculesde_tpu_torch.examples.pretrain import MODEL_3DTO2D_VARIANTS, refuse_unported
+from moleculesde_tpu_torch.examples.pretrain import MODEL_3DTO2D_VARIANTS
 from moleculesde_tpu_torch.models.painn import PaiNN
 from moleculesde_tpu_torch.models.schnet import SchNet
 from moleculesde_tpu_torch.models.score_3d2d import SDEModel3Dto2D
+from moleculesde_tpu_torch.parallel import collectives as dp
+from moleculesde_tpu_torch.parallel import mesh
 from moleculesde_tpu_torch.sampling.pc import sample_graph_pc
 from moleculesde_tpu_torch.sde.base import SDE_PRESETS_3DTO2D
 from moleculesde_tpu_torch.utils.checkpoints import load_components
-from moleculesde_tpu_torch.utils.device import resolve_device
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -94,7 +98,9 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_diffusion_timesteps_3Dto2D_inference", type=int, default=20)
     p.add_argument("--n_max", type=int, default=32)
     p.add_argument("--e_max_factor", type=int, default=4)
-    p.add_argument("--num_devices", type=int, default=0)
+    p.add_argument("--num_devices", type=int, default=0,
+                   help="data-parallel ranks spawned here, one a card (0 -> one "
+                        "process); --device cpu: gloo ranks on the CPU")
     p.add_argument("--generator", type=str, default="PC")
     p.add_argument("--input_model_file", type=str, default="")
     p.add_argument("--output_model_dir", type=str, default="")
@@ -102,8 +108,9 @@ def get_parser() -> argparse.ArgumentParser:
 
 
 def check_supported(args) -> None:
-    """Raise on the flag values the port does not run yet."""
-    refuse_unported({"--num_devices": args.num_devices > 1})
+    """Raise on a batch that does not split over ``--num_devices`` ranks."""
+    if args.num_devices > 1 and args.batch_size % args.num_devices:
+        raise ValueError(f"--batch_size must be divisible by --num_devices={args.num_devices}")
 
 
 def load_graphs(args):
@@ -120,10 +127,10 @@ def load_graphs(args):
                          max_molecules=args.end or None, extend=args.use_extend_graph)
 
 
-def make_loader(graphs, args) -> GraphLoader:
+def make_loader(graphs, args, block=None) -> GraphLoader:
     return GraphLoader(graphs, batch_size=args.batch_size, n_max=args.n_max,
                        e_max=args.e_max_factor * args.n_max, shuffle=False,
-                       drop_last=False, seed=args.seed)
+                       drop_last=False, seed=args.seed, block=block)
 
 
 def build_models(args, device, attn_impl: str = "auto", bf16_attn: bool = True):
@@ -175,8 +182,16 @@ def generate(encoder, sde_model, batch, generator, args):
 def main(argv=None):
     args = get_parser().parse_args(argv)
     check_supported(args)
-    device = resolve_device(args.device)
-    loader = make_loader(load_graphs(args), args)
+    return mesh.run_cli(run, args, args.num_devices)
+
+
+def run(args, device):
+    """Generate as the flags say on ``device``, as one rank of the active
+    data-parallel group or as the only process; returns the results (on
+    every rank)."""
+    group = dp.active()
+    loader = make_loader(load_graphs(args), args,
+                         block=None if group is None else (group.rank, group.world))
     encoder, sde_model = build_models(args, device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
 
@@ -185,17 +200,18 @@ def main(argv=None):
         batch = batch.to(device)
         t0 = time.perf_counter()
         _, _, x_mean, adj_mean = generate(encoder, sde_model, batch, gen, args)
-        results.append({
-            "x_gen": x_mean[:n_real].cpu().numpy(),
-            "adj_gen": adj_mean[:n_real].cpu().numpy(),
-            "atom_feats_true": batch.atom_feats.reshape(
-                batch.num_graphs, batch.n_max, -1)[:n_real].cpu().numpy(),
-        })
+        feats = batch.atom_feats.reshape(batch.num_graphs, batch.n_max, -1)
+        # every rank's block, and the batch's real graphs (the first ones)
+        x_mean, adj_mean, feats = (dp.all_gather_rows(v) for v in (x_mean, adj_mean, feats))
+        n_real = int(dp.global_sum(torch.tensor(n_real, device=device)))
+        results.append({"x_gen": x_mean[:n_real].cpu().numpy(),
+                        "adj_gen": adj_mean[:n_real].cpu().numpy(),
+                        "atom_feats_true": feats[:n_real].cpu().numpy()})
         print(f"generated {n_real} graphs in {time.perf_counter() - t0:.2f}s")
         if len(results) * args.batch_size >= args.end > 0:
             break
 
-    if args.output_model_dir:
+    if args.output_model_dir and dp.rank() == 0:
         os.makedirs(args.output_model_dir, exist_ok=True)
         out = os.path.join(args.output_model_dir,
                            f"3D_to_2D_{args.generator}_{args.start}_{args.end}.pkl")

@@ -6,6 +6,9 @@ against labels in {-1, 0, +1}, where 0 marks a missing label, by the
 binary cross-entropy averaged over the valid entries (label not 0, graph
 real).  Training takes batch statistics and dropout from the caller's
 generator; evaluation takes the running statistics and no dropout.
+Under a data-parallel group (``parallel/``) the batch is the rank's block:
+the loss's mean is over every rank's valid entries and the step averages
+the gradients over the ranks before the update.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import torch
 from moleculesde_tpu_torch.core.batch import GraphBatch
 from moleculesde_tpu_torch.finetune.common import bce_with_logits, set_lr
 from moleculesde_tpu_torch.models.gnn2d import GNNGraphPred
+from moleculesde_tpu_torch.parallel import collectives as dp
 
 
 def classification_loss(model: GNNGraphPred, batch: GraphBatch, graph_mask: torch.Tensor,
@@ -25,7 +29,8 @@ def classification_loss(model: GNNGraphPred, batch: GraphBatch, graph_mask: torc
     y = batch.y
     is_valid = (y != 0) & graph_mask[:, None]
     loss_mat = bce_with_logits(pred, (y + 1) / 2)
-    return torch.where(is_valid, loss_mat, 0.0).sum() / is_valid.sum().clamp(min=1)
+    return (dp.global_sum(torch.where(is_valid, loss_mat, 0.0).sum())
+            / dp.global_sum(is_valid.sum()).clamp(min=1))
 
 
 def classification_step(model: GNNGraphPred, optimizer: torch.optim.Optimizer,
@@ -37,6 +42,7 @@ def classification_step(model: GNNGraphPred, optimizer: torch.optim.Optimizer,
     optimizer.zero_grad(set_to_none=True)
     loss = classification_loss(model, batch, graph_mask, generator)
     loss.backward()
+    dp.average_grads(model.parameters())
     optimizer.step()
     return loss.detach()
 

@@ -14,7 +14,10 @@ asked for one, as the JAX package's do.  Padded atoms sit at the origin;
 SchNet's distance guard keeps sqrt's derivatives finite there, and the
 boolean pair mask multiplies them by an exact 0.  Evaluation needs the
 gradient too: it runs under ``torch.enable_grad()`` on a leaf copy of the
-positions and builds no second-order graph.
+positions and builds no second-order graph.  Under a data-parallel group
+(``parallel/``) the forces stay the rank's own (no model here couples
+molecules), the two L1 means are over every rank's graphs and atoms, and
+the step averages the gradients over the ranks before the update.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 from moleculesde_tpu_torch.core.batch import GraphBatch
 from moleculesde_tpu_torch.finetune.common import set_lr
 from moleculesde_tpu_torch.finetune.regression import RegressionModel
+from moleculesde_tpu_torch.parallel import collectives as dp
 
 
 def energy_and_forces(model: RegressionModel, batch: GraphBatch, create_graph: bool = True
@@ -46,10 +50,10 @@ def md17_loss(model: RegressionModel, batch: GraphBatch, y_e: torch.Tensor,
     """(loss, {"energy_mae", "force_mae"}): the L1 errors of the energies
     over real graphs and of the force components over real atoms."""
     pred_e, pred_f = energy_and_forces(model, batch)
-    gm = graph_mask.to(pred_e.dtype)
-    e_loss = ((pred_e - y_e).abs() * gm).sum() / gm.sum().clamp(min=1.0)
+    e_loss = dp.masked_mean((pred_e - y_e).abs(), graph_mask)
     nm = batch.node_mask.to(pred_e.dtype)[:, None]
-    f_loss = ((pred_f - y_f).abs() * nm).sum() / (nm.sum() * 3).clamp(min=1.0)
+    f_loss = (dp.global_sum(((pred_f - y_f).abs() * nm).sum())
+              / (dp.global_sum(nm.sum()) * 3).clamp(min=1.0))
     return energy_coeff * e_loss + force_coeff * f_loss, {"energy_mae": e_loss,
                                                           "force_mae": f_loss}
 
@@ -64,6 +68,7 @@ def md17_step(model: RegressionModel, optimizer: torch.optim.Optimizer, batch: G
     optimizer.zero_grad(set_to_none=True)
     loss, parts = md17_loss(model, batch, y_e, y_f, graph_mask, energy_coeff, force_coeff)
     loss.backward()
+    dp.average_grads(model.parameters())
     optimizer.step()
     return {"loss": loss.detach(), **{k: v.detach() for k, v in parts.items()}}
 

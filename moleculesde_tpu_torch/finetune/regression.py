@@ -5,7 +5,9 @@ examples/finetune_QM9.py): the 3D encoder's pooled output through a
 ``linear`` head (``graph_pred_linear``; SchNet) or an ``mlp`` head
 (``Dense_0``, SiLU, ``Dense_1``; PaiNN, reference painn.py:205-213), one
 value per graph.  Targets are z-scored by the caller; the loss is the L1
-("mae") or L2 ("mse") error over the real graphs.
+("mae") or L2 ("mse") error over the real graphs, of every rank under a
+data-parallel group (``parallel/``), whose step averages the gradients over
+the ranks before the update.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from torch import nn
 from moleculesde_tpu_torch.core.batch import GraphBatch
 from moleculesde_tpu_torch.finetune.common import set_lr
 from moleculesde_tpu_torch.models.layers import Dense, init_parameters
+from moleculesde_tpu_torch.parallel import collectives as dp
 
 HEADS = ("linear", "mlp")
 
@@ -61,8 +64,7 @@ def regression_loss(model: RegressionModel, batch: GraphBatch, y_norm: torch.Ten
                     graph_mask: torch.Tensor, loss_type: str = "mae") -> torch.Tensor:
     err = model(batch) - y_norm
     per = err.abs() if loss_type == "mae" else err ** 2
-    m = graph_mask.to(per.dtype)
-    return (per * m).sum() / m.sum().clamp(min=1.0)
+    return dp.masked_mean(per, graph_mask)
 
 
 def regression_step(model: RegressionModel, optimizer: torch.optim.Optimizer,
@@ -74,6 +76,7 @@ def regression_step(model: RegressionModel, optimizer: torch.optim.Optimizer,
     optimizer.zero_grad(set_to_none=True)
     loss = regression_loss(model, batch, y_norm, graph_mask, loss_type)
     loss.backward()
+    dp.average_grads(model.parameters())
     optimizer.step()
     return loss.detach()
 

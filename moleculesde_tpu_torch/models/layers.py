@@ -9,7 +9,10 @@ stores it), so a converted flax tree loads with ``load_state_dict``
   apply it or read its raw ``kernel`` / ``bias``.
 - :class:`MaskedBatchNorm` takes statistics over valid rows only (biased
   variance, eps 1e-5) and updates its running statistics as
-  ``0.9 * old + 0.1 * new``.
+  ``0.9 * old + 0.1 * new``; under a data-parallel group
+  (:mod:`~moleculesde_tpu_torch.parallel.collectives`) from the sums and
+  counts of all ranks, the mean first, then the variance about it, so the
+  running statistics end the same on every rank.
 - :class:`PairMaskedBatchNorm` does the same over an implicit pair tensor
   and returns the normalization folded into the two node halves.
 - :class:`LayerNorm` is flax's: eps 1e-6, statistics in f32 even under a
@@ -26,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from moleculesde_tpu_torch.ops.pair_block import pair_mean_var
+from moleculesde_tpu_torch.parallel import collectives as dp
 
 ACTIVATIONS = {"relu": F.relu, "silu": F.silu, "elu": F.elu, "tanh": torch.tanh}
 
@@ -34,13 +38,17 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
             deterministic: bool = False) -> torch.Tensor:
     """flax ``nn.Dropout``: keep each entry with probability ``1 - rate``
     and scale the kept ones by ``1 / (1 - rate)`` (in x's dtype); the keep
-    mask is drawn from ``generator`` (the global generator when None)."""
+    mask is drawn from ``generator`` (the global generator when None).
+    Under a data-parallel group ``x`` is the rank's block (axis 0) of the
+    global batch's tensor: the mask is drawn at the global shape and the
+    rank keeps its block."""
     if deterministic or rate == 0.0:
         return x
     if rate == 1.0:
         return torch.zeros_like(x)
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    keep = dp.block(torch.rand(dp.global_shape(x.shape), generator=generator,
+                               device=x.device)) < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -153,14 +161,14 @@ class MaskedBatchNorm(nn.Module):
         if use_running_average:
             mean, var = self.mean, self.var
         else:
-            if mask is None:
+            if mask is None and dp.active() is None:
                 mean = x.mean(dim=0)
                 var = x.var(dim=0, unbiased=False)
-            else:
-                m = mask.float()[:, None]
-                count = m.sum().clamp(min=1.0)
-                mean = (x * m).sum(dim=0) / count
-                var = (((x - mean) ** 2) * m).sum(dim=0) / count
+            else:   # under a data-parallel group: sums and counts over all ranks
+                m = (torch.ones_like(x[:, :1]) if mask is None else mask.float()[:, None])
+                count = dp.global_sum(m.sum()).clamp(min=1.0)
+                mean = dp.global_sum((x * m).sum(dim=0)) / count
+                var = dp.global_sum((((x - mean) ** 2) * m).sum(dim=0)) / count
             self._update(mean, var)
         return (x - mean) / torch.sqrt(var + self.epsilon) * self.scale + self.bias
 

@@ -39,6 +39,7 @@ from moleculesde_tpu_torch.ops.common import EPSILON, SQRT_GUARD
 from moleculesde_tpu_torch.ops.fourier import (
     gaussian_fourier_projection, gaussian_fourier_projection_cm)
 from moleculesde_tpu_torch.ops.pair_block import pair_relu_project, pair_relu_project_cm
+from moleculesde_tpu_torch.parallel import collectives as dp
 from moleculesde_tpu_torch.sde.base import SDE, make_sde
 from moleculesde_tpu_torch.utils.device import resolve_device
 
@@ -609,11 +610,16 @@ class SDEModel2Dto3D(nn.Module):
     def draw(self, batch: GraphBatch, generator: Optional[torch.Generator]
              ) -> Dict[str, torch.Tensor]:
         """The loss's random draws: ``pos_noise`` [B*N, 3] ~ N(0, 1) and the
-        antithetic timestep half ``half`` [B // 2 + 1] ~ U{0 .. steps-1}."""
+        antithetic timestep half ``half`` [B // 2 + 1] ~ U{0 .. steps-1}.
+        Under a data-parallel group both are drawn at the global batch's
+        shape: ``pos_noise`` is the rank's block, ``half`` the global
+        batch's, of which :meth:`loss` takes the rank's block of mirrored
+        timesteps."""
         dev = batch.positions.device
-        return {"pos_noise": torch.randn((batch.num_nodes, 3), generator=generator,
-                                         device=dev),
-                "half": torch.randint(0, self.sde_pos.N, (batch.num_graphs // 2 + 1,),
+        return {"pos_noise": dp.block(torch.randn(dp.global_shape((batch.num_nodes, 3)),
+                                                  generator=generator, device=dev)),
+                "half": torch.randint(0, self.sde_pos.N,
+                                      (dp.global_shape((batch.num_graphs,))[0] // 2 + 1,),
                                       generator=generator, device=dev)}
 
     def loss(self, node_2d_repr: torch.Tensor, batch: GraphBatch,
@@ -632,7 +638,7 @@ class SDEModel2Dto3D(nn.Module):
         node2graph = batch.node2graph()
         d = draws if draws is not None else self.draw(batch, generator)
         pos_noise, half = d["pos_noise"], d["half"]
-        time_step = torch.cat([half, sde.N - half - 1])[:b]
+        time_step = dp.block(torch.cat([half, sde.N - half - 1])[:dp.global_shape((b,))[0]])
         time_step = time_step / sde.N * (1 - EPSILON) + EPSILON
         t_pos = time_step[node2graph]
         mean_pos, std_pos = sde.marginal_prob(batch.positions, t_pos)
@@ -642,7 +648,7 @@ class SDEModel2Dto3D(nn.Module):
         loss_pos = ((scores - pos_noise) ** 2).sum(dim=-1)
         if anneal_power != 0.0:
             loss_pos = loss_pos * std_pos ** anneal_power
-        return masked_segment_mean(loss_pos, node2graph, b, batch.node_mask).mean()
+        return dp.global_mean(masked_segment_mean(loss_pos, node2graph, b, batch.node_mask))
 
     def _score_output(self, node_2d_repr, batch, pos, deterministic: bool,
                       use_running_average: bool,

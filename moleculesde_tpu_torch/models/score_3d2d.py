@@ -35,6 +35,7 @@ from moleculesde_tpu_torch.models.layers import MLP, Dense, init_parameters
 from moleculesde_tpu_torch.ops.attn_maps import attn_map_bank
 from moleculesde_tpu_torch.ops.attn_qk_bank import attn_qk_bank
 from moleculesde_tpu_torch.ops.common import EPSILON
+from moleculesde_tpu_torch.parallel import collectives as dp
 from moleculesde_tpu_torch.sde.base import SDE, make_sde
 from moleculesde_tpu_torch.utils.device import resolve_device
 
@@ -309,14 +310,16 @@ class SDEModel3Dto2D(nn.Module):
         """The loss's random draws: the antithetic timestep half ``half``
         [B // 2 + 1], the adjacency noise ``z_adj`` [B, N, N] (symmetrized
         by the loss) and the node noise ``z_x`` [B, N, X], all N(0, 1) but
-        ``half`` ~ U{0 .. steps-1}."""
-        b, n = batch.num_graphs, batch.n_max
+        ``half`` ~ U{0 .. steps-1}.  Under a data-parallel group each is
+        drawn at the global batch's shape; the noises are the rank's block,
+        ``half`` the global batch's."""
+        b, n = dp.global_shape((batch.num_graphs,))[0], batch.n_max
         dev = batch.positions.device
         xc = self.num_class_x if self.noise_on_one_hot else 1
         return {"half": torch.randint(0, self.sde.N, (b // 2 + 1,), generator=generator,
                                       device=dev),
-                "z_adj": torch.randn((b, n, n), generator=generator, device=dev),
-                "z_x": torch.randn((b, n, xc), generator=generator, device=dev)}
+                "z_adj": dp.block(torch.randn((b, n, n), generator=generator, device=dev)),
+                "z_x": dp.block(torch.randn((b, n, xc), generator=generator, device=dev))}
 
     def loss(self, node_3d_repr: torch.Tensor, batch: GraphBatch,
              generator: Optional[torch.Generator] = None, anneal_power: float = 0.0,
@@ -330,7 +333,7 @@ class SDEModel3Dto2D(nn.Module):
         sde = self.sde
         d = draws if draws is not None else self.draw(batch, generator)
         b = batch.num_graphs
-        t = torch.cat([d["half"], sde.N - d["half"] - 1])[:b]
+        t = dp.block(torch.cat([d["half"], sde.N - d["half"] - 1])[:dp.global_shape((b,))[0]])
         t = t / sde.N * (1 - EPSILON) + EPSILON
 
         edge_attr = torch.where(batch.edge_mask, batch.edge_feats[:, 0].float() + 1.0,
@@ -364,4 +367,4 @@ class SDEModel3Dto2D(nn.Module):
             v = v.reshape(b, -1)
             return v.mean(dim=-1) if reduce_mean else 0.5 * v.sum(dim=-1)
 
-        return reduce(losses_x).mean(), reduce(losses_adj).mean()
+        return dp.global_mean(reduce(losses_x)), dp.global_mean(reduce(losses_adj))

@@ -31,6 +31,7 @@ import torch
 
 from moleculesde_tpu_torch.kernels import build
 from moleculesde_tpu_torch.ops.common import SMEM_LIMIT, resolve_impl, round_bf16, stream
+from moleculesde_tpu_torch.parallel import collectives as dp
 
 _CHAN_TILE = 32            # the backward's output channels, H <= 32 (csrc/pair_block.cu)
 
@@ -40,21 +41,22 @@ def pair_mean_var(src: torch.Tensor, dst: torch.Tensor, pair_mask: torch.Tensor
     """Masked per-channel mean and biased variance of the implicit pair
     tensor ``x[b,s,d,:] = src[b,s,:] + dst[b,d,:]`` over pairs where
     ``pair_mask`` [B, N, N] is True, from degree-weighted node sums and one
-    bilinear cross term — the pair tensor is never built."""
+    bilinear cross term — the pair tensor is never built.  Under a
+    data-parallel group the sums and the count are over all ranks' graphs."""
     src = src.float()
     dst = dst.float()
     m = pair_mask.float()
     outdeg = m.sum(dim=2)  # [B, N] valid dests per source
     indeg = m.sum(dim=1)   # [B, N] valid sources per dest
-    count = m.sum().clamp(min=1.0)
-    mean = (torch.einsum("bs,bsc->c", outdeg, src)
-            + torch.einsum("bd,bdc->c", indeg, dst)) / count
+    count = dp.global_sum(m.sum()).clamp(min=1.0)
+    mean = dp.global_sum(torch.einsum("bs,bsc->c", outdeg, src)
+                         + torch.einsum("bd,bdc->c", indeg, dst)) / count
     # centre each half by mean/2 so x - mean = u_s + v_d
     u = src - 0.5 * mean
     v = dst - 0.5 * mean
     cross = torch.einsum("bsc,bsc->c", u, torch.bmm(m, v))
-    var = (torch.einsum("bs,bsc->c", outdeg, u * u)
-           + torch.einsum("bd,bdc->c", indeg, v * v) + 2.0 * cross) / count
+    var = dp.global_sum(torch.einsum("bs,bsc->c", outdeg, u * u)
+                        + torch.einsum("bd,bdc->c", indeg, v * v) + 2.0 * cross) / count
     return mean, var.clamp(min=0.0)
 
 

@@ -32,6 +32,13 @@ Randomness: dropout masks and every loss draw come from one
 ``torch.Generator`` in execution order, or the draws are passed explicitly
 (``draws``, as :func:`draw_losses` / :func:`draw_chunked` make them) so a
 test can hand both frameworks the same noise.
+
+Under a data-parallel group (``parallel/``) the batch is the rank's block
+of the global batch and the generator is seeded alike on every rank: every
+draw and dropout mask is made at the global batch's shape and the rank
+keeps its block, every reduction across molecules is global, and the
+parameter gradients are averaged over the ranks, so W ranks with a seed
+take the step one process takes on the global batch with that seed.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from torch import nn
 
 from moleculesde_tpu_torch.core.batch import GraphBatch
 from moleculesde_tpu_torch.data.compact import CompactBatch, expand_on_device
+from moleculesde_tpu_torch.parallel import collectives as dp
 from moleculesde_tpu_torch.pretrain.contrastive import draw_shift, dual_cl
 from moleculesde_tpu_torch.pretrain.train_state import PretrainConfig
 
@@ -57,38 +65,53 @@ def _expanded(batch: Batch) -> GraphBatch:
     return expand_on_device(batch) if isinstance(batch, CompactBatch) else batch
 
 
-def _split_rows(x: torch.Tensor, k: int) -> torch.Tensor:
-    """Flat per-graph rows [B * per, ...] as k chunks [k, B / k * per, ...]."""
-    return x.reshape((k, x.shape[0] // k) + tuple(x.shape[1:]))
+def _split_rows(x: torch.Tensor, k: int, shards: int = 1) -> torch.Tensor:
+    """Flat per-graph rows [B * per, ...] as k chunks [k, B / k * per, ...]:
+    contiguous, or with ``shards`` > 1 chunk j made of the j-th block of
+    each of ``shards`` equal shards (JAX's ``_split_rows``)."""
+    rest = tuple(x.shape[1:])
+    if shards == 1:
+        return x.reshape((k, x.shape[0] // k) + rest)
+    y = x.reshape((shards, k, x.shape[0] // (shards * k)) + rest)
+    return y.transpose(0, 1).reshape((k, x.shape[0] // k) + rest)
 
 
-def split_microbatches(batch: Batch, k: int) -> List[Batch]:
+def split_microbatches(batch: Batch, k: int, shards: int = 1) -> List[Batch]:
     """``batch`` as k equal chunks of B / k graphs, in order.  A compact
     batch holds graph-local indices, so its chunks are slices.  A padded
     batch numbers nodes ``b * n_max + i``: the four edge endpoint lists are
     shifted to chunk-local numbering, and padded edges, which point at
     global node 0, are clamped back to node 0 of their chunk (masked
-    anyway), as JAX's ``split_microbatches`` does."""
+    anyway), as JAX's ``split_microbatches`` does.  ``shards`` > 1 gives
+    JAX's shard-aligned chunks: chunk j holds the j-th block of each of
+    ``shards`` equal shards of the batch, the chunk a data-parallel run of
+    ``shards`` ranks runs as its j-th."""
     nb = batch.num_graphs
-    if nb % k:
-        raise ValueError(f"{nb} graphs do not split into {k} chunks")
+    if nb % k or (nb // k) % shards:
+        raise ValueError(f"{nb} graphs do not split into {k} chunks over {shards} shards")
     mb = nb // k
     shifted = ("edge_src", "edge_dst", "ext_src", "ext_dst")
     tensors = {f.name: getattr(batch, f.name) for f in dataclasses.fields(batch)
                if torch.is_tensor(getattr(batch, f.name))}
     chunks = []
     for i in range(k):
-        fields = {name: _split_rows(v, k)[i] for name, v in tensors.items()}
+        fields = {name: _split_rows(v, k, shards)[i] for name, v in tensors.items()}
         if isinstance(batch, GraphBatch):
+            # each graph's place in the batch minus its place in the chunk
+            graph = torch.arange(nb, device=batch.node_mask.device)
+            first = _split_rows(graph, k, shards)[i] - torch.arange(mb, device=graph.device)
             for name in shifted:
-                fields[name] = (fields[name] - i * mb * batch.n_max).clamp(min=0)
+                per = tensors[name].shape[0] // nb
+                shift = first.repeat_interleave(per) * batch.n_max
+                fields[name] = (fields[name] - shift.to(fields[name].dtype)).clamp(min=0)
         chunks.append(dataclasses.replace(batch, **fields, num_graphs=mb))
     return chunks
 
 
 def microbatch_chunks(cfg: PretrainConfig, num_graphs: int) -> int:
     """The number of chunks the step runs in: B / microbatch where JAX's
-    gating holds for ``cfg.microbatch_scope``, else 1."""
+    gating holds for ``cfg.microbatch_scope``, else 1 (``num_graphs`` is
+    the global batch's under a data-parallel group)."""
     if cfg.microbatch_scope not in SCOPES:
         raise ValueError(f"unknown microbatch_scope {cfg.microbatch_scope}")
     mb = cfg.microbatch
@@ -178,7 +201,8 @@ def pretrain_loss(models: Dict[str, nn.Module], cfg: PretrainConfig, batch: Batc
                    "SDE_loss_3Dto2D": loss_32, "loss": total}
 
 
-def _splice_scope_grads(models, cfg, batch, k, generator, coeff, deterministic, d):
+def _splice_scope_grads(models, cfg, batch, k, generator, coeff, deterministic, d,
+                        shards=1):
     """The ``"score"`` / ``"splice"`` scopes (JAX ``make_pretrain_grads_spliced``):
     fills every ``.grad`` and returns the metrics.  The contrastive loss and
     the chunks' score losses run their backward into leaf copies of the
@@ -195,9 +219,11 @@ def _splice_scope_grads(models, cfg, batch, k, generator, coeff, deterministic, 
                               shifts=d["cl"])
     (coeff * cl_loss).backward()
     l23 = l32 = 0.0
-    for i, (chunk, dc) in enumerate(zip(split_microbatches(batch, k), d["chunks"])):
-        a, b = _score_losses(models, cfg, _split_rows(leaf_2d, k)[i],
-                             _split_rows(leaf_3d, k)[i], chunk, generator, deterministic, dc)
+    chunks = split_microbatches(batch, k, shards)
+    for i, (chunk, dc) in enumerate(zip(chunks, d["chunks"])):
+        a, b = _score_losses(models, cfg, _split_rows(leaf_2d, k, shards)[i],
+                             _split_rows(leaf_3d, k, shards)[i], chunk, generator,
+                             deterministic, dc)
         ((cfg.coeff_generative_2dto3d * a + cfg.coeff_generative_3dto2d * b) / k).backward()
         l23, l32 = l23 + a.detach(), l32 + b.detach()
     torch.autograd.backward((node_2d, node_3d), (leaf_2d.grad, leaf_3d.grad))
@@ -212,17 +238,21 @@ def _splice_scope_grads(models, cfg, batch, k, generator, coeff, deterministic, 
 def pretrain_grads(models: Dict[str, nn.Module], cfg: PretrainConfig, batch: Batch,
                    generator: Optional[torch.Generator] = None,
                    coeff_contrastive: Optional[float] = None, deterministic: bool = False,
-                   draws=None) -> Dict[str, torch.Tensor]:
+                   draws=None, shards: int = 1) -> Dict[str, torch.Tensor]:
     """The step's gradients, into every parameter's ``.grad`` (added to what
     is there), under the microbatch scope that applies (module docstring);
     returns the metrics.  ``draws``: :func:`draw_losses`' dict for an
     unchunked step, a list of them (one per chunk) under ``"step"``,
-    :func:`draw_chunked`'s dict under ``"score"`` / ``"splice"``."""
+    :func:`draw_chunked`'s dict under ``"score"`` / ``"splice"``.
+    ``shards``: the chunks of :func:`split_microbatches` (shards > 1 is the
+    one-process run of what that many data-parallel ranks run).  Under a
+    data-parallel group ``batch`` is the rank's block and the chunk count
+    is the global batch's; every rank splits its block."""
     coeff = cfg.coeff_contrastive if coeff_contrastive is None else coeff_contrastive
-    k = microbatch_chunks(cfg, batch.num_graphs)
+    k = microbatch_chunks(cfg, dp.global_shape((batch.num_graphs,))[0])
     if k > 1 and cfg.microbatch_scope == "step":
         sums = None
-        for i, chunk in enumerate(split_microbatches(batch, k)):
+        for i, chunk in enumerate(split_microbatches(batch, k, shards)):
             total, metrics = pretrain_loss(models, cfg, _expanded(chunk), generator, coeff,
                                            deterministic, draws[i] if draws else None)
             (total / k).backward()
@@ -232,7 +262,8 @@ def pretrain_grads(models: Dict[str, nn.Module], cfg: PretrainConfig, batch: Bat
     batch = _expanded(batch)
     if k > 1:
         d = draws if draws is not None else draw_chunked(models, cfg, batch, k, generator)
-        return _splice_scope_grads(models, cfg, batch, k, generator, coeff, deterministic, d)
+        return _splice_scope_grads(models, cfg, batch, k, generator, coeff, deterministic, d,
+                                   shards)
     total, metrics = pretrain_loss(models, cfg, batch, generator, coeff, deterministic, draws)
     total.backward()
     return metrics
@@ -245,9 +276,11 @@ def pretrain_step(models: Dict[str, nn.Module], optimizer: torch.optim.Optimizer
                   deterministic: bool = False, draws=None) -> Dict[str, torch.Tensor]:
     """Gradients (:func:`pretrain_grads`) and one optimizer update; returns
     the metrics as detached device scalars (reading them is the caller's
-    sync)."""
+    sync).  Under a data-parallel group the gradients are averaged over the
+    ranks before the update (``parallel.pretrain_step``)."""
     optimizer.zero_grad(set_to_none=True)
     metrics = pretrain_grads(models, cfg, batch, generator, coeff_contrastive,
                              deterministic, draws)
+    dp.average_grads(p for m in models.values() for p in m.parameters())
     optimizer.step()
     return {k: v.detach() for k, v in metrics.items()}

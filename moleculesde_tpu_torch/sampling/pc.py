@@ -17,6 +17,15 @@ Random draws come from an explicit ``torch.Generator`` and may be passed in
 instead (the tests feed the JAX package's draws).  Chain noise is drawn for
 the whole chain up front only while it stays under 128 MiB, and per step
 otherwise, as in the JAX package.
+
+Under a data-parallel group (``parallel/``) the batch is the rank's block
+of the global batch and the generator is seeded alike on every rank: the
+priors and the chain noise are drawn at the global batch's shape (the
+128 MiB rule on the global sizes) and the rank keeps its block, and the
+corrector's batch means of row norms are global, so the ranks together
+return what one process returns for the global batch.  Injected priors and
+the 2D->3D chain's noises are the rank's blocks; the 3D->2D chain's noise
+slabs are the global batch's.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from moleculesde_tpu_torch.core.batch import GraphBatch, pad_graphs
 from moleculesde_tpu_torch.core.masks import mask_adjs, mask_x, node_flags
 from moleculesde_tpu_torch.models.score_2d3d import SDEModel2Dto3D
 from moleculesde_tpu_torch.models.score_3d2d import SDEModel3Dto2D
+from moleculesde_tpu_torch.parallel import collectives as dp
 from moleculesde_tpu_torch.sde.base import linspace_f32
 
 _HOIST_LIMIT_BYTES = 128 * 1024 * 1024
@@ -43,12 +53,10 @@ def repeat_graph_batch(graph: dict, num_repeat: int, n_max: int, e_max: int,
 
 
 def _masked_mean_rownorm(v: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """Mean over valid rows of ||row|| (the corrector's global SNR statistic)."""
+    """Mean over valid rows of ||row|| (the corrector's global SNR
+    statistic), over every rank's rows."""
     norms = torch.sqrt((v.reshape(v.shape[0], -1) ** 2).sum(dim=-1) + 1e-24)
-    if mask is None:
-        return norms.mean()
-    m = mask.to(norms.dtype)
-    return (norms * m).sum() / m.sum().clamp(min=1.0)
+    return dp.masked_mean(norms, mask)
 
 
 @torch.no_grad()
@@ -95,7 +103,7 @@ def sample_positions_pc(
     timesteps = linspace_f32(sde.T, eps, diff_steps, dev)
 
     if prior is None:
-        prior = sde.prior_sampling(shape, generator, dev)
+        prior = dp.block(sde.prior_sampling(dp.global_shape(shape), generator, dev))
     pos = prior * m3
 
     if fused:
@@ -121,12 +129,14 @@ def sample_positions_pc(
     stds = sde.marginal_prob(torch.zeros_like(timesteps), timesteps)[1]
     alphas = sde.corrector_alpha(timesteps)
     if noise_p is None:
-        noise_p = torch.randn((diff_steps,) + shape, generator=generator, device=dev)
+        noise_p = dp.block(torch.randn((diff_steps,) + dp.global_shape(shape),
+                                       generator=generator, device=dev), dim=1)
     noise_p = noise_p * m3
-    hoist = diff_steps * corrector_steps * pos.numel() * 4 <= _HOIST_LIMIT_BYTES
+    hoist = diff_steps * corrector_steps * pos.numel() * dp.world_size() * 4 \
+        <= _HOIST_LIMIT_BYTES
     if noise_c is None and hoist:
-        noise_c = torch.randn((diff_steps, corrector_steps) + shape,
-                              generator=generator, device=dev)
+        noise_c = dp.block(torch.randn((diff_steps, corrector_steps) + dp.global_shape(shape),
+                                       generator=generator, device=dev), dim=2)
     if noise_c is not None:
         noise_c = noise_c * m3
 
@@ -136,7 +146,8 @@ def sample_positions_pc(
         for j in range(corrector_steps):  # Langevin corrector
             grad = -raw_score(pos) / std
             noise = (noise_c[i, j] if noise_c is not None
-                     else torch.randn(shape, generator=generator, device=dev) * m3)
+                     else dp.block(torch.randn(dp.global_shape(shape), generator=generator,
+                                               device=dev)) * m3)
             grad_norm = _masked_mean_rownorm(grad, mask)
             noise_norm = _masked_mean_rownorm(noise, mask)
             step = (snr * noise_norm / grad_norm.clamp(min=1e-12)) ** 2 * 2 * alpha
@@ -200,24 +211,25 @@ def sample_graph_pc(
     flags = node_flags(batch.dense_adjacency(edge_attr))
     node_3d = batch.dense_nodes(node_3d_repr)
 
+    bg = dp.global_shape((b,))[0]   # the global batch's graphs
     if x_prior is None:
-        x_prior = sde.prior_sampling((b, n, c), generator, dev)
+        x_prior = dp.block(sde.prior_sampling((bg, n, c), generator, dev))
     if adj_prior is None:
-        adj_prior = sde.prior_sampling((b, n, n), generator, dev)
+        adj_prior = dp.block(sde.prior_sampling((bg, n, n), generator, dev))
     x = mask_x(x_prior, flags)
     adj = mask_adjs(adj_prior, flags)
 
     alphas = sde.corrector_alpha(timesteps)
-    flat_x, flat_adj = b * n * c, b * n * n
+    flat_x, flat_adj = bg * n * c, bg * n * n
     per_step = (1 + corrector_steps) * (flat_x + flat_adj)
     if noise is None and diff_steps * per_step * 4 <= _HOIST_LIMIT_BYTES:
         noise = torch.randn((diff_steps, per_step), generator=generator, device=dev)
 
     def noise_x(z):
-        return mask_x(z.reshape(b, n, c), flags)
+        return mask_x(dp.block(z.reshape(bg, n, c)), flags)
 
     def noise_adj(z):
-        z = torch.triu(z.reshape(b, n, n), diagonal=1)
+        z = torch.triu(dp.block(z.reshape(bg, n, n)), diagonal=1)
         return mask_adjs(z + z.transpose(-1, -2), flags)
 
     def step_size(grad, z, alpha):

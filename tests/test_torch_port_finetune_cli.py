@@ -10,6 +10,7 @@ in JAX) and the flags refused by name.
 """
 
 import csv
+import datetime
 import gzip
 import os
 
@@ -25,6 +26,7 @@ from moleculesde_tpu_torch.convert import load_checkpoint, save_checkpoint
 from moleculesde_tpu_torch.examples import finetune_md17 as md17_cli
 from moleculesde_tpu_torch.examples import finetune_moleculenet as mnet_cli
 from moleculesde_tpu_torch.examples import finetune_qm9 as qm9_cli
+from moleculesde_tpu_torch.parallel import mesh
 from moleculesde_tpu_torch.pretrain.train_state import PretrainConfig, create_pretrain_state
 
 from torch_port_common import CPU
@@ -209,7 +211,16 @@ def test_cli_loads_pretraining_checkpoint(pretrain_checkpoints, kind, cli, capsy
 @pytest.mark.parametrize("flags,match", [
     (["--num_devices", "2"], "--num_devices"), (["--distributed"], "--distributed"),
     (["--profile_dir", "p"], "--profile_dir")])
-def test_unported_flags_are_refused(flags, match):
+def test_unported_flags_are_refused(flags, match, monkeypatch):
+    """``--distributed`` and ``--profile_dir`` are refused by name;
+    ``--num_devices 2`` runs two gloo ranks, with the
+    one-process run's best epoch."""
+    monkeypatch.setattr(mesh, "TIMEOUT", datetime.timedelta(seconds=60))
+    if flags[0] == "--num_devices":
+        for mod in (mnet_cli, qm9_cli):
+            one, two = mod.main(TINY + SYNTHETIC), mod.main(TINY + SYNTHETIC + flags)
+            np.testing.assert_allclose(two, one, rtol=1e-5, err_msg=mod.__name__)
+        return
     with pytest.raises(NotImplementedError, match=match):
         mnet_cli.main(TINY + SYNTHETIC + flags)
     with pytest.raises(NotImplementedError, match=match):

@@ -16,6 +16,7 @@ the JAX package, plus the pretraining CLI on the CPU.
   two-step updates agree to 1e-4 relative (floor: 1% of one lr step).
 """
 
+import datetime
 import importlib.util
 import re
 from pathlib import Path
@@ -41,6 +42,7 @@ from moleculesde_tpu_torch.examples import sample_2d_to_3d as sample_cli
 from moleculesde_tpu_torch.examples import sample_3d_to_2d as sample_3d2d_cli
 from moleculesde_tpu_torch.models.gnn2d import GNN2D
 from moleculesde_tpu_torch.models.layers import dropout
+from moleculesde_tpu_torch.parallel import mesh
 from moleculesde_tpu_torch.pretrain.contrastive import dual_cl
 from moleculesde_tpu_torch.pretrain.train_state import (
     PretrainConfig, build_models, make_optimizer)
@@ -370,6 +372,17 @@ def _jax_cli_parser():
 
 PORT_CLIS = {"pretrain": cli, "sample_2d_to_3d": sample_cli,
              "sample_3d_to_2d": sample_3d2d_cli}
+# each CLI at tiny widths, for the data-parallel flags' runs
+RUN_FLAGS = {
+    "pretrain": TINY_FLAGS + ["--epochs", "1"],
+    "sample_2d_to_3d": ["--device", "cpu", "--dataset", "synthetic", "--end", "2",
+                        "--num_repeat_SDE_inference", "2", "--n_max", "8", "--emb_dim", "16",
+                        "--num_layer", "2", "--num_diffusion_timesteps_2Dto3D_inference", "2",
+                        "--steps_pos", "1"],
+    "sample_3d_to_2d": ["--device", "cpu", "--dataset", "synthetic", "--end", "2",
+                        "--batch_size", "2", "--n_max", "8", "--emb_dim", "16",
+                        "--SchNet_num_interactions", "1", "--SchNet_num_filters", "8",
+                        "--num_diffusion_timesteps_3Dto2D_inference", "2", "--steps_pos", "1"]}
 # the flags each JAX CLI reads that the port's parser once rejected (exit 2)
 JAX_ONLY_FLAGS = {
     "pretrain": ("resume_from", "num_devices", "input_data_dir", "max_molecules",
@@ -396,6 +409,8 @@ def test_cli_parses_the_jax_flags_with_jax_defaults(name):
 @pytest.mark.parametrize("name,flags", [
     ("pretrain", ["--num_devices", "2"]),
     ("pretrain", ["--distributed"]),
+    pytest.param("pretrain", ["--distributed", "--dist_num_processes", "1"],
+                 id="pretrain-distributed_one_process"),
     ("pretrain", ["--dist_coordinator", "localhost:1234"]),
     ("pretrain", ["--dist_num_processes", "2"]),
     ("pretrain", ["--dist_process_id", "0"]),
@@ -404,11 +419,36 @@ def test_cli_parses_the_jax_flags_with_jax_defaults(name):
     ("sample_2d_to_3d", ["--num_devices", "2"]),
     ("sample_3d_to_2d", ["--num_devices", "2"])],
     ids=lambda v: v if isinstance(v, str) else v[0].lstrip("-"))
-def test_cli_refuses_unported_flag_by_name(name, flags):
-    """A flag the port does not run raises NotImplementedError naming it
-    (never argparse's exit 2), before any work."""
-    with pytest.raises(NotImplementedError, match=re.escape(flags[0]) + " is not ported"):
-        PORT_CLIS[name].main(["--device", "cpu"] + flags)
+def test_cli_refuses_unported_flag_by_name(name, flags, monkeypatch):
+    """A flag the port does not run (``--profile_dir``, ``--debug_nans``)
+    raises NotImplementedError naming it (never argparse's exit 2), before
+    any work.  The data-parallel flags run, here at tiny
+    widths: ``--num_devices 2`` as two gloo ranks; ``--distributed`` as the
+    one rank of a launcher's ``env://`` world of one, and with
+    ``--dist_num_processes 1`` as one process with no group (JAX's no-op);
+    ``--dist_coordinator``
+    or ``--dist_process_id`` alone as one process (JAX reads them only with
+    ``--distributed``); ``--dist_num_processes 2`` forms a group of two at
+    ``env://`` and, with no launcher's address, raises instead of falling
+    back to one process."""
+    if flags[0] in ("--profile_dir", "--debug_nans"):
+        with pytest.raises(NotImplementedError, match=re.escape(flags[0]) + " is not ported"):
+            PORT_CLIS[name].main(["--device", "cpu"] + flags)
+        return
+    monkeypatch.setattr(mesh, "TIMEOUT", datetime.timedelta(seconds=60))
+    for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
+    if flags[0] == "--dist_num_processes":
+        with pytest.raises(ValueError, match="env:// rendezvous"):
+            PORT_CLIS[name].main(RUN_FLAGS[name] + flags)
+        return
+    if flags[0] == "--distributed":
+        monkeypatch.setenv("MASTER_ADDR", "localhost")
+        monkeypatch.setenv("MASTER_PORT", str(mesh.free_port()))
+        monkeypatch.setenv("WORLD_SIZE", "1")
+        monkeypatch.setenv("RANK", "0")
+    out = PORT_CLIS[name].main(RUN_FLAGS[name] + flags)
+    assert out and not torch.distributed.is_initialized()
 
 
 def test_3d2d_cli_runs_painn(tmp_path):

@@ -9,6 +9,7 @@ x_mean and adj_mean after 3 f32 steps with 2 corrector steps each: the SNR
 step size divides two batch-mean norms of the score, so a few ulp in a
 score evaluation are amplified along the chain."""
 
+import datetime
 import pickle
 
 import jax
@@ -23,6 +24,7 @@ from moleculesde_tpu_torch.convert import load_flax_variables, save_checkpoint
 from moleculesde_tpu_torch.examples import pretrain as pretrain_cli
 from moleculesde_tpu_torch.examples import sample_3d_to_2d as cli
 from moleculesde_tpu_torch.models.score_3d2d import SDEModel3Dto2D, StackedEdgeLayers
+from moleculesde_tpu_torch.parallel import mesh
 from moleculesde_tpu_torch.pretrain.train_state import PretrainConfig, build_models
 from moleculesde_tpu_torch.pretrain.train_step import draw_losses, pretrain_loss
 from moleculesde_tpu_torch.sampling import pc
@@ -108,11 +110,20 @@ def test_cli_writes_graphs_on_cpu(tmp_path, capsys):
 
 
 def test_cli_needs_a_gpu_unless_asked_and_refuses_what_is_not_ported(monkeypatch):
+    """Without ``--device cpu`` the CLI raises (also with ``--num_devices
+    2``, before any rank starts); ``--num_devices 2 --device cpu`` runs two
+    gloo ranks and gives the one-process run's graphs."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(mesh, "TIMEOUT", datetime.timedelta(seconds=60))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(TINY[2:])
-    with pytest.raises(NotImplementedError, match="--num_devices is not ported"):
-        cli.main(TINY + ["--num_devices", "2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(TINY[2:] + ["--num_devices", "2"])
+    one, two = cli.main(TINY), cli.main(TINY + ["--num_devices", "2"])
+    assert len(one) == len(two) == 2
+    for a, b in zip(two, one):
+        for k in ("x_gen", "adj_gen"):
+            np.testing.assert_allclose(a[k], b[k], rtol=1e-5, atol=1e-5, err_msg=k)
 
 
 def test_pretrain_checkpoint_drives_the_cli(tmp_path, capsys):
