@@ -3,10 +3,10 @@
 The JAX package's finetune CLIs parse one flag surface
 (``examples/config.py``); :func:`get_parser` holds the flags that any of
 them reads, with the same names and defaults, plus ``--device`` ("cuda":
-the CLIs raise without a GPU unless ``--device cpu``).  Flags whose values
-ask for what the port does not run are refused by name
-(:func:`check_supported`): ``--distributed`` and ``--dist_*`` (the JAX
-finetunes parse them and do nothing with them), ``--profile_dir``.
+the CLIs raise without a GPU unless ``--device cpu``).  ``--distributed``,
+``--dist_*``, ``--profile_dir`` and ``--debug_nans`` are parsed, as the JAX
+finetunes parse them and do nothing with them; each one set prints a line
+saying so (:func:`check_supported`).
 
 ``--num_devices N`` > 1 runs N data-parallel ranks (``parallel/``, spawned
 by :func:`~moleculesde_tpu_torch.parallel.mesh.run_cli`): :func:`make_loader`
@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from moleculesde_tpu_torch.data.loader import GraphLoader
-from moleculesde_tpu_torch.examples.pretrain import refuse_unported
+from moleculesde_tpu_torch.examples import note_inert_flags
 from moleculesde_tpu_torch.parallel import collectives as dp
 
 
@@ -103,13 +103,15 @@ def get_parser() -> argparse.ArgumentParser:
                    help="data-parallel ranks spawned here, one a card (0 -> one "
                         "process); --device cpu: gloo ranks on the CPU")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-process data parallelism: parsed, as the JAX finetunes "
-                        "parse it, and refused")
+                   help="parsed, as the JAX finetunes parse it; no effect")
     p.add_argument("--dist_coordinator", type=str, default="")
     p.add_argument("--dist_num_processes", type=int, default=0)
     p.add_argument("--dist_process_id", type=int, default=-1)
     p.add_argument("--profile_dir", type=str, default="",
-                   help="profiler trace of the first epoch: not ported yet")
+                   help="parsed, as the JAX finetunes parse it; no effect")
+    p.add_argument("--debug_nans", dest="debug_nans", action="store_true",
+                   help="parsed, as the JAX finetunes parse it; no effect")
+    p.set_defaults(debug_nans=False)
     return p
 
 
@@ -121,14 +123,16 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 
 def check_supported(args, *batch_sizes: int) -> None:
-    """Refuse the flags the finetunes do not run, and batches (``--batch_size``
-    and ``batch_sizes``) that do not split over ``--num_devices`` ranks."""
-    refuse_unported({
+    """Note the flags the finetunes parse and ignore, as the JAX finetunes do,
+    and refuse batches (``--batch_size`` and ``batch_sizes``) that do not
+    split over ``--num_devices`` ranks."""
+    note_inert_flags({
         "--distributed": args.distributed,
         "--dist_coordinator": bool(args.dist_coordinator),
         "--dist_num_processes": args.dist_num_processes != 0,
         "--dist_process_id": args.dist_process_id != -1,
-        "--profile_dir": bool(args.profile_dir)})
+        "--profile_dir": bool(args.profile_dir),
+        "--debug_nans": args.debug_nans})
     sizes = (args.batch_size,) + batch_sizes
     if args.num_devices > 1 and any(b % args.num_devices for b in sizes):
         raise ValueError(f"the batch sizes {' / '.join(map(str, sizes))} must be divisible by "

@@ -39,11 +39,19 @@ numpy raises in JAX.
 
 Runs on the GPU (``--device cuda``, the default) and raises without one;
 ``--device cpu`` runs the plain PyTorch path.  Every flag the JAX CLI reads
-is parsed with its name and default.  Not ported yet, and refused with a
-``NotImplementedError`` that names the flag: ``--profile_dir`` and
-``--debug_nans``.  ``--input_data_dir`` and ``--max_molecules`` are read
-only with the QM9 / PCQM4Mv2 datasets, as in JAX, so with synthetic
-molecules they change nothing.
+is parsed with its name and default.  ``--input_data_dir`` and
+``--max_molecules`` are read only with the QM9 / PCQM4Mv2 datasets, as in
+JAX, so with synthetic molecules they change nothing.
+
+``--debug_nans`` raises ``FloatingPointError`` at the first NaN, naming
+where it arose (:class:`~moleculesde_tpu_torch.utils.debug_nans.NanGuard`:
+module outputs, backward nodes, the state after each update, each step's
+metrics), as JAX's ``jax_debug_nans``; with no NaN the run is bit for bit
+the one without it.  ``--profile_dir DIR`` traces the JAX CLI's window,
+from before the first epoch to the end of epoch 1 (its metric sync
+included), with ``torch.profiler`` (CPU activity, and CUDA activity on
+the card), and writes ``DIR/trace_rank<r>.json`` (a Chrome trace, one a
+rank); on the card a trace with no CUDA kernel event raises.
 
 Data parallelism (``parallel/``), ``--batch_size`` being the global batch
 in both forms, as in JAX:
@@ -76,6 +84,8 @@ Example:
 from __future__ import annotations
 
 import argparse
+import contextlib
+import json
 import os
 import time
 
@@ -94,6 +104,7 @@ from moleculesde_tpu_torch.pretrain.train_state import PretrainConfig, create_pr
 from moleculesde_tpu_torch.pretrain.train_step import METRICS, SCOPES, pretrain_step
 from moleculesde_tpu_torch.sde.base import SDE_PRESETS_2DTO3D, SDE_PRESETS_3DTO2D
 from moleculesde_tpu_torch.utils.checkpoints import load_train_state, save_train_state
+from moleculesde_tpu_torch.utils.debug_nans import NanGuard
 from moleculesde_tpu_torch.utils.metrics import MetricsLogger
 
 MODEL_2DTO3D_VARIANTS = {"SDEModel2Dto3D_01": 1, "SDEModel2Dto3D_02": 2,
@@ -206,23 +217,15 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--dist_num_processes", type=int, default=0)
     p.add_argument("--dist_process_id", type=int, default=-1)
     p.add_argument("--profile_dir", type=str, default="",
-                   help="profiler trace of the first epoch: not ported yet")
+                   help="write a torch.profiler trace of the first epoch here")
     p.add_argument("--debug_nans", dest="debug_nans", action="store_true",
-                   help="abort on the first NaN: not ported yet")
+                   help="raise FloatingPointError at the first NaN")
     p.set_defaults(debug_nans=False)
     p.add_argument("--resume_from", type=str, default="",
                    help="full train state to resume from: the port's train_state.pt "
                         "or the JAX package's train_state.msgpack")
     p.add_argument("--output_model_dir", type=str, default="")
     return p
-
-
-def refuse_unported(refused: dict) -> None:
-    """Raise ``NotImplementedError`` naming the first flag of ``refused``
-    ({flag: whether its value asks for what is not ported}) that is set."""
-    for flag, asked in refused.items():
-        if asked:
-            raise NotImplementedError(f"{flag} is not ported yet")
 
 
 def distributed(args) -> bool:
@@ -232,10 +235,7 @@ def distributed(args) -> bool:
 
 
 def check_supported(args) -> None:
-    """Raise on the flag values the port does not run yet, and on those the
-    data-parallel forms refuse."""
-    refuse_unported({"--profile_dir": bool(args.profile_dir),
-                     "--debug_nans": args.debug_nans})
+    """Raise on the flag values the data-parallel forms refuse."""
     if distributed(args):
         for flag, asked in (("--num_devices", args.num_devices > 1),
                             ("--buckets", bool(args.buckets)),
@@ -372,40 +372,74 @@ def run(args, device):
     logger = MetricsLogger(writes or None)
     optimal_loss = float("inf")
     history = []
-    for epoch in range(1, args.epochs + 1):
-        coeff_cl = (args.SDE_coeff_contrastive
-                    if epoch > args.SDE_coeff_contrastive_skip_epochs else 0.0)
-        t0 = time.time()
-        print(f"epoch: {epoch}")
-        sums, n_batches = None, 0
-        for batch, _ in device_prefetch(loader, device):
-            metrics = pretrain_step(state.models, state.optimizer, cfg, batch,
-                                    state.generator, coeff_cl)
-            state.step += 1
-            vals = torch.stack([metrics[k] for k in METRICS])
-            sums = vals if sums is None else sums + vals
-            n_batches += 1
-        if n_batches == 0:
-            raise ValueError(f"no full batch of {args.batch_size} molecules to train on")
-        if epoch % max(args.print_every_epoch, 1) == 0 or epoch == args.epochs:
-            accum = dict(zip(METRICS, (sums / n_batches).tolist()))
-            history.append(accum)
-            temp_loss = (coeff_cl * accum["CL_loss"]
-                         + args.SDE_coeff_generative_2Dto3D * accum["SDE_loss_2Dto3D"]
-                         + args.SDE_coeff_generative_3Dto2D * accum["SDE_loss_3Dto2D"])
-            if temp_loss < optimal_loss and writes:
-                optimal_loss = temp_loss
-                print(f"save model with loss: {optimal_loss:.5f}")
-                _save(args, state.models, "model_complete.pt")
-            logger.log(epoch, {k: accum[k] for k in LOGGED},
-                       echo="CL Loss: {:.5f}\tCL Acc: {:.5f}\t\tSDE 2Dto3D Loss: {:.5f}\t"
-                            "SDE 3Dto2D Loss: {:.5f}".format(*(accum[k] for k in LOGGED)))
-        print(f"Time: {time.time() - t0:.5f}\n")
+    guard = NanGuard(state.models, state.optimizer) if args.debug_nans else None
+    # the JAX CLI's trace window: from before epoch 1 to its end, metric sync included
+    profiler = _profiler(device) if args.profile_dir else None
+    with guard or contextlib.nullcontext():
+        if profiler is not None:
+            profiler.start()
+        for epoch in range(1, args.epochs + 1):
+            coeff_cl = (args.SDE_coeff_contrastive
+                        if epoch > args.SDE_coeff_contrastive_skip_epochs else 0.0)
+            t0 = time.time()
+            print(f"epoch: {epoch}")
+            sums, n_batches = None, 0
+            for batch, _ in device_prefetch(loader, device):
+                metrics = pretrain_step(state.models, state.optimizer, cfg, batch,
+                                        state.generator, coeff_cl)
+                state.step += 1
+                if guard is not None:
+                    guard.check(f"the metrics of step {state.step}", metrics)
+                vals = torch.stack([metrics[k] for k in METRICS])
+                sums = vals if sums is None else sums + vals
+                n_batches += 1
+            if n_batches == 0:
+                raise ValueError(f"no full batch of {args.batch_size} molecules to train on")
+            if epoch % max(args.print_every_epoch, 1) == 0 or epoch == args.epochs:
+                accum = dict(zip(METRICS, (sums / n_batches).tolist()))
+                history.append(accum)
+                temp_loss = (coeff_cl * accum["CL_loss"]
+                             + args.SDE_coeff_generative_2Dto3D * accum["SDE_loss_2Dto3D"]
+                             + args.SDE_coeff_generative_3Dto2D * accum["SDE_loss_3Dto2D"])
+                if temp_loss < optimal_loss and writes:
+                    optimal_loss = temp_loss
+                    print(f"save model with loss: {optimal_loss:.5f}")
+                    _save(args, state.models, "model_complete.pt")
+                logger.log(epoch, {k: accum[k] for k in LOGGED},
+                           echo="CL Loss: {:.5f}\tCL Acc: {:.5f}\t\tSDE 2Dto3D Loss: {:.5f}\t"
+                                "SDE 3Dto2D Loss: {:.5f}".format(*(accum[k] for k in LOGGED)))
+            print(f"Time: {time.time() - t0:.5f}\n")
+            if epoch == 1 and profiler is not None:
+                profiler.stop()
+                _write_trace(profiler, args.profile_dir, device)
     if writes:
         _save(args, state.models, "model_complete_final.pt")
         save_train_state(os.path.join(args.output_model_dir, "train_state.pt"), state,
                          extra={"epoch": args.epochs})
     return history
+
+
+def _profiler(device):
+    """A ``torch.profiler`` of CPU activity, and CUDA activity on a card."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    return torch.profiler.profile(activities=activities)
+
+
+def _write_trace(profiler, out_dir: str, device) -> None:
+    """Write a stopped ``profiler``'s Chrome trace as
+    ``<out_dir>/trace_rank<r>.json``; on a card, raise if it holds no CUDA
+    kernel event."""
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"trace_rank{dp.rank()}.json")
+    profiler.export_chrome_trace(path)
+    if device.type == "cuda":
+        with open(path) as fh:
+            events = json.load(fh).get("traceEvents", [])
+        if not any(e.get("cat") == "kernel" for e in events):
+            raise RuntimeError(f"the profiler trace {path} holds no CUDA kernel event")
+    print(f"profiler trace written to {out_dir}")
 
 
 def _save(args, models, name: str) -> None:

@@ -20,7 +20,9 @@ from ``--seed``; any other ``--dataset`` (the default QM9 included, as in
 JAX) reads the PCQM4Mv2 packed cache under
 ``<--input_data_dir>/<--dataset>`` (built there from the raw files on
 first use, RDKit needed only then), cut to ``--end`` molecules.  Every flag
-the JAX CLI reads is parsed with its name and default.  ``--num_devices N``
+the JAX CLI reads is parsed with its name and default; ``--profile_dir``
+and ``--debug_nans``, which the JAX CLI's shared parser gives it and it
+ignores, print a line saying they have no effect.  ``--num_devices N``
 > 1 spawns N data-parallel ranks (``parallel/``; one a card, or gloo ranks
 with ``--device cpu``; ``--sample_mols_per_batch *
 --num_repeat_SDE_inference`` divisible by N, as in JAX): each rank runs the
@@ -51,6 +53,7 @@ from moleculesde_tpu_torch.core.batch import GraphBatch, pad_graphs
 from moleculesde_tpu_torch.data.datasets import load_pcqm4mv2
 from moleculesde_tpu_torch.data.loader import max_atoms
 from moleculesde_tpu_torch.data.synthetic import random_molecule
+from moleculesde_tpu_torch.examples import note_inert_flags
 from moleculesde_tpu_torch.examples.pretrain import MODEL_2DTO3D_VARIANTS
 from moleculesde_tpu_torch.models.gnn2d import GNN2D
 from moleculesde_tpu_torch.models.score_2d3d import SDEModel2Dto3D
@@ -111,12 +114,20 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--threshold", type=float, default=0)
     p.add_argument("--generator", type=str, default="PC")
     p.add_argument("--input_model_file", type=str, default="")
+    p.add_argument("--profile_dir", type=str, default="",
+                   help="parsed, as the JAX sampler parses it; no effect")
+    p.add_argument("--debug_nans", dest="debug_nans", action="store_true",
+                   help="parsed, as the JAX sampler parses it; no effect")
+    p.set_defaults(debug_nans=False)
     p.add_argument("--output_model_dir", type=str, default="")
     return p
 
 
 def check_supported(args) -> None:
-    """Raise on the flag values the port does not run yet."""
+    """Note the flags the sampler parses and ignores, as the JAX sampler
+    does; raise on the flag values the port does not run."""
+    note_inert_flags({"--profile_dir": bool(args.profile_dir),
+                      "--debug_nans": args.debug_nans})
     if args.JK == "concat":
         raise ValueError(f"--JK concat gives {args.emb_dim * (args.num_layer + 1)}-wide node "
                          f"representations; the 2D->3D model reads --emb_dim {args.emb_dim} "

@@ -21,7 +21,9 @@ without JAX) or are drawn from ``--seed``.  The molecules are JAX's:
 reads the PCQM4Mv2 packed cache under ``<--input_data_dir>/<--dataset>``
 (built there from the raw files on first use, RDKit needed only then; its
 extended graph with ``--use_extend_graph``), cut to ``--end`` molecules.
-Every flag the JAX CLI reads is parsed with its name and default.
+Every flag the JAX CLI reads is parsed with its name and default;
+``--profile_dir`` and ``--debug_nans``, which the JAX CLI's shared parser
+gives it and it ignores, print a line saying they have no effect.
 ``--num_devices N`` > 1 spawns N data-parallel ranks (``parallel/``; one a
 card, or gloo ranks with ``--device cpu``; ``--batch_size`` divisible by N,
 as in JAX): each rank runs the chain on its block of every batch, with the
@@ -46,6 +48,7 @@ import torch
 from moleculesde_tpu_torch.data.datasets import load_pcqm4mv2
 from moleculesde_tpu_torch.data.loader import GraphLoader
 from moleculesde_tpu_torch.data.synthetic import random_molecule
+from moleculesde_tpu_torch.examples import note_inert_flags
 from moleculesde_tpu_torch.examples.pretrain import MODEL_3DTO2D_VARIANTS
 from moleculesde_tpu_torch.models.painn import PaiNN
 from moleculesde_tpu_torch.models.schnet import SchNet
@@ -103,12 +106,21 @@ def get_parser() -> argparse.ArgumentParser:
                         "process); --device cpu: gloo ranks on the CPU")
     p.add_argument("--generator", type=str, default="PC")
     p.add_argument("--input_model_file", type=str, default="")
+    p.add_argument("--profile_dir", type=str, default="",
+                   help="parsed, as the JAX sampler parses it; no effect")
+    p.add_argument("--debug_nans", dest="debug_nans", action="store_true",
+                   help="parsed, as the JAX sampler parses it; no effect")
+    p.set_defaults(debug_nans=False)
     p.add_argument("--output_model_dir", type=str, default="")
     return p
 
 
 def check_supported(args) -> None:
-    """Raise on a batch that does not split over ``--num_devices`` ranks."""
+    """Note the flags the sampler parses and ignores, as the JAX sampler
+    does; raise on a batch that does not split over ``--num_devices``
+    ranks."""
+    note_inert_flags({"--profile_dir": bool(args.profile_dir),
+                      "--debug_nans": args.debug_nans})
     if args.num_devices > 1 and args.batch_size % args.num_devices:
         raise ValueError(f"--batch_size must be divisible by --num_devices={args.num_devices}")
 

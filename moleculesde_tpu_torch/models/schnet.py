@@ -36,6 +36,7 @@ from moleculesde_tpu_torch.ops.fourier import gaussian_smearing, shifted_softplu
 from moleculesde_tpu_torch.utils.device import resolve_device
 
 _DIST_GUARD = 1e-24
+_ATOMREF_ROWS = 100        # the reference's atomref table: Embedding(100, 1)
 
 
 def pairwise_distances(pos: torch.Tensor) -> torch.Tensor:
@@ -122,13 +123,19 @@ class SchNet(nn.Module):
     are exactly zero.  ``cfconv`` and ``impl`` as in
     :class:`SchNetInteraction`.  Built on the CPU, initialized from
     ``generator`` (default: seed 0), then moved to ``device`` ("cuda" by
-    default; raises without a GPU unless "cpu")."""
+    default; raises without a GPU unless "cpu").  ``use_atomref`` adds the
+    reference's per-atom scalar offset (``atomref``, Embedding(100, 1),
+    zero at init; reference schnet.py:66-70, 112-113) to every feature of
+    a node's latent before the readout, as the JAX package's SchNet does;
+    an imported reference checkpoint may carry one
+    (:func:`~moleculesde_tpu_torch.utils.torch_import.import_schnet`)."""
 
     def __init__(self, hidden_channels: int = 128, num_filters: int = 128,
                  num_interactions: int = 6, num_gaussians: int = 51,
                  cutoff: float = 10.0, readout: str = "mean",
                  compute_dtype: Optional[str] = None, cfconv: str = "auto",
-                 impl: str = "auto", device: str | torch.device = "cuda",
+                 impl: str = "auto", use_atomref: bool = False,
+                 device: str | torch.device = "cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if readout not in ("mean", "add", "sum"):
@@ -149,6 +156,10 @@ class SchNet(nn.Module):
         self.Dense_0 = Dense(hidden_channels, hidden_channels)
         self.Dense_1 = Dense(hidden_channels, hidden_channels)
         init_parameters(self, generator or torch.Generator().manual_seed(0))
+        self.atomref = None
+        if use_atomref:   # after the initializer: JAX's table starts at zero
+            self.atomref = Embed(_ATOMREF_ROWS, 1)
+            nn.init.zeros_(self.atomref.embedding)
         self.to(dev)
 
     def forward(self, z: torch.Tensor, pos: torch.Tensor, node_mask: torch.Tensor,
@@ -164,6 +175,9 @@ class SchNet(nn.Module):
             h = h + getattr(self, f"SchNetInteraction_{i}")(h, edge_attr, cos_env, pair_mask,
                                                              dist)
         h = self.Dense_1(shifted_softplus(self.Dense_0(h)))
+        if self.atomref is not None:
+            offset = self.atomref.embedding[z.long().clamp(0, _ATOMREF_ROWS - 1)]
+            h = h + offset.reshape(num_graphs, n_max, 1)
         m = node_mask.reshape(num_graphs, n_max, 1).to(h.dtype)
         h = h * m
         pooled = h.sum(dim=1)

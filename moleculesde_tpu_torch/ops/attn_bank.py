@@ -35,6 +35,7 @@ import torch
 
 from moleculesde_tpu_torch.kernels import build
 from moleculesde_tpu_torch.ops.common import SMEM_LIMIT, resolve_impl, round_bf16, stream
+from moleculesde_tpu_torch.utils.flops import report_flops
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -89,6 +90,14 @@ def attn_map_bank_bwd_plain(q: torch.Tensor, k: torch.Tensor, g: torch.Tensor, d
 
 
 FWD_TILE = 32       # csrc/attn_bank.cu::kTile: rows (and columns) of a unit, both directions
+
+
+def flops(b: int, c: int, n: int, a: int, bwd: bool = False) -> int:
+    """Matrix-product FLOPs of the plain version (what ``matmul_flops``
+    counts there), which the kernels report: the per-head logits ``q k^T``
+    [B*C*H, N, ds] x [ds, N]; the backward recomputes them and adds ``du
+    k`` and ``du^T q``."""
+    return (6 if bwd else 2) * b * c * n * n * a
 
 
 def tile_rows(n: int, h: int, budget: int) -> int:
@@ -168,6 +177,7 @@ def _launch(q, k, ds: int, bf16: bool) -> torch.Tensor:
             int(q.dtype == torch.bfloat16), int(bf16), smem, stream(q))
     build.check_launch(rc, "attn_map_bank_fwd")
     attn_map_bank_kernel.launches += 1
+    report_flops(flops(b, c, n, a))
     return out
 
 
@@ -185,6 +195,7 @@ def _launch_bwd(q, k, g, ds: int, bf16: bool):
             b * c, n, a, ds, int(q.dtype == torch.bfloat16), int(bf16), rows, smem, stream(q))
     build.check_launch(rc, "attn_map_bank_bwd")
     attn_map_bank_kernel_bwd.launches += 1
+    report_flops(flops(b, c, n, a, bwd=True))
     return dq, dk
 
 

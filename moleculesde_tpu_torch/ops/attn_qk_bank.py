@@ -34,7 +34,9 @@ import torch
 from moleculesde_tpu_torch.kernels import build
 from moleculesde_tpu_torch.ops.attn_bank import (
     attn_map_bank_plain, du_words, map_bank_bwd_f32, row_stride, tile_rows)
+from moleculesde_tpu_torch.ops.attn_bank import flops as attn_bank_flops
 from moleculesde_tpu_torch.ops.common import SMEM_LIMIT, resolve_impl, round_bf16, stream
+from moleculesde_tpu_torch.utils.flops import report_flops
 
 WEIGHTS = ("wq1", "bq1", "wq2", "bq2", "wk1", "bk1", "wk2", "bk2")
 
@@ -82,6 +84,18 @@ def attn_qk_bank_bwd_plain(qk, wq1, bq1, wq2, bq2, wk1, bk1, wk2, bk2, g, ds: in
         dqk = dqk + terms[0][:, c]
         dqk = dqk + terms[1][:, c]
     return (dqk.to(qk.dtype), *grads)
+
+
+def flops(b: int, n: int, f: int, c: int, a: int, bwd: bool = False) -> int:
+    """Matrix-product FLOPs of the plain version (what ``matmul_flops``
+    counts there), which the kernels report: per channel the q and k nets
+    ([B*N, F] x [F, A] and [B*N, A] x [A, A] each) and the maps' logits
+    (:func:`~moleculesde_tpu_torch.ops.attn_bank.flops`); the backward
+    recomputes all of them, runs the maps' backward and, per net, ``dW2``,
+    ``dout W2^T``, ``dW1`` and ``dpre W1^T``."""
+    nets = 4 * b * n * c * a * (f + a)
+    return 3 * nets + attn_bank_flops(b, c, n, a, True) if bwd else (
+        nets + attn_bank_flops(b, c, n, a))
 
 
 def _shapes(qk, ws):
@@ -202,6 +216,7 @@ def _launch(qk, ws, ds: int, bf16: bool) -> torch.Tensor:
             int(qk.dtype == torch.bfloat16), int(bf16), fc, smem, stream(qk))
     build.check_launch(rc, "attn_qk_bank_fwd")
     attn_qk_bank.launches += 1
+    report_flops(flops(b, n, f, c, a))
     return out
 
 
@@ -230,6 +245,7 @@ def _launch_bwd(qk, ws, g, ds: int, bf16: bool):
                 int(qk.dtype == torch.bfloat16), int(bf16), rows, fc, smem, stream(qk))
         build.check_launch(rc, "attn_qk_bank_bwd")
         attn_qk_bank_bwd.launches += 1
+        report_flops(flops(b, n, f, c, a, bwd=True))
     grads = [t.view(w.shape) for t, w in zip(torch.split(wgrad, sizes), ws)]
     return (dqk, *grads)
 

@@ -43,6 +43,7 @@ import torch
 
 from moleculesde_tpu_torch.kernels import build
 from moleculesde_tpu_torch.ops.common import SMEM_LIMIT, resolve_impl, round_bf16, stream
+from moleculesde_tpu_torch.utils.flops import report_flops
 
 _LOG2 = math.log(2.0)
 
@@ -88,6 +89,16 @@ def fused_cfconv_bwd_plain(ea, env, x, w1, b1, w2, b2, g, *, bf16: bool = False)
             * torch.exp(pre - s - _LOG2))
     dw1 = ea.reshape(-1, ea.shape[-1]).t() @ round_bf16(dpre, bf16).reshape(-1, f)
     return dx, dw1, dpre.sum(dim=(0, 1, 2)), dw2, dwf.sum(dim=(0, 1, 2))
+
+
+def flops(b: int, n: int, gdim: int, f: int, bwd: bool = False) -> int:
+    """Matrix-product FLOPs of the plain version (K2's and K5's, what
+    ``matmul_flops`` counts there), which the kernels report: the filter
+    net's ``ea @ W1`` [B*N*N, G] x [G, F] and ``s @ W2`` [B*N*N, F] x [F, F]
+    over every pair; the backward recomputes both and adds ``dW2``, ``dwf @
+    W2^T`` and ``dW1``."""
+    pairs = b * n * n
+    return 2 * pairs * f * ((2 * gdim + 3 * f) if bwd else (gdim + f))
 
 
 def smear_constants(start: float, stop: float, num_gaussians: int):
@@ -310,6 +321,7 @@ def _launch(ea, env, x, w1, b1, w2, b2, bf16: bool, smear_args=None) -> torch.Te
         fused_cfconv.launches += 1
     else:
         fused_cfconv_rbf.launches += 1
+    report_flops(flops(b, n, gdim, f))
     return out
 
 
@@ -358,6 +370,7 @@ def _launch_bwd(ea, env, x, w1, b1, w2, b2, g, bf16: bool, smear_args=None):
         fused_cfconv_bwd.launches += 1
     else:
         fused_cfconv_rbf_bwd.launches += 1
+    report_flops(flops(b, n, gdim, f, bwd=True))
     return dx, dw1, db1, dw2, db2
 
 

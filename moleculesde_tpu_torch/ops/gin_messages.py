@@ -30,6 +30,7 @@ import torch
 from moleculesde_tpu_torch.core.segment import edge_aggregate, edge_gather
 from moleculesde_tpu_torch.kernels import build
 from moleculesde_tpu_torch.ops.common import SMEM_LIMIT, resolve_impl, round_bf16, stream
+from moleculesde_tpu_torch.utils.flops import report_flops
 
 _FEAT = 64                 # features per block (csrc/gin_messages.cu)
 _SLOTS = 4                 # node ranges (warps per 32 features) per block
@@ -84,6 +85,14 @@ def gin_messages_bwd_plain(x, src, dst, bond_onehot, table, g, *,
     dx = edge_aggregate(dmsg, src_i, b * n, src_ok).reshape(b, n, f)
     dtable = boh.reshape(-1, boh.shape[-1]).t() @ dmsg
     return round_bf16(dx, bf16), dtable
+
+
+def flops(b: int, e: int, d: int, f: int, bwd: bool = False) -> int:
+    """Matrix-product FLOPs of the plain version (what ``matmul_flops``
+    counts there), which the kernels report: the bond embedding ``boh @
+    table`` [B*E, D] x [D, F]; the backward recomputes it and adds
+    ``boh^T @ dmsg``."""
+    return (4 if bwd else 2) * b * e * d * f
 
 
 def _edge_plan(n: int, e: int, d: int, f: int, bwd: bool) -> dict:
@@ -183,6 +192,7 @@ def _launch(x, src, dst, boh, table, bf16: bool) -> torch.Tensor:
             table.shape[0], f, int(bf16), stream(x))
     build.check_launch(rc, "gin_messages_fwd")
     gin_messages.launches += 1
+    report_flops(flops(b, src.shape[1], table.shape[0], f))
     return out
 
 
@@ -203,6 +213,7 @@ def _launch_bwd(x, src, dst, boh, table, g, bf16: bool):
             part.data_ptr(), b, n, src.shape[1], d, f, int(bf16), stream(x))
     build.check_launch(rc, "gin_messages_bwd")
     gin_messages_bwd.launches += 1
+    report_flops(flops(b, src.shape[1], d, f, bwd=True))
     return dx, dtable
 
 

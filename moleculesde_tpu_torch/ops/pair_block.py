@@ -32,6 +32,7 @@ import torch
 from moleculesde_tpu_torch.kernels import build
 from moleculesde_tpu_torch.ops.common import SMEM_LIMIT, resolve_impl, round_bf16, stream
 from moleculesde_tpu_torch.parallel import collectives as dp
+from moleculesde_tpu_torch.utils.flops import report_flops
 
 _CHAN_TILE = 32            # the backward's output channels, H <= 32 (csrc/pair_block.cu)
 
@@ -58,6 +59,14 @@ def pair_mean_var(src: torch.Tensor, dst: torch.Tensor, pair_mask: torch.Tensor
     var = dp.global_sum(torch.einsum("bs,bsc->c", outdeg, u * u)
                         + torch.einsum("bd,bdc->c", indeg, v * v) + 2.0 * cross) / count
     return mean, var.clamp(min=0.0)
+
+
+def flops(b: int, n: int, cdim: int, h: int, bwd: bool = False) -> int:
+    """Matrix-product FLOPs of the plain version (K3's and K4's, what
+    ``matmul_flops`` counts there), which the kernels report: ``relu(pair)
+    @ W`` [B*N*N, C] x [C, H]; the backward ``g @ W^T`` and ``relu(pair)^T
+    @ g``."""
+    return (4 if bwd else 2) * b * n * n * cdim * h
 
 
 def pair_relu_project_plain(a, c, w, bias: Optional[torch.Tensor] = None, *,
@@ -244,6 +253,7 @@ def _launch(a, c, w, bias, bf16: bool) -> torch.Tensor:
             out.data_ptr(), b, n, cdim, h, int(bf16), _sms(a), stream(a))
     build.check_launch(rc, "pair_relu_project_fwd")
     pair_relu_project.launches += 1
+    report_flops(flops(b, n, cdim, h))
     return out
 
 
@@ -267,6 +277,7 @@ def _launch_bwd(a, c, w, g, bf16: bool):
             db_part.data_ptr(), b, n, cdim, h, int(bf16), stream(a))
     build.check_launch(rc, "pair_relu_project_bwd")
     pair_relu_project_bwd.launches += 1
+    report_flops(flops(b, n, cdim, h, bwd=True))
     return da, dc, dw, db
 
 
@@ -284,6 +295,7 @@ def _launch_cm(a, c, w, bf16: bool) -> torch.Tensor:
             int(bf16), _sms(a), stream(a))
     build.check_launch(rc, "pair_relu_project_cm_fwd")
     pair_relu_project_cm.launches += 1
+    report_flops(flops(b, n, cdim, h))
     return out
 
 
@@ -305,6 +317,7 @@ def _launch_cm_bwd(a, c, w, g, bf16: bool):
             stream(a))
     build.check_launch(rc, "pair_relu_project_cm_bwd")
     pair_relu_project_cm_bwd.launches += 1
+    report_flops(flops(b, n, cdim, h, bwd=True))
     return da, dc, dw
 
 

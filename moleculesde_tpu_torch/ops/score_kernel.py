@@ -41,6 +41,7 @@ import torch.nn.functional as F
 from moleculesde_tpu_torch.kernels import build
 from moleculesde_tpu_torch.models.score_2d3d import dense_frames
 from moleculesde_tpu_torch.ops.common import SQRT_GUARD, resolve_impl, round_bf16, stream
+from moleculesde_tpu_torch.utils.flops import report_flops
 
 # the widths csrc/score_eval.cu is compiled for
 KERNEL_N_MAX = 128        # four chunks of 32 sources per lane
@@ -238,6 +239,21 @@ def score_eval_fused_plain(pos3, node_attr, edge_attr_2d, pair_mask, packed, *,
     return grad
 
 
+def flops(b: int, n: int, variant: int = 1, h: int = 32, coff_dim: int = 128,
+          num_layers: int = 2, num_convs: int = 2) -> int:
+    """Matrix-product FLOPs of the plain version (what ``matmul_flops``
+    counts there), which the kernel reports.  Per pair ([B*N*N] rows): the
+    two coefficient embeddings' 4 + 4 [h, h] blocks, the projection's two
+    [h, h] halves and its second layer, variant 2's distance MLP (2 more),
+    each GAT layer's edge projection, each basis layer's edge half [h,
+    coff] and output [coff, 3]; per node ([B*N] rows): each GAT layer's q,
+    k, v, skip and two FFN products, each basis layer's node half."""
+    layers = num_layers * num_convs
+    per_pair = (11 + (2 if variant == 2 else 0) + layers) * h * h + num_layers * coff_dim * (h + 3)
+    per_node = 6 * layers * h * h + num_layers * h * coff_dim
+    return 2 * b * n * (n * per_pair + per_node)
+
+
 # csrc/score_eval.cu's shared-memory layout
 _ROW_BYTES = {True: 80, False: 128}       # a slab row: 40 bf16 / 32 f32 values
 _WBUF_BYTES = 9472 * 4
@@ -356,6 +372,7 @@ def _launch(pos3, node_attr, edge_attr_2d, pair_mask, packed, variant, bf16,
             stream(node_attr))
     build.check_launch(rc, "score_eval_fused")
     score_eval_fused.launches += 1
+    report_flops(flops(b, n, variant, KERNEL_HIDDEN, KERNEL_COFF_DIM, num_layers, num_convs))
     return out
 
 

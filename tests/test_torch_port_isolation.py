@@ -56,6 +56,10 @@ def _imported_modules(path: Path):
 def test_port_imports_no_jax_and_no_jax_package():
     files = sorted((ROOT / "moleculesde_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
+    utils = ROOT / "moleculesde_tpu_torch" / "utils"
+    # the utilities' counterparts, whose JAX modules import JAX (flops.py)
+    # or torch (torch_import.py), and the NaN guard
+    assert {utils / "torch_import.py", utils / "flops.py", utils / "debug_nans.py"} <= set(files)
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad

@@ -30,6 +30,7 @@ as two processes; and the flags that stay refused.
 import concurrent.futures
 import csv
 import datetime
+import json
 import pickle
 import subprocess
 import sys
@@ -95,10 +96,13 @@ def two_ranks(tmp_path_factory):
     """(output root, {CLI: rank 0's result}): every CLI's ``run`` on the same
     two gloo ranks (``mesh.spawn``, as ``--num_devices 2`` spawns them;
     one group for the six, started with the module and awaited by the first
-    test that reads it), writing under ``<root>/two/<CLI>``."""
+    test that reads it), writing under ``<root>/two/<CLI>``.  Pretraining
+    runs under ``--debug_nans`` (each rank's guard) and ``--profile_dir
+    <root>/trace`` (a trace a rank), which change none of its numbers."""
     root = tmp_path_factory.mktemp("cli")
-    jobs = [(name, mod.__name__, flags + ["--num_devices", "2",
-                                          "--output_model_dir", str(root / "two" / name)])
+    extra = {"pretrain": ["--debug_nans", "--profile_dir", str(root / "trace")]}
+    jobs = [(name, mod.__name__, flags + extra.get(name, []) + [
+        "--num_devices", "2", "--output_model_dir", str(root / "two" / name)])
             for name, (mod, flags) in CLIS.items()]
     saved, mesh.TIMEOUT = mesh.TIMEOUT, datetime.timedelta(seconds=60)
     ex = concurrent.futures.ThreadPoolExecutor(1)
@@ -230,7 +234,7 @@ def test_pretrain_distributed_two_processes(tmp_path):
     assert_weights(ckpt, out / "model_complete_final.pt", LR, steps)
 
 
-def test_refusals():
+def test_refusals(two_ranks, capsys):
     with pytest.raises(ValueError, match="2 ranks need 2 CUDA devices, but 0 are visible"):
         mesh.check_devices(2, "cuda")
     mesh.check_devices(3, "cpu")
@@ -245,15 +249,28 @@ def test_refusals():
         pretrain.main(PRE + ["--num_devices", "3"])
     with pytest.raises(ValueError, match="multiple of the number of ranks"):
         pretrain.main(PRE + ["--num_devices", "2", "--microbatch", "3"])
-    for flag in (["--profile_dir", "x"], ["--debug_nans"]):
-        with pytest.raises(NotImplementedError, match=flag[0]):
-            pretrain.main(PRE + flag)
+    # --profile_dir and --debug_nans run under --num_devices 2 (the
+    # two_ranks fixture's pretraining, whose numbers equal one process's in
+    # test_pretrain_two_ranks_match_one_process): a trace of epoch 1 a rank
+    root, results = two_ranks
+    results()
+    for rank in (0, 1):
+        with open(root / "trace" / f"trace_rank{rank}.json") as fh:
+            names = {e.get("name") for e in json.load(fh)["traceEvents"]}
+        assert {"aten::mm", "MmBackward0"} <= names, rank
+    # the finetunes parse --distributed / --dist_* / --profile_dir /
+    # --debug_nans as the JAX finetunes do and note each one, refusing
+    # none of them (their runs equal the runs without such flags:
+    # test_torch_port_finetune_cli.py::test_unported_flags_are_refused)
+    inert = ["--distributed", "--dist_num_processes", "2", "--profile_dir", "x", "--debug_nans"]
     for mod in (finetune_moleculenet, finetune_qm9, finetune_md17):
-        for flag in (["--distributed"], ["--dist_num_processes", "2"], ["--profile_dir", "x"]):
-            with pytest.raises(NotImplementedError, match=flag[0]):
-                mod.main(FT + flag)
+        capsys.readouterr()
         with pytest.raises(ValueError, match="divisible by --num_devices=3"):
-            mod.main(FT + ["--num_devices", "3"])
+            mod.main(FT + inert + ["--num_devices", "3"])
+        out = capsys.readouterr().out
+        for flag in ("--distributed", "--dist_num_processes", "--profile_dir", "--debug_nans"):
+            assert f"{flag} has no effect in this CLI" in out, (mod.__name__, flag)
+        assert not (ROOT / "x").exists()
     with pytest.raises(ValueError, match="divisible by --num_devices=3"):
         sample_2d_to_3d.main(["--device", "cpu", "--num_devices", "3",
                               "--num_repeat_SDE_inference", "2"])

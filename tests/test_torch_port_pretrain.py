@@ -16,9 +16,12 @@ the JAX package, plus the pretraining CLI on the CPU.
   two-step updates agree to 1e-4 relative (floor: 1% of one lr step).
 """
 
+import csv
 import datetime
 import importlib.util
+import json
 import re
+import sys
 from pathlib import Path
 
 import jax
@@ -388,9 +391,10 @@ JAX_ONLY_FLAGS = {
     "pretrain": ("resume_from", "num_devices", "input_data_dir", "max_molecules",
                  "profile_dir", "debug_nans", "distributed", "dist_coordinator",
                  "dist_num_processes", "dist_process_id"),
-    "sample_2d_to_3d": ("gnn_type", "JK", "dropout_ratio", "num_devices", "input_data_dir"),
+    "sample_2d_to_3d": ("gnn_type", "JK", "dropout_ratio", "num_devices", "input_data_dir",
+                        "profile_dir", "debug_nans"),
     "sample_3d_to_2d": ("PaiNN_radius_cutoff", "PaiNN_n_interactions", "PaiNN_n_rbf",
-                        "PaiNN_readout", "use_extend_graph")}
+                        "PaiNN_readout", "use_extend_graph", "profile_dir", "debug_nans")}
 
 
 @pytest.mark.parametrize("name", sorted(PORT_CLIS))
@@ -417,13 +421,17 @@ def test_cli_parses_the_jax_flags_with_jax_defaults(name):
     ("pretrain", ["--profile_dir", "prof"]),
     ("pretrain", ["--debug_nans"]),
     ("sample_2d_to_3d", ["--num_devices", "2"]),
-    ("sample_3d_to_2d", ["--num_devices", "2"])],
+    ("sample_3d_to_2d", ["--num_devices", "2"]),
+    ("sample_2d_to_3d", ["--profile_dir", "prof", "--debug_nans"]),
+    ("sample_3d_to_2d", ["--debug_nans", "--profile_dir", "prof"])],
     ids=lambda v: v if isinstance(v, str) else v[0].lstrip("-"))
-def test_cli_refuses_unported_flag_by_name(name, flags, monkeypatch):
-    """A flag the port does not run (``--profile_dir``, ``--debug_nans``)
-    raises NotImplementedError naming it (never argparse's exit 2), before
-    any work.  The data-parallel flags run, here at tiny
-    widths: ``--num_devices 2`` as two gloo ranks; ``--distributed`` as the
+def test_cli_refuses_unported_flag_by_name(name, flags, monkeypatch, tmp_path, capsys):
+    """Every flag runs, here at tiny widths (none is refused any more).
+    Pretraining's ``--profile_dir`` writes a Chrome trace of epoch 1 that
+    holds the step's operators, forward and backward; its ``--debug_nans``
+    trains through an honest run.  The samplers parse both, as JAX's
+    shared parser gives them, and print that they have no effect.  The
+    data-parallel flags: ``--num_devices 2`` as two gloo ranks; ``--distributed`` as the
     one rank of a launcher's ``env://`` world of one, and with
     ``--dist_num_processes 1`` as one process with no group (JAX's no-op);
     ``--dist_coordinator``
@@ -431,9 +439,24 @@ def test_cli_refuses_unported_flag_by_name(name, flags, monkeypatch):
     ``--distributed``); ``--dist_num_processes 2`` forms a group of two at
     ``env://`` and, with no launcher's address, raises instead of falling
     back to one process."""
-    if flags[0] in ("--profile_dir", "--debug_nans"):
-        with pytest.raises(NotImplementedError, match=re.escape(flags[0]) + " is not ported"):
-            PORT_CLIS[name].main(["--device", "cpu"] + flags)
+    flags = [str(tmp_path / f) if f == "prof" else f for f in flags]
+    if name != "pretrain" and flags[0] in ("--profile_dir", "--debug_nans"):
+        assert PORT_CLIS[name].main(RUN_FLAGS[name] + flags)
+        out = capsys.readouterr().out
+        assert "--profile_dir has no effect in this CLI" in out
+        assert "--debug_nans has no effect in this CLI" in out
+        assert not (tmp_path / "prof").exists()
+        return
+    if flags[0] == "--profile_dir":
+        cli.main(RUN_FLAGS[name] + flags)
+        assert f"profiler trace written to {flags[1]}" in capsys.readouterr().out
+        with open(tmp_path / "prof" / "trace_rank0.json") as fh:
+            names = {e.get("name") for e in json.load(fh)["traceEvents"]}
+        assert {"aten::mm", "MmBackward0", "aten::index_add_"} <= names
+        return
+    if flags[0] == "--debug_nans":     # bit for bit: test_debug_nans_keeps_an_honest_run...
+        history = cli.main(RUN_FLAGS[name] + flags + ["--synthetic_molecules", "4"])
+        assert len(history) == 1 and all(np.isfinite(v) for v in history[0].values())
         return
     monkeypatch.setattr(mesh, "TIMEOUT", datetime.timedelta(seconds=60))
     for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
@@ -449,6 +472,117 @@ def test_cli_refuses_unported_flag_by_name(name, flags, monkeypatch):
         monkeypatch.setenv("RANK", "0")
     out = PORT_CLIS[name].main(RUN_FLAGS[name] + flags)
     assert out and not torch.distributed.is_initialized()
+
+
+def assert_same_run(a, b):
+    """Two pretraining CLI runs wrote the same metrics (the wall-clock column
+    aside) and the same weights, statistics and optimizer state, bit for
+    bit."""
+    with open(a / "metrics.csv") as fa, open(b / "metrics.csv") as fb:
+        rows_a, rows_b = list(csv.DictReader(fa)), list(csv.DictReader(fb))
+    assert len(rows_a) == len(rows_b) > 0
+    for ra, rb in zip(rows_a, rows_b):
+        assert {k: v for k, v in ra.items() if k != "wall_time"} == \
+            {k: v for k, v in rb.items() if k != "wall_time"}
+    for name in ("model_complete.pt", "model_complete_final.pt"):
+        ca, cb = load_checkpoint(str(a / name)), load_checkpoint(str(b / name))
+        for comp in (c for c in ca if c != "config"):
+            for key, value in ca[comp].items():
+                assert torch.equal(value, cb[comp][key]), (name, comp, key)
+    sa = torch.load(a / "train_state.pt", weights_only=False)
+    sb = torch.load(b / "train_state.pt", weights_only=False)
+    assert torch.equal(torch.cat([v.flatten().float() for v in _tensors(sa)]),
+                       torch.cat([v.flatten().float() for v in _tensors(sb)]))
+
+
+def _tensors(tree):
+    if torch.is_tensor(tree):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+
+
+@pytest.mark.parametrize("ingest", ["compact", "padded"])
+def test_debug_nans_keeps_an_honest_run_and_stops_at_a_planted_nan(ingest, tmp_path):
+    """``--debug_nans`` at the JAX CLI's default compact ingest and at
+    ``--ingest padded``, two steps: no NaN in any module output, backward
+    node, updated state or metric of an honest run (so none arises in a
+    padded lane either), and the run is bit for bit the one without the
+    flag.  (The JAX CLI on the same flags under its ``--debug_nans``:
+    :func:`test_jax_cli_runs_the_same_flags_under_debug_nans`, marked
+    slow.)  A NaN planted in GIN layer 0's first kernel (through
+    ``--resume_from``) raises FloatingPointError naming that module, as
+    ``jax_debug_nans`` raises on the same fault in the JAX GIN
+    (``FloatingPointError`` at its first NaN output)."""
+    flags = TINY_FLAGS + ["--ingest", ingest, "--epochs", "1", "--synthetic_molecules", "8"]
+    runs = [tmp_path / "plain", tmp_path / "guarded"]
+    for out, extra in zip(runs, ([], ["--debug_nans"])):
+        cli.main(flags + ["--output_model_dir", str(out)] + extra)
+    assert_same_run(*runs)
+    payload = torch.load(runs[0] / "train_state.pt", weights_only=False)
+    state = payload["state"]
+    kernel = state["models"]["model_2D"]["GINConv_0.Dense_0.kernel"]
+    kernel[3, 5] = float("nan")
+    planted = tmp_path / "planted.pt"
+    torch.save(payload, planted)
+    with pytest.raises(FloatingPointError, match=r"model_2D\.GINConv_0\.Dense_0"):
+        cli.main(flags + ["--resume_from", str(planted), "--debug_nans"])
+    if ingest != "compact":
+        return
+    # the JAX GIN on the same planted fault
+    params, stats = jax_import_gin_tree(state["models"]["model_2D"])
+    params["GINConv_0"]["Dense_0"]["kernel"] = np.asarray(kernel.numpy())
+    jb = jax_pad_graphs(graphs(seed=3, count=2, n_max=8), n_max=8, e_max=32, ext_e_max=64)
+    jm = jax_build_models(_configs()[0])["model_2D"]
+    with jax.debug_nans(True), pytest.raises(FloatingPointError):
+        jm.apply({"params": params, "batch_stats": stats}, jb, deterministic=True,
+                 use_running_average=True)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("ingest", ["compact", "padded"])
+def test_jax_cli_runs_the_same_flags_under_debug_nans(ingest, tmp_path):
+    """The JAX CLI (``examples/pretrain.py``) on the flags of
+    :func:`test_debug_nans_keeps_an_honest_run_and_stops_at_a_planted_nan`
+    with its ``--debug_nans``: no ``FloatingPointError``.  ``jax_debug_nans``
+    reads the output of each jitted call, here the whole step, so a NaN
+    that a ``where`` removes inside the step would not show; the port's
+    guard reads every module output and backward node.  Slow: the JAX
+    step's compile takes about 100 s on a CPU."""
+    examples = Path(__file__).resolve().parents[1] / "examples"
+    saved = sys.modules.pop("config", None)
+    sys.path.insert(0, str(examples))
+    try:
+        spec = importlib.util.spec_from_file_location("jax_cli_pretrain",
+                                                      examples / "pretrain.py")
+        jax_cli = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(jax_cli)
+        flags = [f for f in TINY_FLAGS if f not in ("--device", "cpu")]
+        jax_cli.main(flags + ["--ingest", ingest, "--epochs", "1", "--synthetic_molecules", "8",
+                              "--output_model_dir", str(tmp_path), "--debug_nans"])
+    finally:
+        jax.config.update("jax_debug_nans", False)
+        sys.path.remove(str(examples))
+        sys.modules.pop("config", None)
+        if saved is not None:
+            sys.modules["config"] = saved
+
+
+def jax_import_gin_tree(flat):
+    """The port's ``model_2D`` state dict as a flax (params, batch_stats)
+    pair of nested numpy dicts."""
+    params, stats = {}, {}
+    for key, value in flat.items():
+        *path, leaf = key.split(".")
+        tree = stats if leaf in ("mean", "var") else params
+        for p in path:
+            tree = tree.setdefault(p, {})
+        tree[leaf] = value.numpy()
+    return params, stats
 
 
 def test_3d2d_cli_runs_painn(tmp_path):
