@@ -244,7 +244,28 @@ Phases (any failure exits non-zero):
      names it, after K1 ran; the CLI's ``main`` with ``--profile_dir`` and
      ``--debug_nans`` on 256 molecules (one epoch of 2 steps): its trace
      holds the CUDA events of K1, K2 and K3, forward and backward, as many
-     as the steps launched.
+     as the steps launched;
+ 20. every N the JAX kernels take (``large_plans_path``): K1 in its ranges
+     plan (N = 2048, B = 2, E = 4 N, D = 13, F = 300; D = 40 at N = 128),
+     K3 and K4's backward in the tiled plan (N = 2048, B = 1, H = 32; N =
+     1024, B = 2, H = 64, two passes of h) and K8 in its tiled plan on the
+     3D->2D chain's edge layer 1 and 0 operands at n_max 512 and 1024, B =
+     2, each against its plain version in bf16 and f32 at the bars of the
+     phases above, ``matmul_flops`` equal, two runs bit for bit, timed
+     beside its bound; K8's backward at N = 256, B = 2 in both plans in
+     turns (the same dqk bits); then the JAX CLI's default pretraining
+     path at ``--n_max 1024``, B = 2: K1, K3 and K4 on its operands, two
+     steps (K1 5 / 5, K2 6 / 6, K3 1 / 1 a step), a profiled step and its
+     peak memory, one step against an all-plain build, two "fused" bank
+     steps (K8 4 / 4 a step, a profiled third), one held against the same
+     step with K8's plain version in bf16 and the "auto" build in f32 (at
+     this N the bf16 step's q / k leaves are ill conditioned: the "auto"
+     form, which rounds its logits and tanh to bf16, lies ~3x their size
+     from the f32 step, and so does K8's; the two are held within 1.25x of
+     each other's distance there), and two ``pair_cm_direct`` steps and
+     one against the all-plain ``pair_cm_direct`` build; and the
+     2D->3D sampler chain at ``--n_max 1024``, B = 2 (K1 5, K3 1), its
+     conditioning against the all-plain build at phase 3's bars.
 The line before the last lists every kernel as JSON (the ones before it
 phase 19's, phase 18's, phase 17's, phase 15's and phase 14's figures);
 the last line is {"ok": true, "device": {...}}.
@@ -254,6 +275,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import subprocess
@@ -264,6 +286,8 @@ import torch
 
 from moleculesde_tpu_torch.benchmarks.profile_sampler_3d2d import bank_operands
 from moleculesde_tpu_torch.benchmarks.timing import device_ms, median_ms, profiled_ms
+from moleculesde_tpu_torch.ops import gin_messages as gin_ops
+from moleculesde_tpu_torch.ops import pair_block as pair_ops
 from moleculesde_tpu_torch.ops.attn_bank import (
     attn_map_bank_bwd_plain, attn_map_bank_kernel, attn_map_bank_kernel_bwd,
     attn_map_bank_plain)
@@ -296,8 +320,8 @@ def check(cond: bool, what: str) -> None:
         raise PhaseError(what)
 
 
-# (name, result dict, kernel call, plain call) of every timed kernel, for
-# device_time_phase
+# (name, result dict, kernel call, plain call, calls a graph) of every timed
+# kernel, for device_time_phase
 _DEVICE_RUNS = []
 
 
@@ -307,8 +331,9 @@ def device_time_phase():
     timed, so that the graphs' memory pools touch no other number."""
     saved = [c.launches for c in _counters()]
     with torch.no_grad():
-        for name, result, run_k, run_p in _DEVICE_RUNS:
-            result["device_ms"], result["plain_device_ms"] = device_ms(run_k), device_ms(run_p)
+        for name, result, run_k, run_p, reps in _DEVICE_RUNS:
+            result["device_ms"] = device_ms(run_k, reps=reps)
+            result["plain_device_ms"] = device_ms(run_p, reps=reps)
             print(f"{name}: device_ms={result['device_ms']:.4f} plain_device_ms="
                   f"{result['plain_device_ms']:.4f} bound_ms={result['bound_ms']:.4f} "
                   f"(CUDA-graph replay, time per call)", flush=True)
@@ -452,10 +477,11 @@ def _counters():
             attn_map_bank_kernel_bwd, attn_qk_bank, attn_qk_bank_bwd)
 
 
-def _timed(run):
-    """CUDA-event median of ``run``; launch counts are left as they were."""
+def _timed(run, reps: int = 30):
+    """CUDA-event median of ``reps`` runs of ``run``; launch counts are left
+    as they were."""
     saved = [c.launches for c in _counters()]
-    ms = median_ms(run)
+    ms = median_ms(run, warmup=min(5, reps), reps=reps)
     for c, n in zip(_counters(), saved):
         c.launches = n
     return ms
@@ -517,18 +543,25 @@ def same_bits(name, run):
     check(all(torch.equal(u, v) for u, v in zip(first, second)), f"{name}: two runs differ")
 
 
-def report(name, err, tol_rel, run_k, run_p, nbytes, ops, peak_ops, floor=1.0):
+# CUDA-event runs and calls a graph of a timed kernel; phase 20's large
+# shapes take LARGE_REPS, whose plain versions move gigabytes a call
+REPS = {"reps": 30, "device_reps": 10}
+LARGE_REPS = {"reps": 5, "device_reps": 2}
+
+
+def report(name, err, tol_rel, run_k, run_p, nbytes, ops, peak_ops, floor=1.0, reps=None):
     """Time the kernel call ``run_k`` and the plain call ``run_p`` (CUDA-event
     medians now, device times in :func:`device_time_phase`) and print them
     beside the bound."""
-    kernel_ms, plain_ms = _timed(run_k), _timed(run_p)
+    reps = reps or REPS
+    kernel_ms, plain_ms = _timed(run_k, reps["reps"]), _timed(run_p, reps["reps"])
     bound_ms, bound_by = bound(nbytes, ops, peak_ops)
     print(f"{name}: max_abs_err={err:.3e} (tolerance {tol_rel:g} x max({floor:g}, |plain|)) "
           f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
           f"bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
     out = {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
            "bound_ms": bound_ms, "bound_by": bound_by}
-    _DEVICE_RUNS.append((name, out, run_k, run_p))
+    _DEVICE_RUNS.append((name, out, run_k, run_p, reps["device_reps"]))
     return out
 
 
@@ -541,7 +574,7 @@ def kernel_phase(name, wrapper, plain, args, bf16, tol_rel, nbytes, ops, peak_op
 
 
 def grad_phase(name, fwd, bwd, bwd_plain, diff, g, bf16, tol_rel, fwd_cost,
-               bwd_cost, peak_ops, floor: float = 1.0):
+               bwd_cost, peak_ops, floor: float = 1.0, reps=None):
     """A kernel pair under autograd against the plain pair: the output and
     the gradient of every differentiable operand (``diff``), then the
     forward and backward wrappers timed on their own.  ``fwd(*diff)``,
@@ -558,10 +591,12 @@ def grad_phase(name, fwd, bwd, bwd_plain, diff, g, bf16, tol_rel, fwd_cost,
     with torch.no_grad():
         out = (report(name + " fwd", err, tol_rel,
                       lambda: fwd(*diff, bf16=bf16, impl="kernel"),
-                      lambda: fwd(*diff, bf16=bf16, impl="plain"), *fwd_cost, peak_ops, floor),
+                      lambda: fwd(*diff, bf16=bf16, impl="plain"), *fwd_cost, peak_ops, floor,
+                      reps),
                report(name + " bwd", err, tol_rel,
                       lambda: bwd(*diff, g, bf16=bf16, impl="kernel"),
-                      lambda: bwd_plain(*diff, g, bf16=bf16), *bwd_cost, peak_ops, floor))
+                      lambda: bwd_plain(*diff, g, bf16=bf16), *bwd_cost, peak_ops, floor,
+                      reps))
     for r in out:
         r["max_rel_err"] = rel
     return out
@@ -1009,7 +1044,7 @@ def pair_cm_direct_chain(dev):
     return launches
 
 
-def qk_bank_phase(name, qk, ws, g, ds, bf16, tol):
+def qk_bank_phase(name, qk, ws, g, ds, bf16, tol, reps=None):
     """K8 under autograd against its plain pair: the maps and dqk by the
     largest error over max |plain|, the eight weight gradients by relative
     L2; then the forward and backward wrappers timed on their own, on the
@@ -1045,11 +1080,11 @@ def qk_bank_phase(name, qk, ws, g, ds, bf16, tol):
         out = (report(name + " fwd", worst, tol,
                       lambda: attn_qk_bank(qd, *ws, ds, bf16=bf16, impl="kernel"),
                       lambda: attn_qk_bank(qd, *ws, ds, bf16=bf16, impl="plain"),
-                      *k8_cost(qd, ws, ds), peak, 0.0),
+                      *k8_cost(qd, ws, ds), peak, 0.0, reps),
                report(name + " bwd", worst, tol,
                       lambda: attn_qk_bank_bwd(qd, *ws, g, ds, bf16=bf16, impl="kernel"),
                       lambda: attn_qk_bank_bwd_plain(qd, *ws, g, ds, bf16=bf16),
-                      *k8_cost(qd, ws, ds, True), peak, 0.0))
+                      *k8_cost(qd, ws, ds, True), peak, 0.0, reps))
     for r in out:
         r["max_rel_err"] = worst_rel
     print(f"{name}: largest relative error {worst_rel:.3e} (maps and dqk of max |plain|, "
@@ -1421,18 +1456,20 @@ def training_path(dev):
     return results, launches, cm_launches, bank_launches
 
 
-def pair_cm_direct_steps(dev, args, cfg, models, batches, leaf_tol):
+def pair_cm_direct_steps(dev, args, cfg, models, batches, leaf_tol, reference: str = "K3"):
     """Phase 8: two pretraining steps with ``pair_cm_direct=True`` on the
     trained weights (K4 forward and backward once per step, K3 never), then
     one step's losses and K4's own gradient leaves against the K3 build of
-    the same weights and draws.  Returns the launch counts of the two
-    steps."""
+    the same weights and draws (``reference`` "plain": against the
+    all-plain ``pair_cm_direct`` build, K4's plain version rounding where
+    K4 rounds, before the add, which K3 does not).  Returns the launch
+    counts of the two steps."""
     from moleculesde_tpu_torch.pretrain.train_state import build_models, make_optimizer
     from moleculesde_tpu_torch.pretrain.train_step import (
         METRICS, draw_losses, pretrain_loss, pretrain_step)
 
-    def copy(pair_cm_direct):
-        ms = build_models(cfg, dev, pair_cm_direct=pair_cm_direct)
+    def copy(pair_cm_direct, impl="auto"):
+        ms = build_models(cfg, dev, impl=impl, pair_cm_direct=pair_cm_direct)
         for name in models:
             ms[name].load_state_dict(models[name].state_dict())
         return ms
@@ -1459,7 +1496,9 @@ def pair_cm_direct_steps(dev, args, cfg, models, batches, leaf_tol):
     batch = batches[steps + 1]
     out = {}
     saved = [c.launches for c in _counters()]
-    for label, ms in (("K3", copy(False)), ("K4", copy(True))):
+    ref = "K3" if reference == "K3" else "all-plain K4"
+    for label, ms in ((ref, copy(False) if reference == "K3" else copy(True, "plain")),
+                      ("K4", copy(True))):
         g = torch.Generator(device=dev).manual_seed(args.seed + 3)
         total, mets = pretrain_loss(ms, cfg, batch, g, draws=draw_losses(ms, cfg, batch, g))
         total.backward()
@@ -1470,19 +1509,19 @@ def pair_cm_direct_steps(dev, args, cfg, models, batches, leaf_tol):
         out[label] = ({k: v.item() for k, v in mets.items()}, leaves)
     for c, n in zip(_counters(), saved):
         c.launches = n
-    (m3, l3), (m4, l4) = out["K3"], out["K4"]
+    (m3, l3), (m4, l4) = out[ref], out["K4"]
     tol = 1e-3
     for k in METRICS:
         err = abs(m4[k] - m3[k]) / max(1e-6, abs(m3[k]))
-        print(f"K4 vs K3 step: {k} {m4[k]:.6f} vs {m3[k]:.6f} rel {err:.2e} (tolerance {tol:g})",
-              flush=True)
-        check(err <= tol, f"{k} of the pair_cm_direct step disagrees with the K3 step")
+        print(f"K4 vs {ref} step: {k} {m4[k]:.6f} vs {m3[k]:.6f} rel {err:.2e} (tolerance "
+              f"{tol:g})", flush=True)
+        check(err <= tol, f"{k} of the pair_cm_direct step disagrees with the {ref} step")
     check(sorted(l4) == sorted(l3) and len(l4) == 5, f"K4 leaves {sorted(l4)}")
     for k in sorted(l4):
         err = ((l4[k] - l3[k]).norm() / l3[k].norm().clamp(min=1e-30)).item()
-        print(f"K4 vs K3 step: grad {k} relative L2 {err:.2e} (tolerance {leaf_tol:g})",
+        print(f"K4 vs {ref} step: grad {k} relative L2 {err:.2e} (tolerance {leaf_tol:g})",
               flush=True)
-        check(err <= leaf_tol, f"gradient of {k} disagrees with the K3 step ({err:.3e})")
+        check(err <= leaf_tol, f"gradient of {k} disagrees with the {ref} step ({err:.3e})")
     return launches
 
 
@@ -1796,7 +1835,7 @@ def gin_pair_same_bits(label, k1, g1, k3, g3, g4):
           f"and f32", flush=True)
 
 
-def large_n_gin_pair_phases(models, batch, label):
+def large_n_gin_pair_phases(models, batch, label, reps=None):
     """K1, K3 and K4, forward and backward, against their plain versions on
     GIN layer 0's and the 2D->3D edge embedding's operands of ``batch``
     (expanded on the card), in bf16 (the path's mode) and f32 at the
@@ -1827,7 +1866,8 @@ def large_n_gin_pair_phases(models, batch, label):
             lambda x_, t_, g_, **kw: gin_messages_bwd(x_, src, dst, boh, t_, g_, **kw),
             lambda x_, t_, g_, **kw: gin_messages_bwd_plain(x_, src, dst, boh, t_, g_, **kw),
             (x, table), g1, bf16, 1e-2 if bf16 else 1e-4,
-            k1_cost(x, src, dst, table), k1_cost(x, src, dst, table, bwd=True), peak)
+            k1_cost(x, src, dst, table), k1_cost(x, src, dst, table, bwd=True), peak,
+            reps=reps)
         results["pair_relu_project" + sfx], results["pair_relu_project_bwd" + sfx] = \
             grad_phase(f"{label} K3 pair_relu_project" + sfx, pair_relu_project,
                        lambda a_, c_, w_, b_, g_, **kw: pair_relu_project_bwd(
@@ -1835,12 +1875,12 @@ def large_n_gin_pair_phases(models, batch, label):
                        lambda a_, c_, w_, b_, g_, **kw: pair_relu_project_bwd_plain(
                            a_, c_, w_, g_, **kw),
                        (a, c, w, bias), g3, bf16, 1e-3 if bf16 else 1e-4,
-                       k3_cost(a, w), k3_cost(a, w, bwd=True), peak)
+                       k3_cost(a, w), k3_cost(a, w, bwd=True), peak, reps=reps)
         results["pair_relu_project_cm" + sfx], results["pair_relu_project_cm_bwd" + sfx] = \
             grad_phase(f"{label} K4 pair_relu_project_cm" + sfx, pair_relu_project_cm,
                        pair_relu_project_cm_bwd, pair_relu_project_cm_bwd_plain,
                        (a, c, w), g4, bf16, 1e-3 if bf16 else 1e-4,
-                       k4_cost(a, w), k4_cost(a, w, bwd=True), peak)
+                       k4_cost(a, w), k4_cost(a, w, bwd=True), peak, reps=reps)
     gin_pair_same_bits(label, k1, g1, (a, c, w), g3, g4)
     return results
 
@@ -4068,6 +4108,386 @@ def utilities_path(dev, card: str):
     return runs, figures
 
 
+
+# phase 20: every N the JAX kernels take -- K1's ranges plan, K3 / K4's
+# tiled backward and K8's tiled plan, each past the plan it keeps inside its
+# old limits, alone and on the pretraining and sampler paths at --n_max 1024
+
+def seeded_gin_operands(dev, b, n, e, d, f, seed):
+    """K1 operands of molecule-like graphs: in each graph a random count of
+    atoms in [N / 2, N] joined by its live edges (half to all of E), the
+    rest of the edge slots masked to the sentinel N; a few out-of-range src
+    and dst besides; one-hot rows at density 1 / 4."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    src = torch.full((b, e), n, dtype=torch.int32, device=dev)
+    dst = torch.full((b, e), n, dtype=torch.int32, device=dev)
+    for i in range(b):
+        atoms = int(torch.randint(n // 2, n + 1, (1,), generator=gen, device=dev))
+        live = int(torch.randint(e // 2, e + 1, (1,), generator=gen, device=dev))
+        src[i, :live] = torch.randint(0, atoms, (live,), generator=gen, device=dev,
+                                      dtype=torch.int32)
+        dst[i, :live] = torch.randint(0, atoms, (live,), generator=gen, device=dev,
+                                      dtype=torch.int32)
+    src[:, 5::37] = -3
+    dst[:, 9::41] = n + 7
+    x = torch.randn(b, n, f, device=dev, generator=gen)
+    boh = (torch.rand(b, e, d, device=dev, generator=gen) < 0.25).float()
+    table = 0.5 * torch.randn(d, f, device=dev, generator=gen)
+    return (x, src, dst, boh, table), torch.randn(b, n, f, device=dev, generator=gen)
+
+
+def large_gin_phases(dev):
+    """K1 forward and backward in the ranges plan on seeded operands at N =
+    2048, B = 2 (E = 4 N, D = 13, F = 300) and at D = 40 (two 32-column
+    slices; N = 128, B = 32), against the plain versions at the training
+    phase's bars in bf16 and f32, and two runs of each bit for bit."""
+    return {size: _large_gin_phase(dev, size, shape)
+            for size, shape in (("n_2048_b_2", (2, 2048, 8192, 13, 300)),
+                                ("n_128_d_40", (32, 128, 512, 40, 300)))}
+
+
+def _large_gin_phase(dev, size, shape):
+    """large_gin_phases at one shape (its own scope: the timed calls close
+    over this shape's operands until device_time_phase)."""
+    (x, src, dst, boh, table), g1 = seeded_gin_operands(dev, *shape, seed=23)
+    b, n, e, d, f = shape
+    for plan in (gin_ops.fwd_plan(n, e, d, f, b), gin_ops.bwd_plan(n, e, d, f, b)):
+        check(plan["plan"] == "ranges", f"K1 at {size}: the {plan['plan']} plan")
+    res = {}
+    for bf16 in (True, False):
+        sfx = "" if bf16 else "[f32]"
+        peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
+        res["gin_messages" + sfx], res["gin_messages_bwd" + sfx] = grad_phase(
+            f"{size} K1 gin_messages" + sfx,
+            lambda x_, t_, **kw: gin_messages(x_, src, dst, boh, t_, **kw),
+            lambda x_, t_, g_, **kw: gin_messages_bwd(x_, src, dst, boh, t_, g_, **kw),
+            lambda x_, t_, g_, **kw: gin_messages_bwd_plain(x_, src, dst, boh, t_, g_,
+                                                            **kw),
+            (x, table), g1, bf16, 1e-2 if bf16 else 1e-4,
+            k1_cost(x, src, dst, table), k1_cost(x, src, dst, table, bwd=True), peak,
+            reps=LARGE_REPS)
+        with torch.no_grad():
+            same_bits(f"{size} K1 forward" + sfx, lambda: gin_messages(
+                x, src, dst, boh, table, bf16=bf16, impl="kernel"))
+            same_bits(f"{size} K1 backward" + sfx, lambda: gin_messages_bwd(
+                x, src, dst, boh, table, g1, bf16=bf16, impl="kernel"))
+    return res
+
+
+def large_pair_bwd_phases(dev):
+    """K3 and K4's backward in the tiled plan on seeded operands (C = 300)
+    at N = 2048, B = 1, H = 32 (16 row tiles) and N = 1024, B = 2, H = 64 (16
+    row tiles, two passes of h), against the plain versions at the training
+    phase's bars in bf16 and f32, and two runs of each bit for bit."""
+    return {size: _large_pair_bwd_phase(dev, size, shape)
+            for size, shape in (("n_2048_b_1", (1, 2048, 300, 32)),
+                                ("n_1024_h_64", (2, 1024, 300, 64)))}
+
+
+def _large_pair_bwd_phase(dev, size, shape):
+    """large_pair_bwd_phases at one shape, in its own scope."""
+    b, n, c, h = shape
+    plan = pair_ops.bwd_plan(n, c, h, b)
+    check(plan["tiles"] > 1, f"K3 / K4 backward at {size}: plan {plan}")
+    gen = torch.Generator(device=dev).manual_seed(29)
+    a, cc = (torch.randn(b, n, c, device=dev, generator=gen) for _ in range(2))
+    w = torch.randn(c, h, device=dev, generator=gen) / c ** 0.5
+    g3 = torch.randn(b, n, n, h, device=dev, generator=gen)
+    g4 = g3.reshape(b, n * n, h).transpose(1, 2).contiguous()
+    res = {}
+    for bf16 in (True, False):
+        sfx = "" if bf16 else "[f32]"
+        peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
+        for name, bwd, plain, g, cost in (
+                ("pair_relu_project_bwd", pair_relu_project_bwd, pair_relu_project_bwd_plain,
+                 g3, k3_cost(a, w, bwd=True)),
+                ("pair_relu_project_cm_bwd", pair_relu_project_cm_bwd,
+                 pair_relu_project_cm_bwd_plain, g4, k4_cost(a, w, bwd=True))):
+            label = f"{size} {'K4' if 'cm' in name else 'K3'} {name}" + sfx
+            run_k = lambda f_=bwd, g_=g, m=bf16: f_(a, cc, w, g_, bf16=m,  # noqa: E731
+                                                    impl="kernel")
+            run_p = lambda f_=plain, g_=g, m=bf16: f_(a, cc, w, g_, bf16=m)  # noqa: E731
+            tol = 1e-3 if bf16 else 1e-4
+            err, rel = compare(label, run_k, run_p, tol)
+            res[name + sfx] = report(label, err, tol, run_k, run_p, *cost, peak,
+                                     reps=LARGE_REPS)
+            res[name + sfx]["max_rel_err"] = rel
+            with torch.no_grad():
+                same_bits(label, run_k)
+    return res
+
+
+def large_qk_bank_phases(dev):
+    """K8 forward and backward in the tiled plan on the 3D->2D chain's edge
+    layer 1 (C = 8, F = 16) and 0 (C = 2, F = 300) operands at --n_max 512
+    and 1024, B = 2 (qk_bank_phase: against the plain pair under autograd,
+    bf16 3e-3 and f32 1e-4 of max |plain|, two runs bit for bit); then its
+    backward at N = 256, B = 2 (seeded edge layer 1 operands, where the
+    block plan still runs) in both plans, in turns."""
+    from moleculesde_tpu_torch.benchmarks.profile_sampler_3d2d import chain_bank_operands
+    from moleculesde_tpu_torch.ops import attn_qk_bank as k8
+
+    results = {}
+    for n in (512, 1024):
+        for li, ops in enumerate(chain_bank_operands(dev, n, 2)):
+            qk, ws, ds = ops["qk"], ops["ws"], ops["ds"]
+            c, f, a = ws[0].shape[0], qk.shape[2], ws[0].shape[2]
+            for bwd in (False, True):
+                check(k8.plan_of(n, f, c, a, a // ds, bwd, 2) == "tiled",
+                      f"K8 at N={n}: not the tiled plan")
+            gen = torch.Generator(device=dev).manual_seed(31 + li)
+            g = torch.randn(2, c, n, n, generator=gen, device=dev)
+            print(f"bank operands [n{n}], edge layer {li}: qk {tuple(qk.shape)}, W1 "
+                  f"{tuple(ws[0].shape)}, ds {ds}", flush=True)
+            for bf16 in (True, False):
+                sfx = f"[L{li}]" + ("" if bf16 else "[f32]") + f"[n{n}]"
+                results["attn_qk_bank" + sfx], results["attn_qk_bank_bwd" + sfx] = (
+                    qk_bank_phase("K8 attn_qk_bank" + sfx, qk, ws, g, ds, bf16,
+                                  3e-3 if bf16 else 1e-4, reps=LARGE_REPS))
+    gen = torch.Generator(device=dev).manual_seed(17)
+    c, a, f = 8, 32, 16
+    ws = [torch.randn(sh, device=dev, generator=gen) / (sh[-2] ** 0.5 if len(sh) == 3 else 4.0)
+          for sh in [(c, f, a), (c, a), (c, a, a), (c, a)] * 2]
+    qk = torch.randn(2, 256, f, device=dev, generator=gen).bfloat16()
+    g = torch.randn(2, c, 256, 256, device=dev, generator=gen)
+    runs = {plan: (lambda p=plan: k8._launch_bwd(qk, ws, g, 4, True, plan=p))
+            for plan in ("block", "tiled")}
+    times = {"block": [], "tiled": []}
+    saved = [k.launches for k in _counters()]
+    with torch.no_grad():
+        for plan in ("block", "tiled", "tiled", "block"):
+            times[plan].append(device_ms(runs[plan]))
+        outs = {plan: run() for plan, run in runs.items()}
+    for k, n_ in zip(_counters(), saved):
+        k.launches = n_
+    check(torch.equal(outs["block"][0], outs["tiled"][0]),
+          "K8 backward at N = 256: the tiled plan's dqk differs from the block plan's")
+    results["n_256_b_2_bwd_plans"] = {"block_device_ms": times["block"],
+                                     "tiled_device_ms": times["tiled"]}
+    print(f"K8 backward N=256 B=2 bf16 (edge layer 1 widths, seeded), device_ms in turns "
+          f"block / tiled / tiled / block: {times['block'][0]:.4f} / {times['tiled'][0]:.4f} / "
+          f"{times['tiled'][1]:.4f} / {times['block'][1]:.4f}; the wrapper takes the "
+          f"{k8.plan_of(256, f, c, a, 8, True, 2)} plan there; dqk bit for bit", flush=True)
+    return results
+
+
+def sampler_chain_n1024(dev):
+    """The 2D->3D sampler chain at --n_max 1024, B = 2 (one molecule x 2
+    repeats, the sampler CLI's widths, 20 PC steps x 1 corrector step): K1
+    forward 5 (the ranges plan) and K3 forward 1, positions finite with the
+    padded rows exactly 0; its conditioning against an all-plain build of
+    the same weights at phase 3's bars."""
+    from moleculesde_tpu_torch.benchmarks.profile_sampler import PATH_ARGS
+    from moleculesde_tpu_torch.examples import sample_2d_to_3d as cli
+
+    args = cli.get_parser().parse_args(PATH_ARGS + [
+        "--n_max", "1024", "--end", "1", "--sample_mols_per_batch", "1",
+        "--num_repeat_SDE_inference", "2"])
+    batch = cli.make_batch(cli.load_graphs(args)[:1], args, dev)
+    model_2d, sde_model = cli.build_models(args, dev)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    reset_counts()
+    t0 = time.perf_counter()
+    pos = cli.generate(model_2d, sde_model, batch, gen, args)
+    torch.cuda.synchronize()
+    chain_s = time.perf_counter() - t0
+    launches = read_counts()
+    print(f"n_max 1024 sampler chain (B={batch.num_graphs}): launches {launches}; wall_ms="
+          f"{chain_s * 1e3:.2f}", flush=True)
+    check(launches == expect(gin_messages=args.num_layer, pair_relu_project=1),
+          f"n_max 1024 sampler chain launch counts {launches}")
+    check(tuple(pos.shape) == (batch.num_nodes, 3) and bool(torch.isfinite(pos).all()),
+          "n_max 1024 sampler chain: positions")
+    check(bool((pos[~batch.node_mask] == 0).all()), "n_max 1024: padded rows are not 0")
+    saved = [k.launches for k in _counters()]
+    with torch.no_grad():
+        node_2d = model_2d(batch, use_running_average=True)
+        plain_2d, plain_sde = cli.build_models(args, dev, msg_impl="plain", pair_impl="plain")
+        cond_k = sde_model.precompute_conditioning(node_2d, batch, layout="channel")
+        node_p = plain_2d(batch, use_running_average=True)
+        cond_p = plain_sde.precompute_conditioning(node_p, batch, layout="channel")
+    for k, n_ in zip(_counters(), saved):
+        k.launches = n_
+    node_err = (node_2d - node_p).abs().max().item()
+    edge_err = (cond_k["edge_attr_2d"].float() - cond_p["edge_attr_2d"].float()
+                ).abs().max().item()
+    node_scale = max(1.0, node_p.abs().max().item())
+    edge_scale = max(1.0, cond_p["edge_attr_2d"].float().abs().max().item())
+    print(f"n_max 1024 conditioning vs plain: node_2d max_abs_err={node_err:.3e} (tolerance "
+          f"{1e-4 * node_scale:.3e}); edge_attr_2d max_abs_err={edge_err:.3e} (tolerance "
+          f"{2 ** -8 * edge_scale:.3e})", flush=True)
+    check(node_err <= 1e-4 * node_scale, "n_max 1024: node_2d disagrees with the plain path")
+    check(edge_err <= 2 ** -8 * edge_scale,
+          "n_max 1024: edge_attr_2d disagrees with the plain path")
+    return launches
+
+
+def _bank_step(dev, cfg, models, batch, seed: int, impl: str = "fused", precision=None,
+               bank_impl: str = "auto"):
+    """One step's loss terms and the 3D->2D edge network's q / k gradient
+    leaves on a copy of ``models`` with the ``impl`` bank, in ``precision``
+    (the config's by default); ``bank_impl`` "plain" gives the 3D->2D
+    model (whose only kernels are the bank's) the plain versions, the
+    other components keeping their kernels."""
+    from moleculesde_tpu_torch.pretrain.train_state import build_models
+    from moleculesde_tpu_torch.pretrain.train_step import draw_losses, pretrain_loss
+
+    cfg_ = dataclasses.replace(cfg, attn_impl_3dto2d=impl,
+                               train_precision=precision or cfg.train_precision)
+    ms = build_models(cfg_, dev)
+    if bank_impl != "auto":
+        ms["SDE_3Dto2D_model"] = build_models(cfg_, dev, impl=bank_impl)["SDE_3Dto2D_model"]
+    for name in models:
+        ms[name].load_state_dict(models[name].state_dict())
+    g = torch.Generator(device=dev).manual_seed(seed)
+    total, mets = pretrain_loss(ms, cfg_, batch, g, draws=draw_losses(ms, cfg_, batch, g))
+    total.backward()
+    return ({k: v.item() for k, v in mets.items()},
+            {n: p.grad.detach().float().clone()
+             for n, p in ms["SDE_3Dto2D_model"].edge_score_network.named_parameters()
+             if ".attn.q_" in n or ".attn.k_" in n})
+
+
+def _bank_reading(label, mine, ref, leaf_tol, tol: float = 1e-3) -> float:
+    """Loss terms (relative, ``tol``) and q / k leaves (relative L2,
+    ``leaf_tol``) of two bank steps, checked; returns the worst leaf."""
+    (mm, lm), (mr, lr) = mine, ref
+    for k in mm:
+        err = abs(mm[k] - mr[k]) / max(1e-6, abs(mr[k]))
+        check(err <= tol, f"{label}: {k} {mm[k]:.6f} vs {mr[k]:.6f} ({err:.2e} > {tol:g})")
+    check(sorted(lm) == sorted(lr), f"{label}: leaves {sorted(lm)}")
+    errs = {k: ((lm[k] - lr[k]).norm() / lr[k].norm().clamp(min=1e-30)).item() for k in lm}
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])
+    print(f"{label}: loss terms within {tol:g}; {len(errs)} q / k leaves, relative L2 "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst[:3]) + f" ... (tolerance {leaf_tol:g})",
+          flush=True)
+    for k, v in worst:
+        check(v <= leaf_tol, f"{label}: gradient of {k} disagrees ({v:.3e})")
+    return worst[0][1]
+
+
+def fused_bank_steps(dev, args, cfg, models, batches, leaf_tol, label: str) -> dict:
+    """Two pretraining steps with the "fused" bank (K8 forward and backward
+    once per edge layer, K1-K3 as before), a third under the profiler and
+    the peak memory; then one step against its reference builds at phase
+    13's bars (losses 1e-3, q / k leaves ``leaf_tol``): in bf16 against the
+    same step with K8's plain version (which rounds where the kernel
+    rounds; the other components keep their kernels), in f32 against the
+    "auto" build.  At this N the bf16 step's q / k leaves are ill
+    conditioned: the "auto" form (which rounds its logits and tanh to
+    bf16), or plain versions of K1-K3 upstream, move them by more than
+    their own size, so those bf16 steps are no reference for K8's; the
+    bf16 steps of both forms are held to lie within 1.25x of each other's
+    distance from the f32 "auto" step.  Returns the launch counts of the
+    two steps."""
+    from moleculesde_tpu_torch.pretrain.train_state import build_models, make_optimizer
+    from moleculesde_tpu_torch.pretrain.train_step import METRICS, pretrain_step
+
+    steps = 2
+    layers = models["SDE_3Dto2D_model"].edge_score_network.num_layers
+    ms = build_models(dataclasses.replace(cfg, attn_impl_3dto2d="fused"), dev)
+    for name in models:
+        ms[name].load_state_dict(models[name].state_dict())
+    optimizer = make_optimizer(ms, cfg)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    history = [pretrain_step(ms, optimizer, cfg, batch, gen) for batch in batches[1:steps + 1]]
+    torch.cuda.synchronize()
+    launches = read_counts()
+    expected = expect(
+        gin_messages=steps * cfg.num_layer, gin_messages_bwd=steps * cfg.num_layer,
+        fused_cfconv=steps * cfg.schnet_num_interactions,
+        fused_cfconv_bwd=steps * cfg.schnet_num_interactions,
+        pair_relu_project=steps, pair_relu_project_bwd=steps,
+        attn_qk_bank=steps * layers, attn_qk_bank_bwd=steps * layers)
+    print(f"{label} fused bank training launches over {steps} steps: {launches} (expected "
+          f"{expected})", flush=True)
+    check(launches == expected, f"{label} fused bank training launch counts")
+    for m in history:
+        vals = {k: float(m[k]) for k in METRICS}
+        check(all(math.isfinite(v) for v in vals.values()),
+              f"{label} fused bank: non-finite metrics {vals}")
+    saved = [c.launches for c in _counters()]
+    wall, busy = profiled_ms(lambda: pretrain_step(ms, optimizer, cfg, batches[0], gen))
+    print(f"{label} fused bank training, a third step under the profiler: wall_ms={wall:.2f} "
+          f"device_busy_ms={busy:.2f}; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB over the three steps",
+          flush=True)
+    del ms, optimizer
+    batch, seed = batches[steps + 1], args.seed + 5
+    run = functools.partial(_bank_step, dev, cfg, models, batch, seed)
+    fused = run()
+    _bank_reading(f"{label} fused bank step vs the same step with K8's plain version (bf16)",
+                  fused, run(bank_impl="plain"), leaf_tol)
+    auto_f32 = run("auto", "float32")
+    _bank_reading(f"{label} fused bank step vs the auto build (f32)", run(precision="float32"),
+                  auto_f32, leaf_tol)
+    auto = run("auto")
+    to_f32 = {}
+    for name, step in (("fused", fused), ("auto", auto)):
+        (_, lm), (_, lr) = step, auto_f32
+        to_f32[name] = max(((lm[k] - lr[k]).norm() / lr[k].norm().clamp(min=1e-30)).item()
+                           for k in lm)
+    (_, lf), (_, la) = fused, auto
+    fused_auto = max(((lf[k] - la[k]).norm() / la[k].norm().clamp(min=1e-30)).item()
+                     for k in lf)
+    print(f"{label} bf16 bank steps, worst q / k leaf from the f32 auto step: fused "
+          f"{to_f32['fused']:.3e}, auto {to_f32['auto']:.3e} (each within 1.25x of the "
+          f"other); fused vs auto in bf16 {fused_auto:.3e}", flush=True)
+    check(to_f32["fused"] <= 1.25 * to_f32["auto"] and to_f32["auto"] <= 1.25 * to_f32["fused"],
+          f"{label}: the fused bf16 step's distance from f32 {to_f32['fused']:.3e} is not within "
+          f"1.25x of the auto bf16 step's {to_f32['auto']:.3e}")
+    for c, n in zip(_counters(), saved):
+        c.launches = n
+    return launches
+
+
+def large_plans_path(dev):
+    """Phase 20: K1, K3 / K4's backward and K8 past the limits of the plans
+    they keep inside them.  The kernels alone (large_gin_phases,
+    large_pair_bwd_phases, large_qk_bank_phases); the JAX CLI's default
+    pretraining path (compact ingest, K2) at --n_max 1024, B = 2: K1, K3
+    and K4 on its operands (phase 13's large_n_gin_pair_phases), two steps
+    (K1 5 / 5, K2 6 / 6, K3 1 / 1 a step), a profiled step and its peak
+    memory, one step against an all-plain build, two steps with the
+    "fused" bank (K8 4 / 4 a step) and one against its reference builds
+    (fused_bank_steps), two ``pair_cm_direct`` steps (K4's backward) and
+    one against the all-plain ``pair_cm_direct`` build (K4 rounds a and c
+    before the add, K3 after: at this N the two forms' 2D->3D losses part
+    by ~3e-3); the
+    2D->3D sampler chain at --n_max 1024.  Returns ({size: kernel
+    results}, K8's results, {run name: launch counts})."""
+    from moleculesde_tpu_torch.benchmarks.profile_pretrain import (
+        COMMON_ARGS, parse_path, path_batches)
+    from moleculesde_tpu_torch.examples import pretrain as cli
+
+    t0 = time.perf_counter()
+    results = {**large_gin_phases(dev), **large_pair_bwd_phases(dev)}
+    k8_results = large_qk_bank_phases(dev)
+    print(f"phase 20 kernels alone: {time.perf_counter() - t0:.1f} s", flush=True)
+    label = "n_max 1024"
+    args = parse_path(COMMON_ARGS + ["--n_max", "1024", "--batch_size", "2"], batches=4)
+    batches = path_batches(args, dev)
+    cfg, models, optimizer, gen = cli.setup(args, dev)
+    check(cfg.schnet_cfconv == "auto" and args.ingest == "compact",
+          f"the {label} steps are not on the CLI's default path")
+    results["n_1024_b_2"] = large_n_gin_pair_phases(models, batches[0], label, reps=LARGE_REPS)
+    launches = {}
+    counts, leaf_tol = large_n_steps(dev, args, cfg, models, optimizer, gen, batches, label,
+                                     args.seed + 7)
+    launches["pretrain_n_max_1024_2_steps"] = counts
+    launches["pretrain_n_max_1024_fused_bank_2_steps"] = fused_bank_steps(
+        dev, args, cfg, models, batches, leaf_tol, label)
+    launches["pretrain_n_max_1024_pair_cm_direct_2_steps"] = pair_cm_direct_steps(
+        dev, args, cfg, models, batches, leaf_tol, reference="plain")
+    del models, optimizer, batches
+    launches["sample_2d_to_3d_n_max_1024"] = sampler_chain_n1024(dev)
+    print(f"phase 20: {time.perf_counter() - t0:.1f} s", flush=True)
+    return results, k8_results, launches
+
+
 def _hmma_per_function(build, source: str) -> dict:
     """{kernel function: HMMA instructions} of a built library's SASS
     (``cuobjdump -sass``, split at its ``Function :`` headers)."""
@@ -4251,6 +4671,9 @@ def main() -> int:
     done("data parallelism (phase 18)")
     util_launches, util_figures = utilities_path(dev, card)
     done("the utilities (phase 19)")
+    large_plan_results, k8_large, large_plan_launches = large_plans_path(dev)
+    large_n_results.update(large_plan_results)
+    done("every N the JAX kernels take (phase 20)")
     device_time_phase()
     done("device times")
     print(f"matmul_flops with the kernel equal to its plain version's, comparisons by kernel: "
@@ -4272,7 +4695,8 @@ def main() -> int:
                for scope, counts in microbatch_launches.items()},
             "pretrain_painn_2_steps": painn_launches,
             **large_n_launches, "pretrain_buckets_cli": bucket_launches, **finetune_launches,
-            **surface_launches, **packed_launches, **dp_launches, **util_launches}
+            **surface_launches, **packed_launches, **dp_launches, **util_launches,
+            **large_plan_launches}
     keys = ("max_abs_err", "ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms",
             "bound_by")
     k6_keys = keys + ("max_rel_err",)
@@ -4339,7 +4763,7 @@ def main() -> int:
     # at the top, layer 0's (C = 2; K8 F = emb_dim) and f32 mode beside them
     bank_all = {**bank_results, **large_n_results["n_max_128"],
                 **large_n_results["n_256_b_2"], **large_n_results["n_600_b_1"],
-                **bucket_results}
+                **bucket_results, **k8_large}
     for name, counter, source, replaces, main_path in (
             ("attn_map_bank", attn_map_bank_kernel, "attn_bank.cu",
              "rejected/attn_bank.py:138", "sample_3d_to_2d_pallas"),
@@ -4360,6 +4784,12 @@ def main() -> int:
         extra["n_16_b_32"] = {"bf16": res("[L0][n16]"), "f32": res("[L0][f32][n16]")}
         if name.startswith("attn_map_bank"):   # K7 past the old backward's N <= 518
             extra["n_600_b_1"] = {"bf16": res("[L0][n600]"), "f32": res("[L0][f32][n600]")}
+        else:   # K8's tiled plan on the chain's operands at n_max 512 / 1024, B = 2
+            extra.update({f"n_{n}_b_2": {f"layer_{li}": {"bf16": res(f"[L{li}][n{n}]"),
+                                                        "f32": res(f"[L{li}][f32][n{n}]")}
+                                         for li in (1, 0)} for n in (512, 1024)})
+            if name == "attn_qk_bank_bwd":
+                extra["n_256_b_2_bwd_plans"] = k8_large["n_256_b_2_bwd_plans"]
         kernels.append({
             "name": name, "route": "cuda", "source": "moleculesde_tpu_torch/csrc/" + source,
             "replaces": "moleculesde_tpu/ops/" + replaces,

@@ -136,9 +136,9 @@ def phases(label: str) -> None:
 
     lib = phase_library("gin_messages")
     fwd = lib.gin_messages_fwd
-    fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
     bwd = lib.gin_messages_bwd
-    bwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    bwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
     dev = torch.device("cuda")
     for n_max, b in K1_SHAPES:
         x, src, dst, boh, table = k1_operands(n_max, b, dev)
@@ -153,13 +153,13 @@ def phases(label: str) -> None:
         def launch_fwd():
             build.check_launch(fwd(x.data_ptr(), src.data_ptr(), dst.data_ptr(), boh.data_ptr(),
                                    table.data_ptr(), out.data_ptr(), b, n_max, src.shape[1], d,
-                                   f, 1, stream(x)), "gin_messages_fwd")
+                                   f, 1, 0, None, stream(x)), "gin_messages_fwd")
 
         def launch_bwd():
             build.check_launch(bwd(x.data_ptr(), src.data_ptr(), dst.data_ptr(), boh.data_ptr(),
                                    table.data_ptr(), g.data_ptr(), dx.data_ptr(),
                                    dtable.data_ptr(), part.data_ptr(), b, n_max, src.shape[1],
-                                   d, f, 1, stream(x)), "gin_messages_bwd")
+                                   d, f, 1, 0, None, stream(x)), "gin_messages_bwd")
 
         plan = fwd_plan(n_max, src.shape[1], d, f)
         stamps = phase_stamps(lib, b * plan["chunks"], 8, launch_fwd)
@@ -202,7 +202,7 @@ def phases(label: str) -> None:
             print_phase_stamps(f"[{label}] {'K4' if cm else 'K3'} fwd B={b} N={n} bf16 {plan}, "
                                f"{units} units on {blocks} blocks", stamps, PAIR_FWD_PHASES)
     pbwd = lib.pair_relu_project_bwd
-    pbwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    pbwd.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     for n, b in PAIR_SHAPES:
         a, cc, w, g, _ = pair_operands(n, b, dev)
         c, h = w.shape
@@ -213,7 +213,7 @@ def phases(label: str) -> None:
         def launch_pair():
             build.check_launch(pbwd(a.data_ptr(), cc.data_ptr(), w.data_ptr(), g.data_ptr(),
                                     da.data_ptr(), dc.data_ptr(), dw.data_ptr(), db.data_ptr(),
-                                    dw_part.data_ptr(), db_part.data_ptr(), b, n, c, h, 1,
+                                    dw_part.data_ptr(), db_part.data_ptr(), None, b, n, c, h, 1,
                                     stream(a)), "pair_relu_project_bwd")
 
         plan = pair_plan(n, c)

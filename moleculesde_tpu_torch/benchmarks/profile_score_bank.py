@@ -242,7 +242,7 @@ def phases(old_k7: str = "") -> None:
                       f" ({old_k7})")
     lib = phase_library("attn_qk_bank")
     fn = lib.attn_qk_bank_fwd
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 2
     for b, n, f, c, bf16 in K8_SHAPES:
         qk, ws = k8_operands(b, n, f, c)
         qk = qk.to(torch.bfloat16 if bf16 else torch.float32)
@@ -252,13 +252,13 @@ def phases(old_k7: str = "") -> None:
 
         def launch():
             rc = fn(qk.data_ptr(), ctypes.addressof(ptrs), out.data_ptr(), b, n, f, c, 32, K8_DS,
-                    int(bf16), int(bf16), fc, smem, stream(qk))
+                    int(bf16), int(bf16), fc, smem, None, stream(qk))
             assert rc == 0, rc
 
         print_phase_stamps(f"K8 forward B={b} N={n} F={f} C={c} {'bf16' if bf16 else 'f32'}",
                            phase_stamps(lib, b * c, 8, launch), K8_PHASES)
     fn = lib.attn_qk_bank_bwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p] * 2
     for b, n, f, c in K8_BWD_SHAPES:
         qk, ws = k8_operands(b, n, f, c)
         qk = qk.bfloat16()
@@ -273,7 +273,7 @@ def phases(old_k7: str = "") -> None:
         def launch():
             rc = fn(qk.data_ptr(), ctypes.addressof(ptrs), g.data_ptr(), dqk.data_ptr(),
                     wgrad.data_ptr(), part.data_ptr(), b, n, f, c, 32, K8_DS, 1, 1, rows, fc,
-                    smem, stream(qk))
+                    smem, None, stream(qk))
             assert rc == 0, rc
 
         print_phase_stamps(f"K8 backward B={b} N={n} F={f} C={c} bf16 (rows {rows}, chunk {fc}, "

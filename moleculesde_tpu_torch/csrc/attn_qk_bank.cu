@@ -76,6 +76,36 @@
 // MLPs' einsums, bias adds and tanh and the map's einsum, scale, tanh and
 // mean.
 //
+// The tiled plan, where a (graph, channel) block's plan does not fit (the
+// forward past N = 334 at A = 32, F = 16; the backward past N = 266): the
+// nets' outputs go through device memory once, and every later step runs
+// in units small enough for any N, with shared memory that depends on
+// neither N, F nor A (at most 17 KB, static).
+//  * nets_t1_kernel and nets_out_kernel, a thread per output element: t1 =
+//    tanh(qk @ W1 + b1) (f32, the chain over f in order from 0) and q / k =
+//    round(round(t1) @ W2 + b2) (the chain over j), for all channels and
+//    both nets, [B C 2][N][A] each: the chains and roundings of the block
+//    kernels above, so the same bits.
+//  * The forward's map in (graph, channel, 32 x 32 tile) units
+//    (map_fwd_tiled_kernel): q and k rows staged 32 features at a time, a
+//    thread's 2 x 2 pairs each head's dot in index order, the heads' tanh
+//    added in order: the block forward's map, bit for bit.
+//  * The map's backward in (graph, channel, 32-row tile, head, 32-feature
+//    slice of the head) units for dq and (graph, channel, 32-column tile,
+//    ...) units for dk (map_dqk_kernel): each walks the other side's tiles
+//    in order, forms the tile's du of its head (g (1 - t^2) inv / H,
+//    bf16-rounded in bf16 mode, as attn_map.cuh) and carries its dq (dk)
+//    chains across the tiles: each sum one chain in index order, as
+//    backward_tiled's.  d3 = (dq, dk) [B C 2][N][A] f32.
+//  * The nets' backward, a thread per output element: dpre = (round(d3) @
+//    round(W2)^T) (1 - t1^2) (dpre_kernel); the weight gradients' slices of
+//    the per-graph partial rows (wgrad_kernel: dW1, db1, dW2, db2, each a
+//    chain over n in order; dW1 and dW2 as FMAs in both modes); each
+//    channel's q and k terms of dqk into the same partial buffer
+//    (dqk_terms_kernel); then sum_channels_kernel and partials.cuh as the
+//    block plan.  Its units fill the card at small B (B C N / 32 map
+//    tiles a head), where the block plan runs B C blocks.
+//
 // Rounding, as the TPU kernel's (attn_qk_bank.py:63-100) in bf16 mode: qk
 // arrives rounded (the wrapper casts it), each weight is rounded to bf16 as
 // it enters its product, b1 and b2 are added in f32, tanh(pre) runs in f32,
@@ -787,6 +817,360 @@ int launch_bwd(const void* qk, const float* const* w, const float* g, void* dqk,
                                           FC, smem, s);
 }
 
+// ---- the tiled plan (the header) ----
+
+constexpr int kTileThreads = 256;
+constexpr int kMapTile = 32;             // rows (columns) of a map tile
+constexpr int kSlice = 32;               // features of q / k staged at once
+constexpr int kSliceStride = kSlice + 1;
+
+// t1[(u 2 + p) N + n][j] = tanh(sum_f qk[b, n, f] round(W1_p[c, f, j]) + b1_p[c, j])
+// (u = b C + c), one chain in f order from 0, f32
+template <typename T>
+__global__ void __launch_bounds__(kTileThreads)
+nets_t1_kernel(const T* __restrict__ qk, Nets nets, float* __restrict__ t1, int B, int N,
+               int F, int C, int A, int bf16) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * kTileThreads + threadIdx.x;
+  if (i >= static_cast<size_t>(B) * C * 2 * N * A) return;
+  const int j = static_cast<int>(i % A);
+  size_t r = i / A;
+  const int n = static_cast<int>(r % N);
+  r /= N;
+  const int p = static_cast<int>(r % 2);
+  const size_t u = r / 2;
+  const int c = static_cast<int>(u % C);
+  const size_t b = u / C;
+  const T* x = qk + (b * N + n) * F;
+  const float* w = nets.p[p].w1 + static_cast<size_t>(c) * F * A + j;
+  float acc = 0.f;
+  for (int f = 0; f < F; ++f)
+    acc = fmaf(attn_map::load(x, f), rb(w[static_cast<size_t>(f) * A], bf16), acc);
+  t1[i] = tanhf(acc + nets.p[p].b1[static_cast<size_t>(c) * A + j]);
+}
+
+// out[(u 2 + p) N + n][o] = round(sum_j round(t1[..][j]) round(W2_p[c, j, o]) + b2_p[c, o])
+__global__ void __launch_bounds__(kTileThreads)
+nets_out_kernel(const float* __restrict__ t1, Nets nets, float* __restrict__ out, int B, int N,
+                int C, int A, int bf16) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * kTileThreads + threadIdx.x;
+  if (i >= static_cast<size_t>(B) * C * 2 * N * A) return;
+  const int o = static_cast<int>(i % A);
+  const size_t row = i / A;
+  const int p = static_cast<int>((row / N) % 2);
+  const int c = static_cast<int>((row / N / 2) % C);
+  const float* t = t1 + row * A;
+  const float* w = nets.p[p].w2 + static_cast<size_t>(c) * A * A + o;
+  float acc = 0.f;
+  for (int j = 0; j < A; ++j)
+    acc = fmaf(rb(t[j], bf16), rb(w[static_cast<size_t>(j) * A], bf16), acc);
+  out[i] = rb(acc + nets.p[p].b2[static_cast<size_t>(c) * A + o], bf16);
+}
+
+// Rows r0 .. r0 + kMapTile - 1 of x ([rows][A]), features a0 .. a0 + kSlice
+// - 1, into s ([kMapTile][kSliceStride]), zero past N and A.
+__device__ __forceinline__ void stage_slice(float* s, const float* x, int r0, int N, int a0,
+                                            int A) {
+  for (int i = threadIdx.x; i < kMapTile * kSlice; i += kTileThreads) {
+    const int r = i / kSlice, a = i - r * kSlice;
+    s[r * kSliceStride + a] =
+        (r0 + r < N && a0 + a < A) ? x[static_cast<size_t>(r0 + r) * A + a0 + a] : 0.f;
+  }
+}
+
+// One (graph, channel, 32 x 32 tile) of the forward's map; a thread the
+// 2 x 2 pairs (n, n + 16) x (m, m + 16) of the tile.
+__global__ void __launch_bounds__(kTileThreads)
+map_fwd_tiled_kernel(const float* __restrict__ qo, float* __restrict__ out, int N, int A,
+                     int ds, int tiles) {
+  __shared__ float qs[kMapTile * kSliceStride], ks[kMapTile * kSliceStride];
+  const long long blk = blockIdx.x;
+  const int tm = static_cast<int>(blk % tiles), tn = static_cast<int>((blk / tiles) % tiles);
+  const size_t u = static_cast<size_t>(blk / tiles / tiles);
+  const float* q = qo + u * 2 * N * A;
+  const float* k = q + static_cast<size_t>(N) * A;
+  const int n0 = tn * kMapTile, m0 = tm * kMapTile;
+  const int nl = threadIdx.x / 16, ml = threadIdx.x % 16;
+  const int H = A / ds;
+  const float inv = attn_map::inv_sqrt(ds);
+  float uu[2][2] = {{0.f, 0.f}, {0.f, 0.f}}, acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  for (int a0 = 0; a0 < A; a0 += kSlice) {
+    __syncthreads();   // the last slice is read
+    stage_slice(qs, q, n0, N, a0, A);
+    stage_slice(ks, k, m0, N, a0, A);
+    __syncthreads();
+    const int w = min(kSlice, A - a0);
+    for (int a = 0; a < w; ++a) {
+      const float qa[2] = {qs[nl * kSliceStride + a], qs[(nl + 16) * kSliceStride + a]};
+      const float ka[2] = {ks[ml * kSliceStride + a], ks[(ml + 16) * kSliceStride + a]};
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) uu[i][jj] = fmaf(qa[i], ka[jj], uu[i][jj]);
+      if ((a0 + a + 1) % ds == 0) {   // a head ends: its tanh joins the sum
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            acc[i][jj] += tanhf(uu[i][jj] * inv);
+            uu[i][jj] = 0.f;
+          }
+      }
+    }
+  }
+  float* ob = out + u * N * N;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      const int n = n0 + nl + 16 * i, m = m0 + ml + 16 * jj;
+      if (n < N && m < N) ob[static_cast<size_t>(n) * N + m] = acc[i][jj] / static_cast<float>(H);
+    }
+}
+
+// du of head h for the tile of rows n0.. (q) by columns m0.. (k) into dus
+// [kMapTile][kSliceStride]: du = g (1 - t^2) scale, t = tanh(inv q_h . k_h)
+// (the head's dot in index order, its features staged 32 at a time),
+// rounded to bf16 in bf16 mode; zero past N.
+__device__ __forceinline__ void head_du(float* dus, float* qs, float* ks, const float* q,
+                                        const float* k, const float* g, int n0, int m0, int N,
+                                        int A, int ds, int h, int bf16) {
+  const int nl = threadIdx.x / 16, ml = threadIdx.x % 16;
+  const int H = A / ds;
+  const float inv = attn_map::inv_sqrt(ds), scale = attn_map::du_scale(ds, H);
+  float uu[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  for (int a0 = h * ds; a0 < (h + 1) * ds; a0 += kSlice) {
+    __syncthreads();   // the stages and du are free
+    stage_slice(qs, q, n0, N, a0, A);
+    stage_slice(ks, k, m0, N, a0, A);
+    __syncthreads();
+    const int w = min(kSlice, (h + 1) * ds - a0);
+    for (int a = 0; a < w; ++a) {
+      const float qa[2] = {qs[nl * kSliceStride + a], qs[(nl + 16) * kSliceStride + a]};
+      const float ka[2] = {ks[ml * kSliceStride + a], ks[(ml + 16) * kSliceStride + a]};
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) uu[i][jj] = fmaf(qa[i], ka[jj], uu[i][jj]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      const int r = nl + 16 * i, cix = ml + 16 * jj, n = n0 + r, m = m0 + cix;
+      float du = 0.f;
+      if (n < N && m < N) {
+        const float t = tanhf(uu[i][jj] * inv);
+        du = g[static_cast<size_t>(n) * N + m] * (1.0f - t * t) * scale;
+        if (bf16) du = round_bf16(du);
+      }
+      dus[r * kSliceStride + cix] = du;
+    }
+}
+
+// dq (DQ) or dk of one (graph, channel, 32-row (column) tile, head h,
+// 32-feature slice of the head) unit: the other side's 32-tiles in order,
+// each tile's du of the head, then the unit's chains
+//   dq[n, a] += du[n, m] k[m, a]  (m in order)   dk[m, a] += du[n, m] q[n, a]
+// carried across the tiles in registers (4 items a thread), stored f32.
+template <bool DQ>
+__global__ void __launch_bounds__(kTileThreads)
+map_dqk_kernel(const float* __restrict__ qo, const float* __restrict__ g, float* __restrict__ d3,
+               int N, int A, int ds, int tiles, int slices, int bf16) {
+  __shared__ float qs[kMapTile * kSliceStride], ks[kMapTile * kSliceStride];
+  __shared__ float dus[kMapTile * kSliceStride], os[kMapTile * kSliceStride];
+  const int H = A / ds;
+  long long blk = blockIdx.x;
+  const int sl = static_cast<int>(blk % slices);
+  blk /= slices;
+  const int h = static_cast<int>(blk % H);
+  blk /= H;
+  const int t0 = static_cast<int>(blk % tiles);
+  const size_t u = static_cast<size_t>(blk / tiles);
+  const float* q = qo + u * 2 * N * A;
+  const float* k = q + static_cast<size_t>(N) * A;
+  const float* gu = g + u * N * N;
+  const int a0 = h * ds + sl * kSlice, aw = min(kSlice, (h + 1) * ds - a0);
+  const int own0 = t0 * kMapTile;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};   // items threadIdx.x + 256 it: (row i4 / 32, a i4 % 32)
+  for (int t = 0; t < tiles; ++t) {
+    const int other0 = t * kMapTile;
+    if (DQ)
+      head_du(dus, qs, ks, q, k, gu, own0, other0, N, A, ds, h, bf16);
+    else
+      head_du(dus, qs, ks, q, k, gu, other0, own0, N, A, ds, h, bf16);
+    // the other side's rows at the unit's features (k for dq, q for dk)
+    stage_slice(os, DQ ? k : q, other0, N, a0, A);
+    __syncthreads();
+    const int on = min(kMapTile, N - other0);
+#pragma unroll
+    for (int it = 0; it < 4; ++it) {
+      const int i4 = threadIdx.x + kTileThreads * it, r = i4 / kSlice, a = i4 % kSlice;
+      float s = acc[it];
+      for (int o = 0; o < on; ++o)
+        s = fmaf(DQ ? dus[r * kSliceStride + o] : dus[o * kSliceStride + r],
+                 os[o * kSliceStride + a], s);
+      acc[it] = s;
+    }
+  }
+  float* out = d3 + (u * 2 + (DQ ? 0 : 1)) * N * A;
+#pragma unroll
+  for (int it = 0; it < 4; ++it) {
+    const int i4 = threadIdx.x + kTileThreads * it, r = i4 / kSlice, a = i4 % kSlice;
+    if (own0 + r < N && a < aw) out[static_cast<size_t>(own0 + r) * A + a0 + a] = acc[it];
+  }
+}
+
+// dpre[(u 2 + p) N + n][j] = (sum_o round(d3[..][o]) round(W2_p[c, j, o])) (1 - t1^2)
+__global__ void __launch_bounds__(kTileThreads)
+dpre_kernel(const float* __restrict__ d3, const float* __restrict__ t1, Nets nets,
+            float* __restrict__ dpre, int B, int N, int C, int A, int bf16) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * kTileThreads + threadIdx.x;
+  if (i >= static_cast<size_t>(B) * C * 2 * N * A) return;
+  const int j = static_cast<int>(i % A);
+  const size_t row = i / A;
+  const int p = static_cast<int>((row / N) % 2);
+  const int c = static_cast<int>((row / N / 2) % C);
+  const float* dr = d3 + row * A;
+  const float* w = nets.p[p].w2 + (static_cast<size_t>(c) * A + j) * A;
+  float acc = 0.f;
+  for (int o = 0; o < A; ++o) acc = fmaf(rb(dr[o], bf16), rb(w[o], bf16), acc);
+  const float t = t1[i];
+  dpre[i] = acc * (1.0f - t * t);
+}
+
+// The weight gradients of (graph b, net p, channel c) into graph b's
+// partial row (attn_qk_bank_bwd_kernel's layout), a thread per element:
+// dW1[f, j] = sum_n qk[n, f] round(dpre[n, j]), db1[j] = sum_n dpre[n, j],
+// dW2[j, o] = sum_n round(t1[n, j]) round(d3[n, o]), db2[o] = sum_n d3[n, o],
+// each a chain over n in order.
+template <typename T>
+__global__ void __launch_bounds__(kTileThreads)
+wgrad_kernel(const T* __restrict__ qk, const float* __restrict__ t1,
+             const float* __restrict__ d3, const float* __restrict__ dpre,
+             float* __restrict__ part, int B, int N, int F, int C, int A, int bf16) {
+  const size_t FA = static_cast<size_t>(F) * A, AA = static_cast<size_t>(A) * A;
+  const size_t Q = FA + A + AA + A;
+  const size_t i = static_cast<size_t>(blockIdx.x) * kTileThreads + threadIdx.x;
+  if (i >= static_cast<size_t>(B) * 2 * C * Q) return;
+  const size_t q = i % Q;
+  size_t r = i / Q;
+  const int c = static_cast<int>(r % C);
+  r /= C;
+  const int p = static_cast<int>(r % 2);
+  const size_t b = r / 2;
+  const size_t row = ((b * C + c) * 2 + p) * N;   // the unit's rows of t1, d3, dpre
+  const size_t per_net = static_cast<size_t>(C) * Q;
+  float* pb = part + b * 2 * per_net + p * per_net;
+  float acc = 0.f;
+  if (q < FA) {   // dW1
+    const int f = static_cast<int>(q / A), j = static_cast<int>(q % A);
+    const T* x = qk + b * N * F + f;
+    for (int n = 0; n < N; ++n)
+      acc = fmaf(attn_map::load(x, static_cast<size_t>(n) * F),
+                 rb(dpre[(row + n) * A + j], bf16), acc);
+    pb[static_cast<size_t>(c) * FA + q] = acc;
+  } else if (q < FA + A) {   // db1
+    const size_t j = q - FA;
+    for (int n = 0; n < N; ++n) acc += dpre[(row + n) * A + j];
+    pb[C * FA + static_cast<size_t>(c) * A + j] = acc;
+  } else if (q < FA + A + AA) {   // dW2
+    const size_t jo = q - FA - A;
+    const size_t j = jo / A, o = jo % A;
+    for (int n = 0; n < N; ++n)
+      acc = fmaf(rb(t1[(row + n) * A + j], bf16), rb(d3[(row + n) * A + o], bf16), acc);
+    pb[C * (FA + A) + static_cast<size_t>(c) * AA + jo] = acc;
+  } else {   // db2
+    const size_t o = q - FA - A - AA;
+    for (int n = 0; n < N; ++n) acc += d3[(row + n) * A + o];
+    pb[C * (FA + A + AA) + static_cast<size_t>(c) * A + o] = acc;
+  }
+}
+
+// dqk_part[(u 2 + p) N + n][f] = sum_j round(dpre[..][j]) round(W1_p[c, f, j])
+__global__ void __launch_bounds__(kTileThreads)
+dqk_terms_kernel(const float* __restrict__ dpre, Nets nets, float* __restrict__ dqk_part, int B,
+                 int N, int F, int C, int A, int bf16) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * kTileThreads + threadIdx.x;
+  if (i >= static_cast<size_t>(B) * C * 2 * N * F) return;
+  const int f = static_cast<int>(i % F);
+  const size_t row = i / F;
+  const int p = static_cast<int>((row / N) % 2);
+  const int c = static_cast<int>((row / N / 2) % C);
+  const float* d = dpre + row * A;
+  const float* w = nets.p[p].w1 + (static_cast<size_t>(c) * F + f) * A;
+  float acc = 0.f;
+  for (int j = 0; j < A; ++j) acc = fmaf(rb(d[j], bf16), rb(w[j], bf16), acc);
+  dqk_part[i] = acc;
+}
+
+unsigned grid_of(size_t items) {
+  return static_cast<unsigned>((items + kTileThreads - 1) / kTileThreads);
+}
+
+// t1 and q / k of every (graph, channel, net) row: the tiled plan's first
+// two launches.
+template <typename T>
+int launch_nets_tiled(const T* qk, const Nets& nets, float* t1, float* qo, int B, int N, int F,
+                      int C, int A, int bf16, cudaStream_t s) {
+  const size_t items = static_cast<size_t>(B) * C * 2 * N * A;
+  nets_t1_kernel<T><<<grid_of(items), kTileThreads, 0, s>>>(qk, nets, t1, B, N, F, C, A, bf16);
+  nets_out_kernel<<<grid_of(items), kTileThreads, 0, s>>>(t1, nets, qo, B, N, C, A, bf16);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// scratch: t1 and q / k, [B C 2][N][A] floats each
+template <typename T>
+int launch_fwd_tiled(const void* qk, const float* const* w, float* out, float* scratch, int B,
+                     int N, int F, int C, int A, int ds, int bf16, cudaStream_t s) {
+  const size_t un = static_cast<size_t>(B) * C * 2 * N * A;
+  float *t1 = scratch, *qo = scratch + un;
+  const int rc = launch_nets_tiled<T>(static_cast<const T*>(qk), make_nets(w), t1, qo, B, N, F,
+                                      C, A, bf16, s);
+  if (rc != 0) return rc;
+  const int tiles = (N + kMapTile - 1) / kMapTile;
+  map_fwd_tiled_kernel<<<static_cast<unsigned>(static_cast<long long>(B) * C * tiles * tiles),
+                         kTileThreads, 0, s>>>(qo, out, N, A, ds, tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// scratch: t1, q / k, d3 and dpre, [B C 2][N][A] floats each
+template <typename T>
+int launch_bwd_tiled(const void* qk, const float* const* w, const float* g, void* dqk,
+                     float* wgrad, float* part, float* scratch, int B, int N, int F, int C,
+                     int A, int ds, int bf16, cudaStream_t s) {
+  const size_t un = static_cast<size_t>(B) * C * 2 * N * A;
+  float *t1 = scratch, *qo = scratch + un, *d3 = scratch + 2 * un, *dpre = scratch + 3 * un;
+  const T* x = static_cast<const T*>(qk);
+  const Nets nets = make_nets(w);
+  const int rc = launch_nets_tiled<T>(x, nets, t1, qo, B, N, F, C, A, bf16, s);
+  if (rc != 0) return rc;
+  const int tiles = (N + kMapTile - 1) / kMapTile, H = A / ds;
+  const int slices = (ds + kSlice - 1) / kSlice;
+  const unsigned units =
+      static_cast<unsigned>(static_cast<long long>(B) * C * tiles * H * slices);
+  map_dqk_kernel<true><<<units, kTileThreads, 0, s>>>(qo, g, d3, N, A, ds, tiles, slices, bf16);
+  map_dqk_kernel<false><<<units, kTileThreads, 0, s>>>(qo, g, d3, N, A, ds, tiles, slices,
+                                                       bf16);
+  dpre_kernel<<<grid_of(un), kTileThreads, 0, s>>>(d3, t1, nets, dpre, B, N, C, A, bf16);
+  const size_t P = 2 * static_cast<size_t>(C) * (static_cast<size_t>(F) * A + A +
+                                                 static_cast<size_t>(A) * A + A);
+  wgrad_kernel<T><<<grid_of(B * P), kTileThreads, 0, s>>>(x, t1, d3, dpre, part, B, N, F, C, A,
+                                                          bf16);
+  float* dqk_part = part + B * P;
+  dqk_terms_kernel<<<grid_of(static_cast<size_t>(B) * C * 2 * N * F), kTileThreads, 0, s>>>(
+      dpre, nets, dqk_part, B, N, F, C, A, bf16);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t total = static_cast<size_t>(B) * N * F;
+  sum_channels_kernel<T><<<static_cast<unsigned>((total + 255) / 256), 256, 0, s>>>(
+      dqk_part, static_cast<T*>(dqk), B, C, N * F);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  partials::sum_rows(part, wgrad, B, static_cast<int>(P), s);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Shared-memory bytes of a forward block staging fc features at a time.
@@ -798,14 +1182,19 @@ extern "C" int attn_qk_bank_fwd_smem_bytes(int N, int fc, int A) {
 // (wq1, bq1, wq2, bq2, wk1, bk1, wk2, bk2); out [B, C, N, N] f32.  fc and
 // smem are the wrapper's plan (ops/attn_qk_bank.py::fwd_plan): W1 and qk
 // staged in chunks of fc features, smem bytes of shared memory per block
-// (cudaErrorInvalidValue if it disagrees with the layout).  Needs A % ds
-// == 0.
+// (cudaErrorInvalidValue if it disagrees with the layout).  tiled: the
+// tiled plan instead, with 2 x (B C 2 N A) floats of caller-allocated
+// scratch (fc and smem are then not read).  Needs A % ds == 0.
 extern "C" int attn_qk_bank_fwd(const void* qk, const float* const* w, float* out, int B,
                                 int N, int F, int C, int A, int ds, int in_bf16, int bf16,
-                                int fc, int smem, void* stream) {
+                                int fc, int smem, float* tiled, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tiled)
+    return in_bf16 ? launch_fwd_tiled<__nv_bfloat16>(qk, w, out, tiled, B, N, F, C, A, ds,
+                                                     bf16, s)
+                   : launch_fwd_tiled<float>(qk, w, out, tiled, B, N, F, C, A, ds, bf16, s);
   if (fc < 1 || fc > F || smem != 4 * fwd_layout(N, fc, A).total)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return in_bf16
              ? launch_fwd<__nv_bfloat16>(qk, w, out, B, N, F, C, A, ds, fc, bf16, smem, s)
              : launch_fwd<float>(qk, w, out, B, N, F, C, A, ds, fc, bf16, smem, s);
@@ -825,16 +1214,22 @@ extern "C" void attn_qk_bank_bwd_plan(int N, int F, int A, int H, int* out) {
 // g [B, C, N, N] f32; dqk [B, N, F] in qk's dtype; wgrad: the eight weight
 // gradients packed as [dWq1 dbq1 dWq2 dbq2 dWk1 dbk1 dWk2 dbk2] (P floats);
 // part: caller-allocated scratch of B * P + 2 * B * C * N * F floats; rows, fc
-// and smem the plan's (cudaErrorInvalidValue if they disagree).  Needs
-// A % ds == 0.
+// and smem the plan's (cudaErrorInvalidValue if they disagree).  tiled:
+// the tiled plan instead, with 4 x (B C 2 N A) floats of caller-allocated
+// scratch (rows, fc and smem not read).  Needs A % ds == 0.
 extern "C" int attn_qk_bank_bwd(const void* qk, const float* const* w, const float* g,
                                 void* dqk, float* wgrad, float* part, int B, int N, int F,
                                 int C, int A, int ds, int in_bf16, int bf16, int rows, int fc,
-                                int smem, void* stream) {
+                                int smem, float* tiled, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tiled)
+    return in_bf16 ? launch_bwd_tiled<__nv_bfloat16>(qk, w, g, dqk, wgrad, part, tiled, B, N,
+                                                     F, C, A, ds, bf16, s)
+                   : launch_bwd_tiled<float>(qk, w, g, dqk, wgrad, part, tiled, B, N, F, C, A,
+                                             ds, bf16, s);
   const BwdPlan p = make_bwd_plan(N, F, A, A / ds);
   if (rows != p.rows || fc != p.fc || smem != p.smem)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return in_bf16 ? launch_bwd<__nv_bfloat16>(qk, w, g, dqk, wgrad, part, B, N, F, C, A,
                                              ds, rows, fc, bf16, smem, s)
                  : launch_bwd<float>(qk, w, g, dqk, wgrad, part, B, N, F, C, A, ds, rows, fc,

@@ -76,6 +76,30 @@
 // With -DPHASE_PROFILE, thread 0 stamps the end of each step and the
 // start of its warp's first three edge groups
 // (benchmarks/profile_gin_pair.py --phases).
+//
+// The ranges plan (both directions), where a graph's edge data does not
+// fit a block (past N ~ 717 forward, ~ 660 backward at E = 4 N) or D > 32:
+//  * a pre-pass (gin_sort_kernel, a block per graph) runs steps 1 and 2 in
+//    device memory: each edge's bin, the bins' starts and the kept edges'
+//    stable order, the same counting sort (a warp ranks 32 edges at a time
+//    with __match_any_sync, in edge order, against per-bin cursors kept in
+//    shared memory where N + 2 words fit 64 KB, else in device memory);
+//  * the walk runs in blocks of (graph, node range r of R, 64-feature
+//    chunk): the graph's kept edges are cut into 4 R slots at equal shares
+//    (node_at), a block's 4 warp slots walk theirs as in the block plan,
+//    reading src, dst, the one-hot rows and the sorted order from device
+//    memory.  R = ceil(E / 256).  No shared memory grows with N or E: the
+//    forward needs none, the backward its warps' dtable columns (32 KB);
+//  * D > 32: the embedding's sum runs over the one-hot row in 32-column
+//    slices (the table read from device memory, k in order), and the
+//    backward runs one block per 32-column slice of dtable (blocks of
+//    slice 0 write dx);
+//  * the backward's dtable partials are one row per (graph, range [,
+//    slice]), added in a fixed order (partials.cuh).
+// Each node's messages (forward) and each source's dmsg (backward) are
+// still summed in edge order by one thread: at R = 1 and D <= 32 the ranges
+// plan gives the block plan's bits, and past it the forward the same bits
+// as its plain version's order would in one chain.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -94,6 +118,8 @@ constexpr int kSlots = kWarps / kGroups;         // node ranges per block
 constexpr int kThreads = 32 * kWarps;
 constexpr int kUnroll = 4;                       // edges whose gathers fly together
 constexpr int kStage = 8;                        // one-hot words a thread copies per round
+constexpr int kRangeEdges = 256;                 // ranges plan: edges a block walks, about
+constexpr int kSortSmemWords = 16384;            // ranges plan: cursors in shared memory up to
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -102,8 +128,8 @@ __device__ __forceinline__ float round_bf16(float v) {
 // One-hot columns staged per edge: D rounded up to 16 or 32, 0 if D > 32.
 int maxd_of(int D) { return D <= 16 ? 16 : D <= 32 ? 32 : 0; }
 
-// Shared memory at (N, E, D), 0 where it has no plan: one-hot rows
-// [E][MAXD], the edges' bins, src, dst and sorted order [E] each, bin
+// Shared memory of the block plan at (N, E, D), 0 where it has none: one-hot
+// rows [E][MAXD], the edges' bins, src, dst and sorted order [E] each, bin
 // starts [N + 2]; the backward adds the warps' dtable columns
 // [slots][MAXD][64].  Mirrored by ops/gin_messages.py::fwd_plan / bwd_plan.
 size_t edge_smem(int N, int E, int D, bool bwd) {
@@ -112,6 +138,19 @@ size_t edge_smem(int N, int E, int D, bool bwd) {
   const size_t words = static_cast<size_t>(E) * maxd + (bwd ? kSlots * maxd * kFeat : 0) +
                        4 * static_cast<size_t>(E) + static_cast<size_t>(N) + 2;
   return words * 4 <= kSmemLimit ? words * 4 : 0;
+}
+
+// The ranges plan: node ranges a graph (R), and its two kernels' shared
+// memory (the sort's cursors where they fit 64 KB; the backward walk's
+// dtable columns of a 16- or 32-column slice).
+__host__ __device__ inline int ranges_of(int E) {
+  return E <= kRangeEdges ? 1 : (E + kRangeEdges - 1) / kRangeEdges;
+}
+__host__ __device__ inline size_t sort_smem(int N) {
+  return N + 2 <= kSortSmemWords ? 4 * static_cast<size_t>(N + 2) : 0;
+}
+size_t walk_smem(int D, bool bwd) {
+  return bwd ? 4 * static_cast<size_t>(kSlots) * (D <= 16 ? 16 : 32) * kFeat : 0;
 }
 
 // The shared-memory arrays of a block's edges (edge_smem's layout; the
@@ -139,11 +178,34 @@ __device__ __forceinline__ EdgeArrays edge_arrays(float* smem, int E, bool bwd) 
   return s;
 }
 
+// What a walk reads of one graph's edges: the block plan's shared arrays
+// (one-hot rows staged [E][MAXD], rounded), or the ranges plan's device
+// memory (the sort's bins, order and starts, the caller's src, dst and
+// one-hot rows [E][D], unrounded).
+struct EdgeView {
+  const int* bins;
+  const int* order;
+  const int* start;
+  const int* src;
+  const int* dst;
+  const float* bo;
+};
+
+__device__ __forceinline__ EdgeView view_of(const EdgeArrays& s) {
+  return EdgeView{s.bins, s.order, s.start, s.s_src, s.s_dst, s.bo};
+}
+
+// An edge's bin: BY_DST (forward) its dst, -1 (dropped) if out of range;
+// otherwise (backward) -1 for an out-of-range dst, else its src, N for an
+// out-of-range src.
+template <bool BY_DST>
+__device__ __forceinline__ int bin_of(int sn, int dn, int N) {
+  return (dn < 0 || dn >= N) ? -1 : BY_DST ? dn : (sn >= 0 && sn < N) ? sn : N;
+}
+
 // Steps 1 and 2 of both directions (the header): stage graph b's edges and
-// one-hot rows, then sort the kept edges stably by bin.  BY_DST (forward):
-// an edge's bin is its dst, -1 (dropped) if out of range.  Otherwise
-// (backward): -1 for an out-of-range dst, else its src, N for an
-// out-of-range src.  Stamps PHASE_MARK 1 and 2.
+// one-hot rows, then sort the kept edges stably by bin (bin_of).  Stamps
+// PHASE_MARK 1 and 2.
 template <int MAXD, bool BY_DST>
 __device__ __forceinline__ void stage_and_sort(const EdgeArrays& s, const int* __restrict__ src,
                                                const int* __restrict__ dst,
@@ -158,7 +220,7 @@ __device__ __forceinline__ void stage_and_sort(const EdgeArrays& s, const int* _
     const int sn = srcb[i], dn = dstb[i];
     s.s_src[i] = sn;
     s.s_dst[i] = dn;
-    s.bins[i] = (dn < 0 || dn >= N) ? -1 : BY_DST ? dn : (sn >= 0 && sn < N) ? sn : N;
+    s.bins[i] = bin_of<BY_DST>(sn, dn, N);
   }
   // every load of a round issued before its stores
   const float* bob = boh + static_cast<size_t>(b) * E * D;
@@ -216,12 +278,70 @@ __device__ __forceinline__ void stage_and_sort(const EdgeArrays& s, const int* _
   PHASE_MARK(2);
 }
 
-// The first node whose edges start at or past share r of the kept edges:
-// warp slot r walks nodes [node_at(r), node_at(r + 1)), whole nodes at
-// about equal shares of the edges (molecules fill the low node indices, so
-// equal node ranges would leave most warps idle).
-__device__ __forceinline__ int node_at(const int* start, int N, int kept, int r) {
-  const int target = static_cast<int>(static_cast<long long>(r) * kept / kSlots);
+// The ranges plan's steps 1 and 2 for graph blockIdx.x in device memory:
+// bins [B][E], order [B][E], start [B][N + 2] as stage_and_sort leaves them
+// in shared memory.  The counts go to per-bin cursors (shared memory where
+// sort_smem says so, else cursor_g [B][N + 2]), a warp scans them into
+// start, and one warp ranks the edges 32 at a time in edge order: the
+// lanes of a bin (__match_any_sync) take the bin's next places in lane
+// order, its first lane moving the cursor: the same stable order.
+template <bool BY_DST>
+__global__ void __launch_bounds__(kThreads)
+gin_sort_kernel(const int* __restrict__ src, const int* __restrict__ dst, int* __restrict__ bins,
+                int* __restrict__ order, int* __restrict__ start, int* __restrict__ cursor_g,
+                int N, int E) {
+  extern __shared__ int cursor_s[];
+  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31;
+  int* cur = sort_smem(N) ? cursor_s : cursor_g + static_cast<size_t>(b) * (N + 2);
+  int* st = start + static_cast<size_t>(b) * (N + 2);
+  int* bn = bins + static_cast<size_t>(b) * E;
+  int* od = order + static_cast<size_t>(b) * E;
+  const int* srcb = src + static_cast<size_t>(b) * E;
+  const int* dstb = dst + static_cast<size_t>(b) * E;
+  for (int i = tid; i < N + 2; i += kThreads) cur[i] = 0;
+  __syncthreads();
+  for (int e = tid; e < E; e += kThreads) {
+    const int bin = bin_of<BY_DST>(srcb[e], dstb[e], N);
+    bn[e] = bin;
+    if (bin >= 0) atomicAdd(&cur[bin + 1], 1);
+  }
+  __syncthreads();
+  if (tid >= 32) return;
+  int carry = 0;
+  for (int base = 0; base < N + 2; base += 32) {
+    const int i = base + lane;
+    int v = i < N + 2 ? cur[i] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) v += t;
+    }
+    if (i < N + 2) cur[i] = st[i] = v + carry;
+    carry += __shfl_sync(0xffffffffu, v, 31);
+  }
+  __syncwarp();
+  for (int base = 0; base < E; base += 32) {
+    const int e = base + lane;
+    const int bin = e < E ? bn[e] : -1;
+    const unsigned peers = __match_any_sync(0xffffffffu, bin);
+    const int leader = __ffs(peers) - 1;
+    int pos = 0;
+    if (bin >= 0 && lane == leader) {
+      pos = cur[bin];
+      cur[bin] = pos + __popc(peers);
+    }
+    pos = __shfl_sync(0xffffffffu, pos, leader);
+    if (bin >= 0) od[pos + __popc(peers & ((1u << lane) - 1u))] = e;
+    __syncwarp();
+  }
+}
+
+// The first node whose edges start at or past share r of `slots` shares of
+// the kept edges: slot r walks nodes [node_at(r), node_at(r + 1)), whole
+// nodes at about equal shares of the edges (molecules fill the low node
+// indices, so equal node ranges would leave most warps idle).
+__device__ __forceinline__ int node_at(const int* start, int N, int kept, int r, int slots) {
+  const int target = static_cast<int>(static_cast<long long>(r) * kept / slots);
   int lo = 0, hi = N;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
@@ -230,21 +350,215 @@ __device__ __forceinline__ int node_at(const int* start, int N, int kept, int r)
   return lo;
 }
 
-// The edge's one-hot row as KD values: whole float4 broadcasts, then the
-// KD % 4 rest.
-template <int MAXD, int KD>
-__device__ __forceinline__ void one_hot_row(const float* bo, int e, float (&bk)[KD]) {
-  const float* row = bo + static_cast<size_t>(e) * MAXD;
+// The edge's one-hot row as KD values: staged rows ([E][MAXD], rounded):
+// whole float4 broadcasts, then the KD % 4 rest; device-memory rows
+// ([E][D]): k < D, rounded here in bf16 mode, zero past D.
+template <int MAXD, int KD, bool STAGED>
+__device__ __forceinline__ void one_hot_row(const float* bo, int e, int D, int bf16,
+                                            float (&bk)[KD]) {
+  if constexpr (STAGED) {
+    const float* row = bo + static_cast<size_t>(e) * MAXD;
 #pragma unroll
-  for (int k4 = 0; k4 < KD / 4; ++k4) {
-    const float4 v = reinterpret_cast<const float4*>(row)[k4];
-    bk[4 * k4 + 0] = v.x;
-    bk[4 * k4 + 1] = v.y;
-    bk[4 * k4 + 2] = v.z;
-    bk[4 * k4 + 3] = v.w;
+    for (int k4 = 0; k4 < KD / 4; ++k4) {
+      const float4 v = reinterpret_cast<const float4*>(row)[k4];
+      bk[4 * k4 + 0] = v.x;
+      bk[4 * k4 + 1] = v.y;
+      bk[4 * k4 + 2] = v.z;
+      bk[4 * k4 + 3] = v.w;
+    }
+#pragma unroll
+    for (int k = KD / 4 * 4; k < KD; ++k) bk[k] = row[k];
+  } else {
+    const float* row = bo + static_cast<size_t>(e) * D;
+#pragma unroll
+    for (int k = 0; k < KD; ++k) {
+      const float v = k < D ? row[k] : 0.f;
+      bk[k] = bf16 ? round_bf16(v) : v;
+    }
   }
+}
+
+// KD columns of the table in registers (KD > 0), or one slot (KD = 0: D >
+// 32, the table read from device memory as the sum goes)
+template <int KD>
+constexpr int kTb = KD > 0 ? KD : 1;
+
+template <int KD>
+__device__ __forceinline__ void load_table(const float* table, int D, int F, int f, bool active,
+                                           int bf16, float (&tb)[kTb<KD>]) {
 #pragma unroll
-  for (int k = KD / 4 * 4; k < KD; ++k) bk[k] = row[k];
+  for (int k = 0; k < KD; ++k) {
+    const float v = (active && k < D) ? table[static_cast<size_t>(k) * F + f] : 0.f;
+    tb[k] = bf16 ? round_bf16(v) : v;
+  }
+}
+
+// emb = sum_k bk[k] * tb[k] as one chain in k order.  KD > 0: the row's KD
+// columns against the registers; KD = 0 (ranges plan, D > 32): the row in
+// 32-column slices from device memory against the table's column.
+template <int MAXD, int KD, bool STAGED>
+__device__ __forceinline__ float embed(const float* bo, int e, int D, const float (&tb)[kTb<KD>],
+                                       const float* table, int F, int f, bool active, int bf16) {
+  float emb = 0.f;
+  if constexpr (KD > 0) {
+    float bk[KD];
+    one_hot_row<MAXD, KD, STAGED>(bo, e, D, bf16, bk);
+#pragma unroll
+    for (int k = 0; k < KD; ++k) emb = fmaf(bk[k], tb[k], emb);
+  } else {
+    const float* row = bo + static_cast<size_t>(e) * D;
+    for (int k0 = 0; k0 < D; k0 += 32) {
+      float bk[32], tk[32];
+#pragma unroll
+      for (int k = 0; k < 32; ++k) {
+        const bool in = k0 + k < D;
+        const float v = in ? row[k0 + k] : 0.f;
+        const float t = (in && active) ? table[static_cast<size_t>(k0 + k) * F + f] : 0.f;
+        bk[k] = bf16 ? round_bf16(v) : v;
+        tk[k] = bf16 ? round_bf16(t) : t;
+      }
+#pragma unroll
+      for (int k = 0; k < 32; ++k)
+        if (k0 + k < D) emb = fmaf(bk[k], tk[k], emb);
+    }
+  }
+  return emb;
+}
+
+// The forward walk of one warp: dst nodes [n0, n1), their kept edges
+// order[p0 .. p1), kUnroll edges' gathers of x[src] in flight together (the
+// next group's issued before the current group is summed); each node's
+// sum written once (zero for a node with no edge).
+template <int MAXD, int KD, bool STAGED>
+__device__ __forceinline__ void walk_fwd(const EdgeView& v, const float (&tb)[kTb<KD>],
+                                         const float* __restrict__ table,
+                                         const float* __restrict__ xb, float* __restrict__ ob,
+                                         int n0, int n1, int p0, int p1, int N, int D, int F,
+                                         int f, bool active, int bf16) {
+  int es[kUnroll], es_next[kUnroll];
+  float xv[kUnroll], xv_next[kUnroll];
+  auto gather = [&](int p, int (&e_o)[kUnroll], float (&x_o)[kUnroll]) {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      e_o[u] = -1;
+      x_o[u] = 0.f;
+      if (p + u < p1) {
+        const int e = v.order[p + u];
+        const int sn = v.src[e];
+        e_o[u] = e;
+        if (active && sn >= 0 && sn < N) x_o[u] = xb[static_cast<size_t>(sn) * F + f];
+      }
+    }
+  };
+  auto flush = [&](int node, float& a) {
+    if (active) ob[static_cast<size_t>(node) * F + f] = a;
+    a = 0.f;
+  };
+  float acc = 0.f;   // out of node n: its messages in edge order
+  int n = n0;
+  gather(p0, es, xv);
+  for (int p = p0; p < p1; p += kUnroll) {
+    gather(p + kUnroll, es_next, xv_next);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int e = es[u];
+      if (e >= 0) {
+        const int bin = v.bins[e];
+        for (; n < bin; ++n) flush(n, acc);   // nodes before this edge's are done
+        const float emb = embed<MAXD, KD, STAGED>(v.bo, e, D, tb, table, F, f, active, bf16);
+        float m = fmaxf((bf16 ? round_bf16(xv[u]) : xv[u]) + emb, 0.f);
+        if (bf16) m = round_bf16(m);
+        acc += m;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      es[u] = es_next[u];
+      xv[u] = xv_next[u];
+    }
+  }
+  for (; n < n1; ++n) flush(n, acc);
+}
+
+// The backward walk of one warp: src nodes [n0, n1) and the kept edges
+// order[p0 .. p1) (the graph's last slot also walks bin N: dtable only),
+// kUnroll edges' gathers of g[dst] and x[src] in flight together; dx
+// written once per node by its owner, dt[k] += bk[k0 + k] * dmsg for the
+// KDT columns k0 .. k0 + KDT - 1 (k0 = 0 unless KD = 0); dx only where
+// write_dx.
+template <int MAXD, int KD, bool STAGED, int KDT>
+__device__ __forceinline__ void walk_bwd(const EdgeView& v, const float (&tb)[kTb<KD>],
+                                         const float* __restrict__ table,
+                                         const float* __restrict__ xb,
+                                         const float* __restrict__ gb, float* __restrict__ dxb,
+                                         int n0, int n1, int p0, int p1, int N, int D, int F,
+                                         int f, bool active, int bf16, int k0, bool write_dx,
+                                         float (&dt)[KDT]) {
+  int es[kUnroll], es_next[kUnroll];
+  float xv[kUnroll], gv[kUnroll], xv_next[kUnroll], gv_next[kUnroll];
+  auto gather = [&](int p, int (&e_o)[kUnroll], float (&x_o)[kUnroll], float (&g_o)[kUnroll]) {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      e_o[u] = -1;
+      x_o[u] = g_o[u] = 0.f;
+      if (p + u < p1) {
+        const int e = v.order[p + u];
+        const int sn = v.src[e];
+        e_o[u] = e;
+        if (active) {
+          g_o[u] = gb[static_cast<size_t>(v.dst[e]) * F + f];
+          if (sn >= 0 && sn < N) x_o[u] = xb[static_cast<size_t>(sn) * F + f];
+        }
+      }
+    }
+  };
+  auto flush = [&](int node, float& a) {
+    if (active && write_dx) dxb[static_cast<size_t>(node) * F + f] = bf16 ? round_bf16(a) : a;
+    a = 0.f;
+  };
+  float acc = 0.f;   // dx of node n
+  int n = n0;
+  gather(p0, es, xv, gv);
+  for (int p = p0; p < p1; p += kUnroll) {
+    if ((p - p0) / kUnroll < 3) PHASE_MARK(5 + (p - p0) / kUnroll);
+    gather(p + kUnroll, es_next, xv_next, gv_next);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int e = es[u];
+      if (e >= 0) {
+        const int bin = v.bins[e];
+        for (; n < bin && n < n1; ++n) flush(n, acc);   // nodes before this edge's are done
+        float bk[KDT];
+        float emb;
+        if constexpr (KD > 0) {
+          one_hot_row<MAXD, KD, STAGED>(v.bo, e, D, bf16, bk);
+          emb = 0.f;
+#pragma unroll
+          for (int k = 0; k < KD; ++k) emb = fmaf(bk[k], tb[k], emb);
+        } else {
+          emb = embed<MAXD, 0, false>(v.bo, e, D, tb, table, F, f, active, bf16);
+          const float* row = v.bo + static_cast<size_t>(e) * D + k0;
+#pragma unroll
+          for (int k = 0; k < KDT; ++k) {
+            const float w = k0 + k < D ? row[k] : 0.f;
+            bk[k] = bf16 ? round_bf16(w) : w;
+          }
+        }
+        const float pre = (bf16 ? round_bf16(xv[u]) : xv[u]) + emb;
+        const float dm = pre > 0.f ? (bf16 ? round_bf16(gv[u]) : gv[u]) : 0.f;
+        if (bin < N) acc += dm;
+#pragma unroll
+        for (int k = 0; k < KDT; ++k) dt[k] = fmaf(bk[k], dm, dt[k]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      es[u] = es_next[u];
+      xv[u] = xv_next[u];
+      gv[u] = gv_next[u];
+    }
+  }
+  for (; n < n1; ++n) flush(n, acc);
 }
 
 // MAXD: staged one-hot columns (16 or 32); KD: the columns summed, D
@@ -268,71 +582,16 @@ gin_messages_fwd_kernel(const float* __restrict__ x,
 
   PHASE_MARK(0);
   float tb[KD];   // the table column, in registers
-#pragma unroll
-  for (int k = 0; k < KD; ++k) {
-    const float v = (active && k < D) ? table[static_cast<size_t>(k) * F + f] : 0.f;
-    tb[k] = bf16 ? round_bf16(v) : v;
-  }
+  load_table<KD>(table, D, F, f, active, bf16, tb);
   stage_and_sort<MAXD, true>(s, src, dst, boh, b, N, E, D, bf16);
 
   // the warp's dst nodes [n0, n1) and their edges order[p0 .. p1)
   const int kept = s.start[N];
-  const int n0 = node_at(s.start, N, kept, slot);
-  const int n1 = slot == kSlots - 1 ? N : node_at(s.start, N, kept, slot + 1);
-  const int p0 = s.start[n0];
-  const int p1 = s.start[n1];
-  const float* xb = x + static_cast<size_t>(b) * N * F;
-  float* ob = out + static_cast<size_t>(b) * N * F;
-
-  // kUnroll edges' gathers of x[src] in flight together, the next group's
-  // issued before the current group is summed
-  int es[kUnroll], es_next[kUnroll];
-  float xv[kUnroll], xv_next[kUnroll];
-  auto gather = [&](int p, int (&e_o)[kUnroll], float (&x_o)[kUnroll]) {
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      e_o[u] = -1;
-      x_o[u] = 0.f;
-      if (p + u < p1) {
-        const int e = s.order[p + u];
-        const int sn = s.s_src[e];
-        e_o[u] = e;
-        if (active && sn >= 0 && sn < N) x_o[u] = xb[static_cast<size_t>(sn) * F + f];
-      }
-    }
-  };
-  auto flush = [&](int node, float& a) {
-    if (active) ob[static_cast<size_t>(node) * F + f] = a;
-    a = 0.f;
-  };
-  float acc = 0.f;   // out of node n: its messages in edge order
-  int n = n0;
-  gather(p0, es, xv);
-  for (int p = p0; p < p1; p += kUnroll) {
-    gather(p + kUnroll, es_next, xv_next);
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int e = es[u];
-      if (e >= 0) {
-        const int bin = s.bins[e];
-        for (; n < bin; ++n) flush(n, acc);   // nodes before this edge's are done
-        float bk[KD];
-        one_hot_row<MAXD, KD>(s.bo, e, bk);
-        float emb = 0.f;
-#pragma unroll
-        for (int k = 0; k < KD; ++k) emb = fmaf(bk[k], tb[k], emb);
-        float m = fmaxf((bf16 ? round_bf16(xv[u]) : xv[u]) + emb, 0.f);
-        if (bf16) m = round_bf16(m);
-        acc += m;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      es[u] = es_next[u];
-      xv[u] = xv_next[u];
-    }
-  }
-  for (; n < n1; ++n) flush(n, acc);
+  const int n0 = node_at(s.start, N, kept, slot, kSlots);
+  const int n1 = slot == kSlots - 1 ? N : node_at(s.start, N, kept, slot + 1, kSlots);
+  walk_fwd<MAXD, KD, true>(view_of(s), tb, table, x + static_cast<size_t>(b) * N * F,
+                           out + static_cast<size_t>(b) * N * F, n0, n1, s.start[n0],
+                           s.start[n1], N, D, F, f, active, bf16);
   PHASE_MARK(3);
 }
 
@@ -359,83 +618,21 @@ gin_messages_bwd_kernel(const float* __restrict__ x,
 
   PHASE_MARK(0);
   float tb[KD];   // the table column, in registers
-#pragma unroll
-  for (int k = 0; k < KD; ++k) {
-    const float v = (active && k < D) ? table[static_cast<size_t>(k) * F + f] : 0.f;
-    tb[k] = bf16 ? round_bf16(v) : v;
-  }
+  load_table<KD>(table, D, F, f, active, bf16, tb);
   stage_and_sort<MAXD, false>(s, src, dst, boh, b, N, E, D, bf16);
 
   // the warp's src nodes [n0, n1) and their edges order[p0 .. p1) (the
   // last range also walks bin N: dtable only)
   const int kept = s.start[N + 1];
-  const int n0 = node_at(s.start, N, kept, slot);
-  const int n1 = slot == kSlots - 1 ? N : node_at(s.start, N, kept, slot + 1);
-  const int p0 = s.start[n0];
+  const int n0 = node_at(s.start, N, kept, slot, kSlots);
+  const int n1 = slot == kSlots - 1 ? N : node_at(s.start, N, kept, slot + 1, kSlots);
   const int p1 = slot == kSlots - 1 ? kept : s.start[n1];
-  const float* xb = x + static_cast<size_t>(b) * N * F;
-  const float* gb = g + static_cast<size_t>(b) * N * F;
-  float* dxb = dx + static_cast<size_t>(b) * N * F;
-
-  // kUnroll edges' gathers in flight together, the next group's issued
-  // before the current group is summed
-  int es[kUnroll], es_next[kUnroll];
-  float xv[kUnroll], gv[kUnroll], xv_next[kUnroll], gv_next[kUnroll];
-  auto gather = [&](int p, int (&e_o)[kUnroll], float (&x_o)[kUnroll], float (&g_o)[kUnroll]) {
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      e_o[u] = -1;
-      x_o[u] = g_o[u] = 0.f;
-      if (p + u < p1) {
-        const int e = s.order[p + u];
-        const int sn = s.s_src[e];
-        e_o[u] = e;
-        if (active) {
-          g_o[u] = gb[static_cast<size_t>(s.s_dst[e]) * F + f];
-          if (sn >= 0 && sn < N) x_o[u] = xb[static_cast<size_t>(sn) * F + f];
-        }
-      }
-    }
-  };
-  auto flush = [&](int node, float& a) {
-    if (active) dxb[static_cast<size_t>(node) * F + f] = bf16 ? round_bf16(a) : a;
-    a = 0.f;
-  };
   float dt[KD];
 #pragma unroll
   for (int k = 0; k < KD; ++k) dt[k] = 0.f;
-  float acc = 0.f;   // dx of node n
-  int n = n0;
-  gather(p0, es, xv, gv);
-  for (int p = p0; p < p1; p += kUnroll) {
-    if ((p - p0) / kUnroll < 3) PHASE_MARK(5 + (p - p0) / kUnroll);
-    gather(p + kUnroll, es_next, xv_next, gv_next);
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int e = es[u];
-      if (e >= 0) {
-        const int bin = s.bins[e];
-        for (; n < bin && n < n1; ++n) flush(n, acc);   // nodes before this edge's are done
-        float bk[KD];
-        one_hot_row<MAXD, KD>(s.bo, e, bk);
-        float emb = 0.f;
-#pragma unroll
-        for (int k = 0; k < KD; ++k) emb = fmaf(bk[k], tb[k], emb);
-        const float pre = (bf16 ? round_bf16(xv[u]) : xv[u]) + emb;
-        const float dm = pre > 0.f ? (bf16 ? round_bf16(gv[u]) : gv[u]) : 0.f;
-        if (bin < N) acc += dm;
-#pragma unroll
-        for (int k = 0; k < KD; ++k) dt[k] = fmaf(bk[k], dm, dt[k]);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      es[u] = es_next[u];
-      xv[u] = xv_next[u];
-      gv[u] = gv_next[u];
-    }
-  }
-  for (; n < n1; ++n) flush(n, acc);
+  const size_t gofs = static_cast<size_t>(b) * N * F;
+  walk_bwd<MAXD, KD, true, KD>(view_of(s), tb, table, x + gofs, g + gofs, dx + gofs, n0, n1,
+                               s.start[n0], p1, N, D, F, f, active, bf16, 0, true, dt);
 
   // the block's dtable partial: the node ranges' columns summed in order
 #pragma unroll
@@ -450,6 +647,127 @@ gin_messages_bwd_kernel(const float* __restrict__ x,
     float v = 0.f;
     for (int r = 0; r < kSlots; ++r) v += s.red[(r * MAXD + k) * kFeat + fl];
     pb[static_cast<size_t>(k) * F + fg] = v;
+  }
+  PHASE_MARK(4);
+}
+
+// The ranges plan's scratch for B graphs (int words): bins and order [B][E]
+// each, start and the cursors [B][N + 2] each.
+struct SortScratch {
+  int *bins, *order, *start, *cursor;
+};
+
+SortScratch sort_scratch(int* base, int B, int N, int E) {
+  const size_t be = static_cast<size_t>(B) * E, bn = static_cast<size_t>(B) * (N + 2);
+  return SortScratch{base, base + be, base + 2 * be, base + 2 * be + bn};
+}
+
+// A ranges-plan block's graph, its node range r of R, its feature chunk
+// (and, in the backward, its 32-column slice) from the flat block index,
+// graph-major: unit = ((b R + r) slices + slice) chunks + chunk.
+struct RangeBlock {
+  int b, r, slice, chunk;
+};
+
+__device__ __forceinline__ RangeBlock range_block(int R, int slices, int chunks) {
+  RangeBlock rb_;
+  long long u = blockIdx.x;
+  rb_.chunk = static_cast<int>(u % chunks);
+  u /= chunks;
+  rb_.slice = static_cast<int>(u % slices);
+  u /= slices;
+  rb_.r = static_cast<int>(u % R);
+  rb_.b = static_cast<int>(u / R);
+  return rb_;
+}
+
+// The warp's nodes [n0, n1) and kept edges [p0, p1) in the ranges plan:
+// slot gs = 4 r + slot of the graph's 4 R (the last slot also takes bin N
+// where last_bin, the backward).
+__device__ __forceinline__ void range_slot(const int* start, int N, int kept, int gs, int slots,
+                                           bool last_bin, int& n0, int& n1, int& p0, int& p1) {
+  n0 = node_at(start, N, kept, gs, slots);
+  n1 = gs == slots - 1 ? N : node_at(start, N, kept, gs + 1, slots);
+  p0 = start[n0];
+  p1 = (gs == slots - 1 && last_bin) ? kept : start[n1];
+}
+
+template <int KD>
+__global__ void __launch_bounds__(kThreads)
+gin_messages_fwd_ranges_kernel(const float* __restrict__ x, const int* __restrict__ src,
+                               const int* __restrict__ dst, const float* __restrict__ boh,
+                               const float* __restrict__ table, const int* __restrict__ bins,
+                               const int* __restrict__ order, const int* __restrict__ start,
+                               float* __restrict__ out, int N, int E, int D, int F, int R,
+                               int chunks, int bf16) {
+  const RangeBlock rb_ = range_block(R, 1, chunks);
+  const int b = rb_.b;
+  const int warp = threadIdx.x >> 5;
+  const int f = rb_.chunk * kFeat + (warp % kGroups) * 32 + (threadIdx.x & 31);
+  const bool active = f < F;
+  PHASE_MARK(0);
+  float tb[kTb<KD>];
+  load_table<KD>(table, D, F, f, active, bf16, tb);
+  const size_t be = static_cast<size_t>(b) * E;
+  const EdgeView v{bins + be, order + be, start + static_cast<size_t>(b) * (N + 2), src + be,
+                   dst + be, boh + be * D};
+  int n0, n1, p0, p1;
+  range_slot(v.start, N, v.start[N], rb_.r * kSlots + warp / kGroups, R * kSlots, false, n0, n1,
+             p0, p1);
+  walk_fwd<32, KD, false>(v, tb, table, x + static_cast<size_t>(b) * N * F,
+                          out + static_cast<size_t>(b) * N * F, n0, n1, p0, p1, N, D, F, f,
+                          active, bf16);
+  PHASE_MARK(3);
+}
+
+// KDT: the dtable columns of a block (KD, or 32: a slice of D > 32).
+template <int KD, int KDT>
+__global__ void __launch_bounds__(kThreads)
+gin_messages_bwd_ranges_kernel(const float* __restrict__ x, const int* __restrict__ src,
+                               const int* __restrict__ dst, const float* __restrict__ boh,
+                               const float* __restrict__ table, const float* __restrict__ g,
+                               const int* __restrict__ bins, const int* __restrict__ order,
+                               const int* __restrict__ start, float* __restrict__ dx,
+                               float* __restrict__ dtable_part,   // [B R, D, F]
+                               int N, int E, int D, int F, int R, int slices, int chunks,
+                               int bf16) {
+  __shared__ __align__(16) float red[kSlots * KDT * kFeat];
+  const RangeBlock rb_ = range_block(R, slices, chunks);
+  const int b = rb_.b;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int slot = warp / kGroups;
+  const int col = (warp % kGroups) * 32 + (tid & 31);
+  const int f = rb_.chunk * kFeat + col;
+  const bool active = f < F;
+  const int k0 = rb_.slice * KDT;
+  PHASE_MARK(0);
+  float tb[kTb<KD>];
+  load_table<KD>(table, D, F, f, active, bf16, tb);
+  const size_t be = static_cast<size_t>(b) * E;
+  const EdgeView v{bins + be, order + be, start + static_cast<size_t>(b) * (N + 2), src + be,
+                   dst + be, boh + be * D};
+  int n0, n1, p0, p1;
+  range_slot(v.start, N, v.start[N + 1], rb_.r * kSlots + slot, R * kSlots, true, n0, n1, p0,
+             p1);
+  float dt[KDT];
+#pragma unroll
+  for (int k = 0; k < KDT; ++k) dt[k] = 0.f;
+  const size_t gofs = static_cast<size_t>(b) * N * F;
+  walk_bwd<32, KD, false, KDT>(v, tb, table, x + gofs, g + gofs, dx + gofs, n0, n1, p0, p1, N,
+                               D, F, f, active, bf16, k0, rb_.slice == 0, dt);
+#pragma unroll
+  for (int k = 0; k < KDT; ++k) red[(slot * KDT + k) * kFeat + col] = dt[k];
+  __syncthreads();
+  PHASE_MARK(3);
+  float* pb = dtable_part + (static_cast<size_t>(b) * R + rb_.r) * D * F;
+  for (int i = tid; i < KDT * kFeat; i += kThreads) {
+    const int k = i / kFeat, fl = i - k * kFeat;
+    const int fg = rb_.chunk * kFeat + fl;
+    if (fg >= F || k0 + k >= D) continue;
+    float s = 0.f;
+    for (int r = 0; r < kSlots; ++r) s += red[(r * KDT + k) * kFeat + fl];
+    pb[static_cast<size_t>(k0 + k) * F + fg] = s;
   }
   PHASE_MARK(4);
 }
@@ -483,16 +801,71 @@ int launch_bwd(const float* x, const int* src, const int* dst, const float* boh,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The ranges plan's pre-pass: bins, order and starts of every graph.
+template <bool BY_DST>
+int launch_sort(const int* src, const int* dst, const SortScratch& sc, int B, int N, int E,
+                cudaStream_t s) {
+  const size_t smem = sort_smem(N);
+  const cudaError_t err = cudaFuncSetAttribute(
+      gin_sort_kernel<BY_DST>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  gin_sort_kernel<BY_DST><<<B, kThreads, smem, s>>>(src, dst, sc.bins, sc.order, sc.start,
+                                                    sc.cursor, N, E);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int KD>
+int launch_fwd_ranges(const float* x, const int* src, const int* dst, const float* boh,
+                      const float* table, float* out, const SortScratch& sc, int B, int N,
+                      int E, int D, int F, int R, int bf16, cudaStream_t s) {
+  const int chunks = (F + kFeat - 1) / kFeat;
+  gin_messages_fwd_ranges_kernel<KD><<<static_cast<unsigned>(static_cast<long long>(B) * R *
+                                                             chunks),
+                                       kThreads, 0, s>>>(x, src, dst, boh, table, sc.bins,
+                                                         sc.order, sc.start, out, N, E, D, F,
+                                                         R, chunks, bf16);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int KD, int KDT>
+int launch_bwd_ranges(const float* x, const int* src, const int* dst, const float* boh,
+                      const float* table, const float* g, float* dx, float* dtable_part,
+                      const SortScratch& sc, int B, int N, int E, int D, int F, int R,
+                      int bf16, cudaStream_t s) {
+  const int chunks = (F + kFeat - 1) / kFeat, slices = KD > 0 ? 1 : (D + KDT - 1) / KDT;
+  gin_messages_bwd_ranges_kernel<KD, KDT>
+      <<<static_cast<unsigned>(static_cast<long long>(B) * R * slices * chunks), kThreads, 0,
+         s>>>(x, src, dst, boh, table, g, sc.bins, sc.order, sc.start, dx, dtable_part, N, E,
+              D, F, R, slices, chunks, bf16);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// out [B, N, F].  Needs D <= 32 and edge data that fits (edge_smem).
+// out [B, N, F].  ranges = 0: the block plan (needs D <= 32 and edge data
+// that fits, edge_smem); ranges = R > 0: the ranges plan, with sort
+// (gin_messages_sort_words(B, N, E) ints) caller-allocated scratch.
 extern "C" int gin_messages_fwd(const float* x, const int* src, const int* dst,
                                 const float* boh, const float* table, float* out,
-                                int B, int N, int E, int D, int F, int bf16,
-                                void* stream) {
+                                int B, int N, int E, int D, int F, int bf16, int ranges,
+                                int* sort, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ranges > 0) {
+    const SortScratch sc = sort_scratch(sort, B, N, E);
+    const int rc = launch_sort<true>(src, dst, sc, B, N, E, s);
+    if (rc != 0) return rc;
+    return D == 13 ? launch_fwd_ranges<13>(x, src, dst, boh, table, out, sc, B, N, E, D, F,
+                                           ranges, bf16, s)
+           : D <= 16 ? launch_fwd_ranges<16>(x, src, dst, boh, table, out, sc, B, N, E, D, F,
+                                             ranges, bf16, s)
+           : D <= 32 ? launch_fwd_ranges<32>(x, src, dst, boh, table, out, sc, B, N, E, D, F,
+                                             ranges, bf16, s)
+                     : launch_fwd_ranges<0>(x, src, dst, boh, table, out, sc, B, N, E, D, F,
+                                            ranges, bf16, s);
+  }
   const size_t smem = edge_smem(N, E, D, false);
   if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return D == 13 ? launch_fwd<16, 13>(x, src, dst, boh, table, out, B, N, E, D, F, bf16,
                                       smem, s)
          : maxd_of(D) == 16 ? launch_fwd<16, 16>(x, src, dst, boh, table, out, B, N, E, D, F,
@@ -501,34 +874,61 @@ extern "C" int gin_messages_fwd(const float* x, const int* src, const int* dst,
 }
 
 // dx [B, N, F] and dtable [D, F]; dtable_part is caller-allocated scratch
-// of B * D * F floats.  Needs D <= 32 and edge data that fits (edge_smem).
+// of B * D * F floats (block plan, ranges = 0: needs D <= 32 and edge data
+// that fits, edge_smem) or B * R * D * F (ranges plan, ranges = R > 0,
+// with sort as in the forward).
 extern "C" int gin_messages_bwd(const float* x, const int* src, const int* dst,
                                 const float* boh, const float* table,
                                 const float* g, float* dx, float* dtable,
                                 float* dtable_part, int B, int N, int E, int D,
-                                int F, int bf16, void* stream) {
+                                int F, int bf16, int ranges, int* sort, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc;
+  if (ranges > 0) {
+    const SortScratch sc = sort_scratch(sort, B, N, E);
+    rc = launch_sort<false>(src, dst, sc, B, N, E, s);
+    if (rc != 0) return rc;
+    rc = D == 13 ? launch_bwd_ranges<13, 13>(x, src, dst, boh, table, g, dx, dtable_part, sc,
+                                             B, N, E, D, F, ranges, bf16, s)
+         : D <= 16 ? launch_bwd_ranges<16, 16>(x, src, dst, boh, table, g, dx, dtable_part,
+                                               sc, B, N, E, D, F, ranges, bf16, s)
+         : D <= 32 ? launch_bwd_ranges<32, 32>(x, src, dst, boh, table, g, dx, dtable_part,
+                                               sc, B, N, E, D, F, ranges, bf16, s)
+                   : launch_bwd_ranges<0, 32>(x, src, dst, boh, table, g, dx, dtable_part, sc,
+                                              B, N, E, D, F, ranges, bf16, s);
+    if (rc != 0) return rc;
+    partials::sum_rows(dtable_part, dtable, B * ranges, D * F, s);
+    return static_cast<int>(cudaGetLastError());
+  }
   const size_t smem = edge_smem(N, E, D, true);
   if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rc =
-      D == 13 ? launch_bwd<16, 13>(x, src, dst, boh, table, g, dx, dtable_part, B, N, E, D,
-                                   F, bf16, smem, s)
-      : maxd_of(D) == 16 ? launch_bwd<16, 16>(x, src, dst, boh, table, g, dx, dtable_part,
-                                              B, N, E, D, F, bf16, smem, s)
-      : launch_bwd<32, 32>(x, src, dst, boh, table, g, dx, dtable_part, B, N, E, D, F, bf16,
-                           smem, s);
+  rc = D == 13 ? launch_bwd<16, 13>(x, src, dst, boh, table, g, dx, dtable_part, B, N, E, D,
+                                    F, bf16, smem, s)
+       : maxd_of(D) == 16 ? launch_bwd<16, 16>(x, src, dst, boh, table, g, dx, dtable_part,
+                                               B, N, E, D, F, bf16, smem, s)
+       : launch_bwd<32, 32>(x, src, dst, boh, table, g, dx, dtable_part, B, N, E, D, F, bf16,
+                            smem, s);
   if (rc != 0) return rc;
   partials::sum_rows(dtable_part, dtable, B, D * F, s);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The forward's and the backward's shared memory at (N, E, D) as their
-// launches compute it, 0 where there is no plan (ops/gin_messages.py::
-// fwd_plan and bwd_plan mirror them).
+// The forward's and the backward's block-plan shared memory at (N, E, D)
+// as their launches compute it, 0 where there is no block plan
+// (ops/gin_messages.py::fwd_plan and bwd_plan mirror them).
 extern "C" long long gin_messages_fwd_smem(int N, int E, int D) {
   return static_cast<long long>(edge_smem(N, E, D, false));
 }
 
 extern "C" long long gin_messages_bwd_smem(int N, int E, int D) {
   return static_cast<long long>(edge_smem(N, E, D, true));
+}
+
+// The ranges plan at (N, E, D): out[0] its node ranges a graph, out[1] the
+// sort's shared memory, out[2] the backward walk's (ops/gin_messages.py::
+// _edge_plan mirrors them).
+extern "C" void gin_messages_ranges_plan(int N, int E, int D, long long* out) {
+  out[0] = ranges_of(E);
+  out[1] = static_cast<long long>(sort_smem(N));
+  out[2] = static_cast<long long>(walk_smem(D, true));
 }

@@ -58,7 +58,7 @@
 // Shared memory: W (bf16 C' (H' + 8) x 2 B, f32 C' H' x 4 B) and two stages
 // of (TS + 16) rows of C' + 16 or C' floats (fwd_smem).
 //
-// Backward (replaces _bwd_kernel, pallas_call at l.193), for H <= 32:
+// Backward (replaces _bwd_kernel, pallas_call at l.193):
 //   pair[s, d, c] = a[s, c] + cc[d, c]                     (f32)
 //   dpair         = 1[pair > 0] * sum_h g[s, d, h] * w[c, h]
 //   da[s, c] = sum_d dpair,  dc[d, c] = sum_s dpair
@@ -116,6 +116,22 @@
 //    thread 0 stamps the start, a's staging, the first three stages, the
 //    last and the end.
 // Shared memory: (2 N CH + 32 CH) words + a 36 KB stage area (bwd_smem).
+//  * The tiled plan, where the whole-graph plan does not fit (N > 748) or H
+//    > 32 (make_bwd_plan): blocks of (graph, row tile of RS source rows,
+//    pass hpd of h, 64 channels), RS = 128 (64 with passes), so shared
+//    memory does not grow with N.  A block walks every dest tile for its
+//    rows: da of its rows is whole and goes out; dc of its rows is a
+//    partial, one per tile ([B, tiles, N, C]), and a second launch adds
+//    the tiles in order (sum_tiles_kernel); dW and db partials are one row
+//    per (graph, tile).  H > 32 runs in HP = ceil(H / 32) passes of 32 h:
+//    a block of pass 0 stages every pass of each (dest tile, 8 rows) in
+//    turn and carries the lane's dpair accumulators between passes in
+//    shared memory ([128][CH]), so dpair is one f32 sum over all of H
+//    before the relu mask and K4's single bf16 rounding, as in the plain
+//    version; its W fragments are reloaded per pass.  It gives pass 0's dW
+//    (and db); a block of pass hpd > 0 stages only its pass and gives only
+//    that pass's dW (and db).  At tiles = HP = 1 it is the whole-graph
+//    plan, the same code and bits.
 //
 // K4, the channel-major variant (template flag CM), replaces
 // moleculesde_tpu/ops/pair_block.py::_fwd_kernel_cm (pallas_call at l.337)
@@ -210,7 +226,10 @@ __device__ __forceinline__ int chan_slot(int k) {
   return k - rem + q * (W / 8) + rem / 8;   // rem / 8 = 2 mt + hi
 }
 
-template <bool CM, bool BF16, int CH>
+// TILED: the tiled plan's instantiation (row tiles, passes of h); the
+// whole-graph plan's (TILED false) takes RS = N, one tile and one pass as
+// compile-time facts, so its code is the plan's own.
+template <bool CM, bool BF16, int CH, bool TILED>
 __global__ void __launch_bounds__(kBwdThreads<BF16, CH>, BF16 ? 3 : 1)
 pair_relu_project_bwd_kernel(const float* __restrict__ a,
                              const float* __restrict__ cc,
@@ -218,24 +237,39 @@ pair_relu_project_bwd_kernel(const float* __restrict__ a,
                              const float* __restrict__ g,
                              float* __restrict__ da,
                              float* __restrict__ dc,
-                             float* __restrict__ dw_part,   // [B, C, H]
-                             float* __restrict__ db_part,   // [B, H]; !CM
-                             int N, int C, int H, int chunks) {
+                             float* __restrict__ dw_part,   // [B tiles, C, H]
+                             float* __restrict__ db_part,   // [B tiles, H]; !CM
+                             float* __restrict__ dc_part,   // [B, tiles, N, C]; tiles > 1
+                             int N, int C, int H, int chunks, int RS_, int tiles_,
+                             int HP_) {
   using L = StageLayout<CM, BF16>;
+  const int RS = TILED ? RS_ : N, tiles = TILED ? tiles_ : 1, HP = TILED ? HP_ : 1;
   constexpr int MT = kWarpChan<BF16> / 16;          // m16 tiles a warp
   constexpr int nthr = kBwdThreads<BF16, CH>;
   constexpr int kPer = kSlots / nthr;                // g slots a thread copies per stage
   static_assert(kSlots % nthr == 0, "slots per thread");
   extern __shared__ __align__(16) float smem[];
-  float* as = smem;                                  // [N][CH] a's chunk columns
-  float* das = as + N * CH;                          // [N][CH] da sums (both chan_slot order)
-  float* dcx = das + N * CH;                         // [2][kDTile][CH] half 1's dc
-  float* stage = dcx + 2 * kDTile * CH;              // kStageBytes
+  float* as = smem;                                  // [RS][CH] a's chunk columns
+  float* das = as + RS * CH;                         // [RS][CH] da sums (both chan_slot order)
+  float* dcx = das + RS * CH;                        // [2][kDTile][CH] half 1's dc
+  float* drx = dcx + 2 * kDTile * CH;                // [kStagePairs][CH] dpair between passes
+  float* stage = drx + (HP > 1 ? kStagePairs * CH : 0);   // kStageBytes
   float* tile32 = stage;
   __nv_bfloat16* tile16 = reinterpret_cast<__nv_bfloat16*>(stage + L::kTile32);
 
-  const int b = blockIdx.x / chunks;                 // graph-major block numbers
-  const int chunk = blockIdx.x - b * chunks;
+  // graph-major block numbers: ((b tiles + tile) HP + hpd) chunks + chunk
+  int unit = blockIdx.x;
+  const int chunk = unit % chunks;
+  unit /= chunks;
+  const int hpd = unit % HP;                         // the pass of h whose dW (and db) it gives
+  unit /= HP;
+  const int tile = unit % tiles;                     // its source rows [s_lo, s_hi)
+  const int b = unit / tiles;
+  const int s_lo = tile * RS, s_hi = min(N, s_lo + RS), rows_t = s_hi - s_lo;
+  // blocks of passes hpd > 0 give only dW (and db) of their pass; a block
+  // of pass 0 sums dpair over every pass and gives da, dc and pass 0's dW
+  const bool dw_only = hpd > 0;
+  const int hps = dw_only ? 1 : HP;                  // passes a block stages
   const int c0 = chunk * CH;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -261,14 +295,16 @@ pair_relu_project_bwd_kernel(const float* __restrict__ a,
   const bool vec = CM ? (N % 4 == 0) : (H % 4 == 0);  // 16-byte aligned g slots
 
   PHASE_MARK(0);
-  for (int i = tid; i < N * CH; i += nthr) {
+  for (int i = tid; i < rows_t * CH; i += nthr) {
     const int r = i / CH, k = i - r * CH;
-    const float v = c0 + k < C ? ab[static_cast<size_t>(r) * C + c0 + k] : 0.f;
+    const float v = c0 + k < C ? ab[static_cast<size_t>(s_lo + r) * C + c0 + k] : 0.f;
     as[r * CH + chan_slot<BF16>(k)] = round_halves ? round_bf16(v) : v;
     das[i] = 0.f;
   }
+  int h0 = (dw_only ? hpd : 0) * kChanTile;          // the first h of the pass W is loaded for
   auto wval = [&](int cl_, int h) {
     const int c = c0 + cl_;
+    h += h0;
     const float v = (c < C && h < H) ? w[static_cast<size_t>(c) * H + h] : 0.f;
     return BF16 ? round_bf16(v) : v;
   };
@@ -278,16 +314,27 @@ pair_relu_project_bwd_kernel(const float* __restrict__ a,
   uint32_t wa[MT][2][4];
   float dwa[MT][4][4];
   float wr[2][kChanTile], dwr[2][kChanTile];
+  auto load_w = [&]() {   // W's fragments (BF16) or rows (f32) of the pass at h0
+    if constexpr (BF16) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int h = 16 * ks + (j >> 1) * 8 + 2 * r4;
+            wa[mt][ks][j] = pack_bf16(wval(cl[mt][j & 1], h), wval(cl[mt][j & 1], h + 1));
+          }
+    } else {
+#pragma unroll
+      for (int h = 0; h < kChanTile; ++h) {
+        wr[0][h] = wval(cl[0][0], h);
+        wr[1][h] = wval(cl[0][1], h);
+      }
+    }
+  };
+  load_w();
   if constexpr (BF16) {
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int ks = 0; ks < 2; ++ks)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int h = 16 * ks + (j >> 1) * 8 + 2 * r4;
-          wa[mt][ks][j] = pack_bf16(wval(cl[mt][j & 1], h), wval(cl[mt][j & 1], h + 1));
-        }
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -296,16 +343,14 @@ pair_relu_project_bwd_kernel(const float* __restrict__ a,
         for (int e = 0; e < 4; ++e) dwa[mt][j][e] = 0.f;
   } else {
 #pragma unroll
-    for (int h = 0; h < kChanTile; ++h) {
-      wr[0][h] = wval(cl[0][0], h);
-      wr[1][h] = wval(cl[0][1], h);
-      dwr[0][h] = dwr[1][h] = 0.f;
-    }
+    for (int h = 0; h < kChanTile; ++h) dwr[0][h] = dwr[1][h] = 0.f;
   }
 
   const int ndt = (N + kDTile - 1) / kDTile;
-  const int nsg = (N + kStageRows - 1) / kStageRows;
-  const int stages = ndt * nsg;
+  const int nsg = (rows_t + kStageRows - 1) / kStageRows;
+  const int stages = ndt * nsg * hps;
+  // stage st: pass (innermost), then source group, then dest tile
+  auto pass_of = [&](int st) { return dw_only ? hpd : st % hps; };
   // slot j of this thread in a stage: tile row (K3: pair, K4: h) and its
   // first column, the same in every stage; the stage's source rows and
   // dest tile move the device address
@@ -314,8 +359,9 @@ pair_relu_project_bwd_kernel(const float* __restrict__ a,
     row = i / (L::kCols / 4);
     col = 4 * (i % (L::kCols / 4));
   };
-  auto issue = [&](int st) {   // cp.async of stage st, zero-filled past N and H
-    const int d0 = (st / nsg) * kDTile, s0 = (st % nsg) * kStageRows;
+  auto issue = [&](int st) {   // cp.async of stage st, zero-filled past the tile, N and H
+    const int sq = st / hps, hq = pass_of(st) * kChanTile;
+    const int d0 = (sq / nsg) * kDTile, s0 = s_lo + (sq % nsg) * kStageRows;
     float* dst32 = tile32 + (BF16 ? 0 : (st & 1) * L::kTile32);
 #pragma unroll
     for (int j = 0; j < kPer; ++j) {
@@ -324,12 +370,12 @@ pair_relu_project_bwd_kernel(const float* __restrict__ a,
       slot(j, row, col);
       if (CM) {   // row h, pairs col .. col + 3 of the stage
         const int s = s0 + col / kDTile, d = d0 + col % kDTile;
-        nvalid = (row < H && s < N) ? max(0, min(4, N - d)) : 0;
-        src = gb + static_cast<size_t>(row) * nn + s * N + d;
+        nvalid = (hq + row < H && s < s_hi) ? max(0, min(4, N - d)) : 0;
+        src = gb + static_cast<size_t>(hq + row) * nn + s * N + d;
       } else {    // pair row, h col .. col + 3
         const int s = s0 + row / kDTile, d = d0 + row % kDTile;
-        nvalid = (s < N && d < N) ? max(0, min(4, H - col)) : 0;
-        src = gb + (s * N + d) * H + col;
+        nvalid = (s < s_hi && d < N) ? max(0, min(4, H - hq - col)) : 0;
+        src = gb + (s * N + d) * H + hq + col;
       }
       float* dst = dst32 + row * L::FS + col;
       if (vec) {
@@ -346,7 +392,8 @@ pair_relu_project_bwd_kernel(const float* __restrict__ a,
   // and in bf16 mode the rounding into the bf16 tile
   float db4[4] = {0.f, 0.f, 0.f, 0.f};
   auto settle = [&](int st) {
-    if (!BF16 && !db_block) return;
+    const bool db_stage = db_block && pass_of(st) == hpd;
+    if (!BF16 && !db_stage) return;
     const float* src32 = tile32 + (BF16 ? 0 : (st & 1) * L::kTile32);
     __nv_bfloat16* dst16 = tile16 + (st & 1) * L::kTile16;
 #pragma unroll
@@ -354,7 +401,7 @@ pair_relu_project_bwd_kernel(const float* __restrict__ a,
       int row, col;
       slot(j, row, col);
       const float4 v = *reinterpret_cast<const float4*>(src32 + row * L::FS + col);
-      if (db_block) {
+      if (db_stage) {
         db4[0] += v.x;
         db4[1] += v.y;
         db4[2] += v.z;
@@ -383,7 +430,12 @@ pair_relu_project_bwd_kernel(const float* __restrict__ a,
           const int dl = 8 * nt + 2 * r4 + (e & 1), c_l = cl[mt][e >> 1];
           const int d = dt * kDTile + dl, c = c0 + c_l;
           const float v = dcr[mt][nt][e] + x[dl * CH + c_l];
-          if (d < N && c < C) dc[(static_cast<size_t>(b) * N + d) * C + c] = v;
+          if (d < N && c < C) {
+            if (tiles == 1)
+              dc[(static_cast<size_t>(b) * N + d) * C + c] = v;
+            else
+              dc_part[((static_cast<size_t>(b) * tiles + tile) * N + d) * C + c] = v;
+          }
         }
   };
 
@@ -394,9 +446,15 @@ pair_relu_project_bwd_kernel(const float* __restrict__ a,
     settle(st);
     __syncthreads();   // stage st in place; stage st - 1 consumed by every warp
     if (st + 1 < stages) issue(st + 1);
-    const int dt = st / nsg, sg = st - dt * nsg;
-    if (sg == 0) {   // a new dest tile: the last one's dc out, this one's cc in
-      if (dt > 0) finish_dc(dt - 1);
+    const int hi_ = st % hps, sq = st / hps, dt = sq / nsg, sg = sq - dt * nsg;
+    const int hp = dw_only ? hpd : hi_;
+    const bool first = hi_ == 0, last = hi_ == hps - 1;   // the stage's first / last pass
+    if (HP > 1 && !dw_only) {   // W of this stage's pass
+      h0 = hp * kChanTile;
+      load_w();
+    }
+    if (sg == 0 && first) {   // a new dest tile: the last one's dc out, this one's cc in
+      if (dt > 0 && !dw_only) finish_dc(dt - 1);
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -411,8 +469,8 @@ pair_relu_project_bwd_kernel(const float* __restrict__ a,
     }
     for (int i = 0; i < kStageRows / 2; ++i) {
       const int sl = half * (kStageRows / 2) + i;   // the row within the stage
-      const int s = sg * kStageRows + sl;
-      if (s >= N) break;                            // warp-uniform
+      const int s = sg * kStageRows + sl;           // within the tile
+      if (s >= rows_t) break;                       // warp-uniform
       const int p0 = sl * kDTile;                   // its first pair in the stage
       float pair[MT][2][4], rl[MT][2][4], dr[MT][2][4];
       float av[2 * MT];   // a[s] at the lane's channels, in chan_slot order
@@ -439,12 +497,25 @@ pair_relu_project_bwd_kernel(const float* __restrict__ a,
             dr[mt][nt][e] = 0.f;
           }
       }
+      // the lane's dpair sums of the earlier passes (their f32 sum over h
+      // continues across passes)
+      auto dr_at = [&](int mt, int nt, int e) -> float& {
+        return drx[(sl * kDTile + 8 * nt + 2 * r4 + (e & 1)) * CH + cl[mt][e >> 1]];
+      };
+      if (HP > 1 && !first && !dw_only) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) dr[mt][nt][e] = dr_at(mt, nt, e);
+      }
       if constexpr (BF16) {
         const __nv_bfloat16* t16 = tile16 + (st & 1) * L::kTile16;
         // dpair^T (m = channel, n = pair) = W (k = h) @ g^T; each g
         // fragment feeds both m tiles
 #pragma unroll
-        for (int ks = 0; ks < 2; ++ks) {
+        for (int ks = 0; ks < 2 && !dw_only; ++ks) {
           uint32_t bq[4];
           if (CM)   // g stored [h][pair]: [k][n]
             hopper::ldsm_x4_t(bq, t16 + (16 * ks + (lane & 7) + ((lane >> 3) & 1) * 8) * L::BS +
@@ -459,7 +530,8 @@ pair_relu_project_bwd_kernel(const float* __restrict__ a,
           }
         }
         // dW (m = channel, n = h) += relu(pair)^T (k = pair, from these
-        // registers: an accumulator's layout is an A fragment's) @ g
+        // registers: an accumulator's layout is an A fragment's) @ g, in
+        // the block's own pass of h
         uint32_t ra[MT][4];
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
@@ -469,7 +541,7 @@ pair_relu_project_bwd_kernel(const float* __restrict__ a,
           ra[mt][3] = pack_relu_bf16(pair[mt][1][2], pair[mt][1][3]);
         }
 #pragma unroll
-        for (int nh = 0; nh < 2; ++nh) {
+        for (int nh = 0; nh < 2 && hp == hpd; ++nh) {
           uint32_t bq[4];
           if (CM)   // [n][k]
             hopper::ldsm_x4(bq, t16 + (16 * nh + (lane & 7) + ((lane >> 4) & 1) * 8) * L::BS +
@@ -486,7 +558,9 @@ pair_relu_project_bwd_kernel(const float* __restrict__ a,
       } else {
         // the same products as f32 FMAs: the lane's 8 dpair values over h,
         // and its dW partial over its 4 pairs, from g's rows 4 h at a time
+        // (dpair only, or dW only, where the block's pass says so)
         const float* t32 = tile32 + (st & 1) * L::kTile32;
+        const bool do_dr = !dw_only, do_dw = hp == hpd;
 #pragma unroll
         for (int h4 = 0; h4 < kChanTile / 4; ++h4) {
           float gv[2][2][4];   // [nt][pair j][h]
@@ -511,17 +585,46 @@ pair_relu_project_bwd_kernel(const float* __restrict__ a,
               }
             }
           }
+          if (do_dr && do_dw) {
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+#pragma unroll
+                for (int k = 0; k < 4; ++k) {
+                  const float gk = gv[nt][e & 1][k];
+                  dr[0][nt][e] = fmaf(wr[e >> 1][4 * h4 + k], gk, dr[0][nt][e]);
+                  dwr[e >> 1][4 * h4 + k] = fmaf(rl[0][nt][e], gk, dwr[e >> 1][4 * h4 + k]);
+                }
+          } else if (do_dr) {
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+#pragma unroll
+                for (int k = 0; k < 4; ++k)
+                  dr[0][nt][e] = fmaf(wr[e >> 1][4 * h4 + k], gv[nt][e & 1][k], dr[0][nt][e]);
+          } else {
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+#pragma unroll
+                for (int k = 0; k < 4; ++k)
+                  dwr[e >> 1][4 * h4 + k] =
+                      fmaf(rl[0][nt][e], gv[nt][e & 1][k], dwr[e >> 1][4 * h4 + k]);
+          }
+        }
+      }
+      if (dw_only) continue;
+      if (!last) {   // more passes of h to come: keep the sums
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
           for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-            for (int e = 0; e < 4; ++e)
-#pragma unroll
-              for (int k = 0; k < 4; ++k) {
-                const float gk = gv[nt][e & 1][k];
-                dr[0][nt][e] = fmaf(wr[e >> 1][4 * h4 + k], gk, dr[0][nt][e]);
-                dwr[e >> 1][4 * h4 + k] = fmaf(rl[0][nt][e], gk, dwr[e >> 1][4 * h4 + k]);
-              }
-        }
+            for (int e = 0; e < 4; ++e) dr_at(mt, nt, e) = dr[mt][nt][e];
+        continue;
       }
       // dpair = 1[pair > 0] * dr (K4 bf16: rounded), summed into da and dc
       float dsum[MT][2];
@@ -560,7 +663,8 @@ pair_relu_project_bwd_kernel(const float* __restrict__ a,
       if (r4 < 2 * MT) das[s * CH + slot0 + r4] += v;
     }
     if (st < 3) PHASE_MARK(2 + st);
-    if (sg == nsg - 1 && half == 1) {   // the dest tile's last stage: half 1's dc
+    // the dest tile's last stage: half 1's dc
+    if (sg == nsg - 1 && last && !dw_only && half == 1) {
       float* x = dcx + (dt & 1) * kDTile * CH;
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
@@ -573,7 +677,7 @@ pair_relu_project_bwd_kernel(const float* __restrict__ a,
   }
   __syncthreads();
   PHASE_MARK(5);
-  finish_dc(ndt - 1);
+  if (!dw_only) finish_dc(ndt - 1);
 
   // dW: the lane's values (f32: summed over the quad's pairs first), half
   // 1's through the stage area, added by half 0 and stored; db's columns
@@ -614,70 +718,128 @@ pair_relu_project_bwd_kernel(const float* __restrict__ a,
     for (int k = 0; k < 4; ++k) xdb[tid * 4 + k] = db4[k];
   }
   __syncthreads();
+  const int hw = hpd * kChanTile;   // the block's pass of dW and db
+  const size_t prow = static_cast<size_t>(b) * tiles + tile;
   if (half == 0) {
-    float* pw = dw_part + (static_cast<size_t>(b) * C + c0) * H;
+    float* pw = dw_part + (prow * C + c0) * H + hw;
     dw_each([&](int c_l, int h, float v) {
-      if (c0 + c_l < C && h < H) pw[c_l * H + h] = v + xw[c_l * kChanTile + h];
+      if (c0 + c_l < C && hw + h < H) pw[c_l * H + h] = v + xw[c_l * kChanTile + h];
     });
   }
-  if (db_block && tid < H) {
+  if (db_block && tid < kChanTile && hw + tid < H) {
     float v = 0.f;
     for (int t = (tid >> 2); t < nthr; t += kChanTile / 4) v += xdb[t * 4 + (tid & 3)];
-    db_part[static_cast<size_t>(b) * H + tid] = v;
+    db_part[prow * H + hw + tid] = v;
   }
-  for (int i = tid; i < N * CH; i += nthr) {
+  for (int i = tid; i < rows_t * CH && !dw_only; i += nthr) {
     const int r = i / CH, k = i - r * CH;
-    if (c0 + k < C) da[(static_cast<size_t>(b) * N + r) * C + c0 + k] = das[r * CH + chan_slot<BF16>(k)];
+    if (c0 + k < C)
+      da[(static_cast<size_t>(b) * N + s_lo + r) * C + c0 + k] = das[r * CH + chan_slot<BF16>(k)];
   }
   PHASE_MARK(6);
 }
 
-// Shared memory of the backward at N with CH channels a block: a's
-// columns and the da sums [N][CH] each, half 1's dc [2][16][CH], the stage
+// Shared memory of the backward with CH channels and RS source rows a
+// block and HP passes of h: a's columns and the da sums [RS][CH] each, half
+// 1's dc [2][16][CH], dpair between passes [128][CH] (HP > 1), the stage
 // area.  Mirrored by ops/pair_block.py::bwd_plan.
-size_t bwd_smem(int N, int CH) {
-  return (2 * static_cast<size_t>(N) * CH + 2 * kDTile * CH) * sizeof(float) + kStageBytes;
+size_t bwd_smem(int RS, int CH, int HP) {
+  return (2 * static_cast<size_t>(RS) * CH + 2 * kDTile * CH +
+          (HP > 1 ? static_cast<size_t>(kStagePairs) * CH : 0)) * sizeof(float) +
+         kStageBytes;
 }
 
-// Channels per block: 64 or 32, the most whose shared memory fits; 0 if
-// neither does.
+constexpr int kTileRows = 128;         // source rows a block of the tiled plan (one pass)
+constexpr int kTileRowsPasses = 64;    // the same with passes of h (two blocks an SM)
+
+// The backward's plan: CH channels and RS source rows a block, `tiles`
+// row tiles a graph, HP passes of 32 h.  The whole-graph plan (tiles = 1,
+// RS = N, HP = 1) with CH = 64 or 32, the most whose shared memory fits,
+// wherever H <= 32 and one fits (N <= 748); else the tiled plan: CH = 64,
+// RS = 128 rows (64 with passes), HP = ceil(H / 32).
+struct BwdPlan {
+  int ch, rs, tiles, hp;
+  size_t smem;
+};
+
+BwdPlan make_bwd_plan(int N, int H) {
+  const int hp = H <= kChanTile ? 1 : (H + kChanTile - 1) / kChanTile;
+  if (hp == 1)
+    for (int ch = 64; ch >= 32; ch /= 2)
+      if (bwd_smem(N, ch, 1) <= kSmemLimit) return BwdPlan{ch, N, 1, 1, bwd_smem(N, ch, 1)};
+  const int cap = hp == 1 ? kTileRows : kTileRowsPasses;
+  const int n8 = (N + kStageRows - 1) / kStageRows * kStageRows;
+  const int rs = n8 < cap ? (n8 > 0 ? n8 : kStageRows) : cap;
+  return BwdPlan{64, rs, (N + rs - 1) / rs, hp, bwd_smem(rs, 64, hp)};
+}
+
+// Channels per block of the whole-graph plan at H <= 32: 64 or 32, the
+// most whose shared memory fits; 0 if neither does.
 int bwd_chunk(int N) {
   for (int ch = 64; ch >= 32; ch /= 2)
-    if (bwd_smem(N, ch) <= kSmemLimit) return ch;
+    if (bwd_smem(N, ch, 1) <= kSmemLimit) return ch;
   return 0;
 }
 
-template <bool CM, bool BF16, int CH>
+template <bool CM, bool BF16, int CH, bool TILED>
 int launch_bwd_chunk(const float* a, const float* cc, const float* w, const float* g, float* da,
-                     float* dc, float* dw_part, float* db_part, int B, int N, int C, int H,
-                     cudaStream_t s) {
-  const size_t smem = bwd_smem(N, CH);
+                     float* dc, float* dw_part, float* db_part, float* dc_part, int B, int N,
+                     int C, int H, const BwdPlan& p, cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(
-      pair_relu_project_bwd_kernel<CM, BF16, CH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      pair_relu_project_bwd_kernel<CM, BF16, CH, TILED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(p.smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int chunks = (C + CH - 1) / CH;
-  pair_relu_project_bwd_kernel<CM, BF16, CH><<<B * chunks, kBwdThreads<BF16, CH>, smem, s>>>(
-      a, cc, w, g, da, dc, dw_part, db_part, N, C, H, chunks);
+  const long long blocks = static_cast<long long>(B) * p.tiles * p.hp * chunks;
+  pair_relu_project_bwd_kernel<CM, BF16, CH, TILED>
+      <<<static_cast<unsigned>(blocks), kBwdThreads<BF16, CH>, p.smem, s>>>(
+          a, cc, w, g, da, dc, dw_part, db_part, dc_part, N, C, H, chunks, p.rs, p.tiles, p.hp);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The backward in the mode and with the chunk bwd_chunk picks for N.
+// dc[b, i] = sum_t part[b, t, i], the row tiles in order (M = N * C).
+__global__ void sum_tiles_kernel(const float* __restrict__ part, float* __restrict__ out,
+                                 int B, int tiles, int M) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<size_t>(B) * M) return;
+  const size_t b = i / M, m = i - b * M;
+  const float* p = part + b * tiles * M + m;
+  float acc = 0.f;
+  for (int t = 0; t < tiles; ++t) acc += p[static_cast<size_t>(t) * M];
+  out[i] = acc;
+}
+
+// The backward in the mode and with the plan make_bwd_plan picks; the
+// row tiles' dc partials (dc_part, tiles > 1) added in tile order.
 template <bool CM>
 int launch_bwd(const float* a, const float* cc, const float* w, const float* g, float* da,
-               float* dc, float* dw_part, float* db_part, int B, int N, int C, int H,
-               int bf16, cudaStream_t s) {
-  const int CH = bwd_chunk(N);
-  if (CH == 0 || H > kChanTile) return static_cast<int>(cudaErrorInvalidValue);
+               float* dc, float* dw_part, float* db_part, float* dc_part, int B, int N, int C,
+               int H, int bf16, cudaStream_t s) {
+  const BwdPlan p = make_bwd_plan(N, H);
+  if (p.smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  const bool tiled = p.tiles > 1 || p.hp > 1;   // the tiled plan: 64 channels a block
+  int rc;
   if (bf16)
-    return CH == 64 ? launch_bwd_chunk<CM, true, 64>(a, cc, w, g, da, dc, dw_part, db_part, B,
-                                                     N, C, H, s)
-                    : launch_bwd_chunk<CM, true, 32>(a, cc, w, g, da, dc, dw_part, db_part, B,
-                                                     N, C, H, s);
-  return CH == 64 ? launch_bwd_chunk<CM, false, 64>(a, cc, w, g, da, dc, dw_part, db_part, B, N,
-                                                    C, H, s)
-                  : launch_bwd_chunk<CM, false, 32>(a, cc, w, g, da, dc, dw_part, db_part, B, N,
-                                                    C, H, s);
+    rc = tiled ? launch_bwd_chunk<CM, true, 64, true>(a, cc, w, g, da, dc, dw_part, db_part,
+                                                      dc_part, B, N, C, H, p, s)
+         : p.ch == 64 ? launch_bwd_chunk<CM, true, 64, false>(a, cc, w, g, da, dc, dw_part,
+                                                              db_part, dc_part, B, N, C, H, p, s)
+                      : launch_bwd_chunk<CM, true, 32, false>(a, cc, w, g, da, dc, dw_part,
+                                                              db_part, dc_part, B, N, C, H, p, s);
+  else
+    rc = tiled ? launch_bwd_chunk<CM, false, 64, true>(a, cc, w, g, da, dc, dw_part, db_part,
+                                                       dc_part, B, N, C, H, p, s)
+         : p.ch == 64 ? launch_bwd_chunk<CM, false, 64, false>(a, cc, w, g, da, dc, dw_part,
+                                                               db_part, dc_part, B, N, C, H, p,
+                                                               s)
+                      : launch_bwd_chunk<CM, false, 32, false>(a, cc, w, g, da, dc, dw_part,
+                                                               db_part, dc_part, B, N, C, H, p,
+                                                               s);
+  if (rc != 0 || p.tiles == 1) return rc;
+  const size_t total = static_cast<size_t>(B) * N * C;
+  sum_tiles_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, s>>>(dc_part, dc, B,
+                                                                              p.tiles, N * C);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---- forward (K3 and K4): see the header ----
@@ -1088,40 +1250,53 @@ extern "C" long long pair_relu_project_fwd_plan(int N, int C, int H, int bf16, i
   return static_cast<long long>(fwd_smem(C, H, bf16 != 0, ts));
 }
 
-// da, dc [B, N, C], dw [C, H], db [H]; dw_part (B * C * H floats) and
-// db_part (B * H floats) are caller-allocated scratch.  Needs H <= 32 and
-// a channel chunk that fits (bwd_chunk).
+// da, dc [B, N, C], dw [C, H], db [H]; dw_part (B * tiles * C * H
+// floats), db_part (B * tiles * H) and, where tiles > 1, dc_part (B *
+// tiles * N * C) are caller-allocated scratch (tiles: make_bwd_plan's, as
+// pair_relu_project_bwd_plan gives it).
 extern "C" int pair_relu_project_bwd(const float* a, const float* cc,
                                      const float* w, const float* g, float* da,
                                      float* dc, float* dw, float* db,
-                                     float* dw_part, float* db_part, int B,
+                                     float* dw_part, float* db_part, float* dc_part, int B,
                                      int N, int C, int H, int bf16,
                                      void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rc = launch_bwd<false>(a, cc, w, g, da, dc, dw_part, db_part, B, N, C, H,
+  const int rc = launch_bwd<false>(a, cc, w, g, da, dc, dw_part, db_part, dc_part, B, N, C, H,
                                    bf16, s);
   if (rc != 0) return rc;
-  partials::sum_rows(dw_part, dw, B, C * H, s);
-  partials::sum_rows(db_part, db, B, H, s);
+  const int rows = B * make_bwd_plan(N, H).tiles;
+  partials::sum_rows(dw_part, dw, rows, C * H, s);
+  partials::sum_rows(db_part, db, rows, H, s);
   return static_cast<int>(cudaGetLastError());
 }
 
 // K4 backward: g [B, H, N*N]; da, dc [B, N, C], dw [C, H], no db; dw_part
-// (B * C * H floats) is caller-allocated scratch.  Needs H <= 32 and a
-// channel chunk that fits (bwd_chunk).
+// and dc_part as K3's.
 extern "C" int pair_relu_project_cm_bwd(const float* a, const float* cc,
                                         const float* w, const float* g,
                                         float* da, float* dc, float* dw,
-                                        float* dw_part, int B, int N, int C,
+                                        float* dw_part, float* dc_part, int B, int N, int C,
                                         int H, int bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rc = launch_bwd<true>(a, cc, w, g, da, dc, dw_part, nullptr, B, N, C, H,
+  const int rc = launch_bwd<true>(a, cc, w, g, da, dc, dw_part, nullptr, dc_part, B, N, C, H,
                                   bf16, s);
   if (rc != 0) return rc;
-  partials::sum_rows(dw_part, dw, B, C * H, s);
+  partials::sum_rows(dw_part, dw, B * make_bwd_plan(N, H).tiles, C * H, s);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The backward's channels per block at N, 0 where none fits: the plan
-// the wrappers mirror (ops/pair_block.py::bwd_plan).
+// The backward's channels per block of the whole-graph plan at N (H <=
+// 32), 0 where none fits (ops/pair_block.py::bwd_plan's "chunk" there).
 extern "C" int pair_relu_project_bwd_chunk(int N) { return bwd_chunk(N); }
+
+// The backward's plan at (N, H): out = {channels, source rows a block, row
+// tiles, passes of h}; returns its shared memory in bytes
+// (ops/pair_block.py::bwd_plan mirrors it).
+extern "C" long long pair_relu_project_bwd_plan(int N, int H, int* out) {
+  const BwdPlan p = make_bwd_plan(N, H);
+  out[0] = p.ch;
+  out[1] = p.rs;
+  out[2] = p.tiles;
+  out[3] = p.hp;
+  return static_cast<long long>(p.smem);
+}

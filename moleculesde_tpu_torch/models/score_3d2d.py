@@ -19,7 +19,9 @@ does; the node network, the losses and the parameters stay f32.
 ``attn_impl`` picks the attention bank, with the JAX module's values:
 "auto" / "xla" and "wide" (eager, ``ops/attn_maps.py``), "pallas" (the map
 kernel K7, ``ops/attn_bank.py``) or "fused" (the q/k nets and the map in
-one kernel, K8, ``ops/attn_qk_bank.py``).
+one kernel, K8, ``ops/attn_qk_bank.py``); ``kernel_impl`` ("auto",
+"kernel" or "plain") the implementation of K7 and K8 behind it, as the
+other kernel wrappers' ``impl``.
 """
 
 from __future__ import annotations
@@ -83,13 +85,14 @@ class StackedEdgeLayers(nn.Module):
 
     def __init__(self, channels: int, in_dim: int, attn_dim: int, out_dim: int,
                  num_heads: int = 4, dtype: Optional[torch.dtype] = None,
-                 attn_impl: str = "auto"):
+                 attn_impl: str = "auto", kernel_impl: str = "auto"):
         super().__init__()
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"unknown attn_impl {attn_impl} (one of {ATTN_IMPLS})")
         self.ds = attn_dim // num_heads
         self.dtype = dtype
         self.attn_impl = attn_impl
+        self.kernel_impl = kernel_impl
         a2 = 2 * attn_dim
         for p in ("q", "k"):
             setattr(self, f"{p}_kernel_0", nn.Parameter(torch.empty(channels, in_dim, a2)))
@@ -120,11 +123,12 @@ class StackedEdgeLayers(nn.Module):
         dt = self.dtype or qk_in.dtype
         bf16 = dt == torch.bfloat16
         if self.attn_impl == "fused":
-            a = attn_qk_bank(qk_in, *self.qk_params(), self.ds, bf16=bf16)
+            a = attn_qk_bank(qk_in, *self.qk_params(), self.ds, bf16=bf16,
+                             impl=self.kernel_impl)
         else:
             xd = qk_in.to(dt)
             a = attn_map_bank(self.qk(xd, "q", dt), self.qk(xd, "k", dt), self.ds,
-                              bf16=bf16, impl=self.attn_impl)
+                              bf16=bf16, impl=self.attn_impl, kernel_impl=self.kernel_impl)
         a = a.to(dt)
         a = (a + a.transpose(-1, -2)) / 2.0
         hv = torch.einsum("bnf,cfo->bcno", qk_in.to(dt), self.v_kernel.to(dt))
@@ -141,13 +145,13 @@ class EdgeNetworkDense(nn.Module):
     def __init__(self, num_linears: int, in_dim: int, attn_dim: int,
                  conv_output_dim: int, input_dim: int, output_dim: int,
                  num_heads: int = 4, dtype: Optional[torch.dtype] = None,
-                 attn_impl: str = "auto"):
+                 attn_impl: str = "auto", kernel_impl: str = "auto"):
         super().__init__()
         self.dtype = dtype
         self.output_dim = output_dim
         hidden = 2 * max(input_dim, output_dim)
         self.attn = StackedEdgeLayers(input_dim, in_dim, attn_dim, conv_output_dim,
-                                      num_heads, dtype, attn_impl)
+                                      num_heads, dtype, attn_impl, kernel_impl)
         self.multi_channel = MLP(input_dim * conv_output_dim, [hidden, conv_output_dim],
                                  activation="elu", dtype=dtype)
         self.mlp = MLP(2 * input_dim, [hidden] * (num_linears - 1) + [output_dim],
@@ -174,7 +178,7 @@ class EdgeScoreNetworkDense(nn.Module):
                  num_linears: int = 3, c_init: int = 2, c_hid: int = 8,
                  c_final: int = 4, adim: int = 16, num_heads: int = 4,
                  dtype: Optional[torch.dtype] = None, node_3d_dim: int = 0,
-                 attn_impl: str = "auto"):
+                 attn_impl: str = "auto", kernel_impl: str = "auto"):
         super().__init__()
         self.c_init = c_init
         self.num_layers = num_layers
@@ -182,7 +186,8 @@ class EdgeScoreNetworkDense(nn.Module):
             setattr(self, f"layer_{i}", EdgeNetworkDense(
                 num_linears, (in_dim if i == 0 else nhid) + node_3d_dim,
                 nhid if i == 0 else adim, nhid, c_init if i == 0 else c_hid,
-                c_final if i == num_layers - 1 else c_hid, num_heads, dtype, attn_impl))
+                c_final if i == num_layers - 1 else c_hid, num_heads, dtype, attn_impl,
+                kernel_impl))
         fdim = c_hid * (num_layers - 1) + c_final + c_init
         self.final = MLP(fdim, [2 * fdim, 2 * fdim, 1], activation="silu", dtype=dtype)
 
@@ -230,7 +235,8 @@ class SDEModel3Dto2D(nn.Module):
     score networks on ``embedding_3D(repr) + embedding_X(x)`` (l.13-179),
     2 on their concatenation with networks twice as wide (l.182-349), 3
     like 2 with ``embedding_3D(repr)`` joined to every layer's input
-    (l.352-520).  ``attn_impl`` as in :class:`StackedEdgeLayers`.  Built on
+    (l.352-520).  ``attn_impl`` and ``kernel_impl`` as in
+    :class:`StackedEdgeLayers`.  Built on
     the CPU, initialized from ``generator`` (default: seed 0), then moved
     to ``device`` ("cuda" by default; raises without a GPU unless "cpu")."""
 
@@ -238,7 +244,8 @@ class SDEModel3Dto2D(nn.Module):
                  num_linears: int = 3, c_init: int = 2, c_hid: int = 8,
                  c_final: int = 4, adim: int = 16, num_heads: int = 4,
                  variant: int = 1, bf16_attn: bool = True, attn_impl: str = "auto",
-                 sde_type: str = "VE", beta_min: float = 0.1, beta_max: float = 1.0,
+                 kernel_impl: str = "auto", sde_type: str = "VE", beta_min: float = 0.1,
+                 beta_max: float = 1.0,
                  num_diffusion_timesteps: int = 1000,
                  num_class_x: int = NUM_ATOM_CLASSES, noise_on_one_hot: bool = True,
                  device: str | torch.device = "cuda",
@@ -259,7 +266,7 @@ class SDEModel3Dto2D(nn.Module):
         self.embedding_X = Dense(x_channels, dim3d)
         self.edge_score_network = EdgeScoreNetworkDense(
             cond_dim, nhid, num_layers, num_linears, c_init, c_hid, c_final, adim,
-            num_heads, dt, inject, attn_impl)
+            num_heads, dt, inject, attn_impl, kernel_impl)
         self.node_score_network = NodeScoreNetworkDense(cond_dim, nhid, num_layers,
                                                         x_channels, inject)
         init_parameters(self, generator or torch.Generator().manual_seed(0))

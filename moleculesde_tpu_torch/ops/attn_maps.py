@@ -38,18 +38,20 @@ def _bank_xla(q: torch.Tensor, k: torch.Tensor, ds: int) -> torch.Tensor:
 
 
 def attn_map_bank(q: torch.Tensor, k: torch.Tensor, ds: int, *,
-                  bf16: bool = False, impl: str = "auto") -> torch.Tensor:
+                  bf16: bool = False, impl: str = "auto",
+                  kernel_impl: str = "auto") -> torch.Tensor:
     """Head-mean tanh maps ``[B, C, N, N]`` f32 from ``q``/``k``
     ``[B, C, N, A]``.  ``impl``: "auto" / "xla" (the eager form: in bf16
     the logits and the tanh run in bf16, the head mean accumulates in f32),
     "wide" (an alias of the eager form; a TPU layout in JAX) or "pallas"
     (K7, which keeps the logits and the tanh in f32 in bf16 mode, as the
-    TPU kernel does; its kernel on a CUDA tensor, its plain version on a
-    CPU one)."""
+    TPU kernel does; ``kernel_impl`` as the kernel wrappers' ``impl``: its
+    kernel on a CUDA tensor, its plain version on a CPU one by default)."""
     dt = torch.bfloat16 if bf16 else torch.float32
     q, k = q.to(dt), k.to(dt)
     if impl in ("auto", "xla", "wide"):
         return _bank_xla(q, k, ds)
     if impl == "pallas":
-        return attn_map_bank_kernel(q.contiguous(), k.contiguous(), ds, bf16=bf16)
+        return attn_map_bank_kernel(q.contiguous(), k.contiguous(), ds, bf16=bf16,
+                                    impl=kernel_impl)
     raise ValueError(f"unknown attn_map_bank impl: {impl} (one of {IMPLS})")

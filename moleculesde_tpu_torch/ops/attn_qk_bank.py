@@ -9,12 +9,15 @@ Counterpart of ``moleculesde_tpu/ops/rejected/attn_qk_bank.py::attn_qk_bank``
 (its Pallas impls), forward and backward.  On a CUDA tensor the wrappers
 launch the hand-written kernels of ``csrc/attn_qk_bank.cu``, which replace
 the TPU kernels ``_fwd_kernel`` (``pallas_call`` at
-``ops/rejected/attn_qk_bank.py:209``) and ``_bwd_kernel`` (l.232): both
-one block per (graph, channel) and any N whose plan fits (:func:`fwd_plan`,
+``ops/rejected/attn_qk_bank.py:209``) and ``_bwd_kernel`` (l.232): one
+block per (graph, channel) wherever its plan fits (:func:`fwd_plan`,
 :func:`bwd_plan`; the backward walks the map in tiles of rows and qk in
-chunks of features); only the node features, the weights, ``a`` and, in
-the backward, per-(graph, channel) partial sums touch device memory (the
-source's header says more).  On a CPU tensor they take
+chunks of features), where only the node features, the weights, ``a`` and,
+in the backward, per-(graph, channel) partial sums touch device memory;
+past that (N > 334 forward, N > 266 backward at A = 32), the tiled plan
+(:func:`tiled_plan`): the nets' outputs written once to device memory,
+then (graph, channel, row tile) units over them, for any N (the source's
+header says more).  On a CPU tensor they take
 :func:`attn_qk_bank_plain` and :func:`attn_qk_bank_bwd_plain`, which round
 to bf16 where the TPU kernel rounds: qk cast by the wrapper, each weight as
 it enters its product, t1 only as the second product's operand, q and k
@@ -158,7 +161,7 @@ def bwd_plan(n: int, f: int, a: int, h: int) -> Tuple[int, int, int]:
             rows //= 2
 
 
-def _check_kernel_inputs(qk, ws, ds, g=None):
+def _check_kernel_inputs(qk, ws, ds, g=None, plan=None) -> str:
     tensors = dict(zip(WEIGHTS, ws), qk=qk)
     if g is not None:
         tensors["g"] = g
@@ -182,14 +185,47 @@ def _check_kernel_inputs(qk, ws, ds, g=None):
                          f"g{None if g is None else tuple(g.shape)}")
     if ds <= 0 or a % ds:
         raise ValueError(f"attn_qk_bank kernel: A={a} is not a multiple of ds={ds}")
-    check_plan(n, f, c, a, a // ds, g is not None)
+    return plan_of(n, f, c, a, a // ds, g is not None, b, plan)
 
 
-def check_plan(n: int, f: int, c: int, a: int, h: int, bwd: bool) -> int:
+TILED_SMEM = 4 * 4 * 32 * 33   # the tiled plan's largest static shared memory (map_dqk_kernel)
+_MAP_TILE = 32                 # csrc kMapTile
+_TILE_THREADS = 256            # csrc kTileThreads
+_INT32_MAX = 2 ** 31 - 1
+
+
+def tiled_plan(b: int, n: int, f: int, c: int, a: int, h: int, bwd: bool) -> dict:
+    """The tiled plan (csrc/attn_qk_bank.cu, "the tiled plan"): shared memory
+    independent of N, F and A (``TILED_SMEM`` at most), the map in
+    ``tiles`` x ``tiles`` tiles of 32 rows, the backward's map units (graph,
+    channel, row tile, head, 32-feature slice of the head), and the
+    device-memory scratch (t1 and q / k, plus d3 and dpre in the backward,
+    ``b * c * 2 * n * a`` floats each).  Raises only where a launch's blocks
+    pass the int32 grid index."""
+    tiles = -(-n // _MAP_TILE)
+    ds = a // h
+    units = b * c * tiles * h * -(-ds // 32)
+    elems = b * c * 2 * n * max(a, f) if not bwd else max(
+        b * c * 2 * n * max(a, f), b * 2 * c * (f * a + a + a * a + a))
+    blocks = max(-(-elems // _TILE_THREADS), b * c * tiles * tiles if not bwd else units)
+    if blocks > _INT32_MAX:
+        raise ValueError(f"attn_qk_bank {'backward' if bwd else 'forward'} kernel: B={b}, "
+                         f"N={n}, F={f}, C={c}, A={a} need {blocks} blocks in the tiled plan, "
+                         f"past the int32 grid index ({_INT32_MAX})")
+    return {"plan": "tiled", "smem": TILED_SMEM, "tiles": tiles, "map_units": units,
+            "scratch": (4 if bwd else 2) * b * c * 2 * n * a}
+
+
+def check_plan(n: int, f: int, c: int, a: int, h: int, bwd: bool, b: int = 1,
+               plan: str = None) -> int:
     """Shared-memory bytes of a block of the forward (``bwd`` False) or the
-    backward kernel at these widths; raises where the kernel takes no such
-    shape: past the shared memory of a block."""
+    backward kernel at these widths: the (graph, channel) block plan's
+    wherever it fits ``SMEM_LIMIT``, else the tiled plan's (:func:`tiled_plan`),
+    which raises only past the int32 grid index.  ``plan`` forces one
+    ("block" raises where it does not fit, naming the limit)."""
     smem = bwd_plan(n, f, a, h)[2] if bwd else fwd_plan(n, f, a)[1]
+    if plan == "tiled" or (plan is None and smem > SMEM_LIMIT):
+        return tiled_plan(b, n, f, c, a, h, bwd)["smem"]
     if smem > SMEM_LIMIT:
         raise ValueError(f"attn_qk_bank {'backward' if bwd else 'forward'} kernel: N={n}, "
                          f"F={f}, C={c}, A={a} need {smem} B of shared memory per block "
@@ -197,31 +233,54 @@ def check_plan(n: int, f: int, c: int, a: int, h: int, bwd: bool) -> int:
     return smem
 
 
+def plan_of(n: int, f: int, c: int, a: int, h: int, bwd: bool, b: int = 1,
+            plan: str = None) -> str:
+    """"block" or "tiled": the plan the wrappers launch at these widths
+    (:func:`check_plan`), or ``plan`` where a caller forces one."""
+    block = (bwd_plan(n, f, a, h)[2] if bwd else fwd_plan(n, f, a)[1]) <= SMEM_LIMIT
+    which = plan or ("block" if block else "tiled")
+    check_plan(n, f, c, a, h, bwd, b, which)
+    return which
+
+
 def _weight_ptrs(ws):
     return (ctypes.c_void_p * 8)(*(w.data_ptr() for w in ws))
 
 
-def _launch(qk, ws, ds: int, bf16: bool) -> torch.Tensor:
-    _check_kernel_inputs(qk, ws, ds)
+def _tiled_scratch(which: str, b: int, n: int, c: int, a: int, bwd: bool, device):
+    if which != "tiled":
+        return None
+    return torch.empty((4 if bwd else 2) * b * c * 2 * n * a, dtype=torch.float32,
+                       device=device)
+
+
+def _launch(qk, ws, ds: int, bf16: bool, plan: str = None) -> torch.Tensor:
+    """The forward in the plan :func:`plan_of` chooses, or in ``plan``
+    ("block" / "tiled") where a test or a comparison forces one."""
+    which = _check_kernel_inputs(qk, ws, ds, plan=plan)
     b, n, f, c, a = _shapes(qk, ws)
     out = torch.empty((b, c, n, n), dtype=torch.float32, device=qk.device)
     if out.numel() == 0:
         return out
     fn = build.load("attn_qk_bank").attn_qk_bank_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 2
     ptrs = _weight_ptrs(ws)
     fc, smem = fwd_plan(n, f, a)
+    scratch = _tiled_scratch(which, b, n, c, a, False, qk.device)
     rc = fn(qk.data_ptr(), ctypes.addressof(ptrs), out.data_ptr(), b, n, f, c, a, ds,
-            int(qk.dtype == torch.bfloat16), int(bf16), fc, smem, stream(qk))
+            int(qk.dtype == torch.bfloat16), int(bf16), fc, smem,
+            None if scratch is None else scratch.data_ptr(), stream(qk))
     build.check_launch(rc, "attn_qk_bank_fwd")
     attn_qk_bank.launches += 1
     report_flops(flops(b, n, f, c, a))
     return out
 
 
-def _launch_bwd(qk, ws, g, ds: int, bf16: bool):
-    _check_kernel_inputs(qk, ws, ds, g)
+def _launch_bwd(qk, ws, g, ds: int, bf16: bool, plan: str = None):
+    """The backward in the plan :func:`plan_of` chooses, or in ``plan`` as
+    in :func:`_launch`."""
+    which = _check_kernel_inputs(qk, ws, ds, g, plan=plan)
     b, n, f, c, a = _shapes(qk, ws)
     dev = qk.device
     sizes = [w.numel() for w in ws]
@@ -237,12 +296,14 @@ def _launch_bwd(qk, ws, g, ds: int, bf16: bool):
                            device=dev)
         fn = build.load("attn_qk_bank").attn_qk_bank_bwd
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p] * 2
         ptrs = _weight_ptrs(ws)
         rows, fc, smem = bwd_plan(n, f, a, a // ds)
+        scratch = _tiled_scratch(which, b, n, c, a, True, dev)
         rc = fn(qk.data_ptr(), ctypes.addressof(ptrs), g.data_ptr(), dqk.data_ptr(),
                 wgrad.data_ptr(), part.data_ptr(), b, n, f, c, a, ds,
-                int(qk.dtype == torch.bfloat16), int(bf16), rows, fc, smem, stream(qk))
+                int(qk.dtype == torch.bfloat16), int(bf16), rows, fc, smem,
+                None if scratch is None else scratch.data_ptr(), stream(qk))
         build.check_launch(rc, "attn_qk_bank_bwd")
         attn_qk_bank_bwd.launches += 1
         report_flops(flops(b, n, f, c, a, bwd=True))

@@ -6,10 +6,12 @@ Counterpart of ``moleculesde_tpu/ops/gin_messages.py::gin_messages``,
 forward and backward.  On a CUDA tensor the wrappers launch the
 hand-written kernels of ``csrc/gin_messages.cu``, which replace the TPU
 kernels ``_fwd_kernel`` (``pallas_call`` at ``ops/gin_messages.py:128``)
-and ``_bwd_kernel`` (l.144): both are bound by device memory.  Both stage
-only each graph's edge data, sort its edges (the forward by destination,
-the backward by source node) and gather x (and g) straight from device
-memory, so they take any N whose edge data fits a block
+and ``_bwd_kernel`` (l.144): both are bound by device memory.  Both sort
+each graph's edges (the forward by destination, the backward by source
+node) and gather x (and g) straight from device memory: in shared memory
+where a graph's edge data fits a block (the block plan), else in a
+device-memory pre-pass whose sorted edges blocks of node ranges walk (the
+ranges plan, also for D > 32 bond columns).  So they take any N and D
 (:func:`fwd_plan`, :func:`bwd_plan`; the source's header says more).  On
 a CPU tensor they take :func:`gin_messages_plain` and
 :func:`gin_messages_bwd_plain`.  :func:`gin_messages` is differentiable
@@ -24,6 +26,7 @@ nothing — the one-hot semantics of the TPU kernel.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -95,37 +98,75 @@ def flops(b: int, e: int, d: int, f: int, bwd: bool = False) -> int:
     return (4 if bwd else 2) * b * e * d * f
 
 
-def _edge_plan(n: int, e: int, d: int, f: int, bwd: bool) -> dict:
+_RANGE_EDGES = 256         # ranges plan: edges a block walks, about (kRangeEdges)
+_SORT_SMEM_WORDS = 16384   # ranges plan: the sort's cursors in shared memory up to
+_INT32_MAX = 2 ** 31 - 1
+
+
+def _edge_plan(n: int, e: int, d: int, f: int, bwd: bool, b: int = 1,
+               plan: Optional[str] = None) -> dict:
     """The launch plan both kernels share, mirrored from
-    ``csrc/gin_messages.cu::edge_smem``: one block of 8 warps per (graph,
+    ``csrc/gin_messages.cu`` (``edge_smem``, ``ranges_of``, ``sort_smem``,
+    ``walk_smem``).
+
+    The block plan (``"block"``): one block of 8 warps per (graph,
     64-feature chunk), 2 warp columns of 32 features by 4 node ranges.
     Shared memory holds the graph's bond one-hot rows (zero padded to
     ``maxd`` = 16 or 32 columns), the edges' bins, src, dst and sorted
     order and the bins' starts, and in the backward the warps' dtable
-    columns: nothing grows with F, and N only by a word a node.  Raises
-    past D = 32 or past ``SMEM_LIMIT``, naming the limit."""
+    columns.  It is chosen wherever it fits: D <= 32 and ``SMEM_LIMIT``
+    (N ~ 717 forward, ~ 660 backward at E = 4 N, D = 13).
+
+    The ranges plan (``"ranges"``) everywhere else: a pre-pass sorts each
+    graph's edges in device memory (its cursors in shared memory where N + 2
+    words fit 64 KB), then blocks of (graph, node range of ``ranges`` =
+    ceil(E / 256), 64-feature chunk, and in the backward ``slices`` 32-column
+    slices of D > 32) walk them; no shared memory grows with N or E.
+    Raises only where its blocks ``b * ranges * slices * chunks`` pass the
+    int32 grid index.  ``plan`` forces one ("block" raises where it does not
+    fit)."""
     what = "backward" if bwd else "forward"
-    if d > 32:
-        raise ValueError(f"gin_messages {what} kernel: D={d} bond one-hot columns "
-                         "(> 32, the columns a thread holds)")
-    maxd = 16 if d <= 16 else 32
+    maxd = 16 if d <= 16 else 32 if d <= 32 else 0
+    chunks = -(-f // _FEAT)
     smem = 4 * (e * maxd + (_SLOTS * maxd * _FEAT if bwd else 0) + 4 * e + n + 2)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"gin_messages {what} kernel: N={n}, E={e}, D={d} need {smem} B "
-                         f"of shared memory (> SMEM_LIMIT = {SMEM_LIMIT})")
-    return {"maxd": maxd, "smem": smem, "chunks": -(-f // _FEAT)}
+    fits = maxd > 0 and smem <= SMEM_LIMIT
+    if plan == "block" or (plan is None and fits):
+        if maxd == 0:
+            raise ValueError(f"gin_messages {what} kernel: block plan needs D <= 32 (D={d})")
+        if not fits:
+            raise ValueError(f"gin_messages {what} kernel: N={n}, E={e}, D={d} need {smem} B "
+                             f"of shared memory in the block plan (> SMEM_LIMIT = {SMEM_LIMIT})")
+        return {"plan": "block", "maxd": maxd, "smem": smem, "chunks": chunks, "ranges": 1,
+                "slices": 1}
+    ranges = max(1, -(-e // _RANGE_EDGES))
+    slices = -(-d // 32) if bwd and d > 32 else 1
+    blocks = b * ranges * slices * chunks
+    if blocks > _INT32_MAX:
+        raise ValueError(f"gin_messages {what} kernel: B={b}, E={e}, F={f} need {blocks} "
+                         f"blocks, past the int32 grid index ({_INT32_MAX})")
+    sort = 4 * (n + 2) if n + 2 <= _SORT_SMEM_WORDS else 0
+    walk = 4 * _SLOTS * (16 if d <= 16 else 32) * _FEAT if bwd else 0
+    return {"plan": "ranges", "maxd": maxd, "smem": max(sort, walk), "sort_smem": sort,
+            "walk_smem": walk, "chunks": chunks, "ranges": ranges, "slices": slices}
 
 
-def fwd_plan(n: int, e: int, d: int, f: int) -> dict:
-    """Launch plan of the forward kernel (:func:`_edge_plan`): N ~ 717 at
-    E = 4 N, D = 13."""
-    return _edge_plan(n, e, d, f, bwd=False)
+def fwd_plan(n: int, e: int, d: int, f: int, b: int = 1) -> dict:
+    """Launch plan of the forward kernel (:func:`_edge_plan`): the block
+    plan up to N ~ 717 at E = 4 N, D = 13, the ranges plan past it."""
+    return _edge_plan(n, e, d, f, bwd=False, b=b)
 
 
-def bwd_plan(n: int, e: int, d: int, f: int) -> dict:
+def bwd_plan(n: int, e: int, d: int, f: int, b: int = 1) -> dict:
     """Launch plan of the backward kernel (:func:`_edge_plan`, plus the
-    warps' dtable columns): N ~ 660 at E = 4 N, D = 13."""
-    return _edge_plan(n, e, d, f, bwd=True)
+    warps' dtable columns): the block plan up to N ~ 660 at E = 4 N, D = 13,
+    the ranges plan past it."""
+    return _edge_plan(n, e, d, f, bwd=True, b=b)
+
+
+def sort_words(b: int, n: int, e: int) -> int:
+    """Int words of the ranges plan's sort scratch: bins and order [B][E],
+    starts and cursors [B][N + 2]."""
+    return 2 * b * e + 2 * b * (n + 2)
 
 
 def _plan_kernel(entry: str, n: int, e: int, d: int) -> int:
@@ -147,7 +188,19 @@ def bwd_plan_kernel(n: int, e: int, d: int) -> int:
     return _plan_kernel("gin_messages_bwd_smem", n, e, d)
 
 
-def _check_kernel_inputs(x, src, dst, boh, table, g=None):
+def ranges_plan_kernel(n: int, e: int, d: int) -> dict:
+    """The ranges plan as its C entry computes it: node ranges a graph, the
+    sort's and the backward walk's shared memory; builds the library on
+    first use."""
+    fn = build.load("gin_messages").gin_messages_ranges_plan
+    fn.restype = None
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    out = (ctypes.c_longlong * 3)()
+    fn(n, e, d, ctypes.addressof(out))
+    return {"ranges": out[0], "sort_smem": out[1], "walk_smem": out[2]}
+
+
+def _check_kernel_inputs(x, src, dst, boh, table, g=None, plan=None) -> dict:
     tensors = {"x": x, "src": src, "dst": dst, "bond_onehot": boh, "table": table}
     if g is not None:
         tensors["g"] = g
@@ -175,45 +228,63 @@ def _check_kernel_inputs(x, src, dst, boh, table, g=None):
                          f"x{tuple(x.shape)} src{tuple(src.shape)} "
                          f"dst{tuple(dst.shape)} boh{tuple(boh.shape)} "
                          f"table{tuple(table.shape)}")
-    _edge_plan(n, e, d, f, bwd=g is not None)
+    return _edge_plan(n, e, d, f, bwd=g is not None, b=b, plan=plan)
 
 
-def _launch(x, src, dst, boh, table, bf16: bool) -> torch.Tensor:
-    _check_kernel_inputs(x, src, dst, boh, table)
+def _sort_scratch(p: dict, b: int, n: int, e: int, device) -> Optional[torch.Tensor]:
+    if p["plan"] == "block":
+        return None
+    return torch.empty(sort_words(b, n, e), dtype=torch.int32, device=device)
+
+
+def _launch(x, src, dst, boh, table, bf16: bool, plan: Optional[str] = None) -> torch.Tensor:
+    """The forward kernel in the plan :func:`fwd_plan` chooses, or in
+    ``plan`` ("block" / "ranges") where a test or a comparison forces one."""
+    p = _check_kernel_inputs(x, src, dst, boh, table, plan=plan)
     b, n, f = x.shape
+    e = src.shape[1]
     out = torch.empty((b, n, f), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
+    sort = _sort_scratch(p, b, n, e, x.device)
     fn = build.load("gin_messages").gin_messages_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
     rc = fn(x.data_ptr(), src.data_ptr(), dst.data_ptr(), boh.data_ptr(),
-            table.data_ptr(), out.data_ptr(), b, n, src.shape[1],
-            table.shape[0], f, int(bf16), stream(x))
+            table.data_ptr(), out.data_ptr(), b, n, e, table.shape[0], f, int(bf16),
+            p["ranges"] if p["plan"] == "ranges" else 0,
+            None if sort is None else sort.data_ptr(), stream(x))
     build.check_launch(rc, "gin_messages_fwd")
     gin_messages.launches += 1
-    report_flops(flops(b, src.shape[1], table.shape[0], f))
+    report_flops(flops(b, e, table.shape[0], f))
     return out
 
 
-def _launch_bwd(x, src, dst, boh, table, g, bf16: bool):
-    _check_kernel_inputs(x, src, dst, boh, table, g)
+def _launch_bwd(x, src, dst, boh, table, g, bf16: bool, plan: Optional[str] = None):
+    """The backward kernel in the plan :func:`bwd_plan` chooses, or in
+    ``plan`` as in :func:`_launch`."""
+    p = _check_kernel_inputs(x, src, dst, boh, table, g, plan=plan)
     b, n, f = x.shape
+    e = src.shape[1]
     d = table.shape[0]
     dx = torch.empty((b, n, f), dtype=torch.float32, device=x.device)
     dtable = torch.empty((d, f), dtype=torch.float32, device=x.device)
     if dx.numel() == 0:
         return dx, dtable.zero_()
-    part = torch.empty((b, d, f), dtype=torch.float32, device=x.device)
+    rows = b * (p["ranges"] if p["plan"] == "ranges" else 1)
+    part = torch.empty((rows, d, f), dtype=torch.float32, device=x.device)
+    sort = _sort_scratch(p, b, n, e, x.device)
     fn = build.load("gin_messages").gin_messages_bwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
     rc = fn(x.data_ptr(), src.data_ptr(), dst.data_ptr(), boh.data_ptr(),
             table.data_ptr(), g.data_ptr(), dx.data_ptr(), dtable.data_ptr(),
-            part.data_ptr(), b, n, src.shape[1], d, f, int(bf16), stream(x))
+            part.data_ptr(), b, n, e, d, f, int(bf16),
+            p["ranges"] if p["plan"] == "ranges" else 0,
+            None if sort is None else sort.data_ptr(), stream(x))
     build.check_launch(rc, "gin_messages_bwd")
     gin_messages_bwd.launches += 1
-    report_flops(flops(b, src.shape[1], d, f, bwd=True))
+    report_flops(flops(b, e, d, f, bwd=True))
     return dx, dtable
 
 

@@ -13,8 +13,10 @@ and all run their products on the tensor cores in bf16 mode.  The forward
 walks (graph, 16 dests, TS sources) units in persistent blocks whose
 shared memory does not depend on N (:func:`fwd_plan`): it takes any N whose
 output the int32 index reaches.  The backward runs in blocks of (graph, 64
-or 32 channels) chosen by N (:func:`bwd_plan`), so it takes any N up to 748
-(the source's header says more).  On a CPU tensor they take the
+or 32 channels) up to N = 748 at H <= 32, and past that, or for H > 32, in
+blocks of (graph, row tile, pass of 32 h, 64 channels) whose shared memory
+does not grow with N (:func:`bwd_plan`; the source's header says more): it
+takes the same shapes as the forward.  On a CPU tensor they take the
 ``*_plain`` versions.
 :func:`pair_relu_project` (K3, ``[B, N, N, H]``) and
 :func:`pair_relu_project_cm` (K4, ``[B, H, N*N]``) are differentiable
@@ -34,7 +36,8 @@ from moleculesde_tpu_torch.ops.common import SMEM_LIMIT, resolve_impl, round_bf1
 from moleculesde_tpu_torch.parallel import collectives as dp
 from moleculesde_tpu_torch.utils.flops import report_flops
 
-_CHAN_TILE = 32            # the backward's output channels, H <= 32 (csrc/pair_block.cu)
+_CHAN_TILE = 32            # the backward's h a pass (csrc/pair_block.cu kChanTile)
+_INT32_MAX = 2 ** 31 - 1
 
 
 def pair_mean_var(src: torch.Tensor, dst: torch.Tensor, pair_mask: torch.Tensor
@@ -124,35 +127,60 @@ def pair_relu_project_cm_bwd_plain(a, c, w, g, *, bf16: bool = False):
 
 
 _BWD_STAGE_BYTES = 36864   # the backward's stage area (csrc/pair_block.cu)
+_BWD_TILE_ROWS = 128       # the tiled plan's source rows a block (kTileRows)
+_BWD_TILE_ROWS_PASSES = 64  # the same with passes of h (kTileRowsPasses)
 
 
-def bwd_plan(n: int, cdim: int) -> dict:
+def _bwd_smem(rows: int, chunk: int, passes: int) -> int:
+    return 4 * (2 * rows * chunk + 32 * chunk + (128 * chunk if passes > 1 else 0)) \
+        + _BWD_STAGE_BYTES
+
+
+def bwd_plan(n: int, cdim: int, h: int = _CHAN_TILE, b: Optional[int] = None) -> dict:
     """Launch plan of the backward kernels (K3 and K4), mirrored from
-    ``csrc/pair_block.cu::bwd_chunk``: one block per (graph, chunk of
-    ``chunk`` = 64 or 32 channels), the larger whose shared memory fits
-    ``SMEM_LIMIT``: a's chunk columns and the da sums (``N * chunk`` words
-    each), the dc exchange (``32 * chunk`` words) and a 36 KB stage area of
-    g.  64 channels up to N = 366, 32 up to 748; raises past that, naming
-    the limit."""
-    for chunk in (64, 32):
-        smem = 4 * (2 * n * chunk + 32 * chunk) + _BWD_STAGE_BYTES
-        if smem <= SMEM_LIMIT:
-            return {"chunk": chunk, "chunks": -(-cdim // chunk), "smem": smem}
-    raise ValueError(f"pair_relu_project backward kernel: N={n} needs {smem} B of shared "
-                     f"memory even in 32-channel chunks (> SMEM_LIMIT = {SMEM_LIMIT})")
+    ``csrc/pair_block.cu::make_bwd_plan``.
+
+    The whole-graph plan (``tiles`` = 1, ``passes`` = 1) wherever H <= 32
+    and it fits: one block per (graph, chunk of ``chunk`` = 64 or 32
+    channels), the larger whose shared memory fits ``SMEM_LIMIT`` (a's
+    chunk columns and the da sums, ``N * chunk`` words each, the dc
+    exchange, ``32 * chunk`` words, and a 36 KB stage area of g): 64
+    channels up to N = 366, 32 up to 748.  Else the tiled plan: blocks of
+    (graph, ``rows`` = 128 source rows, or 64 with passes, pass of 32 h, 64
+    channels), ``tiles`` = ceil(N / rows) row tiles and ``passes`` =
+    ceil(H / 32), its shared memory independent of N (dpair carried between
+    passes adds ``128 * chunk`` words).  With ``b``, raises, naming the
+    limit, where g's ``b * n * n * h`` or a's ``b * n * cdim`` elements pass
+    the kernels' int32 index, as the forward's."""
+    if b is not None and (b * n * n * h > _INT32_MAX or b * n * cdim > _INT32_MAX):
+        raise ValueError(f"pair_relu_project backward kernel: B*N*N*H = {b * n * n * h} or "
+                         f"B*N*C = {b * n * cdim} past the int32 index ({_INT32_MAX})")
+    passes = -(-h // _CHAN_TILE) if h > _CHAN_TILE else 1
+    if passes == 1:
+        for chunk in (64, 32):
+            smem = _bwd_smem(n, chunk, 1)
+            if smem <= SMEM_LIMIT:
+                return {"chunk": chunk, "chunks": -(-cdim // chunk), "smem": smem, "rows": n,
+                        "tiles": 1, "passes": 1}
+    cap = _BWD_TILE_ROWS if passes == 1 else _BWD_TILE_ROWS_PASSES
+    rows = min(cap, max(8, -(-n // 8) * 8))
+    return {"chunk": 64, "chunks": -(-cdim // 64), "smem": _bwd_smem(rows, 64, passes),
+            "rows": rows, "tiles": -(-n // rows), "passes": passes}
 
 
-def bwd_plan_kernel(n: int) -> int:
-    """The backward kernels' channels per block as their C entry computes
-    it (0 where none fits); builds the library on first use."""
-    fn = build.load("pair_block").pair_relu_project_bwd_chunk
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int]
-    return fn(n)
+def bwd_plan_kernel(n: int, h: int = _CHAN_TILE) -> dict:
+    """The backward kernels' plan as their C entry computes it (channels,
+    source rows a block, row tiles, passes of h and shared bytes); builds
+    the library on first use."""
+    fn = build.load("pair_block").pair_relu_project_bwd_plan
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    out = (ctypes.c_int * 4)()
+    smem = fn(n, h, ctypes.addressof(out))
+    return {"chunk": out[0], "rows": out[1], "tiles": out[2], "passes": out[3], "smem": smem}
 
 
 _FWD_TS = 32               # the forward's source rows a unit where they fit (kFwdTS)
-_INT32_MAX = 2 ** 31 - 1
 
 
 def _fwd_smem(cdim: int, h: int, bf16: bool, ts: int) -> int:
@@ -227,12 +255,8 @@ def _check_kernel_inputs(a, c, w, bias=None, g=None, cm: bool = False, bf16: boo
                          f"a{tuple(a.shape)} c{tuple(c.shape)} w{tuple(w.shape)} "
                          f"g{None if g is None else tuple(g.shape)}")
     if g is not None:
-        if h > _CHAN_TILE:
-            raise ValueError(f"pair_relu_project backward kernel: needs H <= "
-                             f"{_CHAN_TILE} (H={h})")
-        bwd_plan(n, cdim)
-        return
-    fwd_plan(n, cdim, h, bf16, b)
+        return bwd_plan(n, cdim, h, b)
+    return fwd_plan(n, cdim, h, bf16, b)
 
 
 def _sms(t: torch.Tensor) -> int:
@@ -257,8 +281,22 @@ def _launch(a, c, w, bias, bf16: bool) -> torch.Tensor:
     return out
 
 
+def _bwd_scratch(p: dict, b: int, n: int, cdim: int, h: int, device):
+    """dW partials [B tiles, C, H] and, where the plan has row tiles, the dc
+    partials [B, tiles, N, C]."""
+    rows = b * p["tiles"]
+    dw_part = torch.empty((rows, cdim, h), dtype=torch.float32, device=device)
+    dc_part = (torch.empty((b, p["tiles"], n, cdim), dtype=torch.float32, device=device)
+               if p["tiles"] > 1 else None)
+    return rows, dw_part, dc_part
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
 def _launch_bwd(a, c, w, g, bf16: bool):
-    _check_kernel_inputs(a, c, w, g=g)
+    p = _check_kernel_inputs(a, c, w, g=g)
     b, n, cdim = a.shape
     h = w.shape[1]
     da = torch.empty_like(a)
@@ -267,14 +305,14 @@ def _launch_bwd(a, c, w, g, bf16: bool):
     db = torch.empty((h,), dtype=torch.float32, device=a.device)
     if a.numel() == 0:
         return da, dc, dw.zero_(), db.zero_()
-    dw_part = torch.empty((b, cdim, h), dtype=torch.float32, device=a.device)
-    db_part = torch.empty((b, h), dtype=torch.float32, device=a.device)
+    rows, dw_part, dc_part = _bwd_scratch(p, b, n, cdim, h, a.device)
+    db_part = torch.empty((rows, h), dtype=torch.float32, device=a.device)
     fn = build.load("pair_block").pair_relu_project_bwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     rc = fn(a.data_ptr(), c.data_ptr(), w.data_ptr(), g.data_ptr(), da.data_ptr(),
             dc.data_ptr(), dw.data_ptr(), db.data_ptr(), dw_part.data_ptr(),
-            db_part.data_ptr(), b, n, cdim, h, int(bf16), stream(a))
+            db_part.data_ptr(), _ptr(dc_part), b, n, cdim, h, int(bf16), stream(a))
     build.check_launch(rc, "pair_relu_project_bwd")
     pair_relu_project_bwd.launches += 1
     report_flops(flops(b, n, cdim, h, bwd=True))
@@ -300,7 +338,7 @@ def _launch_cm(a, c, w, bf16: bool) -> torch.Tensor:
 
 
 def _launch_cm_bwd(a, c, w, g, bf16: bool):
-    _check_kernel_inputs(a, c, w, g=g, cm=True)
+    p = _check_kernel_inputs(a, c, w, g=g, cm=True)
     b, n, cdim = a.shape
     h = w.shape[1]
     da = torch.empty_like(a)
@@ -308,13 +346,13 @@ def _launch_cm_bwd(a, c, w, g, bf16: bool):
     dw = torch.empty((cdim, h), dtype=torch.float32, device=a.device)
     if a.numel() == 0:
         return da, dc, dw.zero_()
-    dw_part = torch.empty((b, cdim, h), dtype=torch.float32, device=a.device)
+    _, dw_part, dc_part = _bwd_scratch(p, b, n, cdim, h, a.device)
     fn = build.load("pair_block").pair_relu_project_cm_bwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     rc = fn(a.data_ptr(), c.data_ptr(), w.data_ptr(), g.data_ptr(), da.data_ptr(),
-            dc.data_ptr(), dw.data_ptr(), dw_part.data_ptr(), b, n, cdim, h, int(bf16),
-            stream(a))
+            dc.data_ptr(), dw.data_ptr(), dw_part.data_ptr(), _ptr(dc_part), b, n, cdim, h,
+            int(bf16), stream(a))
     build.check_launch(rc, "pair_relu_project_cm_bwd")
     pair_relu_project_cm_bwd.launches += 1
     report_flops(flops(b, n, cdim, h, bwd=True))

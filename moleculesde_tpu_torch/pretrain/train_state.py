@@ -164,7 +164,8 @@ def build_models(cfg: PretrainConfig, device: str | torch.device = "cuda",
         nhid=16, num_layers=4, num_linears=3, variant=cfg.sde_3dto2d_variant,
         sde_type=t32, beta_min=bmin32, beta_max=bmax32,
         num_diffusion_timesteps=n32, noise_on_one_hot=cfg.noise_on_one_hot,
-        bf16_attn=cfg.bf16, attn_impl=cfg.attn_impl_3dto2d, device=device, generator=gen)
+        bf16_attn=cfg.bf16, attn_impl=cfg.attn_impl_3dto2d, kernel_impl=impl,
+        device=device, generator=gen)
     return {"model_2D": model_2d, "model_3D": model_3d,
             "SDE_2Dto3D_model": sde_2dto3d, "SDE_3Dto2D_model": sde_3dto2d}
 

@@ -12,6 +12,8 @@ feature chunk) at the 3D->2D chain's widths, under the shared memory of a
 block, and their messages past it.
 The kernels themselves run only on the card (``test_torch_port_kernels.py``)."""
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +25,8 @@ from moleculesde_tpu.ops.rejected.attn_qk_bank import attn_qk_bank as jax_attn_q
 from moleculesde_tpu_torch.ops.attn_bank import (
     attn_map_bank_bwd_plain, attn_map_bank_plain, plan, row_stride, tile_rows)
 from moleculesde_tpu_torch.ops.attn_qk_bank import (
-    BWD_DU_WORDS, BWD_MAX_CHUNK, attn_qk_bank_bwd_plain, bwd_plan, check_plan)
+    BWD_DU_WORDS, BWD_MAX_CHUNK, TILED_SMEM, attn_qk_bank_bwd_plain, bwd_plan, check_plan,
+    fwd_plan, plan_of, tiled_plan)
 from moleculesde_tpu_torch.ops.common import SMEM_LIMIT
 
 from test_torch_port_attn_bank import _map_operands, _qk_operands
@@ -143,10 +146,116 @@ def test_attn_qk_bank_bwd_plan(shape, want):
 
 
 def test_attn_qk_bank_bwd_plan_refuses_past_shared_memory():
-    """K8's backward takes N <= 266 at A = 32, H = 8 whatever F, and
-    raises past it naming the limit."""
+    """K8's backward keeps its block plan up to N = 266 at A = 32, H = 8
+    whatever F; past it, where that plan ran out of shared memory and the
+    wrapper used to raise, the tiled plan takes the shape (the block plan
+    forced there still raises, naming the limit)."""
     assert bwd_plan(266, 900, 32, 8)[2] <= SMEM_LIMIT
     assert bwd_plan(267, 16, 32, 8)[:2] == (1, 1)
+    assert plan_of(267, 16, 8, 32, 8, bwd=True) == "tiled"
+    assert check_plan(267, 16, 8, 32, 8, bwd=True) == TILED_SMEM <= SMEM_LIMIT
     with pytest.raises(ValueError, match=r"backward kernel: N=267, F=16, C=8, A=32 need \d+ B "
                                          r"of shared memory per block \(> 232448\)"):
-        check_plan(267, 16, 8, 32, 8, bwd=True)
+        check_plan(267, 16, 8, 32, 8, bwd=True, plan="block")
+
+
+# N past the block plans (the forward's 334 at F = 16, the backward's 266)
+# up to 8192
+K8_LARGE_N = [267, 335, 512, 1024, 2048, 4096, 8192]
+
+
+@pytest.mark.parametrize("n", K8_LARGE_N)
+def test_attn_qk_bank_plans_fit_up_to_n8192(n):
+    """K8's forward and backward have a plan within ``SMEM_LIMIT`` at every
+    N up to 8192 at the 3D->2D chain's edge layers (F = 16, C = 8 and F =
+    300, C = 2; A = 32, H = 8), B = 2: the tiled plan past the block plan,
+    its shared memory the same at every N."""
+    for f, c in ((16, 8), (300, 2)):
+        for bwd in (False, True):
+            smem = check_plan(n, f, c, 32, 8, bwd=bwd, b=2)
+            assert smem <= SMEM_LIMIT
+            if plan_of(n, f, c, 32, 8, bwd=bwd, b=2) == "tiled":
+                assert smem == TILED_SMEM
+                p = tiled_plan(2, n, f, c, 32, 8, bwd)
+                assert p["scratch"] == (4 if bwd else 2) * 2 * c * 2 * n * 32
+
+
+def test_attn_qk_bank_block_plan_kept_where_it_fits():
+    """Wherever the (graph, channel) block plan fits, the wrappers choose
+    it; the tiled plan only past it."""
+    for n in list(range(1, 400, 7)) + [266, 267, 334, 335]:
+        for f in (16, 300):
+            for bwd in (False, True):
+                block = (bwd_plan(n, f, 32, 8)[2] if bwd else fwd_plan(n, f, 32)[1])
+                want = "block" if block <= SMEM_LIMIT else "tiled"
+                assert plan_of(n, f, 8, 32, 8, bwd=bwd) == want, (n, f, bwd)
+
+
+@pytest.mark.parametrize("n, a, ds", [(1, 8, 2), (33, 32, 4), (300, 32, 4), (70, 96, 48)])
+def test_attn_qk_bank_tiled_units_cover_the_map_once(n, a, ds):
+    """The tiled plan's map tiles cover every (n, m) once, and its backward
+    units (row tile, head, 32-feature slice of the head) every (row,
+    feature) once, at a ragged N and a head wider than one slice."""
+    p = tiled_plan(1, n, 16, 1, a, a // ds, True)
+    tiles = p["tiles"]
+    assert tiles * 32 >= n > (tiles - 1) * 32
+    seen = np.zeros((n, a), np.int64)
+    slices = -(-ds // 32)
+    assert p["map_units"] == tiles * (a // ds) * slices
+    for unit in range(p["map_units"]):   # the kernel's order: (tile, head, slice)
+        sl, h, t0 = unit % slices, unit // slices % (a // ds), unit // slices // (a // ds)
+        a0 = h * ds + sl * 32
+        seen[t0 * 32:t0 * 32 + 32, a0:min(a0 + 32, (h + 1) * ds)] += 1
+    assert np.all(seen == 1)
+
+
+def test_attn_qk_bank_tiled_refusal_names_the_int32_grid_index():
+    """The tiled plan refuses only past the int32 grid index, naming it:
+    the forward's 2^31 map tiles at B = 4096, C = 8, N = 8192."""
+    assert tiled_plan(2, 8192, 300, 8, 32, 8, True)["tiles"] == 256
+    assert tiled_plan(2 ** 12, 8192, 300, 8, 32, 8, True)["tiles"] == 256
+    with pytest.raises(ValueError, match="past the int32 grid index"):
+        tiled_plan(2 ** 12, 8192, 300, 8, 32, 8, False)
+
+
+def _map_tiled_mirror(q, k, g, ds, tile=32):
+    """K8's map in the tiled plan's split, in f32 on the CPU: the forward
+    tile by tile, dq of each row tile carried across the column tiles in
+    order and dk of each column tile across the row tiles."""
+    b, c, n, a = q.shape
+    h = a // ds
+    inv = 1.0 / math.sqrt(ds)
+
+    def logits(qt, kt):   # [B, C, H, rows, cols]
+        return torch.einsum("bcnhd,bcmhd->bchnm", qt.reshape(b, c, -1, h, ds),
+                            kt.reshape(b, c, -1, h, ds)) * inv
+
+    out = torch.zeros(b, c, n, n)
+    dq, dk = torch.zeros(b, c, n, a), torch.zeros(b, c, n, a)
+    for n0 in range(0, n, tile):
+        for m0 in range(0, n, tile):
+            t_ = torch.tanh(logits(q[:, :, n0:n0 + tile], k[:, :, m0:m0 + tile]))
+            out[:, :, n0:n0 + tile, m0:m0 + tile] = t_.sum(dim=2) / h
+            du = g[:, :, None, n0:n0 + tile, m0:m0 + tile] * (1.0 - t_ * t_) * (inv / h)
+            km = k[:, :, m0:m0 + tile].reshape(b, c, -1, h, ds)
+            qn = q[:, :, n0:n0 + tile].reshape(b, c, -1, h, ds)
+            dq[:, :, n0:n0 + tile] += torch.einsum("bchnm,bcmhd->bcnhd", du, km).flatten(3)
+            dk[:, :, m0:m0 + tile] += torch.einsum("bchnm,bcnhd->bcmhd", du, qn).flatten(3)
+    return out, dq, dk
+
+
+def test_attn_qk_bank_tiled_mirror_matches_plain_past_the_block_plans():
+    """The tiled plan's split of the map, replayed in f32 on the CPU at N =
+    300 (past both block plans at A = 32), against the plain map and its
+    backward, at 1e-5."""
+    from moleculesde_tpu_torch.ops.attn_bank import map_bank_bwd_f32
+
+    rng = np.random.default_rng(8)
+    q, k = (t((0.6 * rng.normal(size=(1, 2, 300, 32))).astype(np.float32)) for _ in range(2))
+    g = t(rng.normal(size=(1, 2, 300, 300)).astype(np.float32))
+    assert plan_of(300, 16, 2, 32, 8, bwd=True) == "tiled"
+    out, dq, dk = _map_tiled_mirror(q, k, g, 4)
+    assert rel_err(out.numpy(), attn_map_bank_plain(q, k, 4).numpy()) <= 1e-5
+    dq_p, dk_p = map_bank_bwd_f32(q, k, g, 4, False)
+    assert rel_err(dq.numpy(), dq_p.numpy()) <= 1e-5
+    assert rel_err(dk.numpy(), dk_p.numpy()) <= 1e-5

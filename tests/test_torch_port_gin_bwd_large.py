@@ -154,21 +154,247 @@ def test_fwd_plan_fits_every_bucket(n):
 
 @pytest.mark.parametrize("case", ["k1_smem", "k1_d", "pair_smem", "k1_fwd_smem", "k1_fwd_d"])
 def test_bwd_plans_raise_past_their_limits(case):
-    with pytest.raises(ValueError, match="> 32" if case.endswith("_d") else "SMEM_LIMIT"):
-        if case == "k1_smem":
-            gin_ops.bwd_plan(1024, 4096, 13, 300)
-        elif case == "k1_d":
-            gin_ops.bwd_plan(32, 128, 33, 300)
-        elif case == "k1_fwd_smem":
-            gin_ops.fwd_plan(718, 4 * 718, 13, 300)
-        elif case == "k1_fwd_d":
-            gin_ops.fwd_plan(32, 128, 33, 300)
-        else:
-            pair_ops.bwd_plan(749, 300)
-    if case == "pair_smem":   # the last plans of each chunk size
+    """The shapes past the block plans' limits (K1 past its shared memory at
+    E = 4 N or past D = 32, K3 / K4's backward past N = 748), where the
+    plans used to raise: each now takes the large-N plan, which fits
+    ``SMEM_LIMIT``, and the last shapes of the old plans keep them."""
+    if case == "pair_smem":
+        p = pair_ops.bwd_plan(749, 300)
+        assert (p["chunk"], p["chunks"], p["rows"], p["tiles"], p["passes"]) == (
+            64, 5, 128, 6, 1)
+        assert p["smem"] == 4 * (2 * 128 * 64 + 32 * 64) + 36864 <= SMEM_LIMIT
         assert pair_ops.bwd_plan(366, 300)["chunk"] == 64
         assert pair_ops.bwd_plan(367, 300)["chunk"] == 32
         assert pair_ops.bwd_plan(605, 300)["chunk"] == 32
         assert pair_ops.bwd_plan(748, 300)["chunk"] == 32
-    if case == "k1_fwd_smem":   # the last forward plan at E = 4 N
-        assert gin_ops.fwd_plan(717, 4 * 717, 13, 300)["smem"] <= SMEM_LIMIT
+        assert pair_ops.bwd_plan(748, 300)["tiles"] == 1
+        return
+    n, d = (32, 33) if case.endswith("_d") else ((718, 13) if "fwd" in case else (1024, 13))
+    plan = gin_ops.fwd_plan if "fwd" in case else gin_ops.bwd_plan
+    p = plan(n, 4 * n, d, 300)
+    assert p["plan"] == "ranges" and p["smem"] <= SMEM_LIMIT and p["chunks"] == 5
+    assert p["ranges"] == max(1, -(-4 * n // 256))
+    assert p["slices"] == (2 if case == "k1_d" else 1)
+    if case == "k1_fwd_smem":   # the last block plan of the forward at E = 4 N
+        assert gin_ops.fwd_plan(717, 4 * 717, 13, 300)["plan"] == "block"
+
+
+# N from the last block plans to 8192 at E = 4 N
+LARGE_N = [660, 661, 717, 718, 748, 749, 1024, 2048, 4096, 8192]
+
+
+@pytest.mark.parametrize("n", LARGE_N)
+def test_large_n_plans_fit_shared_memory(n):
+    """K1's forward and backward (D = 13 and 40) and K3 / K4's backward (H =
+    32 and 64) have a plan that fits ``SMEM_LIMIT`` at every N up to 8192,
+    and none grows with N past its block plan: the ranges plan's sort
+    cursors leave shared memory for device memory past 16382 nodes."""
+    for d in (13, 40):
+        for plan in (gin_ops.fwd_plan, gin_ops.bwd_plan):
+            p = plan(n, 4 * n, d, 300)
+            assert p["smem"] <= SMEM_LIMIT, (n, d, p)
+            if p["plan"] == "ranges":
+                assert p["walk_smem"] <= 32768 and p["sort_smem"] <= 4 * 16384
+    for h in (32, 64):
+        p = pair_ops.bwd_plan(n, 300, h)
+        assert p["smem"] <= SMEM_LIMIT, (n, h, p)
+        if n > 748 or h > 32:
+            assert p["smem"] == pair_ops.bwd_plan(8192, 300, h)["smem"]
+
+
+@pytest.mark.parametrize("d", [13, 16, 32])
+def test_block_plans_kept_where_they_fit(d):
+    """Wherever the old block plans fit, the wrappers still choose them:
+    K1's (its shared-memory formula at D <= 32) and K3 / K4's whole-graph
+    backward (H <= 32, N <= 748); the large-N plans only past them."""
+    maxd = 16 if d <= 16 else 32
+    for n in list(range(1, 760, 9)) + [660, 717, 718, 748, 749]:
+        for e in (4 * n, 2 * n + 3):
+            for bwd, plan in ((False, gin_ops.fwd_plan), (True, gin_ops.bwd_plan)):
+                old = 4 * (e * maxd + (4 * maxd * 64 if bwd else 0) + 4 * e + n + 2)
+                p = plan(n, e, d, 300)
+                assert (p["plan"] == "block") == (old <= SMEM_LIMIT), (n, e, d, bwd)
+                if p["plan"] == "block":
+                    assert p["smem"] == old
+        p = pair_ops.bwd_plan(n, 300, 32)
+        assert (p["tiles"] == 1) == (n <= 748) and p["passes"] == 1
+
+
+def _node_at(start, n, kept, r, slots):
+    """csrc/gin_messages.cu::node_at: the first node whose edges start at or
+    past share r of the kept edges."""
+    return int(np.searchsorted(start[:n], r * kept // slots, side="left"))
+
+
+def _k1_slots(bins, n, ranges, bwd):
+    """The ranges plan's split of one graph: the kept edges sorted stably by
+    bin, the bins' starts, and each of the 4 R warp slots' (nodes, edges)."""
+    kept = np.flatnonzero(bins >= 0)
+    order = kept[np.argsort(bins[kept], kind="stable")]
+    start = np.zeros(n + 2, np.int64)
+    np.add.at(start, bins[kept] + 1, 1)
+    start = np.cumsum(start)
+    total = int(start[n + 1] if bwd else start[n])
+    slots = 4 * ranges
+    out = []
+    for r in range(slots):
+        n0 = _node_at(start, n, total, r, slots)
+        n1 = n if r == slots - 1 else _node_at(start, n, total, r + 1, slots)
+        p1 = total if (r == slots - 1 and bwd) else int(start[n1])
+        out.append(((n0, n1), order[int(start[n0]):p1]))
+    return out, order[:total]
+
+
+@pytest.mark.parametrize("bwd", [False, True], ids=["forward", "backward"])
+@pytest.mark.parametrize("n, e", [(1024, 4096), (2048, 8192), (7, 11), (3, 40), (718, 300)])
+def test_k1_ranges_cover_every_node_and_edge_once(n, e, bwd):
+    """The ranges plan's warp slots (node ranges cut at equal shares of the
+    kept edges) cover every node once and every kept edge once, each slot
+    a contiguous run of the sorted edges, on molecule-like graphs with
+    masked and out-of-range edges."""
+    x, src, dst, _, _, _ = _gin_operands(b=2, n=n, e=e, f=2, seed=n + e)
+    ranges = max(1, -(-e // 256))
+    p = gin_ops.bwd_plan(n, e, 13, 64)
+    assert p["plan"] == "block" or p["ranges"] == ranges
+    for i in range(2):
+        ok_d = (dst[i] >= 0) & (dst[i] < n)
+        ok_s = (src[i] >= 0) & (src[i] < n)
+        bins = np.where(ok_d, dst[i] if not bwd else np.where(ok_s, src[i], n), -1)
+        slots, every = _k1_slots(bins, n, ranges, bwd)
+        nodes = np.concatenate([np.arange(a, b) for (a, b), _ in slots])
+        assert np.array_equal(nodes, np.arange(n))
+        edges = np.concatenate([es for _, es in slots])
+        assert np.array_equal(edges, every) and len(set(edges.tolist())) == len(edges)
+        for (a, b), es in slots:   # a slot's edges are its nodes' (and bin N's, last)
+            assert np.all((bins[es] >= a) & ((bins[es] < b) | (bins[es] == n)))
+
+
+def _k1_ranges_mirror(x, src, dst, boh, tbl, g):
+    """K1 forward and backward through the ranges plan's split, in f32 on
+    the CPU: each warp slot sums its nodes' messages (dmsg) over its run of
+    the sorted edges, dtable is summed per node range and the ranges' rows
+    added in order."""
+    b, n, f = x.shape
+    e, d = src.shape[1], tbl.shape[0]
+    xt, bo, tb = t(x), t(boh), t(tbl)
+    ranges = gin_ops.bwd_plan(n, e, d, f)["ranges"]
+    out, dx = torch.zeros(b, n, f), torch.zeros(b, n, f)
+    rows = []
+    for i in range(b):
+        ok_s = (src[i] >= 0) & (src[i] < n)
+        ok_d = (dst[i] >= 0) & (dst[i] < n)
+        xs = torch.where(t(ok_s)[:, None], xt[i][t(np.where(ok_s, src[i], 0)).long()], 0.0)
+        pre = xs + bo[i] @ tb
+        gd = torch.where(t(ok_d)[:, None], t(g)[i][t(np.where(ok_d, dst[i], 0)).long()], 0.0)
+        dmsg = torch.where(pre > 0, gd, 0.0)
+        fwd_bins = np.where(ok_d, dst[i], -1)
+        for (a, _), es in _k1_slots(fwd_bins, n, ranges, False)[0]:
+            for j in es:
+                out[i, fwd_bins[j]] += torch.relu(pre[j])
+        bwd_bins = np.where(ok_d, np.where(ok_s, src[i], n), -1)
+        slots = _k1_slots(bwd_bins, n, ranges, True)[0]
+        for r in range(ranges):
+            part = torch.zeros(d, f)
+            for (a, _), es in slots[4 * r:4 * r + 4]:
+                es_t = torch.as_tensor(es, dtype=torch.long)
+                part += bo[i][es_t].t() @ dmsg[es_t]
+                for j in es:
+                    if bwd_bins[j] < n:
+                        dx[i, bwd_bins[j]] += dmsg[j]
+            rows.append(part)
+    return out, dx, torch.stack(rows).sum(dim=0)
+
+
+def test_k1_ranges_mirror_matches_plain_past_the_block_plan():
+    """The ranges plan's split, replayed in f32 on the CPU at N = 800 (past
+    the block plans' ~ 717 / 660 at E = 4 N), D = 13, against the plain
+    forward and backward: every node's sum, dx and dtable at 1e-5."""
+    x, src, dst, boh, tbl, g = _gin_operands(b=2, n=800, e=3200, f=8, seed=5)
+    assert gin_ops.bwd_plan(800, 3200, 13, 8)["plan"] == "ranges"
+    out, dx, dtable = _k1_ranges_mirror(x, src, dst, boh, tbl, g)
+    args = (t(x), t(src), t(dst), t(boh), t(tbl))
+    assert rel_err(out.numpy(), gin_ops.gin_messages_plain(*args).numpy()) <= 1e-5
+    dx_p, dt_p = gin_ops.gin_messages_bwd_plain(*args, t(g))
+    assert rel_err(dx.numpy(), dx_p.numpy()) <= 1e-5
+    assert rel_err(dtable.numpy(), dt_p.numpy()) <= 1e-5
+
+
+def _pair_bwd_tiled_mirror(a, c, w, g, rows, cm):
+    """K3 / K4's backward through the tiled plan's split, in f32 on the
+    CPU: row tiles of ``rows`` sources; in each, dpair summed over the
+    passes of 32 h in order before the relu mask; da of the tile's rows,
+    its dc and dW partials; the tiles' partials added in order."""
+    b, n, cdim = a.shape
+    h = w.shape[1]
+    gg = g.transpose(1, 2).reshape(b, n, n, h) if cm else g
+    da = torch.zeros(b, n, cdim)
+    dc = torch.zeros(b, n, cdim)
+    dw = torch.zeros(cdim, h)
+    tiles = []
+    for s0 in range(0, n, rows):
+        pair = a[:, s0:s0 + rows, None, :] + c[:, None, :, :]
+        dpair = torch.zeros(pair.shape)
+        for h0 in range(0, h, 32):
+            dpair = dpair + gg[:, s0:s0 + rows, :, h0:h0 + 32] @ w[:, h0:h0 + 32].t()
+        dpair = torch.where(pair > 0, dpair, 0.0)
+        da[:, s0:s0 + rows] = dpair.sum(dim=2)
+        tiles.append((dpair.sum(dim=1),
+                      torch.relu(pair).reshape(-1, cdim).t()
+                      @ gg[:, s0:s0 + rows].reshape(-1, h)))
+    for dc_t, dw_t in tiles:
+        dc += dc_t
+        dw += dw_t
+    return da, dc, dw
+
+
+@pytest.mark.parametrize("cm", [False, True], ids=["K3", "K4"])
+def test_pair_bwd_tiled_mirror_matches_plain_past_n748(cm):
+    """The tiled plan's split (128-row tiles past N = 748; 64-row tiles and
+    two passes of 32 h at H = 40), replayed in f32 on the CPU at N = 760,
+    against the plain backward: da, dc and dW at 1e-5."""
+    n = 760
+    for h in (8, 40):
+        a, cc, w, _, g = _pair_operands(b=1, n=n, c=4, h=h, seed=h)
+        p = pair_ops.bwd_plan(n, 4, h)
+        assert (p["rows"], p["tiles"], p["passes"]) == ((128, 6, 1) if h == 8 else (64, 12, 2))
+        g = (np.ascontiguousarray(g.transpose(0, 2, 1)) if cm
+             else g.reshape(1, n, n, h))
+        plain = (pair_ops.pair_relu_project_cm_bwd_plain if cm
+                 else pair_ops.pair_relu_project_bwd_plain)
+        ref = plain(t(a), t(cc), t(w), t(g))
+        mine = _pair_bwd_tiled_mirror(t(a), t(cc), t(w), t(g), p["rows"], cm)
+        for x_, r_ in zip(mine, ref):
+            assert rel_err(x_.numpy(), r_.numpy()) <= 1e-5
+
+
+def test_pair_bwd_tiles_cover_rows_passes_and_channels_once():
+    """The tiled plan's row tiles cover every source row once, its passes
+    every h once and its chunks every channel once, at N = 749 .. 8192 and
+    H past 32."""
+    for n in (8, 13, 37, 749, 1000, 1024, 2048, 8192):
+        for h in (32, 33, 64, 100):
+            for cdim in (40, 300):
+                p = pair_ops.bwd_plan(n, cdim, h)
+                if p["tiles"] == 1 and p["passes"] == 1:
+                    continue
+                assert p["rows"] % 8 == 0 and p["tiles"] * p["rows"] >= n
+                assert (p["tiles"] - 1) * p["rows"] < n
+                assert p["passes"] * 32 >= h > (p["passes"] - 1) * 32
+                assert p["chunk"] * p["chunks"] >= cdim > p["chunk"] * (p["chunks"] - 1)
+
+
+@pytest.mark.parametrize("kernel", ["k1_fwd", "k1_bwd", "pair_bwd"])
+def test_only_int32_refusals_are_left(kernel):
+    """The only shapes the large-N plans refuse pass an int32 index, and
+    the message names it: K1's blocks past the int32 grid index, K3 / K4's
+    g past the int32 element index (as their forward: 2^31 elements at N =
+    8192, H = 32)."""
+    if kernel == "pair_bwd":
+        assert pair_ops.bwd_plan(8191, 300, 32, b=1)["tiles"] == 64
+        with pytest.raises(ValueError, match="int32 index"):
+            pair_ops.bwd_plan(8192, 300, 32, b=1)
+        return
+    plan = gin_ops.fwd_plan if kernel == "k1_fwd" else gin_ops.bwd_plan
+    assert plan(8192, 4 * 8192, 40, 300, b=256)["plan"] == "ranges"
+    with pytest.raises(ValueError, match="int32 grid index"):
+        plan(8192, 4 * 8192, 40, 300 * 2 ** 12, b=2 ** 12)

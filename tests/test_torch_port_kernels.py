@@ -13,6 +13,7 @@ taken in another order lands on the other side of a bf16 rounding boundary.
 import pytest
 import torch
 
+from moleculesde_tpu_torch.kernels import build
 from moleculesde_tpu_torch.models.score_2d3d import SDEModel2Dto3D
 from moleculesde_tpu_torch.ops.attn_bank import attn_map_bank_kernel, attn_map_bank_kernel_bwd
 from moleculesde_tpu_torch.ops.attn_qk_bank import (
@@ -110,20 +111,32 @@ def test_gin_messages_fwd_kernel_is_deterministic(cuda, shape, case, bf16):
     assert float(first[~has_edge[:, :n]].abs().sum()) == 0.0
 
 
+def _k1_plans_match(plan, plan_kernel, ns):
+    """Each shape's plan as the wrapper computes it is the CUDA source's:
+    the block plan's shared bytes where it is chosen (0 from the C entry
+    where there is no block plan), the ranges plan's node ranges and
+    shared bytes past it."""
+    for n in ns:
+        for e in (0, 4 * n, 11):
+            for d in (1, 13, 16, 17, 32, 33, 40):
+                p = plan(n, e, d, 300)
+                if p["plan"] == "block":
+                    assert p["smem"] == plan_kernel(n, e, d), (n, e, d)
+                else:
+                    r = gin_ops.ranges_plan_kernel(n, e, d)
+                    assert (p["ranges"], p["sort_smem"]) == (r["ranges"], r["sort_smem"])
+                    assert p["walk_smem"] in (0, r["walk_smem"]), (n, e, d)
+
+
 def test_gin_messages_fwd_plan_matches_kernel(cuda):
     """The wrapper's forward plan (ops/gin_messages.py::fwd_plan) is the
-    CUDA source's, and the launch past it raises, naming the limit."""
-    for n in (1, 7, 16, 32, 64, 128, 256, 700, 717, 718, 1024):
-        for e in (0, 4 * n, 11):
-            for d in (1, 13, 16, 17, 32, 33):
-                try:
-                    smem = gin_ops.fwd_plan(n, e, d, 300)["smem"]
-                except ValueError:
-                    smem = 0
-                assert smem == gin_ops.fwd_plan_kernel(n, e, d), (n, e, d)
+    CUDA source's, and the launch past the block plan takes the ranges
+    plan."""
+    _k1_plans_match(gin_ops.fwd_plan, gin_ops.fwd_plan_kernel,
+                    (1, 7, 16, 32, 64, 128, 256, 700, 717, 718, 1024))
     x, src, dst, boh, tbl, _ = _gin_operands(cuda, 1, 1024, 4096, 13, 32)
-    with pytest.raises(ValueError, match="SMEM_LIMIT"):
-        gin_messages(x, src, dst, boh, tbl, impl="kernel")
+    _close(gin_messages(x, src, dst, boh, tbl, impl="kernel"),
+           gin_messages_plain(x, src, dst, boh, tbl), 1e-5)
 
 
 # the pretraining step's shapes at n_max 32, 64 (B=128) and 128 (B=32), E =
@@ -186,18 +199,89 @@ def test_gin_messages_bwd_kernel_is_deterministic(cuda, shape, case, bf16):
 
 def test_gin_messages_bwd_plan_matches_kernel(cuda):
     """The wrapper's plan (ops/gin_messages.py::bwd_plan) is the CUDA
-    source's, and the launch past it raises, naming the limit."""
-    for n in (1, 7, 16, 32, 64, 128, 256, 650, 660, 1024):
-        for e in (0, 4 * n, 11):
-            for d in (1, 13, 16, 17, 32, 33):
-                try:
-                    smem = gin_ops.bwd_plan(n, e, d, 300)["smem"]
-                except ValueError:
-                    smem = 0
-                assert smem == gin_ops.bwd_plan_kernel(n, e, d), (n, e, d)
+    source's, and the launch past the block plan takes the ranges plan."""
+    _k1_plans_match(gin_ops.bwd_plan, gin_ops.bwd_plan_kernel,
+                    (1, 7, 16, 32, 64, 128, 256, 650, 660, 1024))
     x, src, dst, boh, tbl, g = _gin_operands(cuda, 1, 1024, 4096, 13, 32)
-    with pytest.raises(ValueError, match="SMEM_LIMIT"):
-        gin_messages_bwd(x, src, dst, boh, tbl, g, impl="kernel")
+    kern = gin_messages_bwd(x, src, dst, boh, tbl, g, impl="kernel")
+    for k, p in zip(kern, gin_messages_bwd(x, src, dst, boh, tbl, g, impl="plain")):
+        _close(k, p, 1e-4)
+
+
+# the ranges plan forced where the block plan fits: (B, N, E, D, F) and the
+# corner cases of the block plan's tests
+GIN_RANGES_SAME_BITS = [((128, 32, 128, 13, 300), None), ((32, 128, 512, 13, 300), None),
+                        ((4, 256, 1024, 13, 300), None), ((2, 9, 40, 20, 70), None),
+                        ((3, 7, 11, 14, 130), "graph 2 keeps no edge"),
+                        ((2, 3, 40, 13, 70), "every source of graph 1 masked")]
+
+
+def _gin_corner(ops, shape, case):
+    x, src, dst, boh, tbl, g = ops
+    n = shape[1]
+    src[:, ::3] = n
+    src[:, 5::37] = -3
+    dst[:, 9::41] = n + 7
+    if case == "graph 2 keeps no edge":
+        dst[2] = n
+    elif case == "every source of graph 1 masked":
+        src[1] = n
+    return x, src, dst, boh, tbl, g
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("shape, case", GIN_RANGES_SAME_BITS)
+def test_gin_messages_ranges_plan_gives_the_block_plans_bits(cuda, shape, case, bf16):
+    """Where both plans take a shape, the ranges plan (the device-memory
+    sort, blocks of node ranges) gives the block plan's bits: the forward's
+    outputs and dx (each node's sum one chain in edge order), and dtable
+    where it has one node range (E <= 256, the same partial rows)."""
+    x, src, dst, boh, tbl, g = _gin_corner(_gin_operands(cuda, *shape), shape, case)
+    assert gin_ops.fwd_plan(shape[1], shape[2], shape[3], shape[4])["plan"] == "block"
+    for plan in ("block", "ranges"):
+        assert gin_ops._check_kernel_inputs(x, src, dst, boh, tbl, plan=plan)["plan"] == plan
+    assert torch.equal(gin_ops._launch(x, src, dst, boh, tbl, bf16, plan="block"),
+                       gin_ops._launch(x, src, dst, boh, tbl, bf16, plan="ranges"))
+    dx_b, dt_b = gin_ops._launch_bwd(x, src, dst, boh, tbl, g, bf16, plan="block")
+    dx_r, dt_r = gin_ops._launch_bwd(x, src, dst, boh, tbl, g, bf16, plan="ranges")
+    assert torch.equal(dx_b, dx_r)
+    if shape[2] <= 256:
+        assert torch.equal(dt_b, dt_r)
+    _close(dt_r, dt_b, 1e-2 if bf16 else 1e-4)
+
+
+# past the block plan: N = 1024 / 2048 at E = 4 N (the pretraining step's
+# D = 13, F = 300), D = 40 (two slices of 32 columns) at N = 128, and a
+# small D = 40 shape with the corner cases' edges
+GIN_LARGE = [(2, 1024, 4096, 13, 300), (2, 2048, 8192, 13, 300), (8, 128, 512, 40, 300),
+             (3, 7, 11, 40, 70)]
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("shape", GIN_LARGE)
+def test_gin_messages_ranges_plan_matches_plain(cuda, shape, bf16):
+    """The ranges plan past the block plan, forward and backward through
+    autograd against the plain versions at the block plan's bars, each
+    launch counted once, and two runs of each direction bit for bit."""
+    x, src, dst, boh, tbl, g = _gin_corner(_gin_operands(cuda, *shape), shape, None)
+    b, n, e, d, f = shape
+    assert gin_ops.fwd_plan(n, e, d, f)["plan"] == gin_ops.bwd_plan(n, e, d, f)["plan"] \
+        == "ranges"
+    launches = (gin_messages.launches, gin_messages_bwd.launches)
+
+    def run(impl):
+        return _grads(lambda x_, t_: gin_messages(x_, src, dst, boh, t_, bf16=bf16,
+                                                  impl=impl), (x, tbl), g)
+
+    kern, plain = run("kernel"), run("plain")
+    assert (gin_messages.launches, gin_messages_bwd.launches) == (launches[0] + 1,
+                                                                  launches[1] + 1)
+    for i, (k, p) in enumerate(zip(kern, plain)):
+        _close(k, p, 1e-2 if bf16 else (1e-5 if i == 0 else 1e-4))
+    assert torch.equal(kern[0], gin_messages(x, src, dst, boh, tbl, bf16=bf16, impl="kernel"))
+    first = gin_messages_bwd(x, src, dst, boh, tbl, g, bf16=bf16, impl="kernel")
+    second = gin_messages_bwd(x, src, dst, boh, tbl, g, bf16=bf16, impl="kernel")
+    assert all(torch.equal(u, v) for u, v in zip(first, second))
 
 
 # the backward's shapes: the pretraining step's at n_max 32 (B=128) and 128
@@ -385,19 +469,54 @@ def test_pair_relu_project_bwd_kernel_chunks(cuda, cm, bf16):
 
 
 def test_pair_relu_project_bwd_plan_matches_kernel(cuda):
-    """The wrapper's chunk plan (ops/pair_block.py::bwd_plan) is the CUDA
-    source's: 64-channel blocks at N <= 366, 32 to 748; and the launch
-    past the last plan raises, naming the limit."""
-    for n in (1, 7, 16, 32, 64, 65, 128, 200, 256, 366, 367, 512, 605, 748, 749, 1024):
-        try:
-            chunk = pair_ops.bwd_plan(n, 300)["chunk"]
-        except ValueError:
-            chunk = 0
-        assert chunk == pair_ops.bwd_plan_kernel(n), n
+    """The wrapper's plan (ops/pair_block.py::bwd_plan) is the CUDA
+    source's: whole-graph blocks of 64 channels at N <= 366, 32 to 748 (H
+    <= 32), row tiles past that and passes of h past H = 32; and the launch
+    past the whole-graph plan takes the tiled plan."""
+    chunk_of = build.load("pair_block").pair_relu_project_bwd_chunk
+    for n in (1, 7, 16, 32, 64, 65, 128, 200, 256, 366, 367, 512, 605, 748, 749, 1024, 2048):
+        for h in (5, 32, 33, 64, 100):
+            p = pair_ops.bwd_plan(n, 300, h)
+            k = pair_ops.bwd_plan_kernel(n, h)
+            assert k == {key: p[key] for key in k}, (n, h)
+        assert (pair_ops.bwd_plan(n, 300)["chunk"] if n <= 748 else 0) == chunk_of(n), n
     assert all(pair_ops.bwd_plan(n, 300)["chunk"] == 64 for n in (16, 32, 64, 128, 256))
     a, cc, w, _, g = _pair_operands(cuda, (1, 749, 16, 8), 8)
-    with pytest.raises(ValueError, match="SMEM_LIMIT"):
-        pair_relu_project_cm_bwd(a, cc, w, g, impl="kernel")
+    kern = pair_relu_project_cm_bwd(a, cc, w, g, impl="kernel")
+    for k, p in zip(kern, pair_relu_project_cm_bwd(a, cc, w, g, impl="plain")):
+        _close(k, p, 1e-4)
+
+
+# the tiled backward: N = 1024 / 2048 at H = 32 (row tiles), N = 1024 at H =
+# 64 (row tiles and two passes of h), and passes at small N: ragged H = 40,
+# C = 300 with N not a multiple of the 16-node tiles, H = 100 (four passes)
+PAIR_BWD_TILED = [(2, 1024, 300, 32), (1, 2048, 300, 32), (2, 1024, 300, 64),
+                  (2, 37, 300, 40), (3, 13, 40, 100)]
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("cm", [False, True], ids=["K3", "K4"])
+@pytest.mark.parametrize("shape", PAIR_BWD_TILED)
+def test_pair_relu_project_bwd_tiled_matches_plain(cuda, shape, cm, bf16):
+    """K3 / K4's backward in the tiled plan against the plain version at
+    the whole-graph plan's bars (dpair one f32 sum over every pass of h,
+    rounded once in K4's bf16 mode), one launch counted, two runs bit for
+    bit (the dc, dW and db partials added in fixed orders)."""
+    a, cc, w, _, g = _pair_operands(cuda, shape, 9)
+    b, n, c, h = shape
+    p = pair_ops.bwd_plan(n, c, h)
+    assert p["tiles"] > 1 or p["passes"] > 1
+    if not cm:
+        g = g.reshape(b, h, n, n).permute(0, 2, 3, 1).contiguous()
+    bwd = pair_relu_project_cm_bwd if cm else pair_relu_project_bwd
+    launches = bwd.launches
+    first = bwd(a, cc, w, g, bf16=bf16, impl="kernel")
+    assert bwd.launches == launches + 1
+    plain = bwd(a, cc, w, g, bf16=bf16, impl="plain")
+    for k, q in zip(first, plain):
+        _close(k, q, 1e-3 if bf16 else 1e-4)
+    second = bwd(a, cc, w, g, bf16=bf16, impl="kernel")
+    assert all(torch.equal(u, v) for u, v in zip(first, second))
 
 
 def _score_operands(cuda, b, n, variant):
@@ -973,8 +1092,9 @@ def test_attn_bank_kernels_refuse_shapes(cuda):
     A not a multiple of ds, K7's forward past its shared memory (A = 1024:
     its tile does not depend on N, and N = 881, past the old forward's
     plan, runs), its backward past its shared memory (A = 140, H = 35:
-    every head's du; N = 519, past the old backward's plan, runs), K8's
-    forward N > 334 at F = 16, its backward N > 266."""
+    every head's du; N = 519, past the old backward's plan, runs), K8 at a
+    ds that does not divide A; K8's forward past N = 334 at F = 16 and its
+    backward past N = 266 run in the tiled plan."""
     q = torch.zeros(2, 2, 8, 30, device=cuda)
     with pytest.raises(ValueError, match="multiple of ds"):
         attn_map_bank_kernel(q, q, 4)
@@ -992,12 +1112,11 @@ def test_attn_bank_kernels_refuse_shapes(cuda):
     with pytest.raises(ValueError, match="backward kernel: N=8, A=140, H=35 need .* shared"):
         attn_map_bank_kernel_bwd(q, q, g, 4, impl="kernel")
     qk, ws, _ = _qk_bank_operands(cuda, 2, 600, 16, 2, 32, 0)
-    with pytest.raises(ValueError, match="forward kernel.*shared memory"):
-        attn_qk_bank(qk, *ws, 4)
+    assert attn_qk_bank(qk, *ws, 4).shape == (2, 2, 600, 600)   # the tiled plan
     qk, ws, g = _qk_bank_operands(cuda, 1, 267, 16, 2, 32, 0)
-    with pytest.raises(ValueError, match="backward kernel: N=267, F=16, C=2, A=32 need .* "
-                                         "shared memory"):
-        attn_qk_bank_bwd(qk, *ws, g, 4, impl="kernel")
+    assert attn_qk_bank_bwd(qk, *ws, g, 4, impl="kernel")[0].shape == qk.shape
+    with pytest.raises(ValueError, match="multiple of ds"):
+        attn_qk_bank(qk, *ws, 5)
 
 
 # the 16-atom size bucket (``--buckets 16 ...`` at --batch_size 32): K1 at
@@ -1055,3 +1174,73 @@ def test_native_collation_on_the_card_host(cuda):
               "edge_mask", "ext_src", "ext_dst", "ext_attr", "ext_mask"):
         assert torch.equal(getattr(mine, f), getattr(ref, f)), f
         assert torch.equal(getattr(on_card, f).cpu(), getattr(ref, f)), f
+
+
+# K8's tiled plan forced where the block plan fits: (B, N, F, C, A, ds) of
+# the chain's edge layers 1-3 and 0, a ragged second map tile, ds = 2 and A
+# = 8 (the scalar paths)
+QK_TILED_SAME_BITS = [(16, 32, 16, 8, 32, 4), (4, 64, 300, 2, 32, 4), (2, 33, 16, 8, 32, 4),
+                      (3, 40, 13, 3, 8, 2)]
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", QK_TILED_SAME_BITS)
+def test_attn_qk_bank_tiled_plan_gives_the_block_plans_bits(cuda, shape, bf16):
+    """Where both plans take a shape, the tiled plan gives the block plan's
+    bits: the maps (the same chains for t1, q / k and each head's logit),
+    and in the backward dqk and the bias gradients (every chain in index
+    order as in the block plan); the weight matrices' gradients too in f32
+    (FMA chains over n in both), within the bar in bf16 (the block plan's
+    dW1 / dW2 run on mma.sync)."""
+    from moleculesde_tpu_torch.ops import attn_qk_bank as k8
+
+    b, n, f, c, a, ds = shape
+    qk, ws, g = _qk_bank_operands(cuda, b, n, f, c, a, 26)
+    qd = qk.to(torch.bfloat16 if bf16 else torch.float32)
+    h = a // ds
+    assert k8.plan_of(n, f, c, a, h, False, b) == k8.plan_of(n, f, c, a, h, True, b) == "block"
+    assert torch.equal(k8._launch(qd, ws, ds, bf16, plan="block"),
+                       k8._launch(qd, ws, ds, bf16, plan="tiled"))
+    blk = k8._launch_bwd(qd, ws, g, ds, bf16, plan="block")
+    til = k8._launch_bwd(qd, ws, g, ds, bf16, plan="tiled")
+    for i, (x, y) in enumerate(zip(blk, til)):
+        if i in (0, 2, 4, 6, 8) or not bf16:
+            assert torch.equal(x, y), i
+        err = ((x.float() - y.float()).abs().max() / y.float().abs().max()).item()
+        assert err <= 1e-2, (i, err)
+
+
+# past the block plan: the chain's edge layers 1-3 (F = 16, C = 8) and 0
+# (F = 300, C = 2) at N = 512 and 1024, B = 2, and N = 300 at F = 16 (the
+# backward tiled, the forward still a block)
+QK_TILED = [(2, 512, 16, 8, 32, 4), (2, 512, 300, 2, 32, 4), (2, 1024, 16, 8, 32, 4),
+            (2, 1024, 300, 2, 32, 4), (2, 300, 16, 8, 32, 4)]
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", QK_TILED)
+def test_attn_qk_bank_tiled_plan_matches_plain(cuda, shape, bf16):
+    """K8 in the tiled plan, forward and backward through autograd, against
+    the plain version at the N = 32 test's bars; each launch counted once;
+    two runs of each direction bit for bit."""
+    b, n, f, c, a, ds = shape
+    qk, ws, g = _qk_bank_operands(cuda, b, n, f, c, a, 27)
+    launches = (attn_qk_bank.launches, attn_qk_bank_bwd.launches)
+
+    def run(impl):
+        return _grads(lambda *t: attn_qk_bank(*t, ds, bf16=bf16, impl=impl), [qk] + ws, g)
+
+    kern, plain = run("kernel"), run("plain")
+    assert (attn_qk_bank.launches, attn_qk_bank_bwd.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    for i, (x, y) in enumerate(zip(kern, plain)):
+        tol = 1e-2 if bf16 else (1e-5 if i == 0 else 1e-4)
+        err = ((x.float() - y.float()).abs().max() / y.float().abs().max()).item()
+        assert err <= tol, (i, err)
+    qd = qk.to(torch.bfloat16 if bf16 else torch.float32)
+    with torch.no_grad():
+        assert torch.equal(attn_qk_bank(qd, *ws, ds, bf16=bf16, impl="kernel"),
+                           attn_qk_bank(qd, *ws, ds, bf16=bf16, impl="kernel"))
+        first = attn_qk_bank_bwd(qd, *ws, g, ds, bf16=bf16, impl="kernel")
+        second = attn_qk_bank_bwd(qd, *ws, g, ds, bf16=bf16, impl="kernel")
+    assert all(torch.equal(u, v) for u, v in zip(first, second))

@@ -15,7 +15,8 @@ import torch
 
 from moleculesde_tpu.ops.rejected.attn_qk_bank import attn_qk_bank as jax_attn_qk_bank
 from moleculesde_tpu_torch.ops.attn_qk_bank import (
-    FWD_MAX_CHUNK, attn_qk_bank, attn_qk_bank_bwd, bwd_plan, check_plan, fwd_plan)
+    FWD_MAX_CHUNK, TILED_SMEM, attn_qk_bank, attn_qk_bank_bwd, bwd_plan, check_plan, fwd_plan,
+    plan_of)
 from moleculesde_tpu_torch.ops.common import SMEM_LIMIT
 
 from test_torch_port_attn_bank import _qk_operands
@@ -53,22 +54,30 @@ def test_fwd_plan(shape, plan):
 
 @pytest.mark.parametrize("bwd", [False, True], ids=["forward", "backward"])
 def test_fwd_plan_takes_any_n_that_fits(bwd):
-    """Either kernel raises only where its shared memory runs out: the
-    forward past N = 334 at A = 32, F = 16, the backward (which took N <=
-    32 before its row tiles) past N = 266, naming the limit."""
+    """Either kernel keeps its (graph, channel) block plan wherever that
+    fits -- the forward up to N = 334 at A = 32, F = 16, the backward up to
+    N = 266 -- and past it takes the tiled plan, whose shared memory does
+    not depend on N (where the block plan used to raise, naming its
+    limit); forcing the block plan there still raises so."""
     if not bwd:
         assert check_plan(64, 16, 8, 32, 4, bwd=False) == fwd_plan(64, 16, 32)[1]
         assert check_plan(334, 16, 8, 32, 4, bwd=False) <= SMEM_LIMIT
+        assert plan_of(334, 16, 8, 32, 4, bwd=False) == "block"
+        assert plan_of(335, 16, 8, 32, 4, bwd=False) == "tiled"
+        assert check_plan(335, 16, 8, 32, 4, bwd=False) == TILED_SMEM
         with pytest.raises(ValueError, match="forward kernel: N=335, F=16, C=8, A=32 need "
                                              r"\d+ B of shared memory per block"):
-            check_plan(335, 16, 8, 32, 4, bwd=False)
+            check_plan(335, 16, 8, 32, 4, bwd=False, plan="block")
         return
     for n in (33, 64, 128, 256, 266):
         assert check_plan(n, 16, 8, 32, 8, bwd=True) == bwd_plan(n, 16, 32, 8)[2] <= SMEM_LIMIT
+        assert plan_of(n, 16, 8, 32, 8, bwd=True) == "block"
     assert check_plan(128, 900, 8, 32, 8, bwd=True) <= SMEM_LIMIT
+    assert plan_of(267, 900, 8, 32, 8, bwd=True) == "tiled"
+    assert check_plan(267, 900, 8, 32, 8, bwd=True) == TILED_SMEM
     with pytest.raises(ValueError, match="backward kernel: N=267, F=900, C=8, A=32 need "
                                          r"\d+ B of shared memory per block"):
-        check_plan(267, 900, 8, 32, 8, bwd=True)
+        check_plan(267, 900, 8, 32, 8, bwd=True, plan="block")
 
 
 def test_kernel_wrappers_check_the_device():
