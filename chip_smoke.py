@@ -50,8 +50,9 @@ Phases (any failure exits non-zero):
   4. fused chain: K6's launch plan per n_max (cluster size) and K6 against
      its plain version also on the chain's operands at ``--n_max 64`` and
      ``--n_max 128`` (B=64, variants 1 and 2, bf16 2e-2 and f32 1e-4 of max
-     |plain|), every K6 phase two launches bit for bit; n_max 129 refused
-     by the plan, naming its limit; 3 f32 PC steps of the fused chain at
+     |plain|), every K6 phase two launches bit for bit; at ``--n_max 129``
+     (B=64) too, past the cluster plan, in the layered plan (the cluster
+     plan forced there refused, naming its limit); 3 f32 PC steps of the fused chain at
      n_max 128 against the channel-major chain on the same weights and
      draws (K6 6 launches); the same chain at n_max 32 with ``fused=True``
      (launches K1 5, K3 1, K6 40), conformers/s against the channel-major
@@ -266,8 +267,25 @@ Phases (any failure exits non-zero):
      one against the all-plain ``pair_cm_direct`` build; and the
      2D->3D sampler chain at ``--n_max 1024``, B = 2 (K1 5, K3 1), its
      conditioning against the all-plain build at phase 3's bars.
+ 21. the last shapes the JAX kernels take (``last_shapes_path``): K6 in its
+     layered plan on the sampler CLI's models and one synthetic molecule at
+     n_max 129, 256, 1024 (B = 2) and 2048 (B = 1), variants 1 and 2, bf16
+     and f32 at phase 4's bars, two launches bit for bit, the plan's scratch
+     printed; the layered plan forced at n_max 32, 64 and 128 (B = 64)
+     against the plain version, beside the cluster plan's bits; K7 in its
+     grouped plan at A = 320, 512, 1024 (ds = A / 8) and A = 140 (ds = 4,
+     H = 35), N = 32 (B C = 16) and 600, forward and backward at phase 6's
+     bars, two runs bit for bit, and at A = 32 the forward in 2 / 4 / 8
+     slices and the grouped backward equal to the block plans' bits; the
+     fused 2D->3D chain at ``--n_max 1024``, B = 2 (K1 5, K3 1, K6 40 in
+     bf16; wall, device-busy ms and peak GiB; padded rows exactly 0; 3 f32
+     steps against the channel-major chain); SDEModel3Dto2D with ``adim
+     256, num_heads 4`` (K7 at A = 512, H = 8) and SchNet at the 3D->2D
+     CLI's widths: the bf16 chain of 20 x 2 steps (K7 240), the f32 chain
+     against K7's plain version (atol 2e-4, rtol 1e-3), the SDE loss and
+     its backward in f32 and bf16 against K7's plain version (K7 4 / 4).
 The line before the last lists every kernel as JSON (the ones before it
-phase 19's, phase 18's, phase 17's, phase 15's and phase 14's figures);
+phase 21's, phase 19's, phase 18's, phase 17's, phase 15's and phase 14's figures);
 the last line is {"ok": true, "device": {...}}.
 """
 
@@ -291,6 +309,7 @@ from moleculesde_tpu_torch.ops import pair_block as pair_ops
 from moleculesde_tpu_torch.ops.attn_bank import (
     attn_map_bank_bwd_plain, attn_map_bank_kernel, attn_map_bank_kernel_bwd,
     attn_map_bank_plain)
+from moleculesde_tpu_torch.ops.attn_bank import plan as k7_plan
 from moleculesde_tpu_torch.ops.attn_qk_bank import (
     attn_qk_bank, attn_qk_bank_bwd, attn_qk_bank_bwd_plain)
 from moleculesde_tpu_torch.ops.cfconv import (
@@ -633,17 +652,18 @@ def sampler_kernel_phases(k1_args, k3_args):
     return results
 
 
-def k6_phases(models, node_2d, batch, dev, label: str = ""):
+def k6_phases(models, node_2d, batch, dev, label: str = "", reps=None):
     """K6 against its plain version on the fused chain's operands: the
     feature-layout conditioning of each variant's model and prior
     positions, in f32 and bf16 mode; the error relative to max |plain|;
     two launches of each bit for bit.  ``label`` tags the results of
-    another n_max than the chain's."""
+    another n_max than the chain's; ``reps`` as report's."""
     results = {}
     b, n = batch.num_graphs, batch.n_max
     for bf16 in (True, False):
-        print(f"K6 plan at n_max {n}, {'bf16' if bf16 else 'f32'}: {score_plan(n, bf16)} "
-              "(cluster = blocks per molecule)", flush=True)
+        print(f"K6 plan at n_max {n}, B={b}, {'bf16' if bf16 else 'f32'}: "
+              f"{score_plan(n, bf16, b=b)} (cluster = blocks per molecule; layered: "
+              "8 destinations a block, scratch bytes of device memory)", flush=True)
     for variant, model in models.items():
         with torch.no_grad():
             cond = model.precompute_conditioning(node_2d, batch, layout="feature")
@@ -677,7 +697,7 @@ def k6_phases(models, node_2d, batch, dev, label: str = ""):
                 err, rel = compare("K6 " + name, run_k, run_p, tol, floor=0.0)
                 results[name] = report("K6 " + name, err, tol, run_k, run_p,
                                        nbytes, ops, PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS,
-                                       floor=0.0)
+                                       floor=0.0, reps=reps)
                 results[name]["max_rel_err"] = rel
                 same_bits("K6 " + name, run_k)
                 print(f"K6 {name}: max_rel_err={rel:.3e} (of max |plain|); two launches bit "
@@ -687,16 +707,18 @@ def k6_phases(models, node_2d, batch, dev, label: str = ""):
 
 def k6_large_n_phases(dev):
     """K6 past n_max 32: the fused chain's models and operands at ``--n_max
-    64`` and ``--n_max 128`` (B=64, molecules of 4-64 and 4-128 atoms; the
-    same weights), variants 1 and 2, bf16 and f32 at the chain's bars, two
-    launches bit for bit; n_max 129 is past the cluster plan and raises in
-    both modes, naming the limit; then the fused chain at n_max 128 in f32
-    against the channel-major chain (fused_f32_steps)."""
+    64``, ``--n_max 128`` and ``--n_max 129`` (B=64, molecules of 4-64, 4-128
+    and 4-129 atoms; the same weights), variants 1 and 2, bf16 and f32 at
+    the chain's bars, two launches bit for bit: n_max 129, past the cluster
+    plan (which refused it before), runs in the layered plan, and the
+    cluster plan forced there still raises, naming its limit; then the
+    fused chain at n_max 128 in f32 against the channel-major chain
+    (fused_f32_steps)."""
     from moleculesde_tpu_torch.benchmarks.profile_sampler import PATH_ARGS
     from moleculesde_tpu_torch.examples import sample_2d_to_3d as cli
 
     results = {}
-    for n_max in (64, 128):
+    for n_max in (64, 128, KERNEL_N_MAX + 1):
         size = ["--n_max", str(n_max)]
         args = cli.get_parser().parse_args(PATH_ARGS + size)
         batch = cli.make_batch(cli.load_graphs(args), args, dev)
@@ -713,13 +735,15 @@ def k6_large_n_phases(dev):
                                  node_2d, batch, dev, f"[n{n_max}]"))
     past = KERNEL_N_MAX + 1
     for bf16 in (True, False):
+        check(score_plan(past, bf16)["plan"] == "layered", f"K6 n_max {past}: not layered")
         try:
-            score_plan(past, bf16)
+            score_plan(past, bf16, plan="cluster")
         except ValueError as e:
             check(f"n_max <= {KERNEL_N_MAX}" in str(e), f"K6 n_max {past} refusal: {e}")
-            print(f"K6 at n_max {past} ({'bf16' if bf16 else 'f32'}): refused: {e}", flush=True)
+            print(f"K6 at n_max {past} ({'bf16' if bf16 else 'f32'}), the cluster plan forced: "
+                  f"refused: {e}", flush=True)
         else:
-            raise PhaseError(f"K6 takes n_max {past}, past its plan")
+            raise PhaseError(f"K6's cluster plan takes n_max {past}, past its limit")
     results["chain_n128_k6_launches"] = fused_f32_steps(dev, ["--n_max", "128"], 3, "n_max 128")
     return results
 
@@ -1092,7 +1116,7 @@ def qk_bank_phase(name, qk, ws, g, ds, bf16, tol, reps=None):
     return out
 
 
-def bank_kernel_phases(layers, size: str = ""):
+def bank_kernel_phases(layers, size: str = "", reps=None):
     """K7 and K8 (where an operand set has ``qk``), forward and backward,
     against their plain versions on the
     chain's layer-0 and layer-1 operands (``layers``, from bank_operands),
@@ -1130,7 +1154,8 @@ def bank_kernel_phases(layers, size: str = ""):
                 lambda q_, k_, ds=ds, **kw: attn_map_bank_kernel(q_, k_, ds, **kw),
                 lambda q_, k_, g_, ds=ds, **kw: attn_map_bank_kernel_bwd(q_, k_, g_, ds, **kw),
                 lambda q_, k_, g_, ds=ds, **kw: attn_map_bank_bwd_plain(q_, k_, g_, ds, **kw),
-                (qm, km), g, bf16, tol, k7_cost(qm, ds), k7_cost(qm, ds, True), peak, 0.0)
+                (qm, km), g, bf16, tol, k7_cost(qm, ds), k7_cost(qm, ds, True), peak, 0.0,
+                reps)
             with torch.no_grad():
                 same_bits("K7 attn_map_bank fwd" + sfx, lambda: attn_map_bank_kernel(
                     qm, km, ds, bf16=bf16, impl="kernel"))
@@ -4488,6 +4513,345 @@ def large_plans_path(dev):
     return results, k8_results, launches
 
 
+# phase 21: the last shapes the JAX kernels take -- K6's layered plan past
+# n_max 128 and K7's grouped plan past a block's shared memory, alone and on
+# the fused 2D->3D chain at --n_max 1024 and the 3D->2D bank at adim 256
+
+# (n_max, B) of K6's layered plan alone, on the sampler CLI's molecules
+LAYERED_K6 = ((129, 2), (256, 2), (1024, 2), (2048, 1))
+# (A, ds) of K7 alone at B C = 16: adim 160 / 256 / 512 of the 3D->2D
+# model (H = 8) and 35 heads of 4, each past one block plan
+GROUPED_K7 = ((320, 40), (512, 64), (1024, 128), (140, 4))
+WIDE_ADIM = 256
+
+
+def one_molecule(n_max: int, b: int) -> list:
+    """Flags past the sampler CLI's PATH_ARGS: ``--n_max n_max`` and one
+    synthetic molecule (of 4 to n_max atoms) cloned ``b`` times."""
+    return ["--n_max", str(n_max), "--end", "1", "--sample_mols_per_batch", "1",
+            "--num_repeat_SDE_inference", str(b)]
+
+
+def sampler_n_args(n_max: int, b: int) -> list:
+    from moleculesde_tpu_torch.benchmarks.profile_sampler import PATH_ARGS
+
+    return PATH_ARGS + one_molecule(n_max, b)
+
+
+def k6_layered_phases(dev):
+    """K6 in the layered plan against its plain version at LAYERED_K6 on the
+    sampler CLI's models and molecules (variants 1 and 2, bf16 2e-2 and f32
+    1e-4 of max |plain|, two launches bit for bit; k6_phases), then the
+    layered plan forced at n_max 32, 64 and 128 (B=64, the chain's
+    operands of phases 4 and 13) against the plain version at the same
+    bars, beside the cluster plan's bits there."""
+    from moleculesde_tpu_torch.benchmarks.profile_sampler import PATH_ARGS
+    from moleculesde_tpu_torch.examples import sample_2d_to_3d as cli
+
+    results = {}
+    for n_max, b in LAYERED_K6:
+        args = cli.get_parser().parse_args(sampler_n_args(n_max, b))
+        batch = cli.make_batch(cli.load_graphs(args), args, dev)
+        model_2d, sde_model = cli.build_models(args, dev)
+        args_v2 = cli.get_parser().parse_args(sampler_n_args(n_max, b) + [
+            "--SDE_2Dto3D_model", "SDEModel2Dto3D_02"])
+        with torch.no_grad():
+            node_2d = model_2d(batch, use_running_average=True)
+        atoms = int(batch.node_mask.sum()) // b
+        print(f"K6 layered at n_max {n_max}: B={b}, a molecule of {atoms} atoms; scratch "
+              f"{score_plan(n_max, True, b=b)['scratch']} B (bf16) / "
+              f"{score_plan(n_max, False, b=b)['scratch']} B (f32)", flush=True)
+        results.update(k6_phases({1: sde_model, 2: cli.build_models(args_v2, dev)[1]},
+                                 node_2d, batch, dev, f"[n{n_max}]", reps=LARGE_REPS))
+        del model_2d, sde_model, node_2d, batch
+    for n_max in (32, 64, 128):
+        args = cli.get_parser().parse_args(PATH_ARGS + ["--n_max", str(n_max)])
+        batch = cli.make_batch(cli.load_graphs(args), args, dev)
+        model_2d, model = cli.build_models(args, dev)
+        b, n = batch.num_graphs, batch.n_max
+        with torch.no_grad():
+            node_2d = model_2d(batch, use_running_average=True)
+            cond = model.precompute_conditioning(node_2d, batch, layout="feature")
+            gen = torch.Generator(device=dev).manual_seed(3)
+            pos = (model.sde_pos.prior_sampling(tuple(batch.positions.shape), gen, dev)
+                   * batch.node_mask[:, None]).reshape(b, n, 3)
+            ops = (pos, cond["node_attr"].float(), cond["edge_attr_2d"].float(),
+                   cond["pair_mask"].float(), model.packed_score_params())
+            for bf16 in (True, False):
+                name = f"K6 layered plan forced at n_max {n_max} (B={b}, v1" + (
+                    ", bf16)" if bf16 else ", f32)")
+                tol = 2e-2 if bf16 else 1e-4
+                run_l = lambda b_=bf16: score_eval_fused(*ops, bf16=b_, impl="kernel",  # noqa: E731
+                                                        plan="layered")
+                run_c = lambda b_=bf16: score_eval_fused(*ops, bf16=b_, impl="kernel",  # noqa: E731
+                                                        plan="cluster")
+                _, rel = compare(name, run_l, lambda b_=bf16: score_eval_fused_plain(
+                    *ops, bf16=b_), tol, floor=0.0)
+                same_bits(name, run_l)
+                saved = [c.launches for c in _counters()]
+                layered, cluster = run_l(), run_c()
+                for c, v in zip(_counters(), saved):
+                    c.launches = v
+                diff = (layered - cluster).abs().max().item()
+                print(f"{name}: max_rel_err={rel:.3e} (tolerance {tol:g} of max |plain|); "
+                      f"bits equal to the cluster plan's: {torch.equal(layered, cluster)} "
+                      f"(largest difference {diff:.3e})", flush=True)
+                results[f"forced_layered[n{n_max}]" + ("[bf16]" if bf16 else "")] = {
+                    "max_rel_err": rel, "same_bits_as_cluster": torch.equal(layered, cluster)}
+    return results
+
+
+def fused_chain_n1024(dev):
+    """The fused 2D->3D chain (``sample_positions_pc(..., fused=True)``
+    through the sampler CLI's ``generate``) at --n_max 1024, B = 2, the
+    CLI's widths in bf16, 20 PC steps x 1 corrector step: K1 5, K3 1, K6 40
+    (the layered plan), positions finite and padded rows exactly 0; wall
+    ms, device-busy ms under the profiler and peak GiB; then 3 f32 steps
+    against the channel-major chain on the same weights and draws
+    (fused_f32_steps: atol 2e-4, rtol 1e-3).  Returns (launch counts,
+    figures, the f32 check's K6 launches)."""
+    from moleculesde_tpu_torch.examples import sample_2d_to_3d as cli
+
+    args = cli.get_parser().parse_args(sampler_n_args(1024, 2))
+    batch = cli.make_batch(cli.load_graphs(args), args, dev)
+    model_2d, sde_model = cli.build_models(args, dev)
+    evals = args.num_diffusion_timesteps_2Dto3D_inference * (args.steps_pos + 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    reset_counts()
+    t0 = time.perf_counter()
+    pos = cli.generate(model_2d, sde_model, batch, gen, args, fused=True)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"fused chain at n_max 1024 (B={batch.num_graphs}, a molecule of "
+          f"{int(batch.node_mask.sum()) // batch.num_graphs} atoms, bf16): launches {launches} "
+          f"(expected K1 {args.num_layer}, K3 1, K6 {evals}); first run wall_ms={first_ms:.2f}, "
+          f"peak {peak:.3f} GiB", flush=True)
+    check(launches == expect(gin_messages=args.num_layer, pair_relu_project=1,
+                             score_eval_fused=evals), f"n_max 1024 fused chain counts {launches}")
+    check(tuple(pos.shape) == (batch.num_nodes, 3) and bool(torch.isfinite(pos).all()),
+          "n_max 1024 fused chain: positions")
+    check(bool((pos[~batch.node_mask] == 0).all()),
+          "n_max 1024 fused chain: padded rows are not exactly 0")
+    saved = [c.launches for c in _counters()]
+    walls, busys = [], []
+    for _ in range(2):   # the second reading after a warm profiler
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        wall, busy = profiled_ms(lambda: cli.generate(model_2d, sde_model, batch, gen, args,
+                                                      fused=True))
+        walls.append(wall)
+        busys.append(busy)
+    for c, v in zip(_counters(), saved):
+        c.launches = v
+    print(f"fused chain at n_max 1024 under the profiler: wall_ms="
+          f"{' / '.join(f'{w:.2f}' for w in walls)} device_busy_ms="
+          f"{' / '.join(f'{w:.2f}' for w in busys)}", flush=True)
+    del model_2d, sde_model, batch, pos
+    k6 = fused_f32_steps(dev, one_molecule(1024, 2), 3, "n_max 1024")
+    return launches, {"first_wall_ms": first_ms, "wall_ms": walls, "device_busy_ms": busys,
+                      "peak_gib": peak}, k6
+
+
+def wide_3d2d_models(args, dev, kernel_impl: str, bf16_attn: bool = True):
+    """(SchNet, SDEModel3Dto2D variant 1) as the 3D->2D sampler CLI builds
+    them from ``args`` (``build_models``'s widths and draws), but with
+    ``adim=WIDE_ADIM`` (q / k 512 wide, ds 64, H = 8 at edge layers 1-3)
+    and K7 as the bank (``attn_impl="pallas"``; ``kernel_impl`` "plain"
+    gives K7's plain version)."""
+    from moleculesde_tpu_torch.examples import sample_3d_to_2d as cli
+
+    t32, bmin, bmax, n_steps = cli.SDE_PRESETS_3DTO2D[args.SDE_type_3Dto2D]
+    gen = torch.Generator().manual_seed(args.seed)
+    encoder = cli.SchNet(hidden_channels=args.emb_dim, num_filters=args.SchNet_num_filters,
+                         num_interactions=args.SchNet_num_interactions,
+                         num_gaussians=args.SchNet_num_gaussians, cutoff=args.SchNet_cutoff,
+                         readout=args.SchNet_readout, cfconv="xla", device=dev, generator=gen)
+    model = cli.SDEModel3Dto2D(
+        dim3d=args.emb_dim, c_init=2, c_hid=8, c_final=4, num_heads=4, adim=WIDE_ADIM, nhid=16,
+        num_layers=4, num_linears=3, variant=cli.MODEL_3DTO2D_VARIANTS[args.SDE_3Dto2D_model],
+        bf16_attn=bf16_attn, attn_impl="pallas", kernel_impl=kernel_impl, sde_type=t32,
+        beta_min=bmin, beta_max=bmax, num_diffusion_timesteps=n_steps,
+        noise_on_one_hot=args.noise_on_one_hot, device=dev, generator=gen)
+    return encoder, model
+
+
+def wide_bank_path(dev):
+    """The 3D->2D bank at adim 256: the sampler CLI's models and batch
+    (SchNet 6 x 128, B=128, n_max 32) with SDEModel3Dto2D's ``adim=256,
+    num_heads=4`` and K7 as the bank.  The bf16 chain of 20 PC x 2
+    corrector steps (K7 forward 4 an edge-network evaluation, the grouped
+    forward at layers 1-3) finite with padded rows 0, its wall ms; the same
+    chain in f32 against the one with K7's plain version, same weights and
+    draws (atol 2e-4, rtol 1e-3); the 3D->2D SDE loss and its backward on
+    the batch (K7 forward and backward 4 each) against K7's plain version:
+    loss terms (f32 1e-5, bf16 1e-3 relative), the gradient of the 3D
+    representation and of every q / k net leaf (relative L2, f32 1e-4, bf16
+    5e-2).  Returns ({run: launch counts}, figures)."""
+    from moleculesde_tpu_torch.benchmarks.profile_sampler_3d2d import (
+        CORRECTOR_STEPS, EDGE_EVALS, N_STEPS, PATH_ARGS, path_batch)
+    from moleculesde_tpu_torch.examples import sample_3d_to_2d as cli
+    from moleculesde_tpu_torch.sampling.pc import sample_graph_pc
+
+    args = cli.get_parser().parse_args(PATH_ARGS)
+    batch = path_batch(args, dev)
+    encoder, model = wide_3d2d_models(args, dev, "auto")
+    layers = model.edge_score_network.num_layers
+    b, n, c = batch.num_graphs, batch.n_max, model.num_class_x
+    launches, figures = {}, {}
+    reset_counts()
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, x_mean, adj_mean = cli.generate(encoder, model, batch, gen, args)
+    torch.cuda.synchronize()
+    figures["chain_wall_ms"] = (time.perf_counter() - t0) * 1e3
+    launches["sample_3d_to_2d_pallas_adim_256"] = read_counts()
+    print(f"3D->2D chain at adim {WIDE_ADIM} (K7 at A = {2 * WIDE_ADIM}, B={b}, {N_STEPS} x "
+          f"{CORRECTOR_STEPS} steps, bf16): launches "
+          f"{launches['sample_3d_to_2d_pallas_adim_256']}, wall_ms="
+          f"{figures['chain_wall_ms']:.2f}", flush=True)
+    check(launches["sample_3d_to_2d_pallas_adim_256"] == expect(
+        attn_map_bank_kernel=EDGE_EVALS * layers), "adim 256 chain launch counts")
+    pad = ~batch.node_mask.reshape(b, n).cpu()
+    check(bool(torch.isfinite(x_mean).all() and torch.isfinite(adj_mean).all()),
+          "adim 256 chain: non-finite graphs")
+    check(bool((adj_mean.cpu()[pad] == 0).all()), "adim 256 chain: padded rows")
+
+    # the f32 chain, K7 against its plain version on the same weights and draws
+    gen = torch.Generator(device=dev).manual_seed(13)
+    per_step = (1 + CORRECTOR_STEPS) * (b * n * c + b * n * n)
+    draws = {"x_prior": torch.randn((b, n, c), generator=gen, device=dev),
+             "adj_prior": torch.randn((b, n, n), generator=gen, device=dev),
+             "noise": torch.randn((N_STEPS, per_step), generator=gen, device=dev)}
+    outs = {}
+    saved = [cnt.launches for cnt in _counters()]
+    with torch.no_grad():
+        _, node_3d = encoder.encode_batch(batch)
+        for impl in ("auto", "plain"):
+            m32 = wide_3d2d_models(args, dev, impl, bf16_attn=False)[1]
+            outs[impl] = sample_graph_pc(m32, node_3d, batch, n_steps=N_STEPS,
+                                         corrector_steps=CORRECTOR_STEPS, **draws)
+    torch.cuda.synchronize()
+    for cnt, v in zip(_counters(), saved):
+        cnt.launches = v
+    for idx, name in ((2, "x_mean"), (3, "adj_mean")):
+        mine, ref = outs["auto"][idx], outs["plain"][idx]
+        excess = ((mine - ref).abs() - (2e-4 + 1e-3 * ref.abs())).max().item()
+        figures[f"chain_f32_{name}_max_abs_err"] = (mine - ref).abs().max().item()
+        print(f"3D->2D chain at adim {WIDE_ADIM}, f32, {N_STEPS} x {CORRECTOR_STEPS} steps, "
+              f"K7 against its plain version: {name} max_abs_err="
+              f"{figures[f'chain_f32_{name}_max_abs_err']:.3e} (tolerance atol 2e-4 + rtol "
+              f"1e-3; largest excess {excess:.3e})", flush=True)
+        check(excess <= 0.0, f"adim 256 f32 chain: {name} disagrees with K7's plain version")
+
+    # the SDE loss and its backward, K7 against its plain version
+    for bf16_attn, tol_loss, tol_grad in ((False, 1e-5, 1e-4), (True, 1e-3, 5e-2)):
+        mode = "bf16" if bf16_attn else "f32"
+        with torch.no_grad():
+            _, node_3d = encoder.encode_batch(batch)
+        draws = wide_3d2d_models(args, dev, "plain", bf16_attn)[1].draw(
+            batch, torch.Generator(device=dev).manual_seed(31))
+        got = {}
+        for impl in ("auto", "plain"):
+            m = wide_3d2d_models(args, dev, impl, bf16_attn)[1]
+            n3d = node_3d.detach().clone().requires_grad_(True)
+            reset_counts()
+            lx, ladj = m.loss(n3d, batch, draws=draws)
+            (0.5 * (lx + ladj)).backward()
+            torch.cuda.synchronize()
+            if impl == "auto":
+                launches[f"loss_3d_to_2d_pallas_adim_256_{mode}"] = read_counts()
+            leaves = {name: p.grad for name, p in m.named_parameters()
+                      if ".q_" in name or ".k_" in name}
+            check(len(leaves) > 0 and all(v is not None for v in leaves.values()),
+                  "adim 256 loss: the q / k nets' gradient leaves")
+            got[impl] = (lx.item(), ladj.item(), n3d.grad, leaves)
+        counts = launches[f"loss_3d_to_2d_pallas_adim_256_{mode}"]
+        check(counts == expect(attn_map_bank_kernel=layers, attn_map_bank_kernel_bwd=layers),
+              f"adim 256 loss ({mode}) launch counts {counts}")
+        (lx_k, la_k, g_k, leaves_k), (lx_p, la_p, g_p, leaves_p) = got["auto"], got["plain"]
+        loss_err = max(abs(lx_k - lx_p) / abs(lx_p), abs(la_k - la_p) / abs(la_p))
+        rel = lambda u, v: ((u - v).norm() / v.norm()).item()  # noqa: E731
+        grad_err = max([rel(g_k, g_p)] + [rel(leaves_k[k], leaves_p[k]) for k in leaves_p])
+        figures[f"loss_{mode}"] = {"loss_rel_err": loss_err, "grad_rel_l2": grad_err,
+                                   "losses": [lx_k, la_k]}
+        print(f"3D->2D loss at adim {WIDE_ADIM} ({mode}), K7 forward / backward {counts}: "
+              f"loss terms {lx_k:.6f} / {la_k:.6f}, against K7's plain version {loss_err:.3e} "
+              f"(tolerance {tol_loss:g}); the 3D representation's and {len(leaves_p)} q / k "
+              f"leaves' gradients {grad_err:.3e} relative L2 (tolerance {tol_grad:g})",
+              flush=True)
+        check(loss_err <= tol_loss, f"adim 256 loss ({mode}) disagrees with K7's plain version")
+        check(grad_err <= tol_grad,
+              f"adim 256 gradients ({mode}) disagree with K7's plain version")
+    return launches, figures
+
+
+def k7_grouped_phases(dev):
+    """K7, forward and backward, at GROUPED_K7 on seeded operands (B C =
+    2 x 8 at N = 32, 1 x 16 at N = 600), against the plain versions at
+    bank_kernel_phases's bars (bf16 3e-3, its maps also 1e-4; f32 1e-4),
+    each kernel two runs bit for bit; then the groups forced at the
+    chain's A = 32 (2, 4 and 8 forward slices, the grouped backward) on the
+    chain-width seeded operands at N = 32 and 600: the block plans' bits."""
+    results = {}
+    for a, ds in GROUPED_K7:
+        for n, b, c in ((32, 2, 8), (600, 1, 16)):
+            gen = torch.Generator(device=dev).manual_seed(a + n)
+            q32, k32 = (0.8 * torch.randn(b, c, n, a, device=dev, generator=gen)
+                        for _ in range(2))
+            ops = {"q": q32.bfloat16(), "k": k32.bfloat16(), "q32": q32, "k32": k32, "ds": ds}
+            for bwd in (False, True):
+                print(f"K7 plan at A={a}, ds={ds}, N={n}, {'backward' if bwd else 'forward'}: "
+                      f"(rows, shared bytes, groups) = {k7_plan(n, a, a // ds, bwd, bc=b * c)}",
+                      flush=True)
+            results.update(bank_kernel_phases([ops], f"[a{a}][n{n}]", reps=LARGE_REPS))
+    for n, b in ((32, 16), (600, 1)):
+        gen = torch.Generator(device=dev).manual_seed(23 + n)
+        q32, k32 = (0.8 * torch.randn(b, 8, n, 32, device=dev, generator=gen) for _ in range(2))
+        g = torch.randn(b, 8, n, n, device=dev, generator=gen)
+        for q, k, bf16 in ((q32.bfloat16(), k32.bfloat16(), True), (q32, k32, False)):
+            with torch.no_grad():
+                saved = [cnt.launches for cnt in _counters()]
+                fwd = attn_map_bank_kernel(q, k, 4, bf16=bf16, impl="kernel", groups=1)
+                bwd = attn_map_bank_kernel_bwd(q, k, g, 4, bf16=bf16, impl="kernel", groups=1)
+                for groups in (2, 4, 8):
+                    check(torch.equal(fwd, attn_map_bank_kernel(
+                        q, k, 4, bf16=bf16, impl="kernel", groups=groups)),
+                        f"K7 forward in {groups} slices at N={n}: not the block plan's bits")
+                    other = attn_map_bank_kernel_bwd(q, k, g, 4, bf16=bf16, impl="kernel",
+                                                     groups=groups)
+                    check(all(torch.equal(u, v) for u, v in zip(bwd, other)),
+                          f"K7 grouped backward at N={n}: not the block plan's bits")
+                torch.cuda.synchronize()
+                for cnt, v in zip(_counters(), saved):
+                    cnt.launches = v
+            print(f"K7 at A=32, N={n}, B C={b * 8} ({'bf16' if bf16 else 'f32'}): the forward "
+                  "in 2, 4 and 8 slices and the grouped backward give the block plans' bits",
+                  flush=True)
+    return results
+
+
+def last_shapes_path(dev):
+    """Phase 21: K6's layered plan alone (k6_layered_phases) and on the fused
+    chain at --n_max 1024 (fused_chain_n1024); K7's grouped plan alone
+    (k7_grouped_phases) and on the 3D->2D bank at adim 256
+    (wide_bank_path).  Returns (kernel results, {run: launch counts},
+    figures)."""
+    t0 = time.perf_counter()
+    results = {**k6_layered_phases(dev), **k7_grouped_phases(dev)}
+    print(f"phase 21 kernels alone: {time.perf_counter() - t0:.1f} s", flush=True)
+    chain_launches, chain_figures, k6_f32 = fused_chain_n1024(dev)
+    bank_launches, bank_figures = wide_bank_path(dev)
+    launches = {"sample_2d_to_3d_fused_n_max_1024": chain_launches, **bank_launches}
+    figures = {"fused_chain_n_max_1024": {**chain_figures, "f32_3_steps_k6_launches": k6_f32},
+               "bank_adim_256": bank_figures, "seconds": time.perf_counter() - t0}
+    print(f"phase 21: {figures['seconds']:.1f} s", flush=True)
+    return results, launches, figures
+
+
 def _hmma_per_function(build, source: str) -> dict:
     """{kernel function: HMMA instructions} of a built library's SASS
     (``cuobjdump -sass``, split at its ``Function :`` headers)."""
@@ -4530,14 +4894,17 @@ def ptxas_functions(report: str) -> dict:
 
 def no_spills(reports: dict) -> None:
     """K6's four-chunk instantiations (n_max 65-128, both modes) and K7's
-    forward and backward (both input types each) hold everything in
-    registers: no spill."""
-    for source, pick in (("score_eval", lambda f: "score_eval_kernel" in f and "Li4E" in f),
-                         ("attn_bank", lambda f: "attn_map_bank_fwd_kernel" in f),
-                         ("attn_bank", lambda f: "attn_map_bank_bwd_kernel" in f)):
+    block forward and backward (both input types each) hold everything in
+    registers: no spill.  (K7's sliced forward and K6's layered GAT pass,
+    which run only past the old plans, are printed with the rest.)"""
+    for source, pick, count in (
+            ("score_eval", lambda f: "score_eval_kernel" in f and "Li4E" in f, 2),
+            ("attn_bank", lambda f: "attn_map_bank_fwd_kernel" in f and "Lb0E" in f, 2),
+            ("attn_bank", lambda f: "attn_map_bank_bwd_kernel" in f, 2)):
         fns = {f: v for f, v in ptxas_functions(reports[source]).items() if pick(f)}
         print(f"{source}: registers / spill stores / spill loads {fns}", flush=True)
-        check(len(fns) == 2, f"{source}: the instantiations were not found in the nvcc report")
+        check(len(fns) == count,
+              f"{source}: the instantiations were not found in the nvcc report")
         check(all(v[1] == 0 and v[2] == 0 for v in fns.values()), f"{source} spills: {fns}")
 
 
@@ -4674,6 +5041,8 @@ def main() -> int:
     large_plan_results, k8_large, large_plan_launches = large_plans_path(dev)
     large_n_results.update(large_plan_results)
     done("every N the JAX kernels take (phase 20)")
+    last_results, last_launches, last_figures = last_shapes_path(dev)
+    done("the last shapes the JAX kernels take (phase 21)")
     device_time_phase()
     done("device times")
     print(f"matmul_flops with the kernel equal to its plain version's, comparisons by kernel: "
@@ -4696,7 +5065,7 @@ def main() -> int:
             "pretrain_painn_2_steps": painn_launches,
             **large_n_launches, "pretrain_buckets_cli": bucket_launches, **finetune_launches,
             **surface_launches, **packed_launches, **dp_launches, **util_launches,
-            **large_plan_launches}
+            **large_plan_launches, **last_launches}
     keys = ("max_abs_err", "ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms",
             "bound_by")
     k6_keys = keys + ("max_rel_err",)
@@ -4726,7 +5095,22 @@ def main() -> int:
                      **{f"n_max_{n}": {f"v{v}": {mode: {k: fused_results[
                          f"score_eval_fused[v{v}]" + sfx + f"[n{n}]"][k] for k in k6_keys}
                          for mode, sfx in (("f32", ""), ("bf16", "[bf16]"))} for v in (1, 2)}
-                        for n in (64, 128)},
+                        for n in (64, 128, KERNEL_N_MAX + 1)},
+                     # the layered plan (phase 21): n_max 1024 at B = 2 here,
+                     # every shape of LAYERED_K6 beside it
+                     "n_max_1024": {f"v{v}": {mode: {k: last_results[
+                         f"score_eval_fused[v{v}]" + sfx + "[n1024]"][k] for k in k6_keys}
+                         for mode, sfx in (("f32", ""), ("bf16", "[bf16]"))} for v in (1, 2)},
+                     "layered_plan": {f"n_max_{n}_b_{b}": {f"v{v}": {mode: {k: last_results[
+                         f"score_eval_fused[v{v}]" + sfx + f"[n{n}]"][k] for k in k6_keys}
+                         for mode, sfx in (("f32", ""), ("bf16", "[bf16]"))} for v in (1, 2)}
+                         for n, b in LAYERED_K6},
+                     "layered_forced_at_n_max_32_64_128": {
+                         k: v for k, v in last_results.items() if k.startswith("forced_layered")},
+                     "chain_n_max_1024_bf16": {
+                         "launches": last_launches["sample_2d_to_3d_fused_n_max_1024"][
+                             "score_eval_fused"],
+                         **last_figures["fused_chain_n_max_1024"]},
                      "chain_n_max_128_f32_3_steps": {
                          "launches": fused_results["chain_n128_k6_launches"]},
                      "cluster_by_n_max": {n: score_plan(n, True)["cluster"]
@@ -4784,6 +5168,17 @@ def main() -> int:
         extra["n_16_b_32"] = {"bf16": res("[L0][n16]"), "f32": res("[L0][f32][n16]")}
         if name.startswith("attn_map_bank"):   # K7 past the old backward's N <= 518
             extra["n_600_b_1"] = {"bf16": res("[L0][n600]"), "f32": res("[L0][f32][n600]")}
+            # the grouped plan (phase 21): A = 512 here, every A of GROUPED_K7
+            # beside it, B C = 16 at N = 32 and 600
+            last = lambda sfx: {k: last_results[name + sfx][k]  # noqa: E731
+                                for k in keys + ("max_rel_err",)}
+            extra["a_512"] = {f"n_{n}": {"bf16": last(f"[L0][a512][n{n}]"),
+                                         "f32": last(f"[L0][f32][a512][n{n}]")}
+                              for n in (32, 600)}
+            extra["grouped_plan"] = {f"a_{a}_ds_{ds}": {
+                f"n_{n}": {"bf16": last(f"[L0][a{a}][n{n}]"),
+                           "f32": last(f"[L0][f32][a{a}][n{n}]")} for n in (32, 600)}
+                for a, ds in GROUPED_K7}
         else:   # K8's tiled plan on the chain's operands at n_max 512 / 1024, B = 2
             extra.update({f"n_{n}_b_2": {f"layer_{li}": {"bf16": res(f"[L{li}][n{n}]"),
                                                         "f32": res(f"[L{li}][f32][n{n}]")}
@@ -4799,6 +5194,7 @@ def main() -> int:
             **res("[L1]"), "library_ms": None, "mode": "bf16", "operands": "edge layer 1",
             "f32": res("[L1][f32]"), "layer_0": {"bf16": res("[L0]"), "f32": res("[L0][f32]")},
             **extra})
+    print(json.dumps({"last_shapes": last_figures, "card": card}))
     print(json.dumps({"utilities": util_figures}))
     print(json.dumps({"data_parallel": dp_figures}))
     print(json.dumps({"pretrain_buckets_cli": bucket_figures}))

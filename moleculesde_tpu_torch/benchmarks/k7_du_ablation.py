@@ -71,7 +71,7 @@ def backward(lib, q, k, g, ds: int, bf16: bool):
     from moleculesde_tpu_torch.ops.common import stream
 
     b, c, n, a = q.shape
-    rows, smem = plan(n, a, a // ds, True)
+    rows, smem, _ = plan(n, a, a // ds, True, groups=1)
     dq, dk = torch.empty_like(q), torch.empty_like(k)
     fn = lib.attn_map_bank_bwd
     fn.restype = ctypes.c_int

@@ -78,6 +78,16 @@
 // stay FMAs in index order, off the tensor cores: see attn_map.cuh's
 // header (K8's bf16 output on mma.sync).
 
+// The grouped plan, where A is too wide for a block's shared memory (the
+// forward past A = 448, the backward past A = 304 at H = 8): the forward's
+// unit walks A in column slices of at most 128 (the logits of a head that
+// spans two slices continue across them; the next slice is staged while
+// this one computes), so that every slicing gives the bits of the whole
+// row; the backward runs K8's tiled map backward (attn_map.cuh's
+// map_dqk_kernel: units of (map, 32-row tile, head, 32-feature slice),
+// the same chains in the same order as the block backward, so its bits).
+// Shared memory then depends on neither N nor A: any A with A % ds == 0.
+
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -150,6 +160,30 @@ __device__ __forceinline__ void stage_rows(const T* __restrict__ x, T* s, size_t
   }
 }
 
+// Columns [a0, a0 + w) of the rows [r0, r0 + 32) of map bc of x (clipped to
+// N) into the staging buffer s, w values a row: 16-byte cp.async copies
+// where the slice's rows are 16-byte aligned (vec), else one value at a
+// time, synchronously.
+template <typename T>
+__device__ __forceinline__ void stage_cols(const T* __restrict__ x, T* s, size_t bc, int r0,
+                                           int N, int A, int a0, int w, bool vec) {
+  const int rows = min(kTile, N - r0);
+  const T* gx = x + (bc * N + r0) * A + a0;
+  if (vec) {
+    constexpr int E = 16 / sizeof(T);
+    const int per = w / E;
+    for (int i = threadIdx.x; i < rows * per; i += kThreads) {
+      const int r = i / per, c = (i - r * per) * E;
+      hopper::cp_async16(s + r * w + c, gx + static_cast<size_t>(r) * A + c, true);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * w; i += kThreads) {
+      const int r = i / w, c = i - r * w;
+      s[i] = gx[static_cast<size_t>(r) * A + c];
+    }
+  }
+}
+
 // k rows sit in slot (c % 4) 8 + c / 4 of a tile, so that the four lanes of
 // a row (columns 4 tx + j) read four consecutive slots
 __host__ __device__ __forceinline__ int kslot(int c) { return (c & 3) * 8 + (c >> 2); }
@@ -193,6 +227,11 @@ __device__ __forceinline__ void convert_rows(const T* sq, float* qc, int nq, con
 // slots), the products as FMAs in index order.  V: ds % 4 == 0, four
 // values of a row in one 16-byte load.
 template <bool V>
+__device__ __forceinline__ void logits_add(const float* const (&qr)[2],
+                                           const float* const (&kr)[4], float (&u)[2][4],
+                                           int d0, int e);
+
+template <bool V>
 __device__ __forceinline__ void head_logits(const float* const (&qr)[2],
                                             const float* const (&kr)[4], float (&u)[2][4],
                                             int d0, int ds) {
@@ -200,7 +239,15 @@ __device__ __forceinline__ void head_logits(const float* const (&qr)[2],
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) u[i][j] = 0.f;
-  const int e = d0 + ds;
+  logits_add<V>(qr, kr, u, d0, d0 + ds);
+}
+
+// u[i][j] += q[row i][d] k[col j][d] for d in [d0, e), as FMAs in index
+// order (head_logits's chain, continued where a head spans slices)
+template <bool V>
+__device__ __forceinline__ void logits_add(const float* const (&qr)[2],
+                                           const float* const (&kr)[4], float (&u)[2][4],
+                                           int d0, int e) {
   if (V) {
     for (int d = d0; d < e; d += 4) {
       float4 a[2], b[4];
@@ -271,6 +318,34 @@ __device__ __forceinline__ void fwd_tile(const float* const (&qr)[2], const floa
   }
 }
 
+// A column slice [a0, a0 + w) of the forward's tile (G > 1): each head's
+// logits continue in uo across slices (its FMA chain in index order), and
+// a head that ends in this slice adds its tanh to acc, in head order, as
+// fwd_tile; the slice's columns are staged from column 0.
+template <bool V>
+__device__ __forceinline__ void fwd_slice(const float* const (&qr)[2], const float* const (&kr)[4],
+                                          float (&uo)[2][4], float (&acc)[2][4], int a0, int w,
+                                          int ds, float c) {
+  for (int a = a0; a < a0 + w;) {
+    const int end = (a / ds + 1) * ds, e = min(a0 + w, end);
+    logits_add<V>(qr, kr, uo, a - a0, e - a0);
+    if (e == end) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; j += 2) {
+          float t0, t1;
+          tanh2(uo[i][j], fabsf(uo[i][j]) * c, uo[i][j + 1], fabsf(uo[i][j + 1]) * c, t0, t1);
+          acc[i][j] += t0;
+          acc[i][j + 1] += t1;
+          uo[i][j] = 0.f;
+          uo[i][j + 1] = 0.f;
+        }
+    }
+    a = e;
+  }
+}
+
 // Persistent blocks walk the units u = blockIdx.x, + gridDim.x, ...: unit u
 // is map bc = u / (T T), row tile (u / T) % T, column tile u % T (T = 32-row
 // tiles per side).  Shared memory (fwd_words): the staging buffers (32 q
@@ -282,17 +357,24 @@ __device__ __forceinline__ void fwd_tile(const float* const (&qr)[2], const floa
 // distinct banks; a thread owns rows {16 (w / 2) + ty, + 8} and columns
 // 16 (w % 2) + 4 tx + {0..3} (warp w, ty = lane / 4, tx = lane % 4) and
 // stores each row's four values in one 16-byte store where the map's rows
-// are 16-byte aligned.
-template <typename T>
+// are 16-byte aligned.  Where A is wider than a unit's shared memory takes
+// (the grouped plan), the unit walks A in G column slices of W (the last
+// narrower), staged and converted one at a time, the next slice (or the
+// next unit's first) staged while this one computes; the logits of a head
+// that spans slices continue across them (fwd_slice), so that every forced
+// slicing gives the bits of G = 1.  SLICED: the grouped plan's
+// instantiation (the block plan's is the whole row, W = A, G = 1).
+template <typename T, bool SLICED>
 __global__ void __launch_bounds__(kThreads)
 attn_map_bank_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          float* __restrict__ out, int BC, int N, int A, int ds, int bf16,
-                         int vec) {
+                         int vec, int W) {
   extern __shared__ __align__(16) float smem[];
-  const int QS = attn_map::row_stride(A), H = A / ds, tiles = (N + kTile - 1) / kTile;
+  const int QS = attn_map::row_stride(W), H = A / ds, tiles = (N + kTile - 1) / kTile;
+  const int G = SLICED ? (A + W - 1) / W : 1;
   T* sq = reinterpret_cast<T*>(smem);
-  T* sk = reinterpret_cast<T*>(smem + kTile * A);
-  float* qc = smem + 2 * kTile * A;
+  T* sk = reinterpret_cast<T*>(smem + kTile * W);
+  float* qc = smem + 2 * kTile * W;
   float* kc = qc + kTile * QS;
   const long long units = static_cast<long long>(BC) * tiles * tiles;
   // 2 log2(e) / sqrt(ds), rounded once from double
@@ -310,32 +392,53 @@ attn_map_bank_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     r0 = (t / tiles) * kTile;
     c0 = (t % tiles) * kTile;
   };
-  auto stage = [&](long long u) {
+  // slice g of unit u (the whole rows in the block plan): 16-byte copies
+  // where the slice's rows stay aligned
+  auto stage = [&](long long u, int g) {
     size_t bc;
     int r0, c0;
     where(u, bc, r0, c0);
-    stage_rows(q, sq, bc, r0, N, A, vec != 0);
-    stage_rows(k, sk, bc, c0, N, A, vec != 0);
+    if constexpr (!SLICED) {
+      stage_rows(q, sq, bc, r0, N, A, vec != 0);
+      stage_rows(k, sk, bc, c0, N, A, vec != 0);
+    } else {
+      const int a0 = g * W, sw = min(W, A - a0);
+      const bool v = vec != 0 && (a0 * sizeof(T)) % 16 == 0 && (sw * sizeof(T)) % 16 == 0;
+      stage_cols(q, sq, bc, r0, N, A, a0, sw, v);
+      stage_cols(k, sk, bc, c0, N, A, a0, sw, v);
+    }
   };
   PHASE_MARK(0);
   long long u = blockIdx.x;
-  if (u < units) stage(u);
+  if (u < units) stage(u, 0);
   for (; u < units; u += gridDim.x) {
     size_t bc;
     int r0, c0;
     where(u, bc, r0, c0);
-    hopper::cp_async_wait_all();
-    __syncthreads();   // the staged rows are in; the last unit's reads of qc / kc are done
-    PHASE_MARK(1);
-    convert_rows(sq, qc, min(kTile, N - r0), sk, kc, min(kTile, N - c0), A, QS, bf16);
-    __syncthreads();   // qc / kc are written; the staging buffers are free
-    if (u + gridDim.x < units) stage(u + gridDim.x);
-    PHASE_MARK(2);
-    float acc[2][4] = {};
-    if (ds % 4 == 0)
-      fwd_tile<true>(qr, kr, acc, H, ds, c2);
-    else
-      fwd_tile<false>(qr, kr, acc, H, ds, c2);
+    float acc[2][4] = {}, uo[2][4] = {};
+    for (int g = 0; g < G; ++g) {
+      const int a0 = g * W, sw = SLICED ? min(W, A - a0) : A;   // the slice's columns
+      hopper::cp_async_wait_all();
+      __syncthreads();   // the staged rows are in; the last slice's reads of qc / kc are done
+      PHASE_MARK(1);
+      convert_rows(sq, qc, min(kTile, N - r0), sk, kc, min(kTile, N - c0), sw, QS, bf16);
+      __syncthreads();   // qc / kc are written; the staging buffers are free
+      if (g + 1 < G)
+        stage(u, g + 1);
+      else if (u + gridDim.x < units)
+        stage(u + gridDim.x, 0);
+      PHASE_MARK(2);
+      if constexpr (!SLICED) {
+        if (ds % 4 == 0)
+          fwd_tile<true>(qr, kr, acc, H, ds, c2);
+        else
+          fwd_tile<false>(qr, kr, acc, H, ds, c2);
+      } else if (ds % 4 == 0) {
+        fwd_slice<true>(qr, kr, uo, acc, a0, sw, ds, c2);
+      } else {
+        fwd_slice<false>(qr, kr, uo, acc, a0, sw, ds, c2);
+      }
+    }
     const int col = c0 + wc + 4 * tx;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -677,8 +780,9 @@ struct Plan {
   int rows, words;
 };
 
-__host__ __device__ inline int fwd_words(int A) {
-  return 2 * kTile * (A + attn_map::row_stride(A));
+// W: the columns of a slice (A where the whole row fits)
+__host__ __device__ inline int fwd_words(int W) {
+  return 2 * kTile * (W + attn_map::row_stride(W));
 }
 
 __host__ __device__ inline int bwd_words(int A, int H) {
@@ -689,13 +793,56 @@ Plan make_plan(int A, int H, bool bwd) {
   return Plan{kTile, bwd ? bwd_words(A, H) : fwd_words(A)};
 }
 
-// The forward on min(units, resident) persistent blocks.
+// The grouped plan: past a block's shared memory (whole rows of A in the
+// forward, every head's du and A-wide chains in the backward).  The
+// forward walks column slices of at most kSliceMax (66,560 B, three blocks
+// an SM); the backward runs attn_map.cuh's map_dqk_kernel, whose units
+// are (map, 32-row tile, head, 32-feature slice of the head): 16,896 B of
+// static shared memory.  Neither depends on N or, past the slice, on A.
+constexpr int kSliceMax = 128;
+constexpr int kGroupedBwdSmem =
+    4 * 4 * attn_map::kMapTile * attn_map::kSliceStride;
+
+__host__ __device__ inline int round4(int v) { return (v + 3) / 4 * 4; }
+
+// the forward's slice width at groups G (G = 1: the whole row)
+__host__ __device__ inline int slice_width(int A, int G) {
+  return G <= 1 ? A : round4((A + G - 1) / G);
+}
+
+// The plan at these widths, groups <= 0 the default: out[0] the unit's
+// rows, out[1] the shared memory in bytes (past kSmemLimit where a forced
+// plan does not fit), out[2] the groups: the forward's column slices, or
+// the backward's (head, 32-feature slice) units per row tile (1: the
+// block backward, every head at once).
+void group_plan(int A, int H, int bwd, int groups, int* out) {
+  if (groups <= 0) {
+    const size_t block = 4 * static_cast<size_t>(bwd ? bwd_words(A, H) : fwd_words(A));
+    const bool fits = block <= kSmemLimit;
+    groups = fits ? 1 : bwd ? 2 : (A + kSliceMax - 1) / kSliceMax;
+  }
+  out[0] = kTile;
+  if (bwd) {
+    const int ds = A / H;
+    out[1] = groups == 1 ? 4 * bwd_words(A, H) : kGroupedBwdSmem;
+    out[2] = groups == 1 ? 1 : H * ((ds + attn_map::kSlice - 1) / attn_map::kSlice);
+  } else {
+    const int W = slice_width(A, groups);
+    out[1] = 4 * fwd_words(W);
+    out[2] = (A + W - 1) / W;
+  }
+}
+
+// The forward on min(units, resident) persistent blocks, column slices of
+// W (A: the whole row).
 template <typename T>
 int launch_fwd(const void* q, const void* k, float* out, int BC, int N, int A,
-               int ds, int bf16, int smem, cudaStream_t s) {
-  static std::atomic<long long> resident{0};
+               int ds, int bf16, int W, int smem, cudaStream_t s) {
+  static std::atomic<long long> resident[2] = {{0}, {0}};
   long long all = 0;
-  const cudaError_t err = resident_blocks(attn_map_bank_fwd_kernel<T>, smem, resident, all);
+  const cudaError_t err =
+      W == A ? resident_blocks(attn_map_bank_fwd_kernel<T, false>, smem, resident[0], all)
+             : resident_blocks(attn_map_bank_fwd_kernel<T, true>, smem, resident[1], all);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long tiles = (N + kTile - 1) / kTile;
   const long long units = static_cast<long long>(BC) * tiles * tiles;
@@ -704,8 +851,36 @@ int launch_fwd(const void* q, const void* k, float* out, int BC, int N, int A,
   const int vec = (static_cast<size_t>(A) * sizeof(T)) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(k) % 16 == 0;
-  attn_map_bank_fwd_kernel<T><<<blocks, kThreads, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), out, BC, N, A, ds, bf16, vec);
+  if (W == A)
+    attn_map_bank_fwd_kernel<T, false><<<blocks, kThreads, smem, s>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), out, BC, N, A, ds, bf16, vec, W);
+  else
+    attn_map_bank_fwd_kernel<T, true><<<blocks, kThreads, smem, s>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), out, BC, N, A, ds, bf16, vec, W);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The grouped backward: map_dqk_kernel's dq units, then its dk units, on
+// q / k in their dtype (rounded to bf16 as staged in bf16 mode), dq / dk
+// stored in it.
+template <typename T>
+int launch_bwd_grouped(const void* q, const void* k, const float* g, void* dq, void* dk, int BC,
+                       int N, int A, int ds, int bf16, cudaStream_t s) {
+  const long long tiles = (N + attn_map::kMapTile - 1) / attn_map::kMapTile;
+  const int slices = (ds + attn_map::kSlice - 1) / attn_map::kSlice;
+  const long long units = static_cast<long long>(BC) * tiles * (A / ds) * slices;
+  if (units > 0x7fffffffll) return static_cast<int>(cudaErrorInvalidValue);
+  if (units == 0) return 0;
+  const T* qq = static_cast<const T*>(q);
+  const T* kk = static_cast<const T*>(k);
+  const size_t na = static_cast<size_t>(N) * A;
+  const unsigned grid = static_cast<unsigned>(units);
+  attn_map::map_dqk_kernel<true, T, T><<<grid, attn_map::kTileThreads, 0, s>>>(
+      qq, kk, na, g, static_cast<T*>(dq), na, N, A, ds, static_cast<int>(tiles), slices, bf16,
+      bf16);
+  attn_map::map_dqk_kernel<false, T, T><<<grid, attn_map::kTileThreads, 0, s>>>(
+      qq, kk, na, g, static_cast<T*>(dk), na, N, A, ds, static_cast<int>(tiles), slices, bf16,
+      bf16);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -752,6 +927,15 @@ extern "C" void attn_bank_plan(int N, int A, int H, int bwd, int* out) {
   out[1] = 4 * p.words;
 }
 
+// The plan at these widths with the grouped plan past a block's shared
+// memory: out[0] rows, out[1] shared bytes, out[2] groups (group_plan;
+// groups <= 0: the default, 1: the block plan, more: that many slices
+// forward, the grouped backward).  ops/attn_bank.py::plan is the same.
+extern "C" void attn_bank_group_plan(int N, int A, int H, int bwd, int groups, int* out) {
+  (void)N;
+  group_plan(A, H, bwd, groups, out);
+}
+
 // q, k [BC, N, A] (bf16 if in_bf16, else f32), out [BC, N, N] f32; smem the
 // plan's bytes (cudaErrorInvalidValue if it disagrees).  Needs A % ds == 0.
 extern "C" int attn_map_bank_fwd(const void* q, const void* k, float* out, int BC,
@@ -760,8 +944,34 @@ extern "C" int attn_map_bank_fwd(const void* q, const void* k, float* out, int B
   if (smem != 4 * make_plan(A, A / ds, false).words)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return in_bf16 ? launch_fwd<__nv_bfloat16>(q, k, out, BC, N, A, ds, bf16, smem, s)
-                 : launch_fwd<float>(q, k, out, BC, N, A, ds, bf16, smem, s);
+  return in_bf16 ? launch_fwd<__nv_bfloat16>(q, k, out, BC, N, A, ds, bf16, A, smem, s)
+                 : launch_fwd<float>(q, k, out, BC, N, A, ds, bf16, A, smem, s);
+}
+
+// attn_map_bank_fwd in `groups` column slices (attn_bank_group_plan; 1:
+// the whole row); smem the plan's bytes.
+extern "C" int attn_map_bank_fwd_groups(const void* q, const void* k, float* out, int BC,
+                                        int N, int A, int ds, int in_bf16, int bf16, int groups,
+                                        int smem, void* stream) {
+  const int W = slice_width(A, groups);
+  if (groups < 1 || ds < 1 || A % ds != 0 || smem != 4 * fwd_words(W) ||
+      (A + W - 1) / W != groups)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return in_bf16 ? launch_fwd<__nv_bfloat16>(q, k, out, BC, N, A, ds, bf16, W, smem, s)
+                 : launch_fwd<float>(q, k, out, BC, N, A, ds, bf16, W, smem, s);
+}
+
+// The grouped backward (attn_bank_group_plan with groups != 1): g [BC, N, N]
+// f32; dq, dk [BC, N, A] in q's dtype.  cudaErrorInvalidValue past the
+// int32 grid index.
+extern "C" int attn_map_bank_bwd_grouped(const void* q, const void* k, const float* g,
+                                         void* dq, void* dk, int BC, int N, int A, int ds,
+                                         int in_bf16, int bf16, void* stream) {
+  if (ds < 1 || A % ds != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return in_bf16 ? launch_bwd_grouped<__nv_bfloat16>(q, k, g, dq, dk, BC, N, A, ds, bf16, s)
+                 : launch_bwd_grouped<float>(q, k, g, dq, dk, BC, N, A, ds, bf16, s);
 }
 
 // g [BC, N, N] f32; dq, dk [BC, N, A] in q's dtype; rows and smem the

@@ -1,5 +1,6 @@
 // The backward of the head-mean tanh map of one (graph, channel), K8's
-// (attn_qk_bank.cu; K7's backward has its own, in attn_bank.cu):
+// (attn_qk_bank.cu; K7's backward has its own, in attn_bank.cu; past it
+// both take map_dqk_kernel below):
 //   a[n, m] = (1/H) * sum_h tanh(inv * sum_{a in head h} q[n, a] k[m, a])
 // with heads the contiguous ds-wide chunks of A (H = A / ds) and
 // inv = 1 / sqrt(ds), taken in tiles of rows so that shared memory grows
@@ -170,6 +171,135 @@ __device__ void backward_tiled(const float* qs, const float* ks, const float* g,
       dk_put(i, sk);
     }
     __syncthreads();   // dus is rewritten by the next tile
+  }
+}
+
+// ---- the map's backward in small units (K8's tiled plan, K7's grouped plan) --
+// Units of (map, 32-row tile, head, 32-feature slice of the head) give dq,
+// units of (map, 32-column tile, head, slice) give dk: each walks the other
+// side's 32-tiles in order, forms the tile's du of its head (g (1 - t^2)
+// inv / H, rounded to bf16 when bf16 is set, the head's dot in index order
+// over its features, staged 32 at a time) and carries its chains across
+// the tiles, each sum one chain in index order, as backward_tiled's and
+// K7's block backward's: the same bits as those.  Shared memory is four
+// static [32][33] f32 tiles, whatever N, A or ds.
+
+constexpr int kTileThreads = 256;
+constexpr int kMapTile = 32;             // rows (columns) of a map tile
+constexpr int kSlice = 32;               // features of q / k staged at once
+constexpr int kSliceStride = kSlice + 1;
+
+// Rows r0 .. r0 + kMapTile - 1 of x ([rows][A]), features a0 .. a0 + kSlice
+// - 1, into s ([kMapTile][kSliceStride]) as f32, rounded to bf16 where rnd
+// is set, zero past N and A.
+template <typename T>
+__device__ __forceinline__ void stage_slice(float* s, const T* x, int r0, int N, int a0, int A,
+                                            int rnd) {
+  for (int i = threadIdx.x; i < kMapTile * kSlice; i += kTileThreads) {
+    const int r = i / kSlice, a = i - r * kSlice;
+    const float v = (r0 + r < N && a0 + a < A)
+                        ? load(x, static_cast<size_t>(r0 + r) * A + a0 + a) : 0.f;
+    s[r * kSliceStride + a] = rnd ? round_bf16(v) : v;
+  }
+}
+
+// du of head h for the tile of rows n0.. (q) by columns m0.. (k) into dus
+// [kMapTile][kSliceStride]: du = g (1 - t^2) scale, t = tanh(inv q_h . k_h)
+// (the head's dot in index order, its features staged 32 at a time),
+// rounded to bf16 in bf16 mode; zero past N.
+template <typename T>
+__device__ __forceinline__ void head_du(float* dus, float* qs, float* ks, const T* q, const T* k,
+                                        const float* g, int n0, int m0, int N, int A, int ds,
+                                        int h, int bf16, int rnd) {
+  const int nl = threadIdx.x / 16, ml = threadIdx.x % 16;
+  const int H = A / ds;
+  const float inv = inv_sqrt(ds), scale = du_scale(ds, H);
+  float uu[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  for (int a0 = h * ds; a0 < (h + 1) * ds; a0 += kSlice) {
+    __syncthreads();   // the stages and du are free
+    stage_slice(qs, q, n0, N, a0, A, rnd);
+    stage_slice(ks, k, m0, N, a0, A, rnd);
+    __syncthreads();
+    const int w = min(kSlice, (h + 1) * ds - a0);
+    for (int a = 0; a < w; ++a) {
+      const float qa[2] = {qs[nl * kSliceStride + a], qs[(nl + 16) * kSliceStride + a]};
+      const float ka[2] = {ks[ml * kSliceStride + a], ks[(ml + 16) * kSliceStride + a]};
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) uu[i][jj] = fmaf(qa[i], ka[jj], uu[i][jj]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      const int r = nl + 16 * i, cix = ml + 16 * jj, n = n0 + r, m = m0 + cix;
+      float du = 0.f;
+      if (n < N && m < N) {
+        const float t = tanhf(uu[i][jj] * inv);
+        du = g[static_cast<size_t>(n) * N + m] * (1.0f - t * t) * scale;
+        if (bf16) du = round_bf16(du);
+      }
+      dus[r * kSliceStride + cix] = du;
+    }
+}
+
+// dq (DQ) or dk of one (map, 32-row (column) tile, head h, 32-feature slice
+// of the head) unit: the other side's 32-tiles in order, each tile's du of
+// the head, then the unit's chains
+//   dq[n, a] += du[n, m] k[m, a]  (m in order)   dk[m, a] += du[n, m] q[n, a]
+// carried across the tiles in registers (4 items a thread), stored through
+// store().  Map u's q and k start at qb + u in_stride and kb + u in_stride
+// ([N][A] each, rounded to bf16 as staged where rnd is set), g at u N N,
+// its output at ob + u out_stride.  Blocks: maps x tiles x H x slices, of
+// kTileThreads threads.
+template <bool DQ, typename T, typename TO>
+__global__ void __launch_bounds__(kTileThreads)
+map_dqk_kernel(const T* __restrict__ qb, const T* __restrict__ kb, size_t in_stride,
+               const float* __restrict__ g, TO* __restrict__ ob, size_t out_stride, int N, int A,
+               int ds, int tiles, int slices, int bf16, int rnd) {
+  __shared__ float qs[kMapTile * kSliceStride], ks[kMapTile * kSliceStride];
+  __shared__ float dus[kMapTile * kSliceStride], os[kMapTile * kSliceStride];
+  const int H = A / ds;
+  long long blk = blockIdx.x;
+  const int sl = static_cast<int>(blk % slices);
+  blk /= slices;
+  const int h = static_cast<int>(blk % H);
+  blk /= H;
+  const int t0 = static_cast<int>(blk % tiles);
+  const size_t u = static_cast<size_t>(blk / tiles);
+  const T* q = qb + u * in_stride;
+  const T* k = kb + u * in_stride;
+  const float* gu = g + u * N * N;
+  const int a0 = h * ds + sl * kSlice, aw = min(kSlice, (h + 1) * ds - a0);
+  const int own0 = t0 * kMapTile;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};   // items threadIdx.x + 256 it: (row i4 / 32, a i4 % 32)
+  for (int t = 0; t < tiles; ++t) {
+    const int other0 = t * kMapTile;
+    if (DQ)
+      head_du(dus, qs, ks, q, k, gu, own0, other0, N, A, ds, h, bf16, rnd);
+    else
+      head_du(dus, qs, ks, q, k, gu, other0, own0, N, A, ds, h, bf16, rnd);
+    // the other side's rows at the unit's features (k for dq, q for dk)
+    stage_slice(os, DQ ? k : q, other0, N, a0, A, rnd);
+    __syncthreads();
+    const int on = min(kMapTile, N - other0);
+#pragma unroll
+    for (int it = 0; it < 4; ++it) {
+      const int i4 = threadIdx.x + kTileThreads * it, r = i4 / kSlice, a = i4 % kSlice;
+      float s = acc[it];
+      for (int o = 0; o < on; ++o)
+        s = fmaf(DQ ? dus[r * kSliceStride + o] : dus[o * kSliceStride + r],
+                 os[o * kSliceStride + a], s);
+      acc[it] = s;
+    }
+  }
+  TO* out = ob + u * out_stride;
+#pragma unroll
+  for (int it = 0; it < 4; ++it) {
+    const int i4 = threadIdx.x + kTileThreads * it, r = i4 / kSlice, a = i4 % kSlice;
+    if (own0 + r < N && a < aw) store(out, static_cast<size_t>(own0 + r) * A + a0 + a, acc[it]);
   }
 }
 

@@ -92,11 +92,11 @@
 //    added in order: the block forward's map, bit for bit.
 //  * The map's backward in (graph, channel, 32-row tile, head, 32-feature
 //    slice of the head) units for dq and (graph, channel, 32-column tile,
-//    ...) units for dk (map_dqk_kernel): each walks the other side's tiles
-//    in order, forms the tile's du of its head (g (1 - t^2) inv / H,
-//    bf16-rounded in bf16 mode, as attn_map.cuh) and carries its dq (dk)
-//    chains across the tiles: each sum one chain in index order, as
-//    backward_tiled's.  d3 = (dq, dk) [B C 2][N][A] f32.
+//    ...) units for dk (attn_map.cuh's map_dqk_kernel, which K7 shares):
+//    each walks the other side's tiles in order, forms the tile's du of
+//    its head (g (1 - t^2) inv / H, bf16-rounded in bf16 mode) and carries
+//    its dq (dk) chains across the tiles: each sum one chain in index
+//    order, as backward_tiled's.  d3 = (dq, dk) [B C 2][N][A] f32.
 //  * The nets' backward, a thread per output element: dpre = (round(d3) @
 //    round(W2)^T) (1 - t1^2) (dpre_kernel); the weight gradients' slices of
 //    the per-graph partial rows (wgrad_kernel: dW1, db1, dW2, db2, each a
@@ -819,10 +819,10 @@ int launch_bwd(const void* qk, const float* const* w, const float* g, void* dqk,
 
 // ---- the tiled plan (the header) ----
 
-constexpr int kTileThreads = 256;
-constexpr int kMapTile = 32;             // rows (columns) of a map tile
-constexpr int kSlice = 32;               // features of q / k staged at once
-constexpr int kSliceStride = kSlice + 1;
+using attn_map::kMapTile;
+using attn_map::kSlice;
+using attn_map::kSliceStride;
+using attn_map::kTileThreads;
 
 // t1[(u 2 + p) N + n][j] = tanh(sum_f qk[b, n, f] round(W1_p[c, f, j]) + b1_p[c, j])
 // (u = b C + c), one chain in f order from 0, f32
@@ -866,17 +866,6 @@ nets_out_kernel(const float* __restrict__ t1, Nets nets, float* __restrict__ out
   out[i] = rb(acc + nets.p[p].b2[static_cast<size_t>(c) * A + o], bf16);
 }
 
-// Rows r0 .. r0 + kMapTile - 1 of x ([rows][A]), features a0 .. a0 + kSlice
-// - 1, into s ([kMapTile][kSliceStride]), zero past N and A.
-__device__ __forceinline__ void stage_slice(float* s, const float* x, int r0, int N, int a0,
-                                            int A) {
-  for (int i = threadIdx.x; i < kMapTile * kSlice; i += kTileThreads) {
-    const int r = i / kSlice, a = i - r * kSlice;
-    s[r * kSliceStride + a] =
-        (r0 + r < N && a0 + a < A) ? x[static_cast<size_t>(r0 + r) * A + a0 + a] : 0.f;
-  }
-}
-
 // One (graph, channel, 32 x 32 tile) of the forward's map; a thread the
 // 2 x 2 pairs (n, n + 16) x (m, m + 16) of the tile.
 __global__ void __launch_bounds__(kTileThreads)
@@ -895,8 +884,8 @@ map_fwd_tiled_kernel(const float* __restrict__ qo, float* __restrict__ out, int 
   float uu[2][2] = {{0.f, 0.f}, {0.f, 0.f}}, acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
   for (int a0 = 0; a0 < A; a0 += kSlice) {
     __syncthreads();   // the last slice is read
-    stage_slice(qs, q, n0, N, a0, A);
-    stage_slice(ks, k, m0, N, a0, A);
+    attn_map::stage_slice(qs, q, n0, N, a0, A, 0);
+    attn_map::stage_slice(ks, k, m0, N, a0, A, 0);
     __syncthreads();
     const int w = min(kSlice, A - a0);
     for (int a = 0; a < w; ++a) {
@@ -925,100 +914,6 @@ map_fwd_tiled_kernel(const float* __restrict__ qo, float* __restrict__ out, int 
       const int n = n0 + nl + 16 * i, m = m0 + ml + 16 * jj;
       if (n < N && m < N) ob[static_cast<size_t>(n) * N + m] = acc[i][jj] / static_cast<float>(H);
     }
-}
-
-// du of head h for the tile of rows n0.. (q) by columns m0.. (k) into dus
-// [kMapTile][kSliceStride]: du = g (1 - t^2) scale, t = tanh(inv q_h . k_h)
-// (the head's dot in index order, its features staged 32 at a time),
-// rounded to bf16 in bf16 mode; zero past N.
-__device__ __forceinline__ void head_du(float* dus, float* qs, float* ks, const float* q,
-                                        const float* k, const float* g, int n0, int m0, int N,
-                                        int A, int ds, int h, int bf16) {
-  const int nl = threadIdx.x / 16, ml = threadIdx.x % 16;
-  const int H = A / ds;
-  const float inv = attn_map::inv_sqrt(ds), scale = attn_map::du_scale(ds, H);
-  float uu[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-  for (int a0 = h * ds; a0 < (h + 1) * ds; a0 += kSlice) {
-    __syncthreads();   // the stages and du are free
-    stage_slice(qs, q, n0, N, a0, A);
-    stage_slice(ks, k, m0, N, a0, A);
-    __syncthreads();
-    const int w = min(kSlice, (h + 1) * ds - a0);
-    for (int a = 0; a < w; ++a) {
-      const float qa[2] = {qs[nl * kSliceStride + a], qs[(nl + 16) * kSliceStride + a]};
-      const float ka[2] = {ks[ml * kSliceStride + a], ks[(ml + 16) * kSliceStride + a]};
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) uu[i][jj] = fmaf(qa[i], ka[jj], uu[i][jj]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int jj = 0; jj < 2; ++jj) {
-      const int r = nl + 16 * i, cix = ml + 16 * jj, n = n0 + r, m = m0 + cix;
-      float du = 0.f;
-      if (n < N && m < N) {
-        const float t = tanhf(uu[i][jj] * inv);
-        du = g[static_cast<size_t>(n) * N + m] * (1.0f - t * t) * scale;
-        if (bf16) du = round_bf16(du);
-      }
-      dus[r * kSliceStride + cix] = du;
-    }
-}
-
-// dq (DQ) or dk of one (graph, channel, 32-row (column) tile, head h,
-// 32-feature slice of the head) unit: the other side's 32-tiles in order,
-// each tile's du of the head, then the unit's chains
-//   dq[n, a] += du[n, m] k[m, a]  (m in order)   dk[m, a] += du[n, m] q[n, a]
-// carried across the tiles in registers (4 items a thread), stored f32.
-template <bool DQ>
-__global__ void __launch_bounds__(kTileThreads)
-map_dqk_kernel(const float* __restrict__ qo, const float* __restrict__ g, float* __restrict__ d3,
-               int N, int A, int ds, int tiles, int slices, int bf16) {
-  __shared__ float qs[kMapTile * kSliceStride], ks[kMapTile * kSliceStride];
-  __shared__ float dus[kMapTile * kSliceStride], os[kMapTile * kSliceStride];
-  const int H = A / ds;
-  long long blk = blockIdx.x;
-  const int sl = static_cast<int>(blk % slices);
-  blk /= slices;
-  const int h = static_cast<int>(blk % H);
-  blk /= H;
-  const int t0 = static_cast<int>(blk % tiles);
-  const size_t u = static_cast<size_t>(blk / tiles);
-  const float* q = qo + u * 2 * N * A;
-  const float* k = q + static_cast<size_t>(N) * A;
-  const float* gu = g + u * N * N;
-  const int a0 = h * ds + sl * kSlice, aw = min(kSlice, (h + 1) * ds - a0);
-  const int own0 = t0 * kMapTile;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};   // items threadIdx.x + 256 it: (row i4 / 32, a i4 % 32)
-  for (int t = 0; t < tiles; ++t) {
-    const int other0 = t * kMapTile;
-    if (DQ)
-      head_du(dus, qs, ks, q, k, gu, own0, other0, N, A, ds, h, bf16);
-    else
-      head_du(dus, qs, ks, q, k, gu, other0, own0, N, A, ds, h, bf16);
-    // the other side's rows at the unit's features (k for dq, q for dk)
-    stage_slice(os, DQ ? k : q, other0, N, a0, A);
-    __syncthreads();
-    const int on = min(kMapTile, N - other0);
-#pragma unroll
-    for (int it = 0; it < 4; ++it) {
-      const int i4 = threadIdx.x + kTileThreads * it, r = i4 / kSlice, a = i4 % kSlice;
-      float s = acc[it];
-      for (int o = 0; o < on; ++o)
-        s = fmaf(DQ ? dus[r * kSliceStride + o] : dus[o * kSliceStride + r],
-                 os[o * kSliceStride + a], s);
-      acc[it] = s;
-    }
-  }
-  float* out = d3 + (u * 2 + (DQ ? 0 : 1)) * N * A;
-#pragma unroll
-  for (int it = 0; it < 4; ++it) {
-    const int i4 = threadIdx.x + kTileThreads * it, r = i4 / kSlice, a = i4 % kSlice;
-    if (own0 + r < N && a < aw) out[static_cast<size_t>(own0 + r) * A + a0 + a] = acc[it];
-  }
 }
 
 // dpre[(u 2 + p) N + n][j] = (sum_o round(d3[..][o]) round(W2_p[c, j, o])) (1 - t1^2)
@@ -1149,9 +1044,12 @@ int launch_bwd_tiled(const void* qk, const float* const* w, const float* g, void
   const int slices = (ds + kSlice - 1) / kSlice;
   const unsigned units =
       static_cast<unsigned>(static_cast<long long>(B) * C * tiles * H * slices);
-  map_dqk_kernel<true><<<units, kTileThreads, 0, s>>>(qo, g, d3, N, A, ds, tiles, slices, bf16);
-  map_dqk_kernel<false><<<units, kTileThreads, 0, s>>>(qo, g, d3, N, A, ds, tiles, slices,
-                                                       bf16);
+  // q at qo + u 2 N A, k N A past it, d3 likewise (dq then dk)
+  const size_t na = static_cast<size_t>(N) * A;
+  attn_map::map_dqk_kernel<true, float, float><<<units, kTileThreads, 0, s>>>(
+      qo, qo + na, 2 * na, g, d3, 2 * na, N, A, ds, tiles, slices, bf16, 0);
+  attn_map::map_dqk_kernel<false, float, float><<<units, kTileThreads, 0, s>>>(
+      qo, qo + na, 2 * na, g, d3 + na, 2 * na, N, A, ds, tiles, slices, bf16, 0);
   dpre_kernel<<<grid_of(un), kTileThreads, 0, s>>>(d3, t1, nets, dpre, B, N, C, A, bf16);
   const size_t P = 2 * static_cast<size_t>(C) * (static_cast<size_t>(F) * A + A +
                                                  static_cast<size_t>(A) * A + A);

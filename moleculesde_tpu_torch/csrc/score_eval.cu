@@ -53,6 +53,8 @@
 //   threads): the GAT layer takes its logits chunk by chunk, the softmax
 //   its max and sum over all four, and the message forms e2 again chunk by
 //   chunk, summing the terms in the same order.
+// - N > 128: the layered plan (its own section below), a few launches an
+//   evaluation with the node-wide state in device memory, at any N.
 // - A warp takes one destination d at a time, a lane one source s (s = 32j
 //   + lane for the j-th chunk of 32 sources: one, two or four chunks); sums over
 //   sources are warp shuffles, and the softmax over sources takes its max
@@ -496,8 +498,10 @@ __device__ __forceinline__ void matvec32(const float (&v)[32], const float* w, i
   }
 }
 
-// f32 mode: embedding of one coefficient pair: [sin, cos](c0 * wc) |
-// [sin, cos](c2 * wc) through the [4h, h] coff_mlp kernel, plus its bias
+// f32 mode (and the layered plan): embedding of one coefficient pair:
+// [sin, cos](c0 * wc) | [sin, cos](c2 * wc) through the [4h, h] coff_mlp
+// kernel, plus its bias; R rounds the Fourier features to bf16 first
+template <bool R = false>
 __device__ __forceinline__ void coff_embed(float c0, float c2, const float* wc, const float* wm,
                                            const float* bm, float (&acc)[32]) {
 #pragma unroll
@@ -507,6 +511,12 @@ __device__ __forceinline__ void coff_embed(float c0, float c2, const float* wc, 
     float s0, k0, s2, k2;
     sincosf(c0 * wc[k], &s0, &k0);
     sincosf(c2 * wc[k], &s2, &k2);
+    if (R) {
+      s0 = rbf(s0);
+      k0 = rbf(k0);
+      s2 = rbf(s2);
+      k2 = rbf(k2);
+    }
     const float4* r0 = reinterpret_cast<const float4*>(wm + k * kH);
     const float4* r1 = reinterpret_cast<const float4*>(wm + (kH + k) * kH);
     const float4* r2 = reinterpret_cast<const float4*>(wm + (2 * kH + k) * kH);
@@ -1302,6 +1312,570 @@ int launch_n(const float* pos, const float* node, const float* edge2d, const flo
                          NC, cluster, nd, smem, stream);
 }
 
+// ---- the layered plan (n_max > 128) -----------------------------------------
+// Past n_max 128 a cluster's blocks can no longer hold all N nodes' state
+// and the basis node part in shared memory, and a lane's source chunks no
+// longer fit in registers.  The layered plan splits an evaluation into 13
+// launches, every node-wide tensor in device memory between them, and
+// shared memory that does not depend on N (layered_smem()):
+//   1. layered_front_kernel: frames, the two coefficient embeddings, the
+//      projection MLP (and variant 2's distance gate) and the masked edge
+//      features of every pair into the slab (32 values a pair in the
+//      mode's type), the mask transposed to [b][d][s] and the valid
+//      sources per destination;
+//   2. per GAT layer, layered_node_kernel (q, k, v and skip of every node,
+//      a thread per value) and layered_gat_kernel (a warp per destination,
+//      a lane per source of each 32-source chunk: e2 = slab row @ W_e + b_e,
+//      the logits, the softmax over all sources by an online max and sum,
+//      then e2 and the logits again for the message, LayerNorm, FFN and
+//      residuals; the new node state into the other of two buffers);
+//   3. per basis module, layered_node_kernel (hp = x @ W_h) and
+//      layered_basis_kernel (cc of every pair, times the frame basis and
+//      the EquiLayer mean, summed over the sources chunk by chunk in order
+//      by the destination's warp into its score row).
+// Blocks are (molecule, 8 destinations): B * N / 8 blocks, 256 at B = 2, N
+// = 1024.  Every product runs as FMAs on the CUDA cores in both modes;
+// bf16 mode rounds their operands (weights when staged, activations where
+// the plain version's mm() rounds them) and the values the cluster plan
+// rounds.  silu and the softmax's exp are the accurate expf.  A score row
+// is summed by one warp in a fixed order and nothing is added atomically:
+// two runs give the same bits.
+
+constexpr int kLDests = 8;                    // destinations per block, a warp each
+constexpr int kLThreads = 32 * kLDests;
+constexpr int kLWarpFloats = 2 * kH + kCD;    // a warp's q row, FFN row and hp[d] row
+constexpr int kLNode = kCD;                   // floats per node of the node buffer:
+                                              // q | k | v | skip, or hp
+static_assert(4 * kH == kLNode, "q, k, v and skip fill a node row");
+
+__host__ __device__ constexpr int layered_smem() {
+  return kWBuf * 4 + kLDests * kLWarpFloats * 4;
+}
+
+// byte offsets of the layered plan's device scratch, each region 256-byte
+// aligned; ops/score_kernel.py::score_scratch_bytes counts the same
+struct LayeredScratch {
+  size_t slab, mask, cnt, node, xa, xb, total;
+};
+
+__host__ inline LayeredScratch layered_scratch(long long B, long long N, bool bf16) {
+  auto al = [](size_t v) { return (v + 255) & ~static_cast<size_t>(255); };
+  const size_t b = static_cast<size_t>(B), n = static_cast<size_t>(N), S = (n + 31) / 32;
+  LayeredScratch L;
+  size_t o = 0;
+  L.slab = o;
+  o += al(b * n * S * 32 * (bf16 ? 64 : 128));
+  L.mask = o;
+  o += al(b * n * n * 4);
+  L.cnt = o;
+  o += al(b * n * 4);
+  L.node = o;
+  o += al(b * n * kLNode * 4);
+  L.xa = o;
+  o += al(b * n * kH * 4);
+  L.xb = o;
+  o += al(b * n * kH * 4);
+  L.total = o;
+  return L;
+}
+
+// this lane's 16-byte words of the slab unit (molecule b, destination d,
+// chunk j): 32 lanes x 4 words (bf16) or 8 words (f32), word k of lane l at
+// 32 k + l, as the cluster plan's device-memory slab
+template <bool BF16>
+__device__ __forceinline__ uint4* lunit(void* slab, int b, int N, int S, int d, int j) {
+  return static_cast<uint4*>(slab) +
+         ((static_cast<size_t>(b) * N + d) * S + j) * (BF16 ? 4 : 8) * 32 + (threadIdx.x & 31);
+}
+
+__device__ __forceinline__ void store_row_bf16(uint4* p, const float (&v)[32]) {
+#pragma unroll
+  for (int w = 0; w < 4; ++w)
+    __stcg(p + 32 * w, make_uint4(pack_bf16x2(v[8 * w], v[8 * w + 1]),
+                                  pack_bf16x2(v[8 * w + 2], v[8 * w + 3]),
+                                  pack_bf16x2(v[8 * w + 4], v[8 * w + 5]),
+                                  pack_bf16x2(v[8 * w + 6], v[8 * w + 7])));
+}
+
+__device__ __forceinline__ void load_row_bf16(const uint4* p, float (&v)[32]) {
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    const uint4 r = __ldcg(p + 32 * w);
+    const uint32_t x[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[8 * w + 2 * i] = __uint_as_float(x[i] << 16);
+      v[8 * w + 2 * i + 1] = __uint_as_float(x[i] & 0xffff0000u);
+    }
+  }
+}
+
+template <bool BF16>
+__device__ __forceinline__ void lstore(uint4* p, const float (&v)[32]) {
+  if constexpr (BF16)
+    store_row_bf16(p, v);
+  else
+    store_row(p, v);
+}
+
+template <bool BF16>
+__device__ __forceinline__ void lload(const uint4* p, float (&v)[32]) {
+  if constexpr (BF16)
+    load_row_bf16(p, v);
+  else
+    load_row(p, v);
+}
+
+template <bool BF16>
+__device__ __forceinline__ void round_row(float (&v)[32]) {
+#pragma unroll
+  for (int k = 0; k < 32; ++k) v[k] = rnd<BF16>(v[k]);
+}
+
+// n floats of shared memory rounded to bf16 in place, by the whole block
+// (after the barrier that follows their staging)
+__device__ __forceinline__ void round_buf(float* p, int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) p[i] = rbf(p[i]);
+}
+
+// Launch 1: the masked edge features of the block's destinations and every
+// source into the slab, the mask as maskT[b][d][s], and cnt[b][d] = max(1,
+// valid sources).  f32 weight layout of the cluster plan's phase 1 (bf16
+// mode rounds the product weights once staged: the coefficient MLP, the
+// projection's embedding rows and its second layer, the input MLP; the
+// angle rows and biases stay f32, as the plain version's elementwise
+// terms).
+template <bool BF16>
+__global__ void __launch_bounds__(kLThreads)
+layered_front_kernel(const float* __restrict__ pos, const float* __restrict__ edge2d,
+                     const float* __restrict__ mask, const float* __restrict__ params,
+                     const Offsets off, void* __restrict__ slab, float* __restrict__ maskT,
+                     float* __restrict__ cnt, int N, int S, int dtiles, int variant) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* wbuf = reinterpret_cast<float*>(smem);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.x / dtiles, d = (blockIdx.x - b * dtiles) * kLDests + warp;
+  const float two_pi = static_cast<float>(2.0 * 3.14159265358979323846);
+  for (int i = tid; i < kH; i += kLThreads) {
+    wbuf[kWC + i] = params[off.v[0] + i] * two_pi;
+    if (variant == 2) wbuf[kDW + i] = params[off.v[7] + i] * two_pi;
+  }
+  stage(wbuf + kCM, params + off.v[1], 4 * kH * kH, kLThreads);
+  stage(wbuf + kBM, params + off.v[2], kH, kLThreads);
+  stage(wbuf + kP1, params + off.v[3], (2 * kH + 2) * kH, kLThreads);
+  stage(wbuf + kB1, params + off.v[4], kH, kLThreads);
+  stage(wbuf + kP2, params + off.v[5], kH * kH, kLThreads);
+  stage(wbuf + kB2, params + off.v[6], kH, kLThreads);
+  if (variant == 2) {
+    stage(wbuf + kIN, params + off.v[8], 2 * kH * kH, kLThreads);
+    stage(wbuf + kBI, params + off.v[9], kH, kLThreads);
+  }
+  staged();
+  __syncthreads();
+  if (BF16) {
+    round_buf(wbuf + kCM, 4 * kH * kH);
+    round_buf(wbuf + kP1 + 2 * kH, 2 * kH * kH);
+    round_buf(wbuf + kP2, kH * kH);
+    if (variant == 2) round_buf(wbuf + kIN, 2 * kH * kH);
+    __syncthreads();
+  }
+  if (d >= N) return;
+  const size_t dn = static_cast<size_t>(b) * N + d;
+  const float pd[3] = {pos[dn * 3], pos[dn * 3 + 1], pos[dn * 3 + 2]};
+  float count = 0.f;
+#pragma unroll 1
+  for (int j = 0; j < S; ++j) {
+    const int s = 32 * j + lane;
+    const bool real = s < N;
+    const size_t sn = static_cast<size_t>(b) * N + s;
+    const float m = real ? mask[sn * N + d] : 0.f;
+    count += warp_sum(m);
+    if (!real) continue;
+    maskT[dn * N + s] = m;
+    const float ps[3] = {pos[sn * 3], pos[sn * 3 + 1], pos[sn * 3 + 2]};
+    float cs[3], cd[3], psin, pcos;
+    pair_geometry(ps, pd, cs, cd, psin, pcos);
+    float pre[32], acc[32];
+#pragma unroll
+    for (int k = 0; k < 32; ++k) pre[k] = 0.f;
+    coff_embed<BF16>(cs[0], cs[2], wbuf + kWC, wbuf + kCM, wbuf + kBM, acc);
+    round_row<BF16>(acc);
+    matvec32(acc, wbuf + kP1 + 2 * kH, kH, pre);
+    coff_embed<BF16>(cd[0], cd[2], wbuf + kWC, wbuf + kCM, wbuf + kBM, acc);
+    round_row<BF16>(acc);
+    matvec32(acc, wbuf + kP1 + (2 + kH) * kH, kH, pre);
+#pragma unroll
+    for (int k = 0; k < 32; ++k) {
+      pre[k] += psin * wbuf[kP1 + k] + pcos * wbuf[kP1 + kH + k] + wbuf[kB1 + k];
+      pre[k] = rnd<BF16>(silu<false>(pre[k]));
+      acc[k] = 0.f;
+    }
+    matvec32(pre, wbuf + kP2, kH, acc);          // frame_inv (without bias)
+    const float4* e2d = reinterpret_cast<const float4*>(edge2d + (sn * N + d) * kH);
+    if (variant == 2) {
+      const float dist = norm3(ps[0] - pd[0], ps[1] - pd[1], ps[2] - pd[2]);
+#pragma unroll
+      for (int k = 0; k < 32; ++k) pre[k] = 0.f;
+#pragma unroll 2
+      for (int k = 0; k < 32; ++k) {
+        float sn_, cs_;
+        sincosf(dist * wbuf[kDW + k], &sn_, &cs_);
+        sn_ = rnd<BF16>(sn_);
+        cs_ = rnd<BF16>(cs_);
+        const float4* ra = reinterpret_cast<const float4*>(wbuf + kIN + k * kH);
+        const float4* rb = reinterpret_cast<const float4*>(wbuf + kIN + (kH + k) * kH);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const float4 qa = ra[q], qb = rb[q];
+          pre[4 * q] += sn_ * qa.x + cs_ * qb.x;
+          pre[4 * q + 1] += sn_ * qa.y + cs_ * qb.y;
+          pre[4 * q + 2] += sn_ * qa.z + cs_ * qb.z;
+          pre[4 * q + 3] += sn_ * qa.w + cs_ * qb.w;
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const float4 e = __ldg(e2d + q);
+      const float ev[4] = {e.x, e.y, e.z, e.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = 4 * q + i;
+        const float v = variant == 2 ? (pre[c] + wbuf[kBI + c]) * ev[i] + (acc[c] + wbuf[kB2 + c])
+                                     : ev[i] + (acc[c] + wbuf[kB2 + c]);
+        acc[c] = rnd<BF16>(v * m);
+      }
+    }
+    lstore<BF16>(lunit<BF16>(slab, b, N, S, d, j), acc);
+  }
+  if (lane == 0) cnt[dn] = fmaxf(count, 1.f);
+}
+
+// which weights a node row takes: up to four [32, cols] matrices (param
+// offsets), each with its bias (-1: none), side by side in the row
+struct NodeW {
+  int w[4], b[4];
+};
+
+// out[row][o] = sum_k x[row][k] W_m[k][c] (+ b_m[c]), o = m cols + c, for
+// every node row (B N of them, kLNode values each); a thread per value,
+// one FMA chain over k in order, both operands rounded in bf16 mode (x is
+// rounded already past layer 0; node_attr is rounded here).
+template <bool BF16>
+__global__ void __launch_bounds__(256)
+layered_node_kernel(const float* __restrict__ x, const float* __restrict__ params, const NodeW nw,
+                    float* __restrict__ out, long long total, int cols) {
+  const long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+  if (i >= total) return;
+  const long long row = i / kLNode;
+  const int o = static_cast<int>(i - row * kLNode), m = o / cols, c = o - m * cols;
+  const float* xr = x + row * kH;
+  const float* w = params + nw.w[m] + c;
+  float acc = 0.f;
+#pragma unroll 8
+  for (int k = 0; k < kH; ++k)
+    acc = fmaf(rnd<BF16>(__ldg(xr + k)), rnd<BF16>(__ldg(w + k * cols)), acc);
+  out[i] = nw.b[m] >= 0 ? acc + __ldg(params + nw.b[m] + c) : acc;
+}
+
+// e2 = slab row @ W_e + b_e of this lane's pair, W_e at wbuf + kWE
+template <bool BF16>
+__device__ __forceinline__ void ledge_row(const uint4* unit, const float* wbuf, float (&e2)[32]) {
+  float ea[32];
+  lload<BF16>(unit, ea);
+#pragma unroll
+  for (int c = 0; c < 32; ++c) e2[c] = 0.f;
+  matvec32(ea, wbuf + kWE, kH, e2);
+#pragma unroll
+  for (int c = 0; c < 32; ++c) e2[c] += wbuf[kGBias + 3 * kH + c];
+}
+
+// the eight heads' logits of the pair (s, d): sum over the head's channels
+// of round((k[s] + e2) * q[d]) times 1 / sqrt(4), the float minimum where
+// the pair is masked (the plain version's fill)
+template <bool BF16>
+__device__ __forceinline__ void llogits(const float* __restrict__ ks, const float (&e2)[32],
+                                        const float* qd, float m, float (&l8)[kHeads]) {
+#pragma unroll
+  for (int q4 = 0; q4 < 8; ++q4) {
+    const float4 k4 = __ldg(reinterpret_cast<const float4*>(ks) + q4);
+    const float kv[4] = {k4.x, k4.y, k4.z, k4.w};
+    float l = 0.f;
+#pragma unroll
+    for (int cc = 0; cc < kCHead; ++cc) {
+      const int c = 4 * q4 + cc;
+      l += rnd<BF16>(__fmul_rn(kv[cc] + e2[c], qd[c]));
+    }
+    l8[q4] = m > 0.f ? l * 0.5f : -3.402823466e38f;
+  }
+}
+
+// One DenseGAT layer of the block's destinations (a warp each): node row
+// [q | k | v | skip] from layered_node_kernel, x in, the new x out.
+// Weights: the edge and FFN kernels at their cluster-plan offsets (kWE,
+// kWF1, kWF2; rounded in bf16 mode), the seven biases, the LayerNorms.
+template <bool BF16>
+__global__ void __launch_bounds__(kLThreads)
+layered_gat_kernel(void* __restrict__ slab, const float* __restrict__ maskT,
+                   const float* __restrict__ nodeq, const float* __restrict__ xin,
+                   float* __restrict__ xout, const float* __restrict__ params, const Offsets off,
+                   int seg, int N, int S, int dtiles, int silu_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* wbuf = reinterpret_cast<float*>(smem);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.x / dtiles, d = (blockIdx.x - b * dtiles) * kLDests + warp;
+  float* qd = wbuf + kWBuf + warp * kLWarpFloats;
+  float* f = qd + kH;
+  for (int j = 3; j < 7; ++j)
+    if (j != 4) stage(wbuf + j * kH * kH, params + off.v[seg + 2 * j], kH * kH, kLThreads);
+  for (int j = 0; j < 7; ++j)
+    stage(wbuf + kGBias + j * kH, params + off.v[seg + 2 * j + 1], kH, kLThreads);
+  for (int j = 0; j < 4; ++j)
+    stage(wbuf + kGNorm + j * kH, params + off.v[seg + 14 + j], kH, kLThreads);
+  staged();
+  __syncthreads();
+  if (BF16) {
+    round_buf(wbuf + kWE, kH * kH);
+    round_buf(wbuf + kWF1, 2 * kH * kH);
+    __syncthreads();
+  }
+  if (d >= N) return;
+  const size_t dn = static_cast<size_t>(b) * N + d;
+  qd[lane] = nodeq[dn * kLNode + lane];
+  __syncwarp();
+  const float* mrow = maskT + dn * N;
+  // the softmax over the sources: each lane's running max and sum per head
+  // over its chunks, then merged across the warp
+  float mx[kHeads], sm[kHeads];
+#pragma unroll
+  for (int hh = 0; hh < kHeads; ++hh) {
+    mx[hh] = __uint_as_float(0xff800000u);   // -inf
+    sm[hh] = 0.f;
+  }
+#pragma unroll 1
+  for (int j = 0; j < S; ++j) {
+    const int s = 32 * j + lane;
+    if (s >= N) continue;
+    float e2[32], l8[kHeads];
+    ledge_row<BF16>(lunit<BF16>(slab, b, N, S, d, j), wbuf, e2);
+    llogits<BF16>(nodeq + (static_cast<size_t>(b) * N + s) * kLNode + kH, e2, qd, mrow[s], l8);
+#pragma unroll
+    for (int hh = 0; hh < kHeads; ++hh) {
+      if (l8[hh] > mx[hh]) {
+        sm[hh] = sm[hh] * expf(mx[hh] - l8[hh]) + 1.f;
+        mx[hh] = l8[hh];
+      } else {
+        sm[hh] += expf(l8[hh] - mx[hh]);
+      }
+    }
+  }
+#pragma unroll
+  for (int hh = 0; hh < kHeads; ++hh) {
+    const float top = warp_max(mx[hh]);
+    const float part = sm[hh] > 0.f ? sm[hh] * expf(mx[hh] - top) : 0.f;
+    sm[hh] = fmaxf(warp_sum(part), 1e-30f);
+    mx[hh] = top;
+  }
+  // the message: alpha (v[s] + e2) summed over this lane's chunks in order,
+  // then over the lanes
+  float msg[32];
+#pragma unroll
+  for (int c = 0; c < 32; ++c) msg[c] = 0.f;
+#pragma unroll 1
+  for (int j = 0; j < S; ++j) {
+    const int s = 32 * j + lane;
+    if (s >= N) continue;
+    const float m = mrow[s];
+    const float* ns = nodeq + (static_cast<size_t>(b) * N + s) * kLNode;
+    float e2[32], l8[kHeads];
+    ledge_row<BF16>(lunit<BF16>(slab, b, N, S, d, j), wbuf, e2);
+    llogits<BF16>(ns + kH, e2, qd, m, l8);
+#pragma unroll
+    for (int hh = 0; hh < kHeads; ++hh) l8[hh] = rnd<BF16>(expf(l8[hh] - mx[hh]) / sm[hh] * m);
+    const float4* v4 = reinterpret_cast<const float4*>(ns + 2 * kH);
+#pragma unroll
+    for (int q4 = 0; q4 < 8; ++q4) {
+      const float4 v = __ldg(v4 + q4);
+      msg[4 * q4] += l8[q4] * (v.x + e2[4 * q4]);
+      msg[4 * q4 + 1] += l8[q4] * (v.y + e2[4 * q4 + 1]);
+      msg[4 * q4 + 2] += l8[q4] * (v.z + e2[4 * q4 + 2]);
+      msg[4 * q4 + 3] += l8[q4] * (v.w + e2[4 * q4 + 3]);
+    }
+  }
+  const int c = lane;
+  const float* s1 = wbuf + kGNorm;
+  const float* o1 = s1 + kH;
+  const float* s2 = o1 + kH;
+  const float* o2 = s2 + kH;
+  const float mha = rnd<BF16>(reduce_scatter(msg, lane) + nodeq[dn * kLNode + 3 * kH + c]);
+  float mean = warp_sum(mha) * (1.f / kH);
+  float dv = mha - mean;
+  float y = dv * rsqrtf(warp_sum(dv * dv) * (1.f / kH) + 1e-6f) * s1[c] + o1[c];
+  const float x1 = rnd<BF16>(rnd<BF16>(xin[dn * kH + c]) + rnd<BF16>(y));
+  f[c] = x1;
+  __syncwarp();
+  float hacc = 0.f;
+#pragma unroll 8
+  for (int k = 0; k < kH; ++k) hacc = fmaf(f[k], wbuf[kWF1 + k * kH + c], hacc);
+  const float hval = rnd<BF16>(silu<false>(hacc + wbuf[kGBias + 5 * kH + c]));
+  __syncwarp();
+  f[c] = hval;
+  __syncwarp();
+  float o = 0.f;
+#pragma unroll 8
+  for (int k = 0; k < kH; ++k) o = fmaf(f[k], wbuf[kWF2 + k * kH + c], o);
+  o = rnd<BF16>(o + wbuf[kGBias + 6 * kH + c]);
+  mean = warp_sum(o) * (1.f / kH);
+  dv = o - mean;
+  y = dv * rsqrtf(warp_sum(dv * dv) * (1.f / kH) + 1e-6f) * s2[c] + o2[c];
+  float x2 = rnd<BF16>(x1 + rnd<BF16>(y));
+  if (silu_out) x2 = silu<false>(x2);
+  xout[dn * kH + c] = rnd<BF16>(x2);
+}
+
+// One basis module: cc = (b_o + coff[:, 0:64] @ W_o[0:64]) + coff[:, 64:128]
+// @ W_o[64:128] (the TPU kernel's 64-channel chunks), coff = silu((hp[s] +
+// hp[d]) + (slab row @ W_be + b_be)), rounded as W_o's operand in bf16
+// mode; the score row of d gets sum_s rows(cc, frame) mask[s, d] / cnt[d],
+// chunk by chunk in order (first: written, else added).
+template <bool BF16>
+__global__ void __launch_bounds__(kLThreads)
+layered_basis_kernel(void* __restrict__ slab, const float* __restrict__ maskT,
+                     const float* __restrict__ cnt, const float* __restrict__ pos,
+                     const float* __restrict__ hp, const float* __restrict__ params,
+                     const Offsets off, int seg, int N, int S, int dtiles,
+                     float* __restrict__ out, int first) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* wbuf = reinterpret_cast<float*>(smem);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.x / dtiles, d = (blockIdx.x - b * dtiles) * kLDests + warp;
+  float* hpd = wbuf + kWBuf + warp * kLWarpFloats + 2 * kH;
+  stage(wbuf + kWBE, params + off.v[seg + 1], kH * kCD, kLThreads);
+  stage(wbuf + kBBE, params + off.v[seg + 2], kCD, kLThreads);
+  stage(wbuf + kWO, params + off.v[seg + 3], kCD * 3, kLThreads);
+  stage(wbuf + kBO, params + off.v[seg + 4], 3, kLThreads);
+  staged();
+  __syncthreads();
+  if (BF16) {
+    round_buf(wbuf + kWBE, kH * kCD);
+    round_buf(wbuf + kWO, kCD * 3);
+    __syncthreads();
+  }
+  if (d >= N) return;
+  const size_t dn = static_cast<size_t>(b) * N + d;
+  for (int i = lane; i < kCD; i += 32) hpd[i] = hp[dn * kLNode + i];
+  __syncwarp();
+  const float pd[3] = {pos[dn * 3], pos[dn * 3 + 1], pos[dn * 3 + 2]};
+  const float* mrow = maskT + dn * N;
+  const float count = cnt[dn];
+  float tot[3] = {0.f, 0.f, 0.f};
+#pragma unroll 1
+  for (int j = 0; j < S; ++j) {
+    const int s = 32 * j + lane;
+    float contrib[3] = {0.f, 0.f, 0.f};
+    if (s < N) {
+      const size_t sn = static_cast<size_t>(b) * N + s;
+      float ea[32];
+      lload<BF16>(lunit<BF16>(slab, b, N, S, d, j), ea);
+      const float4* hs = reinterpret_cast<const float4*>(hp + sn * kLNode);
+      float cc[3] = {wbuf[kBO], wbuf[kBO + 1], wbuf[kBO + 2]};
+      float part[3] = {0.f, 0.f, 0.f};
+#pragma unroll 1
+      for (int c0 = 0; c0 < kCD; c0 += 32) {
+        float acc[32];
+#pragma unroll
+        for (int k = 0; k < 32; ++k) acc[k] = 0.f;
+        matvec32(ea, wbuf + kWBE + c0, kCD, acc);
+#pragma unroll
+        for (int q4 = 0; q4 < 8; ++q4) {
+          const float4 h4 = __ldg(hs + c0 / 4 + q4);
+          const float hv[4] = {h4.x, h4.y, h4.z, h4.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int k = 4 * q4 + i, c = c0 + k;
+            const float coff = rnd<BF16>(
+                silu<false>((hv[i] + hpd[c]) + (acc[k] + wbuf[kBBE + c])));
+            part[0] = fmaf(coff, wbuf[kWO + 3 * c], part[0]);
+            part[1] = fmaf(coff, wbuf[kWO + 3 * c + 1], part[1]);
+            part[2] = fmaf(coff, wbuf[kWO + 3 * c + 2], part[2]);
+          }
+        }
+        if ((c0 + 32) % 64 == 0) {   // the TPU kernel's 64-channel chunks
+#pragma unroll
+          for (int i = 0; i < 3; ++i) {
+            cc[i] += part[i];
+            part[i] = 0.f;
+          }
+        }
+      }
+      const float ps[3] = {pos[sn * 3], pos[sn * 3 + 1], pos[sn * 3 + 2]};
+      Frame fr;
+      make_frame(ps, pd, fr);
+      const float mn = mrow[s] / count;
+#pragma unroll
+      for (int comp = 0; comp < 3; ++comp) {
+        const float rows = rnd<BF16>(cc[0] * fr.df[comp]) + rnd<BF16>(cc[1] * fr.cr[comp]) +
+                           rnd<BF16>(cc[2] * fr.vt[comp]);
+        contrib[comp] = rows * mn;
+      }
+    }
+#pragma unroll
+    for (int comp = 0; comp < 3; ++comp) tot[comp] += warp_sum(contrib[comp]);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int comp = 0; comp < 3; ++comp)
+      out[dn * 3 + comp] = first ? tot[comp] : out[dn * 3 + comp] + tot[comp];
+  }
+}
+
+template <bool BF16>
+int launch_layered(const float* pos, const float* node, const float* edge2d, const float* mask,
+                   const float* params, const Offsets& off, float* out, unsigned char* scratch,
+                   int B, int N, int variant, int L, int NC, cudaStream_t st) {
+  const LayeredScratch sc = layered_scratch(B, N, BF16);
+  void* slab = scratch + sc.slab;
+  float* maskT = reinterpret_cast<float*>(scratch + sc.mask);
+  float* cnt = reinterpret_cast<float*>(scratch + sc.cnt);
+  float* nodebuf = reinterpret_cast<float*>(scratch + sc.node);
+  float* xbuf[2] = {reinterpret_cast<float*>(scratch + sc.xa),
+                    reinterpret_cast<float*>(scratch + sc.xb)};
+  const int S = (N + 31) / 32, dtiles = (N + kLDests - 1) / kLDests;
+  const long long pair_blocks = static_cast<long long>(B) * dtiles;
+  const long long node_items = static_cast<long long>(B) * N * kLNode;
+  const long long node_blocks = (node_items + 255) / 256;
+  if (pair_blocks > 0x7fffffffll || node_blocks > 0x7fffffffll)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = layered_smem();
+  const unsigned pb = static_cast<unsigned>(pair_blocks), nb = static_cast<unsigned>(node_blocks);
+  layered_front_kernel<BF16><<<pb, kLThreads, smem, st>>>(pos, edge2d, mask, params, off, slab,
+                                                          maskT, cnt, N, S, dtiles, variant);
+  const int gat0 = variant == 2 ? 10 : 7, basis0 = gat0 + 18 * L * NC;
+  const float* x = node;
+  int li = 0;
+  for (int mod = 0; mod < L; ++mod) {
+    for (int conv = 0; conv < NC; ++conv) {
+      const int seg = gat0 + 18 * (mod * NC + conv);
+      // q, k, v, skip: GAT kernels 0, 1, 2 and 4, each followed by its bias
+      const NodeW nw = {{off.v[seg], off.v[seg + 2], off.v[seg + 4], off.v[seg + 8]},
+                        {off.v[seg + 1], off.v[seg + 3], off.v[seg + 5], off.v[seg + 9]}};
+      layered_node_kernel<BF16><<<nb, 256, 0, st>>>(x, params, nw, nodebuf, node_items, kH);
+      float* xn = xbuf[li++ & 1];
+      layered_gat_kernel<BF16><<<pb, kLThreads, smem, st>>>(slab, maskT, nodebuf, x, xn, params,
+                                                            off, seg, N, S, dtiles,
+                                                            conv < NC - 1);
+      x = xn;
+    }
+    const int seg = basis0 + 5 * mod;
+    const NodeW hw = {{off.v[seg], 0, 0, 0}, {-1, -1, -1, -1}};
+    layered_node_kernel<BF16><<<nb, 256, 0, st>>>(x, params, hw, nodebuf, node_items, kCD);
+    layered_basis_kernel<BF16><<<pb, kLThreads, smem, st>>>(slab, maskT, cnt, pos, nodebuf,
+                                                            params, off, seg, N, S, dtiles, out,
+                                                            mod == 0);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Shared-memory bytes of one block at n_max N with nd destinations per
@@ -1337,4 +1911,38 @@ extern "C" int score_eval_fused(const float* pos, const float* node, const float
                                num_layers, num_convs, cluster, nd, smem, s)
               : launch_n<false>(pos, node, edge2d, mask, params, off, out, slab, B, N, variant,
                                 num_layers, num_convs, cluster, nd, smem, s);
+}
+
+// The layered plan (n_max > 128, or forced): dynamic shared memory of its
+// blocks and the bytes of device scratch it needs at B x N
+// (ops/score_kernel.py::score_plan and score_scratch_bytes count the same).
+extern "C" int score_eval_layered_smem_bytes() { return layered_smem(); }
+
+extern "C" long long score_eval_layered_scratch_bytes(int B, int N, int bf16) {
+  return static_cast<long long>(layered_scratch(B, N, bf16 != 0).total);
+}
+
+// The layered plan at any N: the arguments of score_eval_fused, with
+// scratch (score_eval_layered_scratch_bytes of device memory, 256-byte
+// aligned) in place of the slab and the plan's smem.  Returns
+// cudaErrorInvalidValue on other widths or layouts, when smem disagrees
+// with the plan, or when a launch's blocks pass the int32 grid index.
+extern "C" int score_eval_layered(const float* pos, const float* node, const float* edge2d,
+                                  const float* mask, const float* params, const int* offsets,
+                                  int n_offsets, float* out, void* scratch, int B, int N,
+                                  int variant, int num_layers, int num_convs, int bf16, int smem,
+                                  void* stream) {
+  const int expected = (variant == 2 ? 10 : 7) + 18 * num_layers * num_convs + 5 * num_layers;
+  if (B < 1 || N < 1 || (variant != 1 && variant != 2) || n_offsets != expected ||
+      n_offsets > kMaxSegments || smem != layered_smem() || scratch == nullptr ||
+      reinterpret_cast<uintptr_t>(scratch) % 256 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Offsets off;
+  for (int i = 0; i < kMaxSegments; ++i) off.v[i] = i < n_offsets ? offsets[i] : 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  unsigned char* sc = static_cast<unsigned char*>(scratch);
+  return bf16 ? launch_layered<true>(pos, node, edge2d, mask, params, off, out, sc, B, N, variant,
+                                     num_layers, num_convs, s)
+              : launch_layered<false>(pos, node, edge2d, mask, params, off, out, sc, B, N,
+                                      variant, num_layers, num_convs, s);
 }

@@ -13,8 +13,12 @@ map, the forward (graph, channel, 32 x 32 tile), the backward (graph,
 channel, 32 rows) for dq and, past one tile, (graph, channel, 32 columns)
 for dk, walking the map in 32-wide chunks, so neither's shared memory
 depends on N (:func:`plan`); the per-head logits never leave the block
-(the source's header says more).  On a CPU tensor they take
-:func:`attn_map_bank_plain` and :func:`attn_map_bank_bwd_plain`.
+(the source's header says more).  Where q / k are too wide for a block's
+shared memory the grouped plan runs: the forward walks A in column slices,
+the backward K8's tiled map backward (units of one head's 32-feature
+slice), both with the block plans' bits, at any A with ``A % ds == 0``.
+On a CPU tensor they take :func:`attn_map_bank_plain` and
+:func:`attn_map_bank_bwd_plain`.
 
 Numerics, as the TPU kernel's (and not as the eager bank of
 ``ops/attn_maps.py``): ``bf16`` rounds q and k to bf16, forms each head's
@@ -120,29 +124,68 @@ def row_stride(a: int) -> int:
     return -(-a // 4) * 4 + 4
 
 
-def plan(n: int, a: int, h: int, bwd: bool) -> Tuple[int, int]:
+SLICE_MAX = 128     # csrc/attn_bank.cu::kSliceMax: the grouped forward's widest slice
+MAP_SLICE = 32      # attn_map.cuh::kSlice: features of a grouped backward unit
+GROUPED_BWD_SMEM = 4 * 4 * 32 * (MAP_SLICE + 1)   # map_dqk_kernel's four static tiles
+_INT32_MAX = 2 ** 31 - 1
+
+
+def slice_width(a: int, groups: int) -> int:
+    """Columns of the forward's slices at ``groups`` slices
+    (``csrc/attn_bank.cu::slice_width``): the whole row at 1, else A / groups
+    rounded up to a multiple of 4."""
+    if groups <= 1:
+        return a
+    per_group = -(-a // groups)
+    return -(-per_group // 4) * 4
+
+
+def plan(n: int, a: int, h: int, bwd: bool, groups: int = None,
+         bc: int = 1) -> Tuple[int, int, int]:
     """The launch plan of a forward (``bwd`` False) or backward block of
-    csrc/attn_bank.cu: (rows, shared-memory bytes), neither depending on N.
-    The forward's unit is a :data:`FWD_TILE` x :data:`FWD_TILE` tile of one
-    map: the staged q and k rows, room for f32, and their f32 copies
+    csrc/attn_bank.cu: (rows, shared-memory bytes, groups), none depending
+    on N.  The forward's unit is a :data:`FWD_TILE` x :data:`FWD_TILE` tile
+    of one map: the staged q and k rows, room for f32, and their f32 copies
     :func:`row_stride` words apart.  The backward's unit is :data:`FWD_TILE`
     rows of one map (or, past one tile, as many columns), walked in chunks
     of as many columns: the forward's staged and f32 rows, every head's
-    32 x 32 du (4 words apart) and the output's chains [32, A].
-    Raises where a block's shared memory does not fit (A, H too wide)."""
+    32 x 32 du (4 words apart) and the output's chains [32, A].  That is
+    the block plan (groups 1), wherever it fits.  Past it the grouped plan:
+    the forward's unit walks A in ``groups`` column slices of at most
+    :data:`SLICE_MAX` (:func:`slice_width`), the backward runs units of
+    (map, 32-row tile, head, 32-feature slice), ``groups`` = H x
+    ceil(ds / 32) of them a row tile, in :data:`GROUPED_BWD_SMEM`.
+    ``groups`` forces a plan: 1 the block plans, more that many forward
+    slices or the grouped backward.  Raises where a forced plan does not
+    fit, or where the grouped backward's blocks (``bc`` maps) pass the
+    int32 grid index."""
     rows = FWD_TILE
     if bwd:
-        smem = 4 * (3 * rows * a + 2 * rows * row_stride(a) + h * (rows * rows + 4))
+        block = 4 * (3 * rows * a + 2 * rows * row_stride(a) + h * (rows * rows + 4))
     else:
-        smem = 4 * 2 * rows * (a + row_stride(a))
+        block = 4 * 2 * rows * (a + row_stride(a))
+    if groups is None:
+        groups = 1 if block <= SMEM_LIMIT else 2 if bwd else -(-a // SLICE_MAX)
+    if bwd and groups == 1:
+        smem = block
+    elif bwd:
+        smem, groups = GROUPED_BWD_SMEM, h * -(-(a // h) // MAP_SLICE)
+        blocks = bc * -(-n // rows) * groups
+        if blocks > _INT32_MAX:
+            raise ValueError(f"attn_map_bank backward kernel: {bc} maps, N={n}, A={a}, H={h} "
+                             f"need {blocks} blocks in the grouped plan, past the int32 grid "
+                             f"index ({_INT32_MAX})")
+    else:
+        w = slice_width(a, groups)
+        smem, groups = 4 * 2 * rows * (w + row_stride(w)), -(-a // w)
     if smem > SMEM_LIMIT:
         raise ValueError(f"attn_map_bank {'backward' if bwd else 'forward'} kernel: N={n}, "
-                         f"A={a}, H={h} need {smem} B of shared memory per block "
-                         f"(> {SMEM_LIMIT})")
-    return rows, smem
+                         f"A={a}, H={h} in {groups} group(s) need {smem} B of shared memory "
+                         f"per block (> {SMEM_LIMIT})")
+    return rows, smem, groups
 
 
-def _check_kernel_inputs(q, k, ds, g=None):
+def _check_kernel_inputs(q, k, ds, g=None, groups=None):
     tensors = {"q": q, "k": k} if g is None else {"q": q, "k": k, "g": g}
     for name, t in tensors.items():
         if t.device != q.device or not t.is_cuda:
@@ -161,79 +204,87 @@ def _check_kernel_inputs(q, k, ds, g=None):
     h = _heads(q, ds)
     if g is not None and tuple(g.shape) != (b, c, n, n):
         raise ValueError(f"attn_map_bank kernel: g{tuple(g.shape)} != {(b, c, n, n)}")
-    return plan(n, a, h, g is not None)
+    return plan(n, a, h, g is not None, groups, bc=b * c)
 
 
-def _launch(q, k, ds: int, bf16: bool) -> torch.Tensor:
-    _, smem = _check_kernel_inputs(q, k, ds)
+def _launch(q, k, ds: int, bf16: bool, groups=None) -> torch.Tensor:
+    _, smem, groups = _check_kernel_inputs(q, k, ds, groups=groups)
     b, c, n, a = q.shape
     out = torch.empty((b, c, n, n), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out
-    fn = build.load("attn_bank").attn_map_bank_fwd
+    fn = build.load("attn_bank").attn_map_bank_fwd_groups
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     rc = fn(q.data_ptr(), k.data_ptr(), out.data_ptr(), b * c, n, a, ds,
-            int(q.dtype == torch.bfloat16), int(bf16), smem, stream(q))
+            int(q.dtype == torch.bfloat16), int(bf16), groups, smem, stream(q))
     build.check_launch(rc, "attn_map_bank_fwd")
     attn_map_bank_kernel.launches += 1
     report_flops(flops(b, c, n, a))
     return out
 
 
-def _launch_bwd(q, k, g, ds: int, bf16: bool):
-    rows, smem = _check_kernel_inputs(q, k, ds, g)
+def _launch_bwd(q, k, g, ds: int, bf16: bool, groups=None):
+    rows, smem, groups = _check_kernel_inputs(q, k, ds, g, groups)
     b, c, n, a = q.shape
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     if q.numel() == 0:
         return dq.zero_(), dk.zero_()
-    fn = build.load("attn_bank").attn_map_bank_bwd
+    lib = build.load("attn_bank")
+    args = [q.data_ptr(), k.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            b * c, n, a, ds, int(q.dtype == torch.bfloat16), int(bf16)]
+    if groups == 1:
+        fn, args = lib.attn_map_bank_bwd, args + [rows, smem]
+    else:
+        fn = lib.attn_map_bank_bwd_grouped
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    rc = fn(q.data_ptr(), k.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            b * c, n, a, ds, int(q.dtype == torch.bfloat16), int(bf16), rows, smem, stream(q))
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * (len(args) - 5) + [ctypes.c_void_p]
+    rc = fn(*args, stream(q))
     build.check_launch(rc, "attn_map_bank_bwd")
     attn_map_bank_kernel_bwd.launches += 1
     report_flops(flops(b, c, n, a, bwd=True))
     return dq, dk
 
 
-def attn_map_bank_kernel_bwd(q, k, g, ds: int, *, bf16: bool = False, impl: str = "auto"):
+def attn_map_bank_kernel_bwd(q, k, g, ds: int, *, bf16: bool = False, impl: str = "auto",
+                             groups: int = None):
     """Backward of :func:`attn_map_bank_kernel` for the cotangent ``g``
-    [B, C, N, N]: (dq, dk) in q's dtype.  ``impl`` as there."""
+    [B, C, N, N]: (dq, dk) in q's dtype.  ``impl`` and ``groups`` as there."""
     if resolve_impl(impl, q, "attn_map_bank") == "plain":
         return attn_map_bank_bwd_plain(q, k, g, ds, bf16=bf16)
-    return _launch_bwd(q, k, g, ds, bf16)
+    return _launch_bwd(q, k, g, ds, bf16, groups)
 
 
 class _AttnMapBank(torch.autograd.Function):
     """The kernel pair (or the plain pair) under autograd."""
 
     @staticmethod
-    def forward(ctx, q, k, ds, bf16, impl):
+    def forward(ctx, q, k, ds, bf16, impl, groups):
         ctx.save_for_backward(q, k)
-        ctx.ds, ctx.bf16, ctx.impl = ds, bf16, impl
+        ctx.ds, ctx.bf16, ctx.impl, ctx.groups = ds, bf16, impl, groups
         if impl == "plain":
             return attn_map_bank_plain(q, k, ds, bf16=bf16)
-        return _launch(q, k, ds, bf16)
+        return _launch(q, k, ds, bf16, groups)
 
     @staticmethod
     def backward(ctx, g):
         q, k = ctx.saved_tensors
         dq, dk = attn_map_bank_kernel_bwd(q, k, g.float().contiguous(), ctx.ds,
-                                          bf16=ctx.bf16, impl=ctx.impl)
-        return dq, dk, None, None, None
+                                          bf16=ctx.bf16, impl=ctx.impl, groups=ctx.groups)
+        return dq, dk, None, None, None, None
 
 
 def attn_map_bank_kernel(q: torch.Tensor, k: torch.Tensor, ds: int, *, bf16: bool = False,
-                         impl: str = "auto") -> torch.Tensor:
+                         impl: str = "auto", groups: int = None) -> torch.Tensor:
     """Head-mean tanh maps [B, C, N, N] float32 from q, k [B, C, N, A]
     (float32 or bfloat16, one dtype), differentiable in q and k.  ``impl``:
     "auto" (the kernels for a CUDA tensor, the plain versions for a CPU
-    tensor), "kernel" or "plain".  Both kernels take any N (:func:`plan`);
-    they raise on shapes they are not built for."""
-    return _AttnMapBank.apply(q, k, ds, bf16, resolve_impl(impl, q, "attn_map_bank"))
+    tensor), "kernel" or "plain".  Both kernels take any N and any A with
+    ``A % ds == 0`` (:func:`plan`: the block plans where they fit, the
+    grouped plans past them; ``groups`` forces one); they raise on shapes
+    they are not built for."""
+    return _AttnMapBank.apply(q, k, ds, bf16, resolve_impl(impl, q, "attn_map_bank"), groups)
 
 
 attn_map_bank_kernel.launches = 0

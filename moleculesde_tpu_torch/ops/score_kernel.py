@@ -11,7 +11,9 @@ modules of ``SDEModel2Dto3D`` in one launch of
 (``pallas_call`` at ``ops/score_kernel.py:388``): a thread-block cluster per
 molecule, its blocks splitting the destinations, at any n_max up to 128
 (:func:`score_plan`; past 64 the masked edge features live in a scratch
-buffer in device memory, :func:`score_slab_bytes`).  The kernel has two
+buffer in device memory, :func:`score_slab_bytes`).  Past n_max 128 the
+layered plan runs the evaluation as 13 launches with the node-wide state
+in device memory (:func:`score_scratch_bytes`), at any n_max.  The kernel has two
 variants: 2 gates the 2D edge features by the distance Fourier features, 1
 adds them as they are, which is also how model variants 3 and 4 use theirs
 (``SDEModel2Dto3D.kernel_variant``, as the JAX package passes them).  On a
@@ -44,7 +46,7 @@ from moleculesde_tpu_torch.ops.common import SQRT_GUARD, resolve_impl, round_bf1
 from moleculesde_tpu_torch.utils.flops import report_flops
 
 # the widths csrc/score_eval.cu is compiled for
-KERNEL_N_MAX = 128        # four chunks of 32 sources per lane
+KERNEL_N_MAX = 128        # the cluster plan's: four chunks of 32 sources per lane
 KERNEL_HIDDEN = 32
 KERNEL_HEADS = 8
 KERNEL_COFF_DIM = 128
@@ -307,29 +309,67 @@ def score_layout_bytes(n: int, dests: int, bf16: bool) -> int:
             + _align16(dests * 12))
 
 
-def score_plan(n: int, bf16: bool) -> Dict[str, int]:
-    """K6's launch plan at n_max ``n``: ``cluster`` blocks per molecule (2 up
-    to n_max 32, 4 up to 64, 8 up to 128), ``dests`` destinations per
-    block, ``threads`` per block and ``smem`` bytes of shared memory per
-    block.  Raises past n_max 128 in either mode (the kernel's lanes take
-    at most four chunks of 32 sources)."""
-    if not 1 <= n <= KERNEL_N_MAX:
-        raise ValueError(f"score_eval_fused kernel: n_max {n} is past the cluster plan "
-                         f"(n_max <= {KERNEL_N_MAX} in {'bf16' if bf16 else 'f32'} mode)")
-    cluster = 2 if n <= 32 else 4 if n <= 64 else 8
-    dests = -(-n // cluster)
-    return {"cluster": cluster, "dests": dests, "threads": _threads(n),
-            "smem": score_layout_bytes(n, dests, bf16)}
+# csrc/score_eval.cu's layered plan: blocks of (molecule, 8 destinations),
+# a warp each; the weight buffer and each warp's q, FFN and hp[d] rows
+LAYERED_DESTS = 8
+LAYERED_THREADS = 32 * LAYERED_DESTS
+LAYERED_SMEM = _WBUF_BYTES + LAYERED_DESTS * (2 * KERNEL_HIDDEN + KERNEL_COFF_DIM) * 4
+_INT32_MAX = 2 ** 31 - 1
+
+
+def score_scratch_bytes(b: int, n: int, bf16: bool) -> int:
+    """Device scratch of the layered plan (csrc/score_eval.cu::
+    layered_scratch), each region 256-byte aligned: the slab (32 values
+    in the mode's type a pair, sources padded to chunks of 32), the mask
+    as [b][d][s], the valid sources per destination, the node buffer (q, k,
+    v and skip, or the basis node part: 128 floats a node) and two node
+    states.  About 128 MB of slab at n_max 1024, B = 2 in bf16."""
+    def al(v: int) -> int:
+        return -(-v // 256) * 256
+    chunks = -(-n // 32)
+    return (al(b * n * chunks * 32 * KERNEL_HIDDEN * (2 if bf16 else 4)) + al(b * n * n * 4)
+            + al(b * n * 4) + al(b * n * KERNEL_COFF_DIM * 4)
+            + 2 * al(b * n * KERNEL_HIDDEN * 4))
+
+
+def score_plan(n: int, bf16: bool, plan: str = None, b: int = 1) -> Dict[str, int]:
+    """K6's launch plan at n_max ``n`` (``b`` molecules): the cluster plan up
+    to n_max 128, ``cluster`` blocks per molecule (2 up to n_max 32, 4 up to
+    64, 8 up to 128), ``dests`` destinations per block, ``threads`` per
+    block and ``smem`` bytes of shared memory per block; past it the
+    layered plan (blocks of 8 destinations, shared memory that does not
+    depend on n, ``scratch`` bytes of device memory, :func:`score_scratch_bytes`).
+    ``plan`` forces "cluster" (raises past n_max 128) or "layered" (raises
+    only where a launch's blocks pass the int32 grid index)."""
+    which = plan or ("cluster" if n <= KERNEL_N_MAX else "layered")
+    if which == "cluster":
+        if not 1 <= n <= KERNEL_N_MAX:
+            raise ValueError(f"score_eval_fused kernel: n_max {n} is past the cluster plan "
+                             f"(n_max <= {KERNEL_N_MAX} in {'bf16' if bf16 else 'f32'} mode)")
+        cluster = 2 if n <= 32 else 4 if n <= 64 else 8
+        dests = -(-n // cluster)
+        return {"plan": "cluster", "cluster": cluster, "dests": dests, "threads": _threads(n),
+                "smem": score_layout_bytes(n, dests, bf16)}
+    if which != "layered":
+        raise ValueError(f"score_eval_fused kernel: unknown plan {which!r}")
+    if n < 1:
+        raise ValueError(f"score_eval_fused kernel: n_max {n}")
+    blocks = max(b * -(-n // LAYERED_DESTS), -(-b * n * KERNEL_COFF_DIM // 256))
+    if blocks > _INT32_MAX:
+        raise ValueError(f"score_eval_fused kernel: B={b}, n_max {n} need {blocks} blocks in "
+                         f"the layered plan, past the int32 grid index ({_INT32_MAX})")
+    return {"plan": "layered", "dests": LAYERED_DESTS, "threads": LAYERED_THREADS,
+            "smem": LAYERED_SMEM, "scratch": score_scratch_bytes(b, n, bf16)}
 
 
 def _check_kernel_inputs(pos3, node_attr, edge_attr_2d, maskf, packed, variant,
-                         num_layers, num_convs, n_head, bf16):
+                         num_layers, num_convs, n_head, bf16, which):
     b, n, h = node_attr.shape
     if h != KERNEL_HIDDEN or n_head != KERNEL_HEADS or variant not in (1, 2):
         raise ValueError(f"score_eval_fused kernel: takes hidden {KERNEL_HIDDEN}, "
                          f"{KERNEL_HEADS} heads, variant 1 or 2 "
                          f"(got hidden {h}, {n_head} heads, variant {variant})")
-    plan = score_plan(n, bf16)
+    plan = score_plan(n, bf16, which, b=max(b, 1))
     layout, total = score_param_layout(variant, h, KERNEL_COFF_DIM, num_layers, num_convs)
     if packed.numel() != total or len(layout) > MAX_SEGMENTS:
         raise ValueError(f"score_eval_fused kernel: packed weights have {packed.numel()} "
@@ -348,16 +388,39 @@ def _check_kernel_inputs(pos3, node_attr, edge_attr_2d, maskf, packed, variant,
 
 
 def _launch(pos3, node_attr, edge_attr_2d, pair_mask, packed, variant, bf16,
-            num_layers, num_convs, n_head):
+            num_layers, num_convs, n_head, which):
     f32 = [t.to(torch.float32).contiguous()
            for t in (pos3, node_attr, edge_attr_2d, pair_mask, packed)]
-    layout, plan = _check_kernel_inputs(*f32, variant, num_layers, num_convs, n_head, bf16)
+    layout, plan = _check_kernel_inputs(*f32, variant, num_layers, num_convs, n_head, bf16,
+                                        which)
     pos3, node_attr, edge_attr_2d, maskf, packed = f32
     b, n, _ = node_attr.shape
     out = torch.empty((b, n, 3), dtype=torch.float32, device=node_attr.device)
     if b == 0:
         return out
     offsets = (ctypes.c_int * len(layout))(*(off for _, _, off in layout))
+    if plan["plan"] == "layered":
+        scratch = torch.empty(plan["scratch"], dtype=torch.uint8, device=node_attr.device)
+        fn = build.load("score_eval").score_eval_layered
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_void_p, ctypes.c_int]
+                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        rc = fn(pos3.data_ptr(), node_attr.data_ptr(), edge_attr_2d.data_ptr(),
+                maskf.data_ptr(), packed.data_ptr(), offsets, len(layout), out.data_ptr(),
+                scratch.data_ptr(), b, n, variant, num_layers, num_convs, int(bf16),
+                plan["smem"], stream(node_attr))
+        build.check_launch(rc, "score_eval_fused (layered plan)")
+    else:
+        _launch_cluster(pos3, node_attr, edge_attr_2d, maskf, packed, offsets, len(layout),
+                        out, variant, bf16, num_layers, num_convs, plan)
+    score_eval_fused.launches += 1
+    report_flops(flops(b, n, variant, KERNEL_HIDDEN, KERNEL_COFF_DIM, num_layers, num_convs))
+    return out
+
+
+def _launch_cluster(pos3, node_attr, edge_attr_2d, maskf, packed, offsets, n_offsets, out,
+                    variant, bf16, num_layers, num_convs, plan):
+    b, n, _ = node_attr.shape
     slab_bytes = score_slab_bytes(b, n, bf16)
     slab = (torch.empty(slab_bytes, dtype=torch.uint8, device=node_attr.device)
             if slab_bytes else None)
@@ -366,25 +429,24 @@ def _launch(pos3, node_attr, edge_attr_2d, pair_mask, packed, variant, bf16,
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_void_p, ctypes.c_int]
                    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     rc = fn(pos3.data_ptr(), node_attr.data_ptr(), edge_attr_2d.data_ptr(), maskf.data_ptr(),
-            packed.data_ptr(), offsets, len(layout), out.data_ptr(),
+            packed.data_ptr(), offsets, n_offsets, out.data_ptr(),
             slab.data_ptr() if slab is not None else None, b, n, variant,
             num_layers, num_convs, int(bf16), plan["cluster"], plan["dests"], plan["smem"],
             stream(node_attr))
     build.check_launch(rc, "score_eval_fused")
-    score_eval_fused.launches += 1
-    report_flops(flops(b, n, variant, KERNEL_HIDDEN, KERNEL_COFF_DIM, num_layers, num_convs))
-    return out
 
 
 def score_eval_fused(pos3, node_attr, edge_attr_2d, pair_mask, packed, *, variant: int = 1,
                      bf16: bool = False, impl: str = "auto", num_layers: int = 2,
-                     num_convs: int = 2, n_head: int = 8) -> torch.Tensor:
+                     num_convs: int = 2, n_head: int = 8, plan: str = None) -> torch.Tensor:
     """One fused score evaluation -> raw score [B, N, 3] f32 (the TPU
     kernel's ``score_eval_fused``).  Forward only: raises if an input
     requires grad, as the TPU kernel has no VJP.  ``impl``: "auto" (the
     kernel for a CUDA tensor, the plain version for a CPU tensor), "kernel"
-    or "plain".  The kernel takes hidden 32, 8 heads, basis width 128 and
-    n_max <= 128 (:func:`score_plan`) and raises on other shapes."""
+    or "plain".  The kernel takes hidden 32, 8 heads and basis width 128
+    at any n_max (:func:`score_plan`: the cluster plan up to 128, the
+    layered plan past it; ``plan`` forces one) and raises on other
+    shapes."""
     args = (pos3, node_attr, edge_attr_2d, pair_mask, packed)
     if any(t.requires_grad for t in args):
         raise RuntimeError("score_eval_fused is forward only: no input may require grad")
@@ -392,7 +454,7 @@ def score_eval_fused(pos3, node_attr, edge_attr_2d, pair_mask, packed, *, varian
         return score_eval_fused_plain(*args, variant=variant, bf16=bf16,
                                       num_layers=num_layers, num_convs=num_convs,
                                       n_head=n_head)
-    return _launch(*args, variant, bf16, num_layers, num_convs, n_head)
+    return _launch(*args, variant, bf16, num_layers, num_convs, n_head, plan)
 
 
 score_eval_fused.launches = 0

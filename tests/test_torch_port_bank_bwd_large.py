@@ -23,7 +23,7 @@ import torch
 from moleculesde_tpu.ops.rejected.attn_bank import attn_map_bank_pallas
 from moleculesde_tpu.ops.rejected.attn_qk_bank import attn_qk_bank as jax_attn_qk_bank
 from moleculesde_tpu_torch.ops.attn_bank import (
-    attn_map_bank_bwd_plain, attn_map_bank_plain, plan, row_stride, tile_rows)
+    GROUPED_BWD_SMEM, attn_map_bank_bwd_plain, attn_map_bank_plain, plan, row_stride, tile_rows)
 from moleculesde_tpu_torch.ops.attn_qk_bank import (
     BWD_DU_WORDS, BWD_MAX_CHUNK, TILED_SMEM, attn_qk_bank_bwd_plain, bwd_plan, check_plan,
     fwd_plan, plan_of, tiled_plan)
@@ -79,47 +79,50 @@ def test_attn_qk_bank_bwd_plain_matches_pallas_kernel_past_32(ds, bf16):
 # row tile shrank and its bytes grew with N (32 rows and 42,016 B at N =
 # 32, one row and 232,096 B at 518); the forward (its 32 x 32 tile, 2 x 32
 # (A + row_stride(A)) words whatever N) beside each
-K7_PLANS = [((32, 32, 8), (32, 54400)), ((33, 32, 8), (32, 54400)),
-            ((64, 32, 8), (32, 54400)), ((128, 32, 8), (32, 54400)),
-            ((256, 32, 8), (32, 54400)), ((518, 32, 8), (32, 54400))]
+K7_PLANS = [((32, 32, 8), (32, 54400, 1)), ((33, 32, 8), (32, 54400, 1)),
+            ((64, 32, 8), (32, 54400, 1)), ((128, 32, 8), (32, 54400, 1)),
+            ((256, 32, 8), (32, 54400, 1)), ((518, 32, 8), (32, 54400, 1))]
 
 
 @pytest.mark.parametrize("shape, want", K7_PLANS)
 def test_attn_map_bank_plan(shape, want):
     n, a, h = shape
     assert plan(n, a, h, bwd=True) == want
-    rows, smem = want
+    rows, smem, _ = want
     assert smem <= SMEM_LIMIT and smem == 4 * (
         3 * rows * a + 2 * rows * row_stride(a) + h * (rows * rows + 4))
-    assert plan(n, a, h, bwd=False) == (32, 4 * 64 * (a + row_stride(a))) == (32, 17408)
+    assert plan(n, a, h, bwd=False) == (32, 4 * 64 * (a + row_stride(a)), 1) == (32, 17408, 1)
 
 
 def test_attn_map_bank_plan_refuses_past_shared_memory():
-    """K7 takes any N, and raises past its shared memory naming it: the
-    forward, whose tile does not grow with N, takes N = 881 (past its old
-    plan) and refuses only a q / k width whose tile does not fit (A =
-    1024); the backward takes N = 519 (past its old plan) in the bytes of
-    N = 32 and refuses A = 140, H = 35 (every head's du does not fit)."""
+    """K7 takes any N and, past a block's shared memory, any A in the
+    grouped plan: the forward, whose tile does not grow with N, takes N =
+    881 (past its old plan) and A = 1024 (H = 256) in eight column slices
+    of 128, where the whole row needs 525,312 B; the backward takes N = 519
+    (past its old plan) in the bytes of N = 32, and A = 140, H = 35 (every
+    head's du needs 234,544 B) in units of one head's 32-feature slice.  A
+    forced plan that does not fit still raises, naming its bytes."""
     assert plan(881, 32, 8, bwd=False) == plan(32, 32, 8, bwd=False)
-    with pytest.raises(ValueError, match=r"forward kernel: N=881, A=1024, H=256 need 525312 B "
-                                         r"of shared memory per block \(> 232448\)"):
-        plan(881, 1024, 256, bwd=False)
+    assert plan(881, 1024, 256, bwd=False) == (32, 4 * 64 * (128 + row_stride(128)), 8)
+    with pytest.raises(ValueError, match=r"forward kernel: N=881, A=1024, H=256 in 1 group\(s\) "
+                                         r"need 525312 B of shared memory per block \(> 232448\)"):
+        plan(881, 1024, 256, bwd=False, groups=1)
     assert plan(519, 32, 8, bwd=True) == plan(32, 32, 8, bwd=True)
-    with pytest.raises(ValueError, match=r"backward kernel: N=519, A=140, H=35 need 234544 B of "
-                                         r"shared memory per block \(> 232448\)"):
-        plan(519, 140, 35, bwd=True)
+    assert plan(519, 140, 35, bwd=True) == (32, GROUPED_BWD_SMEM, 35)
+    with pytest.raises(ValueError, match=r"backward kernel: N=519, A=140, H=35 in 1 group\(s\) "
+                                         r"need 234544 B of shared memory per block \(> 232448\)"):
+        plan(519, 140, 35, bwd=True, groups=1)
 
 
 @pytest.mark.parametrize("n", [16, 32, 33, 64, 128, 256, 519, 1024])
 def test_attn_map_bank_bwd_plan_takes_any_n(n):
     """K7's backward from below one tile to past its old limit (518): the
     same 32-row unit and shared bytes at every N, up to A = 136, H = 34, and
-    the first A it refuses named with its bytes."""
-    assert plan(n, 32, 8, bwd=True) == (32, 54400) and 4 * 54400 <= SMEM_LIMIT
-    assert plan(n, 136, 34, bwd=True) == (32, 227872) and 227872 <= SMEM_LIMIT
-    with pytest.raises(ValueError, match=rf"backward kernel: N={n}, A=140, H=35 need 234544 B "
-                                         r"of shared memory per block \(> 232448\)"):
-        plan(n, 140, 35, bwd=True)
+    past it (A = 140, H = 35) the grouped plan, 35 head units a row tile in
+    16,896 B whatever N."""
+    assert plan(n, 32, 8, bwd=True) == (32, 54400, 1) and 4 * 54400 <= SMEM_LIMIT
+    assert plan(n, 136, 34, bwd=True) == (32, 227872, 1) and 227872 <= SMEM_LIMIT
+    assert plan(n, 140, 35, bwd=True) == (32, 16896, 35) == (32, GROUPED_BWD_SMEM, 35)
 
 
 # (N, F) -> K8's backward plan (row tile, feature chunk, shared bytes) at the

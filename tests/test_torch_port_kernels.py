@@ -590,18 +590,94 @@ def test_score_eval_plan_matches_kernel(cuda):
 
 
 def test_score_eval_fused_kernel_refuses_shapes(cuda):
-    """Shapes the kernel is not built for raise, never fall back: n_max
-    past the cluster plan (128) in either mode, another hidden width."""
+    """Shapes the kernel is not built for raise, never fall back: the
+    cluster plan forced past n_max 128 in either mode (n_max 129 itself
+    runs in the layered plan), another hidden width."""
     model = SDEModel2Dto3D(emb_dim=8, hidden_dim=32, variant=1, device=cuda)
     packed = model.packed_score_params()
     pos, node = torch.zeros(2, 129, 3, device=cuda), torch.zeros(2, 129, 32, device=cuda)
     edge, mask = torch.zeros(2, 129, 129, 32, device=cuda), torch.ones(2, 129, 129, device=cuda)
     for bf16 in (False, True):
         with pytest.raises(ValueError, match="past the cluster plan"):
-            score_eval_fused(pos, node, edge, mask, packed, variant=1, bf16=bf16)
+            score_eval_fused(pos, node, edge, mask, packed, variant=1, bf16=bf16,
+                             plan="cluster")
+        out = score_eval_fused(pos, node, edge, mask, packed, variant=1, bf16=bf16)
+        assert out.shape == (2, 129, 3) and bool(torch.isfinite(out).all())
     node16 = torch.zeros(2, 8, 16, device=cuda)
     with pytest.raises(ValueError, match="hidden 32"):
         score_eval_fused(pos[:, :8], node16, edge[:, :8, :8, :16], mask[:, :8, :8], packed)
+
+
+# the layered plan past n_max 128: one source past the cluster plan (129,
+# five chunks, the last holding one source), 256, 300 (ragged chunks and
+# destination tiles), 1024 at B = 2
+LAYERED_SHAPES = [(2, 129), (2, 256), (1, 300), (2, 1024)]
+
+
+def _masked_molecules(mask, sizes):
+    """Pairs past each molecule's atom count masked, as the chain's ragged
+    batches hold them."""
+    for i, size in enumerate(sizes):
+        mask[i, size:] = False
+        mask[i, :, size:] = False
+    return mask
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("variant", [1, 2])
+@pytest.mark.parametrize("shape", LAYERED_SHAPES)
+def test_score_eval_layered_matches_plain(cuda, shape, variant, bf16):
+    """K6's layered plan against the plain version at the cluster plan's
+    bars (f32 1e-4, bf16 2e-2 of the largest plain value), one launch
+    counted, two launches bit for bit, and the rows of atoms past a
+    molecule's size exactly 0."""
+    b, n = shape
+    pos, node, edge, mask, packed = _score_operands(cuda, b, n, variant)
+    mask = _masked_molecules(mask, [n - 7 * i for i in range(b)])
+    assert score_plan(n, bf16, b=b)["plan"] == "layered"
+    launches = score_eval_fused.launches
+    out = score_eval_fused(pos, node, edge, mask, packed, variant=variant, bf16=bf16)
+    assert score_eval_fused.launches == launches + 1
+    ref = score_eval_fused_plain(pos, node, edge, mask, packed, variant=variant, bf16=bf16)
+    assert out.shape == (b, n, 3) and bool(torch.isfinite(out).all())
+    err = ((out - ref).abs().max() / ref.abs().max()).item()
+    assert err <= (2e-2 if bf16 else 1e-4), err
+    for i in range(1, b):
+        assert not out[i, n - 7 * i:].any()
+    assert torch.equal(out, score_eval_fused(pos, node, edge, mask, packed, variant=variant,
+                                             bf16=bf16))
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(8, 32), (4, 40), (4, 64), (2, 128)])
+def test_score_eval_layered_forced_inside_the_cluster_plan(cuda, shape, bf16):
+    """The layered plan forced where the cluster plan runs: both against
+    the plain version at the same bars."""
+    b, n = shape
+    pos, node, edge, mask, packed = _score_operands(cuda, b, n, 1)
+    ref = score_eval_fused_plain(pos, node, edge, mask, packed, bf16=bf16)
+    for which in ("cluster", "layered"):
+        out = score_eval_fused(pos, node, edge, mask, packed, bf16=bf16, plan=which)
+        err = ((out - ref).abs().max() / ref.abs().max()).item()
+        assert err <= (2e-2 if bf16 else 1e-4), (which, err)
+
+
+def test_score_eval_layered_plan_matches_kernel(cuda):
+    """The wrapper's layered plan is the kernel's own: shared memory and
+    device scratch."""
+    import ctypes
+
+    from moleculesde_tpu_torch.kernels import build
+
+    lib = build.load("score_eval")
+    lib.score_eval_layered_smem_bytes.restype = ctypes.c_int
+    lib.score_eval_layered_scratch_bytes.restype = ctypes.c_longlong
+    lib.score_eval_layered_scratch_bytes.argtypes = [ctypes.c_int] * 3
+    for b, n in ((1, 129), (2, 256), (2, 1024), (1, 2048), (64, 33)):
+        for bf16 in (False, True):
+            p = score_plan(n, bf16, plan="layered", b=b)
+            assert p["smem"] == lib.score_eval_layered_smem_bytes()
+            assert p["scratch"] == lib.score_eval_layered_scratch_bytes(b, n, int(bf16))
 
 
 # the main path's shape, n_max 64 and 128 (no cap on N), and a small one
@@ -1071,6 +1147,9 @@ def test_attn_bank_plans_match_kernels(cuda):
     k7 = build.load("attn_bank").attn_bank_plan
     k7.restype = None
     k7.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    k7g = build.load("attn_bank").attn_bank_group_plan
+    k7g.restype = None
+    k7g.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
     k8 = build.load("attn_qk_bank").attn_qk_bank_bwd_plan
     k8.restype = None
     k8.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -1079,7 +1158,14 @@ def test_attn_bank_plans_match_kernels(cuda):
                     (518, 32, 8), (600, 32, 8), (1024, 32, 8), (40, 12, 6), (9, 8, 4)):
         for bwd in (False, True):
             k7(n, a, h, int(bwd), ctypes.addressof(out))
-            assert (out[0], out[1]) == plan(n, a, h, bwd), (n, a, h, bwd)
+            assert (out[0], out[1]) == plan(n, a, h, bwd)[:2], (n, a, h, bwd)
+    # the grouped plan, by default past the block plans and forced at A = 32
+    for n, a, h, groups in ((32, 320, 8, 0), (600, 512, 8, 0), (32, 1024, 8, 0),
+                            (64, 140, 35, 0), (64, 456, 8, 0), (64, 312, 8, 0),
+                            (64, 32, 8, 2), (64, 32, 8, 4), (64, 32, 8, 8), (64, 32, 8, 1)):
+        for bwd in (False, True):
+            k7g(n, a, h, int(bwd), groups, ctypes.addressof(out))
+            assert tuple(out) == plan(n, a, h, bwd, groups or None), (n, a, h, groups, bwd)
     for n, f, a, h in ((32, 16, 32, 8), (64, 300, 32, 8), (128, 16, 32, 8), (128, 900, 32, 8),
                        (256, 16, 32, 8), (256, 300, 32, 8), (266, 900, 32, 8), (267, 16, 32, 8),
                        (40, 13, 8, 4), (3, 5, 8, 4)):
@@ -1089,34 +1175,93 @@ def test_attn_bank_plans_match_kernels(cuda):
 
 def test_attn_bank_kernels_refuse_shapes(cuda):
     """Shapes the bank kernels are not built for raise, never fall back:
-    A not a multiple of ds, K7's forward past its shared memory (A = 1024:
-    its tile does not depend on N, and N = 881, past the old forward's
-    plan, runs), its backward past its shared memory (A = 140, H = 35:
-    every head's du; N = 519, past the old backward's plan, runs), K8 at a
-    ds that does not divide A; K8's forward past N = 334 at F = 16 and its
-    backward past N = 266 run in the tiled plan."""
+    A not a multiple of ds, K7's block plans forced past their shared
+    memory (A = 1024 forward, A = 140, H = 35 backward), which run in the
+    grouped plans by default (and N = 881 / 519, past the old plans, in
+    the block plans), K8 at a ds that does not divide A; K8's forward past
+    N = 334 at F = 16 and its backward past N = 266 run in the tiled plan."""
     q = torch.zeros(2, 2, 8, 30, device=cuda)
     with pytest.raises(ValueError, match="multiple of ds"):
         attn_map_bank_kernel(q, q, 4)
     q = torch.zeros(1, 1, 881, 32, device=cuda)
     assert attn_map_bank_kernel(q, q, 4).shape == (1, 1, 881, 881)
     q = torch.zeros(1, 1, 8, 1024, device=cuda)
-    with pytest.raises(ValueError, match="forward kernel: N=8, A=1024, H=256 need .* shared"):
-        attn_map_bank_kernel(q, q, 4)
+    with pytest.raises(ValueError, match=r"forward kernel: N=8, A=1024, H=256 in 1 group\(s\) "
+                                         r"need .* shared"):
+        attn_map_bank_kernel(q, q, 4, groups=1)
+    assert attn_map_bank_kernel(q, q, 4).shape == (1, 1, 8, 8)
     q = torch.zeros(1, 1, 519, 32, device=cuda)
     g = torch.zeros(1, 1, 519, 519, device=cuda)
     dq, dk = attn_map_bank_kernel_bwd(q, q, g, 4, impl="kernel")
     assert dq.shape == dk.shape == (1, 1, 519, 32) and not dq.any() and not dk.any()
     q = torch.zeros(1, 1, 8, 140, device=cuda)
     g = torch.zeros(1, 1, 8, 8, device=cuda)
-    with pytest.raises(ValueError, match="backward kernel: N=8, A=140, H=35 need .* shared"):
-        attn_map_bank_kernel_bwd(q, q, g, 4, impl="kernel")
+    with pytest.raises(ValueError, match=r"backward kernel: N=8, A=140, H=35 in 1 group\(s\) "
+                                         r"need .* shared"):
+        attn_map_bank_kernel_bwd(q, q, g, 4, impl="kernel", groups=1)
+    dq, dk = attn_map_bank_kernel_bwd(q, q, g, 4, impl="kernel")
+    assert dq.shape == dk.shape == (1, 1, 8, 140) and not dq.any() and not dk.any()
     qk, ws, _ = _qk_bank_operands(cuda, 2, 600, 16, 2, 32, 0)
     assert attn_qk_bank(qk, *ws, 4).shape == (2, 2, 600, 600)   # the tiled plan
     qk, ws, g = _qk_bank_operands(cuda, 1, 267, 16, 2, 32, 0)
     assert attn_qk_bank_bwd(qk, *ws, g, 4, impl="kernel")[0].shape == qk.shape
     with pytest.raises(ValueError, match="multiple of ds"):
         attn_qk_bank(qk, *ws, 5)
+
+
+# (A, ds) of K7's grouped plans: the 3D->2D model at adim 160 / 256 / 512
+# (ds = A / 8, H = 8; the forward's slices and the backward's head units)
+# and 35 heads of 4 (A = 140: the forward's whole row, the grouped backward)
+GROUPED_A = [(320, 40), (512, 64), (1024, 128), (140, 4)]
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [32, 600])
+@pytest.mark.parametrize("a, ds", GROUPED_A)
+def test_attn_map_bank_grouped_matches_plain(cuda, a, ds, n, bf16):
+    """K7 forward and backward through autograd at widths past the block
+    plans (B C = 16), at the bars of test_attn_map_bank_kernel_matches_plain
+    (f32 1e-5 forward, 1e-4 backward; bf16 1e-2), q / k in the mode's dtype,
+    one launch each counted; two runs bit for bit."""
+    b, c = (2, 8) if n == 32 else (1, 16)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    q, k, g = _bank_operands(cuda, b, c, n, a, 26, dt)
+    from moleculesde_tpu_torch.ops.attn_bank import plan
+    assert plan(n, a, a // ds, False)[2] > 1 or plan(n, a, a // ds, True)[2] > 1
+    launches = (attn_map_bank_kernel.launches, attn_map_bank_kernel_bwd.launches)
+
+    def run(impl):
+        return _grads(lambda q_, k_: attn_map_bank_kernel(q_, k_, ds, bf16=bf16, impl=impl),
+                      (q, k), g)
+
+    kern, plain = run("kernel"), run("plain")
+    assert (attn_map_bank_kernel.launches, attn_map_bank_kernel_bwd.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    for i, (x, y) in enumerate(zip(kern, plain)):
+        tol = 1e-2 if bf16 else (1e-5 if i == 0 else 1e-4)
+        err = ((x.float() - y.float()).abs().max() / y.float().abs().max()).item()
+        assert err <= tol, (i, err)
+    again = run("kernel")
+    assert all(torch.equal(u, v) for u, v in zip(kern, again))
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(16, 8, 32), (4, 8, 64), (1, 2, 600), (3, 2, 9)])
+def test_attn_map_bank_forced_groups_keep_the_bits(cuda, shape, bf16):
+    """At the chain's A = 32, ds = 4: the forward in 2, 4 and 8 column
+    slices and the grouped backward give the block plans' bits (each head's
+    logits one FMA chain in index order, the heads' tanh added in order;
+    dq / dk each one chain over the map in index order)."""
+    b, c, n = shape
+    dt = torch.bfloat16 if bf16 else torch.float32
+    q, k, g = _bank_operands(cuda, b, c, n, 32, 27, dt)
+    fwd = attn_map_bank_kernel(q, k, 4, bf16=bf16, impl="kernel", groups=1)
+    bwd = attn_map_bank_kernel_bwd(q, k, g, 4, bf16=bf16, impl="kernel", groups=1)
+    for groups in (2, 4, 8):
+        assert torch.equal(fwd, attn_map_bank_kernel(q, k, 4, bf16=bf16, impl="kernel",
+                                                     groups=groups)), groups
+        other = attn_map_bank_kernel_bwd(q, k, g, 4, bf16=bf16, impl="kernel", groups=groups)
+        assert all(torch.equal(u, v) for u, v in zip(bwd, other)), groups
 
 
 # the 16-atom size bucket (``--buckets 16 ...`` at --batch_size 32): K1 at

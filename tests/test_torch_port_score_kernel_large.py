@@ -8,8 +8,8 @@ the kernel, the last ragged) f32 at 2e-5 and bf16 held to JAX's own f32
 result, no further from it than JAX's bf16 result is (1.5 x + 1e-3); and
 K6's launch plan ``score_plan``: a cluster of 2 blocks per molecule up to
 n_max 32, 4 up to 64 and 8 up to 128, the shared memory of each plan, and
-the message past it (n_max 128 is the limit in both modes).  The kernel
-itself runs only on the card (``test_torch_port_kernels.py``)."""
+past 128 the layered plan (the cluster plan, forced there, refuses).  The
+kernel itself runs only on the card (``test_torch_port_kernels.py``)."""
 
 import functools
 
@@ -21,8 +21,8 @@ from moleculesde_tpu.ops.score_kernel import pack_score_params as jax_pack
 from moleculesde_tpu.ops.score_kernel import score_eval_fused as jax_score_eval_fused
 from moleculesde_tpu_torch.ops.common import SMEM_LIMIT
 from moleculesde_tpu_torch.ops.score_kernel import (
-    KERNEL_N_MAX, pack_score_params, score_eval_fused, score_eval_fused_plain,
-    score_layout_bytes, score_plan, score_slab_bytes)
+    KERNEL_N_MAX, LAYERED_SMEM, pack_score_params, score_eval_fused, score_eval_fused_plain,
+    score_layout_bytes, score_plan, score_scratch_bytes, score_slab_bytes)
 
 from test_torch_port_score_kernel import _models, _operands
 from torch_port_common import ieee_f32, rel_err, t  # noqa: F401 (ieee_f32: autouse)
@@ -135,20 +135,32 @@ def test_score_plan_past_64(n, bf16):
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
 @pytest.mark.parametrize("n", [129, 256])
 def test_score_plan_refuses_past_128(n, bf16):
+    """Past n_max 128, where the cluster plan stops (the plan refused there
+    before): the layered plan; the cluster plan, forced, still refuses,
+    naming its limit."""
     mode = "bf16" if bf16 else "f32"
     assert KERNEL_N_MAX == 128
+    assert score_plan(n, bf16) == {"plan": "layered", "dests": 8, "threads": 256,
+                                   "smem": LAYERED_SMEM,
+                                   "scratch": score_scratch_bytes(1, n, bf16)}
     with pytest.raises(ValueError, match=f"n_max {n} is past the cluster plan .*"
                                          f"n_max <= {KERNEL_N_MAX} in {mode} mode"):
-        score_plan(n, bf16)
+        score_plan(n, bf16, plan="cluster")
 
 
 def test_kernel_wrapper_checks_the_plan_before_the_device():
-    """On CPU tensors ``impl="kernel"`` raises: past the plan with the plan's
-    message, inside it for want of a CUDA tensor; no launch is counted."""
+    """On CPU tensors ``impl="kernel"`` raises for want of a CUDA tensor, in
+    the layered plan (n_max 129) as in the cluster plan (40), and forcing
+    the cluster plan past 128 raises with the plan's message; no launch is
+    counted."""
     _, tm = _models(1)
     packed = pack_score_params(tm, 1)
     launches = score_eval_fused.launches
-    for n, match in ((129, "past the cluster plan"), (40, "CUDA")):
+    pos, node, edge, mask = (t(x) for x in _operands(7, b=1, n=129))
+    with pytest.raises(ValueError, match="past the cluster plan"):
+        score_eval_fused(pos, node, edge, mask, packed, variant=1, impl="kernel",
+                         plan="cluster")
+    for n, match in ((129, "CUDA"), (40, "CUDA")):
         pos, node, edge, mask = (t(x) for x in _operands(7, b=1, n=n))
         with pytest.raises(ValueError, match=match):
             score_eval_fused(pos, node, edge, mask, packed, variant=1, impl="kernel")
