@@ -15,7 +15,8 @@ MoleculeNet), then the pretraining and both sampler CLIs on a PCQM4Mv2
 packed cache the script writes, then data parallelism (a 1-rank NCCL
 group, two gloo ranks sharing the card), then the utilities (the
 reference's ``.pth`` checkpoints imported, the NaN guard, the profiler
-trace, matrix-product FLOPs) -- and checks what comes out.
+trace, matrix-product FLOPs), then the fused 2D->3D score at other
+widths (the 2D->3D model 64 and 128 wide) -- and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -284,8 +285,20 @@ Phases (any failure exits non-zero):
      CLI's widths: the bf16 chain of 20 x 2 steps (K7 240), the f32 chain
      against K7's plain version (atol 2e-4, rtol 1e-3), the SDE loss and
      its backward in f32 and bf16 against K7's plain version (K7 4 / 4).
+ 22. K6 at every width the JAX kernel takes (``widths_path``): the fused
+     2D->3D chain at the sampler CLI's widths with the 2D->3D model 64 and
+     then 128 wide (``build_models``' ``hidden_dim``; B=64, n_max 32, bf16,
+     20 x 1 steps: K1 5, K3 1, K6 40 in the layered plan, positions finite,
+     padded rows 0, wall ms), K6 on each chain's operands against its plain
+     version (variants 1 and 2, bf16 and f32 at phase 4's bars, two
+     launches bit for bit) and 3 f32 steps against the channel-major chain;
+     K6 alone over ``benchmarks/k6_widths.py``'s grid (hidden 8-128, 1-8
+     heads, basis widths 32-256, (L, C) = (2, 2), (1, 3), (3, 2), n_max
+     8-1024), variants 1 and 2, f32 1e-5 and bf16 2e-2 of max |plain|, two
+     launches bit for bit, and at hidden 128, n_max 1024, B = 2 timed beside
+     its bound.
 The line before the last lists every kernel as JSON (the ones before it
-phase 21's, phase 19's, phase 18's, phase 17's, phase 15's and phase 14's figures);
+phase 22's, 21's, 19's, 18's, 17's, 15's and 14's figures);
 the last line is {"ok": true, "device": {...}}.
 """
 
@@ -660,9 +673,10 @@ def k6_phases(models, node_2d, batch, dev, label: str = "", reps=None):
     another n_max than the chain's; ``reps`` as report's."""
     results = {}
     b, n = batch.num_graphs, batch.n_max
+    h = next(iter(models.values())).hidden_dim
     for bf16 in (True, False):
-        print(f"K6 plan at n_max {n}, B={b}, {'bf16' if bf16 else 'f32'}: "
-              f"{score_plan(n, bf16, b=b)} (cluster = blocks per molecule; layered: "
+        print(f"K6 plan at n_max {n}, B={b}, hidden {h}, {'bf16' if bf16 else 'f32'}: "
+              f"{score_plan(n, bf16, b=b, h=h)} (cluster = blocks per molecule; layered: "
               "8 destinations a block, scratch bytes of device memory)", flush=True)
     for variant, model in models.items():
         with torch.no_grad():
@@ -680,7 +694,7 @@ def k6_phases(models, node_2d, batch, dev, label: str = "", reps=None):
         # variants 3 and 4 run as kernel variant 1 (their edge features
         # enter as variant 1's do)
         kv = model.kernel_variant
-        nbytes, ops = k6_cost(b, n, kv)
+        nbytes, ops = k6_cost(b, n, kv, model.hidden_dim)
         for bf16 in (False, True):
             name = f"score_eval_fused[v{variant}]" + ("[bf16]" if bf16 else "") + label
             # f32: sums in another order and a warp-shuffle softmax; bf16:
@@ -748,11 +762,12 @@ def k6_large_n_phases(dev):
     return results
 
 
-def fused_f32_steps(dev, extra_args, steps: int, label: str) -> int:
+def fused_f32_steps(dev, extra_args, steps: int, label: str, hidden: int = 32) -> int:
     """``steps`` f32 PC steps (1 corrector step each) of the fused chain
     against the channel-major chain on the same weights and draws (atol
-    2e-4, rtol 1e-3), the sampler CLI's models at ``extra_args``; returns
-    the fused run's K6 launches (2 per step), checked."""
+    2e-4, rtol 1e-3), the sampler CLI's models at ``extra_args`` (the 2D->3D
+    model ``hidden`` wide); returns the fused run's K6 launches (2 per
+    step), checked."""
     from moleculesde_tpu_torch.benchmarks.profile_sampler import PATH_ARGS
     from moleculesde_tpu_torch.examples import sample_2d_to_3d as cli
     from moleculesde_tpu_torch.sampling.pc import sample_positions_pc
@@ -760,7 +775,7 @@ def fused_f32_steps(dev, extra_args, steps: int, label: str) -> int:
     args32 = cli.get_parser().parse_args(PATH_ARGS + extra_args +
                                          ["--sampler_precision", "float32"])
     batch = cli.make_batch(cli.load_graphs(args32), args32, dev)
-    model_2d32, sde32 = cli.build_models(args32, dev)
+    model_2d32, sde32 = cli.build_models(args32, dev, hidden_dim=hidden)
     gen = torch.Generator(device=dev).manual_seed(11)
     shape = tuple(batch.positions.shape)
     draws = {"prior": sde32.sde_pos.prior_sampling(shape, gen, dev),
@@ -4852,6 +4867,127 @@ def last_shapes_path(dev):
     return results, launches, figures
 
 
+# phase 22: K6 at every width the JAX kernel takes -- the fused 2D->3D chain
+# with the 2D->3D model 64 and 128 wide, and K6 alone over k6_widths' grid
+
+WIDE_HIDDEN = (64, 128)
+
+
+def wide_fused_chain(dev, hidden: int):
+    """The fused 2D->3D chain (``sample_positions_pc(..., fused=True)``
+    through the sampler CLI's ``generate``) at the CLI's widths (GIN 5 x 300,
+    SDEModel2Dto3D_01, VE, bf16 score, B=64, n_max 32, 20 PC x 1 corrector
+    step) with the 2D->3D model ``hidden`` wide (``build_models``'
+    ``hidden_dim``; the CLI's is 32): K1 5, K3 1, K6 40 (the layered plan),
+    positions finite and padded rows exactly 0, wall ms of a second run; K6
+    against its plain version on the chain's operands, variants 1 and 2,
+    bf16 and f32 at phase 4's bars (k6_phases); 3 f32 steps against the
+    channel-major chain (fused_f32_steps).  Returns (kernel results, launch
+    counts, figures)."""
+    from moleculesde_tpu_torch.benchmarks.profile_sampler import PATH_ARGS
+    from moleculesde_tpu_torch.examples import sample_2d_to_3d as cli
+
+    args = cli.get_parser().parse_args(PATH_ARGS)
+    batch = cli.make_batch(cli.load_graphs(args), args, dev)
+    model_2d, sde_model = cli.build_models(args, dev, hidden_dim=hidden)
+    evals = args.num_diffusion_timesteps_2Dto3D_inference * (args.steps_pos + 1)
+    for bf16 in (True, False):
+        plan = score_plan(batch.n_max, bf16, b=batch.num_graphs, h=hidden)
+        check(plan["plan"] == "layered", f"K6 at hidden {hidden}: plan {plan}")
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    reset_counts()
+    pos = cli.generate(model_2d, sde_model, batch, gen, args, fused=True)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check(launches == expect(gin_messages=args.num_layer, pair_relu_project=1,
+                             score_eval_fused=evals),
+          f"hidden {hidden} fused chain counts {launches}")
+    check(tuple(pos.shape) == (batch.num_nodes, 3) and bool(torch.isfinite(pos).all()),
+          f"hidden {hidden} fused chain: positions")
+    check(bool((pos[~batch.node_mask] == 0).all()),
+          f"hidden {hidden} fused chain: padded rows are not exactly 0")
+    saved = [c.launches for c in _counters()]
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    t0 = time.perf_counter()
+    cli.generate(model_2d, sde_model, batch, gen, args, fused=True)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    for c, v in zip(_counters(), saved):
+        c.launches = v
+    print(f"fused chain with the 2D->3D model {hidden} wide (B={batch.num_graphs}, n_max "
+          f"{batch.n_max}, bf16, 20 x 1): launches {launches} (expected K1 {args.num_layer}, "
+          f"K3 1, K6 {evals}); wall_ms={wall:.2f} (second run)", flush=True)
+    args_v2 = cli.get_parser().parse_args(PATH_ARGS + ["--SDE_2Dto3D_model",
+                                                       "SDEModel2Dto3D_02"])
+    with torch.no_grad():
+        node_2d = model_2d(batch, use_running_average=True)
+    results = k6_phases({1: sde_model, 2: cli.build_models(args_v2, dev, hidden_dim=hidden)[1]},
+                        node_2d, batch, dev, f"[h{hidden}]")
+    del model_2d, sde_model, batch, pos, node_2d
+    k6 = fused_f32_steps(dev, [], 3, f"hidden {hidden}", hidden=hidden)
+    return results, launches, {"wall_ms": wall, "f32_3_steps_k6_launches": k6}
+
+
+def k6_width_grid(dev):
+    """K6 alone at every case of ``benchmarks/k6_widths.py``'s WIDTH_GRID
+    (hidden 8-128, 1-8 heads, basis widths 32-256, (L, C) = (2, 2), (1, 3),
+    (3, 2), n_max 8-1024), variants 1 and 2, bf16 and f32 at f32 1e-5 and
+    bf16 2e-2 of max |plain|, two launches bit for bit; the case at hidden
+    128, n_max 1024, B = 2 also timed beside its bound (report, LARGE_REPS)
+    and its matmul_flops held to the plain version's.  Returns {name:
+    result}."""
+    from moleculesde_tpu_torch.benchmarks.k6_widths import (
+        TOL, WIDTH_GRID, case_name, check_case, width_operands)
+
+    results, worst = {}, {False: 0.0, True: 0.0}
+    for case in WIDTH_GRID:
+        for variant in (1, 2):
+            for bf16 in (False, True):
+                name = case_name(case, variant, bf16)
+                saved = [c.launches for c in _counters()]
+                r = check_case(dev, case, variant, bf16)
+                for c, v in zip(_counters(), saved):
+                    c.launches = v
+                worst[bf16] = max(worst[bf16], r["max_rel_err"])
+                print(f"{name}: plan {r['plan']} max_rel_err={r['max_rel_err']:.3e} (tolerance "
+                      f"{TOL[bf16]:g} of max |plain|) same_bits={r['same_bits']}", flush=True)
+                check(r["plan"] == "layered" and r["ok"], f"{name}: {r}")
+    h, heads, cd, layers, convs, n, b = WIDTH_GRID[-1]
+    ops = width_operands(dev, b, n, h, cd, layers, convs, 1, seed=h + n + 1)
+    nbytes, flops = k6_cost(b, n, 1, h, cd, layers, convs)
+    for bf16 in (True, False):
+        name = "score_eval_fused[v1]" + ("[bf16]" if bf16 else "") + f"[h{h}][n{n}]"
+        kw = dict(bf16=bf16, num_layers=layers, num_convs=convs, n_head=heads)
+        with torch.no_grad():
+            run_k = lambda kw=kw: score_eval_fused(*ops, impl="kernel", **kw)  # noqa: E731
+            run_p = lambda kw=kw: score_eval_fused_plain(*ops, coff_dim=cd, **kw)  # noqa: E731
+            err, rel = compare("K6 " + name, run_k, run_p, TOL[bf16], floor=0.0)
+            results[name] = report("K6 " + name, err, TOL[bf16], run_k, run_p, nbytes, flops,
+                                   PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS, floor=0.0,
+                                   reps=LARGE_REPS)
+            results[name]["max_rel_err"] = rel
+    results["grid"] = {"cases": len(WIDTH_GRID) * 4, "worst_rel_err_f32": worst[False],
+                       "worst_rel_err_bf16": worst[True]}
+    return results
+
+
+def widths_path(dev):
+    """Phase 22: the fused chain with the 2D->3D model 64 and 128 wide
+    (wide_fused_chain) and K6 alone over the width grid (k6_width_grid).
+    Returns (kernel results, {run: launch counts}, figures)."""
+    t0 = time.perf_counter()
+    results, launches, figures = {}, {}, {}
+    for hidden in WIDE_HIDDEN:
+        res, counts, figs = wide_fused_chain(dev, hidden)
+        results.update(res)
+        launches[f"sample_2d_to_3d_fused_hidden_{hidden}"] = counts
+        figures[f"fused_chain_hidden_{hidden}"] = figs
+    results.update(k6_width_grid(dev))
+    figures["seconds"] = time.perf_counter() - t0
+    print(f"phase 22: {figures['seconds']:.1f} s", flush=True)
+    return results, launches, figures
+
+
 def _hmma_per_function(build, source: str) -> dict:
     """{kernel function: HMMA instructions} of a built library's SASS
     (``cuobjdump -sass``, split at its ``Function :`` headers)."""
@@ -5043,6 +5179,8 @@ def main() -> int:
     done("every N the JAX kernels take (phase 20)")
     last_results, last_launches, last_figures = last_shapes_path(dev)
     done("the last shapes the JAX kernels take (phase 21)")
+    wide_results, wide_launches, wide_figures = widths_path(dev)
+    done("K6 at every width the JAX kernel takes (phase 22)")
     device_time_phase()
     done("device times")
     print(f"matmul_flops with the kernel equal to its plain version's, comparisons by kernel: "
@@ -5065,7 +5203,7 @@ def main() -> int:
             "pretrain_painn_2_steps": painn_launches,
             **large_n_launches, "pretrain_buckets_cli": bucket_launches, **finetune_launches,
             **surface_launches, **packed_launches, **dp_launches, **util_launches,
-            **large_plan_launches, **last_launches}
+            **large_plan_launches, **last_launches, **wide_launches}
     keys = ("max_abs_err", "ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms",
             "bound_by")
     k6_keys = keys + ("max_rel_err",)
@@ -5115,6 +5253,21 @@ def main() -> int:
                          "launches": fused_results["chain_n128_k6_launches"]},
                      "cluster_by_n_max": {n: score_plan(n, True)["cluster"]
                                           for n in (32, 64, 128)},
+                     # the layered plan at other widths (phase 22): the fused
+                     # chain with the 2D->3D model 64 and 128 wide, K6 alone at
+                     # hidden 128, n_max 1024, B = 2 and over the width grid
+                     **{f"hidden_{h}": {
+                         "chain_launches": wide_launches[f"sample_2d_to_3d_fused_hidden_{h}"][
+                             "score_eval_fused"],
+                         **wide_figures[f"fused_chain_hidden_{h}"],
+                         **{f"v{v}": {mode: {k: wide_results[
+                             f"score_eval_fused[v{v}]" + sfx + f"[h{h}]"][k] for k in k6_keys}
+                             for mode, sfx in (("f32", ""), ("bf16", "[bf16]"))}
+                            for v in (1, 2)}} for h in WIDE_HIDDEN},
+                     "hidden_128_n_max_1024_b_2": {mode: {k: wide_results[
+                         "score_eval_fused[v1]" + sfx + "[h128][n1024]"][k] for k in k6_keys}
+                         for mode, sfx in (("f32", ""), ("bf16", "[bf16]"))},
+                     "width_grid": wide_results["grid"],
                      # SDEModel2Dto3D_03 / _04's fused chains: kernel variant 1
                      # on their own conditioning
                      **{f"sde_v{v}": {mode: {k: surface_results[
@@ -5194,6 +5347,7 @@ def main() -> int:
             **res("[L1]"), "library_ms": None, "mode": "bf16", "operands": "edge layer 1",
             "f32": res("[L1][f32]"), "layer_0": {"bf16": res("[L0]"), "f32": res("[L0][f32]")},
             **extra})
+    print(json.dumps({"widths": wide_figures, "card": card}))
     print(json.dumps({"last_shapes": last_figures, "card": card}))
     print(json.dumps({"utilities": util_figures}))
     print(json.dumps({"data_parallel": dp_figures}))

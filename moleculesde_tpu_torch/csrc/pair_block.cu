@@ -15,7 +15,8 @@
 //    graph-major, so a graph's a and cc rows are read while they sit in L2.
 //    Persistent blocks, as many as are resident (the occupancy query), walk
 //    the units blockIdx.x, + gridDim.x, ...  A block has 16 TS threads; TS
-//    is 32, or 16 where 32 does not fit (fwd_ts).
+//    is 32, or 16 where 32 does not fit, or 8 where 16 does not (a wide W:
+//    f32 at C = 300, H = 128) (fwd_ts).
 //  * A block stages W once (bf16 mode rounded to bf16, [C'][H' + 8] halves;
 //    f32 [C'][H'] floats), then per unit only that unit's TS a rows and 16
 //    cc rows, f32, with cp.async, double buffered: the next unit's rows fly
@@ -844,7 +845,7 @@ int launch_bwd(const float* a, const float* cc, const float* w, const float* g, 
 
 // ---- forward (K3 and K4): see the header ----
 
-constexpr int kFwdTS = 32;     // source rows a unit where they fit (else 16; 32 ran faster)
+constexpr int kFwdTS = 32;     // source rows a unit where they fit (else 16, then 8; 32 ran faster)
 constexpr int kFwdRows = 2;    // bf16 mode: source rows a warp (4 ran slower)
 
 // Threads of a forward block: bf16 TS / kFwdRows warps; f32 a thread's 2 x
@@ -876,11 +877,13 @@ size_t fwd_smem(int C, int H, bool bf16, int TS) {
   return w + 2 * static_cast<size_t>(TS + kDTile) * fwd_stride(C) * sizeof(float);
 }
 
-// Source rows a unit: kFwdTS where its shared memory fits, else 16; 0 if
-// neither fits.
+// Source rows a unit: kFwdTS where its shared memory fits, else 16, else 8;
+// 0 if none fits.
 int fwd_ts(int C, int H, bool bf16) {
-  if (fwd_smem(C, H, bf16, kFwdTS) <= kSmemLimit) return kFwdTS;
-  return fwd_smem(C, H, bf16, 16) <= kSmemLimit ? 16 : 0;
+  const int candidates[3] = {kFwdTS, 16, 8};
+  for (const int ts : candidates)
+    if (fwd_smem(C, H, bf16, ts) <= kSmemLimit) return ts;
+  return 0;
 }
 
 __device__ __forceinline__ float4 lds4(const float* p) {
@@ -1202,11 +1205,18 @@ int launch_fwd(const float* a, const float* cc, const float* w, const float* bia
   const long long nout = static_cast<long long>(B) * N * N * H;
   const long long nin = static_cast<long long>(B) * N * C;
   if (ts == 0 || nout > INT_MAX || nin > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  if (bf16)
-    return ts == 32 ? launch_fwd_t<CM, true, 32>(a, cc, w, bias, out, B, N, C, H, sms, s, resident)
-                    : launch_fwd_t<CM, true, 16>(a, cc, w, bias, out, B, N, C, H, sms, s, resident);
-  return ts == 32 ? launch_fwd_t<CM, false, 32>(a, cc, w, bias, out, B, N, C, H, sms, s, resident)
-                  : launch_fwd_t<CM, false, 16>(a, cc, w, bias, out, B, N, C, H, sms, s, resident);
+  if (bf16) {
+    if (ts == 32)
+      return launch_fwd_t<CM, true, 32>(a, cc, w, bias, out, B, N, C, H, sms, s, resident);
+    if (ts == 16)
+      return launch_fwd_t<CM, true, 16>(a, cc, w, bias, out, B, N, C, H, sms, s, resident);
+    return launch_fwd_t<CM, true, 8>(a, cc, w, bias, out, B, N, C, H, sms, s, resident);
+  }
+  if (ts == 32)
+    return launch_fwd_t<CM, false, 32>(a, cc, w, bias, out, B, N, C, H, sms, s, resident);
+  if (ts == 16)
+    return launch_fwd_t<CM, false, 16>(a, cc, w, bias, out, B, N, C, H, sms, s, resident);
+  return launch_fwd_t<CM, false, 8>(a, cc, w, bias, out, B, N, C, H, sms, s, resident);
 }
 
 }  // namespace
@@ -1245,7 +1255,7 @@ extern "C" long long pair_relu_project_fwd_plan(int N, int C, int H, int bf16, i
                                         bf16, sms, nullptr, &resident);
   if (rc != 0) return -1000 - rc;
   out[0] = ts;
-  out[1] = ts == 32 ? kFwdThreads<32> : kFwdThreads<16>;
+  out[1] = 16 * ts;   // kFwdThreads<ts>
   out[2] = resident;
   return static_cast<long long>(fwd_smem(C, H, bf16 != 0, ts));
 }

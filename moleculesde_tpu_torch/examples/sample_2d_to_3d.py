@@ -176,18 +176,19 @@ def make_batch(mols: list, args, device) -> GraphBatch:
 
 
 def build_models(args, device, msg_impl: str = "auto", pair_impl: str = "auto",
-                 pair_cm_direct: bool = False):
+                 pair_cm_direct: bool = False, hidden_dim: int = 32):
     """(GNN2D, SDEModel2Dto3D) at the flags' widths, weights from
     ``--input_model_file`` or drawn from ``--seed``.  ``pair_cm_direct``
-    builds the 2D->3D model with the channel-major pair kernel (no CLI
-    flag, as in the JAX CLI)."""
+    builds the 2D->3D model with the channel-major pair kernel and
+    ``hidden_dim`` sets its hidden width (neither has a CLI flag, as in the
+    JAX CLI, whose model is 32 wide)."""
     t23, bmin, bmax, n_steps = SDE_PRESETS_2DTO3D[args.SDE_type_2Dto3D]
     gen = torch.Generator().manual_seed(args.seed)
     model_2d = GNN2D(num_layers=args.num_layer, emb_dim=args.emb_dim, jk=args.JK,
                      drop_ratio=args.dropout_ratio, gnn_type=args.gnn_type,
                      msg_impl=msg_impl, device=device, generator=gen)
     sde_model = SDEModel2Dto3D(
-        emb_dim=args.emb_dim, hidden_dim=32,
+        emb_dim=args.emb_dim, hidden_dim=hidden_dim,
         variant=MODEL_2DTO3D_VARIANTS[args.SDE_2Dto3D_model], sde_type=t23,
         beta_min=bmin, beta_max=bmax, num_diffusion_timesteps=n_steps,
         use_extend_graph=args.use_extend_graph,

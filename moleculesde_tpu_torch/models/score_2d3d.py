@@ -227,6 +227,7 @@ class EquivariantScoreNetwork(nn.Module):
         super().__init__()
         self.num_layers = num_layers
         self.num_convs = num_convs
+        self.n_head = n_head
         self.dtype = dtype
         self.short_cut = short_cut
         self.concat_hidden = concat_hidden
@@ -537,7 +538,8 @@ class SDEModel2Dto3D(nn.Module):
                               packed: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The position-dependent half as one fused kernel launch (K6,
         ``ops/score_kernel.py``; JAX ``score_from_cond_fused``, l.809-834):
-        forward only, for samplers.  ``cond`` from
+        forward only, for samplers, at the network's widths (the kernel
+        takes any hidden width the heads divide).  ``cond`` from
         ``precompute_conditioning(layout="feature")``; ``packed`` from
         :meth:`packed_score_params` (packed here when None).  Variants 3
         and 4 run the kernel as variant 1 (:attr:`kernel_variant`).  A
@@ -554,7 +556,9 @@ class SDEModel2Dto3D(nn.Module):
         out = score_eval_fused(
             pos.reshape(b, n, 3), cond["node_attr"], cond["edge_attr_2d"], pair_mask,
             self.packed_score_params() if packed is None else packed,
-            variant=self.kernel_variant, bf16=self.score_dtype == "bfloat16")
+            variant=self.kernel_variant, bf16=self.score_dtype == "bfloat16",
+            num_layers=net.num_layers, num_convs=net.num_convs,
+            n_head=net.n_head)
         return out.reshape(b * n, 3)
 
     def score_from_cond_cm(self, cond: Dict[str, torch.Tensor], pos: torch.Tensor,

@@ -198,19 +198,20 @@ def fwd_plan(n: int, cdim: int, h: int, bf16: bool, b: int = 1) -> dict:
     block's shared memory holds W (bf16 mode in bf16 with rows padded by 8
     halves, f32 in f32; C padded to a multiple of 16, H to one of 32) and
     two stages of ``ts + 16`` rows of a and c, and does not depend on N.
-    ``ts`` is 32, or 16 where 32 does not fit ``SMEM_LIMIT``.  Raises,
+    ``ts`` is 32, or 16 where 32 does not fit ``SMEM_LIMIT``, or 8 where 16
+    does not (f32 at C = 300, H = 128).  Raises,
     naming the limit, where the output ``b * n * n * h`` or the input
     ``b * n * cdim`` passes the kernel's int32 index, or (at a C or H far
     past the models') no plan fits."""
     if b * n * n * h > _INT32_MAX or b * n * cdim > _INT32_MAX:
         raise ValueError(f"pair_relu_project forward kernel: B*N*N*H = {b * n * n * h} or "
                          f"B*N*C = {b * n * cdim} past the int32 index ({_INT32_MAX})")
-    for ts in (_FWD_TS, 16):
+    for ts in (_FWD_TS, 16, 8):
         smem = _fwd_smem(cdim, h, bf16, ts)
         if smem <= SMEM_LIMIT:
             return {"ts": ts, "threads": 16 * ts, "smem": smem}
     raise ValueError(f"pair_relu_project forward kernel: C={cdim}, H={h} need {smem} B of "
-                     f"shared memory even at 16 source rows a unit (> SMEM_LIMIT = {SMEM_LIMIT})")
+                     f"shared memory even at 8 source rows a unit (> SMEM_LIMIT = {SMEM_LIMIT})")
 
 
 def fwd_plan_kernel(n: int, cdim: int, h: int, bf16: bool, cm: bool = False,

@@ -5,20 +5,30 @@ evaluates the score ``2 * corrector_steps`` times per step, and as separate
 operators each evaluation is ~550 launches on the card (the chain is
 bound by launches, not by the device).  :func:`score_eval_fused` runs frame
 construction, the Gaussian-Fourier coefficient embeddings, the projection
-MLP, the four DenseGAT layers (LayerNorm, FFN) and both basis-mixing
-modules of ``SDEModel2Dto3D`` in one launch of
-``csrc/score_eval.cu``, which replaces the TPU kernel ``_kernel``
-(``pallas_call`` at ``ops/score_kernel.py:388``): a thread-block cluster per
-molecule, its blocks splitting the destinations, at any n_max up to 128
-(:func:`score_plan`; past 64 the masked edge features live in a scratch
-buffer in device memory, :func:`score_slab_bytes`).  Past n_max 128 the
-layered plan runs the evaluation as 13 launches with the node-wide state
-in device memory (:func:`score_scratch_bytes`), at any n_max.  The kernel has two
+MLP, the DenseGAT layers (LayerNorm, FFN) and the basis-mixing modules of
+``SDEModel2Dto3D`` in ``csrc/score_eval.cu``, which replaces the TPU kernel
+``_kernel`` (``pallas_call`` at ``ops/score_kernel.py:388``).  At the
+sampler's widths (hidden 32, 8 heads, basis width 128) and n_max up to 128
+one launch does it all: a thread-block cluster per molecule, its blocks
+splitting the destinations (:func:`score_plan`; past 64 the masked edge
+features live in a scratch buffer in device memory,
+:func:`score_slab_bytes`).  Everywhere else (past n_max 128, at any other
+width the JAX kernel takes, or past 128 packed segments) the layered plan
+runs the evaluation as ``2 + 2 L C + 2 L`` launches with the node-wide
+state in device memory (:func:`score_scratch_bytes`).  The kernel has two
 variants: 2 gates the 2D edge features by the distance Fourier features, 1
 adds them as they are, which is also how model variants 3 and 4 use theirs
 (``SDEModel2Dto3D.kernel_variant``, as the JAX package passes them).  On a
 CPU tensor it takes :func:`score_eval_fused_plain`, the same function in
 PyTorch.
+
+Widths: the hidden width is node_attr's last axis; the basis width is
+learnt from the packed buffer's length (:func:`score_coff_dim`), as the JAX
+kernel reads it from its packed shapes.  Refused by name on both paths,
+because the JAX kernel does not compute its own model's function there:
+more than 8 heads (its head selector has 8 columns and drops the rest), a
+hidden width the heads do not divide, and a basis width past 64 that is not
+a multiple of 64 (its 64-channel chunks).
 
 The weights the kernel reads are packed once into one contiguous f32
 buffer (:func:`pack_score_params`) in the JAX package's order
@@ -45,12 +55,13 @@ from moleculesde_tpu_torch.models.score_2d3d import dense_frames
 from moleculesde_tpu_torch.ops.common import SQRT_GUARD, resolve_impl, round_bf16, stream
 from moleculesde_tpu_torch.utils.flops import report_flops
 
-# the widths csrc/score_eval.cu is compiled for
+# the widths csrc/score_eval.cu's cluster plan is compiled for
 KERNEL_N_MAX = 128        # the cluster plan's: four chunks of 32 sources per lane
 KERNEL_HIDDEN = 32
 KERNEL_HEADS = 8
 KERNEL_COFF_DIM = 128
-MAX_SEGMENTS = 128        # csrc/score_eval.cu: Offsets
+MAX_SEGMENTS = 128        # the cluster plan's Offsets table
+MAX_HEADS = 8             # the TPU kernel's head selector: [hidden, 8]
 _TWO_PI = 2.0 * math.pi
 _GAT_PARTS = (("lin_query", "wq", "bq"), ("lin_key", "wk", "bk"), ("lin_value", "wv", "bv"),
               ("lin_edge", "we", "be"), ("lin_skip", "wsk", "bsk"), ("Dense_0", "wf1", "bf1"),
@@ -309,40 +320,153 @@ def score_layout_bytes(n: int, dests: int, bf16: bool) -> int:
             + _align16(dests * 12))
 
 
-# csrc/score_eval.cu's layered plan: blocks of (molecule, 8 destinations),
-# a warp each; the weight buffer and each warp's q, FFN and hp[d] rows
+def score_coff_dim(numel: int, variant: int, h: int, num_layers: int = 2,
+                   num_convs: int = 2) -> int:
+    """The basis width of a packed buffer of ``numel`` floats at these
+    widths (its layout's length grows with the basis width by at least
+    ``2 h + 4`` floats a module a channel, so one width fits at most);
+    raises if none does."""
+    base = score_param_layout(variant, h, 0, num_layers, num_convs)[1]
+    if num_layers < 1:
+        if numel == base:
+            return 0
+    else:
+        est = (numel - base) // (num_layers * (2 * h + 4))
+        for cd in range(max(est - 2, 0), est + 3):
+            if score_param_layout(variant, h, cd, num_layers, num_convs)[1] == numel:
+                return cd
+    raise ValueError(f"score_eval_fused: packed weights have {numel} floats, which no basis "
+                     f"width gives at hidden {h}, variant {variant}, {num_layers} modules of "
+                     f"{num_convs} GAT layers")
+
+
+def check_widths(variant: int, h: int, n_head: int, coff_dim: int) -> None:
+    """Refuse, by name, what the JAX kernel cannot compute: a variant other
+    than 1 or 2, more than 8 heads (its [hidden, 8] head selector drops the
+    heads past 8), a hidden width the heads do not divide (it leaves the
+    rest of the channels out of every head), a basis width past 64 that is
+    not a multiple of 64 (its 64-channel chunks)."""
+    if variant not in (1, 2):
+        raise ValueError(f"score_eval_fused: variant {variant}; the kernel has variants 1 "
+                         "and 2 (model variants 3 and 4 run as 1)")
+    if not 1 <= n_head <= MAX_HEADS:
+        raise ValueError(f"score_eval_fused: {n_head} heads; the TPU kernel's head selector "
+                         f"has {MAX_HEADS} columns and drops the heads past {MAX_HEADS}")
+    if h % n_head:
+        raise ValueError(f"score_eval_fused: hidden {h} is not a multiple of {n_head} heads "
+                         "(the TPU kernel leaves the remaining channels out of every head)")
+    if coff_dim > 64 and coff_dim % 64:
+        raise ValueError(f"score_eval_fused: basis width {coff_dim}; the TPU kernel's "
+                         "64-channel chunks take a width of at most 64 or a multiple of 64")
+
+
+# csrc/score_eval.cu's layered plan: blocks of (molecule, 8 destinations), a
+# warp each; a pair pass stages its weights in shared memory where all of
+# them fit under _STAGE_CAP, else reads them from device memory
 LAYERED_DESTS = 8
 LAYERED_THREADS = 32 * LAYERED_DESTS
-LAYERED_SMEM = _WBUF_BYTES + LAYERED_DESTS * (2 * KERNEL_HIDDEN + KERNEL_COFF_DIM) * 4
+_STAGE_CAP = 100 * 1024
 _INT32_MAX = 2 ** 31 - 1
 
 
-def score_scratch_bytes(b: int, n: int, bf16: bool) -> int:
+def _round32(v: int) -> int:
+    return -(-v // 32) * 32
+
+
+def _staged_bytes(lengths) -> int:
+    """Bytes a pass stages (csrc/score_eval.cu::make_stage): all of its
+    weights' floats where they fit, else none."""
+    total = 4 * sum(lengths)
+    return total if total <= _STAGE_CAP else 0
+
+
+def layered_smem(h: int = 32, coff_dim: int = 128, variant: int = 1, num_layers: int = 2,
+                 num_convs: int = 2) -> int:
+    """Dynamic shared memory of the layered plan's largest pass block
+    (csrc/score_eval.cu::layered_smem): the front pass's Fourier rows,
+    coefficient MLP, projection and input MLP; a GAT layer's edge and FFN
+    kernels, biases and LayerNorms; a basis module's edge and output
+    kernels and biases, as :func:`_image_floats` pads them, where a pass's
+    weights fit in 100 KB.  29,440 B at the sampler's widths in variant 1."""
+    hp, cdp = _round32(h), _round32(coff_dim)
+    v2 = variant == 2
+    front = _staged_bytes([hp, 4 * h * hp, hp, (2 + 2 * hp) * hp, hp, hp * hp, hp]
+                          + ([hp, 2 * h * hp, hp] if v2 else []))
+    gat = _staged_bytes([hp * hp, hp] * 3 + [hp] * 4) if num_layers * num_convs else 0
+    basis = (_staged_bytes([hp * cdp, cdp, 4 * (hp if coff_dim == h else coff_dim), 4])
+             if num_layers else 0)
+    return max(front, gat, basis)
+
+
+def _node_row(h: int, coff_dim: int) -> int:
+    """Floats of a node row of the layered plan: q | k | v | skip, each
+    padded to 32 channels, or the basis node part."""
+    return max(4 * _round32(h), _round32(coff_dim))
+
+
+def _image_floats(variant: int, h: int, coff_dim: int, num_layers: int, num_convs: int) -> int:
+    """Floats of the layered plan's weight image (csrc/score_eval.cu::
+    image_rows, image_cols): every segment's rows padded to a multiple of 32
+    columns (the basis output's 3 to 4), each kernel of h rows to h padded
+    to 32 rows, the projection's two embedding blocks likewise."""
+    hp, total = _round32(h), 0
+    for name, shape, _ in score_param_layout(variant, h, coff_dim, num_layers, num_convs)[0]:
+        rows, cols = (shape[0] if len(shape) == 2 else 1), shape[-1]
+        if name == "proj1.kernel":
+            rows = 2 + 2 * hp
+        elif len(shape) == 2 and rows == h:
+            rows = hp
+        total += rows * (4 if cols == 3 else _round32(cols))
+    return total
+
+
+def score_scratch_bytes(b: int, n: int, bf16: bool, h: int = 32, coff_dim: int = 128,
+                        num_layers: int = 2, num_convs: int = 2, variant: int = 1,
+                        n_head: int = 8) -> int:
     """Device scratch of the layered plan (csrc/score_eval.cu::
-    layered_scratch), each region 256-byte aligned: the slab (32 values
-    in the mode's type a pair, sources padded to chunks of 32), the mask
-    as [b][d][s], the valid sources per destination, the node buffer (q, k,
-    v and skip, or the basis node part: 128 floats a node) and two node
-    states.  About 128 MB of slab at n_max 1024, B = 2 in bf16."""
+    layered_scratch), each region 256-byte aligned: the slab (h padded to 32
+    values in the mode's type a pair, sources padded to chunks of 32), the
+    mask as [b][d][s], the valid sources per destination, the node rows
+    (:func:`_node_row`), two node states, the weight image, each warp's rows
+    (two [h][32] blocks and two rows of h, h padded to 32) and its logit
+    rows (a float per source chunk, head and lane).  About 128 MiB of slab
+    and 64 MiB of logit rows at n_max 1024, B = 2, hidden 32 in bf16."""
     def al(v: int) -> int:
         return -(-v // 256) * 256
+    hp = _round32(h)
     chunks = -(-n // 32)
-    return (al(b * n * chunks * 32 * KERNEL_HIDDEN * (2 if bf16 else 4)) + al(b * n * n * 4)
-            + al(b * n * 4) + al(b * n * KERNEL_COFF_DIM * 4)
-            + 2 * al(b * n * KERNEL_HIDDEN * 4))
+    warps = b * -(-n // LAYERED_DESTS) * LAYERED_DESTS
+    return (al(b * n * chunks * 32 * hp * (2 if bf16 else 4)) + al(b * n * n * 4)
+            + al(b * n * 4) + al(b * n * _node_row(h, coff_dim) * 4) + 2 * al(b * n * h * 4)
+            + al(_image_floats(variant, h, coff_dim, num_layers, num_convs) * 4)
+            + al(warps * (2 * hp * 32 + 2 * hp) * 4) + al(warps * chunks * n_head * 32 * 4))
 
 
-def score_plan(n: int, bf16: bool, plan: str = None, b: int = 1) -> Dict[str, int]:
-    """K6's launch plan at n_max ``n`` (``b`` molecules): the cluster plan up
-    to n_max 128, ``cluster`` blocks per molecule (2 up to n_max 32, 4 up to
-    64, 8 up to 128), ``dests`` destinations per block, ``threads`` per
-    block and ``smem`` bytes of shared memory per block; past it the
-    layered plan (blocks of 8 destinations, shared memory that does not
-    depend on n, ``scratch`` bytes of device memory, :func:`score_scratch_bytes`).
-    ``plan`` forces "cluster" (raises past n_max 128) or "layered" (raises
-    only where a launch's blocks pass the int32 grid index)."""
-    which = plan or ("cluster" if n <= KERNEL_N_MAX else "layered")
+def score_plan(n: int, bf16: bool, plan: str = None, b: int = 1, *, h: int = KERNEL_HIDDEN,
+               n_head: int = KERNEL_HEADS, coff_dim: int = KERNEL_COFF_DIM,
+               num_layers: int = 2, num_convs: int = 2, variant: int = 1) -> Dict[str, int]:
+    """K6's launch plan at n_max ``n`` (``b`` molecules) and these widths:
+    the cluster plan at hidden 32, 8 heads, basis width 128, n_max up to
+    128 and at most 128 packed segments, ``cluster`` blocks per molecule (2
+    up to n_max 32, 4 up to 64, 8 up to 128), ``dests`` destinations per
+    block, ``threads`` per block and ``smem`` bytes of shared memory per
+    block; everywhere else the layered plan (blocks of 8 destinations,
+    ``smem`` bytes of staged weights, :func:`layered_smem`, ``scratch`` bytes
+    of device memory,
+    :func:`score_scratch_bytes`).  ``plan`` forces "cluster" (raises where
+    it does not run) or "layered" (raises only where a launch's blocks pass
+    the int32 grid index)."""
+    segments = len(score_param_layout(variant, h, coff_dim, num_layers, num_convs)[0])
+    widths = (h, n_head, coff_dim) == (KERNEL_HIDDEN, KERNEL_HEADS, KERNEL_COFF_DIM)
+    fits = widths and segments <= MAX_SEGMENTS
+    which = plan or ("cluster" if fits and n <= KERNEL_N_MAX else "layered")
     if which == "cluster":
+        if not fits:
+            raise ValueError(
+                f"score_eval_fused kernel: the cluster plan takes hidden {KERNEL_HIDDEN}, "
+                f"{KERNEL_HEADS} heads, basis width {KERNEL_COFF_DIM} and at most "
+                f"{MAX_SEGMENTS} packed segments (got hidden {h}, {n_head} heads, basis width "
+                f"{coff_dim}, {segments} segments)")
         if not 1 <= n <= KERNEL_N_MAX:
             raise ValueError(f"score_eval_fused kernel: n_max {n} is past the cluster plan "
                              f"(n_max <= {KERNEL_N_MAX} in {'bf16' if bf16 else 'f32'} mode)")
@@ -354,26 +478,26 @@ def score_plan(n: int, bf16: bool, plan: str = None, b: int = 1) -> Dict[str, in
         raise ValueError(f"score_eval_fused kernel: unknown plan {which!r}")
     if n < 1:
         raise ValueError(f"score_eval_fused kernel: n_max {n}")
-    blocks = max(b * -(-n // LAYERED_DESTS), -(-b * n * KERNEL_COFF_DIM // 256))
+    blocks = max(b * -(-n // LAYERED_DESTS), -(-b * n * _node_row(h, coff_dim) // 256))
     if blocks > _INT32_MAX:
         raise ValueError(f"score_eval_fused kernel: B={b}, n_max {n} need {blocks} blocks in "
                          f"the layered plan, past the int32 grid index ({_INT32_MAX})")
+    if _image_floats(variant, h, coff_dim, num_layers, num_convs) > _INT32_MAX:
+        raise ValueError(f"score_eval_fused kernel: hidden {h}, basis width {coff_dim}: the "
+                         "layered plan's weight image is past the int32 index")
     return {"plan": "layered", "dests": LAYERED_DESTS, "threads": LAYERED_THREADS,
-            "smem": LAYERED_SMEM, "scratch": score_scratch_bytes(b, n, bf16)}
+            "smem": layered_smem(h, coff_dim, variant, num_layers, num_convs),
+            "scratch": score_scratch_bytes(b, n, bf16, h, coff_dim, num_layers, num_convs,
+                                           variant, n_head)}
 
 
 def _check_kernel_inputs(pos3, node_attr, edge_attr_2d, maskf, packed, variant,
-                         num_layers, num_convs, n_head, bf16, which):
+                         num_layers, num_convs, n_head, coff_dim, bf16, which):
     b, n, h = node_attr.shape
-    if h != KERNEL_HIDDEN or n_head != KERNEL_HEADS or variant not in (1, 2):
-        raise ValueError(f"score_eval_fused kernel: takes hidden {KERNEL_HIDDEN}, "
-                         f"{KERNEL_HEADS} heads, variant 1 or 2 "
-                         f"(got hidden {h}, {n_head} heads, variant {variant})")
-    plan = score_plan(n, bf16, which, b=max(b, 1))
-    layout, total = score_param_layout(variant, h, KERNEL_COFF_DIM, num_layers, num_convs)
-    if packed.numel() != total or len(layout) > MAX_SEGMENTS:
-        raise ValueError(f"score_eval_fused kernel: packed weights have {packed.numel()} "
-                         f"floats, the layout for coff_dim {KERNEL_COFF_DIM} needs {total}")
+    widths = dict(h=h, n_head=n_head, coff_dim=coff_dim, num_layers=num_layers,
+                  num_convs=num_convs, variant=variant)
+    plan = score_plan(n, bf16, which, b=max(b, 1), **widths)
+    layout, _ = score_param_layout(variant, h, coff_dim, num_layers, num_convs)
     shapes = {"pos3": (b, n, 3), "edge_attr_2d": (b, n, n, h), "pair_mask": (b, n, n)}
     for name, t in (("pos3", pos3), ("edge_attr_2d", edge_attr_2d), ("pair_mask", maskf)):
         if tuple(t.shape) != shapes[name]:
@@ -388,13 +512,13 @@ def _check_kernel_inputs(pos3, node_attr, edge_attr_2d, maskf, packed, variant,
 
 
 def _launch(pos3, node_attr, edge_attr_2d, pair_mask, packed, variant, bf16,
-            num_layers, num_convs, n_head, which):
+            num_layers, num_convs, n_head, coff_dim, which):
     f32 = [t.to(torch.float32).contiguous()
            for t in (pos3, node_attr, edge_attr_2d, pair_mask, packed)]
-    layout, plan = _check_kernel_inputs(*f32, variant, num_layers, num_convs, n_head, bf16,
-                                        which)
+    layout, plan = _check_kernel_inputs(*f32, variant, num_layers, num_convs, n_head, coff_dim,
+                                        bf16, which)
     pos3, node_attr, edge_attr_2d, maskf, packed = f32
-    b, n, _ = node_attr.shape
+    b, n, h = node_attr.shape
     out = torch.empty((b, n, 3), dtype=torch.float32, device=node_attr.device)
     if b == 0:
         return out
@@ -404,17 +528,17 @@ def _launch(pos3, node_attr, edge_attr_2d, pair_mask, packed, variant, bf16,
         fn = build.load("score_eval").score_eval_layered
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_void_p, ctypes.c_int]
-                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
         rc = fn(pos3.data_ptr(), node_attr.data_ptr(), edge_attr_2d.data_ptr(),
                 maskf.data_ptr(), packed.data_ptr(), offsets, len(layout), out.data_ptr(),
-                scratch.data_ptr(), b, n, variant, num_layers, num_convs, int(bf16),
-                plan["smem"], stream(node_attr))
+                scratch.data_ptr(), b, n, variant, num_layers, num_convs, h, n_head, coff_dim,
+                int(bf16), stream(node_attr))
         build.check_launch(rc, "score_eval_fused (layered plan)")
     else:
         _launch_cluster(pos3, node_attr, edge_attr_2d, maskf, packed, offsets, len(layout),
                         out, variant, bf16, num_layers, num_convs, plan)
     score_eval_fused.launches += 1
-    report_flops(flops(b, n, variant, KERNEL_HIDDEN, KERNEL_COFF_DIM, num_layers, num_convs))
+    report_flops(flops(b, n, variant, h, coff_dim, num_layers, num_convs))
     return out
 
 
@@ -440,21 +564,31 @@ def score_eval_fused(pos3, node_attr, edge_attr_2d, pair_mask, packed, *, varian
                      bf16: bool = False, impl: str = "auto", num_layers: int = 2,
                      num_convs: int = 2, n_head: int = 8, plan: str = None) -> torch.Tensor:
     """One fused score evaluation -> raw score [B, N, 3] f32 (the TPU
-    kernel's ``score_eval_fused``).  Forward only: raises if an input
-    requires grad, as the TPU kernel has no VJP.  ``impl``: "auto" (the
-    kernel for a CUDA tensor, the plain version for a CPU tensor), "kernel"
-    or "plain".  The kernel takes hidden 32, 8 heads and basis width 128
-    at any n_max (:func:`score_plan`: the cluster plan up to 128, the
-    layered plan past it; ``plan`` forces one) and raises on other
-    shapes."""
+    kernel's ``score_eval_fused``, with its signature).  Forward only:
+    raises if an input requires grad, as the TPU kernel has no VJP.
+    ``impl``: "auto" (the kernel for a CUDA tensor, the plain version for a
+    CPU tensor), "kernel" or "plain".  The hidden width is node_attr's, the
+    basis width the packed buffer's (:func:`score_coff_dim`); widths the
+    JAX kernel cannot compute raise on both paths (:func:`check_widths`).
+    The kernel takes every other width at any n_max (:func:`score_plan`:
+    the cluster plan at hidden 32, 8 heads, basis width 128 up to n_max
+    128, the layered plan everywhere else; ``plan`` forces one)."""
     args = (pos3, node_attr, edge_attr_2d, pair_mask, packed)
     if any(t.requires_grad for t in args):
         raise RuntimeError("score_eval_fused is forward only: no input may require grad")
+    h = node_attr.shape[-1]
+    if variant not in (1, 2):
+        check_widths(variant, h, n_head, 0)
+    coff_dim = score_coff_dim(packed.numel(), variant, h, num_layers, num_convs)
+    check_widths(variant, h, n_head, coff_dim)
     if resolve_impl(impl, node_attr, "score_eval_fused") == "plain":
+        score_plan(node_attr.shape[1], bf16, plan, b=max(node_attr.shape[0], 1), h=h,
+                   n_head=n_head, coff_dim=coff_dim, num_layers=num_layers,
+                   num_convs=num_convs, variant=variant)
         return score_eval_fused_plain(*args, variant=variant, bf16=bf16,
                                       num_layers=num_layers, num_convs=num_convs,
-                                      n_head=n_head)
-    return _launch(*args, variant, bf16, num_layers, num_convs, n_head, plan)
+                                      n_head=n_head, coff_dim=coff_dim)
+    return _launch(*args, variant, bf16, num_layers, num_convs, n_head, coff_dim, plan)
 
 
 score_eval_fused.launches = 0

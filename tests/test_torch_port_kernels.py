@@ -13,6 +13,8 @@ taken in another order lands on the other side of a bf16 rounding boundary.
 import pytest
 import torch
 
+from moleculesde_tpu_torch.benchmarks.k6_widths import TOL as K6_TOL
+from moleculesde_tpu_torch.benchmarks.k6_widths import WIDTH_GRID, width_operands
 from moleculesde_tpu_torch.kernels import build
 from moleculesde_tpu_torch.models.score_2d3d import SDEModel2Dto3D
 from moleculesde_tpu_torch.ops.attn_bank import attn_map_bank_kernel, attn_map_bank_kernel_bwd
@@ -291,11 +293,13 @@ PAIR_BWD_SHAPES = [(128, 32, 300, 32), (3, 9, 17, 20), (32, 128, 300, 32), (4, 8
                    (3, 13, 300, 32), (2, 37, 300, 32), (8, 64, 300, 32), (2, 13, 40, 5)]
 
 
-# the forward's: the backward's, the 2D->3D sampler's (B=64), N past the
-# first forward's cap of 160 (200, 256), H = 40 (two passes of 32 h) at
-# ragged C
+# the forward's: the backward's, the 2D->3D sampler's (B=64, also with the
+# 2D->3D model 64 and 128 wide: f32 at H = 128 runs the 8-source units), N
+# past the first forward's cap of 160 (200, 256), H = 40 (two passes of 32
+# h) at ragged C
 PAIR_FWD_SHAPES = PAIR_BWD_SHAPES + [(64, 32, 300, 32), (3, 9, 17, 40), (2, 200, 300, 32),
-                                     (2, 256, 300, 32), (2, 40, 64, 40)]
+                                     (2, 256, 300, 32), (2, 40, 64, 40), (64, 32, 300, 64),
+                                     (64, 32, 300, 128)]
 
 
 @pytest.mark.parametrize("bf16", [False, True])
@@ -402,11 +406,12 @@ def test_pair_relu_project_fwd_kernel_is_deterministic(cuda, shape, cm, bf16):
 
 def test_pair_relu_project_fwd_plan_matches_kernel(cuda):
     """The wrapper's forward plan (ops/pair_block.py::fwd_plan) is the CUDA
-    source's at every N, width and mode: 32-source units, 16 at C = 500,
-    none at C = 1000 or past the int32 index; its blocks are resident.  A
+    source's at every N, width and mode: 32-source units, 16 at C = 500, 8
+    at C = 300, H = 128 in f32, none at C = 1000 or past the int32 index;
+    its blocks are resident.  A
     launch past the int32 index raises, naming it."""
     for n in (1, 9, 32, 128, 160, 161, 256, 1024, 8191, 8192):
-        for c, h in ((300, 32), (17, 40), (40, 5), (500, 32), (1000, 32)):
+        for c, h in ((300, 32), (17, 40), (40, 5), (500, 32), (1000, 32), (300, 128)):
             for bf16 in (False, True):
                 for cm in (False, True):
                     try:
@@ -590,9 +595,12 @@ def test_score_eval_plan_matches_kernel(cuda):
 
 
 def test_score_eval_fused_kernel_refuses_shapes(cuda):
-    """Shapes the kernel is not built for raise, never fall back: the
-    cluster plan forced past n_max 128 in either mode (n_max 129 itself
-    runs in the layered plan), another hidden width."""
+    """Shapes the kernel does not take raise, never fall back: the cluster
+    plan forced past n_max 128 in either mode (n_max 129 itself runs in the
+    layered plan) or at another width.  Hidden 16 runs (the layered plan)
+    and matches the plain version at K6's bars; what the JAX kernel cannot
+    compute raises by name before dispatch: 16 heads, hidden 30 with 8
+    heads, basis width 100."""
     model = SDEModel2Dto3D(emb_dim=8, hidden_dim=32, variant=1, device=cuda)
     packed = model.packed_score_params()
     pos, node = torch.zeros(2, 129, 3, device=cuda), torch.zeros(2, 129, 32, device=cuda)
@@ -603,9 +611,48 @@ def test_score_eval_fused_kernel_refuses_shapes(cuda):
                              plan="cluster")
         out = score_eval_fused(pos, node, edge, mask, packed, variant=1, bf16=bf16)
         assert out.shape == (2, 129, 3) and bool(torch.isfinite(out).all())
-    node16 = torch.zeros(2, 8, 16, device=cuda)
-    with pytest.raises(ValueError, match="hidden 32"):
-        score_eval_fused(pos[:, :8], node16, edge[:, :8, :8, :16], mask[:, :8, :8], packed)
+    ops16 = width_operands(cuda, 2, 8, 16, 128, 2, 2, 1)
+    with pytest.raises(ValueError, match="the cluster plan takes hidden 32"):
+        score_eval_fused(*ops16, plan="cluster")
+    for bf16 in (False, True):
+        assert score_plan(8, bf16, b=2, h=16)["plan"] == "layered"
+        out = score_eval_fused(*ops16, bf16=bf16)
+        ref = score_eval_fused_plain(*ops16, bf16=bf16, coff_dim=128)
+        err = ((out - ref).abs().max() / ref.abs().max()).item()
+        assert err <= K6_TOL[bf16], (bf16, err)
+    launches = score_eval_fused.launches
+    for (h, heads, cd), what in (((64, 16, 128), "16 heads"), ((30, 8, 128), "hidden 30"),
+                                 ((32, 8, 100), "basis width 100")):
+        ops = width_operands(cuda, 2, 8, h, cd, 2, 2, 1)
+        with pytest.raises(ValueError, match=what):
+            score_eval_fused(*ops, n_head=heads)
+    assert score_eval_fused.launches == launches
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("variant", [1, 2])
+@pytest.mark.parametrize("case", WIDTH_GRID,
+                         ids=lambda c: "h{}-heads{}-cd{}-L{}xC{}-n{}-b{}".format(*c))
+def test_score_eval_widths_match_plain(cuda, case, variant, bf16):
+    """K6 at the widths the JAX kernel takes past the sampler's
+    (``benchmarks/k6_widths.py``'s grid: hidden 8-128, 1-8 heads, basis
+    widths 32-256, (L, C) = (2, 2), (1, 3), (3, 2), n_max 8-1024), all in
+    the layered plan, against the plain version: f32 1e-5 and bf16 2e-2 of
+    the largest plain value, one launch counted, two launches bit for
+    bit."""
+    h, heads, cd, layers, convs, n, b = case
+    ops = width_operands(cuda, b, n, h, cd, layers, convs, variant, seed=h + n + variant)
+    kw = dict(variant=variant, bf16=bf16, num_layers=layers, num_convs=convs, n_head=heads)
+    assert score_plan(n, bf16, b=b, h=h, n_head=heads, coff_dim=cd, num_layers=layers,
+                      num_convs=convs, variant=variant)["plan"] == "layered"
+    launches = score_eval_fused.launches
+    out = score_eval_fused(*ops, **kw)
+    assert score_eval_fused.launches == launches + 1
+    ref = score_eval_fused_plain(*ops, coff_dim=cd, **kw)
+    assert out.shape == (b, n, 3) and bool(torch.isfinite(out).all())
+    err = ((out - ref).abs().max() / ref.abs().max()).item()
+    assert err <= K6_TOL[bf16], err
+    assert torch.equal(out, score_eval_fused(*ops, **kw))
 
 
 # the layered plan past n_max 128: one source past the cluster plan (129,
@@ -663,21 +710,32 @@ def test_score_eval_layered_forced_inside_the_cluster_plan(cuda, shape, bf16):
 
 
 def test_score_eval_layered_plan_matches_kernel(cuda):
-    """The wrapper's layered plan is the kernel's own: shared memory and
-    device scratch."""
+    """The wrapper's layered plan is the kernel's own: the shared memory of
+    the staged weights and the device scratch at the sampler's and other
+    widths; the C entries refuse the widths the wrapper refuses."""
     import ctypes
 
     from moleculesde_tpu_torch.kernels import build
 
     lib = build.load("score_eval")
-    lib.score_eval_layered_smem_bytes.restype = ctypes.c_int
     lib.score_eval_layered_scratch_bytes.restype = ctypes.c_longlong
-    lib.score_eval_layered_scratch_bytes.argtypes = [ctypes.c_int] * 3
+    lib.score_eval_layered_scratch_bytes.argtypes = [ctypes.c_int] * 9
+    lib.score_eval_layered_smem_bytes.restype = ctypes.c_int
+    lib.score_eval_layered_smem_bytes.argtypes = [ctypes.c_int] * 6
     for b, n in ((1, 129), (2, 256), (2, 1024), (1, 2048), (64, 33)):
         for bf16 in (False, True):
-            p = score_plan(n, bf16, plan="layered", b=b)
-            assert p["smem"] == lib.score_eval_layered_smem_bytes()
-            assert p["scratch"] == lib.score_eval_layered_scratch_bytes(b, n, int(bf16))
+            for h, heads, cd, layers, convs, variant in ((32, 8, 128, 2, 2, 1),
+                                                         (64, 4, 256, 3, 2, 2),
+                                                         (24, 8, 192, 1, 3, 1)):
+                p = score_plan(n, bf16, plan="layered", b=b, h=h, n_head=heads, coff_dim=cd,
+                               num_layers=layers, num_convs=convs, variant=variant)
+                assert p["smem"] == lib.score_eval_layered_smem_bytes(
+                    variant, layers, convs, h, heads, cd)
+                assert p["scratch"] == lib.score_eval_layered_scratch_bytes(
+                    b, n, int(bf16), variant, layers, convs, h, heads, cd)
+    for h, heads, cd in ((64, 16, 128), (30, 8, 128), (32, 8, 100)):
+        assert lib.score_eval_layered_scratch_bytes(1, 8, 0, 1, 2, 2, h, heads, cd) == -1
+        assert lib.score_eval_layered_smem_bytes(1, 2, 2, h, heads, cd) == -1
 
 
 # the main path's shape, n_max 64 and 128 (no cap on N), and a small one

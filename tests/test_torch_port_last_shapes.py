@@ -34,7 +34,7 @@ from moleculesde_tpu_torch.ops.attn_bank import (
     row_stride, slice_width)
 from moleculesde_tpu_torch.ops.common import SMEM_LIMIT
 from moleculesde_tpu_torch.ops.score_kernel import (
-    KERNEL_N_MAX, LAYERED_SMEM, pack_score_params, score_eval_fused_plain, score_plan,
+    KERNEL_N_MAX, layered_smem, pack_score_params, score_eval_fused_plain, score_plan,
     score_scratch_bytes)
 
 from test_torch_port_attn_bank import _map_operands
@@ -74,23 +74,36 @@ def _al(v: int) -> int:
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
 @pytest.mark.parametrize("n", [129, 256, 1024, 2048])
 def test_score_plan_layered(n, bf16):
-    """Blocks of 8 destinations (a warp each), 44,032 B of shared memory at
-    every N (the weight buffer and each warp's q, FFN and hp[d] rows), and
-    device scratch: the slab (32 values a pair in the mode's type, sources
-    padded to 32), the mask as [b][d][s], the counts, the node buffer (128
-    floats a node) and two node states, each region 256-byte aligned."""
+    """Blocks of 8 destinations (a warp each), shared memory for the weights
+    each pass stages (the same at any N), and device
+    scratch: the slab (32 values a pair in the mode's type, sources padded
+    to 32), the mask as [b][d][s], the counts, the node rows (128 floats a
+    node), two node states, the weight image (rows padded to 32 columns,
+    basis_out's to 4) and each warp's rows (two [32][32] blocks and two rows
+    of 32 floats) and its logit rows (a float per source chunk, head and
+    lane), each region 256-byte aligned."""
     b = 2 if n < 2048 else 1
     p = score_plan(n, bf16, b=b)
-    assert p == {"plan": "layered", "dests": 8, "threads": 256, "smem": LAYERED_SMEM,
+    assert p == {"plan": "layered", "dests": 8, "threads": 256, "smem": layered_smem(),
                  "scratch": score_scratch_bytes(b, n, bf16)}
-    assert LAYERED_SMEM == 37888 + 8 * (32 + 32 + 128) * 4 == 44032 <= SMEM_LIMIT
+    # the front pass stages the most: its vectors and its three products
+    assert layered_smem() == 4 * (4 * 32 + 4 * 32 * 32 + 66 * 32 + 32 * 32) == 29440 <= SMEM_LIMIT
+    assert layered_smem(variant=2) == 37888
     chunks = -(-n // 32)
     slab = _al(b * n * chunks * 32 * 32 * (2 if bf16 else 4))
+    front = 32 + 4 * 32 * 32 + 32 + 66 * 32 + 32 + 32 * 32 + 32     # variant 1
+    gat = 4 * (7 * (32 * 32 + 32) + 4 * 32)
+    basis = 2 * (2 * 32 * 128 + 128 + 128 * 4 + 4)
+    image = 4 * (front + gat + basis)
+    warps = b * -(-n // 8) * 8
     assert p["scratch"] == (slab + _al(4 * b * n * n) + _al(4 * b * n) + _al(4 * b * n * 128)
-                            + 2 * _al(4 * b * n * 32))
+                            + 2 * _al(4 * b * n * 32) + _al(image) + _al(warps * 4 * 2112)
+                            + _al(warps * chunks * 8 * 32 * 4))
     if n == 1024 and bf16:
-        # 128 MiB of slab, 8 MiB of mask, the counts, node buffer and two node states
-        assert p["scratch"] == 134217728 + 8388608 + 8192 + 1048576 + 2 * 262144 == 144187392
+        # 128 MiB of slab, 8 MiB of mask, the counts, node rows, two node
+        # states, 215 KiB of weights, 2048 warps' rows and logit rows
+        assert p["scratch"] == (134217728 + 8388608 + 8192 + 1048576 + 2 * 262144
+                                + 220672 + 17301504 + 67108864) == 228818432
 
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
@@ -102,7 +115,7 @@ def test_score_plan_cluster_up_to_128_and_forced_plans(bf16):
         p = score_plan(n, bf16)
         assert p["plan"] == "cluster" and p["smem"] <= SMEM_LIMIT
         assert score_plan(n, bf16, plan="cluster") == p
-    assert score_plan(32, bf16, plan="layered")["smem"] == LAYERED_SMEM
+    assert score_plan(32, bf16, plan="layered")["smem"] == layered_smem()
     for n in (129, 2048):
         with pytest.raises(ValueError, match=rf"n_max {n} is past the cluster plan "
                                              rf"\(n_max <= {KERNEL_N_MAX}"):
@@ -112,8 +125,9 @@ def test_score_plan_cluster_up_to_128_and_forced_plans(bf16):
 
 
 def test_score_plan_refuses_only_past_the_int32_grid():
-    """The layered plan's only refusal: a launch whose blocks pass the
-    int32 grid index (here the node passes' B N 128 / 256 blocks)."""
+    """The layered plan's only refusal at the sampler's widths: a launch
+    whose blocks pass the int32 grid index (here the node passes' B N 128 /
+    256 blocks)."""
     assert score_plan(2048, True, b=2 ** 20)["plan"] == "layered"
     with pytest.raises(ValueError, match=r"B=16777216, n_max 2048 need 17179869184 blocks in "
                                          r"the layered plan, past the int32 grid index "

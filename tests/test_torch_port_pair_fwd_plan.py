@@ -81,11 +81,11 @@ def test_fwd_plan_raises_only_past_the_int32_index(bf16):
             pair_ops.fwd_plan(n, 300, 32, bf16, b=b)
 
 
-@pytest.mark.parametrize("case", ["ragged_c", "wide_c", "too_wide_c"])
+@pytest.mark.parametrize("case", ["ragged_c", "wide_c", "wide_h", "too_wide_c"])
 def test_fwd_plan_shared_memory_by_width(case):
     """C pads to a multiple of 16 and a staged row to C' + 16 where C' is a
-    multiple of 32; where 32 sources do not fit, 16; past that the plan
-    raises, naming SMEM_LIMIT."""
+    multiple of 32; where 32 sources do not fit, 16; where 16 do not, 8;
+    past that the plan raises, naming SMEM_LIMIT."""
     if case == "ragged_c":   # C = 17 -> C' = 32, rows of 48 floats; H = 40 -> two passes
         plan = pair_ops.fwd_plan(9, 17, 40, True)
         assert plan == {"ts": 32, "threads": 512, "smem": 32 * 72 * 2 + 2 * 48 * 48 * 4}
@@ -94,6 +94,12 @@ def test_fwd_plan_shared_memory_by_width(case):
             plan = pair_ops.fwd_plan(64, 500, 32, bf16)
             assert plan["ts"] == 16 and plan["threads"] == 256
             assert plan["smem"] <= SMEM_LIMIT
+    elif case == "wide_h":   # the sampler's C = 300 with the 2D->3D model 128 wide
+        # f32: W is 304 x 128 floats (152 KB), so only 8 sources fit; bf16 32
+        assert pair_ops.fwd_plan(32, 300, 128, False) == {
+            "ts": 8, "threads": 128, "smem": 304 * 128 * 4 + 2 * 24 * 304 * 4}
+        assert pair_ops.fwd_plan(32, 300, 128, True)["ts"] == 32
+        assert pair_ops.fwd_plan(32, 300, 64, False)["ts"] == 32
     else:
         with pytest.raises(ValueError, match="SMEM_LIMIT"):
             pair_ops.fwd_plan(64, 1000, 32, True)

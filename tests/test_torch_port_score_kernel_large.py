@@ -21,7 +21,7 @@ from moleculesde_tpu.ops.score_kernel import pack_score_params as jax_pack
 from moleculesde_tpu.ops.score_kernel import score_eval_fused as jax_score_eval_fused
 from moleculesde_tpu_torch.ops.common import SMEM_LIMIT
 from moleculesde_tpu_torch.ops.score_kernel import (
-    KERNEL_N_MAX, LAYERED_SMEM, pack_score_params, score_eval_fused, score_eval_fused_plain,
+    KERNEL_N_MAX, layered_smem, pack_score_params, score_eval_fused, score_eval_fused_plain,
     score_layout_bytes, score_plan, score_scratch_bytes, score_slab_bytes)
 
 from test_torch_port_score_kernel import _models, _operands
@@ -141,7 +141,7 @@ def test_score_plan_refuses_past_128(n, bf16):
     mode = "bf16" if bf16 else "f32"
     assert KERNEL_N_MAX == 128
     assert score_plan(n, bf16) == {"plan": "layered", "dests": 8, "threads": 256,
-                                   "smem": LAYERED_SMEM,
+                                   "smem": layered_smem(),
                                    "scratch": score_scratch_bytes(1, n, bf16)}
     with pytest.raises(ValueError, match=f"n_max {n} is past the cluster plan .*"
                                          f"n_max <= {KERNEL_N_MAX} in {mode} mode"):
