@@ -27,7 +27,9 @@ Phases (any failure exits non-zero):
      of K6 and of the pair block's forward and backward (K3 and K4) hold
      HMMA (their tensor-core products), counted per kernel function, and
      the pair block's f32 instantiations none; so does K8's backward (its
-     weight gradients on mma.sync in bf16 mode);
+     weight gradients on mma.sync in bf16 mode); K6's layered plan
+     (``csrc/score_layered.cu``) holds HMMA in the bf16 front, GAT and basis
+     passes and none in f32 mode, and its registers and spills are printed;
   2. kernel phases on the operands each path gives each kernel, in f32 and
      bf16 mode: K1 (GIN message block), K3 (pair block) and K4 (its
      channel-major form) forward on the sampler's operands; K1, K2 (CFConv),
@@ -5031,7 +5033,7 @@ def ptxas_functions(report: str) -> dict:
 def no_spills(reports: dict) -> None:
     """K6's four-chunk instantiations (n_max 65-128, both modes) and K7's
     block forward and backward (both input types each) hold everything in
-    registers: no spill.  (K7's sliced forward and K6's layered GAT pass,
+    registers: no spill.  (K7's sliced forward and K6's layered passes,
     which run only past the old plans, are printed with the rest.)"""
     for source, pick, count in (
             ("score_eval", lambda f: "score_eval_kernel" in f and "Li4E" in f, 2),
@@ -5042,21 +5044,27 @@ def no_spills(reports: dict) -> None:
         check(len(fns) == count,
               f"{source}: the instantiations were not found in the nvcc report")
         check(all(v[1] == 0 and v[2] == 0 for v in fns.values()), f"{source} spills: {fns}")
+    layered = {f: v for f, v in ptxas_functions(reports["score_layered"]).items()
+               if any(k in f for k in ("front", "gat", "basis", "node", "weights"))}
+    print(f"score_layered: registers / spill stores / spill loads {layered}", flush=True)
+    check(len(layered) == 10, f"score_layered: the passes were not found in the nvcc report "
+                              f"({sorted(layered)})")
 
 
 def tensor_core_note(build) -> None:
-    """The bf16 products of the CFConv kernels, of K6, of the pair block's
-    forward and backward (K3 and K4) and K8's backward weight gradients run
-    on the tensor cores: each source issues mma.sync through
+    """The bf16 products of the CFConv kernels, of K6 (both plans), of the
+    pair block's forward and backward (K3 and K4) and K8's backward weight
+    gradients run on the tensor cores: each source issues mma.sync through
     ``hopper.cuh``'s ``mma_bf16``, and the built libraries' SASS holds HMMA
     in the CFConv forward's and backward's functions, in every bf16
-    instantiation of K6 (``score_eval_kernel<true, S>``), of the pair
+    instantiation of K6 (``score_eval_kernel<true, S>`` and the layered
+    plan's front, GAT and basis passes), of the pair
     block's two directions (``pair_relu_project_{fwd,bwd}_kernel<CM, true,
     ...>``) and of K8's backward (``attn_qk_bank_bwd_kernel<T, true>``), and
     in none of their f32 instantiations."""
     check("mma.sync.aligned.m16n8k16" in (build.CSRC_DIR / "hopper.cuh").read_text(),
           "hopper.cuh issues no mma.sync")
-    for source in ("cfconv.cu", "score_eval.cu", "pair_block.cu"):
+    for source in ("cfconv.cu", "score_eval.cu", "score_layered.cu", "pair_block.cu"):
         check("mma_bf16(" in (build.CSRC_DIR / source).read_text(),
               f"{source} issues no mma.sync (hopper.cuh's mma_bf16)")
     per_function = _hmma_per_function(build, "cfconv")
@@ -5077,6 +5085,17 @@ def tensor_core_note(build) -> None:
     check(len(bf16_fns) == 3 and all(k > 0 for k in bf16_fns.values()),
           f"a bf16 instantiation of K6 holds no HMMA instruction ({bf16_fns})")
     check(sum(k6.values()) == sum(bf16_fns.values()), "K6's f32 mode issues HMMA")
+    layered = {}   # K6's layered plan: HMMA of each pass in each mode
+    for name, k in _hmma_per_function(build, "score_layered").items():
+        for kernel in ("layered_front_kernel", "layered_gat_kernel", "layered_basis_kernel"):
+            if kernel in name:
+                layered[(kernel, "bf16" if "ILb1E" in name else "f32")] = k
+    print(f"score_layered SASS: HMMA per pass and mode {layered}", flush=True)
+    check(len(layered) == 6, f"K6's layered passes not found in the SASS ({layered})")
+    check(all(k > 0 for (_, mode), k in layered.items() if mode == "bf16"),
+          "a bf16 pass of K6's layered plan holds no HMMA instruction")
+    check(sum(k for (_, mode), k in layered.items() if mode == "f32") == 0,
+          "an f32 pass of K6's layered plan issues HMMA")
     per_function = _hmma_per_function(build, "pair_block")
     for kernel, what in (("pair_relu_project_bwd_kernel", "backward"),
                          ("pair_relu_project_fwd_kernel", "forward")):
@@ -5137,7 +5156,7 @@ def main() -> int:
         regs = [ln.strip() for ln in report_.splitlines() if "registers" in ln or "spill" in ln]
         print(f"built {name}: {'; '.join(regs)}", flush=True)
     print(f"kernel build {time.perf_counter() - t0:.1f} s", flush=True)
-    for name in ("score_eval", "attn_bank"):   # built before this run: build again for the report
+    for name in ("score_eval", "score_layered", "attn_bank"):   # built before: again for the report
         if name not in reports:
             build._library_path(name).unlink()
             reports.update(build.build([name]))
@@ -5288,6 +5307,8 @@ def main() -> int:
                 extra["sampler_operands"] = {
                     mode: {k: sampler_results[name + sfx][k] for k in keys}
                     for mode, sfx in (("f32", ""), ("bf16", "[bf16]"))}
+        if name == "score_eval_fused":   # the layered plan's own source beside it
+            extra["layered_source"] = "moleculesde_tpu_torch/csrc/score_layered.cu"
         kernels.append({
             "name": name, "route": "cuda", "source": "moleculesde_tpu_torch/csrc/" + source,
             "replaces": "moleculesde_tpu/ops/" + replaces,

@@ -11,13 +11,21 @@ operands with :func:`width_operands`.
 
     python3 -m moleculesde_tpu_torch.benchmarks.k6_widths [--times]
 
-``--profile``: K6's launches by name and their device ms per evaluation
-(``torch.profiler``, 5 evaluations) at ``PROFILE_CASES`` (the sampler's
-widths at n_max 1024, B = 2, and the chain's shape with the model 64 and
-128 wide), in whichever checkout is first on the path, so a parent
-checkout runs the same lines (a width it refuses is skipped):
+``--profile``: K6's launches by name (the layered plan's passes: front,
+node, GAT, basis) and their device ms per evaluation (``torch.profiler``,
+5 evaluations), and the evaluation's device ms by CUDA-graph replay, at
+``PROFILE_CASES`` (the sampler's widths at n_max 1024, B = 2, the chain's
+shape with the model 64 and 128 wide, and the model 128 wide at n_max
+1024, B = 2), in whichever checkout is first on the path, so a parent
+checkout runs the same lines (a width it refuses is skipped); in turns,
+parent / this / this / parent:
 
-    env PYTHONPATH=out/parent python3 moleculesde_tpu_torch/benchmarks/k6_widths.py --profile
+    for p in out/parent . . out/parent; do env PYTHONPATH=$p \\
+        python3 moleculesde_tpu_torch/benchmarks/k6_widths.py --profile; done
+
+``--phases``: the GAT pass's phases (logits, the softmax's merge, message,
+LayerNorm / FFN) at ``PROFILE_CASES`` from a ``-DPHASE_PROFILE`` build of
+``csrc/score_layered.cu`` (this checkout's only).
 
 Bars: f32 1e-5 and bf16 2e-2 of max |plain|, K6's bars; each line prints
 the reading, and the script exits 1 if any case fails.
@@ -50,7 +58,7 @@ WIDTH_GRID = (
 )
 TOL = {False: 1e-5, True: 2e-2}
 PROFILE_CASES = ((32, 8, 128, 2, 2, 1024, 2), (64, 8, 128, 2, 2, 32, 64),
-                 (128, 8, 128, 2, 2, 32, 64))
+                 (128, 8, 128, 2, 2, 32, 64), (128, 8, 128, 2, 2, 1024, 2))
 
 
 def width_operands(dev, b: int, n: int, h: int, coff_dim: int, num_layers: int,
@@ -125,6 +133,7 @@ def profile_case(dev, case, bf16: bool, evals: int = 5) -> None:
     """K6's launches at one case by kernel name: device ms per evaluation."""
     from torch.profiler import ProfilerActivity, profile
 
+    from moleculesde_tpu_torch.benchmarks.timing import device_ms
     from moleculesde_tpu_torch.ops.score_kernel import score_eval_fused
 
     h, heads, cd, layers, convs, n, b = case
@@ -145,10 +154,53 @@ def profile_case(dev, case, bf16: bool, evals: int = 5) -> None:
     rows = sorted((a for a in prof.key_averages() if a.self_device_time_total > 0),
                   key=lambda a: -a.self_device_time_total)
     total = sum(a.self_device_time_total for a in rows) / evals / 1e3
-    print(f"{name}: device_ms per evaluation {total:.4f}", flush=True)
+    with torch.no_grad():
+        graph_ms = device_ms(lambda: score_eval_fused(*ops, impl="kernel", **kw), reps=2)
+    print(f"{name}: device_ms per evaluation {total:.4f} (profiler), {graph_ms:.4f} (CUDA-graph "
+          f"replay)", flush=True)
     for a in rows:
         print(f"  {a.key[:60]}: {a.self_device_time_total / evals / 1e3:.4f} ms, "
               f"{a.count // evals} launches", flush=True)
+
+
+def gat_phases(dev, case, bf16: bool) -> None:
+    """The GAT pass's phases at one case (variant 1): the logits (e2 formed
+    and kept, the heads' sums, the online softmax), the softmax's merge
+    across the warp, the message and LayerNorm / FFN, by the
+    ``%globaltimer`` stamps of a ``-DPHASE_PROFILE`` build of
+    ``csrc/score_layered.cu`` (``timing.py``; the last GAT launch of an
+    evaluation)."""
+    import ctypes
+
+    from moleculesde_tpu_torch.benchmarks.timing import (
+        phase_library, phase_stamps, print_phase_stamps)
+    from moleculesde_tpu_torch.ops.common import stream
+    from moleculesde_tpu_torch.ops.score_kernel import score_param_layout, score_plan
+
+    h, heads, cd, layers, convs, n, b = case
+    lib = phase_library("score_layered")
+    fn = lib.score_eval_layered
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_void_p, ctypes.c_int]
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+    ops = [t.float().contiguous()
+           for t in width_operands(dev, b, n, h, cd, layers, convs, 1, seed=h + n + 1)]
+    layout, _ = score_param_layout(1, h, cd, layers, convs)
+    offsets = (ctypes.c_int * len(layout))(*(o for _, _, o in layout))
+    plan = score_plan(n, bf16, b=b, h=h, n_head=heads, coff_dim=cd, num_layers=layers,
+                      num_convs=convs)
+    scratch = torch.empty(plan["scratch"], dtype=torch.uint8, device=dev)
+    out = torch.empty(b, n, 3, device=dev)
+
+    def launch():
+        rc = fn(*(t.data_ptr() for t in ops), offsets, len(layout), out.data_ptr(),
+                scratch.data_ptr(), b, n, 1, layers, convs, h, heads, cd, int(bf16),
+                stream(ops[0]))
+        assert rc == 0, rc
+
+    print_phase_stamps(f"{case_name(case, 1, bf16)}: GAT pass",
+                       phase_stamps(lib, b * -(-n // 8), 8, launch),
+                       ["logits", "softmax merge", "message", "LayerNorm / FFN"])
 
 
 def main() -> int:
@@ -156,13 +208,15 @@ def main() -> int:
     parser.add_argument("--times", action="store_true", help="device times of each case")
     parser.add_argument("--profile", action="store_true",
                         help="launches by name at PROFILE_CASES, instead of the grid")
+    parser.add_argument("--phases", action="store_true",
+                        help="the GAT pass's phases at PROFILE_CASES, instead of the grid")
     args = parser.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    if args.profile:
+    if args.profile or args.phases:
         for case in PROFILE_CASES:
             for bf16 in (True, False):
-                profile_case(dev, case, bf16)
+                (gat_phases if args.phases else profile_case)(dev, case, bf16)
         return 0
     failed = 0
     for case in WIDTH_GRID:

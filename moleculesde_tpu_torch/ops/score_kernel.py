@@ -13,9 +13,11 @@ one launch does it all: a thread-block cluster per molecule, its blocks
 splitting the destinations (:func:`score_plan`; past 64 the masked edge
 features live in a scratch buffer in device memory,
 :func:`score_slab_bytes`).  Everywhere else (past n_max 128, at any other
-width the JAX kernel takes, or past 128 packed segments) the layered plan
-runs the evaluation as ``2 + 2 L C + 2 L`` launches with the node-wide
-state in device memory (:func:`score_scratch_bytes`).  The kernel has two
+width the JAX kernel takes, or past 128 packed segments) the layered plan,
+``csrc/score_layered.cu``, runs the evaluation as ``2 + 2 L C + 2 L``
+launches with the node-wide state in device memory
+(:func:`score_scratch_bytes`) and its per-pair products as warp tile
+products (``mma.sync`` in bf16 mode, register-blocked FMAs in f32 mode).  The kernel has two
 variants: 2 gates the 2D edge features by the distance Fourier features, 1
 adds them as they are, which is also how model variants 3 and 4 use theirs
 (``SDEModel2Dto3D.kernel_variant``, as the JAX package passes them).  On a
@@ -360,12 +362,16 @@ def check_widths(variant: int, h: int, n_head: int, coff_dim: int) -> None:
                          "64-channel chunks take a width of at most 64 or a multiple of 64")
 
 
-# csrc/score_eval.cu's layered plan: blocks of (molecule, 8 destinations), a
-# warp each; a pair pass stages its weights in shared memory where all of
-# them fit under _STAGE_CAP, else reads them from device memory
+# csrc/score_layered.cu, the layered plan: blocks of (molecule, 8
+# destinations), a warp each; a pass keeps its rows in shared memory where 8
+# warps' rows fit under a cap, else in the warps' rows of device scratch
 LAYERED_DESTS = 8
 LAYERED_THREADS = 32 * LAYERED_DESTS
-_STAGE_CAP = 100 * 1024
+_FRONT_CAP = 200 * 1024      # bytes of the front pass's rows on the chip
+_GAT_CAP = 100 * 1024        # bytes of the GAT pass's FFN rows on the chip
+_TILE_FLOATS = 32 * 36       # a warp's [32 columns][36] tile (conflict-free scatter)
+_BASIS_SMEM = 4 * LAYERED_DESTS * _TILE_FLOATS
+_BASIS_STAGE_CAP = 72 * 1024  # bytes of a basis module's per-pair weights staged
 _INT32_MAX = 2 ** 31 - 1
 
 
@@ -373,29 +379,59 @@ def _round32(v: int) -> int:
     return -(-v // 32) * 32
 
 
-def _staged_bytes(lengths) -> int:
-    """Bytes a pass stages (csrc/score_eval.cu::make_stage): all of its
-    weights' floats where they fit, else none."""
-    total = 4 * sum(lengths)
-    return total if total <= _STAGE_CAP else 0
+def _front_rows(h: int, bf16: bool) -> int:
+    """Bytes of a warp's front-pass rows (csrc/score_layered.cu::
+    front_rows_bytes): the two coefficient embeddings and the projection's
+    silu output, h padded to 32 channels x 32 pairs each, as bf16 fragments
+    or f32."""
+    return 3 * _round32(h) * (64 if bf16 else 128)
 
 
-def layered_smem(h: int = 32, coff_dim: int = 128, variant: int = 1, num_layers: int = 2,
+def _keep_floats(h: int, n_head: int, chunks: int) -> int:
+    """Floats of a GAT warp's kept rows in device scratch (csrc/
+    score_layered.cu::keep_floats): v[s] + e2 + b_e of every pair of its
+    destination ([chunk][h padded to 32][32], f32) and the logits
+    ([chunk][head][32])."""
+    return chunks * (_round32(h) * 32 + n_head * 32)
+
+
+def _front_on_chip(h: int, bf16: bool) -> bool:
+    return LAYERED_DESTS * _front_rows(h, bf16) <= _FRONT_CAP
+
+
+def _ffn_rows_on_chip(h: int) -> bool:
+    """Whether 8 GAT warps' FFN rows fit in shared memory beside their tiles
+    (csrc/score_layered.cu::ffn_rows_on_chip); else they go to device
+    scratch."""
+    return 4 * LAYERED_DESTS * _gat_warp(h, True) <= _GAT_CAP
+
+
+def _gat_warp(h: int, ffn_on_chip: bool) -> int:
+    """Floats of a GAT warp's shared memory (csrc/score_layered.cu::
+    gat_warp_floats): the [32][36] tile of the logits' terms, a chunk's
+    softmax weights ([8][32]) and, where they fit, the FFN's input, hidden
+    and output rows of h padded to 32."""
+    return _TILE_FLOATS + 8 * 32 + (3 * _round32(h) if ffn_on_chip else 0)
+
+
+def layered_smem(bf16: bool, h: int = 32, coff_dim: int = 128, num_layers: int = 2,
                  num_convs: int = 2) -> int:
-    """Dynamic shared memory of the layered plan's largest pass block
-    (csrc/score_eval.cu::layered_smem): the front pass's Fourier rows,
-    coefficient MLP, projection and input MLP; a GAT layer's edge and FFN
-    kernels, biases and LayerNorms; a basis module's edge and output
-    kernels and biases, as :func:`_image_floats` pads them, where a pass's
-    weights fit in 100 KB.  29,440 B at the sampler's widths in variant 1."""
-    hp, cdp = _round32(h), _round32(coff_dim)
-    v2 = variant == 2
-    front = _staged_bytes([hp, 4 * h * hp, hp, (2 + 2 * hp) * hp, hp, hp * hp, hp]
-                          + ([hp, 2 * h * hp, hp] if v2 else []))
-    gat = _staged_bytes([hp * hp, hp] * 3 + [hp] * 4) if num_layers * num_convs else 0
-    basis = (_staged_bytes([hp * cdp, cdp, 4 * (hp if coff_dim == h else coff_dim), 4])
-             if num_layers else 0)
-    return max(front, gat, basis)
+    """Dynamic shared memory of the layered plan's largest pass block at any
+    n_max (csrc/score_layered.cu::layered_smem): the front pass's rows of 8
+    warps where they fit in 200 KB (else none: they go to device scratch);
+    the GAT pass's [32][36] tile of the logits' terms, a chunk's softmax
+    weights and its FFN rows (three rows of h a warp) where they fit in 100
+    KB (its kept rows are in device scratch); the basis pass's [32][36] tile
+    a warp, with a module's basis_edge and basis_out weights where they fit
+    in 72 KB.  No width takes it past 200 KB."""
+    front = LAYERED_DESTS * _front_rows(h, bf16) if _front_on_chip(h, bf16) else 0
+    # the basis module's per-pair weights (basis_edge's tile, its bias,
+    # basis_out, its bias) staged beside the tiles where they fit in 72 KB
+    cdp = _round32(coff_dim)
+    weights = 4 * (_round32(h) * cdp // (2 if bf16 else 1) + cdp + 4 * cdp + 4)
+    basis = _BASIS_SMEM + (weights if weights <= _BASIS_STAGE_CAP else 0)
+    gat = 4 * LAYERED_DESTS * _gat_warp(h, _ffn_rows_on_chip(h))
+    return max(front, gat if num_layers * num_convs else 0, basis if num_layers else 0)
 
 
 def _node_row(h: int, coff_dim: int) -> int:
@@ -404,42 +440,60 @@ def _node_row(h: int, coff_dim: int) -> int:
     return max(4 * _round32(h), _round32(coff_dim))
 
 
-def _image_floats(variant: int, h: int, coff_dim: int, num_layers: int, num_convs: int) -> int:
-    """Floats of the layered plan's weight image (csrc/score_eval.cu::
-    image_rows, image_cols): every segment's rows padded to a multiple of 32
-    columns (the basis output's 3 to 4), each kernel of h rows to h padded
-    to 32 rows, the projection's two embedding blocks likewise."""
-    hp, total = _round32(h), 0
+def _image_floats(variant: int, h: int, coff_dim: int, num_layers: int, num_convs: int,
+                  bf16: bool = False) -> int:
+    """Floats of the layered plan's weight image (csrc/score_layered.cu::
+    seg_image_floats): vectors padded to 32 (basis_out's bias to 4); the
+    node passes' and the FFN's kernels as [h padded to 32][columns padded to
+    32]; each per-pair product's kernel (coff_mlp's four blocks of h rows,
+    proj1's two after its two angle rows of h padded to 32, proj2,
+    input_mlp's two, each GAT layer's lin_edge, each module's basis_edge) as
+    its blocks of h rows each padded to 32, by its columns padded to 32,
+    half as many floats in bf16 mode (two values a float); basis_out as 4
+    floats a channel of the basis width padded to 32."""
+    hp, cdp = _round32(h), _round32(coff_dim)
+    pair = {"coff_mlp.kernel": 4, "proj2.kernel": 1, "input_mlp.kernel": 2, "we": 1, "wbe": 1}
+    total = 0
     for name, shape, _ in score_param_layout(variant, h, coff_dim, num_layers, num_convs)[0]:
-        rows, cols = (shape[0] if len(shape) == 2 else 1), shape[-1]
+        part = name.rsplit(".", 1)[-1]
+        key = part if name.split(".")[0].startswith(("gat", "basis")) else name
+        cols = shape[-1]
         if name == "proj1.kernel":
-            rows = 2 + 2 * hp
-        elif len(shape) == 2 and rows == h:
-            rows = hp
-        total += rows * (4 if cols == 3 else _round32(cols))
+            total += 2 * hp + 2 * hp * hp // (2 if bf16 else 1)
+        elif key in pair:
+            total += pair[key] * hp * _round32(cols) // (2 if bf16 else 1)
+        elif part == "wo":
+            total += 4 * cdp
+        elif len(shape) == 2:
+            total += hp * _round32(cols)
+        else:
+            total += 4 if cols == 3 else _round32(cols)
     return total
 
 
 def score_scratch_bytes(b: int, n: int, bf16: bool, h: int = 32, coff_dim: int = 128,
                         num_layers: int = 2, num_convs: int = 2, variant: int = 1,
                         n_head: int = 8) -> int:
-    """Device scratch of the layered plan (csrc/score_eval.cu::
+    """Device scratch of the layered plan (csrc/score_layered.cu::
     layered_scratch), each region 256-byte aligned: the slab (h padded to 32
     values in the mode's type a pair, sources padded to chunks of 32), the
     mask as [b][d][s], the valid sources per destination, the node rows
-    (:func:`_node_row`), two node states, the weight image, each warp's rows
-    (two [h][32] blocks and two rows of h, h padded to 32) and its logit
-    rows (a float per source chunk, head and lane).  About 128 MiB of slab
-    and 64 MiB of logit rows at n_max 1024, B = 2, hidden 32 in bf16."""
+    (:func:`_node_row`), two node states, the weight image
+    (:func:`_image_floats`), each warp's GAT kept rows, and its front and
+    FFN rows where they are not on the chip.  About 128 MiB of slab and 320
+    MiB of kept rows at n_max 1024, B = 2, hidden 32 in bf16."""
     def al(v: int) -> int:
         return -(-v // 256) * 256
     hp = _round32(h)
     chunks = -(-n // 32)
     warps = b * -(-n // LAYERED_DESTS) * LAYERED_DESTS
+    rows = 0 if _front_on_chip(h, bf16) else al(warps * _front_rows(h, bf16))
+    keep = al(warps * _keep_floats(h, n_head, chunks) * 4)
+    ffn = 0 if _ffn_rows_on_chip(h) else al(warps * 3 * hp * 4)
     return (al(b * n * chunks * 32 * hp * (2 if bf16 else 4)) + al(b * n * n * 4)
             + al(b * n * 4) + al(b * n * _node_row(h, coff_dim) * 4) + 2 * al(b * n * h * 4)
-            + al(_image_floats(variant, h, coff_dim, num_layers, num_convs) * 4)
-            + al(warps * (2 * hp * 32 + 2 * hp) * 4) + al(warps * chunks * n_head * 32 * 4))
+            + al(_image_floats(variant, h, coff_dim, num_layers, num_convs, bf16) * 4)
+            + rows + keep + ffn)
 
 
 def score_plan(n: int, bf16: bool, plan: str = None, b: int = 1, *, h: int = KERNEL_HIDDEN,
@@ -450,9 +504,9 @@ def score_plan(n: int, bf16: bool, plan: str = None, b: int = 1, *, h: int = KER
     128 and at most 128 packed segments, ``cluster`` blocks per molecule (2
     up to n_max 32, 4 up to 64, 8 up to 128), ``dests`` destinations per
     block, ``threads`` per block and ``smem`` bytes of shared memory per
-    block; everywhere else the layered plan (blocks of 8 destinations,
-    ``smem`` bytes of staged weights, :func:`layered_smem`, ``scratch`` bytes
-    of device memory,
+    block; everywhere else the layered plan (``csrc/score_layered.cu``:
+    blocks of 8 destinations, ``smem`` bytes of its largest pass block's
+    rows, :func:`layered_smem`, ``scratch`` bytes of device memory,
     :func:`score_scratch_bytes`).  ``plan`` forces "cluster" (raises where
     it does not run) or "layered" (raises only where a launch's blocks pass
     the int32 grid index)."""
@@ -482,11 +536,11 @@ def score_plan(n: int, bf16: bool, plan: str = None, b: int = 1, *, h: int = KER
     if blocks > _INT32_MAX:
         raise ValueError(f"score_eval_fused kernel: B={b}, n_max {n} need {blocks} blocks in "
                          f"the layered plan, past the int32 grid index ({_INT32_MAX})")
-    if _image_floats(variant, h, coff_dim, num_layers, num_convs) > _INT32_MAX:
+    if _image_floats(variant, h, coff_dim, num_layers, num_convs, bf16) > _INT32_MAX:
         raise ValueError(f"score_eval_fused kernel: hidden {h}, basis width {coff_dim}: the "
                          "layered plan's weight image is past the int32 index")
     return {"plan": "layered", "dests": LAYERED_DESTS, "threads": LAYERED_THREADS,
-            "smem": layered_smem(h, coff_dim, variant, num_layers, num_convs),
+            "smem": layered_smem(bf16, h, coff_dim, num_layers, num_convs),
             "scratch": score_scratch_bytes(b, n, bf16, h, coff_dim, num_layers, num_convs,
                                            variant, n_head)}
 
@@ -525,7 +579,7 @@ def _launch(pos3, node_attr, edge_attr_2d, pair_mask, packed, variant, bf16,
     offsets = (ctypes.c_int * len(layout))(*(off for _, _, off in layout))
     if plan["plan"] == "layered":
         scratch = torch.empty(plan["scratch"], dtype=torch.uint8, device=node_attr.device)
-        fn = build.load("score_eval").score_eval_layered
+        fn = build.load("score_layered").score_eval_layered
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_void_p, ctypes.c_int]
                        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 9 + [ctypes.c_void_p])

@@ -207,7 +207,7 @@ def test_cfconv_refuses_gradients_for_positions():
 
 def test_every_kernel_source_is_built_by_name():
     assert build.kernel_names() == ["attn_bank", "attn_qk_bank", "cfconv", "gin_messages",
-                                    "pair_block", "score_eval"]
+                                    "pair_block", "score_eval", "score_layered"]
     for name in build.kernel_names():
         lib = build._library_path(name)
         assert lib.parent == build.BUILD_DIR and name in lib.name

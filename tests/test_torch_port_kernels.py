@@ -711,17 +711,17 @@ def test_score_eval_layered_forced_inside_the_cluster_plan(cuda, shape, bf16):
 
 def test_score_eval_layered_plan_matches_kernel(cuda):
     """The wrapper's layered plan is the kernel's own: the shared memory of
-    the staged weights and the device scratch at the sampler's and other
+    the passes' rows and the device scratch at the sampler's and other
     widths; the C entries refuse the widths the wrapper refuses."""
     import ctypes
 
     from moleculesde_tpu_torch.kernels import build
 
-    lib = build.load("score_eval")
+    lib = build.load("score_layered")
     lib.score_eval_layered_scratch_bytes.restype = ctypes.c_longlong
     lib.score_eval_layered_scratch_bytes.argtypes = [ctypes.c_int] * 9
     lib.score_eval_layered_smem_bytes.restype = ctypes.c_int
-    lib.score_eval_layered_smem_bytes.argtypes = [ctypes.c_int] * 6
+    lib.score_eval_layered_smem_bytes.argtypes = [ctypes.c_int] * 7
     for b, n in ((1, 129), (2, 256), (2, 1024), (1, 2048), (64, 33)):
         for bf16 in (False, True):
             for h, heads, cd, layers, convs, variant in ((32, 8, 128, 2, 2, 1),
@@ -730,12 +730,12 @@ def test_score_eval_layered_plan_matches_kernel(cuda):
                 p = score_plan(n, bf16, plan="layered", b=b, h=h, n_head=heads, coff_dim=cd,
                                num_layers=layers, num_convs=convs, variant=variant)
                 assert p["smem"] == lib.score_eval_layered_smem_bytes(
-                    variant, layers, convs, h, heads, cd)
+                    int(bf16), variant, layers, convs, h, heads, cd)
                 assert p["scratch"] == lib.score_eval_layered_scratch_bytes(
                     b, n, int(bf16), variant, layers, convs, h, heads, cd)
     for h, heads, cd in ((64, 16, 128), (30, 8, 128), (32, 8, 100)):
         assert lib.score_eval_layered_scratch_bytes(1, 8, 0, 1, 2, 2, h, heads, cd) == -1
-        assert lib.score_eval_layered_smem_bytes(1, 2, 2, h, heads, cd) == -1
+        assert lib.score_eval_layered_smem_bytes(0, 1, 2, 2, h, heads, cd) == -1
 
 
 # the main path's shape, n_max 64 and 128 (no cap on N), and a small one

@@ -9,7 +9,8 @@ grouped plan).
   largest value; bf16 held to JAX's own f32 result, no further from it than
   JAX's bf16 result is (1.5 x + 1e-3).
 - K6's plan (``score_plan``): the layered plan past 128 with shared memory
-  that does not change with N, its device scratch by formula, the cluster
+  that does not change with N (the passes' rows, no weights), its device
+  scratch by formula, the cluster
   plans unchanged up to 128, forcing "cluster" past 128 raising, and the
   int32 grid refusal naming its index.
 - K7's plain versions at A = 320 (ds = 40) and 512 (ds = 64), B = 1, C = 2,
@@ -74,36 +75,43 @@ def _al(v: int) -> int:
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
 @pytest.mark.parametrize("n", [129, 256, 1024, 2048])
 def test_score_plan_layered(n, bf16):
-    """Blocks of 8 destinations (a warp each), shared memory for the weights
-    each pass stages (the same at any N), and device
-    scratch: the slab (32 values a pair in the mode's type, sources padded
-    to 32), the mask as [b][d][s], the counts, the node rows (128 floats a
-    node), two node states, the weight image (rows padded to 32 columns,
-    basis_out's to 4) and each warp's rows (two [32][32] blocks and two rows
-    of 32 floats) and its logit rows (a float per source chunk, head and
-    lane), each region 256-byte aligned."""
+    """Blocks of 8 destinations (a warp each), shared memory for the rows
+    each pass keeps on the chip (the same at any N: the front
+    pass's three [32][32] rows a warp, as bf16 fragments or f32; the GAT
+    pass's tile of the logits' terms, softmax weights and FFN rows a warp,
+    its kept rows in device scratch; the basis pass's [32][36] tile a
+    warp), and device scratch: the slab (32 values a pair in the mode's
+    type, sources padded to 32), the mask as [b][d][s], the counts, the
+    node rows (128 floats a node), two node states, the weight image
+    (vectors padded to 32 columns, basis_out's to 4, the per-pair kernels
+    as bf16 fragment tiles or f32 tiles) and each warp's kept rows (v + e2
+    of every pair, 32 floats a channel, and a logit a source chunk, head
+    and lane), each region 256-byte aligned."""
     b = 2 if n < 2048 else 1
     p = score_plan(n, bf16, b=b)
-    assert p == {"plan": "layered", "dests": 8, "threads": 256, "smem": layered_smem(),
+    assert p == {"plan": "layered", "dests": 8, "threads": 256, "smem": layered_smem(bf16),
                  "scratch": score_scratch_bytes(b, n, bf16)}
-    # the front pass stages the most: its vectors and its three products
-    assert layered_smem() == 4 * (4 * 32 + 4 * 32 * 32 + 66 * 32 + 32 * 32) == 29440 <= SMEM_LIMIT
-    assert layered_smem(variant=2) == 37888
+    # the front pass's rows are the most: 8 warps x 3 x 32 channels x 32 pairs
+    assert layered_smem(bf16) == 8 * 3 * 32 * 32 * (2 if bf16 else 4) <= SMEM_LIMIT
+    assert layered_smem(bf16) == {True: 49152, False: 98304}[bf16]
+    assert score_plan(n, bf16, b=b, variant=2)["smem"] == layered_smem(bf16)
     chunks = -(-n // 32)
     slab = _al(b * n * chunks * 32 * 32 * (2 if bf16 else 4))
-    front = 32 + 4 * 32 * 32 + 32 + 66 * 32 + 32 + 32 * 32 + 32     # variant 1
-    gat = 4 * (7 * (32 * 32 + 32) + 4 * 32)
-    basis = 2 * (2 * 32 * 128 + 128 + 128 * 4 + 4)
-    image = 4 * (front + gat + basis)
+    pair = 2 if bf16 else 1          # per-pair kernels: two bf16 values a float
+    front = 32 + 4 * 32 * 32 // pair + 32 + 2 * 32 + 2 * 32 * 32 // pair + 32 + 32 * 32 // pair + 32
+    gat = 6 * 32 * 32 + 32 * 32 // pair + 7 * 32 + 4 * 32
+    basis = 32 * 128 + 32 * 128 // pair + 128 + 4 * 128 + 4
+    image = 4 * (front + 4 * gat + 2 * basis)
+    assert image == 4 * {True: 45384, False: 55112}[bf16]
     warps = b * -(-n // 8) * 8
     assert p["scratch"] == (slab + _al(4 * b * n * n) + _al(4 * b * n) + _al(4 * b * n * 128)
-                            + 2 * _al(4 * b * n * 32) + _al(image) + _al(warps * 4 * 2112)
-                            + _al(warps * chunks * 8 * 32 * 4))
+                            + 2 * _al(4 * b * n * 32) + _al(image)
+                            + _al(warps * chunks * (32 * 32 + 8 * 32) * 4))
     if n == 1024 and bf16:
         # 128 MiB of slab, 8 MiB of mask, the counts, node rows, two node
-        # states, 215 KiB of weights, 2048 warps' rows and logit rows
+        # states, 177 KiB of weights, 2048 warps' kept rows
         assert p["scratch"] == (134217728 + 8388608 + 8192 + 1048576 + 2 * 262144
-                                + 220672 + 17301504 + 67108864) == 228818432
+                                + 181760 + 335544320) == 479913472
 
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
@@ -115,7 +123,7 @@ def test_score_plan_cluster_up_to_128_and_forced_plans(bf16):
         p = score_plan(n, bf16)
         assert p["plan"] == "cluster" and p["smem"] <= SMEM_LIMIT
         assert score_plan(n, bf16, plan="cluster") == p
-    assert score_plan(32, bf16, plan="layered")["smem"] == layered_smem()
+    assert score_plan(32, bf16, plan="layered")["smem"] == layered_smem(bf16)
     for n in (129, 2048):
         with pytest.raises(ValueError, match=rf"n_max {n} is past the cluster plan "
                                              rf"\(n_max <= {KERNEL_N_MAX}"):

@@ -141,7 +141,7 @@ def test_score_plan_refuses_past_128(n, bf16):
     mode = "bf16" if bf16 else "f32"
     assert KERNEL_N_MAX == 128
     assert score_plan(n, bf16) == {"plan": "layered", "dests": 8, "threads": 256,
-                                   "smem": layered_smem(),
+                                   "smem": layered_smem(bf16),
                                    "scratch": score_scratch_bytes(1, n, bf16)}
     with pytest.raises(ValueError, match=f"n_max {n} is past the cluster plan .*"
                                          f"n_max <= {KERNEL_N_MAX} in {mode} mode"):

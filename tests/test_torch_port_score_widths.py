@@ -26,7 +26,8 @@ widths, and the widths it refuses by name.
   fused PC chain against the feature-layout chain on the same draws.
 - ``score_plan``: the cluster plan only at (32, 8, 128) and 128 segments
   or fewer, the layered plan at every other width; the layered plan's
-  device scratch at those widths.
+  shared memory and device scratch at those widths, counted from what its
+  passes hold.
 - Refusals before dispatch, on the CPU as on the card: more than 8 heads
   (the TPU kernel's head selector has 8 columns and drops the rest), a
   hidden width that the heads do not divide, a basis width past 64 that
@@ -129,8 +130,12 @@ def _operands(h: int, seed: int):
 
 
 # (hidden, basis width): both hidden widths and both basis widths, one below
-# and one past the sampler's 128 channels
-WIDTHS = [(16, 64), (16, 256), (64, 64), (64, 256)]
+# and one past the sampler's 128 channels; then the layered plan's tile
+# edges: hidden widths not a multiple of 16 (8, 24, 48), several slices
+# (128, 160: the front rows in device memory; 640: the GAT pass's FFN rows
+# too), basis widths 32, 48, 192
+WIDTHS = [(16, 64), (16, 256), (64, 64), (64, 256), (8, 32), (24, 192), (48, 48), (128, 128),
+          (160, 64), (640, 64)]
 PARITY_WIDTHS = [(16, 256), (64, 64)]
 
 
@@ -163,19 +168,81 @@ def test_score_eval_fused_matches_pallas_kernel_at_other_widths(h, coff_dim, var
     assert port <= 2 * jax_own + 1e-3, (port, jax_own, rel_err(out, ref))
 
 
+def _al(v: int) -> int:
+    return -(-v // 256) * 256
+
+
+def _r32(v: int) -> int:
+    return -(-v // 32) * 32
+
+
+def _layered_counts(n: int, bf16: bool, h: int, coff_dim: int, variant: int = 1):
+    """(shared memory, device scratch) of csrc/score_layered.cu's passes at
+    these widths, counted from what they hold, under the caps that
+    ``ops/score_kernel.py`` shares with the C entries: the front pass's
+    three rows of h (padded to 32) x 32 pairs a warp (bf16 fragments or
+    f32), 8 warps, on the chip up to its cap; the GAT pass's [32][36] tile
+    of the logits' terms, a chunk's softmax weights and (where 8 warps' fit
+    under its cap) three FFN rows a warp, its kept rows (v + e2 of every
+    pair at 32 floats a channel, a logit a chunk, head and lane) in device
+    memory; the basis pass's [32][36] tile a warp and, where they fit under
+    its cap, a module's basis_edge and basis_out weights; the slab, mask,
+    counts, node rows, node states, weight image, kept rows and whatever
+    rows are not on the chip in device memory."""
+    from moleculesde_tpu_torch.ops.score_kernel import (
+        _BASIS_STAGE_CAP, _FRONT_CAP, _GAT_CAP, _TILE_FLOATS)
+
+    hp, cdp = _r32(h), _r32(coff_dim)
+    chunks, warps = -(-n // 32), B * -(-n // 8) * 8
+    rows = 3 * hp * 32 * (2 if bf16 else 4)
+    keep = chunks * (hp * 32 + HEADS * 32)       # in device memory: 32 floats a channel
+    ffn_on = 8 * 4 * (_TILE_FLOATS + 8 * 32 + 3 * hp) <= _GAT_CAP
+    fixed = _TILE_FLOATS + 8 * 32 + (3 * hp if ffn_on else 0)   # terms' tile, weights, FFN rows
+    front_on = 8 * rows <= _FRONT_CAP
+    per_pair = 2 if bf16 else 1      # per-pair kernels: two bf16 values a float
+    staged = 4 * (hp * cdp // per_pair + cdp + 4 * cdp + 4)   # a module's pair weights
+    smem = max(8 * rows if front_on else 0, 8 * 4 * fixed,
+               8 * 4 * _TILE_FLOATS + (staged if staged <= _BASIS_STAGE_CAP else 0))
+    front = (hp + 4 * hp * hp // per_pair + hp + 2 * hp + 2 * hp * hp // per_pair + hp
+             + hp * hp // per_pair + hp)
+    if variant == 2:
+        front += hp + 2 * hp * hp // per_pair + hp
+    gat = 6 * hp * hp + hp * hp // per_pair + 11 * hp
+    basis = hp * cdp + hp * cdp // per_pair + cdp + 4 * cdp + 4
+    image = 4 * (front + LAYERS * CONVS * gat + LAYERS * basis)
+    node_row = max(4 * hp, cdp)
+    scratch = (_al(B * n * chunks * 32 * hp * (2 if bf16 else 4)) + _al(4 * B * n * n)
+               + _al(4 * B * n) + _al(4 * B * n * node_row) + 2 * _al(4 * B * n * h) + _al(image)
+               + (0 if front_on else _al(warps * rows)) + _al(warps * keep * 4)
+               + (0 if ffn_on else _al(warps * 3 * hp * 4)))
+    return smem, scratch
+
+
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
 @pytest.mark.parametrize("h,coff_dim", WIDTHS)
 def test_score_plan_at_other_widths(h, coff_dim, bf16):
     """The layered plan at every width but the cluster plan's own, at any
-    n_max; its scratch grows with the hidden and basis widths (the slab,
-    the node rows, each warp's rows)."""
+    n_max; its shared memory and scratch are what its passes hold
+    (:func:`_layered_counts`), the shared memory under the card's 227 KB and
+    never growing with N; its scratch grows with the hidden and basis widths
+    (the slab, the node rows, the image)."""
+    from moleculesde_tpu_torch.ops.common import SMEM_LIMIT
+    from moleculesde_tpu_torch.ops.score_kernel import layered_smem
+
     widths = dict(h=h, n_head=HEADS, coff_dim=coff_dim, num_layers=LAYERS, num_convs=CONVS)
-    for n in (1, 8, 32, 129):
-        p = score_plan(n, bf16, b=B, **widths)
-        assert p["plan"] == "layered" and p["dests"] == 8 and p["threads"] == 256
-        assert p["scratch"] == score_scratch_bytes(B, n, bf16, h=h, coff_dim=coff_dim,
-                                                   num_layers=LAYERS, num_convs=CONVS,
-                                                   n_head=HEADS)
+    last = None
+    for n in (1, 8, 32, 33, 64, 65, 129, 300, 1024):
+        for variant in (1, 2):
+            p = score_plan(n, bf16, b=B, variant=variant, **widths)
+            assert p["plan"] == "layered" and p["dests"] == 8 and p["threads"] == 256
+            assert p["scratch"] == score_scratch_bytes(B, n, bf16, h=h, coff_dim=coff_dim,
+                                                       num_layers=LAYERS, num_convs=CONVS,
+                                                       n_head=HEADS, variant=variant)
+            smem, scratch = _layered_counts(n, bf16, h, coff_dim, variant)
+            assert (p["smem"], p["scratch"]) == (smem, scratch), (n, variant)
+            assert p["smem"] == layered_smem(bf16, h, coff_dim, LAYERS, CONVS) <= SMEM_LIMIT
+        assert last is None or p["smem"] == last, (n, p["smem"], last)
+        last = p["smem"]
     with pytest.raises(ValueError, match=f"hidden {h}"):
         score_plan(32, bf16, plan="cluster", **widths)
     wider = score_scratch_bytes(B, 32, bf16, h=2 * h, coff_dim=coff_dim)
